@@ -1,0 +1,299 @@
+"""Host input pipeline (port of ``dalle_mtf_tpu/data/pipeline.py``, the
+tokens-mode path).
+
+Files -> TFRecords -> parsed samples -> shuffle buffer -> batches, on a
+background prefetch thread. The stream is the JAX pipeline's, record for
+record: the same cycle-length interleave over the (seeded, shuffled) file
+list, the same 5x-batch shuffle buffer driven by ``random.Random(seed + 1)``,
+the same drop-remainder batching, and the same deterministic resume
+(``skip_steps``: the shuffle decisions are replayed on record indices and
+the trained prefix is skipped without parsing).
+
+Not ported: image records (jpeg decode, the frozen-VAE image mode) and the
+native C++ reader and decode pool; records are read and parsed in Python.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import random
+import threading
+from collections import deque
+from typing import Any, Callable, Iterator, Mapping
+
+import numpy as np
+
+from dalle_mtf_tpu_torch.data.fs import list_files
+from dalle_mtf_tpu_torch.data.tfrecord import parse_example, read_tfrecord_file
+
+logger = logging.getLogger(__name__)
+
+_SKIP_END = object()  # "record stream ended inside the resume prefix"
+
+
+class _Pipeline:
+    """files -> records -> parse -> shuffle buffer -> batches."""
+
+    def __init__(
+        self,
+        files: list[str],
+        record_iter_fn: Callable[[str], Iterator[Any]],
+        parse_fn: Callable[[Any], dict],
+        batch_size: int,
+        shuffle: bool,
+        seed: int = 0,
+        prefetch: int = 4,
+        repeat: bool = True,
+        cycle_length: int = 4,
+        skip_samples: int = 0,
+    ):
+        if not files:
+            raise FileNotFoundError("input pipeline got an empty file list")
+        self.files = list(files)
+        self.record_iter_fn = record_iter_fn
+        self.parse_fn = parse_fn
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.prefetch = prefetch
+        self.repeat = repeat
+        # parallel_interleave(cycle_length=4) (reference input_fns.py:87-92):
+        # round-robin over N open files so a shuffle window sees several shards
+        self.cycle_length = max(1, cycle_length)
+        self.skip_samples = max(0, int(skip_samples))
+        if self.skip_samples and shuffle and not repeat:
+            # the resume replay assumes an unbounded stream; a finite shuffled
+            # stream ends in a drain phase that the replay cannot reproduce
+            raise ValueError("resume skip on a shuffled stream requires repeat=True")
+
+    def _interleaved(self, files: list[str]) -> Iterator[Any]:
+        """Round-robin one record at a time across cycle_length open files;
+        an exhausted file is replaced by the next unopened one."""
+        file_iter = iter(files)
+        active: deque = deque()
+
+        def refill() -> None:
+            for f in file_iter:
+                active.append(self.record_iter_fn(f))
+                return
+
+        while len(active) < self.cycle_length:
+            n = len(active)
+            refill()
+            if len(active) == n:
+                break
+        while active:
+            it = active[0]
+            try:
+                rec = next(it)
+            except StopIteration:
+                active.popleft()
+                refill()
+                continue
+            yield rec
+            active.rotate(-1)
+
+    def _records(self) -> Iterator[Any]:
+        rng = random.Random(self.seed)
+        files = list(self.files)
+        if self.shuffle:
+            rng.shuffle(files)  # reshuffle_each_iteration=False (input_fns.py:82)
+        while True:
+            if self.cycle_length > 1 and len(files) > 1:
+                yield from self._interleaved(files)
+            else:
+                for f in files:
+                    yield from self.record_iter_fn(f)
+            if not self.repeat:
+                return
+
+    def _samples(self, records: Iterator[Any] | None = None) -> Iterator[dict]:
+        for rec in self._records() if records is None else records:
+            sample = self.parse_fn(rec)
+            if sample is not None:
+                yield sample
+
+    def _resume_plan(self, n: int, buf_size: int, rng: random.Random) -> tuple[list[int], int]:
+        """Replay the shuffle arithmetic on record INDICES to find the state
+        after ``n`` yields: (buffer contents as record indices, in list
+        order; records consumed). ``rng`` advances to the post-prefix state."""
+        buf: list[int] = []
+        idx = 0
+        yielded = 0
+        while yielded < n:
+            buf.append(idx)
+            idx += 1
+            if len(buf) >= buf_size:
+                i = rng.randrange(len(buf))
+                buf[i], buf[-1] = buf[-1], buf[i]
+                buf.pop()
+                yielded += 1
+        return buf, idx
+
+    def _records_skipping(self, keep: set[int], consumed: int) -> Iterator[Any]:
+        """The record stream minus the already-yielded prefix (unparsed),
+        except the records still in the shuffle buffer (``keep``)."""
+        for i, rec in enumerate(self._records()):
+            if i >= consumed or i in keep:
+                yield rec
+
+    def _shuffled(self) -> Iterator[dict]:
+        """Shuffle-buffer sample stream; with skip_samples > 0 it continues
+        exactly where an uninterrupted stream would be after that many."""
+        if not self.shuffle:
+            records = self._records()
+            for _ in range(self.skip_samples):
+                if next(records, _SKIP_END) is _SKIP_END:
+                    return
+            yield from self._samples(records)
+            return
+        buf_size = self.batch_size * 5  # configure_for_performance (:26)
+        rng = random.Random(self.seed + 1)
+        buf: list = []
+        if self.skip_samples:
+            buf_idx, consumed = self._resume_plan(self.skip_samples, buf_size, rng)
+            logger.info(
+                "data resume: skipping %d samples (%d records read-through, "
+                "%d shuffle-buffer residents re-parsed)",
+                self.skip_samples, consumed, len(buf_idx),
+            )
+            samples = self._samples(self._records_skipping(set(buf_idx), consumed))
+            # the surviving samples arrive in record order; the buffer's
+            # list order is the swap-permuted one
+            arrived = {}
+            try:
+                for i in sorted(buf_idx):
+                    arrived[i] = next(samples)
+            except StopIteration:
+                return  # stream shorter than the resume point
+            buf = [arrived[i] for i in buf_idx]
+        else:
+            samples = self._samples()
+        for sample in samples:
+            buf.append(sample)
+            if len(buf) >= buf_size:
+                i = rng.randrange(len(buf))
+                buf[i], buf[-1] = buf[-1], buf[i]
+                yield buf.pop()
+        rng.shuffle(buf)
+        yield from buf
+
+    def _batches(self) -> Iterator[dict]:
+        batch: list = []
+        for sample in self._shuffled():
+            batch.append(sample)
+            if len(batch) == self.batch_size:
+                yield {k: np.stack([s[k] for s in batch]) for k in batch[0]}
+                batch = []
+        # drop_remainder=True (input_fns.py:27)
+
+    def __iter__(self) -> Iterator[dict]:
+        """Batches, prefetched on a background thread. Abandoning the
+        iterator stops the producer; producer exceptions reach the
+        consumer."""
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        stop = threading.Event()
+
+        def _put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.5)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for b in self._batches():
+                    if not _put(b):
+                        return
+                _put(sentinel)
+            except BaseException as e:  # surface in the consumer
+                _put(e)
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+
+def _resolve_shard(shard: tuple[int, int] | None) -> tuple[int, int]:
+    """(index, count) of this process: the torch.distributed rank and world
+    size when a process group is up, else (0, 1)."""
+    if shard is not None:
+        return shard
+    import torch.distributed as dist  # noqa: PLC0415
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _shard_files(files: list[str], shard: tuple[int, int]) -> list[str]:
+    index, count = shard
+    if count > 1:
+        sharded = files[index::count]
+        return sharded if sharded else files  # fewer files than processes
+    return files
+
+
+def _host_batch(global_batch: int, shard: tuple[int, int]) -> int:
+    """Per-process batch: each process feeds 1/count of the global batch."""
+    count = shard[1]
+    if global_batch % count != 0:
+        raise ValueError(f"global batch {global_batch} must divide by process count {count}")
+    return global_batch // count
+
+
+def dalle_input_fn(
+    params: Mapping[str, Any],
+    eval: bool = False,
+    shard: tuple[int, int] | None = None,
+    repeat: bool = True,
+    skip_steps: int = 0,
+) -> _Pipeline:
+    """Pre-tokenized DALLE batches (``dataset.tokens: true``): records carry
+    ``{tokens: int64 list, caption: int64 list}`` and batches are
+    ``{"tokens": i32[B, image_seq_len], "caption": i32[B, text_seq_len]}``
+    (captions padded-then-truncated with the padding id). ``skip_steps``:
+    resume point, that many already-trained batches skipped exactly."""
+    ds = params["dataset"]
+    if not ds.get("tokens"):
+        raise NotImplementedError(
+            "image-mode DALLE data (jpeg decode + the frozen VAE encoder) is "
+            "not ported yet; use a tokens dataset (dataset.tokens: true)"
+        )
+    path = ds["eval_path"] if eval else ds["train_path"]
+    shard = _resolve_shard(shard)
+    batch = _host_batch(params["eval_batch_size" if eval else "train_batch_size"], shard)
+    text_seq_len = params["text_seq_len"]
+    padding_id = params.get("padding_id")
+    if padding_id is None:
+        padding_id = 50257
+    files = _shard_files(list_files(path), shard)
+
+    def parse_tokens(record: bytes) -> dict:
+        ex = parse_example(record)
+        caption = (list(ex.get("caption", [])) + [padding_id] * text_seq_len)[:text_seq_len]
+        return {
+            "tokens": np.asarray(ex["tokens"], np.int32),
+            "caption": np.asarray(caption, np.int32),
+        }
+
+    return _Pipeline(
+        files, read_tfrecord_file, parse_tokens, batch,
+        shuffle=not eval, repeat=repeat,
+        skip_samples=skip_steps * batch,
+        cycle_length=ds.get("cycle_length") or 4,
+    )

@@ -54,6 +54,9 @@ def get_tokenizer(name: str = "gpt2"):
         local_only = os.environ.get("DALLE_TPU_TOKENIZER_DOWNLOAD") != "1"
         tok = GPT2TokenizerFast.from_pretrained(name, local_files_only=local_only)
         tok.add_special_tokens({"pad_token": PAD_TOKEN})
+        if len(tok) != GPT2_VOCAB + 1:
+            # a cached or stub tokenizer that is not GPT-2's id space
+            raise ValueError(f"tokenizer {name!r} has {len(tok)} ids, not {GPT2_VOCAB + 1}")
         tok.is_fallback = False
         return tok
     except Exception as e:

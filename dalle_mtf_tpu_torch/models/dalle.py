@@ -1,5 +1,5 @@
 """DALL-E decoder-only transformer over [text ; image] tokens: the serving
-half of ``dalle_mtf_tpu/models/dalle.py``, in PyTorch.
+and training halves of ``dalle_mtf_tpu/models/dalle.py``, in PyTorch.
 
 Parameters are a plain nested dict of tensors with the JAX tree's names and
 shapes (stacked on a leading [n_layers] axis: ``layers.wq [L,E,H,D]``,
@@ -9,6 +9,13 @@ happen only inside the ops.
 
 Unlike the JAX package, whose KV cache is a functional pytree updated with
 dynamic_update_slice, ``prefill``/``decode_step`` write the cache IN PLACE.
+
+Training (``hidden``/``forward``/``loss``) runs the packed attention
+(ops/attention_packed.py) through plain autograd. Remat: the JAX default
+for this model, ``dots_and_attn``, saves every matmul output and the
+attention kernel's out and lse and recomputes only elementwise ops; plain
+autograd saves a superset of that and computes the same values, so it runs
+without checkpointing. The other policies are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dalle_mtf_tpu_torch.ops.attention import causal_attention, decode_attention
+from dalle_mtf_tpu_torch.ops.attention_packed import causal_attention_packed
+from dalle_mtf_tpu_torch.ops.losses import softmax_cross_entropy_with_logits
 from dalle_mtf_tpu_torch.utils.precision import Policy, get_policy
 
 _ACTIVATIONS = {
@@ -31,11 +40,18 @@ _ACTIVATIONS = {
 }
 
 
+# remat policies the port honours under recompute_grad (see the module docstring)
+PORTED_REMAT_POLICIES = ("dots_and_attn",)
+
+
 @dataclasses.dataclass(frozen=True)
 class DalleConfig:
-    """The fields serving reads (``dalle_mtf_tpu.models.dalle.DalleConfig``);
-    the JAX config's training and layout fields are accepted by
-    ``from_params`` and ignored."""
+    """The fields serving and training read
+    (``dalle_mtf_tpu.models.dalle.DalleConfig``). Settings the port cannot
+    honour yet raise NotImplementedError, here (ring attention, remat
+    policies) or in ``from_params`` (keys that are not fields); mesh layouts
+    of one device and ``scan_unroll`` (no torch meaning) are accepted and
+    ignored."""
 
     n_embd: int
     text_vocab_size: int = 12800
@@ -50,15 +66,29 @@ class DalleConfig:
     scale_type: str = "scale_by_depth"
     activation: str = "relu"
     ln_dtype: str = "float32"  # | "activation"
+    recompute_grad: bool = False
+    remat_policy: str = "dots_saveable"
+    attn_packed: bool = True
+    embed_dropout: float = 0.0
+    attention_dropout: float = 0.0
+    residual_dropout: float = 0.0
+    eos_token_id: int | None = None
+
+    def __post_init__(self):
+        refused = []
+        if self.attention_type in ("ring", "local_ring"):
+            refused.append(f"attention_type={self.attention_type!r} (ring attention)")
+        if self.recompute_grad and self.remat_policy not in PORTED_REMAT_POLICIES:
+            refused.append(f"remat_policy={self.remat_policy!r} under recompute_grad")
+        if refused:
+            raise NotImplementedError(
+                "not ported to dalle_mtf_tpu_torch yet: " + "; ".join(refused))
 
     @classmethod
     def from_params(
         cls, params: Mapping[str, Any], image_seq_len: int
     ) -> "DalleConfig":
-        if (params.get("ln_impl") or "xla") != "xla":
-            raise NotImplementedError(
-                "ln_impl='pallas' (the fused LN kernel) is not ported yet"
-            )
+        _refuse_unported(params)
         return cls(
             n_embd=params["n_embd"],
             text_vocab_size=params["text_vocab_size"],
@@ -73,12 +103,23 @@ class DalleConfig:
             scale_type=params.get("scale_type") or "scale_by_depth",
             activation=params.get("activation") or "relu",
             ln_dtype=params.get("ln_dtype") or "float32",
+            recompute_grad=bool(params.get("recompute_grad")),
+            remat_policy=params.get("remat_policy") or "dots_saveable",
+            attn_packed=bool(params.get("attn_packed", True)),
+            embed_dropout=params.get("embed_dropout") or 0.0,
+            attention_dropout=params.get("attention_dropout") or 0.0,
+            residual_dropout=params.get("residual_dropout") or 0.0,
+            eos_token_id=params.get("eos_token_id"),
         )
 
     @property
     def total_tokens(self) -> int:
         # text + image vocab + 1 EOS (reference models.py:157-158)
         return self.text_vocab_size + self.image_vocab_size + 1
+
+    @property
+    def eos(self) -> int:
+        return self.total_tokens - 1 if self.eos_token_id is None else self.eos_token_id
 
     @property
     def total_seq_len(self) -> int:
@@ -92,6 +133,23 @@ class DalleConfig:
     @property
     def policy(self) -> Policy:
         return get_policy(self.bf_16)
+
+
+def _refuse_unported(params: Mapping[str, Any]) -> None:
+    """Raise on config keys outside ``DalleConfig``'s fields whose JAX
+    behaviour the port does not have (the fields check themselves)."""
+    refused = []
+    if (params.get("ln_impl") or "xla") != "xla":
+        refused.append("ln_impl='pallas' (the fused LN kernel)")
+    if params.get("fused_xent"):
+        refused.append("fused_xent (the chunked loss head)")
+    layout = params.get("layout") or ""
+    if any(part.partition(":")[0].strip() == "layers" for part in layout.split(",")):
+        refused.append("a 'layers:' layout rule (pipeline parallelism)")
+    if refused:
+        raise NotImplementedError(
+            "not ported to dalle_mtf_tpu_torch yet: " + "; ".join(refused)
+        )
 
 
 class DALLE(nn.Module):
@@ -238,11 +296,104 @@ class DALLE(nn.Module):
         return x @ w + b
 
     def _layers(self, params) -> list[dict]:
-        """Per-layer views of the stacked [L, ...] parameters."""
+        """Per-layer views of the stacked [L, ...] parameters. ``unbind``
+        makes all L views at once, so the backward stacks the L gradients
+        of a weight in one pass instead of adding L full-size zeros."""
+        names = list(params["layers"])
+        views = [params["layers"][n].unbind(0) for n in names]
         return [
-            {n: t[i] for n, t in params["layers"].items()}
+            {n: v[i] for n, v in zip(names, views)}
             for i in range(self.cfg.n_layers)
         ]
+
+    # -------------------------------------------------------------- training
+
+    def _dropout(self, gen, x, rate, train):
+        """Inverted dropout with a mask from ``gen`` (mtf dropout; the JAX
+        package draws it with jax.random, so the two masks differ)."""
+        if not train or rate <= 0.0:
+            return x
+        keep = 1.0 - rate
+        mask = torch.rand(x.shape, generator=_device_generator(gen, x.device),
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+    def _qkv_packed(self, p, a_in):
+        """[B, S, E] -> packed q, k, v [B, S, H*D]: the matmuls' natural
+        output layout; the kernels slice head columns by strides."""
+        e = a_in.shape[-1]
+        return tuple(a_in @ self._w(p, n).reshape(e, -1) for n in ("wq", "wk", "wv"))
+
+    def _attn_out_packed(self, p, a):
+        """Packed attention output [B, S, H*D] -> [B, S, E] + o_b."""
+        w = self._w(p, "wo")
+        return a @ w.reshape(-1, w.shape[-1]) + p["o_b"].to(self.cfg.policy.compute_dtype)
+
+    def _block(self, p, x, gen, train: bool):
+        """One pre-LN transformer block (reference models.py:326-335)."""
+        cfg = self.cfg
+        a_in = self._layer_norm(x, p["ln1_g"], p["ln1_b"])
+        drop = cfg.attention_dropout if train else 0.0
+        if cfg.attn_packed:
+            q, k, v = self._qkv_packed(p, a_in)
+            a = causal_attention_packed(q, k, v, cfg.n_heads, window=self._window,
+                                        dropout_rate=drop, generator=gen)
+            a = self._attn_out_packed(p, a)
+        else:
+            q, k, v = self._qkv(p, a_in)
+            seed = _draw_seed(gen) if drop > 0.0 else None
+            a = self._attn_out(p, causal_attention(
+                q, k, v, window=self._window, dropout_rate=drop, dropout_seed=seed))
+        return self._block_tail(p, x, a, gen, train)
+
+    def _block_tail(self, p, x, a, gen, train):
+        """Residual add + LN2 + MLP + residual dropouts."""
+        rate = self.cfg.residual_dropout
+        x = x + self._dropout(gen, a, rate, train)
+        m = self._mlp(p, self._layer_norm(x, p["ln2_g"], p["ln2_b"]))
+        return x + self._dropout(gen, m, rate, train)
+
+    def hidden(self, params, tokens, generator: torch.Generator | None = None,
+               train: bool = False):
+        """tokens [B, S] int -> final-LN hidden states [B, S, E] (compute
+        dtype). ``generator`` (CPU) feeds every dropout of the pass."""
+        cfg = self.cfg
+        dtype = cfg.policy.compute_dtype
+        s = tokens.shape[1]
+        x = params["wte"][tokens].to(dtype) + params["wpe"][:s].to(dtype)
+        x = self._dropout(generator, x, cfg.embed_dropout, train)
+        for p in self._layers(params):
+            x = self._block(p, x, generator, train)
+        return self._layer_norm(x, params["lnf_g"], params["lnf_b"])
+
+    def forward(self, params, tokens, generator=None, train: bool = False):
+        """tokens [B, S] -> logits [B, S, total_tokens] fp32: compute-dtype
+        operands, fp32 accumulation and output (bf16 values are exact in
+        fp32, so the fp32 product of the cast operands is that matmul)."""
+        x = self.hidden(params, tokens, generator, train)
+        w = params["w_out"].to(self.cfg.policy.compute_dtype)
+        return x.float() @ w.float() + params["b_out"]
+
+    def loss(self, params, tokens, generator=None, train: bool = True,
+             z_loss: float = 0.0):
+        """Next-token xent, labels = shift-left(tokens) + EOS (reference
+        models.py:397-416). Returns (mean loss fp32, per-position [B, S]).
+
+        The head runs in the compute dtype: bf16 logits, the bias cast to
+        bf16 before the add, as the JAX loss head (its custom backward is a
+        fusion; plain autograd gives the same dw and db)."""
+        dtype = self.cfg.policy.compute_dtype
+        x = self.hidden(params, tokens, generator, train)
+        logits = x @ params["w_out"].to(dtype) + params["b_out"].to(dtype)
+        loss_batch = softmax_cross_entropy_with_logits(
+            logits, self.shifted_labels(tokens), z_loss)
+        return loss_batch.mean(), loss_batch
+
+    def shifted_labels(self, tokens):
+        """Next-token targets: tokens shifted left with EOS appended."""
+        eos = torch.full((tokens.shape[0], 1), self.cfg.eos, dtype=tokens.dtype,
+                         device=tokens.device)
+        return torch.cat([tokens[:, 1:], eos], dim=1)
 
     # --------------------------------------------------------- KV-cache path
 
@@ -314,3 +465,14 @@ class DALLE(nn.Module):
             x = x + self._mlp(p, m_in)
         x = self._layer_norm(x[:, 0], params["lnf_g"], params["lnf_b"])
         return self._last_logits(head, x)
+
+
+def _draw_seed(gen: torch.Generator | None) -> int:
+    return int(torch.randint(0, 2**31 - 1, (), generator=gen))
+
+
+def _device_generator(gen: torch.Generator | None, device: torch.device):
+    """A generator on ``device`` seeded from ``gen`` (None: the default)."""
+    if device.type == "cpu" and gen is not None:
+        return gen
+    return torch.Generator(device=device).manual_seed(_draw_seed(gen))

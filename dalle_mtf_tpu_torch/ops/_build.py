@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The library
-goes into ``dalle_mtf_tpu_torch/_build/`` (git-ignored), named by the hash of
-the sources, so it is built at first use and again whenever a source changes.
-A missing ``nvcc`` is an error: there is no fallback.
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and linked into one shared library
+with a plain C interface, loaded with ``ctypes``. The library goes into
+``dalle_mtf_tpu_torch/_build/`` (git-ignored), named by the hash of the
+sources and headers, so it is built at first use and again whenever one of
+them changes. A missing ``nvcc`` is an error: there is no fallback.
 """
 
 from __future__ import annotations
@@ -22,8 +23,22 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U, _F = ctypes.c_uint, ctypes.c_float
+# argument types of each C entry point: every pointer and the stream are
+# c_void_p and the strides c_longlong, so no 64-bit value is cut to 32 bits
+_SIGNATURES = {
+    # q, k, v, o, lse; batch, heads, seq_len, head_dim; strides b, h, row;
+    # dtype, window, dropout, seed, keep_threshold, keep_scale; stream
+    "causal_attention_fwd": [_P] * 5 + [_I] * 4 + [_LL] * 3
+    + [_I, _I, _I, _U, _U, _F, _P],
+    # q, k, v, dout, lse, dsum, dq, dk, dv; then as the forward
+    "causal_attention_bwd": [_P] * 9 + [_I] * 4 + [_LL] * 3
+    + [_I, _I, _I, _U, _U, _F, _P],
+}
 
 
 def _sources() -> list[str]:
@@ -49,10 +64,11 @@ def _nvcc() -> str:
 def library_path() -> str:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256()
-    for src in _sources():
-        h.update(os.path.basename(src).encode())
-        with open(src, "rb") as f:
-            h.update(f.read())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode())
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"libdalle_kernels_{h.hexdigest()[:16]}.so")
 
@@ -63,26 +79,39 @@ def build() -> str:
     if os.path.isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(lib, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed. The C entry points'
-    argument types are declared here: every pointer and the stream are
-    ``c_void_p``, so 64-bit addresses are never cut to 32 bits."""
+    """The loaded kernel library, built first if needed, with each C entry
+    point's argument types declared."""
     lib = ctypes.CDLL(build())
-    fn = lib.causal_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

@@ -1,35 +1,89 @@
 """Causal attention (port of ``dalle_mtf_tpu/ops/attention.py``, the parts
-the serving path runs).
+the serving and training paths run).
 
-- ``attention_reference``: the plain PyTorch version, with the JAX
-  reference's semantics (additive -1e10 mask, fp32 scores and softmax).
-- ``causal_attention``: prefill attention. A CUDA tensor goes to the
-  hand-written kernel ``csrc/causal_attention_fwd.cu`` (the port of the TPU
-  kernel ``_wedge_fwd_kernel``); a CPU tensor goes to the plain version;
+- ``dropout_keep`` / ``dropout_keep_numpy``: the attention-weight dropout
+  mask, a counter hash of (query row, key col, seed), bit for bit the JAX
+  package's ``_dropout_keep``.
+- ``attention_reference``: the plain PyTorch version, with the TPU kernels'
+  semantics (masked scores replaced by -1e10, fp32 scores and softmax,
+  optional hash dropout).
+- ``causal_attention``: attention over [B, H, S, D]. A CUDA tensor goes to
+  the hand-written kernel ``csrc/causal_attention_fwd.cu`` (the port of the
+  TPU kernel ``_wedge_fwd_kernel``); a CPU tensor goes to the plain version;
   anything else raises.
 - ``decode_attention``: one query position against the KV cache. Plain
   torch, as the JAX package leaves it to XLA.
 
 The TPU's four attention families (wedge, whole-row, online-softmax loop,
 hybrid) existed because of its 16 MB VMEM; here one tiled kernel covers
-every length, so none of that dispatch is carried over.
+every length, so none of that dispatch is carried over. The packed
+[B, S, H*D] layout the training path uses is ``ops/attention_packed.py``,
+on the same kernel source.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = -1e10  # matches the reference's additive mask value (models.py:227)
 
 # Launches of each hand-written kernel, counted by its wrapper where (and
-# only where) the kernel is launched; chip_smoke.py reads and resets it to
-# show that the serving path went through the kernel.
-KERNEL_LAUNCHES = {"causal_attention_fwd": 0}
+# only where) the kernel is launched; chip_smoke.py reads and resets them to
+# show that a path went through the kernels. "causal_attention_fwd" is the
+# [B, H, S, D] forward (serving); the packed pair (training) is counted by
+# ops/attention_packed.py.
+KERNEL_LAUNCHES = {
+    "causal_attention_fwd": 0,
+    "causal_attention_packed_fwd": 0,
+    "causal_attention_packed_bwd": 0,
+}
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_HEAD_DIMS = (64, 128)
+_M32 = 0xFFFFFFFF
+
+
+def keep_threshold(rate: float) -> int:
+    """The 24-bit fixed-point keep threshold, as the JAX hash computes it."""
+    return int((1.0 - rate) * float(1 << 24))
+
+
+def dropout_keep_numpy(rows, cols, seed, rate: float) -> np.ndarray:
+    """``_dropout_keep`` in numpy: wrapping uint32 arithmetic on
+    (rows, cols, seed), broadcast; True where the weight is kept."""
+    x = (np.asarray(rows).astype(np.uint32) * np.uint32(2654435761)
+         + np.asarray(cols).astype(np.uint32) * np.uint32(97929647)
+         + np.asarray(seed).astype(np.uint32))
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(0x5BD1E995)
+    x = x ^ (x >> np.uint32(15))
+    x = x * np.uint32(0x27D4EB2F)
+    x = x ^ (x >> np.uint32(16))
+    return (x >> np.uint32(8)) < np.uint32(keep_threshold(rate))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32), without leaving int64:
+    the low and high 16 bits of x are multiplied separately."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + ((hi * (c & 0xFFFF)) << 16)) & _M32
+
+
+def dropout_keep(rows: torch.Tensor, cols: torch.Tensor, seed, rate: float) -> torch.Tensor:
+    """``_dropout_keep`` in torch (int64 arithmetic masked to 32 bits, which
+    every device supports): rows, cols and seed broadcast; returns bool."""
+    x = (_mul32(rows.long() & _M32, 2654435761)
+         + _mul32(cols.long() & _M32, 97929647)
+         + (torch.as_tensor(seed, device=rows.device).long() & _M32)) & _M32
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0x5BD1E995)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x27D4EB2F)
+    x = x ^ (x >> 16)
+    return (x >> 8) < keep_threshold(rate)
 
 
 def attention_reference(
@@ -39,34 +93,46 @@ def attention_reference(
     causal: bool = True,
     window: int | None = None,
     with_lse: bool = False,
+    dropout_rate: float = 0.0,
+    dropout_seed: int | None = None,
 ):
     """Plain attention. q, k, v: [B, H, S, D] -> [B, H, S, D] in q's dtype.
 
-    Semantics match mtf attention with the additive causal mask
-    (models.py:221-227): scores in fp32 scaled by D^-0.5, the mask adds
-    -1e10, fp32 softmax, weights cast to v's dtype before the fp32-accumulated
-    product with v. ``with_lse`` also returns the fp32 per-row log-sum-exp
-    [B*H, S] of the masked, scaled scores (what the kernel's lse holds).
-    The JAX reference's ``jax.random`` weight dropout is not ported: serving
-    never drops.
+    The TPU kernels' math in one shot: scores in fp32 scaled by D^-0.5,
+    masked scores replaced by NEG_INF (the mtf additive -1e10 mask,
+    models.py:221-227, gives the same weights), p = exp(s - rowmax),
+    l = sum(p), then (p_v cast to v's dtype) @ v accumulated in fp32 and
+    divided by max(l, 1e-30). With ``dropout_rate`` > 0, p_v is p where
+    ``dropout_keep(row, col, dropout_seed + b*H + h)`` keeps it, scaled by
+    1/(1 - rate), else 0; l is the undropped sum. ``with_lse`` also returns
+    the fp32 per-row log-sum-exp [B*H, S] (what the kernel's lse holds).
     """
-    s_q, d = q.shape[-2], q.shape[-1]
+    b, h, s_q, d = q.shape
     s_k = k.shape[-2]
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
         1.0 / math.sqrt(d)
     )
     i = torch.arange(s_q, device=q.device)[:, None] + (s_k - s_q)
     j = torch.arange(s_k, device=q.device)[None, :]
-    mask = torch.zeros((s_q, s_k), dtype=torch.float32, device=q.device)
+    mask = torch.zeros((s_q, s_k), dtype=torch.bool, device=q.device)
     if causal:
-        mask = torch.where(j > i, NEG_INF, mask)
+        mask = mask | (j > i)
     if window is not None:
-        mask = torch.where(i - j >= window, NEG_INF, mask)
-    scores = scores + mask
-    weights = torch.softmax(scores, dim=-1)
-    out = torch.matmul(weights.to(v.dtype).float(), v.float()).to(q.dtype)
+        mask = mask | (i - j >= window)
+    scores = scores.masked_fill(mask, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    p_v = p
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 needs a dropout_seed")
+        seeds = (int(dropout_seed) + torch.arange(b * h, device=q.device)).reshape(b, h, 1, 1)
+        keep = dropout_keep(i, j, seeds, dropout_rate)
+        p_v = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
+    out = (torch.matmul(p_v.to(v.dtype).float(), v.float()) / l_safe).to(q.dtype)
     if with_lse:
-        return out, torch.logsumexp(scores, dim=-1).reshape(-1, s_q)
+        return out, (m + torch.log(l_safe)).reshape(-1, s_q)
     return out
 
 
@@ -77,69 +143,97 @@ def causal_attention(
     window: int | None = None,
     dropout_rate: float = 0.0,
     with_lse: bool = False,
+    dropout_seed: int | None = None,
 ):
     """Causal (optionally local-window) attention, q, k, v [B, H, S, D].
 
     On CUDA tensors this launches ``causal_attention_fwd`` (one launch for
     all heads and rows) or raises; it never falls back. On CPU tensors it
     runs ``attention_reference``. ``with_lse`` also returns the fp32
-    log-sum-exp [B*H, S], which the backward kernel will read.
-
-    Attention-weight dropout runs inside the TPU kernel as a coordinate
-    hash; it is not on the serving path and is not ported yet, so
-    ``dropout_rate > 0`` raises.
+    log-sum-exp [B*H, S]. ``dropout_rate`` > 0 applies the hash dropout
+    keyed on ``dropout_seed``. The backward of this layout (the TPU's
+    ``_wedge_bwd_kernel``) is not ported, so on the card it refuses inputs
+    that require grad.
     """
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention-weight dropout is not ported to the CUDA kernel yet"
-        )
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 needs a dropout_seed")
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return attention_reference(q, k, v, True, window, with_lse)
+        return attention_reference(q, k, v, True, window, with_lse,
+                                   dropout_rate, dropout_seed)
     if q.device.type != "cuda":
         raise ValueError(f"causal_attention: unsupported device {q.device}")
-    return _causal_attention_cuda(q, k, v, window, with_lse)
-
-
-def _causal_attention_cuda(q, k, v, window, with_lse):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "the [B, H, S, D] attention backward kernel is not ported; "
+            "training runs the packed layout (attn_packed)"
+        )
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"q, k, v must share one [B, H, S, D] shape: {q.shape}, "
             f"{k.shape}, {v.shape}"
         )
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(
-            f"causal_attention_fwd takes float32 or bfloat16, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}"
-        )
-    b, h, s, d = q.shape
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"causal_attention_fwd takes D in {_KERNEL_HEAD_DIMS}, got {d}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must lie on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("causal_attention_fwd needs contiguous q, k, v")
+    b, h, s, d = q.shape
+    out, lse = launch_forward(q, k, v, b, h, s, d, q.stride()[:3], window,
+                              dropout_rate, dropout_seed, with_lse)
+    KERNEL_LAUNCHES["causal_attention_fwd"] += 1
+    return (out, lse) if with_lse else out
+
+
+def check_kernel_inputs(name: str, tensors, head_dim: int) -> None:
+    """The checks every kernel wrapper makes before a launch: one CUDA
+    device, one dtype the kernels take, one layout, unit stride on D."""
+    first = tensors[0]
+    if first.dtype not in KERNEL_DTYPES or any(t.dtype != first.dtype for t in tensors):
+        raise ValueError(
+            f"{name} takes float32 or bfloat16 alike, got {[t.dtype for t in tensors]}"
+        )
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} takes D in {KERNEL_HEAD_DIMS}, got {head_dim}")
+    if any(t.device != first.device for t in tensors):
+        raise ValueError(f"{name}: inputs must lie on one device")
+    if any(t.stride() != first.stride() or t.shape != first.shape for t in tensors):
+        raise ValueError(f"{name}: inputs must share one shape and layout")
+    if first.stride(-1) != 1:
+        raise ValueError(f"{name}: the head dimension must be contiguous")
+
+
+def dropout_args(rate: float, seed: int | None) -> tuple[int, int, int, float]:
+    """(enabled, seed as uint32, keep threshold, keep scale) for a kernel."""
+    if rate <= 0.0:
+        return 0, 0, 0, 1.0
+    return 1, int(seed) & _M32, keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def launch_forward(q, k, v, batch, heads, seq_len, head_dim, strides, window,
+                   dropout_rate, dropout_seed, with_lse):
+    """Launch ``causal_attention_fwd`` on q, k, v of one strided layout
+    (``strides`` = elements between batches, heads and rows). Returns
+    (out in q's layout, fp32 lse [batch*heads, seq_len] or None)."""
+    check_kernel_inputs("causal_attention_fwd", (q, k, v), head_dim)
     from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
 
     lib = library()
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
-        lse = (
-            torch.empty((b * h, s), dtype=torch.float32, device=q.device)
-            if with_lse else None
-        )
+        lse = (torch.empty((batch * heads, seq_len), dtype=torch.float32, device=q.device)
+               if with_lse else None)
+        if out.stride() != q.stride():
+            raise ValueError("causal_attention_fwd: q is not dense")
         err = lib.causal_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None,
-            b * h, s, d, _KERNEL_DTYPES[q.dtype],
+            batch, heads, seq_len, head_dim, *strides, KERNEL_DTYPES[q.dtype],
             -1 if window is None else int(window),
+            *dropout_args(dropout_rate, dropout_seed),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"causal_attention_fwd launch failed: cudaError {err}")
-    KERNEL_LAUNCHES["causal_attention_fwd"] += 1
-    return (out, lse) if with_lse else out
+    return out, lse
 
 
 def decode_attention(

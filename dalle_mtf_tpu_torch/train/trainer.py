@@ -1,0 +1,288 @@
+"""Training loop (port of ``dalle_mtf_tpu/train/trainer.py``, one device).
+
+The JAX trainer jit-compiles a sharded step and can run ``iterations``
+steps as one device loop. Here each step is dispatched eagerly: forward
+and backward by autograd, then the clip + AdamW update in place on the
+fp32 master parameters. Kept from the JAX loop:
+
+- microbatch gradient accumulation (``tokens_per_mb_per_replica``) with the
+  same minor-stride split (row b of microbatch i is batch row b*n + i);
+- metrics ``loss``, ``grad_norm`` (before clipping), ``lr`` and the task's
+  aux losses, fetched only on log steps;
+- checkpoints every ``steps_per_checkpoint`` and at ``train_steps``, with
+  ``max_to_keep`` retention, atomic writes, restore of the latest, and an
+  eval over ``eval_steps`` batches at each checkpoint;
+- a data stream that runs out between checkpoints saves its tail.
+
+Checkpoints are ``torch.save`` files ``<model_dir>/checkpoints/ckpt_<step>.pt``
+holding the step, the parameter tree and the optimizer state.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+import tempfile
+import time
+from typing import Any, Callable, Iterator, Mapping
+
+import numpy as np
+import torch
+
+from dalle_mtf_tpu_torch.train.optim import get_optimizer, named_leaves
+from dalle_mtf_tpu_torch.utils.summaries import MetricsWriter
+
+logger = logging.getLogger(__name__)
+
+# loss_fn(params, frozen_params, batch, generator, step) -> (loss, aux_scalars)
+LossFn = Callable[[Any, Any, Any, torch.Generator, int], tuple[torch.Tensor, Mapping]]
+
+_CKPT = re.compile(r"ckpt_(\d+)\.pt$")
+
+
+def num_microbatches(
+    params: Mapping[str, Any], global_batch: int, seq_len: int, data_parallelism: int
+) -> int:
+    """Microbatch count from ``tokens_per_mb_per_replica`` (mtf's
+    serialize_num_microbatches, model_fns.py:141-154); None/0 disables
+    accumulation. Rounded up to a divisor of the global batch."""
+    tokens_per_mb = params.get("tokens_per_mb_per_replica")
+    if not tokens_per_mb:
+        return 1
+    batch_per_replica = max(1, global_batch // max(1, data_parallelism))
+    n = max(1, int(np.ceil(batch_per_replica * seq_len / tokens_per_mb)))
+    n0 = n
+    while global_batch % n != 0:
+        n += 1
+    if n != n0:
+        logger.warning(
+            "num_microbatches rounded %d -> %d to divide global batch %d: "
+            "realized %d rows (%d tokens) per microbatch per replica vs "
+            "tokens_per_mb_per_replica=%d",
+            n0, n, global_batch, max(1, batch_per_replica // n),
+            max(1, batch_per_replica // n) * seq_len, tokens_per_mb,
+        )
+    return n
+
+
+def step_generator(seed: int, stream: int, index: int) -> torch.Generator:
+    """A CPU generator for (seed, stream, index): the counterpart of the JAX
+    loop's ``fold_in(fold_in(rng, stream), index)``."""
+    state = np.random.SeedSequence([seed, stream, index]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+class Trainer:
+    def __init__(
+        self,
+        params: Mapping[str, Any],
+        init_fn: Callable[[torch.Generator], Any],
+        loss_fn: LossFn,
+        model_dir: str,
+        seq_len: int,
+        device: torch.device | str,
+        frozen_params: Any = None,
+        eval_loss_fn: LossFn | None = None,
+    ):
+        self.params = params
+        self.init_fn = init_fn
+        self.loss_fn = loss_fn
+        self.eval_loss_fn = eval_loss_fn or loss_fn
+        self.model_dir = os.path.abspath(os.path.expanduser(model_dir))
+        self.device = torch.device(device)
+        self.frozen_params = frozen_params
+        self.batch_size = params["train_batch_size"]
+        import torch.distributed as dist  # noqa: PLC0415
+
+        dp = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        self.num_mb = num_microbatches(params, self.batch_size, seq_len, dp)
+        self.max_to_keep = params.get("max_to_keep") or 5
+        self.writer = MetricsWriter(self.model_dir)
+        # what run() logged: one dict per log step / per checkpoint eval
+        self.history: list[dict] = []
+        self.eval_history: list[dict] = []
+        logger.info("trainer: device=%s microbatches=%d", self.device, self.num_mb)
+
+    # ----------------------------------------------------------------- state
+
+    def init_state(self, generator: torch.Generator) -> dict:
+        """{"step": 0, "params": fp32 tree (leaves require grad), "opt":
+        its optimizer}."""
+        params = self.init_fn(generator)
+        for _, t in named_leaves(params):
+            t.requires_grad_(True)
+        opt, self.schedule = get_optimizer(self.params, params)
+        return {"step": 0, "params": params, "opt": opt}
+
+    @staticmethod
+    def param_count(state: dict) -> int:
+        return sum(t.numel() for _, t in named_leaves(state["params"]))
+
+    # ------------------------------------------------------------ train step
+
+    def _put_batch(self, batch: Mapping[str, Any]) -> dict:
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
+
+    def train_step(self, state: dict, batch, generator: torch.Generator):
+        """One update in place; returns (state, metrics as 0-dim tensors)."""
+        params, opt, step = state["params"], state["opt"], state["step"]
+        batch = self._put_batch(batch)
+        opt.zero_grad()
+        n = self.num_mb
+        if n > 1:
+            loss, aux = torch.zeros((), device=self.device), {}
+            for i in range(n):
+                mb = {k: v[i::n] for k, v in batch.items()}
+                loss_i, aux_i = self.loss_fn(params, self.frozen_params, mb, generator, step)
+                loss_i.backward()
+                loss = loss + loss_i.detach().float()
+                for k, v in aux_i.items():
+                    aux[k] = aux.get(k, 0.0) + v.detach().float()
+            torch._foreach_div_([t.grad for t in opt.leaves], float(n))
+            loss = loss / n
+            aux = {k: v / n for k, v in aux.items()}
+        else:
+            loss, aux = self.loss_fn(params, self.frozen_params, batch, generator, step)
+            loss.backward()
+        grad_norm = opt.step()
+        state["step"] = step + 1
+        metrics = {
+            "loss": loss.detach().float(),
+            "grad_norm": grad_norm,
+            "lr": torch.tensor(self.schedule(step)),
+            **{k: v.detach().float() for k, v in aux.items()},
+        }
+        return state, metrics
+
+    @torch.no_grad()
+    def eval_step(self, state: dict, batch, generator: torch.Generator) -> dict:
+        loss, aux = self.eval_loss_fn(
+            state["params"], self.frozen_params, self._put_batch(batch), generator,
+            state["step"],
+        )
+        return {"loss": loss.float(), **aux}
+
+    # ------------------------------------------------------------ checkpoint
+
+    @property
+    def ckpt_dir(self) -> str:
+        return os.path.join(self.model_dir, "checkpoints")
+
+    def checkpoint_steps(self) -> list[int]:
+        if not os.path.isdir(self.ckpt_dir):
+            return []
+        return sorted(int(m.group(1)) for f in os.listdir(self.ckpt_dir)
+                      if (m := _CKPT.fullmatch(f)))
+
+    def latest_step(self) -> int:
+        steps = self.checkpoint_steps()
+        return steps[-1] if steps else 0
+
+    def save(self, state: dict, step: int | None = None) -> None:
+        """Write ckpt_<step>.pt atomically, then keep the newest
+        ``max_to_keep``."""
+        step = state["step"] if step is None else step
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        obj = {
+            "step": step,
+            "params": {"/".join(p): t.detach() for p, t in named_leaves(state["params"])},
+            "opt_state": state["opt"].state_dict(),
+        }
+        fd, tmp = tempfile.mkstemp(dir=self.ckpt_dir, suffix=".tmp")
+        os.close(fd)
+        try:
+            torch.save(obj, tmp)
+            os.replace(tmp, os.path.join(self.ckpt_dir, f"ckpt_{step}.pt"))
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        for old in self.checkpoint_steps()[:-self.max_to_keep]:
+            os.unlink(os.path.join(self.ckpt_dir, f"ckpt_{old}.pt"))
+
+    def restore(self, state: dict) -> dict:
+        """Load the latest checkpoint into ``state`` in place (unchanged when
+        there is none)."""
+        steps = self.checkpoint_steps()
+        if not steps:
+            return state
+        obj = torch.load(os.path.join(self.ckpt_dir, f"ckpt_{steps[-1]}.pt"),
+                         map_location=self.device, weights_only=True)
+        with torch.no_grad():
+            for path, t in named_leaves(state["params"]):
+                t.copy_(obj["params"]["/".join(path)])
+        state["opt"].load_state_dict(obj["opt_state"])
+        state["step"] = int(obj["step"])
+        logger.info("restored checkpoint at step %d", state["step"])
+        return state
+
+    # ------------------------------------------------------------- main loop
+
+    def run(
+        self,
+        data_iter: Iterator[Any],
+        seed: int,
+        eval_data_iter: Iterator[Any] | None = None,
+    ) -> dict:
+        """Train until ``train_steps``, checkpointing and resuming from the
+        latest checkpoint."""
+        p = self.params
+        train_steps = p["train_steps"]
+        steps_per_ckpt = p.get("steps_per_checkpoint") or 1000
+        # "iterations" was the reference's device-loop length and so its log
+        # cadence (train_dalle.py:62); kept as the default log cadence
+        log_every = p.get("log_every") or min(p.get("iterations") or 100, steps_per_ckpt)
+        eval_steps = p.get("eval_steps") or 0
+
+        state = self.restore(self.init_state(torch.Generator().manual_seed(seed)))
+        start = state["step"]
+        logger.info("training %s from step %d to %d (%.2fM params)",
+                    p.get("config_name"), start, train_steps,
+                    self.param_count(state) / 1e6)
+
+        t0, window_start = time.perf_counter(), start
+        step, first, last_saved, data_done = start, True, None, False
+        while step < train_steps:
+            batch = next(data_iter, None)
+            if batch is None:
+                data_done = True
+                logger.info("data stream exhausted after step %d; stopping early", step)
+                break
+            state, metrics = self.train_step(state, batch, step_generator(seed, 1, step))
+            step += 1
+            if step // log_every > (step - 1) // log_every or first:
+                first = False
+                m = {k: float(v) for k, v in metrics.items()}  # waits for the step
+                now = time.perf_counter()
+                sps = (step - window_start) / max(now - t0, 1e-9)
+                t0, window_start = now, step
+                self.writer.scalars(step, {**m, "steps_per_sec": sps})
+                self.history.append({"step": step, **m, "steps_per_sec": sps})
+                logger.info("step %d loss %.5f lr %.2e grad_norm %.3f %.2f steps/s",
+                            step, m["loss"], m["lr"], m["grad_norm"], sps)
+            if step // steps_per_ckpt > (step - 1) // steps_per_ckpt or step == train_steps:
+                self.save(state, step)
+                last_saved = step
+                if eval_steps and eval_data_iter is not None:
+                    self._evaluate(state, step, seed, eval_data_iter, eval_steps)
+                # the next log window times training steps only
+                t0, window_start = time.perf_counter(), step
+        if data_done and step > start and last_saved != step:
+            # the stream ran out between checkpoints: keep the trained tail
+            self.save(state, step)
+        return state
+
+    def _evaluate(self, state, step, seed, eval_data_iter, eval_steps) -> None:
+        sums: dict[str, list[float]] = {}
+        for i in range(eval_steps):
+            em = self.eval_step(state, next(eval_data_iter), step_generator(seed, 2, i))
+            for k, v in em.items():
+                sums.setdefault(k, []).append(float(v))
+        means = {f"eval_{k}": float(np.mean(v)) for k, v in sums.items()}
+        self.writer.scalars(step, means)
+        self.eval_history.append({"step": step, **means})
+        logger.info("step %d %s", step,
+                    " ".join(f"{k} {v:.5f}" for k, v in sorted(means.items())))
+
+    def close(self):
+        self.writer.close()

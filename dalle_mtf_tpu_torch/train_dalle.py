@@ -1,0 +1,113 @@
+"""Train DALLE (stage 2) on [text ; image-token] sequences: the port of
+``train_dalle.py``, with the same CLI.
+
+    python -m dalle_mtf_tpu_torch.train_dalle --model <config name or path> \
+        [--new [--yes]] [--gpu_ids 0]
+
+The config must be a tokens-mode DALLE config (``dataset.tokens: true``:
+records carry VAE token ids, so no VAE weights are loaded); the image mode
+needs the VAE encoder, which is not ported yet. Training resumes from the
+latest checkpoint in ``model_path``, and the data stream skips the batches
+already trained on. ``--new`` wipes ``model_path`` first (asking unless
+``--yes``). The device is ``cuda:<first --gpu_ids>``, else the first CUDA
+device, else the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+import torch
+
+from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn
+from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer
+from dalle_mtf_tpu_torch.train.tasks import make_dalle_task
+from dalle_mtf_tpu_torch.train.trainer import Trainer
+from dalle_mtf_tpu_torch.utils.config import fetch_model_params
+from dalle_mtf_tpu_torch.utils.logging_utils import remove_model_dir, setup_logging
+
+logger = logging.getLogger(__name__)
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--tpu", type=str, help="(compat; unused)")
+    parser.add_argument("--gpu_ids", nargs="+", type=str,
+                        help="GPU ids; the first one trains (default: cuda:0 if present)")
+    parser.add_argument("--model", type=str, required=True, help="JSON model config name or path")
+    parser.add_argument("--new", action="store_true", help="If set, deletes previous checkpoint, if it exists, and "
+                                                           "starts a new training run")
+    parser.add_argument("--yes", action="store_true", help="skip the --new confirmation prompt")
+    return parser.parse_args(argv)
+
+
+def pick_device(gpu_ids) -> torch.device:
+    if gpu_ids:
+        return torch.device(f"cuda:{int(gpu_ids[0])}")
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def main(argv=None) -> Trainer:
+    """Run the training the config asks for; returns the closed Trainer
+    (its ``history`` and ``eval_history`` hold what was logged)."""
+    args = parse_args(argv)
+    params = fetch_model_params(args.model)
+    if params["model_type"] != "dalle":
+        raise ValueError(f"config {args.model} is not a dalle config")
+    if params["vae_params"] is None:
+        raise ValueError("vae model config must be supplied (vae_model key)")
+    if params.get("predict_steps"):
+        raise NotImplementedError("predict_steps (sampling at checkpoints) is not ported yet")
+    if not params["dataset"].get("tokens"):
+        raise NotImplementedError(
+            "image-mode training needs the frozen VAE encoder, which is not "
+            "ported yet; use a tokens dataset (dataset.tokens: true)"
+        )
+    setup_logging(params["config_name"] or args.model)
+
+    if args.new:
+        remove_model_dir(params["model_path"], interactive=not args.yes)
+
+    # tokenizer vocab check + padding id (reference train_dalle.py:47-49)
+    tokenizer = get_tokenizer()
+    if params["text_vocab_size"] != len(tokenizer):
+        raise ValueError(
+            f"config text_vocab_size {params['text_vocab_size']} != tokenizer "
+            f"vocab {len(tokenizer)}"
+        )
+    params["padding_id"] = tokenizer.pad_token_id
+
+    device = pick_device(args.gpu_ids)
+    dalle, init_fn, loss_fn, eval_loss_fn = make_dalle_task(params, device)
+    trainer = Trainer(
+        params, init_fn, loss_fn,
+        model_dir=params["model_path"],
+        seq_len=dalle.cfg.total_seq_len,
+        device=device,
+        eval_loss_fn=eval_loss_fn,
+    )
+    # deterministic data resume: skip the already-trained prefix of the stream
+    start_step = trainer.latest_step()
+    if start_step:
+        logger.info("resume at step %d: data stream skips trained prefix", start_step)
+    train_iter = iter(dalle_input_fn(params, eval=False, skip_steps=start_step))
+    eval_steps = params.get("eval_steps") or 0
+    eval_iter = iter(dalle_input_fn(params, eval=True)) if eval_steps else None
+
+    logger.info(
+        "starting DALLE training: %s on %s (total_seq_len=%d, image_seq_len=%d)",
+        params["config_name"], device, dalle.cfg.total_seq_len, dalle.cfg.image_seq_len,
+    )
+    try:
+        trainer.run(train_iter, params.get("seed") or 0, eval_data_iter=eval_iter)
+    finally:
+        trainer.close()
+        for it in (train_iter, eval_iter):
+            if it is not None:
+                it.close()  # stops the pipeline's prefetch thread
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

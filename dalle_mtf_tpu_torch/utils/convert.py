@@ -100,3 +100,60 @@ def load_npz(path) -> dict:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return tree
+
+
+def grads_to_numpy(tree) -> dict:
+    """The ``.grad`` of every leaf of a torch parameter tree, as the same
+    tree of numpy arrays (a leaf without a gradient raises)."""
+    def grad(name, t):
+        if t.grad is None:
+            raise ValueError(f"parameter {name} has no gradient")
+        return _leaf_to_numpy(t.grad)
+
+    return {
+        name: grads_to_numpy(v) if isinstance(v, dict) else grad(name, v)
+        for name, v in tree.items()
+    }
+
+
+def _at(tree, path):
+    for name in path:
+        tree = tree[name]
+    return tree
+
+
+def _set(tree: dict, path, value) -> None:
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = value
+
+
+def adam_state_to_numpy(opt) -> dict:
+    """An ``optim.AdamW`` -> ``{"count", "mu", "nu"}`` with the moments as
+    numpy trees shaped like its parameter tree (optax's ScaleByAdamState
+    fields; a leaf not updated yet has zero moments)."""
+    out = {"count": opt.count, "mu": {}, "nu": {}}
+    for path, t in opt.named:
+        s = opt.opt.state.get(t)
+        for key, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            _set(out[key], path, _leaf_to_numpy(s[name]) if s else
+                 np.zeros(tuple(t.shape), np.float32))
+    return out
+
+
+def adam_state_from_numpy(opt, state) -> None:
+    """Load ``{"count", "mu", "nu"}`` (numpy trees keyed like the
+    optimizer's parameter tree, e.g. optax's moments through
+    ``jax.device_get``) into an ``optim.AdamW``."""
+    count = int(state["count"])
+    fused = bool(opt.opt.defaults.get("fused"))
+    for path, t in opt.named:
+        opt.opt.state[t] = {
+            # torch keeps the step on the card only for its fused kernel
+            "step": torch.tensor(float(count), device=t.device if fused else "cpu"),
+            "exp_avg": torch.tensor(np.asarray(_at(state["mu"], path), np.float32),
+                                    device=t.device),
+            "exp_avg_sq": torch.tensor(np.asarray(_at(state["nu"], path), np.float32),
+                                       device=t.device),
+        }
+    opt.count = count

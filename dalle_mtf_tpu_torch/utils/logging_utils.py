@@ -1,0 +1,51 @@
+"""Logging + model-dir management (copy of
+``dalle_mtf_tpu/utils/logging_utils.py``, local model dirs only).
+
+setup_logging mirrors the reference (utils/utils.py:184-195): a
+logs/<config>.log file plus stdout. remove_model_dir is the interactive
+``--new`` wipe (utils/utils.py:40-52).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import shutil
+import sys
+
+
+def setup_logging(config_name: str, log_dir: str = "logs") -> logging.Logger:
+    os.makedirs(log_dir, exist_ok=True)
+    root = logging.getLogger()
+    root.setLevel(logging.INFO)
+    fmt = logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
+    fh = logging.FileHandler(os.path.join(log_dir, f"{config_name}.log"))
+    fh.setFormatter(fmt)
+    sh = logging.StreamHandler(sys.stdout)
+    sh.setFormatter(fmt)
+    # avoid duplicate handlers on repeated setup (tests)
+    for h in root.handlers:
+        if isinstance(h, logging.FileHandler):
+            h.close()
+    root.handlers = [
+        h for h in root.handlers
+        if not isinstance(h, (logging.FileHandler, logging.StreamHandler))
+    ]
+    root.addHandler(fh)
+    root.addHandler(sh)
+    return logging.getLogger("dalle_mtf_tpu_torch")
+
+
+def remove_model_dir(model_dir: str, interactive: bool = True):
+    """Wipe a model dir for a fresh run (--new flag, utils/utils.py:40-52)."""
+    if interactive:
+        answer = input(
+            f"Are you sure you want to remove '{model_dir}' to start afresh? [y/N] "
+        )
+        if answer.strip().lower() not in ("y", "yes"):
+            print("aborting")
+            sys.exit(0)
+    if "://" in model_dir:
+        raise NotImplementedError(f"remote model dirs are not ported yet: {model_dir}")
+    if os.path.isdir(model_dir):
+        shutil.rmtree(model_dir)

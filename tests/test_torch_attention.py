@@ -68,7 +68,7 @@ def test_decode_attention_matches_jax(position, window):
 
 def test_causal_attention_refuses_what_it_cannot_run():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 8, 64, seed=0))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout_seed"):
         tattn.causal_attention(q, k, v, dropout_rate=0.1)
     with pytest.raises(ValueError):
         tattn.causal_attention(q, k, v, window=0)
@@ -77,6 +77,7 @@ def test_causal_attention_refuses_what_it_cannot_run():
         tattn.causal_attention(meta, meta, meta)
 
 
+@pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """The hand-written kernel against attention_reference on the card:
     fp32 atol 1e-5; bf16 max-abs-err <= 1e-2 on unit-scale inputs."""

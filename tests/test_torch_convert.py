@@ -110,12 +110,20 @@ def test_port_never_imports_jax():
     """Import every module of the port in a fresh interpreter: JAX must not
     be loaded (the JAX package's __init__ imports it, so nothing of
     dalle_mtf_tpu may be reached either)."""
+    training = [
+        "ops.attention_packed", "ops.losses", "train.optim", "train.trainer",
+        "train.tasks", "train_dalle", "data.pipeline", "data.tfrecord", "data.fs",
+        "utils.logging_utils", "utils.summaries",
+    ]
     code = (
         "import pkgutil, sys, dalle_mtf_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'dalle_mtf_tpu_torch.')]\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 28, mods\n"
+        f"missing = {['dalle_mtf_tpu_torch.' + m for m in training]!r}\n"
+        "assert not set(missing) - set(mods), sorted(set(missing) - set(mods))\n"
         "for m in mods: __import__(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dalle_mtf_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'dalle_mtf_tpu', 'tensorflow'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
