@@ -41,20 +41,46 @@ Phases, none of them optional:
    weights from a seed. Banded prefill logits on the card against the port's
    plain path on the CPU in fp32 (same weights); then the HTTP server
    (BatchingSampler, batch 4) answers mixed requests, with every kernel
-   launch counted, and the per-batch latency is split into prefill, decode
-   loop and VAE.
+   launch counted.
+6. Decode matmuls against plain, on the card: ``int8_matmul`` and
+   ``int4_matmul`` (csrc/decode_matmul.cu) at every dalle_coco decode shape
+   at batch 4 (q/k/v, wo with its per-head int4 split, mlp1, mlp2, the
+   image-token head band), at M = 1 and 32, and at the ragged full-vocabulary
+   head (N = 52,307). Tolerance: max |kernel - plain| <= 1e-5 * max |plain|:
+   the same exact products summed in fp32 in another order. Timed on weight
+   copies that together exceed the 50 MB L2, so every launch reads its
+   weight from device memory as the decode loop does.
+7. Quantized serving, the main paths of ``--quantize int8`` and
+   ``--quantize int4``: a temporary copy of configs/dalle_coco.json with
+   ``decode_kernels: true`` through ``serve_dalle.build_server`` (weights from
+   a seed, quantized on load); banded prefill logits on the card against the
+   port's CPU plain path on the same quantized weights; the HTTP server
+   answers a greedy and a sampled request in one batch and the greedy one
+   again, which must repeat exactly; every decode-matmul launch is counted
+   against 1 + (image_seq_len - 1) * (6 * n_layers + 1) per batch.
+8. Per-batch latency at batch 4, within this call, split into prefill,
+   decode loop and VAE: bf16, int8 in the dequant form (``decode_kernels``
+   off), int8 and int4 through the kernels; a profiled window of decode
+   steps for bf16 and int8.
+9. Continuous batching: ``--quantize int8 --continuous`` over HTTP at batch 4
+   with requests admitted at three chunk boundaries; the greedy request's
+   images equal the whole-batch int8 engine's byte for byte, and the launches
+   equal (6 * n_layers + 1) * chunk per chunk plus one per admission.
 
 Prints "kernel", "train" and "batch" JSON lines, then the kernel report as one
-JSON line, the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``. Any failed check raises, so the exit code is non-zero and
-no result is printed. fp32 matmuls and convs run in full fp32 here (TF32
-off), so fp32 comparisons are like for like.
+JSON line (with each kernel's least time on the card, ``bound_ms``, and one
+PyTorch call's time for the same function, ``library_ms``), the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the exit code is non-zero and no result is printed. fp32 matmuls
+and convs run in full fp32 here (TF32 off), so fp32 comparisons are like for
+like.
 """
 
 from __future__ import annotations
 
 import base64
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -72,15 +98,22 @@ import zlib
 HERE = os.path.dirname(os.path.abspath(__file__))
 FWD_SOURCE = "dalle_mtf_tpu_torch/csrc/causal_attention_fwd.cu"
 BWD_SOURCE = "dalle_mtf_tpu_torch/csrc/causal_attention_bwd.cu"
+DECODE_SOURCE = "dalle_mtf_tpu_torch/csrc/decode_matmul.cu"
 REPLACES = {
     "causal_attention_packed_fwd": "dalle_mtf_tpu/ops/attention_packed.py:160",  # _fused_fwd_kernel
     "causal_attention_packed_bwd": "dalle_mtf_tpu/ops/attention_packed.py:205",  # _fused_bwd_kernel
     "causal_attention_fwd": "dalle_mtf_tpu/ops/attention.py:572",  # _wedge_fwd_kernel
+    "int8_matmul": "dalle_mtf_tpu/ops/decode_matmul.py:45",  # _int8_kernel
+    "int4_matmul": "dalle_mtf_tpu/ops/decode_matmul.py:54",  # _int4_kernel
 }
 BATCH = 4
 TRAIN_CONFIG = "dalle_coco_synth"
+SERVE_CONFIG = "dalle_coco"
 TRAIN_STEPS, RESUME_STEPS, TIMED_FROM = 8, 2, 3  # steps 3..8 are timed
 PEAK_BF16_TFLOPS = 989.0  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+L2_BYTES = 50e6
+CHUNK = 128  # continuous engine: decode steps between admissions
 
 
 def gpu_line() -> str:
@@ -104,6 +137,54 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_rotating(fn, copies: int, iters: int) -> float:
+    """``cuda_ms`` of ``fn(i)`` with i cycling over ``copies`` inputs."""
+    calls = itertools.count()
+    return cuda_ms(lambda: fn(next(calls) % copies), iters)
+
+
+def device_ms_rotating(torch, fn, copies: int, iters: int) -> float:
+    """Device time of one ``fn(i)`` call (i cycling over ``copies`` inputs):
+    the durations of the kernels and copies it ran on the card, summed
+    under torch.profiler over ``iters`` calls. For calls of a few µs the
+    host's launch cost sets the pace of back-to-back calls (``cuda_ms``);
+    this counts only what the card did."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    for i in range(3):
+        fn(i % copies)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i % copies)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    if not device:
+        raise AssertionError("the profiler saw no device work")
+    return sum(e.time_range.elapsed_us() for e in device) / 1e3 / iters
+
+
+def roofline(flops: float, nbytes: float) -> dict:
+    """The least time the card could take, ``bound_ms``: the larger of the
+    operations at the dense bf16 peak and the bytes at the memory rate, and
+    which of the two it is, ``bound_by``."""
+    ops_ms = flops / (PEAK_BF16_TFLOPS * 1e12) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms > bytes_ms else "bytes")
+
+
+def attention_roofline(b, h, s, d, elem, tensors, lse_tensors, matmuls) -> dict:
+    """Causal attention over [B, H, S, D]: ``matmuls`` products of 2*D
+    operations per (query, key) pair on or below the diagonal; ``tensors``
+    [B, H, S, D] arrays of ``elem`` bytes and ``lse_tensors`` fp32 [B*H, S]
+    rows read or written once."""
+    pairs = b * h * s * (s + 1) / 2
+    nbytes = tensors * b * h * s * d * elem + lse_tensors * b * h * s * 4
+    return roofline(matmuls * 2 * d * pairs, nbytes)
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -144,9 +225,15 @@ def phase_kernel(torch, attn, card):
         plain_ms = cuda_ms(
             lambda: attn.attention_reference(q, k, v, True, window), 50
         )
+        library_ms = None
+        if window is None:  # SDPA has no local window
+            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True), 50)
         row = dict(card=card, kernel="causal_attention_fwd", shape=name, B=b, H=h, S=s,
                    D=d, dtype=str(dtype), window=window, max_abs_err=err,
-                   lse_err=lse_err, atol=atol, ms=ms, plain_ms=plain_ms)
+                   lse_err=lse_err, atol=atol, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   **attention_roofline(b, h, s, d, q.element_size(), 4, 0, 2))
         print("kernel", json.dumps(row), flush=True)
         rows.append(row)
     return rows[0]
@@ -195,17 +282,27 @@ def phase_train_kernels(torch, attn, card):
         bwd_ms = cuda_ms(lambda: ap._backward(q, k, v, out, lse, g, h, window, rate, seed), iters)
         bwd_plain = cuda_ms(lambda: ap.backward_reference(
             q, k, v, out, lse, g, h, window, rate, seed), iters)
+        lib_fwd = lib_bwd = None
+        if window is None and rate == 0.0:  # SDPA: causal, no window, no hash dropout
+            lib_fwd, lib_bwd = sdpa_ms(torch, q, k, v, g, h, iters)
+        elem = q.element_size()
         common = dict(card=card, shape=name, B=b, H=h, S=s, D=d, dtype=str(dtype),
                       window=window, dropout=rate, atol=atol)
         rows = {
             "causal_attention_packed_fwd": dict(
                 kernel="causal_attention_packed_fwd", **common,
-                max_abs_err=errs["out"][0], lse_err=lse_err, ms=fwd_ms, plain_ms=fwd_plain),
+                max_abs_err=errs["out"][0], lse_err=lse_err, ms=fwd_ms, plain_ms=fwd_plain,
+                library_ms=lib_fwd,
+                # reads q, k, v; writes out and lse; QK^T and PV
+                **attention_roofline(b, h, s, d, elem, 4, 1, 2)),
             "causal_attention_packed_bwd": dict(
                 kernel="causal_attention_packed_bwd", **common,
                 max_abs_err=max(errs[n][0] for n in ("dq", "dk", "dv")),
                 errs={n: errs[n][0] for n in ("dq", "dk", "dv")},
-                ms=bwd_ms, plain_ms=bwd_plain, ms_includes="dsum reduction + dQ and dK/dV launches"),
+                ms=bwd_ms, plain_ms=bwd_plain, ms_includes="dsum reduction + dQ and dK/dV launches",
+                library_ms=lib_bwd,
+                # reads q, k, v, out, dout, lse; writes dq, dk, dv; five products
+                **attention_roofline(b, h, s, d, elem, 8, 1, 5)),
         }
         for row in rows.values():
             print("kernel", json.dumps(row), flush=True)
@@ -236,6 +333,25 @@ def phase_train_kernels(torch, attn, card):
                 q, k, v, True, window, False, 0.1, seed), 20),
         )), flush=True)
     return best
+
+
+def sdpa_ms(torch, q, k, v, g, h, iters) -> tuple[float, float]:
+    """The library yardstick at a packed training shape: one
+    ``scaled_dot_product_attention(is_causal=True)`` forward, and its
+    backward alone, on the [B, H, S, D] views of the same inputs."""
+    def heads(t, grad=False):
+        b, s, _ = t.shape
+        return t.view(b, s, h, -1).transpose(1, 2).contiguous().requires_grad_(grad)
+
+    q4, k4, v4 = (heads(t, True) for t in (q, k, v))
+    g4 = heads(g)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True), iters)
+    out = sdpa(q4, k4, v4, is_causal=True)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), g4, retain_graph=True),
+                  iters)
+    return fwd, bwd
 
 
 def _to(tree, device):
@@ -512,12 +628,11 @@ def phase_slice(torch, attn, card):
     from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer, pad_or_truncate
     from dalle_mtf_tpu_torch.models.dalle import DALLE
     from dalle_mtf_tpu_torch.quantize import cast_decode_weights
-    from dalle_mtf_tpu_torch.sample import generate_images
     from dalle_mtf_tpu_torch.serve import BatchingSampler, make_server
     from dalle_mtf_tpu_torch.train.tasks import make_dalle_models
     from dalle_mtf_tpu_torch.utils.config import fetch_model_params
 
-    params = fetch_model_params("dalle_coco")
+    params = fetch_model_params(SERVE_CONFIG)
     dalle, vae = make_dalle_models(params, "cuda")
     cfg = dalle.cfg
     side = vae.cfg.image_size
@@ -625,64 +740,352 @@ def phase_slice(torch, attn, card):
     if sampler._worker.is_alive():
         raise AssertionError("sampler worker did not stop")
 
-    # --- per-batch latency at batch 4, split prefill / decode loop / VAE
+    return launches, dict(dalle=dalle, params=serve_params, vae=vae, vae_params=vae_params,
+                          tokens=tokens, texts=texts)
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def batch_latency(torch, card, label, dalle, params, vae, vae_params, text4) -> dict:
+    """One whole-batch generation at batch 4, split into prefill, decode
+    loop and VAE (host clock around work that ends in a synchronize)."""
+    from dalle_mtf_tpu_torch.sample import generate_images  # noqa: PLC0415
+
+    cfg = dalle.cfg
+    side = vae.cfg.image_size
     gen = torch.Generator(device="cuda").manual_seed(0)
-    text4 = tokens.repeat(2, 1).cuda()
     temps = torch.full((BATCH,), 1.0, device="cuda")
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t
-
+    band = (cfg.text_vocab_size, cfg.text_vocab_size + cfg.image_vocab_size)
     with torch.inference_mode():
-        imgs, total = timed(lambda: generate_images(
-            dalle, serve_params, vae, vae_params, text4, gen,
-            temperature=temps, top_k=64))
-        head = dalle.logits_head(serve_params, band)
-        _, t_prefill = timed(lambda: dalle.prefill(
-            serve_params, text4, dalle.init_cache(BATCH), head=head))
+        imgs, total = timed(torch, lambda: generate_images(
+            dalle, params, vae, vae_params, text4, gen, temperature=temps, top_k=64))
+        head = dalle.logits_head(params, band)
+        _, t_prefill = timed(torch, lambda: dalle.prefill(
+            params, text4, dalle.init_cache(BATCH), head=head))
         img_tokens = torch.randint(0, cfg.image_vocab_size,
                                    (BATCH, cfg.image_seq_len), device="cuda")
-        _, t_vae = timed(lambda: vae.decode_tokens(vae_params, img_tokens))
+        _, t_vae = timed(torch, lambda: vae.decode_tokens(vae_params, img_tokens))
     if imgs.shape != (BATCH, side, side, 3) or not torch.isfinite(imgs).all():
-        raise AssertionError(f"generate_images gave {tuple(imgs.shape)}")
-    split = dict(card=card, batch=BATCH, latency_s=total, images_per_s=BATCH / total,
-                 prefill_s=t_prefill, vae_s=t_vae,
-                 decode_loop_s=total - t_prefill - t_vae,
-                 decode_steps=cfg.image_seq_len - 1)
+        raise AssertionError(f"{label}: generate_images gave {tuple(imgs.shape)}")
+    split = dict(card=card, weights=label, batch=BATCH, latency_s=total,
+                 images_per_s=BATCH / total, prefill_s=t_prefill, vae_s=t_vae,
+                 decode_loop_s=total - t_prefill - t_vae, decode_steps=cfg.image_seq_len - 1)
     print("batch", json.dumps(split), flush=True)
+    return split
 
-    # --- a window of decode steps under torch.profiler: kernels per step and
-    # the device's busy share (null when the profiler saw no device work)
+
+def decode_profile(torch, card, label, dalle, params, text4, split, steps: int = 16):
+    """A window of decode steps under torch.profiler: device ops per step and
+    the device's busy share (null when the profiler saw no device work)."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
-    steps = 16
+    cfg = dalle.cfg
+    band = (cfg.text_vocab_size, cfg.text_vocab_size + cfg.image_vocab_size)
     with torch.inference_mode():
+        head = dalle.logits_head(params, band)
         cache = dalle.init_cache(BATCH)
-        logits = dalle.prefill(serve_params, text4, cache, head=head)
+        logits = dalle.prefill(params, text4, cache, head=head)
         tok = logits.argmax(-1) + cfg.text_vocab_size
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(steps):
-                dalle.decode_step(serve_params, cache, tok, cfg.text_seq_len + i,
-                                  head=head)
+                dalle.decode_step(params, cache, tok, cfg.text_seq_len + i, head=head)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e6
+    mm = sum(e.time_range.elapsed_us() for e in device
+             if "decode_matmul" in e.name or "splitk_reduce" in e.name) / 1e6
     print("decode_profile", json.dumps(dict(
-        card=card, steps=steps, device_ops_per_step=len(device) / steps,
+        card=card, weights=label, steps=steps, device_ops_per_step=len(device) / steps,
         device_busy_ms_per_step=busy / steps * 1e3,
+        decode_matmul_kernels_ms_per_step=mm / steps * 1e3,
         profiled_wall_ms_per_step=wall / steps * 1e3,
         unprofiled_wall_ms_per_step=split["decode_loop_s"] / split["decode_steps"] * 1e3,
         device_busy_share=busy / wall if device else None,
     )), flush=True)
-    return launches
+
+
+def quantize_columns(torch, w, qmax):
+    """Per-column (axis 0) int8 values and fp32 scales, as quantize.py."""
+    scale = (w.abs().amax(0, keepdim=True) / qmax).clamp_min(1e-12)
+    return torch.clamp(torch.round(w / scale), -qmax, qmax).to(torch.int8), scale
+
+
+def phase_decode_kernels(torch, dmm, card):
+    """int8_matmul and int4_matmul against their plain versions at the
+    decode shapes; returns {name: row at the mlp1 shape at M = 4}."""
+    from dalle_mtf_tpu_torch.quantize import pack_int4  # noqa: PLC0415
+
+    shapes = [  # (name, M, K, N): dalle_coco at batch 4, then M = 1 and 32, then ragged N
+        ("qkv", 4, 1024, 1024), ("wo", 4, 1024, 1024), ("mlp1", 4, 1024, 4096),
+        ("mlp2", 4, 4096, 1024), ("head_band", 4, 1024, 2048), ("mlp1_m1", 1, 1024, 4096),
+        ("mlp1_m32", 32, 1024, 4096), ("head_full_vocab", 4, 1024, 52307),
+    ]
+    heads, head_dim = 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    best = {}
+    for name, m, k, n in shapes:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+        for kind in ("int8_matmul", "int4_matmul"):
+            int4 = kind == "int4_matmul"
+            q, scale = quantize_columns(torch, w, 7.0 if int4 else 127.0)
+            deq = (q.to(torch.bfloat16) * scale.to(torch.bfloat16))  # the library's weight
+            if not int4:
+                packed, xs = q, (x,)
+                fn, ref = dmm.int8_matmul, dmm.int8_matmul_reference
+            elif name == "wo":  # packed per head along D: rows (h, d) of [H*D, E]
+                packed = pack_int4(q.view(heads, head_dim, n), 1).reshape(-1, n)
+                xh = x.view(m, heads, head_dim)
+                xs = (xh[..., : head_dim // 2].reshape(m, -1).contiguous(),
+                      xh[..., head_dim // 2:].reshape(m, -1).contiguous())
+                fn, ref = dmm.int4_matmul, dmm.int4_matmul_reference
+            else:
+                packed = pack_int4(q, 0)
+                xs = (x[:, : k // 2].contiguous(), x[:, k // 2:].contiguous())
+                fn, ref = dmm.int4_matmul, dmm.int4_matmul_reference
+            before = dmm.KERNEL_LAUNCHES[kind]
+            got = fn(*xs, packed, scale)
+            want = ref(*xs, packed, scale)
+            torch.cuda.synchronize()
+            if dmm.KERNEL_LAUNCHES[kind] != before + 1:
+                raise AssertionError(f"{kind} did not count its launch")
+            err = (got - want).abs().max().item()
+            tol = 1e-5 * want.abs().max().item()
+            if not err <= tol or got.shape != (m, n):
+                raise AssertionError(f"{kind} {name}: max_abs_err {err} > {tol}")
+            # copies past the L2: every timed launch reads its weight cold
+            copies = max(1, math.ceil(2 * L2_BYTES / packed.numel()))
+            ws = [(packed.clone(), scale.clone()) for _ in range(copies)]
+            lib_copies = max(1, math.ceil(2 * L2_BYTES / (2 * deq.numel())))
+            ds = [deq.clone() for _ in range(lib_copies)]
+            calls = {"": lambda i: fn(*xs, *ws[i]), "plain_": lambda i: ref(*xs, *ws[i]),
+                     "library_": lambda i: torch.matmul(x, ds[i % lib_copies])}
+            times = {}
+            for prefix, call in calls.items():
+                iters = 20 if prefix == "plain_" else 200
+                times[prefix + "ms"] = device_ms_rotating(torch, call, copies, iters)
+                times[prefix + "wall_ms"] = cuda_ms_rotating(call, copies, iters)
+            nbytes = packed.numel() + x.numel() * 2 + scale.numel() * 4 + m * n * 4
+            row = dict(card=card, kernel=kind, shape=name, M=m, K=k, N=n,
+                       weight_bytes=packed.numel(), max_abs_err=err, atol=tol, **times,
+                       **roofline(2 * m * k * n, nbytes), weight_copies=copies,
+                       split_k=dmm.split_k(m, packed.shape[0], n))
+            print("kernel", json.dumps(row), flush=True)
+            if name == "mlp1":
+                best[kind] = row
+            del ws, ds
+        torch.cuda.empty_cache()
+    return best
+
+
+def serve_config(tmp: str) -> str:
+    """A copy of configs/dalle_coco.json with the decode kernels on."""
+    from dalle_mtf_tpu_torch.utils.config import _resolve_config_path  # noqa: PLC0415
+
+    with open(_resolve_config_path(SERVE_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(decode_kernels=True, model_path=os.path.join(tmp, "serve"))
+    path = os.path.join(tmp, f"{SERVE_CONFIG}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def start_server(serve_dalle, argv):
+    """build_server + a thread running serve_forever; returns (sampler,
+    server, thread, port, seconds to load and warm)."""
+    t0 = time.perf_counter()
+    sampler, server = serve_dalle.build_server(argv + [
+        "--device", "cuda", "--host", "127.0.0.1", "--port", "0",
+        "--batch-size", str(BATCH), "--seed", "0"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return sampler, server, thread, server.server_address[1], time.perf_counter() - t0
+
+
+def stop_server(sampler, server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=60)
+    sampler.drain(timeout=600)
+    if thread.is_alive() or sampler._worker.is_alive():
+        raise AssertionError("the server or its engine did not stop")
+
+
+def reset_counts(*modules):
+    for mod in modules:
+        for key in mod.KERNEL_LAUNCHES:
+            mod.KERNEL_LAUNCHES[key] = 0
+
+
+def check_pngs(replies, side):
+    for r in replies:
+        for im in r["images"]:
+            if png_shape(im) != (side, side, 3):
+                raise AssertionError(f"an image is not {side}x{side}x3")
+
+
+def phase_quant_serving(torch, attn, dmm, card, mode, config, texts):
+    """``serve_dalle --quantize <mode>`` with the decode kernels: prefill
+    logits against the CPU plain path, then HTTP with every launch counted.
+    Returns what later phases need."""
+    from dalle_mtf_tpu_torch import serve_dalle  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer, pad_or_truncate  # noqa: PLC0415
+
+    kind = f"{mode}_matmul"
+    sampler, server, thread, port, load_s = start_server(
+        serve_dalle, ["--model", config, "--quantize", mode, "--top_k", "64",
+                      "--linger-ms", "300"])
+    dalle, qparams = sampler.dalle, sampler._params[0]
+    cfg = dalle.cfg
+    side = sampler.vae.cfg.image_size
+    try:
+        if not (cfg.decode_kernels and qparams["layers"]["w_mlp1"].dtype == torch.int8):
+            raise AssertionError(f"{mode}: the served weights are not quantized for the kernels")
+        # --- banded prefill logits: card (kernel head) vs CPU (plain) on the same weights
+        tokenizer = get_tokenizer()
+        tokens = torch.tensor([pad_or_truncate(tokenizer.encode(t), cfg.text_seq_len,
+                                               tokenizer.pad_token_id) for t in texts])
+        band = (cfg.text_vocab_size, cfg.text_vocab_size + cfg.image_vocab_size)
+        cfg32 = dataclasses.replace(cfg, bf_16=False)
+        cpu_params = _to(qparams, "cpu")
+        with torch.inference_mode():
+            want = DALLE(cfg32, "cpu").prefill(cpu_params, tokens,
+                                               DALLE(cfg32, "cpu").init_cache(2), band=band)
+            before = dmm.KERNEL_LAUNCHES[kind]
+            gpu32 = DALLE(cfg32, "cuda")
+            got32 = gpu32.prefill(qparams, tokens.cuda(), gpu32.init_cache(2), band=band)
+            got16 = dalle.prefill(qparams, tokens.cuda(), dalle.init_cache(2), band=band)
+            torch.cuda.synchronize()
+        # the heads (2 rows) launch the kernel; the layers' 2 x text_seq_len
+        # rows take the dequant form unless they are few enough
+        layers = 6 * cfg.n_layers if dalle._streaming_eligible(
+            2 * cfg.text_seq_len, cfg.n_embd) else 0
+        if dmm.KERNEL_LAUNCHES[kind] != before + 2 * (1 + layers):
+            raise AssertionError(f"{mode}: the prefill heads did not launch {kind}")
+        err32 = (got32.cpu() - want).abs().max().item()
+        err16 = (got16.float().cpu() - want).abs().max().item()
+        print(f"{mode} prefill logits [2, {band[1] - band[0]}] vs CPU plain path, same "
+              f"quantized weights: card fp32 max_abs_err {err32:.3g} (atol 5e-3: fp32 sums "
+              f"in another order, and an activation may round to bf16 across a boundary "
+              f"before the head kernel), card bf16 max_abs_err {err16:.3g} (atol 0.1; "
+              f"|logits| max {want.abs().max().item():.3g})", flush=True)
+        if not (err32 <= 5e-3 and err16 <= 0.1 and torch.isfinite(got16).all()):
+            raise AssertionError(f"{mode}: prefill logits disagree with the CPU plain path")
+
+        # --- HTTP: a greedy and a sampled request share a batch, then the greedy again
+        batches_before = sampler.stats()["batches_done"]
+        reset_counts(attn, dmm)
+        t0 = time.perf_counter()
+        greedy = {"text": texts[0], "n": 2, "temperature": 0.0, "top_k": 0}
+        mixed = [greedy, {"text": texts[1], "n": 2, "temperature": 1.0, "top_k": 0}]
+        replies = [None] * len(mixed)
+
+        def send(i):
+            replies[i] = post(port, mixed[i])
+
+        senders = [threading.Thread(target=send, args=(i,)) for i in range(len(mixed))]
+        for t in senders:
+            t.start()
+        for t in senders:
+            t.join(timeout=900)
+        again = post(port, greedy)
+        wall = time.perf_counter() - t0
+        launches = dict(dmm.KERNEL_LAUNCHES)
+        attn_launches = attn.KERNEL_LAUNCHES["causal_attention_fwd"]
+        batches = sampler.stats()["batches_done"] - batches_before
+        if any(r is None for r in replies):
+            raise AssertionError(f"{mode}: a request got no reply")
+        check_pngs(replies + [again], side)
+        if again["images"] != replies[0]["images"]:
+            raise AssertionError(f"{mode}: two identical greedy requests differ")
+        per_batch = 1 + (cfg.image_seq_len - 1) * (6 * cfg.n_layers + 1)
+        other = "int4_matmul" if mode == "int8" else "int8_matmul"
+        if (batches == 0 or launches[kind] != per_batch * batches or launches[other]
+                or attn_launches != cfg.n_layers * batches):
+            raise AssertionError(
+                f"{mode}: launches {launches}, attention {attn_launches}, expected "
+                f"{per_batch} x {batches} batches and {cfg.n_layers} x {batches}")
+        print(f"{mode} served {sum(len(r['images']) for r in replies + [again])} images in "
+              f"{len(mixed) + 1} requests, {batches} batches, {wall:.2f}s (load + warm "
+              f"{load_s:.1f}s); {kind} launches {launches[kind]} = {per_batch} x {batches} "
+              f"batches; latencies {[r['latency_s'] for r in replies + [again]]}", flush=True)
+    finally:
+        stop_server(sampler, server, thread)
+    return dict(launches=launches[kind], batches=batches, dalle=dalle, params=qparams,
+                greedy=greedy, greedy_images=replies[0]["images"])
+
+
+def phase_continuous(torch, attn, dmm, card, config, whole_batch):
+    """``serve_dalle --quantize int8 --continuous`` over HTTP with requests
+    admitted at three chunk boundaries. Returns the int8 launches."""
+    from dalle_mtf_tpu_torch import serve_dalle  # noqa: PLC0415
+
+    sampler, server, thread, port, load_s = start_server(
+        serve_dalle, ["--model", config, "--quantize", "int8", "--continuous",
+                      "--chunk", str(CHUNK), "--top_k", "64"])
+    cfg = sampler.dalle.cfg
+    try:
+        reset_counts(attn, dmm)
+        st0 = sampler.stats()
+        t0 = time.perf_counter()
+        bodies = [whole_batch["greedy"],
+                  {"text": "a bowl of fruit", "n": 1, "temperature": 1.0, "top_k": 64},
+                  {"text": "a city street at night", "n": 1, "temperature": 0.8,
+                   "top_k": 16, "top_p": 0.9}]
+        replies = [None] * len(bodies)
+
+        def send(i):
+            replies[i] = post(port, bodies[i])
+
+        senders = []
+        for i in range(len(bodies)):
+            # request i joins after i chunks of the ones before it
+            deadline = time.monotonic() + 600
+            while (sampler.stats()["chunks_done"] - st0["chunks_done"] < i
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            senders.append(threading.Thread(target=send, args=(i,)))
+            senders[-1].start()
+        for t in senders:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        st1 = get(port, "/stats")
+        launches = dict(dmm.KERNEL_LAUNCHES)
+        if any(r is None for r in replies):
+            raise AssertionError("continuous: a request got no reply")
+        check_pngs(replies, sampler.vae.cfg.image_size)
+        chunks = st1["chunks_done"] - st0["chunks_done"]
+        admits = st1["admits_done"] - st0["admits_done"]
+        want = (6 * cfg.n_layers + 1) * CHUNK * chunks + admits
+        if launches["int8_matmul"] != want or launches["int4_matmul"] or admits < 3:
+            raise AssertionError(f"continuous: launches {launches}, expected {want} "
+                                 f"({chunks} chunks, {admits} admissions)")
+        if replies[0]["images"] != whole_batch["greedy_images"]:
+            raise AssertionError("continuous: the greedy images differ from the "
+                                 "whole-batch engine's on the same weights")
+        if st1["engine"] != "continuous" or st1["slots_busy"]:
+            raise AssertionError(f"continuous /stats: {st1}")
+        print(f"continuous: {len(bodies)} requests admitted at chunk boundaries 0-2 in "
+              f"{wall:.2f}s (load + warm {load_s:.1f}s), {chunks} chunks of {CHUNK}, "
+              f"{admits} admissions; int8_matmul launches {launches['int8_matmul']} = "
+              f"{6 * cfg.n_layers + 1} x {CHUNK} x {chunks} + {admits}; greedy images equal "
+              f"the whole-batch engine's; latencies {[r['latency_s'] for r in replies]}; "
+              f"stats {st1}; {card}", flush=True)
+    finally:
+        stop_server(sampler, server, thread)
+    return launches["int8_matmul"]
 
 
 def main() -> int:
@@ -710,26 +1113,61 @@ def main() -> int:
     print(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
+    from dalle_mtf_tpu_torch.ops import decode_matmul as dmm  # noqa: PLC0415
+
     serving = phase_kernel(torch, attn, card)
+    decode = phase_decode_kernels(torch, dmm, card)
     training = phase_train_kernels(torch, attn, card)
     phase_train_values(torch, card)
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, attn, card, training)
     torch.cuda.empty_cache()
-    serve_launches = phase_slice(torch, attn, card)
+    serve_launches, bf16 = phase_slice(torch, attn, card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        config = serve_config(tmp)
+        quant = {mode: phase_quant_serving(torch, attn, dmm, card, mode, config, bf16["texts"])
+                 for mode in ("int8", "int4")}
+        # per-batch latency of the four weight forms, one after another
+        from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
 
+        int8_dalle = quant["int8"]["dalle"]
+        einsum_dalle = DALLE(dataclasses.replace(int8_dalle.cfg, decode_kernels=False), "cuda")
+        text4 = bf16["tokens"].repeat(2, 1).cuda()
+        vae, vae_params = bf16["vae"], bf16["vae_params"]
+        variants = [
+            ("bf16", bf16["dalle"], bf16["params"]),
+            ("int8_dequant_einsum", einsum_dalle, quant["int8"]["params"]),
+            ("int8_kernels", int8_dalle, quant["int8"]["params"]),
+            ("int4_kernels", quant["int4"]["dalle"], quant["int4"]["params"]),
+        ]
+        splits = {label: batch_latency(torch, card, label, d, p, vae, vae_params, text4)
+                  for label, d, p in variants}
+        for label, d, p in (variants[0], variants[2]):
+            decode_profile(torch, card, label, d, p, text4, splits[label])
+        continuous_launches = phase_continuous(torch, attn, dmm, card, config, quant["int8"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         dict(name=name, route="cuda", source=FWD_SOURCE if "fwd" in name else BWD_SOURCE,
              replaces=REPLACES[name], launches=train_launches[name],
-             max_abs_err=training[name]["max_abs_err"], ms=training[name]["ms"],
-             plain_ms=training[name]["plain_ms"])
+             **{k: training[name][k] for k in keys})
         for name in ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
     ]
     rows.append(dict(
         name="causal_attention_fwd", route="cuda", source=FWD_SOURCE,
         replaces=REPLACES["causal_attention_fwd"], launches=serve_launches,
-        max_abs_err=serving["max_abs_err"], ms=serving["ms"], plain_ms=serving["plain_ms"],
+        **{k: serving[k] for k in keys},
     ))
+    for name, mode in (("int8_matmul", "int8"), ("int4_matmul", "int4")):
+        rows.append(dict(
+            name=name, route="cuda", source=DECODE_SOURCE, replaces=REPLACES[name],
+            launches=quant[mode]["launches"], **{k: decode[name][k] for k in keys},
+            shape="mlp1 M=4 K=1024 N=4096",
+        ))
+    rows[3]["continuous_launches"] = continuous_launches
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,12 @@ happen only inside the ops.
 Unlike the JAX package, whose KV cache is a functional pytree updated with
 dynamic_update_slice, ``prefill``/``decode_step`` write the cache IN PLACE.
 
+Serving weights may be quantized (quantize.py: int8, or split-half packed
+int4, with ``<name>_scale`` leaves). The weight access dequantizes them as
+the JAX model does: at decode geometry (``decode_kernels`` on, at most 32
+rows, K a multiple of 256) through the streaming kernels of
+ops/decode_matmul.py, else in the compute dtype before a plain matmul.
+
 Training (``hidden``/``forward``/``loss``) runs the packed attention
 (ops/attention_packed.py) through plain autograd. Remat: the JAX default
 for this model, ``dots_and_attn``, saves every matmul output and the
@@ -22,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Mapping
+from typing import Any, Mapping, NamedTuple
 
 import torch
 import torch.nn as nn
@@ -30,7 +36,9 @@ import torch.nn.functional as F
 
 from dalle_mtf_tpu_torch.ops.attention import causal_attention, decode_attention
 from dalle_mtf_tpu_torch.ops.attention_packed import causal_attention_packed
+from dalle_mtf_tpu_torch.ops.decode_matmul import int4_matmul, int8_matmul
 from dalle_mtf_tpu_torch.ops.losses import softmax_cross_entropy_with_logits
+from dalle_mtf_tpu_torch.quantize import nibble_views, quantized_shapes
 from dalle_mtf_tpu_torch.utils.precision import Policy, get_policy
 
 _ACTIVATIONS = {
@@ -73,6 +81,9 @@ class DalleConfig:
     attention_dropout: float = 0.0
     residual_dropout: float = 0.0
     eos_token_id: int | None = None
+    # quantized decode matmuls through the streaming kernels (off by default,
+    # as in the JAX package)
+    decode_kernels: bool = False
 
     def __post_init__(self):
         refused = []
@@ -110,6 +121,7 @@ class DalleConfig:
             attention_dropout=params.get("attention_dropout") or 0.0,
             residual_dropout=params.get("residual_dropout") or 0.0,
             eos_token_id=params.get("eos_token_id"),
+            decode_kernels=bool(params.get("decode_kernels", False)),
         )
 
     @property
@@ -152,6 +164,18 @@ def _refuse_unported(params: Mapping[str, Any]) -> None:
         )
 
 
+class Head(NamedTuple):
+    """The output projection's columns one generation reads, built once by
+    ``DALLE.logits_head``: ``w`` fp32 [E, n] (unquantized), or contiguous
+    int8 [E, n] / packed int4 [E/2, n] with ``scale`` fp32 [1, n]; ``b`` fp32
+    [n]."""
+
+    w: torch.Tensor
+    scale: torch.Tensor | None
+    b: torch.Tensor
+    int4: bool
+
+
 class DALLE(nn.Module):
     """The model's computation over an explicit parameter tree.
 
@@ -167,12 +191,14 @@ class DALLE(nn.Module):
 
     # ------------------------------------------------------------------ init
 
-    def param_shapes(self) -> dict:
-        """The parameter tree's shapes, keyed like the JAX tree."""
+    def param_shapes(self, quantize: str = "none") -> dict:
+        """The parameter tree's shapes, keyed like the JAX tree; with
+        ``quantize`` "int8" or "int4", the tree quantize.py makes (packed
+        int4 axes halved, ``<name>_scale`` and int4 marker leaves added)."""
         cfg = self.cfg
         e, h, d, L = cfg.n_embd, cfg.n_heads, cfg.head_dim, cfg.n_layers
         inter = 4 * e
-        return {
+        shapes = {
             "wte": (cfg.total_tokens, e),
             "wpe": (cfg.total_seq_len, e),
             "layers": {
@@ -186,6 +212,7 @@ class DALLE(nn.Module):
             "lnf_g": (e,), "lnf_b": (e,),
             "w_out": (e, cfg.total_tokens), "b_out": (cfg.total_tokens,),
         }
+        return shapes if quantize == "none" else quantized_shapes(shapes, quantize)
 
     def init(self, generator: torch.Generator) -> dict:
         """Random fp32 parameters with the JAX init's shapes and stddevs
@@ -249,15 +276,61 @@ class DALLE(nn.Module):
         return out.to(x.dtype)
 
     def _w(self, p, name):
-        return p[name].to(self.cfg.policy.compute_dtype)
+        """A layer weight in the compute dtype; int8 weights dequantize as
+        ``w.to(dtype) * scale.to(dtype)`` (int4 never reaches here)."""
+        dtype = self.cfg.policy.compute_dtype
+        w = p[name].to(dtype)
+        scale = p.get(name + "_scale")
+        return w if scale is None else w * scale.to(dtype)
+
+    def _streaming_eligible(self, m: int, k: int) -> bool:
+        """Whether a quantized [m, k] product goes through the streaming
+        dequant kernels: decode geometry and a K the kernels were sized for.
+        The device does not enter: a CUDA tensor launches the kernel, a CPU
+        tensor runs its plain version."""
+        return self.cfg.decode_kernels and m <= 32 and k % 256 == 0
+
+    def _matmul_w(self, p, name, x, heads: int | None = None):
+        """x [..., K] times layer weight ``name`` viewed as [K, N] -> [..., N]
+        in the compute dtype (the JAX ``_einsum_w``). For int4 the packed
+        contraction rows pair with halves of x: the two halves of K, or with
+        ``heads`` (wo) the halves of each head's D."""
+        dtype = self.cfg.policy.compute_dtype
+        scale = p.get(name + "_scale")
+        if scale is None:
+            return x @ p[name].to(dtype).reshape(x.shape[-1], -1)
+        lead, k = x.shape[:-1], x.shape[-1]
+        m = math.prod(lead)
+        w2, s2 = p[name].reshape(-1, scale.numel()), scale.reshape(1, -1)
+        int4 = name + "_int4" in p
+        if int4:
+            if heads:
+                xh = x.reshape(*lead, heads, -1)
+                half = xh.shape[-1] // 2
+                x_lo = xh[..., :half].reshape(*lead, -1)
+                x_hi = xh[..., half:].reshape(*lead, -1)
+            else:
+                x_lo, x_hi = x[..., : k // 2], x[..., k // 2:]
+        if self._streaming_eligible(m, k):
+            def rows(t):
+                return t.reshape(m, -1).to(torch.bfloat16).contiguous()
+
+            out = (int4_matmul(rows(x_lo), rows(x_hi), w2, s2) if int4
+                   else int8_matmul(rows(x), w2, s2))
+            return out.to(dtype).reshape(*lead, -1)
+        if not int4:
+            return x @ self._w(p, name).reshape(k, -1)
+        lo, hi = nibble_views(w2)
+        sc = s2.to(dtype)
+        return x_lo @ (lo.to(dtype) * sc) + x_hi @ (hi.to(dtype) * sc)
 
     def _qkv(self, p, a_in):
         """[B, S, E] -> contiguous q, k, v [B, H, S, D]."""
-        b, s, e = a_in.shape
+        b, s, _ = a_in.shape
         h, d = self.cfg.n_heads, self.cfg.head_dim
 
         def proj(name):
-            y = a_in @ self._w(p, name).reshape(e, h * d)
+            y = self._matmul_w(p, name, a_in)
             return y.reshape(b, s, h, d).transpose(1, 2).contiguous()
 
         return proj("wq"), proj("wk"), proj("wv")
@@ -265,35 +338,70 @@ class DALLE(nn.Module):
     def _attn_out(self, p, a):
         """[B, H, S, D] -> [B, S, E] (the bhsd,hde->bse einsum) + o_b."""
         b, h, s, d = a.shape
-        w = self._w(p, "wo").reshape(h * d, -1)
-        y = a.transpose(1, 2).reshape(b, s, h * d) @ w
+        y = self._matmul_w(p, "wo", a.transpose(1, 2).reshape(b, s, h * d), heads=h)
         return y + p["o_b"].to(y.dtype)
 
     def _mlp(self, p, m_in):
         dtype = self.cfg.policy.compute_dtype
         act = _ACTIVATIONS[self.cfg.activation]
-        hdn = act(m_in @ self._w(p, "w_mlp1") + p["b_mlp1"].to(dtype))
-        return hdn @ self._w(p, "w_mlp2") + p["b_mlp2"].to(dtype)
+        hdn = act(self._matmul_w(p, "w_mlp1", m_in) + p["b_mlp1"].to(dtype))
+        return self._matmul_w(p, "w_mlp2", hdn) + p["b_mlp2"].to(dtype)
 
-    def logits_head(self, params, band: tuple[int, int] | None = None):
-        """(w [E, n] fp32, b [n] fp32) for ``_last_logits``: w_out's columns
-        [lo, hi) (all when ``band`` is None), rounded through the compute
-        dtype as the JAX head reads them. Built once per generation, not
-        per token."""
+    def _w_out(self, params):
+        """The output projection [E, V] in the compute dtype, dequantized
+        (int4 unpacked whole: for one-shot use, not per token)."""
+        dtype = self.cfg.policy.compute_dtype
+        w = params["w_out"]
+        if "w_out_int4" in params:
+            w = torch.cat(nibble_views(w), dim=0)
+        w = w.to(dtype)
+        scale = params.get("w_out_scale")
+        return w if scale is None else w * scale.to(dtype)
+
+    def logits_head(self, params, band: tuple[int, int] | None = None) -> Head:
+        """w_out's columns [lo, hi) (all when ``band`` is None) for
+        ``_last_logits``, built once per generation, not per token.
+        Unquantized: rounded through the compute dtype as the JAX head reads
+        them, held as fp32. Quantized: the int8 or packed bytes and their
+        scales, sliced and made contiguous here, because a column slice of
+        [E, V] has V's row stride and the kernels read dense rows."""
         lo, hi = band if band is not None else (0, self.cfg.total_tokens)
-        w = params["w_out"][:, lo:hi].to(self.cfg.policy.compute_dtype)
-        return w.float().contiguous(), params["b_out"][lo:hi].float()
+        b = params["b_out"][lo:hi].float()
+        scale = params.get("w_out_scale")
+        if scale is None:
+            w = params["w_out"][:, lo:hi].to(self.cfg.policy.compute_dtype)
+            return Head(w.float().contiguous(), None, b, False)
+        return Head(params["w_out"][:, lo:hi].contiguous(),
+                    scale[:, lo:hi].float().contiguous(), b, "w_out_int4" in params)
 
-    def _last_logits(self, head, x_last):
+    def _last_logits(self, head: Head, x_last):
         """[B, E] final-LN'd hidden -> fp32 logits [B, n] over the head's
         columns. The product takes compute-dtype operands and accumulates
         in fp32 (the JAX head's preferred_element_type): bf16 operands are
-        exact in fp32, so an fp32 matmul of them is that product. With a
-        band only the image-token columns exist; every other column would be
-        masked out by sampling anyway, so the banded head is exact."""
-        w, b = head
-        x = x_last.to(self.cfg.policy.compute_dtype).float()
-        return x @ w + b
+        exact in fp32, so an fp32 matmul of them is that product. Quantized
+        heads stream through the kernels at decode geometry, else dequantize
+        in the compute dtype first (JAX ``_last_logits``). With a band only
+        the image-token columns exist; every other column would be masked
+        out by sampling anyway, so the banded head is exact."""
+        dtype = self.cfg.policy.compute_dtype
+        if head.scale is None:
+            return x_last.to(dtype).float() @ head.w + head.b
+        m, e = x_last.shape
+        if self._streaming_eligible(m, e):
+            x16 = x_last.to(torch.bfloat16)
+            if head.int4:
+                logits = int4_matmul(x16[:, : e // 2].contiguous(),
+                                     x16[:, e // 2:].contiguous(), head.w, head.scale)
+            else:
+                logits = int8_matmul(x16.contiguous(), head.w, head.scale)
+            return logits + head.b
+        x = x_last.to(dtype)
+        sc = head.scale.to(dtype)
+        if head.int4:
+            lo, hi = nibble_views(head.w)
+            return (x[:, : e // 2].float() @ (lo.to(dtype) * sc).float()
+                    + x[:, e // 2:].float() @ (hi.to(dtype) * sc).float() + head.b)
+        return x.float() @ (head.w.to(dtype) * sc).float() + head.b
 
     def _layers(self, params) -> list[dict]:
         """Per-layer views of the stacked [L, ...] parameters. ``unbind``
@@ -334,7 +442,8 @@ class DALLE(nn.Module):
         cfg = self.cfg
         a_in = self._layer_norm(x, p["ln1_g"], p["ln1_b"])
         drop = cfg.attention_dropout if train else 0.0
-        if cfg.attn_packed:
+        # quantized weights take the [B, H, S, D] arm (JAX ``use_packed``)
+        if cfg.attn_packed and "wq_scale" not in p and "wq_int4" not in p:
             q, k, v = self._qkv_packed(p, a_in)
             a = causal_attention_packed(q, k, v, cfg.n_heads, window=self._window,
                                         dropout_rate=drop, generator=gen)
@@ -371,8 +480,7 @@ class DALLE(nn.Module):
         operands, fp32 accumulation and output (bf16 values are exact in
         fp32, so the fp32 product of the cast operands is that matmul)."""
         x = self.hidden(params, tokens, generator, train)
-        w = params["w_out"].to(self.cfg.policy.compute_dtype)
-        return x.float() @ w.float() + params["b_out"]
+        return x.float() @ self._w_out(params).float() + params["b_out"]
 
     def loss(self, params, tokens, generator=None, train: bool = True,
              z_loss: float = 0.0):
@@ -384,7 +492,7 @@ class DALLE(nn.Module):
         fusion; plain autograd gives the same dw and db)."""
         dtype = self.cfg.policy.compute_dtype
         x = self.hidden(params, tokens, generator, train)
-        logits = x @ params["w_out"].to(dtype) + params["b_out"].to(dtype)
+        logits = x @ self._w_out(params) + params["b_out"].to(dtype)
         loss_batch = softmax_cross_entropy_with_logits(
             logits, self.shifted_labels(tokens), z_loss)
         return loss_batch.mean(), loss_batch
@@ -448,18 +556,36 @@ class DALLE(nn.Module):
         [B, vocab] ([B, hi-lo] with ``band``). Each layer writes its k/v at
         ``position`` into the cache in place (the JAX step returns a new
         cache instead)."""
-        head = head or self.logits_head(params, band)
-        position = int(position)
+        return self._decode(params, cache, token, int(position),
+                            head or self.logits_head(params, band))
+
+    def decode_step_rows(self, params, cache: dict, token, positions,
+                         band=None, head=None):
+        """``decode_step`` with a per-row position: token [B] where row b sits
+        at ``positions[b]`` (long [B]) -> logits [B, vocab]. Each row writes
+        its k/v at its own position, and its attention mask reads it. What
+        continuous batching needs: slots of one batch decode at different
+        depths. The same math as ``decode_step`` when all positions agree."""
+        return self._decode(params, cache, token, positions,
+                            head or self.logits_head(params, band))
+
+    def _decode(self, params, cache, token, pos, head):
+        """The decode body: ``pos`` an int (every row) or a long [B]."""
         dtype = self.cfg.policy.compute_dtype
-        x = params["wte"][token].to(dtype) + params["wpe"][position].to(dtype)
+        x = params["wte"][token].to(dtype) + params["wpe"][pos].to(dtype)
         x = x[:, None, :]  # [B, 1, E]
+        rows = None if isinstance(pos, int) else torch.arange(x.shape[0], device=x.device)
         for layer, p in enumerate(self._layers(params)):
             a_in = self._layer_norm(x, p["ln1_g"], p["ln1_b"])
             q, k_new, v_new = self._qkv(p, a_in)
             k_all, v_all = cache["k"][layer], cache["v"][layer]
-            k_all[:, :, position] = k_new[:, :, 0]
-            v_all[:, :, position] = v_new[:, :, 0]
-            a = decode_attention(q, k_all, v_all, position, window=self._window)
+            if rows is None:
+                k_all[:, :, pos] = k_new[:, :, 0]
+                v_all[:, :, pos] = v_new[:, :, 0]
+            else:
+                k_all[rows, :, pos] = k_new[:, :, 0]
+                v_all[rows, :, pos] = v_new[:, :, 0]
+            a = decode_attention(q, k_all, v_all, pos, window=self._window)
             x = x + self._attn_out(p, a)
             m_in = self._layer_norm(x, p["ln2_g"], p["ln2_b"])
             x = x + self._mlp(p, m_in)

@@ -38,6 +38,10 @@ _SIGNATURES = {
     # q, k, v, dout, lse, dsum, dq, dk, dv; then as the forward
     "causal_attention_bwd": [_P] * 9 + [_I] * 4 + [_LL] * 3
     + [_I, _I, _I, _U, _U, _F, _P],
+    # x, w, scale, out, partial; M, K, N, m_tile, k_slice, splits; stream
+    "int8_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    # x_lo, x_hi, packed, scale, out, partial; then as int8_matmul
+    "int4_matmul": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 

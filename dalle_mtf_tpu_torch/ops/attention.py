@@ -11,8 +11,8 @@ the serving and training paths run).
   the hand-written kernel ``csrc/causal_attention_fwd.cu`` (the port of the
   TPU kernel ``_wedge_fwd_kernel``); a CPU tensor goes to the plain version;
   anything else raises.
-- ``decode_attention``: one query position against the KV cache. Plain
-  torch, as the JAX package leaves it to XLA.
+- ``decode_attention``: one query position (one per row, or a shared one)
+  against the KV cache. Plain torch, as the JAX package leaves it to XLA.
 
 The TPU's four attention families (wedge, whole-row, online-softmax loop,
 hybrid) existed because of its 16 MB VMEM; here one tiled kernel covers
@@ -240,20 +240,24 @@ def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
-    position: int,
+    position: int | torch.Tensor,
     window: int | None = None,
 ) -> torch.Tensor:
     """Single-position attention against a KV cache.
 
     q: [B, H, 1, D]; k_cache/v_cache: [B, H, S, D] with valid entries in
-    [0, position]. ``window`` applies the same local band as prefill. Plain
-    torch, as in the JAX package (no kernel there either).
+    [0, position]. ``position`` is an int (every row) or a long [B] (row b
+    at ``position[b]``: continuous batching). ``window`` applies the same
+    local band as prefill. Plain torch, as in the JAX package (no kernel
+    there either).
     """
     d = q.shape[-1]
     scores = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) * (
         1.0 / math.sqrt(d)
     )
     j = torch.arange(k_cache.shape[-2], device=q.device)
+    if isinstance(position, torch.Tensor):
+        position = position.reshape(-1, 1, 1, 1)  # over [B, H, 1, S]
     mask = j > position
     if window is not None:
         mask = mask | (position - j >= window)

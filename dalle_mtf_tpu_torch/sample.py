@@ -1,11 +1,12 @@
-"""Text -> image sampling (port of ``dalle_mtf_tpu/sample.py``, whole-batch
-path).
+"""Text -> image sampling (port of ``dalle_mtf_tpu/sample.py``).
 
-Pipeline: DALLE prefill over the text prompt -> a Python loop of
+Whole-batch pipeline: DALLE prefill over the text prompt -> a Python loop of
 image_seq_len decode steps against the KV cache -> VAE decode_tokens ->
 pixels in [0, 1]. Logits are computed only over the image-token band
 [text_vocab_size, text_vocab_size + image_vocab_size), so the model can never
-emit text or EOS tokens inside the image.
+emit text or EOS tokens inside the image. The continuous-batching engine
+(serve.ContinuousBatchingSampler) runs ``admit_rows`` and ``decode_chunk``
+instead: rows at their own positions, per-row sampling parameters.
 
 Randomness comes from an explicit ``torch.Generator`` on the logits' device.
 The JAX package draws from ``jax.random`` keys, so sampled (temperature > 0)
@@ -98,6 +99,88 @@ def generate_image_tokens(
         if i + 1 < cfg.image_seq_len:  # the last token needs no next logits
             logits = dalle.decode_step(params, cache, tok + lo, t + i, head=head)
     return out
+
+
+def _sample_token_rows(generator, logits, temperature, top_k_rows, k_max: int,
+                       top_p_rows=None):
+    """Per-row sampling with per-row ``top_k`` and ``top_p``, one code path
+    for a batch whose rows ask for different values (the continuous
+    engine's). The candidate set is the top ``k_max`` of each row; a row's
+    ``top_k`` masks candidates by rank (any k in [1, k_max]); k = 0 rows
+    sample from the whole band, unless the row also sets top_p < 1, which
+    takes the k_max candidates. Nucleus masking composes per row; rows with
+    temperature <= 0 take the exact argmax.
+
+    ``torch.topk`` is exact. The JAX engine uses ``lax.approx_max_k`` at
+    recall 0.99, which on the CPU, where the tests compare the two, is exact
+    as well; on the TPU it may rarely miss a candidate."""
+    logits = logits.float()
+    b, v = logits.shape
+    dev = logits.device
+    temp = torch.as_tensor(temperature, dtype=torch.float32, device=dev).expand(b)[:, None]
+    safe = temp.clamp_min(1e-6)
+    ks = torch.as_tensor(top_k_rows, dtype=torch.long, device=dev).expand(b)[:, None]
+    ps = (torch.ones((b,), device=dev) if top_p_rows is None
+          else torch.as_tensor(top_p_rows, dtype=torch.float32, device=dev).expand(b))
+    k_max = min(k_max, v - 1)
+    vals, idxs = torch.topk(logits, k_max, dim=-1)
+    rank = torch.arange(k_max, device=dev)[None, :]
+    # a k = 0 row with nucleus on still needs candidates: widen it to k_max
+    k_eff = torch.where((ks == 0) & (ps[:, None] < 1.0), k_max, ks)
+    vals = torch.where(rank < k_eff.clamp(1, k_max), vals, -torch.inf)
+    vals = torch.where(_nucleus_mask(vals, safe, ps), vals, -torch.inf)
+    tok_topk = torch.gather(idxs, 1, _categorical(generator, vals / safe)[:, None])[:, 0]
+    tok_full = _categorical(generator, logits / safe)
+    tok = torch.where((ks[:, 0] == 0) & (ps >= 1.0), tok_full, tok_topk)
+    return torch.where(temp[:, 0] <= 0.0, torch.argmax(logits, dim=-1), tok)
+
+
+@torch.inference_mode()
+def decode_chunk(dalle, params, cache, last_logits, positions, generator,
+                 temperature, top_k_rows, chunk: int = 128, k_max: int = 256,
+                 top_p_rows=None, head=None):
+    """``chunk`` decode steps of a continuously batched generation.
+
+    Each row advances from its own position (``positions``, long [B]); rows
+    at the end of the sequence park: they ride the steps (decode cost is the
+    weight stream, shared by all rows) but stop advancing, and their writes
+    land on their own last cache slot, which the next occupant's prefill and
+    decode overwrite before any read. The per-step math is that of
+    ``generate_image_tokens``: greedy rows give the same tokens.
+
+    ``last_logits`` [B, image_vocab] are banded; the cache is written in
+    place. Returns (last_logits, positions, tokens long [chunk, B] 0-based
+    image tokens, active bool [chunk, B] marking the real emissions)."""
+    cfg = dalle.cfg
+    lo = cfg.text_vocab_size
+    end_pos = cfg.text_seq_len + cfg.image_seq_len
+    head = head or dalle.logits_head(params, (lo, lo + cfg.image_vocab_size))
+    tokens, actives = [], []
+    for _ in range(chunk):
+        active = positions < end_pos
+        tok = _sample_token_rows(generator, last_logits, temperature, top_k_rows,
+                                 k_max, top_p_rows)
+        last_logits = dalle.decode_step_rows(
+            params, cache, tok + lo, positions.clamp_max(end_pos - 1), head=head)
+        positions = positions + active.long()
+        tokens.append(tok)
+        actives.append(active)
+    return last_logits, positions, torch.stack(tokens), torch.stack(actives)
+
+
+@torch.inference_mode()
+def admit_rows(dalle, params, cache, last_logits, positions, texts, mask, head=None):
+    """Admit new requests into the ``mask`` rows of a live continuous batch:
+    prefill their prompts (a full-batch pass), writing the cache only on the
+    masked rows, and take their banded logits and the text-end position
+    there; other rows are untouched. Returns (last_logits, positions)."""
+    cfg = dalle.cfg
+    lo = cfg.text_vocab_size
+    head = head or dalle.logits_head(params, (lo, lo + cfg.image_vocab_size))
+    new_logits = dalle.prefill_rows(params, texts.long(), cache, mask, head=head)
+    last_logits = torch.where(mask[:, None], new_logits, last_logits)
+    positions = torch.where(mask, cfg.text_seq_len, positions)
+    return last_logits, positions
 
 
 @torch.inference_mode()

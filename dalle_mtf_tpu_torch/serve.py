@@ -1,5 +1,7 @@
 """Batching inference serving for DALLE sampling (port of
-``dalle_mtf_tpu/serve.py``: the whole-batch engine and the HTTP front end).
+``dalle_mtf_tpu/serve.py``: both engines and the HTTP front end).
+
+``BatchingSampler``, the whole-batch engine:
 
 - one fixed server batch size: short batches are padded with dummy rows and
   the extras discarded (decode cost is dominated by weight streaming, so
@@ -13,7 +15,10 @@
   that has succeeded before) is retried once; a bucket's first call fails
   fast. The final failure surfaces to every waiter in the batch.
 
-The continuous-batching engine is not ported yet.
+``ContinuousBatchingSampler`` admits requests into free slots of a live
+batch at chunk boundaries (see its docstring). Both engines share the client
+API (``submit`` -> Future, ``drain``, ``close``, ``stats``), so
+``make_server`` serves either.
 """
 
 from __future__ import annotations
@@ -51,6 +56,28 @@ def _safe_resolve(fut: Future, result=None, exc=None) -> bool:
         return True
     except Exception:  # InvalidStateError: lost the race — request is dead
         return False
+
+
+def _check_request(sampler, text_tokens, n, temperature, top_p):
+    """Validate one request against ``sampler`` (either engine); returns
+    (ids, n, temperature, top_p) with the sampler's defaults filled in."""
+    if sampler._closed:
+        raise RuntimeError("sampler is closed")
+    n = int(n)
+    if not 1 <= n <= sampler.batch_size:
+        raise ValueError(f"n must be in [1, {sampler.batch_size}]")
+    ids = list(text_tokens)
+    if len(ids) != sampler.dalle.cfg.text_seq_len:
+        raise ValueError(
+            f"text must be tokenized+padded to {sampler.dalle.cfg.text_seq_len}"
+        )
+    temp = sampler.temperature if temperature is None else float(temperature)
+    if not 0.0 <= temp <= 100.0:
+        raise ValueError(f"temperature {temp} out of range [0, 100]")
+    tp = 1.0 if top_p is None else float(top_p)
+    if not 0.0 < tp <= 1.0:
+        raise ValueError(f"top_p {tp} out of range (0, 1]")
+    return ids, n, temp, tp
 
 
 class BatchingSampler:
@@ -127,22 +154,7 @@ class BatchingSampler:
         (list[int] of length text_seq_len), with optional per-request
         sampling params (``top_p`` < 1 = nucleus sampling over the top-k
         candidate set). Resolves to f32[n, H, W, C] in [0, 1]."""
-        if self._closed:
-            raise RuntimeError("sampler is closed")
-        n = int(n)
-        if not 1 <= n <= self.batch_size:
-            raise ValueError(f"n must be in [1, {self.batch_size}]")
-        ids = list(text_tokens)
-        if len(ids) != self.dalle.cfg.text_seq_len:
-            raise ValueError(
-                f"text must be tokenized+padded to {self.dalle.cfg.text_seq_len}"
-            )
-        temp = self.temperature if temperature is None else float(temperature)
-        if not 0.0 <= temp <= 100.0:
-            raise ValueError(f"temperature {temp} out of range [0, 100]")
-        tp = 1.0 if top_p is None else float(top_p)
-        if not 0.0 < tp <= 1.0:
-            raise ValueError(f"top_p {tp} out of range (0, 1]")
+        ids, n, temp, tp = _check_request(self, text_tokens, n, temperature, top_p)
         kb = self._bucket(self.top_k if top_k is None else top_k)
         fut: Future = Future()
         with self._submit_lock:
@@ -293,6 +305,281 @@ class BatchingSampler:
                 r += n
 
 
+_DRAIN = object()  # graceful-shutdown sentinel (None = hard stop)
+
+
+class ContinuousBatchingSampler:
+    """Slot-level continuous batching for fixed-length image generation:
+    requests join a live batch at chunk boundaries instead of waiting out
+    the in-flight whole-image generation.
+
+    The device loop is ``sample.decode_chunk`` of ``chunk`` steps. Between
+    chunks, finished rows leave (their image decodes and resolves at once),
+    cancelled rows are reaped, and queued requests are admitted into free
+    slots by a masked prefill (``sample.admit_rows``). A request of ``n``
+    images takes ``n`` slots and resolves when all of them finish.
+
+    Per-request sampling parameters need no buckets: ``top_k`` is a per-row
+    rank mask over one ``k_max``-wide candidate set (k = 0, or k > k_max,
+    is served untruncated: wider, never narrower); ``temperature`` and
+    ``top_p`` are per-row vectors.
+
+    Failure policy: a failed device call leaves the batch's state (cache,
+    logits, positions) half updated, so every in-flight request gets the
+    error and the engine resets to empty slots.
+    """
+
+    def __init__(
+        self,
+        dalle,
+        dalle_params,
+        vae,
+        vae_params,
+        batch_size: int = 4,
+        temperature: float = 1.0,
+        top_k: int = 64,
+        seed: int = 0,
+        chunk: int = 128,
+        k_max: int = 256,
+    ):
+        from dalle_mtf_tpu_torch.sample import admit_rows, decode_chunk  # noqa: PLC0415
+
+        self.dalle = dalle
+        self.vae = vae
+        self.batch_size = int(batch_size)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.chunk = int(chunk)
+        self.k_max = int(k_max)
+        self._params = (dalle_params, vae_params)
+        self._admit_rows = admit_rows
+        self._decode_chunk = decode_chunk
+        cfg = dalle.cfg
+        lo = cfg.text_vocab_size
+        # the banded head, sliced once for the engine's life
+        self._head = dalle.logits_head(dalle_params, (lo, lo + cfg.image_vocab_size))
+        self._end_pos = cfg.text_seq_len + cfg.image_seq_len
+        self._chunks_done = 0
+        self._admits_done = 0
+        self._resets = -1
+        self._seed = int(seed)
+        self._q: queue.Queue = queue.Queue()
+        self._closed = False
+        self._draining = False
+        self._submit_lock = threading.Lock()
+        self._reset_state()
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    # ------------------------------------------------------------ client API
+
+    def _effective_top_k(self, top_k) -> int:
+        k = int(self.top_k if top_k is None else top_k)
+        if k <= 0:
+            return 0
+        if k > self.k_max:
+            logger.warning("top_k=%d above k_max=%d; serving untruncated", k, self.k_max)
+            return 0
+        return k
+
+    def submit(self, text_tokens, n: int = 1, temperature=None,
+               top_k=None, top_p=None) -> Future:
+        """Same contract as ``BatchingSampler.submit``."""
+        ids, n, temp, tp = _check_request(self, text_tokens, n, temperature, top_p)
+        k = self._effective_top_k(top_k)
+        fut: Future = Future()
+        group = {"fut": fut, "images": [None] * n}
+        with self._submit_lock:
+            if self._closed:
+                raise RuntimeError("sampler is closed")
+            for i in range(n):
+                self._q.put((ids, temp, k, tp, group, i))
+        return fut
+
+    def close(self):
+        """Hard stop: in-flight generations get RuntimeError."""
+        with self._submit_lock:
+            self._closed = True
+            self._q.put(None)
+        self._worker.join(timeout=30)
+
+    def drain(self, timeout: float | None = None):
+        """Graceful shutdown: stop accepting, run until every queued request
+        has been admitted, generated and resolved, then stop."""
+        with self._submit_lock:
+            self._closed = True
+            self._q.put(_DRAIN)
+        self._worker.join(timeout=timeout)
+
+    def stats(self) -> dict:
+        """Live engine counters (served by the HTTP /stats endpoint)."""
+        return {
+            "engine": "continuous",
+            "slots_total": self.batch_size,
+            "slots_busy": sum(s is not None for s in self._slot),
+            "queue_depth": self._q.qsize(),
+            "chunks_done": self._chunks_done,
+            "admits_done": self._admits_done,
+            "chunk": self.chunk,
+        }
+
+    # ---------------------------------------------------------------- engine
+
+    def _reset_state(self):
+        b = self.batch_size
+        cfg = self.dalle.cfg
+        dev = self.dalle.device
+        self._cache = self.dalle.init_cache(b)
+        # banded: the engine's logits only cover the image-token vocabulary
+        self._logits = torch.zeros((b, cfg.image_vocab_size), dtype=torch.float32, device=dev)
+        # parked at the end: no slot advances until something is admitted
+        self._positions = torch.full((b,), self._end_pos, dtype=torch.long, device=dev)
+        # a reset counter in the seed: two identical requests before and
+        # after a reset must not replay one sampling stream
+        self._resets += 1
+        self._gen = torch.Generator(device=dev)
+        self._gen.manual_seed((self._seed * 2**32 + self._resets) % 2**63)
+        self._temps = np.full((b,), 1.0, np.float32)
+        self._topks = np.zeros((b,), np.int64)
+        self._topps = np.ones((b,), np.float32)
+        # per-slot host bookkeeping: None = free
+        self._slot: list[dict | None] = [None] * b
+        self._slot_tokens: list[list[int]] = [[] for _ in range(b)]
+
+    def _fail_all(self, err: Exception):
+        # one exception per GROUP: an n > 1 request's rows share one Future
+        seen: set[int] = set()
+        for s in self._slot:
+            if s is not None and id(s["group"]) not in seen:
+                seen.add(id(s["group"]))
+                _safe_resolve(s["group"]["fut"], exc=err)
+        self._reset_state()
+
+    def _park(self, slots: list[int]):
+        mask = torch.zeros((self.batch_size,), dtype=torch.bool)
+        mask[slots] = True
+        self._positions = torch.where(mask.to(self._positions.device), self._end_pos,
+                                      self._positions)
+
+    def _reap_cancelled(self):
+        """Free the slots of cancelled requests: park them so they stop
+        advancing, and admit new work in their place."""
+        cancelled = [i for i, s in enumerate(self._slot)
+                     if s is not None and s["group"]["fut"].cancelled()]
+        if not cancelled:
+            return
+        for slot in cancelled:
+            self._slot[slot] = None
+            self._slot_tokens[slot] = []
+        self._park(cancelled)
+        logger.info("reaped %d cancelled slot(s): %s", len(cancelled), cancelled)
+
+    def _admit(self) -> bool | None:
+        """Fill free slots from the queue. Blocks when the batch is idle;
+        returns None on shutdown, else whether anything was admitted."""
+        free = [i for i, s in enumerate(self._slot) if s is None]
+        idle = len(free) == len(self._slot)
+        admitted = []
+        while free:
+            try:
+                item = self._q.get(block=idle and not admitted and not self._draining)
+            except queue.Empty:
+                break
+            if item is None:
+                return None
+            if item is _DRAIN:
+                self._draining = True
+                continue  # everything queued before it is still served
+            ids, temp, k, tp, group, idx = item
+            if group["fut"].cancelled() or group["fut"].done():
+                continue  # cancelled while queued, or its group already failed
+            slot = free.pop(0)
+            self._slot[slot] = {"group": group, "idx": idx, "t0": time.perf_counter()}
+            self._slot_tokens[slot] = []
+            self._temps[slot], self._topks[slot], self._topps[slot] = temp, k, tp
+            admitted.append((slot, ids))
+        if not admitted:
+            return False
+        b, t_len = self.batch_size, self.dalle.cfg.text_seq_len
+        texts = np.zeros((b, t_len), np.int64)
+        mask = np.zeros((b,), bool)
+        for slot, ids in admitted:
+            texts[slot] = np.asarray(ids, np.int64)
+            mask[slot] = True
+        dev = self.dalle.device
+        self._logits, self._positions = self._admit_rows(
+            self.dalle, self._params[0], self._cache, self._logits, self._positions,
+            torch.from_numpy(texts).to(dev), torch.from_numpy(mask).to(dev),
+            head=self._head,
+        )
+        self._admits_done += 1
+        logger.info("admitted %d request row(s) into slots %s",
+                    len(admitted), [slot for slot, _ in admitted])
+        return True
+
+    def _finish_rows(self, finished: list[int]):
+        """VAE-decode the finished slots (one full-batch call; idle rows
+        decode zeros and are discarded) and resolve every group whose rows
+        are all done."""
+        toks = np.zeros((self.batch_size, self.dalle.cfg.image_seq_len), np.int64)
+        for slot in finished:
+            toks[slot] = np.asarray(self._slot_tokens[slot], np.int64)
+        with torch.inference_mode():
+            imgs = self.vae.decode_tokens(
+                self._params[1], torch.from_numpy(toks).to(self.dalle.device))
+        imgs = imgs.float().cpu().numpy()
+        for slot in finished:
+            s = self._slot[slot]
+            g = s["group"]
+            g["images"][s["idx"]] = imgs[slot]
+            logger.info("slot %d finished in %.2fs", slot, time.perf_counter() - s["t0"])
+            self._slot[slot] = None
+            self._slot_tokens[slot] = []
+            if all(im is not None for im in g["images"]):
+                _safe_resolve(g["fut"], result=np.stack(g["images"]))
+
+    def _run(self):
+        # every device call and the host bookkeeping sit under one guard: a
+        # failure leaves the batch's state half updated, so the policy is
+        # fail everyone + reset; an unguarded exception would kill the
+        # worker and hang every outstanding Future
+        image_len = self.dalle.cfg.image_seq_len
+        dev = self.dalle.device
+        while True:
+            try:
+                self._reap_cancelled()  # freed slots admit work right away
+                got = self._admit()
+                if got is None:
+                    self._fail_all(RuntimeError("sampler is closed"))
+                    return
+                if all(s is None for s in self._slot):
+                    if self._draining and self._q.empty():
+                        return  # drained: everything served, nothing queued
+                    continue
+                self._logits, self._positions, tokens, active = self._decode_chunk(
+                    self.dalle, self._params[0], self._cache, self._logits,
+                    self._positions, self._gen,
+                    torch.from_numpy(self._temps).to(dev),
+                    torch.from_numpy(self._topks).to(dev),
+                    chunk=self.chunk, k_max=self.k_max,
+                    top_p_rows=torch.from_numpy(self._topps).to(dev), head=self._head,
+                )
+                tokens, active = tokens.cpu().numpy(), active.cpu().numpy()
+                self._chunks_done += 1
+                finished = []
+                for slot, s in enumerate(self._slot):
+                    if s is None:
+                        continue
+                    self._slot_tokens[slot].extend(tokens[active[:, slot], slot].tolist())
+                    if len(self._slot_tokens[slot]) >= image_len:
+                        finished.append(slot)
+                if finished:
+                    self._finish_rows(finished)
+            except Exception as e:
+                logger.exception("engine step failed; resetting")
+                self._fail_all(e)
+
+
 # ------------------------------------------------------------------- HTTP
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -315,10 +602,11 @@ def _png_b64(img: np.ndarray) -> str:
     return base64.b64encode(png).decode()
 
 
-def make_server(sampler: BatchingSampler, tokenizer, pad_len: int,
+def make_server(sampler: BatchingSampler | ContinuousBatchingSampler,
+                tokenizer, pad_len: int,
                 host: str = "0.0.0.0", port: int = 8000,
                 timeout_s: float = 120.0) -> ThreadingHTTPServer:
-    """HTTP front end. POST /generate {"text": str, "n": int,
+    """HTTP front end (either engine). POST /generate {"text": str, "n": int,
     "temperature": float?, "top_k": int?, "top_p": float?} ->
     {"images": [<b64 png>...], "latency_s": float}; GET /healthz -> ok;
     GET /stats -> live engine counters."""

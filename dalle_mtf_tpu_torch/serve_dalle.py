@@ -1,8 +1,9 @@
 """Batching HTTP inference server for DALLE + VAE on one GPU (port of the
-root ``serve_dalle.py``, whole-batch engine).
+root ``serve_dalle.py``).
 
     python -m dalle_mtf_tpu_torch.serve_dalle --model dalle_coco \
-        --weights dalle.npz --vae-weights vae.npz --port 8000 --batch-size 4
+        --weights dalle.npz --vae-weights vae.npz --port 8000 --batch-size 4 \
+        [--quantize int8|int4 | --int8] [--continuous --chunk 128]
 
     curl -s localhost:8000/generate -d '{"text": "a red cube", "n": 2}'
     # -> {"images": ["<base64 png>", ...], "latency_s": ...}
@@ -10,7 +11,10 @@ root ``serve_dalle.py``, whole-batch engine).
 Weights are ``.npz`` files as ``utils/convert.py::save_npz`` writes them,
 keyed by the JAX tree's paths. Without ``--weights``/``--vae-weights`` the
 model is initialized from ``--seed`` (random weights: for trying the server
-out, not for real images).
+out, not for real images). ``--quantize`` quantizes the loaded fp32 masters
+for decoding (a tree that is already quantized is served as it is); the
+streaming dequant kernels run when the config sets ``decode_kernels``.
+``--continuous`` serves with the continuous-batching engine.
 """
 
 from __future__ import annotations
@@ -21,13 +25,22 @@ import logging
 import torch
 
 from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer
-from dalle_mtf_tpu_torch.quantize import cast_decode_weights
-from dalle_mtf_tpu_torch.serve import BatchingSampler, make_server
+from dalle_mtf_tpu_torch.quantize import (
+    cast_decode_weights,
+    quantize_layers_int4,
+    quantize_layers_int8,
+)
+from dalle_mtf_tpu_torch.serve import (
+    BatchingSampler,
+    ContinuousBatchingSampler,
+    make_server,
+)
 from dalle_mtf_tpu_torch.train.tasks import make_dalle_models
 from dalle_mtf_tpu_torch.utils.config import fetch_model_params
 from dalle_mtf_tpu_torch.utils.convert import (
     dalle_params_from_numpy,
     load_npz,
+    quantize_mode,
     vae_params_from_numpy,
 )
 
@@ -52,12 +65,16 @@ def parse_args(argv=None):
     p.add_argument("--linger-ms", type=float, default=5.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--continuous", action="store_true",
-                   help="continuous batching (not yet ported)")
+                   help="continuous batching: requests join the live batch "
+                        "at --chunk-step boundaries instead of waiting out "
+                        "the in-flight generation")
+    p.add_argument("--chunk", type=int, default=128,
+                   help="decode steps between admissions in --continuous mode")
     p.add_argument("--int8", action="store_true",
-                   help="int8 decode weights (not yet ported)")
+                   help="int8 decode weights (as --quantize int8)")
     p.add_argument("--quantize", choices=("none", "int8", "int4"),
-                   default=None, help="decode-weight quantization "
-                   "(only 'none' is ported)")
+                   default=None, help="decode-weight quantization (int4 packs "
+                   "two values per byte: 4x less weight stream than bf16)")
     return p.parse_args(argv)
 
 
@@ -74,30 +91,44 @@ def load_models(params, args):
     else:
         logger.warning("no --vae-weights: VAE initialized from seed %d", args.seed + 1)
         vae_params = vae.init(torch.Generator().manual_seed(args.seed + 1))
-    # unquantized serving casts the fp32 masters to the compute dtype ONCE,
-    # so the decode loop streams bf16 and converts nothing per token
-    dalle_params = cast_decode_weights(dalle_params, dalle.cfg.policy.compute_dtype)
+    quant = args.quantize or ("int8" if args.int8 else "none")
+    if quantize_mode(dalle_params) != "none":
+        logger.info("serving the loaded %s weights as they are",
+                    quantize_mode(dalle_params))
+    elif quant == "int8":
+        dalle_params = quantize_layers_int8(dalle_params)
+    elif quant == "int4":
+        dalle_params = quantize_layers_int4(dalle_params)
+    else:
+        # unquantized serving casts the fp32 masters to the compute dtype
+        # ONCE, so the decode loop streams bf16 and converts nothing per token
+        dalle_params = cast_decode_weights(dalle_params, dalle.cfg.policy.compute_dtype)
     return dalle, dalle_params, vae, vae_params
 
 
-def main(argv=None):
+def build_server(argv=None):
+    """Load the models, start the engine ``argv`` asks for, warm it with one
+    request, and bind the HTTP server. Returns (sampler, server); the caller
+    runs ``server.serve_forever()`` and drains the sampler."""
     args = parse_args(argv)
-    if args.continuous:
-        raise NotImplementedError("--continuous: not yet ported")
-    if args.int8 or args.quantize not in (None, "none"):
-        raise NotImplementedError("--int8/--quantize: not yet ported")
-    logging.basicConfig(level=logging.INFO)
     params = fetch_model_params(args.model)
     if params["model_type"] != "dalle":
         raise ValueError(f"{args.model} is not a dalle config")
     tokenizer = get_tokenizer()
     dalle, dalle_params, vae, vae_params = load_models(params, args)
     batch = args.batch_size or params["predict_batch_size"] or 4
-    sampler = BatchingSampler(
-        dalle, dalle_params, vae, vae_params,
-        batch_size=batch, temperature=args.temperature, top_k=args.top_k,
-        linger_ms=args.linger_ms, seed=args.seed,
-    )
+    if args.continuous:
+        sampler = ContinuousBatchingSampler(
+            dalle, dalle_params, vae, vae_params,
+            batch_size=batch, temperature=args.temperature, top_k=args.top_k,
+            seed=args.seed, chunk=args.chunk,
+        )
+    else:
+        sampler = BatchingSampler(
+            dalle, dalle_params, vae, vae_params,
+            batch_size=batch, temperature=args.temperature, top_k=args.top_k,
+            linger_ms=args.linger_ms, seed=args.seed,
+        )
     # first request builds the kernels, so a client's first call doesn't
     warm = sampler.submit([tokenizer.pad_token_id] * dalle.cfg.text_seq_len, 1)
     warm.result()
@@ -105,7 +136,13 @@ def main(argv=None):
     server = make_server(
         sampler, tokenizer, dalle.cfg.text_seq_len, host=args.host, port=args.port,
     )
-    logger.info("serving on %s:%d", args.host, args.port)
+    return sampler, server
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    sampler, server = build_server(argv)
+    logger.info("serving on %s:%d", *server.server_address[:2])
     try:
         server.serve_forever()
     except KeyboardInterrupt:

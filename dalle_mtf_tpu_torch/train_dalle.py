@@ -2,15 +2,16 @@
 ``train_dalle.py``, with the same CLI.
 
     python -m dalle_mtf_tpu_torch.train_dalle --model <config name or path> \
-        [--new [--yes]] [--gpu_ids 0]
+        [--new [--yes]] [--gpu_ids 0] [--device cuda|cpu]
 
 The config must be a tokens-mode DALLE config (``dataset.tokens: true``:
 records carry VAE token ids, so no VAE weights are loaded); the image mode
 needs the VAE encoder, which is not ported yet. Training resumes from the
 latest checkpoint in ``model_path``, and the data stream skips the batches
 already trained on. ``--new`` wipes ``model_path`` first (asking unless
-``--yes``). The device is ``cuda:<first --gpu_ids>``, else the first CUDA
-device, else the CPU.
+``--yes``). Training runs on ``cuda:<first --gpu_ids>``, else on
+``--device`` (default ``cuda``). Without a CUDA device it raises: it runs on
+the CPU only when asked to with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -34,7 +35,10 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--tpu", type=str, help="(compat; unused)")
     parser.add_argument("--gpu_ids", nargs="+", type=str,
-                        help="GPU ids; the first one trains (default: cuda:0 if present)")
+                        help="GPU ids; the first one trains (default: --device)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to train on when --gpu_ids is not given "
+                             "('cpu' only when asked for)")
     parser.add_argument("--model", type=str, required=True, help="JSON model config name or path")
     parser.add_argument("--new", action="store_true", help="If set, deletes previous checkpoint, if it exists, and "
                                                            "starts a new training run")
@@ -42,16 +46,22 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def pick_device(gpu_ids) -> torch.device:
-    if gpu_ids:
-        return torch.device(f"cuda:{int(gpu_ids[0])}")
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def pick_device(gpu_ids, device: str) -> torch.device:
+    """``cuda:<first gpu id>`` when ids are given, else ``device``. A CUDA
+    device that does not exist raises: nothing falls back to the CPU."""
+    dev = torch.device(f"cuda:{int(gpu_ids[0])}" if gpu_ids else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for {dev}: pass --device cpu to train on the CPU"
+        )
+    return dev
 
 
 def main(argv=None) -> Trainer:
     """Run the training the config asks for; returns the closed Trainer
     (its ``history`` and ``eval_history`` hold what was logged)."""
     args = parse_args(argv)
+    device = pick_device(args.gpu_ids, args.device)
     params = fetch_model_params(args.model)
     if params["model_type"] != "dalle":
         raise ValueError(f"config {args.model} is not a dalle config")
@@ -78,7 +88,6 @@ def main(argv=None) -> Trainer:
         )
     params["padding_id"] = tokenizer.pad_token_id
 
-    device = pick_device(args.gpu_ids)
     dalle, init_fn, loss_fn, eval_loss_fn = make_dalle_task(params, device)
     trainer = Trainer(
         params, init_fn, loss_fn,

@@ -7,7 +7,9 @@ path (``layers/wq``, ``decoder/block_0/up/w``).
 
 numpy has no bfloat16: bf16 tensors leave as float32 (exact), and arrays
 whose dtype is named ``bfloat16`` (ml_dtypes, as JAX hands them over) are
-widened to float32 on the way in.
+widened to float32 on the way in. Quantized serving trees (quantize.py in
+either package: int8 or packed int4 leaves, ``<name>_scale``, the
+``<name>_int4`` markers) cross the same way, int8 staying int8.
 """
 
 from __future__ import annotations
@@ -57,11 +59,19 @@ def params_to_numpy(tree) -> dict:
     }
 
 
+def quantize_mode(tree) -> str:
+    """"int4", "int8" or "none": how a DALLE tree's weights are stored."""
+    if "w_out_int4" in tree:
+        return "int4"
+    return "int8" if "w_out_scale" in tree else "none"
+
+
 def dalle_params_from_numpy(tree, dalle) -> dict:
     """A DALLE parameter tree of numpy arrays (e.g. a JAX tree through
-    ``jax.device_get``) -> torch tensors on ``dalle.device``, after checking
-    every name and shape against ``dalle``."""
-    _check(tree, dalle.param_shapes())
+    ``jax.device_get``), master or quantized -> torch tensors on
+    ``dalle.device``, after checking every name and shape against
+    ``dalle``."""
+    _check(tree, dalle.param_shapes(quantize_mode(tree)))
     return _to_torch(tree, dalle.device)
 
 

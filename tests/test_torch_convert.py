@@ -1,6 +1,7 @@
 """Weights carried across (dalle_mtf_tpu_torch/utils/convert.py): the npz
 round trip, the JAX tree's names and shapes, refusal of a wrong tree, the
-server CLI loading npz weights, and that the port never imports JAX."""
+server CLI loading npz weights and serving every mode, and that the port
+never imports JAX."""
 
 import os
 import subprocess
@@ -74,6 +75,13 @@ def test_wrong_tree_is_refused():
 
 
 def test_serve_cli_loads_npz_and_refuses_unported_modes(tmp_path):
+    """The server CLI loads npz weights, quantizes them for --int8 and
+    --quantize int4, and serves HTTP requests in those modes and with
+    --continuous; a quantization it does not know is refused."""
+    import json
+    import threading
+    import urllib.request
+
     from dalle_mtf_tpu_torch import serve_dalle
     from dalle_mtf_tpu_torch.train.tasks import make_dalle_models
     from dalle_mtf_tpu_torch.utils.config import fetch_model_params
@@ -83,17 +91,43 @@ def test_serve_cli_loads_npz_and_refuses_unported_modes(tmp_path):
     want = dalle.init(torch.Generator().manual_seed(3))
     convert.save_npz(tmp_path / "d.npz", want)
     convert.save_npz(tmp_path / "v.npz", vae.init(torch.Generator().manual_seed(4)))
-    args = serve_dalle.parse_args([
+    common = [
         "--model", "dalle_smoke", "--device", "cpu",
         "--weights", str(tmp_path / "d.npz"), "--vae-weights", str(tmp_path / "v.npz"),
-    ])
+    ]
+    args = serve_dalle.parse_args(common)
     dalle, dparams, vae, vparams = serve_dalle.load_models(params, args)
     assert dparams["layers"]["wq"].dtype == torch.float32  # dalle_smoke is fp32
     torch.testing.assert_close(dparams["w_out"], want["w_out"])
     assert vparams["codebook"].shape == (64, 64)  # vae_smoke: n_hid 64, 64 tokens
-    for flag in (["--continuous"], ["--int8"], ["--quantize", "int4"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            serve_dalle.main(["--model", "dalle_smoke", *flag])
+    for flags, mode in ((["--int8"], "int8"), (["--quantize", "int4"], "int4")):
+        _, qparams, _, _ = serve_dalle.load_models(params, serve_dalle.parse_args(common + flags))
+        assert convert.quantize_mode(qparams) == mode
+        assert qparams["layers"]["w_mlp1"].dtype == torch.int8
+    with pytest.raises(SystemExit):
+        serve_dalle.parse_args(common + ["--quantize", "int2"])
+
+    for flags, engine in ((["--continuous", "--chunk", "16"], "continuous"),
+                          (["--int8"], "whole-batch"), (["--quantize", "int4"], "whole-batch")):
+        sampler, server = serve_dalle.build_server(
+            common + ["--host", "127.0.0.1", "--port", "0", "--batch-size", "2", *flags])
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            port = server.server_address[1]
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/generate",
+                data=json.dumps({"text": "a red cube", "n": 2, "top_k": 8}).encode())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                assert len(json.load(r)["images"]) == 2
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=30) as r:
+                assert json.load(r)["engine"] == engine
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            sampler.drain(timeout=120)
+        assert not thread.is_alive() and not sampler._worker.is_alive()
 
 
 def test_vocab_mismatch_is_refused():
@@ -114,11 +148,13 @@ def test_port_never_imports_jax():
         "ops.attention_packed", "ops.losses", "train.optim", "train.trainer",
         "train.tasks", "train_dalle", "data.pipeline", "data.tfrecord", "data.fs",
         "utils.logging_utils", "utils.summaries",
+        # quantized and continuous-batching serving
+        "quantize", "ops.decode_matmul", "sample", "serve", "serve_dalle",
     ]
     code = (
         "import pkgutil, sys, dalle_mtf_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'dalle_mtf_tpu_torch.')]\n"
-        "assert len(mods) >= 28, mods\n"
+        "assert len(mods) >= 29, mods\n"
         f"missing = {['dalle_mtf_tpu_torch.' + m for m in training]!r}\n"
         "assert not set(missing) - set(mods), sorted(set(missing) - set(mods))\n"
         "for m in mods: __import__(m)\n"

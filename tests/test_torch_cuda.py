@@ -8,7 +8,8 @@ with only PyTorch and CUDA (skip the JAX conftest there):
 Without a CUDA device every test skips. Tolerance: max |kernel - plain| <=
 atol * max(1, max |plain|), atol 1e-5 in fp32 and 1e-2 in bf16, on
 unit-scale inputs (uniform in [-1, 1); one bf16 rounding is 2^-8
-relative); lse atol 1e-4.
+relative); lse atol 1e-4. The decode matmuls: the same exact products
+summed in fp32 in another order, so 1e-5 of max |plain|.
 """
 
 import pytest
@@ -16,6 +17,8 @@ import torch
 
 from dalle_mtf_tpu_torch.ops import attention as tattn
 from dalle_mtf_tpu_torch.ops import attention_packed as tpacked
+from dalle_mtf_tpu_torch.ops import decode_matmul as tdmm
+from dalle_mtf_tpu_torch.quantize import pack_int4
 
 pytestmark = pytest.mark.cuda
 
@@ -93,3 +96,60 @@ def test_unpacked_forward_matches_plain(cuda, dtype, window, rate):
     q.requires_grad_(True)
     with pytest.raises(NotImplementedError):
         tattn.causal_attention(q, k, v)
+
+
+def _quantized(m, k, n, qmax, gen):
+    x = torch.randn((m, k), generator=gen).to("cuda", torch.bfloat16)
+    w = torch.randn((k, n), generator=gen) * 0.02
+    scale = (w.abs().amax(0, keepdim=True) / qmax).clamp_min(1e-12)
+    q = torch.clamp(torch.round(w / scale), -qmax, qmax).to(torch.int8)
+    return x, q, scale
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (4, 1024, 1024), (4, 1024, 4096), (4, 4096, 1024), (4, 1024, 2048),
+    (1, 1024, 1024), (32, 1024, 4096), (3, 256, 520), (4, 1024, 52307),
+])
+def test_decode_matmul_kernels_match_plain(cuda, m, k, n):
+    gen = torch.Generator().manual_seed(m * k + n)
+    x, q, scale = _quantized(m, k, n, 127.0, gen)
+    q, scale = q.cuda(), scale.cuda()
+    before = dict(tdmm.KERNEL_LAUNCHES)
+    got = tdmm.int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert tdmm.KERNEL_LAUNCHES["int8_matmul"] == before["int8_matmul"] + 1
+    want = tdmm.int8_matmul_reference(x, q, scale)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+    x, q, scale = _quantized(m, k, n, 7.0, gen)
+    packed, scale = pack_int4(q, 0).cuda(), scale.cuda()
+    x_lo, x_hi = x[:, : k // 2].contiguous(), x[:, k // 2:].contiguous()
+    got = tdmm.int4_matmul(x_lo, x_hi, packed, scale)
+    torch.cuda.synchronize()
+    assert tdmm.KERNEL_LAUNCHES["int4_matmul"] == before["int4_matmul"] + 1
+    want = tdmm.int4_matmul_reference(x_lo, x_hi, packed, scale)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_decode_matmul_unaligned_weights_and_bad_inputs(cuda):
+    """A weight view that starts off a 16-byte boundary takes the byte-wise
+    loads; inputs the kernel does not take raise before any launch."""
+    gen = torch.Generator().manual_seed(9)
+    x, q, scale = _quantized(4, 512, 1025, 127.0, gen)
+    q, scale = q.cuda(), scale.cuda()
+    w = q[:, 1:]  # a view: not contiguous, so copy, then offset by one byte
+    buf = torch.empty(w.numel() + 1, dtype=torch.int8, device="cuda")
+    shifted = buf[1:].view(w.shape)
+    shifted.copy_(w)
+    s = scale[:, 1:].contiguous()
+    got = tdmm.int8_matmul(x, shifted, s)
+    assert (got - tdmm.int8_matmul_reference(x, shifted, s)).abs().max().item() <= \
+        1e-5 * got.abs().max().item()
+    with pytest.raises(ValueError, match="contiguous"):
+        tdmm.int8_matmul(x, w, s)
+    with pytest.raises(ValueError, match="rows"):
+        tdmm.int8_matmul(torch.zeros((33, 512), dtype=torch.bfloat16, device="cuda"),
+                         shifted, s)
+    with pytest.raises(ValueError, match="bf16"):
+        tdmm.int8_matmul(x.float(), shifted, s)

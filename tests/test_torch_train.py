@@ -326,7 +326,7 @@ def test_trainer_resume_equals_unbroken_run(tmp_path, monkeypatch):
 
     monkeypatch.chdir(tmp_path)
     path = _train_config(tmp_path)
-    unbroken = train_dalle.main(["--model", path])
+    unbroken = train_dalle.main(["--model", path, "--device", "cpu"])
     assert [h["step"] for h in unbroken.history] == [1, 2, 3, 4]
     assert [e["step"] for e in unbroken.eval_history] == [2, 4]
     assert set(unbroken.eval_history[0]) >= {"eval_loss", "eval_acc", "eval_acc_image",
@@ -338,11 +338,11 @@ def test_trainer_resume_equals_unbroken_run(tmp_path, monkeypatch):
     want = _params_of(str(tmp_path / "run"))
 
     path = _train_config(tmp_path, train_steps=2, model_path=str(tmp_path / "run2"))
-    train_dalle.main(["--model", path])
+    train_dalle.main(["--model", path, "--device", "cpu"])
     cfg = json.loads(open(path).read())
     cfg["train_steps"] = 4
     open(path, "w").write(json.dumps(cfg))
-    resumed = train_dalle.main(["--model", path])
+    resumed = train_dalle.main(["--model", path, "--device", "cpu"])
     assert [h["step"] for h in resumed.history] == [3, 4]
     got = _params_of(str(tmp_path / "run2"))
     assert set(got) == set(want)
@@ -350,8 +350,23 @@ def test_trainer_resume_equals_unbroken_run(tmp_path, monkeypatch):
         torch.testing.assert_close(got[name], want[name], rtol=0, atol=0, msg=name)
 
     # --new --yes starts afresh
-    again = train_dalle.main(["--model", path, "--new", "--yes"])
+    again = train_dalle.main(["--model", path, "--new", "--yes", "--device", "cpu"])
     assert [h["step"] for h in again.history] == [1, 2, 3, 4]
+
+
+def test_train_cli_refuses_the_cpu_unless_asked(tmp_path, monkeypatch):
+    """With no CUDA device, ``main`` without ``--device cpu`` raises before
+    it trains: the entry point never falls back to the CPU."""
+    from dalle_mtf_tpu_torch import train_dalle
+
+    if torch.cuda.is_available():
+        pytest.skip("pins the refusal on a machine without a CUDA device")
+    monkeypatch.chdir(tmp_path)
+    path = _train_config(tmp_path)
+    for extra in ([], ["--device", "cuda"], ["--gpu_ids", "0"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            train_dalle.main(["--model", path, *extra])
+    assert not (tmp_path / "run").exists()
 
 
 def test_microbatches_average_like_one_batch(tmp_path):
