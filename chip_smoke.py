@@ -15,14 +15,31 @@ Phases, none of them optional:
      and ``backward_reference``: out, lse, dq, dk, dv at the training shape
      (B=16, S=1280, H=8, D=128, bf16), a ragged fp32 shape with window 64,
      and the training shape with hash dropout 0.1 (one seed on both sides);
-   - the [B, H, S, D] forward with hash dropout.
+   - the [B, H, S, D] forward with hash dropout;
+   - the [B, H, S, D] pair (``causal_attention_fwd``/``_bwd`` through
+     ops/attention.py) against ``attention_reference`` and
+     ``attention_backward_reference`` at the shapes of the TPU package's
+     regimes: B=16 S=1280 bf16 with and without hash dropout (wedge,
+     whole-row), dalle_4k's B=4 S=4352 bf16 (the capped wedge forward and the
+     hybrid backward), and the loop regime's B=1 S=4352 fp32 and B=1 H=2
+     S=6200 bf16 (ragged);
+   - the LayerNorm pair (csrc/layer_norm.cu) against
+     ``layer_norm_reference`` and ``layer_norm_backward_reference`` at
+     dalle_4k's rows (R=17,408, E=1024, bf16) and a ragged fp32 shape; dg
+     and db within 1e-4 of max |plain| and equal bit for bit over two runs.
    Tolerance: max |kernel - plain| <= atol * max(1, max|plain|), atol 1e-5
    in fp32 and 1e-2 in bf16 on unit-scale inputs (uniform in [-1, 1); one
-   bf16 rounding is 2^-8 relative); lse atol 1e-4.
+   bf16 rounding is 2^-8 relative); lse atol 1e-4. The [B, H, S, D] pair is
+   also held per 64-long tile of S (query rows for out and dq, keys for dk
+   and dv, the last tile ragged): within 2^-6 (bf16) or 1e-5 (fp32) of the
+   tile's own max |plain|, a bound shown to fail a result whose last tile
+   is zeroed.
 3. Training values: a full-width configs/dalle_coco_synth.json model cut to
    2 layers, fp32, batch 2: loss and every parameter grad on the card
    (through the kernels) against the port's plain path on the CPU, same
-   weights and tokens. Tolerance: loss atol 1e-4; each grad leaf within
+   weights and tokens; once with the packed attention, once with
+   ``attn_packed: false, ln_impl: "pallas"`` (the [B, H, S, D] pair and the
+   LN kernels, launches counted). Tolerance: loss atol 1e-4; each grad leaf within
    relative L2 error 1e-2. fp32 sums run in another order on each side, and
    a ReLU gate whose input is within rounding of 0 may flip between the two:
    a flip moves single elements of the MLP grads by ~1% of the leaf's
@@ -37,6 +54,12 @@ Phases, none of them optional:
    losses and grad norms, and the kernels' launch counts; times the steady steps (tokens/s,
    MFU against 989 TFLOP/s dense bf16 with bench.py's FLOP formula, peak
    memory), then profiles two more steps for the split of device time.
+   Then the long-sequence slice: a copy of configs/dalle_4k.json (full width
+   and depth, S = 256 + 64 x 64 = 4352, batch 4, bf16) with
+   ``attn_packed: false`` and ``ln_impl: "pallas"`` in tokens mode, through
+   ``train_dalle.main`` for 6 steps with an eval and a checkpoint; the same
+   checks, exact launch counts of the [B, H, S, D] pair and the LN kernels
+   (and none of the packed pair), the same timing and profile.
 5. Serving slice: configs/dalle_coco.json at full width and depth with
    weights from a seed. Banded prefill logits on the card against the port's
    plain path on the CPU in fp32 (same weights); then the HTTP server
@@ -80,6 +103,7 @@ from __future__ import annotations
 
 import base64
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -99,18 +123,46 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FWD_SOURCE = "dalle_mtf_tpu_torch/csrc/causal_attention_fwd.cu"
 BWD_SOURCE = "dalle_mtf_tpu_torch/csrc/causal_attention_bwd.cu"
 DECODE_SOURCE = "dalle_mtf_tpu_torch/csrc/decode_matmul.cu"
+LN_SOURCE = "dalle_mtf_tpu_torch/csrc/layer_norm.cu"
 REPLACES = {
     "causal_attention_packed_fwd": "dalle_mtf_tpu/ops/attention_packed.py:160",  # _fused_fwd_kernel
     "causal_attention_packed_bwd": "dalle_mtf_tpu/ops/attention_packed.py:205",  # _fused_bwd_kernel
     "causal_attention_fwd": "dalle_mtf_tpu/ops/attention.py:572",  # _wedge_fwd_kernel
     "int8_matmul": "dalle_mtf_tpu/ops/decode_matmul.py:45",  # _int8_kernel
     "int4_matmul": "dalle_mtf_tpu/ops/decode_matmul.py:54",  # _int4_kernel
+    "layer_norm_fwd": "dalle_mtf_tpu/ops/layer_norm.py:53",  # _ln_fwd_kernel
+    "layer_norm_bwd": "dalle_mtf_tpu/ops/layer_norm.py:63",  # _ln_bwd_kernel
+}
+# The [B, H, S, D] regimes of the TPU package, all ported onto the one
+# kernel pair: one kernels-line row per wrapper and regime shape of
+# phase_bhsd_kernels, with the run whose launches it reports and the TPU
+# kernels (file:line) it replaces
+ATTN = "dalle_mtf_tpu/ops/attention.py"
+BHSD_ROWS = [  # (wrapper, shape, launches from, [(TPU kernel, file:line), ...])
+    ("causal_attention_fwd", "dalle_4k", "long",
+     [("_wedge_fwd_kernel (hybrid cap)", f"{ATTN}:572")]),
+    ("causal_attention_bwd", "dalle_4k", "long", [("_hybrid_bwd_kernel", f"{ATTN}:1053")]),
+    ("causal_attention_fwd", "train_1280", "values", [("_wr_fwd_kernel", f"{ATTN}:233")]),
+    ("causal_attention_bwd", "train_1280", "values", [("_wedge_bwd_kernel", f"{ATTN}:683"),
+                                                      ("_wr_bwd_kernel", f"{ATTN}:321")]),
+    ("causal_attention_fwd", "loop_fp32", "loop", [("_flash_kernel", f"{ATTN}:100")]),
+    ("causal_attention_bwd", "loop_fp32", "loop", [("_bwd_dq_kernel", f"{ATTN}:945"),
+                                                   ("_bwd_dkv_kernel", f"{ATTN}:996")]),
+]
+LAUNCHES_ON = {
+    "long": "dalle_4k training",
+    "values": "train values, attn_packed false, 2 layers at S = 1280",
+    "loop": "dalle_4k training: no path runs the loop regime's shapes, so the row "
+            "counts the same kernel on that path",
 }
 BATCH = 4
 TRAIN_CONFIG = "dalle_coco_synth"
+LONG_CONFIG = "dalle_4k"
 SERVE_CONFIG = "dalle_coco"
 TRAIN_STEPS, RESUME_STEPS, TIMED_FROM = 8, 2, 3  # steps 3..8 are timed
+LONG_STEPS, LONG_TIMED_FROM = 6, 3  # dalle_4k: steps 3..6 are timed
 PEAK_BF16_TFLOPS = 989.0  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_FP32_TFLOPS = 67.0  # H100 SXM fp32 outside the tensor cores (data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 L2_BYTES = 50e6
 CHUNK = 128  # continuous engine: decode steps between admissions
@@ -167,11 +219,11 @@ def device_ms_rotating(torch, fn, copies: int, iters: int) -> float:
     return sum(e.time_range.elapsed_us() for e in device) / 1e3 / iters
 
 
-def roofline(flops: float, nbytes: float) -> dict:
+def roofline(flops: float, nbytes: float, peak_tflops: float = PEAK_BF16_TFLOPS) -> dict:
     """The least time the card could take, ``bound_ms``: the larger of the
-    operations at the dense bf16 peak and the bytes at the memory rate, and
-    which of the two it is, ``bound_by``."""
-    ops_ms = flops / (PEAK_BF16_TFLOPS * 1e12) * 1e3
+    operations at the peak for their type (dense bf16 by default) and the
+    bytes at the memory rate, and which of the two it is, ``bound_by``."""
+    ops_ms = flops / (peak_tflops * 1e12) * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms > bytes_ms else "bytes")
@@ -179,18 +231,50 @@ def roofline(flops: float, nbytes: float) -> dict:
 
 def attention_roofline(b, h, s, d, elem, tensors, lse_tensors, matmuls) -> dict:
     """Causal attention over [B, H, S, D]: ``matmuls`` products of 2*D
-    operations per (query, key) pair on or below the diagonal; ``tensors``
-    [B, H, S, D] arrays of ``elem`` bytes and ``lse_tensors`` fp32 [B*H, S]
-    rows read or written once."""
+    operations per (query, key) pair on or below the diagonal (at the fp32
+    peak for 4-byte elements, else bf16's); ``tensors`` [B, H, S, D] arrays
+    of ``elem`` bytes and ``lse_tensors`` fp32 [B*H, S] rows read or written
+    once."""
     pairs = b * h * s * (s + 1) / 2
     nbytes = tensors * b * h * s * d * elem + lse_tensors * b * h * s * 4
-    return roofline(matmuls * 2 * d * pairs, nbytes)
+    return roofline(matmuls * 2 * d * pairs, nbytes,
+                    PEAK_FP32_TFLOPS if elem == 4 else PEAK_BF16_TFLOPS)
 
 
 def max_err(got, want) -> tuple[float, float]:
     """(max |got - want|, max(1, max |want|))."""
     return ((got.float() - want.float()).abs().max().item(),
             max(1.0, want.float().abs().max().item()))
+
+
+def tile_rtol(dtype) -> float:
+    """The bound on ``tile_rel_err``: 2^-6 in bf16, a few roundings of 2^-8
+    relative (kernel and plain round to bf16 in the same places, from fp32
+    sums taken in another order); 1e-5 in fp32."""
+    import torch  # noqa: PLC0415
+
+    return 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
+
+
+def tile_rel_err(got, want, tile: int = 64) -> float:
+    """The worst, over the heads and the ``tile``-long tiles of S of
+    [B, H, S, D] tensors (query rows for out and dq, keys for dk and dv; the
+    last tile ragged), of max |got - want| over max |want| within the tile.
+    Each tile is held to its own scale: far down a long sequence the values
+    are a small fraction of the tensor's largest, so a bound on the tensor's
+    scale alone would pass zeros there."""
+    import torch  # noqa: PLC0415
+
+    b, h, s, d = want.shape
+    n = -(-s // tile)
+
+    def tiles(t):
+        t = torch.nn.functional.pad(t.float().reshape(b * h, s, d), (0, 0, 0, n * tile - s))
+        return t.reshape(b * h, n, tile * d)
+
+    w = tiles(want)
+    err = (tiles(got) - w).abs().amax(-1)
+    return (err / w.abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
 def phase_kernel(torch, attn, card):
@@ -335,6 +419,181 @@ def phase_train_kernels(torch, attn, card):
     return best
 
 
+def phase_bhsd_kernels(torch, attn, card):
+    """The [B, H, S, D] forward and backward against the plain versions at
+    the shapes of the TPU package's regimes: S = 1280 (the wedge and
+    whole-row regimes; with and without hash dropout), dalle_4k's
+    B=4 S=4352 bf16 (the capped wedge forward and the hybrid backward), and
+    the loop regime's fp32 at S = 4352 and bf16 at a ragged S = 6200 (its
+    128-rounded 6272 > 6144). Returns {shape name: {wrapper: row}}."""
+    cases = [  # (name, B, H, S, dtype, dropout, timing iters)
+        ("train_1280", 16, 8, 1280, torch.bfloat16, 0.0, 5),
+        ("train_1280_dropout", 16, 8, 1280, torch.bfloat16, 0.1, 3),
+        ("dalle_4k", 4, 8, 4352, torch.bfloat16, 0.0, 3),
+        ("loop_fp32", 1, 8, 4352, torch.float32, 0.0, 3),
+        ("loop_6200", 1, 2, 6200, torch.bfloat16, 0.0, 3),
+    ]
+    d, seed = 128, 2**31 - 7
+    gen = torch.Generator().manual_seed(2)
+    rows = {}
+    for name, b, h, s, dtype, rate, iters in cases:
+        atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+        q, k, v, g = ((torch.rand((b, h, s, d), generator=gen) * 2 - 1).to("cuda", dtype)
+                      for _ in range(4))
+        before = dict(attn.KERNEL_LAUNCHES)
+        out, lse = attn._forward(q, k, v, None, rate, seed, with_lse=True)
+        grads = attn._backward(q, k, v, out, lse, g, None, rate, seed)
+        torch.cuda.synchronize()
+        for key in ("causal_attention_fwd", "causal_attention_bwd"):
+            if attn.KERNEL_LAUNCHES[key] != before[key] + 1:
+                raise AssertionError(f"{key} did not count its launch")
+        ref, ref_lse = attn.attention_reference(q, k, v, True, None, True, rate, seed)
+        lse_err = (lse - ref_lse).abs().max().item()
+        # the plain backward from the kernel's out and lse: only the backward differs
+        ref_grads = attn.attention_backward_reference(q, k, v, out, lse, g, None, rate, seed)
+        pairs = dict(zip(("out", "dq", "dk", "dv"), zip((out, *grads), (ref, *ref_grads))))
+        errs = {n: max_err(t, r) for n, (t, r) in pairs.items()}
+        rtol = tile_rtol(dtype)
+        tile_errs = {n: tile_rel_err(t, r) for n, (t, r) in pairs.items()}
+        # the tile bound must catch a kernel that leaves the last tile (ragged
+        # at S = 6200) unwritten: plant that fault in a copy of each result
+        for n, (t, r) in pairs.items():
+            planted = t.clone()
+            planted[:, :, (s - 1) // 64 * 64:] = 0
+            if not tile_rel_err(planted, r) > rtol:
+                raise AssertionError(f"[B, H, S, D] {name}: the tile bound passes {n} "
+                                     f"with its last tile zeroed")
+        del ref, ref_lse, ref_grads, pairs, planted
+        torch.cuda.empty_cache()
+        bad = {n: e for n, (e, scale) in errs.items() if not e <= atol * scale}
+        bad.update({f"{n} tile": e for n, e in tile_errs.items() if not e <= rtol})
+        if bad or not lse_err <= 1e-4:
+            raise AssertionError(
+                f"[B, H, S, D] {name}: kernels disagree with the plain versions: {bad} "
+                f"(atol {atol} x max(1, |plain|); each 64-long tile of S within {rtol} of "
+                f"its own max |plain|), lse err {lse_err}; all {errs}, tiles {tile_errs}")
+        fwd_ms = cuda_ms(lambda: attn._forward(q, k, v, None, rate, seed, True), iters)
+        bwd_ms = cuda_ms(lambda: attn._backward(q, k, v, out, lse, g, None, rate, seed), iters)
+        fwd_plain = cuda_ms(lambda: attn.attention_reference(
+            q, k, v, True, None, True, rate, seed), iters)
+        bwd_plain = cuda_ms(lambda: attn.attention_backward_reference(
+            q, k, v, out, lse, g, None, rate, seed), iters)
+        lib_fwd = lib_bwd = None
+        if rate == 0.0:  # SDPA: causal, no hash dropout
+            lib_fwd, lib_bwd = sdpa_bhsd_ms(torch, q, k, v, g, iters)
+        elem = q.element_size()
+        common = dict(card=card, shape=name, B=b, H=h, S=s, D=d, dtype=str(dtype),
+                      window=None, dropout=rate, atol=atol, tile_rtol=rtol)
+        rows[name] = {
+            "causal_attention_fwd": dict(
+                kernel="causal_attention_fwd", **common, max_abs_err=errs["out"][0],
+                tile_rel_err=tile_errs["out"],
+                lse_err=lse_err, ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd,
+                **attention_roofline(b, h, s, d, elem, 4, 1, 2)),
+            "causal_attention_bwd": dict(
+                kernel="causal_attention_bwd", **common,
+                max_abs_err=max(errs[n][0] for n in ("dq", "dk", "dv")),
+                errs={n: errs[n][0] for n in ("dq", "dk", "dv")},
+                tile_rel_errs={n: tile_errs[n] for n in ("dq", "dk", "dv")},
+                ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_bwd,
+                ms_includes="dsum reduction + dQ and dK/dV launches",
+                **attention_roofline(b, h, s, d, elem, 8, 1, 5)),
+        }
+        for row in rows[name].values():
+            print("kernel", json.dumps(row), flush=True)
+        del q, k, v, g, out, lse, grads
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ln_kernels(torch, lnm, card):
+    """The LayerNorm pair against the plain versions at dalle_4k's rows
+    (R = 4 x 4352, E = 1024, bf16) and a ragged fp32 shape; device times
+    under torch.profiler, over input copies past the 50 MB L2. Returns
+    {wrapper: row at the dalle_4k shape}."""
+    cases = [("dalle_4k", 17408, 1024, torch.bfloat16), ("ragged_fp32", 1001, 768, torch.float32)]
+    gen = torch.Generator().manual_seed(3)
+    best = {}
+    for name, r, e, dtype in cases:
+        atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+        elem = torch.finfo(dtype).bits // 8
+        copies = max(1, math.ceil(2 * L2_BYTES / (2 * r * e * elem)))
+        xs = [(torch.randn((r, e), generator=gen) * 2 + 0.5).to("cuda", dtype)
+              for _ in range(copies)]
+        dys = [torch.randn((r, e), generator=gen).to("cuda", dtype) for _ in range(copies)]
+        g = (1 + 0.3 * torch.randn(e, generator=gen)).cuda()
+        b = (0.2 * torch.randn(e, generator=gen)).cuda()
+        x, dy = xs[0], dys[0]
+        before = dict(lnm.KERNEL_LAUNCHES)
+        y = lnm._forward(x, g, b, 1e-5)
+        dx, dg, db = lnm._backward(x, g, dy, 1e-5)
+        torch.cuda.synchronize()
+        for key in ("layer_norm_fwd", "layer_norm_bwd"):
+            if lnm.KERNEL_LAUNCHES[key] != before[key] + 1:
+                raise AssertionError(f"{key} did not count its launch")
+        want_dx, want_dg, want_db = lnm.layer_norm_backward_reference(x, g, dy)
+        errs = {"y": max_err(y, lnm.layer_norm_reference(x, g, b)), "dx": max_err(dx, want_dx)}
+        rel = {n: (got - w).abs().max().item() / w.abs().max().item()
+               for n, got, w in (("dg", dg, want_dg), ("db", db, want_db))}
+        again = lnm._backward(x, g, dy, 1e-5)
+        if not (torch.equal(again[1], dg) and torch.equal(again[2], db)):
+            raise AssertionError(f"layer_norm_bwd {name}: dg/db differ between two runs")
+        bad = {n: err for n, (err, scale) in errs.items() if not err <= atol * scale}
+        bad.update({n: v for n, v in rel.items() if not v <= 1e-4})
+        if bad:
+            raise AssertionError(f"LN {name}: kernels disagree with the plain versions: {bad} "
+                                 f"(y, dx atol {atol} x max(1, |plain|); dg, db 1e-4 of max)")
+        # the library call takes g and b in x's dtype (it normalises in fp32
+        # inside); one autograd graph of it per input copy
+        g_lib, b_lib = g.to(dtype), b.to(dtype)
+        leaves = [[t.clone().requires_grad_(True) for t in (xs[i], g_lib, b_lib)]
+                  for i in range(copies)]
+        y_lib = [torch.nn.functional.layer_norm(lv[0], (e,), lv[1], lv[2], 1e-5) for lv in leaves]
+        fns = {
+            "fwd": (lambda i: lnm._forward(xs[i], g, b, 1e-5),
+                    lambda i: lnm.layer_norm_reference(xs[i], g, b),
+                    lambda i: torch.nn.functional.layer_norm(xs[i], (e,), g_lib, b_lib, 1e-5)),
+            "bwd": (lambda i: lnm._backward(xs[i], g, dys[i], 1e-5),
+                    lambda i: lnm.layer_norm_backward_reference(xs[i], g, dys[i]),
+                    lambda i: torch.autograd.grad(y_lib[i], leaves[i], dys[i], retain_graph=True)),
+        }
+        for kind, (kern, plain, lib) in fns.items():
+            kernel = f"layer_norm_{kind}"
+            # fwd: x read, y written, g and b read; bwd: x and dy read, dx
+            # written, g read and dg, db written
+            n = 2 if kind == "fwd" else 3
+            nbytes = n * r * e * elem + n * e * 4
+            row = dict(card=card, kernel=kernel, shape=name, R=r, E=e, dtype=str(dtype),
+                       max_abs_err=errs["y" if kind == "fwd" else "dx"][0], atol=atol,
+                       ms=device_ms_rotating(torch, kern, copies, 50),
+                       wall_ms=cuda_ms_rotating(kern, copies, 50),
+                       plain_ms=device_ms_rotating(torch, plain, copies, 10),
+                       library_ms=device_ms_rotating(torch, lib, copies, 50),
+                       input_copies=copies,
+                       **roofline((9 if kind == "fwd" else 16) * r * e, nbytes,
+                                  PEAK_FP32_TFLOPS))
+            if kind == "bwd":
+                row.update(dg_db_rel_err=rel, ms_includes="row launch + partials reduce")
+            print("kernel", json.dumps(row), flush=True)
+            if name == "dalle_4k":
+                best[kernel] = row
+        del xs, dys, leaves, y_lib, fns
+        torch.cuda.empty_cache()
+    return best
+
+
+def sdpa_bhsd_ms(torch, q, k, v, g, iters) -> tuple[float, float]:
+    """One ``scaled_dot_product_attention(is_causal=True)`` forward, and its
+    backward alone, on [B, H, S, D] inputs: the library yardstick."""
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: sdpa(q, k, v, is_causal=True), iters)
+    out = sdpa(*leaves, is_causal=True)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), iters)
+    return fwd, bwd
+
+
 def sdpa_ms(torch, q, k, v, g, h, iters) -> tuple[float, float]:
     """The library yardstick at a packed training shape: one
     ``scaled_dot_product_attention(is_causal=True)`` forward, and its
@@ -359,44 +618,55 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
-def phase_train_values(torch, card):
+def phase_train_values(torch, card, **over):
     """Loss and every grad of a full-width, 2-layer fp32 model: card (through
-    the kernels) against the port's plain path on the CPU."""
+    the kernels) against the port's plain path on the CPU. ``over`` sets
+    config fields (``attn_packed=False, ln_impl="pallas"``: the [B, H, S, D]
+    pair and the LN kernels)."""
     from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
 
     base, _ = make_dalle_models(fetch_model_params(TRAIN_CONFIG), "cpu")
-    cfg = dataclasses.replace(base.cfg, n_layers=2, bf_16=False)
+    cfg = dataclasses.replace(base.cfg, n_layers=2, bf_16=False, **over)
     params = DALLE(cfg, "cpu").init(torch.Generator().manual_seed(5))
     tokens = torch.randint(0, cfg.total_tokens, (2, cfg.total_seq_len),
                            generator=torch.Generator().manual_seed(6))
+    bwd = "causal_attention_packed_bwd" if cfg.attn_packed else "causal_attention_bwd"
+    want = {bwd: cfg.n_layers}
+    if cfg.ln_impl == "pallas":  # two LNs a layer and the final one
+        want["layer_norm_bwd"] = 2 * cfg.n_layers + 1
     results = {}
     for device in ("cuda", "cpu"):
         tree = _to(params, device)
         for _, t in named_leaves(tree):
             t.requires_grad_(True)
-        before = attn.KERNEL_LAUNCHES["causal_attention_packed_bwd"]
+        reset_counts(attn, lnm)
         loss, _ = DALLE(cfg, device).loss(tree, tokens.to(device))
         loss.backward()
         if device == "cuda":
             torch.cuda.synchronize()
-            if attn.KERNEL_LAUNCHES["causal_attention_packed_bwd"] != before + cfg.n_layers:
-                raise AssertionError("the card's loss did not run the backward kernel")
+            got = {**attn.KERNEL_LAUNCHES, **lnm.KERNEL_LAUNCHES}
+            if any(got[n] != c for n, c in want.items()):
+                raise AssertionError(f"the card's loss launched {got}, expected {want}")
+            launched = {n: c for n, c in got.items() if c}
         results[device] = (loss.item(), {"/".join(p): t.grad.cpu() for p, t in named_leaves(tree)})
     (gl, gg), (cl, cg) = results["cuda"], results["cpu"]
     l2 = max((((gg[n] - cg[n]).norm() / cg[n].norm().clamp_min(1e-30)).item(), n) for n in cg)
     elem = max(((gg[n] - cg[n]).abs().max().item() / max(cg[n].abs().max().item(), 1e-30), n)
                for n in cg)
-    print(f"train values: {cfg.n_embd} wide, {cfg.n_layers} layers, fp32, batch 2, S "
+    print(f"train values {over or 'packed'}: {cfg.n_embd} wide, {cfg.n_layers} layers, fp32, "
+          f"batch 2, S "
           f"{cfg.total_seq_len}: loss card {gl:.6f} cpu {cl:.6f} (atol 1e-4); worst grad "
           f"relative L2 error {l2[0]:.3g} ({l2[1]}, bound 1e-2); worst single element "
           f"{elem[0]:.3g} of its leaf's max |grad| ({elem[1]}); {card}", flush=True)
     if not (abs(gl - cl) <= 1e-4 and l2[0] <= 1e-2):
         raise AssertionError("the card's loss or grads disagree with the CPU plain path")
-    return dict(loss_card=gl, loss_cpu=cl, worst_grad_rel_l2=l2, worst_grad_elem=elem)
+    return dict(loss_card=gl, loss_cpu=cl, worst_grad_rel_l2=l2, worst_grad_elem=elem,
+                launches=launched)
 
 
 def write_tokens_dataset(root: str, seed: int, image_len: int, image_vocab: int,
@@ -418,20 +688,21 @@ def write_tokens_dataset(root: str, seed: int, image_len: int, image_vocab: int,
     return os.path.join(root, "*.tfrecords")
 
 
-def train_config(tmp: str, train_steps: int) -> str:
-    """A copy of configs/dalle_coco_synth.json in tokens mode over a seeded
-    dataset in ``tmp``; returns its path."""
+def train_config(tmp: str, train_steps: int, name: str = TRAIN_CONFIG,
+                 checkpoint_every: int = TRAIN_STEPS, **extra) -> str:
+    """A copy of configs/<name>.json in tokens mode over a seeded dataset in
+    ``tmp`` (``extra`` keys added); returns its path."""
     from dalle_mtf_tpu_torch.utils.config import _resolve_config_path  # noqa: PLC0415
 
-    with open(_resolve_config_path(TRAIN_CONFIG)) as f:
+    with open(_resolve_config_path(name)) as f:
         cfg = json.load(f)
     pattern = os.path.join(tmp, "data", "*.tfrecords")
     cfg.update(
         dataset={**cfg["dataset"], "train_path": pattern, "eval_path": pattern, "tokens": True},
-        train_steps=train_steps, steps_per_checkpoint=TRAIN_STEPS, eval_steps=1,
-        log_every=1, max_to_keep=1, model_path=os.path.join(tmp, "run"),
+        train_steps=train_steps, steps_per_checkpoint=checkpoint_every, eval_steps=1,
+        log_every=1, max_to_keep=1, model_path=os.path.join(tmp, "run"), **extra,
     )
-    path = os.path.join(tmp, f"{TRAIN_CONFIG}.json")
+    path = os.path.join(tmp, f"{name}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
@@ -526,8 +797,8 @@ def phase_train(torch, attn, card, kernel_rows):
 
 def profile_steps(torch, path, cfg, steps: int = 2) -> dict:
     """Device time of ``steps`` training steps under torch.profiler, split
-    into the attention kernels, matmuls and the rest (with the rest's
-    largest kernels by name)."""
+    into the attention kernels, the LN kernels, matmuls and the rest (with
+    the rest's largest kernels by name)."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn  # noqa: PLC0415
@@ -553,7 +824,7 @@ def profile_steps(torch, path, cfg, steps: int = 2) -> dict:
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    buckets = {"attn_fwd": 0.0, "attn_bwd": 0.0, "matmul": 0.0, "other": 0.0}
+    buckets = {"attn_fwd": 0.0, "attn_bwd": 0.0, "ln": 0.0, "matmul": 0.0, "other": 0.0}
     others: dict[str, float] = {}
     # kernels and copies only: user-annotation ranges (Optimizer.step#...)
     # also show on the device timeline and would count their kernels twice
@@ -565,6 +836,8 @@ def profile_steps(torch, path, cfg, steps: int = 2) -> dict:
             key = "attn_fwd"
         elif "attention_bwd" in name:
             key = "attn_bwd"
+        elif "layer_norm" in name:
+            key = "ln"
         elif any(w in name for w in ("gemm", "cutlass", "xmma", "sm90_", "nvjet")):
             key = "matmul"
         else:
@@ -581,6 +854,96 @@ def profile_steps(torch, path, cfg, steps: int = 2) -> dict:
         device_busy_share=busy / (wall * 1e3) if device else None,
         device_ops_per_step=len(device) / steps,
     )
+
+
+def phase_train_long(torch, attn, lnm, card, kernel_rows):
+    """The long-sequence training main path: a tokens-mode copy of
+    configs/dalle_4k.json at full width and depth (S = 256 + 64 x 64 = 4352,
+    batch 4, bf16) with ``attn_packed: false`` (the [B, H, S, D] pair, the
+    layout the JAX package takes at this length) and ``ln_impl: "pallas"``
+    (the LN kernels), through ``train_dalle.main`` for LONG_STEPS steps with
+    an eval and a checkpoint; exact launch counts, then a profiled window.
+    Returns the launch counts of the main path's run."""
+    from dalle_mtf_tpu_torch import train_dalle  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_long_")
+    try:
+        extra = dict(attn_packed=False, ln_impl="pallas")
+        dalle, _ = make_dalle_models({**fetch_model_params(LONG_CONFIG), **extra}, "cpu")
+        cfg = dalle.cfg
+        t0 = time.perf_counter()
+        write_tokens_dataset(os.path.join(tmp, "data"), 1, cfg.image_seq_len,
+                             cfg.image_vocab_size, files=2, per_file=24)
+        path = train_config(tmp, LONG_STEPS, LONG_CONFIG, LONG_STEPS, **extra)
+        print(f"train {LONG_CONFIG}: n_embd={cfg.n_embd} layers={cfg.n_layers} "
+              f"heads={cfg.n_heads} S={cfg.total_seq_len} vocab={cfg.total_tokens} "
+              f"bf16={cfg.bf_16} attn_packed={cfg.attn_packed} ln_impl={cfg.ln_impl}; "
+              f"tokens dataset + config in {time.perf_counter() - t0:.1f}s", flush=True)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(attn, lnm)
+        t0 = time.perf_counter()
+        run = train_dalle.main(["--model", path, "--new", "--yes", "--gpu_ids", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**attn.KERNEL_LAUNCHES, **lnm.KERNEL_LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        evals = run.eval_history
+        passes = LONG_STEPS + len(evals)  # eval_steps 1: one batch per eval
+        n_ln = 2 * cfg.n_layers + 1
+        want = {"causal_attention_fwd": cfg.n_layers * passes,
+                "causal_attention_bwd": cfg.n_layers * LONG_STEPS,
+                "causal_attention_packed_fwd": 0, "causal_attention_packed_bwd": 0,
+                "layer_norm_fwd": n_ln * passes, "layer_norm_bwd": n_ln * LONG_STEPS}
+        losses = [h["loss"] for h in run.history]
+        if [h["step"] for h in run.history] != list(range(1, LONG_STEPS + 1)):
+            raise AssertionError(f"logged steps {[h['step'] for h in run.history]}")
+        init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
+        if abs(losses[0] - init_loss) > 0.1:
+            raise AssertionError(f"first loss {losses[0]} vs ln(vocab) + var/2 = {init_loss}")
+        if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                   for h in run.history):
+            raise AssertionError(f"non-finite loss or grad_norm: {run.history}")
+        if [e["step"] for e in evals] != [LONG_STEPS] or not math.isfinite(evals[0]["eval_loss"]):
+            raise AssertionError(f"eval: {evals}")
+        if run.checkpoint_steps() != [LONG_STEPS]:
+            raise AssertionError(f"checkpoints {run.checkpoint_steps()}")
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches}, expected {want}")
+        step_s = [1.0 / h["steps_per_sec"] for h in run.history[LONG_TIMED_FROM - 1:]]
+        med = statistics.median(step_s)
+        tokens_per_step = run.batch_size * cfg.total_seq_len
+        print(f"train {LONG_CONFIG}: {LONG_STEPS} steps + eval + checkpoint in {wall:.1f}s; "
+              f"losses {[round(x, 4) for x in losses]}; eval {evals[0]}; launches "
+              f"{launches}", flush=True)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        split = profile_steps(torch, path, cfg)
+        e, L, v, s = cfg.n_embd, cfg.n_layers, cfg.total_tokens, cfg.total_seq_len
+        flops_per_token = 6 * (L * 12 * e * e + e * v) + 12 * L * e * s
+        tflops = tokens_per_step / med * flops_per_token / 1e12
+        attn_ms = L * (kernel_rows["causal_attention_fwd"]["ms"]
+                       + kernel_rows["causal_attention_bwd"]["ms"])
+        print("train", json.dumps(dict(
+            card=card, config=LONG_CONFIG, batch=tokens_per_step // s, seq_len=s,
+            n_layers=L, n_embd=e, vocab=v, bf16=cfg.bf_16, attn_packed=cfg.attn_packed,
+            ln_impl=cfg.ln_impl, steps_timed=len(step_s), step_s=step_s,
+            step_s_median=med, tokens_per_s=tokens_per_step / med, tflops_per_s=tflops,
+            mfu=tflops / PEAK_BF16_TFLOPS, peak_mem_gb=peak / 1e9, first_loss=losses[0],
+            ln_vocab=math.log(v), expected_init_loss=init_loss,
+            attn_kernels_ms_per_step_from_events=attn_ms,
+            attn_kernels_share_from_events=attn_ms / (med * 1e3),
+            **split,
+        )), flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def png_shape(b64: str) -> tuple[int, int, int]:
@@ -1114,13 +1477,21 @@ def main() -> int:
           flush=True)
 
     from dalle_mtf_tpu_torch.ops import decode_matmul as dmm  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
 
     serving = phase_kernel(torch, attn, card)
     decode = phase_decode_kernels(torch, dmm, card)
     training = phase_train_kernels(torch, attn, card)
+    bhsd = phase_bhsd_kernels(torch, attn, card)
+    ln = phase_ln_kernels(torch, lnm, card)
     phase_train_values(torch, card)
+    unpacked = phase_train_values(torch, card, attn_packed=False, ln_impl="pallas")
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, attn, card, training)
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_launches = phase_train_long(torch, attn, lnm, card, bhsd["dalle_4k"])
+    gc.collect()
     torch.cuda.empty_cache()
     serve_launches, bf16 = phase_slice(torch, attn, card)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
@@ -1168,6 +1539,21 @@ def main() -> int:
             shape="mlp1 M=4 K=1024 N=4096",
         ))
     rows[3]["continuous_launches"] = continuous_launches
+    launches = {"long": long_launches, "loop": long_launches, "values": unpacked["launches"]}
+    for name, shape, run, tpu in BHSD_ROWS:
+        rows.append(dict(
+            name=name, route="cuda", source=FWD_SOURCE if name.endswith("fwd") else BWD_SOURCE,
+            replaces=tpu[0][1], also_replaces=[where for _, where in tpu[1:]],
+            tpu_kernels=[k for k, _ in tpu], launches=launches[run][name],
+            launches_on=LAUNCHES_ON[run], shape=shape,
+            **{k: bhsd[shape][name][k] for k in keys},
+        ))
+    for name in ("layer_norm_fwd", "layer_norm_bwd"):
+        rows.append(dict(
+            name=name, route="cuda", source=LN_SOURCE, replaces=REPLACES[name],
+            launches=long_launches[name], launches_on=f"{LONG_CONFIG} training",
+            shape="dalle_4k R=17408 E=1024 bf16", **{k: ln[name][k] for k in keys},
+        ))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

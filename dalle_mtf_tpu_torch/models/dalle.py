@@ -16,9 +16,12 @@ the JAX model does: at decode geometry (``decode_kernels`` on, at most 32
 rows, K a multiple of 256) through the streaming kernels of
 ops/decode_matmul.py, else in the compute dtype before a plain matmul.
 
-Training (``hidden``/``forward``/``loss``) runs the packed attention
-(ops/attention_packed.py) through plain autograd. Remat: the JAX default
-for this model, ``dots_and_attn``, saves every matmul output and the
+Training (``hidden``/``forward``/``loss``) runs through plain autograd,
+with the packed attention (ops/attention_packed.py) by default or, with
+``attn_packed: false``, the [B, H, S, D] attention (ops/attention.py), and
+with ``ln_impl: "pallas"`` the fused LayerNorm kernels (ops/layer_norm.py).
+Remat: the JAX default for this model, ``dots_and_attn``, saves every
+matmul output and the
 attention kernel's out and lse and recomputes only elementwise ops; plain
 autograd saves a superset of that and computes the same values, so it runs
 without checkpointing. The other policies are not ported.
@@ -27,6 +30,7 @@ without checkpointing. The other policies are not ported.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Any, Mapping, NamedTuple
 
@@ -37,6 +41,7 @@ import torch.nn.functional as F
 from dalle_mtf_tpu_torch.ops.attention import causal_attention, decode_attention
 from dalle_mtf_tpu_torch.ops.attention_packed import causal_attention_packed
 from dalle_mtf_tpu_torch.ops.decode_matmul import int4_matmul, int8_matmul
+from dalle_mtf_tpu_torch.ops.layer_norm import layer_norm
 from dalle_mtf_tpu_torch.ops.losses import softmax_cross_entropy_with_logits
 from dalle_mtf_tpu_torch.quantize import nibble_views, quantized_shapes
 from dalle_mtf_tpu_torch.utils.precision import Policy, get_policy
@@ -73,7 +78,8 @@ class DalleConfig:
     local_attention_radius: int = 256
     scale_type: str = "scale_by_depth"
     activation: str = "relu"
-    ln_dtype: str = "float32"  # | "activation"
+    ln_dtype: str = "float32"  # | "activation"; not read under ln_impl "pallas"
+    ln_impl: str = "xla"  # | "pallas": the fused LN kernels, fp32 inside
     recompute_grad: bool = False
     remat_policy: str = "dots_saveable"
     attn_packed: bool = True
@@ -86,6 +92,8 @@ class DalleConfig:
     decode_kernels: bool = False
 
     def __post_init__(self):
+        if self.ln_impl not in ("xla", "pallas"):
+            raise ValueError(f"ln_impl must be 'xla' or 'pallas', got {self.ln_impl!r}")
         refused = []
         if self.attention_type in ("ring", "local_ring"):
             refused.append(f"attention_type={self.attention_type!r} (ring attention)")
@@ -114,6 +122,7 @@ class DalleConfig:
             scale_type=params.get("scale_type") or "scale_by_depth",
             activation=params.get("activation") or "relu",
             ln_dtype=params.get("ln_dtype") or "float32",
+            ln_impl=params.get("ln_impl") or "xla",
             recompute_grad=bool(params.get("recompute_grad")),
             remat_policy=params.get("remat_policy") or "dots_saveable",
             attn_packed=bool(params.get("attn_packed", True)),
@@ -151,8 +160,6 @@ def _refuse_unported(params: Mapping[str, Any]) -> None:
     """Raise on config keys outside ``DalleConfig``'s fields whose JAX
     behaviour the port does not have (the fields check themselves)."""
     refused = []
-    if (params.get("ln_impl") or "xla") != "xla":
-        refused.append("ln_impl='pallas' (the fused LN kernel)")
     if params.get("fused_xent"):
         refused.append("fused_xent (the chunked loss head)")
     layout = params.get("layout") or ""
@@ -188,6 +195,12 @@ class DALLE(nn.Module):
         super().__init__()
         self.cfg = config
         self.device = torch.device(device)
+        if config.ln_impl == "pallas" and config.ln_dtype == "activation":
+            logging.getLogger(__name__).warning(
+                "ln_impl='pallas' always computes the normalize in fp32 "
+                "internally; ln_dtype='activation' (the reference-exact bf16 "
+                "norm semantics) is ignored on that path; set ln_impl='xla' "
+                "if you need activation-dtype LN math.")
 
     # ------------------------------------------------------------------ init
 
@@ -265,8 +278,11 @@ class DALLE(nn.Module):
 
     def _layer_norm(self, x, g, b, eps=1e-5):
         # reference layer_norm (models.py:373-389): normalize then affine.
+        # ln_impl "pallas": the fused kernels, fp32 inside (ops/layer_norm.py).
         # ln_dtype "activation" runs the chain in x.dtype like the
         # reference's norm; "float32" upcasts around the normalize.
+        if self.cfg.ln_impl == "pallas":
+            return layer_norm(x, g, b, eps)
         ct = torch.float32 if self.cfg.ln_dtype == "float32" else x.dtype
         xc = x.to(ct)
         mean = xc.mean(dim=-1, keepdim=True)

@@ -42,6 +42,10 @@ _SIGNATURES = {
     "int8_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # x_lo, x_hi, packed, scale, out, partial; then as int8_matmul
     "int4_matmul": [_P] * 6 + [_I] * 6 + [_P],
+    # x, g, b, y; rows, e, dtype; eps; stream
+    "layer_norm_fwd": [_P] * 4 + [_I] * 3 + [_F, _P],
+    # x, dy, g, dx, partial, dg, db; rows, e, n_ctas, dtype; eps; stream
+    "layer_norm_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
 }
 
 

@@ -7,18 +7,23 @@ the serving and training paths run).
 - ``attention_reference``: the plain PyTorch version, with the TPU kernels'
   semantics (masked scores replaced by -1e10, fp32 scores and softmax,
   optional hash dropout).
-- ``causal_attention``: attention over [B, H, S, D]. A CUDA tensor goes to
-  the hand-written kernel ``csrc/causal_attention_fwd.cu`` (the port of the
-  TPU kernel ``_wedge_fwd_kernel``); a CPU tensor goes to the plain version;
+- ``causal_attention``: attention over [B, H, S, D], with gradients. A CUDA
+  tensor goes to the hand-written kernels ``csrc/causal_attention_fwd.cu``
+  (the port of the TPU kernels ``_wedge_fwd_kernel``, ``_wr_fwd_kernel`` and
+  ``_flash_kernel``) and ``csrc/causal_attention_bwd.cu`` (the port of
+  ``_wedge_bwd_kernel``, ``_wr_bwd_kernel``, ``_bwd_dq_kernel`` +
+  ``_bwd_dkv_kernel`` and ``_hybrid_bwd_kernel``); a CPU tensor goes to the
+  plain versions (``attention_reference``, ``attention_backward_reference``);
   anything else raises.
 - ``decode_attention``: one query position (one per row, or a shared one)
   against the KV cache. Plain torch, as the JAX package leaves it to XLA.
 
 The TPU's four attention families (wedge, whole-row, online-softmax loop,
-hybrid) existed because of its 16 MB VMEM; here one tiled kernel covers
+hybrid) existed because of its 16 MB VMEM; here one tiled kernel pair covers
 every length, so none of that dispatch is carried over. The packed
-[B, S, H*D] layout the training path uses is ``ops/attention_packed.py``,
-on the same kernel source.
+[B, S, H*D] layout the training path uses by default is
+``ops/attention_packed.py``, on the same kernel sources (``launch_forward``
+and ``launch_backward`` take either layout by strides).
 """
 
 from __future__ import annotations
@@ -32,11 +37,13 @@ NEG_INF = -1e10  # matches the reference's additive mask value (models.py:227)
 
 # Launches of each hand-written kernel, counted by its wrapper where (and
 # only where) the kernel is launched; chip_smoke.py reads and resets them to
-# show that a path went through the kernels. "causal_attention_fwd" is the
-# [B, H, S, D] forward (serving); the packed pair (training) is counted by
+# show that a path went through the kernels. "causal_attention_fwd" and
+# "causal_attention_bwd" are the [B, H, S, D] pair (serving, unpacked and
+# long-sequence training); the packed pair is counted by
 # ops/attention_packed.py.
 KERNEL_LAUNCHES = {
     "causal_attention_fwd": 0,
+    "causal_attention_bwd": 0,
     "causal_attention_packed_fwd": 0,
     "causal_attention_packed_bwd": 0,
 }
@@ -136,6 +143,102 @@ def attention_reference(
     return out
 
 
+def attention_backward_reference(q, k, v, out, lse, g, window=None,
+                                 dropout_rate=0.0, dropout_seed=None):
+    """The plain version of the backward, q, k, v, out, g [B, H, S, D] and
+    the forward's fp32 lse [B*H, S]: the TPU kernels' math
+    (``_wedge_bwd_kernel``, ``_hybrid_bwd_kernel``) in one shot.
+
+    p = exp(s - lse) with masked p exactly 0; dp = dO v^T, masked and scaled
+    by the dropout keep; dsum = rowsum(dO * O) in fp32; ds = p (dp - dsum)
+    cast to k's dtype; dq = ds k and dk = ds^T q, each times D^-0.5 in fp32;
+    dv = p_v^T dO with p_v cast to dO's dtype. Returns dq, dk, dv in q's
+    dtype."""
+    b, h, s, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    mask = j > i
+    if window is not None:
+        mask = mask | (i - j >= window)
+    p = torch.where(mask, 0.0, torch.exp(scores - lse.reshape(b, h, s, 1)))
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    p_v = p
+    if dropout_rate > 0.0:
+        seeds = (int(dropout_seed) + torch.arange(b * h, device=q.device)).reshape(b, h, 1, 1)
+        keep = dropout_keep(i, j, seeds, dropout_rate)
+        inv = 1.0 / (1.0 - dropout_rate)
+        dp = torch.where(keep, dp * inv, 0.0)
+        p_v = torch.where(keep, p * inv, 0.0)
+    dsum = (g.float() * out.float()).sum(-1, keepdim=True)
+    ds = (p * (dp - dsum)).to(k.dtype).float()
+    dq = (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+    dk = (torch.matmul(ds.transpose(-1, -2), q.float()) * scale).to(q.dtype)
+    dv = torch.matmul(p_v.to(g.dtype).float().transpose(-1, -2), g.float()).to(q.dtype)
+    return dq, dk, dv
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _forward(q, k, v, window, rate, seed, with_lse):
+    """(out, lse or None): the kernel on CUDA tensors, plain on CPU ones."""
+    if _on_cpu(q, k, v):
+        res = attention_reference(q, k, v, True, window, with_lse, rate, seed)
+        return res if with_lse else (res, None)
+    if q.device.type != "cuda":
+        raise ValueError(f"causal_attention: unsupported device {q.device}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"q, k, v must share one [B, H, S, D] shape: {q.shape}, "
+            f"{k.shape}, {v.shape}"
+        )
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("causal_attention_fwd needs contiguous q, k, v")
+    b, h, s, d = q.shape
+    out, lse = launch_forward(q, k, v, b, h, s, d, q.stride()[:3], window,
+                              rate, seed, with_lse)
+    KERNEL_LAUNCHES["causal_attention_fwd"] += 1
+    return out, lse
+
+
+def _backward(q, k, v, out, lse, g, window, rate, seed):
+    """dq, dk, dv: the kernel on CUDA tensors, plain on CPU ones."""
+    if _on_cpu(q, k, v, out, lse, g):
+        return attention_backward_reference(q, k, v, out, lse, g, window, rate, seed)
+    g = g.contiguous()
+    b, h, s, d = q.shape
+    with torch.cuda.device(q.device):
+        # rowsum(dO * O) in fp32, [B*H, S]: one torch reduction outside the kernels
+        dsum = (g.float() * out.float()).sum(-1).reshape(b * h, s)
+        grads = launch_backward(q, k, v, out, lse, g, dsum, b, h, s, d, q.stride()[:3],
+                                window, rate, seed)
+    KERNEL_LAUNCHES["causal_attention_bwd"] += 1
+    return grads
+
+
+class _Attention(torch.autograd.Function):
+    """(out, lse) = attention(q, k, v); saves q, k, v, out and the fp32 lse,
+    what the JAX ``dots_and_attn`` remat policy keeps, so the backward never
+    re-runs the forward. lse carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, rate, seed):
+        out, lse = _forward(q, k, v, window, rate, seed, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (window, rate, seed)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, lse, g, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 def causal_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -148,38 +251,22 @@ def causal_attention(
     """Causal (optionally local-window) attention, q, k, v [B, H, S, D].
 
     On CUDA tensors this launches ``causal_attention_fwd`` (one launch for
-    all heads and rows) or raises; it never falls back. On CPU tensors it
-    runs ``attention_reference``. ``with_lse`` also returns the fp32
-    log-sum-exp [B*H, S]. ``dropout_rate`` > 0 applies the hash dropout
-    keyed on ``dropout_seed``. The backward of this layout (the TPU's
-    ``_wedge_bwd_kernel``) is not ported, so on the card it refuses inputs
-    that require grad.
+    all heads and rows), and in the backward ``causal_attention_bwd``, or
+    raises; it never falls back. On CPU tensors it runs the plain forward
+    and the plain backward. ``with_lse`` also returns the fp32 log-sum-exp
+    [B*H, S]. ``dropout_rate`` > 0 applies the hash dropout keyed on
+    ``dropout_seed``, the same bits in the forward and the backward.
     """
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 needs a dropout_seed")
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return attention_reference(q, k, v, True, window, with_lse,
-                                   dropout_rate, dropout_seed)
-    if q.device.type != "cuda":
-        raise ValueError(f"causal_attention: unsupported device {q.device}")
+    rate = float(dropout_rate)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the [B, H, S, D] attention backward kernel is not ported; "
-            "training runs the packed layout (attn_packed)"
-        )
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"q, k, v must share one [B, H, S, D] shape: {q.shape}, "
-            f"{k.shape}, {v.shape}"
-        )
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("causal_attention_fwd needs contiguous q, k, v")
-    b, h, s, d = q.shape
-    out, lse = launch_forward(q, k, v, b, h, s, d, q.stride()[:3], window,
-                              dropout_rate, dropout_seed, with_lse)
-    KERNEL_LAUNCHES["causal_attention_fwd"] += 1
+        out, lse = _Attention.apply(q, k, v, window, rate,
+                                    int(dropout_seed) if rate > 0 else None)
+    else:
+        out, lse = _forward(q, k, v, window, rate, dropout_seed, with_lse)
     return (out, lse) if with_lse else out
 
 
@@ -234,6 +321,39 @@ def launch_forward(q, k, v, batch, heads, seq_len, head_dim, strides, window,
     if err != 0:
         raise RuntimeError(f"causal_attention_fwd launch failed: cudaError {err}")
     return out, lse
+
+
+def launch_backward(q, k, v, out, lse, g, dsum, batch, heads, seq_len, head_dim,
+                    strides, window, dropout_rate, dropout_seed):
+    """Launch ``causal_attention_bwd`` (a dQ launch and a dK/dV launch) on
+    q, k, v, out and dO of one strided layout, with the forward's fp32 lse
+    and dsum = rowsum(dO * O), both contiguous [batch*heads, seq_len].
+    Returns dq, dk, dv in q's layout."""
+    check_kernel_inputs("causal_attention_bwd", (q, k, v, out, g), head_dim)
+    for name, t in (("lse", lse), ("dsum", dsum)):
+        if (t.shape != (batch * heads, seq_len) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"causal_attention_bwd: {name} must be contiguous fp32 "
+                             f"[{batch * heads}, {seq_len}] on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
+
+    lib = library()
+    with torch.cuda.device(q.device):
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        if dq.stride() != q.stride():
+            raise ValueError("causal_attention_bwd: q is not dense")
+        err = lib.causal_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), batch, heads, seq_len, head_dim, *strides,
+            KERNEL_DTYPES[q.dtype], -1 if window is None else int(window),
+            *dropout_args(dropout_rate, dropout_seed),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"causal_attention_bwd launch failed: cudaError {err}")
+    return dq, dk, dv
 
 
 def decode_attention(

@@ -19,17 +19,13 @@ the plain versions (``attention_packed_reference`` and ``backward_reference``).
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from dalle_mtf_tpu_torch.ops.attention import (
-    KERNEL_DTYPES,
     KERNEL_LAUNCHES,
+    attention_backward_reference,
     attention_reference,
-    check_kernel_inputs,
-    dropout_args,
-    dropout_keep,
+    launch_backward,
     launch_forward,
 )
 
@@ -70,39 +66,13 @@ def dsum_rows(out: torch.Tensor, g: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 def backward_reference(q, k, v, out, lse, g, n_heads, window=None,
                        dropout_rate=0.0, dropout_seed=None):
-    """The plain version of the packed backward: the TPU kernel's math
-    (``_fused_bwd_kernel``) on [B, H, S, D] views, one shot.
-
-    p = exp(s - lse) with masked p exactly 0; dp = dO v^T, masked and scaled
-    by the dropout keep; ds = p (dp - dsum) cast to k's dtype; dq = ds k and
-    dk = ds^T q, each times D^-0.5 in fp32; dv = p_v^T dO with p_v cast to
-    dO's dtype. Returns dq, dk, dv packed, in q's dtype."""
-    b, s, e = q.shape
-    h = n_heads
-    d = e // h
-    scale = 1.0 / math.sqrt(d)
-    qh, kh, vh, gh = (_unpack(t, h) for t in (q, k, v, g))
-    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
-    i = torch.arange(s, device=q.device)[:, None]
-    j = torch.arange(s, device=q.device)[None, :]
-    mask = j > i
-    if window is not None:
-        mask = mask | (i - j >= window)
-    p = torch.where(mask, 0.0, torch.exp(scores - lse.reshape(b, h, s, 1)))
-    dp = torch.matmul(gh.float(), vh.float().transpose(-1, -2))
-    p_v = p
-    if dropout_rate > 0.0:
-        seeds = (int(dropout_seed) + torch.arange(b * h, device=q.device)).reshape(b, h, 1, 1)
-        keep = dropout_keep(i, j, seeds, dropout_rate)
-        inv = 1.0 / (1.0 - dropout_rate)
-        dp = torch.where(keep, dp * inv, 0.0)
-        p_v = torch.where(keep, p * inv, 0.0)
-    dsum = dsum_rows(out, g, h).reshape(b, h, s, 1)
-    ds = (p * (dp - dsum)).to(k.dtype).float()
-    dq = (torch.matmul(ds, kh.float()) * scale).to(q.dtype)
-    dk = (torch.matmul(ds.transpose(-1, -2), qh.float()) * scale).to(q.dtype)
-    dv = torch.matmul(p_v.to(g.dtype).float().transpose(-1, -2), gh.float()).to(q.dtype)
-    return _pack(dq), _pack(dk), _pack(dv)
+    """The plain version of the packed backward (the TPU kernel
+    ``_fused_bwd_kernel``): ``attention_backward_reference`` on the
+    [B, H, S, D] views, packed again. Returns dq, dk, dv in q's dtype."""
+    grads = attention_backward_reference(
+        *(_unpack(t, n_heads) for t in (q, k, v, out)), lse, _unpack(g, n_heads),
+        window, dropout_rate, dropout_seed)
+    return tuple(_pack(t) for t in grads)
 
 
 def _packed_strides(q: torch.Tensor, n_heads: int):
@@ -132,28 +102,11 @@ def _backward(q, k, v, out, lse, g, n_heads, window, rate, seed):
         raise ValueError(f"causal_attention_packed: unsupported device {q.device}")
     g = g.contiguous()
     b, h, s, d, strides = _packed_strides(q, n_heads)
-    check_kernel_inputs("causal_attention_bwd", (q, k, v, out, g), d)
-    from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
-
-    lib = library()
     with torch.cuda.device(q.device):
-        dsum = dsum_rows(out, g, h)
-        for name, t in (("lse", lse), ("dsum", dsum)):
-            if t.shape != (b * h, s) or t.dtype != torch.float32 or not t.is_contiguous():
-                raise ValueError(f"causal_attention_bwd: {name} must be contiguous fp32 "
-                                 f"[{b * h}, {s}], got {t.dtype} {tuple(t.shape)}")
-        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        err = lib.causal_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, h, s, d, *strides, KERNEL_DTYPES[q.dtype],
-            -1 if window is None else int(window), *dropout_args(rate, seed),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"causal_attention_bwd launch failed: cudaError {err}")
+        grads = launch_backward(q, k, v, out, lse, g, dsum_rows(out, g, h), b, h, s, d,
+                                strides, window, rate, seed)
     KERNEL_LAUNCHES["causal_attention_packed_bwd"] += 1
-    return dq, dk, dv
+    return grads
 
 
 class _PackedAttention(torch.autograd.Function):

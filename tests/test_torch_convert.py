@@ -150,6 +150,8 @@ def test_port_never_imports_jax():
         "utils.logging_utils", "utils.summaries",
         # quantized and continuous-batching serving
         "quantize", "ops.decode_matmul", "sample", "serve", "serve_dalle",
+        # unpacked and long-sequence training
+        "ops.layer_norm",
     ]
     code = (
         "import pkgutil, sys, dalle_mtf_tpu_torch as p\n"

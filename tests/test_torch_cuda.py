@@ -8,8 +8,14 @@ with only PyTorch and CUDA (skip the JAX conftest there):
 Without a CUDA device every test skips. Tolerance: max |kernel - plain| <=
 atol * max(1, max |plain|), atol 1e-5 in fp32 and 1e-2 in bf16, on
 unit-scale inputs (uniform in [-1, 1); one bf16 rounding is 2^-8
-relative); lse atol 1e-4. The decode matmuls: the same exact products
-summed in fp32 in another order, so 1e-5 of max |plain|.
+relative); lse atol 1e-4. The [B, H, S, D] pair is also held per 64-long
+tile of S (query rows for out and dq, keys for dk and dv): max |kernel -
+plain| within 2^-6 (bf16) or 1e-5 (fp32) of the tile's own max |plain|, so
+the small values far down a long sequence are checked too. The decode
+matmuls: the same exact products summed in fp32 in another order, so 1e-5
+of max |plain|. LayerNorm: y and
+dx atol 1e-5 (fp32) or 1e-2 (bf16) times max(1, max |plain|), dg and db
+1e-4 of max |plain| (fp32 sums over the rows in another order).
 """
 
 import pytest
@@ -18,6 +24,7 @@ import torch
 from dalle_mtf_tpu_torch.ops import attention as tattn
 from dalle_mtf_tpu_torch.ops import attention_packed as tpacked
 from dalle_mtf_tpu_torch.ops import decode_matmul as tdmm
+from dalle_mtf_tpu_torch.ops import layer_norm as tln
 from dalle_mtf_tpu_torch.quantize import pack_int4
 
 pytestmark = pytest.mark.cuda
@@ -33,6 +40,21 @@ def cuda():
 def _close(got, want, atol):
     err = (got.float() - want.float()).abs().max().item()
     return err <= atol * max(1.0, want.float().abs().max().item()), err
+
+
+def _tile_close(got, want, rtol, tile=64):
+    """Each ``tile``-long tile of S of each head of [B, H, S, D] tensors
+    (the last one ragged) within ``rtol`` of the tile's own max |want|."""
+    b, h, s, d = want.shape
+    n = -(-s // tile)
+
+    def tiles(t):
+        t = torch.nn.functional.pad(t.float().reshape(b * h, s, d), (0, 0, 0, n * tile - s))
+        return t.reshape(b * h, n, tile * d)
+
+    w = tiles(want)
+    err = ((tiles(got) - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)).max().item()
+    return err <= rtol, err
 
 
 def _uniform(shape, dtype, gen, n):
@@ -93,9 +115,83 @@ def test_unpacked_forward_matches_plain(cuda, dtype, window, rate):
     ok, err = _close(out, ref, atol)
     assert ok, err
     assert (lse - ref_lse).abs().max().item() <= 1e-4
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        tattn.causal_attention(q, k, v)
+    # with grads: the autograd Function launches the backward kernel, held
+    # against the plain backward on the kernel's own out and lse
+    (g,) = _uniform(q.shape, dtype, torch.Generator().manual_seed(4), 1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(tattn.KERNEL_LAUNCHES)
+    out = tattn.causal_attention(*leaves, window, rate, dropout_seed=12345)
+    out.backward(g)
+    want = tattn.attention_backward_reference(q, k, v, out.detach(), lse, g, window, rate, 12345)
+    torch.cuda.synchronize()
+    for key in ("causal_attention_fwd", "causal_attention_bwd"):
+        assert tattn.KERNEL_LAUNCHES[key] == before[key] + 1, key
+    for name, t, w in zip(("dq", "dk", "dv"), leaves, want):
+        ok, err = _close(t.grad, w, atol)
+        assert ok, (name, err)
+
+
+@pytest.mark.parametrize("dtype,b,h,s,window,rate", [
+    (torch.bfloat16, 2, 8, 1280, None, 0.0),   # the wedge / whole-row regimes' S
+    (torch.bfloat16, 2, 8, 1280, None, 0.1),
+    (torch.bfloat16, 1, 8, 4352, None, 0.0),   # the hybrid regime (dalle_4k)
+    (torch.bfloat16, 1, 2, 4352, 256, 0.0),
+    (torch.float32, 1, 2, 4352, None, 0.0),    # the loop regime: fp32 at S > 3072
+    (torch.bfloat16, 1, 2, 6200, None, 0.0),   # the loop regime: S > 6144, ragged
+])
+def test_unpacked_backward_matches_plain(cuda, dtype, b, h, s, window, rate):
+    atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    q, k, v, g = _uniform((b, h, s, 128), dtype, torch.Generator().manual_seed(s + h), 4)
+    seed = 2**31 - 7
+    before = dict(tattn.KERNEL_LAUNCHES)
+    out, lse = tattn._forward(q, k, v, window, rate, seed, with_lse=True)
+    grads = tattn._backward(q, k, v, out, lse, g, window, rate, seed)
+    ref, ref_lse = tattn.attention_reference(q, k, v, True, window, True, rate, seed)
+    want = tattn.attention_backward_reference(q, k, v, out, lse, g, window, rate, seed)
+    torch.cuda.synchronize()
+    for key in ("causal_attention_fwd", "causal_attention_bwd"):
+        assert tattn.KERNEL_LAUNCHES[key] == before[key] + 1, key
+    rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
+    for name, got, w in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref, *want)):
+        ok, err = _close(got, w, atol)
+        assert ok, (name, err)
+        ok, err = _tile_close(got, w, rtol)
+        assert ok, (name, "tile", err)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (17408, 1024)),  # dalle_4k's rows at batch 4
+    (torch.float32, (300, 256)),
+    (torch.bfloat16, (3, 1, 768)),    # decode rows; E not a power of two
+    (torch.float32, (70, 4096)),
+])
+def test_layer_norm_kernels_match_plain(cuda, dtype, shape):
+    gen = torch.Generator().manual_seed(shape[-1])
+    e = shape[-1]
+    x = (torch.randn(shape, generator=gen) * 2 + 0.5).to("cuda", dtype)
+    dy = torch.randn(shape, generator=gen).to("cuda", dtype)
+    g = (1 + 0.3 * torch.randn(e, generator=gen)).cuda()
+    b = (0.2 * torch.randn(e, generator=gen)).cuda()
+    leaves = [t.clone().requires_grad_(True) for t in (x, g, b)]
+    before = dict(tln.KERNEL_LAUNCHES)
+    y = tln.layer_norm(*leaves)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    for key in ("layer_norm_fwd", "layer_norm_bwd"):
+        assert tln.KERNEL_LAUNCHES[key] == before[key] + 1, key
+    atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    ok, err = _close(y, tln.layer_norm_reference(x, g, b), atol)
+    assert ok, ("y", err)
+    dx, dg, db = tln.layer_norm_backward_reference(x.reshape(-1, e), g, dy.reshape(-1, e))
+    ok, err = _close(leaves[0].grad.reshape(-1, e), dx, atol)
+    assert ok, ("dx", err)
+    for name, got, want in (("dg", leaves[1].grad, dg), ("db", leaves[2].grad, db)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (name, err)
+    # the fixed-order reduction: a second run gives the same bits
+    again = tln._backward(x.reshape(-1, e), g, dy.reshape(-1, e), 1e-5)
+    assert torch.equal(again[1], leaves[1].grad) and torch.equal(again[2], leaves[2].grad)
 
 
 def _quantized(m, k, n, qmax, gen):

@@ -78,10 +78,17 @@ def _loss_and_grads(kw, window=None, z_loss=0.0, batch=4, seed=0, **over):
             tloss.item(), tbatch.detach().numpy(), _flat(convert.grads_to_numpy(tparams)))
 
 
-@pytest.mark.parametrize("window,z_loss,packed", [(None, 0.0, True), (5, 1e-4, True),
-                                                  (None, 0.0, False)])
-def test_loss_and_grads_match_jax_fp32(window, z_loss, packed):
-    jl, jb, jg, tl, tb, tg = _loss_and_grads(GOLDEN_CFG, window, z_loss, attn_packed=packed)
+@pytest.mark.parametrize("window,z_loss,packed,ln_impl", [
+    pytest.param(None, 0.0, True, "xla", id="None-0.0-True"),
+    pytest.param(5, 1e-4, True, "xla", id="5-0.0001-True"),
+    pytest.param(None, 0.0, False, "xla", id="None-0.0-False"),
+    pytest.param(None, 0.0, False, "pallas", id="None-0.0-False-pallas"),
+])
+def test_loss_and_grads_match_jax_fp32(window, z_loss, packed, ln_impl):
+    """The JAX tree converts unchanged under every arm (ln_impl "pallas"
+    keeps the LN parameters' names) and gives the same loss and grads."""
+    jl, jb, jg, tl, tb, tg = _loss_and_grads(GOLDEN_CFG, window, z_loss, attn_packed=packed,
+                                             ln_impl=ln_impl)
     assert abs(tl - jl) <= 1e-5 and abs(jl - math.log(81)) < 0.1
     np.testing.assert_allclose(tb, jb, atol=1e-5)
     assert set(tg) == set(jg)
@@ -91,8 +98,17 @@ def test_loss_and_grads_match_jax_fp32(window, z_loss, packed):
 
 
 def test_loss_and_grads_match_jax_bf16():
-    jl, _, jg, tl, _, tg = _loss_and_grads(BF16_CFG)
-    *_, exact = _loss_and_grads({**BF16_CFG, "bf_16": False})
+    _check_bf16_against_jax(BF16_CFG)
+
+
+def test_loss_and_grads_match_jax_bf16_unpacked_pallas_ln():
+    """The [B, H, S, D] attention arm with the fused LN, in bf16."""
+    _check_bf16_against_jax({**BF16_CFG, "attn_packed": False, "ln_impl": "pallas"})
+
+
+def _check_bf16_against_jax(cfg):
+    jl, _, jg, tl, _, tg = _loss_and_grads(cfg)
+    *_, exact = _loss_and_grads({**cfg, "bf_16": False})
     assert abs(tl - jl) <= 2e-2
 
     def rel(a, b):
@@ -221,7 +237,7 @@ def test_unported_options_are_refused():
             "text_seq_len": 8, "n_layers": 1, "n_heads": 2}
     for bad in ({"fused_xent": True}, {"attention_type": "ring"},
                 {"attention_type": "local_ring"}, {"layout": "batch_dim:data,layers:pipe"},
-                {"ln_impl": "pallas"}, {"recompute_grad": True},
+                {"recompute_grad": True},
                 {"recompute_grad": True, "remat_policy": "save_attn"}):
         with pytest.raises(NotImplementedError):
             tdalle.DalleConfig.from_params({**base, **bad}, 16)
@@ -229,6 +245,7 @@ def test_unported_options_are_refused():
         {**base, "recompute_grad": True, "remat_policy": "dots_and_attn",
          "scan_unroll": "full"}, 16)
     assert ok.remat_policy == "dots_and_attn"
+    assert tdalle.DalleConfig.from_params({**base, "ln_impl": "pallas"}, 16).ln_impl == "pallas"
     tree = {"w": torch.zeros(2, requires_grad=True)}
     for bad in ({"optimizer": "adafactor"}, {"skip_nonfinite_updates": 3}):
         with pytest.raises(NotImplementedError):
