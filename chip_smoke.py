@@ -26,7 +26,17 @@ Phases, none of them optional:
    - the LayerNorm pair (csrc/layer_norm.cu) against
      ``layer_norm_reference`` and ``layer_norm_backward_reference`` at
      dalle_4k's rows (R=17,408, E=1024, bf16) and a ragged fp32 shape; dg
-     and db within 1e-4 of max |plain| and equal bit for bit over two runs.
+     and db within 1e-4 of max |plain| and equal bit for bit over two runs;
+   - ``phase_ring_kernels``: the ring's per-hop pair (csrc/ring_attention.cu,
+     ``ring_partial`` and ``ring_block_grads``) against
+     ``ring_partial_reference`` and ``ring_block_grads_reference`` at the
+     ring slice's shard shape (B=4, H=8, S_local=1088, D=128, bf16): the
+     diagonal hop (diff 0), a past hop (1088) and a far one (3264), the
+     window band (``local_ring``, window 256) across the shard edge, hash
+     dropout 0.1 at global row0 and col0, and one fp32 case. The triple is
+     compared on rows with a live key (m <= NEG_INF/2 on the others); every
+     tensor per 64-long tile, and each case shows that a copy with its last
+     tile zeroed fails.
    Tolerance: max |kernel - plain| <= atol * max(1, max|plain|), atol 1e-5
    in fp32 and 1e-2 in bf16 on unit-scale inputs (uniform in [-1, 1); one
    bf16 rounding is 2^-8 relative); lse atol 1e-4. The [B, H, S, D] pair is
@@ -39,8 +49,10 @@ Phases, none of them optional:
    (through the kernels) against the port's plain path on the CPU, same
    weights and tokens; once with the packed attention, once with
    ``attn_packed: false, ln_impl: "pallas"`` (the [B, H, S, D] pair and the
-   LN kernels, launches counted). Tolerance: loss atol 1e-4; each grad leaf within
-   relative L2 error 1e-2. fp32 sums run in another order on each side, and
+   LN kernels, launches counted); and a third arm, four ranks on the card
+   with ``attention_type: "ring"`` on ``data:2,seq:2`` (in
+   ``phase_ring_attention``, below). Tolerance: loss atol 1e-4; each grad
+   leaf within relative L2 error 1e-2. fp32 sums run in another order on each side, and
    a ReLU gate whose input is within rounding of 0 may flip between the two:
    a flip moves single elements of the MLP grads by ~1% of the leaf's
    largest and spreads into the LN grads (~1e-3 in L2), so there is no
@@ -60,6 +72,30 @@ Phases, none of them optional:
    ``train_dalle.main`` for 6 steps with an eval and a checkpoint; the same
    checks, exact launch counts of the [B, H, S, D] pair and the LN kernels
    (and none of the packed pair), the same timing and profile.
+   Then sequence parallelism, four ranks sharing the one card (NCCL refuses
+   two ranks on one device, so they run gloo, the ring's sends staged through
+   host memory; the kernels are built once here first, so the ranks never
+   race on the build):
+   - ``phase_ring_attention``: ``torch.distributed.run`` of four ranks runs
+     ``ring_attention`` forward and backward on their shards of seeded q, k,
+     v, g (B=4, H=8, S=4352, D=128, bf16); out, dq, dk, dv gathered and held
+     per 64-long tile (2^-6 of the tile's max) against the single-device
+     [B, H, S, D] kernel pair on the whole sequence, without and with hash
+     dropout 0.1 (one seed: the masks are keyed on global coordinates); the
+     ranks then run the values check's third arm;
+   - ``phase_train_ring``, the main path of this slice: a copy of the
+     dalle_4k config with ``attention_type: "ring"``, ``mesh_shape:
+     data:1,seq:4`` and ``layout: batch_dim:data,total_seq_dim:seq`` through
+     ``python -m torch.distributed.run --nproc_per_node 4`` and
+     ``train_dalle.main`` for 6 steps with an eval and a checkpoint, then a
+     resumed run for one more. Checks the first loss against ln V + var/2
+     and within 2e-3 of the single-process run's, finite losses and grad
+     norms, the parameters bit-equal over the ranks (a checksum a rank), the
+     exact ``ring_partial``/``ring_block_grads`` launches of each rank (rank r
+     runs r + 1 live hops a layer a pass) and the LN kernels', and no
+     launch of the [B, H, S, D] or packed pairs; prints step time and
+     tokens/s labelled as four ranks on one card, the bytes staged and the
+     peak memory a rank.
 5. Serving slice: configs/dalle_coco.json at full width and depth with
    weights from a seed. Banded prefill logits on the card against the port's
    plain path on the CPU in fp32 (same weights); then the HTTP server
@@ -89,6 +125,9 @@ Phases, none of them optional:
    with requests admitted at three chunk boundaries; the greedy request's
    images equal the whole-batch int8 engine's byte for byte, and the launches
    equal (6 * n_layers + 1) * chunk per chunk plus one per admission.
+
+``chip_smoke.py --ring-worker <checks|train> ...`` is one rank of the ring
+phases, started by them through ``torch.distributed.run``.
 
 Prints "kernel", "train" and "batch" JSON lines, then the kernel report as one
 JSON line (with each kernel's least time on the card, ``bound_ms``, and one
@@ -124,6 +163,8 @@ FWD_SOURCE = "dalle_mtf_tpu_torch/csrc/causal_attention_fwd.cu"
 BWD_SOURCE = "dalle_mtf_tpu_torch/csrc/causal_attention_bwd.cu"
 DECODE_SOURCE = "dalle_mtf_tpu_torch/csrc/decode_matmul.cu"
 LN_SOURCE = "dalle_mtf_tpu_torch/csrc/layer_norm.cu"
+RING_SOURCE = "dalle_mtf_tpu_torch/csrc/ring_attention.cu"
+RING = "dalle_mtf_tpu/ops/ring_attention.py"
 REPLACES = {
     "causal_attention_packed_fwd": "dalle_mtf_tpu/ops/attention_packed.py:160",  # _fused_fwd_kernel
     "causal_attention_packed_bwd": "dalle_mtf_tpu/ops/attention_packed.py:205",  # _fused_bwd_kernel
@@ -132,6 +173,8 @@ REPLACES = {
     "int4_matmul": "dalle_mtf_tpu/ops/decode_matmul.py:54",  # _int4_kernel
     "layer_norm_fwd": "dalle_mtf_tpu/ops/layer_norm.py:53",  # _ln_fwd_kernel
     "layer_norm_bwd": "dalle_mtf_tpu/ops/layer_norm.py:63",  # _ln_bwd_kernel
+    "ring_partial": f"{RING}:230",  # _ring_fwd_kernel
+    "ring_block_grads": f"{RING}:333",  # _ring_bwd_kernel
 }
 # The [B, H, S, D] regimes of the TPU package, all ported onto the one
 # kernel pair: one kernels-line row per wrapper and regime shape of
@@ -166,6 +209,13 @@ PEAK_FP32_TFLOPS = 67.0  # H100 SXM fp32 outside the tensor cores (data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 L2_BYTES = 50e6
 CHUNK = 128  # continuous engine: decode steps between admissions
+# sequence parallelism: ranks sharing the one card over gloo
+RING_RANKS = 4
+RING_MESH, VALUES_MESH = "data:1,seq:4", "data:2,seq:2"
+RING_LAYOUT = "batch_dim:data,total_seq_dim:seq"
+RING_STEPS, RING_RESUME_STEPS = LONG_STEPS, 1
+RING_LABEL = "4 ranks sharing one card, gloo staged through host: not a multi-GPU number"
+RING_SEED = 2**31 - 7
 
 
 def gpu_line() -> str:
@@ -582,14 +632,14 @@ def phase_ln_kernels(torch, lnm, card):
     return best
 
 
-def sdpa_bhsd_ms(torch, q, k, v, g, iters) -> tuple[float, float]:
-    """One ``scaled_dot_product_attention(is_causal=True)`` forward, and its
-    backward alone, on [B, H, S, D] inputs: the library yardstick."""
+def sdpa_bhsd_ms(torch, q, k, v, g, iters, causal: bool = True) -> tuple[float, float]:
+    """One ``scaled_dot_product_attention`` forward (causal unless asked),
+    and its backward alone, on [B, H, S, D] inputs: the library yardstick."""
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.no_grad():
-        fwd = cuda_ms(lambda: sdpa(q, k, v, is_causal=True), iters)
-    out = sdpa(*leaves, is_causal=True)
+        fwd = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal), iters)
+    out = sdpa(*leaves, is_causal=causal)
     bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), iters)
     return fwd, bwd
 
@@ -618,6 +668,22 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+def values_model(torch, **over):
+    """(config, fp32 parameters, tokens [2, S]) of the values checks: the
+    full-width configs/dalle_coco_synth.json model cut to 2 layers, fp32,
+    weights and tokens from seeds; ``over`` sets config fields."""
+    from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    base, _ = make_dalle_models(fetch_model_params(TRAIN_CONFIG), "cpu")
+    cfg = dataclasses.replace(base.cfg, n_layers=2, bf_16=False, **over)
+    params = DALLE(cfg, "cpu").init(torch.Generator().manual_seed(5))
+    tokens = torch.randint(0, cfg.total_tokens, (2, cfg.total_seq_len),
+                           generator=torch.Generator().manual_seed(6))
+    return cfg, params, tokens
+
+
 def phase_train_values(torch, card, **over):
     """Loss and every grad of a full-width, 2-layer fp32 model: card (through
     the kernels) against the port's plain path on the CPU. ``over`` sets
@@ -625,16 +691,10 @@ def phase_train_values(torch, card, **over):
     pair and the LN kernels)."""
     from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
-    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
-    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
 
-    base, _ = make_dalle_models(fetch_model_params(TRAIN_CONFIG), "cpu")
-    cfg = dataclasses.replace(base.cfg, n_layers=2, bf_16=False, **over)
-    params = DALLE(cfg, "cpu").init(torch.Generator().manual_seed(5))
-    tokens = torch.randint(0, cfg.total_tokens, (2, cfg.total_seq_len),
-                           generator=torch.Generator().manual_seed(6))
+    cfg, params, tokens = values_model(torch, **over)
     bwd = "causal_attention_packed_bwd" if cfg.attn_packed else "causal_attention_bwd"
     want = {bwd: cfg.n_layers}
     if cfg.ln_impl == "pallas":  # two LNs a layer and the final one
@@ -654,19 +714,24 @@ def phase_train_values(torch, card, **over):
                 raise AssertionError(f"the card's loss launched {got}, expected {want}")
             launched = {n: c for n, c in got.items() if c}
         results[device] = (loss.item(), {"/".join(p): t.grad.cpu() for p, t in named_leaves(tree)})
-    (gl, gg), (cl, cg) = results["cuda"], results["cpu"]
+    return dict(**compare_values(over or "packed", cfg, card, results["cuda"], results["cpu"]),
+                launches=launched)
+
+
+def compare_values(label, cfg, card, card_result, cpu_result) -> dict:
+    """Hold (loss, {leaf: grad}) from the card against the CPU plain path:
+    loss atol 1e-4, each leaf within relative L2 error 1e-2."""
+    (gl, gg), (cl, cg) = card_result, cpu_result
     l2 = max((((gg[n] - cg[n]).norm() / cg[n].norm().clamp_min(1e-30)).item(), n) for n in cg)
     elem = max(((gg[n] - cg[n]).abs().max().item() / max(cg[n].abs().max().item(), 1e-30), n)
                for n in cg)
-    print(f"train values {over or 'packed'}: {cfg.n_embd} wide, {cfg.n_layers} layers, fp32, "
-          f"batch 2, S "
+    print(f"train values {label}: {cfg.n_embd} wide, {cfg.n_layers} layers, fp32, batch 2, S "
           f"{cfg.total_seq_len}: loss card {gl:.6f} cpu {cl:.6f} (atol 1e-4); worst grad "
           f"relative L2 error {l2[0]:.3g} ({l2[1]}, bound 1e-2); worst single element "
           f"{elem[0]:.3g} of its leaf's max |grad| ({elem[1]}); {card}", flush=True)
     if not (abs(gl - cl) <= 1e-4 and l2[0] <= 1e-2):
-        raise AssertionError("the card's loss or grads disagree with the CPU plain path")
-    return dict(loss_card=gl, loss_cpu=cl, worst_grad_rel_l2=l2, worst_grad_elem=elem,
-                launches=launched)
+        raise AssertionError(f"{label}: the card's loss or grads disagree with the CPU plain path")
+    return dict(loss_card=gl, loss_cpu=cl, worst_grad_rel_l2=l2, worst_grad_elem=elem)
 
 
 def write_tokens_dataset(root: str, seed: int, image_len: int, image_vocab: int,
@@ -930,6 +995,7 @@ def phase_train_long(torch, attn, lnm, card, kernel_rows):
         tflops = tokens_per_step / med * flops_per_token / 1e12
         attn_ms = L * (kernel_rows["causal_attention_fwd"]["ms"]
                        + kernel_rows["causal_attention_bwd"]["ms"])
+        first_loss = losses[0]
         print("train", json.dumps(dict(
             card=card, config=LONG_CONFIG, batch=tokens_per_step // s, seq_len=s,
             n_layers=L, n_embd=e, vocab=v, bf16=cfg.bf_16, attn_packed=cfg.attn_packed,
@@ -941,7 +1007,433 @@ def phase_train_long(torch, attn, lnm, card, kernel_rows):
             attn_kernels_share_from_events=attn_ms / (med * 1e3),
             **split,
         )), flush=True)
-        return launches
+        return launches, first_loss
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ring_hop(torch, ring, s, diff, window):
+    """(rows with a live key [S] bool, live (row, key) pairs) of one hop
+    between S-long shards: what the hop's work depends on."""
+    _, _, mask = ring._masks(s, s, diff, window, "cpu")
+    return ~mask.all(-1), int((~mask).sum())
+
+
+def planted_fails(t, want, rtol):
+    """Whether the tile bound fails a copy of ``t`` with its last 64-long
+    tile of S zeroed; None where ``want`` is zero there (nothing to plant)."""
+    last = (want.shape[2] - 1) // 64 * 64
+    if want[:, :, last:].abs().max().item() == 0:
+        return None
+    planted = t.clone()
+    planted[:, :, last:] = 0
+    return tile_rel_err(planted, want) > rtol
+
+
+def phase_ring_kernels(torch, ring, card):
+    """ring_partial and ring_block_grads against their plain versions at the
+    ring slice's shard shape (B=4, H=8, S_local=1088, D=128): the diagonal,
+    a past and a far past hop, the window band across the shard edge, hash
+    dropout at global coordinates, and fp32. The triple is compared on rows
+    with a live key, and every 64-long tile within 2^-6 (bf16) or 1e-5
+    (fp32) of its own max |plain|, a bound shown to fail a copy with its
+    last tile zeroed. Returns {case: {wrapper: row}}."""
+    b, h, s, d = 4, 8, 1088, 128
+    cases = [  # (name, dtype, hops back, window, dropout, timing iters)
+        ("diagonal", torch.bfloat16, 0, None, 0.0, 10),
+        ("past", torch.bfloat16, 1, None, 0.0, 10),
+        ("far_past", torch.bfloat16, 3, None, 0.0, 5),
+        ("window_256", torch.bfloat16, 1, 256, 0.0, 10),
+        ("dropout", torch.bfloat16, 1, None, 0.1, 5),
+        ("fp32", torch.float32, 1, None, 0.0, 3),
+    ]
+    gen = torch.Generator().manual_seed(4)
+    rows = {}
+    for name, dtype, hops, window, rate, iters in cases:
+        q, k, v, g = ((torch.rand((b, h, s, d), generator=gen) * 2 - 1).to("cuda", dtype)
+                      for _ in range(4))
+        row0 = 3 * s
+        args = (hops * s, row0, row0 - hops * s, window, rate, RING_SEED)
+        live, pairs = ring_hop(torch, ring, s, hops * s, window)
+        live = live.cuda()
+        before = dict(ring.KERNEL_LAUNCHES)
+        num, m, l = ring.ring_partial(q, k, v, *args)
+        # a backward input of this hop: lse and dsum of its normalised output
+        lse = m + torch.log(l.clamp_min(1e-30))
+        out = (num / l.clamp_min(1e-30).reshape(b, h, s, 1)).to(dtype)
+        dsum = (g.float() * out.float()).sum(-1).reshape(b * h, s)
+        dk, dv = (torch.zeros((b, h, s, d), device="cuda") for _ in range(2))
+        dq = ring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args)
+        torch.cuda.synchronize()
+        for key in ring.KERNEL_LAUNCHES:
+            if ring.KERNEL_LAUNCHES[key] != before[key] + 1:
+                raise AssertionError(f"{key} did not count its launch")
+        ref_num, ref_m, ref_l = ring.ring_partial_reference(q, k, v, *args)
+        ref_dq, ref_dk, ref_dv = ring.ring_block_grads_reference(q, g, lse, dsum, k, v, *args)
+        if not live.all() and m[:, ~live].max().item() > ring.NEG_INF / 2:
+            raise AssertionError(f"ring {name}: a row without a live key has m above NEG_INF/2")
+        ml_errs = {n: ((got - w)[:, live].abs() / w[:, live].abs().clamp_min(1.0)).max().item()
+                   for n, got, w in (("m", m, ref_m), ("l", l, ref_l))}
+        keep = live.reshape(1, 1, s, 1)
+        pairs_t = {"num": (num * keep, ref_num * keep), "dq": (dq * keep, ref_dq * keep),
+                   "dk": (dk, ref_dk), "dv": (dv, ref_dv)}
+        rtol = tile_rtol(dtype)
+        tile_errs = {n: tile_rel_err(t, w) for n, (t, w) in pairs_t.items()}
+        abs_errs = {n: (t - w).abs().max().item() for n, (t, w) in pairs_t.items()}
+        planted = {n: planted_fails(t, w, rtol) for n, (t, w) in pairs_t.items()}
+        if any(p is False for p in planted.values()) or not any(planted.values()):
+            raise AssertionError(f"ring {name}: the tile bound passes a zeroed last tile "
+                                 f"{planted}")
+        bad = {n: e for n, e in tile_errs.items() if not e <= rtol}
+        bad.update({n: e for n, e in ml_errs.items() if not e <= 1e-5})
+        if bad:
+            raise AssertionError(
+                f"ring {name}: kernels disagree with the plain versions: {bad} (tiles within "
+                f"{rtol} of their own max |plain|, m and l 1e-5 relative); all {tile_errs}, "
+                f"{ml_errs}")
+        del ref_num, ref_m, ref_l, ref_dq, ref_dk, ref_dv, pairs_t
+        fwd_ms = cuda_ms(lambda: ring.ring_partial(q, k, v, *args), iters)
+        fwd_plain = cuda_ms(lambda: ring.ring_partial_reference(q, k, v, *args), iters)
+        bwd_ms = cuda_ms(lambda: ring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args),
+                         iters)
+        bwd_plain = cuda_ms(lambda: ring.ring_block_grads_reference(
+            q, g, lse, dsum, k, v, *args), iters)
+        lib_fwd = lib_bwd = None
+        if window is None and rate == 0.0:  # SDPA: no window, no hash dropout
+            lib_fwd, lib_bwd = sdpa_bhsd_ms(torch, q, k, v, g, iters, causal=hops == 0)
+        elem, bh = q.element_size(), b * h
+        peak = PEAK_FP32_TFLOPS if elem == 4 else PEAK_BF16_TFLOPS
+        common = dict(card=card, shape=name, B=b, H=h, S_local=s, D=d, dtype=str(dtype),
+                      diff=hops * s, row0=row0, window=window, dropout=rate,
+                      live_pairs_per_head=pairs, tile_rtol=rtol, planted_zero_fails=planted)
+        rows[name] = {
+            # reads q, k, v; writes num fp32 and m, l; QK^T and PV over the live pairs
+            "ring_partial": dict(
+                kernel="ring_partial", **common, max_abs_err=abs_errs["num"],
+                tile_rel_err=tile_errs["num"], m_l_rel_err=ml_errs, ms=fwd_ms,
+                plain_ms=fwd_plain, library_ms=lib_fwd,
+                **roofline(2 * 2 * d * bh * pairs,
+                           3 * bh * s * d * elem + bh * s * d * 4 + 2 * bh * s * 4, peak)),
+            # reads q, k, v, dO, lse, dsum; writes dq; reads and writes the fp32
+            # dk, dv accumulators; five products over the live pairs
+            "ring_block_grads": dict(
+                kernel="ring_block_grads", **common,
+                max_abs_err=max(abs_errs[n] for n in ("dq", "dk", "dv")),
+                abs_errs={n: abs_errs[n] for n in ("dq", "dk", "dv")},
+                tile_rel_errs={n: tile_errs[n] for n in ("dq", "dk", "dv")}, ms=bwd_ms,
+                plain_ms=bwd_plain, library_ms=lib_bwd,
+                ms_includes="dQ and dK/dV launches",
+                **roofline(5 * 2 * d * bh * pairs,
+                           5 * bh * s * d * elem + 2 * bh * s * 4 + 4 * bh * s * d * 4, peak)),
+        }
+        for row in rows[name].values():
+            print("kernel", json.dumps(row), flush=True)
+        del q, k, v, g, num, m, l, lse, out, dsum, dk, dv, dq
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_ranks(args, timeout: float) -> str:
+    """``torch.distributed.run`` of RING_RANKS ranks on this machine
+    (``--standalone``: a rendezvous on localhost); returns their output and
+    raises if a rank fails. On a timeout the launcher is stopped, and it
+    stops its ranks."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(RING_RANKS), *args]
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        print(out[-8000:], file=sys.stderr)
+        raise AssertionError(f"{' '.join(args[:3])}: the ranks did not finish in {timeout}s")
+    if proc.returncode != 0:
+        print(out[-8000:], file=sys.stderr)
+        raise AssertionError(f"{' '.join(args[:3])}: the ranks failed ({proc.returncode})")
+    return out
+
+
+def worker_checks(torch, out_dir):
+    """One rank of phase_ring_attention: ring attention forward and
+    backward on its shard of seeded global q, k, v, g (B=4, H=8, S=4352,
+    D=128, bf16) on RING_MESH, without and with hash dropout 0.1; then the
+    2-layer fp32 values model on VALUES_MESH, its loss and grads summed over
+    the world. Writes <out_dir>/rank<r>.pt."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import ring_attention as ring  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.parallel.mesh import build_mesh  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.distributed import init_distributed  # noqa: PLC0415
+
+    proc = init_distributed(["0"], "cuda")
+    try:
+        mesh = build_mesh(RING_MESH, RING_LAYOUT, "ring", proc.rank, proc.world)
+        res = {"backend": proc.backend, "seq_group_backend": dist.get_backend(mesh.group("seq")),
+               "coords": mesh.coords}
+        full = ring_attention_inputs(torch)
+        sl = full[0].shape[2] // RING_RANKS
+        i = mesh.index("seq")
+        shard = [t[:, :, i * sl:(i + 1) * sl].contiguous().cuda() for t in full]
+        for rate in (0.0, 0.1):
+            leaves = [t.clone().requires_grad_(True) for t in shard[:3]]
+            reset_counts(ring)
+            ring.STAGED_BYTES["ring_shift"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ring.ring_attention_auto(*leaves, mesh, "seq", "data", None, rate,
+                                           RING_SEED if rate else None)
+            out.backward(shard[3])
+            torch.cuda.synchronize()
+            res[rate] = dict(out=out.detach().cpu(), seconds=time.perf_counter() - t0,
+                             launches=dict(ring.KERNEL_LAUNCHES),
+                             staged_bytes=ring.STAGED_BYTES["ring_shift"],
+                             **{n: t.grad.cpu() for n, t in zip(("dq", "dk", "dv"), leaves)})
+        del full, shard, leaves, out
+
+        vmesh = build_mesh(VALUES_MESH, RING_LAYOUT, "ring", proc.rank, proc.world)
+        cfg, params, tokens = values_model(torch, attention_type="ring")
+        tree = _to(params, "cuda")
+        for _, t in named_leaves(tree):
+            t.requires_grad_(True)
+        reset_counts(attn, lnm, ring)
+        dp = vmesh.index("data")
+        loss, _ = DALLE(cfg, "cuda", vmesh).loss(tree, tokens[dp:dp + 1].cuda())
+        loss.backward()
+        grads = {"/".join(p): t.grad for p, t in named_leaves(tree)}
+        for t in (loss, *grads.values()):
+            dist.all_reduce(t.detach())
+        res["values"] = dict(coords=vmesh.coords, loss=loss.item(),
+                             launches={**attn.KERNEL_LAUNCHES, **ring.KERNEL_LAUNCHES},
+                             grads={n: t.cpu() for n, t in grads.items()}
+                             if proc.rank == 0 else None)
+        torch.save(res, os.path.join(out_dir, f"rank{proc.rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def ring_attention_inputs(torch):
+    """Seeded global q, k, v, g [4, 8, 4352, 128] bf16 on the CPU."""
+    gen = torch.Generator().manual_seed(21)
+    return [(torch.rand((4, 8, 4352, 128), generator=gen) * 2 - 1).to(torch.bfloat16)
+            for _ in range(4)]
+
+
+def phase_ring_attention(torch, attn, card):
+    """Four ranks on the card (``torch.distributed.run``, gloo): ring
+    attention's forward and backward on their shards, gathered and held per
+    64-long tile against the single-device [B, H, S, D] kernel pair on the
+    whole sequence (2^-6 of each tile's max |single-device|), without and
+    with hash dropout 0.1 (the same seed: the masks are keyed on global
+    coordinates); then the third arm of the values check, the 2-layer fp32
+    model on ``data:2,seq:2`` against the port's plain single process on the
+    CPU. Returns the values arm's result."""
+    from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ring_")
+    try:
+        t0 = time.perf_counter()
+        run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "checks", out_dir], 600)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(RING_RANKS)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if {(r["backend"], r["seq_group_backend"]) for r in ranks} != {("gloo", "gloo")}:
+        raise AssertionError(f"ranks sharing a card must run gloo: {[r['backend'] for r in ranks]}")
+    by_seq = sorted(ranks, key=lambda r: r["coords"]["seq"])
+    q, k, v, g = (t.cuda() for t in ring_attention_inputs(torch))
+    rtol = tile_rtol(torch.bfloat16)
+    report = {}
+    for rate in (0.0, 0.1):
+        out, lse = attn._forward(q, k, v, None, rate, RING_SEED, with_lse=True)
+        want = dict(zip(("out", "dq", "dk", "dv"),
+                        (out, *attn._backward(q, k, v, out, lse, g, None, rate, RING_SEED))))
+        errs = {}
+        for n, w in want.items():
+            got = torch.cat([r[rate][n] for r in by_seq], 2).cuda()
+            errs[n] = tile_rel_err(got, w)
+        launches = [r[rate]["launches"] for r in by_seq]
+        if launches != [{"ring_partial": i + 1, "ring_block_grads": i + 1}
+                        for i in range(RING_RANKS)]:
+            raise AssertionError(f"ring attention launches per rank {launches}")
+        if not all(e <= rtol for e in errs.values()):
+            raise AssertionError(f"ring attention (dropout {rate}) disagrees with the single-"
+                                 f"device pair: tile errors {errs} (bound {rtol})")
+        report[rate] = dict(tile_rel_errs=errs, seconds=[r[rate]["seconds"] for r in by_seq],
+                            staged_bytes=[r[rate]["staged_bytes"] for r in by_seq])
+        print(f"ring attention, 4 ranks x S_local 1088 (B=4 H=8 S=4352 D=128 bf16), dropout "
+              f"{rate}: out, dq, dk, dv per 64-long tile against the single-device pair "
+              f"{errs} (bound {rtol}); launches per rank {launches}; fwd+bwd seconds per rank "
+              f"{report[rate]['seconds']} ({RING_LABEL}); {card}", flush=True)
+    del q, k, v, g, out, lse, want
+    torch.cuda.empty_cache()
+
+    cfg, params, tokens = values_model(torch, attention_type="ring")
+    tree = _to(params, "cpu")
+    for _, t in named_leaves(tree):
+        t.requires_grad_(True)
+    loss, _ = DALLE(cfg, "cpu").loss(tree, tokens)
+    loss.backward()
+    cpu = (loss.item(), {"/".join(p): t.grad for p, t in named_leaves(tree)})
+    vals = [r["values"] for r in sorted(ranks, key=lambda r: tuple(r["values"]["coords"].values()))]
+    card_result = (vals[0]["loss"], ranks[0]["values"]["grads"])
+    result = compare_values(f"{VALUES_MESH} ring, 4 ranks", cfg, card, card_result, cpu)
+    launches = [v["launches"] for v in vals]
+    for v in vals:
+        i = v["coords"]["seq"]
+        want = {"ring_partial": cfg.n_layers * (i + 1), "ring_block_grads": cfg.n_layers * (i + 1)}
+        if {n: v["launches"][n] for n in want} != want or any(
+                c for n, c in v["launches"].items() if n not in want):
+            raise AssertionError(f"values arm launches {launches}")
+    print(f"ring checks: 4 ranks in {wall:.1f}s", flush=True)
+    return dict(**result, launches=launches, attention=report)
+
+
+def worker_train(torch, out_dir, argv):
+    """One rank of phase_train_ring: ``train_dalle.main`` on its argv, the
+    kernel counts set to 0 just before; writes what the rank saw to
+    <out_dir>/rank<r>.json (history, launches, staged bytes, peak memory and
+    a checksum of its parameters)."""
+    import hashlib  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch import train_dalle  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import ring_attention as ring  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+
+    rank = int(os.environ["RANK"])
+    reset_counts(attn, lnm, ring)
+    ring.STAGED_BYTES["ring_shift"] = 0
+    t0 = time.perf_counter()
+    run = train_dalle.main(argv)  # a fresh process: its peak memory is this run's
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    digest = hashlib.sha256()
+    for _, t in named_leaves(run.state["params"]):
+        digest.update(t.detach().cpu().numpy().tobytes())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(rank=rank, history=run.history, eval_history=run.eval_history,
+                       checkpoints=run.checkpoint_steps(), wall_s=wall,
+                       launches={**attn.KERNEL_LAUNCHES, **lnm.KERNEL_LAUNCHES,
+                                 **ring.KERNEL_LAUNCHES},
+                       staged_bytes=ring.STAGED_BYTES["ring_shift"],
+                       peak_mem_gb=torch.cuda.max_memory_allocated(0) / 1e9,
+                       params_sha256=digest.hexdigest()), f)
+
+
+def train_ranks(torch, path, steps, evals, cfg, new: bool) -> list[dict]:
+    """The ring run's ranks through ``train_dalle.main``; checks what every
+    rank logged and launched and that their parameters are bit-equal.
+    Returns the ranks' reports in rank order."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ring_train_")
+    try:
+        argv = ["--model", path, "--gpu_ids", "0"] + (["--new", "--yes"] if new else [])
+        run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "train", out_dir,
+                   *argv], 900)
+        ranks = []
+        for r in range(RING_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    first = ranks[0]["history"][0]["step"]
+    for r in ranks:
+        if [h["step"] for h in r["history"]] != list(range(first, first + steps)):
+            raise AssertionError(f"rank {r['rank']} logged steps {[h['step'] for h in r['history']]}")
+        if [h["loss"] for h in r["history"]] != [h["loss"] for h in ranks[0]["history"]]:
+            raise AssertionError("the ranks logged different losses")
+        if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                   for h in r["history"]):
+            raise AssertionError(f"non-finite loss or grad_norm: {r['history']}")
+        if len(r["eval_history"]) != evals or not all(
+                math.isfinite(e["eval_loss"]) for e in r["eval_history"]):
+            raise AssertionError(f"eval: {r['eval_history']}")
+        if r["checkpoints"] != [first + steps - 1]:
+            raise AssertionError(f"checkpoints {r['checkpoints']}")
+        # rank r holds shard r: r + 1 live hops a layer in every pass
+        n, passes = cfg.n_layers * (r["rank"] + 1), steps + evals
+        n_ln = 2 * cfg.n_layers + 1
+        want = {"ring_partial": n * passes, "ring_block_grads": n * steps,
+                "layer_norm_fwd": n_ln * passes, "layer_norm_bwd": n_ln * steps}
+        if {k: r["launches"].get(k, 0) for k in want} != want or any(
+                c for k, c in r["launches"].items() if k not in want):
+            raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected {want}")
+    if len({r["params_sha256"] for r in ranks}) != 1:
+        raise AssertionError(f"the ranks' parameters differ: {[r['params_sha256'] for r in ranks]}")
+    return ranks
+
+
+def phase_train_ring(torch, card, long_first_loss):
+    """The sequence-parallel main path: a tokens-mode copy of
+    configs/dalle_4k.json at full width and depth (as phase_train_long, the
+    same dataset and seed) with ``attention_type: "ring"``, ``mesh_shape:
+    data:1,seq:4`` and ``layout: batch_dim:data,total_seq_dim:seq``, through
+    ``torch.distributed.run`` of four ranks sharing the card and
+    ``train_dalle.main`` for RING_STEPS steps with an eval and a checkpoint,
+    then a resumed run for RING_RESUME_STEPS more. Returns the ring kernels'
+    launches over the four ranks of the first run, and per rank."""
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ring_run_")
+    try:
+        extra = dict(attn_packed=False, ln_impl="pallas", attention_type="ring",
+                     mesh_shape=RING_MESH, layout=RING_LAYOUT)
+        dalle, _ = make_dalle_models({**fetch_model_params(LONG_CONFIG), **extra}, "cpu")
+        cfg = dalle.cfg
+        write_tokens_dataset(os.path.join(tmp, "data"), 1, cfg.image_seq_len,
+                             cfg.image_vocab_size, files=2, per_file=24)
+        path = train_config(tmp, RING_STEPS, LONG_CONFIG, RING_STEPS, **extra)
+        t0 = time.perf_counter()
+        ranks = train_ranks(torch, path, RING_STEPS, 1, cfg, new=True)
+        wall = time.perf_counter() - t0
+        hist = ranks[0]["history"]
+        losses = [h["loss"] for h in hist]
+        init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
+        if abs(losses[0] - init_loss) > 0.1 or abs(losses[0] - long_first_loss) > 2e-3:
+            raise AssertionError(f"first loss {losses[0]} vs ln(vocab) + var/2 = {init_loss} "
+                                 f"and the single-process run's {long_first_loss} (atol 2e-3)")
+        path = train_config(tmp, RING_STEPS + RING_RESUME_STEPS, LONG_CONFIG, RING_STEPS, **extra)
+        resumed = train_ranks(torch, path, RING_RESUME_STEPS, 1, cfg, new=False)
+        step_s = [1.0 / h["steps_per_sec"] for h in hist[LONG_TIMED_FROM - 1:]]
+        med = statistics.median(step_s)
+        tokens_per_step = cfg.total_seq_len * fetch_model_params(path)["train_batch_size"]
+        staged = [r["staged_bytes"] for r in ranks]
+        print(f"train ring {LONG_CONFIG}: {RING_STEPS} steps + eval + checkpoint in "
+              f"{wall:.1f}s (4 ranks); losses {[round(x, 4) for x in losses]} (the single-"
+              f"process run's first {long_first_loss:.4f}); resumed at step {RING_STEPS}: "
+              f"{[round(h['loss'], 4) for h in resumed[0]['history']]}; parameters bit-equal "
+              f"over the ranks; launches per rank {[r['launches'] for r in ranks]}", flush=True)
+        print("train", json.dumps(dict(
+            card=card, config=LONG_CONFIG, label=RING_LABEL, ranks=RING_RANKS,
+            mesh_shape=RING_MESH, layout=RING_LAYOUT, batch=tokens_per_step // cfg.total_seq_len,
+            seq_len=cfg.total_seq_len, seq_len_per_rank=cfg.total_seq_len // RING_RANKS,
+            n_layers=cfg.n_layers, n_embd=cfg.n_embd, vocab=cfg.total_tokens, bf16=cfg.bf_16,
+            steps_timed=len(step_s), step_s=step_s, step_s_median=med,
+            tokens_per_s=tokens_per_step / med, first_loss=losses[0],
+            single_process_first_loss=long_first_loss, expected_init_loss=init_loss,
+            staged_bytes_per_rank=staged,
+            staged_bytes_per_rank_per_pass=[b / (RING_STEPS + 1) for b in staged],
+            peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+            wall_s_per_rank=[r["wall_s"] for r in ranks],
+            eval=ranks[0]["eval_history"], resumed_losses=[h["loss"] for h in resumed[0]["history"]],
+        )), flush=True)
+        per_rank = [{k: r["launches"][k] for k in ("ring_partial", "ring_block_grads")}
+                    for r in ranks]
+        return {k: sum(p[k] for p in per_rank) for k in per_rank[0]}, per_rank
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1451,6 +1943,19 @@ def phase_continuous(torch, attn, dmm, card, config, whole_batch):
     return launches["int8_matmul"]
 
 
+def ring_worker(argv) -> int:
+    """``chip_smoke.py --ring-worker <checks|train> <out_dir> [argv...]``:
+    one rank under ``torch.distributed.run``, for the ring phases."""
+    import torch  # noqa: PLC0415
+
+    mode, out_dir = argv[0], argv[1]
+    if mode == "checks":
+        worker_checks(torch, out_dir)
+    else:
+        worker_train(torch, out_dir, argv[2:])
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "dalle_mtf_tpu_torch")):
         print("chip_smoke.py: the dalle_mtf_tpu_torch package is not beside this "
@@ -1463,6 +1968,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ring-worker"]:
+        return ring_worker(sys.argv[2:])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
@@ -1478,21 +1985,25 @@ def main() -> int:
 
     from dalle_mtf_tpu_torch.ops import decode_matmul as dmm  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import ring_attention as ring  # noqa: PLC0415
 
     serving = phase_kernel(torch, attn, card)
     decode = phase_decode_kernels(torch, dmm, card)
     training = phase_train_kernels(torch, attn, card)
     bhsd = phase_bhsd_kernels(torch, attn, card)
     ln = phase_ln_kernels(torch, lnm, card)
+    ring_rows = phase_ring_kernels(torch, ring, card)
     phase_train_values(torch, card)
     unpacked = phase_train_values(torch, card, attn_packed=False, ln_impl="pallas")
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, attn, card, training)
     gc.collect()
     torch.cuda.empty_cache()
-    long_launches = phase_train_long(torch, attn, lnm, card, bhsd["dalle_4k"])
+    long_launches, long_first_loss = phase_train_long(torch, attn, lnm, card, bhsd["dalle_4k"])
     gc.collect()
     torch.cuda.empty_cache()
+    phase_ring_attention(torch, attn, card)
+    ring_launches, ring_per_rank = phase_train_ring(torch, card, long_first_loss)
     serve_launches, bf16 = phase_slice(torch, attn, card)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     try:
@@ -1553,6 +2064,15 @@ def main() -> int:
             name=name, route="cuda", source=LN_SOURCE, replaces=REPLACES[name],
             launches=long_launches[name], launches_on=f"{LONG_CONFIG} training",
             shape="dalle_4k R=17408 E=1024 bf16", **{k: ln[name][k] for k in keys},
+        ))
+    for name in ("ring_partial", "ring_block_grads"):
+        rows.append(dict(
+            name=name, route="cuda", source=RING_SOURCE, replaces=REPLACES[name],
+            launches=ring_launches[name],
+            launches_per_rank=[r[name] for r in ring_per_rank],
+            launches_on=f"{LONG_CONFIG} ring training, {RING_LABEL}",
+            shape="past hop B=4 H=8 S_local=1088 D=128 bf16",
+            **{k: ring_rows["past"][name][k] for k in keys},
         ))
     print(json.dumps({"kernels": rows}))
     print(card)

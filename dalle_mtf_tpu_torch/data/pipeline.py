@@ -229,15 +229,11 @@ class _Pipeline:
 
 
 def _resolve_shard(shard: tuple[int, int] | None) -> tuple[int, int]:
-    """(index, count) of this process: the torch.distributed rank and world
-    size when a process group is up, else (0, 1)."""
-    if shard is not None:
-        return shard
-    import torch.distributed as dist  # noqa: PLC0415
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    """(index, count) of this process's data: ``shard``, which a run over
+    several processes passes as its index and size on the data-parallel
+    (``batch_dim``) mesh axis, so that the sequence-parallel ranks of one
+    data-parallel group read the same rows; else (0, 1)."""
+    return (0, 1) if shard is None else shard
 
 
 def _shard_files(files: list[str], shard: tuple[int, int]) -> list[str]:

@@ -20,6 +20,16 @@ Training (``hidden``/``forward``/``loss``) runs through plain autograd,
 with the packed attention (ops/attention_packed.py) by default or, with
 ``attn_packed: false``, the [B, H, S, D] attention (ops/attention.py), and
 with ``ln_impl: "pallas"`` the fused LayerNorm kernels (ops/layer_norm.py).
+
+Across processes (a ``parallel.mesh.Mesh``), each rank holds its rows of the
+batch (data parallelism over the ``batch_dim`` axis) and, under
+``attention_type`` "ring"/"local_ring", its shard of the sequence (sequence
+parallelism over the ``total_seq_dim`` axis): ``hidden``, ``forward`` and
+``loss`` take the rank's rows of the whole sequence and compute on its shard,
+attention runs around the ring (ops/ring_attention.py), and the loss is the
+rank's share of the global mean, so that the sum over the ranks of the losses
+and of the gradients is the single-process value.
+
 Remat: the JAX default for this model, ``dots_and_attn``, saves every
 matmul output and the
 attention kernel's out and lse and recomputes only elementwise ops; plain
@@ -39,10 +49,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dalle_mtf_tpu_torch.ops.attention import causal_attention, decode_attention
-from dalle_mtf_tpu_torch.ops.attention_packed import causal_attention_packed
+from dalle_mtf_tpu_torch.ops.attention_packed import packed_attention
 from dalle_mtf_tpu_torch.ops.decode_matmul import int4_matmul, int8_matmul
 from dalle_mtf_tpu_torch.ops.layer_norm import layer_norm
 from dalle_mtf_tpu_torch.ops.losses import softmax_cross_entropy_with_logits
+from dalle_mtf_tpu_torch.ops.ring_attention import ring_attention_auto
+from dalle_mtf_tpu_torch.parallel.mesh import BATCH, HEADS, LAYERS, SEQ, parse_layout
 from dalle_mtf_tpu_torch.quantize import nibble_views, quantized_shapes
 from dalle_mtf_tpu_torch.utils.precision import Policy, get_policy
 
@@ -61,9 +73,12 @@ PORTED_REMAT_POLICIES = ("dots_and_attn",)
 class DalleConfig:
     """The fields serving and training read
     (``dalle_mtf_tpu.models.dalle.DalleConfig``). Settings the port cannot
-    honour yet raise NotImplementedError, here (ring attention, remat
-    policies) or in ``from_params`` (keys that are not fields); mesh layouts
-    of one device and ``scan_unroll`` (no torch meaning) are accepted and
+    honour yet raise NotImplementedError, here (remat policies) or in
+    ``from_params`` (keys that are not fields). The layout's batch, sequence
+    and heads axes are read as in JAX; a layout the port cannot honour on
+    more than one process (tensor or pipeline parallelism) raises when the
+    mesh is built (``parallel.mesh.check_layout``), and a ``layers:`` rule
+    raises here. ``scan_unroll`` (no torch meaning) is accepted and
     ignored."""
 
     n_embd: int
@@ -74,8 +89,13 @@ class DalleConfig:
     n_layers: int = 6
     n_heads: int = 8
     bf_16: bool = False
-    attention_type: str = "global"
+    attention_type: str = "global"  # | "local" | "ring" | "local_ring"
     local_attention_radius: int = 256
+    # mesh axes of ring attention, from the layout rules (total_seq_dim,
+    # batch_dim, heads_dim), as in JAX
+    ring_seq_axis: str = "seq"
+    ring_batch_axis: str | None = "data"
+    ring_heads_axis: str | None = None
     scale_type: str = "scale_by_depth"
     activation: str = "relu"
     ln_dtype: str = "float32"  # | "activation"; not read under ln_impl "pallas"
@@ -95,8 +115,6 @@ class DalleConfig:
         if self.ln_impl not in ("xla", "pallas"):
             raise ValueError(f"ln_impl must be 'xla' or 'pallas', got {self.ln_impl!r}")
         refused = []
-        if self.attention_type in ("ring", "local_ring"):
-            refused.append(f"attention_type={self.attention_type!r} (ring attention)")
         if self.recompute_grad and self.remat_policy not in PORTED_REMAT_POLICIES:
             refused.append(f"remat_policy={self.remat_policy!r} under recompute_grad")
         if refused:
@@ -108,7 +126,11 @@ class DalleConfig:
         cls, params: Mapping[str, Any], image_seq_len: int
     ) -> "DalleConfig":
         _refuse_unported(params)
+        rules = parse_layout(params.get("layout"))
         return cls(
+            ring_seq_axis=rules.get(SEQ) or "seq",
+            ring_batch_axis=rules.get(BATCH) or "data",
+            ring_heads_axis=rules.get(HEADS),
             n_embd=params["n_embd"],
             text_vocab_size=params["text_vocab_size"],
             image_vocab_size=params["image_vocab_size"],
@@ -162,8 +184,7 @@ def _refuse_unported(params: Mapping[str, Any]) -> None:
     refused = []
     if params.get("fused_xent"):
         refused.append("fused_xent (the chunked loss head)")
-    layout = params.get("layout") or ""
-    if any(part.partition(":")[0].strip() == "layers" for part in layout.split(",")):
+    if LAYERS in parse_layout(params.get("layout")):
         refused.append("a 'layers:' layout rule (pipeline parallelism)")
     if refused:
         raise NotImplementedError(
@@ -186,15 +207,16 @@ class Head(NamedTuple):
 class DALLE(nn.Module):
     """The model's computation over an explicit parameter tree.
 
-    The module holds the config and the device; the parameters are the
-    nested dict ``init`` returns (or ``utils.convert`` loads), passed to
-    every method, as in the JAX package.
+    The module holds the config, the device and the mesh (None: one
+    process); the parameters are the nested dict ``init`` returns (or
+    ``utils.convert`` loads), passed to every method, as in the JAX package.
     """
 
-    def __init__(self, config: DalleConfig, device: torch.device | str = "cpu"):
+    def __init__(self, config: DalleConfig, device: torch.device | str = "cpu", mesh=None):
         super().__init__()
         self.cfg = config
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
         if config.ln_impl == "pallas" and config.ln_dtype == "activation":
             logging.getLogger(__name__).warning(
                 "ln_impl='pallas' always computes the normalize in fp32 "
@@ -434,13 +456,60 @@ class DALLE(nn.Module):
 
     def _dropout(self, gen, x, rate, train):
         """Inverted dropout with a mask from ``gen`` (mtf dropout; the JAX
-        package draws it with jax.random, so the two masks differ)."""
+        package draws it with jax.random, so the two masks differ). On a
+        mesh, x [B, S_local, E] is this rank's block: the mask is drawn for
+        the whole batch and sequence, as one process would, and sliced."""
         if not train or rate <= 0.0:
             return x
         keep = 1.0 - rate
-        mask = torch.rand(x.shape, generator=_device_generator(gen, x.device),
-                          device=x.device) < keep
+        b, s, e = x.shape
+        dp_index, dp = self._dp()
+        rows, seq = slice(dp_index * b, (dp_index + 1) * b), self._seq_slice(s * self._sp())
+        mask = torch.rand((b * dp, s * self._sp(), e), generator=_device_generator(gen, x.device),
+                          device=x.device)[rows, seq] < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+    # ------------------------------------------------------------------ mesh
+
+    def _sp(self) -> int:
+        """Ranks the sequence is split over: the ring's seq axis, else 1."""
+        if self.mesh is None or self.cfg.attention_type not in ("ring", "local_ring"):
+            return 1
+        return self.mesh.size(self.cfg.ring_seq_axis)
+
+    def _dp(self) -> tuple[int, int]:
+        """(this rank's index, size) on the batch axis."""
+        if self.mesh is None:
+            return 0, 1
+        return self.mesh.index(self.cfg.ring_batch_axis), self.mesh.size(self.cfg.ring_batch_axis)
+
+    def _seq_slice(self, s: int) -> slice:
+        """This rank's positions of a sequence of ``s``."""
+        n = self._sp()
+        if s % n:
+            raise ValueError(f"ring attention: sequence length {s} not divisible by the "
+                             f"{self.cfg.ring_seq_axis!r} axis of size {n}")
+        i = self.mesh.index(self.cfg.ring_seq_axis) if n > 1 else 0
+        return slice(i * (s // n), (i + 1) * (s // n))
+
+    def local_labels(self, tokens):
+        """This rank's slice of the next-token targets of ``tokens`` [B, S]
+        (all of them on one process): the globally shifted labels, so the
+        last position of a shard predicts the next shard's first token."""
+        return self.shifted_labels(tokens)[:, self._seq_slice(tokens.shape[1])]
+
+    def global_mean(self, values, lo: int = 0, hi: int | None = None):
+        """The mean of per-position ``values`` [B, S_local] over global
+        positions [lo, hi) of the whole batch, as this rank's share: the
+        sum of its values there over the global count, so the sum over the
+        mesh's ranks is the mean. On one process, ``values[:, lo:hi].mean()``."""
+        if self.mesh is None:
+            return values[:, lo:hi].mean()
+        s = values.shape[1] * self._sp()
+        hi = s if hi is None else hi
+        seq = self._seq_slice(s)
+        a, b = max(lo, seq.start) - seq.start, min(hi, seq.stop) - seq.start
+        return values[:, a:max(a, b)].sum() / (values.shape[0] * self._dp()[1] * (hi - lo))
 
     def _qkv_packed(self, p, a_in):
         """[B, S, E] -> packed q, k, v [B, S, H*D]: the matmuls' natural
@@ -458,15 +527,24 @@ class DALLE(nn.Module):
         cfg = self.cfg
         a_in = self._layer_norm(x, p["ln1_g"], p["ln1_b"])
         drop = cfg.attention_dropout if train else 0.0
+        seed = _draw_seed(gen) if drop > 0.0 else None
+        if cfg.attention_type in ("ring", "local_ring"):
+            # sequence parallel over the mesh's seq axis (one process: the
+            # [B, H, S, D] attention); offsets the seed to the rank's rows
+            q, k, v = self._qkv(p, a_in)
+            a = self._attn_out(p, ring_attention_auto(
+                q, k, v, self.mesh, cfg.ring_seq_axis, cfg.ring_batch_axis, self._window,
+                drop, seed))
+            return self._block_tail(p, x, a, gen, train)
+        if seed is not None:  # program (b, h) of this rank's rows: global row b0 + b
+            seed += self._dp()[0] * x.shape[0] * cfg.n_heads
         # quantized weights take the [B, H, S, D] arm (JAX ``use_packed``)
         if cfg.attn_packed and "wq_scale" not in p and "wq_int4" not in p:
             q, k, v = self._qkv_packed(p, a_in)
-            a = causal_attention_packed(q, k, v, cfg.n_heads, window=self._window,
-                                        dropout_rate=drop, generator=gen)
+            a = packed_attention(q, k, v, cfg.n_heads, self._window, drop, seed)
             a = self._attn_out_packed(p, a)
         else:
             q, k, v = self._qkv(p, a_in)
-            seed = _draw_seed(gen) if drop > 0.0 else None
             a = self._attn_out(p, causal_attention(
                 q, k, v, window=self._window, dropout_rate=drop, dropout_seed=seed))
         return self._block_tail(p, x, a, gen, train)
@@ -481,27 +559,31 @@ class DALLE(nn.Module):
     def hidden(self, params, tokens, generator: torch.Generator | None = None,
                train: bool = False):
         """tokens [B, S] int -> final-LN hidden states [B, S, E] (compute
-        dtype). ``generator`` (CPU) feeds every dropout of the pass."""
+        dtype); on a sequence-parallel mesh, of this rank's positions
+        [row0, row0 + S_local) only. ``generator`` (CPU) feeds every dropout
+        of the pass (the same draws on every rank)."""
         cfg = self.cfg
         dtype = cfg.policy.compute_dtype
-        s = tokens.shape[1]
-        x = params["wte"][tokens].to(dtype) + params["wpe"][:s].to(dtype)
+        seq = self._seq_slice(tokens.shape[1])
+        x = params["wte"][tokens[:, seq]].to(dtype) + params["wpe"][seq].to(dtype)
         x = self._dropout(generator, x, cfg.embed_dropout, train)
         for p in self._layers(params):
             x = self._block(p, x, generator, train)
         return self._layer_norm(x, params["lnf_g"], params["lnf_b"])
 
     def forward(self, params, tokens, generator=None, train: bool = False):
-        """tokens [B, S] -> logits [B, S, total_tokens] fp32: compute-dtype
-        operands, fp32 accumulation and output (bf16 values are exact in
-        fp32, so the fp32 product of the cast operands is that matmul)."""
+        """tokens [B, S] -> logits [B, S, total_tokens] fp32 (of this rank's
+        positions on a sequence-parallel mesh): compute-dtype operands, fp32
+        accumulation and output (bf16 values are exact in fp32, so the fp32
+        product of the cast operands is that matmul)."""
         x = self.hidden(params, tokens, generator, train)
         return x.float() @ self._w_out(params).float() + params["b_out"]
 
     def loss(self, params, tokens, generator=None, train: bool = True,
              z_loss: float = 0.0):
         """Next-token xent, labels = shift-left(tokens) + EOS (reference
-        models.py:397-416). Returns (mean loss fp32, per-position [B, S]).
+        models.py:397-416). Returns (mean loss fp32, per-position [B, S]);
+        on a mesh, (this rank's share of the global mean, its positions).
 
         The head runs in the compute dtype: bf16 logits, the bias cast to
         bf16 before the add, as the JAX loss head (its custom backward is a
@@ -509,9 +591,8 @@ class DALLE(nn.Module):
         dtype = self.cfg.policy.compute_dtype
         x = self.hidden(params, tokens, generator, train)
         logits = x @ self._w_out(params) + params["b_out"].to(dtype)
-        loss_batch = softmax_cross_entropy_with_logits(
-            logits, self.shifted_labels(tokens), z_loss)
-        return loss_batch.mean(), loss_batch
+        loss_batch = softmax_cross_entropy_with_logits(logits, self.local_labels(tokens), z_loss)
+        return self.global_mean(loss_batch), loss_batch
 
     def shifted_labels(self, tokens):
         """Next-token targets: tokens shifted left with EOS appended."""

@@ -46,6 +46,11 @@ _SIGNATURES = {
     "layer_norm_fwd": [_P] * 4 + [_I] * 3 + [_F, _P],
     # x, dy, g, dx, partial, dg, db; rows, e, n_ctas, dtype; eps; stream
     "layer_norm_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
+    # q, k, v, num, m, l; bh, s_q, s_k, head_dim, dtype, diff, row0, col0,
+    # window, dropout; seed, keep_threshold, keep_scale; stream
+    "ring_partial": [_P] * 6 + [_I] * 10 + [_U, _U, _F, _P],
+    # q, k, v, dout, lse, dsum, dq, dk_acc, dv_acc; then as ring_partial
+    "ring_block_grads": [_P] * 9 + [_I] * 10 + [_U, _U, _F, _P],
 }
 
 

@@ -42,14 +42,17 @@ def make_dalle_models(params: Mapping[str, Any], device: torch.device | str):
     return DALLE(cfg, device), DiscreteVAE(vae_cfg, device)
 
 
-def make_dalle_task(params: Mapping[str, Any], device: torch.device | str):
+def make_dalle_task(params: Mapping[str, Any], device: torch.device | str, mesh=None):
     """Returns (dalle, init_fn, train_loss_fn, eval_loss_fn).
 
     ``init_fn(generator)`` draws the fp32 parameter tree. The loss functions
     take (params, frozen_params, batch, generator, step) with a batch of
-    torch tensors on the device and return (scalar loss, aux dict)."""
+    torch tensors on the device and return (scalar loss, aux dict). On a
+    ``mesh`` the batch holds this rank's rows, and every value returned is
+    this rank's share of the global mean (the trainer sums them over the
+    ranks)."""
     cfg, _ = _configs(params)
-    dalle = DALLE(cfg, device)
+    dalle = DALLE(cfg, device, mesh)
     z_loss = params.get("z_loss") or 0.0
     text_len = cfg.text_seq_len
 
@@ -67,8 +70,8 @@ def make_dalle_task(params: Mapping[str, Any], device: torch.device | str):
         # loss_batch[:, i] scores the prediction of token i+1, so image
         # modeling starts at position text_seq_len - 1
         return {
-            "loss_text": loss_batch[:, : text_len - 1].mean(),
-            "loss_image": loss_batch[:, text_len - 1:].mean(),
+            "loss_text": dalle.global_mean(loss_batch, 0, text_len - 1),
+            "loss_image": dalle.global_mean(loss_batch, text_len - 1),
         }
 
     def train_loss(p, frozen, batch, generator, step):
@@ -81,13 +84,13 @@ def make_dalle_task(params: Mapping[str, Any], device: torch.device | str):
         positions), on the fp32 logits of ``forward``."""
         tokens = tokens_of(frozen, batch)
         logits = dalle.forward(p, tokens, generator, train=False)
-        labels = dalle.shifted_labels(tokens)
+        labels = dalle.local_labels(tokens)
         loss_batch = softmax_cross_entropy_with_logits(logits, labels, z_loss)
         correct = (logits.argmax(dim=-1) == labels).float()
-        return loss_batch.mean(), {
+        return dalle.global_mean(loss_batch), {
             **_split_losses(loss_batch),
-            "acc": correct.mean(),
-            "acc_image": correct[:, text_len - 1:].mean(),
+            "acc": dalle.global_mean(correct),
+            "acc_image": dalle.global_mean(correct, text_len - 1),
         }
 
     return dalle, dalle.init, train_loss, eval_loss

@@ -1,9 +1,15 @@
-"""Training loop (port of ``dalle_mtf_tpu/train/trainer.py``, one device).
+"""Training loop (port of ``dalle_mtf_tpu/train/trainer.py``).
 
 The JAX trainer jit-compiles a sharded step and can run ``iterations``
 steps as one device loop. Here each step is dispatched eagerly: forward
 and backward by autograd, then the clip + AdamW update in place on the
-fp32 master parameters. Kept from the JAX loop:
+fp32 master parameters. Over several processes (a ``parallel.mesh.Mesh``)
+every rank holds the whole parameter tree and its own rows and sequence
+shard of the batch; its loss is its share of the global mean, so the
+gradients are summed over the world (``all_reduce``) before the clip and
+every rank takes the same step; the metrics are summed the same way. Rank 0
+alone writes checkpoints and summaries, behind a barrier; every rank
+restores. Kept from the JAX loop:
 
 - microbatch gradient accumulation (``tokens_per_mb_per_replica``) with the
   same minor-stride split (row b of microbatch i is batch row b*n + i);
@@ -29,7 +35,9 @@ from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from dalle_mtf_tpu_torch.parallel.mesh import BATCH, parse_layout
 from dalle_mtf_tpu_torch.train.optim import get_optimizer, named_leaves
 from dalle_mtf_tpu_torch.utils.summaries import MetricsWriter
 
@@ -73,6 +81,15 @@ def step_generator(seed: int, stream: int, index: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
+def _all_reduce_sum(tensors) -> None:
+    """Sum fp32 ``tensors`` over the world in place, as one flat buffer (one
+    collective instead of one a leaf)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat)
+    torch._foreach_copy_(tensors, [c.view_as(t) for c, t in
+                                   zip(flat.split([t.numel() for t in tensors]), tensors)])
+
+
 class Trainer:
     def __init__(
         self,
@@ -84,6 +101,7 @@ class Trainer:
         device: torch.device | str,
         frozen_params: Any = None,
         eval_loss_fn: LossFn | None = None,
+        mesh=None,
     ):
         self.params = params
         self.init_fn = init_fn
@@ -93,15 +111,16 @@ class Trainer:
         self.device = torch.device(device)
         self.frozen_params = frozen_params
         self.batch_size = params["train_batch_size"]
-        import torch.distributed as dist  # noqa: PLC0415
-
-        dp = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.rank = self.mesh.rank if self.mesh else 0
+        dp = mesh.size(parse_layout(params.get("layout")).get(BATCH) or "data") if mesh else 1
         self.num_mb = num_microbatches(params, self.batch_size, seq_len, dp)
         self.max_to_keep = params.get("max_to_keep") or 5
-        self.writer = MetricsWriter(self.model_dir)
+        self.writer = MetricsWriter(self.model_dir, enabled=self.rank == 0)
         # what run() logged: one dict per log step / per checkpoint eval
         self.history: list[dict] = []
         self.eval_history: list[dict] = []
+        self.state: dict | None = None  # after run(): the state of the last step
         logger.info("trainer: device=%s microbatches=%d", self.device, self.num_mb)
 
     # ----------------------------------------------------------------- state
@@ -145,15 +164,23 @@ class Trainer:
         else:
             loss, aux = self.loss_fn(params, self.frozen_params, batch, generator, step)
             loss.backward()
+        if self.mesh:
+            _all_reduce_sum([t.grad for t in opt.leaves])
         grad_norm = opt.step()
         state["step"] = step + 1
-        metrics = {
-            "loss": loss.detach().float(),
-            "grad_norm": grad_norm,
-            "lr": torch.tensor(self.schedule(step)),
-            **{k: v.detach().float() for k, v in aux.items()},
-        }
-        return state, metrics
+        metrics = self._reduce({"loss": loss.detach().float(),
+                                **{k: v.detach().float() for k, v in aux.items()}})
+        return state, {**metrics, "grad_norm": grad_norm,
+                       "lr": torch.tensor(self.schedule(step))}
+
+    def _reduce(self, metrics: dict) -> dict:
+        """Each rank's shares of the metrics, summed over the world."""
+        if not self.mesh:
+            return metrics
+        names = list(metrics)
+        flat = torch.stack([metrics[n].reshape(()) for n in names])
+        _all_reduce_sum([flat])
+        return dict(zip(names, flat.unbind(0)))
 
     @torch.no_grad()
     def eval_step(self, state: dict, batch, generator: torch.Generator) -> dict:
@@ -161,7 +188,7 @@ class Trainer:
             state["params"], self.frozen_params, self._put_batch(batch), generator,
             state["step"],
         )
-        return {"loss": loss.float(), **aux}
+        return self._reduce({"loss": loss.float(), **{k: v.float() for k, v in aux.items()}})
 
     # ------------------------------------------------------------ checkpoint
 
@@ -181,7 +208,14 @@ class Trainer:
 
     def save(self, state: dict, step: int | None = None) -> None:
         """Write ckpt_<step>.pt atomically, then keep the newest
-        ``max_to_keep``."""
+        ``max_to_keep``. On a mesh rank 0 writes (every rank holds the same
+        state) and every rank waits for it."""
+        if self.rank == 0:
+            self._write(state, step)
+        if self.mesh:
+            dist.barrier()
+
+    def _write(self, state: dict, step: int | None) -> None:
         step = state["step"] if step is None else step
         os.makedirs(self.ckpt_dir, exist_ok=True)
         obj = {
@@ -270,6 +304,7 @@ class Trainer:
         if data_done and step > start and last_saved != step:
             # the stream ran out between checkpoints: keep the trained tail
             self.save(state, step)
+        self.state = state
         return state
 
     def _evaluate(self, state, step, seed, eval_data_iter, eval_steps) -> None:

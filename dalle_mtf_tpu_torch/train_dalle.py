@@ -4,14 +4,25 @@
     python -m dalle_mtf_tpu_torch.train_dalle --model <config name or path> \
         [--new [--yes]] [--gpu_ids 0] [--device cuda|cpu]
 
+Over several processes, started by ``torch.distributed.run``:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m dalle_mtf_tpu_torch.train_dalle --model <config> [--device cpu]
+
+the config's ``mesh_shape`` and ``layout`` place the ranks: data parallelism
+over the ``batch_dim`` axis and, with ``attention_type`` "ring" or
+"local_ring", sequence parallelism over the ``total_seq_dim`` axis
+(``utils/distributed.py`` picks each rank's device and the backend).
+
 The config must be a tokens-mode DALLE config (``dataset.tokens: true``:
 records carry VAE token ids, so no VAE weights are loaded); the image mode
 needs the VAE encoder, which is not ported yet. Training resumes from the
 latest checkpoint in ``model_path``, and the data stream skips the batches
 already trained on. ``--new`` wipes ``model_path`` first (asking unless
 ``--yes``). Training runs on ``cuda:<first --gpu_ids>``, else on
-``--device`` (default ``cuda``). Without a CUDA device it raises: it runs on
-the CPU only when asked to with ``--device cpu``.
+``--device`` (default ``cuda``); ranks share the cards evenly. Without a
+CUDA device it raises: it runs on the CPU only when asked to with
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -19,13 +30,15 @@ from __future__ import annotations
 import argparse
 import logging
 
-import torch
+import torch.distributed as dist
 
 from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn
 from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer
+from dalle_mtf_tpu_torch.parallel.mesh import build_mesh
 from dalle_mtf_tpu_torch.train.tasks import make_dalle_task
 from dalle_mtf_tpu_torch.train.trainer import Trainer
 from dalle_mtf_tpu_torch.utils.config import fetch_model_params
+from dalle_mtf_tpu_torch.utils.distributed import init_distributed
 from dalle_mtf_tpu_torch.utils.logging_utils import remove_model_dir, setup_logging
 
 logger = logging.getLogger(__name__)
@@ -46,22 +59,23 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def pick_device(gpu_ids, device: str) -> torch.device:
-    """``cuda:<first gpu id>`` when ids are given, else ``device``. A CUDA
-    device that does not exist raises: nothing falls back to the CPU."""
-    dev = torch.device(f"cuda:{int(gpu_ids[0])}" if gpu_ids else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"no CUDA device for {dev}: pass --device cpu to train on the CPU"
-        )
-    return dev
-
-
 def main(argv=None) -> Trainer:
     """Run the training the config asks for; returns the closed Trainer
-    (its ``history`` and ``eval_history`` hold what was logged)."""
+    (its ``history`` and ``eval_history`` hold what was logged, ``state``
+    the last step's state). A process group this call joined is left
+    before it returns."""
     args = parse_args(argv)
-    device = pick_device(args.gpu_ids, args.device)
+    owns_group = not (dist.is_available() and dist.is_initialized())
+    proc = init_distributed(args.gpu_ids, args.device)
+    try:
+        return _train(args, proc)
+    finally:
+        if owns_group and proc.world > 1:
+            dist.destroy_process_group()
+
+
+def _train(args, proc) -> Trainer:
+    device = proc.device
     params = fetch_model_params(args.model)
     if params["model_type"] != "dalle":
         raise ValueError(f"config {args.model} is not a dalle config")
@@ -74,10 +88,16 @@ def main(argv=None) -> Trainer:
             "image-mode training needs the frozen VAE encoder, which is not "
             "ported yet; use a tokens dataset (dataset.tokens: true)"
         )
-    setup_logging(params["config_name"] or args.model)
+    setup_logging(params["config_name"] or args.model, rank=proc.rank)
+    # the ranks' layout; TP and PP layouts raise here at world size > 1
+    mesh = build_mesh(params.get("mesh_shape"), params.get("layout"),
+                      params.get("attention_type") or "global", proc.rank, proc.world)
 
     if args.new:
-        remove_model_dir(params["model_path"], interactive=not args.yes)
+        if proc.rank == 0:
+            remove_model_dir(params["model_path"], interactive=not args.yes)
+        if proc.world > 1:
+            dist.barrier()
 
     # tokenizer vocab check + padding id (reference train_dalle.py:47-49)
     tokenizer = get_tokenizer()
@@ -88,25 +108,30 @@ def main(argv=None) -> Trainer:
         )
     params["padding_id"] = tokenizer.pad_token_id
 
-    dalle, init_fn, loss_fn, eval_loss_fn = make_dalle_task(params, device)
+    dalle, init_fn, loss_fn, eval_loss_fn = make_dalle_task(params, device, mesh)
     trainer = Trainer(
         params, init_fn, loss_fn,
         model_dir=params["model_path"],
         seq_len=dalle.cfg.total_seq_len,
         device=device,
         eval_loss_fn=eval_loss_fn,
+        mesh=mesh,
     )
+    # this rank's data: its group on the batch axis (the sequence-parallel
+    # ranks of one group read the same rows)
+    dp_axis = dalle.cfg.ring_batch_axis
+    shard = (mesh.index(dp_axis), mesh.size(dp_axis))
     # deterministic data resume: skip the already-trained prefix of the stream
     start_step = trainer.latest_step()
     if start_step:
         logger.info("resume at step %d: data stream skips trained prefix", start_step)
-    train_iter = iter(dalle_input_fn(params, eval=False, skip_steps=start_step))
+    train_iter = iter(dalle_input_fn(params, eval=False, shard=shard, skip_steps=start_step))
     eval_steps = params.get("eval_steps") or 0
-    eval_iter = iter(dalle_input_fn(params, eval=True)) if eval_steps else None
+    eval_iter = iter(dalle_input_fn(params, eval=True, shard=shard)) if eval_steps else None
 
     logger.info(
-        "starting DALLE training: %s on %s (total_seq_len=%d, image_seq_len=%d)",
-        params["config_name"], device, dalle.cfg.total_seq_len, dalle.cfg.image_seq_len,
+        "starting DALLE training: %s on %s, %s (total_seq_len=%d, image_seq_len=%d)",
+        params["config_name"], device, mesh, dalle.cfg.total_seq_len, dalle.cfg.image_seq_len,
     )
     try:
         trainer.run(train_iter, params.get("seed") or 0, eval_data_iter=eval_iter)

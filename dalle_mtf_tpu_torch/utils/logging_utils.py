@@ -14,9 +14,16 @@ import shutil
 import sys
 
 
-def setup_logging(config_name: str, log_dir: str = "logs") -> logging.Logger:
-    os.makedirs(log_dir, exist_ok=True)
+def setup_logging(config_name: str, log_dir: str = "logs", rank: int = 0) -> logging.Logger:
+    """Log to logs/<config>.log and stdout. Every rank but 0 of a
+    multi-process run logs only warnings, to stdout, and writes no file."""
     root = logging.getLogger()
+    if rank != 0:
+        root.setLevel(logging.WARNING)
+        if not any(isinstance(h, logging.StreamHandler) for h in root.handlers):
+            root.addHandler(logging.StreamHandler(sys.stdout))
+        return logging.getLogger("dalle_mtf_tpu_torch")
+    os.makedirs(log_dir, exist_ok=True)
     root.setLevel(logging.INFO)
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
     fh = logging.FileHandler(os.path.join(log_dir, f"{config_name}.log"))

@@ -30,8 +30,12 @@ def _scalar(tag: str, value: float) -> bytes:
 
 
 class MetricsWriter:
-    def __init__(self, model_dir: str):
+    """Scalar events under ``model_dir``; with ``enabled`` False (every rank
+    but 0 of a multi-process run) it writes nothing."""
+
+    def __init__(self, model_dir: str, enabled: bool = True):
         self.logdir = model_dir
+        self.enabled = enabled
         self._writer: TFRecordWriter | None = None
 
     def _file(self) -> TFRecordWriter:
@@ -44,6 +48,8 @@ class MetricsWriter:
         return self._writer
 
     def scalars(self, step: int, values: dict):
+        if not self.enabled:
+            return
         summary = b"".join(_len_delim(1, _scalar(k, v)) for k, v in values.items())
         self._file().write(_event(step, _len_delim(5, summary)))  # Event.summary
 

@@ -249,3 +249,65 @@ def test_decode_matmul_unaligned_weights_and_bad_inputs(cuda):
                          shifted, s)
     with pytest.raises(ValueError, match="bf16"):
         tdmm.int8_matmul(x.float(), shifted, s)
+
+
+# ring attention's per-hop kernels: (dtype, B, H, S_local, diff / S_local,
+# window, dropout) — the diagonal hop, a past hop, a far past hop, the window
+# band crossing the shard edge, a ragged shard with a window whose far rows
+# see no key, hash dropout, fp32
+RING_CASES = [
+    (torch.bfloat16, 2, 4, 1088, 0, None, 0.0),
+    (torch.bfloat16, 2, 4, 1088, 1, None, 0.0),
+    (torch.bfloat16, 1, 4, 1088, 3, None, 0.0),
+    (torch.bfloat16, 2, 4, 1088, 1, 256, 0.0),
+    (torch.float32, 1, 2, 200, 1, 120, 0.0),
+    (torch.bfloat16, 2, 4, 1088, 1, None, 0.1),
+    (torch.float32, 1, 4, 1088, 0, 256, 0.1),
+]
+
+
+@pytest.mark.parametrize("dtype,b,h,s,hops,window,rate", RING_CASES)
+def test_ring_kernels_match_plain(cuda, dtype, b, h, s, hops, window, rate):
+    from dalle_mtf_tpu_torch.ops import ring_attention as tring
+
+    gen = torch.Generator().manual_seed(s + 10 * hops + h)
+    q, k, v, g = _uniform((b, h, s, 128), dtype, gen, 4)
+    diff, row0 = hops * s, 3 * s
+    col0, seed = row0 - diff, 2**31 - 7
+    atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
+    before = dict(tring.KERNEL_LAUNCHES)
+    num, m, l = tring.ring_partial(q, k, v, diff, row0, col0, window, rate, seed)
+    want = tring.ring_partial_reference(q, k, v, diff, row0, col0, window, rate, seed)
+    # rows with a live key in this hop; the others the fold discards
+    _, _, mask = tring._masks(s, s, diff, window, q.device)
+    live = ~mask.all(-1)
+    if window is not None and hops:
+        assert not live.all()  # the case does plant rows without a live key
+    assert (m[:, ~live] <= tring.NEG_INF / 2).all()
+    for name, got, w in (("m", m, want[1]), ("l", l, want[2])):
+        err = ((got - w)[:, live].abs() / w[:, live].abs().clamp_min(1.0)).max().item()
+        assert err <= 1e-5, (name, err)
+    keep = live.reshape(1, 1, s, 1)
+    ok, err = _tile_close(num * keep, want[0] * keep, rtol)
+    assert ok, ("num", err)
+    lse = (m + torch.log(l.clamp_min(1e-30))).contiguous()
+    dsum = (g.float() * torch.rand((b, h, s, 128), generator=gen).cuda()).sum(-1)
+    dsum = dsum.reshape(b * h, s).contiguous()
+    dk, dv = (torch.zeros((b, h, s, 128), device="cuda") for _ in range(2))
+    args = (diff, row0, col0, window, rate, seed)
+    dq = tring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args)
+    wq, wk, wv = tring.ring_block_grads_reference(q, g, lse, dsum, k, v, *args)
+    torch.cuda.synchronize()
+    assert tring.KERNEL_LAUNCHES["ring_partial"] == before["ring_partial"] + 1
+    assert tring.KERNEL_LAUNCHES["ring_block_grads"] == before["ring_block_grads"] + 1
+    for name, got, w in (("dq", dq * keep, wq * keep), ("dk", dk, wk), ("dv", dv, wv)):
+        ok, err = _close(got, w, atol)
+        assert ok, (name, err)
+        ok, err = _tile_close(got, w, rtol)
+        assert ok, (name, "tile", err)
+    # the accumulators are added into in place: a second hop of the same
+    # inputs doubles them exactly (no atomics, one order)
+    first = dk.clone(), dv.clone()
+    tring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args)
+    assert torch.equal(dk, 2 * first[0]) and torch.equal(dv, 2 * first[1])

@@ -235,12 +235,16 @@ def test_adam_state_round_trip():
 def test_unported_options_are_refused():
     base = {"n_embd": 64, "text_vocab_size": 48, "image_vocab_size": 32,
             "text_seq_len": 8, "n_layers": 1, "n_heads": 2}
-    for bad in ({"fused_xent": True}, {"attention_type": "ring"},
-                {"attention_type": "local_ring"}, {"layout": "batch_dim:data,layers:pipe"},
+    for bad in ({"fused_xent": True}, {"layout": "batch_dim:data,layers:pipe"},
                 {"recompute_grad": True},
                 {"recompute_grad": True, "remat_policy": "save_attn"}):
         with pytest.raises(NotImplementedError):
             tdalle.DalleConfig.from_params({**base, **bad}, 16)
+    # ring attention is ported; its axes come from the layout, as in JAX
+    ring = tdalle.DalleConfig.from_params(
+        {**base, "attention_type": "local_ring",
+         "layout": "batch_dim:dp,total_seq_dim:sp,heads_dim:model"}, 16)
+    assert (ring.ring_seq_axis, ring.ring_batch_axis, ring.ring_heads_axis) == ("sp", "dp", "model")
     ok = tdalle.DalleConfig.from_params(
         {**base, "recompute_grad": True, "remat_policy": "dots_and_attn",
          "scan_unroll": "full"}, 16)
