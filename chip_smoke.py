@@ -6,8 +6,20 @@
 Phases, none of them optional:
 
 1. Device and build: the card's name and power limit, then the CUDA kernels
-   built from the repository's csrc/ sources (one nvcc per source, timed).
-2. Kernels against plain, on the card, both times from CUDA events:
+   built from the repository's csrc/ sources (one nvcc per source, timed),
+   and a "resources" line for each head size of the bf16 attention kernels:
+   registers a thread, spilled bytes, shared memory a CTA and CTAs an SM of
+   the forward (under either q tile), the dQ and the dK/dV kernel.
+2. Kernels against plain, on the card, both times from CUDA events. The
+   attention kernels are timed over 20 launches or more, on inputs that
+   together exceed the 50 MB L2 (rotating over copies where one set does
+   not); a backward's time includes its dsum reduction, which is also timed
+   alone (``dsum_ms``); at the serving shapes, where a launch is shorter than
+   the host's dispatch of it, the card's own time is read beside it under
+   torch.profiler (``device_ms``, ``library_device_ms``); dq, dk, dv of two
+   runs on the same inputs must be equal bit for bit (no atomics); the rows
+   of the bf16 [B, H, S, D] forward carry its time under either q tile
+   (``ms_by_tile_rows``):
    - the [B, H, S, D] forward ``causal_attention`` against
      ``attention_reference`` at the serving prefill shape and two others;
    - the packed training pair (forward ``causal_attention_fwd`` by strides,
@@ -16,6 +28,13 @@ Phases, none of them optional:
      (B=16, S=1280, H=8, D=128, bf16), a ragged fp32 shape with window 64,
      and the training shape with hash dropout 0.1 (one seed on both sides);
    - the [B, H, S, D] forward with hash dropout;
+   - ``phase_tile_cases``: the bf16 pair at the edges of its tile walk, the
+     forward under every q tile it is built for (64 rows, and 128 at
+     D = 128), in both layouts: D = 64
+     with windows that are not a multiple of the 64-key tile, S in {1, 63,
+     65, 129}, a window of 1 and one wider than S, the packed layout with
+     H = 1, with and without hash dropout; each with the per-tile bound, the
+     planted zeroed tile and the two-run bit-equality;
    - the [B, H, S, D] pair (``causal_attention_fwd``/``_bwd`` through
      ops/attention.py) against ``attention_reference`` and
      ``attention_backward_reference`` at the shapes of the TPU package's
@@ -192,6 +211,7 @@ BHSD_ROWS = [  # (wrapper, shape, launches from, [(TPU kernel, file:line), ...])
     ("causal_attention_bwd", "loop_fp32", "loop", [("_bwd_dq_kernel", f"{ATTN}:945"),
                                                    ("_bwd_dkv_kernel", f"{ATTN}:996")]),
 ]
+ATTN_ITERS = 20  # timed launches of an attention kernel (a launch is 0.1-3 ms)
 LAUNCHES_ON = {
     "long": "dalle_4k training",
     "values": "train values, attn_packed false, 2 layers at S = 1280",
@@ -245,6 +265,27 @@ def cuda_ms_rotating(fn, copies: int, iters: int) -> float:
     """``cuda_ms`` of ``fn(i)`` with i cycling over ``copies`` inputs."""
     calls = itertools.count()
     return cuda_ms(lambda: fn(next(calls) % copies), iters)
+
+
+def past_l2(tensors) -> list[tuple]:
+    """Copies of ``tensors`` that together exceed twice the 50 MB L2 (the
+    tensors themselves first; no copy when they already do), to time a
+    kernel on inputs it reads from device memory: ``rotating_ms``."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = max(1, math.ceil(2 * L2_BYTES / nbytes)) if nbytes < L2_BYTES else 1
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(copies - 1)]
+
+
+def rotating_ms(fn, sets, iters: int) -> float:
+    """``cuda_ms`` of ``fn(*sets[i])`` with i cycling over the input sets."""
+    return cuda_ms_rotating(lambda i: fn(*sets[i]), len(sets), iters)
+
+
+def same_bits(first, again) -> bool:
+    """Whether two runs' tensors are equal bit for bit."""
+    import torch  # noqa: PLC0415
+
+    return all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def device_ms_rotating(torch, fn, copies: int, iters: int) -> float:
@@ -355,18 +396,28 @@ def phase_kernel(torch, attn, card):
                 f"{name}: kernel disagrees with attention_reference: "
                 f"max_abs_err {err} (atol {atol}), lse err {lse_err}"
             )
-        ms = cuda_ms(lambda: attn.causal_attention(q, k, v, window=window), 50)
-        plain_ms = cuda_ms(
-            lambda: attn.attention_reference(q, k, v, True, window), 50
-        )
-        library_ms = None
+        # these inputs fit the L2: rotate over copies that together do not
+        sets = past_l2((q, k, v))
+        ms = rotating_ms(lambda q, k, v: attn.causal_attention(q, k, v, window=window), sets, 50)
+        plain_ms = rotating_ms(
+            lambda q, k, v: attn.attention_reference(q, k, v, True, window), sets, 50)
+        # a launch here is shorter than the host's dispatch of it, so ``ms``
+        # follows the host; ``device_ms`` is what the card itself spent
+        device_ms = device_ms_rotating(
+            torch, lambda i: attn.causal_attention(*sets[i], window=window), len(sets), 50)
+        library_ms = library_device_ms = None
         if window is None:  # SDPA has no local window
-            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True), 50)
+            def sdpa(q, k, v):
+                return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+            library_ms = rotating_ms(sdpa, sets, 50)
+            library_device_ms = device_ms_rotating(torch, lambda i: sdpa(*sets[i]), len(sets), 50)
         row = dict(card=card, kernel="causal_attention_fwd", shape=name, B=b, H=h, S=s,
                    D=d, dtype=str(dtype), window=window, max_abs_err=err,
                    lse_err=lse_err, atol=atol, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms,
+                   library_ms=library_ms, device_ms=device_ms,
+                   library_device_ms=library_device_ms, input_copies=len(sets),
+                   timed_launches=50,
                    **attention_roofline(b, h, s, d, q.element_size(), 4, 0, 2))
         print("kernel", json.dumps(row), flush=True)
         rows.append(row)
@@ -379,7 +430,7 @@ def phase_train_kernels(torch, attn, card):
     training shape (without dropout)}."""
     from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
 
-    cases = [  # (name, B, H, S, D, dtype, window, dropout, timing iters)
+    cases = [  # (name, B, H, S, D, dtype, window, dropout, plain version's timing iters)
         ("train", 16, 8, 1280, 128, torch.bfloat16, None, 0.0, 10),
         ("ragged_window", 2, 4, 200, 64, torch.float32, 64, 0.0, 20),
         ("train_dropout", 16, 8, 1280, 128, torch.bfloat16, None, 0.1, 5),
@@ -410,18 +461,27 @@ def phase_train_kernels(torch, attn, card):
             raise AssertionError(
                 f"packed {name}: kernels disagree with the plain versions: {bad} "
                 f"(atol {atol} x max(1, |plain|)), lse err {lse_err}; all {errs}")
-        fwd_ms = cuda_ms(lambda: ap._forward(q, k, v, h, window, rate, seed), iters)
+        # no floating-point atomics: a second run gives the same bits
+        if not same_bits(grads, ap._backward(q, k, v, out, lse, g, h, window, rate, seed)):
+            raise AssertionError(f"packed {name}: dq, dk, dv differ between two runs")
+        sets = past_l2((q, k, v, g, out, lse))
+        fwd_ms = rotating_ms(lambda q, k, v, g, out, lse: ap._forward(
+            q, k, v, h, window, rate, seed), sets, ATTN_ITERS)
         fwd_plain = cuda_ms(lambda: ap.attention_packed_reference(
             q, k, v, h, window, rate, seed, with_lse=True), iters)
-        bwd_ms = cuda_ms(lambda: ap._backward(q, k, v, out, lse, g, h, window, rate, seed), iters)
+        bwd_ms = rotating_ms(lambda q, k, v, g, out, lse: ap._backward(
+            q, k, v, out, lse, g, h, window, rate, seed), sets, ATTN_ITERS)
+        dsum_ms = rotating_ms(lambda q, k, v, g, out, lse: ap.dsum_rows(out, g, h), sets,
+                              ATTN_ITERS)
         bwd_plain = cuda_ms(lambda: ap.backward_reference(
             q, k, v, out, lse, g, h, window, rate, seed), iters)
         lib_fwd = lib_bwd = None
         if window is None and rate == 0.0:  # SDPA: causal, no window, no hash dropout
-            lib_fwd, lib_bwd = sdpa_ms(torch, q, k, v, g, h, iters)
+            lib_fwd, lib_bwd = sdpa_ms(torch, sets, h, ATTN_ITERS)
         elem = q.element_size()
         common = dict(card=card, shape=name, B=b, H=h, S=s, D=d, dtype=str(dtype),
-                      window=window, dropout=rate, atol=atol)
+                      window=window, dropout=rate, atol=atol, input_copies=len(sets),
+                      timed_launches=ATTN_ITERS)
         rows = {
             "causal_attention_packed_fwd": dict(
                 kernel="causal_attention_packed_fwd", **common,
@@ -434,7 +494,7 @@ def phase_train_kernels(torch, attn, card):
                 max_abs_err=max(errs[n][0] for n in ("dq", "dk", "dv")),
                 errs={n: errs[n][0] for n in ("dq", "dk", "dv")},
                 ms=bwd_ms, plain_ms=bwd_plain, ms_includes="dsum reduction + dQ and dK/dV launches",
-                library_ms=lib_bwd,
+                dsum_ms=dsum_ms, bit_equal_two_runs=True, library_ms=lib_bwd,
                 # reads q, k, v, out, dout, lse; writes dq, dk, dv; five products
                 **attention_roofline(b, h, s, d, elem, 8, 1, 5)),
         }
@@ -442,7 +502,7 @@ def phase_train_kernels(torch, attn, card):
             print("kernel", json.dumps(row), flush=True)
         if name == "train":
             best = rows
-        del q, k, v, g, out, lse, grads, ref, ref_lse, ref_grads
+        del q, k, v, g, out, lse, grads, ref, ref_lse, ref_grads, sets
         torch.cuda.empty_cache()
 
     # the [B, H, S, D] forward (serving layout) with hash dropout
@@ -476,7 +536,7 @@ def phase_bhsd_kernels(torch, attn, card):
     B=4 S=4352 bf16 (the capped wedge forward and the hybrid backward), and
     the loop regime's fp32 at S = 4352 and bf16 at a ragged S = 6200 (its
     128-rounded 6272 > 6144). Returns {shape name: {wrapper: row}}."""
-    cases = [  # (name, B, H, S, dtype, dropout, timing iters)
+    cases = [  # (name, B, H, S, dtype, dropout, plain version's timing iters)
         ("train_1280", 16, 8, 1280, torch.bfloat16, 0.0, 5),
         ("train_1280_dropout", 16, 8, 1280, torch.bfloat16, 0.1, 3),
         ("dalle_4k", 4, 8, 4352, torch.bfloat16, 0.0, 3),
@@ -522,23 +582,45 @@ def phase_bhsd_kernels(torch, attn, card):
                 f"[B, H, S, D] {name}: kernels disagree with the plain versions: {bad} "
                 f"(atol {atol} x max(1, |plain|); each 64-long tile of S within {rtol} of "
                 f"its own max |plain|), lse err {lse_err}; all {errs}, tiles {tile_errs}")
-        fwd_ms = cuda_ms(lambda: attn._forward(q, k, v, None, rate, seed, True), iters)
-        bwd_ms = cuda_ms(lambda: attn._backward(q, k, v, out, lse, g, None, rate, seed), iters)
+        # no floating-point atomics: a second run gives the same bits
+        if not same_bits(grads, attn._backward(q, k, v, out, lse, g, None, rate, seed)):
+            raise AssertionError(f"[B, H, S, D] {name}: dq, dk, dv differ between two runs")
+        sets = past_l2((q, k, v, g, out, lse))
+
+        def fwd(q, k, v, g, out, lse):
+            return attn._forward(q, k, v, None, rate, seed, True)
+
+        def bwd(q, k, v, g, out, lse):
+            return attn._backward(q, k, v, out, lse, g, None, rate, seed)
+
+        fwd_ms = rotating_ms(fwd, sets, ATTN_ITERS)
+        bwd_ms = rotating_ms(bwd, sets, ATTN_ITERS)
+        dsum_ms = rotating_ms(lambda q, k, v, g, out, lse: attn.dsum_rows(out, g), sets,
+                              ATTN_ITERS)
+        by_tile_rows = None
+        if dtype == torch.bfloat16 and rate == 0.0:
+            # the forward with its q tile given, 64 and 128 rows one after the other
+            by_tile_rows = {
+                tile: rotating_ms(lambda q, k, v, *_, tile=tile: attn._forward(
+                    q, k, v, None, rate, seed, True, tile_rows=tile), sets, ATTN_ITERS)
+                for tile in attn.FORWARD_TILES[d]}
         fwd_plain = cuda_ms(lambda: attn.attention_reference(
             q, k, v, True, None, True, rate, seed), iters)
         bwd_plain = cuda_ms(lambda: attn.attention_backward_reference(
             q, k, v, out, lse, g, None, rate, seed), iters)
         lib_fwd = lib_bwd = None
         if rate == 0.0:  # SDPA: causal, no hash dropout
-            lib_fwd, lib_bwd = sdpa_bhsd_ms(torch, q, k, v, g, iters)
+            lib_fwd, lib_bwd = sdpa_bhsd_ms(torch, sets, ATTN_ITERS)
         elem = q.element_size()
         common = dict(card=card, shape=name, B=b, H=h, S=s, D=d, dtype=str(dtype),
-                      window=None, dropout=rate, atol=atol, tile_rtol=rtol)
+                      window=None, dropout=rate, atol=atol, tile_rtol=rtol,
+                      input_copies=len(sets), timed_launches=ATTN_ITERS)
         rows[name] = {
             "causal_attention_fwd": dict(
                 kernel="causal_attention_fwd", **common, max_abs_err=errs["out"][0],
                 tile_rel_err=tile_errs["out"],
                 lse_err=lse_err, ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd,
+                ms_by_tile_rows=by_tile_rows,
                 **attention_roofline(b, h, s, d, elem, 4, 1, 2)),
             "causal_attention_bwd": dict(
                 kernel="causal_attention_bwd", **common,
@@ -546,14 +628,96 @@ def phase_bhsd_kernels(torch, attn, card):
                 errs={n: errs[n][0] for n in ("dq", "dk", "dv")},
                 tile_rel_errs={n: tile_errs[n] for n in ("dq", "dk", "dv")},
                 ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_bwd,
-                ms_includes="dsum reduction + dQ and dK/dV launches",
+                ms_includes="dsum reduction + dQ and dK/dV launches", dsum_ms=dsum_ms,
+                bit_equal_two_runs=True,
                 **attention_roofline(b, h, s, d, elem, 8, 1, 5)),
         }
         for row in rows[name].values():
             print("kernel", json.dumps(row), flush=True)
-        del q, k, v, g, out, lse, grads
+        del q, k, v, g, out, lse, grads, sets
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_tile_cases(torch, attn, card):
+    """The bf16 tensor-core pair at the edges of its tile walk, each case with
+    the forward under every q tile it is built for (64 rows, and 128 at
+    D = 128; the backward, always on 64-row tiles, from each forward's out
+    and lse) and against the plain
+    versions: D = 64 with windows that are not a multiple of the 64-key tile, S in
+    {1, 63, 65, 129} (ragged under either tile), a window of 1 and one wider
+    than S, the packed layout with H = 1, with and without hash dropout.
+    Bounds as everywhere: max |kernel - plain| <= 1e-2 * max(1, max |plain|),
+    every 64-long tile within 2^-6 of its own max |plain| (a bound shown to
+    fail a copy with its last tile zeroed), lse 1e-4, and dq, dk, dv equal
+    bit for bit over two runs. Where the plain gradient is zero up to fp32
+    rounding (a row that sees only its own key has ds = p (dp - dsum) with
+    dp = dsum: S = 1, window 1; max |plain| <= 1e-5), the kernel's must be
+    too (max |kernel| <= 1e-5) and there is no tile to hold or to plant."""
+    from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
+
+    cases = [  # (name, packed layout, B, H, S, D, window, dropout)
+        ("d64_window_37", False, 2, 4, 200, 64, 37, 0.0),
+        ("d64_window_100_dropout", True, 2, 4, 333, 64, 100, 0.1),
+        ("s1", False, 2, 3, 1, 128, None, 0.0),
+        ("s63", False, 2, 3, 63, 128, None, 0.0),
+        ("s65_packed", True, 2, 3, 65, 64, None, 0.0),
+        ("s129_dropout", False, 2, 3, 129, 128, None, 0.1),
+        ("window_1", False, 2, 2, 129, 128, 1, 0.0),
+        ("window_wider_than_s", False, 2, 2, 129, 64, 1000, 0.1),
+        ("packed_h1", True, 2, 1, 200, 128, None, 0.0),
+        ("packed_h1_d64_window_37", True, 3, 1, 129, 64, 37, 0.1),
+    ]
+    seed, dtype = 2**31 - 7, torch.bfloat16
+    atol, rtol = 1e-2, tile_rtol(dtype)
+    gen = torch.Generator().manual_seed(7)
+    for name, packed, b, h, s, d, window, rate, tile in (
+            (*case, tile) for case in cases for tile in attn.FORWARD_TILES[case[5]]):
+        q, k, v, g = ((torch.rand((b, h, s, d), generator=gen) * 2 - 1).to("cuda", dtype)
+                      for _ in range(4))
+        if packed:
+            pq, pk, pv, pg = (ap._pack(t).contiguous() for t in (q, k, v, g))
+            out, lse = ap._forward(pq, pk, pv, h, window, rate, seed, tile_rows=tile)
+            grads = ap._backward(pq, pk, pv, out, lse, pg, h, window, rate, seed)
+            again = ap._backward(pq, pk, pv, out, lse, pg, h, window, rate, seed)
+            out, *grads = (ap._unpack(t, h) for t in (out, *grads))
+            again = [ap._unpack(t, h) for t in again]
+        else:
+            out, lse = attn._forward(q, k, v, window, rate, seed, with_lse=True, tile_rows=tile)
+            grads = attn._backward(q, k, v, out, lse, g, window, rate, seed)
+            again = attn._backward(q, k, v, out, lse, g, window, rate, seed)
+        torch.cuda.synchronize()
+        ref, ref_lse = attn.attention_reference(q, k, v, True, window, True, rate, seed)
+        # the plain backward from the kernel's out and lse: only the backward differs
+        ref_grads = attn.attention_backward_reference(q, k, v, out.contiguous(), lse, g,
+                                                      window, rate, seed)
+        lse_err = (lse - ref_lse).abs().max().item()
+        errs, bad = {}, {}
+        for n, t, r in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads)):
+            if r.float().abs().max().item() <= 1e-5:  # zero up to fp32 rounding
+                errs[n] = dict(zero=t.float().abs().max().item())
+                if not errs[n]["zero"] <= 1e-5:
+                    bad[n] = errs[n]
+                continue
+            err, scale = max_err(t, r)
+            errs[n] = dict(abs=err, tile=tile_rel_err(t, r), planted=planted_fails(t, r, rtol))
+            # planted is None where the plain last tile is all zero (a dropped weight)
+            if not (err <= atol * scale and errs[n]["tile"] <= rtol
+                    and errs[n]["planted"] is not False):
+                bad[n] = errs[n]
+        if not any(e.get("planted") for e in errs.values()):
+            bad["planted"] = "no tensor showed that a zeroed last tile fails"
+        if bad or not lse_err <= 1e-4 or not same_bits(grads, again):
+            raise AssertionError(
+                f"tile case {name}, {tile}-row q tile: kernels disagree with the plain "
+                f"versions: {bad} (atol {atol} x max(1, |plain|), tiles within {rtol}, a zeroed "
+                f"last tile must fail), lse err {lse_err}, two backward runs bit-equal: "
+                f"{same_bits(grads, again)}; all {errs}")
+        print("kernel", json.dumps(dict(
+            card=card, kernel="causal_attention_packed" if packed else "causal_attention",
+            shape=name, tile_rows=tile, B=b, H=h, S=s, D=d, dtype=str(dtype), window=window,
+            dropout=rate, atol=atol, tile_rtol=rtol, lse_err=lse_err, errs=errs,
+            bit_equal_two_runs=True)), flush=True)
 
 
 def phase_ln_kernels(torch, lnm, card):
@@ -632,35 +796,31 @@ def phase_ln_kernels(torch, lnm, card):
     return best
 
 
-def sdpa_bhsd_ms(torch, q, k, v, g, iters, causal: bool = True) -> tuple[float, float]:
+def sdpa_bhsd_ms(torch, sets, iters, causal: bool = True) -> tuple[float, float]:
     """One ``scaled_dot_product_attention`` forward (causal unless asked),
-    and its backward alone, on [B, H, S, D] inputs: the library yardstick."""
-    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    and its backward alone, on the [B, H, S, D] (q, k, v, g, ...) of each
+    input set in turn: the library yardstick."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.no_grad():
-        fwd = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal), iters)
-    out = sdpa(*leaves, is_causal=causal)
-    bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), iters)
+        fwd = rotating_ms(lambda q, k, v, *_: sdpa(q, k, v, is_causal=causal), sets, iters)
+    graphs = []  # one autograd graph an input set
+    for q, k, v, g, *_ in sets:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        graphs.append((sdpa(*leaves, is_causal=causal), leaves, g))
+    bwd = rotating_ms(lambda out, leaves, g: torch.autograd.grad(
+        out, leaves, g, retain_graph=True), graphs, iters)
     return fwd, bwd
 
 
-def sdpa_ms(torch, q, k, v, g, h, iters) -> tuple[float, float]:
-    """The library yardstick at a packed training shape: one
-    ``scaled_dot_product_attention(is_causal=True)`` forward, and its
-    backward alone, on the [B, H, S, D] views of the same inputs."""
-    def heads(t, grad=False):
+def sdpa_ms(torch, sets, h, iters) -> tuple[float, float]:
+    """The library yardstick at a packed training shape:
+    ``sdpa_bhsd_ms`` on the [B, H, S, D] copies of the packed (q, k, v, g,
+    ...) of each input set."""
+    def heads(t):
         b, s, _ = t.shape
-        return t.view(b, s, h, -1).transpose(1, 2).contiguous().requires_grad_(grad)
+        return t.view(b, s, h, -1).transpose(1, 2).contiguous()
 
-    q4, k4, v4 = (heads(t, True) for t in (q, k, v))
-    g4 = heads(g)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    with torch.no_grad():
-        fwd = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True), iters)
-    out = sdpa(q4, k4, v4, is_causal=True)
-    bwd = cuda_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), g4, retain_graph=True),
-                  iters)
-    return fwd, bwd
+    return sdpa_bhsd_ms(torch, [tuple(heads(t) for t in st[:4]) for st in sets], iters)
 
 
 def _to(tree, device):
@@ -1100,7 +1260,7 @@ def phase_ring_kernels(torch, ring, card):
             q, g, lse, dsum, k, v, *args), iters)
         lib_fwd = lib_bwd = None
         if window is None and rate == 0.0:  # SDPA: no window, no hash dropout
-            lib_fwd, lib_bwd = sdpa_bhsd_ms(torch, q, k, v, g, iters, causal=hops == 0)
+            lib_fwd, lib_bwd = sdpa_bhsd_ms(torch, [(q, k, v, g)], iters, causal=hops == 0)
         elem, bh = q.element_size(), b * h
         peak = PEAK_FP32_TFLOPS if elem == 4 else PEAK_BF16_TFLOPS
         common = dict(card=card, shape=name, B=b, H=h, S_local=s, D=d, dtype=str(dtype),
@@ -1987,7 +2147,11 @@ def main() -> int:
     from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import ring_attention as ring  # noqa: PLC0415
 
+    for d in attn.KERNEL_HEAD_DIMS:
+        print("resources", json.dumps(dict(kernels="causal attention pair, bf16", D=d,
+                                           **attn.kernel_resources(d))), flush=True)
     serving = phase_kernel(torch, attn, card)
+    phase_tile_cases(torch, attn, card)
     decode = phase_decode_kernels(torch, dmm, card)
     training = phase_train_kernels(torch, attn, card)
     bhsd = phase_bhsd_kernels(torch, attn, card)
@@ -2032,16 +2196,22 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def measured(row):
+        """The keys every kernels-line row has, and where the row's dsum
+        reduction or its device time was read apart, those too."""
+        extra = [k for k in ("dsum_ms", "device_ms", "library_device_ms") if k in row]
+        return {k: row[k] for k in (*keys, *extra)}
+
     rows = [
         dict(name=name, route="cuda", source=FWD_SOURCE if "fwd" in name else BWD_SOURCE,
-             replaces=REPLACES[name], launches=train_launches[name],
-             **{k: training[name][k] for k in keys})
+             replaces=REPLACES[name], launches=train_launches[name], **measured(training[name]))
         for name in ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
     ]
     rows.append(dict(
         name="causal_attention_fwd", route="cuda", source=FWD_SOURCE,
         replaces=REPLACES["causal_attention_fwd"], launches=serve_launches,
-        **{k: serving[k] for k in keys},
+        **measured(serving),
     ))
     for name, mode in (("int8_matmul", "int8"), ("int4_matmul", "int4")):
         rows.append(dict(
@@ -2056,8 +2226,7 @@ def main() -> int:
             name=name, route="cuda", source=FWD_SOURCE if name.endswith("fwd") else BWD_SOURCE,
             replaces=tpu[0][1], also_replaces=[where for _, where in tpu[1:]],
             tpu_kernels=[k for k, _ in tpu], launches=launches[run][name],
-            launches_on=LAUNCHES_ON[run], shape=shape,
-            **{k: bhsd[shape][name][k] for k in keys},
+            launches_on=LAUNCHES_ON[run], shape=shape, **measured(bhsd[shape][name]),
         ))
     for name in ("layer_norm_fwd", "layer_norm_bwd"):
         rows.append(dict(

@@ -38,6 +38,15 @@ _SIGNATURES = {
     # q, k, v, dout, lse, dsum, dq, dk, dv; then as the forward
     "causal_attention_bwd": [_P] * 9 + [_I] * 4 + [_LL] * 3
     + [_I, _I, _I, _U, _U, _F, _P],
+    # as causal_attention_fwd, then the q tile's rows (64 or 128)
+    "causal_attention_fwd_tiled": [_P] * 5 + [_I] * 4 + [_LL] * 3
+    + [_I, _I, _I, _U, _U, _F, _P, _I],
+    # head_dim, batch * heads, seq_len -> the q tile's rows (not an error code)
+    "causal_attention_fwd_tile_rows": [_I, _I, _I],
+    # head_dim, tile_rows, out[4]
+    "causal_attention_fwd_info": [_I, _I, _P],
+    # pass (0 dQ, 1 dK/dV), head_dim, out[4]
+    "causal_attention_bwd_info": [_I, _I, _P],
     # x, w, scale, out, partial; M, K, N, m_tile, k_slice, splits; stream
     "int8_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # x_lo, x_hi, packed, scale, out, partial; then as int8_matmul

@@ -15,6 +15,8 @@ the serving and training paths run).
   ``_bwd_dkv_kernel`` and ``_hybrid_bwd_kernel``); a CPU tensor goes to the
   plain versions (``attention_reference``, ``attention_backward_reference``);
   anything else raises.
+- The tile walk of the bf16 tensor-core kernels is written once in Python in
+  ``ops/attention_tiles.py``, which nothing on this path imports.
 - ``decode_attention``: one query position (one per row, or a shared one)
   against the KV cache. Plain torch, as the JAX package leaves it to XLA.
 
@@ -179,12 +181,19 @@ def attention_backward_reference(q, k, v, out, lse, g, window=None,
     return dq, dk, dv
 
 
+# q-tile rows the bf16 forward kernel is built for, by head size (the backward
+# always takes 64); the rule that picks one is csrc/attention_mma.cuh's
+# forward_tile_rows
+FORWARD_TILES = {64: (64,), 128: (64, 128)}
+
+
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _forward(q, k, v, window, rate, seed, with_lse):
-    """(out, lse or None): the kernel on CUDA tensors, plain on CPU ones."""
+def _forward(q, k, v, window, rate, seed, with_lse, tile_rows=None):
+    """(out, lse or None): the kernel on CUDA tensors, plain on CPU ones.
+    ``tile_rows`` as in ``launch_forward``."""
     if _on_cpu(q, k, v):
         res = attention_reference(q, k, v, True, window, with_lse, rate, seed)
         return res if with_lse else (res, None)
@@ -199,9 +208,17 @@ def _forward(q, k, v, window, rate, seed, with_lse):
         raise ValueError("causal_attention_fwd needs contiguous q, k, v")
     b, h, s, d = q.shape
     out, lse = launch_forward(q, k, v, b, h, s, d, q.stride()[:3], window,
-                              rate, seed, with_lse)
+                              rate, seed, with_lse, tile_rows)
     KERNEL_LAUNCHES["causal_attention_fwd"] += 1
     return out, lse
+
+
+def dsum_rows(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dsum = rowsum(dO * O) in fp32, [B*H, S], of [B, H, S, D] tensors: one
+    torch reduction outside the kernels (the multiply reads O in its own
+    dtype: a product of an fp32 and a bf16 value is taken in fp32)."""
+    b, h, s, _ = out.shape
+    return (g.float() * out).sum(-1).reshape(b * h, s)
 
 
 def _backward(q, k, v, out, lse, g, window, rate, seed):
@@ -211,9 +228,8 @@ def _backward(q, k, v, out, lse, g, window, rate, seed):
     g = g.contiguous()
     b, h, s, d = q.shape
     with torch.cuda.device(q.device):
-        # rowsum(dO * O) in fp32, [B*H, S]: one torch reduction outside the kernels
-        dsum = (g.float() * out.float()).sum(-1).reshape(b * h, s)
-        grads = launch_backward(q, k, v, out, lse, g, dsum, b, h, s, d, q.stride()[:3],
+        grads = launch_backward(q, k, v, out, lse, g, dsum_rows(out, g), b, h, s, d,
+                                q.stride()[:3],
                                 window, rate, seed)
     KERNEL_LAUNCHES["causal_attention_bwd"] += 1
     return grads
@@ -272,7 +288,10 @@ def causal_attention(
 
 def check_kernel_inputs(name: str, tensors, head_dim: int) -> None:
     """The checks every kernel wrapper makes before a launch: one CUDA
-    device, one dtype the kernels take, one layout, unit stride on D."""
+    device, one dtype the kernels take, one layout, unit stride on D and,
+    for bf16 (whose tiles are staged by 16-byte copies), 16-byte-aligned
+    pointers and strides of whole 16-byte chunks. A view that breaks these
+    raises; it is not copied silently."""
     first = tensors[0]
     if first.dtype not in KERNEL_DTYPES or any(t.dtype != first.dtype for t in tensors):
         raise ValueError(
@@ -286,6 +305,13 @@ def check_kernel_inputs(name: str, tensors, head_dim: int) -> None:
         raise ValueError(f"{name}: inputs must share one shape and layout")
     if first.stride(-1) != 1:
         raise ValueError(f"{name}: the head dimension must be contiguous")
+    if first.dtype == torch.bfloat16:
+        for t in tensors:
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+                raise ValueError(
+                    f"{name}: bf16 inputs must be 16-byte aligned (data_ptr "
+                    f"{t.data_ptr():#x}, strides {t.stride()}, storage offset "
+                    f"{t.storage_offset()}); make the view contiguous first")
 
 
 def dropout_args(rate: float, seed: int | None) -> tuple[int, int, int, float]:
@@ -296,11 +322,18 @@ def dropout_args(rate: float, seed: int | None) -> tuple[int, int, int, float]:
 
 
 def launch_forward(q, k, v, batch, heads, seq_len, head_dim, strides, window,
-                   dropout_rate, dropout_seed, with_lse):
+                   dropout_rate, dropout_seed, with_lse, tile_rows=None):
     """Launch ``causal_attention_fwd`` on q, k, v of one strided layout
     (``strides`` = elements between batches, heads and rows). Returns
-    (out in q's layout, fp32 lse [batch*heads, seq_len] or None)."""
+    (out in q's layout, fp32 lse [batch*heads, seq_len] or None).
+    ``tile_rows`` (tests and measurements only) gives the bf16 kernel's q
+    tile, one of ``FORWARD_TILES[head_dim]``, instead of leaving the choice
+    to the kernel's rule."""
     check_kernel_inputs("causal_attention_fwd", (q, k, v), head_dim)
+    if tile_rows is not None and (q.dtype != torch.bfloat16
+                                  or tile_rows not in FORWARD_TILES[head_dim]):
+        raise ValueError(f"tile_rows {tile_rows}: the bf16 forward at D = {head_dim} is built "
+                         f"for {FORWARD_TILES[head_dim]}")
     from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
 
     lib = library()
@@ -310,7 +343,7 @@ def launch_forward(q, k, v, batch, heads, seq_len, head_dim, strides, window,
                if with_lse else None)
         if out.stride() != q.stride():
             raise ValueError("causal_attention_fwd: q is not dense")
-        err = lib.causal_attention_fwd(
+        args = (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None,
             batch, heads, seq_len, head_dim, *strides, KERNEL_DTYPES[q.dtype],
@@ -318,6 +351,8 @@ def launch_forward(q, k, v, batch, heads, seq_len, head_dim, strides, window,
             *dropout_args(dropout_rate, dropout_seed),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
+        err = (lib.causal_attention_fwd(*args) if tile_rows is None
+               else lib.causal_attention_fwd_tiled(*args, int(tile_rows)))
     if err != 0:
         raise RuntimeError(f"causal_attention_fwd launch failed: cudaError {err}")
     return out, lse
@@ -354,6 +389,39 @@ def launch_backward(q, k, v, out, lse, g, dsum, batch, heads, seq_len, head_dim,
     if err != 0:
         raise RuntimeError(f"causal_attention_bwd launch failed: cudaError {err}")
     return dq, dk, dv
+
+
+def kernel_tile_rows(head_dim: int, programs: int, seq_len: int) -> int:
+    """The q tile's rows the built bf16 forward kernel takes for ``programs``
+    = B*H heads of ``seq_len`` rows, asked of the library itself."""
+    from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
+
+    return library().causal_attention_fwd_tile_rows(head_dim, programs, seq_len)
+
+
+def kernel_resources(head_dim: int) -> dict[str, dict[str, int]]:
+    """What the built bf16 kernels take at ``head_dim``: {"fwd_64" | "fwd_128"
+    (the forward by q tile; 128 at D = 128 only) | "bwd_dq" | "bwd_dkv": {"registers",
+    "local_bytes" (spills), "smem_bytes", "ctas_per_sm"}}, read from the
+    card's runtime."""
+    import ctypes  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
+
+    lib = library()
+    out = (ctypes.c_int * 4)()
+    calls = {f"fwd_{rows}": (lambda rows=rows: lib.causal_attention_fwd_info(head_dim, rows, out))
+             for rows in FORWARD_TILES[head_dim]}
+    calls["bwd_dq"] = lambda: lib.causal_attention_bwd_info(0, head_dim, out)
+    calls["bwd_dkv"] = lambda: lib.causal_attention_bwd_info(1, head_dim, out)
+    res = {}
+    for name, call in calls.items():
+        err = call()
+        if err != 0:
+            raise RuntimeError(f"kernel_resources({name}, D={head_dim}): cudaError {err}")
+        res[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "ctas_per_sm"),
+                             (int(x) for x in out)))
+    return res
 
 
 def decode_attention(

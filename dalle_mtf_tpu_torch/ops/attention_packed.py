@@ -59,7 +59,7 @@ def dsum_rows(out: torch.Tensor, g: torch.Tensor, n_heads: int) -> torch.Tensor:
     input-dtype values accumulated in fp32 (the JAX einsum's
     preferred_element_type), one torch reduction outside the kernels."""
     b, s, e = out.shape
-    prod = (g.float() * out.float()).reshape(b, s, n_heads, e // n_heads).sum(-1)
+    prod = (g.float() * out).reshape(b, s, n_heads, e // n_heads).sum(-1)
     # contiguous: at b == 1 the reshape would otherwise stay a strided view
     return prod.transpose(1, 2).reshape(b * n_heads, s).contiguous()
 
@@ -82,7 +82,8 @@ def _packed_strides(q: torch.Tensor, n_heads: int):
     return b, n_heads, s, d, (q.stride(0), d, q.stride(1))
 
 
-def _forward(q, k, v, n_heads, window, rate, seed):
+def _forward(q, k, v, n_heads, window, rate, seed, tile_rows=None):
+    """(out, lse); ``tile_rows`` as in ``launch_forward``."""
     if q.device.type == "cpu":
         return attention_packed_reference(q, k, v, n_heads, window, rate, seed,
                                           with_lse=True)
@@ -90,7 +91,7 @@ def _forward(q, k, v, n_heads, window, rate, seed):
         raise ValueError(f"causal_attention_packed: unsupported device {q.device}")
     b, h, s, d, strides = _packed_strides(q, n_heads)
     out, lse = launch_forward(q, k, v, b, h, s, d, strides, window, rate, seed,
-                              with_lse=True)
+                              with_lse=True, tile_rows=tile_rows)
     KERNEL_LAUNCHES["causal_attention_packed_fwd"] += 1
     return out, lse
 

@@ -23,6 +23,7 @@ import torch
 
 from dalle_mtf_tpu_torch.ops import attention as tattn
 from dalle_mtf_tpu_torch.ops import attention_packed as tpacked
+from dalle_mtf_tpu_torch.ops import attention_tiles as ttiles
 from dalle_mtf_tpu_torch.ops import decode_matmul as tdmm
 from dalle_mtf_tpu_torch.ops import layer_norm as tln
 from dalle_mtf_tpu_torch.quantize import pack_int4
@@ -67,6 +68,16 @@ def _uniform(shape, dtype, gen, n):
     (torch.float32, 2, 4, 200, 64, 64, 0.1),
     (torch.float32, 1, 2, 130, 128, 5, 0.0),
     (torch.bfloat16, 16, 8, 1280, 128, None, 0.0),  # the training shape
+    # the edges of the bf16 tile walk: D = 64 with a window that is not a
+    # multiple of the tile, ragged lengths, one head, a window of 1 and one
+    # wider than S
+    (torch.bfloat16, 2, 4, 333, 64, 100, 0.1),
+    (torch.bfloat16, 2, 3, 65, 64, None, 0.0),
+    (torch.bfloat16, 2, 1, 200, 128, None, 0.0),
+    (torch.bfloat16, 3, 1, 129, 64, 37, 0.1),
+    (torch.bfloat16, 2, 2, 63, 128, 1, 0.0),
+    (torch.bfloat16, 1, 2, 1, 64, None, 0.0),
+    (torch.bfloat16, 2, 2, 129, 128, 1000, 0.1),
 ])
 def test_packed_kernels_match_plain(cuda, dtype, b, h, s, d, window, rate):
     atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
@@ -101,12 +112,17 @@ def test_packed_autograd_runs_the_kernels(cuda):
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
-@pytest.mark.parametrize("dtype,window,rate", [
-    (torch.bfloat16, None, 0.1), (torch.float32, 64, 0.1), (torch.float32, None, 0.0),
+@pytest.mark.parametrize("dtype,window,rate,s,d", [
+    (torch.bfloat16, None, 0.1, 200, 128), (torch.float32, 64, 0.1, 200, 128),
+    (torch.float32, None, 0.0, 200, 128),
+    # the edges of the bf16 tile walk
+    (torch.bfloat16, 37, 0.0, 200, 64), (torch.bfloat16, None, 0.0, 1, 128),
+    (torch.bfloat16, None, 0.1, 63, 64), (torch.bfloat16, None, 0.0, 65, 128),
+    (torch.bfloat16, 1, 0.0, 129, 128), (torch.bfloat16, 1000, 0.1, 129, 64),
 ])
-def test_unpacked_forward_matches_plain(cuda, dtype, window, rate):
+def test_unpacked_forward_matches_plain(cuda, dtype, window, rate, s, d):
     atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
-    q, k, v = _uniform((2, 4, 200, 128), dtype, torch.Generator().manual_seed(3), 3)
+    q, k, v = _uniform((2, 4, s, d), dtype, torch.Generator().manual_seed(3), 3)
     before = tattn.KERNEL_LAUNCHES["causal_attention_fwd"]
     out, lse = tattn.causal_attention(q, k, v, window, rate, True, dropout_seed=12345)
     ref, ref_lse = tattn.attention_reference(q, k, v, True, window, True, rate, 12345)
@@ -131,26 +147,50 @@ def test_unpacked_forward_matches_plain(cuda, dtype, window, rate):
         assert ok, (name, err)
 
 
-@pytest.mark.parametrize("dtype,b,h,s,window,rate", [
-    (torch.bfloat16, 2, 8, 1280, None, 0.0),   # the wedge / whole-row regimes' S
-    (torch.bfloat16, 2, 8, 1280, None, 0.1),
-    (torch.bfloat16, 1, 8, 4352, None, 0.0),   # the hybrid regime (dalle_4k)
-    (torch.bfloat16, 1, 2, 4352, 256, 0.0),
-    (torch.float32, 1, 2, 4352, None, 0.0),    # the loop regime: fp32 at S > 3072
-    (torch.bfloat16, 1, 2, 6200, None, 0.0),   # the loop regime: S > 6144, ragged
-])
-def test_unpacked_backward_matches_plain(cuda, dtype, b, h, s, window, rate):
+BACKWARD_CASES = [  # (dtype, B, H, S, D, window, dropout)
+    (torch.bfloat16, 2, 8, 1280, 128, None, 0.0),   # the wedge / whole-row regimes' S
+    (torch.bfloat16, 2, 8, 1280, 128, None, 0.1),
+    (torch.bfloat16, 1, 8, 4352, 128, None, 0.0),   # the hybrid regime (dalle_4k)
+    (torch.bfloat16, 1, 2, 4352, 128, 256, 0.0),
+    (torch.float32, 1, 2, 4352, 128, None, 0.0),    # the loop regime: fp32 at S > 3072
+    (torch.bfloat16, 1, 2, 6200, 128, None, 0.0),   # the loop regime: S > 6144, ragged
+    # the edges of the bf16 tile walk: D = 64 with windows that are not a
+    # multiple of the tile, lengths ragged under either q tile
+    (torch.bfloat16, 2, 4, 200, 64, 37, 0.0),
+    (torch.bfloat16, 2, 4, 1280, 64, 100, 0.1),
+    (torch.bfloat16, 2, 3, 63, 128, None, 0.0),
+    (torch.bfloat16, 2, 3, 65, 64, None, 0.1),
+    (torch.bfloat16, 2, 3, 129, 128, None, 0.0),
+    (torch.bfloat16, 2, 3, 129, 64, 1000, 0.1),     # a window wider than S
+]
+
+
+def _with_tiles(cases):
+    """Each case with the forward's q tile left to the kernel's rule (None)
+    and, in bf16, given: every tile the kernel is built for at that D."""
+    for case in cases:
+        dtype, d = case[0], case[4]
+        given = tattn.FORWARD_TILES[d] if dtype == torch.bfloat16 else ()
+        for tile_rows in (None, *given):
+            yield (*case, tile_rows)
+
+
+@pytest.mark.parametrize("dtype,b,h,s,d,window,rate,tile_rows", _with_tiles(BACKWARD_CASES))
+def test_unpacked_backward_matches_plain(cuda, dtype, b, h, s, d, window, rate, tile_rows):
     atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
-    q, k, v, g = _uniform((b, h, s, 128), dtype, torch.Generator().manual_seed(s + h), 4)
+    q, k, v, g = _uniform((b, h, s, d), dtype, torch.Generator().manual_seed(s + h), 4)
     seed = 2**31 - 7
     before = dict(tattn.KERNEL_LAUNCHES)
-    out, lse = tattn._forward(q, k, v, window, rate, seed, with_lse=True)
+    out, lse = tattn._forward(q, k, v, window, rate, seed, with_lse=True, tile_rows=tile_rows)
     grads = tattn._backward(q, k, v, out, lse, g, window, rate, seed)
+    # no floating-point atomics: a second run gives the same bits
+    again = tattn._backward(q, k, v, out, lse, g, window, rate, seed)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
     ref, ref_lse = tattn.attention_reference(q, k, v, True, window, True, rate, seed)
     want = tattn.attention_backward_reference(q, k, v, out, lse, g, window, rate, seed)
     torch.cuda.synchronize()
-    for key in ("causal_attention_fwd", "causal_attention_bwd"):
-        assert tattn.KERNEL_LAUNCHES[key] == before[key] + 1, key
+    assert tattn.KERNEL_LAUNCHES["causal_attention_fwd"] == before["causal_attention_fwd"] + 1
+    assert tattn.KERNEL_LAUNCHES["causal_attention_bwd"] == before["causal_attention_bwd"] + 2
     rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
     for name, got, w in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref, *want)):
         ok, err = _close(got, w, atol)
@@ -158,6 +198,59 @@ def test_unpacked_backward_matches_plain(cuda, dtype, b, h, s, window, rate):
         ok, err = _tile_close(got, w, rtol)
         assert ok, (name, "tile", err)
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("head_dim", tattn.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("programs", [1, 2, 4, 32, 33, 128, 256])
+def test_kernel_takes_the_q_tile_the_python_rule_names(cuda, head_dim, programs):
+    """The kernels carry their own copy of ``forward_tile_rows``: the built
+    library's choice must be the Python rule's at every shape, on both sides
+    of the 132-CTA edge."""
+    for s in (1, 64, 128, 129, 256, 512, 513, 527, 528, 529, 1280, 4352, 6200, 16896):
+        assert tattn.kernel_tile_rows(head_dim, programs, s) == \
+            ttiles.forward_tile_rows(head_dim, programs, s), s
+
+
+def test_forward_refuses_a_q_tile_it_is_not_built_for(cuda):
+    q = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="tile_rows"):
+        tattn._forward(q, q, q, None, 0.0, None, True, tile_rows=128)  # D = 64: 64 rows only
+    with pytest.raises(ValueError, match="tile_rows"):
+        tattn._forward(q.float(), q.float(), q.float(), None, 0.0, None, True, tile_rows=64)
+
+
+@pytest.mark.parametrize("s,window", [(1, None), (129, 1)])
+def test_rows_that_see_only_themselves_have_zero_dq_dk(cuda, s, window):
+    """A row whose only live key is its own has ds = p (dp - dsum) with
+    dp = dsum: dq and dk are zero up to fp32 rounding on both sides (no tile
+    bound can hold them), out = v and dv = dO exactly."""
+    q, k, v, g = _uniform((2, 3, s, 128), torch.bfloat16, torch.Generator().manual_seed(s), 4)
+    out, lse = tattn._forward(q, k, v, window, 0.0, 0, with_lse=True)
+    dq, dk, dv = tattn._backward(q, k, v, out, lse, g, window, 0.0, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, v) and torch.equal(dv, g)
+    own_score = (q.float() * k.float()).sum(-1).reshape(6, s) / 128 ** 0.5
+    assert (lse - own_score).abs().max().item() <= 1e-4
+    assert dq.float().abs().max().item() <= 1e-5 and dk.float().abs().max().item() <= 1e-5
+
+
+def test_misaligned_bf16_inputs_raise(cuda):
+    """The bf16 tiles are staged by 16-byte copies: a view that starts off a
+    16-byte boundary raises before any launch; it is not copied silently."""
+    buf = torch.zeros(2 * 2 * 64 * 128 + 8, dtype=torch.bfloat16, device="cuda")
+    shifted = buf[1:1 + 2 * 2 * 64 * 128].view(2, 2, 64, 128)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    before = dict(tattn.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn.causal_attention(shifted, shifted, shifted)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tpacked.packed_attention(shifted.reshape(2, 128, 128), shifted.reshape(2, 128, 128),
+                                 shifted.reshape(2, 128, 128), 2)
+    assert tattn.KERNEL_LAUNCHES == before
+    # fp32 tiles are staged element by element: the same offset runs
+    f = torch.rand(2 * 2 * 64 * 128 + 1, device="cuda")[1:].view(2, 2, 64, 128)
+    ok, err = _close(tattn.causal_attention(f, f, f), tattn.attention_reference(f, f, f), 1e-5)
+    assert ok, err
 
 
 @pytest.mark.parametrize("dtype,shape", [
