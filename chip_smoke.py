@@ -7,9 +7,10 @@ Phases, none of them optional:
 
 1. Device and build: the card's name and power limit, then the CUDA kernels
    built from the repository's csrc/ sources (one nvcc per source, timed),
-   and a "resources" line for each head size of the bf16 attention kernels:
-   registers a thread, spilled bytes, shared memory a CTA and CTAs an SM of
-   the forward (under either q tile), the dQ and the dK/dV kernel.
+   and a "resources" line for each head size of the bf16 causal-attention
+   kernels and one of the bf16 ring kernels: registers a thread, spilled
+   bytes, shared memory a CTA and CTAs an SM of the forward (under either q
+   tile), the dQ and the dK/dV kernel.
 2. Kernels against plain, on the card, both times from CUDA events. The
    attention kernels are timed over 20 launches or more, on inputs that
    together exceed the 50 MB L2 (rotating over copies where one set does
@@ -52,10 +53,15 @@ Phases, none of them optional:
      ring slice's shard shape (B=4, H=8, S_local=1088, D=128, bf16): the
      diagonal hop (diff 0), a past hop (1088) and a far one (3264), the
      window band (``local_ring``, window 256) across the shard edge, hash
-     dropout 0.1 at global row0 and col0, and one fp32 case. The triple is
-     compared on rows with a live key (m <= NEG_INF/2 on the others); every
-     tensor per 64-long tile, and each case shows that a copy with its last
-     tile zeroed fails.
+     dropout 0.1 at global row0 and col0, and one fp32 case, each timed
+     between events and, in bf16, on the card under torch.profiler
+     (``device_ms``);
+     then the bf16 pair at the edges of its tile walk (S_local in {1, 65,
+     200, 333}, ragged shards under windows whose band ends mid-tile, D =
+     64, a window of 1, hash dropout). The triple is compared on rows with a
+     live key (m = NEG_INF itself on the others); every tensor per 64-long
+     tile, each case shows that a copy with its last tile zeroed fails, and
+     two runs give the same bits.
    Tolerance: max |kernel - plain| <= atol * max(1, max|plain|), atol 1e-5
    in fp32 and 1e-2 in bf16 on unit-scale inputs (uniform in [-1, 1); one
    bf16 rounding is 2^-8 relative); lse atol 1e-4. The [B, H, S, D] pair is
@@ -1190,21 +1196,89 @@ def planted_fails(t, want, rtol):
     return tile_rel_err(planted, want) > rtol
 
 
+def ring_case_errors(torch, ring, q, k, v, g, args):
+    """One hop's kernels against the plain versions, and a second run of each
+    against the first. Returns (errs, outputs): errs holds m and l's relative
+    errors on live rows and, for each tensor, its max abs error, tile error
+    and planted-zero result (or, where the plain tensor is zero up to fp32
+    rounding, the kernel's max |value|); outputs the kernels' (num, m, l,
+    lse, dsum, dq, dk, dv). Raises on a bound, an uncounted launch, a dead
+    row's m other than NEG_INF, or two runs that differ."""
+    b, h, s, d = q.shape
+    dtype, diff, window = q.dtype, args[0], args[3]
+    live, _ = ring_hop(torch, ring, s, diff, window)
+    live = live.cuda()
+    before = dict(ring.KERNEL_LAUNCHES)
+    num, m, l = ring.ring_partial(q, k, v, *args)
+    # a backward input of this hop: lse and dsum of its normalised output
+    lse = m + torch.log(l.clamp_min(1e-30))
+    out = (num / l.clamp_min(1e-30).reshape(b, h, s, 1)).to(dtype)
+    dsum = (g.float() * out.float()).sum(-1).reshape(b * h, s)
+    dk, dv = (torch.zeros((b, h, s, d), device="cuda") for _ in range(2))
+    dq = ring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args)
+    torch.cuda.synchronize()
+    for key in ring.KERNEL_LAUNCHES:
+        if ring.KERNEL_LAUNCHES[key] != before[key] + 1:
+            raise AssertionError(f"{key} did not count its launch")
+    again = ring.ring_partial(q, k, v, *args)
+    dk2, dv2 = torch.zeros_like(dk), torch.zeros_like(dv)
+    dq2 = ring.ring_block_grads(q, g, lse, dsum, k, v, dk2, dv2, *args)
+    torch.cuda.synchronize()
+    bit_equal = same_bits((num, m, l, dq, dk, dv), (*again, dq2, dk2, dv2))
+    ref_num, ref_m, ref_l = ring.ring_partial_reference(q, k, v, *args)
+    ref_dq, ref_dk, ref_dv = ring.ring_block_grads_reference(q, g, lse, dsum, k, v, *args)
+    dead_m = m[:, ~live]
+    if dead_m.numel() and not (dead_m == ring.NEG_INF).all():
+        raise AssertionError("a row without a live key has m other than NEG_INF")
+    errs = {n: ((got - w)[:, live].abs() / w[:, live].abs().clamp_min(1.0)).max().item()
+            if live.any() else 0.0 for n, got, w in (("m", m, ref_m), ("l", l, ref_l))}
+    keep = live.reshape(1, 1, s, 1)
+    rtol = tile_rtol(dtype)
+    bad = {n: e for n, e in errs.items() if not e <= 1e-5}
+    for n, t, w in (("num", num * keep, ref_num * keep), ("dq", dq * keep, ref_dq * keep),
+                    ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        if w.float().abs().max().item() <= 1e-5:  # zero up to fp32 rounding
+            errs[n] = dict(zero=t.float().abs().max().item())
+            if not errs[n]["zero"] <= 1e-5:
+                bad[n] = errs[n]
+            continue
+        errs[n] = dict(abs=(t.float() - w.float()).abs().max().item(),
+                       tile=tile_rel_err(t, w), planted=planted_fails(t, w, rtol))
+        # planted is None where the plain last tile is all zero (a dropped weight)
+        if not (errs[n]["tile"] <= rtol and errs[n]["planted"] is not False):
+            bad[n] = errs[n]
+    if not any(isinstance(e, dict) and e.get("planted") for e in errs.values()):
+        bad["planted"] = "no tensor showed that a zeroed last tile fails"
+    if not bit_equal:
+        bad["bit_equal"] = "two runs of the kernels gave different bits"
+    if bad:
+        raise AssertionError(
+            f"ring hop {tuple(q.shape)} {dtype} diff {diff} window {window} dropout {args[4]}: "
+            f"kernels disagree with the plain versions: {bad} "
+            f"(tiles within {rtol} of their own max |plain|, a zeroed last tile must fail; m "
+            f"and l 1e-5 relative; two runs bit-equal); all {errs}")
+    return errs, (num, m, l, lse, dsum, dq, dk, dv)
+
+
 def phase_ring_kernels(torch, ring, card):
     """ring_partial and ring_block_grads against their plain versions at the
     ring slice's shard shape (B=4, H=8, S_local=1088, D=128): the diagonal,
     a past and a far past hop, the window band across the shard edge, hash
-    dropout at global coordinates, and fp32. The triple is compared on rows
-    with a live key, and every 64-long tile within 2^-6 (bf16) or 1e-5
-    (fp32) of its own max |plain|, a bound shown to fail a copy with its
-    last tile zeroed. Returns {case: {wrapper: row}}."""
+    dropout at global coordinates, and fp32; then the bf16 kernels at the
+    edges of their tile walk. The triple is compared on rows with a live key
+    (m = NEG_INF on the others), and every 64-long tile within 2^-6 (bf16) or
+    1e-5 (fp32) of its own max |plain|, a bound shown to fail a copy with its
+    last tile zeroed; two runs give the same bits. Times from CUDA events
+    (``ms``) and, since a bf16 hop's launch is about as short as the host's
+    dispatch of it, the card's own under torch.profiler (``device_ms``).
+    Returns {case: {wrapper: row}}."""
     b, h, s, d = 4, 8, 1088, 128
     cases = [  # (name, dtype, hops back, window, dropout, timing iters)
-        ("diagonal", torch.bfloat16, 0, None, 0.0, 10),
-        ("past", torch.bfloat16, 1, None, 0.0, 10),
-        ("far_past", torch.bfloat16, 3, None, 0.0, 5),
-        ("window_256", torch.bfloat16, 1, 256, 0.0, 10),
-        ("dropout", torch.bfloat16, 1, None, 0.1, 5),
+        ("diagonal", torch.bfloat16, 0, None, 0.0, 30),
+        ("past", torch.bfloat16, 1, None, 0.0, 30),
+        ("far_past", torch.bfloat16, 3, None, 0.0, 20),
+        ("window_256", torch.bfloat16, 1, 256, 0.0, 30),
+        ("dropout", torch.bfloat16, 1, None, 0.1, 20),
         ("fp32", torch.float32, 1, None, 0.0, 3),
     ]
     gen = torch.Generator().manual_seed(4)
@@ -1214,50 +1288,24 @@ def phase_ring_kernels(torch, ring, card):
                       for _ in range(4))
         row0 = 3 * s
         args = (hops * s, row0, row0 - hops * s, window, rate, RING_SEED)
-        live, pairs = ring_hop(torch, ring, s, hops * s, window)
-        live = live.cuda()
-        before = dict(ring.KERNEL_LAUNCHES)
-        num, m, l = ring.ring_partial(q, k, v, *args)
-        # a backward input of this hop: lse and dsum of its normalised output
-        lse = m + torch.log(l.clamp_min(1e-30))
-        out = (num / l.clamp_min(1e-30).reshape(b, h, s, 1)).to(dtype)
-        dsum = (g.float() * out.float()).sum(-1).reshape(b * h, s)
-        dk, dv = (torch.zeros((b, h, s, d), device="cuda") for _ in range(2))
-        dq = ring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args)
-        torch.cuda.synchronize()
-        for key in ring.KERNEL_LAUNCHES:
-            if ring.KERNEL_LAUNCHES[key] != before[key] + 1:
-                raise AssertionError(f"{key} did not count its launch")
-        ref_num, ref_m, ref_l = ring.ring_partial_reference(q, k, v, *args)
-        ref_dq, ref_dk, ref_dv = ring.ring_block_grads_reference(q, g, lse, dsum, k, v, *args)
-        if not live.all() and m[:, ~live].max().item() > ring.NEG_INF / 2:
-            raise AssertionError(f"ring {name}: a row without a live key has m above NEG_INF/2")
-        ml_errs = {n: ((got - w)[:, live].abs() / w[:, live].abs().clamp_min(1.0)).max().item()
-                   for n, got, w in (("m", m, ref_m), ("l", l, ref_l))}
-        keep = live.reshape(1, 1, s, 1)
-        pairs_t = {"num": (num * keep, ref_num * keep), "dq": (dq * keep, ref_dq * keep),
-                   "dk": (dk, ref_dk), "dv": (dv, ref_dv)}
-        rtol = tile_rtol(dtype)
-        tile_errs = {n: tile_rel_err(t, w) for n, (t, w) in pairs_t.items()}
-        abs_errs = {n: (t - w).abs().max().item() for n, (t, w) in pairs_t.items()}
-        planted = {n: planted_fails(t, w, rtol) for n, (t, w) in pairs_t.items()}
-        if any(p is False for p in planted.values()) or not any(planted.values()):
-            raise AssertionError(f"ring {name}: the tile bound passes a zeroed last tile "
-                                 f"{planted}")
-        bad = {n: e for n, e in tile_errs.items() if not e <= rtol}
-        bad.update({n: e for n, e in ml_errs.items() if not e <= 1e-5})
-        if bad:
-            raise AssertionError(
-                f"ring {name}: kernels disagree with the plain versions: {bad} (tiles within "
-                f"{rtol} of their own max |plain|, m and l 1e-5 relative); all {tile_errs}, "
-                f"{ml_errs}")
-        del ref_num, ref_m, ref_l, ref_dq, ref_dk, ref_dv, pairs_t
+        _, pairs = ring_hop(torch, ring, s, hops * s, window)
+        errs, (num, m, l, lse, dsum, dq, dk, dv) = ring_case_errors(torch, ring, q, k, v, g, args)
         fwd_ms = cuda_ms(lambda: ring.ring_partial(q, k, v, *args), iters)
-        fwd_plain = cuda_ms(lambda: ring.ring_partial_reference(q, k, v, *args), iters)
+        fwd_plain = cuda_ms(lambda: ring.ring_partial_reference(q, k, v, *args), 3)
         bwd_ms = cuda_ms(lambda: ring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args),
                          iters)
+        # a bf16 hop's launch is about as short as the host's dispatch of it, so
+        # the event times above can follow the host; the card's own time beside
+        # them (an fp32 hop takes milliseconds: its events read the card)
+        fwd_dev = bwd_dev = None
+        if dtype == torch.bfloat16:
+            fwd_dev = device_ms_rotating(torch, lambda _: ring.ring_partial(q, k, v, *args), 1,
+                                         iters)
+            bwd_dev = device_ms_rotating(
+                torch, lambda _: ring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args),
+                1, iters)
         bwd_plain = cuda_ms(lambda: ring.ring_block_grads_reference(
-            q, g, lse, dsum, k, v, *args), iters)
+            q, g, lse, dsum, k, v, *args), 3)
         lib_fwd = lib_bwd = None
         if window is None and rate == 0.0:  # SDPA: no window, no hash dropout
             lib_fwd, lib_bwd = sdpa_bhsd_ms(torch, [(q, k, v, g)], iters, causal=hops == 0)
@@ -1265,12 +1313,16 @@ def phase_ring_kernels(torch, ring, card):
         peak = PEAK_FP32_TFLOPS if elem == 4 else PEAK_BF16_TFLOPS
         common = dict(card=card, shape=name, B=b, H=h, S_local=s, D=d, dtype=str(dtype),
                       diff=hops * s, row0=row0, window=window, dropout=rate,
-                      live_pairs_per_head=pairs, tile_rtol=rtol, planted_zero_fails=planted)
+                      live_pairs_per_head=pairs, tile_rtol=tile_rtol(dtype),
+                      bit_equal_two_runs=True,
+                      planted_zero_fails={n: errs[n].get("planted")
+                                          for n in ("num", "dq", "dk", "dv")})
         rows[name] = {
             # reads q, k, v; writes num fp32 and m, l; QK^T and PV over the live pairs
             "ring_partial": dict(
-                kernel="ring_partial", **common, max_abs_err=abs_errs["num"],
-                tile_rel_err=tile_errs["num"], m_l_rel_err=ml_errs, ms=fwd_ms,
+                kernel="ring_partial", **common, max_abs_err=errs["num"]["abs"],
+                tile_rel_err=errs["num"]["tile"],
+                m_l_rel_err={n: errs[n] for n in ("m", "l")}, ms=fwd_ms, device_ms=fwd_dev,
                 plain_ms=fwd_plain, library_ms=lib_fwd,
                 **roofline(2 * 2 * d * bh * pairs,
                            3 * bh * s * d * elem + bh * s * d * 4 + 2 * bh * s * 4, peak)),
@@ -1278,18 +1330,44 @@ def phase_ring_kernels(torch, ring, card):
             # dk, dv accumulators; five products over the live pairs
             "ring_block_grads": dict(
                 kernel="ring_block_grads", **common,
-                max_abs_err=max(abs_errs[n] for n in ("dq", "dk", "dv")),
-                abs_errs={n: abs_errs[n] for n in ("dq", "dk", "dv")},
-                tile_rel_errs={n: tile_errs[n] for n in ("dq", "dk", "dv")}, ms=bwd_ms,
-                plain_ms=bwd_plain, library_ms=lib_bwd,
+                max_abs_err=max(errs[n]["abs"] for n in ("dq", "dk", "dv")),
+                abs_errs={n: errs[n]["abs"] for n in ("dq", "dk", "dv")},
+                tile_rel_errs={n: errs[n]["tile"] for n in ("dq", "dk", "dv")}, ms=bwd_ms,
+                device_ms=bwd_dev, plain_ms=bwd_plain, library_ms=lib_bwd,
                 ms_includes="dQ and dK/dV launches",
                 **roofline(5 * 2 * d * bh * pairs,
                            5 * bh * s * d * elem + 2 * bh * s * 4 + 4 * bh * s * d * 4, peak)),
         }
         for row in rows[name].values():
             print("kernel", json.dumps(row), flush=True)
-        del q, k, v, g, num, m, l, lse, out, dsum, dk, dv, dq
+        del q, k, v, g, num, m, l, lse, dsum, dk, dv, dq
         torch.cuda.empty_cache()
+
+    # the bf16 kernels at the edges of their tile walk:
+    # ragged shards (one key past a tile, a window band ending mid-tile), D =
+    # 64 with windows that are not a multiple of the tile, S = 1, a window of 1
+    # on the diagonal (dq and dk zero up to rounding: ds = p (dp - dsum) with
+    # dp = dsum), hash dropout
+    edges = [  # (name, B, H, S_local, hops back, window, dropout, D)
+        ("s65_diagonal", 2, 3, 65, 0, None, 0.0, 128),
+        ("s65_past_dropout", 2, 3, 65, 1, None, 0.1, 128),
+        ("ragged_200_window_120", 1, 2, 200, 1, 120, 0.0, 128),
+        ("ragged_333_window_300_far", 2, 2, 333, 1, 300, 0.1, 128),
+        ("d64_window_100_dropout", 2, 4, 333, 1, 100, 0.1, 64),
+        ("d64_diagonal_window_37", 2, 4, 200, 0, 37, 0.0, 64),
+        ("s1_past", 2, 2, 1, 1, None, 0.0, 128),
+        ("window_1_diagonal", 2, 2, 129, 0, 1, 0.0, 128),
+    ]
+    for name, eb, eh, es, hops, window, rate, ed in edges:
+        q, k, v, g = ((torch.rand((eb, eh, es, ed), generator=gen) * 2 - 1)
+                      .to("cuda", torch.bfloat16) for _ in range(4))
+        args = (hops * es, 3 * es, (3 - hops) * es, window, rate, RING_SEED)
+        errs, _ = ring_case_errors(torch, ring, q, k, v, g, args)
+        print("kernel", json.dumps(dict(
+            card=card, kernel="ring_partial+ring_block_grads", shape=name, B=eb, H=eh,
+            S_local=es, D=ed, dtype="torch.bfloat16", diff=hops * es, window=window,
+            dropout=rate, tile_rtol=tile_rtol(torch.bfloat16), errs=errs,
+            bit_equal_two_runs=True)), flush=True)
     return rows
 
 
@@ -2150,6 +2228,8 @@ def main() -> int:
     for d in attn.KERNEL_HEAD_DIMS:
         print("resources", json.dumps(dict(kernels="causal attention pair, bf16", D=d,
                                            **attn.kernel_resources(d))), flush=True)
+        print("resources", json.dumps(dict(kernels="ring attention per-hop pair, bf16", D=d,
+                                           **attn.kernel_resources(d, "ring"))), flush=True)
     serving = phase_kernel(torch, attn, card)
     phase_tile_cases(torch, attn, card)
     decode = phase_decode_kernels(torch, dmm, card)
@@ -2243,6 +2323,8 @@ def main() -> int:
             shape="past hop B=4 H=8 S_local=1088 D=128 bf16",
             **{k: ring_rows["past"][name][k] for k in keys},
         ))
+    print(f"chip_smoke: every phase, the build included, in {time.perf_counter() - t0:.1f}s",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

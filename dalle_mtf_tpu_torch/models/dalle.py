@@ -56,6 +56,7 @@ from dalle_mtf_tpu_torch.ops.losses import softmax_cross_entropy_with_logits
 from dalle_mtf_tpu_torch.ops.ring_attention import ring_attention_auto
 from dalle_mtf_tpu_torch.parallel.mesh import BATCH, HEADS, LAYERS, SEQ, parse_layout
 from dalle_mtf_tpu_torch.quantize import nibble_views, quantized_shapes
+from dalle_mtf_tpu_torch.utils.distributed import model_device
 from dalle_mtf_tpu_torch.utils.precision import Policy, get_policy
 
 _ACTIVATIONS = {
@@ -212,10 +213,10 @@ class DALLE(nn.Module):
     ``utils.convert`` loads), passed to every method, as in the JAX package.
     """
 
-    def __init__(self, config: DalleConfig, device: torch.device | str = "cpu", mesh=None):
+    def __init__(self, config: DalleConfig, device: torch.device | str = "cuda", mesh=None):
         super().__init__()
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = model_device(device)
         self.mesh = mesh if mesh is not None and mesh.world > 1 else None
         if config.ln_impl == "pallas" and config.ln_dtype == "activation":
             logging.getLogger(__name__).warning(

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dalle_mtf_tpu_torch.utils.distributed import model_device
 from dalle_mtf_tpu_torch.utils.precision import Policy, get_policy
 
 
@@ -125,10 +126,10 @@ def _glorot_uniform(shape, generator):
 class DiscreteVAE(nn.Module):
     """Decoder computation over an explicit parameter tree (see DALLE)."""
 
-    def __init__(self, config: VAEConfig, device: torch.device | str = "cpu"):
+    def __init__(self, config: VAEConfig, device: torch.device | str = "cuda"):
         super().__init__()
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = model_device(device)
 
     def param_shapes(self) -> dict:
         """Shapes of the tree the serving path reads: the codebook and the

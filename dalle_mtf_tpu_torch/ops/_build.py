@@ -60,6 +60,8 @@ _SIGNATURES = {
     "ring_partial": [_P] * 6 + [_I] * 10 + [_U, _U, _F, _P],
     # q, k, v, dout, lse, dsum, dq, dk_acc, dv_acc; then as ring_partial
     "ring_block_grads": [_P] * 9 + [_I] * 10 + [_U, _U, _F, _P],
+    # kind (0 forward, 1 dQ, 2 dK/dV), head_dim, tile_rows, out[4]
+    "ring_attention_info": [_I, _I, _I, _P],
 }
 
 

@@ -185,6 +185,9 @@ def attention_backward_reference(q, k, v, out, lse, g, window=None,
 # always takes 64); the rule that picks one is csrc/attention_mma.cuh's
 # forward_tile_rows
 FORWARD_TILES = {64: (64,), 128: (64, 128)}
+# the bf16 ring forward's q tile (csrc/ring_attention.cu): 64 rows at either
+# D (128 measured slower at every hop of the ring shard, so it is not built)
+RING_FORWARD_TILES = (64,)
 
 
 def _on_cpu(*tensors) -> bool:
@@ -399,26 +402,34 @@ def kernel_tile_rows(head_dim: int, programs: int, seq_len: int) -> int:
     return library().causal_attention_fwd_tile_rows(head_dim, programs, seq_len)
 
 
-def kernel_resources(head_dim: int) -> dict[str, dict[str, int]]:
-    """What the built bf16 kernels take at ``head_dim``: {"fwd_64" | "fwd_128"
-    (the forward by q tile; 128 at D = 128 only) | "bwd_dq" | "bwd_dkv": {"registers",
-    "local_bytes" (spills), "smem_bytes", "ctas_per_sm"}}, read from the
-    card's runtime."""
+def kernel_resources(head_dim: int, kind: str = "causal") -> dict[str, dict[str, int]]:
+    """What the built bf16 kernels of ``kind`` ("causal": the causal pair;
+    "ring": ring attention's per-hop pair) take at ``head_dim``: {"fwd_64" |
+    "fwd_128" (the forward by q tile; 128 for the causal pair at D = 128
+    only) | "bwd_dq" | "bwd_dkv": {"registers", "local_bytes" (spills),
+    "smem_bytes", "ctas_per_sm"}}, read from the card's runtime."""
     import ctypes  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
 
     lib = library()
     out = (ctypes.c_int * 4)()
-    calls = {f"fwd_{rows}": (lambda rows=rows: lib.causal_attention_fwd_info(head_dim, rows, out))
-             for rows in FORWARD_TILES[head_dim]}
-    calls["bwd_dq"] = lambda: lib.causal_attention_bwd_info(0, head_dim, out)
-    calls["bwd_dkv"] = lambda: lib.causal_attention_bwd_info(1, head_dim, out)
+    tiles, fwd, bwd = {  # (forward q tiles, forward by tile, backward pass 0 dQ / 1 dK/dV)
+        "causal": (FORWARD_TILES[head_dim],
+                   lambda rows: lib.causal_attention_fwd_info(head_dim, rows, out),
+                   lambda p: lib.causal_attention_bwd_info(p, head_dim, out)),
+        "ring": (RING_FORWARD_TILES,
+                 lambda rows: lib.ring_attention_info(0, head_dim, rows, out),
+                 lambda p: lib.ring_attention_info(1 + p, head_dim, 64, out)),
+    }[kind]
+    calls = {f"fwd_{rows}": (lambda rows=rows: fwd(rows)) for rows in tiles}
+    calls["bwd_dq"] = lambda: bwd(0)
+    calls["bwd_dkv"] = lambda: bwd(1)
     res = {}
     for name, call in calls.items():
         err = call()
         if err != 0:
-            raise RuntimeError(f"kernel_resources({name}, D={head_dim}): cudaError {err}")
+            raise RuntimeError(f"kernel_resources({kind} {name}, D={head_dim}): cudaError {err}")
         res[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "ctas_per_sm"),
                              (int(x) for x in out)))
     return res

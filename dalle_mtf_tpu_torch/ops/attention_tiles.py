@@ -1,9 +1,9 @@
 """The tile walk of the bf16 tensor-core attention kernels, in Python.
 
-``csrc/causal_attention_fwd.cu`` and ``csrc/causal_attention_bwd.cu`` walk
-64-key (or, in the dK/dV pass, 64-row) tiles of one head; their index
-arithmetic is written once here, and the CUDA sources point at these
-functions as its definition:
+``csrc/causal_attention_fwd.cu``, ``csrc/causal_attention_bwd.cu`` and the
+bf16 kernels of ``csrc/ring_attention.cu`` walk 64-key (or, in the dK/dV
+pass, 64-row) tiles of one head; their index arithmetic is written once here,
+and the CUDA sources point at these functions as its definition:
 
 - ``forward_tile_rows``: the forward's q tile (64 or 128 rows) by shape;
 - ``key_tile_range`` / ``query_tile_range``: the first and last streamed tile
@@ -12,7 +12,12 @@ functions as its definition:
 - ``attention_tiled_reference`` / ``attention_backward_tiled_reference``:
   plain torch versions that walk the tiles exactly so (online softmax in the
   log2 domain from the finite NEG_INF, the mask only on edge tiles, p_v and
-  ds rounded where the kernels round).
+  ds rounded where the kernels round);
+- ``ring_key_tile_range`` / ``ring_query_tile_range`` /
+  ``ring_tile_needs_mask`` and ``ring_partial_tiled_reference`` /
+  ``ring_block_grads_tiled_reference``: the same for one hop of ring
+  attention, between a local q shard and a visiting k/v shard whose global
+  offsets differ by ``diff`` (``ops/ring_attention.py``).
 
 Nothing on the serving or training path imports this module: the CPU tests
 hold it against the dense mask, the one-shot plain versions and the JAX
@@ -26,7 +31,7 @@ import math
 
 import torch
 
-from dalle_mtf_tpu_torch.ops.attention import NEG_INF, dropout_keep
+from dalle_mtf_tpu_torch.ops.attention import NEG_INF, RING_FORWARD_TILES, dropout_keep
 
 STREAM_TILE = 64  # rows of a streamed tile (keys in the forward and the dQ pass)
 TILE_ROWS = (64, 128)  # rows of the forward's q tile: 4 warps of one or two 16-row blocks
@@ -193,3 +198,173 @@ def attention_backward_tiled_reference(q, k, v, out, lse, g, window=None, dropou
             dv[:, :, c0:c0 + rows] += torch.matmul(p_v.transpose(-1, -2),
                                                    gf[:, :, q0:q0 + STREAM_TILE])
     return tuple(t[:, :, :s].to(q.dtype) for t in (dq * scale, dk * scale, dv))
+
+
+# ---------------------------------------------------------------- ring hops
+# One hop between the local q shard (Sq rows) and a visiting k/v shard (Sk
+# keys): local (r, c) is masked where c - r > diff, where (r - c) + diff >=
+# window, and where c >= Sk (ops/ring_attention.py::_masks).
+
+
+def ring_key_tile_range(q0: int, rows: int, s_q: int, s_k: int, diff: int,
+                        window: int | None) -> tuple[int, int]:
+    """(first, last) 64-key tile, inclusive, that the q tile [q0, q0 + rows)
+    walks in ``ring_partial`` and the dQ pass: the tiles holding a live key
+    for one of its rows, [q0 + diff - window + 1, q_last + diff] clamped to
+    [0, Sk). last = first - 1 when there is none (only under a window)."""
+    q_last = min(q0 + rows, s_q) - 1
+    c_hi = min(s_k - 1, q_last + diff)
+    c_lo = max(0, q0 + diff - window + 1) if window is not None else 0
+    first = c_lo // STREAM_TILE
+    return first, (c_hi // STREAM_TILE if c_hi >= c_lo else first - 1)
+
+
+def ring_query_tile_range(c0: int, rows: int, s_q: int, s_k: int, diff: int,
+                          window: int | None) -> tuple[int, int]:
+    """(first, last) 64-row q tile, inclusive, that the key tile
+    [c0, c0 + rows) walks in the dK/dV pass: the rows that can see one of its
+    keys, r >= c0 - diff and, under a window, r <= k_last - diff + window - 1,
+    clamped to [0, Sq). last = first - 1 when there is none."""
+    k_last = min(c0 + rows, s_k) - 1
+    r_lo = max(0, c0 - diff)
+    r_hi = min(s_q - 1, k_last - diff + window - 1) if window is not None else s_q - 1
+    first = r_lo // STREAM_TILE
+    return first, (r_hi // STREAM_TILE if r_hi >= r_lo else first - 1)
+
+
+def ring_tile_needs_mask(q0: int, q_rows: int, c0: int, k_rows: int, s_q: int, s_k: int,
+                         diff: int, window: int | None, ragged_rows: bool = False) -> bool:
+    """Whether the tile of rows [q0, q0 + q_rows) and keys [c0, c0 + k_rows)
+    of a hop may hold a masked pair, so the kernel must test every element:
+    the causal edge crosses it (its largest key less its smallest row exceeds
+    ``diff``), the window's edge does (its largest row less its smallest key,
+    plus ``diff``, reaches ``window``), or it runs past the visiting shard's
+    end. ``ragged_rows`` (the dK/dV pass, where q rows are streamed) also
+    flags a tile with rows at or beyond Sq. At a past hop (diff = Sk, no
+    window, Sk a multiple of 64) no tile is flagged."""
+    return (c0 + k_rows - 1 - q0 > diff
+            or (window is not None and q0 + q_rows - 1 - c0 + diff >= window)
+            or c0 + k_rows > s_k
+            or (ragged_rows and q0 + q_rows > s_q))
+
+
+def _ring_tile_mask(q0, q_rows, c0, k_rows, diff, window, device):
+    """(local rows [q_rows, 1], local keys [1, k_rows], band-masked) of a tile."""
+    i = torch.arange(q0, q0 + q_rows, device=device)[:, None]
+    j = torch.arange(c0, c0 + k_rows, device=device)[None, :]
+    mask = (j - i) > diff
+    if window is not None:
+        mask = mask | ((i - j) + diff >= window)
+    return i, j, mask
+
+
+def _ring_seeds(seed, b, h, device):
+    """The hash dropout's program seeds, seed + b*H + h: [B, H, 1, 1]."""
+    return (int(seed) + torch.arange(b * h, device=device)).reshape(b, h, 1, 1)
+
+
+def ring_partial_tiled_reference(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0):
+    """One hop's forward as the bf16 kernel walks it, in plain torch: 64-row
+    q tiles over the key tiles of ``ring_key_tile_range``, an online
+    softmax in the log2 domain whose running max starts at the finite NEG_INF,
+    the mask only on tiles ``ring_tile_needs_mask`` flags (a key at or beyond
+    Sk scores -inf, so it adds nothing even to a row whose max is still
+    NEG_INF), p_v rounded to v's dtype before its product, hash dropout at
+    (row0 + r, col0 + c, seed + bh). Returns num fp32 [B, H, Sq, D] and m, l
+    fp32 [B*H, Sq]; m = m2 ln 2, and a row with no live key keeps m = NEG_INF
+    itself, l = the count of its visited keys below Sk and num = their sum
+    of p_v v."""
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    (rows,) = RING_FORWARD_TILES
+    qf = _pad_rows(q, -(-s_q // rows) * rows).float()
+    kf, vf = (_pad_rows(t, -(-s_k // STREAM_TILE) * STREAM_TILE).float() for t in (k, v))
+    scale_log2 = _LOG2E / math.sqrt(d)
+    seeds = _ring_seeds(seed, b, h, q.device) if rate > 0.0 else None
+    num = torch.zeros((b, h, qf.shape[2], d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, qf.shape[2]), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    for q0 in range(0, s_q, rows):
+        acc = torch.zeros((b, h, rows, d), dtype=torch.float32, device=q.device)
+        m2 = torch.full((b, h, rows, 1), NEG_INF, dtype=torch.float32, device=q.device)
+        l2 = torch.zeros_like(m2)
+        first, last = ring_key_tile_range(q0, rows, s_q, s_k, diff, window)
+        for t in range(first, last + 1):
+            c0 = t * STREAM_TILE
+            x = torch.matmul(qf[:, :, q0:q0 + rows],
+                             kf[:, :, c0:c0 + STREAM_TILE].transpose(-1, -2)) * scale_log2
+            i, j, mask = _ring_tile_mask(q0, rows, c0, STREAM_TILE, diff, window, q.device)
+            if ring_tile_needs_mask(q0, rows, c0, STREAM_TILE, s_q, s_k, diff, window):
+                x = x.masked_fill(mask, NEG_INF).masked_fill(j >= s_k, -math.inf)
+            m_new = torch.maximum(m2, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m2 - m_new)
+            p = torch.exp2(x - m_new)
+            l2 = l2 * alpha + p.sum(-1, keepdim=True)  # the undropped normalizer
+            p_v = p
+            if seeds is not None:
+                keep = dropout_keep(i + row0, j + col0, seeds, rate)
+                p_v = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
+            acc = acc * alpha + torch.matmul(p_v.to(v.dtype).float(),
+                                             vf[:, :, c0:c0 + STREAM_TILE])
+            m2 = m_new
+        num[:, :, q0:q0 + rows] = acc
+        m[:, :, q0:q0 + rows] = torch.where(m2 == NEG_INF, NEG_INF, m2 * math.log(2.0))[..., 0]
+        l[:, :, q0:q0 + rows] = l2[..., 0]
+    return num[:, :, :s_q], m[:, :, :s_q].reshape(b * h, s_q), l[:, :, :s_q].reshape(b * h, s_q)
+
+
+def ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, diff, row0, col0, window=None,
+                                     rate=0.0, seed=0):
+    """One hop's gradient as the bf16 kernels walk it, in plain torch: a dQ
+    pass (64-row q tiles over ``ring_key_tile_range``) and a dK/dV pass
+    (64-key tiles over ``ring_query_tile_range``), each recomputing
+    p = exp2(s D^-0.5 log2 e - lse log2 e) and dp per tile, masking only where
+    ``ring_tile_needs_mask`` says (with ``ragged_rows`` in the dK/dV pass),
+    ds and p_v rounded to the input dtype before their products. Returns dq
+    in q's dtype and dk, dv fp32 [B, H, Sk, D], as
+    ``ring_block_grads_reference``."""
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    tile = STREAM_TILE
+    qf, gf = (_pad_rows(t, -(-s_q // tile) * tile).float() for t in (q, g))
+    kf, vf = (_pad_rows(t, -(-s_k // tile) * tile).float() for t in (k, v))
+    pad = qf.shape[2] - s_q
+    lse2 = torch.nn.functional.pad(lse.reshape(b, h, s_q), (0, pad)) * _LOG2E
+    dsum_p = torch.nn.functional.pad(dsum.reshape(b, h, s_q), (0, pad))
+    scale = 1.0 / math.sqrt(d)
+    inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    seeds = _ring_seeds(seed, b, h, q.device) if rate > 0.0 else None
+
+    def tile_grads(q0, c0, ragged_rows):
+        """(ds, p_v) of one 64 x 64 tile, rounded as the kernels round."""
+        x = torch.matmul(qf[:, :, q0:q0 + tile], kf[:, :, c0:c0 + tile].transpose(-1, -2))
+        p = torch.exp2(x * (scale * _LOG2E) - lse2[:, :, q0:q0 + tile, None])
+        i, j, mask = _ring_tile_mask(q0, tile, c0, tile, diff, window, q.device)
+        if ring_tile_needs_mask(q0, tile, c0, tile, s_q, s_k, diff, window, ragged_rows):
+            dead = mask | (j >= s_k)
+            p = torch.where(dead | (i >= s_q) if ragged_rows else dead, 0.0, p)
+        dp = torch.matmul(gf[:, :, q0:q0 + tile], vf[:, :, c0:c0 + tile].transpose(-1, -2))
+        p_v = p
+        if seeds is not None:
+            keep = dropout_keep(i + row0, j + col0, seeds, rate)
+            dp = torch.where(keep, dp * inv, 0.0)
+            p_v = torch.where(keep, p * inv, 0.0)
+        ds = (p * (dp - dsum_p[:, :, q0:q0 + tile, None])).to(k.dtype).float()
+        return ds, p_v.to(g.dtype).float()
+
+    dq = torch.zeros_like(qf)
+    for q0 in range(0, s_q, tile):
+        first, last = ring_key_tile_range(q0, tile, s_q, s_k, diff, window)
+        for t in range(first, last + 1):
+            c0 = t * tile
+            ds, _ = tile_grads(q0, c0, False)
+            dq[:, :, q0:q0 + tile] += torch.matmul(ds, kf[:, :, c0:c0 + tile])
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for c0 in range(0, s_k, tile):
+        first, last = ring_query_tile_range(c0, tile, s_q, s_k, diff, window)
+        for t in range(first, last + 1):
+            q0 = t * tile
+            ds, p_v = tile_grads(q0, c0, True)
+            dk[:, :, c0:c0 + tile] += torch.matmul(ds.transpose(-1, -2), qf[:, :, q0:q0 + tile])
+            dv[:, :, c0:c0 + tile] += torch.matmul(p_v.transpose(-1, -2), gf[:, :, q0:q0 + tile])
+    return ((dq[:, :, :s_q] * scale).to(q.dtype), dk[:, :, :s_k] * scale, dv[:, :, :s_k])

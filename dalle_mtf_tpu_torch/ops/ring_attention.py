@@ -193,12 +193,17 @@ def ring_block_grads(q, g, lse, dsum, k, v, dk_acc, dv_acc, diff, row0, col0,
     _check_hop("ring_block_grads", q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
         raise ValueError("ring_block_grads: g must be contiguous and match q")
+    check_kernel_inputs("ring_block_grads", (q, g), q.shape[3])
     _check_rows("ring_block_grads", q, lse=lse, dsum=dsum)
     for what, t in (("dk_acc", dk_acc), ("dv_acc", dv_acc)):
         if t.shape != k.shape or t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != k.device:
             raise ValueError(f"ring_block_grads: {what} must be contiguous fp32 "
                              f"{tuple(k.shape)} on {k.device}")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 8:
+            # the bf16 kernel adds into them by pairs, 8-byte accesses
+            raise ValueError(f"ring_block_grads: {what} must be 8-byte aligned (data_ptr "
+                             f"{t.data_ptr():#x})")
     from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
 
     b, h, s_q, d = q.shape

@@ -34,6 +34,15 @@ class Process(NamedTuple):
     backend: str | None  # None for a single process
 
 
+def model_device(device: torch.device | str) -> torch.device:
+    """``device`` as a torch.device; a CUDA device where there is none raises,
+    so a model built on the default device never carries on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device for {device}: pass device='cpu' to run on the CPU")
+    return device
+
+
 def rank_device(gpu_ids, device: str, local_rank: int = 0,
                 local_world: int = 1) -> torch.device:
     """The device of local rank ``local_rank`` of ``local_world``: with

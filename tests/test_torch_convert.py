@@ -33,14 +33,14 @@ def _paths(tree, prefix=""):
 def test_jax_trees_load_with_their_names_and_shapes():
     jparams = jax.device_get(jdalle.DALLE(jdalle.DalleConfig(**KW)).init(
         jax.random.PRNGKey(0)))
-    tm = tdalle.DALLE(tdalle.DalleConfig(**KW))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**KW), "cpu")
     assert _paths(jparams) == _paths(tm.init(torch.Generator().manual_seed(0)))
     tparams = convert.dalle_params_from_numpy(jparams, tm)
     assert "layers/wq" in _paths(tparams) and _paths(tparams)["layers/wq"] == (2, 64, 2, 32)
 
     jv = jax.device_get(jvae.DiscreteVAE(jvae.VAEConfig(**VKW)).init(
         jax.random.PRNGKey(1)))
-    vm = tvae.DiscreteVAE(tvae.VAEConfig(**VKW))
+    vm = tvae.DiscreteVAE(tvae.VAEConfig(**VKW), "cpu")
     tv = convert.vae_params_from_numpy(jv, vm)
     assert _paths(tv)["decoder/block_0/up/w"] == (4, 4, 8, 8)
     # the serving tree is exactly the JAX tree without its encoder
@@ -49,7 +49,7 @@ def test_jax_trees_load_with_their_names_and_shapes():
 
 
 def test_npz_roundtrip_keeps_values_and_widens_bf16(tmp_path):
-    tm = tdalle.DALLE(tdalle.DalleConfig(**KW))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**KW), "cpu")
     params = tm.init(torch.Generator().manual_seed(0))
     params["layers"]["wq"] = params["layers"]["wq"].to(torch.bfloat16)
     path = tmp_path / "w.npz"
@@ -64,7 +64,7 @@ def test_npz_roundtrip_keeps_values_and_widens_bf16(tmp_path):
 
 
 def test_wrong_tree_is_refused():
-    tm = tdalle.DALLE(tdalle.DalleConfig(**KW))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**KW), "cpu")
     tree = convert.params_to_numpy(tm.init(torch.Generator().manual_seed(0)))
     tree["layers"]["wo"] = tree["layers"]["wo"][:, :1]
     with pytest.raises(ValueError, match="layers/wo"):

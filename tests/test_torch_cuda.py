@@ -345,26 +345,34 @@ def test_decode_matmul_unaligned_weights_and_bad_inputs(cuda):
 
 
 # ring attention's per-hop kernels: (dtype, B, H, S_local, diff / S_local,
-# window, dropout) — the diagonal hop, a past hop, a far past hop, the window
-# band crossing the shard edge, a ragged shard with a window whose far rows
-# see no key, hash dropout, fp32
+# window, dropout, D) — the diagonal hop, a past hop, a far past hop, the
+# window band crossing the shard edge, a ragged shard with a window whose far
+# rows see no key, hash dropout, fp32; and the edges of the bf16 tile walk: a
+# ragged bf16 shard under a window, S = 65 (one key past a tile) on the
+# diagonal and a past hop, D = 64 with dropout and a window that is not a
+# multiple of the tile
 RING_CASES = [
-    (torch.bfloat16, 2, 4, 1088, 0, None, 0.0),
-    (torch.bfloat16, 2, 4, 1088, 1, None, 0.0),
-    (torch.bfloat16, 1, 4, 1088, 3, None, 0.0),
-    (torch.bfloat16, 2, 4, 1088, 1, 256, 0.0),
-    (torch.float32, 1, 2, 200, 1, 120, 0.0),
-    (torch.bfloat16, 2, 4, 1088, 1, None, 0.1),
-    (torch.float32, 1, 4, 1088, 0, 256, 0.1),
+    (torch.bfloat16, 2, 4, 1088, 0, None, 0.0, 128),
+    (torch.bfloat16, 2, 4, 1088, 1, None, 0.0, 128),
+    (torch.bfloat16, 1, 4, 1088, 3, None, 0.0, 128),
+    (torch.bfloat16, 2, 4, 1088, 1, 256, 0.0, 128),
+    (torch.float32, 1, 2, 200, 1, 120, 0.0, 128),
+    (torch.bfloat16, 2, 4, 1088, 1, None, 0.1, 128),
+    (torch.float32, 1, 4, 1088, 0, 256, 0.1, 128),
+    (torch.bfloat16, 1, 2, 200, 1, 120, 0.0, 128),
+    (torch.bfloat16, 2, 3, 65, 0, None, 0.0, 128),
+    (torch.bfloat16, 2, 3, 65, 1, None, 0.1, 128),
+    (torch.bfloat16, 2, 4, 333, 1, 100, 0.1, 64),
+    (torch.bfloat16, 2, 4, 200, 0, 37, 0.0, 64),
 ]
 
 
-@pytest.mark.parametrize("dtype,b,h,s,hops,window,rate", RING_CASES)
-def test_ring_kernels_match_plain(cuda, dtype, b, h, s, hops, window, rate):
+@pytest.mark.parametrize("dtype,b,h,s,hops,window,rate,d", RING_CASES)
+def test_ring_kernels_match_plain(cuda, dtype, b, h, s, hops, window, rate, d):
     from dalle_mtf_tpu_torch.ops import ring_attention as tring
 
     gen = torch.Generator().manual_seed(s + 10 * hops + h)
-    q, k, v, g = _uniform((b, h, s, 128), dtype, gen, 4)
+    q, k, v, g = _uniform((b, h, s, d), dtype, gen, 4)
     diff, row0 = hops * s, 3 * s
     col0, seed = row0 - diff, 2**31 - 7
     atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
@@ -377,30 +385,86 @@ def test_ring_kernels_match_plain(cuda, dtype, b, h, s, hops, window, rate):
     live = ~mask.all(-1)
     if window is not None and hops:
         assert not live.all()  # the case does plant rows without a live key
-    assert (m[:, ~live] <= tring.NEG_INF / 2).all()
+    assert (m[:, ~live] == tring.NEG_INF).all()  # NEG_INF itself, not NEG_INF ln 2
     for name, got, w in (("m", m, want[1]), ("l", l, want[2])):
         err = ((got - w)[:, live].abs() / w[:, live].abs().clamp_min(1.0)).max().item()
         assert err <= 1e-5, (name, err)
     keep = live.reshape(1, 1, s, 1)
     ok, err = _tile_close(num * keep, want[0] * keep, rtol)
     assert ok, ("num", err)
+    # no atomics, one order: a second run gives the same bits
+    again = tring.ring_partial(q, k, v, diff, row0, col0, window, rate, seed)
+    assert all(torch.equal(a, c) for a, c in zip((num, m, l), again))
     lse = (m + torch.log(l.clamp_min(1e-30))).contiguous()
-    dsum = (g.float() * torch.rand((b, h, s, 128), generator=gen).cuda()).sum(-1)
+    dsum = (g.float() * torch.rand((b, h, s, d), generator=gen).cuda()).sum(-1)
     dsum = dsum.reshape(b * h, s).contiguous()
-    dk, dv = (torch.zeros((b, h, s, 128), device="cuda") for _ in range(2))
+    dk, dv = (torch.zeros((b, h, s, d), device="cuda") for _ in range(2))
     args = (diff, row0, col0, window, rate, seed)
     dq = tring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args)
     wq, wk, wv = tring.ring_block_grads_reference(q, g, lse, dsum, k, v, *args)
     torch.cuda.synchronize()
-    assert tring.KERNEL_LAUNCHES["ring_partial"] == before["ring_partial"] + 1
+    assert tring.KERNEL_LAUNCHES["ring_partial"] == before["ring_partial"] + 2
     assert tring.KERNEL_LAUNCHES["ring_block_grads"] == before["ring_block_grads"] + 1
+    assert dq.dtype == dtype and dk.dtype == dv.dtype == torch.float32
     for name, got, w in (("dq", dq * keep, wq * keep), ("dk", dk, wk), ("dv", dv, wv)):
         ok, err = _close(got, w, atol)
         assert ok, (name, err)
         ok, err = _tile_close(got, w, rtol)
         assert ok, (name, "tile", err)
+    # the same bits from fresh accumulators
+    dk2, dv2 = (torch.zeros_like(dk) for _ in range(2))
+    dq2 = tring.ring_block_grads(q, g, lse, dsum, k, v, dk2, dv2, *args)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
     # the accumulators are added into in place: a second hop of the same
     # inputs doubles them exactly (no atomics, one order)
     first = dk.clone(), dv.clone()
     tring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args)
     assert torch.equal(dk, 2 * first[0]) and torch.equal(dv, 2 * first[1])
+
+
+@pytest.mark.parametrize("head_dim", tattn.KERNEL_HEAD_DIMS)
+def test_ring_kernels_take_the_q_tile_the_python_walk_names(cuda, head_dim):
+    """The built ring kernels are 64-row owner tiles only, the tile
+    ``ops/attention_tiles.py`` walks (``RING_FORWARD_TILES``): the library
+    reports the forward for that tile and refuses any other."""
+    import ctypes
+
+    from dalle_mtf_tpu_torch.ops._build import library
+
+    res = tattn.kernel_resources(head_dim, "ring")
+    assert sorted(res) == sorted([*(f"fwd_{r}" for r in tattn.RING_FORWARD_TILES),
+                                  "bwd_dq", "bwd_dkv"])
+    assert all(r["registers"] > 0 and r["ctas_per_sm"] >= 1 for r in res.values())
+    assert tattn.RING_FORWARD_TILES == (ttiles.BACKWARD_TILE_ROWS,)
+    out = (ctypes.c_int * 4)()
+    for kind in (0, 1, 2):
+        assert library().ring_attention_info(kind, head_dim, 128, out) != 0
+
+
+def test_ring_kernels_refuse_misaligned_bf16_views(cuda):
+    """The bf16 tiles are staged by 16-byte copies and the fp32 accumulators
+    updated by 8-byte pairs: a view off those boundaries raises before any
+    launch; it is not copied silently."""
+    from dalle_mtf_tpu_torch.ops import ring_attention as tring
+
+    shape = (1, 2, 64, 128)
+    n = 2 * 64 * 128
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16, device="cuda")
+    shifted = buf[1:1 + n].view(shape)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    ok = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+    rows = torch.zeros((2, 64), device="cuda")
+    acc = torch.zeros(shape, device="cuda")
+    odd_acc = torch.zeros(n + 1, device="cuda")[1:].view(shape)
+    assert odd_acc.data_ptr() % 8 and odd_acc.is_contiguous()
+    hop = (64, 128, 64, None, 0.0, 0)
+    before = dict(tring.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tring.ring_partial(shifted, ok, ok, *hop)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tring.ring_partial(ok, ok, shifted, *hop)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tring.ring_block_grads(ok, shifted, rows, rows, ok, ok, acc, acc.clone(), *hop)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        tring.ring_block_grads(ok, ok, rows, rows, ok, ok, acc, odd_acc, *hop)
+    assert tring.KERNEL_LAUNCHES == before

@@ -9,6 +9,7 @@ bf16 at different points inside fused ops, ~2^-8 relative per rounding.
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ import torch
 
 from dalle_mtf_tpu.models import dalle as jdalle
 from dalle_mtf_tpu_torch.models import dalle as tdalle
+from dalle_mtf_tpu_torch.models import vae as tvae
 from dalle_mtf_tpu_torch.utils.convert import dalle_params_from_numpy
 
 KW = dict(
@@ -28,7 +30,7 @@ KW = dict(
 
 def _models(**over):
     jm = jdalle.DALLE(jdalle.DalleConfig(**KW, **over))
-    tm = tdalle.DALLE(tdalle.DalleConfig(**KW, **over))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**KW, **over), "cpu")
     return jm, tm
 
 
@@ -139,3 +141,19 @@ def test_config_from_dalle_coco_matches_jax():
     for prop in ("total_tokens", "total_seq_len", "head_dim"):
         assert getattr(got, prop) == getattr(want, prop), prop
     assert got.policy.compute_dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("model,config", [
+    (tdalle.DALLE, tdalle.DalleConfig(**KW)),
+    (tvae.DiscreteVAE, tvae.VAEConfig(num_tokens=32, image_size=16, convblocks=((1, 8), (2, 16)))),
+], ids=["DALLE", "DiscreteVAE"])
+def test_models_default_to_the_card(model, config):
+    """A model built without a device goes on the card; where there is none it
+    raises rather than carry on on the CPU. ``"cpu"`` is asked for by name."""
+    assert inspect.signature(model.__init__).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert model(config).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            model(config)
+    assert model(config, "cpu").device == torch.device("cpu")

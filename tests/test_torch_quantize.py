@@ -226,7 +226,7 @@ def _quantized(jparams, mode):
 @pytest.mark.parametrize("bf16", [False, True])
 def test_quantized_prefill_and_decode_match_jax(jax_params, mode, bf16):
     jm = jdalle.DALLE(jdalle.DalleConfig(**KW, bf_16=bf16))
-    tm = tdalle.DALLE(tdalle.DalleConfig(**KW, bf_16=bf16))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**KW, bf_16=bf16), "cpu")
     qp = _quantized(jax_params, mode)
     atol = 3e-2 if bf16 else 1e-4
     for name, want, got in _run_both(jm, tm, qp, convert.dalle_params_from_numpy(qp, tm)):
@@ -240,7 +240,7 @@ def test_decode_kernels_plain_path_matches_jax_dequant_form(jax_params, mode):
     every matmul of at most 32 rows (here all of them); JAX on the CPU never
     takes its kernels, so it runs the dequant form."""
     jm = jdalle.DALLE(jdalle.DalleConfig(**KW))
-    tm = tdalle.DALLE(tdalle.DalleConfig(**KW, decode_kernels=True))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**KW, decode_kernels=True), "cpu")
     qp = _quantized(jax_params, mode)
     before = dict(tdmm.KERNEL_LAUNCHES)
     for name, want, got in _run_both(jm, tm, qp, convert.dalle_params_from_numpy(qp, tm)):
@@ -259,7 +259,7 @@ def test_decode_kernels_match_jax_kernels_in_interpret_mode(monkeypatch, mode):
     monkeypatch.setattr(jdmm, "int8_matmul", functools.partial(jdmm.int8_matmul, interpret=True))
     monkeypatch.setattr(jdmm, "int4_matmul", functools.partial(jdmm.int4_matmul, interpret=True))
     jm = jdalle.DALLE(jdalle.DalleConfig(**WIDE, decode_kernels=True))
-    tm = tdalle.DALLE(tdalle.DalleConfig(**WIDE, decode_kernels=True))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**WIDE, decode_kernels=True), "cpu")
     qp = _quantized(jax.device_get(jm.init(jax.random.PRNGKey(3))), mode)
     for name, want, got in _run_both(jm, tm, qp, convert.dalle_params_from_numpy(qp, tm),
                                      steps=2):
@@ -270,7 +270,7 @@ def test_decode_kernels_match_jax_kernels_in_interpret_mode(monkeypatch, mode):
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 def test_quantized_greedy_tokens_match_jax(jax_params, mode):
     jm = jdalle.DALLE(jdalle.DalleConfig(**KW))
-    tm = tdalle.DALLE(tdalle.DalleConfig(**KW))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**KW), "cpu")
     qp = _quantized(jax_params, mode)
     text = np.random.default_rng(2).integers(0, 40, (2, 8))
     want = jsample.generate_image_tokens(jm, qp, jnp.asarray(text, jnp.int32),
@@ -286,7 +286,7 @@ def test_quantized_forward_matches_jax(jax_params, mode):
     """``forward`` reads w_out through ``_w_out`` and the blocks take the
     [B, H, S, D] arm under quantized weights, as in JAX."""
     jm = jdalle.DALLE(jdalle.DalleConfig(**KW))
-    tm = tdalle.DALLE(tdalle.DalleConfig(**KW))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**KW), "cpu")
     qp = _quantized(jax_params, mode)
     tokens = np.random.default_rng(3).integers(0, 72, (2, 24))
     want = jm.forward(qp, jnp.asarray(tokens, jnp.int32))
@@ -296,7 +296,7 @@ def test_quantized_forward_matches_jax(jax_params, mode):
 
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 def test_quantized_trees_convert_from_jax_and_back(tmp_path, jax_params, mode):
-    tm = tdalle.DALLE(tdalle.DalleConfig(**KW))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**KW), "cpu")
     qp = _quantized(jax_params, mode)
     got = convert.dalle_params_from_numpy(qp, tm)
     assert convert.quantize_mode(got) == mode

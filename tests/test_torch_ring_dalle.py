@@ -69,7 +69,7 @@ def test_ring_step_matches_single_process_and_jax(tmp_path, mesh_shape, dropout)
     jparams = jax.device_get(jm.init(jax.random.PRNGKey(0)))
     tokens = np.random.default_rng(1).integers(0, jm.cfg.total_tokens,
                                                (8, jm.cfg.total_seq_len))
-    tm = tdalle.DALLE(tdalle.DalleConfig(**kw))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**kw), "cpu")
     params = convert.dalle_params_from_numpy(jparams, tm)
     torch.save({"config": kw, "mesh_shape": mesh_shape, "layout": LAYOUT, "params": params,
                 "tokens": torch.from_numpy(tokens), "seed": 5}, tmp_path / "in.pt")

@@ -1,0 +1,292 @@
+"""The tile walk of ring attention's bf16 per-hop kernels, on the CPU.
+
+``dalle_mtf_tpu_torch/ops/attention_tiles.py`` writes the walk of
+``csrc/ring_attention.cu``'s tensor-core kernels once in Python
+(``ring_key_tile_range``, ``ring_query_tile_range``, ``ring_tile_needs_mask``)
+and walks it in plain torch (``ring_partial_tiled_reference``,
+``ring_block_grads_tiled_reference``: an online softmax in the log2 domain
+from the finite NEG_INF, the mask only on flagged tiles, p_v and ds rounded
+where the kernels round). The CUDA source points at those functions as the
+definition of its walk, so here they are held
+
+(a) against the dense mask of ``ops/ring_attention.py::_masks``, exhaustively:
+    every live (row, key) pair lies in a tile the walk visits, and no tile the
+    walk leaves unmasked holds a masked pair (or, where q rows are streamed, a
+    row beyond the shard);
+(b) against the one-shot plain versions ``ring_partial_reference`` and
+    ``ring_block_grads_reference`` in fp32, and against the JAX package's
+    ``_ring_partial`` and ``_ring_block_grads`` (the Pallas TPU kernels in
+    interpret mode), with and without hash dropout;
+(c) on the rows that see no key in the hop: m = NEG_INF exactly, l = the
+    count of the keys the walk visited below Sk, num their sum of v;
+(d) in bf16, where they round p_v and ds as the one-shot versions do.
+
+The kernel carries its own C++ copy of this arithmetic, which no CPU test can
+see: tests/test_torch_cuda.py holds the built kernels to the one-shot plain
+versions at the same edge cases, and the built forward's q tile to
+``RING_FORWARD_TILES``.
+
+Tolerance: fp32, max |tiled - one-shot| <= 1e-5 * max(1, max |one-shot|) per
+tensor (the same math summed tile by tile, exp2 in place of exp); the triple
+on rows with a live key (the others are the fold's to discard, and the two
+versions visit different keys there).
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dalle_mtf_tpu_torch.ops import attention as tattn
+from dalle_mtf_tpu_torch.ops import attention_tiles as tiles
+from dalle_mtf_tpu_torch.ops import ring_attention as tring
+
+# the module (the package's ``ring_attention`` name is the function)
+jring = importlib.import_module("dalle_mtf_tpu.ops.ring_attention")
+
+SHARDS = [1, 63, 65, 200]
+HOPS = [0, 1, 3]  # diff in shard lengths: the diagonal hop, a past hop, a far one
+WINDOWS = [None, 1, 37, 256, "edge"]
+SEED = 2**31 - 7  # near the top of the range: the uint32 add wraps
+TILE = tiles.STREAM_TILE
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The walk is many small tile products: a thread pool only adds its
+    hand-offs, and beside other test workers it multiplies the run time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _window(window, s, diff):
+    """"edge": a band that crosses the shard edge, so that about the first
+    half of the rows see keys of the visiting shard and the rest none (on the
+    diagonal hop, a window of half the shard)."""
+    if window != "edge":
+        return window
+    return diff - s + s // 2 + 2 if diff else s // 2 + 1
+
+
+def _padded_masked(s, diff, window, padded):
+    """[padded, padded] bool: the hop's dense mask, and True for every row or
+    key at or beyond the shard's end."""
+    masked = np.ones((padded, padded), dtype=bool)
+    masked[:s, :s] = tring._masks(s, s, diff, window, "cpu")[2].numpy()
+    return masked
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("hops", HOPS)
+@pytest.mark.parametrize("s", SHARDS)
+def test_ring_walk_covers_live_pairs_and_masks_every_edge_tile(s, hops, window):
+    diff = hops * s
+    window = _window(window, s, diff)
+    padded = -(-s // TILE) * TILE
+    masked = _padded_masked(s, diff, window, padded)
+
+    # the forward and the dQ pass: 64-row q tiles over 64-key tiles
+    (rows,) = tattn.RING_FORWARD_TILES
+    assert rows == tiles.BACKWARD_TILE_ROWS
+    covered = np.zeros_like(masked)
+    for q0 in range(0, s, rows):
+        first, last = tiles.ring_key_tile_range(q0, rows, s, s, diff, window)
+        assert last == first - 1 or 0 <= first <= last < -(-s // TILE)  # or none
+        valid_rows = slice(q0, min(q0 + rows, s))  # rows beyond Sq are never written
+        for t in range(first, last + 1):
+            c0 = t * TILE
+            covered[q0:q0 + rows, c0:c0 + TILE] = True
+            if not tiles.ring_tile_needs_mask(q0, rows, c0, TILE, s, s, diff, window):
+                assert not masked[valid_rows, c0:c0 + TILE].any(), (q0, c0)
+    assert not (~masked & ~covered).any()
+
+    # the dK/dV pass: 64-key tiles over 64-row q tiles; a streamed row beyond
+    # Sq must be masked, it would add into a live key's sums
+    covered = np.zeros_like(masked)
+    for c0 in range(0, s, TILE):
+        first, last = tiles.ring_query_tile_range(c0, TILE, s, s, diff, window)
+        assert last == first - 1 or 0 <= first <= last < -(-s // TILE)
+        valid_keys = slice(c0, min(c0 + TILE, s))  # keys beyond Sk are never written
+        for t in range(first, last + 1):
+            q0 = t * TILE
+            covered[q0:q0 + TILE, c0:c0 + TILE] = True
+            if not tiles.ring_tile_needs_mask(q0, TILE, c0, TILE, s, s, diff, window,
+                                              ragged_rows=True):
+                assert not masked[q0:q0 + TILE, valid_keys].any(), (q0, c0)
+    assert not (~masked & ~covered).any()
+
+
+def test_past_hop_of_the_ring_slice_masks_no_tile():
+    """At the ring slice's past hop (S_local = 1088 = 17 x 64, diff = S, no
+    window) the kernels skip the mask on every tile, and visit every key."""
+    s, rows = 1088, tiles.STREAM_TILE
+    for q0 in range(0, s, rows):
+        assert tiles.ring_key_tile_range(q0, rows, s, s, s, None) == (0, s // TILE - 1)
+        for t in range(s // TILE):
+            assert not tiles.ring_tile_needs_mask(q0, rows, t * TILE, TILE, s, s, s, None)
+    for c0 in range(0, s, TILE):
+        assert tiles.ring_query_tile_range(c0, TILE, s, s, s, None) == (0, s // TILE - 1)
+        for t in range(s // TILE):
+            assert not tiles.ring_tile_needs_mask(t * TILE, TILE, c0, TILE, s, s, s, None,
+                                                  ragged_rows=True)
+
+
+def _inputs(s, d, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.random((1, 2, s, d)) * 2 - 1).astype(np.float32)).to(dtype)
+            for _ in range(4)]
+
+
+def _close(got, want, atol=1e-5):
+    if want.numel() == 0:  # a far hop under a window: no row sees a key
+        return got.numel() == 0, 0.0
+    err = (got.float() - want.float()).abs().max().item()
+    return err <= atol * max(1.0, want.float().abs().max().item()), err
+
+
+def _live(s, diff, window):
+    return ~tring._masks(s, s, diff, window, "cpu")[2].all(-1)
+
+
+def _hop_grad_inputs(m, l, s, seed):
+    """A backward input of the hop: lse from its (m, l), and an arbitrary
+    dsum."""
+    lse = m + torch.log(l.clamp_min(1e-30))
+    dsum = torch.from_numpy(np.random.default_rng(seed).standard_normal((2, s))
+                            .astype(np.float32))
+    return lse, dsum
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("window", [None, 37, "edge"])
+@pytest.mark.parametrize("hops", HOPS)
+@pytest.mark.parametrize("s", SHARDS)
+@pytest.mark.parametrize("d", tattn.KERNEL_HEAD_DIMS)
+def test_ring_tiled_versions_equal_the_one_shot_versions(d, s, hops, window, rate):
+    diff = hops * s
+    window = _window(window, s, diff)
+    row0 = 3 * s
+    args = (diff, row0, row0 - diff, window, rate, SEED)
+    q, k, v, g = _inputs(s, d, seed=s + d + hops)
+    want = tring.ring_partial_reference(q, k, v, *args)
+    got = tiles.ring_partial_tiled_reference(q, k, v, *args)
+    live = _live(s, diff, window)
+    for name, t, w in zip(("num", "m", "l"), got, want):
+        assert t.shape == w.shape and t.dtype == torch.float32
+        ok, err = _close(t[..., live, :] if name == "num" else t[:, live],
+                         w[..., live, :] if name == "num" else w[:, live])
+        assert ok, (name, err)
+    # both backwards from the one-shot forward's lse: only the walk differs
+    lse, dsum = _hop_grad_inputs(want[1], want[2], s, seed=s)
+    want_grads = tring.ring_block_grads_reference(q, g, lse, dsum, k, v, *args)
+    got_grads = tiles.ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, *args)
+    for name, t, w in zip(("dq", "dk", "dv"), got_grads, want_grads):
+        assert t.shape == w.shape and t.dtype == w.dtype
+        ok, err = _close(t, w)
+        assert ok, (name, err)
+
+
+# (name, diff, window, rate) at S = 32, as tests/test_torch_ring_attention.py:
+# the diagonal hop, a past hop, the window band across the shard edge, a far
+# hop whose rows see no key, and hash dropout on the diagonal and in a band
+JAX_HOPS = [
+    ("diagonal", 0, None, 0.0),
+    ("past", 32, None, 0.0),
+    ("window_band", 64, 40, 0.0),
+    ("window_far", 96, 40, 0.0),
+    ("dropout_diagonal", 0, None, 0.25),
+    ("dropout_past_window", 64, 56, 0.25),
+]
+
+
+@pytest.mark.parametrize("name,diff,window,rate", JAX_HOPS, ids=[h[0] for h in JAX_HOPS])
+def test_ring_tiled_versions_match_jax_kernels(name, diff, window, rate):
+    """The tiled forward and backward against the JAX package's
+    ``_ring_partial`` and ``_ring_block_grads`` (``_ring_fwd_kernel`` and
+    ``_ring_bwd_kernel`` in interpret mode), fp32, one seed on both sides.
+    Tolerance: 1e-5 of each tensor's max; the triple on live rows."""
+    b, h, s, d = 1, 2, 32, 128
+    rng = np.random.default_rng(diff + int(rate * 100))
+    q, k, v, g = (rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(4))
+    row0 = 96
+    col0, seed = row0 - diff, 1234567
+    info = jnp.asarray([[diff, row0, col0, seed]], jnp.int32)
+    jnum, jm, jl = jring._ring_partial(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), info,
+                                       True, window, rate, h)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    args = (diff, row0, col0, window, rate, seed)
+    num, m, l = tiles.ring_partial_tiled_reference(tq, tk, tv, *args)
+    live = _live(s, diff, window).numpy()
+    assert live.any() == (name != "window_far")
+    jm, jl = np.asarray(jm).reshape(b * h, s), np.asarray(jl).reshape(b * h, s)
+    for what, got, want in (("m", m.numpy()[:, live], jm[:, live]),
+                            ("l", l.numpy()[:, live], jl[:, live]),
+                            ("num", num.numpy()[:, :, live], np.asarray(jnum)[:, :, live])):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * max(np.abs(want).max(initial=0), 1e-30),
+                                   err_msg=what)
+
+    lse, dsum = _hop_grad_inputs(m, l, s, seed=diff)
+    jgrads = jring._ring_block_grads(
+        jnp.asarray(q), jnp.asarray(g), jnp.asarray(lse.numpy().reshape(b, h, s, 1)),
+        jnp.asarray(dsum.numpy().reshape(b, h, s, 1)), jnp.asarray(k), jnp.asarray(v),
+        info, True, window, rate, h)
+    grads = tiles.ring_block_grads_tiled_reference(tq, tg, lse, dsum, tk, tv, *args)
+    for what, got, want in zip(("dq", "dk", "dv"), grads, jgrads):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * max(np.abs(want).max(), 1.0), err_msg=what)
+
+
+def test_rows_without_a_live_key_keep_the_dead_row_convention():
+    """A past hop under a window that crosses the shard edge: rows 0-98 see
+    keys, the rest none. A dead row is written m = NEG_INF itself (not
+    NEG_INF ln 2), l = the count of the keys the walk visited below Sk, and
+    num = their sum of v; a q tile that visits no key tile writes l = 0 and
+    num = 0."""
+    s, window, rows = 200, 100, tiles.STREAM_TILE
+    diff = s
+    q, k, v, _ = _inputs(s, 128, seed=17)
+    num, m, l = tiles.ring_partial_tiled_reference(q, k, v, diff, 2 * s, s, window)
+    live = _live(s, diff, window)
+    assert live[:99].all() and not live[99:].any()
+    dead = (~live).nonzero()[:, 0].tolist()
+    assert (m[:, ~live] == tattn.NEG_INF).all() and (m[:, live] > tattn.NEG_INF / 2).all()
+    empty_tiles = 0
+    for r in dead:
+        q0 = r // rows * rows
+        first, last = tiles.ring_key_tile_range(q0, rows, s, s, diff, window)
+        keys = [c for c in range(first * TILE, (last + 1) * TILE) if c < s]
+        empty_tiles += not keys
+        assert (l[:, r] == len(keys)).all(), (r, l[:, r], len(keys))
+        want = v[0, :, keys].sum(1) if keys else torch.zeros_like(num[0, :, r])
+        assert _close(num[0, :, r], want)[0], r
+    assert empty_tiles > 0  # the walk's last q tiles visit no key tile at all
+
+
+def test_ring_tiled_versions_round_where_the_kernels_round():
+    """In bf16 the tiled versions round p_v and ds to bf16 before their
+    products, as the one-shot versions do: the two agree to a bf16 rounding
+    of the result (atol 1e-2 on unit-scale inputs), not to fp32's 1e-5, and
+    dq comes back in bf16, dk and dv in fp32."""
+    s, diff, window, rate = 200, 200, 120, 0.1
+    args = (diff, 2 * s, s, window, rate, SEED)
+    q, k, v, g = _inputs(s, 64, seed=3, dtype=torch.bfloat16)
+    want = tring.ring_partial_reference(q, k, v, *args)
+    got = tiles.ring_partial_tiled_reference(q, k, v, *args)
+    live = _live(s, diff, window)
+    assert _close(got[0][..., live, :], want[0][..., live, :], 1e-2)[0]
+    for t, w in zip(got[1:], want[1:]):
+        assert _close(t[:, live], w[:, live])[0]  # m and l: fp32 on both sides
+    # rounding p_v matters: without it the tiled num moves away from the one-shot one
+    unrounded = tiles.ring_partial_tiled_reference(q.float(), k.float(), v.float(), *args)
+    assert not torch.equal(unrounded[0][..., live, :], got[0][..., live, :])
+    lse, dsum = _hop_grad_inputs(want[1], want[2], s, seed=5)
+    want_grads = tring.ring_block_grads_reference(q, g, lse, dsum, k, v, *args)
+    got_grads = tiles.ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, *args)
+    for t, w, dtype in zip(got_grads, want_grads, (torch.bfloat16, torch.float32, torch.float32)):
+        assert t.dtype == w.dtype == dtype and _close(t, w, 1e-2)[0]

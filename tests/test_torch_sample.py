@@ -24,7 +24,7 @@ KW = dict(
 
 def test_greedy_tokens_match_jax_token_for_token():
     jm = jdalle.DALLE(jdalle.DalleConfig(**KW))
-    tm = tdalle.DALLE(tdalle.DalleConfig(**KW))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**KW), "cpu")
     jparams = jax.device_get(jm.init(jax.random.PRNGKey(7)))
     tparams = dalle_params_from_numpy(jparams, tm)
     text = np.random.default_rng(2).integers(0, 40, (2, 8))
@@ -77,11 +77,11 @@ def test_sampled_tokens_stay_in_candidate_set(top_k, top_p):
 
 
 def test_generate_images_shape_and_band():
-    tm = tdalle.DALLE(tdalle.DalleConfig(**KW))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**KW), "cpu")
     tparams = tm.init(torch.Generator().manual_seed(0))
     from dalle_mtf_tpu_torch.models.vae import DiscreteVAE, VAEConfig
 
-    vae = DiscreteVAE(VAEConfig(num_tokens=32, image_size=16, convblocks=((1, 8), (2, 16))))
+    vae = DiscreteVAE(VAEConfig(num_tokens=32, image_size=16, convblocks=((1, 8), (2, 16))), "cpu")
     text = torch.randint(0, 40, (3, 8), generator=torch.Generator().manual_seed(0))
     toks = tsample.generate_image_tokens(
         tm, tparams, text, torch.Generator().manual_seed(1),

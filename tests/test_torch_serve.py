@@ -29,7 +29,7 @@ VCFG = VAEConfig(num_tokens=16, image_size=8, convblocks=((1, 8), (1, 8)))
 
 
 def _sampler(**kw):
-    dalle, vae = DALLE(CFG), DiscreteVAE(VCFG)
+    dalle, vae = DALLE(CFG, "cpu"), DiscreteVAE(VCFG, "cpu")
     kw = {"batch_size": 2, "top_k": 4, "linger_ms": 5.0, **kw}
     return BatchingSampler(
         dalle, dalle.init(torch.Generator().manual_seed(0)),

@@ -52,7 +52,7 @@ VCFG = VAEConfig(num_tokens=16, image_size=8, convblocks=((1, 8),))
 
 @pytest.fixture(scope="module")
 def models():
-    dalle, vae = DALLE(CFG), DiscreteVAE(VCFG)
+    dalle, vae = DALLE(CFG, "cpu"), DiscreteVAE(VCFG, "cpu")
     return (dalle, dalle.init(torch.Generator().manual_seed(0)),
             vae, vae.init(torch.Generator().manual_seed(1)))
 
@@ -80,7 +80,7 @@ def test_decode_step_rows_matches_jax_at_staggered_positions():
     kw = dict(n_embd=64, text_vocab_size=40, image_vocab_size=32, text_seq_len=8,
               image_seq_len=16, n_layers=2, n_heads=2)
     jm = jdalle.DALLE(jdalle.DalleConfig(**kw))
-    tm = DALLE(DalleConfig(**kw))
+    tm = DALLE(DalleConfig(**kw), "cpu")
     for quantized in (False, True):
         jparams = jax.device_get(jm.init(jax.random.PRNGKey(5)))
         if quantized:
@@ -198,7 +198,7 @@ class TestGreedyEquivalence:
         cfg = DalleConfig(n_embd=256, text_vocab_size=48, image_vocab_size=16,
                           text_seq_len=4, image_seq_len=16, n_layers=1, n_heads=2,
                           decode_kernels=True)
-        dalle, vae = DALLE(cfg), DiscreteVAE(VCFG)
+        dalle, vae = DALLE(cfg, "cpu"), DiscreteVAE(VCFG, "cpu")
         dparams = quantize_layers_int8(dalle.init(torch.Generator().manual_seed(2)))
         vparams = vae.init(torch.Generator().manual_seed(3))
         engines = [

@@ -62,7 +62,7 @@ def _loss_and_grads(kw, window=None, z_loss=0.0, batch=4, seed=0, **over):
     if window:
         over.update(attention_type="local", local_attention_radius=window)
     jm = jdalle.DALLE(jdalle.DalleConfig(**kw, **over))
-    tm = tdalle.DALLE(tdalle.DalleConfig(**kw, **over))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**kw, **over), "cpu")
     jparams = jax.device_get(jm.init(jax.random.PRNGKey(seed)))
     tokens = np.random.default_rng(seed + 1).integers(
         0, jm.cfg.total_tokens, (batch, jm.cfg.total_seq_len))
@@ -126,7 +126,7 @@ def test_dropouts_follow_the_generator():
     packages cannot share them)."""
     cfg = tdalle.DalleConfig(**GOLDEN_CFG, embed_dropout=0.2, residual_dropout=0.2,
                              attention_dropout=0.2)
-    tm = tdalle.DALLE(cfg)
+    tm = tdalle.DALLE(cfg, "cpu")
     params = tm.init(torch.Generator().manual_seed(0))
     tokens = torch.randint(0, cfg.total_tokens, (2, cfg.total_seq_len),
                            generator=torch.Generator().manual_seed(1))
@@ -136,13 +136,13 @@ def test_dropouts_follow_the_generator():
         return tm.loss(params, tokens, gen, train=train)[0].item()
 
     assert loss(3) == loss(3) and loss(3) != loss(4)
-    plain = tdalle.DALLE(tdalle.DalleConfig(**GOLDEN_CFG))
+    plain = tdalle.DALLE(tdalle.DalleConfig(**GOLDEN_CFG), "cpu")
     assert loss(3, train=False) == plain.loss(params, tokens, train=False)[0].item()
 
 
 def test_forward_logits_match_jax():
     jm = jdalle.DALLE(jdalle.DalleConfig(**GOLDEN_CFG))
-    tm = tdalle.DALLE(tdalle.DalleConfig(**GOLDEN_CFG))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**GOLDEN_CFG), "cpu")
     jparams = jax.device_get(jm.init(jax.random.PRNGKey(3)))
     tokens = np.random.default_rng(4).integers(0, 81, (2, 24))
     want = jm.forward(jparams, jnp.asarray(tokens, jnp.int32))
@@ -210,7 +210,7 @@ def test_schedule_and_decay_mask_match_jax():
         want, got = joptim.lr_schedule(cfg), toptim.lr_schedule(cfg)
         for step in (0, 1, 5, 9, 10, 11, 29, 30, 49, 50, 80):
             np.testing.assert_allclose(got(step), float(want(step)), rtol=1e-6, atol=1e-12)
-    tree = tdalle.DALLE(tdalle.DalleConfig(**GOLDEN_CFG)).param_shapes()
+    tree = tdalle.DALLE(tdalle.DalleConfig(**GOLDEN_CFG), "cpu").param_shapes()
     jtree = jax.tree_util.tree_map(lambda s: np.zeros(s), tree, is_leaf=lambda x: isinstance(x, tuple))
     assert _flat(toptim.decay_mask(tree)) == _flat(joptim.decay_mask(jtree))
 

@@ -22,7 +22,7 @@ def test_decode_tokens_matches_jax(stack_factor, image_size):
     kw = dict(num_tokens=32, image_size=image_size, convblocks=((1, 8), (2, 16)),
               stack_factor=stack_factor)
     jm = jvae.DiscreteVAE(jvae.VAEConfig(**kw))
-    tm = tvae.DiscreteVAE(tvae.VAEConfig(**kw))
+    tm = tvae.DiscreteVAE(tvae.VAEConfig(**kw), "cpu")
     jparams = jax.device_get(jm.init(jax.random.PRNGKey(3)))
     tparams = vae_params_from_numpy(jparams, tm)
     tokens = np.random.default_rng(0).integers(0, 32, (2, jm.cfg.image_seq_len))
@@ -60,7 +60,7 @@ def test_init_and_config_match_jax():
     kw = dict(num_tokens=32, image_size=16, convblocks=((1, 8), (2, 16)))
     jparams = jax.device_get(jvae.DiscreteVAE(jvae.VAEConfig(**kw)).init(
         jax.random.PRNGKey(0)))
-    tparams = tvae.DiscreteVAE(tvae.VAEConfig(**kw)).init(
+    tparams = tvae.DiscreteVAE(tvae.VAEConfig(**kw), "cpu").init(
         torch.Generator().manual_seed(0))
     for path, want_leaf in jax.tree_util.tree_leaves_with_path(
         {"codebook": jparams["codebook"], "decoder": jparams["decoder"]}
