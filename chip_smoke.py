@@ -7,10 +7,11 @@ Phases, none of them optional:
 
 1. Device and build: the card's name and power limit, then the CUDA kernels
    built from the repository's csrc/ sources (one nvcc per source, timed),
-   and a "resources" line for each head size of the bf16 causal-attention
-   kernels and one of the bf16 ring kernels: registers a thread, spilled
-   bytes, shared memory a CTA and CTAs an SM of the forward (under either q
-   tile), the dQ and the dK/dV kernel.
+   and "resources" lines for each head size of the bf16 causal-attention
+   kernels, the bf16 ring kernels and the fp32 backward kernels of both
+   pairs: registers a thread, spilled bytes, shared memory a CTA and CTAs an
+   SM of the forward (bf16, under either q tile), the dQ and the dK/dV
+   kernel.
 2. Kernels against plain, on the card, both times from CUDA events. The
    attention kernels are timed over 20 launches or more, on inputs that
    together exceed the 50 MB L2 (rotating over copies where one set does
@@ -29,9 +30,9 @@ Phases, none of them optional:
      (B=16, S=1280, H=8, D=128, bf16), a ragged fp32 shape with window 64,
      and the training shape with hash dropout 0.1 (one seed on both sides);
    - the [B, H, S, D] forward with hash dropout;
-   - ``phase_tile_cases``: the bf16 pair at the edges of its tile walk, the
-     forward under every q tile it is built for (64 rows, and 128 at
-     D = 128), in both layouts: D = 64
+   - ``phase_tile_cases``: the pair at the edges of its tile walk, in bf16
+     (the forward under every q tile it is built for: 64 rows, and 128 at
+     D = 128) and in fp32 (the 3xTF32 backward), in both layouts: D = 64
      with windows that are not a multiple of the 64-key tile, S in {1, 63,
      65, 129}, a window of 1 and one wider than S, the packed layout with
      H = 1, with and without hash dropout; each with the per-tile bound, the
@@ -54,11 +55,11 @@ Phases, none of them optional:
      diagonal hop (diff 0), a past hop (1088) and a far one (3264), the
      window band (``local_ring``, window 256) across the shard edge, hash
      dropout 0.1 at global row0 and col0, and one fp32 case, each timed
-     between events and, in bf16, on the card under torch.profiler
-     (``device_ms``);
-     then the bf16 pair at the edges of its tile walk (S_local in {1, 65,
-     200, 333}, ragged shards under windows whose band ends mid-tile, D =
-     64, a window of 1, hash dropout). The triple is compared on rows with a
+     between events and on the card under torch.profiler (``device_ms``,
+     the profiler's events of the kernels held to the launches made);
+     then the pair at the edges of its tile walk in bf16 and in fp32
+     (S_local in {1, 65, 200, 333}, ragged shards under windows whose band
+     ends mid-tile, D = 64, a window of 1, hash dropout). The triple is compared on rows with a
      live key (m = NEG_INF itself on the others); every tensor per 64-long
      tile, each case shows that a copy with its last tile zeroed fails, and
      two runs give the same bits.
@@ -210,19 +211,19 @@ BHSD_ROWS = [  # (wrapper, shape, launches from, [(TPU kernel, file:line), ...])
     ("causal_attention_fwd", "dalle_4k", "long",
      [("_wedge_fwd_kernel (hybrid cap)", f"{ATTN}:572")]),
     ("causal_attention_bwd", "dalle_4k", "long", [("_hybrid_bwd_kernel", f"{ATTN}:1053")]),
-    ("causal_attention_fwd", "train_1280", "values", [("_wr_fwd_kernel", f"{ATTN}:233")]),
-    ("causal_attention_bwd", "train_1280", "values", [("_wedge_bwd_kernel", f"{ATTN}:683"),
-                                                      ("_wr_bwd_kernel", f"{ATTN}:321")]),
-    ("causal_attention_fwd", "loop_fp32", "loop", [("_flash_kernel", f"{ATTN}:100")]),
-    ("causal_attention_bwd", "loop_fp32", "loop", [("_bwd_dq_kernel", f"{ATTN}:945"),
-                                                   ("_bwd_dkv_kernel", f"{ATTN}:996")]),
+    ("causal_attention_fwd", "train_1280", "long", [("_wr_fwd_kernel", f"{ATTN}:233")]),
+    ("causal_attention_bwd", "train_1280", "long", [("_wedge_bwd_kernel", f"{ATTN}:683"),
+                                                    ("_wr_bwd_kernel", f"{ATTN}:321")]),
+    ("causal_attention_fwd", "loop_fp32", "values", [("_flash_kernel", f"{ATTN}:100")]),
+    ("causal_attention_bwd", "loop_fp32", "values", [("_bwd_dq_kernel", f"{ATTN}:945"),
+                                                     ("_bwd_dkv_kernel", f"{ATTN}:996")]),
 ]
 ATTN_ITERS = 20  # timed launches of an attention kernel (a launch is 0.1-3 ms)
-LAUNCHES_ON = {
-    "long": "dalle_4k training",
-    "values": "train values, attn_packed false, 2 layers at S = 1280",
-    "loop": "dalle_4k training: no path runs the loop regime's shapes, so the row "
-            "counts the same kernel on that path",
+LAUNCHES_ON = {  # the run whose launches of the row's instantiation (bf16 or fp32) it reports
+    "long": "dalle_4k training, bf16: the bf16 kernels (the train_1280 shape runs on no "
+            "unpacked path, so that row counts the same kernel here)",
+    "values": "train values, attn_packed false: a 2-layer fp32 model at S = 1280, the fp32 "
+              "kernels (no path runs the loop regime's shape)",
 }
 BATCH = 4
 TRAIN_CONFIG = "dalle_coco_synth"
@@ -294,26 +295,54 @@ def same_bits(first, again) -> bool:
     return all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-def device_ms_rotating(torch, fn, copies: int, iters: int) -> float:
-    """Device time of one ``fn(i)`` call (i cycling over ``copies`` inputs):
-    the durations of the kernels and copies it ran on the card, summed
-    under torch.profiler over ``iters`` calls. For calls of a few µs the
-    host's launch cost sets the pace of back-to-back calls (``cuda_ms``);
-    this counts only what the card did."""
+def device_profile(torch, fn, copies: int, iters: int, names=(), per_call: int = 0,
+                   attempts: int = 3) -> tuple[float, dict]:
+    """(device ms of one ``fn(i)`` call, {kernel name: [events, total µs]})
+    with i cycling over ``copies`` inputs: the durations of the kernels and
+    copies it ran on the card, summed under torch.profiler over ``iters``
+    calls, and what the profiler saw by name. On the H100 machine the
+    profiler now and then returns a trace without some or all of the
+    device's events (once, in a whole run, one with none at all), so a trace
+    is kept only when it holds device work and, given kernel ``names``,
+    exactly ``iters * per_call`` events of them, one a launch; a lost trace
+    is reported and taken again, ``attempts`` times at most."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
     for i in range(3):
         fn(i % copies)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i % copies)
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    if not device:
-        raise AssertionError("the profiler saw no device work")
-    return sum(e.time_range.elapsed_us() for e in device) / 1e3 / iters
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i % copies)
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        by_name = {}
+        for e in device:
+            seen = by_name.setdefault(e.name, [0, 0.0])
+            seen[0] += 1
+            seen[1] += e.time_range.elapsed_us()
+        events = sum(c for name, (c, _) in by_name.items() if any(n in name for n in names))
+        if device and (not names or events == iters * per_call):
+            return sum(e.time_range.elapsed_us() for e in device) / 1e3 / iters, by_name
+        print(f"device_profile: the profiler's trace lost device events (attempt "
+              f"{attempt + 1}: {len(device)} device events, {events} of {names}, launched "
+              f"{iters * per_call}); taken again", flush=True)
+    raise AssertionError(f"the profiler lost device events in {attempts} traces: {by_name}")
+
+
+def kernel_device_ms(torch, fn, copies: int, iters: int, names, per_call: int) -> float:
+    """``device_profile`` of a call that launches ``per_call`` kernels whose
+    names contain one of ``names``, from a trace that saw every launch."""
+    return device_profile(torch, fn, copies, iters, names, per_call)[0]
+
+
+def device_ms_rotating(torch, fn, copies: int, iters: int) -> float:
+    """Device time of one ``fn(i)`` call (``device_profile``). For calls of
+    a few µs the host's launch cost sets the pace of back-to-back calls
+    (``cuda_ms``); this counts only what the card did."""
+    return device_profile(torch, fn, copies, iters)[0]
 
 
 def roofline(flops: float, nbytes: float, peak_tflops: float = PEAK_BF16_TFLOPS) -> dict:
@@ -601,6 +630,10 @@ def phase_bhsd_kernels(torch, attn, card):
 
         fwd_ms = rotating_ms(fwd, sets, ATTN_ITERS)
         bwd_ms = rotating_ms(bwd, sets, ATTN_ITERS)
+        # the card's own time of the backward (its dsum reduction and two
+        # launches), the profiler's events of the two kernels held to the launches
+        bwd_dev = kernel_device_ms(torch, lambda i: bwd(*sets[i]), len(sets), ATTN_ITERS,
+                                   ("attention_bwd_dq", "attention_bwd_dkv"), 2)
         dsum_ms = rotating_ms(lambda q, k, v, g, out, lse: attn.dsum_rows(out, g), sets,
                               ATTN_ITERS)
         by_tile_rows = None
@@ -633,7 +666,7 @@ def phase_bhsd_kernels(torch, attn, card):
                 max_abs_err=max(errs[n][0] for n in ("dq", "dk", "dv")),
                 errs={n: errs[n][0] for n in ("dq", "dk", "dv")},
                 tile_rel_errs={n: tile_errs[n] for n in ("dq", "dk", "dv")},
-                ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_bwd,
+                ms=bwd_ms, device_ms=bwd_dev, plain_ms=bwd_plain, library_ms=lib_bwd,
                 ms_includes="dsum reduction + dQ and dK/dV launches", dsum_ms=dsum_ms,
                 bit_equal_two_runs=True,
                 **attention_roofline(b, h, s, d, elem, 8, 1, 5)),
@@ -646,20 +679,21 @@ def phase_bhsd_kernels(torch, attn, card):
 
 
 def phase_tile_cases(torch, attn, card):
-    """The bf16 tensor-core pair at the edges of its tile walk, each case with
-    the forward under every q tile it is built for (64 rows, and 128 at
-    D = 128; the backward, always on 64-row tiles, from each forward's out
-    and lse) and against the plain
-    versions: D = 64 with windows that are not a multiple of the 64-key tile, S in
-    {1, 63, 65, 129} (ragged under either tile), a window of 1 and one wider
-    than S, the packed layout with H = 1, with and without hash dropout.
-    Bounds as everywhere: max |kernel - plain| <= 1e-2 * max(1, max |plain|),
-    every 64-long tile within 2^-6 of its own max |plain| (a bound shown to
-    fail a copy with its last tile zeroed), lse 1e-4, and dq, dk, dv equal
-    bit for bit over two runs. Where the plain gradient is zero up to fp32
-    rounding (a row that sees only its own key has ds = p (dp - dsum) with
-    dp = dsum: S = 1, window 1; max |plain| <= 1e-5), the kernel's must be
-    too (max |kernel| <= 1e-5) and there is no tile to hold or to plant."""
+    """The pair at the edges of its tile walk, in bf16 (the forward under
+    every q tile it is built for: 64 rows, and 128 at D = 128; the backward,
+    always on 64-row tiles, from each forward's out and lse) and in fp32 (the
+    3xTF32 backward kernels), against the plain versions: D = 64 with
+    windows that are not a multiple of the 64-key tile, S in {1, 63, 65,
+    129} (ragged under either tile), a window of 1 and one wider than S, the
+    packed layout with H = 1, with and without hash dropout. Bounds as
+    everywhere: max |kernel - plain| <= atol * max(1, max |plain|) (1e-2 in
+    bf16, 1e-5 in fp32), every 64-long tile within 2^-6 (bf16) or 1e-5 (fp32)
+    of its own max |plain| (a bound shown to fail a copy with its last tile
+    zeroed), lse 1e-4, and dq, dk, dv equal bit for bit over two runs. Where
+    the plain gradient is zero up to fp32 rounding (a row that sees only its
+    own key has ds = p (dp - dsum) with dp = dsum: S = 1, window 1; max
+    |plain| <= 1e-5), the kernel's must be too (max |kernel| <= 1e-5) and
+    there is no tile to hold or to plant."""
     from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
 
     cases = [  # (name, packed layout, B, H, S, D, window, dropout)
@@ -674,11 +708,23 @@ def phase_tile_cases(torch, attn, card):
         ("packed_h1", True, 2, 1, 200, 128, None, 0.0),
         ("packed_h1_d64_window_37", True, 3, 1, 129, 64, 37, 0.1),
     ]
-    seed, dtype = 2**31 - 7, torch.bfloat16
-    atol, rtol = 1e-2, tile_rtol(dtype)
+    fp32_cases = [  # the same edges for the fp32 backward kernels
+        ("fp32_d64_window_37", False, 2, 4, 200, 64, 37, 0.0),
+        ("fp32_s1", False, 2, 3, 1, 64, None, 0.0),
+        ("fp32_s63_dropout", False, 2, 3, 63, 128, None, 0.1),
+        ("fp32_s65_packed", True, 2, 3, 65, 64, None, 0.0),
+        ("fp32_s129", False, 2, 3, 129, 128, None, 0.0),
+        ("fp32_window_1", False, 2, 2, 129, 128, 1, 0.0),
+        ("fp32_window_wider_than_s", False, 2, 2, 129, 64, 1000, 0.1),
+        ("fp32_packed_h1", True, 2, 1, 200, 128, None, 0.0),
+        ("fp32_packed_h1_d64_window_37", True, 3, 1, 129, 64, 37, 0.1),
+    ]
+    seed = 2**31 - 7
     gen = torch.Generator().manual_seed(7)
-    for name, packed, b, h, s, d, window, rate, tile in (
-            (*case, tile) for case in cases for tile in attn.FORWARD_TILES[case[5]]):
+    runs = [(*case, torch.bfloat16, tile) for case in cases for tile in attn.FORWARD_TILES[case[5]]]
+    runs += [(*case, torch.float32, None) for case in fp32_cases]
+    for name, packed, b, h, s, d, window, rate, dtype, tile in runs:
+        atol, rtol = (1e-2 if dtype == torch.bfloat16 else 1e-5), tile_rtol(dtype)
         q, k, v, g = ((torch.rand((b, h, s, d), generator=gen) * 2 - 1).to("cuda", dtype)
                       for _ in range(4))
         if packed:
@@ -1264,14 +1310,15 @@ def phase_ring_kernels(torch, ring, card):
     """ring_partial and ring_block_grads against their plain versions at the
     ring slice's shard shape (B=4, H=8, S_local=1088, D=128): the diagonal,
     a past and a far past hop, the window band across the shard edge, hash
-    dropout at global coordinates, and fp32; then the bf16 kernels at the
-    edges of their tile walk. The triple is compared on rows with a live key
-    (m = NEG_INF on the others), and every 64-long tile within 2^-6 (bf16) or
-    1e-5 (fp32) of its own max |plain|, a bound shown to fail a copy with its
-    last tile zeroed; two runs give the same bits. Times from CUDA events
-    (``ms``) and, since a bf16 hop's launch is about as short as the host's
-    dispatch of it, the card's own under torch.profiler (``device_ms``).
-    Returns {case: {wrapper: row}}."""
+    dropout at global coordinates, and fp32; then the kernels at the edges
+    of their tile walk, in bf16 and fp32. The triple is compared on rows with
+    a live key (m = NEG_INF on the others), and every 64-long tile within
+    2^-6 (bf16) or 1e-5 (fp32) of its own max |plain|, a bound shown to fail
+    a copy with its last tile zeroed; two runs give the same bits. Times
+    from CUDA events (``ms``) and, since a bf16 hop's launch is about as
+    short as the host's dispatch of it, the card's own under torch.profiler
+    (``device_ms``, every case, with the profiler's kernel events held to
+    the launches). Returns {case: {wrapper: row}}."""
     b, h, s, d = 4, 8, 1088, 128
     cases = [  # (name, dtype, hops back, window, dropout, timing iters)
         ("diagonal", torch.bfloat16, 0, None, 0.0, 30),
@@ -1296,14 +1343,12 @@ def phase_ring_kernels(torch, ring, card):
                          iters)
         # a bf16 hop's launch is about as short as the host's dispatch of it, so
         # the event times above can follow the host; the card's own time beside
-        # them (an fp32 hop takes milliseconds: its events read the card)
-        fwd_dev = bwd_dev = None
-        if dtype == torch.bfloat16:
-            fwd_dev = device_ms_rotating(torch, lambda _: ring.ring_partial(q, k, v, *args), 1,
-                                         iters)
-            bwd_dev = device_ms_rotating(
-                torch, lambda _: ring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args),
-                1, iters)
+        # them, with the profiler's kernel events held to the launches made
+        fwd_dev = kernel_device_ms(torch, lambda _: ring.ring_partial(q, k, v, *args), 1,
+                                   iters, ("ring_partial",), 1)
+        bwd_dev = kernel_device_ms(
+            torch, lambda _: ring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args), 1,
+            iters, ("ring_dq", "ring_dkv"), 2)
         bwd_plain = cuda_ms(lambda: ring.ring_block_grads_reference(
             q, g, lse, dsum, k, v, *args), 3)
         lib_fwd = lib_bwd = None
@@ -1343,11 +1388,11 @@ def phase_ring_kernels(torch, ring, card):
         del q, k, v, g, num, m, l, lse, dsum, dk, dv, dq
         torch.cuda.empty_cache()
 
-    # the bf16 kernels at the edges of their tile walk:
-    # ragged shards (one key past a tile, a window band ending mid-tile), D =
-    # 64 with windows that are not a multiple of the tile, S = 1, a window of 1
-    # on the diagonal (dq and dk zero up to rounding: ds = p (dp - dsum) with
-    # dp = dsum), hash dropout
+    # the kernels at the edges of their tile walk, in bf16 and in fp32 (the
+    # 3xTF32 backward): ragged shards (one key past a tile, a window band
+    # ending mid-tile), D = 64 with windows that are not a multiple of the
+    # tile, S = 1, a window of 1 on the diagonal (dq and dk zero up to
+    # rounding: ds = p (dp - dsum) with dp = dsum), hash dropout
     edges = [  # (name, B, H, S_local, hops back, window, dropout, D)
         ("s65_diagonal", 2, 3, 65, 0, None, 0.0, 128),
         ("s65_past_dropout", 2, 3, 65, 1, None, 0.1, 128),
@@ -1358,16 +1403,17 @@ def phase_ring_kernels(torch, ring, card):
         ("s1_past", 2, 2, 1, 1, None, 0.0, 128),
         ("window_1_diagonal", 2, 2, 129, 0, 1, 0.0, 128),
     ]
-    for name, eb, eh, es, hops, window, rate, ed in edges:
-        q, k, v, g = ((torch.rand((eb, eh, es, ed), generator=gen) * 2 - 1)
-                      .to("cuda", torch.bfloat16) for _ in range(4))
-        args = (hops * es, 3 * es, (3 - hops) * es, window, rate, RING_SEED)
-        errs, _ = ring_case_errors(torch, ring, q, k, v, g, args)
-        print("kernel", json.dumps(dict(
-            card=card, kernel="ring_partial+ring_block_grads", shape=name, B=eb, H=eh,
-            S_local=es, D=ed, dtype="torch.bfloat16", diff=hops * es, window=window,
-            dropout=rate, tile_rtol=tile_rtol(torch.bfloat16), errs=errs,
-            bit_equal_two_runs=True)), flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, eb, eh, es, hops, window, rate, ed in edges:
+            q, k, v, g = ((torch.rand((eb, eh, es, ed), generator=gen) * 2 - 1)
+                          .to("cuda", dtype) for _ in range(4))
+            args = (hops * es, 3 * es, (3 - hops) * es, window, rate, RING_SEED)
+            errs, _ = ring_case_errors(torch, ring, q, k, v, g, args)
+            print("kernel", json.dumps(dict(
+                card=card, kernel="ring_partial+ring_block_grads", shape=name, B=eb, H=eh,
+                S_local=es, D=ed, dtype=str(dtype), diff=hops * es, window=window,
+                dropout=rate, tile_rtol=tile_rtol(dtype), errs=errs,
+                bit_equal_two_runs=True)), flush=True)
     return rows
 
 
@@ -2230,6 +2276,10 @@ def main() -> int:
                                            **attn.kernel_resources(d))), flush=True)
         print("resources", json.dumps(dict(kernels="ring attention per-hop pair, bf16", D=d,
                                            **attn.kernel_resources(d, "ring"))), flush=True)
+        for kind, label in (("causal", "causal attention"), ("ring", "ring attention per-hop")):
+            print("resources", json.dumps(dict(
+                kernels=f"{label} backward, fp32 (3xTF32)", D=d,
+                **attn.kernel_resources(d, kind, torch.float32))), flush=True)
     serving = phase_kernel(torch, attn, card)
     phase_tile_cases(torch, attn, card)
     decode = phase_decode_kernels(torch, dmm, card)
@@ -2246,7 +2296,7 @@ def main() -> int:
     long_launches, long_first_loss = phase_train_long(torch, attn, lnm, card, bhsd["dalle_4k"])
     gc.collect()
     torch.cuda.empty_cache()
-    phase_ring_attention(torch, attn, card)
+    ring_values = phase_ring_attention(torch, attn, card)
     ring_launches, ring_per_rank = phase_train_ring(torch, card, long_first_loss)
     serve_launches, bf16 = phase_slice(torch, attn, card)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
@@ -2300,7 +2350,7 @@ def main() -> int:
             shape="mlp1 M=4 K=1024 N=4096",
         ))
     rows[3]["continuous_launches"] = continuous_launches
-    launches = {"long": long_launches, "loop": long_launches, "values": unpacked["launches"]}
+    launches = {"long": long_launches, "values": unpacked["launches"]}
     for name, shape, run, tpu in BHSD_ROWS:
         rows.append(dict(
             name=name, route="cuda", source=FWD_SOURCE if name.endswith("fwd") else BWD_SOURCE,
@@ -2320,8 +2370,15 @@ def main() -> int:
             launches=ring_launches[name],
             launches_per_rank=[r[name] for r in ring_per_rank],
             launches_on=f"{LONG_CONFIG} ring training, {RING_LABEL}",
-            shape="past hop B=4 H=8 S_local=1088 D=128 bf16",
-            **{k: ring_rows["past"][name][k] for k in keys},
+            shape="past hop B=4 H=8 S_local=1088 D=128 bf16", **measured(ring_rows["past"][name]),
+        ))
+    for name in ("ring_partial", "ring_block_grads"):  # the fp32 instantiations
+        per_rank = [v[name] for v in ring_values["launches"]]
+        rows.append(dict(
+            name=name, route="cuda", source=RING_SOURCE, replaces=REPLACES[name],
+            launches=sum(per_rank), launches_per_rank=per_rank,
+            launches_on=f"ring values check: 2-layer fp32 model on {VALUES_MESH}, {RING_LABEL}",
+            shape="past hop B=4 H=8 S_local=1088 D=128 fp32", **measured(ring_rows["fp32"][name]),
         ))
     print(f"chip_smoke: every phase, the build included, in {time.perf_counter() - t0:.1f}s",
           flush=True)

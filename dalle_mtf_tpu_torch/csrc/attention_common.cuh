@@ -79,12 +79,4 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
-// Per-row fp32 scalars (lse, dsum) of rows [r0, r0 + 64) into dst[64];
-// rows beyond seq_len read 0.
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int64_t bh_base, int r0, int seq_len) {
-  for (int i = threadIdx.x; i < kBlock; i += kThreads)
-    dst[i] = r0 + i < seq_len ? src[bh_base + r0 + i] : 0.f;
-}
-
 }  // namespace dalle_attn

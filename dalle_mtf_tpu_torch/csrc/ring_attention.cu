@@ -48,11 +48,18 @@
 // plain versions at the same edge cases.
 //
 // Two instantiations behind each entry point:
-//   - float32: the FMA kernels below (256 threads, 4 a tile row, fp32 tiles
-//     [64][D+1] in shared memory), unchanged: the tensor cores take fp32 only
-//     as TF32, which cannot hold the fp32 callers' 1e-5;
 //   - bfloat16: the tensor-core kernels (namespace tc), built from the pieces
-//     of attention_mma.cuh that the causal pair uses.
+//     of attention_mma.cuh that the causal pair uses;
+//   - float32: ring_block_grads on the tensor cores too (namespace tc32, the
+//     design of causal_attention_bwd.cu's fp32 kernels: the three-product
+//     TF32 split of attention_tf32.cuh, which holds the fp32 callers' 1e-5
+//     where one TF32 product cannot, each k step summed apart; fp32 tiles
+//     padded to D + 4 words; two groups of four warps, one a half of every
+//     streamed tile, their sums added in one fixed order; dq written and the
+//     accumulators added in fp32 from the C fragments, one add an element a
+//     launch). ring_partial's fp32 instantiation is still the FMA kernel
+//     below (256 threads, 4 a tile row, fp32 tiles [64][D+1] in shared
+//     memory), not yet redesigned.
 //
 // What bounds them. At the ring slice's shapes (B*H = 32, Sq = Sk = 1088,
 // D = 128, bf16) a past hop is 37.9 M live pairs: 2 products of 2 D
@@ -112,7 +119,9 @@
 // Registers a thread, shared memory a CTA, CTAs an SM, as nvcc builds them
 // for sm_90a: D = 128: forward 168, 80 KB, 2; dQ 176, 96 KB, 2; dK/dV 254,
 // 97 KB, 2 (no spills). D = 64: forward 127, 40 KB, 4; dQ 130, 48 KB, 3;
-// dK/dV 168, 49 KB, 3.
+// dK/dV 168, 49 KB, 3. The fp32 dQ and dK/dV kernels (eight warps): D = 128
+// 196 and 255 registers (112 bytes spilled), 203 KB, 1; D = 64 143 and 188,
+// 104 KB, 1.
 // ring_attention_info reports them from the built kernels (chip_smoke.py
 // prints the "resources" line).
 
@@ -122,6 +131,7 @@
 
 #include "attention_common.cuh"
 #include "attention_mma.cuh"
+#include "attention_tf32.cuh"
 
 using namespace dalle_attn;
 
@@ -154,16 +164,6 @@ struct Hop {
 template <int D>
 constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (size_t)(3 * kBlock * (D + 1) + kBlock * kLdP);
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (size_t)(4 * kBlock * (D + 1) + kBlock * kLdP);
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (size_t)(4 * kBlock * (D + 1) + 2 * kBlock * kLdP + 2 * kBlock);
 }
 
 // Key tiles [*t_begin, *t_end] holding a live key for local rows [q0, q_last]
@@ -281,205 +281,6 @@ ring_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-ring_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ dsum, T* __restrict__ dq, Hop hop, Dropout drop,
-               float scale) {
-  constexpr int kLd = D + 1;
-  constexpr int kDimsPerThread = D / 4;
-
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sdo = sq + kBlock * kLd;
-  float* sk = sdo + kBlock * kLd;
-  float* sv = sk + kBlock * kLd;
-  float* sds = sv + kBlock * kLd;
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlock;
-  const int64_t q_base = (int64_t)bh * hop.s_q * D;
-  const int64_t k_base = (int64_t)bh * hop.s_k * D;
-  const uint32_t seed = drop.seed + (uint32_t)bh;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;
-  const int quad = tid & 3;
-  const int row = q0 + r;
-
-  load_tile<T, D>(sq, q, q_base, D, q0, hop.s_q);
-  load_tile<T, D>(sdo, dout, q_base, D, q0, hop.s_q);
-  const int64_t row_base = (int64_t)bh * hop.s_q;
-  const float lse_r = row < hop.s_q ? lse[row_base + row] : 0.f;
-  const float dsum_r = row < hop.s_q ? dsum[row_base + row] : 0.f;
-
-  float acc[kDimsPerThread];
-#pragma unroll
-  for (int j = 0; j < kDimsPerThread; ++j) acc[j] = 0.f;
-
-  int t_begin, t_end;
-  key_tiles(hop, q0, min(q0 + kBlock, hop.s_q) - 1, &t_begin, &t_end);
-
-  for (int t = t_begin; t <= t_end; ++t) {
-    const int c0 = t * kBlock;
-    __syncthreads();
-    load_tile<T, D>(sk, k, k_base, D, c0, hop.s_k);
-    load_tile<T, D>(sv, v, k_base, D, c0, hop.s_k);
-    __syncthreads();
-
-    float s[kColsPerThread], dp[kColsPerThread];
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) s[j] = dp[j] = 0.f;
-    const float* qr = sq + r * kLd;
-    const float* gr = sdo + r * kLd;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qr[d], gv = gr[d];
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        const int off = (quad + 4 * j) * kLd + d;
-        s[j] = fmaf(qv, sk[off], s[j]);
-        dp[j] = fmaf(gv, sv[off], dp[j]);
-      }
-    }
-
-    float* dsr = sds + r * kLdP;
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int col = c0 + quad + 4 * j;
-      const float p = hop.masked(row, col) ? 0.f : expf(s[j] * scale - lse_r);
-      float dpj = dp[j];
-      if (drop.enabled)
-        dpj = dropout_keep(hop.row0 + row, hop.col0 + col, seed, drop.threshold) ? dpj * drop.scale
-                                                                                  : 0.f;
-      dsr[quad + 4 * j] = round_to<T>(p * (dpj - dsum_r));
-    }
-    __syncwarp();
-
-    for (int c = 0; c < kBlock; ++c) {
-      const float dsv = dsr[c];
-      const float* kr = sk + c * kLd;
-#pragma unroll
-      for (int j = 0; j < kDimsPerThread; ++j) acc[j] = fmaf(dsv, kr[quad + 4 * j], acc[j]);
-    }
-  }
-
-  if (row < hop.s_q) {
-    T* out = dq + q_base + (int64_t)row * D;
-#pragma unroll
-    for (int j = 0; j < kDimsPerThread; ++j) out[quad + 4 * j] = from_float<T>(acc[j] * scale);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-ring_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ dsum, float* __restrict__ dk_acc,
-                float* __restrict__ dv_acc, Hop hop, Dropout drop, float scale) {
-  constexpr int kLd = D + 1;
-  constexpr int kDimsPerThread = D / 4;
-
-  extern __shared__ float smem[];
-  float* sk = smem;
-  float* sv = sk + kBlock * kLd;
-  float* sq = sv + kBlock * kLd;
-  float* sdo = sq + kBlock * kLd;
-  float* sp = sdo + kBlock * kLd;
-  float* sds = sp + kBlock * kLdP;
-  float* slse = sds + kBlock * kLdP;
-  float* sdsum = slse + kBlock;
-
-  const int bh = blockIdx.x;
-  const int c0 = blockIdx.y * kBlock;
-  const int64_t q_base = (int64_t)bh * hop.s_q * D;
-  const int64_t k_base = (int64_t)bh * hop.s_k * D;
-  const int64_t row_base = (int64_t)bh * hop.s_q;
-  const uint32_t seed = drop.seed + (uint32_t)bh;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;  // local key row
-  const int quad = tid & 3;
-  const int krow = c0 + r;
-
-  // q rows that can see one of keys [c0, k_last]: r >= c - diff, and under a
-  // window r <= c - diff + window - 1
-  const int k_last = min(c0 + kBlock, hop.s_k) - 1;
-  const int r_lo = max(0, c0 - hop.diff);
-  const int r_hi = hop.window > 0 ? min(hop.s_q - 1, k_last - hop.diff + hop.window - 1)
-                                  : hop.s_q - 1;
-  if (r_hi < r_lo) return;  // nothing to add: the accumulators keep their values
-
-  load_tile<T, D>(sk, k, k_base, D, c0, hop.s_k);
-  load_tile<T, D>(sv, v, k_base, D, c0, hop.s_k);
-
-  float dk[kDimsPerThread], dv[kDimsPerThread];
-#pragma unroll
-  for (int j = 0; j < kDimsPerThread; ++j) dk[j] = dv[j] = 0.f;
-
-  for (int t = r_lo / kBlock; t <= r_hi / kBlock; ++t) {
-    const int q0 = t * kBlock;
-    __syncthreads();
-    load_tile<T, D>(sq, q, q_base, D, q0, hop.s_q);
-    load_tile<T, D>(sdo, dout, q_base, D, q0, hop.s_q);
-    load_rows(slse, lse, row_base, q0, hop.s_q);
-    load_rows(sdsum, dsum, row_base, q0, hop.s_q);
-    __syncthreads();
-
-    float s[kColsPerThread], dp[kColsPerThread];
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) s[j] = dp[j] = 0.f;
-    const float* kr = sk + r * kLd;
-    const float* vr = sv + r * kLd;
-    for (int d = 0; d < D; ++d) {
-      const float kv = kr[d], vv = vr[d];
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        const int off = (quad + 4 * j) * kLd + d;
-        s[j] = fmaf(kv, sq[off], s[j]);
-        dp[j] = fmaf(vv, sdo[off], dp[j]);
-      }
-    }
-
-    float* pr = sp + r * kLdP;
-    float* dsr = sds + r * kLdP;
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int qc = quad + 4 * j;
-      const int qrow = q0 + qc;
-      const float p = hop.masked(qrow, krow) ? 0.f : expf(s[j] * scale - slse[qc]);
-      float p_v = p, dpj = dp[j];
-      if (drop.enabled) {
-        // the transposed tile of the forward's mask: hash(query, key)
-        const bool keep = dropout_keep(hop.row0 + qrow, hop.col0 + krow, seed, drop.threshold);
-        p_v = keep ? p * drop.scale : 0.f;
-        dpj = keep ? dpj * drop.scale : 0.f;
-      }
-      pr[qc] = round_to<T>(p_v);
-      dsr[qc] = round_to<T>(p * (dpj - sdsum[qc]));
-    }
-    __syncwarp();
-
-    for (int c = 0; c < kBlock; ++c) {
-      const float pv = pr[c], dsv = dsr[c];
-      const float* gq = sdo + c * kLd;
-      const float* qq = sq + c * kLd;
-#pragma unroll
-      for (int j = 0; j < kDimsPerThread; ++j) {
-        dv[j] = fmaf(pv, gq[quad + 4 * j], dv[j]);
-        dk[j] = fmaf(dsv, qq[quad + 4 * j], dk[j]);
-      }
-    }
-  }
-
-  if (krow < hop.s_k) {
-    const int64_t off = k_base + (int64_t)krow * D;
-#pragma unroll
-    for (int j = 0; j < kDimsPerThread; ++j) {
-      dk_acc[off + quad + 4 * j] += dk[j] * scale;
-      dv_acc[off + quad + 4 * j] += dv[j];
-    }
-  }
-}
-
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -498,36 +299,6 @@ cudaError_t launch_partial(const void* q, const void* k, const void* v, void* nu
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<float*>(num), static_cast<float*>(m), static_cast<float*>(l), hop, drop,
       1.0f / sqrtf((float)D));
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_grads(const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* dsum, void* dq, void* dk_acc,
-                         void* dv_acc, int bh, const Hop& hop, const Dropout& drop,
-                         cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf((float)D);
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  const float* flse = static_cast<const float*>(lse);
-  const float* fdsum = static_cast<const float*>(dsum);
-
-  auto dq_kernel = ring_dq_kernel<T, D>;
-  cudaError_t err = set_smem(dq_kernel, dq_smem_bytes<D>());
-  if (err != cudaSuccess) return err;
-  dq_kernel<<<dim3(bh, (hop.s_q + kBlock - 1) / kBlock), kThreads, dq_smem_bytes<D>(),
-              stream>>>(tq, tk, tv, tdo, flse, fdsum, static_cast<T*>(dq), hop, drop, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  auto dkv_kernel = ring_dkv_kernel<T, D>;
-  err = set_smem(dkv_kernel, dkv_smem_bytes<D>());
-  if (err != cudaSuccess) return err;
-  dkv_kernel<<<dim3(bh, (hop.s_k + kBlock - 1) / kBlock), kThreads, dkv_smem_bytes<D>(),
-               stream>>>(tq, tk, tv, tdo, flse, fdsum, static_cast<float*>(dk_acc),
-                         static_cast<float*>(dv_acc), hop, drop, scale);
   return cudaGetLastError();
 }
 
@@ -1012,6 +783,308 @@ cudaError_t info(int kind, int tile_rows, int* out) {
 
 }  // namespace tc
 
+// ---------------------------------------- fp32: 3xTF32 on the tensor cores
+
+namespace tc32 {
+
+using namespace dalle_attn::mma;
+using namespace dalle_attn::tf32;
+using tc::kHalf;
+using tc::kOwner;
+
+// Two groups of four warps: each warp owns 16 rows of the 64-row owner tile,
+// and group h takes columns [32 h, 32 h + 32) of every streamed tile.
+constexpr int kThr = 2 * tc::kThr;
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // q and dO owner tiles, two buffers of a k and a v tile, padded fp32
+  return (size_t)tile_bytes<D>(2 * kOwner + 4 * kStream);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  // k and v owner tiles, two buffers of a q and a dO tile, padded fp32; two
+  // buffers of lse and dsum
+  return (size_t)tile_bytes<D>(2 * kOwner + 4 * kStream) + 4 * kStream * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThr)
+ring_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ dsum,
+               float* __restrict__ dq, Hop hop, Dropout drop, float scale, float scale_log2) {
+  constexpr int kTile = kStream * (D + 4);  // words of a streamed tile
+
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);
+  float* sdo = sq + kOwner * (D + 4);
+  float* skv = sdo + kOwner * (D + 4);  // buffer b: k at skv + b * 2 tiles, v one tile on
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwner;  // deepest tiles first
+  const int64_t q_base = (int64_t)bh * hop.s_q * D;
+  const int64_t k_base = (int64_t)bh * hop.s_k * D;
+  const uint32_t seed = drop.seed + (uint32_t)bh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int half = warp >> 2;             // this warp's group: its half of the streamed tile
+  const int warp_row0 = (warp & 3) * 16;  // this warp's first row of the tile
+  const int row0 = q0 + warp_row0;        // and of the local shard
+
+  int t_begin, t_end;  // ops/attention_tiles.py::ring_key_tile_range
+  key_tiles(hop, q0, min(q0 + kOwner, hop.s_q) - 1, &t_begin, &t_end);
+
+  load_tile_async<D, kThr>(smem_u32(sq), q, q_base, D, q0, kOwner, hop.s_q);
+  load_tile_async<D, kThr>(smem_u32(sdo), dout, q_base, D, q0, kOwner, hop.s_q);
+  if (t_begin <= t_end) {
+    load_tile_async<D, kThr>(smem_u32(skv), k, k_base, D, t_begin * kStream, kStream, hop.s_k);
+    load_tile_async<D, kThr>(smem_u32(skv + kTile), v, k_base, D, t_begin * kStream, kStream,
+                             hop.s_k);
+  }
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp's 16: lse in the log2 domain, and dsum
+  float lse2[2], dsum_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + (lane >> 2) + r * 8;
+    const int64_t at = (int64_t)bh * hop.s_q + row;
+    lse2[r] = row < hop.s_q ? lse[at] * kLog2e : 0.f;
+    dsum_r[r] = row < hop.s_q ? dsum[at] : 0.f;
+  }
+
+  float acc[D / 8][4];
+  tf32::zero(acc);
+
+  for (int t = t_begin; t <= t_end; ++t) {
+    const float* sk = skv + ((t - t_begin) & 1) * 2 * kTile;
+    const float* sv = sk + kTile;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if (t < t_end) {
+      float* nk = skv + ((t + 1 - t_begin) & 1) * 2 * kTile;
+      load_tile_async<D, kThr>(smem_u32(nk), k, k_base, D, (t + 1) * kStream, kStream, hop.s_k);
+      load_tile_async<D, kThr>(smem_u32(nk + kTile), v, k_base, D, (t + 1) * kStream, kStream,
+                               hop.s_k);
+      cp_async_commit();
+    }
+    const int c0 = t * kStream;
+    // ops/attention_tiles.py::ring_tile_needs_mask
+    const bool edge = hop.crosses(q0, kOwner, c0, kStream, false);
+
+    {
+      float s[kHalf / 8][4], dp[kHalf / 8][4];
+      tf32::zero(s);
+      tf32::zero(dp);
+      product_nt2<D, kHalf>(s, dp, sq, sdo, warp_row0, sk, sv, half * kHalf, lane);
+      // ds, in place of the scores: the A operand of ds k
+#pragma unroll
+      for (int n = 0; n < kHalf / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + frag_row(lane, e);
+          const int col = c0 + half * kHalf + frag_col(lane, n, e);
+          float p = exp2f(fmaf(s[n][e], scale_log2, -lse2[e >> 1]));
+          if (edge && (col >= hop.s_k || hop.band_masked(row, col))) p = 0.f;
+          float dpe = dp[n][e];
+          if (drop.enabled)
+            dpe = dropout_keep(hop.row0 + row, hop.col0 + col, seed, drop.threshold)
+                      ? dpe * drop.scale
+                      : 0.f;
+          s[n][e] = p * (dpe - dsum_r[e >> 1]);
+        }
+      product_pn<D, kHalf>(acc, s, sk, half * kHalf, lane);
+    }
+  }
+  // with no key tile the q and dO copies may still be in flight (a CTA must
+  // not end with a copy into its shared memory pending); with some, this is
+  // the last tile's wait again
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the streamed tiles: group 1 parks there
+  if (half == 1) park<D>(skv, warp_row0, acc, lane);
+  __syncthreads();
+  if (half == 1) return;
+  add_parked<D>(acc, skv, warp_row0, lane);
+
+  // dq in fp32 straight from the C fragments (zero for a q tile that sees no
+  // key tile)
+  store_rows<D>(acc, scale, dq, q_base, D, row0, hop.s_q, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThr)
+ring_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ dsum,
+                float* __restrict__ dk_acc, float* __restrict__ dv_acc, Hop hop, Dropout drop,
+                float scale, float scale_log2) {
+  constexpr int kTile = kStream * (D + 4);
+
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  float* sk = reinterpret_cast<float*>(smem_raw);
+  float* sv = sk + kOwner * (D + 4);
+  float* sqd = sv + kOwner * (D + 4);  // buffer b: q at sqd + b * 2 tiles, dO one tile on
+  float* srows = sqd + 4 * kTile;      // buffer b: lse[64] then dsum[64]
+
+  const int bh = blockIdx.x;
+  const int c0 = blockIdx.y * kOwner;
+  const int64_t q_base = (int64_t)bh * hop.s_q * D;
+  const int64_t k_base = (int64_t)bh * hop.s_k * D;
+  const int64_t row_base = (int64_t)bh * hop.s_q;
+  const uint32_t seed = drop.seed + (uint32_t)bh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int half = warp >> 2;             // this warp's group: its half of the streamed tile
+  const int warp_row0 = (warp & 3) * 16;  // this warp's first key of the tile
+  const int key0 = c0 + warp_row0;        // and of the visiting shard
+
+  // ops/attention_tiles.py::ring_query_tile_range: q rows that can see one of
+  // keys [c0, k_last]: r >= c - diff, and under a window r <= c - diff + window - 1
+  const int k_last = min(c0 + kOwner, hop.s_k) - 1;
+  const int r_lo = max(0, c0 - hop.diff);
+  const int r_hi = hop.window > 0 ? min(hop.s_q - 1, k_last - hop.diff + hop.window - 1)
+                                  : hop.s_q - 1;
+  if (r_hi < r_lo) return;  // nothing to add: the accumulators keep their values
+  const int t_begin = r_lo / kStream, t_end = r_hi / kStream;
+
+  load_tile_async<D, kThr>(smem_u32(sk), k, k_base, D, c0, kOwner, hop.s_k);
+  load_tile_async<D, kThr>(smem_u32(sv), v, k_base, D, c0, kOwner, hop.s_k);
+  load_tile_async<D, kThr>(smem_u32(sqd), q, q_base, D, t_begin * kStream, kStream, hop.s_q);
+  load_tile_async<D, kThr>(smem_u32(sqd + kTile), dout, q_base, D, t_begin * kStream, kStream,
+                           hop.s_q);
+  load_rows_async<kThr>(smem_u32(srows), lse, row_base, t_begin * kStream, hop.s_q);
+  load_rows_async<kThr>(smem_u32(srows + kStream), dsum, row_base, t_begin * kStream, hop.s_q);
+  cp_async_commit();
+
+  float dk[D / 8][4], dv[D / 8][4];
+  tf32::zero(dk);
+  tf32::zero(dv);
+
+  for (int t = t_begin; t <= t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    const float* sq = sqd + buf * 2 * kTile;
+    const float* sdo = sq + kTile;
+    const float* slse = srows + buf * 2 * kStream;
+    const float* sdsum = slse + kStream;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if (t < t_end) {
+      float* nq = sqd + (buf ^ 1) * 2 * kTile;
+      float* nrows = srows + (buf ^ 1) * 2 * kStream;
+      load_tile_async<D, kThr>(smem_u32(nq), q, q_base, D, (t + 1) * kStream, kStream, hop.s_q);
+      load_tile_async<D, kThr>(smem_u32(nq + kTile), dout, q_base, D, (t + 1) * kStream,
+                               kStream, hop.s_q);
+      load_rows_async<kThr>(smem_u32(nrows), lse, row_base, (t + 1) * kStream, hop.s_q);
+      load_rows_async<kThr>(smem_u32(nrows + kStream), dsum, row_base, (t + 1) * kStream,
+                            hop.s_q);
+      cp_async_commit();
+    }
+    const int q0 = t * kStream;
+    // ops/attention_tiles.py::ring_tile_needs_mask with ragged_rows: the
+    // diagonal, the window's edge, the key end or the end of the q shard
+    const bool edge = hop.crosses(q0, kStream, c0, kOwner, true);
+
+    {
+      // the transposed tiles: rows are this warp's keys, columns are q rows
+      float st[kHalf / 8][4], dpt[kHalf / 8][4];
+      tf32::zero(st);
+      tf32::zero(dpt);
+      product_nt2<D, kHalf>(st, dpt, sk, sv, warp_row0, sq, sdo, half * kHalf, lane);
+      // p_v^T in place of st and ds^T in place of dpt: the A operands of
+      // p_v^T dO and ds^T q
+#pragma unroll
+      for (int n = 0; n < kHalf / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = half * kHalf + frag_col(lane, n, e);
+          const int qrow = q0 + qc;
+          const int krow = key0 + frag_row(lane, e);
+          float p = exp2f(fmaf(st[n][e], scale_log2, -slse[qc] * kLog2e));
+          if (edge && (qrow >= hop.s_q || krow >= hop.s_k || hop.band_masked(qrow, krow)))
+            p = 0.f;
+          float p_v = p, dpe = dpt[n][e];
+          if (drop.enabled) {
+            // the transposed tile of the forward's mask: hash(query, key)
+            const bool keep =
+                dropout_keep(hop.row0 + qrow, hop.col0 + krow, seed, drop.threshold);
+            p_v = keep ? p * drop.scale : 0.f;
+            dpe = keep ? dpe * drop.scale : 0.f;
+          }
+          st[n][e] = p_v;
+          dpt[n][e] = p * (dpe - sdsum[qc]);
+        }
+      product_pn<D, kHalf>(dv, st, sdo, half * kHalf, lane);
+      product_pn<D, kHalf>(dk, dpt, sq, half * kHalf, lane);
+    }
+  }
+
+  __syncthreads();  // every warp is done with the streamed tiles: group 1 parks there
+  if (half == 1) {
+    park<D>(sqd, warp_row0, dk, lane);
+    park<D>(sqd + kOwner * (D + 4), warp_row0, dv, lane);
+  }
+  __syncthreads();
+  if (half == 1) return;
+  add_parked<D>(dk, sqd, warp_row0, lane);
+  add_parked<D>(dv, sqd + kOwner * (D + 4), warp_row0, lane);
+
+  // this CTA alone owns keys [c0, c0 + 64) of this head: read, add, write the
+  // fp32 accumulators from the C fragments, one add an element a launch
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int krow = key0 + (lane >> 2) + r * 8;
+    if (krow >= hop.s_k) continue;
+    const int64_t off = k_base + (int64_t)krow * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = frag_col(lane, n, 0);
+      tc::add_pair(dk_acc + off + col, dk[n][2 * r] * scale, dk[n][2 * r + 1] * scale);
+      tc::add_pair(dv_acc + off + col, dv[n][2 * r], dv[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_grads(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* dsum, void* dq, void* dk_acc,
+                         void* dv_acc, int bh, const Hop& hop, const Dropout& drop,
+                         cudaStream_t stream) {
+  const float scale = 1.0f / sqrtf((float)D);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
+  const float* flse = static_cast<const float*>(lse);
+  const float* fdsum = static_cast<const float*>(dsum);
+
+  auto dq_kernel = ring_dq_kernel<D>;
+  cudaError_t err = set_smem(dq_kernel, dq_smem_bytes<D>());
+  if (err != cudaSuccess) return err;
+  dq_kernel<<<dim3(bh, (hop.s_q + kOwner - 1) / kOwner), kThr, dq_smem_bytes<D>(), stream>>>(
+      tq, tk, tv, tdo, flse, fdsum, static_cast<float*>(dq), hop, drop, scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dkv_kernel = ring_dkv_kernel<D>;
+  err = set_smem(dkv_kernel, dkv_smem_bytes<D>());
+  if (err != cudaSuccess) return err;
+  dkv_kernel<<<dim3(bh, (hop.s_k + kOwner - 1) / kOwner), kThr, dkv_smem_bytes<D>(), stream>>>(
+      tq, tk, tv, tdo, flse, fdsum, static_cast<float*>(dk_acc), static_cast<float*>(dv_acc),
+      hop, drop, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// kind 1: dQ; 2: dK/dV (the fp32 forward is not a tensor-core kernel)
+template <int D>
+cudaError_t info(int kind, int tile_rows, int* out) {
+  if (tile_rows != kOwner) return cudaErrorInvalidValue;
+  if (kind == 1) return kernel_info(ring_dq_kernel<D>, kThr, dq_smem_bytes<D>(), out);
+  if (kind == 2) return kernel_info(ring_dkv_kernel<D>, kThr, dkv_smem_bytes<D>(), out);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace tc32
+
 // 8-byte accesses (the fp32 outputs the bf16 kernels write by pairs)
 bool aligned8(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0; }
 
@@ -1045,11 +1118,11 @@ extern "C" int ring_partial(const void* q, const void* k, const void* v, void* n
   return (int)cudaErrorInvalidValue;
 }
 
-// q, dout [bh, s_q, head_dim], k, v [bh, s_k, head_dim] of one dtype (bf16:
-// 16-byte aligned); lse and dsum fp32 [bh, s_q]; writes dq [bh, s_q,
-// head_dim] in the input dtype and ADDS into dk_acc, dv_acc fp32 [bh, s_k,
-// head_dim] (bf16: 8-byte aligned). Other arguments as in ring_partial.
-// Returns the first cudaError_t of the two launches.
+// q, dout [bh, s_q, head_dim], k, v [bh, s_k, head_dim] of one dtype, 16-byte
+// aligned; lse and dsum fp32 [bh, s_q]; writes dq [bh, s_q, head_dim] in the
+// input dtype (16-byte aligned) and ADDS into dk_acc, dv_acc fp32 [bh, s_k,
+// head_dim] (8-byte aligned). Other arguments as in ring_partial. Returns the
+// first cudaError_t of the two launches.
 extern "C" int ring_block_grads(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* dsum,
                                 void* dq, void* dk_acc, void* dv_acc, int bh, int s_q,
@@ -1060,28 +1133,29 @@ extern "C" int ring_block_grads(const void* q, const void* k, const void* v,
   const Hop hop{s_q, s_k, diff, row0, col0, window};
   const Dropout drop{dropout != 0, seed, keep_threshold, keep_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DALLE_RING_BWD_FMA(D) \
-  launch_grads<float, D>(q, k, v, dout, lse, dsum, dq, dk_acc, dv_acc, bh, hop, drop, s)
-  if (dtype == 0 && head_dim == 64) return (int)DALLE_RING_BWD_FMA(64);
-  if (dtype == 0 && head_dim == 128) return (int)DALLE_RING_BWD_FMA(128);
-#undef DALLE_RING_BWD_FMA
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (!(mma::aligned16(q) && mma::aligned16(k) && mma::aligned16(v) && mma::aligned16(dout) &&
         mma::aligned16(dq) && aligned8(dk_acc) && aligned8(dv_acc)))
     return (int)cudaErrorMisalignedAddress;
-#define DALLE_RING_BWD(D) \
-  tc::launch_grads<D>(q, k, v, dout, lse, dsum, dq, dk_acc, dv_acc, bh, hop, drop, s)
-  if (head_dim == 64) return (int)DALLE_RING_BWD(64);
-  if (head_dim == 128) return (int)DALLE_RING_BWD(128);
+#define DALLE_RING_BWD(NS, D) \
+  NS::launch_grads<D>(q, k, v, dout, lse, dsum, dq, dk_acc, dv_acc, bh, hop, drop, s)
+  if (dtype == 0 && head_dim == 64) return (int)DALLE_RING_BWD(tc32, 64);
+  if (dtype == 0 && head_dim == 128) return (int)DALLE_RING_BWD(tc32, 128);
+  if (head_dim == 64) return (int)DALLE_RING_BWD(tc, 64);
+  if (head_dim == 128) return (int)DALLE_RING_BWD(tc, 128);
 #undef DALLE_RING_BWD
   return (int)cudaErrorInvalidValue;
 }
 
 // out[0..4) = registers a thread, local (spill) bytes a thread, dynamic
-// shared memory a CTA, CTAs an SM, of a bf16 ring kernel: kind 0 the forward,
-// 1 the dQ and 2 the dK/dV kernel, each built for tile_rows = 64 owner rows
-// only (any other value is refused).
-extern "C" int ring_attention_info(int kind, int head_dim, int tile_rows, int* out) {
+// shared memory a CTA, CTAs an SM, of a ring kernel on the tensor cores: kind
+// 0 the forward (bf16 only), 1 the dQ and 2 the dK/dV kernel, of dtype 0
+// (float32) or 1 (bfloat16), each built for tile_rows = 64 owner rows only
+// (any other value is refused).
+extern "C" int ring_attention_info(int kind, int head_dim, int tile_rows, int dtype, int* out) {
+  if (dtype == 0 && head_dim == 64) return (int)tc32::info<64>(kind, tile_rows, out);
+  if (dtype == 0 && head_dim == 128) return (int)tc32::info<128>(kind, tile_rows, out);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (head_dim == 64) return (int)tc::info<64>(kind, tile_rows, out);
   if (head_dim == 128) return (int)tc::info<128>(kind, tile_rows, out);
   return (int)cudaErrorInvalidValue;

@@ -45,8 +45,8 @@ _SIGNATURES = {
     "causal_attention_fwd_tile_rows": [_I, _I, _I],
     # head_dim, tile_rows, out[4]
     "causal_attention_fwd_info": [_I, _I, _P],
-    # pass (0 dQ, 1 dK/dV), head_dim, out[4]
-    "causal_attention_bwd_info": [_I, _I, _P],
+    # pass (0 dQ, 1 dK/dV), head_dim, dtype, out[4]
+    "causal_attention_bwd_info": [_I, _I, _I, _P],
     # x, w, scale, out, partial; M, K, N, m_tile, k_slice, splits; stream
     "int8_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # x_lo, x_hi, packed, scale, out, partial; then as int8_matmul
@@ -60,8 +60,8 @@ _SIGNATURES = {
     "ring_partial": [_P] * 6 + [_I] * 10 + [_U, _U, _F, _P],
     # q, k, v, dout, lse, dsum, dq, dk_acc, dv_acc; then as ring_partial
     "ring_block_grads": [_P] * 9 + [_I] * 10 + [_U, _U, _F, _P],
-    # kind (0 forward, 1 dQ, 2 dK/dV), head_dim, tile_rows, out[4]
-    "ring_attention_info": [_I, _I, _I, _P],
+    # kind (0 forward, 1 dQ, 2 dK/dV), head_dim, tile_rows, dtype, out[4]
+    "ring_attention_info": [_I, _I, _I, _I, _P],
 }
 
 

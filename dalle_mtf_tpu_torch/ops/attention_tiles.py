@@ -1,9 +1,10 @@
-"""The tile walk of the bf16 tensor-core attention kernels, in Python.
+"""The tile walk of the tensor-core attention kernels, in Python.
 
-``csrc/causal_attention_fwd.cu``, ``csrc/causal_attention_bwd.cu`` and the
-bf16 kernels of ``csrc/ring_attention.cu`` walk 64-key (or, in the dK/dV
-pass, 64-row) tiles of one head; their index arithmetic is written once here,
-and the CUDA sources point at these functions as its definition:
+The bf16 kernels of ``csrc/causal_attention_fwd.cu``, the bf16 and fp32
+kernels of ``csrc/causal_attention_bwd.cu`` and the tensor-core kernels of
+``csrc/ring_attention.cu`` walk 64-key (or, in the dK/dV pass, 64-row) tiles
+of one head; their index arithmetic is written once here, and the CUDA
+sources point at these functions as its definition:
 
 - ``forward_tile_rows``: the forward's q tile (64 or 128 rows) by shape;
 - ``key_tile_range`` / ``query_tile_range``: the first and last streamed tile
@@ -17,7 +18,17 @@ and the CUDA sources point at these functions as its definition:
   ``ring_tile_needs_mask`` and ``ring_partial_tiled_reference`` /
   ``ring_block_grads_tiled_reference``: the same for one hop of ring
   attention, between a local q shard and a visiting k/v shard whose global
-  offsets differ by ``diff`` (``ops/ring_attention.py``).
+  offsets differ by ``diff`` (``ops/ring_attention.py``);
+- ``tf32_round`` and the backward references' ``split`` argument: the fp32
+  backward kernels' products on the tensor cores, emulated. Each operand x
+  is split into big = tf32(x) and small = tf32(x - big), and a product is
+  big·big + big·small + small·big (``split="tf32x3"``, what the kernels
+  run), summed as the tensor cores sum (each mma rounds toward zero, so
+  the kernels sum every k step of 8 apart and add it rounding to nearest);
+  ``split="tf32"`` is one TF32 product, which the tests show cannot hold
+  the fp32 bound;
+- ``tile_rel_err``: that bound measured, each 64-long tile of S against its
+  own max |plain|.
 
 Nothing on the serving or training path imports this module: the CPU tests
 hold it against the dense mask, the one-shot plain versions and the JAX
@@ -38,6 +49,78 @@ TILE_ROWS = (64, 128)  # rows of the forward's q tile: 4 warps of one or two 16-
 BACKWARD_TILE_ROWS = 64  # both backward passes measured slower with 128 rows: not built
 SMS = 132  # an H100's SMs
 _LOG2E = 1.4426950408889634
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 explicit mantissa bits), to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32``: on the int32 view,
+    (bits + 0x1000) & ~0x1FFF (the sign bit is untouched, so the magnitude
+    rounds)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+SPLITS = (None, "tf32", "tf32x3")
+
+
+def _toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` to fp32, rounded toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor, split: str | None = None,
+                 chunk: int | None = 1) -> torch.Tensor:
+    """a @ b in fp32 as a kernel's tensor cores take it: ``split`` None is
+    the plain fp32 product; "tf32" one product of the operands rounded to
+    TF32; "tf32x3" the three-product split, big = tf32(x), small =
+    tf32(x - big), a b = a_small b_big + a_big b_small + a_big b_big (the
+    small·small term, about 2^-22 of the product, is dropped), as the
+    tensor cores sum it: k steps of 8, each mma adding its 8 exact products
+    (two TF32 values multiply exactly) into the fp32 accumulator and
+    rounding toward zero. ``chunk`` k steps are summed so in a fresh
+    accumulator, which is then added into the result rounding to nearest:
+    1, every step apart, is what the kernels do
+    (csrc/attention_tf32.cuh::add_part); None, one accumulator over all of
+    k, is what they avoid."""
+    if split is None:
+        return torch.matmul(a, b)
+    if split not in SPLITS:
+        raise ValueError(f"split must be one of {SPLITS}, got {split!r}")
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    if split == "tf32":
+        return torch.matmul(a_big, b_big)
+    a_small, b_small = tf32_round(a - a_big), tf32_round(b - b_big)
+    pairs = [(x.double(), y.double())
+             for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big))]
+    steps = -(-a.shape[-1] // 8)
+    total, part = None, None
+    for i in range(steps):
+        for x, y in pairs:
+            exact = torch.matmul(x[..., 8 * i:8 * i + 8], y[..., 8 * i:8 * i + 8, :])
+            part = _toward_zero(exact if part is None else part.double() + exact)
+        if (chunk and (i + 1) % chunk == 0) or i == steps - 1:
+            total = part if total is None else total + part
+            part = None
+    return total
+
+
+def tile_rel_err(got: torch.Tensor, want: torch.Tensor, tile: int = STREAM_TILE) -> float:
+    """The kernels' per-tile bound, measured: the worst, over the heads and
+    the ``tile``-long tiles of S of [B, H, S, D] tensors (the last tile
+    ragged), of max |got - want| over max |want| within the tile. Each tile
+    is held to its own scale, so the small values far down a sequence are
+    checked too (chip_smoke.py holds the kernels to the same measure)."""
+    b, h, s, d = want.shape
+    n = -(-s // tile)
+
+    def tiles(t):
+        t = torch.nn.functional.pad(t.float().reshape(b * h, s, d), (0, 0, 0, n * tile - s))
+        return t.reshape(b * h, n, tile * d)
+
+    w = tiles(want)
+    err = (tiles(got) - w).abs().amax(-1)
+    return (err / w.abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
 def forward_tile_rows(head_dim: int, programs: int, seq_len: int) -> int:
@@ -145,13 +228,15 @@ def attention_tiled_reference(q, k, v, window=None, dropout_rate=0.0, dropout_se
 
 
 def attention_backward_tiled_reference(q, k, v, out, lse, g, window=None, dropout_rate=0.0,
-                                       dropout_seed=None, rows: int = 64):
-    """The backward as the bf16 kernels walk it, in plain torch: a dQ pass
-    (q tiles of ``rows`` rows over ``key_tile_range``) and a dK/dV pass (key
-    tiles of ``rows`` keys over ``query_tile_range``), each recomputing
+                                       dropout_seed=None, rows: int = 64, split=None):
+    """The backward as the tensor-core kernels walk it, in plain torch: a dQ
+    pass (q tiles of ``rows`` rows over ``key_tile_range``) and a dK/dV pass
+    (key tiles of ``rows`` keys over ``query_tile_range``), each recomputing
     p = exp2(s log2 e - lse log2 e) and dp per tile, masking only where
     ``tile_needs_mask`` says, with ds and p_v rounded to the input dtype
-    before their products. Returns dq, dk, dv in q's dtype."""
+    before their products. ``split`` takes each of the five products as
+    ``split_matmul`` does ("tf32x3": the fp32 kernels). Returns dq, dk, dv
+    in q's dtype."""
     b, h, s, d = q.shape
     big = max(rows, STREAM_TILE)
     padded = -(-s // big) * big
@@ -164,14 +249,17 @@ def attention_backward_tiled_reference(q, k, v, out, lse, g, window=None, dropou
     if dropout_rate > 0.0:
         seeds = (int(dropout_seed) + torch.arange(b * h, device=q.device)).reshape(b, h, 1, 1)
 
+    def mm(a, b):
+        return split_matmul(a, b, split)
+
     def tile(q0, q_rows, c0, k_rows, ragged_rows):
-        """(p, dp after the dropout keep, p_v) of one tile, fp32."""
-        x = torch.matmul(qf[:, :, q0:q0 + q_rows], kf[:, :, c0:c0 + k_rows].transpose(-1, -2))
+        """(ds, p_v) of one tile, rounded as the kernels round, fp32."""
+        x = mm(qf[:, :, q0:q0 + q_rows], kf[:, :, c0:c0 + k_rows].transpose(-1, -2))
         p = torch.exp2(x * (scale * _LOG2E) - lse2[:, :, q0:q0 + q_rows, None])
         i, j, mask = _tile_mask(q0, q_rows, c0, k_rows, window, q.device)
         if tile_needs_mask(q0, q_rows, c0, k_rows, s, window, ragged_rows):
             p = torch.where(mask | (i >= s), 0.0, p)
-        dp = torch.matmul(gf[:, :, q0:q0 + q_rows], vf[:, :, c0:c0 + k_rows].transpose(-1, -2))
+        dp = mm(gf[:, :, q0:q0 + q_rows], vf[:, :, c0:c0 + k_rows].transpose(-1, -2))
         p_v = p
         if seeds is not None:
             keep = dropout_keep(i, j, seeds, dropout_rate)
@@ -186,17 +274,15 @@ def attention_backward_tiled_reference(q, k, v, out, lse, g, window=None, dropou
         for t in range(first, last + 1):
             c0 = t * STREAM_TILE
             ds, _ = tile(q0, rows, c0, STREAM_TILE, False)
-            dq[:, :, q0:q0 + rows] += torch.matmul(ds, kf[:, :, c0:c0 + STREAM_TILE])
+            dq[:, :, q0:q0 + rows] += mm(ds, kf[:, :, c0:c0 + STREAM_TILE])
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for c0 in range(0, s, rows):
         first, last = query_tile_range(c0, rows, s, window)
         for t in range(first, last + 1):
             q0 = t * STREAM_TILE
             ds, p_v = tile(q0, STREAM_TILE, c0, rows, True)
-            dk[:, :, c0:c0 + rows] += torch.matmul(ds.transpose(-1, -2),
-                                                   qf[:, :, q0:q0 + STREAM_TILE])
-            dv[:, :, c0:c0 + rows] += torch.matmul(p_v.transpose(-1, -2),
-                                                   gf[:, :, q0:q0 + STREAM_TILE])
+            dk[:, :, c0:c0 + rows] += mm(ds.transpose(-1, -2), qf[:, :, q0:q0 + STREAM_TILE])
+            dv[:, :, c0:c0 + rows] += mm(p_v.transpose(-1, -2), gf[:, :, q0:q0 + STREAM_TILE])
     return tuple(t[:, :, :s].to(q.dtype) for t in (dq * scale, dk * scale, dv))
 
 
@@ -314,15 +400,16 @@ def ring_partial_tiled_reference(q, k, v, diff, row0, col0, window=None, rate=0.
 
 
 def ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, diff, row0, col0, window=None,
-                                     rate=0.0, seed=0):
-    """One hop's gradient as the bf16 kernels walk it, in plain torch: a dQ
-    pass (64-row q tiles over ``ring_key_tile_range``) and a dK/dV pass
-    (64-key tiles over ``ring_query_tile_range``), each recomputing
-    p = exp2(s D^-0.5 log2 e - lse log2 e) and dp per tile, masking only where
-    ``ring_tile_needs_mask`` says (with ``ragged_rows`` in the dK/dV pass),
-    ds and p_v rounded to the input dtype before their products. Returns dq
-    in q's dtype and dk, dv fp32 [B, H, Sk, D], as
-    ``ring_block_grads_reference``."""
+                                     rate=0.0, seed=0, split=None):
+    """One hop's gradient as the tensor-core kernels walk it, in plain
+    torch: a dQ pass (64-row q tiles over ``ring_key_tile_range``) and a
+    dK/dV pass (64-key tiles over ``ring_query_tile_range``), each
+    recomputing p = exp2(s D^-0.5 log2 e - lse log2 e) and dp per tile,
+    masking only where ``ring_tile_needs_mask`` says (with ``ragged_rows`` in
+    the dK/dV pass), ds and p_v rounded to the input dtype before their
+    products, each of the five products taken as ``split_matmul`` takes it
+    with ``split`` ("tf32x3": the fp32 kernels). Returns dq in q's dtype and
+    dk, dv fp32 [B, H, Sk, D], as ``ring_block_grads_reference``."""
     b, h, s_q, d = q.shape
     s_k = k.shape[2]
     tile = STREAM_TILE
@@ -335,15 +422,18 @@ def ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, diff, row0, col0, wi
     inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
     seeds = _ring_seeds(seed, b, h, q.device) if rate > 0.0 else None
 
+    def mm(a, b):
+        return split_matmul(a, b, split)
+
     def tile_grads(q0, c0, ragged_rows):
         """(ds, p_v) of one 64 x 64 tile, rounded as the kernels round."""
-        x = torch.matmul(qf[:, :, q0:q0 + tile], kf[:, :, c0:c0 + tile].transpose(-1, -2))
+        x = mm(qf[:, :, q0:q0 + tile], kf[:, :, c0:c0 + tile].transpose(-1, -2))
         p = torch.exp2(x * (scale * _LOG2E) - lse2[:, :, q0:q0 + tile, None])
         i, j, mask = _ring_tile_mask(q0, tile, c0, tile, diff, window, q.device)
         if ring_tile_needs_mask(q0, tile, c0, tile, s_q, s_k, diff, window, ragged_rows):
             dead = mask | (j >= s_k)
             p = torch.where(dead | (i >= s_q) if ragged_rows else dead, 0.0, p)
-        dp = torch.matmul(gf[:, :, q0:q0 + tile], vf[:, :, c0:c0 + tile].transpose(-1, -2))
+        dp = mm(gf[:, :, q0:q0 + tile], vf[:, :, c0:c0 + tile].transpose(-1, -2))
         p_v = p
         if seeds is not None:
             keep = dropout_keep(i + row0, j + col0, seeds, rate)
@@ -358,13 +448,13 @@ def ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, diff, row0, col0, wi
         for t in range(first, last + 1):
             c0 = t * tile
             ds, _ = tile_grads(q0, c0, False)
-            dq[:, :, q0:q0 + tile] += torch.matmul(ds, kf[:, :, c0:c0 + tile])
+            dq[:, :, q0:q0 + tile] += mm(ds, kf[:, :, c0:c0 + tile])
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for c0 in range(0, s_k, tile):
         first, last = ring_query_tile_range(c0, tile, s_q, s_k, diff, window)
         for t in range(first, last + 1):
             q0 = t * tile
             ds, p_v = tile_grads(q0, c0, True)
-            dk[:, :, c0:c0 + tile] += torch.matmul(ds.transpose(-1, -2), qf[:, :, q0:q0 + tile])
-            dv[:, :, c0:c0 + tile] += torch.matmul(p_v.transpose(-1, -2), gf[:, :, q0:q0 + tile])
+            dk[:, :, c0:c0 + tile] += mm(ds.transpose(-1, -2), qf[:, :, q0:q0 + tile])
+            dv[:, :, c0:c0 + tile] += mm(p_v.transpose(-1, -2), gf[:, :, q0:q0 + tile])
     return ((dq[:, :, :s_q] * scale).to(q.dtype), dk[:, :, :s_k] * scale, dv[:, :, :s_k])

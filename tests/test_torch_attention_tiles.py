@@ -1,4 +1,4 @@
-"""The tile walk of the bf16 tensor-core attention kernels, on the CPU.
+"""The tile walk of the tensor-core attention kernels, on the CPU.
 
 ``dalle_mtf_tpu_torch/ops/attention_tiles.py`` writes the kernels' index arithmetic
 once in Python (``key_tile_range``, ``query_tile_range``, ``tile_needs_mask``)
@@ -15,7 +15,13 @@ their walk, so here they are held
     ``attention_backward_reference`` in fp32, and against the JAX package:
     its ``attention_reference``, and the value and q/k/v grads of its
     ``causal_attention`` through the Pallas kernels in interpret mode, with
-    and without hash dropout (one seed on both sides).
+    and without hash dropout (one seed on both sides);
+(c) with the fp32 backward kernels' three-product TF32 split (``split=
+    "tf32x3"``) against the one-shot fp32 backward and the JAX package's
+    fp32 backward kernels (the loop pair, and the wedge regime with
+    dropout): each 64-long tile within 1e-5 of its own max |plain|, the
+    kernels' own bound; and one TF32 product shown to fail that bound at
+    the same inputs.
 
 The kernels carry their own C++ copy of this arithmetic, which no CPU test
 can see: tests/test_torch_cuda.py holds the built kernels to the one-shot
@@ -25,6 +31,8 @@ tile to ``forward_tile_rows``.
 Tolerance: fp32, max |tiled - one-shot| <= 1e-5 * max(1, max |one-shot|): the
 same math summed tile by tile, with exp2 in place of exp; lse atol 1e-5.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -241,3 +249,132 @@ def test_misaligned_bf16_view_raises():
     # fp32 tiles are staged element by element: the same views pass
     fp32 = torch.zeros(2 * 4 * 8 * 64 + 1)[1:].view(2, 4, 8, 64)
     tattn.check_kernel_inputs("causal_attention_fwd", (fp32,) * 3, 64)
+
+
+# ------------------------------------------------ the fp32 kernels' 3xTF32 split
+# The fp32 backward kernels run all five products on the tensor cores as
+# three TF32 products each (big·big + big·small + small·big, big = tf32(x),
+# small = tf32(x - big)). Here that arithmetic, emulated by the tiled
+# reference's ``split``, is held to the kernels' own fp32 bound: each 64-long
+# tile within 1e-5 of its own max |plain| (a tensor that is zero up to fp32
+# rounding, max |plain| <= 1e-5, must be so too); one TF32 product is shown
+# to fail that bound at the same inputs.
+FP32_TILE_RTOL = 1e-5
+SPLIT_CASES = [  # (S, window, D, dropout): ragged S, windows off the tile, dropout
+    (1, None, 128, 0.0), (63, None, 64, 0.0), (65, None, 128, 0.1), (129, None, 64, 0.0),
+    (129, 1, 128, 0.0), (129, "wider", 64, 0.1), (200, 37, 64, 0.1), (200, None, 128, 0.0),
+    (333, 100, 64, 0.1), (256, 64, 128, 0.0),
+]
+
+
+def _tile_bound_errors(got, want, rtol=FP32_TILE_RTOL):
+    """{name: error} of the tensors that break the per-tile bound."""
+    bad = {}
+    for name, t, w in zip(("dq", "dk", "dv"), got, want):
+        if w.abs().max().item() <= 1e-5:  # zero up to fp32 rounding
+            if not t.abs().max().item() <= 1e-5:
+                bad[name] = ("zero", t.abs().max().item())
+            continue
+        err = tiles.tile_rel_err(t, w)
+        if not err <= rtol:
+            bad[name] = err
+    return bad
+
+
+def _split_case(s, window, d, rate, split):
+    window = _window(window, s)
+    q, k, v, g = _inputs(s, d, seed=3 * s + d)
+    out, lse = tattn.attention_reference(q, k, v, True, window, True, rate, SEED)
+    want = tattn.attention_backward_reference(q, k, v, out, lse, g, window, rate, SEED)
+    got = tiles.attention_backward_tiled_reference(q, k, v, out, lse, g, window, rate, SEED,
+                                                   split=split)
+    return got, want
+
+
+def test_tf32_round_is_nearest_ties_away():
+    """10 explicit mantissa bits, ties away from zero (cvt.rna), either sign;
+    a TF32 value rounds to itself."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, one + ulp / 4, one + 3 * ulp / 4, -(one + ulp / 2),
+                      one + ulp, 0.0, 3.0e-39])
+    want = torch.tensor([one + ulp, one, one + ulp, -(one + ulp), one + ulp, 0.0, 3.0e-39])
+    got = tiles.tf32_round(x)
+    assert torch.equal(got[:6], want[:6])
+    assert torch.equal(tiles.tf32_round(got), got)
+    big = tiles.tf32_round(torch.tensor([math.pi]))
+    small = tiles.tf32_round(torch.tensor([math.pi]) - big)
+    assert abs((big + small).item() - math.pi) <= 2.0 ** -21 * math.pi
+
+
+@pytest.mark.parametrize("s,window,d,rate", SPLIT_CASES)
+def test_tf32x3_split_holds_the_fp32_tile_bound(s, window, d, rate):
+    got, want = _split_case(s, window, d, rate, "tf32x3")
+    for t, w in zip(got, want):
+        assert t.shape == w.shape and t.dtype == torch.float32
+    assert not _tile_bound_errors(got, want)
+
+
+@pytest.mark.parametrize("s,window,d,rate", SPLIT_CASES)
+def test_one_tf32_product_fails_the_fp32_tile_bound(s, window, d, rate):
+    """The bound tells the split from a single TF32 product (about 2^-11
+    relative): at the same inputs one product breaks it."""
+    got, want = _split_case(s, window, d, rate, "tf32")
+    assert _tile_bound_errors(got, want)
+
+
+@pytest.mark.parametrize("s,window,rate", [(256, None, 0.0), (200, None, 0.0), (320, 48, 0.0),
+                                           (256, 64, 0.1)])
+def test_tf32x3_split_holds_the_bound_against_jax_kernels(monkeypatch, s, window, rate):
+    """The split's backward against the JAX package's fp32 backward kernels
+    in interpret mode, each 64-long tile within 1e-5 of its own max |JAX|:
+    without dropout the loop regime (``_bwd_dq_kernel`` + ``_bwd_dkv_kernel``,
+    forced at this S by ``WHOLE_ROW_MAX_SEQ = 0``; a ragged S included), with
+    hash dropout the wedge regime (the one JAX's in-kernel dropout runs in),
+    one seed on both sides."""
+    ran = []
+    if rate == 0.0:
+        monkeypatch.setattr(jattn, "WHOLE_ROW_MAX_SEQ", 0)
+        orig = jattn._bwd_dq_kernel
+
+        def spy(*a, **kw):
+            ran.append("_bwd_dq_kernel")
+            return orig(*a, **kw)
+
+        monkeypatch.setattr(jattn, "_bwd_dq_kernel", spy)
+    q, k, v, g = _inputs(s, 128, seed=s + (window or 0))
+    jq, jk, jv, jg = (jnp.asarray(t.numpy()) for t in (q, k, v, g))
+    key = jax.random.PRNGKey(9)
+    seed = int(jax.random.randint(key, (1, 1), 0, jnp.iinfo(jnp.int32).max,
+                                  dtype=jnp.int32)[0, 0])
+    _, vjp = jax.vjp(
+        lambda q_, k_, v_: jattn.causal_attention(
+            q_, k_, v_, window=window, use_pallas=True, interpret=True,
+            dropout_rate=rate, dropout_rng=key if rate else None),
+        jq, jk, jv)
+    want = [torch.from_numpy(np.array(t)) for t in vjp(jg)]
+    assert bool(ran) == (rate == 0.0)
+    out, lse = tattn.attention_reference(q, k, v, True, window, True, rate, seed)
+    got = tiles.attention_backward_tiled_reference(q, k, v, out, lse, g, window, rate, seed,
+                                                   split="tf32x3")
+    assert not _tile_bound_errors(got, want)
+
+
+@pytest.mark.parametrize("k", [2176, 4352])
+def test_long_sums_hold_the_bound_in_chunks(k):
+    """The tensor cores round each mma's fp32 sum toward zero, so one
+    accumulator over a long sum (p_v^T dO over every q row a key tile sees:
+    4352 at dalle_4k's length) drifts by about half an ulp a step, past the
+    fp32 bound; with each k step of 8 summed apart and added rounding to
+    nearest, as the kernels sum, it holds with room."""
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.random((2, 16, k)).astype(np.float32))  # probabilities
+    b = torch.from_numpy((rng.random((2, k, 64)) * 2 - 1).astype(np.float32))
+    exact = torch.matmul(a.double(), b.double())
+
+    def err(chunk):
+        got = tiles.split_matmul(a, b, "tf32x3", chunk)
+        return ((got.double() - exact).abs().max() / exact.abs().max()).item()
+
+    assert err(1) <= FP32_TILE_RTOL / 4
+    assert err(None) > FP32_TILE_RTOL

@@ -78,6 +78,12 @@ def _uniform(shape, dtype, gen, n):
     (torch.bfloat16, 2, 2, 63, 128, 1, 0.0),
     (torch.bfloat16, 1, 2, 1, 64, None, 0.0),
     (torch.bfloat16, 2, 2, 129, 128, 1000, 0.1),
+    # the fp32 backward (3xTF32) in the packed layout: one head, S = 1, a
+    # window of 1, D = 64 with a window off the tile
+    (torch.float32, 2, 1, 200, 128, None, 0.0),
+    (torch.float32, 3, 1, 129, 64, 37, 0.1),
+    (torch.float32, 1, 2, 1, 64, None, 0.0),
+    (torch.float32, 2, 2, 63, 128, 1, 0.0),
 ])
 def test_packed_kernels_match_plain(cuda, dtype, b, h, s, d, window, rate):
     atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
@@ -162,6 +168,14 @@ BACKWARD_CASES = [  # (dtype, B, H, S, D, window, dropout)
     (torch.bfloat16, 2, 3, 65, 64, None, 0.1),
     (torch.bfloat16, 2, 3, 129, 128, None, 0.0),
     (torch.bfloat16, 2, 3, 129, 64, 1000, 0.1),     # a window wider than S
+    # the fp32 kernels (3xTF32) at the edges of the same walk
+    # (S = 1 and a window of 1: test_fp32_rows_that_see_only_themselves)
+    (torch.float32, 2, 4, 200, 64, 37, 0.0),
+    (torch.float32, 2, 3, 63, 128, None, 0.1),
+    (torch.float32, 2, 3, 65, 64, None, 0.1),
+    (torch.float32, 2, 3, 129, 128, None, 0.0),
+    (torch.float32, 2, 3, 129, 64, 1000, 0.1),
+    (torch.float32, 1, 8, 1280, 128, None, 0.1),
 ]
 
 
@@ -364,6 +378,13 @@ RING_CASES = [
     (torch.bfloat16, 2, 3, 65, 1, None, 0.1, 128),
     (torch.bfloat16, 2, 4, 333, 1, 100, 0.1, 64),
     (torch.bfloat16, 2, 4, 200, 0, 37, 0.0, 64),
+    # the fp32 kernels (3xTF32) at the same edges
+    (torch.float32, 2, 3, 65, 0, None, 0.0, 128),
+    (torch.float32, 2, 3, 65, 1, None, 0.1, 128),
+    (torch.float32, 2, 4, 333, 1, 100, 0.1, 64),
+    (torch.float32, 2, 4, 200, 0, 37, 0.0, 64),
+    (torch.float32, 2, 2, 1, 1, None, 0.0, 128),
+    (torch.float32, 2, 4, 1088, 1, None, 0.0, 128),
 ]
 
 
@@ -436,9 +457,14 @@ def test_ring_kernels_take_the_q_tile_the_python_walk_names(cuda, head_dim):
                                   "bwd_dq", "bwd_dkv"])
     assert all(r["registers"] > 0 and r["ctas_per_sm"] >= 1 for r in res.values())
     assert tattn.RING_FORWARD_TILES == (ttiles.BACKWARD_TILE_ROWS,)
+    # the fp32 backward kernels are 64-row owner tiles too
+    res32 = tattn.kernel_resources(head_dim, "ring", torch.float32)
+    assert sorted(res32) == ["bwd_dkv", "bwd_dq"]
+    assert all(r["registers"] > 0 and r["ctas_per_sm"] >= 1 for r in res32.values())
     out = (ctypes.c_int * 4)()
     for kind in (0, 1, 2):
-        assert library().ring_attention_info(kind, head_dim, 128, out) != 0
+        for dtype in (0, 1):
+            assert library().ring_attention_info(kind, head_dim, 128, dtype, out) != 0
 
 
 def test_ring_kernels_refuse_misaligned_bf16_views(cuda):
@@ -468,3 +494,63 @@ def test_ring_kernels_refuse_misaligned_bf16_views(cuda):
     with pytest.raises(ValueError, match="8-byte aligned"):
         tring.ring_block_grads(ok, ok, rows, rows, ok, ok, acc, odd_acc, *hop)
     assert tring.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("head_dim", tattn.KERNEL_HEAD_DIMS)
+def test_fp32_backward_kernels_report_their_resources(cuda, head_dim):
+    """The fp32 dQ and dK/dV kernels of both pairs are built and report
+    registers, spills, shared memory and CTAs an SM: 384 padded fp32 rows of
+    D + 4 words a CTA (two 64-row owner tiles, two buffers of two streamed
+    ones), and the dK/dV pass its lse and dsum rows, at least one CTA an SM."""
+    tiles = 4 * (head_dim + 4) * 384
+    for kind in ("causal", "ring"):
+        res = tattn.kernel_resources(head_dim, kind, torch.float32)
+        assert sorted(res) == ["bwd_dkv", "bwd_dq"], kind
+        for name, r in res.items():
+            assert 0 < r["registers"] <= 255 and r["ctas_per_sm"] >= 1, (kind, name, r)
+        assert res["bwd_dq"]["smem_bytes"] == tiles
+        assert res["bwd_dkv"]["smem_bytes"] == tiles + 4 * 64 * 4
+
+
+def test_fp32_backward_refuses_misaligned_views(cuda):
+    """The fp32 backward kernels stage tiles by 16-byte copies: an fp32 view
+    off a 16-byte boundary raises before any launch (the fp32 forward, an
+    FMA kernel, takes it)."""
+    from dalle_mtf_tpu_torch.ops import ring_attention as tring
+
+    n = 2 * 2 * 64 * 128
+    f = torch.rand(n + 1, device="cuda")[1:].view(2, 2, 64, 128)
+    assert f.data_ptr() % 16 and f.is_contiguous()
+    out, lse = tattn._forward(f, f, f, None, 0.0, None, True)
+    before = dict(tattn.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn._backward(f, f, f, out, lse, f, None, 0.0, None)
+    assert tattn.KERNEL_LAUNCHES == before
+    ok = torch.zeros((1, 2, 64, 128), device="cuda")
+    rows = torch.zeros((2, 64), device="cuda")
+    acc = torch.zeros_like(ok)
+    shifted = torch.zeros(ok.numel() + 1, device="cuda")[1:].view(ok.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tring.ring_block_grads(shifted, ok, rows, rows, ok, ok, acc, acc.clone(),
+                               64, 128, 64, None, 0.0, 0)
+    odd_acc = torch.zeros(ok.numel() + 1, device="cuda")[1:].view(ok.shape)
+    assert odd_acc.data_ptr() % 8
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        tring.ring_block_grads(ok, ok, rows, rows, ok, ok, acc, odd_acc,
+                               64, 128, 64, None, 0.0, 0)
+
+
+@pytest.mark.parametrize("s,window", [(1, None), (129, 1)])
+def test_fp32_rows_that_see_only_themselves(cuda, s, window):
+    """fp32 at S = 1 and under a window of 1: every row sees only its own
+    key, so out = v (the forward's p = 1), dq and dk are zero up to fp32
+    rounding on both sides, and dv = dO to the fp32 bound (p = 1 is one TF32
+    value, dO is split in two): each 64-long tile within 1e-5 of its max."""
+    q, k, v, g = _uniform((2, 3, s, 64), torch.float32, torch.Generator().manual_seed(s), 4)
+    out, lse = tattn._forward(q, k, v, window, 0.0, 0, with_lse=True)
+    dq, dk, dv = tattn._backward(q, k, v, out, lse, g, window, 0.0, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, v)
+    assert dq.abs().max().item() <= 1e-5 and dk.abs().max().item() <= 1e-5
+    ok, err = _tile_close(dv, g, 1e-5)
+    assert ok, err

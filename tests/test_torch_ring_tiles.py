@@ -1,4 +1,4 @@
-"""The tile walk of ring attention's bf16 per-hop kernels, on the CPU.
+"""The tile walk of ring attention's tensor-core per-hop kernels, on the CPU.
 
 ``dalle_mtf_tpu_torch/ops/attention_tiles.py`` writes the walk of
 ``csrc/ring_attention.cu``'s tensor-core kernels once in Python
@@ -19,7 +19,11 @@ definition of its walk, so here they are held
     interpret mode), with and without hash dropout;
 (c) on the rows that see no key in the hop: m = NEG_INF exactly, l = the
     count of the keys the walk visited below Sk, num their sum of v;
-(d) in bf16, where they round p_v and ds as the one-shot versions do.
+(d) in bf16, where they round p_v and ds as the one-shot versions do;
+(e) the fp32 ring_block_grads kernels' three-product TF32 split against the
+    one-shot fp32 plain version and JAX's ``_ring_block_grads``: each
+    64-long tile within 1e-5 of its own max |plain|, and one TF32 product
+    shown to fail that bound.
 
 The kernel carries its own C++ copy of this arithmetic, which no CPU test can
 see: tests/test_torch_cuda.py holds the built kernels to the one-shot plain
@@ -290,3 +294,115 @@ def test_ring_tiled_versions_round_where_the_kernels_round():
     got_grads = tiles.ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, *args)
     for t, w, dtype in zip(got_grads, want_grads, (torch.bfloat16, torch.float32, torch.float32)):
         assert t.dtype == w.dtype == dtype and _close(t, w, 1e-2)[0]
+
+
+# ------------------------------------------------ the fp32 kernels' 3xTF32 split
+# The fp32 ring_block_grads kernels run the five products on the tensor cores
+# as three TF32 products each (``attention_tiles.split_matmul``). The tiled
+# reference's ``split`` emulates them; held here to the kernels' fp32 bound,
+# each 64-long tile within 1e-5 of its own max |plain| (a tensor zero up to
+# fp32 rounding, max |plain| <= 1e-5, must be so too), and one TF32 product
+# is shown to fail it at the same inputs.
+FP32_TILE_RTOL = 1e-5
+RING_SPLIT_CASES = [  # (S_local, hops back, window, dropout, D): ragged shards, bands, dropout
+    (1, 1, None, 0.0, 128), (63, 0, None, 0.0, 64), (65, 1, None, 0.1, 128),
+    (65, 0, "edge", 0.0, 64), (200, 1, 120, 0.0, 128), (200, 3, "edge", 0.1, 128),
+    (200, 0, 37, 0.1, 64), (129, 1, None, 0.0, 128),
+]
+
+
+def _ring_bound_errors(got, want, keep, rtol=FP32_TILE_RTOL):
+    """{name: error} of dq (on live rows), dk, dv breaking the tile bound."""
+    bad = {}
+    for name, t, w in zip(("dq", "dk", "dv"), (got[0] * keep, *got[1:]),
+                          (want[0] * keep, *want[1:])):
+        if w.abs().max().item() <= 1e-5:  # zero up to fp32 rounding (or no live pair)
+            if not t.abs().max().item() <= 1e-5:
+                bad[name] = ("zero", t.abs().max().item())
+            continue
+        err = tiles.tile_rel_err(t, w)
+        if not err <= rtol:
+            bad[name] = err
+    return bad
+
+
+def _ring_split_case(s, hops, window, rate, d, split):
+    diff = hops * s
+    window = _window(window, s, diff)
+    args = (diff, 3 * s, 3 * s - diff, window, rate, SEED)
+    q, k, v, g = _inputs(s, d, seed=5 * s + hops + d)
+    _, m, l = tring.ring_partial_reference(q, k, v, *args)
+    lse, dsum = _hop_grad_inputs(m, l, s, seed=s + hops)
+    want = tring.ring_block_grads_reference(q, g, lse, dsum, k, v, *args)
+    got = tiles.ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, *args, split=split)
+    return got, want, _live(s, diff, window).reshape(1, 1, s, 1)
+
+
+@pytest.mark.parametrize("s,hops,window,rate,d", RING_SPLIT_CASES)
+def test_ring_tf32x3_split_holds_the_fp32_tile_bound(s, hops, window, rate, d):
+    got, want, keep = _ring_split_case(s, hops, window, rate, d, "tf32x3")
+    for t, w in zip(got, want):
+        assert t.shape == w.shape and t.dtype == w.dtype == torch.float32
+    assert not _ring_bound_errors(got, want, keep)
+
+
+@pytest.mark.parametrize("s,hops,window,rate,d", RING_SPLIT_CASES)
+def test_ring_one_tf32_product_fails_the_fp32_tile_bound(s, hops, window, rate, d):
+    got, want, keep = _ring_split_case(s, hops, window, rate, d, "tf32")
+    assert _ring_bound_errors(got, want, keep)
+
+
+@pytest.mark.parametrize("name,diff,window,rate", JAX_HOPS, ids=[h[0] for h in JAX_HOPS])
+def test_ring_tf32x3_split_holds_the_bound_against_jax_kernels(name, diff, window, rate):
+    """The split's hop gradient against the JAX package's
+    ``_ring_block_grads`` (``_ring_bwd_kernel`` in interpret mode), fp32, one
+    seed on both sides: each 64-long tile within 1e-5 of its own max |JAX|
+    (dq on rows with a live key)."""
+    b, h, s, d = 1, 2, 32, 128
+    rng = np.random.default_rng(7 * diff + int(rate * 100))
+    q, k, v, g = (rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(4))
+    row0 = 96
+    col0, seed = row0 - diff, 7654321
+    args = (diff, row0, col0, window, rate, seed)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    _, m, l = tring.ring_partial_reference(tq, tk, tv, *args)
+    lse, dsum = _hop_grad_inputs(m, l, s, seed=diff + 1)
+    info = jnp.asarray([[diff, row0, col0, seed]], jnp.int32)
+    jgrads = jring._ring_block_grads(
+        jnp.asarray(q), jnp.asarray(g), jnp.asarray(lse.numpy().reshape(b, h, s, 1)),
+        jnp.asarray(dsum.numpy().reshape(b, h, s, 1)), jnp.asarray(k), jnp.asarray(v),
+        info, True, window, rate, h)
+    want = [torch.from_numpy(np.array(t)) for t in jgrads]
+    got = tiles.ring_block_grads_tiled_reference(tq, tg, lse, dsum, tk, tv, *args,
+                                                 split="tf32x3")
+    keep = _live(s, diff, window).reshape(1, 1, s, 1)
+    assert not _ring_bound_errors(got, want, keep)
+
+
+def test_score_products_hold_the_bound_summed_by_step(monkeypatch):
+    """A hop whose last key is seen by one row only (S_local = 65, the
+    diagonal; the inputs of the card test's fp32 case): that key's dk is one
+    ds = p (dp - dsum), which nearly cancels in one head, so the tile holds
+    the score products' error at its own small scale. One accumulator over
+    D = 128 (the tensor cores truncating at every step) puts that tile past
+    1e-5; every k step summed apart, as the kernels sum, holds it."""
+    b, h, s, d = 2, 3, 65, 128
+    gen = torch.Generator().manual_seed(s + h)
+    q, k, v, g = ((torch.rand((b, h, s, d), generator=gen) * 2 - 1) for _ in range(4))
+    args = (0, 3 * s, 3 * s, None, 0.0, SEED)
+    _, m, l = tring.ring_partial_reference(q, k, v, *args)
+    lse = m + torch.log(l.clamp_min(1e-30))
+    dsum = (g * torch.rand((b, h, s, d), generator=gen)).sum(-1).reshape(b * h, s)
+    want = tring.ring_block_grads_reference(q, g, lse, dsum, k, v, *args)
+    keep = torch.ones((1, 1, s, 1))
+
+    def split_errors():
+        got = tiles.ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, *args,
+                                                     split="tf32x3")
+        return _ring_bound_errors(got, want, keep)
+
+    assert not split_errors()
+    by_step = tiles.split_matmul
+    monkeypatch.setattr(tiles, "split_matmul",
+                        lambda a, b_, split=None, chunk=1: by_step(a, b_, split, None))
+    assert "dk" in split_errors()
