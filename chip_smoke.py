@@ -8,10 +8,10 @@ Phases, none of them optional:
 1. Device and build: the card's name and power limit, then the CUDA kernels
    built from the repository's csrc/ sources (one nvcc per source, timed),
    and "resources" lines for each head size of the bf16 causal-attention
-   kernels, the bf16 ring kernels and the fp32 backward kernels of both
+   kernels, the bf16 ring kernels and the fp32 (3xTF32) kernels of both
    pairs: registers a thread, spilled bytes, shared memory a CTA and CTAs an
-   SM of the forward (bf16, under either q tile), the dQ and the dK/dV
-   kernel.
+   SM of the forward (bf16 under either q tile; fp32 on 64 rows), the dQ
+   and the dK/dV kernel.
 2. Kernels against plain, on the card, both times from CUDA events. The
    attention kernels are timed over 20 launches or more, on inputs that
    together exceed the 50 MB L2 (rotating over copies where one set does
@@ -32,11 +32,12 @@ Phases, none of them optional:
    - the [B, H, S, D] forward with hash dropout;
    - ``phase_tile_cases``: the pair at the edges of its tile walk, in bf16
      (the forward under every q tile it is built for: 64 rows, and 128 at
-     D = 128) and in fp32 (the 3xTF32 backward), in both layouts: D = 64
-     with windows that are not a multiple of the 64-key tile, S in {1, 63,
-     65, 129}, a window of 1 and one wider than S, the packed layout with
-     H = 1, with and without hash dropout; each with the per-tile bound, the
-     planted zeroed tile and the two-run bit-equality;
+     D = 128) and in fp32 (the 3xTF32 forward and backward), in both
+     layouts: D = 64 with windows that are not a multiple of the 64-key
+     tile, S in {1, 63, 65, 129}, a window of 1 and one wider than S, the
+     packed layout with H = 1, with and without hash dropout; each with the
+     per-tile bound, the planted zeroed tile and the two-run bit-equality
+     of the forward and of the backward;
    - the [B, H, S, D] pair (``causal_attention_fwd``/``_bwd`` through
      ops/attention.py) against ``attention_reference`` and
      ``attention_backward_reference`` at the shapes of the TPU package's
@@ -233,6 +234,7 @@ TRAIN_STEPS, RESUME_STEPS, TIMED_FROM = 8, 2, 3  # steps 3..8 are timed
 LONG_STEPS, LONG_TIMED_FROM = 6, 3  # dalle_4k: steps 3..6 are timed
 PEAK_BF16_TFLOPS = 989.0  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_FP32_TFLOPS = 67.0  # H100 SXM fp32 outside the tensor cores (data sheet)
+PEAK_TF32_TFLOPS = 494.7  # H100 SXM dense TF32 on the tensor cores (data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 L2_BYTES = 50e6
 CHUNK = 128  # continuous engine: decode steps between admissions
@@ -296,26 +298,32 @@ def same_bits(first, again) -> bool:
 
 
 def device_profile(torch, fn, copies: int, iters: int, names=(), per_call: int = 0,
-                   attempts: int = 3) -> tuple[float, dict]:
+                   attempts: int = 5) -> tuple[float, dict]:
     """(device ms of one ``fn(i)`` call, {kernel name: [events, total µs]})
     with i cycling over ``copies`` inputs: the durations of the kernels and
     copies it ran on the card, summed under torch.profiler over ``iters``
     calls, and what the profiler saw by name. On the H100 machine the
     profiler now and then returns a trace without some or all of the
-    device's events (once, in a whole run, one with none at all), so a trace
-    is kept only when it holds device work and, given kernel ``names``,
-    exactly ``iters * per_call`` events of them, one a launch; a lost trace
-    is reported and taken again, ``attempts`` times at most."""
-    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+    device's events (once, in a whole run, one with none at all; in another,
+    three traces in a row one kernel event short), so each trace is taken
+    after a warm-up cycle of the same calls that the profiler traces and
+    discards (its ``schedule``), and is kept only when it holds device work
+    and, given kernel ``names``, exactly ``iters * per_call`` events of
+    them, one a launch; a lost trace is reported and taken again,
+    ``attempts`` times at most."""
+    from torch.profiler import ProfilerActivity, profile, schedule  # noqa: PLC0415
 
     for i in range(3):
         fn(i % copies)
     torch.cuda.synchronize()
     for attempt in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(i % copies)
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up cycle, then the one kept
+                for i in range(iters):
+                    fn(i % copies)
+                torch.cuda.synchronize()
+                prof.step()
         device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
         by_name = {}
@@ -355,16 +363,27 @@ def roofline(flops: float, nbytes: float, peak_tflops: float = PEAK_BF16_TFLOPS)
                 bound_by="operations" if ops_ms > bytes_ms else "bytes")
 
 
+def attention_bound(flops: float, nbytes: float, elem: int) -> dict:
+    """``roofline`` of an attention kernel's products, ``flops``, on
+    elements of ``elem`` bytes: bf16 at its tensor-core peak; fp32 as the
+    kernels run it, three TF32 products for each (3xTF32) at the TF32 peak,
+    with the bound at the fp32 peak outside the tensor cores beside it,
+    ``bound_ms_fp32_peak`` (what the rows gave before the fp32 kernels moved
+    to the tensor cores)."""
+    if elem != 4:
+        return roofline(flops, nbytes)
+    return dict(**roofline(3 * flops, nbytes, PEAK_TF32_TFLOPS),
+                bound_ms_fp32_peak=roofline(flops, nbytes, PEAK_FP32_TFLOPS)["bound_ms"])
+
+
 def attention_roofline(b, h, s, d, elem, tensors, lse_tensors, matmuls) -> dict:
     """Causal attention over [B, H, S, D]: ``matmuls`` products of 2*D
-    operations per (query, key) pair on or below the diagonal (at the fp32
-    peak for 4-byte elements, else bf16's); ``tensors`` [B, H, S, D] arrays
-    of ``elem`` bytes and ``lse_tensors`` fp32 [B*H, S] rows read or written
-    once."""
+    operations per (query, key) pair on or below the diagonal
+    (``attention_bound``); ``tensors`` [B, H, S, D] arrays of ``elem`` bytes
+    and ``lse_tensors`` fp32 [B*H, S] rows read or written once."""
     pairs = b * h * s * (s + 1) / 2
     nbytes = tensors * b * h * s * d * elem + lse_tensors * b * h * s * 4
-    return roofline(matmuls * 2 * d * pairs, nbytes,
-                    PEAK_FP32_TFLOPS if elem == 4 else PEAK_BF16_TFLOPS)
+    return attention_bound(matmuls * 2 * d * pairs, nbytes, elem)
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -682,7 +701,7 @@ def phase_tile_cases(torch, attn, card):
     """The pair at the edges of its tile walk, in bf16 (the forward under
     every q tile it is built for: 64 rows, and 128 at D = 128; the backward,
     always on 64-row tiles, from each forward's out and lse) and in fp32 (the
-    3xTF32 backward kernels), against the plain versions: D = 64 with
+    3xTF32 forward and backward kernels), against the plain versions: D = 64 with
     windows that are not a multiple of the 64-key tile, S in {1, 63, 65,
     129} (ragged under either tile), a window of 1 and one wider than S, the
     packed layout with H = 1, with and without hash dropout. Bounds as
@@ -693,7 +712,9 @@ def phase_tile_cases(torch, attn, card):
     the plain gradient is zero up to fp32 rounding (a row that sees only its
     own key has ds = p (dp - dsum) with dp = dsum: S = 1, window 1; max
     |plain| <= 1e-5), the kernel's must be too (max |kernel| <= 1e-5) and
-    there is no tile to hold or to plant."""
+    there is no tile to hold or to plant. out and lse of two forward runs
+    must be equal bit for bit too (the fp32 forward's two warp groups are
+    merged in one fixed order)."""
     from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
 
     cases = [  # (name, packed layout, B, H, S, D, window, dropout)
@@ -708,7 +729,7 @@ def phase_tile_cases(torch, attn, card):
         ("packed_h1", True, 2, 1, 200, 128, None, 0.0),
         ("packed_h1_d64_window_37", True, 3, 1, 129, 64, 37, 0.1),
     ]
-    fp32_cases = [  # the same edges for the fp32 backward kernels
+    fp32_cases = [  # the same edges for the fp32 (3xTF32) kernels
         ("fp32_d64_window_37", False, 2, 4, 200, 64, 37, 0.0),
         ("fp32_s1", False, 2, 3, 1, 64, None, 0.0),
         ("fp32_s63_dropout", False, 2, 3, 63, 128, None, 0.1),
@@ -730,12 +751,16 @@ def phase_tile_cases(torch, attn, card):
         if packed:
             pq, pk, pv, pg = (ap._pack(t).contiguous() for t in (q, k, v, g))
             out, lse = ap._forward(pq, pk, pv, h, window, rate, seed, tile_rows=tile)
+            fwd_equal = same_bits((out, lse), ap._forward(pq, pk, pv, h, window, rate, seed,
+                                                          tile_rows=tile))
             grads = ap._backward(pq, pk, pv, out, lse, pg, h, window, rate, seed)
             again = ap._backward(pq, pk, pv, out, lse, pg, h, window, rate, seed)
             out, *grads = (ap._unpack(t, h) for t in (out, *grads))
             again = [ap._unpack(t, h) for t in again]
         else:
             out, lse = attn._forward(q, k, v, window, rate, seed, with_lse=True, tile_rows=tile)
+            fwd_equal = same_bits((out, lse), attn._forward(q, k, v, window, rate, seed,
+                                                            with_lse=True, tile_rows=tile))
             grads = attn._backward(q, k, v, out, lse, g, window, rate, seed)
             again = attn._backward(q, k, v, out, lse, g, window, rate, seed)
         torch.cuda.synchronize()
@@ -759,17 +784,17 @@ def phase_tile_cases(torch, attn, card):
                 bad[n] = errs[n]
         if not any(e.get("planted") for e in errs.values()):
             bad["planted"] = "no tensor showed that a zeroed last tile fails"
-        if bad or not lse_err <= 1e-4 or not same_bits(grads, again):
+        if bad or not lse_err <= 1e-4 or not fwd_equal or not same_bits(grads, again):
             raise AssertionError(
                 f"tile case {name}, {tile}-row q tile: kernels disagree with the plain "
                 f"versions: {bad} (atol {atol} x max(1, |plain|), tiles within {rtol}, a zeroed "
-                f"last tile must fail), lse err {lse_err}, two backward runs bit-equal: "
-                f"{same_bits(grads, again)}; all {errs}")
+                f"last tile must fail), lse err {lse_err}, two forward runs bit-equal: "
+                f"{fwd_equal}, two backward runs: {same_bits(grads, again)}; all {errs}")
         print("kernel", json.dumps(dict(
             card=card, kernel="causal_attention_packed" if packed else "causal_attention",
             shape=name, tile_rows=tile, B=b, H=h, S=s, D=d, dtype=str(dtype), window=window,
             dropout=rate, atol=atol, tile_rtol=rtol, lse_err=lse_err, errs=errs,
-            bit_equal_two_runs=True)), flush=True)
+            bit_equal_two_runs=True, forward_bit_equal_two_runs=True)), flush=True)
 
 
 def phase_ln_kernels(torch, lnm, card):
@@ -1355,7 +1380,6 @@ def phase_ring_kernels(torch, ring, card):
         if window is None and rate == 0.0:  # SDPA: no window, no hash dropout
             lib_fwd, lib_bwd = sdpa_bhsd_ms(torch, [(q, k, v, g)], iters, causal=hops == 0)
         elem, bh = q.element_size(), b * h
-        peak = PEAK_FP32_TFLOPS if elem == 4 else PEAK_BF16_TFLOPS
         common = dict(card=card, shape=name, B=b, H=h, S_local=s, D=d, dtype=str(dtype),
                       diff=hops * s, row0=row0, window=window, dropout=rate,
                       live_pairs_per_head=pairs, tile_rtol=tile_rtol(dtype),
@@ -1369,8 +1393,9 @@ def phase_ring_kernels(torch, ring, card):
                 tile_rel_err=errs["num"]["tile"],
                 m_l_rel_err={n: errs[n] for n in ("m", "l")}, ms=fwd_ms, device_ms=fwd_dev,
                 plain_ms=fwd_plain, library_ms=lib_fwd,
-                **roofline(2 * 2 * d * bh * pairs,
-                           3 * bh * s * d * elem + bh * s * d * 4 + 2 * bh * s * 4, peak)),
+                **attention_bound(2 * 2 * d * bh * pairs,
+                                  3 * bh * s * d * elem + bh * s * d * 4 + 2 * bh * s * 4,
+                                  elem)),
             # reads q, k, v, dO, lse, dsum; writes dq; reads and writes the fp32
             # dk, dv accumulators; five products over the live pairs
             "ring_block_grads": dict(
@@ -1380,8 +1405,9 @@ def phase_ring_kernels(torch, ring, card):
                 tile_rel_errs={n: errs[n]["tile"] for n in ("dq", "dk", "dv")}, ms=bwd_ms,
                 device_ms=bwd_dev, plain_ms=bwd_plain, library_ms=lib_bwd,
                 ms_includes="dQ and dK/dV launches",
-                **roofline(5 * 2 * d * bh * pairs,
-                           5 * bh * s * d * elem + 2 * bh * s * 4 + 4 * bh * s * d * 4, peak)),
+                **attention_bound(5 * 2 * d * bh * pairs,
+                                  5 * bh * s * d * elem + 2 * bh * s * 4 + 4 * bh * s * d * 4,
+                                  elem)),
         }
         for row in rows[name].values():
             print("kernel", json.dumps(row), flush=True)
@@ -2278,7 +2304,7 @@ def main() -> int:
                                            **attn.kernel_resources(d, "ring"))), flush=True)
         for kind, label in (("causal", "causal attention"), ("ring", "ring attention per-hop")):
             print("resources", json.dumps(dict(
-                kernels=f"{label} backward, fp32 (3xTF32)", D=d,
+                kernels=f"{label} forward and backward, fp32 (3xTF32)", D=d,
                 **attn.kernel_resources(d, kind, torch.float32))), flush=True)
     serving = phase_kernel(torch, attn, card)
     phase_tile_cases(torch, attn, card)

@@ -1,16 +1,14 @@
-// Pieces shared by the causal-attention forward and backward kernels: the
-// tile geometry, the strided layout, the mask, the dropout hash and the dtype
-// conversions. Everything here is inline, so each .cu file can include it.
+// Pieces shared by the attention kernels: the tile geometry, the strided
+// layout, the mask and the dropout hash. Everything here is inline, so each
+// .cu file can include it.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace dalle_attn {
 
-constexpr int kBlock = 64;     // rows of a q tile, and keys of a key tile
-constexpr int kThreads = 256;  // 4 threads per tile row
+constexpr int kBlock = 64;  // rows of a q tile, and keys of a key tile
 constexpr float kNegInf = -1e10f;
 
 // Where (b, h, row, d) lies: b*stride_b + h*stride_h + row*stride_r + d. The
@@ -30,23 +28,6 @@ struct Dropout {
   float scale;         // 1 / (1 - rate)
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and back: where the TPU kernels cast an operand to the
-// input dtype before a matmul.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
-
 // causal (col > row) or outside the local window (row - col >= window)
 __device__ __forceinline__ bool is_masked(int row, int col, int window) {
   return col > row || (window > 0 && row - col >= window);
@@ -63,20 +44,6 @@ __device__ __forceinline__ bool dropout_keep(int row, int col, uint32_t seed,
   x *= 0x27D4EB2Fu;
   x ^= x >> 16;
   return (x >> 8) < threshold;
-}
-
-// Rows [r0, r0 + 64) of one (b, h) head into a [64][D+1] fp32 tile; rows at or
-// beyond seq_len load as zeros. All kThreads threads take part.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int64_t base, long long stride_r, int r0,
-                                          int seq_len) {
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
-    const int rr = i / D, dd = i % D;
-    const int gr = r0 + rr;
-    dst[rr * (D + 1) + dd] =
-        gr < seq_len ? to_float(src[base + (int64_t)gr * stride_r + dd]) : 0.f;
-  }
 }
 
 }  // namespace dalle_attn

@@ -84,8 +84,8 @@
 //     are added in a fixed order at the end, through the freed streamed
 //     buffers. With one CTA an SM, four warps measured 1.8-2.0x slower on
 //     an H100.
-//   - Products: each fragment element is split at its load (cvt.rna.tf32.f32
-//     and one subtract); each k step of 8 is three mma.sync.m16n8k8 into a
+//   - Products: each fragment element is split at its load (tf32::split:
+//     integer adds and masks, a min, one subtract); each k step of 8 is three mma.sync.m16n8k8 into a
 //     fresh accumulator, added into the result rounding to nearest (the
 //     tensor cores truncate each mma's sum: one accumulator down a 4352-long
 //     sum measured 6.7e-5 of a tile on an H100, past the 1e-5 bound). The
@@ -95,8 +95,8 @@
 //     stay in registers as in bf16.
 //   - Results: written in fp32 straight from the C fragments, 8-byte stores.
 //   - Registers a thread, spills, CTAs an SM, as nvcc builds them for
-//     sm_90a: D = 128 dQ 197 / 0 / 1, dK/dV 255 / 136 bytes / 1; D = 64 dQ
-//     174 / 0 / 1, dK/dV 194 / 0 / 1 (causal_attention_bwd_info with dtype 0).
+//     sm_90a: D = 128 dQ 192 / 0 / 1, dK/dV 255 / 120 bytes / 1; D = 64 dQ
+//     145 / 0 / 1, dK/dV 192 / 0 / 1 (causal_attention_bwd_info with dtype 0).
 //
 // What bounds it: the operations at the bf16 tensor-core rate; at S >= 1280
 // the bytes are two orders below. What holds the kernels below that rate: the

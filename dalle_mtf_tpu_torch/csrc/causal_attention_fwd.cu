@@ -22,10 +22,14 @@
 //   undropped p. p_v is rounded to the input dtype before the product with v,
 //   where the TPU kernel casts it for the MXU.
 //
-// Two instantiations behind the one entry point:
-//   - float32: the FMA kernel of attention_fma.cuh, unchanged (the tensor
-//     cores' TF32 cannot hold the fp32 callers' 1e-5);
-//   - bfloat16: the tensor-core kernel below.
+// Two instantiations behind the one entry point, both on the tensor cores
+// and both with the walk below:
+//   - bfloat16: mma.sync.m16n8k16 from swizzled bf16 tiles;
+//   - float32 (namespace tc32): mma.sync.m16n8k8 on TF32, every operand split
+//     into two TF32 values and each product taken as three
+//     (attention_tf32.cuh). One TF32 product, about 2^-11 relative, cannot
+//     hold the fp32 callers' 1e-5; the split, about 2^-22, does
+//     (tests/test_torch_attention_tiles.py emulates both on the CPU).
 //
 // The bf16 design. One CTA of 4 warps per (b*h, q tile); a warp owns one or
 // two blocks of 16 q rows, so the q tile has 64 or 128 rows: 128 at D = 128
@@ -64,6 +68,42 @@
 // causal_attention_fwd_info reports them from the built kernel (chip_smoke.py
 // prints the line).
 //
+// The fp32 design differs from the bf16 one where fp32 forces it (the fp32
+// backward's, causal_attention_bwd.cu):
+//   - Tiles: fp32 rows padded to D + 4 words, no swizzle (fragments are plain
+//     32-bit shared loads; the padding keeps them free of bank conflicts);
+//     the q tile, split once into a big and a small tile (tf32::split_tile:
+//     no key tile splits it again, 3-4% faster at loop_fp32's shape on an
+//     H100), and two buffers of a k and a v tile, copied by 16-byte
+//     cp.async: 203 KB a CTA at D = 128, 104 KB at 64. So one 64-row q tile
+//     a CTA.
+//   - Warps: eight, two groups of four over the same 16-row blocks of the q
+//     tile, group h taking keys [32 h, 32 h + 32) of every streamed tile
+//     with its own online softmax (m, l, acc); the groups are merged once at
+//     the end in a fixed order (tf32::merge_halves: m = max(m0, m1), each
+//     group's acc and l scaled by 2^(m_h - m)), so two runs give the same
+//     bits.
+//   - Products: each k and v fragment element split at its load
+//     (tf32::split: integer adds and masks, a min, one subtract); each k step of 8 is three
+//     mma.sync.m16n8k8 into a fresh accumulator, added into the result
+//     rounding to nearest (the tensor cores truncate each mma's sum: one
+//     accumulator down a 4352-long P V sum drifts past 1e-5 of a tile). The
+//     scores' C fragments are the A fragments of p_v V with each 8-key step
+//     taken in a permuted order, so P stays in registers; p_v is not rounded
+//     (fp32).
+//   - Output: written in fp32 straight from the C fragments, 8-byte stores.
+//   - Registers a thread, spills, CTAs an SM, as nvcc builds them for sm_90a:
+//     D = 128: 197, none, 1; D = 64: 140, none, 1 (the registers bound it).
+//     causal_attention_fwd_info with dtype 0 reports them (chip_smoke.py's
+//     "resources" line).
+//   - What bounds it: the operations, three TF32 products for each of the
+//     two (494.7 TFLOP/s dense); at S >= 1280 the bytes are two orders
+//     below. What holds it below that rate, by count: every k and v element
+//     a warp loads costs three ALU operations to split, about as many
+//     issue slots as its share of the mma; a warp's 16 rows use each split
+//     B fragment for one m16n8k8 triple only; with one CTA an SM each
+//     scheduler has two warps.
+//
 // What bounds it. At S >= 1280 (2 * 2 * D operations a live pair) the
 // operations at the bf16 tensor-core rate, two orders above the bytes. What
 // holds the kernel below that rate, by count: mma.sync reaches about two
@@ -82,8 +122,8 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
-#include "attention_fma.cuh"
 #include "attention_mma.cuh"
+#include "attention_tf32.cuh"
 
 using namespace dalle_attn;
 using namespace dalle_attn::mma;
@@ -275,7 +315,156 @@ cudaError_t info(int* out) {
                      fwd_smem_bytes<D, WARPS, MB>(), out);
 }
 
+// ------------------------------------------ fp32: 3xTF32 on the tensor cores
+
+namespace tc32 {
+
+using namespace dalle_attn::tf32;
+
+// Two groups of four warps: each warp owns 16 rows of the 64-row q tile, and
+// group h takes keys [32 h, 32 h + 32) of every streamed tile.
+constexpr int kRows = 64;
+constexpr int kHalf = 32;
+constexpr int kThr = 256;
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // the q tile split in two (big, small), and two buffers of a k and a v
+  // tile, padded fp32
+  return (size_t)tile_bytes<D>(2 * kRows + 4 * kStream);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThr)
+attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                     Layout lay, int window, Dropout drop, float scale_log2) {
+  constexpr int kTile = kStream * (D + 4);  // words of a streamed tile
+
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);
+  float* sq_small = sq + kRows * (D + 4);   // sq holds q's big part once split
+  float* skv = sq_small + kRows * (D + 4);  // buffer b: k at skv + b * 2 tiles, v one tile on
+
+  const int seq_len = lay.seq_len;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // deepest tiles first
+  const int64_t base = lay.base(bh);
+  const uint32_t seed = drop.seed + (uint32_t)bh;  // wrapping, as XLA's int32 add
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int half = warp >> 2;             // this warp's group: its half of the streamed tile
+  const int warp_row0 = (warp & 3) * 16;  // this warp's first row of the tile
+  const int row0 = q0 + warp_row0;        // and of the sequence
+
+  // ops/attention_tiles.py::key_tile_range
+  const int q_last = min(q0 + kRows, seq_len) - 1;
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_first / kStream, t_end = q_last / kStream;
+
+  load_tile_async<D, kThr>(smem_u32(sq), q, base, lay.stride_r, q0, kRows, seq_len);
+  cp_async_commit();
+  load_tile_async<D, kThr>(smem_u32(skv), k, base, lay.stride_r, t_begin * kStream, kStream,
+                           seq_len);
+  load_tile_async<D, kThr>(smem_u32(skv + kTile), v, base, lay.stride_r, t_begin * kStream,
+                           kStream, seq_len);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // q has landed (the first k and v tiles may still be in flight)
+  split_tile<D, kThr>(sq, sq_small, kRows);  // the loop's first __syncthreads orders it
+
+  float acc[D / 8][4];
+  // rows g (index 0) and g + 8 (index 1) of the warp's 16, this group's
+  // keys only, in the log2 domain
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  tf32::zero(acc);
+
+  for (int t = t_begin; t <= t_end; ++t) {
+    const float* sk = skv + ((t - t_begin) & 1) * 2 * kTile;
+    const float* sv = sk + kTile;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if (t < t_end) {
+      float* nk = skv + ((t + 1 - t_begin) & 1) * 2 * kTile;
+      load_tile_async<D, kThr>(smem_u32(nk), k, base, lay.stride_r, (t + 1) * kStream, kStream,
+                               seq_len);
+      load_tile_async<D, kThr>(smem_u32(nk + kTile), v, base, lay.stride_r, (t + 1) * kStream,
+                               kStream, seq_len);
+      cp_async_commit();
+    }
+    const int c0 = t * kStream;
+    const int h0 = c0 + half * kHalf;  // this group's first key
+    // ops/attention_tiles.py::tile_needs_mask
+    const bool edge = c0 + kStream - 1 > q0 || (window > 0 && q0 + kRows - 1 - c0 >= window);
+
+    float s[kHalf / 8][4];
+    tf32::zero(s);
+    tf32::product_nt<D, kHalf, 2>(s, sq, sq_small, warp_row0, sk, half * kHalf, lane);
+#pragma unroll
+    for (int n = 0; n < kHalf / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] *= scale_log2;
+        if (edge && is_masked(row0 + frag_row(lane, e), h0 + frag_col(lane, n, e), window))
+          s[n][e] = kNegInf;
+      }
+    softmax_step<D, kHalf>(s, m, l, acc, drop, [&](int n, int e) {
+      return dropout_keep(row0 + frag_row(lane, e), h0 + frag_col(lane, n, e), seed,
+                          drop.threshold);
+    });
+    tf32::product_pn<D, kHalf>(acc, s, sv, half * kHalf, lane);
+  }
+
+  __syncthreads();  // every warp is done with the streamed tiles: group 1 parks there
+  merge_halves<D>(acc, m, l, skv, half, warp_row0, lane);
+  if (half == 1) return;
+
+  // o = acc / l_safe in fp32 straight from the C fragments; every row < S
+  // saw its own key, so m is finite
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_safe[r] = fmaxf(l[r], 1e-30f);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    acc[n][0] /= l_safe[0];
+    acc[n][1] /= l_safe[0];
+    acc[n][2] /= l_safe[1];
+    acc[n][3] /= l_safe[1];
+  }
+  store_rows<D>(acc, 1.f, o, base, lay.stride_r, row0, seq_len, lane);
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + (lane >> 2) + r * 8;
+      if (row < seq_len) lse[(int64_t)bh * seq_len + row] = m[r] * kLn2 + logf(l_safe[r]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
+                   const Layout& lay, int window, const Dropout& drop, cudaStream_t stream) {
+  auto kernel = attention_fwd_kernel<D>;
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(lay.batch * lay.heads, (lay.seq_len + kRows - 1) / kRows);
+  kernel<<<grid, kThr, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), lay, window, drop,
+      kLog2e / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t info(int* out) {
+  return kernel_info(attention_fwd_kernel<D>, kThr, smem_bytes<D>(), out);
+}
+
+}  // namespace tc32
+
 // tile_rows: 0 takes the q tile by forward_tile_rows, 64 or 128 forces it
+// (bf16; the fp32 kernel has 64-row tiles only)
 int forward(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
             int heads, int seq_len, int head_dim, long long stride_b, long long stride_h,
             long long stride_r, int dtype, int window, int dropout, unsigned int seed,
@@ -286,14 +475,17 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse, int
   const Layout lay{batch, heads, seq_len, stride_b, stride_h, stride_r};
   const Dropout drop{dropout != 0, seed, keep_threshold, keep_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return (int)fp32::launch_fwd<float, 64>(q, k, v, o, lse, lay, window, drop, s);
-  if (dtype == 0 && head_dim == 128)
-    return (int)fp32::launch_fwd<float, 128>(q, k, v, o, lse, lay, window, drop, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  // 16-byte copies: 16-byte-aligned pointers, rows of whole 16-byte chunks
+  // (4 fp32 or 8 bf16 elements)
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)) ||
-      ((stride_b | stride_h | stride_r) & 7) != 0)
+      ((stride_b | stride_h | stride_r) & (dtype == 0 ? 3 : 7)) != 0)
     return (int)cudaErrorMisalignedAddress;
+  if (dtype == 0 && (tile_rows == 0 || tile_rows == tc32::kRows)) {
+    if (head_dim == 64) return (int)tc32::launch<64>(q, k, v, o, lse, lay, window, drop, s);
+    if (head_dim == 128) return (int)tc32::launch<128>(q, k, v, o, lse, lay, window, drop, s);
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int rows = tile_rows != 0 ? tile_rows : forward_tile_rows(head_dim, batch * heads, seq_len);
   // 64 rows: 4 warps of one 16-row block; 128 rows (D = 128 only): 4 warps of two
 #define DALLE_FWD(D, MB) (int)launch_mma<D, 4, MB>(q, k, v, o, lse, lay, window, drop, s)
@@ -309,8 +501,9 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse, int
 // q, k, v, o share one layout: element (b, h, row, d) lies at
 // b*stride_b + h*stride_h + row*stride_r + d. [B, H, S, D] contiguous is
 // (H*S*D, S*D, D); packed [B, S, H*D] is (S*H*D, D, H*D).
-// dtype: 0 = float32, 1 = bfloat16 (pointers 16-byte aligned, strides
-// multiples of 8). window <= 0: no local window. lse may be null.
+// dtype: 0 = float32 (pointers 16-byte aligned, strides multiples of 4),
+// 1 = bfloat16 (pointers 16-byte aligned, strides multiples of 8).
+// window <= 0: no local window. lse may be null.
 // dropout != 0 enables the hash dropout (keep when hash >> 8 <
 // keep_threshold, kept weights times keep_scale). Returns the cudaError_t of
 // the launch (0 on success).
@@ -325,7 +518,8 @@ extern "C" int causal_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // causal_attention_fwd with the bf16 q tile given (64, or 128 at D = 128)
-// instead of chosen by shape: for tests and measurements of either tile.
+// instead of chosen by shape: for tests and measurements of either tile
+// (fp32: 64 only).
 extern "C" int causal_attention_fwd_tiled(const void* q, const void* k, const void* v, void* o,
                                           void* lse, int batch, int heads, int seq_len,
                                           int head_dim, long long stride_b, long long stride_h,
@@ -344,9 +538,15 @@ extern "C" int causal_attention_fwd_tile_rows(int head_dim, int programs, int se
 }
 
 // out[0..4) = registers a thread, local (spill) bytes a thread, dynamic
-// shared memory a CTA, CTAs an SM, of the bf16 forward kernel for head_dim
-// and tile rows (64, or 128 at D = 128).
-extern "C" int causal_attention_fwd_info(int head_dim, int tile_rows, int* out) {
+// shared memory a CTA, CTAs an SM, of the forward kernel for head_dim, tile
+// rows and dtype (0 = float32: 64 rows; 1 = bfloat16: 64, or 128 at
+// D = 128).
+extern "C" int causal_attention_fwd_info(int head_dim, int tile_rows, int dtype, int* out) {
+  if (dtype == 0 && tile_rows == tc32::kRows) {
+    if (head_dim == 64) return (int)tc32::info<64>(out);
+    if (head_dim == 128) return (int)tc32::info<128>(out);
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (head_dim == 64 && tile_rows == 64) return (int)info<64, 4, 1>(out);
   if (head_dim == 128 && tile_rows == 64) return (int)info<128, 4, 1>(out);
   if (head_dim == 128 && tile_rows == 128) return (int)info<128, 4, 2>(out);

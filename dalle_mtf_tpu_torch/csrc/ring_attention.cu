@@ -50,16 +50,16 @@
 // Two instantiations behind each entry point:
 //   - bfloat16: the tensor-core kernels (namespace tc), built from the pieces
 //     of attention_mma.cuh that the causal pair uses;
-//   - float32: ring_block_grads on the tensor cores too (namespace tc32, the
-//     design of causal_attention_bwd.cu's fp32 kernels: the three-product
-//     TF32 split of attention_tf32.cuh, which holds the fp32 callers' 1e-5
-//     where one TF32 product cannot, each k step summed apart; fp32 tiles
-//     padded to D + 4 words; two groups of four warps, one a half of every
-//     streamed tile, their sums added in one fixed order; dq written and the
-//     accumulators added in fp32 from the C fragments, one add an element a
-//     launch). ring_partial's fp32 instantiation is still the FMA kernel
-//     below (256 threads, 4 a tile row, fp32 tiles [64][D+1] in shared
-//     memory), not yet redesigned.
+//   - float32: on the tensor cores too (namespace tc32, the design of the
+//     causal pair's fp32 kernels: the three-product TF32 split of
+//     attention_tf32.cuh, which holds the fp32 callers' 1e-5 where one TF32
+//     product cannot, each k step summed apart; fp32 tiles padded to D + 4
+//     words; two groups of four warps, one a half of every streamed tile,
+//     combined in one fixed order at the end: in ring_partial each group runs
+//     its own online softmax and tf32::merge_halves rescales the two to the
+//     common max, so the dead-row convention holds across the halves; num,
+//     dq written and the accumulators added in fp32 from the C fragments, one
+//     add an element a launch).
 //
 // What bounds them. At the ring slice's shapes (B*H = 32, Sq = Sk = 1088,
 // D = 128, bf16) a past hop is 37.9 M live pairs: 2 products of 2 D
@@ -120,8 +120,12 @@
 // for sm_90a: D = 128: forward 168, 80 KB, 2; dQ 176, 96 KB, 2; dK/dV 254,
 // 97 KB, 2 (no spills). D = 64: forward 127, 40 KB, 4; dQ 130, 48 KB, 3;
 // dK/dV 168, 49 KB, 3. The fp32 dQ and dK/dV kernels (eight warps): D = 128
-// 196 and 255 registers (112 bytes spilled), 203 KB, 1; D = 64 143 and 188,
-// 104 KB, 1.
+// 199 and 255 registers (128 bytes spilled), 203 KB, 1; D = 64 143 and 187,
+// 104 KB, 1. The fp32 forward (eight warps, the q tile split once as in
+// causal_attention_fwd.cu's): D = 128 160 registers, 203 KB, 1; D = 64 144,
+// 104 KB, 1; no spills. Its bound: the operations, three TF32 products for
+// each of the two (494.7 TFLOP/s dense); at the ring shard's past hop its
+// 544 equal CTAs on 132 single-CTA SMs leave a fifth wave 12% full.
 // ring_attention_info reports them from the built kernels (chip_smoke.py
 // prints the "resources" line).
 
@@ -137,18 +141,11 @@ using namespace dalle_attn;
 
 namespace {
 
-constexpr int kLdP = kBlock + 1;
-constexpr int kColsPerThread = kBlock / 4;
-
 // The global hop: local sizes, the offsets and the window.
 struct Hop {
   int s_q, s_k;
   int diff, row0, col0, window;
-  __device__ __forceinline__ bool masked(int r, int c) const {
-    return c >= s_k || r >= s_q || c - r > diff || (window > 0 && (r - c) + diff >= window);
-  }
-  // the causal and window bands alone (the tensor-core kernels test the
-  // shard ends apart)
+  // the causal and window bands (the kernels test the shard ends apart)
   __device__ __forceinline__ bool band_masked(int r, int c) const {
     return c - r > diff || (window > 0 && (r - c) + diff >= window);
   }
@@ -161,11 +158,6 @@ struct Hop {
   }
 };
 
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (size_t)(3 * kBlock * (D + 1) + kBlock * kLdP);
-}
-
 // Key tiles [*t_begin, *t_end] holding a live key for local rows [q0, q_last]
 // (ops/attention_tiles.py::ring_key_tile_range).
 __device__ __forceinline__ void key_tiles(const Hop& hop, int q0, int q_last, int* t_begin,
@@ -176,130 +168,9 @@ __device__ __forceinline__ void key_tiles(const Hop& hop, int q0, int q_last, in
   *t_end = c_hi < c_lo ? *t_begin - 1 : c_hi / kBlock;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-ring_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, float* __restrict__ num,
-                    float* __restrict__ m_out, float* __restrict__ l_out, Hop hop,
-                    Dropout drop, float scale) {
-  constexpr int kLd = D + 1;
-  constexpr int kDimsPerThread = D / 4;
-
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sk = sq + kBlock * kLd;
-  float* sv = sk + kBlock * kLd;
-  float* sp = sv + kBlock * kLd;
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlock;
-  const int64_t q_base = (int64_t)bh * hop.s_q * D;
-  const int64_t k_base = (int64_t)bh * hop.s_k * D;
-  const uint32_t seed = drop.seed + (uint32_t)bh;  // wrapping, as XLA's int32 add
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;
-  const int quad = tid & 3;
-  const int row = q0 + r;
-
-  load_tile<T, D>(sq, q, q_base, D, q0, hop.s_q);
-
-  float acc[kDimsPerThread];
-#pragma unroll
-  for (int j = 0; j < kDimsPerThread; ++j) acc[j] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  int t_begin, t_end;
-  key_tiles(hop, q0, min(q0 + kBlock, hop.s_q) - 1, &t_begin, &t_end);
-
-  for (int t = t_begin; t <= t_end; ++t) {
-    const int c0 = t * kBlock;
-    __syncthreads();  // q stored; previous tile's k/v/p reads finished
-    load_tile<T, D>(sk, k, k_base, D, c0, hop.s_k);
-    load_tile<T, D>(sv, v, k_base, D, c0, hop.s_k);
-    __syncthreads();
-
-    float s[kColsPerThread];
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) s[j] = 0.f;
-    const float* qr = sq + r * kLd;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qr[d];
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j)
-        s[j] = fmaf(qv, sk[(quad + 4 * j) * kLd + d], s[j]);
-    }
-
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int col = c0 + quad + 4 * j;
-      s[j] = hop.masked(row, col) ? kNegInf : s[j] * scale;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    float p_sum = 0.f;
-    float* pr = sp + r * kLdP;
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int col = c0 + quad + 4 * j;
-      // a key beyond Sk is no key at all: it adds nothing to l
-      const float p = col < hop.s_k ? expf(s[j] - m_new) : 0.f;
-      p_sum += p;
-      float p_v = p;
-      if (drop.enabled)
-        p_v = dropout_keep(hop.row0 + row, hop.col0 + col, seed, drop.threshold) ? p * drop.scale
-                                                                                  : 0.f;
-      pr[quad + 4 * j] = round_to<T>(p_v);
-    }
-    p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 1);
-    p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 2);
-    l = l * alpha + p_sum;
-    m = m_new;
-#pragma unroll
-    for (int j = 0; j < kDimsPerThread; ++j) acc[j] *= alpha;
-    __syncwarp();  // a row's p is written and read by the same 4 lanes
-
-    for (int c = 0; c < kBlock; ++c) {
-      const float p = pr[c];
-      const float* vr = sv + c * kLd;
-#pragma unroll
-      for (int j = 0; j < kDimsPerThread; ++j) acc[j] = fmaf(p, vr[quad + 4 * j], acc[j]);
-    }
-  }
-
-  if (row < hop.s_q) {
-    float* nrow = num + q_base + (int64_t)row * D;
-#pragma unroll
-    for (int j = 0; j < kDimsPerThread; ++j) nrow[quad + 4 * j] = acc[j];
-    if (quad == 0) {
-      m_out[(int64_t)bh * hop.s_q + row] = m;
-      l_out[(int64_t)bh * hop.s_q + row] = l;
-    }
-  }
-}
-
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <typename T, int D>
-cudaError_t launch_partial(const void* q, const void* k, const void* v, void* num, void* m,
-                           void* l, int bh, const Hop& hop, const Dropout& drop,
-                           cudaStream_t stream) {
-  auto kernel = ring_partial_kernel<T, D>;
-  constexpr size_t smem = fwd_smem_bytes<D>();
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (hop.s_q + kBlock - 1) / kBlock);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<float*>(num), static_cast<float*>(m), static_cast<float*>(l), hop, drop,
-      1.0f / sqrtf((float)D));
-  return cudaGetLastError();
 }
 
 bool bad_shape(int bh, int s_q, int s_k) {
@@ -797,6 +668,13 @@ using tc::kOwner;
 constexpr int kThr = 2 * tc::kThr;
 
 template <int D>
+constexpr size_t fwd_smem_bytes() {
+  // the q tile split in two (big, small), and two buffers of a k and a v
+  // tile, padded fp32
+  return (size_t)tile_bytes<D>(2 * kOwner + 4 * kStream);
+}
+
+template <int D>
 constexpr size_t dq_smem_bytes() {
   // q and dO owner tiles, two buffers of a k and a v tile, padded fp32
   return (size_t)tile_bytes<D>(2 * kOwner + 4 * kStream);
@@ -807,6 +685,108 @@ constexpr size_t dkv_smem_bytes() {
   // k and v owner tiles, two buffers of a q and a dO tile, padded fp32; two
   // buffers of lse and dsum
   return (size_t)tile_bytes<D>(2 * kOwner + 4 * kStream) + 4 * kStream * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThr)
+ring_partial_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ num,
+                    float* __restrict__ m_out, float* __restrict__ l_out, Hop hop, Dropout drop,
+                    float scale_log2) {
+  constexpr int kTile = kStream * (D + 4);  // words of a streamed tile
+
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);
+  float* sq_small = sq + kOwner * (D + 4);   // sq holds q's big part once split
+  float* skv = sq_small + kOwner * (D + 4);  // buffer b: k at skv + b * 2 tiles, v one tile on
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwner;  // deepest tiles first
+  const int64_t q_base = (int64_t)bh * hop.s_q * D;
+  const int64_t k_base = (int64_t)bh * hop.s_k * D;
+  const uint32_t seed = drop.seed + (uint32_t)bh;  // wrapping, as XLA's int32 add
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int half = warp >> 2;             // this warp's group: its half of the streamed tile
+  const int warp_row0 = (warp & 3) * 16;  // this warp's first row of the tile
+  const int row0 = q0 + warp_row0;        // and of the local shard
+
+  int t_begin, t_end;  // ops/attention_tiles.py::ring_key_tile_range
+  key_tiles(hop, q0, min(q0 + kOwner, hop.s_q) - 1, &t_begin, &t_end);
+
+  load_tile_async<D, kThr>(smem_u32(sq), q, q_base, D, q0, kOwner, hop.s_q);
+  cp_async_commit();
+  if (t_begin <= t_end) {
+    load_tile_async<D, kThr>(smem_u32(skv), k, k_base, D, t_begin * kStream, kStream, hop.s_k);
+    load_tile_async<D, kThr>(smem_u32(skv + kTile), v, k_base, D, t_begin * kStream, kStream,
+                             hop.s_k);
+  }
+  cp_async_commit();  // (an empty group when no key tile is visited)
+  cp_async_wait<1>();
+  __syncthreads();  // q has landed (the first k and v tiles may still be in flight)
+  split_tile<D, kThr>(sq, sq_small, kOwner);  // the loop's first __syncthreads orders it
+
+  float acc[D / 8][4];
+  // rows g (index 0) and g + 8 (index 1) of the warp's 16, this group's keys
+  // only, in the log2 domain (scores times D^-0.5 log2 e)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  tf32::zero(acc);
+
+  for (int t = t_begin; t <= t_end; ++t) {
+    const float* sk = skv + ((t - t_begin) & 1) * 2 * kTile;
+    const float* sv = sk + kTile;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if (t < t_end) {
+      float* nk = skv + ((t + 1 - t_begin) & 1) * 2 * kTile;
+      load_tile_async<D, kThr>(smem_u32(nk), k, k_base, D, (t + 1) * kStream, kStream, hop.s_k);
+      load_tile_async<D, kThr>(smem_u32(nk + kTile), v, k_base, D, (t + 1) * kStream, kStream,
+                               hop.s_k);
+      cp_async_commit();
+    }
+    const int c0 = t * kStream;
+    const int h0 = c0 + half * kHalf;  // this group's first key
+    // ops/attention_tiles.py::ring_tile_needs_mask
+    const bool edge = hop.crosses(q0, kOwner, c0, kStream, false);
+
+    float s[kHalf / 8][4];
+    tf32::zero(s);
+    tf32::product_nt<D, kHalf, D / 8>(s, sq, sq_small, warp_row0, sk, half * kHalf, lane);
+#pragma unroll
+    for (int n = 0; n < kHalf / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] *= scale_log2;
+        if (edge) {
+          const int r = row0 + frag_row(lane, e), c = h0 + frag_col(lane, n, e);
+          // a key beyond Sk is no key at all: p = exp2(-inf) = 0 even in a
+          // row whose max is still NEG_INF, so it adds nothing to l
+          if (c >= hop.s_k) s[n][e] = __int_as_float(0xff800000);  // -inf
+          else if (hop.band_masked(r, c)) s[n][e] = kNegInf;
+        }
+      }
+    softmax_step<D, kHalf>(s, m, l, acc, drop, [&](int n, int e) {
+      return dropout_keep(hop.row0 + row0 + frag_row(lane, e), hop.col0 + h0 + frag_col(lane, n, e),
+                          seed, drop.threshold);
+    });
+    tf32::product_pn<D, kHalf>(acc, s, sv, half * kHalf, lane);
+  }
+  __syncthreads();  // every warp is done with the streamed tiles: group 1 parks there
+  merge_halves<D>(acc, m, l, skv, half, warp_row0, lane);
+  if (half == 1) return;
+
+  // num in fp32 straight from the C fragments (zero for a q tile that sees no
+  // key tile); m in the natural log domain, a row that saw no live key keeps
+  // m = NEG_INF itself
+  store_rows<D>(acc, 1.f, num, q_base, D, row0, hop.s_q, lane);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + (lane >> 2) + r * 8;
+      if (row >= hop.s_q) continue;
+      m_out[(int64_t)bh * hop.s_q + row] = m[r] == kNegInf ? kNegInf : m[r] * kLn2;
+      l_out[(int64_t)bh * hop.s_q + row] = l[r];
+    }
+  }
 }
 
 template <int D>
@@ -1045,6 +1025,20 @@ ring_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
+cudaError_t launch_partial(const void* q, const void* k, const void* v, void* num, void* m,
+                           void* l, int bh, const Hop& hop, const Dropout& drop,
+                           cudaStream_t stream) {
+  auto kernel = ring_partial_kernel<D>;
+  cudaError_t err = set_smem(kernel, fwd_smem_bytes<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(bh, (hop.s_q + kOwner - 1) / kOwner), kThr, fwd_smem_bytes<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(num), static_cast<float*>(m), static_cast<float*>(l), hop, drop,
+      kLog2e / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_grads(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* dsum, void* dq, void* dk_acc,
                          void* dv_acc, int bh, const Hop& hop, const Dropout& drop,
@@ -1074,10 +1068,11 @@ cudaError_t launch_grads(const void* q, const void* k, const void* v, const void
   return cudaGetLastError();
 }
 
-// kind 1: dQ; 2: dK/dV (the fp32 forward is not a tensor-core kernel)
+// kind 0: the forward; 1: dQ; 2: dK/dV; all on 64-row owner tiles
 template <int D>
 cudaError_t info(int kind, int tile_rows, int* out) {
   if (tile_rows != kOwner) return cudaErrorInvalidValue;
+  if (kind == 0) return kernel_info(ring_partial_kernel<D>, kThr, fwd_smem_bytes<D>(), out);
   if (kind == 1) return kernel_info(ring_dq_kernel<D>, kThr, dq_smem_bytes<D>(), out);
   if (kind == 2) return kernel_info(ring_dkv_kernel<D>, kThr, dkv_smem_bytes<D>(), out);
   return cudaErrorInvalidValue;
@@ -1106,15 +1101,15 @@ extern "C" int ring_partial(const void* q, const void* k, const void* v, void* n
   const Hop hop{s_q, s_k, diff, row0, col0, window};
   const Dropout drop{dropout != 0, seed, keep_threshold, keep_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return (int)launch_partial<float, 64>(q, k, v, num, m, l, bh, hop, drop, s);
-  if (dtype == 0 && head_dim == 128)
-    return (int)launch_partial<float, 128>(q, k, v, num, m, l, bh, hop, drop, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (!(mma::aligned16(q) && mma::aligned16(k) && mma::aligned16(v) && aligned8(num)))
     return (int)cudaErrorMisalignedAddress;
-  if (head_dim == 64) return (int)tc::launch_partial<64>(q, k, v, num, m, l, bh, hop, drop, s);
-  if (head_dim == 128) return (int)tc::launch_partial<128>(q, k, v, num, m, l, bh, hop, drop, s);
+#define DALLE_RING_FWD(NS, D) NS::launch_partial<D>(q, k, v, num, m, l, bh, hop, drop, s)
+  if (dtype == 0 && head_dim == 64) return (int)DALLE_RING_FWD(tc32, 64);
+  if (dtype == 0 && head_dim == 128) return (int)DALLE_RING_FWD(tc32, 128);
+  if (head_dim == 64) return (int)DALLE_RING_FWD(tc, 64);
+  if (head_dim == 128) return (int)DALLE_RING_FWD(tc, 128);
+#undef DALLE_RING_FWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1149,7 +1144,7 @@ extern "C" int ring_block_grads(const void* q, const void* k, const void* v,
 
 // out[0..4) = registers a thread, local (spill) bytes a thread, dynamic
 // shared memory a CTA, CTAs an SM, of a ring kernel on the tensor cores: kind
-// 0 the forward (bf16 only), 1 the dQ and 2 the dK/dV kernel, of dtype 0
+// 0 the forward, 1 the dQ and 2 the dK/dV kernel, of dtype 0
 // (float32) or 1 (bfloat16), each built for tile_rows = 64 owner rows only
 // (any other value is refused).
 extern "C" int ring_attention_info(int kind, int head_dim, int tile_rows, int dtype, int* out) {

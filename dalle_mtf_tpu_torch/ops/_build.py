@@ -43,8 +43,8 @@ _SIGNATURES = {
     + [_I, _I, _I, _U, _U, _F, _P, _I],
     # head_dim, batch * heads, seq_len -> the q tile's rows (not an error code)
     "causal_attention_fwd_tile_rows": [_I, _I, _I],
-    # head_dim, tile_rows, out[4]
-    "causal_attention_fwd_info": [_I, _I, _P],
+    # head_dim, tile_rows, dtype, out[4]
+    "causal_attention_fwd_info": [_I, _I, _I, _P],
     # pass (0 dQ, 1 dK/dV), head_dim, dtype, out[4]
     "causal_attention_bwd_info": [_I, _I, _I, _P],
     # x, w, scale, out, partial; M, K, N, m_tile, k_slice, splits; stream

@@ -185,6 +185,10 @@ def attention_backward_reference(q, k, v, out, lse, g, window=None,
 # always takes 64); the rule that picks one is csrc/attention_mma.cuh's
 # forward_tile_rows
 FORWARD_TILES = {64: (64,), 128: (64, 128)}
+# the fp32 forwards' q tile (csrc/causal_attention_fwd.cu's and
+# csrc/ring_attention.cu's tc32 kernels), at either D: one CTA of two warp
+# groups, not chosen by shape
+FP32_FORWARD_TILES = (64,)
 # the bf16 ring forward's q tile (csrc/ring_attention.cu): 64 rows at either
 # D (128 measured slower at every hop of the ring shard, so it is not built)
 RING_FORWARD_TILES = (64,)
@@ -289,13 +293,12 @@ def causal_attention(
     return (out, lse) if with_lse else out
 
 
-def check_kernel_inputs(name: str, tensors, head_dim: int, copies16: bool = False) -> None:
-    """The checks every kernel wrapper makes before a launch: one CUDA
-    device, one dtype the kernels take, one layout, unit stride on D and,
-    where the tiles are staged by 16-byte copies (bf16 always; fp32 with
-    ``copies16``, the backward kernels), 16-byte-aligned pointers and
-    strides of whole 16-byte chunks. A view that breaks these raises; it is
-    not copied silently."""
+def check_kernel_inputs(name: str, tensors, head_dim: int) -> None:
+    """The checks every attention kernel's wrapper makes before a launch:
+    one CUDA device, one dtype the kernels take, one layout, unit stride on
+    D and, since every kernel stages its tiles by 16-byte copies (bf16 and
+    fp32 alike), 16-byte-aligned pointers and strides of whole 16-byte
+    chunks. A view that breaks these raises; it is not copied silently."""
     first = tensors[0]
     if first.dtype not in KERNEL_DTYPES or any(t.dtype != first.dtype for t in tensors):
         raise ValueError(
@@ -309,14 +312,13 @@ def check_kernel_inputs(name: str, tensors, head_dim: int, copies16: bool = Fals
         raise ValueError(f"{name}: inputs must share one shape and layout")
     if first.stride(-1) != 1:
         raise ValueError(f"{name}: the head dimension must be contiguous")
-    if first.dtype == torch.bfloat16 or copies16:
-        chunk = 16 // first.element_size()  # elements of a 16-byte copy
-        for t in tensors:
-            if t.data_ptr() % 16 or any(st % chunk for st in t.stride()[:-1]):
-                raise ValueError(
-                    f"{name}: {str(first.dtype).removeprefix('torch.')} inputs must be 16-byte "
-                    f"aligned (data_ptr {t.data_ptr():#x}, strides {t.stride()}, storage "
-                    f"offset {t.storage_offset()}); make the view contiguous first")
+    chunk = 16 // first.element_size()  # elements of a 16-byte copy
+    for t in tensors:
+        if t.data_ptr() % 16 or any(st % chunk for st in t.stride()[:-1]):
+            raise ValueError(
+                f"{name}: {str(first.dtype).removeprefix('torch.')} inputs must be 16-byte "
+                f"aligned (data_ptr {t.data_ptr():#x}, strides {t.stride()}, storage "
+                f"offset {t.storage_offset()}); make the view contiguous first")
 
 
 def dropout_args(rate: float, seed: int | None) -> tuple[int, int, int, float]:
@@ -369,7 +371,7 @@ def launch_backward(q, k, v, out, lse, g, dsum, batch, heads, seq_len, head_dim,
     q, k, v, out and dO of one strided layout, with the forward's fp32 lse
     and dsum = rowsum(dO * O), both contiguous [batch*heads, seq_len].
     Returns dq, dk, dv in q's layout."""
-    check_kernel_inputs("causal_attention_bwd", (q, k, v, out, g), head_dim, copies16=True)
+    check_kernel_inputs("causal_attention_bwd", (q, k, v, out, g), head_dim)
     for name, t in (("lse", lse), ("dsum", dsum)):
         if (t.shape != (batch * heads, seq_len) or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != q.device):
@@ -408,9 +410,9 @@ def kernel_resources(head_dim: int, kind: str = "causal",
                      dtype: torch.dtype = torch.bfloat16) -> dict[str, dict[str, int]]:
     """What the built tensor-core kernels of ``kind`` ("causal": the causal
     pair; "ring": ring attention's per-hop pair) take at ``head_dim`` and
-    ``dtype``: {"fwd_64" | "fwd_128" (the bf16 forward by q tile; 128 for
-    the causal pair at D = 128 only; the fp32 forwards are FMA kernels, not
-    reported) | "bwd_dq" | "bwd_dkv": {"registers", "local_bytes" (spills),
+    ``dtype``: {"fwd_64" | "fwd_128" (the forward by q tile; 128 for the
+    causal pair's bf16 kernel at D = 128 only, the fp32 forwards 64 rows) |
+    "bwd_dq" | "bwd_dkv": {"registers", "local_bytes" (spills),
     "smem_bytes", "ctas_per_sm"}}, read from the card's runtime."""
     import ctypes  # noqa: PLC0415
 
@@ -419,16 +421,16 @@ def kernel_resources(head_dim: int, kind: str = "causal",
     lib = library()
     out = (ctypes.c_int * 4)()
     code = KERNEL_DTYPES[dtype]
+    bf16 = dtype == torch.bfloat16
     tiles, fwd, bwd = {  # (forward q tiles, forward by tile, backward pass 0 dQ / 1 dK/dV)
-        "causal": (FORWARD_TILES[head_dim],
-                   lambda rows: lib.causal_attention_fwd_info(head_dim, rows, out),
+        "causal": (FORWARD_TILES[head_dim] if bf16 else FP32_FORWARD_TILES,
+                   lambda rows: lib.causal_attention_fwd_info(head_dim, rows, code, out),
                    lambda p: lib.causal_attention_bwd_info(p, head_dim, code, out)),
-        "ring": (RING_FORWARD_TILES,
-                 lambda rows: lib.ring_attention_info(0, head_dim, rows, 1, out),
+        "ring": (RING_FORWARD_TILES if bf16 else FP32_FORWARD_TILES,
+                 lambda rows: lib.ring_attention_info(0, head_dim, rows, code, out),
                  lambda p: lib.ring_attention_info(1 + p, head_dim, 64, code, out)),
     }[kind]
-    calls = ({f"fwd_{rows}": (lambda rows=rows: fwd(rows)) for rows in tiles}
-             if dtype == torch.bfloat16 else {})
+    calls = {f"fwd_{rows}": (lambda rows=rows: fwd(rows)) for rows in tiles}
     calls["bwd_dq"] = lambda: bwd(0)
     calls["bwd_dkv"] = lambda: bwd(1)
     res = {}

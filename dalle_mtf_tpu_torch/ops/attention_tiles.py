@@ -19,14 +19,16 @@ sources point at these functions as its definition:
   ``ring_block_grads_tiled_reference``: the same for one hop of ring
   attention, between a local q shard and a visiting k/v shard whose global
   offsets differ by ``diff`` (``ops/ring_attention.py``);
-- ``tf32_round`` and the backward references' ``split`` argument: the fp32
-  backward kernels' products on the tensor cores, emulated. Each operand x
-  is split into big = tf32(x) and small = tf32(x - big), and a product is
-  big·big + big·small + small·big (``split="tf32x3"``, what the kernels
-  run), summed as the tensor cores sum (each mma rounds toward zero, so
-  the kernels sum every k step of 8 apart and add it rounding to nearest);
+- ``tf32_round`` and the references' ``split`` argument: the fp32 kernels'
+  products on the tensor cores, emulated. Each operand x is split into
+  big = tf32(x) and small = tf32(x - big), and a product is big·big +
+  big·small + small·big (``split="tf32x3"``, what the kernels run), summed
+  as the tensor cores sum (each mma rounds toward zero, so the kernels sum
+  every k step of 8 apart and add it rounding to nearest);
   ``split="tf32"`` is one TF32 product, which the tests show cannot hold
-  the fp32 bound;
+  the fp32 bound. With a ``split`` the forward references also walk as the
+  fp32 forwards do: two warp groups a q tile, each taking one 32-key half
+  of every key tile with its own online softmax, merged once at the end;
 - ``tile_rel_err``: that bound measured, each 64-long tile of S against its
   own max |plain|.
 
@@ -54,10 +56,13 @@ _LOG2E = 1.4426950408889634
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """fp32 ``x`` rounded to TF32 (10 explicit mantissa bits), to nearest
     with ties away from zero, as ``cvt.rna.tf32.f32``: on the int32 view,
-    (bits + 0x1000) & ~0x1FFF (the sign bit is untouched, so the magnitude
-    rounds)."""
+    (min(bits, 0x7FFFEFFF) + 0x1000) & ~0x1FFF, as the kernels' ``split``
+    rounds small (big skips the min: the same bits for every value that is
+    not a NaN). For those the sign bit is untouched, so the magnitude
+    rounds; the min keeps a positive NaN a NaN (the add would carry
+    0x7FFFFFFF into the sign bit)."""
     bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return ((bits.clamp_max(0x7FFFEFFF) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 SPLITS = (None, "tf32", "tf32x3")
@@ -70,35 +75,52 @@ def _toward_zero(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_matmul(a: torch.Tensor, b: torch.Tensor, split: str | None = None,
-                 chunk: int | None = 1) -> torch.Tensor:
-    """a @ b in fp32 as a kernel's tensor cores take it: ``split`` None is
-    the plain fp32 product; "tf32" one product of the operands rounded to
-    TF32; "tf32x3" the three-product split, big = tf32(x), small =
-    tf32(x - big), a b = a_small b_big + a_big b_small + a_big b_big (the
-    small·small term, about 2^-22 of the product, is dropped), as the
-    tensor cores sum it: k steps of 8, each mma adding its 8 exact products
-    (two TF32 values multiply exactly) into the fp32 accumulator and
-    rounding toward zero. ``chunk`` k steps are summed so in a fresh
-    accumulator, which is then added into the result rounding to nearest:
-    1, every step apart, is what the kernels do
+                 chunk: int | None = 1, into: torch.Tensor | None = None) -> torch.Tensor:
+    """a @ b in fp32 (added to ``into`` when given) as a kernel's tensor
+    cores take it: ``split`` None is the plain fp32 product; "tf32" one
+    product of the operands rounded to TF32; "tf32x3" the three-product
+    split, big = tf32(x), small = tf32(x - big), a b = a_small b_big +
+    a_big b_small + a_big b_big (the small·small term, about 2^-22 of the
+    product, is dropped), as the tensor cores sum it: k steps of 8, each mma
+    adding its 8 exact products (two TF32 values multiply exactly) into the
+    fp32 accumulator and rounding toward zero. ``chunk`` k steps are summed
+    so in a fresh accumulator, which is then added into the result rounding
+    to nearest: 1, every step apart, is what the kernels do
     (csrc/attention_tf32.cuh::add_part); None, one accumulator over all of
-    k, is what they avoid."""
-    if split is None:
-        return torch.matmul(a, b)
+    k, is what they avoid, and then ``into`` is that accumulator's start
+    (the running sum itself rounds toward zero at every mma)."""
+    if split is None or split == "tf32":
+        if split is not None:
+            a, b = tf32_round(a), tf32_round(b)
+        out = torch.matmul(a, b)
+        return out if into is None else into + out
     if split not in SPLITS:
         raise ValueError(f"split must be one of {SPLITS}, got {split!r}")
     a_big, b_big = tf32_round(a), tf32_round(b)
-    if split == "tf32":
-        return torch.matmul(a_big, b_big)
     a_small, b_small = tf32_round(a - a_big), tf32_round(b - b_big)
-    pairs = [(x.double(), y.double())
-             for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big))]
     steps = -(-a.shape[-1] // 8)
-    total, part = None, None
+    pad = steps * 8 - a.shape[-1]
+
+    def by_step(x, y):
+        """The exact products of each k step: [..., steps, M, N] in float64."""
+        xs = torch.nn.functional.pad(x.double(), (0, pad)).unflatten(-1, (steps, 8))
+        ys = torch.nn.functional.pad(y.double(), (0, 0, 0, pad)).unflatten(-2, (steps, 8))
+        return torch.matmul(xs.movedim(-2, -3), ys)
+
+    prods = [by_step(x, y) for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big))]
+    if chunk == 1:  # each step's three mma into a fresh accumulator, all steps at once
+        part = _toward_zero(prods[0])
+        for exact in prods[1:]:
+            part = _toward_zero(part.double() + exact)
+        total = into
+        for i in range(steps):
+            total = part[..., i, :, :] if total is None else total + part[..., i, :, :]
+        return total
+    total, part = (None, into) if chunk is None else (into, None)
     for i in range(steps):
-        for x, y in pairs:
-            exact = torch.matmul(x[..., 8 * i:8 * i + 8], y[..., 8 * i:8 * i + 8, :])
-            part = _toward_zero(exact if part is None else part.double() + exact)
+        for exact in prods:
+            step = exact[..., i, :, :]
+            part = _toward_zero(step if part is None else part.double() + step)
         if (chunk and (i + 1) % chunk == 0) or i == steps - 1:
             total = part if total is None else total + part
             part = None
@@ -181,14 +203,59 @@ def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, 0, 0, rows - t.shape[2]))
 
 
+def _forward_walk(qt, kf, vf, tiles, scale_log2, mask, keep, v_dtype, split):
+    """One q tile's forward over the 64-key tiles ``tiles`` (their first
+    keys), as the kernels walk it: an online softmax in the log2 domain whose
+    running max starts at the finite NEG_INF. ``mask(x, c0, n)`` masks the
+    scores x of keys [c0, c0 + n) where the kernels mask them; ``keep(p, c0,
+    n)`` is p_v, the hash dropout of the same keys; p_v is rounded to
+    ``v_dtype`` before its product. With a ``split`` (the fp32 kernels) the
+    products are ``split_matmul``'s and two groups each take one 32-key half
+    of every tile with their own (m, l, acc), merged once at the end as
+    csrc/attention_tf32.cuh::merge_halves merges them: m = max(m0, m1),
+    acc = acc0 2^(m0 - m) + acc1 2^(m1 - m), l likewise. Returns (acc, m, l)
+    of the tile's rows, m in the log2 domain."""
+    rows, d = qt.shape[-2], qt.shape[-1]
+    width = STREAM_TILE if split is None else STREAM_TILE // 2
+    groups = []
+    for g0 in range(0, STREAM_TILE, width):
+        acc = torch.zeros((*qt.shape[:-2], rows, d), dtype=torch.float32, device=qt.device)
+        m = torch.full((*qt.shape[:-2], rows, 1), NEG_INF, dtype=torch.float32,
+                       device=qt.device)
+        l = torch.zeros_like(m)
+        for c0 in tiles:
+            h0 = c0 + g0
+            kt, vt = kf[:, :, h0:h0 + width], vf[:, :, h0:h0 + width]
+            x = mask(split_matmul(qt, kt.transpose(-1, -2), split) * scale_log2, h0, width)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)  # the undropped normalizer
+            p_v = keep(p, h0, width).to(v_dtype).float()
+            acc = split_matmul(p_v, vt, split, into=acc * alpha)
+            m = m_new
+        groups.append((acc, m, l))
+    if len(groups) == 1:
+        return groups[0]
+    (acc0, m0, l0), (acc1, m1, l1) = groups
+    m = torch.maximum(m0, m1)
+    f0, f1 = torch.exp2(m0 - m), torch.exp2(m1 - m)
+    return acc0 * f0 + acc1 * f1, m, l0 * f0 + l1 * f1
+
+
 def attention_tiled_reference(q, k, v, window=None, dropout_rate=0.0, dropout_seed=None,
-                              rows: int = 64):
-    """The forward as the bf16 kernel walks it, in plain torch: q tiles of
+                              rows: int = 64, split=None):
+    """The forward as the kernels walk it, in plain torch: q tiles of
     ``rows`` rows, each walking the 64-key tiles of ``key_tile_range`` with
     an online softmax in the log2 domain whose running max starts at the
     finite NEG_INF; the mask is applied only on tiles ``tile_needs_mask``
-    flags; p_v is rounded to v's dtype before its product. Returns
-    (out [B, H, S, D] in q's dtype, fp32 lse [B*H, S])."""
+    flags; p_v is rounded to v's dtype before its product. ``split`` takes
+    both products as ``split_matmul`` does, with the fp32 kernels' two warp
+    groups a q tile ("tf32x3": the fp32 forward, 64-row tiles only; see
+    ``_forward_walk``). Returns (out [B, H, S, D] in q's dtype, fp32 lse
+    [B*H, S])."""
+    if split is not None and rows != STREAM_TILE:
+        raise ValueError(f"the fp32 forward takes {STREAM_TILE}-row q tiles, not {rows}")
     b, h, s, d = q.shape
     padded = -(-s // max(rows, STREAM_TILE)) * max(rows, STREAM_TILE)
     qf, kf, vf = (_pad_rows(t, padded).float() for t in (q, k, v))
@@ -199,28 +266,24 @@ def attention_tiled_reference(q, k, v, window=None, dropout_rate=0.0, dropout_se
     if dropout_rate > 0.0:
         seeds = (int(dropout_seed) + torch.arange(b * h, device=q.device)).reshape(b, h, 1, 1)
     for q0 in range(0, s, rows):
-        acc = torch.zeros((b, h, rows, d), dtype=torch.float32, device=q.device)
-        m = torch.full((b, h, rows, 1), NEG_INF, dtype=torch.float32, device=q.device)
-        l = torch.zeros_like(m)
+        def mask(x, c0, n, q0=q0):
+            if not tile_needs_mask(q0, rows, c0 // STREAM_TILE * STREAM_TILE, STREAM_TILE, s,
+                                   window):
+                return x
+            return x.masked_fill(_tile_mask(q0, rows, c0, n, window, q.device)[2], NEG_INF)
+
+        def keep(p, c0, n, q0=q0):
+            if seeds is None:
+                return p
+            i, j, _ = _tile_mask(q0, rows, c0, n, window, q.device)
+            return torch.where(dropout_keep(i, j, seeds, dropout_rate),
+                               p * (1.0 / (1.0 - dropout_rate)), 0.0)
+
         first, last = key_tile_range(q0, rows, s, window)
-        for t in range(first, last + 1):
-            c0 = t * STREAM_TILE
-            x = torch.matmul(qf[:, :, q0:q0 + rows],
-                             kf[:, :, c0:c0 + STREAM_TILE].transpose(-1, -2)) * scale_log2
-            i, j, mask = _tile_mask(q0, rows, c0, STREAM_TILE, window, q.device)
-            if tile_needs_mask(q0, rows, c0, STREAM_TILE, s, window):
-                x = x.masked_fill(mask, NEG_INF)
-            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
-            alpha = torch.exp2(m - m_new)
-            p = torch.exp2(x - m_new)
-            l = l * alpha + p.sum(-1, keepdim=True)  # the undropped normalizer
-            p_v = p
-            if seeds is not None:
-                keep = dropout_keep(i, j, seeds, dropout_rate)
-                p_v = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
-            acc = acc * alpha + torch.matmul(p_v.to(v.dtype).float(),
-                                             vf[:, :, c0:c0 + STREAM_TILE])
-            m = m_new
+        acc, m, l = _forward_walk(qf[:, :, q0:q0 + rows], kf, vf,
+                                  range(first * STREAM_TILE, (last + 1) * STREAM_TILE,
+                                        STREAM_TILE),
+                                  scale_log2, mask, keep, v.dtype, split)
         l_safe = l.clamp_min(1e-30)
         out[:, :, q0:q0 + rows] = acc / l_safe
         lse[:, :, q0:q0 + rows] = (m * math.log(2.0) + torch.log(l_safe)).squeeze(-1)
@@ -349,17 +412,20 @@ def _ring_seeds(seed, b, h, device):
     return (int(seed) + torch.arange(b * h, device=device)).reshape(b, h, 1, 1)
 
 
-def ring_partial_tiled_reference(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0):
-    """One hop's forward as the bf16 kernel walks it, in plain torch: 64-row
-    q tiles over the key tiles of ``ring_key_tile_range``, an online
-    softmax in the log2 domain whose running max starts at the finite NEG_INF,
-    the mask only on tiles ``ring_tile_needs_mask`` flags (a key at or beyond
+def ring_partial_tiled_reference(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0,
+                                 split=None):
+    """One hop's forward as the kernels walk it, in plain torch: 64-row q
+    tiles over the key tiles of ``ring_key_tile_range``, an online softmax
+    in the log2 domain whose running max starts at the finite NEG_INF, the
+    mask only on tiles ``ring_tile_needs_mask`` flags (a key at or beyond
     Sk scores -inf, so it adds nothing even to a row whose max is still
     NEG_INF), p_v rounded to v's dtype before its product, hash dropout at
-    (row0 + r, col0 + c, seed + bh). Returns num fp32 [B, H, Sq, D] and m, l
-    fp32 [B*H, Sq]; m = m2 ln 2, and a row with no live key keeps m = NEG_INF
-    itself, l = the count of its visited keys below Sk and num = their sum
-    of p_v v."""
+    (row0 + r, col0 + c, seed + bh). ``split`` takes both products as
+    ``split_matmul`` does, with the fp32 kernel's two warp groups a q tile
+    ("tf32x3": the fp32 forward; see ``_forward_walk``). Returns num fp32
+    [B, H, Sq, D] and m, l fp32 [B*H, Sq]; m = m2 ln 2, and a row with no
+    live key keeps m = NEG_INF itself, l = the count of its visited keys
+    below Sk and num = their sum of p_v v."""
     b, h, s_q, d = q.shape
     s_k = k.shape[2]
     (rows,) = RING_FORWARD_TILES
@@ -371,28 +437,25 @@ def ring_partial_tiled_reference(q, k, v, diff, row0, col0, window=None, rate=0.
     m = torch.full((b, h, qf.shape[2]), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     for q0 in range(0, s_q, rows):
-        acc = torch.zeros((b, h, rows, d), dtype=torch.float32, device=q.device)
-        m2 = torch.full((b, h, rows, 1), NEG_INF, dtype=torch.float32, device=q.device)
-        l2 = torch.zeros_like(m2)
+        def mask(x, c0, n, q0=q0):
+            if not ring_tile_needs_mask(q0, rows, c0 // STREAM_TILE * STREAM_TILE, STREAM_TILE,
+                                        s_q, s_k, diff, window):
+                return x
+            _, j, band = _ring_tile_mask(q0, rows, c0, n, diff, window, q.device)
+            return x.masked_fill(band, NEG_INF).masked_fill(j >= s_k, -math.inf)
+
+        def keep(p, c0, n, q0=q0):
+            if seeds is None:
+                return p
+            i, j, _ = _ring_tile_mask(q0, rows, c0, n, diff, window, q.device)
+            return torch.where(dropout_keep(i + row0, j + col0, seeds, rate),
+                               p * (1.0 / (1.0 - rate)), 0.0)
+
         first, last = ring_key_tile_range(q0, rows, s_q, s_k, diff, window)
-        for t in range(first, last + 1):
-            c0 = t * STREAM_TILE
-            x = torch.matmul(qf[:, :, q0:q0 + rows],
-                             kf[:, :, c0:c0 + STREAM_TILE].transpose(-1, -2)) * scale_log2
-            i, j, mask = _ring_tile_mask(q0, rows, c0, STREAM_TILE, diff, window, q.device)
-            if ring_tile_needs_mask(q0, rows, c0, STREAM_TILE, s_q, s_k, diff, window):
-                x = x.masked_fill(mask, NEG_INF).masked_fill(j >= s_k, -math.inf)
-            m_new = torch.maximum(m2, x.amax(-1, keepdim=True))
-            alpha = torch.exp2(m2 - m_new)
-            p = torch.exp2(x - m_new)
-            l2 = l2 * alpha + p.sum(-1, keepdim=True)  # the undropped normalizer
-            p_v = p
-            if seeds is not None:
-                keep = dropout_keep(i + row0, j + col0, seeds, rate)
-                p_v = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
-            acc = acc * alpha + torch.matmul(p_v.to(v.dtype).float(),
-                                             vf[:, :, c0:c0 + STREAM_TILE])
-            m2 = m_new
+        acc, m2, l2 = _forward_walk(qf[:, :, q0:q0 + rows], kf, vf,
+                                    range(first * STREAM_TILE, (last + 1) * STREAM_TILE,
+                                          STREAM_TILE),
+                                    scale_log2, mask, keep, v.dtype, split)
         num[:, :, q0:q0 + rows] = acc
         m[:, :, q0:q0 + rows] = torch.where(m2 == NEG_INF, NEG_INF, m2 * math.log(2.0))[..., 0]
         l[:, :, q0:q0 + rows] = l2[..., 0]

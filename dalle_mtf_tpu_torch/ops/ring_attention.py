@@ -127,7 +127,7 @@ def ring_block_grads_reference(q, g, lse, dsum, k, v, diff, row0, col0, window=N
     return dq, dk, dv
 
 
-def _check_hop(name, q, k, v, copies16=False):
+def _check_hop(name, q, k, v):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] \
@@ -136,8 +136,8 @@ def _check_hop(name, q, k, v, copies16=False):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} needs contiguous q, k, v")
-    check_kernel_inputs(name, (k, v), q.shape[3], copies16)
-    check_kernel_inputs(name, (q,), q.shape[3], copies16)
+    check_kernel_inputs(name, (k, v), q.shape[3])
+    check_kernel_inputs(name, (q,), q.shape[3])
     if q.dtype != k.dtype or q.device != k.device:
         raise ValueError(f"{name}: q and k, v must share one dtype and device")
 
@@ -190,10 +190,10 @@ def ring_block_grads(q, g, lse, dsum, k, v, dk_acc, dv_acc, diff, row0, col0,
         dk_acc += dk
         dv_acc += dv
         return dq
-    _check_hop("ring_block_grads", q, k, v, copies16=True)
+    _check_hop("ring_block_grads", q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
         raise ValueError("ring_block_grads: g must be contiguous and match q")
-    check_kernel_inputs("ring_block_grads", (q, g), q.shape[3], copies16=True)
+    check_kernel_inputs("ring_block_grads", (q, g), q.shape[3])
     _check_rows("ring_block_grads", q, lse=lse, dsum=dsum)
     for what, t in (("dk_acc", dk_acc), ("dv_acc", dv_acc)):
         if t.shape != k.shape or t.dtype != torch.float32 or not t.is_contiguous() \

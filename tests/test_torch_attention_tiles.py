@@ -16,12 +16,14 @@ their walk, so here they are held
     its ``attention_reference``, and the value and q/k/v grads of its
     ``causal_attention`` through the Pallas kernels in interpret mode, with
     and without hash dropout (one seed on both sides);
-(c) with the fp32 backward kernels' three-product TF32 split (``split=
-    "tf32x3"``) against the one-shot fp32 backward and the JAX package's
-    fp32 backward kernels (the loop pair, and the wedge regime with
-    dropout): each 64-long tile within 1e-5 of its own max |plain|, the
-    kernels' own bound; and one TF32 product shown to fail that bound at
-    the same inputs.
+(c) with the fp32 kernels' three-product TF32 split (``split=
+    "tf32x3"``), backward and forward (the forward also in the fp32
+    kernel's two warp groups a q tile, merged at the end), against the
+    one-shot fp32 plain versions and the JAX package's fp32 kernels (the
+    loop pair ``_flash_kernel``, ``_bwd_dq_kernel`` + ``_bwd_dkv_kernel``,
+    and the wedge regime with dropout): each 64-long tile within 1e-5 of its
+    own max |plain|, the kernels' own bound; one TF32 product shown to fail
+    that bound at the same inputs, and one accumulator down a long sum too.
 
 The kernels carry their own C++ copy of this arithmetic, which no CPU test
 can see: tests/test_torch_cuda.py holds the built kernels to the one-shot
@@ -234,7 +236,9 @@ def test_forward_tile_rows_fills_the_card(head_dim, programs, s, rows):
 
 def test_misaligned_bf16_view_raises():
     """16-byte copies need 16-byte-aligned rows: a bf16 view that starts off a
-    16-byte boundary, or whose rows do, raises instead of being copied."""
+    16-byte boundary, or whose rows do, raises instead of being copied; so
+    does an fp32 one (the fp32 kernels stage their tiles by 16-byte copies
+    too)."""
     buf = torch.zeros(2 * 4 * 8 * 64 + 8, dtype=torch.bfloat16)
     aligned = buf[:2 * 4 * 8 * 64].view(2, 4, 8, 64)
     if aligned.data_ptr() % 16 == 0:
@@ -246,9 +250,16 @@ def test_misaligned_bf16_view_raises():
     odd_rows = torch.zeros((2, 4, 8, 68), dtype=torch.bfloat16)[..., :64]  # row stride 68
     with pytest.raises(ValueError, match="16-byte aligned"):
         tattn.check_kernel_inputs("causal_attention_fwd", (odd_rows,) * 3, 64)
-    # fp32 tiles are staged element by element: the same views pass
-    fp32 = torch.zeros(2 * 4 * 8 * 64 + 1)[1:].view(2, 4, 8, 64)
-    tattn.check_kernel_inputs("causal_attention_fwd", (fp32,) * 3, 64)
+    fp32 = torch.zeros(2 * 4 * 8 * 64 + 4)
+    if fp32.data_ptr() % 16 == 0:
+        tattn.check_kernel_inputs("causal_attention_fwd",
+                                  (fp32[:2 * 4 * 8 * 64].view(2, 4, 8, 64),) * 3, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn.check_kernel_inputs("causal_attention_fwd",
+                                  (fp32[1:1 + 2 * 4 * 8 * 64].view(2, 4, 8, 64),) * 3, 64)
+    odd_rows = torch.zeros((2, 4, 8, 66))[..., :64]  # row stride 66: not whole 16-byte chunks
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn.check_kernel_inputs("causal_attention_fwd", (odd_rows,) * 3, 64)
 
 
 # ------------------------------------------------ the fp32 kernels' 3xTF32 split
@@ -305,6 +316,15 @@ def test_tf32_round_is_nearest_ties_away():
     big = tiles.tf32_round(torch.tensor([math.pi]))
     small = tiles.tf32_round(torch.tensor([math.pi]) - big)
     assert abs((big + small).item() - math.pi) <= 2.0 ** -21 * math.pi
+
+
+def test_tf32_round_keeps_infinities_and_positive_nans():
+    """Infinities round to themselves; a positive NaN stays a NaN, also the
+    card's own, 0x7FFFFFFF, whose rounding add would carry into the sign."""
+    bits = torch.tensor([0x7FFFFFFF, 0x7FFFF000, 0x7FC00000, 0x7F801234], dtype=torch.int32)
+    assert tiles.tf32_round(bits.view(torch.float32)).isnan().all()
+    inf = torch.tensor([math.inf, -math.inf])
+    assert torch.equal(tiles.tf32_round(inf), inf)
 
 
 @pytest.mark.parametrize("s,window,d,rate", SPLIT_CASES)
@@ -378,3 +398,103 @@ def test_long_sums_hold_the_bound_in_chunks(k):
 
     assert err(1) <= FP32_TILE_RTOL / 4
     assert err(None) > FP32_TILE_RTOL
+
+
+# ------------------------------------------- the fp32 forward's 3xTF32 split
+# The fp32 forward kernels take both products (q k^T and p_v V) as three TF32
+# products each and walk a q tile in two warp groups, each taking one 32-key
+# half of every key tile with its own online softmax, merged once at the end
+# (csrc/attention_tf32.cuh::merge_halves). The tiled forward's ``split``
+# emulates both; held here to the kernels' bound: each 64-long tile of out
+# within 1e-5 of its own max |plain|, lse within 1e-5.
+FWD_SPLIT_CASES = [  # (S, window, D, dropout)
+    (1, None, 128, 0.0), (63, None, 64, 0.1), (65, None, 128, 0.0), (129, 1, 128, 0.0),
+    (129, "wider", 64, 0.1), (200, 37, 64, 0.0), (256, None, 128, 0.1), (333, 100, 64, 0.1),
+    # rows whose live keys lie in one group's half of a tile: the other
+    # group sees only masked keys there (m = NEG_INF, p = 1) and the merge's
+    # factor 2^(NEG_INF - m) = 0 must wipe its sums
+    (200, 20, 128, 0.0), (200, 20, 64, 0.1),
+]
+
+
+def _forward_split_case(s, window, d, rate, split):
+    window = _window(window, s)
+    q, k, v, _ = _inputs(s, d, seed=7 * s + d)
+    want = tattn.attention_reference(q, k, v, True, window, True, rate, SEED)
+    got = tiles.attention_tiled_reference(q, k, v, window, rate, SEED, split=split)
+    return got, want
+
+
+@pytest.mark.parametrize("s,window,d,rate", FWD_SPLIT_CASES)
+def test_tf32x3_forward_holds_the_fp32_tile_bound(s, window, d, rate):
+    (out, lse), (want, want_lse) = _forward_split_case(s, window, d, rate, "tf32x3")
+    assert out.shape == want.shape and out.dtype == torch.float32
+    assert tiles.tile_rel_err(out, want) <= FP32_TILE_RTOL
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("s,window,d,rate", FWD_SPLIT_CASES)
+def test_forward_one_tf32_product_fails_the_fp32_tile_bound(s, window, d, rate):
+    """One TF32 product a product (about 2^-11 relative) breaks the bound at
+    the same inputs: even where p = 1 (S = 1, a window of 1), v itself
+    rounds."""
+    (out, _), (want, _) = _forward_split_case(s, window, d, rate, "tf32")
+    assert tiles.tile_rel_err(out, want) > FP32_TILE_RTOL
+
+
+def test_fp32_forward_takes_64_row_tiles_only():
+    q = torch.zeros((1, 1, 128, 128))
+    with pytest.raises(ValueError, match="64-row"):
+        tiles.attention_tiled_reference(q, q, q, rows=128, split="tf32x3")
+
+
+@pytest.mark.parametrize("s,window,rate", [(256, None, 0.0), (200, None, 0.0), (320, 48, 0.0),
+                                           (256, 64, 0.1)])
+def test_tf32x3_forward_holds_the_bound_against_jax_kernels(monkeypatch, s, window, rate):
+    """The split's forward against the JAX package's fp32 forward in
+    interpret mode, each 64-long tile within 1e-5 of its own max |JAX|:
+    without dropout the loop regime (``_flash_kernel``, forced at this S by
+    ``WHOLE_ROW_MAX_SEQ = 0``; a ragged S included), with hash dropout the
+    wedge regime (the one JAX's in-kernel dropout runs in), one seed on
+    both sides."""
+    ran = []
+    if rate == 0.0:
+        monkeypatch.setattr(jattn, "WHOLE_ROW_MAX_SEQ", 0)
+        orig = jattn._flash_kernel
+
+        def spy(*a, **kw):
+            ran.append("_flash_kernel")
+            return orig(*a, **kw)
+
+        monkeypatch.setattr(jattn, "_flash_kernel", spy)
+    q, k, v, _ = _inputs(s, 128, seed=11 * s + (window or 0))
+    key = jax.random.PRNGKey(13)
+    seed = int(jax.random.randint(key, (1, 1), 0, jnp.iinfo(jnp.int32).max,
+                                  dtype=jnp.int32)[0, 0])
+    want = torch.from_numpy(np.array(jattn.causal_attention(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), window=window, use_pallas=True,
+        interpret=True, dropout_rate=rate, dropout_rng=key if rate else None)))
+    assert bool(ran) == (rate == 0.0)
+    got, _ = tiles.attention_tiled_reference(q, k, v, window, rate, seed, split="tf32x3")
+    assert tiles.tile_rel_err(got, want) <= FP32_TILE_RTOL
+
+
+def test_forward_pv_sums_hold_the_bound_summed_by_step(monkeypatch):
+    """The P·V sum of a row runs over every key it sees, up to S: here
+    3136, the first whole number of 64-row tiles past 3072, where the JAX
+    package's fp32 attention takes its loop kernel (4352, the card's
+    ``loop_fp32`` shape, costs twice the CPU time; the ring's test below
+    sums 4352 keys). Each k step of 8 summed apart, as the kernels sum,
+    holds the bound with room; one accumulator down the sum (the tensor
+    cores truncating its running total at every mma) drifts past it."""
+    s = 3136
+    q, k, v, _ = (t[:, :1] for t in _inputs(s, 64, seed=s))
+    want = tattn.attention_reference(q, k, v)
+    got, _ = tiles.attention_tiled_reference(q, k, v, split="tf32x3")
+    assert tiles.tile_rel_err(got, want) <= FP32_TILE_RTOL / 4
+    by_step = tiles.split_matmul
+    monkeypatch.setattr(  # one accumulator where a product adds into a running sum: P V
+        tiles, "split_matmul", lambda a, b, split=None, chunk=1, into=None: by_step(
+            a, b, split, None if into is not None else chunk, into))
+    got, _ = tiles.attention_tiled_reference(q, k, v, split="tf32x3")
+    assert tiles.tile_rel_err(got, want) > FP32_TILE_RTOL

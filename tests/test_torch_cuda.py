@@ -78,12 +78,17 @@ def _uniform(shape, dtype, gen, n):
     (torch.bfloat16, 2, 2, 63, 128, 1, 0.0),
     (torch.bfloat16, 1, 2, 1, 64, None, 0.0),
     (torch.bfloat16, 2, 2, 129, 128, 1000, 0.1),
-    # the fp32 backward (3xTF32) in the packed layout: one head, S = 1, a
+    # the fp32 kernels (3xTF32) in the packed layout: one head, S = 1, a
     # window of 1, D = 64 with a window off the tile
     (torch.float32, 2, 1, 200, 128, None, 0.0),
     (torch.float32, 3, 1, 129, 64, 37, 0.1),
     (torch.float32, 1, 2, 1, 64, None, 0.0),
     (torch.float32, 2, 2, 63, 128, 1, 0.0),
+    # the fp32 forward (3xTF32): a ragged S under dropout, a window that
+    # ends mid-tile, and one wider than S
+    (torch.float32, 2, 3, 65, 128, None, 0.1),
+    (torch.float32, 2, 2, 333, 64, 100, 0.0),
+    (torch.float32, 2, 2, 129, 128, 1000, 0.1),
 ])
 def test_packed_kernels_match_plain(cuda, dtype, b, h, s, d, window, rate):
     atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
@@ -125,6 +130,9 @@ def test_packed_autograd_runs_the_kernels(cuda):
     (torch.bfloat16, 37, 0.0, 200, 64), (torch.bfloat16, None, 0.0, 1, 128),
     (torch.bfloat16, None, 0.1, 63, 64), (torch.bfloat16, None, 0.0, 65, 128),
     (torch.bfloat16, 1, 0.0, 129, 128), (torch.bfloat16, 1000, 0.1, 129, 64),
+    # and of the fp32 forward's (3xTF32, two warp groups a q tile)
+    (torch.float32, 37, 0.0, 200, 64), (torch.float32, None, 0.0, 1, 128),
+    (torch.float32, None, 0.1, 63, 64), (torch.float32, 1, 0.0, 129, 128),
 ])
 def test_unpacked_forward_matches_plain(cuda, dtype, window, rate, s, d):
     atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
@@ -220,9 +228,20 @@ def test_kernel_takes_the_q_tile_the_python_rule_names(cuda, head_dim, programs)
     """The kernels carry their own copy of ``forward_tile_rows``: the built
     library's choice must be the Python rule's at every shape, on both sides
     of the 132-CTA edge."""
+    import ctypes
+
+    from dalle_mtf_tpu_torch.ops._build import library
+
     for s in (1, 64, 128, 129, 256, 512, 513, 527, 528, 529, 1280, 4352, 6200, 16896):
         assert tattn.kernel_tile_rows(head_dim, programs, s) == \
             ttiles.forward_tile_rows(head_dim, programs, s), s
+    # the library reports each forward it built, by q tile and dtype (1 bf16,
+    # 0 fp32), and refuses any other
+    out = (ctypes.c_int * 4)()
+    for code, built in ((1, tattn.FORWARD_TILES[head_dim]), (0, tattn.FP32_FORWARD_TILES)):
+        for rows in (64, 128):
+            err = library().causal_attention_fwd_info(head_dim, rows, code, out)
+            assert (err == 0) == (rows in built), (code, rows, err)
 
 
 def test_forward_refuses_a_q_tile_it_is_not_built_for(cuda):
@@ -261,10 +280,12 @@ def test_misaligned_bf16_inputs_raise(cuda):
         tpacked.packed_attention(shifted.reshape(2, 128, 128), shifted.reshape(2, 128, 128),
                                  shifted.reshape(2, 128, 128), 2)
     assert tattn.KERNEL_LAUNCHES == before
-    # fp32 tiles are staged element by element: the same offset runs
+    # fp32 tiles are staged by 16-byte copies too: an fp32 view off a 16-byte
+    # boundary raises as well (test_fp32_forward_refuses_misaligned_views)
     f = torch.rand(2 * 2 * 64 * 128 + 1, device="cuda")[1:].view(2, 2, 64, 128)
-    ok, err = _close(tattn.causal_attention(f, f, f), tattn.attention_reference(f, f, f), 1e-5)
-    assert ok, err
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn.causal_attention(f, f, f)
+    assert tattn.KERNEL_LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype,shape", [
@@ -385,6 +406,12 @@ RING_CASES = [
     (torch.float32, 2, 4, 200, 0, 37, 0.0, 64),
     (torch.float32, 2, 2, 1, 1, None, 0.0, 128),
     (torch.float32, 2, 4, 1088, 1, None, 0.0, 128),
+    # the fp32 forward's two warp groups: a band whose live rows see keys in
+    # one half of a tile only and whose last rows see none, the diagonal
+    # under a window off the tile with dropout, a far hop
+    (torch.float32, 2, 2, 200, 1, 150, 0.0, 128),
+    (torch.float32, 2, 3, 65, 0, 40, 0.1, 128),
+    (torch.float32, 1, 2, 200, 3, None, 0.1, 128),
 ]
 
 
@@ -457,9 +484,10 @@ def test_ring_kernels_take_the_q_tile_the_python_walk_names(cuda, head_dim):
                                   "bwd_dq", "bwd_dkv"])
     assert all(r["registers"] > 0 and r["ctas_per_sm"] >= 1 for r in res.values())
     assert tattn.RING_FORWARD_TILES == (ttiles.BACKWARD_TILE_ROWS,)
-    # the fp32 backward kernels are 64-row owner tiles too
+    # the fp32 kernels are 64-row owner tiles too
+    assert tattn.FP32_FORWARD_TILES == (ttiles.BACKWARD_TILE_ROWS,)
     res32 = tattn.kernel_resources(head_dim, "ring", torch.float32)
-    assert sorted(res32) == ["bwd_dkv", "bwd_dq"]
+    assert sorted(res32) == ["bwd_dkv", "bwd_dq", "fwd_64"]
     assert all(r["registers"] > 0 and r["ctas_per_sm"] >= 1 for r in res32.values())
     out = (ctypes.c_int * 4)()
     for kind in (0, 1, 2):
@@ -505,23 +533,121 @@ def test_fp32_backward_kernels_report_their_resources(cuda, head_dim):
     tiles = 4 * (head_dim + 4) * 384
     for kind in ("causal", "ring"):
         res = tattn.kernel_resources(head_dim, kind, torch.float32)
-        assert sorted(res) == ["bwd_dkv", "bwd_dq"], kind
+        assert sorted(res) == ["bwd_dkv", "bwd_dq", "fwd_64"], kind
         for name, r in res.items():
             assert 0 < r["registers"] <= 255 and r["ctas_per_sm"] >= 1, (kind, name, r)
         assert res["bwd_dq"]["smem_bytes"] == tiles
         assert res["bwd_dkv"]["smem_bytes"] == tiles + 4 * 64 * 4
 
 
-def test_fp32_backward_refuses_misaligned_views(cuda):
-    """The fp32 backward kernels stage tiles by 16-byte copies: an fp32 view
-    off a 16-byte boundary raises before any launch (the fp32 forward, an
-    FMA kernel, takes it)."""
+@pytest.mark.parametrize("head_dim", tattn.KERNEL_HEAD_DIMS)
+def test_fp32_forward_kernels_report_their_resources(cuda, head_dim):
+    """The fp32 forwards of both pairs (3xTF32, eight warps) are built and
+    report registers, spills, shared memory and CTAs an SM: 384 padded fp32
+    rows of D + 4 words a CTA (the 64-row q tile split in a big and a small
+    tile, two buffers of a k and a v tile), no spills, at least one CTA an
+    SM."""
+    for kind in ("causal", "ring"):
+        r = tattn.kernel_resources(head_dim, kind, torch.float32)["fwd_64"]
+        assert r["smem_bytes"] == 4 * (head_dim + 4) * 384, (kind, r)
+        assert 0 < r["registers"] <= 255 and r["ctas_per_sm"] >= 1, (kind, r)
+        assert r["local_bytes"] == 0, (kind, r)
+
+
+def test_fp32_forward_refuses_misaligned_views(cuda):
+    """The fp32 forwards stage tiles by 16-byte copies: an fp32 view off a
+    16-byte boundary raises before any launch, in the [B, H, S, D] and the
+    packed layout and in the ring's forward; it is not copied silently."""
     from dalle_mtf_tpu_torch.ops import ring_attention as tring
 
     n = 2 * 2 * 64 * 128
     f = torch.rand(n + 1, device="cuda")[1:].view(2, 2, 64, 128)
     assert f.data_ptr() % 16 and f.is_contiguous()
-    out, lse = tattn._forward(f, f, f, None, 0.0, None, True)
+    ok = torch.rand((2, 2, 64, 128), device="cuda")
+    before = dict(tattn.KERNEL_LAUNCHES), dict(tring.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn._forward(f, ok, ok, None, 0.0, None, True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tpacked._forward(ok.reshape(2, 128, 128), f.reshape(2, 128, 128),
+                         ok.reshape(2, 128, 128), 1, None, 0.0, None)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tring.ring_partial(ok, ok, f, 64, 128, 64, None, 0.0, 0)
+    assert (dict(tattn.KERNEL_LAUNCHES), dict(tring.KERNEL_LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("b,h,s,d,window,rate", [
+    (1, 8, 1280, 128, None, 0.1), (2, 3, 129, 64, 37, 0.0),
+])
+def test_fp32_forward_runs_are_bit_equal(cuda, b, h, s, d, window, rate):
+    """The fp32 forward's two warp groups are merged in one fixed order and
+    nothing is added atomically: two runs of the causal forward, the packed
+    one and the ring's give the same bits."""
+    from dalle_mtf_tpu_torch.ops import ring_attention as tring
+
+    q, k, v = _uniform((b, h, s, d), torch.float32, torch.Generator().manual_seed(s + d), 3)
+    seed = 2**31 - 7
+    runs = [tattn._forward(q, k, v, window, rate, seed, with_lse=True) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    pq, pk, pv = (t.transpose(1, 2).reshape(b, s, h * d).contiguous() for t in (q, k, v))
+    runs = [tpacked._forward(pq, pk, pv, h, window, rate, seed) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    args = (s, 3 * s, 2 * s, window, rate, seed)  # a past hop
+    runs = [tring.ring_partial(q, k, v, *args) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF])
+@pytest.mark.parametrize("where", ["q", "k", "v"])
+def test_fp32_kernels_keep_nans(cuda, where, bits):
+    """A NaN in q, k or v stays a NaN through the 3xTF32 split (the card's
+    own NaN, 0x7FFFFFFF, and its negative): the causal forward's out, its
+    backward's dq, the ring forward's num and the ring backward's dq are NaN
+    in every row and column that the NaN reaches, as in any fp32 attention;
+    none of them turns it into a zero."""
+    from dalle_mtf_tpu_torch.ops import ring_attention as tring
+
+    b, h, s, d, r, c = 1, 2, 200, 128, 70, 5
+    q, k, v, g = _uniform((b, h, s, d), torch.float32, torch.Generator().manual_seed(9), 4)
+    t = {"q": q, "k": k, "v": v}[where]
+    t.view(torch.int32)[0, 1, r, c] = bits - 2**32 if bits >= 2**31 else bits
+    assert t[0, 1, r, c].isnan()
+    cols = [c] if where == "v" else list(range(d))
+
+    def nan_in(x, rows, cols):
+        return x[0, 1][rows][:, cols].isnan().all().item()
+
+    # the causal pair: key r reaches the rows at and below it
+    rows = [r] if where == "q" else list(range(r, s))
+    out, lse = tattn._forward(q, k, v, None, 0.0, 0, with_lse=True)
+    dq, _, _ = tattn._backward(q, k, v, out, lse, g, None, 0.0, 0)
+    torch.cuda.synchronize()
+    assert nan_in(out, rows, cols), "out"
+    assert nan_in(dq, rows, list(range(d))), "dq"
+    assert not out[0, 0].isnan().any() and not dq[0, 0].isnan().any()
+    # the ring pair at a past hop: every key reaches every row
+    rows = [r] if where == "q" else list(range(s))
+    args = (s, 3 * s, 2 * s, None, 0.0, 0)
+    num, m, l = tring.ring_partial(q, k, v, *args)
+    lse = (m + torch.log(l.clamp_min(1e-30))).contiguous()
+    dsum = (g * num / l.view(b, h, s, 1)).sum(-1).reshape(b * h, s).contiguous()
+    dk, dv = (torch.zeros((b, h, s, d), device="cuda") for _ in range(2))
+    dq = tring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args)
+    torch.cuda.synchronize()
+    assert nan_in(num, rows, cols), "num"
+    assert nan_in(dq, rows, list(range(d))), "ring dq"
+    assert not num[0, 0].isnan().any() and not dq[0, 0].isnan().any()
+
+
+def test_fp32_backward_refuses_misaligned_views(cuda):
+    """The fp32 backward kernels stage tiles by 16-byte copies: an fp32 view
+    off a 16-byte boundary raises before any launch (the out and lse it
+    would read come from an aligned copy)."""
+    from dalle_mtf_tpu_torch.ops import ring_attention as tring
+
+    n = 2 * 2 * 64 * 128
+    f = torch.rand(n + 1, device="cuda")[1:].view(2, 2, 64, 128)
+    assert f.data_ptr() % 16 and f.is_contiguous()
+    out, lse = tattn._forward(*(f.clone() for _ in range(3)), None, 0.0, None, True)
     before = dict(tattn.KERNEL_LAUNCHES)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tattn._backward(f, f, f, out, lse, f, None, 0.0, None)

@@ -20,10 +20,13 @@ definition of its walk, so here they are held
 (c) on the rows that see no key in the hop: m = NEG_INF exactly, l = the
     count of the keys the walk visited below Sk, num their sum of v;
 (d) in bf16, where they round p_v and ds as the one-shot versions do;
-(e) the fp32 ring_block_grads kernels' three-product TF32 split against the
-    one-shot fp32 plain version and JAX's ``_ring_block_grads``: each
-    64-long tile within 1e-5 of its own max |plain|, and one TF32 product
-    shown to fail that bound.
+(e) the fp32 kernels' three-product TF32 split, ring_block_grads and
+    ring_partial (the forward also in the fp32 kernel's two warp groups a q
+    tile, merged at the end), against the one-shot fp32 plain versions and
+    JAX's ``_ring_block_grads`` / ``_ring_partial``: each 64-long tile within
+    1e-5 of its own max |plain|, m and l within 1e-5; one TF32 product shown
+    to fail that bound, and one accumulator down a long P·V sum too; the
+    dead-row convention through the merge.
 
 The kernel carries its own C++ copy of this arithmetic, which no CPU test can
 see: tests/test_torch_cuda.py holds the built kernels to the one-shot plain
@@ -406,3 +409,118 @@ def test_score_products_hold_the_bound_summed_by_step(monkeypatch):
     monkeypatch.setattr(tiles, "split_matmul",
                         lambda a, b_, split=None, chunk=1: by_step(a, b_, split, None))
     assert "dk" in split_errors()
+
+
+# ------------------------------------------- the fp32 forward's 3xTF32 split
+# The fp32 ring_partial takes both products as three TF32 products and walks
+# a q tile in two warp groups, one 32-key half of every key tile each, with
+# their own online softmax, merged once at the end. ``split`` emulates both;
+# held to the kernel's bound: num per 64-long tile within 1e-5 of its own
+# max |plain| and m, l within 1e-5 relative, on rows with a live key.
+
+
+def _ring_forward_split_case(s, hops, window, rate, d, split):
+    diff = hops * s
+    window = _window(window, s, diff)
+    args = (diff, 3 * s, 3 * s - diff, window, rate, SEED)
+    q, k, v, _ = _inputs(s, d, seed=7 * s + hops + d)
+    want = tring.ring_partial_reference(q, k, v, *args)
+    got = tiles.ring_partial_tiled_reference(q, k, v, *args, split=split)
+    return got, want, _live(s, diff, window)
+
+
+def _ring_forward_errors(got, want, live):
+    """(num's tile error on live rows, m's and l's relative errors there)."""
+    keep = live.reshape(1, 1, -1, 1)
+    errs = [tiles.tile_rel_err(got[0] * keep, want[0] * keep)]
+    for t, w in zip(got[1:], want[1:]):
+        errs.append(((t - w)[:, live].abs() / w[:, live].abs().clamp_min(1.0)).max().item()
+                    if live.any() else 0.0)
+    return errs
+
+
+@pytest.mark.parametrize("s,hops,window,rate,d", RING_SPLIT_CASES)
+def test_ring_partial_tf32x3_split_holds_the_fp32_tile_bound(s, hops, window, rate, d):
+    got, want, live = _ring_forward_split_case(s, hops, window, rate, d, "tf32x3")
+    for t, w in zip(got, want):
+        assert t.shape == w.shape and t.dtype == w.dtype == torch.float32
+    assert max(_ring_forward_errors(got, want, live)) <= FP32_TILE_RTOL
+    assert (got[1][:, ~live] == tattn.NEG_INF).all()
+
+
+@pytest.mark.parametrize("s,hops,window,rate,d", RING_SPLIT_CASES)
+def test_ring_partial_one_tf32_product_fails_the_fp32_tile_bound(s, hops, window, rate, d):
+    got, want, live = _ring_forward_split_case(s, hops, window, rate, d, "tf32")
+    assert _ring_forward_errors(got, want, live)[0] > FP32_TILE_RTOL
+
+
+@pytest.mark.parametrize("name,diff,window,rate", JAX_HOPS, ids=[h[0] for h in JAX_HOPS])
+def test_ring_partial_tf32x3_split_holds_the_bound_against_jax_kernels(name, diff, window, rate):
+    """The split's forward against the JAX package's ``_ring_partial``
+    (``_ring_fwd_kernel`` in interpret mode), fp32, one seed on both sides:
+    num per 64-long tile within 1e-5 of its own max |JAX| and m, l within
+    1e-5 relative, on rows with a live key."""
+    b, h, s, d = 1, 2, 32, 128
+    rng = np.random.default_rng(5 * diff + int(rate * 100))
+    q, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(3))
+    row0 = 96
+    col0, seed = row0 - diff, 2345671
+    info = jnp.asarray([[diff, row0, col0, seed]], jnp.int32)
+    jnum, jm, jl = jring._ring_partial(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), info,
+                                       True, window, rate, h)
+    want = (torch.from_numpy(np.array(jnum)), torch.from_numpy(np.array(jm).reshape(b * h, s)),
+            torch.from_numpy(np.array(jl).reshape(b * h, s)))
+    got = tiles.ring_partial_tiled_reference(
+        *(torch.from_numpy(x) for x in (q, k, v)), diff, row0, col0, window, rate, seed,
+        split="tf32x3")
+    live = _live(s, diff, window)
+    assert live.any() == (name != "window_far")
+    assert max(_ring_forward_errors(got, want, live)) <= FP32_TILE_RTOL
+
+
+@pytest.mark.parametrize("s,window", [(200, 100), (65, 40)])
+def test_dead_rows_keep_their_convention_through_the_merge(s, window):
+    """A past hop under a window that crosses the shard edge, in the fp32
+    kernel's two warp groups: a dead row's groups both end at m = NEG_INF,
+    so the merge's factors are 1 and it is written m = NEG_INF itself, l =
+    the count of the keys the walk visited below Sk (summed over both
+    halves) and num = their sum of v. At S_local = 65 the last key tile
+    holds one key below Sk: the rest, in both halves, score -inf and count
+    nothing, and one group sees no key below Sk at all there."""
+    rows, diff = tiles.STREAM_TILE, s
+    q, k, v, _ = _inputs(s, 128, seed=19 + s)
+    num, m, l = tiles.ring_partial_tiled_reference(q, k, v, diff, 2 * s, s, window,
+                                                   split="tf32x3")
+    live = _live(s, diff, window)
+    assert live.any() and not live.all()
+    assert (m[:, ~live] == tattn.NEG_INF).all() and (m[:, live] > tattn.NEG_INF / 2).all()
+    for r in (~live).nonzero()[:, 0].tolist():
+        q0 = r // rows * rows
+        first, last = tiles.ring_key_tile_range(q0, rows, s, s, diff, window)
+        keys = [c for c in range(first * TILE, (last + 1) * TILE) if c < s]
+        assert (l[:, r] == len(keys)).all(), (r, l[:, r], len(keys))
+        want = v[0, :, keys].sum(1) if keys else torch.zeros_like(num[0, :, r])
+        assert _close(num[0, :, r], want)[0], r
+
+
+def test_ring_partial_pv_sums_hold_the_bound_summed_by_step(monkeypatch):
+    """One q tile against a long visiting shard (Sk = 4352, a past hop: every
+    row sees every key), so each row's P·V sum runs over 4352 keys. Each k
+    step of 8 summed apart, as the kernel sums, holds the bound with room;
+    one accumulator down the sum (the tensor cores truncating its running
+    total at every mma) drifts past it."""
+    s_k = 4352
+    rng = np.random.default_rng(s_k)
+    q = torch.from_numpy((rng.random((1, 2, 64, 64)) * 2 - 1).astype(np.float32))
+    k, v = (torch.from_numpy((rng.random((1, 2, s_k, 64)) * 2 - 1).astype(np.float32))
+            for _ in range(2))
+    args = (s_k, 2 * s_k, s_k, None, 0.0, SEED)
+    want = tring.ring_partial_reference(q, k, v, *args)[0]
+    got = tiles.ring_partial_tiled_reference(q, k, v, *args, split="tf32x3")[0]
+    assert tiles.tile_rel_err(got, want) <= FP32_TILE_RTOL / 4
+    by_step = tiles.split_matmul
+    monkeypatch.setattr(  # one accumulator where a product adds into a running sum: P V
+        tiles, "split_matmul", lambda a, b, split=None, chunk=1, into=None: by_step(
+            a, b, split, None if into is not None else chunk, into))
+    got = tiles.ring_partial_tiled_reference(q, k, v, *args, split="tf32x3")[0]
+    assert tiles.tile_rel_err(got, want) > FP32_TILE_RTOL
