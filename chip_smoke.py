@@ -11,7 +11,11 @@ Phases, none of them optional:
    kernels, the bf16 ring kernels and the fp32 (3xTF32) kernels of both
    pairs: registers a thread, spilled bytes, shared memory a CTA and CTAs an
    SM of the forward (bf16 under either q tile; fp32 on 64 rows), the dQ
-   and the dK/dV kernel.
+   and the dK/dV kernel; and for the decode matmuls (csrc/decode_matmul.cu)
+   each built instantiation (int8 or int4, rows aligned or not) at a whole
+   chunk of K in clusters of 8, and each decode shape's plan (K slices,
+   cluster size, CTAs): registers, spills, static and dynamic shared memory,
+   CTAs an SM, clusters the card holds at once.
 2. Kernels against plain, on the card, both times from CUDA events. The
    attention kernels are timed over 20 launches or more, on inputs that
    together exceed the 50 MB L2 (rotating over copies where one set does
@@ -133,9 +137,11 @@ Phases, none of them optional:
    at batch 4 (q/k/v, wo with its per-head int4 split, mlp1, mlp2, the
    image-token head band), at M = 1 and 32, and at the ragged full-vocabulary
    head (N = 52,307). Tolerance: max |kernel - plain| <= 1e-5 * max |plain|:
-   the same exact products summed in fp32 in another order. Timed on weight
-   copies that together exceed the 50 MB L2, so every launch reads its
-   weight from device memory as the decode loop does.
+   the same exact products summed in fp32 in another order; two runs equal
+   bit for bit. Timed on the card under torch.profiler from traces with one
+   kernel event a call (one launch a call), on weight copies that together
+   exceed the 50 MB L2, so every launch reads its weight from device memory
+   as the decode loop does.
 7. Quantized serving, the main paths of ``--quantize int8`` and
    ``--quantize int4``: a temporary copy of configs/dalle_coco.json with
    ``decode_kernels: true`` through ``serve_dalle.build_server`` (weights from
@@ -238,6 +244,13 @@ PEAK_TF32_TFLOPS = 494.7  # H100 SXM dense TF32 on the tensor cores (data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 L2_BYTES = 50e6
 CHUNK = 128  # continuous engine: decode steps between admissions
+DECODE_SHAPES = [  # (name, M, K, N): dalle_coco at batch 4, then M = 1 and 32, then ragged N
+    ("qkv", 4, 1024, 1024), ("wo", 4, 1024, 1024), ("mlp1", 4, 1024, 4096),
+    ("mlp2", 4, 4096, 1024), ("head_band", 4, 1024, 2048), ("mlp1_m1", 1, 1024, 4096),
+    ("mlp1_m32", 32, 1024, 4096), ("head_full_vocab", 4, 1024, 52307),
+]
+DECODE_HEADS, DECODE_HEAD_DIM = 8, 128  # dalle_coco's heads: wo's int4 packing
+DECODE_ITERS = 200  # timed launches of a decode matmul (a launch is a few µs)
 # sequence parallelism: ranks sharing the one card over gloo
 RING_RANKS = 4
 RING_MESH, VALUES_MESH = "data:1,seq:4", "data:2,seq:2"
@@ -1945,9 +1958,12 @@ def batch_latency(torch, card, label, dalle, params, vae, vae_params, text4) -> 
     return split
 
 
-def decode_profile(torch, card, label, dalle, params, text4, split, steps: int = 16):
-    """A window of decode steps under torch.profiler: device ops per step and
-    the device's busy share (null when the profiler saw no device work)."""
+def decode_profile(torch, card, label, dalle, params, text4, split, steps: int = 16,
+                   names=("decode_matmul",)):
+    """A window of decode steps under torch.profiler: device ops per step,
+    the device ms a step of the kernels named ``names`` (the decode
+    matmuls) and the device's busy share (null when the profiler saw no
+    device work)."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
     cfg = dalle.cfg
@@ -1967,8 +1983,7 @@ def decode_profile(torch, card, label, dalle, params, text4, split, steps: int =
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e6
-    mm = sum(e.time_range.elapsed_us() for e in device
-             if "decode_matmul" in e.name or "splitk_reduce" in e.name) / 1e6
+    mm = sum(e.time_range.elapsed_us() for e in device if any(n in e.name for n in names)) / 1e6
     print("decode_profile", json.dumps(dict(
         card=card, weights=label, steps=steps, device_ops_per_step=len(device) / steps,
         device_busy_ms_per_step=busy / steps * 1e3,
@@ -1985,66 +2000,97 @@ def quantize_columns(torch, w, qmax):
     return torch.clamp(torch.round(w / scale), -qmax, qmax).to(torch.int8), scale
 
 
-def phase_decode_kernels(torch, dmm, card):
-    """int8_matmul and int4_matmul against their plain versions at the
-    decode shapes; returns {name: row at the mlp1 shape at M = 4}."""
+def decode_case(torch, dmm, name, kind, x, w):
+    """The inputs of ``kind`` ("int8_matmul" or "int4_matmul") at decode
+    shape ``name`` from bf16 x [M, K] and fp32 w [K, N]: (wrapper, plain
+    version, x operands, int8 or packed weight, scale, the bf16 dequantized
+    [K, N] weight that ``torch.matmul`` takes)."""
     from dalle_mtf_tpu_torch.quantize import pack_int4  # noqa: PLC0415
 
-    shapes = [  # (name, M, K, N): dalle_coco at batch 4, then M = 1 and 32, then ragged N
-        ("qkv", 4, 1024, 1024), ("wo", 4, 1024, 1024), ("mlp1", 4, 1024, 4096),
-        ("mlp2", 4, 4096, 1024), ("head_band", 4, 1024, 2048), ("mlp1_m1", 1, 1024, 4096),
-        ("mlp1_m32", 32, 1024, 4096), ("head_full_vocab", 4, 1024, 52307),
-    ]
-    heads, head_dim = 8, 128
+    m, k = x.shape
+    n = w.shape[1]
+    int4 = kind == "int4_matmul"
+    q, scale = quantize_columns(torch, w, 7.0 if int4 else 127.0)
+    deq = q.to(torch.bfloat16) * scale.to(torch.bfloat16)
+    if not int4:
+        return dmm.int8_matmul, dmm.int8_matmul_reference, (x,), q, scale, deq
+    if name == "wo":  # packed per head along D: rows (h, d) of [H*D, E]
+        packed = pack_int4(q.view(DECODE_HEADS, DECODE_HEAD_DIM, n), 1).reshape(-1, n)
+        xh = x.view(m, DECODE_HEADS, DECODE_HEAD_DIM)
+        xs = (xh[..., : DECODE_HEAD_DIM // 2].reshape(m, -1).contiguous(),
+              xh[..., DECODE_HEAD_DIM // 2:].reshape(m, -1).contiguous())
+    else:
+        packed = pack_int4(q, 0)
+        xs = (x[:, : k // 2].contiguous(), x[:, k // 2:].contiguous())
+    return dmm.int4_matmul, dmm.int4_matmul_reference, xs, packed, scale, deq
+
+
+def decode_resources(dmm) -> None:
+    """A "resources" line for each built decode-matmul instantiation, at a
+    slice of a whole chunk in clusters of 8 and at each decode shape's plan."""
+    for int4, aligned in dmm.INSTANTIATIONS:
+        print("resources", json.dumps(dict(
+            kernels="decode matmul", int4=int4, aligned=aligned, k_slice=dmm.MAX_PASSES
+            * dmm.ROWS_PER_PASS, cluster=dmm.MAX_CLUSTER, **dmm.kernel_resources(int4, aligned))),
+            flush=True)
+    for name, m, k, n in DECODE_SHAPES:
+        for int4 in (False, True):
+            kp = k // 2 if int4 else k
+            walk = dmm.plan(kp, int4)
+            aligned = n % 16 == 0
+            print("resources", json.dumps(dict(
+                kernels="decode matmul", shape=name, int4=int4, aligned=aligned,
+                **walk._asdict(), ctas=dmm.ctas(walk, m, n),
+                **dmm.kernel_resources(int4, aligned, walk.k_slice, walk.splits))), flush=True)
+
+
+def phase_decode_kernels(torch, dmm, card):
+    """int8_matmul and int4_matmul against their plain versions at the
+    decode shapes, two runs bit-equal, one kernel event a call; returns
+    {name: row at the mlp1 shape at M = 4}."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     best = {}
-    for name, m, k, n in shapes:
+    for name, m, k, n in DECODE_SHAPES:
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
         for kind in ("int8_matmul", "int4_matmul"):
-            int4 = kind == "int4_matmul"
-            q, scale = quantize_columns(torch, w, 7.0 if int4 else 127.0)
-            deq = (q.to(torch.bfloat16) * scale.to(torch.bfloat16))  # the library's weight
-            if not int4:
-                packed, xs = q, (x,)
-                fn, ref = dmm.int8_matmul, dmm.int8_matmul_reference
-            elif name == "wo":  # packed per head along D: rows (h, d) of [H*D, E]
-                packed = pack_int4(q.view(heads, head_dim, n), 1).reshape(-1, n)
-                xh = x.view(m, heads, head_dim)
-                xs = (xh[..., : head_dim // 2].reshape(m, -1).contiguous(),
-                      xh[..., head_dim // 2:].reshape(m, -1).contiguous())
-                fn, ref = dmm.int4_matmul, dmm.int4_matmul_reference
-            else:
-                packed = pack_int4(q, 0)
-                xs = (x[:, : k // 2].contiguous(), x[:, k // 2:].contiguous())
-                fn, ref = dmm.int4_matmul, dmm.int4_matmul_reference
+            fn, ref, xs, packed, scale, deq = decode_case(torch, dmm, name, kind, x, w)
             before = dmm.KERNEL_LAUNCHES[kind]
             got = fn(*xs, packed, scale)
+            again = fn(*xs, packed, scale)
             want = ref(*xs, packed, scale)
             torch.cuda.synchronize()
-            if dmm.KERNEL_LAUNCHES[kind] != before + 1:
-                raise AssertionError(f"{kind} did not count its launch")
+            if dmm.KERNEL_LAUNCHES[kind] != before + 2:
+                raise AssertionError(f"{kind} did not count its launches")
             err = (got - want).abs().max().item()
             tol = 1e-5 * want.abs().max().item()
             if not err <= tol or got.shape != (m, n):
                 raise AssertionError(f"{kind} {name}: max_abs_err {err} > {tol}")
+            if not same_bits((got,), (again,)):
+                raise AssertionError(f"{kind} {name}: two runs differ")
             # copies past the L2: every timed launch reads its weight cold
             copies = max(1, math.ceil(2 * L2_BYTES / packed.numel()))
             ws = [(packed.clone(), scale.clone()) for _ in range(copies)]
             lib_copies = max(1, math.ceil(2 * L2_BYTES / (2 * deq.numel())))
             ds = [deq.clone() for _ in range(lib_copies)]
-            calls = {"": lambda i: fn(*xs, *ws[i]), "plain_": lambda i: ref(*xs, *ws[i]),
-                     "library_": lambda i: torch.matmul(x, ds[i % lib_copies])}
-            times = {}
-            for prefix, call in calls.items():
-                iters = 20 if prefix == "plain_" else 200
-                times[prefix + "ms"] = device_ms_rotating(torch, call, copies, iters)
-                times[prefix + "wall_ms"] = cuda_ms_rotating(call, copies, iters)
+
+            def call(i):
+                return fn(*xs, *ws[i])
+
+            times = dict(
+                ms=kernel_device_ms(torch, call, copies, DECODE_ITERS, ("decode_matmul",), 1),
+                wall_ms=cuda_ms_rotating(call, copies, DECODE_ITERS),
+                plain_ms=device_ms_rotating(torch, lambda i: ref(*xs, *ws[i]), copies, 20),
+                library_ms=device_ms_rotating(
+                    torch, lambda i: torch.matmul(x, ds[i % lib_copies]), copies,
+                    DECODE_ITERS))
             nbytes = packed.numel() + x.numel() * 2 + scale.numel() * 4 + m * n * 4
+            walk = dmm.plan(packed.shape[0], kind == "int4_matmul")
             row = dict(card=card, kernel=kind, shape=name, M=m, K=k, N=n,
-                       weight_bytes=packed.numel(), max_abs_err=err, atol=tol, **times,
-                       **roofline(2 * m * k * n, nbytes), weight_copies=copies,
-                       split_k=dmm.split_k(m, packed.shape[0], n))
+                       weight_bytes=packed.numel(), max_abs_err=err, atol=tol,
+                       bit_equal_runs=True, **times, **roofline(2 * m * k * n, nbytes),
+                       weight_copies=copies, plan=walk._asdict(),
+                       ctas=dmm.ctas(walk, m, n))
             print("kernel", json.dumps(row), flush=True)
             if name == "mlp1":
                 best[kind] = row
@@ -2306,6 +2352,7 @@ def main() -> int:
             print("resources", json.dumps(dict(
                 kernels=f"{label} forward and backward, fp32 (3xTF32)", D=d,
                 **attn.kernel_resources(d, kind, torch.float32))), flush=True)
+    decode_resources(dmm)
     serving = phase_kernel(torch, attn, card)
     phase_tile_cases(torch, attn, card)
     decode = phase_decode_kernels(torch, dmm, card)

@@ -47,10 +47,12 @@ _SIGNATURES = {
     "causal_attention_fwd_info": [_I, _I, _I, _P],
     # pass (0 dQ, 1 dK/dV), head_dim, dtype, out[4]
     "causal_attention_bwd_info": [_I, _I, _I, _P],
-    # x, w, scale, out, partial; M, K, N, m_tile, k_slice, splits; stream
-    "int8_matmul": [_P] * 5 + [_I] * 6 + [_P],
-    # x_lo, x_hi, packed, scale, out, partial; then as int8_matmul
-    "int4_matmul": [_P] * 6 + [_I] * 6 + [_P],
+    # x, w, scale, out; M, K, N, k_slice, splits; stream
+    "int8_matmul": [_P] * 4 + [_I] * 5 + [_P],
+    # x_lo, x_hi, packed, scale, out; then as int8_matmul
+    "int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    # int4, vec, k_slice, cluster, out[6]
+    "decode_matmul_info": [_I] * 4 + [_P],
     # x, g, b, y; rows, e, dtype; eps; stream
     "layer_norm_fwd": [_P] * 4 + [_I] * 3 + [_F, _P],
     # x, dy, g, dx, partial, dg, db; rows, e, n_ctas, dtype; eps; stream

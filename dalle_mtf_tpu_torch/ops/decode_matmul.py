@@ -15,7 +15,8 @@ it runs its plain version (``*_reference``). The plain versions compute what
 the TPU kernels compute: int8 (or nibble) values converted exactly to bf16
 and fp32, products of bf16 x and those values exact in fp32, an fp32 sum
 over K, then one multiply by the column scale. Kernel and plain version
-agree up to the order of the fp32 sum. The JAX wrappers compute a ragged
+agree up to the order and rounding of the fp32 sum (the kernel's tensor
+cores sum each 16-row tile and round it toward zero). The JAX wrappers compute a ragged
 tail of N (past the last 512-column block) as an einsum against a bf16
 dequantized weight; the CUDA kernel masks the ragged edge itself, so every
 column takes the body's arithmetic.
@@ -23,16 +24,20 @@ column takes the body's arithmetic.
 Replaces ``dalle_mtf_tpu/ops/decode_matmul.py::_int8_kernel`` (driven by
 ``int8_matmul``) and ``::_int4_kernel`` (driven by ``int4_matmul``). What
 bounds them on the H100: the weight stream, K*N bytes (Kp*N packed) read
-once at 3.35 TB/s; the activations are a few KB and the arithmetic is a few
-operations per weight byte. The design answers with 16-byte loads of weight
-rows, every load of a thread's slice issued before its arithmetic, split-K
-across CTAs to fill the 132 SMs, and a fixed-order second pass over the
-partial sums instead of atomics (see the source).
+once at 3.35 TB/s; the activations are a few KB. The design: an exact
+dequant to bf16 without the int-to-float unit, the products and the sum
+down each 16-row tile on the tensor cores (mma.sync), every tile a zero
+accumulator added to fp32 sums, a ring of asynchronous copies a warp, and
+where K is long, split-K over a thread-block cluster: one launch a call, the
+slices' sums added in slice order through distributed shared memory (see
+the source). ``plan`` chooses the slices; ``ops/decode_matmul_tiles.py``
+follows the kernel's order in numpy.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -41,10 +46,69 @@ import torch
 KERNEL_LAUNCHES = {"int8_matmul": 0, "int4_matmul": 0}
 
 M_MAX = 32            # decode rows the kernels take
-BLOCK_N = 128         # output columns per CTA (8 lanes x 16 bytes)
-ROWS_PER_PASS = 32    # weight rows a CTA reads per pass (8 warps x 4)
-MAX_K_SLICE = 256     # weight rows per CTA at most (its x slice in shared)
-TARGET_CTAS = 264     # two CTAs per SM on the H100's 132
+THREADS = 256         # threads a CTA: 8 warps
+WARPS = THREADS // 32
+BLOCK_N = 32          # output columns a CTA: two mma tiles of 16
+M_TILE = 8            # rows of x a CTA: the mma's n
+TILE_K = 16           # rows of K a tile: the mma's k
+ROWS_PER_PASS = WARPS * TILE_K  # a pass: one tile a warp
+MAX_PASSES = 16       # passes between copies of x (a chunk)
+DEPTH = 8             # tiles in flight a warp
+TILE_BYTES = 20 * 32  # a tile's 16 rows of 32 bytes, a 32-byte gap after every 4th
+MAX_CLUSTER = 8       # K slices a cluster: the portable cluster size
+MAX_WORK = 12         # tiles a warp of a plan reads at most, an int4 tile counting 2
+
+
+class Plan(NamedTuple):
+    """How the kernel walks an [M, K] x [K, N] product: K slices of
+    ``k_slice`` rows, ``splits`` of them a cluster (one slice: no
+    cluster). A CTA covers BLOCK_N columns and M_TILE rows of x."""
+
+    k_slice: int
+    splits: int
+
+
+def passes(p: Plan) -> int:
+    """Tiles a warp of the plan reads."""
+    return p.k_slice // ROWS_PER_PASS
+
+
+def ctas(p: Plan, m: int, n: int) -> int:
+    return p.splits * math.ceil(n / BLOCK_N) * math.ceil(m / M_TILE)
+
+
+def smem_bytes(p: Plan, int4: bool) -> int:
+    """The kernel's shared memory a CTA: each warp's sums and the cluster's
+    gathered sums (static); each warp's ring of DEPTH tile slots, and x as
+    bf16 for one chunk of at most MAX_PASSES passes of the slice
+    (dynamic)."""
+    sums = M_TILE * BLOCK_N
+    chunk = min(p.k_slice, MAX_PASSES * ROWS_PER_PASS)
+    return ((WARPS * sums + sums + MAX_CLUSTER) * 4 + WARPS * DEPTH * TILE_BYTES
+            + (2 if int4 else 1) * M_TILE * chunk * 2)
+
+
+def candidates(k: int) -> list[Plan]:
+    """Every split of K rows (the weight's rows, Kp for int4) into at most
+    MAX_CLUSTER slices of whole passes."""
+    out = []
+    for c in range(1, MAX_CLUSTER + 1):
+        ks = math.ceil(math.ceil(k / c) / ROWS_PER_PASS) * ROWS_PER_PASS
+        if math.ceil(k / ks) == c:  # a c that rounds to fewer slices is another c
+            out.append(Plan(ks, c))
+    return out
+
+
+def plan(k: int, int4: bool = False) -> Plan:
+    """The fewest slices (one: no cluster) that leave a warp at most
+    MAX_WORK tiles (an int4 tile holds two weights a byte and counts 2), or
+    the most slices where none does. Measured on the H100 (PERF.md):
+    a cluster costs its barrier and the scheduler's placement, so a decode
+    product splits K only where a warp would otherwise stream far longer
+    than the rest of the card (mlp2, K = 4096 on N = 1024)."""
+    cands = candidates(k)
+    fit = [p for p in cands if passes(p) * (2 if int4 else 1) <= MAX_WORK]
+    return min(fit, key=lambda p: p.splits) if fit else cands[-1]
 
 
 def int8_matmul_reference(x, w, scale):
@@ -58,23 +122,6 @@ def int4_matmul_reference(x_lo, x_hi, packed, scale):
     lo = ((p << 28) >> 28).to(torch.bfloat16).float()
     hi = (p >> 4).to(torch.bfloat16).float()
     return (x_lo.float() @ lo + x_hi.float() @ hi) * scale.float()
-
-
-def m_tile(m: int) -> int:
-    """Rows of x one CTA carries: the power of two >= m, at most 4 (more
-    rows take more CTAs along the grid's z axis)."""
-    return 1 if m <= 1 else 2 if m == 2 else 4
-
-
-def split_k(m: int, k: int, n: int) -> tuple[int, int]:
-    """(rows per K slice, number of slices) for a [m, k] x [k, n] product:
-    enough CTAs to fill the card (TARGET_CTAS), slices of whole passes of
-    ROWS_PER_PASS rows and at most MAX_K_SLICE rows."""
-    ctas = math.ceil(n / BLOCK_N) * math.ceil(m / m_tile(m))
-    splits = max(math.ceil(k / MAX_K_SLICE),
-                 min(math.ceil(TARGET_CTAS / ctas), max(1, k // ROWS_PER_PASS)))
-    ks = math.ceil(math.ceil(k / splits) / ROWS_PER_PASS) * ROWS_PER_PASS
-    return ks, math.ceil(k / ks)
 
 
 def _check(name, xs, w, scale):
@@ -96,28 +143,49 @@ def _check(name, xs, w, scale):
         raise ValueError(f"{name} needs contiguous inputs")
 
 
-def _launch(name, xs, w, scale):
-    """Launch ``name`` on CUDA tensors: allocate the output and the split-K
-    partials, launch, raise on a launch error."""
+def _launch(name, xs, w, scale, walk: Plan | None = None):
+    """Launch ``name`` on CUDA tensors with the plan ``walk`` (by default
+    ``plan``'s): allocate the output, launch once, raise on a launch error."""
     from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
 
     m, k = xs[0].shape
     n = w.shape[1]
-    mt = m_tile(m)
-    ks, splits = split_k(m, k, n)
+    p = walk or plan(k, name == "int4_matmul")
     with torch.cuda.device(w.device):
         out = torch.empty((m, n), dtype=torch.float32, device=w.device)
-        partial = (torch.empty((splits, m, n), dtype=torch.float32, device=w.device)
-                   if splits > 1 else out)
         err = getattr(library(), name)(
-            *(x.data_ptr() for x in xs), w.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), partial.data_ptr(), m, k, n, mt, ks, splits,
-            torch.cuda.current_stream(w.device).cuda_stream,
+            *(x.data_ptr() for x in xs), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, k, n, *p, torch.cuda.current_stream(w.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     KERNEL_LAUNCHES[name] += 1
     return out
+
+
+def kernel_resources(int4: bool, aligned: bool = True, k_slice: int | None = None,
+                     cluster: int = MAX_CLUSTER) -> dict[str, int]:
+    """What the built instantiation (``aligned``: the weight's rows start on
+    16 bytes) takes at a slice of ``k_slice`` rows (by default a whole
+    chunk), read from the card's runtime: {"registers", "local_bytes"
+    (spills), "smem_bytes" (static), "dynamic_smem_bytes", "ctas_per_sm",
+    "clusters" (clusters of ``cluster`` CTAs resident at once; 0 for a
+    cluster of 1, which launches without one)}."""
+    import ctypes  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
+
+    k_slice = k_slice or MAX_PASSES * ROWS_PER_PASS
+    out = (ctypes.c_int * 6)()
+    err = library().decode_matmul_info(int(int4), int(aligned), k_slice, cluster, out)
+    if err != 0:
+        raise RuntimeError(f"decode_matmul_info({int4}, {aligned}, {k_slice}, {cluster}): "
+                           f"cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "dynamic_smem_bytes",
+                     "ctas_per_sm", "clusters"), (int(v) for v in out)))
+
+
+INSTANTIATIONS = [(int4, aligned) for int4 in (False, True) for aligned in (True, False)]
 
 
 def _dispatch(name, xs, w, scale, reference):

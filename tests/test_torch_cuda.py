@@ -18,6 +18,10 @@ dx atol 1e-5 (fp32) or 1e-2 (bf16) times max(1, max |plain|), dg and db
 1e-4 of max |plain| (fp32 sums over the rows in another order).
 """
 
+import importlib.util
+import math
+import os
+
 import pytest
 import torch
 
@@ -25,10 +29,21 @@ from dalle_mtf_tpu_torch.ops import attention as tattn
 from dalle_mtf_tpu_torch.ops import attention_packed as tpacked
 from dalle_mtf_tpu_torch.ops import attention_tiles as ttiles
 from dalle_mtf_tpu_torch.ops import decode_matmul as tdmm
+from dalle_mtf_tpu_torch.ops import decode_matmul_tiles as ttiles_dmm
 from dalle_mtf_tpu_torch.ops import layer_norm as tln
 from dalle_mtf_tpu_torch.quantize import pack_int4
 
 pytestmark = pytest.mark.cuda
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its timing helpers)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture
@@ -333,6 +348,8 @@ def _quantized(m, k, n, qmax, gen):
 @pytest.mark.parametrize("m,k,n", [
     (4, 1024, 1024), (4, 1024, 4096), (4, 4096, 1024), (4, 1024, 2048),
     (1, 1024, 1024), (32, 1024, 4096), (3, 256, 520), (4, 1024, 52307),
+    # every row tile (1, 2, 4 rows) and a ragged last tile
+    (2, 1024, 4096), (5, 1024, 1024), (8, 512, 2048), (17, 1024, 1040),
 ])
 def test_decode_matmul_kernels_match_plain(cuda, m, k, n):
     gen = torch.Generator().manual_seed(m * k + n)
@@ -377,6 +394,116 @@ def test_decode_matmul_unaligned_weights_and_bad_inputs(cuda):
                          shifted, s)
     with pytest.raises(ValueError, match="bf16"):
         tdmm.int8_matmul(x.float(), shifted, s)
+
+
+def _decode_operands(kind, m, k, n, gen):
+    """(x operands, weight, scale) on the card for ``kind`` at [m, k] x [k, n]
+    (k: the contraction, halved into packed rows for int4)."""
+    x, q, scale = _quantized(m, k, n, 7.0 if kind == "int4" else 127.0, gen)
+    if kind == "int8":
+        return (x,), q.cuda(), scale.cuda()
+    return ((x[:, : k // 2].contiguous(), x[:, k // 2:].contiguous()),
+            pack_int4(q, 0).cuda(), scale.cuda())
+
+
+def _emulated(xs, w, scale, walk):
+    return torch.from_numpy(ttiles_dmm.decode_matmul_emulated(
+        [x.float().cpu().numpy() for x in xs], w.cpu().numpy(), scale.cpu().numpy(), walk))
+
+
+def _walk_equal(kind, got, want):
+    """int4: the walk's bits. int8: within 2^-20 of max |walk|, a few fp32
+    ulps: the tensor cores sum a tile's 16 products (up to 16 significant
+    bits each) in a way the walk's exact-then-toward-zero model misses by
+    an ulp of the tile's sum in a small share of the outputs (the int4
+    tiles' products, up to 12 bits, it models exactly)."""
+    if kind == "int4":
+        return torch.equal(got, want)
+    return (got - want).abs().max().item() <= 2.0**-20 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("m,k,n", [
+    (4, 1024, 1024), (4, 1024, 4096), (4, 4096, 1024), (4, 1024, 2048), (1, 1024, 4096),
+    (32, 1024, 4096), (3, 256, 520), (17, 1024, 1040), (4, 1024, 52307),
+])
+def test_decode_matmul_kernels_equal_the_emulated_walk(cuda, kind, m, k, n):
+    """The kernel follows the numpy walk (ops/decode_matmul_tiles.py) under
+    the wrapper's plan (``_walk_equal``), and two runs give the same bits."""
+    xs, w, scale = _decode_operands(kind, m, k, n, torch.Generator().manual_seed(k + n + m))
+    fn = tdmm.int4_matmul if kind == "int4" else tdmm.int8_matmul
+    got = fn(*xs, w, scale)
+    again = fn(*xs, w, scale)
+    assert torch.equal(got, again)
+    assert _walk_equal(kind, got.cpu(),
+                       _emulated(xs, w, scale, tdmm.plan(w.shape[0], kind == "int4")))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_every_decode_plan_equals_the_emulated_walk(cuda, kind, aligned):
+    """Each built instantiation (rows on 16 bytes, copied asynchronously;
+    rows off them, N % 16 != 0, read word by word), under one slice, two and
+    the most a cluster takes, over slices of several chunks, follows the
+    walk (``_walk_equal``)."""
+    gen = torch.Generator().manual_seed(int(aligned) * 10 + len(kind))
+    for m, k, n in ((3, 512, 96), (9, 8192, 64)):
+        n = n if aligned else n + 3
+        xs, w, scale = _decode_operands(kind, m, k, n, gen)
+        cands = tdmm.candidates(w.shape[0])
+        for walk in [p for p in cands if p.splits in (1, 2) or p is cands[-1]]:
+            got = tdmm._launch(f"{kind}_matmul", xs, w, scale, walk)
+            assert _walk_equal(kind, got.cpu(), _emulated(xs, w, scale, walk)), (m, k, n, walk)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_decode_matmul_keeps_nan_and_inf(cuda, kind):
+    """A NaN, a +inf and a -inf planted in x (and a NaN scale) come out where
+    the plain version puts them: NaN rows, inf or NaN by the weight's sign,
+    a NaN column."""
+    m, k, n = 5, 1024, 1024
+    xs, w, scale = _decode_operands(kind, m, k, n, torch.Generator().manual_seed(3))
+    xs = tuple(x.clone() for x in xs)
+    xs[0][0, 7] = float("nan")
+    xs[-1][2, 100] = float("inf")
+    xs[-1][3, 5] = float("inf")
+    xs[0][3, 9] = -float("inf")
+    scale = scale.clone()
+    scale[0, 33] = float("nan")
+    fn, ref = ((tdmm.int4_matmul, tdmm.int4_matmul_reference) if kind == "int4"
+               else (tdmm.int8_matmul, tdmm.int8_matmul_reference))
+    got, want = fn(*xs, w, scale), ref(*xs, w, scale)
+    assert torch.equal(got.isnan(), want.isnan()) and want.isnan()[0].all()
+    assert torch.equal(got.isinf(), want.isinf()) and torch.equal(got.isposinf(), want.isposinf())
+    finite = want.isfinite()
+    assert (got[finite] - want[finite]).abs().max().item() <= \
+        1e-5 * want[finite].abs().max().item()
+
+
+def test_decode_matmul_is_one_kernel_a_call(cuda):
+    """The profiler sees one device kernel a call, the decode kernel, and
+    nothing else (no second reduction pass, no copy)."""
+    cs = _chip_smoke()
+    for kind in ("int8", "int4"):
+        xs, w, scale = _decode_operands(kind, 4, 1024, 4096, torch.Generator().manual_seed(5))
+        fn = tdmm.int4_matmul if kind == "int4" else tdmm.int8_matmul
+        ms = cs.kernel_device_ms(torch, lambda _: fn(*xs, w, scale), 1, 10, ("decode_matmul",), 1)
+        _, seen = cs.device_profile(torch, lambda _: fn(*xs, w, scale), 1, 10)
+        assert ms > 0 and sum(c for c, _ in seen.values()) == 10, seen
+        assert all("decode_matmul" in name for name in seen), seen
+
+
+def test_decode_matmul_kernels_report_their_resources(cuda):
+    """Every built instantiation reports its registers, spills and shared
+    memory; the shared memory is what ops/decode_matmul.py::smem_bytes
+    counts, a CTA fits an SM and a cluster of 8 fits the card."""
+    for int4, aligned in tdmm.INSTANTIATIONS:
+        walk = tdmm.Plan(tdmm.MAX_PASSES * tdmm.ROWS_PER_PASS, 1)
+        res = tdmm.kernel_resources(int4, aligned, walk.k_slice)
+        assert res["smem_bytes"] + res["dynamic_smem_bytes"] == tdmm.smem_bytes(walk, int4), \
+            (int4, aligned, res)
+        assert res["ctas_per_sm"] >= 1 and res["clusters"] >= 1 and res["local_bytes"] == 0, \
+            (int4, aligned, res)
 
 
 # ring attention's per-hop kernels: (dtype, B, H, S_local, diff / S_local,

@@ -163,16 +163,24 @@ def test_plain_int4_matmul_matches_pallas_interpret(m, n):
 
 
 def test_split_k_covers_k_and_fills_the_card():
-    """The wrapper's split-K plan at the dalle_coco decode shapes (M = 4):
-    whole passes, at most 256 rows a slice, every row in one slice."""
+    """The wrapper's split-K plan (``decode_matmul.plan``: K slices of whole
+    passes, at most MAX_CLUSTER of them a cluster) at the dalle_coco decode
+    shapes (M = 4) and others: every row in one slice, the fewest slices
+    that leave a warp at most MAX_WORK tiles; no split (no cluster) at the
+    decode shapes but mlp2, split three ways over 96 CTAs."""
     for k, n in [(1024, 1024), (1024, 4096), (4096, 1024), (1024, 2048), (512, 1024),
                  (2048, 1024), (1024, 52307), (256, 8)]:
-        ks, splits = tdmm.split_k(4, k, n)
-        assert ks % tdmm.ROWS_PER_PASS == 0 and ks <= tdmm.MAX_K_SLICE
-        assert (splits - 1) * ks < k <= splits * ks
-        if n <= 4096 and k * n >= 512 * 1024:  # a decode shape: near one CTA per SM
-            assert -(-n // tdmm.BLOCK_N) * splits >= 128, (k, n, splits)
-    assert tdmm.m_tile(1) == 1 and tdmm.m_tile(2) == 2 and tdmm.m_tile(3) == 4
+        for int4 in (False, True):
+            walk = tdmm.plan(k, int4)
+            assert walk.k_slice % tdmm.ROWS_PER_PASS == 0
+            assert 1 <= walk.splits <= tdmm.MAX_CLUSTER
+            assert (walk.splits - 1) * walk.k_slice < k <= walk.splits * walk.k_slice
+            assert tdmm.passes(walk) * (2 if int4 else 1) <= tdmm.MAX_WORK
+    for k, n in [(1024, 1024), (1024, 4096), (1024, 2048)]:  # qkv, wo, mlp1, head band
+        assert tdmm.plan(k).splits == 1 and tdmm.plan(k // 2, True).splits == 1
+    mlp2, mlp2_int4 = tdmm.plan(4096), tdmm.plan(2048, True)
+    assert mlp2.splits == 3 and tdmm.ctas(mlp2, 4, 1024) == 96
+    assert mlp2_int4.splits == 3 and tdmm.ctas(mlp2_int4, 4, 1024) == 96
 
 
 def test_wrapper_refuses_bad_inputs_off_the_cpu():
