@@ -51,8 +51,11 @@ Phases, none of them optional:
      S=6200 bf16 (ragged);
    - the LayerNorm pair (csrc/layer_norm.cu) against
      ``layer_norm_reference`` and ``layer_norm_backward_reference`` at
-     dalle_4k's rows (R=17,408, E=1024, bf16) and a ragged fp32 shape; dg
-     and db within 1e-4 of max |plain| and equal bit for bit over two runs;
+     dalle_4k's rows (R=17,408, E=1024, bf16), at dalle_12B's width (R=8192,
+     E=5120, bf16) and a ragged fp32 shape; dg and db within 1e-4 of max
+     |plain| and equal bit for bit over two runs; the device time split by
+     kernel name (the backward is one launch) and a "resources" line for
+     each shape;
    - ``phase_ring_kernels``: the ring's per-hop pair (csrc/ring_attention.cu,
      ``ring_partial`` and ``ring_block_grads``) against
      ``ring_partial_reference`` and ``ring_block_grads_reference`` at the
@@ -812,13 +815,19 @@ def phase_tile_cases(torch, attn, card):
 
 def phase_ln_kernels(torch, lnm, card):
     """The LayerNorm pair against the plain versions at dalle_4k's rows
-    (R = 4 x 4352, E = 1024, bf16) and a ragged fp32 shape; device times
-    under torch.profiler, over input copies past the 50 MB L2. Returns
-    {wrapper: row at the dalle_4k shape}."""
-    cases = [("dalle_4k", 17408, 1024, torch.bfloat16), ("ragged_fp32", 1001, 768, torch.float32)]
+    (R = 4 x 4352, E = 1024, bf16), at dalle_12B's width (R = 8192,
+    E = 5120, bf16) and a ragged fp32 shape; device times under
+    torch.profiler, over input copies past the 50 MB L2, the backward's split
+    by kernel name; a "resources" line for each shape. Returns {wrapper: row
+    at the dalle_4k shape}."""
+    cases = [("dalle_4k", 17408, 1024, torch.bfloat16), ("dalle_12B", 8192, 5120, torch.bfloat16),
+             ("ragged_fp32", 1001, 768, torch.float32)]
     gen = torch.Generator().manual_seed(3)
     best = {}
     for name, r, e, dtype in cases:
+        print("resources", json.dumps(dict(
+            kernels="layer_norm forward and backward", shape=name, E=e, dtype=str(dtype),
+            rows_a_tile=lnm.bwd_tile_rows(e, dtype), **lnm.kernel_resources(e, dtype))), flush=True)
         atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
         elem = torch.finfo(dtype).bits // 8
         copies = max(1, math.ceil(2 * L2_BYTES / (2 * r * e * elem)))
@@ -867,17 +876,19 @@ def phase_ln_kernels(torch, lnm, card):
             # written, g read and dg, db written
             n = 2 if kind == "fwd" else 3
             nbytes = n * r * e * elem + n * e * 4
+            dev_ms, by_name = device_profile(torch, kern, copies, 50, (kernel,), 1)
             row = dict(card=card, kernel=kernel, shape=name, R=r, E=e, dtype=str(dtype),
                        max_abs_err=errs["y" if kind == "fwd" else "dx"][0], atol=atol,
-                       ms=device_ms_rotating(torch, kern, copies, 50),
-                       wall_ms=cuda_ms_rotating(kern, copies, 50),
+                       ms=dev_ms, wall_ms=cuda_ms_rotating(kern, copies, 50),
+                       device_ms_by_kernel={n: us / 1e3 / 50 for n, (_, us) in by_name.items()},
                        plain_ms=device_ms_rotating(torch, plain, copies, 10),
                        library_ms=device_ms_rotating(torch, lib, copies, 50),
                        input_copies=copies,
                        **roofline((9 if kind == "fwd" else 16) * r * e, nbytes,
                                   PEAK_FP32_TFLOPS))
             if kind == "bwd":
-                row.update(dg_db_rel_err=rel, ms_includes="row launch + partials reduce")
+                row.update(dg_db_rel_err=rel, ms_includes="one launch: the rows, then dg/db "
+                           "summed across CTAs after a grid barrier")
             print("kernel", json.dumps(row), flush=True)
             if name == "dalle_4k":
                 best[kernel] = row

@@ -48,10 +48,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dalle_mtf_tpu_torch.ops.attention import causal_attention, decode_attention
-from dalle_mtf_tpu_torch.ops.attention_packed import packed_attention
+from dalle_mtf_tpu_torch.ops.attention import (
+    attention_reference,
+    causal_attention,
+    decode_attention,
+    kernel_takes_head_dim,
+)
+from dalle_mtf_tpu_torch.ops.attention_packed import attention_packed_reference, packed_attention
 from dalle_mtf_tpu_torch.ops.decode_matmul import int4_matmul, int8_matmul
-from dalle_mtf_tpu_torch.ops.layer_norm import layer_norm
+from dalle_mtf_tpu_torch.ops.layer_norm import kernel_takes, layer_norm, layer_norm_reference
 from dalle_mtf_tpu_torch.ops.losses import softmax_cross_entropy_with_logits
 from dalle_mtf_tpu_torch.ops.ring_attention import ring_attention_auto
 from dalle_mtf_tpu_torch.parallel.mesh import BATCH, HEADS, LAYERS, SEQ, parse_layout
@@ -301,11 +306,15 @@ class DALLE(nn.Module):
 
     def _layer_norm(self, x, g, b, eps=1e-5):
         # reference layer_norm (models.py:373-389): normalize then affine.
-        # ln_impl "pallas": the fused kernels, fp32 inside (ops/layer_norm.py).
-        # ln_dtype "activation" runs the chain in x.dtype like the
-        # reference's norm; "float32" upcasts around the normalize.
+        # ln_impl "pallas": the fused kernels, fp32 inside (ops/layer_norm.py),
+        # at the widths the JAX package takes its Pallas pair (kernel_takes);
+        # elsewhere its plain forward under autograd, as JAX takes its XLA
+        # reference there. ln_dtype "activation" runs the chain in x.dtype
+        # like the reference's norm; "float32" upcasts around the normalize.
         if self.cfg.ln_impl == "pallas":
-            return layer_norm(x, g, b, eps)
+            if kernel_takes(x.shape[-1]):
+                return layer_norm(x, g, b, eps)
+            return layer_norm_reference(x, g, b, eps)
         ct = torch.float32 if self.cfg.ln_dtype == "float32" else x.dtype
         xc = x.to(ct)
         mean = xc.mean(dim=-1, keepdim=True)
@@ -523,6 +532,16 @@ class DALLE(nn.Module):
         w = self._w(p, "wo")
         return a @ w.reshape(-1, w.shape[-1]) + p["o_b"].to(self.cfg.policy.compute_dtype)
 
+    def _attention(self, q, k, v, drop=0.0, seed=None):
+        """Causal attention over [B, H, S, D]: the kernels (on the card) at
+        the head dims ``kernel_takes_head_dim`` names, the JAX package's
+        rule; its plain version under autograd at any other D, as JAX takes
+        its dense reference there."""
+        if kernel_takes_head_dim(self.cfg.head_dim):
+            return causal_attention(q, k, v, window=self._window, dropout_rate=drop,
+                                    dropout_seed=seed)
+        return attention_reference(q, k, v, True, self._window, False, drop, seed)
+
     def _block(self, p, x, gen, train: bool):
         """One pre-LN transformer block (reference models.py:326-335)."""
         cfg = self.cfg
@@ -535,19 +554,21 @@ class DALLE(nn.Module):
             q, k, v = self._qkv(p, a_in)
             a = self._attn_out(p, ring_attention_auto(
                 q, k, v, self.mesh, cfg.ring_seq_axis, cfg.ring_batch_axis, self._window,
-                drop, seed))
+                drop, seed, plain=not kernel_takes_head_dim(cfg.head_dim)))
             return self._block_tail(p, x, a, gen, train)
         if seed is not None:  # program (b, h) of this rank's rows: global row b0 + b
             seed += self._dp()[0] * x.shape[0] * cfg.n_heads
         # quantized weights take the [B, H, S, D] arm (JAX ``use_packed``)
         if cfg.attn_packed and "wq_scale" not in p and "wq_int4" not in p:
             q, k, v = self._qkv_packed(p, a_in)
-            a = packed_attention(q, k, v, cfg.n_heads, self._window, drop, seed)
+            if kernel_takes_head_dim(cfg.head_dim):
+                a = packed_attention(q, k, v, cfg.n_heads, self._window, drop, seed)
+            else:  # as ``_attention``
+                a = attention_packed_reference(q, k, v, cfg.n_heads, self._window, drop, seed)
             a = self._attn_out_packed(p, a)
         else:
             q, k, v = self._qkv(p, a_in)
-            a = self._attn_out(p, causal_attention(
-                q, k, v, window=self._window, dropout_rate=drop, dropout_seed=seed))
+            a = self._attn_out(p, self._attention(q, k, v, drop, seed))
         return self._block_tail(p, x, a, gen, train)
 
     def _block_tail(self, p, x, a, gen, train):
@@ -635,8 +656,7 @@ class DALLE(nn.Module):
         for layer, p in enumerate(self._layers(params)):
             a_in = self._layer_norm(x, p["ln1_g"], p["ln1_b"])
             q, k, v = self._qkv(p, a_in)
-            a = causal_attention(q, k, v, window=self._window)
-            x = x + self._attn_out(p, a)
+            x = x + self._attn_out(p, self._attention(q, k, v))
             m_in = self._layer_norm(x, p["ln2_g"], p["ln2_b"])
             x = x + self._mlp(p, m_in)
             for name, new in (("k", k), ("v", v)):

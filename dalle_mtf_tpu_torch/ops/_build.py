@@ -55,8 +55,11 @@ _SIGNATURES = {
     "decode_matmul_info": [_I] * 4 + [_P],
     # x, g, b, y; rows, e, dtype; eps; stream
     "layer_norm_fwd": [_P] * 4 + [_I] * 3 + [_F, _P],
-    # x, dy, g, dx, partial, dg, db; rows, e, n_ctas, dtype; eps; stream
-    "layer_norm_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
+    # x, dy, g, dx, partial, barrier, dg, db; rows, e, rows a tile, n_ctas,
+    # dtype; eps; stream
+    "layer_norm_bwd": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # kind (0 forward, 1 backward), e, dtype, rows a tile, out[5]
+    "layer_norm_info": [_I] * 4 + [_P],
     # q, k, v, num, m, l; bh, s_q, s_k, head_dim, dtype, diff, row0, col0,
     # window, dropout; seed, keep_threshold, keep_scale; stream
     "ring_partial": [_P] * 6 + [_I] * 10 + [_U, _U, _F, _P],

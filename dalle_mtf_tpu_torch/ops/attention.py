@@ -14,7 +14,10 @@ the serving and training paths run).
   ``_wedge_bwd_kernel``, ``_wr_bwd_kernel``, ``_bwd_dq_kernel`` +
   ``_bwd_dkv_kernel`` and ``_hybrid_bwd_kernel``); a CPU tensor goes to the
   plain versions (``attention_reference``, ``attention_backward_reference``);
-  anything else raises.
+  anything else raises. The kernels are built for D in ``KERNEL_HEAD_DIMS``.
+- ``kernel_takes_head_dim``: the head dims at which the model sends
+  attention to the kernels, the JAX package's own rule; at any other D the
+  model calls the plain versions itself, on the card too.
 - The tile walk of the bf16 tensor-core kernels is written once in Python in
   ``ops/attention_tiles.py``, which nothing on this path imports.
 - ``decode_attention``: one query position (one per row, or a shared one)
@@ -198,6 +201,34 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def kernel_takes_head_dim(head_dim: int) -> bool:
+    """Whether the model sends attention at head dim ``head_dim`` to the
+    kernels (the causal, packed and ring pairs): at the D they are built for
+    (``KERNEL_HEAD_DIMS``), and wherever the JAX package takes its Pallas
+    kernels (D % 128 == 0), where a D with no kernel yet (256) raises.
+    Elsewhere the JAX package takes its dense reference, and the model the
+    plain versions."""
+    return head_dim in KERNEL_HEAD_DIMS or head_dim % 128 == 0
+
+
+def _keeps_16_bytes(t: torch.Tensor) -> bool:
+    chunk = max(1, 16 // t.element_size())
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(st % chunk == 0 for st in t.stride()[:-1]))
+
+
+def dense_for_kernels(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The inputs of one launch as the kernels take them: unchanged when
+    every one keeps the 16-byte rule (``check_kernel_inputs``); otherwise
+    each that is not already dense and 16-byte aligned is copied once into a
+    new dense tensor (a fresh allocation, so aligned), so that all of them
+    still share one layout."""
+    if all(_keeps_16_bytes(t) for t in tensors):
+        return tensors
+    return tuple(t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                 else t.clone(memory_format=torch.contiguous_format) for t in tensors)
+
+
 def _forward(q, k, v, window, rate, seed, with_lse, tile_rows=None):
     """(out, lse or None): the kernel on CUDA tensors, plain on CPU ones.
     ``tile_rows`` as in ``launch_forward``."""
@@ -206,6 +237,7 @@ def _forward(q, k, v, window, rate, seed, with_lse, tile_rows=None):
         return res if with_lse else (res, None)
     if q.device.type != "cuda":
         raise ValueError(f"causal_attention: unsupported device {q.device}")
+    q, k, v = dense_for_kernels(q, k, v)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"q, k, v must share one [B, H, S, D] shape: {q.shape}, "
@@ -232,7 +264,7 @@ def _backward(q, k, v, out, lse, g, window, rate, seed):
     """dq, dk, dv: the kernel on CUDA tensors, plain on CPU ones."""
     if _on_cpu(q, k, v, out, lse, g):
         return attention_backward_reference(q, k, v, out, lse, g, window, rate, seed)
-    g = g.contiguous()
+    q, k, v, out, g = dense_for_kernels(q, k, v, out, g.contiguous())
     b, h, s, d = q.shape
     with torch.cuda.device(q.device):
         grads = launch_backward(q, k, v, out, lse, g, dsum_rows(out, g), b, h, s, d,
@@ -275,8 +307,9 @@ def causal_attention(
 
     On CUDA tensors this launches ``causal_attention_fwd`` (one launch for
     all heads and rows), and in the backward ``causal_attention_bwd``, or
-    raises; it never falls back. On CPU tensors it runs the plain forward
-    and the plain backward. ``with_lse`` also returns the fp32 log-sum-exp
+    raises; it never falls back (a view off 16 bytes is copied first:
+    ``dense_for_kernels``; a head dim with no kernel raises). On CPU tensors
+    it runs the plain forward and the plain backward. ``with_lse`` also returns the fp32 log-sum-exp
     [B*H, S]. ``dropout_rate`` > 0 applies the hash dropout keyed on
     ``dropout_seed``, the same bits in the forward and the backward.
     """
@@ -298,7 +331,9 @@ def check_kernel_inputs(name: str, tensors, head_dim: int) -> None:
     one CUDA device, one dtype the kernels take, one layout, unit stride on
     D and, since every kernel stages its tiles by 16-byte copies (bf16 and
     fp32 alike), 16-byte-aligned pointers and strides of whole 16-byte
-    chunks. A view that breaks these raises; it is not copied silently."""
+    chunks. The wrappers copy a view that breaks the 16-byte rule first
+    (``dense_for_kernels``), so a kernel never sees a bad pointer; what
+    reaches this check still broken raises."""
     first = tensors[0]
     if first.dtype not in KERNEL_DTYPES or any(t.dtype != first.dtype for t in tensors):
         raise ValueError(

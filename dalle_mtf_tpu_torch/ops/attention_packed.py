@@ -13,8 +13,9 @@ take the layout by strides (batch S*H*D, head D, row H*D):
 ``_PackedAttention`` (a ``torch.autograd.Function``) wraps the pair. Its
 forward saves q, k, v, out and the fp32 lse, exactly the residuals the JAX
 ``dots_and_attn`` remat policy keeps, so the backward never re-runs the
-forward. A CUDA tensor launches the kernels or raises; a CPU tensor takes
-the plain versions (``attention_packed_reference`` and ``backward_reference``).
+forward. A CUDA tensor launches the kernels or raises (a view off 16 bytes
+is copied first: ``ops/attention.py``); a CPU tensor takes the plain
+versions (``attention_packed_reference`` and ``backward_reference``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from dalle_mtf_tpu_torch.ops.attention import (
     KERNEL_LAUNCHES,
     attention_backward_reference,
     attention_reference,
+    dense_for_kernels,
     launch_backward,
     launch_forward,
 )
@@ -89,6 +91,7 @@ def _forward(q, k, v, n_heads, window, rate, seed, tile_rows=None):
                                           with_lse=True)
     if q.device.type != "cuda":
         raise ValueError(f"causal_attention_packed: unsupported device {q.device}")
+    q, k, v = dense_for_kernels(q, k, v)
     b, h, s, d, strides = _packed_strides(q, n_heads)
     out, lse = launch_forward(q, k, v, b, h, s, d, strides, window, rate, seed,
                               with_lse=True, tile_rows=tile_rows)
@@ -101,7 +104,7 @@ def _backward(q, k, v, out, lse, g, n_heads, window, rate, seed):
         return backward_reference(q, k, v, out, lse, g, n_heads, window, rate, seed)
     if q.device.type != "cuda":
         raise ValueError(f"causal_attention_packed: unsupported device {q.device}")
-    g = g.contiguous()
+    q, k, v, out, g = dense_for_kernels(q, k, v, out, g.contiguous())
     b, h, s, d, strides = _packed_strides(q, n_heads)
     with torch.cuda.device(q.device):
         grads = launch_backward(q, k, v, out, lse, g, dsum_rows(out, g, h), b, h, s, d,

@@ -10,32 +10,60 @@
   ``_LayerNorm`` (a ``torch.autograd.Function``). On CUDA tensors it runs
   the hand-written kernels ``csrc/layer_norm.cu`` (the port of
   ``_ln_fwd_kernel`` and ``_ln_bwd_kernel``), which take any E that is a
-  multiple of 8 up to 4096, and raises for any other E. On CPU tensors it
-  runs the two plain versions at every E, which is what the JAX
-  ``layer_norm`` computes at E % 128 != 0 through its XLA reference (its
-  128-lane bound is the TPU's layout, not the CUDA kernel's). The forward
-  saves only x (and g): the backward recomputes the row statistics, as the
-  TPU kernel does.
+  multiple of 8 up to 8192, and raises for any other E. On CPU tensors it
+  runs the two plain versions at every E. The forward saves only x (and
+  g): the backward recomputes the row statistics, as the TPU kernel does.
+- ``kernel_takes``: the E at which the model takes these kernels, the JAX
+  ``layer_norm``'s own rule (E % 128 == 0; its XLA reference elsewhere),
+  within ``MAX_E``. The model runs the plain forward under autograd at any
+  other E, on the card too.
 
 What bounds the kernels on the H100: bytes (x read and y written; x and dy
-read and dx written), ~10 fp32 operations an element. See the source.
+read and dx written), ~10-16 fp32 operations an element. The forward keeps
+a row in registers (a warp a row up to E = 4096, a CTA a row past it). The
+backward is one cooperative launch of a persistent grid: tiles of
+``bwd_tile_rows(e, dtype)`` rows staged into shared memory by 1-D bulk copies
+(TMA) in a ring of two stages, the row statistics from shared memory, dx and the
+per-column dg/db sums by a thread that keeps its columns for every row, and
+dg/db added across CTAs in a fixed order after a grid barrier, in the same
+launch. ``ops/layer_norm_tiles.py`` walks that order in numpy. See the
+source.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 # Launches of each wrapper's kernel, counted where (and only where) it is
-# launched; chip_smoke.py reads and resets them. One backward call is two
-# launches (the rows, then the fixed-order sum of the partials), counted once.
+# launched; chip_smoke.py reads and resets them.
 KERNEL_LAUNCHES = {"layer_norm_fwd": 0, "layer_norm_bwd": 0}
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_E = 4096         # 16 steps of 256 columns a warp (csrc/layer_norm.cu)
-ROWS_PER_CTA = 8     # one warp a row
-BWD_CTAS = 264       # backward CTAs at most: two per SM on the H100's 132
+MAX_E = 8192          # both kernels (csrc/layer_norm.cu kMaxE)
+_STAGES = 2           # the backward's ring of tiles (csrc/layer_norm.cu kStages)
+_SMEM_BUDGET = 112 * 1024  # two CTAs' share of an SM's 228 KB
+_MAX_TILE_ROWS = 64
+
+
+def kernel_takes(e: int) -> bool:
+    """Whether the model takes the fused kernels at row width ``e``: the
+    JAX ``layer_norm``'s rule (its Pallas pair at E % 128 == 0, its XLA
+    reference elsewhere), within what the kernels take."""
+    return e % 128 == 0 and e <= MAX_E
+
+
+def bwd_tile_rows(e: int, dtype: torch.dtype) -> int:
+    """Rows a tile of the backward at row width ``e``: the most, a power of
+    two up to 64, whose x and dy in both stages, with g, fit in two CTAs'
+    share of an SM (one row at the least)."""
+    pair = 2 * e * (torch.finfo(dtype).bits // 8)
+    rows = 1
+    while rows < _MAX_TILE_ROWS and _STAGES * 2 * rows * pair + 4 * e <= _SMEM_BUDGET:
+        rows *= 2
+    return rows
 
 
 def layer_norm_reference(x, g, b, eps: float = 1e-5):
@@ -91,6 +119,50 @@ def _check(name, params, *tensors):
         raise ValueError(f"{name} needs contiguous, 16-byte aligned inputs")
 
 
+def _info(kind: int, e: int, dtype: torch.dtype) -> dict[str, int]:
+    import ctypes  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
+
+    out = (ctypes.c_int * 5)()
+    err = library().layer_norm_info(kind, e, KERNEL_DTYPES[dtype], bwd_tile_rows(e, dtype), out)
+    if err != 0:
+        raise RuntimeError(f"layer_norm_info({kind}, {e}, {dtype}): cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "dynamic_smem_bytes",
+                     "ctas_per_sm"), (int(v) for v in out)))
+
+
+def kernel_resources(e: int, dtype: torch.dtype = torch.bfloat16) -> dict[str, dict[str, int]]:
+    """What the built kernels take at row width ``e`` in ``dtype``, read
+    from the card's runtime: {"fwd" | "bwd": {"registers", "local_bytes"
+    (spills), "smem_bytes" (static), "dynamic_smem_bytes", "ctas_per_sm"}},
+    the backward at its ``bwd_tile_rows``."""
+    return {"fwd": _info(0, e, dtype), "bwd": _info(1, e, dtype)}
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_resident_ctas(device_index: int, e: int, dtype: torch.dtype) -> int:
+    """CTAs of the backward the card holds at once at row width ``e``: its
+    SMs times the CTAs an SM holds at that shared-memory size. The
+    cooperative launch takes no more."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    with torch.cuda.device(device_index):
+        return sms * _info(1, e, dtype)["ctas_per_sm"]
+
+
+_BARRIERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _barrier(device: torch.device, stream) -> torch.Tensor:
+    """The backward's grid-barrier words for launches on ``stream``: zeroed
+    once, and left zero by every launch (launches on one stream never
+    overlap; each stream has its own)."""
+    key = (device.index, stream.cuda_stream)
+    if key not in _BARRIERS:
+        _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _BARRIERS[key]
+
+
 def _forward(x, g, b, eps):
     if all(t.device.type == "cpu" for t in (x, g, b)):
         return layer_norm_reference(x, g, b, eps)
@@ -108,6 +180,13 @@ def _forward(x, g, b, eps):
     return y
 
 
+def bwd_ctas(device_index: int, rows: int, e: int, dtype: torch.dtype) -> int:
+    """The backward's CTAs for ``rows`` rows: as many as the card holds at
+    once, at most one a tile."""
+    return min(bwd_resident_ctas(device_index, e, dtype),
+               math.ceil(rows / bwd_tile_rows(e, dtype)))
+
+
 def _backward(x, g, dy, eps):
     if all(t.device.type == "cpu" for t in (x, g, dy)):
         return layer_norm_backward_reference(x, g, dy, eps)
@@ -116,15 +195,16 @@ def _backward(x, g, dy, eps):
     _check("layer_norm_bwd", (g,), x, dy)
     from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
 
-    n_ctas = min(math.ceil(rows / ROWS_PER_CTA), BWD_CTAS)
     with torch.cuda.device(x.device):
+        n_ctas = bwd_ctas(x.device.index, rows, e, x.dtype)
+        stream = torch.cuda.current_stream(x.device)
         dx = torch.empty_like(x)
         partial = torch.empty((n_ctas, 2, e), dtype=torch.float32, device=x.device)
-        dg, db = (torch.empty(e, dtype=torch.float32, device=x.device) for _ in range(2))
+        dg, db = torch.empty((2, e), dtype=torch.float32, device=x.device)
         err = library().layer_norm_bwd(
             x.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-            dg.data_ptr(), db.data_ptr(), rows, e, n_ctas, KERNEL_DTYPES[x.dtype], eps,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            _barrier(x.device, stream).data_ptr(), dg.data_ptr(), db.data_ptr(), rows, e,
+            bwd_tile_rows(e, x.dtype), n_ctas, KERNEL_DTYPES[x.dtype], eps, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"layer_norm_bwd launch failed: cudaError {err}")
     KERNEL_LAUNCHES["layer_norm_bwd"] += 1

@@ -41,8 +41,10 @@ from dalle_mtf_tpu_torch.ops.attention import (
     KERNEL_DTYPES,
     NEG_INF,
     _on_cpu,
+    attention_reference,
     causal_attention,
     check_kernel_inputs,
+    dense_for_kernels,
     dropout_args,
     dropout_keep,
 )
@@ -154,9 +156,11 @@ def _check_rows(name, q, **tensors):
 def ring_partial(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0):
     """One hop's (num fp32 [B, H, Sq, D], m, l fp32 [B*H, Sq]): the kernel on
     CUDA tensors, the plain version on CPU ones. ``seed`` is the program
-    seed of (b, h) = (0, 0); program bh adds bh."""
+    seed of (b, h) = (0, 0); program bh adds bh. A view off 16 bytes is
+    copied first (``ops/attention.py``)."""
     if _on_cpu(q, k, v):
         return ring_partial_reference(q, k, v, diff, row0, col0, window, rate, seed)
+    q, k, v = dense_for_kernels(q, k, v)
     _check_hop("ring_partial", q, k, v)
     from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
 
@@ -178,18 +182,28 @@ def ring_partial(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0):
     return num, m, l
 
 
+def add_block_grads_reference(q, g, lse, dsum, k, v, dk_acc, dv_acc, diff, row0, col0,
+                              window=None, rate=0.0, seed=0):
+    """``ring_block_grads`` by its plain version, on any device: returns dq
+    and adds dk, dv into the accumulators."""
+    dq, dk, dv = ring_block_grads_reference(q, g, lse, dsum, k, v, diff, row0, col0, window,
+                                            rate, seed)
+    dk_acc += dk
+    dv_acc += dv
+    return dq
+
+
 def ring_block_grads(q, g, lse, dsum, k, v, dk_acc, dv_acc, diff, row0, col0,
                      window=None, rate=0.0, seed=0):
     """One hop's gradient: returns dq of the hop in q's dtype and adds dk
     and dv into the fp32 accumulators ``dk_acc``, ``dv_acc`` [B, H, Sk, D]
     in place. The kernel (a dQ launch and a dK/dV launch, no atomics) on
-    CUDA tensors, the plain version on CPU ones."""
+    CUDA tensors, the plain version on CPU ones. Inputs off 16 bytes are
+    copied first; the accumulators, which the kernel adds into, are not."""
     if _on_cpu(q, g, k, v):
-        dq, dk, dv = ring_block_grads_reference(q, g, lse, dsum, k, v, diff, row0, col0,
-                                                window, rate, seed)
-        dk_acc += dk
-        dv_acc += dv
-        return dq
+        return add_block_grads_reference(q, g, lse, dsum, k, v, dk_acc, dv_acc, diff, row0,
+                                         col0, window, rate, seed)
+    q, g, k, v = dense_for_kernels(q, g, k, v)
     _check_hop("ring_block_grads", q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
         raise ValueError("ring_block_grads: g must be contiguous and match q")
@@ -262,9 +276,11 @@ def ring_shift(tensors, ring: Ring):
     return [dst.to(dev) if staged else dst for dst, dev, staged in outs]
 
 
-def _fold_forward(q, k, v, ring: Ring, window, rate, seed):
+def _fold_forward(q, k, v, ring: Ring, window, rate, seed, plain):
     """(out in q's dtype, fp32 lse [B*H, S_local]): the fp32 fold of the
-    live hops' partial triples (JAX ``_ring_fwd_impl``)."""
+    live hops' partial triples (JAX ``_ring_fwd_impl``); ``plain`` takes
+    the hops' plain versions."""
+    partial = ring_partial_reference if plain else ring_partial
     b, h, s_local, d = q.shape
     my = ring.index
     acc = torch.zeros((b, h, s_local, d), dtype=torch.float32, device=q.device)
@@ -274,7 +290,7 @@ def _fold_forward(q, k, v, ring: Ring, window, rate, seed):
     for hop in range(ring.n):
         src = (my - hop) % ring.n
         if _live_shard(src, my, s_local, window):
-            num, m_cur, l_cur = ring_partial(q, k_cur, v_cur, (my - src) * s_local,
+            num, m_cur, l_cur = partial(q, k_cur, v_cur, (my - src) * s_local,
                                              my * s_local, src * s_local, window, rate, seed)
             m_new = torch.maximum(m, m_cur)
             alpha, beta = torch.exp(m - m_new), torch.exp(m_cur - m_new)
@@ -288,10 +304,12 @@ def _fold_forward(q, k, v, ring: Ring, window, rate, seed):
     return out, m + torch.log(l_safe)
 
 
-def _ring_backward(q, k, v, out, lse, g, ring: Ring, window, rate, seed):
+def _ring_backward(q, k, v, out, lse, g, ring: Ring, window, rate, seed, plain):
     """dq, dk, dv: the backward ring (JAX ``_ring_pallas_bwd``). dsum is one
     reduction outside the kernels; k, v and their fp32 dk, dv accumulators
-    rotate together, so after n hops dk and dv are home and summed."""
+    rotate together, so after n hops dk and dv are home and summed.
+    ``plain`` takes the hops' plain versions."""
+    block_grads = add_block_grads_reference if plain else ring_block_grads
     b, h, s_local, d = q.shape
     my = ring.index
     g = g.contiguous()
@@ -303,7 +321,7 @@ def _ring_backward(q, k, v, out, lse, g, ring: Ring, window, rate, seed):
     for hop in range(ring.n):
         src = (my - hop) % ring.n
         if _live_shard(src, my, s_local, window):
-            dq += ring_block_grads(q, g, lse, dsum, k_cur, v_cur, dk, dv,
+            dq += block_grads(q, g, lse, dsum, k_cur, v_cur, dk, dv,
                                    (my - src) * s_local, my * s_local, src * s_local,
                                    window, rate, seed).float()
         if hop < ring.n - 1:
@@ -318,26 +336,30 @@ class _RingAttention(torch.autograd.Function):
     out and the fp32 lse, as the JAX custom VJP does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, ring, window, rate, seed):
-        out, lse = _fold_forward(q, k, v, ring, window, rate, seed)
+    def forward(ctx, q, k, v, ring, window, rate, seed, plain):
+        out, lse = _fold_forward(q, k, v, ring, window, rate, seed, plain)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (ring, window, rate, seed)
+        ctx.args = (ring, window, rate, seed, plain)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _ring_backward(q, k, v, out, lse, g, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def ring_attention_auto(q, k, v, mesh=None, seq_axis: str = "seq",
                         batch_axis: str | None = "data", window=None,
-                        dropout_rate: float = 0.0, dropout_seed: int | None = None):
+                        dropout_rate: float = 0.0, dropout_seed: int | None = None,
+                        plain: bool = False):
     """The model's entry (``attention_type`` "ring"/"local_ring"): q, k, v
     are this rank's [B, H, S_local, D] shard. With a ``mesh`` whose
     ``seq_axis`` has size > 1 it runs the ring; otherwise it is
     ``causal_attention`` over the whole sequence, the same function.
+    ``plain`` (the model's choice at a head dim the kernels do not take:
+    ``kernel_takes_head_dim``) runs the plain versions instead, on any
+    device.
 
     The dropout seed is offset by the rank's global batch row b0 =
     (index on ``batch_axis``) * B, so that program (b, h) uses
@@ -348,11 +370,13 @@ def ring_attention_auto(q, k, v, mesh=None, seq_axis: str = "seq",
         b, h = q.shape[:2]
         seed = int(dropout_seed) + (mesh.index(batch_axis) * b * h if mesh else 0)
     if mesh is None or mesh.size(seq_axis) == 1:
+        if plain:
+            return attention_reference(q, k, v, True, window, False, rate, seed)
         return causal_attention(q, k, v, window=window, dropout_rate=rate, dropout_seed=seed)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     ring = Ring(mesh.group(seq_axis), mesh.ranks(seq_axis), mesh.index(seq_axis))
-    args = (ring, window, rate, seed or 0)
+    args = (ring, window, rate, seed or 0, plain)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _RingAttention.apply(q, k, v, *args)
     return _fold_forward(q, k, v, *args)[0]

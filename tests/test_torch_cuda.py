@@ -15,7 +15,10 @@ the small values far down a long sequence are checked too. The decode
 matmuls: the same exact products summed in fp32 in another order, so 1e-5
 of max |plain|. LayerNorm: y and
 dx atol 1e-5 (fp32) or 1e-2 (bf16) times max(1, max |plain|), dg and db
-1e-4 of max |plain| (fp32 sums over the rows in another order).
+1e-4 of max |plain| (fp32 sums over the rows in another order); against
+the numpy walk of the kernel's own order of sums
+(``ops/layer_norm_tiles.py``), 1e-6 of max |walk| (the same additions in the
+same order; the row statistics under them are summed in another order).
 """
 
 import importlib.util
@@ -31,6 +34,7 @@ from dalle_mtf_tpu_torch.ops import attention_tiles as ttiles
 from dalle_mtf_tpu_torch.ops import decode_matmul as tdmm
 from dalle_mtf_tpu_torch.ops import decode_matmul_tiles as ttiles_dmm
 from dalle_mtf_tpu_torch.ops import layer_norm as tln
+from dalle_mtf_tpu_torch.ops import layer_norm_tiles as tln_tiles
 from dalle_mtf_tpu_torch.quantize import pack_int4
 
 pytestmark = pytest.mark.cuda
@@ -283,23 +287,21 @@ def test_rows_that_see_only_themselves_have_zero_dq_dk(cuda, s, window):
 
 
 def test_misaligned_bf16_inputs_raise(cuda):
-    """The bf16 tiles are staged by 16-byte copies: a view that starts off a
-    16-byte boundary raises before any launch; it is not copied silently."""
+    """The bf16 tiles are staged by 16-byte copies: the check before every
+    causal and packed launch raises on a view that starts off a 16-byte
+    boundary or strides by less than a 16-byte chunk, and launches nothing
+    (the wrappers copy such a view first:
+    test_misaligned_views_are_copied_before_the_kernels)."""
     buf = torch.zeros(2 * 2 * 64 * 128 + 8, dtype=torch.bfloat16, device="cuda")
     shifted = buf[1:1 + 2 * 2 * 64 * 128].view(2, 2, 64, 128)
     assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    odd_stride = torch.zeros((2, 2, 64, 129), dtype=torch.bfloat16, device="cuda")[..., :128]
     before = dict(tattn.KERNEL_LAUNCHES)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tattn.causal_attention(shifted, shifted, shifted)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tpacked.packed_attention(shifted.reshape(2, 128, 128), shifted.reshape(2, 128, 128),
-                                 shifted.reshape(2, 128, 128), 2)
-    assert tattn.KERNEL_LAUNCHES == before
-    # fp32 tiles are staged by 16-byte copies too: an fp32 view off a 16-byte
-    # boundary raises as well (test_fp32_forward_refuses_misaligned_views)
-    f = torch.rand(2 * 2 * 64 * 128 + 1, device="cuda")[1:].view(2, 2, 64, 128)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tattn.causal_attention(f, f, f)
+    for name in ("causal_attention_fwd", "causal_attention_bwd", "causal_attention_packed_fwd",
+                 "causal_attention_packed_bwd"):
+        for view in (shifted, odd_stride):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                tattn.check_kernel_inputs(name, (view, view, view), 128)
     assert tattn.KERNEL_LAUNCHES == before
 
 
@@ -308,6 +310,14 @@ def test_misaligned_bf16_inputs_raise(cuda):
     (torch.float32, (300, 256)),
     (torch.bfloat16, (3, 1, 768)),    # decode rows; E not a power of two
     (torch.float32, (70, 4096)),
+    # wide rows: dalle_12B's 5120 and the kernels' widest, 8192, in both
+    # dtypes; narrow and ragged ones
+    (torch.bfloat16, (8192, 5120)),
+    (torch.float32, (257, 5120)),
+    (torch.bfloat16, (64, 8192)),
+    (torch.float32, (33, 8192)),
+    (torch.bfloat16, (301, 136)),
+    (torch.float32, (37, 8)),
 ])
 def test_layer_norm_kernels_match_plain(cuda, dtype, shape):
     gen = torch.Generator().manual_seed(shape[-1])
@@ -335,6 +345,91 @@ def test_layer_norm_kernels_match_plain(cuda, dtype, shape):
     # the fixed-order reduction: a second run gives the same bits
     again = tln._backward(x.reshape(-1, e), g, dy.reshape(-1, e), 1e-5)
     assert torch.equal(again[1], leaves[1].grad) and torch.equal(again[2], leaves[2].grad)
+
+
+@pytest.mark.parametrize("dtype,rows,e", [
+    (torch.bfloat16, 17408, 1024), (torch.float32, 1001, 768), (torch.bfloat16, 2051, 5120),
+    (torch.float32, 300, 8192), (torch.bfloat16, 301, 136), (torch.float32, 37, 8),
+])
+def test_layer_norm_backward_sums_in_the_walks_order(cuda, dtype, rows, e):
+    """The backward's dg/db are the numpy walk's (ops/layer_norm_tiles.py):
+    the card's CTA count and tile rows, each CTA's rows in its order, the
+    row groups, then the partials in CTA order by 8 warps, within 1e-6 of
+    max |walk|; dx within the plain bound of the walk's."""
+    gen = torch.Generator().manual_seed(e + rows)
+    x = (torch.randn((rows, e), generator=gen) * 2 + 0.5).to("cuda", dtype)
+    dy = torch.randn((rows, e), generator=gen).to("cuda", dtype)
+    g = (1 + 0.3 * torch.randn(e, generator=gen)).cuda()
+    dx, dg, db = tln._backward(x, g, dy, 1e-5)
+    tile_rows = tln.bwd_tile_rows(e, dtype)
+    n_ctas = tln.bwd_ctas(x.device.index, rows, e, dtype)
+    assert n_ctas == min(tln.bwd_resident_ctas(x.device.index, e, dtype), -(-rows // tile_rows))
+    wdx, wdg, wdb = tln_tiles.backward_walk(x.float().cpu().numpy(), g.cpu().numpy(),
+                                            dy.float().cpu().numpy(), n_ctas, tile_rows)
+    for name, got, want in (("dg", dg, wdg), ("db", db, wdb)):
+        want = torch.from_numpy(want)
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= 1e-6 * want.abs().max().item(), (name, err)
+    ok, err = _close(dx.cpu(), torch.from_numpy(wdx), 1e-2 if dtype == torch.bfloat16 else 1e-5)
+    assert ok, ("dx", err)
+
+
+def test_layer_norm_kernels_report_their_resources(cuda):
+    """Both kernels are built for every width up to 8192 in both dtypes and
+    report registers, spills, shared memory and CTAs an SM; the backward's
+    cooperative grid fills every SM at least once."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float32):
+        for e in (8, 136, 768, 1024, 4096, 4104, 5120, 8192):
+            res = tln.kernel_resources(e, dtype)
+            for kind, r in res.items():
+                assert 0 < r["registers"] <= 255 and r["ctas_per_sm"] >= 1, (e, dtype, kind, r)
+            assert res["bwd"]["dynamic_smem_bytes"] <= 232448
+            assert tln.bwd_resident_ctas(0, e, dtype) == sms * res["bwd"]["ctas_per_sm"]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key])
+    else:
+        yield tree
+
+
+@pytest.mark.parametrize("n_embd,heads", [(5120, 40), (192, 3)])
+def test_model_layer_norm_follows_the_references_rule(cuda, n_embd, heads):
+    """A 1-layer fp32 DALLE with ``ln_impl: "pallas"`` on the card: at
+    n_embd 5120 (dalle_12B's width, E % 128 == 0) its three LNs a pass run
+    the kernels, at 192 the plain forward under autograd (no launch), and
+    either way its loss and every grad match the same model with the plain
+    LN (``ln_impl: "xla"``): loss within 1e-5, grads within 1e-4 of each
+    leaf's max."""
+    from dalle_mtf_tpu_torch.models import dalle as tdalle
+
+    cfg = dict(n_embd=n_embd, text_vocab_size=48, image_vocab_size=32, text_seq_len=8,
+               image_seq_len=16, n_layers=1, n_heads=heads)
+    runs = {}
+    for impl in ("pallas", "xla"):
+        model = tdalle.DALLE(tdalle.DalleConfig(**cfg, ln_impl=impl), "cuda")
+        params = model.init(torch.Generator().manual_seed(0))
+        leaves = list(_leaves(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        tokens = torch.randint(0, model.cfg.total_tokens, (2, model.cfg.total_seq_len),
+                               generator=torch.Generator().manual_seed(1)).cuda()
+        before = dict(tln.KERNEL_LAUNCHES)
+        loss = model.loss(params, tokens, train=True)[0]
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[impl] = (loss.item(), [t.grad for t in leaves],
+                      {k: tln.KERNEL_LAUNCHES[k] - before[k] for k in before})
+    none = {"layer_norm_fwd": 0, "layer_norm_bwd": 0}
+    assert runs["pallas"][2] == ({"layer_norm_fwd": 3, "layer_norm_bwd": 3}
+                                 if tln.kernel_takes(n_embd) else none)
+    assert runs["xla"][2] == none
+    assert abs(runs["pallas"][0] - runs["xla"][0]) <= 1e-5
+    for got, want in zip(runs["pallas"][1], runs["xla"][1]):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-9
 
 
 def _quantized(m, k, n, qmax, gen):
@@ -624,8 +719,10 @@ def test_ring_kernels_take_the_q_tile_the_python_walk_names(cuda, head_dim):
 
 def test_ring_kernels_refuse_misaligned_bf16_views(cuda):
     """The bf16 tiles are staged by 16-byte copies and the fp32 accumulators
-    updated by 8-byte pairs: a view off those boundaries raises before any
-    launch; it is not copied silently."""
+    updated by 8-byte pairs: the ring's hop check raises on an input view
+    off 16 bytes (the wrappers copy such a view first), and an accumulator
+    off 8 bytes, which the kernel adds into and so cannot be copied, raises
+    in ``ring_block_grads`` itself; nothing is launched."""
     from dalle_mtf_tpu_torch.ops import ring_attention as tring
 
     shape = (1, 2, 64, 128)
@@ -638,17 +735,74 @@ def test_ring_kernels_refuse_misaligned_bf16_views(cuda):
     acc = torch.zeros(shape, device="cuda")
     odd_acc = torch.zeros(n + 1, device="cuda")[1:].view(shape)
     assert odd_acc.data_ptr() % 8 and odd_acc.is_contiguous()
-    hop = (64, 128, 64, None, 0.0, 0)
     before = dict(tring.KERNEL_LAUNCHES)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tring.ring_partial(shifted, ok, ok, *hop)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tring.ring_partial(ok, ok, shifted, *hop)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tring.ring_block_grads(ok, shifted, rows, rows, ok, ok, acc, acc.clone(), *hop)
+    for name in ("ring_partial", "ring_block_grads"):
+        for args in ((shifted, ok, ok), (ok, ok, shifted)):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                tring._check_hop(name, *args)
     with pytest.raises(ValueError, match="8-byte aligned"):
-        tring.ring_block_grads(ok, ok, rows, rows, ok, ok, acc, odd_acc, *hop)
+        tring.ring_block_grads(ok, ok, rows, rows, ok, ok, acc, odd_acc, 64, 128, 64)
     assert tring.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("head_dim", [96, 256])
+def test_wrappers_refuse_head_dims_without_kernels(cuda, head_dim):
+    """The attention wrappers launch their kernels or raise: at a head dim
+    with no kernel (96, where the model takes the plain versions itself, and
+    256, where the JAX package runs Pallas and no kernel is written yet)
+    every one raises on the card before any launch."""
+    from dalle_mtf_tpu_torch.ops import ring_attention as tring
+
+    b, h, s = 2, 2, 80
+    gen = torch.Generator().manual_seed(head_dim)
+    q, k, v = _uniform((b, h, s, head_dim), torch.float32, gen, 3)
+    pq = q.transpose(1, 2).reshape(b, s, h * head_dim).contiguous()
+    hop = (s, 2 * s, s, None, 0.0, 0)
+    before = (dict(tattn.KERNEL_LAUNCHES), dict(tring.KERNEL_LAUNCHES))
+    for call in (lambda: tattn.causal_attention(q, k, v),
+                 lambda: tattn.causal_attention(*(t.clone().requires_grad_(True)
+                                                  for t in (q, k, v))),
+                 lambda: tpacked.packed_attention(pq, pq, pq, h),
+                 lambda: tring.ring_partial(q, k, v, *hop)):
+        with pytest.raises(ValueError, match=f"takes D in \\(64, 128\\), got {head_dim}"):
+            call()
+    assert (dict(tattn.KERNEL_LAUNCHES), dict(tring.KERNEL_LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_model_takes_plain_attention_where_the_reference_does(cuda, packed):
+    """A 2-layer fp32 DALLE on the card at head dim 96 (D % 128 != 0, where
+    the JAX package takes its dense reference) runs its attention by the
+    plain version: no attention kernel launched, and its loss and every grad
+    match the same model on the CPU (loss within 1e-5, grads within 1e-4 of
+    each leaf's max). At head dim 256 (the JAX package's Pallas D with no
+    kernel yet) the model raises on the card."""
+    from dalle_mtf_tpu_torch.models import dalle as tdalle
+
+    cfg = dict(text_vocab_size=48, image_vocab_size=32, text_seq_len=8, image_seq_len=16,
+               n_layers=2, n_heads=2, attn_packed=packed)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = tdalle.DALLE(tdalle.DalleConfig(n_embd=192, **cfg), device)
+        params = model.init(torch.Generator().manual_seed(0))
+        leaves = list(_leaves(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        tokens = torch.randint(0, model.cfg.total_tokens, (2, model.cfg.total_seq_len),
+                               generator=torch.Generator().manual_seed(1)).to(device)
+        before = dict(tattn.KERNEL_LAUNCHES)
+        loss = model.loss(params, tokens, train=True)[0]
+        loss.backward()
+        runs[device] = (loss.item(), [t.grad.cpu() for t in leaves])
+        assert tattn.KERNEL_LAUNCHES == before
+    assert abs(runs["cuda"][0] - runs["cpu"][0]) <= 1e-5
+    for got, want in zip(runs["cuda"][1], runs["cpu"][1]):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-9
+    model = tdalle.DALLE(tdalle.DalleConfig(n_embd=512, **cfg), "cuda")
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.zeros((1, model.cfg.total_seq_len), dtype=torch.long, device="cuda")
+    with pytest.raises(ValueError, match="got 256"):
+        model.loss(params, tokens)
 
 
 @pytest.mark.parametrize("head_dim", tattn.KERNEL_HEAD_DIMS)
@@ -682,23 +836,25 @@ def test_fp32_forward_kernels_report_their_resources(cuda, head_dim):
 
 
 def test_fp32_forward_refuses_misaligned_views(cuda):
-    """The fp32 forwards stage tiles by 16-byte copies: an fp32 view off a
-    16-byte boundary raises before any launch, in the [B, H, S, D] and the
-    packed layout and in the ring's forward; it is not copied silently."""
+    """The fp32 forwards stage tiles by 16-byte copies: the check before the
+    [B, H, S, D], the packed and the ring forward raises on an fp32 view at
+    storage offset 1, and launches nothing (the wrappers copy such a view
+    first: test_misaligned_views_are_copied_before_the_kernels)."""
     from dalle_mtf_tpu_torch.ops import ring_attention as tring
 
     n = 2 * 2 * 64 * 128
     f = torch.rand(n + 1, device="cuda")[1:].view(2, 2, 64, 128)
-    assert f.data_ptr() % 16 and f.is_contiguous()
+    assert f.data_ptr() % 16 and f.is_contiguous() and f.storage_offset() == 1
     ok = torch.rand((2, 2, 64, 128), device="cuda")
     before = dict(tattn.KERNEL_LAUNCHES), dict(tring.KERNEL_LAUNCHES)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tattn._forward(f, ok, ok, None, 0.0, None, True)
+        tattn.check_kernel_inputs("causal_attention_fwd", (f, ok, ok), 128)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tpacked._forward(ok.reshape(2, 128, 128), f.reshape(2, 128, 128),
-                         ok.reshape(2, 128, 128), 1, None, 0.0, None)
+        tattn.check_kernel_inputs("causal_attention_packed_fwd",
+                                  (ok.reshape(2, 128, 128), f.reshape(2, 128, 128),
+                                   ok.reshape(2, 128, 128)), 128)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tring.ring_partial(ok, ok, f, 64, 128, 64, None, 0.0, 0)
+        tring._check_hop("ring_partial", ok, ok, f)
     assert (dict(tattn.KERNEL_LAUNCHES), dict(tring.KERNEL_LAUNCHES)) == before
 
 
@@ -766,31 +922,77 @@ def test_fp32_kernels_keep_nans(cuda, where, bits):
 
 
 def test_fp32_backward_refuses_misaligned_views(cuda):
-    """The fp32 backward kernels stage tiles by 16-byte copies: an fp32 view
-    off a 16-byte boundary raises before any launch (the out and lse it
-    would read come from an aligned copy)."""
+    """The fp32 backward kernels stage tiles by 16-byte copies: the check
+    before the causal and the ring backward raises on an fp32 view at
+    storage offset 1 (the wrappers copy such a view first), and an fp32
+    accumulator off 8 bytes, which the ring kernel adds into, raises in
+    ``ring_block_grads`` itself; nothing is launched."""
     from dalle_mtf_tpu_torch.ops import ring_attention as tring
 
     n = 2 * 2 * 64 * 128
     f = torch.rand(n + 1, device="cuda")[1:].view(2, 2, 64, 128)
     assert f.data_ptr() % 16 and f.is_contiguous()
-    out, lse = tattn._forward(*(f.clone() for _ in range(3)), None, 0.0, None, True)
-    before = dict(tattn.KERNEL_LAUNCHES)
+    before = dict(tattn.KERNEL_LAUNCHES), dict(tring.KERNEL_LAUNCHES)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tattn._backward(f, f, f, out, lse, f, None, 0.0, None)
-    assert tattn.KERNEL_LAUNCHES == before
+        tattn.check_kernel_inputs("causal_attention_bwd", (f, f, f), 128)
     ok = torch.zeros((1, 2, 64, 128), device="cuda")
     rows = torch.zeros((2, 64), device="cuda")
     acc = torch.zeros_like(ok)
-    shifted = torch.zeros(ok.numel() + 1, device="cuda")[1:].view(ok.shape)
+    shifted = f.reshape(-1)[:ok.numel()].view(ok.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tring.ring_block_grads(shifted, ok, rows, rows, ok, ok, acc, acc.clone(),
-                               64, 128, 64, None, 0.0, 0)
+        tring._check_hop("ring_block_grads", shifted, ok, ok)
     odd_acc = torch.zeros(ok.numel() + 1, device="cuda")[1:].view(ok.shape)
     assert odd_acc.data_ptr() % 8
     with pytest.raises(ValueError, match="8-byte aligned"):
         tring.ring_block_grads(ok, ok, rows, rows, ok, ok, acc, odd_acc,
                                64, 128, 64, None, 0.0, 0)
+    assert (dict(tattn.KERNEL_LAUNCHES), dict(tring.KERNEL_LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_views_are_copied_before_the_kernels(cuda, dtype):
+    """A view at storage offset 1 (off 16 bytes in either dtype) given to
+    each attention wrapper is copied into a dense tensor before the launch:
+    the causal forward and backward, the packed forward and the ring's hop
+    pair launch their kernels once each and equal the plain versions on the
+    view (atol 1e-5 in fp32, 1e-2 in bf16, of max(1, |plain|))."""
+    from dalle_mtf_tpu_torch.ops import ring_attention as tring
+
+    atol = 1e-5 if dtype == torch.float32 else 1e-2
+    n = 2 * 2 * 64 * 128
+    gen = torch.Generator().manual_seed(7)
+    f = (torch.rand(n + 1, generator=gen) * 2 - 1).to("cuda", dtype)[1:].view(2, 2, 64, 128)
+    assert f.data_ptr() % 16 and f.is_contiguous() and f.storage_offset() == 1
+    ok, g = _uniform((2, 2, 64, 128), dtype, gen, 2)
+    before = dict(tattn.KERNEL_LAUNCHES), dict(tring.KERNEL_LAUNCHES)
+    out, lse = tattn._forward(f, ok, ok, None, 0.0, None, True)
+    good, err = _close(out, tattn.attention_reference(f, ok, ok), atol)
+    assert good, err
+    grads = tattn._backward(f, ok, ok, out, lse, g, None, 0.0, None)
+    for got, want in zip(grads, tattn.attention_backward_reference(f, ok, ok, out, lse, g)):
+        good, err = _close(got, want, atol)
+        assert good, err
+    pf, pok = f.reshape(2, 128, 128), ok.reshape(2, 128, 128)
+    got, _ = tpacked._forward(pok, pf, pok, 1, None, 0.0, None)
+    good, err = _close(got, tpacked.attention_packed_reference(pok, pf, pok, 1), atol)
+    assert good, err
+    hop = (64, 128, 64, None, 0.0, 0)
+    for t, w in zip(tring.ring_partial(ok, ok, f, *hop),
+                    tring.ring_partial_reference(ok, ok, f, *hop)):
+        good, err = _close(t, w, atol)
+        assert good, err
+    rows = torch.zeros((4, 64), device="cuda")
+    dk, dv = (torch.zeros((2, 2, 64, 128), device="cuda") for _ in range(2))
+    dq = tring.ring_block_grads(f, g, rows, rows, ok, ok, dk, dv, *hop)
+    want = tring.ring_block_grads_reference(f, g, rows, rows, ok, ok, *hop)
+    for t, w in zip((dq, dk, dv), want):
+        good, err = _close(t, w, atol)
+        assert good, err
+    launched = {k: tattn.KERNEL_LAUNCHES[k] - before[0][k] for k in before[0]}
+    assert launched == {"causal_attention_fwd": 1, "causal_attention_bwd": 1,
+                        "causal_attention_packed_fwd": 1, "causal_attention_packed_bwd": 0}
+    assert {k: tring.KERNEL_LAUNCHES[k] - before[1][k] for k in before[1]} == {
+        "ring_partial": 1, "ring_block_grads": 1}
 
 
 @pytest.mark.parametrize("s,window", [(1, None), (129, 1)])

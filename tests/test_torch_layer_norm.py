@@ -18,8 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from dalle_mtf_tpu.models import dalle as jdalle
 from dalle_mtf_tpu.ops import layer_norm as jln
+from dalle_mtf_tpu_torch.models import dalle as tdalle
 from dalle_mtf_tpu_torch.ops import layer_norm as tln
+from dalle_mtf_tpu_torch.utils import convert
 
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
@@ -116,8 +119,8 @@ def test_unaligned_feature_dim_takes_the_plain_version():
     """At E % 128 != 0 the JAX ``layer_norm`` takes its XLA reference. On
     CPU tensors the port's Function runs its plain versions there, and they
     agree with it, grads included. The CUDA kernels' own bound is E % 8 == 0
-    up to 4096: any other E is refused before a launch, never computed
-    plain."""
+    up to 8192: any other E is refused before a launch, never computed
+    plain (the model takes the plain forward there: ``kernel_takes``)."""
     rng = np.random.default_rng(8)
     x = torch.from_numpy(rng.standard_normal((6, 96)).astype(np.float32)).requires_grad_(True)
     g, b = torch.ones(96, requires_grad=True), torch.zeros(96, requires_grad=True)
@@ -130,9 +133,9 @@ def test_unaligned_feature_dim_takes_the_plain_version():
     dy = rng.standard_normal((6, 96)).astype(np.float32)
     y.backward(torch.from_numpy(dy))
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(vjp(jnp.asarray(dy))[0]), atol=1e-5)
-    for e in (100, 4104):  # not a multiple of 8; past the kernel's 4096
+    for e in (100, 8200):  # not a multiple of 8; past the kernels' 8192
         meta = torch.empty((4, e), device="meta")
-        with pytest.raises(ValueError, match="multiple of 8 up to 4096"):
+        with pytest.raises(ValueError, match="multiple of 8 up to 8192"):
             tln.layer_norm(meta, torch.ones(e, device="meta"), torch.zeros(e, device="meta"))
 
 
@@ -143,3 +146,56 @@ def test_layer_norm_refuses_bad_inputs():
     meta = torch.empty((4, 128), device="meta")
     with pytest.raises(ValueError, match="device"):
         tln.layer_norm(meta, torch.ones(128, device="meta"), torch.zeros(128, device="meta"))
+
+
+@pytest.mark.parametrize("e", [8, 64, 128, 136, 768, 776, 1024, 4096, 4104, 5120, 8192])
+def test_kernel_takes_is_the_references_rule(e, monkeypatch):
+    """``kernel_takes`` names the widths at which the JAX ``layer_norm``
+    itself reaches its Pallas pair (asked by a spy on ``_ln_pallas``, with
+    ``use_pallas=True``): E % 128 == 0, here up to the kernels' 8192, which
+    take E = 5120 (dalle_12B) and 8192; 768 + 8 and 4096 + 8 take the plain
+    version in both packages."""
+    calls = []
+
+    def spy(x2d, g2d, b2d, eps, interpret):
+        calls.append(x2d.shape)
+        return jln.layer_norm_reference(x2d, g2d[0], b2d[0], eps)
+
+    monkeypatch.setattr(jln, "_ln_pallas", spy)
+    jln.layer_norm(jnp.ones((2, e)), jnp.ones(e), jnp.zeros(e), use_pallas=True)
+    assert tln.kernel_takes(e) == bool(calls)
+    assert e <= tln.MAX_E
+
+
+@pytest.mark.parametrize("n_embd,heads", [(136, 2), (192, 3), (256, 2)])
+def test_model_ln_dispatch_matches_jax(n_embd, heads):
+    """A 2-layer fp32 DALLE with ``ln_impl: "pallas"`` on weights carried
+    across by utils/convert.py: where E % 128 != 0 (136, 192) it takes the
+    plain forward under autograd, no kernel Function in its graph; at 256
+    the Function (the kernels on the card, their plain pair here); either
+    way its loss and every grad match the JAX model's (loss within 1e-5,
+    grads within 1e-4 of each leaf's max)."""
+    kw = dict(n_embd=n_embd, text_vocab_size=40, image_vocab_size=32, text_seq_len=8,
+              image_seq_len=16, n_layers=2, n_heads=heads, ln_impl="pallas")
+    jm = jdalle.DALLE(jdalle.DalleConfig(**kw))
+    tm = tdalle.DALLE(tdalle.DalleConfig(**kw), "cpu")
+    jparams = jax.device_get(jm.init(jax.random.PRNGKey(0)))
+    tokens = np.random.default_rng(1).integers(0, jm.cfg.total_tokens,
+                                               (2, jm.cfg.total_seq_len))
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jm.loss(p, jnp.asarray(tokens, jnp.int32), train=True),
+        has_aux=True)(jparams)
+    tparams = convert.dalle_params_from_numpy(jparams, tm)
+    leaves = dict(convert._flatten(tparams, ""))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    tloss, _ = tm.loss(tparams, torch.from_numpy(tokens), train=True)
+    assert _through_function(tloss) == tln.kernel_takes(n_embd)
+    tloss.backward()
+    assert abs(tloss.item() - float(jloss)) <= 1e-5
+    want = dict(convert._flatten(jax.device_get(jgrads), ""))
+    got = dict(convert._flatten(convert.grads_to_numpy(tparams), ""))
+    assert set(got) == set(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, atol=1e-4 * np.abs(w).max() + 1e-9,
+                                   err_msg=name)

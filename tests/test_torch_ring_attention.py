@@ -128,6 +128,18 @@ RINGS = [("data:1,seq:4", None, 0.0), ("data:1,seq:4", 40, 0.25), ("data:2,seq:2
 @pytest.mark.parametrize("mesh_shape,window,rate", RINGS)
 def test_ring_attention_four_ranks_matches_jax_and_single_process(tmp_path, mesh_shape, window,
                                                                   rate):
+    _four_ranks_against_jax(tmp_path, mesh_shape, window, rate, plain=False)
+
+
+def test_ring_attention_plain_hops_match_jax(tmp_path):
+    """``plain=True`` (the model's choice at a head dim the kernels do not
+    take, here D = 32) runs the ring's forward fold and backward through the
+    hops' plain versions on any device; the same check as above, with a
+    window and dropout."""
+    _four_ranks_against_jax(tmp_path, "data:1,seq:4", 40, 0.25, plain=True)
+
+
+def _four_ranks_against_jax(tmp_path, mesh_shape, window, rate, plain):
     b, h, s, d = 2, 2, 128, 32
     rng = np.random.default_rng(7)
     q, k, v, g = (rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(4))
@@ -146,7 +158,8 @@ def test_ring_attention_four_ranks_matches_jax_and_single_process(tmp_path, mesh
         (_, jout), jgrads = jax.jit(jax.value_and_grad(jax_loss, argnums=(0, 1, 2),
                                                        has_aux=True))(q, k, v)
     torch.save({**{n: torch.from_numpy(x) for n, x in zip("qkvg", (q, k, v, g))},
-                "mesh_shape": mesh_shape, "window": window, "rate": rate, "seed": seed},
+                "mesh_shape": mesh_shape, "window": window, "rate": rate, "seed": seed,
+                "plain": plain},
                tmp_path / "in.pt")
     run_ranks("attention", tmp_path / "in.pt", tmp_path)
     ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(4)]

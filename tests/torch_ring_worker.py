@@ -6,7 +6,8 @@ gloo backend:
         tests/torch_ring_worker.py <attention|dalle_step> <inputs.pt> <out_dir>
 
 ``attention``: ``ring_attention_auto`` forward and backward on this rank's
-rows and sequence shard of the global q, k, v, g in the inputs; writes its
+rows and sequence shard of the global q, k, v, g in the inputs (with the
+inputs' ``plain`` choice, if any); writes its
 out, dq, dk, dv and kernel counts to ``<out_dir>/rank<r>.pt``.
 ``dalle_step``: the DALLE loss and gradients of this rank's share on the
 global tokens, summed over the world; rank 0 writes them to
@@ -44,7 +45,8 @@ def attention(inp, out_dir, proc):
         leaves.append(t.clone().requires_grad_(True))
     g = _rows(mesh, "seq", _rows(mesh, "data", inp["g"], 0), 2)
     out = ring.ring_attention_auto(*leaves, mesh, "seq", "data", inp["window"], inp["rate"],
-                                   inp["seed"] if inp["rate"] else None)
+                                   inp["seed"] if inp["rate"] else None,
+                                   plain=inp.get("plain", False))
     out.backward(g)
     torch.save({"out": out.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad,
                 "dv": leaves[2].grad, "coords": mesh.coords,

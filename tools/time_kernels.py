@@ -31,7 +31,15 @@ turns on one card. The sections (all by default), at the shapes of
   the byte bound, the kernels a call that the profiler saw by name, and the
   error against plain; with ``--all-plans``, also every other split of K
   (``ops.decode_matmul.candidates``) at the M = 4 shapes, for the roots
-  that have them.
+  that have them;
+- ``layer_norm``: ``ops.layer_norm._forward`` and ``_backward`` at
+  dalle_4k's rows (R = 17,408, E = 1024, bf16), at dalle_12B's width
+  (R = 8192, E = 5120, bf16; for the roots whose kernels take it) and at a
+  ragged fp32 shape (R = 1001, E = 768), on input copies past the 50 MB L2:
+  the device time split by kernel name under torch.profiler, the plain
+  pair, the library call (``F.layer_norm`` and its autograd backward), the
+  byte bound, the errors against plain, and the kernels' resources where
+  the root reports them.
 
 Every time is read twice: between CUDA events (``ms``) and on the card under
 torch.profiler (``device_ms``, from a trace that saw every launch where the
@@ -49,10 +57,15 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SECTIONS = ("fp32_forward", "fp32_backward", "decode")
+SECTIONS = ("fp32_forward", "fp32_backward", "decode", "layer_norm")
 FORWARD_ITERS = 20   # timed calls (a call is 0.5-3 ms)
 BACKWARD_ITERS = 10  # a call is 1-13 ms
 DECODE_ITERS = 200   # a call is a few µs
+LN_ITERS = 50        # a call is 20-100 µs
+LN_CASES = [  # (name, R, E, dtype)
+    ("dalle_4k", 17408, 1024, "bfloat16"), ("dalle_12B", 8192, 5120, "bfloat16"),
+    ("ragged_fp32", 1001, 768, "float32"),
+]
 
 
 def _chip_smoke():
@@ -236,6 +249,138 @@ def decode(torch, cs, all_plans: bool) -> dict:
                         for p in dmm.candidates(kp)]
             res[f"{kind}:{name}"] = row
             del ws, ds
+        torch.cuda.empty_cache()
+    return res
+
+
+def _span_and_host_ms(torch, fn, copies) -> tuple[float, float]:
+    """(the card's timeline a call: first kernel start to last kernel end
+    over LN_ITERS back-to-back calls under torch.profiler, gaps included;
+    the host's time to enqueue a call, no synchronisation inside)."""
+    import time  # noqa: PLC0415
+
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    for i in range(3):
+        fn(i % copies)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LN_ITERS):
+        fn(i % copies)
+    host = (time.perf_counter() - t0) * 1e3 / LN_ITERS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(LN_ITERS):
+            fn(i % copies)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return float("nan"), host
+    span = max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)
+    return span / 1e3 / LN_ITERS, host
+
+
+def _ln_times(torch, cs, fn, copies) -> dict:
+    """Events and profiler time of ``fn(i)``, with the device time split by
+    kernel name, from a trace that saw every LN kernel of every call (the
+    kernels a call are counted on a first trace); the card's timeline a call
+    and the host's enqueue time a call."""
+    seen = cs.device_profile(torch, fn, copies, 10)[1]
+    per_call = round(sum(c for n, (c, _) in seen.items() if "layer_norm" in n) / 10)
+    dev_ms, seen = cs.device_profile(torch, fn, copies, LN_ITERS, ("layer_norm",), per_call)
+    span, host = _span_and_host_ms(torch, fn, copies)
+    return dict(ms=cs.cuda_ms_rotating(fn, copies, LN_ITERS), device_ms=dev_ms,
+                span_ms=span, host_ms=host, kernels_a_call=per_call,
+                device_ms_by_kernel={n: us / 1e3 / LN_ITERS for n, (_, us) in seen.items()})
+
+
+def _bwd_launch_host_ms(torch, lnm, x, g, dy) -> float:
+    """The host's time a call of the C entry point ``layer_norm_bwd`` alone
+    (the cooperative launch, its checks and its occupancy query), on
+    buffers made once."""
+    import time  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
+
+    rows, e = x.shape
+    n_ctas = lnm.bwd_ctas(0, rows, e, x.dtype)
+    dx = torch.empty_like(x)
+    partial = torch.empty((n_ctas, 2, e), device="cuda")
+    sums = torch.empty((2, e), device="cuda")
+    stream = torch.cuda.current_stream()
+    args = (x.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+            lnm._barrier(x.device, stream).data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
+            rows, e, lnm.bwd_tile_rows(e, x.dtype), n_ctas, lnm.KERNEL_DTYPES[x.dtype], 1e-5,
+            stream.cuda_stream)
+    lib = library()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LN_ITERS):
+        if lib.layer_norm_bwd(*args) != 0:
+            raise RuntimeError("layer_norm_bwd launch failed")
+    host = (time.perf_counter() - t0) * 1e3 / LN_ITERS
+    torch.cuda.synchronize()
+    return host
+
+
+def layer_norm(torch, cs) -> dict:
+    import math  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
+
+    res = {}
+    gen = torch.Generator().manual_seed(3)
+    for name, r, e, dt in LN_CASES:
+        if e > lnm.MAX_E:
+            res[name] = f"not taken: E = {e} > MAX_E = {lnm.MAX_E}"
+            continue
+        dtype = getattr(torch, dt)
+        elem = torch.finfo(dtype).bits // 8
+        copies = max(1, math.ceil(2 * cs.L2_BYTES / (2 * r * e * elem)))
+        xs = [(torch.randn((r, e), generator=gen) * 2 + 0.5).to("cuda", dtype)
+              for _ in range(copies)]
+        dys = [torch.randn((r, e), generator=gen).to("cuda", dtype) for _ in range(copies)]
+        g = (1 + 0.3 * torch.randn(e, generator=gen)).cuda()
+        b = (0.2 * torch.randn(e, generator=gen)).cuda()
+        x, dy = xs[0], dys[0]
+        y = lnm._forward(x, g, b, 1e-5)
+        dx, dg, db = lnm._backward(x, g, dy, 1e-5)
+        again = lnm._backward(x, g, dy, 1e-5)
+        want_dx, want_dg, want_db = lnm.layer_norm_backward_reference(x, g, dy)
+        errs = dict(y=cs.max_err(y, lnm.layer_norm_reference(x, g, b))[0],
+                    dx=cs.max_err(dx, want_dx)[0],
+                    dg_rel=((dg - want_dg).abs().max() / want_dg.abs().max()).item(),
+                    db_rel=((db - want_db).abs().max() / want_db.abs().max()).item(),
+                    dg_db_bit_equal=bool(torch.equal(again[1], dg) and torch.equal(again[2], db)))
+        g_lib, b_lib = g.to(dtype), b.to(dtype)
+        leaves = [[t.clone().requires_grad_(True) for t in (xs[i], g_lib, b_lib)]
+                  for i in range(copies)]
+        y_lib = [torch.nn.functional.layer_norm(lv[0], (e,), lv[1], lv[2], 1e-5) for lv in leaves]
+        row = dict(R=r, E=e, dtype=dt, input_copies=copies, errs=errs)
+        for kind, kern, plain, lib, n in (
+            ("fwd", lambda i: lnm._forward(xs[i], g, b, 1e-5),
+             lambda i: lnm.layer_norm_reference(xs[i], g, b),
+             lambda i: torch.nn.functional.layer_norm(xs[i], (e,), g_lib, b_lib, 1e-5), 2),
+            ("bwd", lambda i: lnm._backward(xs[i], g, dys[i], 1e-5),
+             lambda i: lnm.layer_norm_backward_reference(xs[i], g, dys[i]),
+             lambda i: torch.autograd.grad(y_lib[i], leaves[i], dys[i], retain_graph=True), 3),
+        ):
+            row[kind] = dict(**_ln_times(torch, cs, kern, copies),
+                             plain_device_ms=cs.device_ms_rotating(torch, plain, copies, 10),
+                             library_device_ms=cs.device_ms_rotating(torch, lib, copies, LN_ITERS),
+                             **cs.roofline((9 if kind == "fwd" else 16) * r * e,
+                                           n * r * e * elem + n * e * 4, cs.PEAK_FP32_TFLOPS))
+        if hasattr(lnm, "kernel_resources"):
+            row["resources"] = lnm.kernel_resources(e, dtype)
+        if hasattr(lnm, "bwd_tile_rows"):
+            # the fixed cost of the grid: one tile a CTA, every CTA resident
+            rows = lnm.bwd_tile_rows(e, dtype) * lnm.bwd_resident_ctas(0, e, dtype)
+            row["bwd"]["one_tile_a_cta"] = dict(R=rows, device_ms=cs.device_ms_rotating(
+                torch, lambda i: lnm._backward(xs[i][:rows], g, dys[i][:rows], 1e-5), copies,
+                LN_ITERS))
+            row["bwd"]["launch_host_ms"] = _bwd_launch_host_ms(torch, lnm, x, g, dy)
+        res[name] = row
+        del xs, dys, leaves, y_lib
         torch.cuda.empty_cache()
     return res
 
