@@ -130,6 +130,21 @@ Phases, none of them optional:
      launch of the [B, H, S, D] or packed pairs; prints step time and
      tokens/s labelled as four ranks on one card, the bytes staged and the
      peak memory a rank.
+   Then stage-1 VAE training, ``phase_train_vae`` (no TPU kernel on its
+   path: cuDNN convs, cuBLAS codebook products): a small VAE's training and
+   eval step on the card against the CPU in fp32 and bf16 (same weights,
+   images and Gumbel draw; loss and metrics within 1e-4 relative in fp32,
+   2e-2 in bf16), then configs/vae_coco_synth.json at full width (256 px,
+   bf16, batch 32) on seeded JPEG tfrecords through ``train_vae.main`` for
+   30 steps with evals, checkpoints and image summaries at 20 and 30 and
+   two steps traced in the same loop, and a resume from step 20 that
+   repeats the losses bit for bit (cuDNN's deterministic switch on); then
+   the host's data (the pipeline's images a second alone and the data-wait
+   share of 40-step runs on one decode thread and on the pool, at 256² and
+   at COCO sizes) and the steps run with no sync between them; its
+   "train_vae" line holds step s, images/s, MFU, peak memory, the device's
+   busy share and ms by bucket from the traced steps, and the data-wait
+   shares.
 5. Serving slice: configs/dalle_coco.json at full width and depth with
    weights from a seed. Banded prefill logits on the card against the port's
    plain path on the CPU in fp32 (same weights); then the HTTP server
@@ -2310,6 +2325,494 @@ def phase_continuous(torch, attn, dmm, card, config, whole_batch):
     return launches["int8_matmul"]
 
 
+# ----------------------------------------------------------- stage-1 VAE
+
+VAE_CONFIG = "vae_coco_synth"
+VAE_STEPS, VAE_CKPT, VAE_TIMED_FROM = 30, 20, 3  # checkpoint + eval at 20 and 30; 3..30 timed
+VAE_TRACED_FROM, VAE_TRACED = 10, 2  # steps 10 and 11 of the timed run under torch.profiler
+VAE_UNSYNCED = 5  # steps run back to back with one sync at the end
+VAE_DATA_STEPS, VAE_DATA_FROM = 30, 11  # each host-data run: 30 steps, 11..30 read
+COCO_SIDES = ((640, 480), (480, 640))  # (width, height): the commonest COCO 2017 shapes
+VAE_VALUES = dict(  # the values check's small VAE: 64 px, 256 tokens, batch 4
+    dataset={"image_size": 64}, num_tokens=256, convblocks=[[1, 32], [2, 64]],
+    recompute_grad=True, temp_start=1.0, temp=0.2, temp_anneal_steps=100,
+    train_gumbel_hard=False, eval_gumbel_hard=True,
+)
+
+def vae_values(torch, bf16: bool) -> dict:
+    """One training step (loss and every grad) and one eval step (loss,
+    PSNR, codebook perplexity, Fréchet feature distance) of a small VAE
+    through ``make_vae_task``: the card against the CPU, same weights,
+    images and Gumbel draw ``u``. Bounds: loss and metrics within 1e-4
+    relative in fp32 (the port's fp32 convs run in IEEE fp32, TF32 off:
+    ``models/vae.py``), 2e-2 in bf16; each grad leaf's max |card - cpu|
+    within 1e-3 of its max |grad| in fp32, its relative L2 error within 0.1
+    in bf16 (both sides round activations to bf16 at the same points, from
+    fp32 sums taken in another order)."""
+    from dalle_mtf_tpu_torch.ops import gumbel  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_vae_task  # noqa: PLC0415
+
+    params = {**VAE_VALUES, "use_bf16": bf16}
+    vae, init_fn, _, _ = make_vae_task(params, "cpu")
+    weights = init_fn(torch.Generator().manual_seed(11))
+    gen = torch.Generator().manual_seed(12)
+    size, g = vae.cfg.image_size, vae.cfg.grid_size
+    img = torch.rand((4, size, size, 3), generator=gen) * 2.0 - 1.0
+    u = gumbel.gumbel_uniform((4, g, g, vae.cfg.num_tokens), gen, "cpu")
+    draw = gumbel.gumbel_uniform
+    gumbel.gumbel_uniform = lambda shape, generator, device: u.to(device)
+    results = {}
+    try:
+        for device in ("cuda", "cpu"):
+            _, _, train_loss, eval_loss = make_vae_task(params, device)
+            tree = _to(weights, device)
+            for _, t in named_leaves(tree):
+                t.requires_grad_(True)
+            batch = {"image": img.to(device)}
+            loss, _ = train_loss(tree, None, batch, torch.Generator(), 10)
+            loss.backward()
+            with torch.no_grad():
+                eloss, aux = eval_loss(tree, None, batch, torch.Generator(), 10)
+            metrics = {"loss": loss.item(), "eval_loss": eloss.item(),
+                       **{k: v.item() for k, v in aux.items()}}
+            results[device] = (metrics, {"/".join(p): t.grad.float().cpu()
+                                         for p, t in named_leaves(tree)})
+    finally:
+        gumbel.gumbel_uniform = draw
+    (gm, gg), (cm, cg) = results["cuda"], results["cpu"]
+    rtol = 2e-2 if bf16 else 1e-4
+    rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30) for k in cm}
+    if bf16:
+        grad_err = max((((gg[n] - cg[n]).norm() / cg[n].norm().clamp_min(1e-30)).item(), n)
+                       for n in cg)
+        grad_ok = grad_err[0] <= 0.1
+    else:
+        grad_err = max(((gg[n] - cg[n]).abs().max().item()
+                        / max(cg[n].abs().max().item(), 1e-30), n) for n in cg)
+        grad_ok = grad_err[0] <= 1e-3
+    label = "bf16" if bf16 else "fp32"
+    print(f"train_vae values {label}: card {gm}; cpu {cm}; worst relative difference "
+          f"{max(rel.values()):.3g} (bound {rtol}); worst grad "
+          f"{'relative L2' if bf16 else 'max-abs over the leaf max'} {grad_err[0]:.3g} "
+          f"({grad_err[1]}, bound {0.1 if bf16 else 1e-3})", flush=True)
+    if not (max(rel.values()) <= rtol and grad_ok):
+        raise AssertionError(f"train_vae values {label}: the card disagrees with the CPU")
+    return dict(card=gm, cpu=cm, worst_rel=max(rel.values()), worst_grad=grad_err)
+
+
+def write_image_dataset(root: str, seed: int, sides, files: int = 4, per_file: int = 64) -> str:
+    """JPEG tfrecords of images drawn from ``seed``, (width, height) taken
+    from ``sides`` in turn: a random 8 x 8 colour field, bilinearly
+    upsampled, plus noise (a VAE can learn it, so the loss falls)."""
+    import io  # noqa: PLC0415
+
+    import numpy as np  # noqa: PLC0415
+    from PIL import Image  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.data.tfrecord import TFRecordWriter, serialize_example  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for f in range(files):
+        with TFRecordWriter(os.path.join(root, f"synth_{f}.tfrecords")) as w:
+            for i in range(per_file):
+                field = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+                arr = np.asarray(field.resize(sides[i % len(sides)], Image.BILINEAR), np.int16)
+                arr = np.clip(arr + rng.integers(-8, 9, arr.shape), 0, 255).astype(np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+                w.write(serialize_example({"image": buf.getvalue()}))
+    return os.path.join(root, "*.tfrecords")
+
+
+def vae_config(tmp: str, pattern: str, run: str, **over) -> str:
+    """A copy of configs/vae_coco_synth.json over ``pattern``, cut to
+    VAE_STEPS steps with a checkpoint and an eval at VAE_CKPT, every step
+    logged, in ``tmp/run``; ``over`` replaces keys after that."""
+    from dalle_mtf_tpu_torch.utils.config import _resolve_config_path  # noqa: PLC0415
+
+    with open(_resolve_config_path(VAE_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(
+        dataset={**cfg["dataset"], "train_path": pattern, "eval_path": pattern},
+        train_steps=VAE_STEPS, steps_per_checkpoint=VAE_CKPT, eval_steps=1, log_every=1,
+        max_to_keep=2, model_path=os.path.join(tmp, run),
+    )
+    cfg.update(over)
+    path = os.path.join(tmp, f"{run}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def vae_flops(cfg, batch: int) -> dict:
+    """Multiply-adds of one image's forward from the conv shapes (each
+    output pixel: k * k * cin * cout; an up-conv's input pixel: 4 * 4 *
+    cin * cout) and the two codebook products, and of the residual
+    blocks' forward alone (recomputed in the backward under
+    ``recompute_grad``). A step's FLOPs: 2 * batch * (3 * forward +
+    recomputed): the backward as twice the forward."""
+    side, fwd, res = cfg.image_size // cfg.stack_factor, 0, 0
+    cin = cfg.n_channels * cfg.stack_factor ** 2
+    for stack, ch in cfg.convblocks:  # encoder: down-conv, then residual blocks
+        side //= 2
+        fwd += side * side * 16 * cin * ch
+        res += (stack - 1) * 2 * side * side * 9 * ch * ch
+        cin = ch
+    book = side * side * cfg.n_hid * cfg.num_tokens
+    fwd += 2 * book  # encoder logits, decoder input
+    for stack, ch in reversed(cfg.convblocks):  # decoder: up-conv, residual blocks
+        fwd += side * side * 16 * cin * ch
+        side *= 2
+        res += (stack - 1) * 2 * side * side * 9 * ch * ch
+        cin = ch
+    fwd += res + side * side * cin * cfg.n_channels * cfg.stack_factor ** 2  # final 1x1
+    recompute = res if cfg.recompute_grad else 0
+    return dict(forward_gmac_per_image=fwd / 1e9, recomputed_gmac_per_image=recompute / 1e9,
+                tflop_per_step=2 * batch * (3 * fwd + recompute) / 1e12)
+
+
+class TimedBatches:
+    """An iterator over a pipeline's batches that keeps the seconds each
+    ``next`` waited (the host's data time a step). With ``trace=(first,
+    steps)`` it also runs torch.profiler (device activity only) over steps
+    first .. first + steps - 1 of the loop that consumes it, from the
+    first-th ``next`` to the one after the last, and keeps that window's
+    wall seconds: the trace and the step times come from one loop."""
+
+    def __init__(self, pipeline, trace: tuple[int, int] | None = None):
+        self.it = iter(pipeline)
+        self.waits: list[float] = []
+        self.trace, self.prof, self.window_s, self.t_window = trace, None, None, 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        step = len(self.waits) + 1  # the step this batch feeds
+        if self.prof is not None and self.window_s is None and step == sum(self.trace):
+            self.window_s = time.perf_counter() - self.t_window
+            self.prof.stop()
+        if self.trace and step == self.trace[0]:
+            from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t_window = time.perf_counter()
+        t0 = time.perf_counter()
+        batch = next(self.it)
+        self.waits.append(time.perf_counter() - t0)
+        return batch
+
+    def close(self):
+        self.it.close()
+
+
+VAE_BUCKETS = (  # device-time buckets of a VAE step, by kernel name (first match)
+    ("conv_bwd", ("dgrad", "wgrad", "convolve_dgrad", "convolve_wgrad", "conv2d_grouped_direct_bwd")),
+    ("conv_fwd", ("fprop", "implicit_convolve", "conv2d", "convolution", "cudnn")),
+    ("layout", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("optimizer", ("adam", "multi_tensor", "foreach")),
+    ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "nvjet")),
+    ("host_to_device", ("memcpy htod",)),
+    ("elementwise", ("elementwise", "vectorized", "reduce", "softmax", "copy", "memcpy", "memset")),
+)
+
+
+def vae_device_split(torch, prof, steps: int, wall_s: float) -> dict:
+    """A trace's device time a step by bucket (``VAE_BUCKETS``), the
+    busiest kernels by name, and the device's busy share of ``wall_s``."""
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    if not device:
+        raise AssertionError("torch.profiler recorded no device activity in the traced steps")
+    buckets = {name: 0.0 for name, _ in VAE_BUCKETS} | {"other": 0.0}
+    by_name: dict[str, float] = {}
+    for e in device:
+        ms = e.time_range.elapsed_us() / 1e3
+        name = e.name.lower()
+        key = next((b for b, words in VAE_BUCKETS if any(w in name for w in words)), "other")
+        buckets[key] += ms
+        by_name[e.name[:100]] = by_name.get(e.name[:100], 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return dict(
+        traced_steps=steps, traced_wall_ms_per_step=wall_s * 1e3 / steps,
+        device_ms_per_step={k: v / steps for k, v in buckets.items()},
+        top_kernels_ms_per_step={k: v / steps for k, v in top},
+        device_busy_share=sum(buckets.values()) / (wall_s * 1e3),
+        device_ops_per_step=len(device) / steps,
+    )
+
+
+def vae_unsynced_ms(torch, path, steps: int = VAE_UNSYNCED) -> dict:
+    """Milliseconds a step of ``steps`` training steps run back to back on
+    batches read beforehand, with one sync at the end (no log between
+    steps, as in a run at the config's own log_every), with cuDNN's
+    deterministic switch on and off in turn on one trainer, after a block of
+    each to warm up: {"deterministic": [ms, ms], "default": [ms, ms]}."""
+    from dalle_mtf_tpu_torch.data.pipeline import vae_input_fn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_vae_task  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.trainer import Trainer, step_generator  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    params = fetch_model_params(path)
+    vae, init_fn, loss_fn, _ = make_vae_task(params, "cuda")
+    trainer = Trainer(params, init_fn, loss_fn, params["model_path"] + "_unsynced",
+                      vae.cfg.image_seq_len, "cuda")
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    data = iter(vae_input_fn(params))
+    batches = [next(data) for _ in range(steps)]
+    data.close()
+    before = torch.backends.cudnn.deterministic
+    out: dict[bool, list[float]] = {True: [], False: []}
+    step = 0
+    try:
+        for det in (True, False) * 3:
+            torch.backends.cudnn.deterministic = det
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for batch in batches:
+                state, metrics = trainer.train_step(state, batch, step_generator(0, 1, step))
+                step += 1
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            out[det].append((time.perf_counter() - t0) * 1e3 / steps)
+    finally:
+        torch.backends.cudnn.deterministic = before
+        trainer.close()
+    return {"deterministic": out[True][1:], "default": out[False][1:]}
+
+
+def pipeline_rate(pipeline, batch: int, batches: int = 8) -> float:
+    """Samples a second that ``pipeline`` alone yields (nothing else
+    running beside it) over ``batches`` batches after its first."""
+    it = iter(pipeline)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    seconds = time.perf_counter() - t0
+    it.close()
+    return batches * batch / seconds
+
+
+def vae_decode_rate(path, threads: int) -> float:
+    """Images a second that ``vae_input_fn`` alone yields on ``threads``
+    decode threads."""
+    from dalle_mtf_tpu_torch.data import pipeline as tpipe  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    params = fetch_model_params(path)
+    workers, tpipe.DECODE_WORKERS = tpipe.DECODE_WORKERS, threads
+    try:
+        pipeline = tpipe.vae_input_fn(params)
+    finally:
+        tpipe.DECODE_WORKERS = workers
+    return pipeline_rate(pipeline, params["train_batch_size"])
+
+
+def tokens_parse_rate(tmp: str) -> float:
+    """Records a second that ``dalle_input_fn`` alone yields (tokens mode,
+    its one parse thread) at TRAIN_CONFIG's shapes."""
+    from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import _configs  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    cfg, _ = _configs(fetch_model_params(TRAIN_CONFIG))
+    write_tokens_dataset(os.path.join(tmp, "data"), 0, cfg.image_seq_len, cfg.image_vocab_size)
+    params = fetch_model_params(train_config(tmp, 1))
+    return pipeline_rate(dalle_input_fn(params), params["train_batch_size"])
+
+
+def run_train_vae(path, *flags, trace=None, threads=None):
+    """``train_vae.main`` on config ``path`` (on cuda:0) with its training
+    stream wrapped in ``TimedBatches`` (``trace``: its traced window) and
+    the image pipelines decoding on ``threads`` threads (None:
+    DECODE_WORKERS): (the closed Trainer, the TimedBatches)."""
+    from dalle_mtf_tpu_torch import train_vae  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.data import pipeline as tpipe  # noqa: PLC0415
+
+    make_pipeline, workers = train_vae.vae_input_fn, tpipe.DECODE_WORKERS
+    streams: list[TimedBatches] = []
+
+    def timed_train_stream(params, eval=False, **kw):
+        pipeline = make_pipeline(params, eval=eval, **kw)
+        if eval or "skip_steps" not in kw:  # the eval and the summary pipelines
+            return pipeline
+        streams.append(TimedBatches(pipeline, trace))
+        return streams[-1]
+
+    train_vae.vae_input_fn, tpipe.DECODE_WORKERS = timed_train_stream, threads or workers
+    try:
+        return train_vae.main(["--model", path, *flags, "--gpu_ids", "0"]), streams[-1]
+    finally:
+        train_vae.vae_input_fn, tpipe.DECODE_WORKERS = make_pipeline, workers
+
+
+def vae_datasets(tmp: str, side: int) -> dict:
+    """Seeded JPEG tfrecords: 256 records of ``side``² (the phase's) and 128
+    at COCO sizes (``COCO_SIDES``): {label: pattern}."""
+    return {f"{side}x{side}": write_image_dataset(os.path.join(tmp, "square"), 3, [(side, side)]),
+            "coco": write_image_dataset(os.path.join(tmp, "coco"), 4, COCO_SIDES, per_file=32)}
+
+
+def vae_host_data(torch, tmp: str, patterns: dict, threads) -> dict:
+    """The host's image data on each count of decode threads in
+    ``threads`` for each dataset in ``patterns``: ``vae_input_fn``'s images
+    a second alone, then a VAE_DATA_STEPS-step ``train_vae.main`` run's
+    median step and data-wait share over steps VAE_DATA_FROM.. (the time in
+    ``next(data_iter)`` over the step time): {"<label> <threads>": {...}}."""
+    out = {}
+    for label, pattern in patterns.items():
+        for n in threads:
+            path = vae_config(tmp, pattern, f"{label}_{n}", train_steps=VAE_DATA_STEPS,
+                              steps_per_checkpoint=VAE_DATA_STEPS, eval_steps=0)
+            rate = vae_decode_rate(path, n)
+            trainer, stream = run_train_vae(path, "--new", "--yes", threads=n)
+            read = range(VAE_DATA_FROM, VAE_DATA_STEPS + 1)
+            step_s = [1.0 / trainer.history[s - 1]["steps_per_sec"] for s in read]
+            out[f"{label} {n}"] = dict(
+                decode_images_per_s=rate, step_s_median=statistics.median(step_s),
+                data_wait_share=sum(stream.waits[s - 1] for s in read) / sum(step_s),
+                data_wait_s=stream.waits)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"train_vae data {label}, {n} decode threads: alone {rate:.1f} images/s; in "
+                  f"training {out[f'{label} {n}']['step_s_median']:.4f} s a step, data wait "
+                  f"{out[f'{label} {n}']['data_wait_share']:.5f} of it", flush=True)
+    return out
+
+
+def phase_train_vae(torch, card) -> dict:
+    """Stage-1 VAE training: the values check in fp32 and bf16, then
+    configs/vae_coco_synth.json at full width (256 px, convblocks
+    [[2,128],[3,256],[5,512]], 2048 tokens, bf16, recompute_grad, batch 32,
+    temperature annealed 1 -> 0.2) on seeded JPEG tfrecords through
+    ``train_vae.main`` for VAE_STEPS steps (checkpoint, eval and image
+    summaries at VAE_CKPT and VAE_STEPS; steps VAE_TRACED_FROM.. traced in
+    the same loop), and a second ``main`` resumed from a copy of the
+    step-VAE_CKPT checkpoint to VAE_STEPS, which must repeat the unbroken
+    run's losses bit for bit (cuDNN's deterministic switch is on in this
+    phase, so no weight gradient is summed in a run-dependent order). Then
+    the host's data on one decode thread and on DECODE_WORKERS, at 256² and
+    at COCO sizes, the tokens pipeline's one thread alone, and the steps
+    run with no sync between them, deterministic switch on and off."""
+    import PIL  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.data.pipeline import DECODE_WORKERS  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.models.vae import VAEConfig  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.summaries import read_summaries  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vae_")
+    try:
+        values = {("bf16" if bf16 else "fp32"): vae_values(torch, bf16) for bf16 in (False, True)}
+        cfg = VAEConfig.from_params(fetch_model_params(VAE_CONFIG))
+        t0 = time.perf_counter()
+        patterns = vae_datasets(os.path.join(tmp, "data"), cfg.image_size)
+        pattern = patterns[f"{cfg.image_size}x{cfg.image_size}"]
+        path = vae_config(tmp, pattern, "whole")
+        print(f"train_vae: {VAE_CONFIG} image {cfg.image_size} convblocks {cfg.convblocks} "
+              f"tokens {cfg.num_tokens} bf16={cfg.use_bf16} recompute={cfg.recompute_grad}; "
+              f"256 JPEG records of {cfg.image_size}² and 128 of {COCO_SIDES} + config in "
+              f"{time.perf_counter() - t0:.1f}s (PIL {PIL.__version__})", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole, stream = run_train_vae(path, "--new", "--yes", trace=(VAE_TRACED_FROM, VAE_TRACED))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in whole.history]
+        if [h["step"] for h in whole.history] != list(range(1, VAE_STEPS + 1)):
+            raise AssertionError(f"logged steps {[h['step'] for h in whole.history]}")
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"the loss is not finite or did not fall: {losses}")
+        evals = whole.eval_history
+        if [e["step"] for e in evals] != [VAE_CKPT, VAE_STEPS]:
+            raise AssertionError(f"eval: {evals}")
+        for e in evals:
+            if not (all(math.isfinite(v) for v in e.values())
+                    and 1.0 < e["eval_codebook_perplexity"] <= cfg.num_tokens):
+                raise AssertionError(f"eval metrics: {e}")
+        if whole.checkpoint_steps() != [VAE_CKPT, VAE_STEPS]:
+            raise AssertionError(f"checkpoints {whole.checkpoint_steps()}")
+        tags = {(step, tag) for step, tag, v in read_summaries(whole.model_dir)
+                if isinstance(v, tuple) and v[:3] == (cfg.image_size, cfg.image_size, 3)}
+        want_tags = {(s, f"{n}/image/0") for s in (VAE_CKPT, VAE_STEPS)
+                     for n in ("input_image", "reconstruction_image")}
+        if not want_tags <= tags:
+            raise AssertionError(f"image summaries {sorted(tags)}, expected {sorted(want_tags)}")
+        split = vae_device_split(torch, stream.prof, VAE_TRACED, stream.window_s)
+        # untimed: the traced steps and the one after, whose next() stops the profiler
+        steady = [s for s in range(VAE_TIMED_FROM, VAE_STEPS + 1)
+                  if not VAE_TRACED_FROM <= s <= VAE_TRACED_FROM + VAE_TRACED]
+        step_s = [1.0 / whole.history[s - 1]["steps_per_sec"] for s in steady]
+        data_wait_share = sum(stream.waits[s - 1] for s in steady) / sum(step_s)
+        med = statistics.median(step_s)
+        print(f"train_vae: {VAE_STEPS} steps + 2 evals + 2 checkpoints in {wall:.1f}s; losses "
+              f"{[round(x, 5) for x in losses]}; evals {evals}; steps {VAE_TRACED_FROM}-"
+              f"{VAE_TRACED_FROM + VAE_TRACED - 1} traced: "
+              f"{split['traced_wall_ms_per_step']:.1f} ms a step, device busy "
+              f"{split['device_busy_share']:.3f}", flush=True)
+
+        # resume: a second main from a copy of the step-VAE_CKPT checkpoint
+        resume = vae_config(tmp, pattern, "resumed")
+        os.makedirs(os.path.join(tmp, "resumed", "checkpoints"))
+        shutil.copy(os.path.join(whole.ckpt_dir, f"ckpt_{VAE_CKPT}.pt"),
+                    os.path.join(tmp, "resumed", "checkpoints"))
+        del whole
+        gc.collect()
+        second, _ = run_train_vae(resume)
+        resumed = [h["step"] for h in second.history]
+        if resumed != list(range(VAE_CKPT + 1, VAE_STEPS + 1)):
+            raise AssertionError(f"resume logged steps {resumed}")
+        again = [h["loss"] for h in second.history]
+        print(f"train_vae: resumed at step {VAE_CKPT}: losses {[round(x, 5) for x in again]}; "
+              f"bit-equal to the unbroken run's: {again == losses[VAE_CKPT:]}", flush=True)
+        if again != losses[VAE_CKPT:]:
+            raise AssertionError("the resumed run does not repeat the unbroken run's losses "
+                                 f"bit for bit: {again} vs {losses[VAE_CKPT:]}")
+        del second
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        host_data = vae_host_data(torch, tmp, patterns, (1, DECODE_WORKERS))
+        tokens_rate = tokens_parse_rate(os.path.join(tmp, "tokens"))
+        unsynced = vae_unsynced_ms(torch, path)
+        print(f"train_vae: dalle_input_fn alone (tokens, one thread) {tokens_rate:.1f} records/s; "
+              f"{VAE_UNSYNCED} steps back to back, ms a step {unsynced}; {card}", flush=True)
+
+        flops = vae_flops(cfg, 32)
+        tflops = flops["tflop_per_step"] / med
+        line = dict(
+            phase="train_vae", card=card, config=VAE_CONFIG, batch=32,
+            image_size=cfg.image_size, convblocks=cfg.convblocks, num_tokens=cfg.num_tokens,
+            bf16=cfg.use_bf16, recompute_grad=cfg.recompute_grad, pil=PIL.__version__,
+            data="256 seeded JPEG tfrecords through train_vae.main",
+            timing="train_vae.main, log_every 1 (a sync every step), cudnn.deterministic",
+            steps_timed=len(step_s), step_s=step_s, step_s_median=med,
+            images_per_s=32 / med, **flops, tflops_per_s=tflops,
+            mfu=tflops / PEAK_BF16_TFLOPS, peak_gb=peak / 1e9,
+            decode_threads=DECODE_WORKERS, data_wait_share=data_wait_share,
+            data_wait_s=[stream.waits[s - 1] for s in steady],
+            first_loss=losses[0], last_loss=losses[-1], evals=evals, resume_bit_equal=True,
+            values={k: {n: v[n] for n in ("worst_rel", "worst_grad")} for k, v in values.items()},
+            **split, host_data=host_data, tokens_records_per_s=tokens_rate,
+            unsynced_ms_per_step=unsynced, phase_s=time.perf_counter() - t_phase,
+        )
+        print(json.dumps(line), flush=True)
+        return line
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+
 def ring_worker(argv) -> int:
     """``chip_smoke.py --ring-worker <checks|train> <out_dir> [argv...]``:
     one rank under ``torch.distributed.run``, for the ring phases."""
@@ -2378,6 +2881,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     long_launches, long_first_loss = phase_train_long(torch, attn, lnm, card, bhsd["dalle_4k"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_vae(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     ring_values = phase_ring_attention(torch, attn, card)

@@ -1,35 +1,71 @@
-"""Host input pipeline (port of ``dalle_mtf_tpu/data/pipeline.py``, the
-tokens-mode path).
+"""Host input pipeline (port of ``dalle_mtf_tpu/data/pipeline.py``): VAE
+image batches and tokens-mode DALLE batches.
 
-Files -> TFRecords -> parsed samples -> shuffle buffer -> batches, on a
+Files -> records -> parsed samples -> shuffle buffer -> batches, on a
 background prefetch thread. The stream is the JAX pipeline's, record for
 record: the same cycle-length interleave over the (seeded, shuffled) file
 list, the same 5x-batch shuffle buffer driven by ``random.Random(seed + 1)``,
 the same drop-remainder batching, and the same deterministic resume
 (``skip_steps``: the shuffle decisions are replayed on record indices and
-the trained prefix is skipped without parsing).
+the trained prefix is skipped without parsing). Image records (tfrecords or
+a jpg glob) are decoded by PIL (``decode_img``) on a pool of threads, in
+order.
 
-Not ported: image records (jpeg decode, the frozen-VAE image mode) and the
-native C++ reader and decode pool; records are read and parsed in Python.
+Not ported: the frozen-VAE image mode of DALLE data, and the native C++
+reader and decode pool (records are read in Python, images decoded by PIL).
 """
 
 from __future__ import annotations
 
+import io
 import logging
 import queue
 import random
 import threading
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
 
-from dalle_mtf_tpu_torch.data.fs import list_files
+from dalle_mtf_tpu_torch.data.fs import list_files, open_file
 from dalle_mtf_tpu_torch.data.tfrecord import parse_example, read_tfrecord_file
 
 logger = logging.getLogger(__name__)
 
 _SKIP_END = object()  # "record stream ended inside the resume prefix"
+# threads an image pipeline decodes on: one thread cannot keep up with
+# COCO-size photos at batch 32, and each thread more holds the GIL from the
+# training loop's dispatch (chip_smoke.py ``vae_host_data``; PERF.md §5)
+DECODE_WORKERS = 3
+
+
+def to_uint8(img: np.ndarray) -> np.ndarray:
+    """Round a normalized f32 image ([-1, 1]) back to uint8 pixels."""
+    return np.clip(np.round(img * 127.5 + 127.5), 0, 255).astype(np.uint8)
+
+
+def decode_img(data: bytes, size: int, channels: int = 3, normalize: bool = True) -> np.ndarray:
+    """jpeg bytes -> f32 [size, size, channels] in [-1, 1]: the centered
+    square crop, a bilinear resize and (x - 127.5) / 127.5 (PIL; the JAX
+    package's path without its native decoder). ``normalize=False`` returns
+    the uint8 pixels (``dataset.uint8_images``: the task normalizes on the
+    device with the same expression, so the values are the same)."""
+    from PIL import Image  # noqa: PLC0415
+
+    img = Image.open(io.BytesIO(data))
+    img = img.convert("RGB" if channels == 3 else "L")
+    w, h = img.size
+    side = min(w, h)
+    left, top = (w - side) // 2, (h - side) // 2
+    img = img.crop((left, top, left + side, top + side))
+    img = img.resize((size, size), Image.BILINEAR)
+    arr = np.asarray(img)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    if not normalize:
+        return arr.astype(np.uint8)
+    return (arr.astype(np.float32) - 127.5) / 127.5
 
 
 class _Pipeline:
@@ -47,6 +83,7 @@ class _Pipeline:
         repeat: bool = True,
         cycle_length: int = 4,
         skip_samples: int = 0,
+        num_workers: int = 1,
     ):
         if not files:
             raise FileNotFoundError("input pipeline got an empty file list")
@@ -58,6 +95,7 @@ class _Pipeline:
         self.seed = seed
         self.prefetch = prefetch
         self.repeat = repeat
+        self.num_workers = num_workers
         # parallel_interleave(cycle_length=4) (reference input_fns.py:87-92):
         # round-robin over N open files so a shuffle window sees several shards
         self.cycle_length = max(1, cycle_length)
@@ -109,10 +147,30 @@ class _Pipeline:
                 return
 
     def _samples(self, records: Iterator[Any] | None = None) -> Iterator[dict]:
-        for rec in self._records() if records is None else records:
-            sample = self.parse_fn(rec)
+        """Parsed samples in record order: on this thread, or with
+        ``num_workers`` > 1 on a pool of threads with 2x that many parses in
+        flight (the JAX pipeline's window). Tokens records parse on this
+        thread: one thread parses 20-30x what a DALLE step takes (PERF.md §5),
+        and a pool would only hold the GIL from the training loop."""
+        if records is None:
+            records = self._records()
+        if self.num_workers <= 1:
+            parsed = map(self.parse_fn, records)
+        else:
+            parsed = self._parallel(records)
+        for sample in parsed:
             if sample is not None:
                 yield sample
+
+    def _parallel(self, records: Iterator[Any]) -> Iterator[Any]:
+        with ThreadPoolExecutor(self.num_workers) as pool:
+            in_flight: deque = deque()
+            for rec in records:
+                in_flight.append(pool.submit(self.parse_fn, rec))
+                if len(in_flight) >= 2 * self.num_workers:
+                    yield in_flight.popleft().result()
+            while in_flight:
+                yield in_flight.popleft().result()
 
     def _resume_plan(self, n: int, buf_size: int, rng: random.Random) -> tuple[list[int], int]:
         """Replay the shuffle arithmetic on record INDICES to find the state
@@ -252,6 +310,50 @@ def _host_batch(global_batch: int, shard: tuple[int, int]) -> int:
     return global_batch // count
 
 
+def vae_input_fn(
+    params: Mapping[str, Any],
+    eval: bool = False,
+    shard: tuple[int, int] | None = None,
+    repeat: bool = True,
+    skip_steps: int = 0,
+) -> _Pipeline:
+    """Image batches for VAE training (input_fns.py:69-104):
+    ``{"image": f32[B, size, size, C] in [-1, 1]}``, or uint8 pixels with
+    ``dataset.uint8_images``. Tfrecords (their ``image`` feature) when
+    ``dataset.tfrecords`` is set, else a raw jpg glob. ``shard``: (index,
+    count) of this process, which reads files[index::count] and feeds
+    1/count of the batch. ``skip_steps``: resume point, that many
+    already-trained batches skipped exactly, without decoding them."""
+    ds = params["dataset"]
+    path = ds["eval_path"] if eval else ds["train_path"]
+    size = ds["image_size"]
+    channels = params.get("n_channels") or 3
+    shard = _resolve_shard(shard)
+    batch = _host_batch(params["eval_batch_size" if eval else "train_batch_size"], shard)
+    files = _shard_files(list_files(path), shard)
+    normalize = not ds.get("uint8_images")
+
+    if ds.get("tfrecords"):
+        def parse(record: bytes) -> dict:
+            ex = parse_example(record)
+            return {"image": decode_img(ex["image"][0], size, channels, normalize=normalize)}
+
+        read = read_tfrecord_file
+    else:
+        def read(path_: str):
+            yield path_
+
+        def parse(path_: str) -> dict:
+            with open_file(path_, "rb") as f:
+                return {"image": decode_img(f.read(), size, channels, normalize=normalize)}
+
+    return _Pipeline(
+        files, read, parse, batch, shuffle=not eval, repeat=repeat,
+        skip_samples=skip_steps * batch, cycle_length=ds.get("cycle_length") or 4,
+        num_workers=DECODE_WORKERS,
+    )
+
+
 def dalle_input_fn(
     params: Mapping[str, Any],
     eval: bool = False,
@@ -267,8 +369,8 @@ def dalle_input_fn(
     ds = params["dataset"]
     if not ds.get("tokens"):
         raise NotImplementedError(
-            "image-mode DALLE data (jpeg decode + the frozen VAE encoder) is "
-            "not ported yet; use a tokens dataset (dataset.tokens: true)"
+            "image-mode DALLE data (images through the frozen VAE encoder) "
+            "is not ported yet; use a tokens dataset (dataset.tokens: true)"
         )
     path = ds["eval_path"] if eval else ds["train_path"]
     shard = _resolve_shard(shard)

@@ -1,22 +1,35 @@
-"""Discrete VAE, decoder half (port of ``dalle_mtf_tpu/models/vae.py``):
-tokens -> pixels, the last stage of serving.
+"""Discrete (Gumbel-softmax) VAE, stage 1 of the two-stage system (port of
+``dalle_mtf_tpu/models/vae.py``): the encoder, the shared codebook, the
+decoder, the training forward and the token API.
 
 Public functions take and return NHWC, and parameters keep the JAX tree's
-names and HWIO conv kernels (``decoder/block_0/up/w [kh, kw, cin, cout]``);
-inside, activations run NCHW and kernels are permuted per call. The encoder
-arrives with VAE training.
+names and HWIO conv kernels (``encoder/block_0/down/w [kh, kw, cin, cout]``);
+inside, activations run NCHW and kernels are permuted per call.
+
+Precision. Under the fp32 policy the convolutions run in IEEE fp32 on the
+card: cuDNN's TF32 switch (``torch.backends.cudnn.allow_tf32``, on by
+default) is turned off around every conv, forward and backward
+(``_Conv``), whatever the process has set, so an fp32 VAE computes what its
+name says and agrees with the CPU to fp32 rounding. Under bf16 the switch
+does not apply. The codebook products (encoder logits, decoder input) are
+fp32 einsums at torch's default matmul precision, which is IEEE fp32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Mapping
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from dalle_mtf_tpu_torch.ops.gumbel import gumbel_softmax
+from dalle_mtf_tpu_torch.ops.losses import mse_loss
 from dalle_mtf_tpu_torch.utils.distributed import model_device
 from dalle_mtf_tpu_torch.utils.precision import Policy, get_policy
 
@@ -28,6 +41,7 @@ class VAEConfig:
     convblocks: tuple[tuple[int, int], ...]
     n_channels: int = 3
     stack_factor: int = 1
+    recompute_grad: bool = False
     use_bf16: bool = False
 
     @classmethod
@@ -48,6 +62,7 @@ class VAEConfig:
             convblocks=convblocks,
             n_channels=params.get("n_channels") or 3,
             stack_factor=params.get("stack_factor") or 1,
+            recompute_grad=bool(params.get("recompute_grad")),
             use_bf16=bool(params.get("use_bf16") or params.get("bf_16")),
         )
 
@@ -70,6 +85,45 @@ class VAEConfig:
         return get_policy(self.use_bf16)
 
 
+@contextlib.contextmanager
+def _conv_precision(dtype: torch.dtype):
+    """cuDNN's TF32 off for fp32 convs (the module's precision rule)."""
+    if dtype != torch.float32:
+        yield
+        return
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+class _Conv(torch.autograd.Function):
+    """``aten.convolution`` of NCHW ``x`` (no bias, dilation 1, one group)
+    with the forward and the backward both under ``_conv_precision``:
+    autograd would run the backward outside any context the forward set."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, padding: tuple[int, int], transposed: bool):
+        ctx.save_for_backward(x, w)
+        ctx.conf = ([stride, stride], list(padding), transposed)
+        stride_, padding_, _ = ctx.conf
+        with _conv_precision(x.dtype):
+            return torch.ops.aten.convolution(
+                x, w, None, stride_, padding_, [1, 1], transposed, [0, 0], 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, transposed = ctx.conf
+        with _conv_precision(x.dtype):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, padding, [1, 1], transposed, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None
+
+
 def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     """TF/XLA "SAME" padding (low, high) along one axis."""
     out = -(-size // stride)
@@ -78,14 +132,21 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
 
 
 def _conv(x, p, stride=1, compute_dtype=None):
-    """NCHW x, HWIO kernel, "SAME" padding (jax.lax.conv_general_dilated)."""
+    """NCHW x, HWIO kernel, "SAME" padding (jax.lax.conv_general_dilated):
+    even pads go to the conv itself, uneven ones (an odd size at stride 2)
+    through F.pad first."""
     dtype = compute_dtype or x.dtype
     w = p["w"].to(dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
     kh, kw = w.shape[-2:]
     ph = _same_pads(x.shape[-2], kh, stride)
     pw = _same_pads(x.shape[-1], kw, stride)
-    x = F.pad(x.to(dtype), (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, w, stride=stride) + p["b"].to(dtype)[:, None, None]
+    x = x.to(dtype)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        padding = (ph[0], pw[0])
+    else:
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        padding = (0, 0)
+    return _Conv.apply(x, w, stride, padding, False) + p["b"].to(dtype)[:, None, None]
 
 
 def _conv_transpose(x, p, stride=2, compute_dtype=None):
@@ -100,8 +161,16 @@ def _conv_transpose(x, p, stride=2, compute_dtype=None):
     if (kh, stride) != (4, 2):
         raise NotImplementedError("only the VAE's k=4, stride=2 up-conv is ported")
     w = p["w"].to(dtype).permute(2, 3, 0, 1).flip(-1, -2)
-    out = F.conv_transpose2d(x.to(dtype), w, stride=2, padding=1)
+    out = _Conv.apply(x.to(dtype), w, 2, (1, 1), True)
     return out + p["b"].to(dtype)[:, None, None]
+
+
+def space_to_depth(x, factor: int):
+    """NHWC [B, H, W, C] -> [B, H/f, W/f, C*f*f] (JAX layout)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // factor, factor, w // factor, factor, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // factor, w // factor, c * factor * factor)
 
 
 def depth_to_space(x, factor: int):
@@ -124,7 +193,7 @@ def _glorot_uniform(shape, generator):
 
 
 class DiscreteVAE(nn.Module):
-    """Decoder computation over an explicit parameter tree (see DALLE)."""
+    """The VAE's computation over an explicit parameter tree (see DALLE)."""
 
     def __init__(self, config: VAEConfig, device: torch.device | str = "cuda"):
         super().__init__()
@@ -132,26 +201,30 @@ class DiscreteVAE(nn.Module):
         self.device = model_device(device)
 
     def param_shapes(self) -> dict:
-        """Shapes of the tree the serving path reads: the codebook and the
-        decoder (the JAX tree also holds ``encoder``)."""
+        """Shapes of the JAX tree: ``encoder``, ``codebook``, ``decoder``."""
         cfg = self.cfg
 
         def conv(k, cin, cout):
             return {"w": (k, k, cin, cout), "b": (cout,)}
 
-        dec: dict = {}
-        cin = cfg.n_hid
-        for b, (stack, channels) in enumerate(reversed(cfg.convblocks)):
-            blk = {"up": conv(4, cin, channels)}
-            for i in range(1, stack):
-                blk[f"res_{i}"] = {
-                    "conv_in": conv(3, channels, channels),
-                    "conv_out": conv(3, channels, channels),
-                }
-            dec[f"block_{b}"] = blk
-            cin = channels
-        dec["final"] = conv(1, cin, cfg.n_channels * cfg.stack_factor ** 2)
-        return {"codebook": (cfg.n_hid, cfg.num_tokens), "decoder": dec}
+        def stack(first, k, cin, blocks):
+            tree: dict = {}
+            for b, (n, channels) in enumerate(blocks):
+                blk = {first: conv(k, cin, channels)}
+                for i in range(1, n):
+                    blk[f"res_{i}"] = {
+                        "conv_in": conv(3, channels, channels),
+                        "conv_out": conv(3, channels, channels),
+                    }
+                tree[f"block_{b}"] = blk
+                cin = channels
+            return tree, cin
+
+        pixels = cfg.n_channels * cfg.stack_factor ** 2
+        enc, _ = stack("down", 4, pixels, cfg.convblocks)
+        dec, cin = stack("up", 4, cfg.n_hid, tuple(reversed(cfg.convblocks)))
+        dec["final"] = conv(1, cin, pixels)
+        return {"encoder": enc, "codebook": (cfg.n_hid, cfg.num_tokens), "decoder": dec}
 
     def init(self, generator: torch.Generator) -> dict:
         """Glorot-uniform kernels and codebook, zero biases (vae.py:150-184,
@@ -171,11 +244,49 @@ class DiscreteVAE(nn.Module):
 
         return make(self.param_shapes())
 
-    def _res_block(self, p, x, compute_dtype):
-        out = F.relu(_conv(x, p["conv_in"], 1, compute_dtype))
-        return x + _conv(out, p["conv_out"], 1, compute_dtype)
+    def _res_block(self, p, x, compute_dtype, train: bool = False):
+        def fn(x_):
+            out = F.relu(_conv(x_, p["conv_in"], 1, compute_dtype))
+            return _conv(out, p["conv_out"], 1, compute_dtype)
 
-    def decoder(self, params, one_hot):
+        if self.cfg.recompute_grad and train and torch.is_grad_enabled():
+            # the reference's per-block activation recompute (jax.checkpoint)
+            return x + checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+        return x + fn(x)
+
+    # --------------------------------------------------------------- encoder
+
+    def _encode_conv(self, params, img, train: bool = False):
+        """Conv trunk of the encoder: image [B, H, W, C] in [-1, 1] ->
+        pre-codebook features [B, h, w, n_hid] fp32."""
+        cfg = self.cfg
+        dtype = cfg.policy.compute_dtype
+        x = img.to(dtype)
+        if cfg.stack_factor > 1:
+            x = space_to_depth(x, cfg.stack_factor)
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        for b, (stack, _channels) in enumerate(cfg.convblocks):
+            blk = params["encoder"][f"block_{b}"]
+            x = _conv(x, blk["down"], 2, dtype)
+            for i in range(1, stack):
+                x = self._res_block(blk[f"res_{i}"], x, dtype, train)
+        return x.float().permute(0, 2, 3, 1)  # NCHW -> NHWC
+
+    def encoder(self, params, img, train: bool = False):
+        """Image [B, H, W, C] in [-1, 1] -> logits [B, h, w, num_tokens],
+        the codebook product in fp32 (vae_tf/models.py:81-120)."""
+        x = self._encode_conv(params, img, train)
+        return torch.einsum("bhwc,ct->bhwt", x, params["codebook"].float())
+
+    def encoder_features(self, params, img):
+        """Pooled pre-codebook features [B, n_hid]: the spatial mean over the
+        token grid, the embedding the eval's Fréchet feature distance
+        compares real and reconstructed images in."""
+        return self._encode_conv(params, img).mean(dim=(1, 2))
+
+    # --------------------------------------------------------------- decoder
+
+    def decoder(self, params, one_hot, train: bool = False):
         """Token distribution [B, h, w, num_tokens] -> image [B, H, W, C]
         fp32 (vae_tf/models.py:123-163: codebook^T matmul in fp32, mirrored
         transpose-conv stacks, final 1x1 conv, depth_to_space)."""
@@ -187,12 +298,32 @@ class DiscreteVAE(nn.Module):
             blk = params["decoder"][f"block_{b}"]
             x = _conv_transpose(x, blk["up"], 2, dtype)
             for i in range(1, stack):
-                x = self._res_block(blk[f"res_{i}"], x, dtype)
+                x = self._res_block(blk[f"res_{i}"], x, dtype, train)
         x = _conv(x, params["decoder"]["final"], 1, dtype)
         x = x.float().permute(0, 2, 3, 1)  # NCHW -> NHWC
         if cfg.stack_factor > 1:
             x = depth_to_space(x, cfg.stack_factor)
         return x
+
+    # --------------------------------------------------------------- forward
+
+    def forward(self, params, img, generator: torch.Generator, temperature=1.0,
+                hard_gumbel: bool = True, train: bool = False):
+        """Full autoencode: (reconstruction MSE, reconstruction [B, H, W, C]
+        fp32 on the input's [-1, 1] scale). The Gumbel noise is drawn from
+        ``generator`` (``ops/gumbel.py``)."""
+        logits = self.encoder(params, img, train)
+        soft_one_hot = gumbel_softmax(generator, logits, temperature, hard=hard_gumbel)
+        out = self.decoder(params, soft_one_hot, train)
+        return mse_loss(img.to(out.dtype), out), out
+
+    # ------------------------------------------------------------- token API
+
+    def encode_tokens(self, params, img):
+        """Image -> hard token ids [B, image_seq_len] int32: the argmax over
+        the encoder logits (reference model_fns.py:72-77)."""
+        tokens = self.encoder(params, img).argmax(dim=-1)
+        return tokens.reshape(tokens.shape[0], -1).int()
 
     def decode_tokens(self, params, tokens):
         """Token ids [B, image_seq_len] -> images [B, H, W, C] in [0, 1]."""
@@ -202,3 +333,17 @@ class DiscreteVAE(nn.Module):
             tokens.reshape(b, g, g).long(), self.cfg.num_tokens
         ).float()
         return (self.decoder(params, one_hot) + 1.0) / 2.0
+
+
+def temperature_schedule(params: Mapping[str, Any], step: int) -> float:
+    """Gumbel temperature at ``step``, in float32 like the JAX schedule
+    (model_fns_tf.py:40-45): linear from temp_start to temp over
+    temp_anneal_steps, else the constant temp (default 1.0)."""
+    f32 = np.float32
+    anneal_steps = params.get("temp_anneal_steps")
+    if anneal_steps:
+        frac = min(f32(step) / f32(anneal_steps), f32(1.0))
+        start = params["temp_start"]
+        return float(f32(start) - frac * f32(start - params["temp"]))
+    temp = params.get("temp")
+    return float(f32(1.0 if temp is None else temp))

@@ -27,10 +27,8 @@ import base64
 import json
 import logging
 import queue
-import struct
 import threading
 import time
-import zlib
 from collections import deque
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FuturesTimeoutError
@@ -38,6 +36,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+from dalle_mtf_tpu_torch.utils.png import encode_png
 
 logger = logging.getLogger(__name__)
 
@@ -582,24 +582,9 @@ class ContinuousBatchingSampler:
 
 # ------------------------------------------------------------------- HTTP
 
-def _png_chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
 def _png_b64(img: np.ndarray) -> str:
-    """[H, W, 3] floats in [0, 1] -> base64 of an 8-bit RGB PNG, written
-    with the standard library alone (zlib + struct)."""
-    arr = np.clip(img * 255.0, 0, 255).astype(np.uint8)
-    h, w, _c = arr.shape
-    raw = b"".join(b"\x00" + arr[y].tobytes() for y in range(h))  # filter 0
-    png = (
-        b"\x89PNG\r\n\x1a\n"
-        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-        + _png_chunk(b"IDAT", zlib.compress(raw))
-        + _png_chunk(b"IEND", b"")
-    )
-    return base64.b64encode(png).decode()
+    """[H, W, 3] floats in [0, 1] -> base64 of an 8-bit RGB PNG."""
+    return base64.b64encode(encode_png(img)).decode()
 
 
 def make_server(sampler: BatchingSampler | ContinuousBatchingSampler,

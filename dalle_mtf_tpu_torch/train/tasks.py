@@ -1,11 +1,17 @@
-"""Task definitions binding the DALLE model to the Trainer (port of
+"""Task definitions binding the models to the Trainer (port of
 ``dalle_mtf_tpu/train/tasks.py``): model construction from a config, and
 the train and eval losses over (params, frozen_params, batch, generator,
 step).
 
-Only the tokens mode is ported: batches carry pre-tokenized image ids
-(``{"tokens", "caption"}``). The image mode, which runs the frozen VAE
-encoder on pixels inside the loss, waits for the VAE encoder and raises.
+- ``make_vae_task``: stage 1, on image batches ``{"image"}`` (f32 in
+  [-1, 1], or uint8 normalized on the device), with the annealed Gumbel
+  temperature and the eval's PSNR, codebook perplexity and Fréchet feature
+  distance.
+- ``make_dalle_task``: stage 2 in the tokens mode only: batches carry
+  pre-tokenized image ids (``{"tokens", "caption"}``). The image mode, which
+  runs the frozen VAE's encoder on pixels inside the loss, needs the
+  restore of a trained VAE into the frozen tree, which is not ported, and
+  raises.
 """
 
 from __future__ import annotations
@@ -15,8 +21,66 @@ from typing import Any, Mapping
 import torch
 
 from dalle_mtf_tpu_torch.models.dalle import DALLE, DalleConfig
-from dalle_mtf_tpu_torch.models.vae import DiscreteVAE, VAEConfig
-from dalle_mtf_tpu_torch.ops.losses import softmax_cross_entropy_with_logits
+from dalle_mtf_tpu_torch.models.vae import DiscreteVAE, VAEConfig, temperature_schedule
+from dalle_mtf_tpu_torch.ops.losses import (
+    frechet_feature_distance,
+    softmax_cross_entropy_with_logits,
+)
+
+
+def _image(batch) -> torch.Tensor:
+    """Batch images in the compute range [-1, 1]: f32 batches pass through
+    (normalized on the host); uint8 batches (``dataset.uint8_images``, a 4x
+    smaller host-to-device copy) are normalized here, on the device, with
+    the host's (x - 127.5) / 127.5 in f32, so the values are the same."""
+    x = batch["image"]
+    if x.dtype == torch.uint8:
+        return (x.float() - 127.5) / 127.5
+    return x
+
+
+def make_vae_task(params: Mapping[str, Any], device: torch.device | str):
+    """Returns (vae, init_fn, train_loss_fn, eval_loss_fn) for stage 1
+    (model_fns_tf.py:9-66): the Gumbel temperature annealed by the step,
+    the sample soft or hard in training and in eval as the config says
+    (``train_gumbel_hard``, ``eval_gumbel_hard``; default hard)."""
+    cfg = VAEConfig.from_params(params)
+    vae = DiscreteVAE(cfg, device)
+    train_hard = params.get("train_gumbel_hard")
+    train_hard = True if train_hard is None else bool(train_hard)
+    eval_hard = params.get("eval_gumbel_hard")
+    eval_hard = True if eval_hard is None else bool(eval_hard)
+
+    def train_loss(p, _frozen, batch, generator, step):
+        loss, _recon = vae.forward(p, _image(batch), generator,
+                                   temperature_schedule(params, step), train_hard, train=True)
+        return loss, {}
+
+    def eval_loss(p, _frozen, batch, generator, step):
+        """The loss and the JAX package's quality metrics: PSNR of the
+        reconstruction (on the [-1, 1] scale, peak 2), the codebook
+        perplexity (exp of the entropy of the hard tokens' usage; collapse
+        shows as perplexity << num_tokens) and the Fréchet feature distance
+        between real and reconstructed images in the encoder's pooled
+        feature space."""
+        img = _image(batch)
+        loss, recon = vae.forward(p, img, generator, temperature_schedule(params, step),
+                                  eval_hard, train=False)
+        mse = torch.mean(torch.square(img.float() - recon))
+        psnr = 10.0 * torch.log10(4.0 / torch.clamp_min(mse, 1e-10))
+        tokens = vae.encode_tokens(p, img)
+        counts = torch.bincount(tokens.reshape(-1).long(), minlength=cfg.num_tokens).float()
+        probs = counts / torch.clamp_min(counts.sum(), 1.0)
+        entropy = -torch.sum(torch.where(probs > 0, probs * torch.log(probs), 0.0))
+        ffd = frechet_feature_distance(vae.encoder_features(p, img),
+                                       vae.encoder_features(p, recon))
+        return loss, {
+            "psnr": psnr,
+            "codebook_perplexity": torch.exp(entropy),
+            "frechet_feature_distance": ffd,
+        }
+
+    return vae, vae.init, train_loss, eval_loss
 
 
 def _configs(params: Mapping[str, Any]) -> tuple[DalleConfig, VAEConfig]:
@@ -59,8 +123,9 @@ def make_dalle_task(params: Mapping[str, Any], device: torch.device | str, mesh=
     def tokens_of(_frozen, batch):
         if "tokens" not in batch:
             raise NotImplementedError(
-                "image-mode batches need the frozen VAE encoder, which is not "
-                "ported yet; use a tokens dataset (dataset.tokens: true)"
+                "image-mode batches need a trained VAE restored as the frozen "
+                "encoder, which is not ported yet; use a tokens dataset "
+                "(dataset.tokens: true)"
             )
         # record ids are raw codebook ids; the text-vocab offset applies here
         img_tokens = batch["tokens"].long() + cfg.text_vocab_size

@@ -16,8 +16,9 @@ restores. Kept from the JAX loop:
 - metrics ``loss``, ``grad_norm`` (before clipping), ``lr`` and the task's
   aux losses, fetched only on log steps;
 - checkpoints every ``steps_per_checkpoint`` and at ``train_steps``, with
-  ``max_to_keep`` retention, atomic writes, restore of the latest, and an
-  eval over ``eval_steps`` batches at each checkpoint;
+  ``max_to_keep`` retention, atomic writes, restore of the latest, an eval
+  over ``eval_steps`` batches at each checkpoint, and then the caller's
+  ``summary_fn(trainer, state, step)`` (the VAE's image summaries);
 - a data stream that runs out between checkpoints saves its tail.
 
 Checkpoints are ``torch.save`` files ``<model_dir>/checkpoints/ckpt_<step>.pt``
@@ -257,9 +258,11 @@ class Trainer:
         data_iter: Iterator[Any],
         seed: int,
         eval_data_iter: Iterator[Any] | None = None,
+        summary_fn: Callable[["Trainer", dict, int], None] | None = None,
     ) -> dict:
         """Train until ``train_steps``, checkpointing and resuming from the
-        latest checkpoint."""
+        latest checkpoint; ``summary_fn(self, state, step)`` runs after each
+        checkpoint's eval."""
         p = self.params
         train_steps = p["train_steps"]
         steps_per_ckpt = p.get("steps_per_checkpoint") or 1000
@@ -299,6 +302,8 @@ class Trainer:
                 last_saved = step
                 if eval_steps and eval_data_iter is not None:
                     self._evaluate(state, step, seed, eval_data_iter, eval_steps)
+                if summary_fn is not None:
+                    summary_fn(self, state, step)
                 # the next log window times training steps only
                 t0, window_start = time.perf_counter(), step
         if data_done and step > start and last_saved != step:

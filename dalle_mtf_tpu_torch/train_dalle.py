@@ -15,8 +15,10 @@ over the ``batch_dim`` axis and, with ``attention_type`` "ring" or
 (``utils/distributed.py`` picks each rank's device and the backend).
 
 The config must be a tokens-mode DALLE config (``dataset.tokens: true``:
-records carry VAE token ids, so no VAE weights are loaded); the image mode
-needs the VAE encoder, which is not ported yet. Training resumes from the
+records carry VAE token ids, so no VAE weights are loaded). The image mode
+runs the frozen VAE's encoder (``models/vae.py``, trained by ``train_vae``)
+on the pixels, and needs that VAE restored from its checkpoint into the
+frozen tree, which is not ported yet, so it raises. Training resumes from the
 latest checkpoint in ``model_path``, and the data stream skips the batches
 already trained on. ``--new`` wipes ``model_path`` first (asking unless
 ``--yes``). Training runs on ``cuda:<first --gpu_ids>``, else on
@@ -85,8 +87,9 @@ def _train(args, proc) -> Trainer:
         raise NotImplementedError("predict_steps (sampling at checkpoints) is not ported yet")
     if not params["dataset"].get("tokens"):
         raise NotImplementedError(
-            "image-mode training needs the frozen VAE encoder, which is not "
-            "ported yet; use a tokens dataset (dataset.tokens: true)"
+            "image-mode training needs a trained VAE restored as the frozen "
+            "encoder, which is not ported yet; use a tokens dataset "
+            "(dataset.tokens: true)"
         )
     setup_logging(params["config_name"] or args.model, rank=proc.rank)
     # the ranks' layout; TP and PP layouts raise here at world size > 1

@@ -77,8 +77,8 @@ def dalle_params_from_numpy(tree, dalle) -> dict:
 
 def vae_params_from_numpy(tree, vae) -> dict:
     """A VAE parameter tree of numpy arrays -> torch tensors on
-    ``vae.device``, checked against the codebook and decoder ``vae`` reads
-    (an ``encoder`` subtree is carried along unchecked)."""
+    ``vae.device``, after checking every name and shape of the whole tree
+    (``encoder``, ``codebook``, ``decoder``) against ``vae``."""
     _check(tree, vae.param_shapes())
     return _to_torch(tree, vae.device)
 

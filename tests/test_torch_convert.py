@@ -43,9 +43,9 @@ def test_jax_trees_load_with_their_names_and_shapes():
     vm = tvae.DiscreteVAE(tvae.VAEConfig(**VKW), "cpu")
     tv = convert.vae_params_from_numpy(jv, vm)
     assert _paths(tv)["decoder/block_0/up/w"] == (4, 4, 8, 8)
-    # the serving tree is exactly the JAX tree without its encoder
-    jv_serving = {k: v for k, v in jv.items() if k != "encoder"}
-    assert _paths(vm.init(torch.Generator().manual_seed(0))) == _paths(jv_serving)
+    # the port's tree is exactly the JAX tree, its encoder included
+    assert _paths(tv)["encoder/block_1/res_1/conv_out/w"] == (3, 3, 8, 8)
+    assert _paths(vm.init(torch.Generator().manual_seed(0))) == _paths(jv)
 
 
 def test_npz_roundtrip_keeps_values_and_widens_bf16(tmp_path):
@@ -152,6 +152,8 @@ def test_port_never_imports_jax():
         "quantize", "ops.decode_matmul", "sample", "serve", "serve_dalle",
         # unpacked and long-sequence training
         "ops.layer_norm",
+        # stage-1 VAE training
+        "ops.gumbel", "models.vae", "train_vae", "utils.png",
     ]
     code = (
         "import pkgutil, sys, dalle_mtf_tpu_torch as p\n"

@@ -1009,3 +1009,41 @@ def test_fp32_rows_that_see_only_themselves(cuda, s, window):
     assert dq.abs().max().item() <= 1e-5 and dk.abs().max().item() <= 1e-5
     ok, err = _tile_close(dv, g, 1e-5)
     assert ok, err
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_vae_step_on_the_card_matches_the_cpu(cuda, bf16):
+    """One training step (loss, every grad) and one eval step (loss, PSNR,
+    codebook perplexity, Fréchet feature distance) of a small VAE (64 px,
+    convblocks ((1, 32), (2, 64)), 256 tokens, batch 4) on the card against
+    the CPU, same weights, images and Gumbel draw: chip_smoke.py's values
+    check, with its bounds (1e-4 relative in fp32, the convs in IEEE fp32;
+    2e-2 in bf16)."""
+    values = _chip_smoke().vae_values(torch, bf16)
+    assert values["worst_rel"] <= (2e-2 if bf16 else 1e-4)
+
+
+def test_vae_fp32_convs_ignore_the_tf32_switch(cuda):
+    """The VAE's fp32 convs run in IEEE fp32 whatever cuDNN's TF32 switch
+    says, forward and backward, and leave the switch as it was."""
+    from dalle_mtf_tpu_torch.models import vae as tvae
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 64, 32, 32, generator=gen)
+    p = {"w": torch.randn(3, 3, 64, 64, generator=gen) / 24, "b": torch.zeros(64)}
+    grads = {}
+    for device in ("cpu", "cuda"):
+        xd = x.to(device).clone().requires_grad_(True)
+        pd = {k: v.to(device).clone().requires_grad_(True) for k, v in p.items()}
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            out = tvae._conv(xd, pd, 1)
+            out.square().sum().backward()
+            assert torch.backends.cudnn.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+        grads[device] = [t.detach().cpu() for t in (out, xd.grad, pd["w"].grad)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        ok, err = _close(got, want, 1e-5)
+        assert ok, err
