@@ -145,6 +145,25 @@ Phases, none of them optional:
    "train_vae" line holds step s, images/s, MFU, peak memory, the device's
    busy share and ms by bucket from the traced steps, and the data-wait
    shares.
+   Then DALLE in image mode, ``phase_train_image``, the two-stage flow on
+   the VAE phase's step-30 checkpoint (the same packed attention pair as
+   the tokens mode; the frozen encoder's convs are cuDNN): a small fp32
+   image-mode step (2 layers of 256, the values VAE, uint8 pixels) on the
+   card against the CPU (the pixels' normalization bit-equal to the host's,
+   the tokens equal, loss atol 1e-4, grads within relative L2 1e-2, the
+   packed pair's launches counted); configs/dalle_coco_synth.json as
+   published (image mode: no ``dataset.tokens``, the frozen vae_coco_synth
+   restored from that checkpoint; full width and depth, batch 16, bf16) on
+   256 seeded JPEG + caption tfrecords at 256² through ``train_dalle.main``
+   for 8 steps with an eval and a checkpoint and a resumed ``main`` for 2
+   more, with the tokens-mode run's checks and exact launches; the
+   ``uint8_images: true`` arm from the same init (first loss bit-equal);
+   ``create_tfrecords encode`` of the same records (batch 16; at least 99%
+   of its tokens agree with the in-step encode) and tokens mode on them
+   (first loss within 1e-3 of image mode's); the encoder's ms a step by
+   CUDA events and a profile of two steps with its convs as a bucket; its
+   "train_image" line holds step s, tokens/s, MFU with the encoder's FLOPs
+   beside it, peak memory, the data-wait share and the uint8 arm's step.
 5. Serving slice: configs/dalle_coco.json at full width and depth with
    weights from a seed. Banded prefill logits on the card against the port's
    plain path on the CPU in fp32 (same weights); then the HTTP server
@@ -180,13 +199,14 @@ Phases, none of them optional:
 ``chip_smoke.py --ring-worker <checks|train> ...`` is one rank of the ring
 phases, started by them through ``torch.distributed.run``.
 
-Prints "kernel", "train" and "batch" JSON lines, then the kernel report as one
-JSON line (with each kernel's least time on the card, ``bound_ms``, and one
-PyTorch call's time for the same function, ``library_ms``), the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
-raises, so the exit code is non-zero and no result is printed. fp32 matmuls
-and convs run in full fp32 here (TF32 off), so fp32 comparisons are like for
-like.
+Prints "kernel", "train", "train_vae", "train_image" and "batch" JSON lines,
+then the kernel report as one JSON line (with each kernel's least time on the
+card, ``bound_ms``, one PyTorch call's time for the same function,
+``library_ms``, and on rows 1-2 the image-mode run's launches,
+``image_mode_launches``), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
+is non-zero and no result is printed. fp32 matmuls and convs run in full
+fp32 here (TF32 off), so fp32 comparisons are like for like.
 """
 
 from __future__ import annotations
@@ -1049,6 +1069,29 @@ def train_config(tmp: str, train_steps: int, name: str = TRAIN_CONFIG,
     return path
 
 
+def check_dalle_run(trainer, steps: list[int], evals: list[int], launches: dict,
+                    want: dict) -> list[float]:
+    """The checks of a DALLE training run: the logged steps, finite losses
+    and grad norms, the evals and the checkpoint at ``evals``, and exactly
+    ``want`` kernel launches (every other attention kernel none). Returns
+    the losses."""
+    losses = [h["loss"] for h in trainer.history]
+    if [h["step"] for h in trainer.history] != steps:
+        raise AssertionError(f"logged steps {[h['step'] for h in trainer.history]}, "
+                             f"expected {steps}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in trainer.history):
+        raise AssertionError(f"non-finite loss or grad_norm: {trainer.history}")
+    got = [e["step"] for e in trainer.eval_history]
+    if got != evals or not all(math.isfinite(v) for e in trainer.eval_history for v in e.values()):
+        raise AssertionError(f"eval: {trainer.eval_history}, expected at {evals}")
+    if trainer.checkpoint_steps() != steps[-1:]:
+        raise AssertionError(f"checkpoints {trainer.checkpoint_steps()}")
+    if launches != {n: want.get(n, 0) for n in launches}:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    return losses
+
+
 def phase_train(torch, attn, card, kernel_rows):
     """The training main path through train_dalle.main, then a profiled
     window of steps. Returns the launch counts of the main path's run."""
@@ -1067,8 +1110,7 @@ def phase_train(torch, attn, card, kernel_rows):
         names = ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
 
         torch.cuda.reset_peak_memory_stats()
-        for key in attn.KERNEL_LAUNCHES:
-            attn.KERNEL_LAUNCHES[key] = 0
+        reset_counts(attn)
         t0 = time.perf_counter()
         first = train_dalle.main(["--model", path, "--new", "--yes", "--gpu_ids", "0"])
         torch.cuda.synchronize()
@@ -1076,39 +1118,26 @@ def phase_train(torch, attn, card, kernel_rows):
         launches = dict(attn.KERNEL_LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         evals = first.eval_history
-        want = {names[0]: cfg.n_layers * (TRAIN_STEPS + len(evals)),
-                names[1]: cfg.n_layers * TRAIN_STEPS}
-        losses = [h["loss"] for h in first.history]
-        if [h["step"] for h in first.history] != list(range(1, TRAIN_STEPS + 1)):
-            raise AssertionError(f"logged steps {[h['step'] for h in first.history]}")
+        losses = check_dalle_run(first, list(range(1, TRAIN_STEPS + 1)), [TRAIN_STEPS], launches,
+                                 {names[0]: cfg.n_layers * (TRAIN_STEPS + 1),
+                                  names[1]: cfg.n_layers * TRAIN_STEPS})
         # at init the logits are ~N(0, n_embd * 0.02^2) (unit-variance LN
         # output times w_out of std 0.02), so E[loss] = ln(vocab) + var / 2
         init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
         if abs(losses[0] - init_loss) > 0.1:
             raise AssertionError(f"first loss {losses[0]} vs ln(vocab) + var/2 = {init_loss}")
-        if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-                   for h in first.history):
-            raise AssertionError(f"non-finite loss or grad_norm: {first.history}")
-        if [e["step"] for e in evals] != [TRAIN_STEPS] or not math.isfinite(evals[0]["eval_loss"]):
-            raise AssertionError(f"eval: {evals}")
-        if first.checkpoint_steps() != [TRAIN_STEPS]:
-            raise AssertionError(f"checkpoints {first.checkpoint_steps()}")
-        if {n: launches[n] for n in names} != want or launches["causal_attention_fwd"]:
-            raise AssertionError(f"kernel launches {launches}, expected {want}")
         step_s = [1.0 / h["steps_per_sec"] for h in first.history[TIMED_FROM - 1:]]
         med = statistics.median(step_s)
         tokens_per_step = first.batch_size * cfg.total_seq_len
 
         # resume: a second main continues from the checkpoint
         path = train_config(tmp, TRAIN_STEPS + RESUME_STEPS)
-        for key in attn.KERNEL_LAUNCHES:
-            attn.KERNEL_LAUNCHES[key] = 0
+        reset_counts(attn)
         second = train_dalle.main(["--model", path, "--gpu_ids", "0"])
-        resumed = [h["step"] for h in second.history]
-        if resumed != list(range(TRAIN_STEPS + 1, TRAIN_STEPS + RESUME_STEPS + 1)):
-            raise AssertionError(f"resume logged steps {resumed}")
-        if attn.KERNEL_LAUNCHES[names[1]] != cfg.n_layers * RESUME_STEPS:
-            raise AssertionError(f"resume launches {attn.KERNEL_LAUNCHES}")
+        end = TRAIN_STEPS + RESUME_STEPS
+        check_dalle_run(second, list(range(TRAIN_STEPS + 1, end + 1)), [end],
+                        dict(attn.KERNEL_LAUNCHES), {names[0]: cfg.n_layers * (RESUME_STEPS + 1),
+                                                     names[1]: cfg.n_layers * RESUME_STEPS})
         print(f"train: {TRAIN_STEPS} steps + eval + checkpoint in {wall:.1f}s; losses "
               f"{[round(x, 4) for x in losses]}; eval {evals[0]}; resumed at step "
               f"{TRAIN_STEPS}: losses {[round(h['loss'], 4) for h in second.history]}; "
@@ -1136,10 +1165,15 @@ def phase_train(torch, attn, card, kernel_rows):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def profile_steps(torch, path, cfg, steps: int = 2) -> dict:
+ENCODER_WORDS = ("fprop", "implicit_convolve", "conv2d", "convolution", "cudnn",
+                 "nchwtonhwc", "nhwctonchw")  # the frozen VAE's convs and their layout copies
+
+
+def profile_steps(torch, path, cfg, steps: int = 2, frozen=None) -> dict:
     """Device time of ``steps`` training steps under torch.profiler, split
-    into the attention kernels, the LN kernels, matmuls and the rest (with
-    the rest's largest kernels by name)."""
+    into the attention kernels, the LN kernels, the frozen VAE encoder's
+    convs (image mode: ``frozen`` holds its parameters), matmuls and the rest
+    (with the rest's largest kernels by name)."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn  # noqa: PLC0415
@@ -1149,9 +1183,9 @@ def profile_steps(torch, path, cfg, steps: int = 2) -> dict:
 
     params = fetch_model_params(path)
     params["padding_id"] = 50257
-    _, init_fn, loss_fn, _ = make_dalle_task(params, "cuda")
+    _, _, init_fn, loss_fn, _ = make_dalle_task(params, "cuda")
     trainer = Trainer(params, init_fn, loss_fn, params["model_path"] + "_profile",
-                      cfg.total_seq_len, "cuda")
+                      cfg.total_seq_len, "cuda", frozen_params=frozen)
     state = trainer.init_state(torch.Generator().manual_seed(0))
     data = iter(dalle_input_fn(params))
     state, _ = trainer.train_step(state, next(data), step_generator(0, 1, 0))
@@ -1165,7 +1199,8 @@ def profile_steps(torch, path, cfg, steps: int = 2) -> dict:
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    buckets = {"attn_fwd": 0.0, "attn_bwd": 0.0, "ln": 0.0, "matmul": 0.0, "other": 0.0}
+    buckets = {"attn_fwd": 0.0, "attn_bwd": 0.0, "ln": 0.0, "vae_encoder_convs": 0.0,
+               "matmul": 0.0, "other": 0.0}
     others: dict[str, float] = {}
     # kernels and copies only: user-annotation ranges (Optimizer.step#...)
     # also show on the device timeline and would count their kernels twice
@@ -1179,6 +1214,8 @@ def profile_steps(torch, path, cfg, steps: int = 2) -> dict:
             key = "attn_bwd"
         elif "layer_norm" in name:
             key = "ln"
+        elif any(w in name for w in ENCODER_WORDS):
+            key = "vae_encoder_convs"
         elif any(w in name for w in ("gemm", "cutlass", "xmma", "sm90_", "nvjet")):
             key = "matmul"
         else:
@@ -1234,27 +1271,15 @@ def phase_train_long(torch, attn, lnm, card, kernel_rows):
         launches = {**attn.KERNEL_LAUNCHES, **lnm.KERNEL_LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
         evals = run.eval_history
-        passes = LONG_STEPS + len(evals)  # eval_steps 1: one batch per eval
+        passes = LONG_STEPS + 1  # eval_steps 1: one batch per eval
         n_ln = 2 * cfg.n_layers + 1
-        want = {"causal_attention_fwd": cfg.n_layers * passes,
-                "causal_attention_bwd": cfg.n_layers * LONG_STEPS,
-                "causal_attention_packed_fwd": 0, "causal_attention_packed_bwd": 0,
-                "layer_norm_fwd": n_ln * passes, "layer_norm_bwd": n_ln * LONG_STEPS}
-        losses = [h["loss"] for h in run.history]
-        if [h["step"] for h in run.history] != list(range(1, LONG_STEPS + 1)):
-            raise AssertionError(f"logged steps {[h['step'] for h in run.history]}")
+        losses = check_dalle_run(run, list(range(1, LONG_STEPS + 1)), [LONG_STEPS], launches, {
+            "causal_attention_fwd": cfg.n_layers * passes,
+            "causal_attention_bwd": cfg.n_layers * LONG_STEPS,
+            "layer_norm_fwd": n_ln * passes, "layer_norm_bwd": n_ln * LONG_STEPS})
         init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
         if abs(losses[0] - init_loss) > 0.1:
             raise AssertionError(f"first loss {losses[0]} vs ln(vocab) + var/2 = {init_loss}")
-        if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-                   for h in run.history):
-            raise AssertionError(f"non-finite loss or grad_norm: {run.history}")
-        if [e["step"] for e in evals] != [LONG_STEPS] or not math.isfinite(evals[0]["eval_loss"]):
-            raise AssertionError(f"eval: {evals}")
-        if run.checkpoint_steps() != [LONG_STEPS]:
-            raise AssertionError(f"checkpoints {run.checkpoint_steps()}")
-        if launches != want:
-            raise AssertionError(f"kernel launches {launches}, expected {want}")
         step_s = [1.0 / h["steps_per_sec"] for h in run.history[LONG_TIMED_FROM - 1:]]
         med = statistics.median(step_s)
         tokens_per_step = run.batch_size * cfg.total_seq_len
@@ -2401,10 +2426,14 @@ def vae_values(torch, bf16: bool) -> dict:
     return dict(card=gm, cpu=cm, worst_rel=max(rel.values()), worst_grad=grad_err)
 
 
-def write_image_dataset(root: str, seed: int, sides, files: int = 4, per_file: int = 64) -> str:
+def write_image_dataset(root: str, seed: int, sides, files: int = 4, per_file: int = 64,
+                        captions: bool = False) -> str:
     """JPEG tfrecords of images drawn from ``seed``, (width, height) taken
     from ``sides`` in turn: a random 8 x 8 colour field, bilinearly
-    upsampled, plus noise (a VAE can learn it, so the loss falls)."""
+    upsampled, plus noise (a VAE can learn it, so the loss falls). With
+    ``captions``, each record also carries 5-63 caption ids drawn from a
+    generator of its own, so the images are those of the same seed
+    without."""
     import io  # noqa: PLC0415
 
     import numpy as np  # noqa: PLC0415
@@ -2412,7 +2441,7 @@ def write_image_dataset(root: str, seed: int, sides, files: int = 4, per_file: i
 
     from dalle_mtf_tpu_torch.data.tfrecord import TFRecordWriter, serialize_example  # noqa: PLC0415
 
-    rng = np.random.default_rng(seed)
+    rng, text_rng = np.random.default_rng(seed), np.random.default_rng([seed, 1])
     os.makedirs(root, exist_ok=True)
     for f in range(files):
         with TFRecordWriter(os.path.join(root, f"synth_{f}.tfrecords")) as w:
@@ -2422,7 +2451,10 @@ def write_image_dataset(root: str, seed: int, sides, files: int = 4, per_file: i
                 arr = np.clip(arr + rng.integers(-8, 9, arr.shape), 0, 255).astype(np.uint8)
                 buf = io.BytesIO()
                 Image.fromarray(arr).save(buf, format="JPEG", quality=90)
-                w.write(serialize_example({"image": buf.getvalue()}))
+                example = {"image": buf.getvalue()}
+                if captions:
+                    example["caption"] = text_rng.integers(0, 50257, text_rng.integers(5, 64)).tolist()
+                w.write(serialize_example(example))
     return os.path.join(root, "*.tfrecords")
 
 
@@ -2446,6 +2478,19 @@ def vae_config(tmp: str, pattern: str, run: str, **over) -> str:
     return path
 
 
+def encoder_macs(cfg) -> tuple[int, int, int, int]:
+    """The encoder's conv trunk for one image: (down-conv multiply-adds,
+    residual-block multiply-adds, latent side, latent channels)."""
+    side, fwd, res = cfg.image_size // cfg.stack_factor, 0, 0
+    cin = cfg.n_channels * cfg.stack_factor ** 2
+    for stack, ch in cfg.convblocks:  # down-conv, then residual blocks
+        side //= 2
+        fwd += side * side * 16 * cin * ch
+        res += (stack - 1) * 2 * side * side * 9 * ch * ch
+        cin = ch
+    return fwd, res, side, cin
+
+
 def vae_flops(cfg, batch: int) -> dict:
     """Multiply-adds of one image's forward from the conv shapes (each
     output pixel: k * k * cin * cout; an up-conv's input pixel: 4 * 4 *
@@ -2453,13 +2498,7 @@ def vae_flops(cfg, batch: int) -> dict:
     blocks' forward alone (recomputed in the backward under
     ``recompute_grad``). A step's FLOPs: 2 * batch * (3 * forward +
     recomputed): the backward as twice the forward."""
-    side, fwd, res = cfg.image_size // cfg.stack_factor, 0, 0
-    cin = cfg.n_channels * cfg.stack_factor ** 2
-    for stack, ch in cfg.convblocks:  # encoder: down-conv, then residual blocks
-        side //= 2
-        fwd += side * side * 16 * cin * ch
-        res += (stack - 1) * 2 * side * side * 9 * ch * ch
-        cin = ch
+    fwd, res, side, cin = encoder_macs(cfg)
     book = side * side * cfg.n_hid * cfg.num_tokens
     fwd += 2 * book  # encoder logits, decoder input
     for stack, ch in reversed(cfg.convblocks):  # decoder: up-conv, residual blocks
@@ -2685,7 +2724,7 @@ def vae_host_data(torch, tmp: str, patterns: dict, threads) -> dict:
     return out
 
 
-def phase_train_vae(torch, card) -> dict:
+def phase_train_vae(torch, card, keep: str | None = None) -> dict:
     """Stage-1 VAE training: the values check in fp32 and bf16, then
     configs/vae_coco_synth.json at full width (256 px, convblocks
     [[2,128],[3,256],[5,512]], 2048 tokens, bf16, recompute_grad, batch 32,
@@ -2698,7 +2737,9 @@ def phase_train_vae(torch, card) -> dict:
     phase, so no weight gradient is summed in a run-dependent order). Then
     the host's data on one decode thread and on DECODE_WORKERS, at 256² and
     at COCO sizes, the tokens pipeline's one thread alone, and the steps
-    run with no sync between them, deterministic switch on and off."""
+    run with no sync between them, deterministic switch on and off. With
+    ``keep``, the unbroken run's step-VAE_STEPS checkpoint is copied to
+    ``keep``/checkpoints, a VAE directory for ``phase_train_image``."""
     import PIL  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch.data.pipeline import DECODE_WORKERS  # noqa: PLC0415
@@ -2762,6 +2803,10 @@ def phase_train_vae(torch, card) -> dict:
               f"{split['traced_wall_ms_per_step']:.1f} ms a step, device busy "
               f"{split['device_busy_share']:.3f}", flush=True)
 
+        if keep is not None:
+            os.makedirs(os.path.join(keep, "checkpoints"), exist_ok=True)
+            shutil.copy(os.path.join(whole.ckpt_dir, f"ckpt_{VAE_STEPS}.pt"),
+                        os.path.join(keep, "checkpoints"))
         # resume: a second main from a copy of the step-VAE_CKPT checkpoint
         resume = vae_config(tmp, pattern, "resumed")
         os.makedirs(os.path.join(tmp, "resumed", "checkpoints"))
@@ -2812,6 +2857,355 @@ def phase_train_vae(torch, card) -> dict:
     finally:
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(tmp, ignore_errors=True)
+
+# ------------------------------------------------- stage 2 in image mode
+
+IMAGE_STEPS, IMAGE_RESUME, IMAGE_TIMED_FROM = 8, 2, 3  # as TRAIN_STEPS, RESUME_STEPS, TIMED_FROM
+UINT8_STEPS, TOKENS_STEPS = 5, 2  # the uint8 arm (steps 3..5 timed) and the tokens arm
+ENCODE_ITERS = 10  # timed encodes of one batch
+IMAGE_VALUES = dict(  # the values check's DALLE over VAE_VALUES' VAE in fp32: D = 128, S = 320
+    n_embd=256, n_heads=2, n_layers=2, text_seq_len=64, text_vocab_size=1000,
+    image_vocab_size=VAE_VALUES["num_tokens"], vae_params={**VAE_VALUES, "use_bf16": False},
+)
+
+
+def encoder_gmac(cfg) -> float:
+    """Multiply-adds of one image through the VAE's encoder and the
+    codebook product, from the conv shapes (``vae_flops``' count without the
+    decoder), in G."""
+    fwd, res, side, _ = encoder_macs(cfg)
+    return (fwd + res + side * side * cfg.n_hid * cfg.num_tokens) / 1e9
+
+
+def image_values(torch, card) -> dict:
+    """A small image-mode DALLE step in fp32 (IMAGE_VALUES, batch 2, uint8
+    pixels): the device's normalization of the pixels bit-equal to the
+    host's, the frozen VAE's tokens equal on the card and the CPU, and the
+    loss and every grad on the card (through the packed kernels, launches
+    counted) against the port's plain path on the CPU (``compare_values``)."""
+    import numpy as np  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import _image, make_dalle_task  # noqa: PLC0415
+
+    rng = np.random.default_rng(13)
+    size = VAE_VALUES["dataset"]["image_size"]
+    pixels = rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8)
+    batch = {"image": torch.from_numpy(pixels),
+             "caption": torch.from_numpy(rng.integers(0, 1000, (2, 64)))}
+    host = torch.from_numpy((pixels.astype(np.float32) - 127.5) / 127.5)
+    if not torch.equal(_image({"image": batch["image"].cuda()}).cpu(), host):
+        raise AssertionError("uint8 pixels normalized on the card differ from the host's")
+    dalle, vae, init_fn, _, _ = make_dalle_task(IMAGE_VALUES, "cpu")
+    weights = init_fn(torch.Generator().manual_seed(14))
+    frozen = vae.init(torch.Generator().manual_seed(15))
+    results, tokens = {}, {}
+    for device in ("cuda", "cpu"):
+        _, dvae, _, train_loss, _ = make_dalle_task(IMAGE_VALUES, device)
+        tree, vae_tree = _to(weights, device), _to(frozen, device)
+        on = {k: v.to(device) for k, v in batch.items()}
+        tokens[device] = dvae.encode_tokens(vae_tree, _image(on)).cpu()
+        for _, t in named_leaves(tree):
+            t.requires_grad_(True)
+        reset_counts(attn)
+        loss, _ = train_loss(tree, vae_tree, on, torch.Generator().manual_seed(16), 0)
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launched = {n: c for n, c in attn.KERNEL_LAUNCHES.items() if c}
+            want = {"causal_attention_packed_fwd": 2, "causal_attention_packed_bwd": 2}
+            if launched != want:
+                raise AssertionError(f"the image-mode values step launched {launched}, "
+                                     f"expected {want}")
+        results[device] = (loss.item(), {"/".join(p): t.grad.cpu() for p, t in named_leaves(tree)})
+    if not torch.equal(tokens["cuda"], tokens["cpu"]):
+        raise AssertionError(f"the frozen VAE's fp32 tokens differ on the card in "
+                             f"{int((tokens['cuda'] != tokens['cpu']).sum())} of "
+                             f"{tokens['cpu'].numel()} places")
+    return dict(**compare_values("image mode, uint8 pixels", dalle.cfg, card, results["cuda"],
+                                 results["cpu"]), launches=launched)
+
+
+def image_train_config(tmp: str, pattern: str, run: str, train_steps: int, vae_dir: str,
+                       **over) -> str:
+    """A copy of configs/dalle_coco_synth.json as published (image mode,
+    its vae_model vae_coco_synth) over ``pattern``, cut to ``train_steps``
+    steps with a checkpoint and an eval at IMAGE_STEPS, every step logged,
+    the frozen VAE restored from ``vae_dir``, in ``tmp/run``; ``over``
+    replaces keys (``dataset``: merged into the dataset)."""
+    from dalle_mtf_tpu_torch.utils.config import _resolve_config_path  # noqa: PLC0415
+
+    with open(_resolve_config_path(TRAIN_CONFIG)) as f:
+        cfg = json.load(f)
+    dataset = {**cfg["dataset"], "train_path": pattern, "eval_path": pattern,
+               **over.pop("dataset", {})}
+    cfg.update(dataset=dataset, train_steps=train_steps, steps_per_checkpoint=IMAGE_STEPS,
+               eval_steps=1, log_every=1, max_to_keep=1, model_path=os.path.join(tmp, run),
+               vae_checkpoint_path=vae_dir)
+    cfg.update(over)
+    path = os.path.join(tmp, f"{run}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def run_train_dalle(path, *flags):
+    """``train_dalle.main`` on config ``path`` (on cuda:0) with its training
+    stream wrapped in ``TimedBatches``: (the closed Trainer, the
+    TimedBatches)."""
+    from dalle_mtf_tpu_torch import train_dalle  # noqa: PLC0415
+
+    make_pipeline = train_dalle.dalle_input_fn
+    streams: list[TimedBatches] = []
+
+    def timed_train_stream(params, eval=False, **kw):
+        pipeline = make_pipeline(params, eval=eval, **kw)
+        if eval:
+            return pipeline
+        streams.append(TimedBatches(pipeline))
+        return streams[-1]
+
+    train_dalle.dalle_input_fn = timed_train_stream
+    try:
+        return train_dalle.main(["--model", path, *flags, "--gpu_ids", "0"]), streams[-1]
+    finally:
+        train_dalle.dalle_input_fn = make_pipeline
+
+
+def token_agreement(torch, image_params, tokens_params, vae, frozen) -> dict:
+    """The in-step encode (``tokens_of``: ``encode_tokens`` of the batch on
+    the card) of every eval batch of ``image_params`` against the records
+    of ``tokens_params`` (the same records, encoded offline): the share of
+    tokens that agree, and the top-two logit gap of the in-step encode where
+    they differ. Captions must be equal."""
+    from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import _image  # noqa: PLC0415
+
+    images = iter(dalle_input_fn(image_params, eval=True, repeat=False))
+    records = iter(dalle_input_fn(tokens_params, eval=True, repeat=False))
+    same, total, gaps = 0, 0, []
+    with torch.no_grad():
+        for ib in images:
+            tb = next(records)
+            if not (ib["caption"] == tb["caption"]).all():
+                raise AssertionError("the encoded records' captions differ from the images'")
+            logits = vae.encoder(frozen, _image({"image": torch.from_numpy(ib["image"]).cuda()}))
+            logits = logits.reshape(logits.shape[0], -1, logits.shape[-1])
+            top2 = logits.topk(2, dim=-1).values
+            mine = logits.argmax(dim=-1).cpu()
+            differ = mine != torch.from_numpy(tb["tokens"]).long()
+            same += int((~differ).sum())
+            total += differ.numel()
+            gaps += (top2[..., 0] - top2[..., 1]).cpu()[differ].tolist()
+    return dict(tokens_compared=total, agree_share=same / total,
+                top2_gap_where_differ_max=max(gaps, default=None))
+
+
+def init_loss_split(torch, path, frozen) -> dict:
+    """The first step's loss at init, taken apart on the trainer's own init
+    (its seed) and first training batch of config ``path``: the mean
+    log-sum-exp of the fp32 logits, which at init is ln V + n_embd * 0.02²
+    / 2 whatever the labels, and the mean logit of the label, which is 0
+    only in expectation over the init. Under uniform labels (tokens mode)
+    the second averages out; the frozen VAE's tokens repeat a few codebook
+    ids, so in one image-mode batch it does not."""
+    from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import _image, make_dalle_task  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    params = fetch_model_params(path)
+    params["padding_id"] = get_tokenizer().pad_token_id
+    dalle, vae, init_fn, _, _ = make_dalle_task(params, "cuda")
+    weights = init_fn(torch.Generator().manual_seed(params.get("seed") or 0))
+    data = iter(dalle_input_fn(params))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+    data.close()
+    with torch.no_grad():
+        image = vae.encode_tokens(frozen, _image(batch)).long() + dalle.cfg.text_vocab_size
+        tokens = torch.cat([batch["caption"].long(), image], dim=1)
+        logits = dalle.forward(weights, tokens)
+        lse = torch.logsumexp(logits, dim=-1).mean().item()
+        label = logits.gather(-1, dalle.shifted_labels(tokens)[..., None]).mean().item()
+    return dict(mean_logsumexp=lse, mean_label_logit=label, loss=lse - label,
+                distinct_image_tokens=int(image.unique().numel()))
+
+
+def encode_ms(torch, vae, frozen, batch) -> float:
+    """Milliseconds of one in-step encode (``encode_tokens`` of a uint8 batch
+    normalized on the card) by CUDA events (``cuda_ms``, ENCODE_ITERS)."""
+    from dalle_mtf_tpu_torch.train.tasks import _image  # noqa: PLC0415
+
+    on = {"image": torch.from_numpy(batch["image"]).cuda()}
+    with torch.no_grad():
+        return cuda_ms(lambda: vae.encode_tokens(frozen, _image(on)), ENCODE_ITERS)
+
+
+def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
+    """DALLE in image mode, the two-stage flow: the values check
+    (``image_values``), then configs/dalle_coco_synth.json as published
+    (image mode, full width and depth, batch 16, bf16) with the frozen
+    vae_coco_synth restored from ``vae_dir`` (the VAE phase's step-30
+    checkpoint) on 256 seeded JPEG + caption tfrecords at 256², through
+    ``train_dalle.main`` for IMAGE_STEPS steps with an eval and a checkpoint
+    and a resumed ``main`` for IMAGE_RESUME more (the first loss taken apart
+    by ``init_loss_split``, its log-sum-exp against ln V + var/2; finite
+    losses, the packed pair's exact launches and none of the [B, H, S, D]
+    pair); the ``uint8_images`` arm from the same init (its first loss the
+    f32 arm's bit for bit); ``create_tfrecords encode`` over
+    the same records (batch 16) and the share of its tokens that agree with
+    the in-step encode (at least 99%); tokens mode on those records from the
+    same init (first loss within 1e-3 of image mode's); a profile of two
+    steps with the encoder's convs as their own bucket. Prints the
+    ``train_image`` line and returns the main path's launches."""
+    from dalle_mtf_tpu_torch.data import create_tfrecords  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.data.pipeline import DECODE_WORKERS, dalle_input_fn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.restore import restore_vae_params  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_image_")
+    try:
+        values = image_values(torch, card)
+        dalle, vae = make_dalle_models(fetch_model_params(TRAIN_CONFIG), "cuda")
+        cfg, vcfg = dalle.cfg, vae.cfg
+        t0 = time.perf_counter()
+        pattern = write_image_dataset(os.path.join(tmp, "data"), 3,
+                                      [(vcfg.image_size, vcfg.image_size)], captions=True)
+        path = image_train_config(tmp, pattern, "image", IMAGE_STEPS, vae_dir)
+        print(f"train_image: 256 JPEG + caption records of {vcfg.image_size}² + config in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        names = ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(attn)
+        t0 = time.perf_counter()
+        first, stream = run_train_dalle(path, "--new", "--yes")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(attn.KERNEL_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        losses = check_dalle_run(first, list(range(1, IMAGE_STEPS + 1)), [IMAGE_STEPS],
+                                 launches, {names[0]: cfg.n_layers * (IMAGE_STEPS + 1),
+                                            names[1]: cfg.n_layers * IMAGE_STEPS})
+        init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
+        frozen = restore_vae_params(vae, vae_dir)
+        split_init = init_loss_split(torch, path, frozen)
+        print(f"train_image: first loss {losses[0]!r} = mean log-sum-exp "
+              f"{split_init['mean_logsumexp']!r} (ln(vocab) + var/2 = {init_loss!r}) - mean "
+              f"label logit {split_init['mean_label_logit']!r} "
+              f"({split_init['distinct_image_tokens']} distinct image tokens)", flush=True)
+        if (abs(split_init["loss"] - losses[0]) > 1e-2
+                or abs(split_init["mean_logsumexp"] - init_loss) > 0.1):
+            raise AssertionError(f"first loss {losses[0]}: {split_init} against ln(vocab) + "
+                                 f"var/2 = {init_loss}")
+        timed = range(IMAGE_TIMED_FROM, IMAGE_STEPS + 1)
+        step_s = [1.0 / first.history[s - 1]["steps_per_sec"] for s in timed]
+        med = statistics.median(step_s)
+        data_wait_share = sum(stream.waits[s - 1] for s in timed) / sum(step_s)
+        evals = first.eval_history
+        del first
+        gc.collect()
+
+        resume = image_train_config(tmp, pattern, "image", IMAGE_STEPS + IMAGE_RESUME, vae_dir)
+        reset_counts(attn)
+        second, _ = run_train_dalle(resume)
+        end = IMAGE_STEPS + IMAGE_RESUME
+        resumed = check_dalle_run(second, list(range(IMAGE_STEPS + 1, end + 1)), [end],
+                                  dict(attn.KERNEL_LAUNCHES),
+                                  {names[0]: cfg.n_layers * (IMAGE_RESUME + 1),
+                                   names[1]: cfg.n_layers * IMAGE_RESUME})
+        print(f"train_image: {IMAGE_STEPS} steps + eval + checkpoint in {wall:.1f}s; losses "
+              f"{[round(x, 4) for x in losses]}; eval {evals[0]}; resumed at step "
+              f"{IMAGE_STEPS}: losses {[round(x, 4) for x in resumed]}; launches {launches}",
+              flush=True)
+        del second
+        gc.collect()
+
+        u8_path = image_train_config(tmp, pattern, "uint8", UINT8_STEPS, vae_dir, eval_steps=0,
+                                     dataset={"uint8_images": True})
+        u8, u8_stream = run_train_dalle(u8_path, "--new", "--yes")
+        u8_losses = check_dalle_run(u8, list(range(1, UINT8_STEPS + 1)), [], {}, {})
+        u8_timed = range(IMAGE_TIMED_FROM, UINT8_STEPS + 1)
+        u8_step_s = [1.0 / u8.history[s - 1]["steps_per_sec"] for s in u8_timed]
+        u8_wait = sum(u8_stream.waits[s - 1] for s in u8_timed) / sum(u8_step_s)
+        print(f"train_image uint8: losses {[round(x, 4) for x in u8_losses]}; first loss "
+              f"bit-equal to the f32 arm's: {u8_losses[0] == losses[0]}", flush=True)
+        if u8_losses[0] != losses[0]:
+            raise AssertionError(f"uint8 first loss {u8_losses[0]!r} != f32 {losses[0]!r}")
+        del u8
+        gc.collect()
+
+        t0 = time.perf_counter()
+        files = create_tfrecords.main([
+            "encode", "--input", pattern, "--out", os.path.join(tmp, "encoded"),
+            "--name", "synth", "--encode-with", VAE_CONFIG, "--vae-checkpoint-path", vae_dir,
+            "--batch-size", "16", "--examples-per-file", "64"])
+        encode_s = time.perf_counter() - t0
+        tokens_pattern = os.path.join(tmp, "encoded", "*.tfrecords")
+        tok_path = image_train_config(tmp, tokens_pattern, "tokens", TOKENS_STEPS, vae_dir,
+                                      eval_steps=0, dataset={"tokens": True})
+        agreement = token_agreement(torch, fetch_model_params(path),
+                                    fetch_model_params(tok_path), vae, frozen)
+        print(f"train_image: create_tfrecords encode wrote {files} files of 256 records in "
+              f"{encode_s:.1f}s; tokens agreeing with the in-step encode {agreement}",
+              flush=True)
+        if agreement["agree_share"] < 0.99:
+            raise AssertionError(f"offline tokens agree with the in-step encode on "
+                                 f"{agreement['agree_share']:.4f} < 0.99")
+        tok, _ = run_train_dalle(tok_path, "--new", "--yes")
+        tok_losses = check_dalle_run(tok, list(range(1, TOKENS_STEPS + 1)), [], {}, {})
+        print(f"train_image tokens: losses {[round(x, 4) for x in tok_losses]}; first loss "
+              f"{tok_losses[0]!r} vs image mode {losses[0]!r}", flush=True)
+        if abs(tok_losses[0] - losses[0]) > 1e-3:
+            raise AssertionError(f"tokens-mode first loss {tok_losses[0]} vs image mode "
+                                 f"{losses[0]}: more than 1e-3 apart")
+        del tok
+        gc.collect()
+
+        u8_data = iter(dalle_input_fn(fetch_model_params(u8_path)))
+        enc_ms = encode_ms(torch, vae, frozen, next(u8_data))
+        u8_data.close()
+        split = profile_steps(torch, path, cfg, frozen=frozen)
+        e, L, v, s = cfg.n_embd, cfg.n_layers, cfg.total_tokens, cfg.total_seq_len
+        flops_per_token = 6 * (L * 12 * e * e + e * v) + 12 * L * e * s
+        batch_size = fetch_model_params(path)["train_batch_size"]
+        tokens_per_step = batch_size * s
+        tflops = tokens_per_step / med * flops_per_token / 1e12
+        enc_tflop = 2 * batch_size * encoder_gmac(vcfg) / 1e3
+        line = dict(
+            phase="train_image", card=card, config=TRAIN_CONFIG, vae=VAE_CONFIG, batch=batch_size,
+            seq_len=s, n_layers=L, n_embd=e, vocab=v, bf16=cfg.bf_16, vae_bf16=vcfg.use_bf16,
+            data=f"256 seeded JPEG + caption tfrecords at {vcfg.image_size}² through "
+                 "train_dalle.main",
+            timing="train_dalle.main, log_every 1 (a sync every step)",
+            steps_timed=len(step_s), step_s=step_s, step_s_median=med,
+            tokens_per_s=tokens_per_step / med, tflops_per_s=tflops,
+            mfu=tflops / PEAK_BF16_TFLOPS, encoder_gmac_per_image=encoder_gmac(vcfg),
+            encoder_tflop_per_step=enc_tflop,
+            mfu_with_encoder=(tokens_per_step * flops_per_token / 1e12 + enc_tflop) / med
+            / PEAK_BF16_TFLOPS,
+            encoder_ms_per_step=enc_ms, peak_mem_gb=peak / 1e9,
+            decode_threads=DECODE_WORKERS, data_wait_share=data_wait_share,
+            data_wait_s=[stream.waits[s_ - 1] for s_ in timed],
+            first_loss=losses[0], expected_init_loss=init_loss, init_loss_split=split_init,
+            evals=evals,
+            uint8_step_s=u8_step_s, uint8_step_s_median=statistics.median(u8_step_s),
+            uint8_data_wait_share=u8_wait, uint8_first_loss_bit_equal=True,
+            encode_files=files, encode_s=encode_s, **agreement,
+            tokens_first_loss=tok_losses[0], image_first_loss=losses[0],
+            values={k: values[k] for k in ("loss_card", "loss_cpu", "worst_grad_rel_l2")},
+            **split, phase_s=time.perf_counter() - t_phase,
+        )
+        print(json.dumps(line), flush=True)
+        return {n: launches[n] for n in names}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 def ring_worker(argv) -> int:
     """``chip_smoke.py --ring-worker <checks|train> <out_dir> [argv...]``:
@@ -2883,7 +3277,14 @@ def main() -> int:
     long_launches, long_first_loss = phase_train_long(torch, attn, lnm, card, bhsd["dalle_4k"])
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_vae(torch, card)
+    vae_dir = tempfile.mkdtemp(prefix="chip_smoke_vae_ckpt_")
+    try:
+        phase_train_vae(torch, card, keep=vae_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        image_launches = phase_train_image(torch, attn, card, vae_dir)
+    finally:
+        shutil.rmtree(vae_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     ring_values = phase_ring_attention(torch, attn, card)
@@ -2925,7 +3326,8 @@ def main() -> int:
 
     rows = [
         dict(name=name, route="cuda", source=FWD_SOURCE if "fwd" in name else BWD_SOURCE,
-             replaces=REPLACES[name], launches=train_launches[name], **measured(training[name]))
+             replaces=REPLACES[name], launches=train_launches[name],
+             image_mode_launches=image_launches[name], **measured(training[name]))
         for name in ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
     ]
     rows.append(dict(

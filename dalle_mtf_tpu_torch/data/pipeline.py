@@ -1,5 +1,5 @@
 """Host input pipeline (port of ``dalle_mtf_tpu/data/pipeline.py``): VAE
-image batches and tokens-mode DALLE batches.
+image batches and DALLE batches, image + caption or tokens + caption.
 
 Files -> records -> parsed samples -> shuffle buffer -> batches, on a
 background prefetch thread. The stream is the JAX pipeline's, record for
@@ -11,8 +11,8 @@ the trained prefix is skipped without parsing). Image records (tfrecords or
 a jpg glob) are decoded by PIL (``decode_img``) on a pool of threads, in
 order.
 
-Not ported: the frozen-VAE image mode of DALLE data, and the native C++
-reader and decode pool (records are read in Python, images decoded by PIL).
+Not ported: the native C++ reader and decode pool (records are read in
+Python, images decoded by PIL).
 """
 
 from __future__ import annotations
@@ -361,17 +361,17 @@ def dalle_input_fn(
     repeat: bool = True,
     skip_steps: int = 0,
 ) -> _Pipeline:
-    """Pre-tokenized DALLE batches (``dataset.tokens: true``): records carry
-    ``{tokens: int64 list, caption: int64 list}`` and batches are
-    ``{"tokens": i32[B, image_seq_len], "caption": i32[B, text_seq_len]}``
-    (captions padded-then-truncated with the padding id). ``skip_steps``:
-    resume point, that many already-trained batches skipped exactly."""
+    """DALLE batches (input_fns.py:106-120). Image mode: JPEG + caption
+    tfrecords become ``{"image": f32[B, size, size, C] in [-1, 1] (uint8
+    pixels with ``dataset.uint8_images``), "caption": i32[B,
+    text_seq_len]}``, decoded on ``DECODE_WORKERS`` threads; the trainer's
+    frozen VAE tokenizes the images. Tokens mode (``dataset.tokens: true``):
+    records carry ``{tokens: int64 list, caption: int64 list}``
+    (``data/encode_dataset.py``) and batches are ``{"tokens": i32[B,
+    image_seq_len], "caption": ...}``, parsed on one thread. Captions are
+    padded with the padding id, then cut to ``text_seq_len``. ``shard`` and
+    ``skip_steps`` as in ``vae_input_fn``."""
     ds = params["dataset"]
-    if not ds.get("tokens"):
-        raise NotImplementedError(
-            "image-mode DALLE data (images through the frozen VAE encoder) "
-            "is not ported yet; use a tokens dataset (dataset.tokens: true)"
-        )
     path = ds["eval_path"] if eval else ds["train_path"]
     shard = _resolve_shard(shard)
     batch = _host_batch(params["eval_batch_size" if eval else "train_batch_size"], shard)
@@ -381,17 +381,31 @@ def dalle_input_fn(
         padding_id = 50257
     files = _shard_files(list_files(path), shard)
 
-    def parse_tokens(record: bytes) -> dict:
-        ex = parse_example(record)
+    def _caption(ex: dict) -> np.ndarray:
         caption = (list(ex.get("caption", [])) + [padding_id] * text_seq_len)[:text_seq_len]
-        return {
-            "tokens": np.asarray(ex["tokens"], np.int32),
-            "caption": np.asarray(caption, np.int32),
-        }
+        return np.asarray(caption, np.int32)
 
+    if ds.get("tokens"):
+        def parse(record: bytes) -> dict:
+            ex = parse_example(record)
+            return {"tokens": np.asarray(ex["tokens"], np.int32), "caption": _caption(ex)}
+
+        workers = 1
+    else:
+        size = ds["image_size"]
+        channels = params.get("n_channels") or 3
+        normalize = not ds.get("uint8_images")
+
+        def parse(record: bytes) -> dict:
+            ex = parse_example(record)
+            return {"image": decode_img(ex["image"][0], size, channels, normalize=normalize),
+                    "caption": _caption(ex)}
+
+        workers = DECODE_WORKERS
     return _Pipeline(
-        files, read_tfrecord_file, parse_tokens, batch,
+        files, read_tfrecord_file, parse, batch,
         shuffle=not eval, repeat=repeat,
         skip_samples=skip_steps * batch,
         cycle_length=ds.get("cycle_length") or 4,
+        num_workers=workers,
     )

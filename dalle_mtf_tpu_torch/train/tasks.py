@@ -7,11 +7,12 @@ step).
   [-1, 1], or uint8 normalized on the device), with the annealed Gumbel
   temperature and the eval's PSNR, codebook perplexity and Fréchet feature
   distance.
-- ``make_dalle_task``: stage 2 in the tokens mode only: batches carry
-  pre-tokenized image ids (``{"tokens", "caption"}``). The image mode, which
-  runs the frozen VAE's encoder on pixels inside the loss, needs the
-  restore of a trained VAE into the frozen tree, which is not ported, and
-  raises.
+- ``make_dalle_task``: stage 2, on image batches ``{"image", "caption"}``
+  (image mode: the frozen VAE, restored by ``utils/restore.py`` and passed
+  as the trainer's ``frozen_params``, tokenizes the pixels on the device
+  inside the loss) or on pre-tokenized batches ``{"tokens", "caption"}``
+  (tokens mode: records written by ``data/encode_dataset.py``). Both modes
+  build the same [caption ; image ids + text vocab] sequence.
 """
 
 from __future__ import annotations
@@ -32,10 +33,13 @@ def _image(batch) -> torch.Tensor:
     """Batch images in the compute range [-1, 1]: f32 batches pass through
     (normalized on the host); uint8 batches (``dataset.uint8_images``, a 4x
     smaller host-to-device copy) are normalized here, on the device, with
-    the host's (x - 127.5) / 127.5 in f32, so the values are the same."""
+    the host's (x - 127.5) / 127.5 in f32, so the values are the same. The
+    divisor is a tensor on the image's device: CUDA divides by a host scalar
+    as a multiply by its reciprocal, which is one ulp off the division for
+    126 of the 256 pixel values."""
     x = batch["image"]
     if x.dtype == torch.uint8:
-        return (x.float() - 127.5) / 127.5
+        return (x.float() - 127.5) / torch.full((), 127.5, device=x.device)
     return x
 
 
@@ -107,29 +111,35 @@ def make_dalle_models(params: Mapping[str, Any], device: torch.device | str):
 
 
 def make_dalle_task(params: Mapping[str, Any], device: torch.device | str, mesh=None):
-    """Returns (dalle, init_fn, train_loss_fn, eval_loss_fn).
+    """Returns (dalle, vae, init_fn, train_loss_fn, eval_loss_fn).
 
     ``init_fn(generator)`` draws the fp32 parameter tree. The loss functions
     take (params, frozen_params, batch, generator, step) with a batch of
-    torch tensors on the device and return (scalar loss, aux dict). On a
-    ``mesh`` the batch holds this rank's rows, and every value returned is
-    this rank's share of the global mean (the trainer sums them over the
-    ranks)."""
-    cfg, _ = _configs(params)
+    torch tensors on the device and return (scalar loss, aux dict);
+    ``frozen_params`` is the VAE's tree (image batches) or None (tokens
+    batches). On a ``mesh`` the batch holds this rank's rows (the ranks of
+    one sequence-parallel group encode the same rows), and every value
+    returned is this rank's share of the global mean (the trainer sums them
+    over the ranks)."""
+    cfg, vae_cfg = _configs(params)
     dalle = DALLE(cfg, device, mesh)
+    vae = DiscreteVAE(vae_cfg, device)
     z_loss = params.get("z_loss") or 0.0
     text_len = cfg.text_seq_len
 
-    def tokens_of(_frozen, batch):
-        if "tokens" not in batch:
-            raise NotImplementedError(
-                "image-mode batches need a trained VAE restored as the frozen "
-                "encoder, which is not ported yet; use a tokens dataset "
-                "(dataset.tokens: true)"
-            )
-        # record ids are raw codebook ids; the text-vocab offset applies here
-        img_tokens = batch["tokens"].long() + cfg.text_vocab_size
-        return torch.cat([batch["caption"].long(), img_tokens], dim=1)
+    def tokens_of(frozen_vae, batch):
+        if "tokens" in batch:
+            # record ids are raw codebook ids (data/encode_dataset.py); the
+            # text-vocab offset applies here in both modes
+            img_tokens = batch["tokens"].long()
+        elif frozen_vae is None:
+            raise ValueError("image batches need the frozen VAE's parameters (frozen_params)")
+        else:
+            # no_grad is JAX's stop_gradient (not inference_mode: the
+            # embedding's backward saves these ids)
+            with torch.no_grad():
+                img_tokens = vae.encode_tokens(frozen_vae, _image(batch)).long()
+        return torch.cat([batch["caption"].long(), img_tokens + cfg.text_vocab_size], dim=1)
 
     def _split_losses(loss_batch):
         # loss_batch[:, i] scores the prediction of token i+1, so image
@@ -158,4 +168,4 @@ def make_dalle_task(params: Mapping[str, Any], device: torch.device | str, mesh=
             "acc_image": dalle.global_mean(correct, text_len - 1),
         }
 
-    return dalle, dalle.init, train_loss, eval_loss
+    return dalle, vae, dalle.init, train_loss, eval_loss

@@ -75,6 +75,13 @@ def num_microbatches(
     return n
 
 
+def checkpoint_steps(ckpt_dir: str) -> list[int]:
+    """The steps of the ``ckpt_<step>.pt`` files in ``ckpt_dir``, ascending."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for f in os.listdir(ckpt_dir) if (m := _CKPT.fullmatch(f)))
+
+
 def step_generator(seed: int, stream: int, index: int) -> torch.Generator:
     """A CPU generator for (seed, stream, index): the counterpart of the JAX
     loop's ``fold_in(fold_in(rng, stream), index)``."""
@@ -198,10 +205,7 @@ class Trainer:
         return os.path.join(self.model_dir, "checkpoints")
 
     def checkpoint_steps(self) -> list[int]:
-        if not os.path.isdir(self.ckpt_dir):
-            return []
-        return sorted(int(m.group(1)) for f in os.listdir(self.ckpt_dir)
-                      if (m := _CKPT.fullmatch(f)))
+        return checkpoint_steps(self.ckpt_dir)
 
     def latest_step(self) -> int:
         steps = self.checkpoint_steps()

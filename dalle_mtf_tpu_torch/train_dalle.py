@@ -14,17 +14,21 @@ over the ``batch_dim`` axis and, with ``attention_type`` "ring" or
 "local_ring", sequence parallelism over the ``total_seq_dim`` axis
 (``utils/distributed.py`` picks each rank's device and the backend).
 
-The config must be a tokens-mode DALLE config (``dataset.tokens: true``:
-records carry VAE token ids, so no VAE weights are loaded). The image mode
-runs the frozen VAE's encoder (``models/vae.py``, trained by ``train_vae``)
-on the pixels, and needs that VAE restored from its checkpoint into the
-frozen tree, which is not ported yet, so it raises. Training resumes from the
-latest checkpoint in ``model_path``, and the data stream skips the batches
-already trained on. ``--new`` wipes ``model_path`` first (asking unless
-``--yes``). Training runs on ``cuda:<first --gpu_ids>``, else on
-``--device`` (default ``cuda``); ranks share the cards evenly. Without a
-CUDA device it raises: it runs on the CPU only when asked to with
-``--device cpu``.
+In image mode (``dataset.tokens`` unset: JPEG + caption records) the
+frozen VAE (``vae_model``, trained by ``train_vae``) is restored from
+``vae_checkpoint_path``, else from the VAE config's ``model_path``
+(``utils/restore.py``: its latest checkpoint, or an ``.npz``), and its
+encoder tokenizes every batch on the device; ``dataset.uint8_images`` moves
+the pixels as uint8. In tokens mode (``dataset.tokens: true``: records of
+VAE token ids, ``python -m dalle_mtf_tpu_torch.data.create_tfrecords
+encode``) no VAE is loaded. The DALLE checkpoints never hold the VAE.
+``predict_steps`` (sampling at checkpoints) is not ported and raises.
+Training resumes from the latest checkpoint in ``model_path``, and the data
+stream skips the batches already trained on. ``--new`` wipes
+``model_path`` first (asking unless ``--yes``). Training runs on
+``cuda:<first --gpu_ids>``, else on ``--device`` (default ``cuda``); ranks
+share the cards evenly. Without a CUDA device it raises: it runs on the CPU
+only when asked to with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from dalle_mtf_tpu_torch.train.trainer import Trainer
 from dalle_mtf_tpu_torch.utils.config import fetch_model_params
 from dalle_mtf_tpu_torch.utils.distributed import init_distributed
 from dalle_mtf_tpu_torch.utils.logging_utils import remove_model_dir, setup_logging
+from dalle_mtf_tpu_torch.utils.restore import restore_vae_params
 
 logger = logging.getLogger(__name__)
 
@@ -59,6 +64,14 @@ def parse_args(argv=None):
                                                            "starts a new training run")
     parser.add_argument("--yes", action="store_true", help="skip the --new confirmation prompt")
     return parser.parse_args(argv)
+
+
+def load_vae_params(params, vae) -> dict:
+    """The frozen stage-1 VAE's parameters on ``vae.device``: from the
+    config's ``vae_checkpoint_path``, else the VAE config's ``model_path``
+    (reference model_fns.py:36-41)."""
+    return restore_vae_params(
+        vae, params.get("vae_checkpoint_path") or params["vae_params"]["model_path"])
 
 
 def main(argv=None) -> Trainer:
@@ -85,12 +98,6 @@ def _train(args, proc) -> Trainer:
         raise ValueError("vae model config must be supplied (vae_model key)")
     if params.get("predict_steps"):
         raise NotImplementedError("predict_steps (sampling at checkpoints) is not ported yet")
-    if not params["dataset"].get("tokens"):
-        raise NotImplementedError(
-            "image-mode training needs a trained VAE restored as the frozen "
-            "encoder, which is not ported yet; use a tokens dataset "
-            "(dataset.tokens: true)"
-        )
     setup_logging(params["config_name"] or args.model, rank=proc.rank)
     # the ranks' layout; TP and PP layouts raise here at world size > 1
     mesh = build_mesh(params.get("mesh_shape"), params.get("layout"),
@@ -111,12 +118,15 @@ def _train(args, proc) -> Trainer:
         )
     params["padding_id"] = tokenizer.pad_token_id
 
-    dalle, init_fn, loss_fn, eval_loss_fn = make_dalle_task(params, device, mesh)
+    dalle, vae, init_fn, loss_fn, eval_loss_fn = make_dalle_task(params, device, mesh)
+    # image mode: every rank restores the frozen VAE and encodes its own rows
+    vae_params = None if params["dataset"].get("tokens") else load_vae_params(params, vae)
     trainer = Trainer(
         params, init_fn, loss_fn,
         model_dir=params["model_path"],
         seq_len=dalle.cfg.total_seq_len,
         device=device,
+        frozen_params=vae_params,
         eval_loss_fn=eval_loss_fn,
         mesh=mesh,
     )

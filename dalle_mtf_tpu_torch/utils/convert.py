@@ -99,17 +99,22 @@ def save_npz(path, tree) -> None:
     np.savez(path, **{k: _leaf_to_numpy(v) for k, v in _flatten(tree)})
 
 
+def nest(flat) -> dict:
+    """{``/``-joined path: leaf} -> the nested tree."""
+    tree: dict = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
 def load_npz(path) -> dict:
     """Read an npz written by ``save_npz`` back into a nested numpy tree."""
-    tree: dict = {}
     with np.load(path) as z:
-        for key in z.files:
-            node = tree
-            *parents, leaf = key.split("/")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = z[key]
-    return tree
+        return nest({key: z[key] for key in z.files})
 
 
 def grads_to_numpy(tree) -> dict:

@@ -154,6 +154,8 @@ def test_port_never_imports_jax():
         "ops.layer_norm",
         # stage-1 VAE training
         "ops.gumbel", "models.vae", "train_vae", "utils.png",
+        # DALLE image mode and the offline encode
+        "utils.restore", "data.encode_dataset", "data.create_tfrecords",
     ]
     code = (
         "import pkgutil, sys, dalle_mtf_tpu_torch as p\n"

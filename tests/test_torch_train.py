@@ -232,7 +232,7 @@ def test_adam_state_round_trip():
             np.testing.assert_array_equal(_flat(again[key])[name], v)
 
 
-def test_unported_options_are_refused():
+def test_unported_options_are_refused(tmp_path):
     base = {"n_embd": 64, "text_vocab_size": 48, "image_vocab_size": 32,
             "text_seq_len": 8, "n_layers": 1, "n_heads": 2}
     for bad in ({"fused_xent": True}, {"layout": "batch_dim:data,layers:pipe"},
@@ -254,12 +254,14 @@ def test_unported_options_are_refused():
     for bad in ({"optimizer": "adafactor"}, {"skip_nonfinite_updates": 3}):
         with pytest.raises(NotImplementedError):
             toptim.get_optimizer({"lr": 1e-3, **bad}, tree)
-    from dalle_mtf_tpu_torch.data import fs, pipeline
+    from dalle_mtf_tpu_torch.data import fs
 
     with pytest.raises(NotImplementedError):
         fs.list_files("gs://bucket/*.tfrecords")
-    with pytest.raises(NotImplementedError, match="image-mode"):
-        pipeline.dalle_input_fn({"dataset": {"train_path": "x"}, "train_batch_size": 1})
+    from dalle_mtf_tpu_torch import train_dalle
+
+    with pytest.raises(NotImplementedError, match="predict_steps"):
+        train_dalle.main(["--model", _train_config(tmp_path, predict_steps=2), "--device", "cpu"])
 
 
 # ------------------------------------------------------ pipeline and trainer
@@ -401,7 +403,7 @@ def test_microbatches_average_like_one_batch(tmp_path):
     states = []
     for mb in (None, 48):
         params["tokens_per_mb_per_replica"] = mb
-        dalle, init_fn, loss_fn, _ = make_dalle_task(params, "cpu")
+        dalle, _vae, init_fn, loss_fn, _ = make_dalle_task(params, "cpu")
         trainer = Trainer(params, init_fn, loss_fn, str(tmp_path / "mb"), 24, "cpu")
         assert trainer.num_mb == (2 if mb else 1)
         state = trainer.init_state(torch.Generator().manual_seed(0))

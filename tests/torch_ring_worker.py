@@ -11,7 +11,9 @@ inputs' ``plain`` choice, if any); writes its
 out, dq, dk, dv and kernel counts to ``<out_dir>/rank<r>.pt``.
 ``dalle_step``: the DALLE loss and gradients of this rank's share on the
 global tokens, summed over the world; rank 0 writes them to
-``<out_dir>/step.pt``. Imports torch and the port only.
+``<out_dir>/step.pt``. ``image_step``: the same for an image-mode batch
+through ``make_dalle_task``'s train loss, the frozen VAE encoding this
+rank's rows. Imports torch and the port only.
 """
 
 import os
@@ -26,6 +28,8 @@ from dalle_mtf_tpu_torch.models.dalle import DALLE, DalleConfig  # noqa: E402
 from dalle_mtf_tpu_torch.ops import ring_attention as ring  # noqa: E402
 from dalle_mtf_tpu_torch.parallel.mesh import build_mesh  # noqa: E402
 from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: E402
+from dalle_mtf_tpu_torch.train.tasks import make_dalle_task  # noqa: E402
+from dalle_mtf_tpu_torch.utils.config import Config  # noqa: E402
 from dalle_mtf_tpu_torch.utils.distributed import init_distributed  # noqa: E402
 
 
@@ -54,24 +58,48 @@ def attention(inp, out_dir, proc):
                os.path.join(out_dir, f"rank{proc.rank}.pt"))
 
 
+def _trainable(params):
+    """A copy of the parameter tree whose leaves require grad."""
+    tree = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v.clone())
+            for k, v in params.items()}
+    for _, t in named_leaves(tree):
+        t.requires_grad_(True)
+    return tree
+
+
+def _save_summed(loss, tree, out_dir, proc):
+    """Backward, then the loss and grads summed over the world; rank 0
+    writes them to ``<out_dir>/step.pt``."""
+    loss.backward()
+    grads = {"/".join(p): t.grad for p, t in named_leaves(tree)}
+    for t in (loss.detach(), *grads.values()):
+        dist.all_reduce(t)
+    if proc.rank == 0:
+        torch.save({"loss": loss.detach(), "grads": grads}, os.path.join(out_dir, "step.pt"))
+
+
 def dalle_step(inp, out_dir, proc):
     cfg = DalleConfig(**inp["config"])
     mesh = build_mesh(inp["mesh_shape"], inp["layout"], cfg.attention_type, proc.rank,
                       proc.world)
     model = DALLE(cfg, "cpu", mesh)
-    params = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v.clone())
-              for k, v in inp["params"].items()}
-    for _, t in named_leaves(params):
-        t.requires_grad_(True)
+    params = _trainable(inp["params"])
     tokens = _rows(mesh, cfg.ring_batch_axis, inp["tokens"], 0)
     loss, _ = model.loss(params, tokens, torch.Generator().manual_seed(inp["seed"]),
                          train=True)
-    loss.backward()
-    grads = {"/".join(p): t.grad for p, t in named_leaves(params)}
-    for t in (loss.detach(), *grads.values()):
-        dist.all_reduce(t)
-    if proc.rank == 0:
-        torch.save({"loss": loss.detach(), "grads": grads}, os.path.join(out_dir, "step.pt"))
+    _save_summed(loss, params, out_dir, proc)
+
+
+def image_step(inp, out_dir, proc):
+    params = Config.from_mapping(inp["config"])
+    mesh = build_mesh(params["mesh_shape"], params["layout"], params["attention_type"],
+                      proc.rank, proc.world)
+    dalle, _vae, _init, train_loss, _eval = make_dalle_task(params, "cpu", mesh)
+    tree = _trainable(inp["params"])
+    batch = {k: _rows(mesh, dalle.cfg.ring_batch_axis, v, 0) for k, v in inp["batch"].items()}
+    loss, _ = train_loss(tree, inp["vae_params"], batch,
+                         torch.Generator().manual_seed(inp["seed"]), 0)
+    _save_summed(loss, tree, out_dir, proc)
 
 
 def main():
@@ -79,7 +107,8 @@ def main():
     proc = init_distributed(None, "cpu")
     try:
         inp = torch.load(inputs, weights_only=False)
-        {"attention": attention, "dalle_step": dalle_step}[mode](inp, out_dir, proc)
+        {"attention": attention, "dalle_step": dalle_step,
+         "image_step": image_step}[mode](inp, out_dir, proc)
         dist.barrier()
     finally:
         dist.destroy_process_group()
