@@ -160,7 +160,11 @@ Phases, none of them optional:
    ``uint8_images: true`` arm from the same init (first loss bit-equal);
    ``create_tfrecords encode`` of the same records (batch 16; at least 99%
    of its tokens agree with the in-step encode) and tokens mode on them
-   (first loss within 1e-3 of image mode's); the encoder's ms a step by
+   (first loss within 1e-3 of image mode's) with ``predict_steps: 1``,
+   ``predict_batch_size: 4``: the frozen VAE restored for its decoder, one
+   predict at the checkpoint through the captured decode loop on the live
+   training parameters (four 256² PNGs, the prompts and the image
+   summaries; the prefill's [B, H, S, D] forward kernel counted), timed; the encoder's ms a step by
    CUDA events and a profile of two steps with its convs as a bucket; its
    "train_image" line holds step s, tokens/s, MFU with the encoder's FLOPs
    beside it, peak memory, the data-wait share and the uint8 arm's step.
@@ -168,7 +172,11 @@ Phases, none of them optional:
    weights from a seed. Banded prefill logits on the card against the port's
    plain path on the CPU in fp32 (same weights); then the HTTP server
    (BatchingSampler, batch 4) answers mixed requests, with every kernel
-   launch counted.
+   launch counted. Every engine decodes through ``sample.CapturedDecoder``:
+   one decode step captured as a CUDA graph per bucket (after one eager
+   warm-up step) and replayed image_seq_len - 1 times a batch; a replay's
+   kernel launches are counted by the decoder (the capture's counts, per
+   replay).
 6. Decode matmuls against plain, on the card: ``int8_matmul`` and
    ``int4_matmul`` (csrc/decode_matmul.cu) at every dalle_coco decode shape
    at batch 4 (q/k/v, wo with its per-head int4 split, mlp1, mlp2, the
@@ -186,20 +194,35 @@ Phases, none of them optional:
    port's CPU plain path on the same quantized weights; the HTTP server
    answers a greedy and a sampled request in one batch and the greedy one
    again, which must repeat exactly; every decode-matmul launch is counted
-   against 1 + (image_seq_len - 1) * (6 * n_layers + 1) per batch.
-8. Per-batch latency at batch 4, within this call, split into prefill,
-   decode loop and VAE: bf16, int8 in the dequant form (``decode_kernels``
-   off), int8 and int4 through the kernels; a profiled window of decode
-   steps for bf16 and int8.
+   against 1 + (image_seq_len - 1) * (6 * n_layers + 1) per batch, through
+   the graph's replays, plus the warm-up step of a bucket captured in the
+   window.
+8. The captured decode loop against the eager one, at batch 4, in each of
+   bf16, int8 in the dequant form (``decode_kernels`` off), int8 and int4
+   through the kernels (``captured_batch``): greedy tokens bit-equal to the
+   eager loop's over all 1023 steps (bf16; timed, the eager "before") or
+   the first 128 (the others); a sampled batch (temperature 1, top_k 64)
+   through ``generate_images`` timed and split into prefill, decode loop
+   and VAE, its first 128 tokens compared with the eager loop's from the
+   same seed (reported); the bf16 greedy graph replayed from flat logits
+   draws a spread of tokens (the generator moves on at every replay); the
+   host's time to enqueue a replay against a replay's wall time; a
+   window of 16 replays under torch.profiler (device ops, busy share, the
+   decode-matmul kernel events held to the counted launches); then a
+   profiled window of eager bf16 steps, and the continuous engine's
+   captured chunk against ``decode_chunk_eager`` from one state with rows
+   at two positions (greedy rows bit-equal, sampled rows reported).
 9. Continuous batching: ``--quantize int8 --continuous`` over HTTP at batch 4
    with requests admitted at three chunk boundaries; the greedy request's
    images equal the whole-batch int8 engine's byte for byte, and the launches
-   equal (6 * n_layers + 1) * chunk per chunk plus one per admission.
+   equal (6 * n_layers + 1) * chunk per chunk (chunk replays of its graph)
+   plus one per admission.
 
 ``chip_smoke.py --ring-worker <checks|train> ...`` is one rank of the ring
 phases, started by them through ``torch.distributed.run``.
 
-Prints "kernel", "train", "train_vae", "train_image" and "batch" JSON lines,
+Prints "kernel", "train", "train_vae", "train_image", "batch",
+"decode_profile" and "continuous_chunk" JSON lines,
 then the kernel report as one JSON line (with each kernel's least time on the
 card, ``bound_ms``, one PyTorch call's time for the same function,
 ``library_ms``, and on rows 1-2 the image-mode run's launches,
@@ -282,6 +305,9 @@ PEAK_TF32_TFLOPS = 494.7  # H100 SXM dense TF32 on the tensor cores (data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 L2_BYTES = 50e6
 CHUNK = 128  # continuous engine: decode steps between admissions
+EAGER_STEPS = 128  # eager reference steps of the quantized forms and of sampled runs
+PROFILED_REPLAYS = 16  # replays of a decode graph under torch.profiler
+PREDICT_ROWS = 4  # predict_batch_size of the training phase's predict
 DECODE_SHAPES = [  # (name, M, K, N): dalle_coco at batch 4, then M = 1 and 32, then ragged N
     ("qkv", 4, 1024, 1024), ("wo", 4, 1024, 1024), ("mlp1", 4, 1024, 4096),
     ("mlp2", 4, 4096, 1024), ("head_band", 4, 1024, 2048), ("mlp1_m1", 1, 1024, 4096),
@@ -1981,40 +2007,180 @@ def timed(torch, fn):
     return out, time.perf_counter() - t
 
 
-def batch_latency(torch, card, label, dalle, params, vae, vae_params, text4) -> dict:
-    """One whole-batch generation at batch 4, split into prefill, decode
-    loop and VAE (host clock around work that ends in a synchronize)."""
-    from dalle_mtf_tpu_torch.sample import generate_images  # noqa: PLC0415
+def profile_replays(torch, decoder, key, replays: int = PROFILED_REPLAYS) -> dict:
+    """The host's time to enqueue a replay of the decoder's graph ``key``
+    against the wall time of one (4 x ``replays`` back to back, no
+    profiler); then ``replays`` replays under torch.profiler
+    (from a fresh prefill's positions; two replays before them let the
+    profiler settle: a wait and a warm-up step of its schedule, not
+    recorded): device ops a step, the device's busy ms a step and its busy
+    share of the window's wall time, the decode matmuls' ms a step, and
+    their kernel events held to the launches the counters say the replays
+    made."""
+    from torch.profiler import ProfilerActivity, profile, schedule  # noqa: PLC0415
+
+    cfg = decoder.dalle.cfg
+    graph = decoder._graphs[key]
+    per_replay = sum(decoder.launches_per_replay(key).values())
+
+    def reset():
+        with torch.inference_mode():
+            decoder.positions.fill_(cfg.text_seq_len)
+            decoder.step.zero_()
+        torch.cuda.synchronize()
+
+    # unprofiled: the host's time to enqueue a replay against the card's
+    # time to run one (one step a graph is enough while the first is far
+    # the smaller)
+    reset()
+    t0 = time.perf_counter()
+    for _ in range(4 * replays):
+        graph.replay()
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ran = time.perf_counter() - t0
+    reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            prof.step()
+        t0 = time.perf_counter()
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.step()
+    # the schedule's step annotation lies on the device's timeline too: not work
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith("ProfilerStep")]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e6
+    span = (max(e.time_range.end for e in device)
+            - min(e.time_range.start for e in device)) / 1e6 if device else 0.0
+    mm = [e for e in device if "decode_matmul" in e.name]
+    if len(mm) != per_replay * replays:
+        raise AssertionError(f"the profiler saw {len(mm)} decode-matmul kernels over {replays} "
+                             f"replays; the counters say {per_replay} a replay")
+    return dict(replays=replays, device_ops_per_step=len(device) / replays,
+                device_busy_ms_per_step=busy / replays * 1e3,
+                decode_matmul_kernels_ms_per_step=sum(e.time_range.elapsed_us() for e in mm)
+                / replays / 1e3,
+                decode_matmul_events=len(mm), launches_per_replay=per_replay,
+                profiled_wall_ms_per_step=wall / replays * 1e3,
+                device_busy_share=busy / wall if device else None,
+                device_span_ms_per_step=span / replays * 1e3,
+                busy_share_of_device_span=busy / span if device else None,
+                enqueue_ms_per_replay=enqueued / (4 * replays) * 1e3,
+                unprofiled_ms_per_replay=ran / (4 * replays) * 1e3)
+
+
+def draws_advance(torch, decoder) -> int:
+    """Replay the greedy bucket's graph 40 times from flat logits at
+    temperature 1 (the logits, position and step put back before each):
+    the registered generator must move on at every replay, so the draws
+    spread over the band. Returns the distinct tokens drawn."""
+    cfg = decoder.dalle.cfg
+    graph = decoder._graphs[("batch", 0, False)]
+    draws = []
+    with torch.inference_mode():
+        decoder.temperature.fill_(1.0)
+        for _ in range(40):
+            decoder.logits.zero_()
+            decoder.positions.fill_(cfg.text_seq_len)
+            decoder.step.zero_()
+            graph.replay()
+            draws.append(int(decoder.image[0, 0]))
+    if len(set(draws)) <= 30:  # 40 uniform draws over the 2048-token band
+        raise AssertionError(f"captured draws do not advance across replays: {draws}")
+    return len(set(draws))
+
+
+def captured_batch(torch, card, label, dalle, params, vae, vae_params, text4,
+                   eager_steps: int | None) -> dict:
+    """One weight form's whole-batch generation at batch 4 through the
+    captured decode loop (``sample.CapturedDecoder``), against the eager
+    loop on the same inputs:
+
+    - greedy: the first call captures the graph (timed apart), the second
+      is timed; its tokens bit-equal to ``generate_image_tokens_eager``'s
+      over ``eager_steps`` steps (None: the whole image, timed as the
+      eager "before" batch);
+    - sampled (temperature 1, top_k 64), the served path
+      (``generate_images``' tokens, then VAE) timed after its bucket's capture, split into
+      prefill, decode loop and VAE (host clock around work that ends in a
+      synchronize); whether its first EAGER_STEPS tokens equal the eager
+      loop's from the same seed (reported, not required);
+    - a profiled window of replays (``profile_replays``)."""
+    from dalle_mtf_tpu_torch import sample  # noqa: PLC0415
 
     cfg = dalle.cfg
     side = vae.cfg.image_size
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    temps = torch.full((BATCH,), 1.0, device="cuda")
+    n_ref = cfg.image_seq_len if eager_steps is None else eager_steps
+    zeros = torch.zeros((BATCH,), device="cuda")
+    ones = torch.ones((BATCH,), device="cuda")
     band = (cfg.text_vocab_size, cfg.text_vocab_size + cfg.image_vocab_size)
+    dec = sample.CapturedDecoder(dalle, params, BATCH)
     with torch.inference_mode():
-        imgs, total = timed(torch, lambda: generate_images(
-            dalle, params, vae, vae_params, text4, gen, temperature=temps, top_k=64))
+        _, capture_s = timed(torch, lambda: dec.generate(text4, zeros, 0))
+        greedy, greedy_s = timed(torch, lambda: dec.generate(text4, zeros, 0).clone())
+        want, eager_s = timed(torch, lambda: sample.generate_image_tokens_eager(
+            dalle, params, text4, torch.Generator("cuda").manual_seed(0), zeros, 0,
+            steps=n_ref))
+        if not torch.equal(greedy[:, :n_ref], want):
+            bad = (greedy[:, :n_ref] != want).nonzero()[0].tolist()
+            raise AssertionError(f"{label}: captured greedy tokens differ from the eager "
+                                 f"loop's first at (row, step) {bad}")
+        draws = draws_advance(torch, dec) if label == "bf16" else None
+        prof = profile_replays(torch, dec, ("batch", 0, False))
+
+        dec.generate(text4, ones, 64)  # captures the sampled bucket
+
+        def served():  # generate_images: the tokens, then the VAE
+            tokens = sample.generate_image_tokens(
+                dalle, params, text4, torch.Generator("cuda").manual_seed(1), ones, 64,
+                decoder=dec)
+            return tokens, vae.decode_tokens(vae_params, tokens)
+
+        (sampled, imgs), total = timed(torch, served)
+        ref = sample.generate_image_tokens_eager(
+            dalle, params, text4, torch.Generator("cuda").manual_seed(1), ones, 64,
+            steps=EAGER_STEPS)
+        sampled_equal = bool(torch.equal(sampled[:, :EAGER_STEPS], ref))
         head = dalle.logits_head(params, band)
         _, t_prefill = timed(torch, lambda: dalle.prefill(
             params, text4, dalle.init_cache(BATCH), head=head))
-        img_tokens = torch.randint(0, cfg.image_vocab_size,
-                                   (BATCH, cfg.image_seq_len), device="cuda")
-        _, t_vae = timed(torch, lambda: vae.decode_tokens(vae_params, img_tokens))
+        _, t_vae = timed(torch, lambda: vae.decode_tokens(vae_params, sampled))
+    distinct = sampled.unique().numel()
     if imgs.shape != (BATCH, side, side, 3) or not torch.isfinite(imgs).all():
         raise AssertionError(f"{label}: generate_images gave {tuple(imgs.shape)}")
-    split = dict(card=card, weights=label, batch=BATCH, latency_s=total,
-                 images_per_s=BATCH / total, prefill_s=t_prefill, vae_s=t_vae,
-                 decode_loop_s=total - t_prefill - t_vae, decode_steps=cfg.image_seq_len - 1)
+    if distinct < 64:
+        raise AssertionError(f"{label}: a sampled batch drew only {distinct} distinct tokens")
+    steps = cfg.image_seq_len - 1
+    split = dict(card=card, weights=label, path="captured CUDA graphs", batch=BATCH,
+                 latency_s=total, images_per_s=BATCH / total, prefill_s=t_prefill, vae_s=t_vae,
+                 decode_loop_s=total - t_prefill - t_vae, decode_steps=steps,
+                 decode_ms_per_step=(total - t_prefill - t_vae) / steps * 1e3,
+                 first_call_with_capture_s=capture_s, greedy_tokens_s=greedy_s,
+                 greedy_bit_equal_steps=n_ref, eager_steps=n_ref, eager_s=eager_s,
+                 eager_ms_per_step=eager_s / n_ref * 1e3,
+                 sampled_equal_to_eager_steps=EAGER_STEPS if sampled_equal else 0,
+                 sampled_distinct_tokens=distinct, distinct_draws_of_40_replays=draws,
+                 **{f"profile_{k}": v for k, v in prof.items()})
+    if eager_steps is None:  # the eager loop over the whole image: the "before"
+        split.update(eager_latency_s=eager_s + t_vae, eager_images_per_s=BATCH / (eager_s + t_vae),
+                     eager_decode_loop_s=eager_s - t_prefill)
     print("batch", json.dumps(split), flush=True)
+    del dec
     return split
 
 
-def decode_profile(torch, card, label, dalle, params, text4, split, steps: int = 16,
-                   names=("decode_matmul",)):
-    """A window of decode steps under torch.profiler: device ops per step,
-    the device ms a step of the kernels named ``names`` (the decode
-    matmuls) and the device's busy share (null when the profiler saw no
-    device work)."""
+def decode_profile(torch, card, label, dalle, params, text4, wall_ms_per_step: float,
+                   steps: int = 16, names=("decode_matmul",)):
+    """A window of EAGER decode steps (``decode_step`` dispatched from
+    Python, the loop before capture) under torch.profiler: device ops per
+    step, the device ms a step of the kernels named ``names`` and the
+    device's busy share (null when the profiler saw no device work)."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
     cfg = dalle.cfg
@@ -2036,13 +2202,64 @@ def decode_profile(torch, card, label, dalle, params, text4, split, steps: int =
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e6
     mm = sum(e.time_range.elapsed_us() for e in device if any(n in e.name for n in names)) / 1e6
     print("decode_profile", json.dumps(dict(
-        card=card, weights=label, steps=steps, device_ops_per_step=len(device) / steps,
+        card=card, weights=label, path="eager loop", steps=steps,
+        device_ops_per_step=len(device) / steps,
         device_busy_ms_per_step=busy / steps * 1e3,
         decode_matmul_kernels_ms_per_step=mm / steps * 1e3,
         profiled_wall_ms_per_step=wall / steps * 1e3,
-        unprofiled_wall_ms_per_step=split["decode_loop_s"] / split["decode_steps"] * 1e3,
+        unprofiled_wall_ms_per_step=wall_ms_per_step,
         device_busy_share=busy / wall if device else None,
     )), flush=True)
+
+
+def continuous_chunks(torch, card, dalle, params, text4) -> dict:
+    """The continuous engine's captured chunk (``CapturedDecoder.decode_chunk``,
+    CHUNK replays of its k_max graph) against ``decode_chunk_eager`` from the
+    same state: rows 0-1 admitted, a greedy chunk (whose first call captures
+    the graph with live rows, the warm-up's changes put back), then rows
+    2-3 admitted at the text end while 0-1 sit CHUNK steps in, a chunk with
+    per-row sampling (rows 1 and 2 sampled, 0 and 3 greedy). Greedy rows'
+    tokens, the active flags, the positions and the greedy rows' logits
+    bit-equal; the sampled rows' equality reported."""
+    import numpy as np  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch import sample  # noqa: PLC0415
+
+    dec = sample.CapturedDecoder(dalle, params, BATCH, chunk=CHUNK)
+    dec.reset(0)
+    cases = [  # (admitted rows, temperature, top_k, top_p)
+        ([True, True, False, False], [0.0] * 4, [0] * 4, [1.0] * 4),
+        ([False, False, True, True], [0.0, 1.0, 0.8, 0.0], [0, 64, 16, 0], [1.0, 1.0, 0.9, 1.0]),
+    ]
+    out = dict(card=card, weights="int8_kernels", chunk=CHUNK, chunks=[])
+    for c, (mask, temps, ks, ps) in enumerate(cases):
+        temps, ks, ps = (np.asarray(temps, np.float32), np.asarray(ks, np.int64),
+                         np.asarray(ps, np.float32))
+        with torch.inference_mode():
+            dec.admit(text4, torch.tensor(mask, device="cuda"))
+            cache = {k: v.clone() for k, v in dec.cache.items()}
+            logits, pos = dec.logits.clone(), dec.positions.clone()
+        dec.generator.manual_seed(c)
+        (tok, act), captured_s = timed(torch, lambda: dec.decode_chunk(temps, ks, ps, k_max=256))
+        (e_logits, e_pos, e_tok, e_act), eager_s = timed(torch, lambda: sample.decode_chunk_eager(
+            dalle, params, cache, logits, pos, torch.Generator("cuda").manual_seed(c),
+            torch.from_numpy(temps).cuda(), torch.from_numpy(ks).cuda(), chunk=CHUNK,
+            k_max=256, top_p_rows=torch.from_numpy(ps).cuda(), head=dec.head))
+        greedy = torch.from_numpy(temps <= 0).cuda()
+        if not (torch.equal(tok[:, greedy], e_tok[:, greedy]) and torch.equal(act, e_act)
+                and torch.equal(dec.positions, e_pos)
+                and torch.equal(dec.logits[greedy], e_logits[greedy])):
+            raise AssertionError(f"continuous chunk {c}: the captured chunk differs from "
+                                 "decode_chunk_eager on its greedy rows")
+        out["chunks"].append(dict(
+            admitted=mask, greedy_rows_bit_equal=True,
+            sampled_rows_equal=bool(torch.equal(tok[:, ~greedy], e_tok[:, ~greedy])),
+            positions=dec.positions.tolist(), captured_s=captured_s, eager_s=eager_s,
+            includes_capture=c == 0))
+        del cache
+    out["replays"] = {"/".join(map(str, k)): v for k, v in dec.replays.items()}
+    print("continuous_chunk", json.dumps(out), flush=True)
+    return out
 
 
 def quantize_columns(torch, w, qmax):
@@ -2204,6 +2421,7 @@ def phase_quant_serving(torch, attn, dmm, card, mode, config, texts):
     from dalle_mtf_tpu_torch import serve_dalle  # noqa: PLC0415
     from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
     from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer, pad_or_truncate  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.sample import WARMUP_STEPS  # noqa: PLC0415
 
     kind = f"{mode}_matmul"
     sampler, server, thread, port, load_s = start_server(
@@ -2248,6 +2466,7 @@ def phase_quant_serving(torch, attn, dmm, card, mode, config, texts):
 
         # --- HTTP: a greedy and a sampled request share a batch, then the greedy again
         batches_before = sampler.stats()["batches_done"]
+        graphs_before = len(sampler._decoder.replays)
         reset_counts(attn, dmm)
         t0 = time.perf_counter()
         greedy = {"text": texts[0], "n": 2, "temperature": 0.0, "top_k": 0}
@@ -2272,21 +2491,34 @@ def phase_quant_serving(torch, attn, dmm, card, mode, config, texts):
         check_pngs(replies + [again], side)
         if again["images"] != replies[0]["images"]:
             raise AssertionError(f"{mode}: two identical greedy requests differ")
-        per_batch = 1 + (cfg.image_seq_len - 1) * (6 * cfg.n_layers + 1)
+        # a batch: the prefill's head, then image_seq_len - 1 replays of a
+        # graph of 6 launches a layer and the head's; a bucket's first batch
+        # also runs its eager warm-up steps before the capture
+        per_step = 6 * cfg.n_layers + 1
+        per_batch = 1 + (cfg.image_seq_len - 1) * per_step
+        captures = len(sampler._decoder.replays) - graphs_before
+        want = per_batch * batches + captures * WARMUP_STEPS * per_step
+        replays = sum(sampler._decoder.replays.values())
         other = "int4_matmul" if mode == "int8" else "int8_matmul"
-        if (batches == 0 or launches[kind] != per_batch * batches or launches[other]
-                or attn_launches != cfg.n_layers * batches):
+        if (batches == 0 or launches[kind] != want or launches[other]
+                or attn_launches != cfg.n_layers * batches
+                or any(v != {kind: per_step} for v in map(
+                    sampler._decoder.launches_per_replay, sampler._decoder.replays))):
             raise AssertionError(
                 f"{mode}: launches {launches}, attention {attn_launches}, expected "
-                f"{per_batch} x {batches} batches and {cfg.n_layers} x {batches}")
+                f"{per_batch} x {batches} batches + {captures} warm-ups of {per_step} and "
+                f"{cfg.n_layers} x {batches}")
         print(f"{mode} served {sum(len(r['images']) for r in replies + [again])} images in "
               f"{len(mixed) + 1} requests, {batches} batches, {wall:.2f}s (load + warm "
               f"{load_s:.1f}s); {kind} launches {launches[kind]} = {per_batch} x {batches} "
-              f"batches; latencies {[r['latency_s'] for r in replies + [again]]}", flush=True)
+              f"batches + {captures} x {WARMUP_STEPS} warm-up steps of {per_step}, through "
+              f"{replays} graph replays in all; latencies "
+              f"{[r['latency_s'] for r in replies + [again]]}", flush=True)
     finally:
         stop_server(sampler, server, thread)
     return dict(launches=launches[kind], batches=batches, dalle=dalle, params=qparams,
-                greedy=greedy, greedy_images=replies[0]["images"])
+                greedy=greedy, greedy_images=replies[0]["images"],
+                launches_per_replay=per_step, graph_captures_in_window=captures)
 
 
 def phase_continuous(torch, attn, dmm, card, config, whole_batch):
@@ -2950,14 +3182,27 @@ def image_train_config(tmp: str, pattern: str, run: str, train_steps: int, vae_d
     return path
 
 
-def run_train_dalle(path, *flags):
+def run_train_dalle(path, *flags, predict_s: list | None = None):
     """``train_dalle.main`` on config ``path`` (on cuda:0) with its training
     stream wrapped in ``TimedBatches``: (the closed Trainer, the
-    TimedBatches)."""
+    TimedBatches). With ``predict_s`` (a list), the seconds of each
+    predict at a checkpoint are appended to it (host clock, the images
+    fetched to the host inside)."""
     from dalle_mtf_tpu_torch import train_dalle  # noqa: PLC0415
 
     make_pipeline = train_dalle.dalle_input_fn
+    make_predict = train_dalle.make_predict_summary_fn
     streams: list[TimedBatches] = []
+
+    def timed_predict(*args, **kw):
+        fn = make_predict(*args, **kw)
+
+        def summary_fn(trainer, state, step):
+            t0 = time.perf_counter()
+            fn(trainer, state, step)
+            predict_s.append(time.perf_counter() - t0)
+
+        return summary_fn if fn is not None else None
 
     def timed_train_stream(params, eval=False, **kw):
         pipeline = make_pipeline(params, eval=eval, **kw)
@@ -2967,10 +3212,39 @@ def run_train_dalle(path, *flags):
         return streams[-1]
 
     train_dalle.dalle_input_fn = timed_train_stream
+    if predict_s is not None:
+        train_dalle.make_predict_summary_fn = timed_predict
     try:
         return train_dalle.main(["--model", path, *flags, "--gpu_ids", "0"]), streams[-1]
     finally:
         train_dalle.dalle_input_fn = make_pipeline
+        train_dalle.make_predict_summary_fn = make_predict
+
+
+def check_predict(run_dir: str, step: int, side: int, predict_s: list, attn_launches: int,
+                  n_layers: int) -> dict:
+    """The one predict of a ``predict_steps: 1`` run at its step-``step``
+    checkpoint: PREDICT_ROWS PNGs of side x side x 3 and the prompts under
+    ``<run_dir>/predict/step_<step>/``, the image summaries in the event
+    file, the prefill through the [B, H, S, D] forward kernel (one launch a
+    layer)."""
+    from dalle_mtf_tpu_torch.utils.summaries import read_summaries  # noqa: PLC0415
+
+    out = os.path.join(run_dir, "predict", f"step_{step:07d}")
+    names = sorted(os.listdir(out))
+    want = sorted([f"batch0_row{j}.png" for j in range(PREDICT_ROWS)] + ["prompts.txt"])
+    shapes = []
+    for j in range(PREDICT_ROWS):
+        with open(os.path.join(out, f"batch0_row{j}.png"), "rb") as f:
+            shapes.append(png_shape(base64.b64encode(f.read())))
+    tags = [tag for s_, tag, _ in read_summaries(run_dir) if tag.startswith("predict/")]
+    if (names != want or any(sh != (side, side, 3) for sh in shapes) or len(predict_s) != 1
+            or len(tags) != PREDICT_ROWS or attn_launches != n_layers):
+        raise AssertionError(f"predict at step {step}: files {names}, shapes {shapes}, "
+                             f"{len(predict_s)} predicts, summaries {tags}, causal_attention_fwd "
+                             f"launches {attn_launches} (want {n_layers})")
+    return dict(step=step, rows=PREDICT_ROWS, predict_s=predict_s[0], png_shapes=shapes,
+                summaries=len(tags), causal_attention_fwd_launches=attn_launches)
 
 
 def token_agreement(torch, image_params, tokens_params, vae, frozen) -> dict:
@@ -3148,7 +3422,8 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
         encode_s = time.perf_counter() - t0
         tokens_pattern = os.path.join(tmp, "encoded", "*.tfrecords")
         tok_path = image_train_config(tmp, tokens_pattern, "tokens", TOKENS_STEPS, vae_dir,
-                                      eval_steps=0, dataset={"tokens": True})
+                                      eval_steps=0, dataset={"tokens": True}, predict_steps=1,
+                                      predict_batch_size=PREDICT_ROWS)
         agreement = token_agreement(torch, fetch_model_params(path),
                                     fetch_model_params(tok_path), vae, frozen)
         print(f"train_image: create_tfrecords encode wrote {files} files of 256 records in "
@@ -3157,10 +3432,17 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
         if agreement["agree_share"] < 0.99:
             raise AssertionError(f"offline tokens agree with the in-step encode on "
                                  f"{agreement['agree_share']:.4f} < 0.99")
-        tok, _ = run_train_dalle(tok_path, "--new", "--yes")
+        reset_counts(attn)
+        predict_s: list[float] = []
+        tok, _ = run_train_dalle(tok_path, "--new", "--yes", predict_s=predict_s)
         tok_losses = check_dalle_run(tok, list(range(1, TOKENS_STEPS + 1)), [], {}, {})
+        predict = check_predict(os.path.join(tmp, "tokens"), TOKENS_STEPS, vcfg.image_size,
+                                predict_s, attn.KERNEL_LAUNCHES["causal_attention_fwd"],
+                                cfg.n_layers)
         print(f"train_image tokens: losses {[round(x, 4) for x in tok_losses]}; first loss "
-              f"{tok_losses[0]!r} vs image mode {losses[0]!r}", flush=True)
+              f"{tok_losses[0]!r} vs image mode {losses[0]!r}; predict_steps 1 at the "
+              f"step-{TOKENS_STEPS} checkpoint with the frozen VAE restored in tokens mode: "
+              f"{predict}", flush=True)
         if abs(tok_losses[0] - losses[0]) > 1e-3:
             raise AssertionError(f"tokens-mode first loss {tok_losses[0]} vs image mode "
                                  f"{losses[0]}: more than 1e-3 apart")
@@ -3197,7 +3479,7 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
             uint8_step_s=u8_step_s, uint8_step_s_median=statistics.median(u8_step_s),
             uint8_data_wait_share=u8_wait, uint8_first_loss_bit_equal=True,
             encode_files=files, encode_s=encode_s, **agreement,
-            tokens_first_loss=tok_losses[0], image_first_loss=losses[0],
+            tokens_first_loss=tok_losses[0], image_first_loss=losses[0], predict=predict,
             values={k: values[k] for k in ("loss_card", "loss_cpu", "worst_grad_rel_l2")},
             **split, phase_s=time.perf_counter() - t_phase,
         )
@@ -3308,10 +3590,15 @@ def main() -> int:
             ("int8_kernels", int8_dalle, quant["int8"]["params"]),
             ("int4_kernels", quant["int4"]["dalle"], quant["int4"]["params"]),
         ]
-        splits = {label: batch_latency(torch, card, label, d, p, vae, vae_params, text4)
+        splits = {label: captured_batch(torch, card, label, d, p, vae, vae_params, text4,
+                                        eager_steps=None if label == "bf16" else EAGER_STEPS)
                   for label, d, p in variants}
-        for label, d, p in (variants[0], variants[2]):
-            decode_profile(torch, card, label, d, p, text4, splits[label])
+        gc.collect()
+        torch.cuda.empty_cache()
+        decode_profile(torch, card, "bf16", bf16["dalle"], bf16["params"], text4,
+                       splits["bf16"]["eager_decode_loop_s"] / splits["bf16"]["decode_steps"]
+                       * 1e3)
+        continuous_chunks(torch, card, int8_dalle, quant["int8"]["params"], text4)
         continuous_launches = phase_continuous(torch, attn, dmm, card, config, quant["int8"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3340,6 +3627,9 @@ def main() -> int:
             name=name, route="cuda", source=DECODE_SOURCE, replaces=REPLACES[name],
             launches=quant[mode]["launches"], **{k: decode[name][k] for k in keys},
             shape="mlp1 M=4 K=1024 N=4096",
+            launches_through="captured CUDA graphs: launches a replay x replays, plus the "
+                             "prefill heads and a capture's eager warm-up step",
+            launches_per_replay=quant[mode]["launches_per_replay"],
         ))
     rows[3]["continuous_launches"] = continuous_launches
     launches = {"long": long_launches, "values": unpacked["launches"]}

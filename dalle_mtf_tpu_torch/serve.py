@@ -15,6 +15,13 @@
   that has succeeded before) is retried once; a bucket's first call fails
   fast. The final failure surfaces to every waiter in the batch.
 
+Each engine decodes through one ``sample.CapturedDecoder``: its KV cache and
+buffers for the engine's life, and on the card a CUDA graph of one decode
+step for each whole-batch bucket (captured on first use) or the continuous
+chunk, replayed step after step; its generator, registered with the graphs,
+is reseeded per batch (per reset, in the continuous engine) from (seed,
+counter). A retry replays the same graph: there is no eager fallback.
+
 ``ContinuousBatchingSampler`` admits requests into free slots of a live
 batch at chunk boundaries (see its docstring). Both engines share the client
 API (``submit`` -> Future, ``drain``, ``close``, ``stats``), so
@@ -97,7 +104,7 @@ class BatchingSampler:
         top_k_buckets=(0, 16, 64, 256),
         max_retries: int = 1,
     ):
-        from dalle_mtf_tpu_torch.sample import generate_images  # noqa: PLC0415
+        from dalle_mtf_tpu_torch.sample import CapturedDecoder  # noqa: PLC0415
 
         self.dalle = dalle
         self.vae = vae
@@ -108,7 +115,7 @@ class BatchingSampler:
         self.max_retries = int(max_retries)
         self.linger_s = linger_ms / 1e3
         self._params = (dalle_params, vae_params)
-        self._generate = generate_images
+        self._decoder = CapturedDecoder(dalle, dalle_params, self.batch_size)
         self._seed = int(seed)
         self._batch_counter = 0
         # buckets that have completed at least once: only those are retried
@@ -235,13 +242,19 @@ class BatchingSampler:
             rows += nxt[1]
         return batch
 
-    def _batch_generator(self) -> torch.Generator:
-        """This batch's random stream: a generator on the model's device
-        seeded from (seed, batch counter), as the JAX engine folds the
-        counter into its key."""
-        g = torch.Generator(device=self.dalle.device)
-        g.manual_seed((self._seed * 2**32 + self._batch_counter) % 2**63)
-        return g
+    def _batch_seed(self) -> int:
+        """This batch's random stream: the decoder's generator is seeded
+        from (seed, batch counter), as the JAX engine folds the counter into
+        its key."""
+        return (self._seed * 2**32 + self._batch_counter) % 2**63
+
+    def _generate(self, texts, seed, temperature, top_k, top_p):
+        """One batch through the decoder (the graph of ``top_k`` and top_p
+        presence on the card), then the VAE: f32 [B, H, W, C]."""
+        self._decoder.generator.manual_seed(seed)
+        tokens = self._decoder.generate(texts, temperature, top_k, top_p)
+        with torch.inference_mode():
+            return self.vae.decode_tokens(self._params[1], tokens)
 
     def _run(self):
         b = self.batch_size
@@ -270,12 +283,9 @@ class BatchingSampler:
             for attempt in range(1 + retries):
                 try:
                     imgs = self._generate(
-                        self.dalle, self._params[0], self.vae, self._params[1],
-                        torch.from_numpy(rows).to(dev),
-                        self._batch_generator(),
-                        temperature=torch.from_numpy(temps).to(dev),
-                        top_k=bucket,
-                        top_p=torch.from_numpy(topps).to(dev) if use_top_p else None,
+                        torch.from_numpy(rows).to(dev), self._batch_seed(),
+                        temperature=temps, top_k=bucket,
+                        top_p=topps if use_top_p else None,
                     )
                     imgs = imgs.float().cpu().numpy()
                     self._proven_buckets.add(exe)
@@ -313,7 +323,8 @@ class ContinuousBatchingSampler:
     requests join a live batch at chunk boundaries instead of waiting out
     the in-flight whole-image generation.
 
-    The device loop is ``sample.decode_chunk`` of ``chunk`` steps. Between
+    The device loop is ``chunk`` steps of ``sample.CapturedDecoder``
+    (on the card one graph at ``k_max``, replayed ``chunk`` times). Between
     chunks, finished rows leave (their image decodes and resolves at once),
     cancelled rows are reaped, and queued requests are admitted into free
     slots by a masked prefill (``sample.admit_rows``). A request of ``n``
@@ -342,7 +353,7 @@ class ContinuousBatchingSampler:
         chunk: int = 128,
         k_max: int = 256,
     ):
-        from dalle_mtf_tpu_torch.sample import admit_rows, decode_chunk  # noqa: PLC0415
+        from dalle_mtf_tpu_torch.sample import CapturedDecoder  # noqa: PLC0415
 
         self.dalle = dalle
         self.vae = vae
@@ -352,12 +363,10 @@ class ContinuousBatchingSampler:
         self.chunk = int(chunk)
         self.k_max = int(k_max)
         self._params = (dalle_params, vae_params)
-        self._admit_rows = admit_rows
-        self._decode_chunk = decode_chunk
         cfg = dalle.cfg
-        lo = cfg.text_vocab_size
-        # the banded head, sliced once for the engine's life
-        self._head = dalle.logits_head(dalle_params, (lo, lo + cfg.image_vocab_size))
+        # the cache, the batch's buffers and the banded head, for the
+        # engine's life
+        self._decoder = CapturedDecoder(dalle, dalle_params, self.batch_size, chunk=self.chunk)
         self._end_pos = cfg.text_seq_len + cfg.image_seq_len
         self._chunks_done = 0
         self._admits_done = 0
@@ -427,18 +436,11 @@ class ContinuousBatchingSampler:
 
     def _reset_state(self):
         b = self.batch_size
-        cfg = self.dalle.cfg
-        dev = self.dalle.device
-        self._cache = self.dalle.init_cache(b)
-        # banded: the engine's logits only cover the image-token vocabulary
-        self._logits = torch.zeros((b, cfg.image_vocab_size), dtype=torch.float32, device=dev)
-        # parked at the end: no slot advances until something is admitted
-        self._positions = torch.full((b,), self._end_pos, dtype=torch.long, device=dev)
-        # a reset counter in the seed: two identical requests before and
-        # after a reset must not replay one sampling stream
+        # every slot parked at the end: none advances until something is
+        # admitted; a reset counter in the seed: two identical requests
+        # before and after a reset must not replay one sampling stream
         self._resets += 1
-        self._gen = torch.Generator(device=dev)
-        self._gen.manual_seed((self._seed * 2**32 + self._resets) % 2**63)
+        self._decoder.reset((self._seed * 2**32 + self._resets) % 2**63)
         self._temps = np.full((b,), 1.0, np.float32)
         self._topks = np.zeros((b,), np.int64)
         self._topps = np.ones((b,), np.float32)
@@ -456,10 +458,16 @@ class ContinuousBatchingSampler:
         self._reset_state()
 
     def _park(self, slots: list[int]):
-        mask = torch.zeros((self.batch_size,), dtype=torch.bool)
-        mask[slots] = True
-        self._positions = torch.where(mask.to(self._positions.device), self._end_pos,
-                                      self._positions)
+        positions = self._decoder.positions
+        with torch.inference_mode():
+            positions[torch.tensor(slots, device=positions.device)] = self._end_pos
+
+    def _decode_chunk(self):
+        """One chunk from the decoder's buffers; (tokens, active) [chunk, B]
+        on the host."""
+        tokens, active = self._decoder.decode_chunk(
+            self._temps, self._topks, self._topps, k_max=self.k_max)
+        return tokens.cpu().numpy(), active.cpu().numpy()
 
     def _reap_cancelled(self):
         """Free the slots of cancelled requests: park them so they stop
@@ -507,11 +515,7 @@ class ContinuousBatchingSampler:
             texts[slot] = np.asarray(ids, np.int64)
             mask[slot] = True
         dev = self.dalle.device
-        self._logits, self._positions = self._admit_rows(
-            self.dalle, self._params[0], self._cache, self._logits, self._positions,
-            torch.from_numpy(texts).to(dev), torch.from_numpy(mask).to(dev),
-            head=self._head,
-        )
+        self._decoder.admit(torch.from_numpy(texts).to(dev), torch.from_numpy(mask).to(dev))
         self._admits_done += 1
         logger.info("admitted %d request row(s) into slots %s",
                     len(admitted), [slot for slot, _ in admitted])
@@ -544,7 +548,6 @@ class ContinuousBatchingSampler:
         # fail everyone + reset; an unguarded exception would kill the
         # worker and hang every outstanding Future
         image_len = self.dalle.cfg.image_seq_len
-        dev = self.dalle.device
         while True:
             try:
                 self._reap_cancelled()  # freed slots admit work right away
@@ -556,15 +559,7 @@ class ContinuousBatchingSampler:
                     if self._draining and self._q.empty():
                         return  # drained: everything served, nothing queued
                     continue
-                self._logits, self._positions, tokens, active = self._decode_chunk(
-                    self.dalle, self._params[0], self._cache, self._logits,
-                    self._positions, self._gen,
-                    torch.from_numpy(self._temps).to(dev),
-                    torch.from_numpy(self._topks).to(dev),
-                    chunk=self.chunk, k_max=self.k_max,
-                    top_p_rows=torch.from_numpy(self._topps).to(dev), head=self._head,
-                )
-                tokens, active = tokens.cpu().numpy(), active.cpu().numpy()
+                tokens, active = self._decode_chunk()
                 self._chunks_done += 1
                 finished = []
                 for slot, s in enumerate(self._slot):

@@ -91,19 +91,23 @@ def load_models(params, args):
     else:
         logger.warning("no --vae-weights: VAE initialized from seed %d", args.seed + 1)
         vae_params = vae.init(torch.Generator().manual_seed(args.seed + 1))
+    return dalle, decode_weights(dalle, dalle_params, args), vae, vae_params
+
+
+def decode_weights(dalle, dalle_params, args) -> dict:
+    """The DALLE tree as the decode loop reads it: quantized as
+    ``--quantize``/``--int8`` ask (a tree that is already quantized as it
+    is), else the fp32 masters cast ONCE to the compute dtype, so the loop
+    streams bf16 and converts nothing per token."""
     quant = args.quantize or ("int8" if args.int8 else "none")
     if quantize_mode(dalle_params) != "none":
-        logger.info("serving the loaded %s weights as they are",
-                    quantize_mode(dalle_params))
-    elif quant == "int8":
-        dalle_params = quantize_layers_int8(dalle_params)
-    elif quant == "int4":
-        dalle_params = quantize_layers_int4(dalle_params)
-    else:
-        # unquantized serving casts the fp32 masters to the compute dtype
-        # ONCE, so the decode loop streams bf16 and converts nothing per token
-        dalle_params = cast_decode_weights(dalle_params, dalle.cfg.policy.compute_dtype)
-    return dalle, dalle_params, vae, vae_params
+        logger.info("serving the loaded %s weights as they are", quantize_mode(dalle_params))
+        return dalle_params
+    if quant == "int8":
+        return quantize_layers_int8(dalle_params)
+    if quant == "int4":
+        return quantize_layers_int4(dalle_params)
+    return cast_decode_weights(dalle_params, dalle.cfg.policy.compute_dtype)
 
 
 def build_server(argv=None):
@@ -129,7 +133,8 @@ def build_server(argv=None):
             batch_size=batch, temperature=args.temperature, top_k=args.top_k,
             linger_ms=args.linger_ms, seed=args.seed,
         )
-    # first request builds the kernels, so a client's first call doesn't
+    # the first request builds the kernels and captures the default
+    # bucket's decode graph, so a client's first call doesn't
     warm = sampler.submit([tokenizer.pad_token_id] * dalle.cfg.text_seq_len, 1)
     warm.result()
     logger.info("sampler warm on %s, batch=%d", args.device, batch)

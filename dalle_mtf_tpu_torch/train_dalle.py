@@ -21,8 +21,11 @@ frozen VAE (``vae_model``, trained by ``train_vae``) is restored from
 encoder tokenizes every batch on the device; ``dataset.uint8_images`` moves
 the pixels as uint8. In tokens mode (``dataset.tokens: true``: records of
 VAE token ids, ``python -m dalle_mtf_tpu_torch.data.create_tfrecords
-encode``) no VAE is loaded. The DALLE checkpoints never hold the VAE.
-``predict_steps`` (sampling at checkpoints) is not ported and raises.
+encode``) the VAE is loaded only when ``predict_steps`` needs its decoder.
+The DALLE checkpoints never hold the VAE. With ``predict_steps > 0`` the
+golden captions of a dedicated pipeline are sampled into images at every
+checkpoint (``train/predict.py``: summaries, and PNGs under
+``<model_path>/predict/step_<N>/``).
 Training resumes from the latest checkpoint in ``model_path``, and the data
 stream skips the batches already trained on. ``--new`` wipes
 ``model_path`` first (asking unless ``--yes``). Training runs on
@@ -41,6 +44,7 @@ import torch.distributed as dist
 from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn
 from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer
 from dalle_mtf_tpu_torch.parallel.mesh import build_mesh
+from dalle_mtf_tpu_torch.train.predict import make_predict_summary_fn
 from dalle_mtf_tpu_torch.train.tasks import make_dalle_task
 from dalle_mtf_tpu_torch.train.trainer import Trainer
 from dalle_mtf_tpu_torch.utils.config import fetch_model_params
@@ -96,8 +100,6 @@ def _train(args, proc) -> Trainer:
         raise ValueError(f"config {args.model} is not a dalle config")
     if params["vae_params"] is None:
         raise ValueError("vae model config must be supplied (vae_model key)")
-    if params.get("predict_steps"):
-        raise NotImplementedError("predict_steps (sampling at checkpoints) is not ported yet")
     setup_logging(params["config_name"] or args.model, rank=proc.rank)
     # the ranks' layout; TP and PP layouts raise here at world size > 1
     mesh = build_mesh(params.get("mesh_shape"), params.get("layout"),
@@ -119,14 +121,19 @@ def _train(args, proc) -> Trainer:
     params["padding_id"] = tokenizer.pad_token_id
 
     dalle, vae, init_fn, loss_fn, eval_loss_fn = make_dalle_task(params, device, mesh)
-    # image mode: every rank restores the frozen VAE and encodes its own rows
-    vae_params = None if params["dataset"].get("tokens") else load_vae_params(params, vae)
+    # image mode: every rank restores the frozen VAE and encodes its own
+    # rows; tokens mode needs its decoder only to predict at checkpoints
+    tokens_mode = bool(params["dataset"].get("tokens"))
+    if tokens_mode and not params.get("predict_steps"):
+        vae_params = None
+    else:
+        vae_params = load_vae_params(params, vae)
     trainer = Trainer(
         params, init_fn, loss_fn,
         model_dir=params["model_path"],
         seq_len=dalle.cfg.total_seq_len,
         device=device,
-        frozen_params=vae_params,
+        frozen_params=None if tokens_mode else vae_params,
         eval_loss_fn=eval_loss_fn,
         mesh=mesh,
     )
@@ -141,16 +148,24 @@ def _train(args, proc) -> Trainer:
     train_iter = iter(dalle_input_fn(params, eval=False, shard=shard, skip_steps=start_step))
     eval_steps = params.get("eval_steps") or 0
     eval_iter = iter(dalle_input_fn(params, eval=True, shard=shard)) if eval_steps else None
+    # predict_steps > 0: a dedicated pipeline (never train_iter, whose
+    # resume accounting it would shift) supplies the golden captions
+    predict_iter = predict_fn = None
+    if params.get("predict_steps"):
+        predict_iter = iter(dalle_input_fn(params, eval=bool(params["dataset"].get("eval_path"))))
+        predict_fn = make_predict_summary_fn(params, dalle, vae, vae_params, predict_iter,
+                                             tokenizer=tokenizer)
 
     logger.info(
         "starting DALLE training: %s on %s, %s (total_seq_len=%d, image_seq_len=%d)",
         params["config_name"], device, mesh, dalle.cfg.total_seq_len, dalle.cfg.image_seq_len,
     )
     try:
-        trainer.run(train_iter, params.get("seed") or 0, eval_data_iter=eval_iter)
+        trainer.run(train_iter, params.get("seed") or 0, eval_data_iter=eval_iter,
+                    summary_fn=predict_fn)
     finally:
         trainer.close()
-        for it in (train_iter, eval_iter):
+        for it in (train_iter, eval_iter, predict_iter):
             if it is not None:
                 it.close()  # stops the pipeline's prefetch thread
     return trainer

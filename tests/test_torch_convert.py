@@ -156,11 +156,13 @@ def test_port_never_imports_jax():
         "ops.gumbel", "models.vae", "train_vae", "utils.png",
         # DALLE image mode and the offline encode
         "utils.restore", "data.encode_dataset", "data.create_tfrecords",
+        # the captured decode loop's clients: predict at checkpoints, the CLI
+        "train.predict", "sample_dalle",
     ]
     code = (
         "import pkgutil, sys, dalle_mtf_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'dalle_mtf_tpu_torch.')]\n"
-        "assert len(mods) >= 29, mods\n"
+        "assert len(mods) >= 31, mods\n"
         f"missing = {['dalle_mtf_tpu_torch.' + m for m in training]!r}\n"
         "assert not set(missing) - set(mods), sorted(set(missing) - set(mods))\n"
         "for m in mods: __import__(m)\n"

@@ -1047,3 +1047,81 @@ def test_vae_fp32_convs_ignore_the_tf32_switch(cuda):
     for got, want in zip(grads["cuda"], grads["cpu"]):
         ok, err = _close(got, want, 1e-5)
         assert ok, err
+
+
+# ---------------------------------------------- the captured decode loop
+
+def _small_dalle(decode_kernels=False, quant=None):
+    """A 2-layer DALLE at n_embd 256 (the decode kernels' smallest K) in
+    bf16, its serving weights and a batch of 3 prompts, on the card."""
+    from dalle_mtf_tpu_torch.models.dalle import DALLE, DalleConfig
+    from dalle_mtf_tpu_torch.quantize import (
+        cast_decode_weights,
+        quantize_layers_int4,
+        quantize_layers_int8,
+    )
+
+    cfg = DalleConfig(n_embd=256, text_vocab_size=64, image_vocab_size=128, text_seq_len=16,
+                      image_seq_len=64, n_layers=2, n_heads=2, bf_16=True,
+                      decode_kernels=decode_kernels)
+    dalle = DALLE(cfg, "cuda")
+    master = dalle.init(torch.Generator().manual_seed(0))
+    params = {None: lambda p: cast_decode_weights(p, torch.bfloat16),
+              "int8": quantize_layers_int8, "int4": quantize_layers_int4}[quant](master)
+    text = torch.randint(0, 64, (3, 16), generator=torch.Generator().manual_seed(1)).cuda()
+    return dalle, params, text
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+def test_captured_decode_equals_the_eager_loop(cuda, quant):
+    """The graphs' tokens equal the eager loop's bit for bit, greedy and
+    sampled from one seed; with the decode kernels inside the graph each
+    replay counts its launches (73 = 6 a layer and the head here: 13)."""
+    from dalle_mtf_tpu_torch import sample
+
+    dalle, params, text = _small_dalle(quant is not None, quant)
+    dec = sample.CapturedDecoder(dalle, params, 3)
+    for temp, top_k in ((0.0, 0), (1.0, 16)):
+        want = sample.generate_image_tokens_eager(
+            dalle, params, text, torch.Generator("cuda").manual_seed(4), temp, top_k)
+        before = dict(tdmm.KERNEL_LAUNCHES)
+        got = sample.generate_image_tokens(dalle, params, text,
+                                           torch.Generator("cuda").manual_seed(4), temp, top_k,
+                                           decoder=dec)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (temp, top_k)
+        key = ("batch", top_k, False)
+        if quant is not None:
+            kind = f"{quant}_matmul"
+            per = dec.launches_per_replay(key)
+            assert per == {kind: 13}
+            made = tdmm.KERNEL_LAUNCHES[kind] - before[kind]
+            # the head's one launch in the prefill, the warm-up step, the replays
+            assert made == 1 + 13 * sample.WARMUP_STEPS + 13 * 63
+    assert dec.replays == {("batch", 0, False): 63, ("batch", 16, False): 63}
+
+
+def test_captured_draws_advance_across_replays(cuda):
+    """The registered generator moves on at every replay: a row sampled
+    from the same logits at every step (the step's decode undone by
+    resetting the logits buffer) draws a spread of tokens, and two batches
+    from one seed repeat exactly."""
+    from dalle_mtf_tpu_torch import sample
+
+    dalle, params, text = _small_dalle()
+    dec = sample.CapturedDecoder(dalle, params, 3)
+    dec.generator.manual_seed(9)
+    first = dec.generate(text, 1.0, 0).clone()
+    dec.generator.manual_seed(9)
+    assert torch.equal(dec.generate(text, 1.0, 0), first)
+    graph = dec._graphs[("batch", 0, False)]
+    draws = []
+    with torch.inference_mode():
+        flat = torch.zeros_like(dec.logits)
+        for _ in range(40):
+            dec.logits.copy_(flat)
+            dec.positions.fill_(dalle.cfg.text_seq_len)
+            dec.step.zero_()
+            graph.replay()
+            draws.append(int(dec.image[0, 0]))
+    assert len(set(draws)) > 20, draws  # 40 uniform draws over 128 tokens
