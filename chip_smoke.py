@@ -32,7 +32,8 @@ Phases, none of them optional:
      backward ``causal_attention_bwd``) against ``attention_packed_reference``
      and ``backward_reference``: out, lse, dq, dk, dv at the training shape
      (B=16, S=1280, H=8, D=128, bf16), a ragged fp32 shape with window 64,
-     and the training shape with hash dropout 0.1 (one seed on both sides);
+     the training shape with hash dropout 0.1 (one seed on both sides), and
+     dalle_12B's microbatch (B=8, S=2560, H=40, D=128, bf16);
    - the [B, H, S, D] forward with hash dropout;
    - ``phase_tile_cases``: the pair at the edges of its tile walk, in bf16
      (the forward under every q tile it is built for: 64 rows, and 128 at
@@ -106,6 +107,32 @@ Phases, none of them optional:
    ``train_dalle.main`` for 6 steps with an eval and a checkpoint; the same
    checks, exact launch counts of the [B, H, S, D] pair and the LN kernels
    (and none of the packed pair), the same timing and profile.
+   Then the memory-bound options (``memory_option_values``): the fused
+   loss head (``fused_xent``, ops/xent_fused.py) against the plain fp32 loss
+   and the dense head at N = 4096 rows of dalle_coco_synth's width and
+   vocabulary (loss, dx, dw, db; z-loss 0 and 1e-4); every remat policy
+   against no remat on a 2-layer bf16 copy of dalle_coco_synth with every
+   dropout at 0.1 (loss and grads bit-equal, the generator's state equal,
+   the packed forward launched once or twice a layer as the policy keeps or
+   re-runs it); ``skip_nonfinite_updates: 3`` around AdamW (foreach, fused)
+   and Adafactor with a NaN loss planted (nothing moves). Then the loss head
+   by name (``phase_loss_head``): two profiled steps of dalle_coco_synth with
+   the dense head and with ``fused_xent: true``, and each head alone under
+   the profiler, its device ms by kernel name. Then dalle_12B
+   (``phase_train_12b``): configs/dalle_12B.json at full width (n_embd 5120,
+   40 heads of 128, S = 256 + 48 x 48 = 2560, vocab 52,307, bf16) cut to 4
+   of its 38 layers and one data replica's 32 rows (4 microbatches of 8, as
+   published), through ``train_dalle.main``: the published arm (AdamW,
+   dense head, ``dots_saveable``) for 4 steps with an eval and a
+   checkpoint, then a remat sweep of 2 steps a policy on its state (peak
+   memory, step s, the packed forward's launches held to one or two a layer
+   and microbatch; peak memory nothing_saveable < dots_saveable < none);
+   the lean arm (+ ``fused_xent``, Adafactor, ``skip_nonfinite_updates: 3``)
+   for 4 steps with checkpoints at 2 and 4, and a resume from step 2 whose
+   losses and grad norms equal the unbroken run's bit for bit; then the
+   fused head's products timed at a chunk of the microbatch. Its
+   "train_12b" line holds each arm's step s, tokens/s, MFU and peak memory,
+   the sweep and the head's product ms.
    Then sequence parallelism, four ranks sharing the one card (NCCL refuses
    two ranks on one device, so they run gloo, the ring's sends staged through
    host memory; the kernels are built once here first, so the ranks never
@@ -221,12 +248,14 @@ Phases, none of them optional:
 ``chip_smoke.py --ring-worker <checks|train> ...`` is one rank of the ring
 phases, started by them through ``torch.distributed.run``.
 
-Prints "kernel", "train", "train_vae", "train_image", "batch",
+Prints "kernel", "train", "memory_options_values", "loss_head",
+"loss_head_steps", "head", "train_12b", "train_vae", "train_image", "batch",
 "decode_profile" and "continuous_chunk" JSON lines,
 then the kernel report as one JSON line (with each kernel's least time on the
 card, ``bound_ms``, one PyTorch call's time for the same function,
 ``library_ms``, and on rows 1-2 the image-mode run's launches,
-``image_mode_launches``), the card's name and power limit, and last
+``image_mode_launches``, and the row at dalle_12B's shape with the
+published arm's launches, ``dalle_12B``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
 is non-zero and no result is printed. fp32 matmuls and convs run in full
 fp32 here (TF32 off), so fp32 comparisons are like for like.
@@ -557,14 +586,16 @@ def phase_kernel(torch, attn, card):
 
 def phase_train_kernels(torch, attn, card):
     """The packed forward/backward pair and the [B, H, S, D] forward with
-    dropout against their plain versions. Returns {kernel name: row at the
-    training shape (without dropout)}."""
+    dropout against their plain versions. Returns ({kernel name: row at the
+    training shape (without dropout)}, the same at dalle_12B's microbatch:
+    B=8, H=40, S=2560)."""
     from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
 
     cases = [  # (name, B, H, S, D, dtype, window, dropout, plain version's timing iters)
         ("train", 16, 8, 1280, 128, torch.bfloat16, None, 0.0, 10),
         ("ragged_window", 2, 4, 200, 64, torch.float32, 64, 0.0, 20),
         ("train_dropout", 16, 8, 1280, 128, torch.bfloat16, None, 0.1, 5),
+        ("dalle_12B", 8, 40, 2560, 128, torch.bfloat16, None, 0.0, 2),
     ]
     seed = 2**31 - 7  # near the top of the range: the uint32 add wraps
     gen = torch.Generator().manual_seed(1)
@@ -631,8 +662,8 @@ def phase_train_kernels(torch, attn, card):
         }
         for row in rows.values():
             print("kernel", json.dumps(row), flush=True)
-        if name == "train":
-            best = rows
+        if name in ("train", "dalle_12B"):
+            best[name] = rows
         del q, k, v, g, out, lse, grads, ref, ref_lse, ref_grads, sets
         torch.cuda.empty_cache()
 
@@ -656,8 +687,10 @@ def phase_train_kernels(torch, attn, card):
             ms=cuda_ms(lambda: attn.causal_attention(q, k, v, window, 0.1, dropout_seed=seed), 20),
             plain_ms=cuda_ms(lambda: attn.attention_reference(
                 q, k, v, True, window, False, 0.1, seed), 20),
+            # a window bounds the pairs, so this bound (every causal pair) is an upper one
+            **attention_roofline(b, h, s, d, 4, 4, 1, 2),
         )), flush=True)
-    return best
+    return best["train"], best["dalle_12B"]
 
 
 def phase_bhsd_kernels(torch, attn, card):
@@ -999,7 +1032,7 @@ def values_model(torch, **over):
     from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
 
     base, _ = make_dalle_models(fetch_model_params(TRAIN_CONFIG), "cpu")
-    cfg = dataclasses.replace(base.cfg, n_layers=2, bf_16=False, **over)
+    cfg = dataclasses.replace(base.cfg, **{"n_layers": 2, "bf_16": False, **over})
     params = DALLE(cfg, "cpu").init(torch.Generator().manual_seed(5))
     tokens = torch.randint(0, cfg.total_tokens, (2, cfg.total_seq_len),
                            generator=torch.Generator().manual_seed(6))
@@ -1076,7 +1109,7 @@ def write_tokens_dataset(root: str, seed: int, image_len: int, image_vocab: int,
 
 
 def train_config(tmp: str, train_steps: int, name: str = TRAIN_CONFIG,
-                 checkpoint_every: int = TRAIN_STEPS, **extra) -> str:
+                 checkpoint_every: int = TRAIN_STEPS, max_to_keep: int = 1, **extra) -> str:
     """A copy of configs/<name>.json in tokens mode over a seeded dataset in
     ``tmp`` (``extra`` keys added); returns its path."""
     from dalle_mtf_tpu_torch.utils.config import _resolve_config_path  # noqa: PLC0415
@@ -1087,12 +1120,19 @@ def train_config(tmp: str, train_steps: int, name: str = TRAIN_CONFIG,
     cfg.update(
         dataset={**cfg["dataset"], "train_path": pattern, "eval_path": pattern, "tokens": True},
         train_steps=train_steps, steps_per_checkpoint=checkpoint_every, eval_steps=1,
-        log_every=1, max_to_keep=1, model_path=os.path.join(tmp, "run"), **extra,
+        log_every=1, max_to_keep=max_to_keep, model_path=os.path.join(tmp, "run"), **extra,
     )
     path = os.path.join(tmp, f"{name}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
+
+
+def flops_per_token(cfg) -> float:
+    """bench.py's analytic FLOPs per token of a DALLE config (6 N_matmul +
+    12 L E S)."""
+    e, L, v, s = cfg.n_embd, cfg.n_layers, cfg.total_tokens, cfg.total_seq_len
+    return 6 * (L * 12 * e * e + e * v) + 12 * L * e * s
 
 
 def check_dalle_run(trainer, steps: list[int], evals: list[int], launches: dict,
@@ -1170,10 +1210,8 @@ def phase_train(torch, attn, card, kernel_rows):
               f"launches {launches}", flush=True)
 
         split = profile_steps(torch, path, cfg)
-        # bench.py's analytic FLOPs per token (6 N_matmul + 12 L E S)
         e, L, v, s = cfg.n_embd, cfg.n_layers, cfg.total_tokens, cfg.total_seq_len
-        flops_per_token = 6 * (L * 12 * e * e + e * v) + 12 * L * e * s
-        tflops = tokens_per_step / med * flops_per_token / 1e12
+        tflops = tokens_per_step / med * flops_per_token(cfg) / 1e12
         attn_ms = cfg.n_layers * (kernel_rows[names[0]]["ms"] + kernel_rows[names[1]]["ms"])
         print("train", json.dumps(dict(
             card=card, config=TRAIN_CONFIG, batch=first.batch_size, seq_len=s,
@@ -1199,7 +1237,7 @@ def profile_steps(torch, path, cfg, steps: int = 2, frozen=None) -> dict:
     """Device time of ``steps`` training steps under torch.profiler, split
     into the attention kernels, the LN kernels, the frozen VAE encoder's
     convs (image mode: ``frozen`` holds its parameters), matmuls and the rest
-    (with the rest's largest kernels by name)."""
+    (with the rest's largest kernels by name, and the largest of all)."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn  # noqa: PLC0415
@@ -1228,6 +1266,7 @@ def profile_steps(torch, path, cfg, steps: int = 2, frozen=None) -> dict:
     buckets = {"attn_fwd": 0.0, "attn_bwd": 0.0, "ln": 0.0, "vae_encoder_convs": 0.0,
                "matmul": 0.0, "other": 0.0}
     others: dict[str, float] = {}
+    kernels: dict[str, float] = {}
     # kernels and copies only: user-annotation ranges (Optimizer.step#...)
     # also show on the device timeline and would count their kernels twice
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1248,6 +1287,7 @@ def profile_steps(torch, path, cfg, steps: int = 2, frozen=None) -> dict:
             key = "other"
             others[e.name[:90]] = others.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
         buckets[key] += e.time_range.elapsed_us() / 1e3
+        kernels[e.name[:160]] = kernels.get(e.name[:160], 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(buckets.values())
     top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
     return dict(
@@ -1255,6 +1295,8 @@ def profile_steps(torch, path, cfg, steps: int = 2, frozen=None) -> dict:
         profiled_wall_ms_per_step=wall * 1e3 / steps,
         device_ms_per_step={k: v / steps for k, v in buckets.items()},
         other_top_ms_per_step={k: v / steps for k, v in top},
+        top_kernels_ms_per_step={k: v / steps for k, v in
+                                 sorted(kernels.items(), key=lambda kv: -kv[1])[:16]},
         device_busy_share=busy / (wall * 1e3) if device else None,
         device_ops_per_step=len(device) / steps,
     )
@@ -1318,8 +1360,7 @@ def phase_train_long(torch, attn, lnm, card, kernel_rows):
 
         split = profile_steps(torch, path, cfg)
         e, L, v, s = cfg.n_embd, cfg.n_layers, cfg.total_tokens, cfg.total_seq_len
-        flops_per_token = 6 * (L * 12 * e * e + e * v) + 12 * L * e * s
-        tflops = tokens_per_step / med * flops_per_token / 1e12
+        tflops = tokens_per_step / med * flops_per_token(cfg) / 1e12
         attn_ms = L * (kernel_rows["causal_attention_fwd"]["ms"]
                        + kernel_rows["causal_attention_bwd"]["ms"])
         first_loss = losses[0]
@@ -1337,6 +1378,480 @@ def phase_train_long(torch, attn, lnm, card, kernel_rows):
         return launches, first_loss
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+TWELVE_B_CONFIG = "dalle_12B"
+# dalle_12B at full width cut to fit one card and the time limit: 4 of 38
+# layers, one data replica's 32 rows of the published 512 (data:16), so
+# tokens_per_mb_per_replica 20480 still gives the published 4 microbatches of
+# 8 rows; no tensor parallelism (model:8 and its layout rules dropped)
+TWELVE_B_CUT = dict(n_layers=4, mesh_shape="data:1", layout="batch_dim:data",
+                    train_batch_size=32, eval_batch_size=8)
+TWELVE_B_STEPS, TWELVE_B_TIMED_FROM = 4, 2  # steps 2..4 timed
+LEAN = dict(fused_xent=True, optimizer="adafactor", skip_nonfinite_updates=3)
+# the remat sweep: no remat, then each policy with its own path (checkpoint_dots
+# and checkpoint_dots_with_no_batch_dims are other names of two of them;
+# everything_saveable runs as dots_and_attn, without a checkpoint)
+REMAT_SWEEP = ("none", "nothing_saveable", "dots_saveable", "dots_with_no_batch_dims_saveable",
+               "dots_except_mlp1", "save_attn", "save_attn_lean", "dots_and_attn")
+SWEEP_STEPS = 2
+HEAD_CHUNK_ITERS = 5  # timed runs of each fused-head product at a chunk's shape
+
+
+def head_pass(torch, name, x, w, b, t, z, g):
+    """(loss, dx, dw, db) of one forward and backward, with cotangent ``g``,
+    of the fused head (``chunked_softmax_xent``, 8 chunks), of the dense
+    head (``DALLE.loss``'s: bf16 logits and bias) or of the plain fp32 loss
+    (fp32 logits of the operands in fp32, autograd)."""
+    from dalle_mtf_tpu_torch.ops.losses import softmax_cross_entropy_with_logits  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops.xent_fused import chunked_softmax_xent  # noqa: PLC0415
+
+    dt = torch.float32 if name == "plain" else x.dtype
+    leaves = [x.detach().to(dt).requires_grad_(True), w.detach().to(dt).requires_grad_(True),
+              b.detach().clone().requires_grad_(True)]
+    xl, wl, bl = leaves
+    if name == "fused":
+        loss = chunked_softmax_xent(xl, wl, bl, t, z, 8)
+    else:
+        loss = softmax_cross_entropy_with_logits(xl @ wl + bl.to(dt), t, z)
+    loss.backward(g)
+    return (loss.detach(), *(leaf.grad for leaf in leaves))
+
+
+def memory_option_values(torch, attn, card) -> dict:
+    """The memory-bound options on the card at a small size, each against
+    its reference:
+
+    - the fused head against the plain fp32 loss (loss within 1e-4; dx and
+      dw, rounded to bf16 as JAX rounds them, within 2^-7 of their max
+      |plain|; db within 1e-4 of it) and against the dense head (bf16
+      logits: each within 2^-5), at N = 4096 rows of dalle_coco_synth's
+      width and vocabulary, z-loss 0 and 1e-4;
+    - every remat policy against no remat on a 2-layer bf16 copy of
+      dalle_coco_synth with embedding, residual and attention dropout 0.1:
+      loss and every grad bit-equal, the generator's state equal, and the
+      packed forward launched once a layer where the policy keeps its out and
+      lse, twice where the recompute re-runs it;
+    - ``skip_nonfinite_updates: 3`` around AdamW (foreach and fused) and
+      Adafactor: a step whose loss is NaN moves no parameter and no count,
+      the next finite step moves them."""
+    from dalle_mtf_tpu_torch.models import dalle as tdalle  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import get_optimizer, named_leaves  # noqa: PLC0415
+
+    result = {"card": card, "heads": {}}
+    gen = torch.Generator().manual_seed(21)
+    n, e, v = 4096, 1024, 52307
+    x = torch.randn((n, e), generator=gen).to("cuda", torch.bfloat16)
+    w = (torch.randn((e, v), generator=gen) * 0.02).to("cuda", torch.bfloat16)
+    b = (torch.randn(v, generator=gen) * 0.02).cuda()
+    t = torch.randint(0, v, (n,), generator=gen).cuda()
+    g = torch.full((n,), 1.0 / n, device="cuda")
+    for z in (0.0, 1e-4):
+        got = {name: head_pass(torch, name, x, w, b, t, z, g)
+               for name in ("fused", "dense", "plain")}
+        torch.cuda.synchronize()
+        errs = {}
+        for ref in ("plain", "dense"):
+            errs[ref] = {name: (got["fused"][i].float() - got[ref][i].float()).abs().max().item()
+                         / max(got[ref][i].float().abs().max().item(), 1e-30)
+                         for i, name in enumerate(("loss", "dx", "dw", "db"))}
+        loss_abs = (got["fused"][0] - got["plain"][0]).abs().max().item()
+        bounds = {"dx": 2**-7, "dw": 2**-7, "db": 1e-4}
+        bad = {k: e for k, e in errs["plain"].items() if k in bounds and not e <= bounds[k]}
+        if not loss_abs <= 1e-4:
+            bad["loss"] = loss_abs
+        bad.update({f"dense {k}": e for k, e in errs["dense"].items() if not e <= 2**-5})
+        print(f"fused head z_loss {z}: N={n} E={e} V={v} bf16, against the plain fp32 loss: "
+              f"loss max abs err {loss_abs:.3g} (bound 1e-4), dx {errs['plain']['dx']:.3g}, "
+              f"dw {errs['plain']['dw']:.3g} of max (bound 2^-7), db {errs['plain']['db']:.3g} "
+              f"(bound 1e-4); against the dense head (bf16 logits): "
+              f"{ {k: round(e, 6) for k, e in errs['dense'].items()} } (bound 2^-5); {card}",
+              flush=True)
+        if bad:
+            raise AssertionError(f"fused head z_loss {z}: {bad}")
+        result["heads"][str(z)] = dict(loss_max_abs_err_vs_plain=loss_abs,
+                                       rel_err_vs_plain=errs["plain"],
+                                       rel_err_vs_dense=errs["dense"])
+    del x, w, b, t, g, got
+    torch.cuda.empty_cache()
+
+    # every remat policy against no remat, dropout on
+    cfg, params, tokens = values_model(torch, bf_16=True, embed_dropout=0.1,
+                                       residual_dropout=0.1, attention_dropout=0.1)
+    params, tokens = _to(params, "cuda"), tokens.cuda()
+
+    def run(policy):
+        c = dataclasses.replace(cfg, recompute_grad=policy is not None,
+                                remat_policy=policy or "dots_saveable")
+        tree = {k: ({m: t.clone().requires_grad_(True) for m, t in val.items()}
+                    if isinstance(val, dict) else val.clone().requires_grad_(True))
+                for k, val in params.items()}
+        reset_counts(attn)
+        gen = torch.Generator().manual_seed(7)
+        loss, _ = tdalle.DALLE(c, "cuda").loss(tree, tokens, gen, train=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        return (loss.detach(), [t.grad for _, t in named_leaves(tree)], gen.get_state(),
+                dict(attn.KERNEL_LAUNCHES))
+
+    want = run(None)
+    keeps = {"dots_and_attn", "everything_saveable", "save_attn", "save_attn_lean"}
+    result["remat"] = {}
+    for policy in tdalle.REMAT_POLICIES:
+        loss, grads, state, launches = run(policy)
+        fwd = launches["causal_attention_packed_fwd"]
+        need = cfg.n_layers * (1 if policy in keeps else 2)
+        same = (torch.equal(loss, want[0]) and torch.equal(state, want[2])
+                and all(torch.equal(a, b) for a, b in zip(grads, want[1])))
+        print(f"remat {policy}: loss and every grad bit-equal to no remat: {same}; packed "
+              f"forward launches {fwd} (expected {need}), backward "
+              f"{launches['causal_attention_packed_bwd']}", flush=True)
+        if not same or fwd != need or launches["causal_attention_packed_bwd"] != cfg.n_layers:
+            raise AssertionError(f"remat {policy}: bit-equal {same}, launches {launches}")
+        result["remat"][policy] = dict(bit_equal=same, packed_fwd_launches=fwd)
+
+    # skip_nonfinite_updates: a NaN loss moves nothing
+    model = tdalle.DALLE(dataclasses.replace(cfg, embed_dropout=0.0, residual_dropout=0.0,
+                                             attention_dropout=0.0), "cuda")
+    result["skip"] = {}
+    for label, over in (("adamw", {}), ("fused_adamw", {"fused_optimizer": True}),
+                        ("adafactor", {"optimizer": "adafactor"})):
+        tree = _to(params, "cuda")
+        for _, t in named_leaves(tree):
+            t.requires_grad_(True)
+        opt, _ = get_optimizer({"lr": 1e-3, "warmup_steps": 0, "weight_decay": 0.01,
+                                "skip_nonfinite_updates": 3, **over}, tree)
+        moved = []
+        for poison in (False, True, False):
+            before = [t.detach().clone() for _, t in named_leaves(tree)]
+            count = opt.count
+            opt.zero_grad()
+            loss, _ = model.loss(tree, tokens, train=True)
+            (loss * float("nan") if poison else loss).backward()
+            opt.step()
+            torch.cuda.synchronize()
+            moved.append((any(not torch.equal(a, t.detach())
+                              for a, (_, t) in zip(before, named_leaves(tree))),
+                          opt.count - count))
+        print(f"skip_nonfinite_updates 3, {label}: (params moved, count advanced) over a finite, "
+              f"a NaN and a finite step: {moved}", flush=True)
+        if moved != [(True, 1), (False, 0), (True, 1)] or opt.total_notfinite != 1:
+            raise AssertionError(f"skip_nonfinite_updates {label}: {moved}")
+        result["skip"][label] = moved
+    print("memory_options_values", json.dumps(result), flush=True)
+    return result
+
+
+def head_products_ms(torch, card, n: int, e: int, v: int, chunks: int) -> dict:
+    """The fused head's products at one microbatch of ``n`` rows, by CUDA
+    events over a chunk's shape: the logits (bf16 operands, fp32 output:
+    ``torch.mm(a, b, out_dtype=torch.float32)`` on the tensor cores; run in
+    the forward and again in the backward), dx (the same call on dlogits in
+    bf16 and wᵀ) and dw (fp32 xᵀ · fp32 dlogits, IEEE fp32 outside the
+    tensor cores, TF32 off); then the whole fused head and the dense head,
+    forward and backward, at the microbatch. Each with its bound."""
+    from dalle_mtf_tpu_torch.ops.xent_fused import f32_matmul  # noqa: PLC0415
+
+    gen = torch.Generator().manual_seed(22)
+    c = n // chunks
+    x = torch.randn((n, e), generator=gen).to("cuda", torch.bfloat16)
+    w = (torch.randn((e, v), generator=gen) * 0.02).to("cuda", torch.bfloat16)
+    b = torch.zeros(v, device="cuda")
+    t = torch.randint(0, v, (n,), generator=gen).cuda()
+    g = torch.full((n,), 1.0 / n, device="cuda")
+    d = torch.rand((c, v), generator=gen).cuda()
+    dw = torch.zeros((e, v), device="cuda")
+    flops = 2 * c * e * v
+    logits_ms = cuda_ms(lambda: f32_matmul(x[:c], w), HEAD_CHUNK_ITERS)
+    dx_ms = cuda_ms(lambda: f32_matmul(d.to(torch.bfloat16), w.t()), HEAD_CHUNK_ITERS)
+    dw_ms = cuda_ms(lambda: dw.addmm_(x[:c].float().t(), d), HEAD_CHUNK_ITERS)
+    del d, dw
+    torch.cuda.empty_cache()
+    heads = {}
+    for name in ("fused", "dense"):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        heads[name] = cuda_ms(lambda: head_pass(torch, name, x, w, b, t, 0.0, g), 2)
+        heads[name + "_peak_gb_over_inputs"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    per_mb = chunks * (2 * logits_ms + dx_ms + dw_ms)
+    out = dict(
+        card=card, rows=n, n_embd=e, vocab=v, chunks=chunks, chunk_rows=c,
+        logits_call="torch.mm(a, b, out_dtype=torch.float32)",
+        chunk_logits_ms=logits_ms, chunk_dx_ms=dx_ms, chunk_dw_fp32_ms=dw_ms,
+        chunk_logits_bound_ms=roofline(flops, 2 * (c * e + e * v) + 4 * c * v)["bound_ms"],
+        chunk_dw_bound_ms=roofline(flops, 4 * (c * e + c * v + 2 * e * v),
+                                   PEAK_FP32_TFLOPS)["bound_ms"],
+        products_ms_per_microbatch=per_mb,
+        fused_head_fwd_bwd_ms=heads["fused"], dense_head_fwd_bwd_ms=heads["dense"],
+        fused_head_peak_gb_over_inputs=heads["fused_peak_gb_over_inputs"],
+        dense_head_peak_gb_over_inputs=heads["dense_peak_gb_over_inputs"],
+    )
+    print("head", json.dumps(out), flush=True)
+    del x, w, b, t, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def head_kernels(torch, card, fused: bool, iters: int = 2) -> dict:
+    """The loss head alone at dalle_coco_synth's step (16 rows of 1280,
+    n_embd 1024, V = 52,307, bf16) under torch.profiler: ``DALLE.loss``
+    with its ``hidden`` replaced by a fixed bf16 input, forward and
+    backward. Device ms a step by kernel name, all of them."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    dalle, _ = make_dalle_models(fetch_model_params(TRAIN_CONFIG), "cuda")
+    cfg = dalle.cfg
+    gen = torch.Generator().manual_seed(23)
+    x = torch.randn((16, cfg.total_seq_len, cfg.n_embd), generator=gen).to("cuda", torch.bfloat16)
+    params = {"w_out": (torch.randn((cfg.n_embd, cfg.total_tokens), generator=gen) * 0.02).cuda(),
+              "b_out": torch.zeros(cfg.total_tokens, device="cuda")}
+    tokens = torch.randint(0, cfg.total_tokens, (16, cfg.total_seq_len), generator=gen).cuda()
+    leaf = x.requires_grad_(True)
+    for p in params.values():
+        p.requires_grad_(True)
+    dalle.hidden = lambda *a, **k: leaf
+
+    def step():
+        loss, _ = dalle.loss(params, tokens, fused_xent=fused)
+        loss.backward()
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    kernels: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                ev, "is_user_annotation", False):
+            kernels[ev.name[:160]] = kernels.get(ev.name[:160], 0.0) + \
+                ev.time_range.elapsed_us() / 1e3 / iters
+    out = dict(card=card, head="fused" if fused else "dense", rows=16 * cfg.total_seq_len,
+               n_embd=cfg.n_embd, vocab=cfg.total_tokens, device_ms_per_step=sum(kernels.values()),
+               kernels_ms_per_step=dict(sorted(kernels.items(), key=lambda kv: -kv[1])))
+    print("loss_head", json.dumps(out), flush=True)
+    return out
+
+
+def phase_loss_head(torch, card) -> dict:
+    """The loss head by name at dalle_coco_synth: two profiled steps of the
+    published config (the dense head) and of a ``fused_xent: true`` copy, in
+    turn, then each head alone under the profiler (its kernels by name)."""
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_head_")
+    try:
+        dalle, _ = make_dalle_models(fetch_model_params(TRAIN_CONFIG), "cpu")
+        cfg = dalle.cfg
+        write_tokens_dataset(os.path.join(tmp, "data"), 0, cfg.image_seq_len,
+                             cfg.image_vocab_size, files=2, per_file=24)
+        steps = {}
+        for label, extra in (("dense", {}), ("fused", {"fused_xent": True})):
+            gc.collect()
+            torch.cuda.empty_cache()
+            steps[label] = profile_steps(torch, train_config(tmp, 2, **extra), cfg)
+        heads = {label: head_kernels(torch, card, label == "fused") for label in ("dense", "fused")}
+        out = dict(card=card, config=TRAIN_CONFIG, steps=steps,
+                   head_alone_device_ms={k: h["device_ms_per_step"] for k, h in heads.items()})
+        print("loss_head_steps", json.dumps(out), flush=True)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def arm_line(run, cfg, first: int, peak: int, wall: float, launches: dict) -> dict:
+    """A dalle_12B arm's figures from its Trainer: step s from step
+    ``first`` on, tokens/s, MFU, peak memory, losses, evals, launches."""
+    step_s = [1.0 / h["steps_per_sec"] for h in run.history[first - 1:]]
+    med = statistics.median(step_s)
+    tokens = run.batch_size * cfg.total_seq_len
+    tflops = tokens / med * flops_per_token(cfg) / 1e12
+    return dict(steps_timed=len(step_s), step_s=step_s, step_s_median=med,
+                tokens_per_s=tokens / med, tflops_per_s=tflops, mfu=tflops / PEAK_BF16_TFLOPS,
+                peak_mem_gb=peak / 1e9, wall_s=wall, losses=[h["loss"] for h in run.history],
+                grad_norms=[h["grad_norm"] for h in run.history], evals=run.eval_history,
+                launches=launches)
+
+
+def remat_sweep(torch, attn, card, path, cfg, state, microbatches: int) -> dict:
+    """SWEEP_STEPS steps under each remat policy at the dalle_12B shape, on
+    one state (the published arm's, AdamW): peak memory, step s, and the
+    packed forward's launches, held to one (the policy keeps its out and
+    lse) or two (the recompute re-runs it) a layer and microbatch."""
+    from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_task  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.trainer import Trainer, step_generator  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    keeps = {"none", "dots_and_attn", "save_attn", "save_attn_lean"}
+    out = {}
+    data = None
+    for policy in REMAT_SWEEP:
+        params = fetch_model_params(path)
+        params["padding_id"] = 50257
+        params["recompute_grad"] = policy != "none"
+        params["remat_policy"] = "dots_saveable" if policy == "none" else policy
+        if data is None:
+            data = iter(dalle_input_fn(params))
+        _, _, init_fn, loss_fn, _ = make_dalle_task(params, "cuda")
+        trainer = Trainer(params, init_fn, loss_fn, params["model_path"] + "_sweep",
+                          cfg.total_seq_len, "cuda")
+        trainer.schedule = state["opt"].schedule  # the lr metric (no init_state here)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        reset_counts(attn)
+        for i in range(SWEEP_STEPS):  # the state and the shapes are warm already
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, next(data), step_generator(0, 3, i))
+            float(metrics["loss"])
+            times.append(time.perf_counter() - t0)
+        trainer.close()
+        fwd = attn.KERNEL_LAUNCHES["causal_attention_packed_fwd"]
+        per = cfg.n_layers * microbatches * SWEEP_STEPS
+        need = per * (1 if policy in keeps else 2)
+        out[policy] = dict(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           step_s=times, step_s_median=statistics.median(times),
+                           packed_fwd_launches=fwd, packed_fwd_launches_per_layer_mb=fwd / per,
+                           loss=float(metrics["loss"]))
+        print(f"remat sweep {policy}: {out[policy]}", flush=True)
+        if fwd != need or attn.KERNEL_LAUNCHES["causal_attention_packed_bwd"] != per:
+            raise AssertionError(f"remat sweep {policy}: launches {attn.KERNEL_LAUNCHES}, "
+                                 f"expected {need} forward and {per} backward")
+    data.close()
+    peaks = {p: r["peak_mem_gb"] for p, r in out.items()}
+    if not peaks["nothing_saveable"] < peaks["dots_saveable"] < peaks["none"]:
+        raise AssertionError(f"remat sweep: peak memory not nothing < dots < none: {peaks}")
+    return out
+
+
+def phase_train_12b(torch, attn, card) -> dict:
+    """configs/dalle_12B.json at full width (n_embd 5120, 40 heads of 128,
+    S = 256 + 48 x 48 = 2560, vocab 52,307, bf16) cut to TWELVE_B_CUT, in
+    tokens mode through ``train_dalle.main``, two arms:
+
+    - published: AdamW (weight decay 0.01), the dense head, ``dots_saveable``
+      (the JAX default its ``recompute_grad: true`` takes), TWELVE_B_STEPS
+      steps with an eval and a checkpoint; then the remat sweep on its state;
+    - lean: + ``fused_xent``, Adafactor, ``skip_nonfinite_updates: 3``, the
+      same steps with checkpoints at 2 and 4 (both kept); the step-4
+      checkpoint is removed and a second ``main`` resumes from step 2: its
+      losses and grad norms equal the unbroken run's bit for bit.
+
+    Exact launches of the packed pair (two forwards a layer and microbatch
+    under dots_saveable, one in eval), step s, tokens/s, MFU (bench.py's
+    formula), peak memory. Returns the published arm's launches."""
+    from dalle_mtf_tpu_torch import train_dalle  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.trainer import num_microbatches  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_12b_")
+    names = ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
+    try:
+        published = {**fetch_model_params(TWELVE_B_CONFIG), **TWELVE_B_CUT}
+        dalle, _ = make_dalle_models(published, "cpu")
+        cfg = dalle.cfg
+        mb = num_microbatches(published, TWELVE_B_CUT["train_batch_size"], cfg.total_seq_len, 1)
+        print(f"train {TWELVE_B_CONFIG}: n_embd={cfg.n_embd} heads={cfg.n_heads} "
+              f"S={cfg.total_seq_len} vocab={cfg.total_tokens} layers={cfg.n_layers} (of 38) "
+              f"batch {TWELVE_B_CUT['train_batch_size']} in {mb} microbatches, remat "
+              f"{cfg.remat_policy}, parameters {dalle_param_count(dalle)}", flush=True)
+        L, steps = cfg.n_layers, TWELVE_B_STEPS
+        arms = {}
+
+        # published arm
+        root = os.path.join(tmp, "published")
+        write_tokens_dataset(os.path.join(root, "data"), 3, cfg.image_seq_len,
+                             cfg.image_vocab_size, files=2, per_file=32)
+        path = train_config(root, steps, TWELVE_B_CONFIG, steps, **TWELVE_B_CUT)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(attn)
+        t0 = time.perf_counter()
+        run = train_dalle.main(["--model", path, "--new", "--yes", "--gpu_ids", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: attn.KERNEL_LAUNCHES[n] for n in names}
+        check_dalle_run(run, list(range(1, steps + 1)), [steps], dict(attn.KERNEL_LAUNCHES),
+                        {names[0]: L * (2 * mb * steps + 1), names[1]: L * mb * steps})
+        arms["published"] = arm_line(run, cfg, TWELVE_B_TIMED_FROM,
+                                     torch.cuda.max_memory_allocated(), wall, launches)
+        print(f"train {TWELVE_B_CONFIG} published: {arms['published']}", flush=True)
+        state = run.state
+        del run
+        sweep = remat_sweep(torch, attn, card, path, cfg, state, mb)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # lean arm: unbroken, then resumed from its step-2 checkpoint
+        root = os.path.join(tmp, "lean")
+        write_tokens_dataset(os.path.join(root, "data"), 3, cfg.image_seq_len,
+                             cfg.image_vocab_size, files=2, per_file=32)
+        path = train_config(root, steps, TWELVE_B_CONFIG, 2, max_to_keep=2,
+                            **TWELVE_B_CUT, **LEAN)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(attn)
+        t0 = time.perf_counter()
+        run = train_dalle.main(["--model", path, "--new", "--yes", "--gpu_ids", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lean_launches = {n: attn.KERNEL_LAUNCHES[n] for n in names}
+        if run.checkpoint_steps() != [2, steps]:
+            raise AssertionError(f"lean arm checkpoints {run.checkpoint_steps()}")
+        if lean_launches != {names[0]: L * (2 * mb * steps + 2), names[1]: L * mb * steps}:
+            raise AssertionError(f"lean arm launches {lean_launches}")
+        arms["lean"] = arm_line(run, cfg, TWELVE_B_TIMED_FROM, torch.cuda.max_memory_allocated(),
+                                wall, lean_launches)
+        unbroken = run.history
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.unlink(os.path.join(root, "run", "checkpoints", f"ckpt_{steps}.pt"))
+        resumed = train_dalle.main(["--model", path, "--gpu_ids", "0"]).history
+        pairs = [(a["step"], a["loss"], b["loss"], a["grad_norm"], b["grad_norm"])
+                 for a, b in zip(unbroken[2:], resumed)]
+        bit_equal = len(resumed) == steps - 2 and all(
+            la == lb and ga == gb for _, la, lb, ga, gb in pairs)
+        arms["lean"]["resumed_from_step_2"] = pairs
+        arms["lean"]["resume_bit_equal"] = bit_equal
+        print(f"train {TWELVE_B_CONFIG} lean: {arms['lean']}", flush=True)
+        if not bit_equal:
+            raise AssertionError(f"lean arm: the resumed steps differ from the unbroken run: "
+                                 f"{pairs}")
+        for arm in arms.values():
+            if not all(math.isfinite(x) for x in arm["losses"]):
+                raise AssertionError(f"{TWELVE_B_CONFIG}: non-finite loss {arm['losses']}")
+        head = head_products_ms(torch, card, cfg.total_seq_len * TWELVE_B_CUT["train_batch_size"]
+                                // mb, cfg.n_embd, cfg.total_tokens, 8)
+        lean_ms = arms["lean"]["step_s_median"] * 1e3
+        out = dict(
+            card=card, config=TWELVE_B_CONFIG, cut=TWELVE_B_CUT, microbatches=mb,
+            n_layers=L, n_embd=cfg.n_embd, heads=cfg.n_heads, seq_len=cfg.total_seq_len,
+            vocab=cfg.total_tokens, flops_per_token=flops_per_token(cfg),
+            params=dalle_param_count(dalle), arms=arms, remat_sweep=sweep, head=head,
+            fused_head_products_share_of_lean_step=head["products_ms_per_microbatch"] * mb
+            / lean_ms,
+        )
+        print("train_12b", json.dumps(out), flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dalle_param_count(dalle) -> dict:
+    shapes = dalle.param_shapes()
+    layers = sum(math.prod(s) for s in shapes["layers"].values())
+    rest = sum(math.prod(s) for k, s in shapes.items() if k != "layers")
+    return {"layers": layers, "embeddings_and_head": rest}
 
 
 def ring_hop(torch, ring, s, diff, window):
@@ -3454,10 +3969,10 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
         u8_data.close()
         split = profile_steps(torch, path, cfg, frozen=frozen)
         e, L, v, s = cfg.n_embd, cfg.n_layers, cfg.total_tokens, cfg.total_seq_len
-        flops_per_token = 6 * (L * 12 * e * e + e * v) + 12 * L * e * s
+        token_flops = flops_per_token(cfg)
         batch_size = fetch_model_params(path)["train_batch_size"]
         tokens_per_step = batch_size * s
-        tflops = tokens_per_step / med * flops_per_token / 1e12
+        tflops = tokens_per_step / med * token_flops / 1e12
         enc_tflop = 2 * batch_size * encoder_gmac(vcfg) / 1e3
         line = dict(
             phase="train_image", card=card, config=TRAIN_CONFIG, vae=VAE_CONFIG, batch=batch_size,
@@ -3469,7 +3984,7 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
             tokens_per_s=tokens_per_step / med, tflops_per_s=tflops,
             mfu=tflops / PEAK_BF16_TFLOPS, encoder_gmac_per_image=encoder_gmac(vcfg),
             encoder_tflop_per_step=enc_tflop,
-            mfu_with_encoder=(tokens_per_step * flops_per_token / 1e12 + enc_tflop) / med
+            mfu_with_encoder=(tokens_per_step * token_flops / 1e12 + enc_tflop) / med
             / PEAK_BF16_TFLOPS,
             encoder_ms_per_step=enc_ms, peak_mem_gb=peak / 1e9,
             decode_threads=DECODE_WORKERS, data_wait_share=data_wait_share,
@@ -3546,7 +4061,7 @@ def main() -> int:
     serving = phase_kernel(torch, attn, card)
     phase_tile_cases(torch, attn, card)
     decode = phase_decode_kernels(torch, dmm, card)
-    training = phase_train_kernels(torch, attn, card)
+    training, training_12b = phase_train_kernels(torch, attn, card)
     bhsd = phase_bhsd_kernels(torch, attn, card)
     ln = phase_ln_kernels(torch, lnm, card)
     ring_rows = phase_ring_kernels(torch, ring, card)
@@ -3557,6 +4072,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     long_launches, long_first_loss = phase_train_long(torch, attn, lnm, card, bhsd["dalle_4k"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_option_values(torch, attn, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_loss_head(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    twelve_b_launches = phase_train_12b(torch, attn, card)
     gc.collect()
     torch.cuda.empty_cache()
     vae_dir = tempfile.mkdtemp(prefix="chip_smoke_vae_ckpt_")
@@ -3614,7 +4138,10 @@ def main() -> int:
     rows = [
         dict(name=name, route="cuda", source=FWD_SOURCE if "fwd" in name else BWD_SOURCE,
              replaces=REPLACES[name], launches=train_launches[name],
-             image_mode_launches=image_launches[name], **measured(training[name]))
+             image_mode_launches=image_launches[name], **measured(training[name]),
+             dalle_12B=dict(launches=twelve_b_launches[name],
+                            launches_on=f"{TWELVE_B_CONFIG} published arm, {TWELVE_B_CUT}",
+                            shape="B=8 H=40 S=2560 D=128 bf16", **measured(training_12b[name])))
         for name in ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
     ]
     rows.append(dict(

@@ -16,10 +16,12 @@ the JAX model does: at decode geometry (``decode_kernels`` on, at most 32
 rows, K a multiple of 256) through the streaming kernels of
 ops/decode_matmul.py, else in the compute dtype before a plain matmul.
 
-Training (``hidden``/``forward``/``loss``) runs through plain autograd,
+Training (``hidden``/``forward``/``loss``) runs through autograd,
 with the packed attention (ops/attention_packed.py) by default or, with
 ``attn_packed: false``, the [B, H, S, D] attention (ops/attention.py), and
 with ``ln_impl: "pallas"`` the fused LayerNorm kernels (ops/layer_norm.py).
+``loss(fused_xent=True)`` and ``fused_eval`` stream the loss head over row
+chunks (ops/xent_fused.py), so the [B, S, vocab] logits never exist.
 
 Across processes (a ``parallel.mesh.Mesh``), each rank holds its rows of the
 batch (data parallelism over the ``batch_dim`` axis) and, under
@@ -30,16 +32,38 @@ attention runs around the ring (ops/ring_attention.py), and the loss is the
 rank's share of the global mean, so that the sum over the ranks of the losses
 and of the gradients is the single-process value.
 
-Remat: the JAX default for this model, ``dots_and_attn``, saves every
-matmul output and the
-attention kernel's out and lse and recomputes only elementwise ops; plain
-autograd saves a superset of that and computes the same values, so it runs
-without checkpointing. The other policies are not ported.
+Remat (``recompute_grad`` in training): each block is one
+``torch.utils.checkpoint`` region, as each step of the JAX layer scan is one
+``jax.checkpoint``, under a selective-checkpoint policy with the JAX
+policy's choice of what to keep (``REMAT_POLICIES``):
+
+- ``nothing_saveable`` keeps nothing; ``dots_saveable`` (``checkpoint_dots``)
+  keeps every matmul output, ``dots_with_no_batch_dims_saveable``
+  (``checkpoint_dots_with_no_batch_dims``) those without batch dims (mm, not
+  bmm); the attention kernel is no matmul to them, so it re-runs in the
+  backward, as the JAX kernel does inside a pallas_call;
+- ``dots_except_mlp1``, ``save_attn`` and ``save_attn_lean`` keep the
+  outputs JAX names with ``checkpoint_name``: ``qkv``, ``attn_proj`` and
+  ``mlp2`` (the matmuls run inside ``checkpoint_name``) and ``attn_out`` /
+  ``attn_lse`` (the attention forward's dispatcher op, whose two outputs
+  are kept together, so the kernel does not re-run);
+- ``dots_and_attn`` (the dalle_coco configs') and ``everything_saveable``
+  keep what plain autograd keeps, a superset with the same values, so they
+  run with no checkpoint.
+
+Torch keeps every output a policy names, also one the backward never reads
+(attn_proj, mlp2), where JAX keeps only the named residuals its backward
+reads. A block's dropout seeds are drawn before the region runs, so a
+recompute draws the same masks and leaves the generator where one pass
+leaves it. Policies that take arguments raise ValueError.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import functools
 import logging
 import math
 from typing import Any, Mapping, NamedTuple
@@ -47,6 +71,7 @@ from typing import Any, Mapping, NamedTuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from dalle_mtf_tpu_torch.ops.attention import (
     attention_reference,
@@ -59,7 +84,8 @@ from dalle_mtf_tpu_torch.ops.decode_matmul import int4_matmul, int8_matmul
 from dalle_mtf_tpu_torch.ops.layer_norm import kernel_takes, layer_norm, layer_norm_reference
 from dalle_mtf_tpu_torch.ops.losses import softmax_cross_entropy_with_logits
 from dalle_mtf_tpu_torch.ops.ring_attention import ring_attention_auto
-from dalle_mtf_tpu_torch.parallel.mesh import BATCH, HEADS, LAYERS, SEQ, parse_layout
+from dalle_mtf_tpu_torch.ops.xent_fused import chunked_softmax_xent_auto, chunked_xent_eval_auto
+from dalle_mtf_tpu_torch.parallel.mesh import BATCH, HEADS, LAYERS, SEQ, VOCAB, parse_layout
 from dalle_mtf_tpu_torch.quantize import nibble_views, quantized_shapes
 from dalle_mtf_tpu_torch.utils.distributed import model_device
 from dalle_mtf_tpu_torch.utils.precision import Policy, get_policy
@@ -71,21 +97,32 @@ _ACTIVATIONS = {
 }
 
 
-# remat policies the port honours under recompute_grad (see the module docstring)
-PORTED_REMAT_POLICIES = ("dots_and_attn",)
+# what the named remat policies keep (JAX dalle.py:848-866)
+_NAMED_SAVES = {
+    "dots_except_mlp1": ("qkv", "attn_proj", "mlp2"),
+    "save_attn": ("qkv", "attn_out", "attn_lse", "attn_proj", "mlp2"),
+    "save_attn_lean": ("attn_out", "attn_lse", "mlp2"),
+}
+# policies under which plain autograd keeps what JAX keeps, or more
+_NO_CHECKPOINT = ("dots_and_attn", "everything_saveable")
+# every remat policy the model takes: the jax.checkpoint_policies that take
+# no arguments and the named ones (see the module docstring)
+REMAT_POLICIES = (
+    *_NO_CHECKPOINT, "nothing_saveable", "dots_saveable", "checkpoint_dots",
+    "dots_with_no_batch_dims_saveable", "checkpoint_dots_with_no_batch_dims", *_NAMED_SAVES,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class DalleConfig:
     """The fields serving and training read
-    (``dalle_mtf_tpu.models.dalle.DalleConfig``). Settings the port cannot
-    honour yet raise NotImplementedError, here (remat policies) or in
-    ``from_params`` (keys that are not fields). The layout's batch, sequence
-    and heads axes are read as in JAX; a layout the port cannot honour on
+    (``dalle_mtf_tpu.models.dalle.DalleConfig``). A remat policy that takes
+    arguments raises ValueError here. The layout's batch, sequence, heads
+    and vocab axes are read as in JAX; a layout the port cannot honour on
     more than one process (tensor or pipeline parallelism) raises when the
     mesh is built (``parallel.mesh.check_layout``), and a ``layers:`` rule
-    raises here. ``scan_unroll`` (no torch meaning) is accepted and
-    ignored."""
+    raises NotImplementedError in ``from_params``. ``scan_unroll`` (no torch
+    meaning) is accepted and ignored."""
 
     n_embd: int
     text_vocab_size: int = 12800
@@ -102,6 +139,8 @@ class DalleConfig:
     ring_seq_axis: str = "seq"
     ring_batch_axis: str | None = "data"
     ring_heads_axis: str | None = None
+    # mesh axis of the vocab_dim rule (tensor-parallel xent: not ported)
+    vocab_axis: str | None = None
     scale_type: str = "scale_by_depth"
     activation: str = "relu"
     ln_dtype: str = "float32"  # | "activation"; not read under ln_impl "pallas"
@@ -109,6 +148,8 @@ class DalleConfig:
     recompute_grad: bool = False
     remat_policy: str = "dots_saveable"
     attn_packed: bool = True
+    # fused-xent row chunks (ops/xent_fused.py)
+    xent_chunks: int = 8
     embed_dropout: float = 0.0
     attention_dropout: float = 0.0
     residual_dropout: float = 0.0
@@ -120,12 +161,10 @@ class DalleConfig:
     def __post_init__(self):
         if self.ln_impl not in ("xla", "pallas"):
             raise ValueError(f"ln_impl must be 'xla' or 'pallas', got {self.ln_impl!r}")
-        refused = []
-        if self.recompute_grad and self.remat_policy not in PORTED_REMAT_POLICIES:
-            refused.append(f"remat_policy={self.remat_policy!r} under recompute_grad")
-        if refused:
-            raise NotImplementedError(
-                "not ported to dalle_mtf_tpu_torch yet: " + "; ".join(refused))
+        if self.recompute_grad and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy {self.remat_policy!r} is not a policy that takes no "
+                f"arguments: use one of {', '.join(REMAT_POLICIES)}")
 
     @classmethod
     def from_params(
@@ -137,6 +176,7 @@ class DalleConfig:
             ring_seq_axis=rules.get(SEQ) or "seq",
             ring_batch_axis=rules.get(BATCH) or "data",
             ring_heads_axis=rules.get(HEADS),
+            vocab_axis=rules.get(VOCAB),
             n_embd=params["n_embd"],
             text_vocab_size=params["text_vocab_size"],
             image_vocab_size=params["image_vocab_size"],
@@ -154,6 +194,7 @@ class DalleConfig:
             recompute_grad=bool(params.get("recompute_grad")),
             remat_policy=params.get("remat_policy") or "dots_saveable",
             attn_packed=bool(params.get("attn_packed", True)),
+            xent_chunks=int(params.get("xent_chunks") or 8),
             embed_dropout=params.get("embed_dropout") or 0.0,
             attention_dropout=params.get("attention_dropout") or 0.0,
             residual_dropout=params.get("residual_dropout") or 0.0,
@@ -187,15 +228,62 @@ class DalleConfig:
 def _refuse_unported(params: Mapping[str, Any]) -> None:
     """Raise on config keys outside ``DalleConfig``'s fields whose JAX
     behaviour the port does not have (the fields check themselves)."""
-    refused = []
-    if params.get("fused_xent"):
-        refused.append("fused_xent (the chunked loss head)")
     if LAYERS in parse_layout(params.get("layout")):
-        refused.append("a 'layers:' layout rule (pipeline parallelism)")
-    if refused:
         raise NotImplementedError(
-            "not ported to dalle_mtf_tpu_torch yet: " + "; ".join(refused)
-        )
+            "not ported to dalle_mtf_tpu_torch yet: a 'layers:' layout rule "
+            "(pipeline parallelism)")
+
+
+_CHECKPOINT_NAME = contextvars.ContextVar("checkpoint_name", default=None)
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm, torch.ops.aten.baddbmm)
+_NO_BATCH_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+# the attention forwards as dispatcher ops (ops/attention*.py): their two
+# outputs are JAX's ``attn_out`` and ``attn_lse``
+_ATTENTION_FORWARDS = (torch.ops.dalle_mtf_tpu_torch.packed_attention_fwd,
+                       torch.ops.dalle_mtf_tpu_torch.causal_attention_fwd)
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Name the matmuls run inside, as JAX's ``checkpoint_name`` names their
+    output, for the named remat policies."""
+    token = _CHECKPOINT_NAME.set(name)
+    try:
+        yield
+    finally:
+        _CHECKPOINT_NAME.reset(token)
+
+
+def remat_context(policy: str):
+    """``context_fn`` for ``torch.utils.checkpoint`` under ``policy`` (one of
+    ``REMAT_POLICIES`` that checkpoints): keep an op's outputs where the JAX
+    policy keeps them, recompute the rest."""
+    from torch.utils.checkpoint import (  # noqa: PLC0415
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    if policy in _NAMED_SAVES:
+        names = _NAMED_SAVES[policy]
+        attention = _ATTENTION_FORWARDS if "attn_out" in names else ()
+
+        def keep(op):
+            return op in attention or (op in _DOTS and _CHECKPOINT_NAME.get() in names)
+    elif policy == "nothing_saveable":
+        def keep(op):
+            return False
+    elif policy in ("dots_saveable", "checkpoint_dots"):
+        def keep(op):
+            return op in _DOTS
+    else:  # dots_with_no_batch_dims_saveable, checkpoint_dots_with_no_batch_dims
+        def keep(op):
+            return op in _NO_BATCH_DOTS
+
+    def policy_fn(_ctx, func, *_args, **_kwargs):
+        return (CheckpointPolicy.MUST_SAVE if keep(func.overloadpacket)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
 class Head(NamedTuple):
@@ -393,7 +481,8 @@ class DALLE(nn.Module):
         dtype = self.cfg.policy.compute_dtype
         act = _ACTIVATIONS[self.cfg.activation]
         hdn = act(self._matmul_w(p, "w_mlp1", m_in) + p["b_mlp1"].to(dtype))
-        return self._matmul_w(p, "w_mlp2", hdn) + p["b_mlp2"].to(dtype)
+        with checkpoint_name("mlp2"):
+            return self._matmul_w(p, "w_mlp2", hdn) + p["b_mlp2"].to(dtype)
 
     def _w_out(self, params):
         """The output projection [E, V] in the compute dtype, dequantized
@@ -464,20 +553,32 @@ class DALLE(nn.Module):
 
     # -------------------------------------------------------------- training
 
-    def _dropout(self, gen, x, rate, train):
-        """Inverted dropout with a mask from ``gen`` (mtf dropout; the JAX
-        package draws it with jax.random, so the two masks differ). On a
-        mesh, x [B, S_local, E] is this rank's block: the mask is drawn for
-        the whole batch and sequence, as one process would, and sliced."""
-        if not train or rate <= 0.0:
+    def _dropout(self, seed, x, rate):
+        """Inverted dropout with a mask from a generator on x's device seeded
+        with ``seed`` (None: no dropout; mtf dropout; the JAX package draws
+        it with jax.random, so the two masks differ). On a mesh, x
+        [B, S_local, E] is this rank's block: the mask is drawn for the
+        whole batch and sequence, as one process would, and sliced."""
+        if seed is None:
             return x
         keep = 1.0 - rate
         b, s, e = x.shape
         dp_index, dp = self._dp()
         rows, seq = slice(dp_index * b, (dp_index + 1) * b), self._seq_slice(s * self._sp())
-        mask = torch.rand((b * dp, s * self._sp(), e), generator=_device_generator(gen, x.device),
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+        mask = torch.rand((b * dp, s * self._sp(), e), generator=gen,
                           device=x.device)[rows, seq] < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+    def _block_seeds(self, gen, train: bool) -> tuple:
+        """One block's dropout seeds from ``gen``, in the order the block
+        uses them (attention, then the two residual dropouts; None where
+        that dropout is off). Drawn before the block runs, so that a remat
+        recompute of the block draws the same masks."""
+        cfg = self.cfg
+        return (_seed(gen, cfg.attention_dropout, train),
+                _seed(gen, cfg.residual_dropout, train),
+                _seed(gen, cfg.residual_dropout, train))
 
     # ------------------------------------------------------------------ mesh
 
@@ -542,55 +643,82 @@ class DALLE(nn.Module):
                                     dropout_seed=seed)
         return attention_reference(q, k, v, True, self._window, False, drop, seed)
 
-    def _block(self, p, x, gen, train: bool):
-        """One pre-LN transformer block (reference models.py:326-335)."""
+    def _block(self, p, x, seeds):
+        """One pre-LN transformer block (reference models.py:326-335);
+        ``seeds`` from ``_block_seeds``."""
         cfg = self.cfg
+        seed, res_seeds = seeds[0], seeds[1:]
         a_in = self._layer_norm(x, p["ln1_g"], p["ln1_b"])
-        drop = cfg.attention_dropout if train else 0.0
-        seed = _draw_seed(gen) if drop > 0.0 else None
+        drop = cfg.attention_dropout if seed is not None else 0.0
         if cfg.attention_type in ("ring", "local_ring"):
             # sequence parallel over the mesh's seq axis (one process: the
             # [B, H, S, D] attention); offsets the seed to the rank's rows
-            q, k, v = self._qkv(p, a_in)
-            a = self._attn_out(p, ring_attention_auto(
+            with checkpoint_name("qkv"):
+                q, k, v = self._qkv(p, a_in)
+            a = ring_attention_auto(
                 q, k, v, self.mesh, cfg.ring_seq_axis, cfg.ring_batch_axis, self._window,
-                drop, seed, plain=not kernel_takes_head_dim(cfg.head_dim)))
-            return self._block_tail(p, x, a, gen, train)
+                drop, seed, plain=not kernel_takes_head_dim(cfg.head_dim))
+            with checkpoint_name("attn_proj"):
+                a = self._attn_out(p, a)
+            return self._block_tail(p, x, a, res_seeds)
         if seed is not None:  # program (b, h) of this rank's rows: global row b0 + b
             seed += self._dp()[0] * x.shape[0] * cfg.n_heads
         # quantized weights take the [B, H, S, D] arm (JAX ``use_packed``)
         if cfg.attn_packed and "wq_scale" not in p and "wq_int4" not in p:
-            q, k, v = self._qkv_packed(p, a_in)
+            with checkpoint_name("qkv"):
+                q, k, v = self._qkv_packed(p, a_in)
             if kernel_takes_head_dim(cfg.head_dim):
                 a = packed_attention(q, k, v, cfg.n_heads, self._window, drop, seed)
             else:  # as ``_attention``
                 a = attention_packed_reference(q, k, v, cfg.n_heads, self._window, drop, seed)
-            a = self._attn_out_packed(p, a)
+            with checkpoint_name("attn_proj"):
+                a = self._attn_out_packed(p, a)
         else:
-            q, k, v = self._qkv(p, a_in)
-            a = self._attn_out(p, self._attention(q, k, v, drop, seed))
-        return self._block_tail(p, x, a, gen, train)
+            with checkpoint_name("qkv"):
+                q, k, v = self._qkv(p, a_in)
+            a = self._attention(q, k, v, drop, seed)
+            with checkpoint_name("attn_proj"):
+                a = self._attn_out(p, a)
+        return self._block_tail(p, x, a, res_seeds)
 
-    def _block_tail(self, p, x, a, gen, train):
+    def _block_tail(self, p, x, a, res_seeds):
         """Residual add + LN2 + MLP + residual dropouts."""
         rate = self.cfg.residual_dropout
-        x = x + self._dropout(gen, a, rate, train)
+        x = x + self._dropout(res_seeds[0], a, rate)
         m = self._mlp(p, self._layer_norm(x, p["ln2_g"], p["ln2_b"]))
-        return x + self._dropout(gen, m, rate, train)
+        return x + self._dropout(res_seeds[1], m, rate)
+
+    def _remat(self, train: bool):
+        """The checkpoint ``context_fn`` of a training pass under
+        ``recompute_grad``, or None where the blocks run without one."""
+        cfg = self.cfg
+        if (not (cfg.recompute_grad and train and torch.is_grad_enabled())
+                or cfg.remat_policy in _NO_CHECKPOINT):
+            return None
+        return remat_context(cfg.remat_policy)
 
     def hidden(self, params, tokens, generator: torch.Generator | None = None,
                train: bool = False):
         """tokens [B, S] int -> final-LN hidden states [B, S, E] (compute
         dtype); on a sequence-parallel mesh, of this rank's positions
         [row0, row0 + S_local) only. ``generator`` (CPU) feeds every dropout
-        of the pass (the same draws on every rank)."""
+        of the pass (the same draws on every rank). Under ``recompute_grad``
+        each block is a checkpoint region (see the module docstring)."""
         cfg = self.cfg
         dtype = cfg.policy.compute_dtype
         seq = self._seq_slice(tokens.shape[1])
         x = params["wte"][tokens[:, seq]].to(dtype) + params["wpe"][seq].to(dtype)
-        x = self._dropout(generator, x, cfg.embed_dropout, train)
+        x = self._dropout(_seed(generator, cfg.embed_dropout, train), x, cfg.embed_dropout)
+        context_fn = self._remat(train)
         for p in self._layers(params):
-            x = self._block(p, x, generator, train)
+            seeds = self._block_seeds(generator, train)
+            if context_fn is None:
+                x = self._block(p, x, seeds)
+            else:
+                # no global RNG inside a block: the seeds are its arguments
+                x = torch.utils.checkpoint.checkpoint(
+                    self._block, p, x, seeds, use_reentrant=False,
+                    preserve_rng_state=False, context_fn=context_fn)
         return self._layer_norm(x, params["lnf_g"], params["lnf_b"])
 
     def forward(self, params, tokens, generator=None, train: bool = False):
@@ -602,19 +730,48 @@ class DALLE(nn.Module):
         return x.float() @ self._w_out(params).float() + params["b_out"]
 
     def loss(self, params, tokens, generator=None, train: bool = True,
-             z_loss: float = 0.0):
+             z_loss: float = 0.0, fused_xent: bool = False):
         """Next-token xent, labels = shift-left(tokens) + EOS (reference
         models.py:397-416). Returns (mean loss fp32, per-position [B, S]);
         on a mesh, (this rank's share of the global mean, its positions).
 
-        The head runs in the compute dtype: bf16 logits, the bias cast to
-        bf16 before the add, as the JAX loss head (its custom backward is a
-        fusion; plain autograd gives the same dw and db)."""
-        dtype = self.cfg.policy.compute_dtype
+        The dense head runs in the compute dtype: bf16 logits, the bias cast
+        to bf16 before the add, as the JAX loss head (its custom backward is
+        a fusion; plain autograd gives the same dw and db). ``fused_xent``
+        streams the head over row chunks instead (ops/xent_fused.py: fp32
+        logits, never [B, S, vocab] at once), for memory-bound models."""
         x = self.hidden(params, tokens, generator, train)
-        logits = x @ self._w_out(params) + params["b_out"].to(dtype)
-        loss_batch = softmax_cross_entropy_with_logits(logits, self.local_labels(tokens), z_loss)
+        labels = self.local_labels(tokens)
+        if fused_xent:
+            b, s, e = x.shape
+            loss_batch = chunked_softmax_xent_auto(
+                x.reshape(b * s, e), self._w_out(params), params["b_out"], labels.reshape(-1),
+                z_loss, self._xent_chunks(b * s), self.cfg.vocab_axis, self.mesh,
+            ).reshape(b, s)
+        else:
+            dtype = self.cfg.policy.compute_dtype
+            logits = x @ self._w_out(params) + params["b_out"].to(dtype)
+            loss_batch = softmax_cross_entropy_with_logits(logits, labels, z_loss)
         return self.global_mean(loss_batch), loss_batch
+
+    def _xent_chunks(self, n: int) -> int:
+        """The fused head's chunk count for n rows: the JAX rule, the first
+        of (xent_chunks, 8, 4, 2, 1) that divides n."""
+        return next(c for c in (self.cfg.xent_chunks, 8, 4, 2, 1) if n % c == 0)
+
+    @torch.no_grad()
+    def fused_eval(self, params, tokens, generator=None, z_loss: float = 0.0):
+        """Eval under ``fused_xent``: per-position loss and argmax
+        correctness (fp32 [B, S], of this rank's positions on a mesh),
+        streamed over row chunks (ops/xent_fused.py::chunked_xent_eval_auto)
+        so the [B, S, vocab] logits never exist. No gradients."""
+        x = self.hidden(params, tokens, generator, train=False)
+        b, s, e = x.shape
+        loss, correct = chunked_xent_eval_auto(
+            x.reshape(b * s, e), self._w_out(params), params["b_out"],
+            self.local_labels(tokens).reshape(-1), z_loss, self._xent_chunks(b * s),
+            self.cfg.vocab_axis, self.mesh)
+        return loss.reshape(b, s), correct.reshape(b, s)
 
     def shifted_labels(self, tokens):
         """Next-token targets: tokens shifted left with EOS appended."""
@@ -715,8 +872,7 @@ def _draw_seed(gen: torch.Generator | None) -> int:
     return int(torch.randint(0, 2**31 - 1, (), generator=gen))
 
 
-def _device_generator(gen: torch.Generator | None, device: torch.device):
-    """A generator on ``device`` seeded from ``gen`` (None: the default)."""
-    if device.type == "cpu" and gen is not None:
-        return gen
-    return torch.Generator(device=device).manual_seed(_draw_seed(gen))
+def _seed(gen: torch.Generator | None, rate: float, train: bool) -> int | None:
+    """A dropout seed from ``gen`` (None: the default generator) where a
+    dropout of ``rate`` runs, else None (nothing drawn)."""
+    return _draw_seed(gen) if train and rate > 0.0 else None

@@ -34,6 +34,7 @@ and ``launch_backward`` take either layout by strides).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -274,6 +275,22 @@ def _backward(q, k, v, out, lse, g, window, rate, seed):
     return grads
 
 
+@torch.library.custom_op("dalle_mtf_tpu_torch::causal_attention_fwd", mutates_args=())
+def causal_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         window: Optional[int], rate: float,
+                         seed: Optional[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_forward`` with its lse as one dispatcher op, so that a
+    selective-checkpoint policy (``models/dalle.py``) can keep both outputs
+    or let the recompute re-run the kernel (ops/attention_packed.py)."""
+    return _forward(q, k, v, window, rate, seed, with_lse=True)
+
+
+@causal_attention_fwd.register_fake
+def _(q, k, v, window, rate, seed):
+    b, h, s, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b * h, s), dtype=torch.float32)
+
+
 class _Attention(torch.autograd.Function):
     """(out, lse) = attention(q, k, v); saves q, k, v, out and the fp32 lse,
     what the JAX ``dots_and_attn`` remat policy keeps, so the backward never
@@ -281,7 +298,7 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window, rate, seed):
-        out, lse = _forward(q, k, v, window, rate, seed, with_lse=True)
+        out, lse = causal_attention_fwd(q, k, v, window, rate, seed)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (window, rate, seed)
         ctx.mark_non_differentiable(lse)

@@ -13,12 +13,18 @@ take the layout by strides (batch S*H*D, head D, row H*D):
 ``_PackedAttention`` (a ``torch.autograd.Function``) wraps the pair. Its
 forward saves q, k, v, out and the fp32 lse, exactly the residuals the JAX
 ``dots_and_attn`` remat policy keeps, so the backward never re-runs the
-forward. A CUDA tensor launches the kernels or raises (a view off 16 bytes
+forward. The forward is the dispatcher op ``packed_attention_fwd``
+(``torch.library.custom_op``), one op with both outputs, so that a
+selective-checkpoint policy (``models/dalle.py``) can keep them, as the JAX
+policies keep the kernel's named ``attn_out`` and ``attn_lse``, or let the
+recompute re-run the kernel. A CUDA tensor launches the kernels or raises (a view off 16 bytes
 is copied first: ``ops/attention.py``); a CPU tensor takes the plain
 versions (``attention_packed_reference`` and ``backward_reference``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -113,12 +119,26 @@ def _backward(q, k, v, out, lse, g, n_heads, window, rate, seed):
     return grads
 
 
+@torch.library.custom_op("dalle_mtf_tpu_torch::packed_attention_fwd", mutates_args=())
+def packed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int,
+                         window: Optional[int], rate: float,
+                         seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_forward`` as one dispatcher op: (out [B, S, H*D], lse fp32 [B*H, S])."""
+    return _forward(q, k, v, n_heads, window, rate, seed)
+
+
+@packed_attention_fwd.register_fake
+def _(q, k, v, n_heads, window, rate, seed):
+    b, s, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b * n_heads, s), dtype=torch.float32)
+
+
 class _PackedAttention(torch.autograd.Function):
     """out = attention(q, k, v); saves q, k, v, out, lse for the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, n_heads, window, rate, seed):
-        out, lse = _forward(q, k, v, n_heads, window, rate, seed)
+        out, lse = packed_attention_fwd(q, k, v, n_heads, window, rate, seed)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (n_heads, window, rate, seed)
         return out
@@ -138,6 +158,8 @@ def packed_attention(q, k, v, n_heads, window=None, dropout_rate=0.0, seed=0):
         raise ValueError(f"q must be [B, S, H*D] with H={n_heads}: {tuple(q.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if q.device.type not in ("cpu", "cuda"):  # the op's fake would take a meta tensor
+        raise ValueError(f"causal_attention_packed: unsupported device {q.device}")
     rate = float(dropout_rate)
     return _PackedAttention.apply(q, k, v, n_heads, window, rate, int(seed) if rate > 0 else 0)
 

@@ -14,7 +14,11 @@ the chain's conventions kept:
 - weight decay applies only where ``decay_mask`` is True (not to norms or
   biases), as -lr * wd * p (torch's p * (1 - lr * wd) is the same update).
 
-Adafactor and ``skip_nonfinite_updates`` are not ported and raise.
+``optimizer: adafactor`` is the chain ``clip_by_global_norm(clip)`` +
+optax 0.2.6's ``adafactor`` with the JAX factory's arguments, written out in
+``Adafactor``. ``skip_nonfinite_updates: N`` wraps either optimizer in
+``SkipNonfinite``, optax's ``apply_if_finite``. Each optimizer's
+``state_dict`` names it, and a state of another optimizer refuses to load.
 """
 
 from __future__ import annotations
@@ -92,6 +96,29 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
+def _clip_by_global_norm(grads, clip: float | None) -> torch.Tensor:
+    """The global norm of ``grads`` (a 0-dim tensor, not waited for); with
+    ``clip``, the grads scaled in place as optax does: unchanged below the
+    clip, else g / norm * clip."""
+    norm = global_norm(grads)
+    if clip:
+        scale = torch.where(norm < clip, 1.0, clip / norm)
+        torch._foreach_mul_(grads, scale)
+    return norm
+
+
+def _grads(leaves, who: str) -> list:
+    grads = [t.grad for t in leaves]
+    if any(g is None for g in grads):
+        raise RuntimeError(f"{who}.step: a parameter has no gradient")
+    return grads
+
+
+def _check_state(state: Mapping[str, Any], key: str, who: str) -> None:
+    if key not in state:
+        raise ValueError(f"{who}.load_state_dict: not a {who} state (keys {sorted(state)})")
+
+
 class AdamW:
     """Global-norm clip + AdamW over the leaves of a parameter tree.
 
@@ -119,14 +146,7 @@ class AdamW:
     def step(self) -> torch.Tensor:
         """Clip, update, count; returns the global norm of the gradients
         before clipping (a 0-dim tensor, not waited for)."""
-        grads = [t.grad for t in self.leaves]
-        if any(g is None for g in grads):
-            raise RuntimeError("AdamW.step: a parameter has no gradient")
-        norm = global_norm(grads)
-        if self.clip:
-            # optax: unchanged below the clip, else g / norm * clip
-            scale = torch.where(norm < self.clip, 1.0, self.clip / norm)
-            torch._foreach_mul_(grads, scale)
+        norm = _clip_by_global_norm(_grads(self.leaves, "AdamW"), self.clip)
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -138,34 +158,220 @@ class AdamW:
         return {"count": self.count, "adamw": self.opt.state_dict()}
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        _check_state(state, "adamw", "AdamW")
         self.count = int(state["count"])
         self.opt.load_state_dict(state["adamw"])
 
 
-def get_optimizer(params: Mapping[str, Any], tree) -> tuple[AdamW, Callable[[int], float]]:
+def _factored_dims(shape, min_dim_size_to_factor: int) -> tuple[int, int] | None:
+    """optax's ``_factored_dims``: the second-largest and the largest axis
+    of ``shape`` (numpy's argsort order), or None below two axes or where
+    the second largest is under ``min_dim_size_to_factor``. A stacked leaf
+    ([L, E, H, D]) factors over its own two largest axes, as in JAX."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor:
+    """Global-norm clip + optax 0.2.6's ``adafactor`` over the leaves of a
+    parameter tree, with the JAX factory's arguments: factored second
+    moments (``min_dim_size_to_factor`` 128), the decay 1 - (count + 1) **
+    -decay_rate with offset 0, ``eps`` added to the squared gradient, the
+    update clipped to a block RMS of ``clipping_threshold``, scaled by the
+    schedule at the pre-increment count and by the parameter's RMS (floored
+    at 1e-3), negated. No momentum and no weight decay: the JAX factory
+    passes neither to optax, even where the config sets ``weight_decay``.
+
+    The same interface as ``AdamW`` (``leaves``, ``named``, ``count``,
+    ``zero_grad``, ``step``, ``state_dict``)."""
+
+    MIN_DIM_SIZE_TO_FACTOR = 128
+    MIN_SCALE = 1e-3
+
+    def __init__(self, tree, schedule: Callable[[int], float], decay_rate: float,
+                 clipping_threshold: float, eps: float, clip: float | None):
+        self.named = list(named_leaves(tree))
+        self.leaves = [t for _, t in self.named]
+        self.schedule = schedule
+        self.decay_rate, self.threshold, self.eps, self.clip = (
+            decay_rate, clipping_threshold, eps, clip)
+        self.count = 0
+        self.dims = [_factored_dims(t.shape, self.MIN_DIM_SIZE_TO_FACTOR) for t in self.leaves]
+        # per leaf: (v_row, v_col) where factored (the shape without the
+        # largest axis, without the second largest), else v (the shape)
+        self.v = []
+        for t, dims in zip(self.leaves, self.dims):
+            def zeros(drop):
+                shape = [n for i, n in enumerate(t.shape) if i != drop]
+                return torch.zeros(shape, dtype=torch.float32, device=t.device)
+            self.v.append((zeros(dims[1]), zeros(dims[0])) if dims else
+                          torch.zeros(t.shape, dtype=torch.float32, device=t.device))
+
+    def zero_grad(self) -> None:
+        for t in self.leaves:
+            t.grad = None
+
+    def _scale_by_factored_rms(self, i: int, g: torch.Tensor, decay: float) -> torch.Tensor:
+        """optax's ``scale_by_factored_rms`` on leaf i; updates its moments."""
+        g2 = g.square() + self.eps
+        keep = float(np.float32(1.0) - np.float32(decay))
+        dims = self.dims[i]
+        if dims is None:
+            v = decay * self.v[i] + keep * g2
+            self.v[i] = v
+            return g * v.pow(-0.5)
+        d1, d0 = dims
+        v_row, v_col = self.v[i]
+        v_row = decay * v_row + keep * g2.mean(dim=d0)
+        v_col = decay * v_col + keep * g2.mean(dim=d1)
+        self.v[i] = (v_row, v_col)
+        reduced_d1 = d1 - 1 if d1 > d0 else d1
+        row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).pow(-0.5)
+        return g * row_factor.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """Clip, update, count; returns the global norm of the gradients
+        before clipping (a 0-dim tensor, not waited for)."""
+        grads = _grads(self.leaves, "Adafactor")
+        norm = _clip_by_global_norm(grads, self.clip)
+        t = np.float32(self.count + 1)
+        decay = float(np.float32(1.0) - t ** np.float32(-self.decay_rate))
+        lr = self.schedule(self.count)
+        for i, (p, g) in enumerate(zip(self.leaves, grads)):
+            u = self._scale_by_factored_rms(i, g.float(), decay)
+            u = u / torch.clamp_min(u.square().mean().sqrt() / self.threshold, 1.0)
+            u = u * lr
+            p_rms = p.square().mean().sqrt()
+            u = u * torch.where(p_rms <= self.MIN_SCALE, self.MIN_SCALE, p_rms)
+            p.add_(u * -1.0)
+        self.count += 1
+        return norm
+
+    def state_dict(self) -> dict:
+        moments = {}
+        for (path, _), dims, v in zip(self.named, self.dims, self.v):
+            name = "/".join(path)
+            if dims is None:
+                moments[name] = v
+            else:
+                moments[name + "/v_row"], moments[name + "/v_col"] = v
+        return {"count": self.count, "adafactor": moments}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        _check_state(state, "adafactor", "Adafactor")
+        moments = state["adafactor"]
+        for i, ((path, _), dims) in enumerate(zip(self.named, self.dims)):
+            name = "/".join(path)
+            names = [name] if dims is None else [name + "/v_row", name + "/v_col"]
+            loaded = []
+            for n, want in zip(names, [self.v[i]] if dims is None else self.v[i]):
+                t = moments[n]
+                if t.shape != want.shape:
+                    raise ValueError(f"Adafactor.load_state_dict: {n} has shape "
+                                     f"{tuple(t.shape)}, expected {tuple(want.shape)}")
+                loaded.append(t.to(device=want.device, dtype=torch.float32))
+            self.v[i] = loaded[0] if dims is None else tuple(loaded)
+        self.count = int(state["count"])
+
+
+class SkipNonfinite:
+    """optax's ``apply_if_finite`` around ``inner`` (``AdamW`` or
+    ``Adafactor``): a step whose gradients hold a NaN or an inf leaves the
+    parameters and the inner state untouched (its count too, so the
+    learning-rate schedule does not advance), unless it is the
+    (``max_consecutive_errors`` + 1)-th such step in a row, which is applied.
+    ``notfinite_count`` (the current run of such steps), ``last_finite`` and
+    ``total_notfinite`` are kept as optax keeps them. Deciding costs the
+    step one wait for the gradients on the host."""
+
+    def __init__(self, inner, max_consecutive_errors: int):
+        self.inner = inner
+        self.max_consecutive_errors = int(max_consecutive_errors)
+        self.notfinite_count = 0
+        self.last_finite = True
+        self.total_notfinite = 0
+
+    @property
+    def leaves(self):
+        return self.inner.leaves
+
+    @property
+    def named(self):
+        return self.inner.named
+
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad()
+
+    def step(self) -> torch.Tensor:
+        """The inner step, or none; returns the global norm of the
+        gradients before clipping either way."""
+        grads = _grads(self.leaves, "SkipNonfinite")
+        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        self.notfinite_count = 0 if finite else self.notfinite_count + 1
+        self.total_notfinite += 0 if finite else 1
+        self.last_finite = finite
+        if finite or self.notfinite_count > self.max_consecutive_errors:
+            return self.inner.step()
+        return global_norm(grads)
+
+    def state_dict(self) -> dict:
+        return {"apply_if_finite": {"notfinite_count": self.notfinite_count,
+                                    "last_finite": self.last_finite,
+                                    "total_notfinite": self.total_notfinite},
+                "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        _check_state(state, "apply_if_finite", "SkipNonfinite")
+        self.inner.load_state_dict(state["inner"])
+        skip = state["apply_if_finite"]
+        self.notfinite_count = int(skip["notfinite_count"])
+        self.last_finite = bool(skip["last_finite"])
+        self.total_notfinite = int(skip["total_notfinite"])
+
+
+def get_optimizer(params: Mapping[str, Any], tree):
     """(optimizer over ``tree``'s leaves, lr schedule), from the config keys
-    the JAX factory honours: ``optimizer``, ``lr``, ``lr_decay``,
-    ``lr_decay_end``, ``warmup_steps``, ``gradient_clipping``,
+    the JAX factory honours: ``optimizer`` ("adam" or "adafactor"), ``lr``,
+    ``lr_decay``, ``lr_decay_end``, ``warmup_steps``, ``gradient_clipping``,
     ``weight_decay``, ``beta_1``, ``beta_2``, ``epsilon``,
-    ``fused_optimizer``."""
+    ``fused_optimizer`` (AdamW); ``adafactor_decay_rate``,
+    ``adafactor_clipping``, ``epsilon_1`` (Adafactor); and
+    ``skip_nonfinite_updates``."""
     schedule = lr_schedule(params)
     name = (params.get("optimizer") or "adam").lower()
-    if name == "adafactor":
-        raise NotImplementedError("the Adafactor optimizer is not ported yet")
-    if name != "adam":
-        raise ValueError(f"{name} not recognized")
-    if params.get("skip_nonfinite_updates"):
-        raise NotImplementedError("skip_nonfinite_updates is not ported yet")
     clip = params.get("gradient_clipping")
     if clip is None:
         clip = 1.0
-    opt = AdamW(
-        tree, schedule,
-        b1=params.get("beta_1") or 0.9,
-        b2=params.get("beta_2") or 0.999,
-        eps=params.get("epsilon") or 1e-6,
-        weight_decay=params.get("weight_decay") or 0.0,
-        clip=clip or None,
-        fused=bool(params.get("fused_optimizer")),
-    )
+    if name == "adam":
+        opt = AdamW(
+            tree, schedule,
+            b1=params.get("beta_1") or 0.9,
+            b2=params.get("beta_2") or 0.999,
+            eps=params.get("epsilon") or 1e-6,
+            weight_decay=params.get("weight_decay") or 0.0,
+            clip=clip or None,
+            fused=bool(params.get("fused_optimizer")),
+        )
+    elif name == "adafactor":
+        opt = Adafactor(
+            tree, schedule,
+            decay_rate=params.get("adafactor_decay_rate") or 0.8,
+            clipping_threshold=params.get("adafactor_clipping") or 1.0,
+            eps=params.get("epsilon_1") or 1e-30,
+            clip=clip or None,
+        )
+    else:
+        raise ValueError(f"{name} not recognized")
+    skip = params.get("skip_nonfinite_updates")
+    if skip:
+        opt = SkipNonfinite(opt, int(skip))
     return opt, schedule

@@ -12,7 +12,10 @@ step).
   as the trainer's ``frozen_params``, tokenizes the pixels on the device
   inside the loss) or on pre-tokenized batches ``{"tokens", "caption"}``
   (tokens mode: records written by ``data/encode_dataset.py``). Both modes
-  build the same [caption ; image ids + text vocab] sequence.
+  build the same [caption ; image ids + text vocab] sequence. With
+  ``fused_xent`` the loss and the eval stream the head over row chunks
+  (``DALLE.loss(fused_xent=True)``, ``DALLE.fused_eval``) with the same
+  metrics.
 """
 
 from __future__ import annotations
@@ -125,6 +128,7 @@ def make_dalle_task(params: Mapping[str, Any], device: torch.device | str, mesh=
     dalle = DALLE(cfg, device, mesh)
     vae = DiscreteVAE(vae_cfg, device)
     z_loss = params.get("z_loss") or 0.0
+    fused_xent = bool(params.get("fused_xent"))
     text_len = cfg.text_seq_len
 
     def tokens_of(frozen_vae, batch):
@@ -151,17 +155,22 @@ def make_dalle_task(params: Mapping[str, Any], device: torch.device | str, mesh=
 
     def train_loss(p, frozen, batch, generator, step):
         tokens = tokens_of(frozen, batch)
-        loss, loss_batch = dalle.loss(p, tokens, generator, train=True, z_loss=z_loss)
+        loss, loss_batch = dalle.loss(p, tokens, generator, train=True, z_loss=z_loss,
+                                      fused_xent=fused_xent)
         return loss, _split_losses(loss_batch)
 
     def eval_loss(p, frozen, batch, generator, step):
         """Loss split plus next-token accuracy (overall and image
-        positions), on the fp32 logits of ``forward``."""
+        positions), on the fp32 logits of ``forward``, or streamed over row
+        chunks under ``fused_xent``."""
         tokens = tokens_of(frozen, batch)
-        logits = dalle.forward(p, tokens, generator, train=False)
-        labels = dalle.local_labels(tokens)
-        loss_batch = softmax_cross_entropy_with_logits(logits, labels, z_loss)
-        correct = (logits.argmax(dim=-1) == labels).float()
+        if fused_xent:
+            loss_batch, correct = dalle.fused_eval(p, tokens, generator, z_loss=z_loss)
+        else:
+            logits = dalle.forward(p, tokens, generator, train=False)
+            labels = dalle.local_labels(tokens)
+            loss_batch = softmax_cross_entropy_with_logits(logits, labels, z_loss)
+            correct = (logits.argmax(dim=-1) == labels).float()
         return dalle.global_mean(loss_batch), {
             **_split_losses(loss_batch),
             "acc": dalle.global_mean(correct),

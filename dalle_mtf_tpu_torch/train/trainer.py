@@ -22,7 +22,12 @@ restores. Kept from the JAX loop:
 - a data stream that runs out between checkpoints saves its tail.
 
 Checkpoints are ``torch.save`` files ``<model_dir>/checkpoints/ckpt_<step>.pt``
-holding the step, the parameter tree and the optimizer state.
+holding the step, the parameter tree and the optimizer state (under
+``skip_nonfinite_updates``, with the skip state of ``optim.SkipNonfinite``).
+A step the optimizer skips (non-finite gradients) is counted and logged as
+any other, as in the JAX loop: its loss and ``grad_norm`` are not finite,
+``lr`` is the schedule at the step; the optimizer's own count, and so the
+schedule it applies, stays where it was.
 """
 
 from __future__ import annotations

@@ -1125,3 +1125,104 @@ def test_captured_draws_advance_across_replays(cuda):
             graph.replay()
             draws.append(int(dec.image[0, 0]))
     assert len(set(draws)) > 20, draws  # 40 uniform draws over 128 tokens
+
+
+# ------------------------------------------ the memory-bound training options
+
+def _remat_dalle(**over):
+    from dalle_mtf_tpu_torch.models import dalle as tdalle
+
+    cfg = tdalle.DalleConfig(n_embd=256, text_vocab_size=40, image_vocab_size=32,
+                             text_seq_len=8, image_seq_len=56, n_layers=2, n_heads=2,
+                             bf_16=True, embed_dropout=0.1, residual_dropout=0.1,
+                             attention_dropout=0.1, **over)
+    return tdalle, cfg
+
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable", "dots_except_mlp1",
+                                    "save_attn", "save_attn_lean"])
+def test_remat_is_bit_equal_on_the_card(cuda, policy):
+    """The kernels under a recompute: loss and grads bit-equal to no remat
+    with every dropout on, the packed forward launched once a layer where
+    the policy keeps its out and lse, twice where it re-runs."""
+    import dataclasses
+
+    from dalle_mtf_tpu_torch.train.optim import named_leaves
+
+    tdalle, cfg = _remat_dalle()
+    params = tdalle.DALLE(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.total_tokens, (2, cfg.total_seq_len),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    results = []
+    for over in ({}, {"recompute_grad": True, "remat_policy": policy}):
+        tree = {k: ({n: t.cuda().requires_grad_(True) for n, t in v.items()}
+                    if isinstance(v, dict) else v.cuda().requires_grad_(True))
+                for k, v in params.items()}
+        before = tattn.KERNEL_LAUNCHES["causal_attention_packed_fwd"]
+        gen = torch.Generator().manual_seed(5)
+        loss, _ = tdalle.DALLE(dataclasses.replace(cfg, **over), "cuda").loss(tree, tokens, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        results.append((loss.detach(), [t.grad for _, t in named_leaves(tree)], gen.get_state(),
+                        tattn.KERNEL_LAUNCHES["causal_attention_packed_fwd"] - before))
+    (l0, g0, s0, n0), (l1, g1, s1, n1) = results
+    assert torch.equal(l0, l1) and torch.equal(s0, s1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert n0 == cfg.n_layers
+    assert n1 == cfg.n_layers * (1 if policy.startswith("save_attn") else 2)
+
+
+@pytest.mark.parametrize("z_loss", [0.0, 1e-4])
+def test_fused_head_matches_the_plain_fp32_loss_on_the_card(cuda, z_loss):
+    """The fused head (bf16 operands, fp32 logits from
+    ``torch.mm(..., out_dtype=float32)``) against the fp32 loss of the same
+    operands: loss within 1e-4, dx and dw (rounded to bf16) within 2^-7 of
+    max |plain|, db within 1e-4 of it."""
+    from dalle_mtf_tpu_torch.ops.losses import softmax_cross_entropy_with_logits
+    from dalle_mtf_tpu_torch.ops.xent_fused import chunked_softmax_xent
+
+    gen = torch.Generator().manual_seed(3)
+    n, e, v = 512, 256, 5000
+    x = torch.randn((n, e), generator=gen).to("cuda", torch.bfloat16)
+    w = (torch.randn((e, v), generator=gen) * 0.05).to("cuda", torch.bfloat16)
+    b = (torch.randn(v, generator=gen) * 0.05).cuda()
+    t = torch.randint(0, v, (n,), generator=gen).cuda()
+    got, want = [], []
+    for leaves, fn in (
+        (got, lambda xl, wl, bl: chunked_softmax_xent(xl, wl, bl, t, z_loss, 4)),
+        (want, lambda xl, wl, bl: softmax_cross_entropy_with_logits(xl @ wl + bl, t, z_loss)),
+    ):
+        dt = torch.bfloat16 if leaves is got else torch.float32
+        xl, wl = (a.detach().to(dt).requires_grad_(True) for a in (x, w))
+        bl = b.clone().requires_grad_(True)
+        loss = fn(xl, wl, bl)
+        loss.sum().backward()
+        leaves.extend([loss.detach(), xl.grad, wl.grad, bl.grad])
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    for name, a, ref, bound in zip(("dx", "dw", "db"), got[1:], want[1:],
+                                   (2**-7, 2**-7, 1e-4)):
+        err = (a.float() - ref).abs().max().item()
+        assert err <= bound * ref.abs().max().item(), name
+
+
+@pytest.mark.parametrize("over", [{}, {"fused_optimizer": True}, {"optimizer": "adafactor"}])
+def test_a_nonfinite_step_moves_nothing_on_the_card(cuda, over):
+    from dalle_mtf_tpu_torch.train.optim import get_optimizer, named_leaves
+
+    tdalle, cfg = _remat_dalle()
+    model = tdalle.DALLE(cfg, "cuda")
+    tree = model.init(torch.Generator().manual_seed(0))
+    for _, t in named_leaves(tree):
+        t.requires_grad_(True)
+    tokens = torch.randint(0, cfg.total_tokens, (2, cfg.total_seq_len)).cuda()
+    opt, _ = get_optimizer({"lr": 1e-3, "warmup_steps": 0, "skip_nonfinite_updates": 3,
+                            **over}, tree)
+    for poison in (False, True, False):
+        before = [t.detach().clone() for _, t in named_leaves(tree)]
+        count = opt.count
+        opt.zero_grad()
+        loss, _ = model.loss(tree, tokens)
+        (loss * float("nan") if poison else loss).backward()
+        opt.step()
+        moved = any(not torch.equal(a, t.detach()) for a, (_, t) in zip(before, named_leaves(tree)))
+        assert (moved, opt.count - count) == ((False, 0) if poison else (True, 1))

@@ -235,11 +235,17 @@ def test_adam_state_round_trip():
 def test_unported_options_are_refused(tmp_path):
     base = {"n_embd": 64, "text_vocab_size": 48, "image_vocab_size": 32,
             "text_seq_len": 8, "n_layers": 1, "n_heads": 2}
-    for bad in ({"fused_xent": True}, {"layout": "batch_dim:data,layers:pipe"},
-                {"recompute_grad": True},
-                {"recompute_grad": True, "remat_policy": "save_attn"}):
-        with pytest.raises(NotImplementedError):
-            tdalle.DalleConfig.from_params({**base, **bad}, 16)
+    with pytest.raises(NotImplementedError):
+        tdalle.DalleConfig.from_params({**base, "layout": "batch_dim:data,layers:pipe"}, 16)
+    # remat policies that take arguments are no policy by their name alone
+    with pytest.raises(ValueError):
+        tdalle.DalleConfig.from_params(
+            {**base, "recompute_grad": True, "remat_policy": "save_only_these_names"}, 16)
+    # the memory-bound options are ported (tests/test_torch_remat.py,
+    # tests/test_torch_xent_fused.py, tests/test_torch_optim_extras.py)
+    for ok in ({"fused_xent": True}, {"recompute_grad": True},
+               {"recompute_grad": True, "remat_policy": "save_attn"}):
+        tdalle.DalleConfig.from_params({**base, **ok}, 16)
     # ring attention is ported; its axes come from the layout, as in JAX
     ring = tdalle.DalleConfig.from_params(
         {**base, "attention_type": "local_ring",
@@ -251,9 +257,10 @@ def test_unported_options_are_refused(tmp_path):
     assert ok.remat_policy == "dots_and_attn"
     assert tdalle.DalleConfig.from_params({**base, "ln_impl": "pallas"}, 16).ln_impl == "pallas"
     tree = {"w": torch.zeros(2, requires_grad=True)}
-    for bad in ({"optimizer": "adafactor"}, {"skip_nonfinite_updates": 3}):
-        with pytest.raises(NotImplementedError):
-            toptim.get_optimizer({"lr": 1e-3, **bad}, tree)
+    for ok in ({"optimizer": "adafactor"}, {"skip_nonfinite_updates": 3}):
+        toptim.get_optimizer({"lr": 1e-3, **ok}, tree)
+    with pytest.raises(ValueError, match="not recognized"):
+        toptim.get_optimizer({"lr": 1e-3, "optimizer": "sgd"}, tree)
     from dalle_mtf_tpu_torch.data import fs
 
     with pytest.raises(NotImplementedError):
@@ -262,8 +269,8 @@ def test_unported_options_are_refused(tmp_path):
 
     # predict_steps is ported (tests/test_torch_predict.py); the CLI still
     # refuses what is not
-    with pytest.raises(NotImplementedError, match="Adafactor"):
-        train_dalle.main(["--model", _train_config(tmp_path, optimizer="adafactor"),
+    with pytest.raises(NotImplementedError, match="pipeline"):
+        train_dalle.main(["--model", _train_config(tmp_path, layout="batch_dim:data,layers:pipe"),
                           "--device", "cpu"])
 
 

@@ -10,8 +10,8 @@ rows and sequence shard of the global q, k, v, g in the inputs (with the
 inputs' ``plain`` choice, if any); writes its
 out, dq, dk, dv and kernel counts to ``<out_dir>/rank<r>.pt``.
 ``dalle_step``: the DALLE loss and gradients of this rank's share on the
-global tokens, summed over the world; rank 0 writes them to
-``<out_dir>/step.pt``. ``image_step``: the same for an image-mode batch
+global tokens (through the fused head where the inputs set ``fused_xent``),
+summed over the world; rank 0 writes them to ``<out_dir>/step.pt``. ``image_step``: the same for an image-mode batch
 through ``make_dalle_task``'s train loss, the frozen VAE encoding this
 rank's rows. Imports torch and the port only.
 """
@@ -86,7 +86,7 @@ def dalle_step(inp, out_dir, proc):
     params = _trainable(inp["params"])
     tokens = _rows(mesh, cfg.ring_batch_axis, inp["tokens"], 0)
     loss, _ = model.loss(params, tokens, torch.Generator().manual_seed(inp["seed"]),
-                         train=True)
+                         train=True, fused_xent=inp.get("fused_xent", False))
     _save_summed(loss, params, out_dir, proc)
 
 
