@@ -32,8 +32,9 @@ Phases, none of them optional:
      backward ``causal_attention_bwd``) against ``attention_packed_reference``
      and ``backward_reference``: out, lse, dq, dk, dv at the training shape
      (B=16, S=1280, H=8, D=128, bf16), a ragged fp32 shape with window 64,
-     the training shape with hash dropout 0.1 (one seed on both sides), and
-     dalle_12B's microbatch (B=8, S=2560, H=40, D=128, bf16);
+     the training shape with hash dropout 0.1 (one seed on both sides),
+     dalle_12B's microbatch (B=8, S=2560, H=40, D=128, bf16) and a
+     tensor-parallel rank's block of dalle_coco (B=8, S=1280, H=4);
    - the [B, H, S, D] forward with hash dropout;
    - ``phase_tile_cases``: the pair at the edges of its tile walk, in bf16
      (the forward under every q tile it is built for: 64 rows, and 128 at
@@ -42,7 +43,10 @@ Phases, none of them optional:
      tile, S in {1, 63, 65, 129}, a window of 1 and one wider than S, the
      packed layout with H = 1, with and without hash dropout; each with the
      per-tile bound, the planted zeroed tile and the two-run bit-equality
-     of the forward and of the backward;
+     of the forward and of the backward; and both pairs on heads 4..7 of 8
+     (``head0``, ``heads_total``: a tensor-parallel rank's block) with hash
+     dropout, in bf16 and fp32, against the plain versions and bit for bit
+     against those heads of one 8-head launch (``head_block_cases``);
    - the [B, H, S, D] pair (``causal_attention_fwd``/``_bwd`` through
      ops/attention.py) against ``attention_reference`` and
      ``attention_backward_reference`` at the shapes of the TPU package's
@@ -123,12 +127,12 @@ Phases, none of them optional:
    40 heads of 128, S = 256 + 48 x 48 = 2560, vocab 52,307, bf16) cut to 4
    of its 38 layers and one data replica's 32 rows (4 microbatches of 8, as
    published), through ``train_dalle.main``: the published arm (AdamW,
-   dense head, ``dots_saveable``) for 4 steps with an eval and a
-   checkpoint, then a remat sweep of 2 steps a policy on its state (peak
+   dense head, ``dots_saveable``) for 3 steps with an eval and a
+   checkpoint, then a remat sweep of 1 step a policy on its state (peak
    memory, step s, the packed forward's launches held to one or two a layer
    and microbatch; peak memory nothing_saveable < dots_saveable < none);
    the lean arm (+ ``fused_xent``, Adafactor, ``skip_nonfinite_updates: 3``)
-   for 4 steps with checkpoints at 2 and 4, and a resume from step 2 whose
+   for 3 steps with checkpoints at 2 and 3, and a resume from step 2 whose
    losses and grad norms equal the unbroken run's bit for bit; then the
    fused head's products timed at a chunk of the microbatch. Its
    "train_12b" line holds each arm's step s, tokens/s, MFU and peak memory,
@@ -148,7 +152,7 @@ Phases, none of them optional:
      dalle_4k config with ``attention_type: "ring"``, ``mesh_shape:
      data:1,seq:4`` and ``layout: batch_dim:data,total_seq_dim:seq`` through
      ``python -m torch.distributed.run --nproc_per_node 4`` and
-     ``train_dalle.main`` for 6 steps with an eval and a checkpoint, then a
+     ``train_dalle.main`` for 4 steps with an eval and a checkpoint, then a
      resumed run for one more. Checks the first loss against ln V + var/2
      and within 2e-3 of the single-process run's, finite losses and grad
      norms, the parameters bit-equal over the ranks (a checksum a rank), the
@@ -157,6 +161,27 @@ Phases, none of them optional:
      launch of the [B, H, S, D] or packed pairs; prints step time and
      tokens/s labelled as four ranks on one card, the bytes staged and the
      peak memory a rank.
+   Then tensor parallelism, ranks sharing the one card over gloo in the
+   same way (the all_reduces staged through host memory):
+   - ``phase_tp_values``: four ranks on ``data:2,model:2`` with dalle_coco's
+     layout (heads, MLP width and vocabulary on ``model``) run the 2-layer
+     fp32 values model at dalle_coco width with the dense head, the fused
+     head, and attention dropout 0.1 through the packed and the
+     [B, H, S, D] pair, each against one process on the card (loss within
+     1e-5, each gradient, the blocks gathered, within relative L2 1e-2;
+     one forward and one backward launch a layer a rank); under dropout the
+     kernels on each rank's heads equal one 8-head launch's bit for bit;
+   - ``phase_train_tp``, the main path of this slice: configs/dalle_coco.json
+     as published (its ``data:16,model:2`` and layout verbatim:
+     ``data:1,model:2`` on two ranks, each 4 heads, 2048 MLP columns and a
+     26,240-row block of the vocabulary) in tokens mode, cut to batch 8,
+     through ``torch.distributed.run`` of two ranks and ``train_dalle.main``
+     for 6 steps with an eval and a checkpoint (the whole tree, gathered),
+     then a resumed run for 2 more. Checks the first loss within 2e-3 of the
+     single-process port's on the same records and seed, the ranks' losses
+     equal, the packed pair's exact launches a rank; its "train_tp" line
+     holds step s and tokens/s (labelled as two ranks on one card), the
+     collective bytes a rank a step and the peak memory a rank.
    Then stage-1 VAE training, ``phase_train_vae`` (no TPU kernel on its
    path: cuDNN convs, cuBLAS codebook products): a small VAE's training and
    eval step on the card against the CPU in fp32 and bf16 (same weights,
@@ -245,12 +270,15 @@ Phases, none of them optional:
    equal (6 * n_layers + 1) * chunk per chunk (chunk replays of its graph)
    plus one per admission.
 
-``chip_smoke.py --ring-worker <checks|train> ...`` is one rank of the ring
-phases, started by them through ``torch.distributed.run``.
+``chip_smoke.py --ring-worker <checks|tp_values|train> ...`` is one rank of
+the ring and tensor-parallel phases, started by them through
+``torch.distributed.run``.
 
 Prints "kernel", "train", "memory_options_values", "loss_head",
-"loss_head_steps", "head", "train_12b", "train_vae", "train_image", "batch",
-"decode_profile" and "continuous_chunk" JSON lines,
+"loss_head_steps", "head", "train_12b", "train_tp", "train_vae",
+"train_image", "batch", "decode_profile" and "continuous_chunk" JSON lines,
+then each phase's seconds ("phase_seconds") and the whole run's against its
+1000 s budget,
 then the kernel report as one JSON line (with each kernel's least time on the
 card, ``bound_ms``, one PyTorch call's time for the same function,
 ``library_ms``, and on rows 1-2 the image-mode run's launches,
@@ -348,9 +376,31 @@ DECODE_ITERS = 200  # timed launches of a decode matmul (a launch is a few µs)
 RING_RANKS = 4
 RING_MESH, VALUES_MESH = "data:1,seq:4", "data:2,seq:2"
 RING_LAYOUT = "batch_dim:data,total_seq_dim:seq"
-RING_STEPS, RING_RESUME_STEPS = LONG_STEPS, 1
+# the ring run: 4 steps (steps 3..4 timed) + eval + checkpoint, a resume for 1
+RING_STEPS, RING_RESUME_STEPS = 4, 1
 RING_LABEL = "4 ranks sharing one card, gloo staged through host: not a multi-GPU number"
 RING_SEED = 2**31 - 7
+# tensor parallelism: ranks sharing the one card over gloo
+TP_CONFIG = "dalle_coco"
+TP_RANKS, TP_VALUES_RANKS = 2, 4
+TP_VALUES_MESH = "data:2,model:2"
+TP_LAYOUT = "batch_dim:data,heads_dim:model,intermediate_expanded:model,vocab_dim:model"
+# dalle_coco as published, its mesh_shape (data:16,model:2: data:1,model:2 on two
+# ranks) and layout verbatim, cut to one data replica's 8 rows of the published
+# 128 (the rule phase_train_12b takes); all 12 layers
+TP_CUT = dict(train_batch_size=8, eval_batch_size=8)
+TP_STEPS, TP_RESUME_STEPS, TP_TIMED_FROM = 6, 2, 3  # steps 3..6 are timed
+TP_LABEL = "2 ranks sharing one card over gloo, staged through host: not a multi-GPU number"
+TP_VALUES_LABEL = ("4 ranks sharing one card over gloo, staged through host: not a multi-GPU "
+                   "number")
+TP_SEED = 11  # the values arms' dropout generator
+TP_VALUES_ARMS = (  # (name, config fields, fused head) of the 2-layer fp32 values model
+    ("dense", {}, False),
+    ("fused_xent", {}, True),
+    ("dropout_packed", {"attention_dropout": 0.1}, False),
+    ("dropout_unpacked", {"attention_dropout": 0.1, "attn_packed": False}, False),
+)
+RUN_LIMIT_S = 1000  # the whole run's budget on the card, the build included
 
 
 def gpu_line() -> str:
@@ -588,7 +638,8 @@ def phase_train_kernels(torch, attn, card):
     """The packed forward/backward pair and the [B, H, S, D] forward with
     dropout against their plain versions. Returns ({kernel name: row at the
     training shape (without dropout)}, the same at dalle_12B's microbatch:
-    B=8, H=40, S=2560)."""
+    B=8, H=40, S=2560, and at a tensor-parallel rank's block of dalle_coco:
+    B=8, H=4, S=1280)."""
     from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
 
     cases = [  # (name, B, H, S, D, dtype, window, dropout, plain version's timing iters)
@@ -596,6 +647,8 @@ def phase_train_kernels(torch, attn, card):
         ("ragged_window", 2, 4, 200, 64, torch.float32, 64, 0.0, 20),
         ("train_dropout", 16, 8, 1280, 128, torch.bfloat16, None, 0.1, 5),
         ("dalle_12B", 8, 40, 2560, 128, torch.bfloat16, None, 0.0, 2),
+        # a tensor-parallel rank of dalle_coco at model:2: 4 of the 8 heads
+        ("tp_rank", 8, 4, 1280, 128, torch.bfloat16, None, 0.0, 10),
     ]
     seed = 2**31 - 7  # near the top of the range: the uint32 add wraps
     gen = torch.Generator().manual_seed(1)
@@ -662,7 +715,7 @@ def phase_train_kernels(torch, attn, card):
         }
         for row in rows.values():
             print("kernel", json.dumps(row), flush=True)
-        if name in ("train", "dalle_12B"):
+        if name in ("train", "dalle_12B", "tp_rank"):
             best[name] = rows
         del q, k, v, g, out, lse, grads, ref, ref_lse, ref_grads, sets
         torch.cuda.empty_cache()
@@ -690,7 +743,7 @@ def phase_train_kernels(torch, attn, card):
             # a window bounds the pairs, so this bound (every causal pair) is an upper one
             **attention_roofline(b, h, s, d, 4, 4, 1, 2),
         )), flush=True)
-    return best["train"], best["dalle_12B"]
+    return best["train"], best["dalle_12B"], best["tp_rank"]
 
 
 def phase_bhsd_kernels(torch, attn, card):
@@ -905,6 +958,77 @@ def phase_tile_cases(torch, attn, card):
             shape=name, tile_rows=tile, B=b, H=h, S=s, D=d, dtype=str(dtype), window=window,
             dropout=rate, atol=atol, tile_rtol=rtol, lse_err=lse_err, errs=errs,
             bit_equal_two_runs=True, forward_bit_equal_two_runs=True)), flush=True)
+    head_block_cases(torch, attn, card)
+
+
+def head_block_cases(torch, attn, card):
+    """The dropout hash's head index: the packed and the [B, H, S, D] pair on
+    heads 4..7 of 8 (``head0`` 4, ``heads_total`` 8: a tensor-parallel
+    rank's block at model:2) with hash dropout 0.1, in bf16 (64-row q tile,
+    as the whole launch) and fp32, held against their plain versions with
+    the same arguments (atol 1e-2 bf16, 1e-5 fp32, x max(1, |plain|); lse
+    1e-4) and against the heads 4..7 of one launch over all 8 heads, out,
+    lse, dq, dk, dv bit for bit. The block launched with the defaults
+    (head0 0) must draw another mask."""
+    from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
+
+    seed, rate, h0, total, b, s, d = RING_SEED, 0.1, 4, 8, 2, 320, 128
+    gen = torch.Generator().manual_seed(13)
+    for packed in (True, False):
+        for dtype in (torch.bfloat16, torch.float32):
+            tile = 64 if dtype == torch.bfloat16 else None
+            atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+
+            def run(tensors, heads, head0=0, heads_total=None):
+                """(out, dq, dk, dv) as [B, H, S, D] and the lse of one launch
+                pair on ``tensors`` (q, k, v, g [B, H, S, D])."""
+                if packed:
+                    pq, pk, pv, pg = (ap._pack(t).contiguous() for t in tensors)
+                    out, lse = ap._forward(pq, pk, pv, heads, None, rate, seed, tile, head0,
+                                           heads_total)
+                    grads = ap._backward(pq, pk, pv, out, lse, pg, heads, None, rate, seed,
+                                         head0, heads_total)
+                    return [ap._unpack(t, heads) for t in (out, *grads)], lse
+                q, k, v, g = tensors
+                out, lse = attn._forward(q, k, v, None, rate, seed, True, tile, head0,
+                                         heads_total)
+                grads = attn._backward(q, k, v, out, lse, g, None, rate, seed, head0,
+                                       heads_total)
+                return [out, *grads], lse
+
+            whole_in = [(torch.rand((b, total, s, d), generator=gen) * 2 - 1).to("cuda", dtype)
+                        for _ in range(4)]
+            block_in = [t[:, h0:].contiguous() for t in whole_in]
+            whole, whole_lse = run(whole_in, total)
+            block, block_lse = run(block_in, total - h0, h0, total)
+            default = run(block_in, total - h0)[0][0]
+            torch.cuda.synchronize()
+            bit_equal = all(torch.equal(p, w[:, h0:]) for p, w in zip(block, whole)) and \
+                torch.equal(block_lse, whole_lse.reshape(b, total, s)[:, h0:].reshape(-1, s))
+            ref, ref_lse = attn.attention_reference(*block_in[:3], True, None, True, rate, seed,
+                                                    h0, total)
+            ref_grads = attn.attention_backward_reference(
+                *block_in[:3], block[0].contiguous(), block_lse, block_in[3], None, rate, seed,
+                h0, total)
+            errs = {n: max_err(t, r) for n, t, r in zip(("out", "dq", "dk", "dv"), block,
+                                                         (ref, *ref_grads))}
+            lse_err = (block_lse - ref_lse).abs().max().item()
+            bad = {n: e for n, (e, scale) in errs.items() if not e <= atol * scale}
+            other_mask = not torch.equal(default, block[0])
+            name = f"head_block_{'packed' if packed else 'bhsd'}_{str(dtype)[6:]}"
+            if bad or not lse_err <= 1e-4 or not bit_equal or not other_mask:
+                raise AssertionError(
+                    f"{name}: heads {h0}..{total - 1} of {total} with dropout {rate}: against "
+                    f"the plain versions {bad} (atol {atol}), lse err {lse_err}; bit-equal to "
+                    f"the 8-head launch's heads: {bit_equal}; the default head0 draws another "
+                    f"mask: {other_mask}; all {errs}")
+            print("kernel", json.dumps(dict(
+                card=card, kernel="causal_attention_packed" if packed else "causal_attention",
+                shape=name, B=b, H=total - h0, head0=h0, heads_total=total, S=s, D=d,
+                dtype=str(dtype), dropout=rate, tile_rows=tile, atol=atol, lse_err=lse_err,
+                errs={n: e for n, (e, _) in errs.items()},
+                bit_equal_to_whole_launch_heads=bit_equal,
+                default_head0_draws_another_mask=other_mask)), flush=True)
 
 
 def phase_ln_kernels(torch, lnm, card):
@@ -1387,14 +1511,14 @@ TWELVE_B_CONFIG = "dalle_12B"
 # 8 rows; no tensor parallelism (model:8 and its layout rules dropped)
 TWELVE_B_CUT = dict(n_layers=4, mesh_shape="data:1", layout="batch_dim:data",
                     train_batch_size=32, eval_batch_size=8)
-TWELVE_B_STEPS, TWELVE_B_TIMED_FROM = 4, 2  # steps 2..4 timed
+TWELVE_B_STEPS, TWELVE_B_TIMED_FROM = 3, 2  # steps 2..3 timed
 LEAN = dict(fused_xent=True, optimizer="adafactor", skip_nonfinite_updates=3)
 # the remat sweep: no remat, then each policy with its own path (checkpoint_dots
 # and checkpoint_dots_with_no_batch_dims are other names of two of them;
 # everything_saveable runs as dots_and_attn, without a checkpoint)
 REMAT_SWEEP = ("none", "nothing_saveable", "dots_saveable", "dots_with_no_batch_dims_saveable",
                "dots_except_mlp1", "save_attn", "save_attn_lean", "dots_and_attn")
-SWEEP_STEPS = 2
+SWEEP_STEPS = 1  # each policy's peak memory and step time from one step
 HEAD_CHUNK_ITERS = 5  # timed runs of each fused-head product at a chunk's shape
 
 
@@ -1740,9 +1864,9 @@ def phase_train_12b(torch, attn, card) -> dict:
       (the JAX default its ``recompute_grad: true`` takes), TWELVE_B_STEPS
       steps with an eval and a checkpoint; then the remat sweep on its state;
     - lean: + ``fused_xent``, Adafactor, ``skip_nonfinite_updates: 3``, the
-      same steps with checkpoints at 2 and 4 (both kept); the step-4
-      checkpoint is removed and a second ``main`` resumes from step 2: its
-      losses and grad norms equal the unbroken run's bit for bit.
+      same steps with checkpoints at 2 and at the last step (both kept); the
+      last checkpoint is removed and a second ``main`` resumes from step 2:
+      its losses and grad norms equal the unbroken run's bit for bit.
 
     Exact launches of the packed pair (two forwards a layer and microbatch
     under dots_saveable, one in eval), step s, tokens/s, MFU (bench.py's
@@ -2048,13 +2172,13 @@ def phase_ring_kernels(torch, ring, card):
     return rows
 
 
-def run_ranks(args, timeout: float) -> str:
-    """``torch.distributed.run`` of RING_RANKS ranks on this machine
+def run_ranks(args, timeout: float, ranks: int = RING_RANKS) -> str:
+    """``torch.distributed.run`` of ``ranks`` ranks on this machine
     (``--standalone``: a rendezvous on localhost); returns their output and
     raises if a rank fails. On a timeout the launcher is stopped, and it
     stops its ranks."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(RING_RANKS), *args]
+           "--nproc_per_node", str(ranks), *args]
     proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     try:
@@ -2217,36 +2341,68 @@ def phase_ring_attention(torch, attn, card):
 
 
 def worker_train(torch, out_dir, argv):
-    """One rank of phase_train_ring: ``train_dalle.main`` on its argv, the
-    kernel counts set to 0 just before; writes what the rank saw to
-    <out_dir>/rank<r>.json (history, launches, staged bytes, peak memory and
-    a checksum of its parameters)."""
+    """One rank of phase_train_ring and phase_train_tp: ``train_dalle.main``
+    on each of its argvs (separated by ``--then``: a resume runs in the same
+    process group), the kernel counts and the peak memory reset just before
+    each; writes what the rank saw in run i to <out_dir>/rank<r>_<i>.json
+    (history, launches, staged bytes, the bytes its collectives moved in each
+    training step, peak memory and a checksum of its parameters)."""
     import hashlib  # noqa: PLC0415
+
+    import torch.distributed as dist  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch import train_dalle  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import ring_attention as ring  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.parallel.tensor import COLLECTIVES  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.trainer import Trainer  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.distributed import init_distributed  # noqa: PLC0415
 
     rank = int(os.environ["RANK"])
-    reset_counts(attn, lnm, ring)
-    ring.STAGED_BYTES["ring_shift"] = 0
-    t0 = time.perf_counter()
-    run = train_dalle.main(argv)  # a fresh process: its peak memory is this run's
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    digest = hashlib.sha256()
-    for _, t in named_leaves(run.state["params"]):
-        digest.update(t.detach().cpu().numpy().tobytes())
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(dict(rank=rank, history=run.history, eval_history=run.eval_history,
-                       checkpoints=run.checkpoint_steps(), wall_s=wall,
-                       launches={**attn.KERNEL_LAUNCHES, **lnm.KERNEL_LAUNCHES,
-                                 **ring.KERNEL_LAUNCHES},
-                       staged_bytes=ring.STAGED_BYTES["ring_shift"],
-                       peak_mem_gb=torch.cuda.max_memory_allocated(0) / 1e9,
-                       params_sha256=digest.hexdigest()), f)
+    step_bytes = []
+    train_step = Trainer.train_step
+
+    def counted(self, *args, **kw):  # the collectives' bytes of one training step
+        before = COLLECTIVES["bytes"]
+        out = train_step(self, *args, **kw)
+        step_bytes.append(COLLECTIVES["bytes"] - before)
+        return out
+
+    Trainer.train_step = counted
+    runs = [list(g) for sep, g in itertools.groupby(argv, lambda a: a == "--then") if not sep]
+    # one process group for every run (``main`` reuses a group that is up): a
+    # group destroyed and made again in one process meets the first group's
+    # keys in the launcher's store
+    init_distributed(["0"], "cuda")
+    try:
+        for i, run_argv in enumerate(runs):
+            reset_counts(attn, lnm, ring)
+            ring.STAGED_BYTES["ring_shift"] = 0
+            step_bytes.clear()
+            torch.cuda.reset_peak_memory_stats(0)
+            t0 = time.perf_counter()
+            run = train_dalle.main(run_argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            digest = hashlib.sha256()
+            for _, t in named_leaves(run.state["params"]):
+                digest.update(t.detach().cpu().numpy().tobytes())
+            with open(os.path.join(out_dir, f"rank{rank}_{i}.json"), "w") as f:
+                json.dump(dict(rank=rank, history=run.history, eval_history=run.eval_history,
+                               checkpoints=run.checkpoint_steps(), wall_s=wall,
+                               launches={**attn.KERNEL_LAUNCHES, **lnm.KERNEL_LAUNCHES,
+                                         **ring.KERNEL_LAUNCHES},
+                               staged_bytes=ring.STAGED_BYTES["ring_shift"],
+                               collective_bytes_per_step=list(step_bytes),
+                               peak_mem_gb=torch.cuda.max_memory_allocated(0) / 1e9,
+                               params_sha256=digest.hexdigest()), f)
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
 
 
 def train_ranks(torch, path, steps, evals, cfg, new: bool) -> list[dict]:
@@ -2260,7 +2416,7 @@ def train_ranks(torch, path, steps, evals, cfg, new: bool) -> list[dict]:
                    *argv], 900)
         ranks = []
         for r in range(RING_RANKS):
-            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            with open(os.path.join(out_dir, f"rank{r}_0.json")) as f:
                 ranks.append(json.load(f))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -2349,6 +2505,335 @@ def phase_train_ring(torch, card, long_first_loss):
         per_rank = [{k: r["launches"][k] for k in ("ring_partial", "ring_block_grads")}
                     for r in ranks]
         return {k: sum(p[k] for p in per_rank) for k in per_rank[0]}, per_rank
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def worker_tp_values(torch, out_dir):
+    """One rank of phase_tp_values on TP_VALUES_MESH (dalle_coco's layout):
+    each arm of TP_VALUES_ARMS on the 2-layer fp32 values model, the rank's
+    row of the two and its blocks of the parameters: the loss and every
+    leaf's gradient, the blocks gathered over the model group and summed
+    over the replicas, which rank 0 holds against one process on the card
+    (``values_errors``); then, with hash dropout 0.1, the packed and the
+    [B, H, S, D] pair on the rank's heads (``head0``, ``heads_total``) of
+    seeded global q, k, v, g. Writes <out_dir>/rank<r>.pt."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.parallel.mesh import build_mesh  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.parallel.tensor import gather  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.distributed import init_distributed  # noqa: PLC0415
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    proc = init_distributed(["0"], "cuda")
+    try:
+        mesh = build_mesh(TP_VALUES_MESH, TP_LAYOUT, "global", proc.rank, proc.world)
+        dp = mesh.index("data")
+        res = {"backend": proc.backend, "coords": mesh.coords, "arms": {}, "kernels": {}}
+        base, params, tokens = values_model(torch)  # the arms change no parameter
+        for name, over, fused in TP_VALUES_ARMS:
+            cfg = dataclasses.replace(base, **over)
+            dalle = DALLE(cfg, "cuda", mesh)
+            sharding = dalle.sharding
+            tree = _to(sharding.shard_tree(params), "cuda")
+            for _, t in named_leaves(tree):
+                t.requires_grad_(True)
+            reset_counts(attn)
+            loss, _ = dalle.loss(tree, tokens[dp:dp + 1].cuda(),
+                                 torch.Generator().manual_seed(TP_SEED), fused_xent=fused)
+            loss.backward()
+            launches = {n: c for n, c in attn.KERNEL_LAUNCHES.items() if c}
+            grads = {"/".join(p): gather(t.grad, sharding.of(p), sharding.group)
+                     for p, t in named_leaves(tree)}
+            loss = loss.detach().clone()
+            for t in (loss, *grads.values()):
+                dist.all_reduce(t, group=mesh.replica_group)
+            res["arms"][name] = dict(loss=loss.item(), launches=launches, heads=dalle.heads)
+            if proc.rank == 0:
+                res["arms"][name]["one_process"] = values_errors(torch, cfg, params, tokens,
+                                                                 fused, grads)
+            del tree, grads, loss
+            torch.cuda.empty_cache()
+        h0, heads = dalle.heads
+        q, k, v, g = (t[dp:dp + 1, h0:h0 + heads].contiguous().cuda()
+                      for t in tp_kernel_inputs(torch))
+        seed = RING_SEED + dp * 8  # row dp of 8 heads, as the model offsets it
+        for packed in (True, False):
+            if packed:
+                pq, pk, pv, pg = (ap._pack(t).contiguous() for t in (q, k, v, g))
+                out, lse = ap._forward(pq, pk, pv, heads, None, 0.1, seed, None, h0, 8)
+                grads = ap._backward(pq, pk, pv, out, lse, pg, heads, None, 0.1, seed, h0, 8)
+                got = [ap._unpack(t, heads) for t in (out, *grads)]
+            else:
+                out, lse = attn._forward(q, k, v, None, 0.1, seed, True, None, h0, 8)
+                got = [out, *attn._backward(q, k, v, out, lse, g, None, 0.1, seed, h0, 8)]
+            res["kernels"][packed] = dict(lse=lse.cpu(), tensors=[t.cpu() for t in got])
+        torch.save(res, os.path.join(out_dir, f"rank{proc.rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def values_errors(torch, cfg, params, tokens, fused, grads) -> dict:
+    """One process's loss on the card for the values model ``cfg`` (the same
+    parameters, rows and dropout generator as the ranks) and the relative L2
+    error and worst single element of ``grads`` (the ranks' whole
+    gradients) against its gradients, leaf by leaf."""
+    from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+
+    tree = _to(params, "cuda")
+    for _, t in named_leaves(tree):
+        t.requires_grad_(True)
+    loss, _ = DALLE(cfg, "cuda").loss(tree, tokens.cuda(), torch.Generator().manual_seed(TP_SEED),
+                                      fused_xent=fused)
+    loss.backward()
+    want = {"/".join(p): t.grad for p, t in named_leaves(tree)}
+    l2 = max((((grads[n] - w).norm() / w.norm().clamp_min(1e-30)).item(), n)
+             for n, w in want.items())
+    elem = max(((grads[n] - w).abs().max().item() / max(w.abs().max().item(), 1e-30), n)
+               for n, w in want.items())
+    return dict(loss=loss.item(), worst_grad_rel_l2=l2, worst_grad_elem=elem)
+
+
+def tp_kernel_inputs(torch):
+    """Seeded global q, k, v, g [2, 8, 1280, 128] fp32 on the CPU: the values
+    model's two rows and eight heads."""
+    gen = torch.Generator().manual_seed(23)
+    return [torch.rand((2, 8, 1280, 128), generator=gen) * 2 - 1 for _ in range(4)]
+
+
+def phase_tp_values(torch, attn, card) -> dict:
+    """The values check of tensor parallelism: 4 ranks on the card
+    (``torch.distributed.run``, gloo) on TP_VALUES_MESH with dalle_coco's
+    layout, the 2-layer fp32 values model at dalle_coco width (each rank 4
+    heads, 2048 MLP columns, a 26,240-row block of the vocabulary), each arm
+    of TP_VALUES_ARMS (the dense head, the fused head, attention dropout 0.1
+    through the packed and the [B, H, S, D] pair) against one process on the
+    card on the same parameters, rows and dropout generator: loss within
+    1e-5, every leaf's gradient within relative L2 error 1e-2 (the values
+    checks' bound, ``compare_values``: a single element is not held, since
+    a relu whose input sits at 0 turns a last-bit difference of the split
+    products into a whole gradient term; the worst one is printed), the
+    launches of the arm's attention pair (one forward and one backward a
+    layer on each rank). Under dropout the kernels on each rank's heads
+    equal the heads of one 8-head launch bit for bit (the same hash)."""
+    from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_values_")
+    try:
+        t0 = time.perf_counter()
+        run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "tp_values", out_dir],
+                  600, TP_VALUES_RANKS)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(TP_VALUES_RANKS)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError(f"ranks sharing a card must run gloo: {[r['backend'] for r in ranks]}")
+    report = {}
+    base, _, _ = values_model(torch)
+    for name, over, fused in TP_VALUES_ARMS:
+        cfg = dataclasses.replace(base, **over)
+        one = ranks[0]["arms"][name]["one_process"]
+        losses = [r["arms"][name]["loss"] for r in ranks]
+        l2, elem = one["worst_grad_rel_l2"], one["worst_grad_elem"]
+        pair = ("causal_attention_packed" if cfg.attn_packed else "causal_attention")
+        launches = [r["arms"][name]["launches"] for r in ranks]
+        need = {f"{pair}_fwd": cfg.n_layers, f"{pair}_bwd": cfg.n_layers}
+        report[name] = dict(loss_tp=losses, loss_one_process=one["loss"], worst_grad_rel_l2=l2,
+                            worst_grad_elem=elem,
+                            heads_per_rank=[r["arms"][name]["heads"] for r in ranks],
+                            launches_per_rank=launches)
+        print(f"tp values {name}: {cfg.n_embd} wide, {cfg.n_layers} layers, fp32, 2 rows on "
+              f"{TP_VALUES_MESH}: loss per rank {losses} vs one process {one['loss']:.7f} "
+              f"(atol 1e-5); worst grad relative L2 error {l2[0]:.3g} ({l2[1]}, bound 1e-2); "
+              f"worst single element {elem[0]:.3g} of its leaf's max |grad| ({elem[1]}); "
+              f"launches per rank {launches} ({TP_VALUES_LABEL}); {card}", flush=True)
+        if not (all(abs(x - one["loss"]) <= 1e-5 for x in losses) and l2[0] <= 1e-2):
+            raise AssertionError(f"tp values {name}: the ranks disagree with one process")
+        if any(x != need for x in launches):
+            raise AssertionError(f"tp values {name}: launches {launches}, expected {need}")
+    q, k, v, g = (t.cuda() for t in tp_kernel_inputs(torch))
+    for packed in (True, False):
+        if packed:
+            pq, pk, pv, pg = (ap._pack(t).contiguous() for t in (q, k, v, g))
+            out, lse = ap._forward(pq, pk, pv, 8, None, 0.1, RING_SEED)
+            whole = [ap._unpack(t, 8) for t in
+                     (out, *ap._backward(pq, pk, pv, out, lse, pg, 8, None, 0.1, RING_SEED))]
+        else:
+            out, lse = attn._forward(q, k, v, None, 0.1, RING_SEED, True)
+            whole = [out, *attn._backward(q, k, v, out, lse, g, None, 0.1, RING_SEED)]
+        lse = lse.reshape(2, 8, -1)
+        for r in ranks:
+            dp, (h0, heads) = r["coords"]["data"], r["arms"]["dense"]["heads"]
+            mine = r["kernels"][packed]
+            equal = all(torch.equal(t, w[dp:dp + 1, h0:h0 + heads].cpu())
+                        for t, w in zip(mine["tensors"], whole)) and torch.equal(
+                mine["lse"], lse[dp:dp + 1, h0:h0 + heads].reshape(heads, -1).cpu())
+            if not equal:
+                layout = "packed" if packed else "[B, H, S, D]"
+                raise AssertionError(f"tp values: rank {r['coords']}'s {layout} kernels under "
+                                     f"dropout differ from the single launch's heads "
+                                     f"{h0}..{h0 + heads - 1}")
+    print(f"tp values: under dropout 0.1 each rank's packed and [B, H, S, D] kernels on its "
+          f"heads equal one 8-head launch's bit for bit; 4 ranks in {wall:.1f}s", flush=True)
+    return report
+
+
+def tp_first_loss(torch, path) -> float:
+    """The single-process port's first training loss on the records and
+    seed of the config at ``path``: its Trainer's init and first batch."""
+    import numpy as np  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_task  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.trainer import step_generator  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    params = fetch_model_params(path)
+    params["padding_id"] = 50257
+    seed = params.get("seed") or 0
+    _, _, init_fn, loss_fn, _ = make_dalle_task(params, "cuda")
+    tree = init_fn(torch.Generator().manual_seed(seed))
+    data = iter(dalle_input_fn(params, eval=False, shard=(0, 1)))
+    batch = {k: torch.as_tensor(np.asarray(v)).cuda() for k, v in next(data).items()}
+    data.close()
+    with torch.no_grad():
+        loss, _ = loss_fn(tree, None, batch, step_generator(seed, 1, 0), 0)
+    return loss.item()
+
+
+def tp_train_ranks(torch, runs, evals, cfg) -> list[list[dict]]:
+    """The tensor-parallel runs' TP_RANKS ranks through ``train_dalle.main``,
+    one launch for all of ``runs`` ((config path, steps, new), a resume in
+    the same process group); checks what every rank logged in each (the
+    same losses: the ranks of a model group hold one loss), its checkpoint
+    and its launches of the packed pair (its 4 heads, one forward a layer a
+    pass, one backward a layer a step). Returns each run's reports in rank
+    order."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_train_")
+    try:
+        argv = []
+        for path, _, new in runs:
+            argv += (["--then"] if argv else []) + ["--model", path, "--gpu_ids", "0"] + (
+                ["--new", "--yes"] if new else [])
+        run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "train", out_dir,
+                   *argv], 900, TP_RANKS)
+        reports = []
+        for i in range(len(runs)):
+            ranks = []
+            for r in range(TP_RANKS):
+                with open(os.path.join(out_dir, f"rank{r}_{i}.json")) as f:
+                    ranks.append(json.load(f))
+            reports.append(ranks)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for (_, steps, _), ranks in zip(runs, reports):
+        first = ranks[0]["history"][0]["step"]
+        want = {"causal_attention_packed_fwd": cfg.n_layers * (steps + evals),
+                "causal_attention_packed_bwd": cfg.n_layers * steps}
+        for r in ranks:
+            logged = [h["step"] for h in r["history"]]
+            if logged != list(range(first, first + steps)):
+                raise AssertionError(f"rank {r['rank']} logged steps {logged}")
+            if [h["loss"] for h in r["history"]] != [h["loss"] for h in ranks[0]["history"]]:
+                raise AssertionError("the ranks logged different losses")
+            if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                       for h in r["history"]):
+                raise AssertionError(f"non-finite loss or grad_norm: {r['history']}")
+            if len(r["eval_history"]) != evals or not all(
+                    math.isfinite(e["eval_loss"]) for e in r["eval_history"]):
+                raise AssertionError(f"eval: {r['eval_history']}")
+            if r["checkpoints"] != [first + steps - 1]:
+                raise AssertionError(f"checkpoints {r['checkpoints']}")
+            if {k: c for k, c in r["launches"].items() if c} != want:
+                raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected "
+                                     f"{want}")
+    return reports
+
+
+def phase_train_tp(torch, card) -> list[dict]:
+    """The tensor-parallel main path: a tokens-mode copy of
+    configs/dalle_coco.json as published (n_embd 1024, 8 heads of 128,
+    S = 1280, vocab 52,307, bf16, remat dots_and_attn, the dense head; its
+    ``mesh_shape`` and ``layout`` verbatim) cut to TP_CUT, through
+    ``torch.distributed.run`` of TP_RANKS ranks sharing the card and
+    ``train_dalle.main`` for TP_STEPS steps with an eval and a checkpoint
+    (the whole tree, gathered), then, in the same launch, a resumed
+    ``main`` for TP_RESUME_STEPS more.
+    The first loss must equal the single-process port's on the same records
+    and seed within 2e-3. Returns the packed pair's launches per rank of the
+    first run."""
+    from dalle_mtf_tpu_torch.parallel.mesh import VOCAB, split_bounds  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_run_")
+    try:
+        published = fetch_model_params(TP_CONFIG)
+        dalle, _ = make_dalle_models({**published, **TP_CUT}, "cpu")
+        cfg = dalle.cfg
+        write_tokens_dataset(os.path.join(tmp, "data"), 4, cfg.image_seq_len,
+                             cfg.image_vocab_size, files=2, per_file=48)
+        path = shutil.copy(train_config(tmp, TP_STEPS, TP_CONFIG, TP_STEPS, **TP_CUT),
+                           os.path.join(tmp, "first.json"))
+        resume = train_config(tmp, TP_STEPS + TP_RESUME_STEPS, TP_CONFIG, TP_STEPS, **TP_CUT)
+        single = tp_first_loss(torch, path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks, resumed = tp_train_ranks(
+            torch, [(path, TP_STEPS, True), (resume, TP_RESUME_STEPS, False)], 1, cfg)
+        wall = time.perf_counter() - t0
+        hist = ranks[0]["history"]
+        losses = [h["loss"] for h in hist]
+        init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
+        if abs(losses[0] - init_loss) > 0.1 or abs(losses[0] - single) > 2e-3:
+            raise AssertionError(f"first loss {losses[0]} vs ln(vocab) + var/2 = {init_loss} "
+                                 f"and the single-process port's {single} (atol 2e-3)")
+        after = [h["loss"] for h in resumed[0]["history"]]
+        if not abs(after[0] - losses[-1]) <= 0.1:
+            raise AssertionError(f"the resumed run does not continue the curve: {losses} then "
+                                 f"{after}")
+        step_s = [1.0 / h["steps_per_sec"] for h in hist[TP_TIMED_FROM - 1:]]
+        med = statistics.median(step_s)
+        batch = TP_CUT["train_batch_size"]
+        tokens_per_step = cfg.total_seq_len * batch
+        per_step = [r["collective_bytes_per_step"] for r in ranks]
+        print(f"train tp {TP_CONFIG}: {TP_STEPS} steps + eval + checkpoint, then a resume, "
+              f"in {wall:.1f}s ({TP_RANKS} ranks, one launch); losses "
+              f"{[round(x, 4) for x in losses]} (the single-process port's first {single:.4f}); "
+              f"resumed at step {TP_STEPS}: {[round(x, 4) for x in after]}; launches per rank "
+              f"{[{k: c for k, c in r['launches'].items() if c} for r in ranks]}", flush=True)
+        print("train_tp", json.dumps(dict(
+            card=card, config=TP_CONFIG, label=TP_LABEL, ranks=TP_RANKS,
+            mesh_shape=published["mesh_shape"], layout=published["layout"],
+            resized_mesh="data:1,model:2", cut=TP_CUT, batch=batch, seq_len=cfg.total_seq_len,
+            n_layers=cfg.n_layers, n_embd=cfg.n_embd, heads_per_rank=cfg.n_heads // TP_RANKS,
+            vocab=cfg.total_tokens, bf16=cfg.bf_16,
+            vocab_rows_per_rank=[b - a for a, b in split_bounds(VOCAB, cfg.total_tokens,
+                                                                 TP_RANKS)],
+            remat_policy=cfg.remat_policy, steps_timed=len(step_s), step_s=step_s,
+            step_s_median=med, tokens_per_s=tokens_per_step / med,
+            collective_bytes_per_rank_per_step=per_step,
+            collective_bytes_per_rank_per_step_median=[statistics.median(b) for b in per_step],
+            peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+            wall_s_per_rank=[r["wall_s"] for r in ranks], launch_wall_s=wall,
+            resume_wall_s_per_rank=[r["wall_s"] for r in resumed],
+            first_loss=losses[0], single_process_first_loss=single,
+            expected_init_loss=init_loss, losses=losses, resumed_losses=after,
+            eval=ranks[0]["eval_history"],
+            packed_launches_per_rank=[{k: r["launches"][k] for k in (
+                "causal_attention_packed_fwd", "causal_attention_packed_bwd")} for r in ranks],
+        )), flush=True)
+        return [{k: r["launches"][k] for k in ("causal_attention_packed_fwd",
+                                                "causal_attention_packed_bwd")} for r in ranks]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4005,13 +4490,16 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
 
 
 def ring_worker(argv) -> int:
-    """``chip_smoke.py --ring-worker <checks|train> <out_dir> [argv...]``:
-    one rank under ``torch.distributed.run``, for the ring phases."""
+    """``chip_smoke.py --ring-worker <checks|tp_values|train> <out_dir>
+    [argv...]``: one rank under ``torch.distributed.run``, for the ring and
+    the tensor-parallel phases."""
     import torch  # noqa: PLC0415
 
     mode, out_dir = argv[0], argv[1]
     if mode == "checks":
         worker_checks(torch, out_dir)
+    elif mode == "tp_values":
+        worker_tp_values(torch, out_dir)
     else:
         worker_train(torch, out_dir, argv[2:])
     return 0
@@ -4043,6 +4531,15 @@ def main() -> int:
     lib = _build.build()
     print(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.1f}s",
           flush=True)
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def phase(fn, *args, **kw):
+        """``fn(*args, **kw)``, its seconds added to ``phase_s``."""
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            phase_s[fn.__name__] = phase_s.get(fn.__name__, 0.0) + time.perf_counter() - t
 
     from dalle_mtf_tpu_torch.ops import decode_matmul as dmm  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
@@ -4058,45 +4555,51 @@ def main() -> int:
                 kernels=f"{label} forward and backward, fp32 (3xTF32)", D=d,
                 **attn.kernel_resources(d, kind, torch.float32))), flush=True)
     decode_resources(dmm)
-    serving = phase_kernel(torch, attn, card)
-    phase_tile_cases(torch, attn, card)
-    decode = phase_decode_kernels(torch, dmm, card)
-    training, training_12b = phase_train_kernels(torch, attn, card)
-    bhsd = phase_bhsd_kernels(torch, attn, card)
-    ln = phase_ln_kernels(torch, lnm, card)
-    ring_rows = phase_ring_kernels(torch, ring, card)
-    phase_train_values(torch, card)
-    unpacked = phase_train_values(torch, card, attn_packed=False, ln_impl="pallas")
+    serving = phase(phase_kernel, torch, attn, card)
+    phase(phase_tile_cases, torch, attn, card)
+    decode = phase(phase_decode_kernels, torch, dmm, card)
+    training, training_12b, training_tp = phase(phase_train_kernels, torch, attn, card)
+    bhsd = phase(phase_bhsd_kernels, torch, attn, card)
+    ln = phase(phase_ln_kernels, torch, lnm, card)
+    ring_rows = phase(phase_ring_kernels, torch, ring, card)
+    phase(phase_train_values, torch, card)
+    unpacked = phase(phase_train_values, torch, card, attn_packed=False, ln_impl="pallas")
     torch.cuda.empty_cache()
-    train_launches = phase_train(torch, attn, card, training)
+    train_launches = phase(phase_train, torch, attn, card, training)
     gc.collect()
     torch.cuda.empty_cache()
-    long_launches, long_first_loss = phase_train_long(torch, attn, lnm, card, bhsd["dalle_4k"])
+    long_launches, long_first_loss = phase(phase_train_long, torch, attn, lnm, card,
+                                           bhsd["dalle_4k"])
     gc.collect()
     torch.cuda.empty_cache()
-    memory_option_values(torch, attn, card)
+    phase(memory_option_values, torch, attn, card)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_loss_head(torch, card)
+    phase(phase_loss_head, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    twelve_b_launches = phase_train_12b(torch, attn, card)
+    twelve_b_launches = phase(phase_train_12b, torch, attn, card)
     gc.collect()
     torch.cuda.empty_cache()
     vae_dir = tempfile.mkdtemp(prefix="chip_smoke_vae_ckpt_")
     try:
-        phase_train_vae(torch, card, keep=vae_dir)
+        phase(phase_train_vae, torch, card, keep=vae_dir)
         gc.collect()
         torch.cuda.empty_cache()
-        image_launches = phase_train_image(torch, attn, card, vae_dir)
+        image_launches = phase(phase_train_image, torch, attn, card, vae_dir)
     finally:
         shutil.rmtree(vae_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    ring_values = phase_ring_attention(torch, attn, card)
-    ring_launches, ring_per_rank = phase_train_ring(torch, card, long_first_loss)
-    serve_launches, bf16 = phase_slice(torch, attn, card)
+    ring_values = phase(phase_ring_attention, torch, attn, card)
+    ring_launches, ring_per_rank = phase(phase_train_ring, torch, card, long_first_loss)
+    phase(phase_tp_values, torch, attn, card)
+    tp_launches = phase(phase_train_tp, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_launches, bf16 = phase(phase_slice, torch, attn, card)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    t_serve = time.perf_counter()
     try:
         config = serve_config(tmp)
         quant = {mode: phase_quant_serving(torch, attn, dmm, card, mode, config, bf16["texts"])
@@ -4126,6 +4629,7 @@ def main() -> int:
         continuous_launches = phase_continuous(torch, attn, dmm, card, config, quant["int8"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase_s["quantized_serving_and_decode"] = time.perf_counter() - t_serve
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -4141,7 +4645,13 @@ def main() -> int:
              image_mode_launches=image_launches[name], **measured(training[name]),
              dalle_12B=dict(launches=twelve_b_launches[name],
                             launches_on=f"{TWELVE_B_CONFIG} published arm, {TWELVE_B_CUT}",
-                            shape="B=8 H=40 S=2560 D=128 bf16", **measured(training_12b[name])))
+                            shape="B=8 H=40 S=2560 D=128 bf16", **measured(training_12b[name])),
+             tp_launches=[r[name] for r in tp_launches],
+             tp_launches_on=f"{TP_CONFIG} training on {TP_RANKS} ranks (data:1,model:2, each "
+                            f"rank 4 of the 8 heads, head0 0 and 4), {TP_STEPS} steps + eval, "
+                            f"{TP_LABEL}",
+             tp_rank=dict(shape="B=8 H=4 S=1280 D=128 bf16 (a model:2 rank's heads)",
+                          **measured(training_tp[name])))
         for name in ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
     ]
     rows.append(dict(
@@ -4189,8 +4699,10 @@ def main() -> int:
             launches_on=f"ring values check: 2-layer fp32 model on {VALUES_MESH}, {RING_LABEL}",
             shape="past hop B=4 H=8 S_local=1088 D=128 fp32", **measured(ring_rows["fp32"][name]),
         ))
-    print(f"chip_smoke: every phase, the build included, in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    total = time.perf_counter() - t0
+    print("phase_seconds", json.dumps(phase_s), flush=True)
+    print(f"chip_smoke: every phase, the build included, in {total:.1f}s (the budget is "
+          f"{RUN_LIMIT_S} s: {'within' if total <= RUN_LIMIT_S else 'OVER'} it)", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

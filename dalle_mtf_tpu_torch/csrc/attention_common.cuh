@@ -23,9 +23,20 @@ struct Layout {
 
 struct Dropout {
   bool enabled;
-  uint32_t seed;       // the caller's seed; each program adds its bh
+  uint32_t seed;       // the caller's seed; each program adds its index
   uint32_t threshold;  // keep when hash >> 8 < threshold (24-bit fixed point)
   float scale;         // 1 / (1 - rate)
+  // The launch's heads are heads [head0, head0 + heads) of heads_total (a
+  // tensor-parallel rank's block): program bh hashes with the index it has
+  // in one launch over every head, (bh / heads) * heads_total + head0 +
+  // bh % heads. heads_total = heads and head0 = 0 give bh itself. The ring
+  // kernels add bh (they take no block of the heads).
+  int heads_total;
+  int head0;
+  // seed + that index, wrapping, as XLA's int32 add
+  __device__ __forceinline__ uint32_t program_seed(int bh, int heads) const {
+    return seed + (uint32_t)((bh / heads) * heads_total + head0 + bh % heads);
+  }
 };
 
 // causal (col > row) or outside the local window (row - col >= window)

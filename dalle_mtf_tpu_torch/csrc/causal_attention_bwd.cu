@@ -158,7 +158,7 @@ attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const int q_tile = gridDim.y - 1 - blockIdx.y;  // deepest tiles first
   const int q0 = q_tile * kRows;
   const int64_t base = lay.base(bh);
-  const uint32_t seed = drop.seed + (uint32_t)bh;
+  const uint32_t seed = drop.program_seed(bh, lay.heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warp_row0 = warp * 16;  // this warp's first row of the tile
   const int row0 = q0 + warp_row0;       // and of the sequence
@@ -264,7 +264,7 @@ attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   const int c0 = blockIdx.y * kRows;  // key tile 0 sees every q tile: heaviest first
   const int64_t base = lay.base(bh);
   const int64_t row_base = (int64_t)bh * seq_len;
-  const uint32_t seed = drop.seed + (uint32_t)bh;
+  const uint32_t seed = drop.program_seed(bh, lay.heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warp_row0 = warp * 16;  // this warp's first key of the tile
   const int key0 = c0 + warp_row0;       // and of the sequence
@@ -447,7 +447,7 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int q_tile = gridDim.y - 1 - blockIdx.y;  // deepest tiles first
   const int q0 = q_tile * kRows;
   const int64_t base = lay.base(bh);
-  const uint32_t seed = drop.seed + (uint32_t)bh;
+  const uint32_t seed = drop.program_seed(bh, lay.heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int half = warp >> 2;             // this warp's group: its half of the streamed tile
   const int warp_row0 = (warp & 3) * 16;  // this warp's first row of the tile
@@ -548,7 +548,7 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int c0 = blockIdx.y * kRows;  // key tile 0 sees every q tile: heaviest first
   const int64_t base = lay.base(bh);
   const int64_t row_base = (int64_t)bh * seq_len;
-  const uint32_t seed = drop.seed + (uint32_t)bh;
+  const uint32_t seed = drop.program_seed(bh, lay.heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int half = warp >> 2;             // this warp's group: its half of the streamed tile
   const int warp_row0 = (warp & 3) * 16;  // this warp's first key of the tile
@@ -700,12 +700,12 @@ extern "C" int causal_attention_bwd(const void* q, const void* k, const void* v,
                                     long long stride_h, long long stride_r, int dtype,
                                     int window, int dropout, unsigned int seed,
                                     unsigned int keep_threshold, float keep_scale,
-                                    void* stream) {
+                                    int heads_total, int head0, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0 ||
-      (seq_len + kBlock - 1) / kBlock > 65535)
+      (seq_len + kBlock - 1) / kBlock > 65535 || head0 < 0 || head0 > heads_total - heads)
     return (int)cudaErrorInvalidValue;
   const Layout lay{batch, heads, seq_len, stride_b, stride_h, stride_r};
-  const Dropout drop{dropout != 0, seed, keep_threshold, keep_scale};
+  const Dropout drop{dropout != 0, seed, keep_threshold, keep_scale, heads_total, head0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   // 16-byte copies: 16-byte-aligned pointers, rows of whole 16-byte chunks

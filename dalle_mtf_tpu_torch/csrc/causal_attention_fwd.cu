@@ -157,7 +157,7 @@ causal_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int q_tile = gridDim.y - 1 - blockIdx.y;  // deepest tiles first
   const int q0 = q_tile * kRows;
   const int64_t base = lay.base(bh);
-  const uint32_t seed = drop.seed + (uint32_t)bh;  // wrapping, as XLA's int32 add
+  const uint32_t seed = drop.program_seed(bh, lay.heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warp_row0 = warp * MB * 16;  // this warp's first row of the tile
   const int row0 = q0 + warp_row0;       // and of the sequence
@@ -350,7 +350,7 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // deepest tiles first
   const int64_t base = lay.base(bh);
-  const uint32_t seed = drop.seed + (uint32_t)bh;  // wrapping, as XLA's int32 add
+  const uint32_t seed = drop.program_seed(bh, lay.heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int half = warp >> 2;             // this warp's group: its half of the streamed tile
   const int warp_row0 = (warp & 3) * 16;  // this warp's first row of the tile
@@ -468,12 +468,13 @@ cudaError_t info(int* out) {
 int forward(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
             int heads, int seq_len, int head_dim, long long stride_b, long long stride_h,
             long long stride_r, int dtype, int window, int dropout, unsigned int seed,
-            unsigned int keep_threshold, float keep_scale, void* stream, int tile_rows) {
+            unsigned int keep_threshold, float keep_scale, int heads_total, int head0,
+            void* stream, int tile_rows) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0 ||
-      (seq_len + kBlock - 1) / kBlock > 65535)
+      (seq_len + kBlock - 1) / kBlock > 65535 || head0 < 0 || head0 > heads_total - heads)
     return (int)cudaErrorInvalidValue;
   const Layout lay{batch, heads, seq_len, stride_b, stride_h, stride_r};
-  const Dropout drop{dropout != 0, seed, keep_threshold, keep_scale};
+  const Dropout drop{dropout != 0, seed, keep_threshold, keep_scale, heads_total, head0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   // 16-byte copies: 16-byte-aligned pointers, rows of whole 16-byte chunks
@@ -505,16 +506,20 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse, int
 // 1 = bfloat16 (pointers 16-byte aligned, strides multiples of 8).
 // window <= 0: no local window. lse may be null.
 // dropout != 0 enables the hash dropout (keep when hash >> 8 <
-// keep_threshold, kept weights times keep_scale). Returns the cudaError_t of
-// the launch (0 on success).
+// keep_threshold, kept weights times keep_scale); the heads are heads
+// [head0, head0 + heads) of heads_total for its hash (Dropout::program_seed;
+// heads_total = heads, head0 = 0 for a launch over every head). Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int causal_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                     void* lse, int batch, int heads, int seq_len,
                                     int head_dim, long long stride_b, long long stride_h,
                                     long long stride_r, int dtype, int window, int dropout,
                                     unsigned int seed, unsigned int keep_threshold,
-                                    float keep_scale, void* stream) {
+                                    float keep_scale, int heads_total, int head0,
+                                    void* stream) {
   return forward(q, k, v, o, lse, batch, heads, seq_len, head_dim, stride_b, stride_h, stride_r,
-                 dtype, window, dropout, seed, keep_threshold, keep_scale, stream, 0);
+                 dtype, window, dropout, seed, keep_threshold, keep_scale, heads_total, head0,
+                 stream, 0);
 }
 
 // causal_attention_fwd with the bf16 q tile given (64, or 128 at D = 128)
@@ -526,10 +531,12 @@ extern "C" int causal_attention_fwd_tiled(const void* q, const void* k, const vo
                                           long long stride_r, int dtype, int window,
                                           int dropout, unsigned int seed,
                                           unsigned int keep_threshold, float keep_scale,
-                                          void* stream, int tile_rows) {
+                                          int heads_total, int head0, void* stream,
+                                          int tile_rows) {
   if (tile_rows != 64 && tile_rows != 128) return (int)cudaErrorInvalidValue;
   return forward(q, k, v, o, lse, batch, heads, seq_len, head_dim, stride_b, stride_h, stride_r,
-                 dtype, window, dropout, seed, keep_threshold, keep_scale, stream, tile_rows);
+                 dtype, window, dropout, seed, keep_threshold, keep_scale, heads_total, head0,
+                 stream, tile_rows);
 }
 
 // The q tile's rows causal_attention_fwd takes for bf16 inputs of this shape.

@@ -32,6 +32,18 @@ attention runs around the ring (ops/ring_attention.py), and the loss is the
 rank's share of the global mean, so that the sum over the ranks of the losses
 and of the gradients is the single-process value.
 
+On a mesh with a tensor-parallel axis (the layout's ``heads_dim``,
+``intermediate_expanded`` and ``vocab_dim`` rules, parallel/tensor.py) each
+rank of a model group holds its block of the split leaves (``sharding``;
+``param_shapes``/``init`` give the blocks): q/k/v and the attention over its
+heads, the MLP over its columns, joined by ``copy_to_model`` and
+``reduce_from_model``; the embedding and both loss heads over its block of
+the vocabulary. The ranks of a group hold the same loss, and the trainer
+sums over the other axes only (``Mesh.replica_group``). Every dropout draws
+the single process's mask: the residual and embedding masks from the
+generator every rank shares, the attention hash with the rank's heads at
+their single-process program index (``head0``, ``heads_total``).
+
 Remat (``recompute_grad`` in training): each block is one
 ``torch.utils.checkpoint`` region, as each step of the JAX layer scan is one
 ``jax.checkpoint``, under a selective-checkpoint policy with the JAX
@@ -82,10 +94,37 @@ from dalle_mtf_tpu_torch.ops.attention import (
 from dalle_mtf_tpu_torch.ops.attention_packed import attention_packed_reference, packed_attention
 from dalle_mtf_tpu_torch.ops.decode_matmul import int4_matmul, int8_matmul
 from dalle_mtf_tpu_torch.ops.layer_norm import kernel_takes, layer_norm, layer_norm_reference
-from dalle_mtf_tpu_torch.ops.losses import softmax_cross_entropy_with_logits
+from dalle_mtf_tpu_torch.ops.losses import (
+    softmax_cross_entropy_with_logits,
+    vocab_parallel_cross_entropy,
+)
 from dalle_mtf_tpu_torch.ops.ring_attention import ring_attention_auto
-from dalle_mtf_tpu_torch.ops.xent_fused import chunked_softmax_xent_auto, chunked_xent_eval_auto
-from dalle_mtf_tpu_torch.parallel.mesh import BATCH, HEADS, LAYERS, SEQ, VOCAB, parse_layout
+from dalle_mtf_tpu_torch.ops.xent_fused import (
+    chunked_softmax_xent_auto,
+    chunked_xent_eval_auto,
+    tp_chunk_loss,
+    tp_correct,
+)
+from dalle_mtf_tpu_torch.parallel.mesh import (
+    BATCH,
+    EMBED,
+    EMBED_SEQ,
+    HEADS,
+    INTERMEDIATE,
+    KV,
+    LAYERS,
+    SEQ,
+    VOCAB,
+    leaf_split,
+    parse_layout,
+)
+from dalle_mtf_tpu_torch.parallel.tensor import (
+    Sharding,
+    copy_to_model,
+    reduce_from_model,
+    vocab_parallel_embedding,
+)
+from dalle_mtf_tpu_torch.train.optim import named_leaves
 from dalle_mtf_tpu_torch.quantize import nibble_views, quantized_shapes
 from dalle_mtf_tpu_torch.utils.distributed import model_device
 from dalle_mtf_tpu_torch.utils.precision import Policy, get_policy
@@ -117,11 +156,13 @@ REMAT_POLICIES = (
 class DalleConfig:
     """The fields serving and training read
     (``dalle_mtf_tpu.models.dalle.DalleConfig``). A remat policy that takes
-    arguments raises ValueError here. The layout's batch, sequence, heads
-    and vocab axes are read as in JAX; a layout the port cannot honour on
-    more than one process (tensor or pipeline parallelism) raises when the
-    mesh is built (``parallel.mesh.check_layout``), and a ``layers:`` rule
-    raises NotImplementedError in ``from_params``. ``scan_unroll`` (no torch
+    arguments raises ValueError here. The ring's batch, sequence and heads
+    axes are read from the layout as in JAX; the tensor-parallel split comes
+    from the mesh's own rules (``DALLE.sharding``). A layout the port cannot
+    honour on more than one process (pipeline parallelism, tensor
+    parallelism under ring attention) raises when the mesh is built
+    (``parallel.mesh.check_layout``), and a ``layers:`` rule raises
+    NotImplementedError in ``from_params``. ``scan_unroll`` (no torch
     meaning) is accepted and ignored."""
 
     n_embd: int
@@ -139,8 +180,6 @@ class DalleConfig:
     ring_seq_axis: str = "seq"
     ring_batch_axis: str | None = "data"
     ring_heads_axis: str | None = None
-    # mesh axis of the vocab_dim rule (tensor-parallel xent: not ported)
-    vocab_axis: str | None = None
     scale_type: str = "scale_by_depth"
     activation: str = "relu"
     ln_dtype: str = "float32"  # | "activation"; not read under ln_impl "pallas"
@@ -176,7 +215,6 @@ class DalleConfig:
             ring_seq_axis=rules.get(SEQ) or "seq",
             ring_batch_axis=rules.get(BATCH) or "data",
             ring_heads_axis=rules.get(HEADS),
-            vocab_axis=rules.get(VOCAB),
             n_embd=params["n_embd"],
             text_vocab_size=params["text_vocab_size"],
             image_vocab_size=params["image_vocab_size"],
@@ -304,6 +342,9 @@ class DALLE(nn.Module):
     The module holds the config, the device and the mesh (None: one
     process); the parameters are the nested dict ``init`` returns (or
     ``utils.convert`` loads), passed to every method, as in the JAX package.
+    On a tensor-parallel mesh ``sharding`` (a ``parallel.tensor.Sharding``,
+    else None) says which dim of each leaf is split and where this rank's
+    block lies; ``heads`` is (this rank's first head, its head count).
     """
 
     def __init__(self, config: DalleConfig, device: torch.device | str = "cuda", mesh=None):
@@ -311,6 +352,11 @@ class DALLE(nn.Module):
         self.cfg = config
         self.device = model_device(device)
         self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.sharding = self._sharding()
+        self._tp = self.sharding.group if self.sharding else None
+        split = self._split(("layers", "wq"))
+        self.heads = ((0, config.n_heads) if split is None
+                      else (split.start, split.stop - split.start))
         if config.ln_impl == "pallas" and config.ln_dtype == "activation":
             logging.getLogger(__name__).warning(
                 "ln_impl='pallas' always computes the normalize in fp32 "
@@ -320,10 +366,47 @@ class DALLE(nn.Module):
 
     # ------------------------------------------------------------------ init
 
-    def param_shapes(self, quantize: str = "none") -> dict:
-        """The parameter tree's shapes, keyed like the JAX tree; with
-        ``quantize`` "int8" or "int4", the tree quantize.py makes (packed
-        int4 axes halved, ``<name>_scale`` and int4 marker leaves added)."""
+    @staticmethod
+    def logical_axes() -> dict:
+        """Each leaf's logical dim names (``DALLE.logical_axes`` of the JAX
+        package), what the layout rules map onto mesh axes."""
+        return {
+            "wte": (VOCAB, EMBED),
+            "wpe": (EMBED_SEQ, EMBED),
+            "layers": {
+                "ln1_g": (LAYERS, EMBED), "ln1_b": (LAYERS, EMBED),
+                "wq": (LAYERS, EMBED, HEADS, KV), "wk": (LAYERS, EMBED, HEADS, KV),
+                "wv": (LAYERS, EMBED, HEADS, KV), "wo": (LAYERS, HEADS, KV, EMBED),
+                "o_b": (LAYERS, EMBED),
+                "ln2_g": (LAYERS, EMBED), "ln2_b": (LAYERS, EMBED),
+                "w_mlp1": (LAYERS, EMBED, INTERMEDIATE), "b_mlp1": (LAYERS, INTERMEDIATE),
+                "w_mlp2": (LAYERS, INTERMEDIATE, EMBED), "b_mlp2": (LAYERS, EMBED),
+            },
+            "lnf_g": (EMBED,), "lnf_b": (EMBED,),
+            "w_out": (EMBED, VOCAB), "b_out": (VOCAB,),
+        }
+
+    def _sharding(self) -> Sharding | None:
+        """The leaves' splits over the mesh's tensor-parallel axis, by the
+        mesh's layout rules (None without one)."""
+        if self.mesh is None or self.mesh.tp_axis is None:
+            return None
+        axes = dict(named_leaves(self.logical_axes()))
+        splits = {path: leaf_split(axes[path], shape, self.mesh, "/".join(path))
+                  for path, shape in named_leaves(self.param_shapes(whole=True))}
+        if not any(splits.values()):
+            return None
+        return Sharding(splits, self.mesh.model_group)
+
+    def _split(self, path):
+        return self.sharding.of(path) if self.sharding else None
+
+    def param_shapes(self, quantize: str = "none", whole: bool = False) -> dict:
+        """The parameter tree's shapes, keyed like the JAX tree: this rank's
+        blocks on a tensor-parallel mesh, the whole leaves with ``whole`` (or
+        without one); with ``quantize`` "int8" or "int4", the tree
+        quantize.py makes (packed int4 axes halved, ``<name>_scale`` and int4
+        marker leaves added)."""
         cfg = self.cfg
         e, h, d, L = cfg.n_embd, cfg.n_heads, cfg.head_dim, cfg.n_layers
         inter = 4 * e
@@ -341,13 +424,21 @@ class DALLE(nn.Module):
             "lnf_g": (e,), "lnf_b": (e,),
             "w_out": (e, cfg.total_tokens), "b_out": (cfg.total_tokens,),
         }
+        if not whole and self.sharding is not None:
+            local = self.sharding.local_shape
+            shapes = {k: ({n: local((k, n), s) for n, s in v.items()} if isinstance(v, dict)
+                          else local((k,), v)) for k, v in shapes.items()}
         return shapes if quantize == "none" else quantized_shapes(shapes, quantize)
 
     def init(self, generator: torch.Generator) -> dict:
         """Random fp32 parameters with the JAX init's shapes and stddevs
         (dalle.py:358-407; the reference's linear() scaling, models.py:
         361-371). Drawn on ``generator``'s device (a CPU generator gives the
-        same weights on every device), then moved to ``self.device``."""
+        same weights on every device), then moved to ``self.device``. On a
+        tensor-parallel mesh the whole tree is drawn and this rank's blocks
+        kept, so the weights are the single process's under any layout;
+        each rank so draws the whole tree once (at dalle_12B's depth a
+        sharded init would be needed: ROADMAP)."""
         cfg = self.cfg
         e = cfg.n_embd
         mlp1_std = logits_std = 0.02
@@ -366,19 +457,23 @@ class DALLE(nn.Module):
         }
         gdev = generator.device
 
-        def make(name, shape):
+        def make(path, shape):
+            name = path[-1]
             if name in std:
                 t = torch.randn(shape, generator=generator, device=gdev) * std[name]
             elif name.endswith("_g"):
                 t = torch.ones(shape)
             else:
                 t = torch.zeros(shape)
+            split = self._split(path)
+            if split is not None:  # a copy of the block: the whole leaf is let go
+                t = t.narrow(split.dim, split.start, split.stop - split.start).clone()
             return t.to(device=self.device, dtype=torch.float32)
 
-        shapes = self.param_shapes()
+        shapes = self.param_shapes(whole=True)
         return {
-            k: ({n: make(n, s) for n, s in v.items()} if isinstance(v, dict)
-                else make(k, v))
+            k: ({n: make((k, n), s) for n, s in v.items()} if isinstance(v, dict)
+                else make((k,), v))
             for k, v in shapes.items()
         }
 
@@ -461,9 +556,11 @@ class DALLE(nn.Module):
         return x_lo @ (lo.to(dtype) * sc) + x_hi @ (hi.to(dtype) * sc)
 
     def _qkv(self, p, a_in):
-        """[B, S, E] -> contiguous q, k, v [B, H, S, D]."""
+        """[B, S, E] -> contiguous q, k, v [B, H, S, D] (H this rank's
+        heads)."""
         b, s, _ = a_in.shape
-        h, d = self.cfg.n_heads, self.cfg.head_dim
+        h, d = self.heads[1], self.cfg.head_dim
+        a_in = copy_to_model(a_in, self._heads_group)
 
         def proj(name):
             y = self._matmul_w(p, name, a_in)
@@ -475,14 +572,24 @@ class DALLE(nn.Module):
         """[B, H, S, D] -> [B, S, E] (the bhsd,hde->bse einsum) + o_b."""
         b, h, s, d = a.shape
         y = self._matmul_w(p, "wo", a.transpose(1, 2).reshape(b, s, h * d), heads=h)
-        return y + p["o_b"].to(y.dtype)
+        return reduce_from_model(y, self._heads_group) + p["o_b"].to(y.dtype)
 
     def _mlp(self, p, m_in):
+        """The MLP; on a tensor-parallel mesh over this rank's columns of
+        the intermediate width, b_mlp2 added once after the sum."""
         dtype = self.cfg.policy.compute_dtype
         act = _ACTIVATIONS[self.cfg.activation]
+        group = self._tp if self._split(("layers", "w_mlp1")) else None
+        m_in = copy_to_model(m_in, group)
         hdn = act(self._matmul_w(p, "w_mlp1", m_in) + p["b_mlp1"].to(dtype))
         with checkpoint_name("mlp2"):
-            return self._matmul_w(p, "w_mlp2", hdn) + p["b_mlp2"].to(dtype)
+            y = reduce_from_model(self._matmul_w(p, "w_mlp2", hdn), group)
+            return y + p["b_mlp2"].to(dtype)
+
+    @property
+    def _heads_group(self):
+        """The model group where the heads are split, else None."""
+        return self._tp if self.heads[1] != self.cfg.n_heads else None
 
     def _w_out(self, params):
         """The output projection [E, V] in the compute dtype, dequantized
@@ -613,7 +720,9 @@ class DALLE(nn.Module):
         """The mean of per-position ``values`` [B, S_local] over global
         positions [lo, hi) of the whole batch, as this rank's share: the
         sum of its values there over the global count, so the sum over the
-        mesh's ranks is the mean. On one process, ``values[:, lo:hi].mean()``."""
+        mesh's replicas (``Mesh.replica_group``: every axis but the
+        tensor-parallel one, whose ranks hold the same values) is the mean.
+        On one process, ``values[:, lo:hi].mean()``."""
         if self.mesh is None:
             return values[:, lo:hi].mean()
         s = values.shape[1] * self._sp()
@@ -623,25 +732,31 @@ class DALLE(nn.Module):
         return values[:, a:max(a, b)].sum() / (values.shape[0] * self._dp()[1] * (hi - lo))
 
     def _qkv_packed(self, p, a_in):
-        """[B, S, E] -> packed q, k, v [B, S, H*D]: the matmuls' natural
-        output layout; the kernels slice head columns by strides."""
+        """[B, S, E] -> packed q, k, v [B, S, H*D] (H this rank's heads):
+        the matmuls' natural output layout; the kernels slice head columns
+        by strides."""
         e = a_in.shape[-1]
+        a_in = copy_to_model(a_in, self._heads_group)
         return tuple(a_in @ self._w(p, n).reshape(e, -1) for n in ("wq", "wk", "wv"))
 
     def _attn_out_packed(self, p, a):
-        """Packed attention output [B, S, H*D] -> [B, S, E] + o_b."""
+        """Packed attention output [B, S, H*D] -> [B, S, E] (summed over the
+        heads' ranks) + o_b."""
         w = self._w(p, "wo")
-        return a @ w.reshape(-1, w.shape[-1]) + p["o_b"].to(self.cfg.policy.compute_dtype)
+        y = reduce_from_model(a @ w.reshape(-1, w.shape[-1]), self._heads_group)
+        return y + p["o_b"].to(self.cfg.policy.compute_dtype)
 
     def _attention(self, q, k, v, drop=0.0, seed=None):
         """Causal attention over [B, H, S, D]: the kernels (on the card) at
         the head dims ``kernel_takes_head_dim`` names, the JAX package's
         rule; its plain version under autograd at any other D, as JAX takes
-        its dense reference there."""
+        its dense reference there. q holds this rank's heads."""
+        head0, heads_total = self.heads[0], self.cfg.n_heads
         if kernel_takes_head_dim(self.cfg.head_dim):
             return causal_attention(q, k, v, window=self._window, dropout_rate=drop,
-                                    dropout_seed=seed)
-        return attention_reference(q, k, v, True, self._window, False, drop, seed)
+                                    dropout_seed=seed, head0=head0, heads_total=heads_total)
+        return attention_reference(q, k, v, True, self._window, False, drop, seed, head0,
+                                   heads_total)
 
     def _block(self, p, x, seeds):
         """One pre-LN transformer block (reference models.py:326-335);
@@ -667,10 +782,13 @@ class DALLE(nn.Module):
         if cfg.attn_packed and "wq_scale" not in p and "wq_int4" not in p:
             with checkpoint_name("qkv"):
                 q, k, v = self._qkv_packed(p, a_in)
+            head0, heads = self.heads
             if kernel_takes_head_dim(cfg.head_dim):
-                a = packed_attention(q, k, v, cfg.n_heads, self._window, drop, seed)
+                a = packed_attention(q, k, v, heads, self._window, drop, seed, head0,
+                                     cfg.n_heads)
             else:  # as ``_attention``
-                a = attention_packed_reference(q, k, v, cfg.n_heads, self._window, drop, seed)
+                a = attention_packed_reference(q, k, v, heads, self._window, drop, seed,
+                                               False, head0, cfg.n_heads)
             with checkpoint_name("attn_proj"):
                 a = self._attn_out_packed(p, a)
         else:
@@ -707,7 +825,9 @@ class DALLE(nn.Module):
         cfg = self.cfg
         dtype = cfg.policy.compute_dtype
         seq = self._seq_slice(tokens.shape[1])
-        x = params["wte"][tokens[:, seq]].to(dtype) + params["wpe"][seq].to(dtype)
+        x = vocab_parallel_embedding(params["wte"], tokens[:, seq], self._split(("wte",)),
+                                     self._tp, dtype)
+        x = x + params["wpe"][seq].to(dtype)
         x = self._dropout(_seed(generator, cfg.embed_dropout, train), x, cfg.embed_dropout)
         context_fn = self._remat(train)
         for p in self._layers(params):
@@ -723,11 +843,34 @@ class DALLE(nn.Module):
 
     def forward(self, params, tokens, generator=None, train: bool = False):
         """tokens [B, S] -> logits [B, S, total_tokens] fp32 (of this rank's
-        positions on a sequence-parallel mesh): compute-dtype operands, fp32
+        positions on a sequence-parallel mesh; of its block of the
+        vocabulary where that is split): compute-dtype operands, fp32
         accumulation and output (bf16 values are exact in fp32, so the fp32
         product of the cast operands is that matmul)."""
-        x = self.hidden(params, tokens, generator, train)
+        x = copy_to_model(self.hidden(params, tokens, generator, train), self._vocab_group)
         return x.float() @ self._w_out(params).float() + params["b_out"]
+
+    @property
+    def _vocab_group(self):
+        """The model group where the vocabulary is split, else None."""
+        return self._tp if self._split(("w_out",)) else None
+
+    @torch.no_grad()
+    def dense_eval(self, params, tokens, generator=None, z_loss: float = 0.0):
+        """Eval with the dense head: per-position loss and argmax
+        correctness (fp32 [B, S]) of ``forward``'s fp32 logits, the
+        vocabulary's blocks joined by collectives where it is split (the
+        argmax with ``jnp.argmax``'s first-occurrence rule)."""
+        logits = self.forward(params, tokens, generator, train=False)
+        labels = self.local_labels(tokens)
+        split = self._split(("w_out",))
+        if split is None:
+            loss = softmax_cross_entropy_with_logits(logits, labels, z_loss)
+            return loss, (logits.argmax(dim=-1) == labels).float()
+        flat, t = logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long()
+        loss, _, m_loc, m = tp_chunk_loss(flat, t, z_loss, split.start, self._tp)
+        correct = tp_correct(flat, m_loc, m, t, split.start, self._tp)
+        return loss.reshape(labels.shape), correct.reshape(labels.shape)
 
     def loss(self, params, tokens, generator=None, train: bool = True,
              z_loss: float = 0.0, fused_xent: bool = False):
@@ -742,17 +885,30 @@ class DALLE(nn.Module):
         logits, never [B, S, vocab] at once), for memory-bound models."""
         x = self.hidden(params, tokens, generator, train)
         labels = self.local_labels(tokens)
+        split = self._split(("w_out",))
         if fused_xent:
             b, s, e = x.shape
             loss_batch = chunked_softmax_xent_auto(
                 x.reshape(b * s, e), self._w_out(params), params["b_out"], labels.reshape(-1),
-                z_loss, self._xent_chunks(b * s), self.cfg.vocab_axis, self.mesh,
+                z_loss, self._xent_chunks(b * s), self._vocab_axis, self.mesh,
+                self.cfg.total_tokens,
             ).reshape(b, s)
         else:
             dtype = self.cfg.policy.compute_dtype
+            x = copy_to_model(x, self._vocab_group)
             logits = x @ self._w_out(params) + params["b_out"].to(dtype)
-            loss_batch = softmax_cross_entropy_with_logits(logits, labels, z_loss)
+            if split is None:
+                loss_batch = softmax_cross_entropy_with_logits(logits, labels, z_loss)
+            else:
+                loss_batch = vocab_parallel_cross_entropy(logits, labels, split.start,
+                                                          self._tp, z_loss)
         return self.global_mean(loss_batch), loss_batch
+
+    @property
+    def _vocab_axis(self) -> str | None:
+        """The axis the fused head splits the vocabulary over (None where
+        the leaves are not split)."""
+        return self.mesh.tp_axis if self._vocab_group is not None else None
 
     def _xent_chunks(self, n: int) -> int:
         """The fused head's chunk count for n rows: the JAX rule, the first
@@ -770,7 +926,7 @@ class DALLE(nn.Module):
         loss, correct = chunked_xent_eval_auto(
             x.reshape(b * s, e), self._w_out(params), params["b_out"],
             self.local_labels(tokens).reshape(-1), z_loss, self._xent_chunks(b * s),
-            self.cfg.vocab_axis, self.mesh)
+            self._vocab_axis, self.mesh, self.cfg.total_tokens)
         return loss.reshape(b, s), correct.reshape(b, s)
 
     def shifted_labels(self, tokens):

@@ -32,15 +32,16 @@ _U, _F = ctypes.c_uint, ctypes.c_float
 # c_void_p and the strides c_longlong, so no 64-bit value is cut to 32 bits
 _SIGNATURES = {
     # q, k, v, o, lse; batch, heads, seq_len, head_dim; strides b, h, row;
-    # dtype, window, dropout, seed, keep_threshold, keep_scale; stream
+    # dtype, window, dropout, seed, keep_threshold, keep_scale, heads_total,
+    # head0; stream
     "causal_attention_fwd": [_P] * 5 + [_I] * 4 + [_LL] * 3
-    + [_I, _I, _I, _U, _U, _F, _P],
+    + [_I, _I, _I, _U, _U, _F, _I, _I, _P],
     # q, k, v, dout, lse, dsum, dq, dk, dv; then as the forward
     "causal_attention_bwd": [_P] * 9 + [_I] * 4 + [_LL] * 3
-    + [_I, _I, _I, _U, _U, _F, _P],
+    + [_I, _I, _I, _U, _U, _F, _I, _I, _P],
     # as causal_attention_fwd, then the q tile's rows (64 or 128)
     "causal_attention_fwd_tiled": [_P] * 5 + [_I] * 4 + [_LL] * 3
-    + [_I, _I, _I, _U, _U, _F, _P, _I],
+    + [_I, _I, _I, _U, _U, _F, _I, _I, _P, _I],
     # head_dim, batch * heads, seq_len -> the q tile's rows (not an error code)
     "causal_attention_fwd_tile_rows": [_I, _I, _I],
     # head_dim, tile_rows, dtype, out[4]

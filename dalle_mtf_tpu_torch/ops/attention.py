@@ -99,6 +99,20 @@ def dropout_keep(rows: torch.Tensor, cols: torch.Tensor, seed, rate: float) -> t
     return (x >> 8) < keep_threshold(rate)
 
 
+def program_seeds(seed: int, batch: int, heads: int, device, head0: int = 0,
+                  heads_total: int | None = None) -> torch.Tensor:
+    """The dropout hash's seed of each program (b, h) of a [B, H, ...] launch,
+    [B, H, 1, 1]: ``seed`` plus the program's index in one launch over all
+    ``heads_total`` heads (default ``heads``), of which this launch holds
+    heads [head0, head0 + heads): seed + b * heads_total + head0 + h. A
+    tensor-parallel rank with a block of the heads so draws the mask one
+    process draws on them."""
+    total = heads if heads_total is None else heads_total
+    b = torch.arange(batch, device=device).reshape(batch, 1, 1, 1)
+    h = torch.arange(heads, device=device).reshape(1, heads, 1, 1)
+    return int(seed) + b * total + head0 + h
+
+
 def attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -108,6 +122,8 @@ def attention_reference(
     with_lse: bool = False,
     dropout_rate: float = 0.0,
     dropout_seed: int | None = None,
+    head0: int = 0,
+    heads_total: int | None = None,
 ):
     """Plain attention. q, k, v: [B, H, S, D] -> [B, H, S, D] in q's dtype.
 
@@ -117,8 +133,10 @@ def attention_reference(
     l = sum(p), then (p_v cast to v's dtype) @ v accumulated in fp32 and
     divided by max(l, 1e-30). With ``dropout_rate`` > 0, p_v is p where
     ``dropout_keep(row, col, dropout_seed + b*H + h)`` keeps it, scaled by
-    1/(1 - rate), else 0; l is the undropped sum. ``with_lse`` also returns
-    the fp32 per-row log-sum-exp [B*H, S] (what the kernel's lse holds).
+    1/(1 - rate), else 0; l is the undropped sum (with ``head0`` and
+    ``heads_total``, the seed of ``program_seeds``). ``with_lse`` also
+    returns the fp32 per-row log-sum-exp [B*H, S] (what the kernel's lse
+    holds).
     """
     b, h, s_q, d = q.shape
     s_k = k.shape[-2]
@@ -140,7 +158,7 @@ def attention_reference(
     if dropout_rate > 0.0:
         if dropout_seed is None:
             raise ValueError("dropout_rate > 0 needs a dropout_seed")
-        seeds = (int(dropout_seed) + torch.arange(b * h, device=q.device)).reshape(b, h, 1, 1)
+        seeds = program_seeds(dropout_seed, b, h, q.device, head0, heads_total)
         keep = dropout_keep(i, j, seeds, dropout_rate)
         p_v = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     out = (torch.matmul(p_v.to(v.dtype).float(), v.float()) / l_safe).to(q.dtype)
@@ -150,7 +168,8 @@ def attention_reference(
 
 
 def attention_backward_reference(q, k, v, out, lse, g, window=None,
-                                 dropout_rate=0.0, dropout_seed=None):
+                                 dropout_rate=0.0, dropout_seed=None, head0=0,
+                                 heads_total=None):
     """The plain version of the backward, q, k, v, out, g [B, H, S, D] and
     the forward's fp32 lse [B*H, S]: the TPU kernels' math
     (``_wedge_bwd_kernel``, ``_hybrid_bwd_kernel``) in one shot.
@@ -172,7 +191,7 @@ def attention_backward_reference(q, k, v, out, lse, g, window=None,
     dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
     p_v = p
     if dropout_rate > 0.0:
-        seeds = (int(dropout_seed) + torch.arange(b * h, device=q.device)).reshape(b, h, 1, 1)
+        seeds = program_seeds(dropout_seed, b, h, q.device, head0, heads_total)
         keep = dropout_keep(i, j, seeds, dropout_rate)
         inv = 1.0 / (1.0 - dropout_rate)
         dp = torch.where(keep, dp * inv, 0.0)
@@ -230,11 +249,12 @@ def dense_for_kernels(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
                  else t.clone(memory_format=torch.contiguous_format) for t in tensors)
 
 
-def _forward(q, k, v, window, rate, seed, with_lse, tile_rows=None):
+def _forward(q, k, v, window, rate, seed, with_lse, tile_rows=None, head0=0, heads_total=None):
     """(out, lse or None): the kernel on CUDA tensors, plain on CPU ones.
     ``tile_rows`` as in ``launch_forward``."""
     if _on_cpu(q, k, v):
-        res = attention_reference(q, k, v, True, window, with_lse, rate, seed)
+        res = attention_reference(q, k, v, True, window, with_lse, rate, seed, head0,
+                                  heads_total)
         return res if with_lse else (res, None)
     if q.device.type != "cuda":
         raise ValueError(f"causal_attention: unsupported device {q.device}")
@@ -248,7 +268,7 @@ def _forward(q, k, v, window, rate, seed, with_lse, tile_rows=None):
         raise ValueError("causal_attention_fwd needs contiguous q, k, v")
     b, h, s, d = q.shape
     out, lse = launch_forward(q, k, v, b, h, s, d, q.stride()[:3], window,
-                              rate, seed, with_lse, tile_rows)
+                              rate, seed, with_lse, tile_rows, head0, heads_total)
     KERNEL_LAUNCHES["causal_attention_fwd"] += 1
     return out, lse
 
@@ -261,32 +281,33 @@ def dsum_rows(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (g.float() * out).sum(-1).reshape(b * h, s)
 
 
-def _backward(q, k, v, out, lse, g, window, rate, seed):
+def _backward(q, k, v, out, lse, g, window, rate, seed, head0=0, heads_total=None):
     """dq, dk, dv: the kernel on CUDA tensors, plain on CPU ones."""
     if _on_cpu(q, k, v, out, lse, g):
-        return attention_backward_reference(q, k, v, out, lse, g, window, rate, seed)
+        return attention_backward_reference(q, k, v, out, lse, g, window, rate, seed, head0,
+                                            heads_total)
     q, k, v, out, g = dense_for_kernels(q, k, v, out, g.contiguous())
     b, h, s, d = q.shape
     with torch.cuda.device(q.device):
         grads = launch_backward(q, k, v, out, lse, g, dsum_rows(out, g), b, h, s, d,
-                                q.stride()[:3],
-                                window, rate, seed)
+                                q.stride()[:3], window, rate, seed, head0, heads_total)
     KERNEL_LAUNCHES["causal_attention_bwd"] += 1
     return grads
 
 
 @torch.library.custom_op("dalle_mtf_tpu_torch::causal_attention_fwd", mutates_args=())
 def causal_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         window: Optional[int], rate: float,
-                         seed: Optional[int]) -> tuple[torch.Tensor, torch.Tensor]:
+                         window: Optional[int], rate: float, seed: Optional[int],
+                         head0: int = 0,
+                         heads_total: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``_forward`` with its lse as one dispatcher op, so that a
     selective-checkpoint policy (``models/dalle.py``) can keep both outputs
     or let the recompute re-run the kernel (ops/attention_packed.py)."""
-    return _forward(q, k, v, window, rate, seed, with_lse=True)
+    return _forward(q, k, v, window, rate, seed, True, None, head0, heads_total)
 
 
 @causal_attention_fwd.register_fake
-def _(q, k, v, window, rate, seed):
+def _(q, k, v, window, rate, seed, head0=0, heads_total=None):
     b, h, s, _ = q.shape
     return torch.empty_like(q), q.new_empty((b * h, s), dtype=torch.float32)
 
@@ -297,10 +318,10 @@ class _Attention(torch.autograd.Function):
     re-runs the forward. lse carries no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, rate, seed):
-        out, lse = causal_attention_fwd(q, k, v, window, rate, seed)
+    def forward(ctx, q, k, v, window, rate, seed, head0, heads_total):
+        out, lse = causal_attention_fwd(q, k, v, window, rate, seed, head0, heads_total)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (window, rate, seed)
+        ctx.args = (window, rate, seed, head0, heads_total)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -308,7 +329,7 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, g, _g_lse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, out, lse, g, *ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def causal_attention(
@@ -319,6 +340,8 @@ def causal_attention(
     dropout_rate: float = 0.0,
     with_lse: bool = False,
     dropout_seed: int | None = None,
+    head0: int = 0,
+    heads_total: int | None = None,
 ):
     """Causal (optionally local-window) attention, q, k, v [B, H, S, D].
 
@@ -328,7 +351,10 @@ def causal_attention(
     ``dense_for_kernels``; a head dim with no kernel raises). On CPU tensors
     it runs the plain forward and the plain backward. ``with_lse`` also returns the fp32 log-sum-exp
     [B*H, S]. ``dropout_rate`` > 0 applies the hash dropout keyed on
-    ``dropout_seed``, the same bits in the forward and the backward.
+    ``dropout_seed``, the same bits in the forward and the backward; q's H
+    heads are heads [head0, head0 + H) of ``heads_total`` (default H) for the
+    hash (``program_seeds``: a tensor-parallel rank's heads draw the single
+    process's mask).
     """
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -337,9 +363,10 @@ def causal_attention(
     rate = float(dropout_rate)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out, lse = _Attention.apply(q, k, v, window, rate,
-                                    int(dropout_seed) if rate > 0 else None)
+                                    int(dropout_seed) if rate > 0 else None, head0, heads_total)
     else:
-        out, lse = _forward(q, k, v, window, rate, dropout_seed, with_lse)
+        out, lse = _forward(q, k, v, window, rate, dropout_seed, with_lse, None, head0,
+                            heads_total)
     return (out, lse) if with_lse else out
 
 
@@ -380,14 +407,24 @@ def dropout_args(rate: float, seed: int | None) -> tuple[int, int, int, float]:
     return 1, int(seed) & _M32, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
+def _head_args(heads: int, head0: int, heads_total: int | None) -> tuple[int, int]:
+    """(heads_total, head0) for the causal kernels' dropout hash."""
+    total = heads if heads_total is None else int(heads_total)
+    if not 0 <= head0 <= total - heads:
+        raise ValueError(f"heads [{head0}, {head0 + heads}) do not lie in {total} heads")
+    return total, int(head0)
+
+
 def launch_forward(q, k, v, batch, heads, seq_len, head_dim, strides, window,
-                   dropout_rate, dropout_seed, with_lse, tile_rows=None):
+                   dropout_rate, dropout_seed, with_lse, tile_rows=None, head0=0,
+                   heads_total=None):
     """Launch ``causal_attention_fwd`` on q, k, v of one strided layout
     (``strides`` = elements between batches, heads and rows). Returns
     (out in q's layout, fp32 lse [batch*heads, seq_len] or None).
     ``tile_rows`` (tests and measurements only) gives the bf16 kernel's q
     tile, one of ``FORWARD_TILES[head_dim]``, instead of leaving the choice
-    to the kernel's rule."""
+    to the kernel's rule. The dropout hash takes the ``heads`` as heads
+    [head0, head0 + heads) of ``heads_total`` (``program_seeds``)."""
     check_kernel_inputs("causal_attention_fwd", (q, k, v), head_dim)
     if tile_rows is not None and (q.dtype != torch.bfloat16
                                   or tile_rows not in FORWARD_TILES[head_dim]):
@@ -408,6 +445,7 @@ def launch_forward(q, k, v, batch, heads, seq_len, head_dim, strides, window,
             batch, heads, seq_len, head_dim, *strides, KERNEL_DTYPES[q.dtype],
             -1 if window is None else int(window),
             *dropout_args(dropout_rate, dropout_seed),
+            *_head_args(heads, head0, heads_total),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
         err = (lib.causal_attention_fwd(*args) if tile_rows is None
@@ -418,7 +456,7 @@ def launch_forward(q, k, v, batch, heads, seq_len, head_dim, strides, window,
 
 
 def launch_backward(q, k, v, out, lse, g, dsum, batch, heads, seq_len, head_dim,
-                    strides, window, dropout_rate, dropout_seed):
+                    strides, window, dropout_rate, dropout_seed, head0=0, heads_total=None):
     """Launch ``causal_attention_bwd`` (a dQ launch and a dK/dV launch) on
     q, k, v, out and dO of one strided layout, with the forward's fp32 lse
     and dsum = rowsum(dO * O), both contiguous [batch*heads, seq_len].
@@ -443,6 +481,7 @@ def launch_backward(q, k, v, out, lse, g, dsum, batch, heads, seq_len, head_dim,
             dv.data_ptr(), batch, heads, seq_len, head_dim, *strides,
             KERNEL_DTYPES[q.dtype], -1 if window is None else int(window),
             *dropout_args(dropout_rate, dropout_seed),
+            *_head_args(heads, head0, heads_total),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:

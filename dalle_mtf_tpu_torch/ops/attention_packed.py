@@ -49,13 +49,13 @@ def _pack(t: torch.Tensor) -> torch.Tensor:
 
 
 def attention_packed_reference(q, k, v, n_heads, window=None, dropout_rate=0.0,
-                               dropout_seed=None, with_lse=False):
+                               dropout_seed=None, with_lse=False, head0=0, heads_total=None):
     """The plain version of the packed forward: unpack to [B, H, S, D], run
     ``attention_reference`` with the same hash mask, pack. Returns out
     [B, S, H*D] (and the fp32 lse [B*H, S] with ``with_lse``)."""
     res = attention_reference(
         _unpack(q, n_heads), _unpack(k, n_heads), _unpack(v, n_heads), True,
-        window, with_lse, dropout_rate, dropout_seed,
+        window, with_lse, dropout_rate, dropout_seed, head0, heads_total,
     )
     if with_lse:
         return _pack(res[0]), res[1]
@@ -73,13 +73,13 @@ def dsum_rows(out: torch.Tensor, g: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def backward_reference(q, k, v, out, lse, g, n_heads, window=None,
-                       dropout_rate=0.0, dropout_seed=None):
+                       dropout_rate=0.0, dropout_seed=None, head0=0, heads_total=None):
     """The plain version of the packed backward (the TPU kernel
     ``_fused_bwd_kernel``): ``attention_backward_reference`` on the
     [B, H, S, D] views, packed again. Returns dq, dk, dv in q's dtype."""
     grads = attention_backward_reference(
         *(_unpack(t, n_heads) for t in (q, k, v, out)), lse, _unpack(g, n_heads),
-        window, dropout_rate, dropout_seed)
+        window, dropout_rate, dropout_seed, head0, heads_total)
     return tuple(_pack(t) for t in grads)
 
 
@@ -90,45 +90,46 @@ def _packed_strides(q: torch.Tensor, n_heads: int):
     return b, n_heads, s, d, (q.stride(0), d, q.stride(1))
 
 
-def _forward(q, k, v, n_heads, window, rate, seed, tile_rows=None):
+def _forward(q, k, v, n_heads, window, rate, seed, tile_rows=None, head0=0, heads_total=None):
     """(out, lse); ``tile_rows`` as in ``launch_forward``."""
     if q.device.type == "cpu":
         return attention_packed_reference(q, k, v, n_heads, window, rate, seed,
-                                          with_lse=True)
+                                          True, head0, heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"causal_attention_packed: unsupported device {q.device}")
     q, k, v = dense_for_kernels(q, k, v)
     b, h, s, d, strides = _packed_strides(q, n_heads)
     out, lse = launch_forward(q, k, v, b, h, s, d, strides, window, rate, seed,
-                              with_lse=True, tile_rows=tile_rows)
+                              True, tile_rows, head0, heads_total)
     KERNEL_LAUNCHES["causal_attention_packed_fwd"] += 1
     return out, lse
 
 
-def _backward(q, k, v, out, lse, g, n_heads, window, rate, seed):
+def _backward(q, k, v, out, lse, g, n_heads, window, rate, seed, head0=0, heads_total=None):
     if q.device.type == "cpu":
-        return backward_reference(q, k, v, out, lse, g, n_heads, window, rate, seed)
+        return backward_reference(q, k, v, out, lse, g, n_heads, window, rate, seed, head0,
+                                  heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"causal_attention_packed: unsupported device {q.device}")
     q, k, v, out, g = dense_for_kernels(q, k, v, out, g.contiguous())
     b, h, s, d, strides = _packed_strides(q, n_heads)
     with torch.cuda.device(q.device):
         grads = launch_backward(q, k, v, out, lse, g, dsum_rows(out, g, h), b, h, s, d,
-                                strides, window, rate, seed)
+                                strides, window, rate, seed, head0, heads_total)
     KERNEL_LAUNCHES["causal_attention_packed_bwd"] += 1
     return grads
 
 
 @torch.library.custom_op("dalle_mtf_tpu_torch::packed_attention_fwd", mutates_args=())
 def packed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int,
-                         window: Optional[int], rate: float,
-                         seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+                         window: Optional[int], rate: float, seed: int, head0: int = 0,
+                         heads_total: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``_forward`` as one dispatcher op: (out [B, S, H*D], lse fp32 [B*H, S])."""
-    return _forward(q, k, v, n_heads, window, rate, seed)
+    return _forward(q, k, v, n_heads, window, rate, seed, None, head0, heads_total)
 
 
 @packed_attention_fwd.register_fake
-def _(q, k, v, n_heads, window, rate, seed):
+def _(q, k, v, n_heads, window, rate, seed, head0=0, heads_total=None):
     b, s, _ = q.shape
     return torch.empty_like(q), q.new_empty((b * n_heads, s), dtype=torch.float32)
 
@@ -137,23 +138,27 @@ class _PackedAttention(torch.autograd.Function):
     """out = attention(q, k, v); saves q, k, v, out, lse for the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, n_heads, window, rate, seed):
-        out, lse = packed_attention_fwd(q, k, v, n_heads, window, rate, seed)
+    def forward(ctx, q, k, v, n_heads, window, rate, seed, head0, heads_total):
+        out, lse = packed_attention_fwd(q, k, v, n_heads, window, rate, seed, head0, heads_total)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (n_heads, window, rate, seed)
+        ctx.args = (n_heads, window, rate, seed, head0, heads_total)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, out, lse, g, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
-def packed_attention(q, k, v, n_heads, window=None, dropout_rate=0.0, seed=0):
+def packed_attention(q, k, v, n_heads, window=None, dropout_rate=0.0, seed=0, head0=0,
+                     heads_total=None):
     """``causal_attention_packed`` with an explicit dropout seed (an int in
     [0, 2^31), as the JAX package draws it): the same seed gives the same
-    mask in both packages."""
+    mask in both packages. q's ``n_heads`` heads are heads
+    [head0, head0 + n_heads) of ``heads_total`` (default ``n_heads``) for
+    the hash: a tensor-parallel rank's block of the heads draws the mask one
+    process draws on them (``ops/attention.py::program_seeds``)."""
     if q.dim() != 3 or q.shape[-1] % n_heads:
         raise ValueError(f"q must be [B, S, H*D] with H={n_heads}: {tuple(q.shape)}")
     if window is not None and window < 1:
@@ -161,7 +166,8 @@ def packed_attention(q, k, v, n_heads, window=None, dropout_rate=0.0, seed=0):
     if q.device.type not in ("cpu", "cuda"):  # the op's fake would take a meta tensor
         raise ValueError(f"causal_attention_packed: unsupported device {q.device}")
     rate = float(dropout_rate)
-    return _PackedAttention.apply(q, k, v, n_heads, window, rate, int(seed) if rate > 0 else 0)
+    return _PackedAttention.apply(q, k, v, n_heads, window, rate, int(seed) if rate > 0 else 0,
+                                  int(head0), heads_total)
 
 
 def causal_attention_packed(q, k, v, n_heads, window=None, dropout_rate=0.0,

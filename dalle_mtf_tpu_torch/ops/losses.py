@@ -4,6 +4,9 @@ entropy, the VAE's reconstruction MSE and its eval feature distance."""
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from dalle_mtf_tpu_torch.parallel.tensor import all_reduce, reduce_from_model
 
 
 def softmax_cross_entropy_with_logits(
@@ -22,6 +25,35 @@ def softmax_cross_entropy_with_logits(
     target_logits = torch.gather(logits, -1, targets[..., None].long())[..., 0].float()
     log_z = torch.logsumexp(logits.float(), dim=-1)
     loss = log_z - target_logits
+    if z_loss:
+        loss = loss + z_loss * torch.square(log_z)
+    return loss
+
+
+def vocab_parallel_cross_entropy(
+    logits: torch.Tensor,
+    targets: torch.Tensor,
+    v0: int,
+    group,
+    z_loss: float = 0.0,
+) -> torch.Tensor:
+    """``softmax_cross_entropy_with_logits`` with the vocabulary split over
+    the process group ``group``: ``logits`` [..., n] are this rank's columns
+    [v0, v0 + n). The max is all_reduced with MAX, the fp32 sum-exp and the
+    target logit (this rank's where the target is its column, else 0) with
+    SUM (one collective, identity backward), so every rank holds the whole
+    loss and each backpropagates into its own columns. As one process: the
+    target logit gathered in the logits' dtype, the log-partition in fp32."""
+    rel = targets.long() - v0
+    n = logits.shape[-1]
+    mine = (rel >= 0) & (rel < n)
+    tgt = torch.gather(logits, -1, rel.clamp(0, n - 1)[..., None])[..., 0].float()
+    lf = logits.float()
+    m = all_reduce(lf.detach().amax(dim=-1), group, dist.ReduceOp.MAX)
+    sums = reduce_from_model(torch.stack([torch.exp(lf - m[..., None]).sum(-1),
+                                          torch.where(mine, tgt, 0.0)]), group)
+    log_z = m + torch.log(sums[0])
+    loss = log_z - sums[1]
     if z_loss:
         loss = loss + z_loss * torch.square(log_z)
     return loss

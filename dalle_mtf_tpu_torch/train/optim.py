@@ -19,6 +19,16 @@ optax 0.2.6's ``adafactor`` with the JAX factory's arguments, written out in
 ``Adafactor``. ``skip_nonfinite_updates: N`` wraps either optimizer in
 ``SkipNonfinite``, optax's ``apply_if_finite``. Each optimizer's
 ``state_dict`` names it, and a state of another optimizer refuses to load.
+
+On a tensor-parallel mesh (a ``parallel.tensor.Sharding`` of the tree) each
+rank updates its blocks of the split leaves, and every statistic over a
+split dim is summed over the model group so that it is the whole leaf's:
+the global norm (split leaves' squares summed over the group, replicated
+leaves counted once), Adafactor's row and column means, its update and
+parameter RMS, and the finiteness test of ``SkipNonfinite``.
+``state_dict(transform)``/``load_state_dict(state, transform)`` pass every
+moment through ``transform(tensor, split)`` (the trainer gathers them into
+the whole state a single process writes, and slices them back).
 """
 
 from __future__ import annotations
@@ -28,6 +38,9 @@ from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from dalle_mtf_tpu_torch.parallel.tensor import all_reduce, moment_split
 
 
 def lr_schedule(params: Mapping[str, Any]) -> Callable[[int], float]:
@@ -91,16 +104,26 @@ def decay_mask(tree, prefix: tuple[str, ...] = ()) -> dict:
     }
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt(sum of squares) over fp32 copies of ``tensors`` (a 0-dim tensor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+def _square_sum(tensors) -> torch.Tensor:
+    return sum(torch.sum(torch.square(t.float())) for t in tensors)
 
 
-def _clip_by_global_norm(grads, clip: float | None) -> torch.Tensor:
+def global_norm(tensors, splits=None, group=None) -> torch.Tensor:
+    """sqrt(sum of squares) over fp32 copies of ``tensors`` (a 0-dim
+    tensor). With ``splits`` (a ``Split`` or None per tensor) and the model
+    ``group``, the split tensors' squares are summed over the group first."""
+    if group is None or not any(splits):
+        return torch.sqrt(_square_sum(tensors))
+    split = _square_sum([t for t, sp in zip(tensors, splits) if sp is not None])
+    whole = _square_sum([t for t, sp in zip(tensors, splits) if sp is None])
+    return torch.sqrt(all_reduce(split, group) + whole)
+
+
+def _clip_by_global_norm(grads, clip: float | None, splits=None, group=None) -> torch.Tensor:
     """The global norm of ``grads`` (a 0-dim tensor, not waited for); with
     ``clip``, the grads scaled in place as optax does: unchanged below the
     clip, else g / norm * clip."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, splits, group)
     if clip:
         scale = torch.where(norm < clip, 1.0, clip / norm)
         torch._foreach_mul_(grads, scale)
@@ -119,6 +142,13 @@ def _check_state(state: Mapping[str, Any], key: str, who: str) -> None:
         raise ValueError(f"{who}.load_state_dict: not a {who} state (keys {sorted(state)})")
 
 
+def _splits(named, sharding) -> tuple[list, Any]:
+    """(each leaf's Split or None, the model group) of a sharded tree."""
+    if sharding is None:
+        return [None] * len(named), None
+    return [sharding.of(path) for path, _ in named], sharding.group
+
+
 class AdamW:
     """Global-norm clip + AdamW over the leaves of a parameter tree.
 
@@ -127,11 +157,17 @@ class AdamW:
     (path, leaf) pairs it updates."""
 
     def __init__(self, tree, schedule: Callable[[int], float], b1: float, b2: float,
-                 eps: float, weight_decay: float, clip: float | None, fused: bool):
+                 eps: float, weight_decay: float, clip: float | None, fused: bool,
+                 sharding=None):
         self.named = list(named_leaves(tree))
         self.leaves = [t for _, t in self.named]
+        self.splits, self.group = _splits(self.named, sharding)
         decay = [t for p, t in self.named if not _no_weight_decay(p)]
         keep = [t for p, t in self.named if _no_weight_decay(p)]
+        # the split of each parameter in the torch optimizer's order
+        order = ([sp for (p, _), sp in zip(self.named, self.splits) if not _no_weight_decay(p)]
+                 + [sp for (p, _), sp in zip(self.named, self.splits) if _no_weight_decay(p)])
+        self._state_splits = order
         groups = [{"params": ts, "weight_decay": wd}
                   for ts, wd in ((decay, weight_decay), (keep, 0.0)) if ts]
         impl = {"fused": True} if fused else {"foreach": True}
@@ -146,7 +182,8 @@ class AdamW:
     def step(self) -> torch.Tensor:
         """Clip, update, count; returns the global norm of the gradients
         before clipping (a 0-dim tensor, not waited for)."""
-        norm = _clip_by_global_norm(_grads(self.leaves, "AdamW"), self.clip)
+        norm = _clip_by_global_norm(_grads(self.leaves, "AdamW"), self.clip, self.splits,
+                                    self.group)
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -154,13 +191,21 @@ class AdamW:
         self.count += 1
         return norm
 
-    def state_dict(self) -> dict:
-        return {"count": self.count, "adamw": self.opt.state_dict()}
+    def _moments(self, sd: Mapping[str, Any], transform) -> dict:
+        if transform is None:
+            return sd
+        state = {i: {k: (transform(v, self._state_splits[i])
+                         if k in ("exp_avg", "exp_avg_sq") else v) for k, v in st.items()}
+                 for i, st in sd["state"].items()}
+        return {**sd, "state": state}
 
-    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+    def state_dict(self, transform=None) -> dict:
+        return {"count": self.count, "adamw": self._moments(self.opt.state_dict(), transform)}
+
+    def load_state_dict(self, state: Mapping[str, Any], transform=None) -> None:
         _check_state(state, "adamw", "AdamW")
         self.count = int(state["count"])
-        self.opt.load_state_dict(state["adamw"])
+        self.opt.load_state_dict(self._moments(state["adamw"], transform))
 
 
 def _factored_dims(shape, min_dim_size_to_factor: int) -> tuple[int, int] | None:
@@ -193,14 +238,17 @@ class Adafactor:
     MIN_SCALE = 1e-3
 
     def __init__(self, tree, schedule: Callable[[int], float], decay_rate: float,
-                 clipping_threshold: float, eps: float, clip: float | None):
+                 clipping_threshold: float, eps: float, clip: float | None, sharding=None):
         self.named = list(named_leaves(tree))
         self.leaves = [t for _, t in self.named]
+        self.splits, self.group = _splits(self.named, sharding)
         self.schedule = schedule
         self.decay_rate, self.threshold, self.eps, self.clip = (
             decay_rate, clipping_threshold, eps, clip)
         self.count = 0
-        self.dims = [_factored_dims(t.shape, self.MIN_DIM_SIZE_TO_FACTOR) for t in self.leaves]
+        # factored over the whole leaf's two largest dims, as one process
+        self.dims = [_factored_dims(sharding.whole_shape(p, t.shape) if sharding else t.shape,
+                                    self.MIN_DIM_SIZE_TO_FACTOR) for p, t in self.named]
         # per leaf: (v_row, v_col) where factored (the shape without the
         # largest axis, without the second largest), else v (the shape)
         self.v = []
@@ -215,6 +263,27 @@ class Adafactor:
         for t in self.leaves:
             t.grad = None
 
+    def _mean(self, t: torch.Tensor, dim: int, split, keepdim: bool = False) -> torch.Tensor:
+        """``t.mean(dim)``; over a split dim, the whole leaf's (summed over
+        the model group)."""
+        if split is None or split.dim != dim:
+            return t.mean(dim=dim, keepdim=keepdim)
+        return all_reduce(t.sum(dim=dim, keepdim=keepdim), self.group) / split.size
+
+    def _rms(self, t: torch.Tensor, split) -> torch.Tensor:
+        """sqrt(mean(t²)) over the whole leaf."""
+        if split is None:
+            return t.square().mean().sqrt()
+        n = t.numel() // (split.stop - split.start) * split.size
+        return (all_reduce(t.square().sum(), self.group) / n).sqrt()
+
+    def _moment_splits(self, i: int) -> tuple:
+        """The splits of leaf i's moments: (v,) or (v_row, v_col)."""
+        split, dims = self.splits[i], self.dims[i]
+        if dims is None:
+            return (split,)
+        return moment_split(split, dims[1]), moment_split(split, dims[0])
+
     def _scale_by_factored_rms(self, i: int, g: torch.Tensor, decay: float) -> torch.Tensor:
         """optax's ``scale_by_factored_rms`` on leaf i; updates its moments."""
         g2 = g.square() + self.eps
@@ -225,12 +294,14 @@ class Adafactor:
             self.v[i] = v
             return g * v.pow(-0.5)
         d1, d0 = dims
+        split = self.splits[i]
         v_row, v_col = self.v[i]
-        v_row = decay * v_row + keep * g2.mean(dim=d0)
-        v_col = decay * v_col + keep * g2.mean(dim=d1)
+        v_row = decay * v_row + keep * self._mean(g2, d0, split)
+        v_col = decay * v_col + keep * self._mean(g2, d1, split)
         self.v[i] = (v_row, v_col)
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).pow(-0.5)
+        row_mean = self._mean(v_row, reduced_d1, self._moment_splits(i)[0], keepdim=True)
+        row_factor = (v_row / row_mean).pow(-0.5)
         return g * row_factor.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
 
     @torch.no_grad()
@@ -238,39 +309,45 @@ class Adafactor:
         """Clip, update, count; returns the global norm of the gradients
         before clipping (a 0-dim tensor, not waited for)."""
         grads = _grads(self.leaves, "Adafactor")
-        norm = _clip_by_global_norm(grads, self.clip)
+        norm = _clip_by_global_norm(grads, self.clip, self.splits, self.group)
         t = np.float32(self.count + 1)
         decay = float(np.float32(1.0) - t ** np.float32(-self.decay_rate))
         lr = self.schedule(self.count)
         for i, (p, g) in enumerate(zip(self.leaves, grads)):
             u = self._scale_by_factored_rms(i, g.float(), decay)
-            u = u / torch.clamp_min(u.square().mean().sqrt() / self.threshold, 1.0)
+            u = u / torch.clamp_min(self._rms(u, self.splits[i]) / self.threshold, 1.0)
             u = u * lr
-            p_rms = p.square().mean().sqrt()
+            p_rms = self._rms(p, self.splits[i])
             u = u * torch.where(p_rms <= self.MIN_SCALE, self.MIN_SCALE, p_rms)
             p.add_(u * -1.0)
         self.count += 1
         return norm
 
-    def state_dict(self) -> dict:
+    def state_dict(self, transform=None) -> dict:
+        def out(t, split):
+            return t if transform is None else transform(t, split)
+
         moments = {}
-        for (path, _), dims, v in zip(self.named, self.dims, self.v):
+        for i, ((path, _), dims, v) in enumerate(zip(self.named, self.dims, self.v)):
             name = "/".join(path)
+            splits = self._moment_splits(i)
             if dims is None:
-                moments[name] = v
+                moments[name] = out(v, splits[0])
             else:
-                moments[name + "/v_row"], moments[name + "/v_col"] = v
+                moments[name + "/v_row"], moments[name + "/v_col"] = (
+                    out(v[0], splits[0]), out(v[1], splits[1]))
         return {"count": self.count, "adafactor": moments}
 
-    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+    def load_state_dict(self, state: Mapping[str, Any], transform=None) -> None:
         _check_state(state, "adafactor", "Adafactor")
         moments = state["adafactor"]
         for i, ((path, _), dims) in enumerate(zip(self.named, self.dims)):
             name = "/".join(path)
             names = [name] if dims is None else [name + "/v_row", name + "/v_col"]
             loaded = []
-            for n, want in zip(names, [self.v[i]] if dims is None else self.v[i]):
-                t = moments[n]
+            for n, want, split in zip(names, [self.v[i]] if dims is None else self.v[i],
+                                      self._moment_splits(i)):
+                t = moments[n] if transform is None else transform(moments[n], split)
                 if t.shape != want.shape:
                     raise ValueError(f"Adafactor.load_state_dict: {n} has shape "
                                      f"{tuple(t.shape)}, expected {tuple(want.shape)}")
@@ -313,39 +390,45 @@ class SkipNonfinite:
 
     def step(self) -> torch.Tensor:
         """The inner step, or none; returns the global norm of the
-        gradients before clipping either way."""
+        gradients before clipping either way. On a tensor-parallel mesh the
+        test covers every rank's blocks (all_reduced over the model group),
+        so every rank skips the same steps."""
         grads = _grads(self.leaves, "SkipNonfinite")
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all().int()
+        if self.inner.group is not None:
+            all_reduce(finite, self.inner.group, dist.ReduceOp.MIN)
+        finite = bool(finite)
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         self.total_notfinite += 0 if finite else 1
         self.last_finite = finite
         if finite or self.notfinite_count > self.max_consecutive_errors:
             return self.inner.step()
-        return global_norm(grads)
+        return global_norm(grads, self.inner.splits, self.inner.group)
 
-    def state_dict(self) -> dict:
+    def state_dict(self, transform=None) -> dict:
         return {"apply_if_finite": {"notfinite_count": self.notfinite_count,
                                     "last_finite": self.last_finite,
                                     "total_notfinite": self.total_notfinite},
-                "inner": self.inner.state_dict()}
+                "inner": self.inner.state_dict(transform)}
 
-    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+    def load_state_dict(self, state: Mapping[str, Any], transform=None) -> None:
         _check_state(state, "apply_if_finite", "SkipNonfinite")
-        self.inner.load_state_dict(state["inner"])
+        self.inner.load_state_dict(state["inner"], transform)
         skip = state["apply_if_finite"]
         self.notfinite_count = int(skip["notfinite_count"])
         self.last_finite = bool(skip["last_finite"])
         self.total_notfinite = int(skip["total_notfinite"])
 
 
-def get_optimizer(params: Mapping[str, Any], tree):
+def get_optimizer(params: Mapping[str, Any], tree, sharding=None):
     """(optimizer over ``tree``'s leaves, lr schedule), from the config keys
     the JAX factory honours: ``optimizer`` ("adam" or "adafactor"), ``lr``,
     ``lr_decay``, ``lr_decay_end``, ``warmup_steps``, ``gradient_clipping``,
     ``weight_decay``, ``beta_1``, ``beta_2``, ``epsilon``,
     ``fused_optimizer`` (AdamW); ``adafactor_decay_rate``,
     ``adafactor_clipping``, ``epsilon_1`` (Adafactor); and
-    ``skip_nonfinite_updates``."""
+    ``skip_nonfinite_updates``. ``sharding``: the tree's split over a
+    tensor-parallel axis (a ``parallel.tensor.Sharding``), or None."""
     schedule = lr_schedule(params)
     name = (params.get("optimizer") or "adam").lower()
     clip = params.get("gradient_clipping")
@@ -360,6 +443,7 @@ def get_optimizer(params: Mapping[str, Any], tree):
             weight_decay=params.get("weight_decay") or 0.0,
             clip=clip or None,
             fused=bool(params.get("fused_optimizer")),
+            sharding=sharding,
         )
     elif name == "adafactor":
         opt = Adafactor(
@@ -368,6 +452,7 @@ def get_optimizer(params: Mapping[str, Any], tree):
             clipping_threshold=params.get("adafactor_clipping") or 1.0,
             eps=params.get("epsilon_1") or 1e-30,
             clip=clip or None,
+            sharding=sharding,
         )
     else:
         raise ValueError(f"{name} not recognized")

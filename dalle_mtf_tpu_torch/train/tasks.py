@@ -26,10 +26,7 @@ import torch
 
 from dalle_mtf_tpu_torch.models.dalle import DALLE, DalleConfig
 from dalle_mtf_tpu_torch.models.vae import DiscreteVAE, VAEConfig, temperature_schedule
-from dalle_mtf_tpu_torch.ops.losses import (
-    frechet_feature_distance,
-    softmax_cross_entropy_with_logits,
-)
+from dalle_mtf_tpu_torch.ops.losses import frechet_feature_distance
 
 
 def _image(batch) -> torch.Tensor:
@@ -121,9 +118,10 @@ def make_dalle_task(params: Mapping[str, Any], device: torch.device | str, mesh=
     torch tensors on the device and return (scalar loss, aux dict);
     ``frozen_params`` is the VAE's tree (image batches) or None (tokens
     batches). On a ``mesh`` the batch holds this rank's rows (the ranks of
-    one sequence-parallel group encode the same rows), and every value
-    returned is this rank's share of the global mean (the trainer sums them
-    over the ranks)."""
+    one sequence-parallel or tensor-parallel group encode the same rows),
+    and every value returned is this rank's share of the global mean (the
+    trainer sums them over the mesh's replicas); ``init_fn`` draws this
+    rank's blocks of the parameters (``dalle.sharding``)."""
     cfg, vae_cfg = _configs(params)
     dalle = DALLE(cfg, device, mesh)
     vae = DiscreteVAE(vae_cfg, device)
@@ -161,16 +159,12 @@ def make_dalle_task(params: Mapping[str, Any], device: torch.device | str, mesh=
 
     def eval_loss(p, frozen, batch, generator, step):
         """Loss split plus next-token accuracy (overall and image
-        positions), on the fp32 logits of ``forward``, or streamed over row
-        chunks under ``fused_xent``."""
+        positions), on the fp32 logits of ``forward`` (``DALLE.dense_eval``),
+        or streamed over row chunks under ``fused_xent``; over the
+        vocabulary's blocks on a tensor-parallel mesh."""
         tokens = tokens_of(frozen, batch)
-        if fused_xent:
-            loss_batch, correct = dalle.fused_eval(p, tokens, generator, z_loss=z_loss)
-        else:
-            logits = dalle.forward(p, tokens, generator, train=False)
-            labels = dalle.local_labels(tokens)
-            loss_batch = softmax_cross_entropy_with_logits(logits, labels, z_loss)
-            correct = (logits.argmax(dim=-1) == labels).float()
+        evaluate = dalle.fused_eval if fused_xent else dalle.dense_eval
+        loss_batch, correct = evaluate(p, tokens, generator, z_loss=z_loss)
         return dalle.global_mean(loss_batch), {
             **_split_losses(loss_batch),
             "acc": dalle.global_mean(correct),

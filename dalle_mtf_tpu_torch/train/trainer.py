@@ -4,11 +4,13 @@ The JAX trainer jit-compiles a sharded step and can run ``iterations``
 steps as one device loop. Here each step is dispatched eagerly: forward
 and backward by autograd, then the clip + AdamW update in place on the
 fp32 master parameters. Over several processes (a ``parallel.mesh.Mesh``)
-every rank holds the whole parameter tree and its own rows and sequence
-shard of the batch; its loss is its share of the global mean, so the
-gradients are summed over the world (``all_reduce``) before the clip and
-every rank takes the same step; the metrics are summed the same way. Rank 0
-alone writes checkpoints and summaries, behind a barrier; every rank
+every rank holds the parameter tree (on a tensor-parallel axis, its blocks
+of the split leaves: ``sharding``) and its own rows and sequence shard of
+the batch; its loss is its share of the global mean, so the gradients are
+summed over the mesh's replicas (``Mesh.replica_group``: the world without
+the tensor-parallel axis, whose ranks hold the same loss) before the clip
+and every rank takes the same step; the metrics are summed the same way.
+Rank 0 alone writes checkpoints and summaries, behind a barrier; every rank
 restores. Kept from the JAX loop:
 
 - microbatch gradient accumulation (``tokens_per_mb_per_replica``) with the
@@ -24,6 +26,10 @@ restores. Kept from the JAX loop:
 Checkpoints are ``torch.save`` files ``<model_dir>/checkpoints/ckpt_<step>.pt``
 holding the step, the parameter tree and the optimizer state (under
 ``skip_nonfinite_updates``, with the skip state of ``optim.SkipNonfinite``).
+A checkpoint is always the whole, unpadded tree and state a single process
+writes: under tensor parallelism the blocks are gathered over the model
+group before rank 0 writes, and every rank slices its blocks on restore, so
+a checkpoint moves between layouts.
 A step the optimizer skips (non-finite gradients) is counted and logged as
 any other, as in the JAX loop: its loss and ``grad_norm`` are not finite,
 ``lr`` is the schedule at the step; the optimizer's own count, and so the
@@ -33,6 +39,7 @@ schedule it applies, stays where it was.
 from __future__ import annotations
 
 import logging
+import math
 import os
 import re
 import tempfile
@@ -44,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from dalle_mtf_tpu_torch.parallel.mesh import BATCH, parse_layout
+from dalle_mtf_tpu_torch.parallel.tensor import all_reduce, gather, shard
 from dalle_mtf_tpu_torch.train.optim import get_optimizer, named_leaves
 from dalle_mtf_tpu_torch.utils.summaries import MetricsWriter
 
@@ -94,11 +102,11 @@ def step_generator(seed: int, stream: int, index: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
-def _all_reduce_sum(tensors) -> None:
-    """Sum fp32 ``tensors`` over the world in place, as one flat buffer (one
-    collective instead of one a leaf)."""
+def _all_reduce_sum(tensors, group=None) -> None:
+    """Sum fp32 ``tensors`` over ``group`` (None: the world) in place, as
+    one flat buffer (one collective instead of one a leaf)."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
+    all_reduce(flat, group)
     torch._foreach_copy_(tensors, [c.view_as(t) for c, t in
                                    zip(flat.split([t.numel() for t in tensors]), tensors)])
 
@@ -115,6 +123,7 @@ class Trainer:
         frozen_params: Any = None,
         eval_loss_fn: LossFn | None = None,
         mesh=None,
+        sharding=None,
     ):
         self.params = params
         self.init_fn = init_fn
@@ -125,6 +134,7 @@ class Trainer:
         self.frozen_params = frozen_params
         self.batch_size = params["train_batch_size"]
         self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.sharding = sharding if self.mesh else None
         self.rank = self.mesh.rank if self.mesh else 0
         dp = mesh.size(parse_layout(params.get("layout")).get(BATCH) or "data") if mesh else 1
         self.num_mb = num_microbatches(params, self.batch_size, seq_len, dp)
@@ -144,12 +154,15 @@ class Trainer:
         params = self.init_fn(generator)
         for _, t in named_leaves(params):
             t.requires_grad_(True)
-        opt, self.schedule = get_optimizer(self.params, params)
+        opt, self.schedule = get_optimizer(self.params, params, self.sharding)
         return {"step": 0, "params": params, "opt": opt}
 
-    @staticmethod
-    def param_count(state: dict) -> int:
-        return sum(t.numel() for _, t in named_leaves(state["params"]))
+    def param_count(self, state: dict) -> int:
+        """The whole model's parameters (not this rank's blocks)."""
+        if self.sharding is None:
+            return sum(t.numel() for _, t in named_leaves(state["params"]))
+        return sum(math.prod(self.sharding.whole_shape(p, t.shape))
+                   for p, t in named_leaves(state["params"]))
 
     # ------------------------------------------------------------ train step
 
@@ -177,8 +190,8 @@ class Trainer:
         else:
             loss, aux = self.loss_fn(params, self.frozen_params, batch, generator, step)
             loss.backward()
-        if self.mesh:
-            _all_reduce_sum([t.grad for t in opt.leaves])
+        if self.mesh and self.mesh.replicas > 1:
+            _all_reduce_sum([t.grad for t in opt.leaves], self.mesh.replica_group)
         grad_norm = opt.step()
         state["step"] = step + 1
         metrics = self._reduce({"loss": loss.detach().float(),
@@ -187,12 +200,12 @@ class Trainer:
                        "lr": torch.tensor(self.schedule(step))}
 
     def _reduce(self, metrics: dict) -> dict:
-        """Each rank's shares of the metrics, summed over the world."""
-        if not self.mesh:
+        """Each rank's shares of the metrics, summed over the replicas."""
+        if not self.mesh or self.mesh.replicas == 1:
             return metrics
         names = list(metrics)
         flat = torch.stack([metrics[n].reshape(()) for n in names])
-        _all_reduce_sum([flat])
+        _all_reduce_sum([flat], self.mesh.replica_group)
         return dict(zip(names, flat.unbind(0)))
 
     @torch.no_grad()
@@ -216,23 +229,29 @@ class Trainer:
         steps = self.checkpoint_steps()
         return steps[-1] if steps else 0
 
+    def _gather(self, t, split):
+        return gather(t, split, self.sharding.group if self.sharding else None)
+
     def save(self, state: dict, step: int | None = None) -> None:
         """Write ckpt_<step>.pt atomically, then keep the newest
-        ``max_to_keep``. On a mesh rank 0 writes (every rank holds the same
-        state) and every rank waits for it."""
+        ``max_to_keep``. On a mesh rank 0 writes (every replica holds the
+        same state; a tensor-parallel one's blocks are gathered first, by
+        every rank) and every rank waits for it."""
+        sharding = self.sharding
+        obj = {
+            "params": {"/".join(p): self._gather(t, sharding.of(p) if sharding else None)
+                       for p, t in named_leaves(state["params"])},
+            "opt_state": state["opt"].state_dict(self._gather if sharding else None),
+        }
         if self.rank == 0:
-            self._write(state, step)
+            self._write(obj, state["step"] if step is None else step)
         if self.mesh:
             dist.barrier()
 
-    def _write(self, state: dict, step: int | None) -> None:
-        step = state["step"] if step is None else step
+    def _write(self, obj: dict, step: int) -> None:
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        obj = {
-            "step": step,
-            "params": {"/".join(p): t.detach() for p, t in named_leaves(state["params"])},
-            "opt_state": state["opt"].state_dict(),
-        }
+        obj = {"step": step, "params": {k: t.detach() for k, t in obj["params"].items()},
+               "opt_state": obj["opt_state"]}
         fd, tmp = tempfile.mkstemp(dir=self.ckpt_dir, suffix=".tmp")
         os.close(fd)
         try:
@@ -250,12 +269,16 @@ class Trainer:
         steps = self.checkpoint_steps()
         if not steps:
             return state
+        sharding = self.sharding
+        # a tensor-parallel rank reads the whole tree on the host and copies
+        # its blocks
         obj = torch.load(os.path.join(self.ckpt_dir, f"ckpt_{steps[-1]}.pt"),
-                         map_location=self.device, weights_only=True)
+                         map_location="cpu" if sharding else self.device, weights_only=True)
         with torch.no_grad():
             for path, t in named_leaves(state["params"]):
-                t.copy_(obj["params"]["/".join(path)])
-        state["opt"].load_state_dict(obj["opt_state"])
+                t.copy_(shard(obj["params"]["/".join(path)],
+                              sharding.of(path) if sharding else None))
+        state["opt"].load_state_dict(obj["opt_state"], shard if sharding else None)
         state["step"] = int(obj["step"])
         logger.info("restored checkpoint at step %d", state["step"])
         return state

@@ -10,9 +10,13 @@ Over several processes, started by ``torch.distributed.run``:
         -m dalle_mtf_tpu_torch.train_dalle --model <config> [--device cpu]
 
 the config's ``mesh_shape`` and ``layout`` place the ranks: data parallelism
-over the ``batch_dim`` axis and, with ``attention_type`` "ring" or
-"local_ring", sequence parallelism over the ``total_seq_dim`` axis
-(``utils/distributed.py`` picks each rank's device and the backend).
+over the ``batch_dim`` axis, with ``attention_type`` "ring" or "local_ring"
+sequence parallelism over the ``total_seq_dim`` axis, and tensor
+parallelism over an axis carrying ``heads_dim``, ``intermediate_expanded``
+and ``vocab_dim`` (``configs/dalle_coco.json``'s ``data:16,model:2`` runs on
+2 ranks as ``data:1,model:2``; ``utils/distributed.py`` picks each rank's
+device and the backend). Under tensor parallelism ``predict_steps`` raises
+(sampling from split parameters is ROADMAP queue 1 item 5d).
 
 In image mode (``dataset.tokens`` unset: JPEG + caption records) the
 frozen VAE (``vae_model``, trained by ``train_vae``) is restored from
@@ -101,9 +105,14 @@ def _train(args, proc) -> Trainer:
     if params["vae_params"] is None:
         raise ValueError("vae model config must be supplied (vae_model key)")
     setup_logging(params["config_name"] or args.model, rank=proc.rank)
-    # the ranks' layout; TP and PP layouts raise here at world size > 1
+    # the ranks' layout; a pipeline layout (and TP under ring attention)
+    # raises here at world size > 1
     mesh = build_mesh(params.get("mesh_shape"), params.get("layout"),
                       params.get("attention_type") or "global", proc.rank, proc.world)
+    if mesh.tp_axis is not None and params.get("predict_steps"):
+        raise NotImplementedError(
+            f"predict_steps under tensor parallelism (mesh axis {mesh.tp_axis!r}): sampling "
+            "from split parameters is not ported yet (ROADMAP queue 1 item 5d)")
 
     if args.new:
         if proc.rank == 0:
@@ -136,6 +145,7 @@ def _train(args, proc) -> Trainer:
         frozen_params=None if tokens_mode else vae_params,
         eval_loss_fn=eval_loss_fn,
         mesh=mesh,
+        sharding=dalle.sharding,
     )
     # this rank's data: its group on the batch axis (the sequence-parallel
     # ranks of one group read the same rows)

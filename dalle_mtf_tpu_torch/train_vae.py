@@ -6,9 +6,11 @@ same CLI.
 
 One process on one device: ``cuda:<first --gpu_ids>``, else ``--device``
 (default ``cuda``). Without a CUDA device it raises: it runs on the CPU only
-when asked to with ``--device cpu``. A config whose ``mesh_shape`` asks for
-more than one rank, or a launch over several processes, raises (VAE data
-parallelism is not ported).
+when asked to with ``--device cpu``. The config's ``mesh_shape`` is resized
+to the one process (``parallel.mesh.resize_axes``, the JAX ``build_mesh`` rule:
+``vae_example``'s ``data:16,model:2`` trains on one device); a launch over
+several processes raises (VAE data parallelism is not ported: ROADMAP
+queue 1 item 5b).
 
 Training resumes from the latest checkpoint in ``model_path``, and the data
 stream skips the batches already trained on. ``--new`` wipes
@@ -21,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import logging
-import math
 import os
 
 import numpy as np
@@ -29,7 +30,7 @@ import torch
 
 from dalle_mtf_tpu_torch.data.pipeline import vae_input_fn
 from dalle_mtf_tpu_torch.models.vae import temperature_schedule
-from dalle_mtf_tpu_torch.parallel.mesh import parse_mesh_shape
+from dalle_mtf_tpu_torch.parallel.mesh import parse_mesh_shape, resize_axes
 from dalle_mtf_tpu_torch.train.tasks import make_vae_task
 from dalle_mtf_tpu_torch.train.trainer import Trainer
 from dalle_mtf_tpu_torch.utils.config import fetch_model_params
@@ -72,12 +73,13 @@ def main(argv=None) -> Trainer:
     params = fetch_model_params(args.model)
     if params["model_type"] not in (None, "vae"):
         raise ValueError(f"config {args.model} is not a vae config")
-    ranks = math.prod(n for _, n in parse_mesh_shape(params.get("mesh_shape")))
-    if ranks > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
         raise NotImplementedError(
-            f"VAE data parallelism is not ported yet (mesh_shape "
-            f"{params.get('mesh_shape')!r}; ROADMAP.md queue 1 item 5): train on one process"
+            f"VAE data parallelism is not ported yet ({world} processes, mesh_shape "
+            f"{params.get('mesh_shape')!r}; ROADMAP.md queue 1 item 5b): train on one process"
         )
+    resize_axes(parse_mesh_shape(params.get("mesh_shape")), world)  # logs the resize
     device = rank_device(args.gpu_ids, args.device)
     setup_logging(params["config_name"] or args.model)
     if args.new:

@@ -37,9 +37,7 @@ def _to_torch(tree, device):
         if isinstance(v, dict):
             out[name] = _to_torch(v, device)
         else:
-            a = np.asarray(v)
-            if a.dtype.name == "bfloat16":
-                a = a.astype(np.float32)
+            a = v.numpy() if isinstance(v, torch.Tensor) else _widen(v)
             out[name] = torch.tensor(a, device=device)  # a copy: never aliases
     return out
 
@@ -73,6 +71,36 @@ def dalle_params_from_numpy(tree, dalle) -> dict:
     ``dalle``."""
     _check(tree, dalle.param_shapes(quantize_mode(tree)))
     return _to_torch(tree, dalle.device)
+
+
+def shard_dalle_params(tree, dalle) -> dict:
+    """A whole DALLE master tree of numpy arrays (e.g. a JAX tree through
+    ``jax.device_get``) -> this rank's blocks on a tensor-parallel mesh
+    (``dalle.sharding``), as torch tensors on ``dalle.device``, after
+    checking every name and whole shape. Without a split, the whole tree
+    (``dalle_params_from_numpy``)."""
+    _check(tree, dalle.param_shapes(whole=True))
+    if dalle.sharding is None:
+        return _to_torch(tree, dalle.device)
+    blocks = dalle.sharding.shard_tree(
+        {k: ({n: torch.from_numpy(np.asarray(_widen(a))) for n, a in v.items()}
+             if isinstance(v, dict) else torch.from_numpy(np.asarray(_widen(v))))
+         for k, v in tree.items()})
+    return _to_torch(blocks, dalle.device)
+
+
+def gather_dalle_params(tree, dalle) -> dict:
+    """The inverse of ``shard_dalle_params``: every rank's blocks of a
+    DALLE tree (torch) gathered over the model group (a collective: every
+    rank of the group calls it) -> the whole tree of numpy arrays."""
+    if dalle.sharding is not None:
+        tree = dalle.sharding.gather_tree(tree)
+    return params_to_numpy(tree)
+
+
+def _widen(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
 
 
 def vae_params_from_numpy(tree, vae) -> dict:

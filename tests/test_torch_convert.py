@@ -158,6 +158,8 @@ def test_port_never_imports_jax():
         "utils.restore", "data.encode_dataset", "data.create_tfrecords",
         # the captured decode loop's clients: predict at checkpoints, the CLI
         "train.predict", "sample_dalle",
+        # tensor parallelism
+        "parallel.mesh", "parallel.tensor",
     ]
     code = (
         "import pkgutil, sys, dalle_mtf_tpu_torch as p\n"

@@ -14,7 +14,8 @@ against the JAX package, on the CPU with 4 gloo ranks.
   (``max_to_keep`` 1), a resumed run continues it, and the result equals the
   single-process run (``data:1,seq:4``: the same rows) within 1e-5, or an
   unbroken 4-rank run bit for bit (``data:2,seq:2``).
-- Layouts the port cannot honour raise at world size > 1.
+- Layouts the port cannot honour raise at world size > 1; tensor-parallel
+  ones build a mesh.
 """
 
 import json
@@ -182,19 +183,34 @@ def test_train_dalle_data2_seq2_resume_equals_unbroken_run(tmp_path):
         torch.testing.assert_close(got[name], want[name], rtol=0, atol=0, msg=name)
 
 
-@pytest.mark.parametrize("mesh_shape,layout", [
-    ("data:2,model:2", "batch_dim:data,heads_dim:model"),
-    ("data:2,model:2", "batch_dim:data,intermediate_expanded:model"),
-    ("data:2,model:2", "batch_dim:data,vocab_dim:model"),
-    ("pipe:2,data:2", "batch_dim:data,layers:pipe"),
-    ("data:2,model:2", "batch_dim:data"),  # an axis that would only replicate
+@pytest.mark.parametrize("mesh_shape,layout,tensor", [
+    ("data:2,model:2", "batch_dim:data,heads_dim:model", True),
+    ("data:2,model:2", "batch_dim:data,intermediate_expanded:model", True),
+    ("data:2,model:2", "batch_dim:data,vocab_dim:model", True),
+    ("pipe:2,data:2", "batch_dim:data,layers:pipe", False),
+    ("data:2,model:2", "batch_dim:data", False),  # an axis that would only replicate
+    ("data:1,seq:2,model:2", "batch_dim:data,total_seq_dim:seq,heads_dim:model", False),
 ])
-def test_tp_and_pp_layouts_raise_above_one_process(mesh_shape, layout):
+def test_tp_and_pp_layouts_raise_above_one_process(mesh_shape, layout, tensor):
+    """Tensor-parallel layouts build a mesh (a fake 4-rank process group)
+    under global attention, and raise under ring attention (TP x SP); a
+    pipeline layout, a replicate-only axis and TP beside a sequence axis
+    raise under either."""
+    from test_torch_tp_dalle import fake_world
+
     for attention in ("global", "ring"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tmesh.build_mesh(mesh_shape, layout, attention, rank=0, world=4)
+        if tensor and attention == "global":
+            with fake_world(4):
+                mesh = tmesh.build_mesh(mesh_shape, layout, attention, rank=0, world=4)
+                assert mesh.tp_axis == "model" and mesh.replicas == 2
+        else:
+            with pytest.raises(NotImplementedError, match="not ported"):
+                tmesh.build_mesh(mesh_shape, layout, attention, rank=0, world=4)
         # one process: every axis resizes to 1, one device, accepted
         assert tmesh.build_mesh(mesh_shape, layout, attention).world == 1
+    if tensor:
+        with pytest.raises(NotImplementedError, match="TP x SP"):
+            tmesh.build_mesh(mesh_shape, layout, "ring", rank=0, world=4)
     # a sequence axis needs ring attention
     with pytest.raises(NotImplementedError, match="sequence"):
         tmesh.build_mesh("data:1,seq:4", LAYOUT, "global", rank=0, world=4)

@@ -405,12 +405,22 @@ def test_train_vae_main_trains_evaluates_checkpoints_and_resumes(tmp_path):
     assert [e["step"] for e in resumed.eval_history] == [6]
 
 
-def test_train_vae_refuses_what_it_cannot_run(tmp_path):
+def test_train_vae_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     from dalle_mtf_tpu_torch import train_vae
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    # a mesh of several ranks resizes to the one process and trains (the JAX
+    # build_mesh rule: vae_example's data:16,model:2)
+    for shape in ("data:2", "data:16,model:2"):
+        path = _config(tmp_path, shape.replace(":", "").replace(",", "_"), 1, mesh_shape=shape,
+                       layout="batch_dim:data", eval_steps=0)
+        trained = train_vae.main(["--model", path, "--device", "cpu"])
+        assert [h["step"] for h in trained.history] == [1]
+    # several processes: VAE data parallelism is not ported
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
         train_vae.main(["--model", _config(tmp_path, "dp", 2, mesh_shape="data:2"),
                         "--device", "cpu"])
+    monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(ValueError, match="not a vae config"):
         train_vae.main(["--model", _config(tmp_path, "dalle", 2, model_type="dalle"),
                         "--device", "cpu"])

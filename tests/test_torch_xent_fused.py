@@ -4,7 +4,7 @@ pad (ops/pad.py) against the JAX package's, on the CPU at tiny shapes:
 ``chunked_xent_eval`` loss and correctness on the same inputs and
 cotangent; ``DALLE.loss(fused_xent=True)`` and ``fused_eval`` on one
 parameter tree; the chunk rule where the requested count does not divide
-the rows; a tensor-parallel vocab axis refused.
+the rows; the ``*_auto`` dispatch on a vocab axis of size 1 and 2.
 
 Tolerances: fp32 within 1e-5 of each tensor's largest |value| (the same
 math, fp32 sums in another order); bf16 within 2e-2 of it (the products
@@ -113,10 +113,17 @@ def test_chunked_xent_refuses_what_it_cannot_run():
         def size(self, name):
             return {"model": 2}.get(name, 1)
 
-    for fn in (txent.chunked_softmax_xent_auto, txent.chunked_xent_eval_auto):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    plain = (txent.chunked_softmax_xent, txent.chunked_xent_eval)
+    for fn, want in zip((txent.chunked_softmax_xent_auto, txent.chunked_xent_eval_auto), plain):
+        # a split vocabulary takes the tensor-parallel op (tests/test_torch_tp_xent.py),
+        # which needs the whole vocabulary's size
+        with pytest.raises(ValueError, match="vocab_size"):
             fn(tx, tw, tb, tt, 0.0, 4, vocab_axis="model", mesh=Mesh())
-        fn(tx, tw, tb, tt, 0.0, 4, vocab_axis="data", mesh=Mesh())  # size 1: the plain op
+        # an axis of size 1: the plain op
+        got = fn(tx, tw, tb, tt, 0.0, 4, vocab_axis="data", mesh=Mesh())
+        for g, w in zip(*(((o,) if isinstance(o, torch.Tensor) else o)
+                          for o in (got, want(tx, tw, tb, tt, 0.0, 4)))):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 KW = dict(n_embd=64, text_vocab_size=48, image_vocab_size=32, text_seq_len=8,
