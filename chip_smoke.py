@@ -33,8 +33,9 @@ Phases, none of them optional:
      and ``backward_reference``: out, lse, dq, dk, dv at the training shape
      (B=16, S=1280, H=8, D=128, bf16), a ragged fp32 shape with window 64,
      the training shape with hash dropout 0.1 (one seed on both sides),
-     dalle_12B's microbatch (B=8, S=2560, H=40, D=128, bf16) and a
-     tensor-parallel rank's block of dalle_coco (B=8, S=1280, H=4);
+     dalle_12B's microbatch (B=8, S=2560, H=40, D=128, bf16), a
+     tensor-parallel rank's block of dalle_coco (B=8, S=1280, H=4) and of
+     dalle_12B at model:8 (B=4, S=2560, H=5);
    - the [B, H, S, D] forward with hash dropout;
    - ``phase_tile_cases``: the pair at the edges of its tile walk, in bf16
      (the forward under every q tile it is built for: 64 rows, and 128 at
@@ -45,8 +46,10 @@ Phases, none of them optional:
      per-tile bound, the planted zeroed tile and the two-run bit-equality
      of the forward and of the backward; and both pairs on heads 4..7 of 8
      (``head0``, ``heads_total``: a tensor-parallel rank's block) with hash
-     dropout, in bf16 and fp32, against the plain versions and bit for bit
-     against those heads of one 8-head launch (``head_block_cases``);
+     dropout, in bf16 and fp32, and the packed bf16 pair on heads 35..39 of
+     40 at B=4 S=2560 (a dalle_12B rank at model:8), against the plain
+     versions and bit for bit against those heads of one launch over all
+     the heads (``head_block_cases``);
    - the [B, H, S, D] pair (``causal_attention_fwd``/``_bwd`` through
      ops/attention.py) against ``attention_reference`` and
      ``attention_backward_reference`` at the shapes of the TPU package's
@@ -153,8 +156,9 @@ Phases, none of them optional:
      data:1,seq:4`` and ``layout: batch_dim:data,total_seq_dim:seq`` through
      ``python -m torch.distributed.run --nproc_per_node 4`` and
      ``train_dalle.main`` for 4 steps with an eval and a checkpoint, then a
-     resumed run for one more. Checks the first loss against ln V + var/2
-     and within 2e-3 of the single-process run's, finite losses and grad
+     resumed run for one more, cut to 2 of the 12 layers. Checks the first
+     loss against ln V + var/2 and within 2e-3 of the single-process port's
+     on the same records and seed, finite losses and grad
      norms, the parameters bit-equal over the ranks (a checksum a rank), the
      exact ``ring_partial``/``ring_block_grads`` launches of each rank (rank r
      runs r + 1 live hops a layer a pass) and the LN kernels', and no
@@ -176,12 +180,39 @@ Phases, none of them optional:
      ``data:1,model:2`` on two ranks, each 4 heads, 2048 MLP columns and a
      26,240-row block of the vocabulary) in tokens mode, cut to batch 8,
      through ``torch.distributed.run`` of two ranks and ``train_dalle.main``
-     for 6 steps with an eval and a checkpoint (the whole tree, gathered),
-     then a resumed run for 2 more. Checks the first loss within 2e-3 of the
-     single-process port's on the same records and seed, the ranks' losses
-     equal, the packed pair's exact launches a rank; its "train_tp" line
-     holds step s and tokens/s (labelled as two ranks on one card), the
-     collective bytes a rank a step and the peak memory a rank.
+     for 4 steps with an eval and a checkpoint (the whole tree, streamed to
+     rank 0 leaf by leaf), then a resumed run for 1 more. Checks the first
+     loss within 2e-3 of the single-process port's on the same records and
+     seed, the ranks' losses equal, the packed pair's exact launches a rank;
+     its "train_tp" line holds step s and tokens/s (labelled as two ranks on
+     one card), the collective bytes a rank a step and the peak memory a
+     rank;
+   - ``phase_train_vae_dp``: VAE data parallelism, after fp32 values checks
+     at vae_coco's width on 8 rows (``data:2`` on 2 ranks and
+     ``data:2,model:2`` with ``tokens_dim:model``, the codebook split, on 4,
+     each against one process: losses 1e-5, eval metrics 1e-4 relative,
+     gradients within relative L2 1e-2, measured 2.5e-3 on a conv bias; the
+     codebook split's 4 ranks at cuDNN's default, non-deterministic
+     algorithms, whose copies of the replicated convs must still end with
+     one value in each model group): configs/vae_coco.json as published
+     (batch 128, 64 rows a rank) on 2 ranks through ``train_vae.main`` for 4
+     steps with evals and checkpoints at 2 and 4, and in the same launch 2
+     steps and a resume to 4 that repeats the losses bit for bit; its
+     "train_vae_dp" line holds step s, images/s, the gradient bytes a rank a
+     step, peak memory a rank and the data-wait share;
+   - ``phase_train_12b_tp``: configs/dalle_12B.json's published
+     ``data:16,model:8`` as ``data:1,model:8`` on 8 ranks, cut to 2 of 38
+     layers, 4 rows and Adafactor, through ``train_dalle.main`` for 2 steps
+     and a checkpoint, then a resume for 1 whose restored parameters and moments
+     equal the saved ones bit for bit on every rank; the first loss within
+     2e-3 of the single-process port's on the same config, records and seed,
+     and each rank's device peak during the init within its blocks' bytes
+     and one unit of the draw; its "train_12b_tp" line
+     holds each rank's init seconds, device bytes and peak host RSS (the
+     sharded init draws only the rank's blocks), rank 0's write seconds and
+     peak host RSS, the collective bytes a rank a step and the packed pair's
+     launches (its 5 heads: two forwards and one backward a layer a
+     step).
    Then stage-1 VAE training, ``phase_train_vae`` (no TPU kernel on its
    path: cuDNN convs, cuBLAS codebook products): a small VAE's training and
    eval step on the card against the CPU in fp32 and bf16 (same weights,
@@ -192,7 +223,7 @@ Phases, none of them optional:
    two steps traced in the same loop, and a resume from step 20 that
    repeats the losses bit for bit (cuDNN's deterministic switch on); then
    the host's data (the pipeline's images a second alone and the data-wait
-   share of 40-step runs on one decode thread and on the pool, at 256² and
+   share of 20-step runs on one decode thread and on the pool, at 256² and
    at COCO sizes) and the steps run with no sync between them; its
    "train_vae" line holds step s, images/s, MFU, peak memory, the device's
    busy share and ms by bucket from the traced steps, and the data-wait
@@ -270,12 +301,13 @@ Phases, none of them optional:
    equal (6 * n_layers + 1) * chunk per chunk (chunk replays of its graph)
    plus one per admission.
 
-``chip_smoke.py --ring-worker <checks|tp_values|train> ...`` is one rank of
-the ring and tensor-parallel phases, started by them through
-``torch.distributed.run``.
+``chip_smoke.py --ring-worker <checks|tp_values|vae_values|train|train_vae>
+...`` is one rank of the ring, tensor-parallel and VAE data-parallel phases,
+started by them through ``torch.distributed.run``.
 
 Prints "kernel", "train", "memory_options_values", "loss_head",
-"loss_head_steps", "head", "train_12b", "train_tp", "train_vae",
+"loss_head_steps", "head", "train_12b", "train_tp", "train_vae_dp",
+"train_12b_tp", "train_vae",
 "train_image", "batch", "decode_profile" and "continuous_chunk" JSON lines,
 then each phase's seconds ("phase_seconds") and the whole run's against its
 1000 s budget,
@@ -389,7 +421,7 @@ TP_LAYOUT = "batch_dim:data,heads_dim:model,intermediate_expanded:model,vocab_di
 # ranks) and layout verbatim, cut to one data replica's 8 rows of the published
 # 128 (the rule phase_train_12b takes); all 12 layers
 TP_CUT = dict(train_batch_size=8, eval_batch_size=8)
-TP_STEPS, TP_RESUME_STEPS, TP_TIMED_FROM = 6, 2, 3  # steps 3..6 are timed
+TP_STEPS, TP_RESUME_STEPS, TP_TIMED_FROM = 4, 1, 3  # steps 3..4 are timed
 TP_LABEL = "2 ranks sharing one card over gloo, staged through host: not a multi-GPU number"
 TP_VALUES_LABEL = ("4 ranks sharing one card over gloo, staged through host: not a multi-GPU "
                    "number")
@@ -638,8 +670,9 @@ def phase_train_kernels(torch, attn, card):
     """The packed forward/backward pair and the [B, H, S, D] forward with
     dropout against their plain versions. Returns ({kernel name: row at the
     training shape (without dropout)}, the same at dalle_12B's microbatch:
-    B=8, H=40, S=2560, and at a tensor-parallel rank's block of dalle_coco:
-    B=8, H=4, S=1280)."""
+    B=8, H=40, S=2560, at a tensor-parallel rank's block of dalle_coco:
+    B=8, H=4, S=1280, and at a dalle_12B rank's at model:8: B=4, H=5,
+    S=2560)."""
     from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
 
     cases = [  # (name, B, H, S, D, dtype, window, dropout, plain version's timing iters)
@@ -649,6 +682,8 @@ def phase_train_kernels(torch, attn, card):
         ("dalle_12B", 8, 40, 2560, 128, torch.bfloat16, None, 0.0, 2),
         # a tensor-parallel rank of dalle_coco at model:2: 4 of the 8 heads
         ("tp_rank", 8, 4, 1280, 128, torch.bfloat16, None, 0.0, 10),
+        # a rank of dalle_12B at model:8: 5 of the 40 heads, the 12B TP run's 4 rows
+        ("tp12b_rank", 4, 5, 2560, 128, torch.bfloat16, None, 0.0, 2),
     ]
     seed = 2**31 - 7  # near the top of the range: the uint32 add wraps
     gen = torch.Generator().manual_seed(1)
@@ -715,7 +750,7 @@ def phase_train_kernels(torch, attn, card):
         }
         for row in rows.values():
             print("kernel", json.dumps(row), flush=True)
-        if name in ("train", "dalle_12B", "tp_rank"):
+        if name in ("train", "dalle_12B", "tp_rank", "tp12b_rank"):
             best[name] = rows
         del q, k, v, g, out, lse, grads, ref, ref_lse, ref_grads, sets
         torch.cuda.empty_cache()
@@ -743,7 +778,7 @@ def phase_train_kernels(torch, attn, card):
             # a window bounds the pairs, so this bound (every causal pair) is an upper one
             **attention_roofline(b, h, s, d, 4, 4, 1, 2),
         )), flush=True)
-    return best["train"], best["dalle_12B"], best["tp_rank"]
+    return best["train"], best["dalle_12B"], best["tp_rank"], best["tp12b_rank"]
 
 
 def phase_bhsd_kernels(torch, attn, card):
@@ -961,74 +996,89 @@ def phase_tile_cases(torch, attn, card):
     head_block_cases(torch, attn, card)
 
 
+HEAD_BLOCK_CASES = (  # (packed, dtype name, B, S, D, head0, heads, heads_total)
+    *((packed, dtype, 2, 320, 128, 4, 4, 8) for packed in (True, False)
+      for dtype in ("bfloat16", "float32")),
+    # a dalle_12B rank at model:8 (data:1): rank 7's 5 of the 40 heads, at
+    # the 12B TP run's 4 rows
+    (True, "bfloat16", 4, 2560, 128, 35, 5, 40),
+)
+
+
 def head_block_cases(torch, attn, card):
     """The dropout hash's head index: the packed and the [B, H, S, D] pair on
-    heads 4..7 of 8 (``head0`` 4, ``heads_total`` 8: a tensor-parallel
-    rank's block at model:2) with hash dropout 0.1, in bf16 (64-row q tile,
-    as the whole launch) and fp32, held against their plain versions with
+    a block of the heads (``head0``, ``heads_total``: a tensor-parallel
+    rank's block), HEAD_BLOCK_CASES: heads 4..7 of 8 (dalle_coco at model:2)
+    in bf16 (64-row q tile, as the whole launch) and fp32, and the packed
+    bf16 pair on heads 35..39 of 40 at B=4 S=2560 (a dalle_12B rank at
+    model:8), with hash dropout 0.1, held against their plain versions with
     the same arguments (atol 1e-2 bf16, 1e-5 fp32, x max(1, |plain|); lse
-    1e-4) and against the heads 4..7 of one launch over all 8 heads, out,
+    1e-4) and against those heads of one launch over all the heads, out,
     lse, dq, dk, dv bit for bit. The block launched with the defaults
     (head0 0) must draw another mask."""
     from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
 
-    seed, rate, h0, total, b, s, d = RING_SEED, 0.1, 4, 8, 2, 320, 128
+    seed, rate = RING_SEED, 0.1
     gen = torch.Generator().manual_seed(13)
-    for packed in (True, False):
-        for dtype in (torch.bfloat16, torch.float32):
-            tile = 64 if dtype == torch.bfloat16 else None
-            atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for packed, dtype_name, b, s, d, h0, heads, total in HEAD_BLOCK_CASES:
+        dtype = getattr(torch, dtype_name)
+        tile = 64 if dtype == torch.bfloat16 else None
+        atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
 
-            def run(tensors, heads, head0=0, heads_total=None):
-                """(out, dq, dk, dv) as [B, H, S, D] and the lse of one launch
-                pair on ``tensors`` (q, k, v, g [B, H, S, D])."""
-                if packed:
-                    pq, pk, pv, pg = (ap._pack(t).contiguous() for t in tensors)
-                    out, lse = ap._forward(pq, pk, pv, heads, None, rate, seed, tile, head0,
-                                           heads_total)
-                    grads = ap._backward(pq, pk, pv, out, lse, pg, heads, None, rate, seed,
-                                         head0, heads_total)
-                    return [ap._unpack(t, heads) for t in (out, *grads)], lse
-                q, k, v, g = tensors
-                out, lse = attn._forward(q, k, v, None, rate, seed, True, tile, head0,
-                                         heads_total)
-                grads = attn._backward(q, k, v, out, lse, g, None, rate, seed, head0,
+        def run(tensors, n, head0=0, heads_total=None):
+            """(out, dq, dk, dv) as [B, H, S, D] and the lse of one launch
+            pair on ``tensors`` (q, k, v, g [B, H, S, D]) of ``n`` heads."""
+            if packed:
+                pq, pk, pv, pg = (ap._pack(t).contiguous() for t in tensors)
+                out, lse = ap._forward(pq, pk, pv, n, None, rate, seed, tile, head0,
                                        heads_total)
-                return [out, *grads], lse
+                grads = ap._backward(pq, pk, pv, out, lse, pg, n, None, rate, seed,
+                                     head0, heads_total)
+                return [ap._unpack(t, n) for t in (out, *grads)], lse
+            q, k, v, g = tensors
+            out, lse = attn._forward(q, k, v, None, rate, seed, True, tile, head0,
+                                     heads_total)
+            grads = attn._backward(q, k, v, out, lse, g, None, rate, seed, head0,
+                                   heads_total)
+            return [out, *grads], lse
 
-            whole_in = [(torch.rand((b, total, s, d), generator=gen) * 2 - 1).to("cuda", dtype)
-                        for _ in range(4)]
-            block_in = [t[:, h0:].contiguous() for t in whole_in]
-            whole, whole_lse = run(whole_in, total)
-            block, block_lse = run(block_in, total - h0, h0, total)
-            default = run(block_in, total - h0)[0][0]
-            torch.cuda.synchronize()
-            bit_equal = all(torch.equal(p, w[:, h0:]) for p, w in zip(block, whole)) and \
-                torch.equal(block_lse, whole_lse.reshape(b, total, s)[:, h0:].reshape(-1, s))
-            ref, ref_lse = attn.attention_reference(*block_in[:3], True, None, True, rate, seed,
-                                                    h0, total)
-            ref_grads = attn.attention_backward_reference(
-                *block_in[:3], block[0].contiguous(), block_lse, block_in[3], None, rate, seed,
-                h0, total)
-            errs = {n: max_err(t, r) for n, t, r in zip(("out", "dq", "dk", "dv"), block,
-                                                         (ref, *ref_grads))}
-            lse_err = (block_lse - ref_lse).abs().max().item()
-            bad = {n: e for n, (e, scale) in errs.items() if not e <= atol * scale}
-            other_mask = not torch.equal(default, block[0])
-            name = f"head_block_{'packed' if packed else 'bhsd'}_{str(dtype)[6:]}"
-            if bad or not lse_err <= 1e-4 or not bit_equal or not other_mask:
-                raise AssertionError(
-                    f"{name}: heads {h0}..{total - 1} of {total} with dropout {rate}: against "
-                    f"the plain versions {bad} (atol {atol}), lse err {lse_err}; bit-equal to "
-                    f"the 8-head launch's heads: {bit_equal}; the default head0 draws another "
-                    f"mask: {other_mask}; all {errs}")
-            print("kernel", json.dumps(dict(
-                card=card, kernel="causal_attention_packed" if packed else "causal_attention",
-                shape=name, B=b, H=total - h0, head0=h0, heads_total=total, S=s, D=d,
-                dtype=str(dtype), dropout=rate, tile_rows=tile, atol=atol, lse_err=lse_err,
-                errs={n: e for n, (e, _) in errs.items()},
-                bit_equal_to_whole_launch_heads=bit_equal,
-                default_head0_draws_another_mask=other_mask)), flush=True)
+        whole_in = [(torch.rand((b, total, s, d), generator=gen) * 2 - 1).to("cuda", dtype)
+                    for _ in range(4)]
+        block_in = [t[:, h0:h0 + heads].contiguous() for t in whole_in]
+        whole, whole_lse = run(whole_in, total)
+        block, block_lse = run(block_in, heads, h0, total)
+        default = run(block_in, heads)[0][0]
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(p, w[:, h0:h0 + heads]) for p, w in zip(block, whole)) \
+            and torch.equal(block_lse, whole_lse.reshape(b, total, s)[:, h0:h0 + heads]
+                            .reshape(-1, s))
+        del whole, whole_lse, whole_in
+        ref, ref_lse = attn.attention_reference(*block_in[:3], True, None, True, rate, seed,
+                                                h0, total)
+        ref_grads = attn.attention_backward_reference(
+            *block_in[:3], block[0].contiguous(), block_lse, block_in[3], None, rate, seed,
+            h0, total)
+        errs = {n: max_err(t, r) for n, t, r in zip(("out", "dq", "dk", "dv"), block,
+                                                     (ref, *ref_grads))}
+        lse_err = (block_lse - ref_lse).abs().max().item()
+        bad = {n: e for n, (e, scale) in errs.items() if not e <= atol * scale}
+        other_mask = not torch.equal(default, block[0])
+        name = f"head_block_{'packed' if packed else 'bhsd'}_{dtype_name}_{h0}_of_{total}"
+        if bad or not lse_err <= 1e-4 or not bit_equal or not other_mask:
+            raise AssertionError(
+                f"{name}: heads {h0}..{h0 + heads - 1} of {total} with dropout {rate}: "
+                f"against the plain versions {bad} (atol {atol}), lse err {lse_err}; "
+                f"bit-equal to the {total}-head launch's heads: {bit_equal}; the default "
+                f"head0 draws another mask: {other_mask}; all {errs}")
+        print("kernel", json.dumps(dict(
+            card=card, kernel="causal_attention_packed" if packed else "causal_attention",
+            shape=name, B=b, H=heads, head0=h0, heads_total=total, S=s, D=d,
+            dtype=str(dtype), dropout=rate, tile_rows=tile, atol=atol, lse_err=lse_err,
+            errs={n: e for n, (e, _) in errs.items()},
+            bit_equal_to_whole_launch_heads=bit_equal,
+            default_head0_draws_another_mask=other_mask)), flush=True)
+        del block, block_lse, block_in, default, ref, ref_lse, ref_grads
+        torch.cuda.empty_cache()
 
 
 def phase_ln_kernels(torch, lnm, card):
@@ -1244,8 +1294,9 @@ def train_config(tmp: str, train_steps: int, name: str = TRAIN_CONFIG,
     cfg.update(
         dataset={**cfg["dataset"], "train_path": pattern, "eval_path": pattern, "tokens": True},
         train_steps=train_steps, steps_per_checkpoint=checkpoint_every, eval_steps=1,
-        log_every=1, max_to_keep=max_to_keep, model_path=os.path.join(tmp, "run"), **extra,
+        log_every=1, max_to_keep=max_to_keep, model_path=os.path.join(tmp, "run"),
     )
+    cfg.update(extra)
     path = os.path.join(tmp, f"{name}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
@@ -1505,11 +1556,11 @@ def phase_train_long(torch, attn, lnm, card, kernel_rows):
 
 
 TWELVE_B_CONFIG = "dalle_12B"
-# dalle_12B at full width cut to fit one card and the time limit: 4 of 38
+# dalle_12B at full width cut to fit one card and the time limit: 1 of 38
 # layers, one data replica's 32 rows of the published 512 (data:16), so
 # tokens_per_mb_per_replica 20480 still gives the published 4 microbatches of
 # 8 rows; no tensor parallelism (model:8 and its layout rules dropped)
-TWELVE_B_CUT = dict(n_layers=4, mesh_shape="data:1", layout="batch_dim:data",
+TWELVE_B_CUT = dict(n_layers=1, mesh_shape="data:1", layout="batch_dim:data",
                     train_batch_size=32, eval_batch_size=8)
 TWELVE_B_STEPS, TWELVE_B_TIMED_FROM = 3, 2  # steps 2..3 timed
 LEAN = dict(fused_xent=True, optimizer="adafactor", skip_nonfinite_updates=3)
@@ -2340,18 +2391,76 @@ def phase_ring_attention(torch, attn, card):
     return dict(**result, launches=launches, attention=report)
 
 
-def worker_train(torch, out_dir, argv):
-    """One rank of phase_train_ring and phase_train_tp: ``train_dalle.main``
-    on each of its argvs (separated by ``--then``: a resume runs in the same
-    process group), the kernel counts and the peak memory reset just before
-    each; writes what the rank saw in run i to <out_dir>/rank<r>_<i>.json
-    (history, launches, staged bytes, the bytes its collectives moved in each
-    training step, peak memory and a checksum of its parameters)."""
+# set in the environment of the ranks whose digests include the AdamW moments
+DIGEST_MOMENTS = "CHIP_SMOKE_DIGEST_MOMENTS"
+
+
+class PeakRSS:
+    """The peak resident set size of this process over a ``with`` block,
+    read every 5 ms from /proc/self/statm (``before``, ``peak``: bytes)."""
+
+    def __init__(self):
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.before = self.peak = 0
+        self._stop = threading.Event()
+
+    def rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _watch(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self.rss())
+
+    def __enter__(self):
+        self.before = self.peak = self.rss()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
+
+
+def state_digest(torch, state, moments: bool = False) -> str:
+    """sha256 of a rank's parameters (its blocks) and, with ``moments``, its
+    AdamW or Adafactor moments."""
     import hashlib  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+
+    digest = hashlib.sha256()
+    tensors = [t for _, t in named_leaves(state["params"])]
+    if moments:
+        opt = state["opt"].state_dict()
+        opt = opt.get("inner", opt)
+        for st in opt.get("adamw", {}).get("state", {}).values():
+            tensors += [st["exp_avg"], st["exp_avg_sq"]]
+        tensors += list(opt.get("adafactor", {}).values())
+    for t in tensors:
+        digest.update(t.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
+    """One rank of phase_train_ring, phase_train_tp, phase_train_12b_tp
+    (``train_dalle.main``) and phase_train_vae_dp (``cli`` "train_vae",
+    cuDNN deterministic; ``--values <mesh_shape> <layout>`` first runs
+    ``vae_values_rank``): the CLI on each of its argvs (separated by
+    ``--then``: a resume runs in the same process group), the kernel counts
+    and the peak memory reset just before each; writes what the rank saw in run i to
+    <out_dir>/rank<r>_<i>.json (history, launches, staged bytes, the bytes
+    its collectives moved in each training step, peak memory, a checksum of
+    its parameters and moments at the end and just after a restore, the
+    seconds and host memory of the model's init and of each checkpoint
+    save, the training stream's waits)."""
+    import importlib  # noqa: PLC0415
 
     import torch.distributed as dist  # noqa: PLC0415
 
-    from dalle_mtf_tpu_torch import train_dalle  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import ring_attention as ring  # noqa: PLC0415
@@ -2360,9 +2469,11 @@ def worker_train(torch, out_dir, argv):
     from dalle_mtf_tpu_torch.train.trainer import Trainer  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.distributed import init_distributed  # noqa: PLC0415
 
+    module = importlib.import_module(f"dalle_mtf_tpu_torch.{cli}")
     rank = int(os.environ["RANK"])
-    step_bytes = []
-    train_step = Trainer.train_step
+    with_moments = bool(os.environ.get(DIGEST_MOMENTS))
+    step_bytes, events, streams = [], {}, []
+    train_step, save, restore, init = Trainer.train_step, Trainer.save, Trainer.restore, DALLE.init
 
     def counted(self, *args, **kw):  # the collectives' bytes of one training step
         before = COLLECTIVES["bytes"]
@@ -2370,25 +2481,76 @@ def worker_train(torch, out_dir, argv):
         step_bytes.append(COLLECTIVES["bytes"] - before)
         return out
 
-    Trainer.train_step = counted
+    def timed_init(self, generator):
+        torch.cuda.synchronize()
+        dev0 = torch.cuda.memory_allocated(0)
+        torch.cuda.reset_peak_memory_stats(0)
+        t0 = time.perf_counter()
+        with PeakRSS() as rss:
+            tree = init(self, generator)
+            torch.cuda.synchronize()
+        leaves = [t for _, t in named_leaves(tree)]
+        events["init"] = dict(s=time.perf_counter() - t0, drawn_elements=self.drawn_elements,
+                              block_bytes=sum(t.numel() * t.element_size() for t in leaves),
+                              leaves=len(leaves),
+                              device_bytes=torch.cuda.memory_allocated(0) - dev0,
+                              device_peak_bytes=torch.cuda.max_memory_allocated(0) - dev0,
+                              host_rss_before=rss.before, host_rss_peak=rss.peak)
+        return tree
+
+    def timed_save(self, state, step=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with PeakRSS() as rss:
+            save(self, state, step)
+        events.setdefault("saves", []).append(dict(
+            step=state["step"] if step is None else step, s=time.perf_counter() - t0,
+            host_rss_before=rss.before, host_rss_peak=rss.peak))
+
+    def digest_restore(self, state):
+        out = restore(self, state)
+        if self.checkpoint_steps():
+            events["restored"] = dict(step=out["step"], restored_bytes=self.restored_bytes,
+                                      digest=state_digest(torch, out, with_moments))
+        return out
+
+    Trainer.train_step, Trainer.save, Trainer.restore = counted, timed_save, digest_restore
+    DALLE.init = timed_init
+    if cli == "train_vae":
+        make_pipeline = module.vae_input_fn
+
+        def timed_train_stream(params, eval=False, **kw):
+            pipeline = make_pipeline(params, eval=eval, **kw)
+            if eval or "skip_steps" not in kw:  # the eval and the summary pipelines
+                return pipeline
+            streams.append(TimedBatches(pipeline))
+            return streams[-1]
+
+        module.vae_input_fn = timed_train_stream
+    values = None
+    if argv[:1] == ["--values"]:  # the VAE values check first, in the same group
+        values, argv = argv[1:3], argv[3:]
     runs = [list(g) for sep, g in itertools.groupby(argv, lambda a: a == "--then") if not sep]
     # one process group for every run (``main`` reuses a group that is up): a
     # group destroyed and made again in one process meets the first group's
     # keys in the launcher's store
-    init_distributed(["0"], "cuda")
+    proc = init_distributed(["0"], "cuda")
     try:
+        if cli == "train_vae":  # as phase_train_vae: no run-dependent sum order
+            torch.backends.cudnn.deterministic = True
+        if values:
+            vae_values_rank(torch, proc, out_dir, *values)
         for i, run_argv in enumerate(runs):
             reset_counts(attn, lnm, ring)
             ring.STAGED_BYTES["ring_shift"] = 0
             step_bytes.clear()
+            events.clear()
+            streams.clear()
             torch.cuda.reset_peak_memory_stats(0)
             t0 = time.perf_counter()
-            run = train_dalle.main(run_argv)
+            run = module.main(run_argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            digest = hashlib.sha256()
-            for _, t in named_leaves(run.state["params"]):
-                digest.update(t.detach().cpu().numpy().tobytes())
             with open(os.path.join(out_dir, f"rank{rank}_{i}.json"), "w") as f:
                 json.dump(dict(rank=rank, history=run.history, eval_history=run.eval_history,
                                checkpoints=run.checkpoint_steps(), wall_s=wall,
@@ -2397,7 +2559,11 @@ def worker_train(torch, out_dir, argv):
                                staged_bytes=ring.STAGED_BYTES["ring_shift"],
                                collective_bytes_per_step=list(step_bytes),
                                peak_mem_gb=torch.cuda.max_memory_allocated(0) / 1e9,
-                               params_sha256=digest.hexdigest()), f)
+                               params_sha256=state_digest(torch, run.state),
+                               state_sha256=state_digest(torch, run.state, True)
+                               if with_moments else None,
+                               data_waits=streams[-1].waits if streams else None,
+                               **events), f)
             del run
             gc.collect()
             torch.cuda.empty_cache()
@@ -2405,21 +2571,31 @@ def worker_train(torch, out_dir, argv):
         dist.destroy_process_group()
 
 
-def train_ranks(torch, path, steps, evals, cfg, new: bool) -> list[dict]:
-    """The ring run's ranks through ``train_dalle.main``; checks what every
-    rank logged and launched and that their parameters are bit-equal.
-    Returns the ranks' reports in rank order."""
+def train_ranks(torch, runs, evals, cfg) -> list[list[dict]]:
+    """The ring run's ranks through ``train_dalle.main``, one launch for all
+    of ``runs`` ((config path, steps, new); a resume in the same process
+    group); checks what every rank logged and launched in each and that
+    their parameters are bit-equal. Returns each run's reports in rank
+    order."""
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_ring_train_")
     try:
-        argv = ["--model", path, "--gpu_ids", "0"] + (["--new", "--yes"] if new else [])
+        argv = []
+        for path, _, new in runs:
+            argv += (["--then"] if argv else []) + ["--model", path, "--gpu_ids", "0"] + (
+                ["--new", "--yes"] if new else [])
         run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "train", out_dir,
                    *argv], 900)
-        ranks = []
-        for r in range(RING_RANKS):
-            with open(os.path.join(out_dir, f"rank{r}_0.json")) as f:
-                ranks.append(json.load(f))
+        reports = [[rank_report(out_dir, r, i) for r in range(RING_RANKS)]
+                   for i in range(len(runs))]
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    for (_, steps, _), ranks in zip(runs, reports):
+        check_ring_ranks(ranks, steps, evals, cfg)
+    return reports
+
+
+def check_ring_ranks(ranks, steps, evals, cfg) -> None:
+    """One ring run's checks on its ranks' reports."""
     first = ranks[0]["history"][0]["step"]
     for r in ranks:
         if [h["step"] for h in r["history"]] != list(range(first, first + steps)):
@@ -2444,32 +2620,44 @@ def train_ranks(torch, path, steps, evals, cfg, new: bool) -> list[dict]:
             raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected {want}")
     if len({r["params_sha256"] for r in ranks}) != 1:
         raise AssertionError(f"the ranks' parameters differ: {[r['params_sha256'] for r in ranks]}")
-    return ranks
 
 
-def phase_train_ring(torch, card, long_first_loss):
+RING_LAYERS = 2  # of dalle_4k's 12: the ring run's depth
+
+
+def phase_train_ring(torch, card):
     """The sequence-parallel main path: a tokens-mode copy of
-    configs/dalle_4k.json at full width and depth (as phase_train_long, the
-    same dataset and seed) with ``attention_type: "ring"``, ``mesh_shape:
+    configs/dalle_4k.json at full width (as phase_train_long, the same
+    dataset and seed) with ``attention_type: "ring"``, ``mesh_shape:
     data:1,seq:4`` and ``layout: batch_dim:data,total_seq_dim:seq``, through
     ``torch.distributed.run`` of four ranks sharing the card and
     ``train_dalle.main`` for RING_STEPS steps with an eval and a checkpoint,
-    then a resumed run for RING_RESUME_STEPS more. Returns the ring kernels'
-    launches over the four ranks of the first run, and per rank."""
+    then, in the same launch, a resumed run for RING_RESUME_STEPS more, cut
+    to RING_LAYERS layers;
+    its first loss against the single-process port's on the same records
+    and seed. Returns the ring kernels' launches over the four ranks of the
+    first run, and per rank."""
     from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ring_run_")
     try:
         extra = dict(attn_packed=False, ln_impl="pallas", attention_type="ring",
-                     mesh_shape=RING_MESH, layout=RING_LAYOUT)
+                     mesh_shape=RING_MESH, layout=RING_LAYOUT, n_layers=RING_LAYERS)
         dalle, _ = make_dalle_models({**fetch_model_params(LONG_CONFIG), **extra}, "cpu")
         cfg = dalle.cfg
         write_tokens_dataset(os.path.join(tmp, "data"), 1, cfg.image_seq_len,
                              cfg.image_vocab_size, files=2, per_file=24)
         path = train_config(tmp, RING_STEPS, LONG_CONFIG, RING_STEPS, **extra)
+        long_first_loss = single_first_loss(torch, path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        first = shutil.copy(path, os.path.join(tmp, "first.json"))
+        resume = train_config(tmp, RING_STEPS + RING_RESUME_STEPS, LONG_CONFIG, RING_STEPS,
+                              **extra)
         t0 = time.perf_counter()
-        ranks = train_ranks(torch, path, RING_STEPS, 1, cfg, new=True)
+        ranks, resumed = train_ranks(torch, [(first, RING_STEPS, True),
+                                             (resume, RING_RESUME_STEPS, False)], 1, cfg)
         wall = time.perf_counter() - t0
         hist = ranks[0]["history"]
         losses = [h["loss"] for h in hist]
@@ -2477,14 +2665,12 @@ def phase_train_ring(torch, card, long_first_loss):
         if abs(losses[0] - init_loss) > 0.1 or abs(losses[0] - long_first_loss) > 2e-3:
             raise AssertionError(f"first loss {losses[0]} vs ln(vocab) + var/2 = {init_loss} "
                                  f"and the single-process run's {long_first_loss} (atol 2e-3)")
-        path = train_config(tmp, RING_STEPS + RING_RESUME_STEPS, LONG_CONFIG, RING_STEPS, **extra)
-        resumed = train_ranks(torch, path, RING_RESUME_STEPS, 1, cfg, new=False)
         step_s = [1.0 / h["steps_per_sec"] for h in hist[LONG_TIMED_FROM - 1:]]
         med = statistics.median(step_s)
         tokens_per_step = cfg.total_seq_len * fetch_model_params(path)["train_batch_size"]
         staged = [r["staged_bytes"] for r in ranks]
-        print(f"train ring {LONG_CONFIG}: {RING_STEPS} steps + eval + checkpoint in "
-              f"{wall:.1f}s (4 ranks); losses {[round(x, 4) for x in losses]} (the single-"
+        print(f"train ring {LONG_CONFIG}: {RING_STEPS} steps + eval + checkpoint and a resume "
+              f"in {wall:.1f}s (4 ranks, one launch); losses {[round(x, 4) for x in losses]} (the single-"
               f"process run's first {long_first_loss:.4f}); resumed at step {RING_STEPS}: "
               f"{[round(h['loss'], 4) for h in resumed[0]['history']]}; parameters bit-equal "
               f"over the ranks; launches per rank {[r['launches'] for r in ranks]}", flush=True)
@@ -2686,7 +2872,7 @@ def phase_tp_values(torch, attn, card) -> dict:
     return report
 
 
-def tp_first_loss(torch, path) -> float:
+def single_first_loss(torch, path) -> float:
     """The single-process port's first training loss on the records and
     seed of the config at ``path``: its Trainer's init and first batch."""
     import numpy as np  # noqa: PLC0415
@@ -2784,7 +2970,7 @@ def phase_train_tp(torch, card) -> list[dict]:
         path = shutil.copy(train_config(tmp, TP_STEPS, TP_CONFIG, TP_STEPS, **TP_CUT),
                            os.path.join(tmp, "first.json"))
         resume = train_config(tmp, TP_STEPS + TP_RESUME_STEPS, TP_CONFIG, TP_STEPS, **TP_CUT)
-        single = tp_first_loss(torch, path)
+        single = single_first_loss(torch, path)
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2836,6 +3022,458 @@ def phase_train_tp(torch, card) -> list[dict]:
                                                 "causal_attention_packed_bwd")} for r in ranks]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ----------------------------------- VAE data parallelism and 12B's model:8
+
+VAE_DP_CONFIG = "vae_coco"
+VAE_DP_RANKS, VAE_DP_CODEBOOK_RANKS = 2, 4
+VAE_DP_STEPS, VAE_DP_SPLIT, VAE_DP_TIMED_FROM = 4, 2, 2  # steps 2..4 of the unbroken run timed
+VAE_DP_LABEL = TP_LABEL
+VAE_DP_CODEBOOK_LABEL = TP_VALUES_LABEL
+# the values check: the published width in fp32, 8 rows, 2 steps; data:2 on
+# 2 ranks and the codebook split on 4, each against one process
+VAE_DP_VALUES_ROWS, VAE_DP_VALUES_STEPS = 8, 2
+VAE_DP_VALUES = (("data:2", "batch_dim:data"),
+                 ("data:2,model:2", "batch_dim:data,tokens_dim:model"))
+# the same arithmetic in another order (cuDNN takes its algorithm by the batch
+# it is given; relu gates at 0 move a bias gradient): losses and metrics
+# relative 1e-5 and 1e-4, each gradient within relative L2 1e-2, the bound of
+# every values check on the card (``compare_values``)
+VAE_DP_TOL = dict(loss=1e-5, grad_rel_l2=1e-2, metric=1e-4)
+
+
+def vae_values_run(torch, params, mesh, tree, images) -> dict:
+    """VAE_DP_VALUES_STEPS ``Trainer.train_step``s of the VAE task on
+    ``mesh`` (None: one process) from the whole ``tree`` on this rank's rows
+    of ``images`` (on the host: the trainer moves them), then
+    ``Trainer.eval_step``: the losses, the last step's
+    gradients (whole: a split codebook gathered), the eval metrics. The
+    Gumbel draw is the trainer's own, keyed on the global rows, so every
+    layout draws one process's noise. ``replicated_sha256``: the digest of
+    the replicated leaves (every leaf but a split codebook) after the
+    steps."""
+    from dalle_mtf_tpu_torch.parallel.tensor import gather  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import get_optimizer, named_leaves  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_vae_task  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.trainer import Trainer, step_generator  # noqa: PLC0415
+
+    vae, init_fn, loss_fn, eval_fn = make_vae_task(params, "cuda", mesh)
+    sharding = vae.sharding
+    tree = _to(sharding.shard_tree(tree) if sharding else tree, "cuda")
+    tree = {k: (v.contiguous() if k == "codebook" else v) for k, v in tree.items()}
+    for _, t in named_leaves(tree):
+        t.requires_grad_(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vae_values_")
+    try:
+        trainer = Trainer(params, init_fn, loss_fn, tmp, vae.cfg.image_seq_len, "cuda",
+                          eval_loss_fn=eval_fn, mesh=mesh, sharding=sharding)
+        opt, trainer.schedule = get_optimizer(params, tree, sharding)
+        state = {"step": 0, "params": tree, "opt": opt}
+        n, i = (mesh.size("data"), mesh.index("data")) if mesh else (1, 0)
+        rows = images.shape[0] // n
+        batch = {"image": images[i * rows:(i + 1) * rows]}
+        losses = []
+        for step in range(VAE_DP_VALUES_STEPS):
+            state, metrics = trainer.train_step(state, batch, step_generator(0, 1, step))
+            losses.append(float(metrics["loss"]))
+        grads = {"/".join(p): gather(t.grad, sharding.of(p) if sharding else None,
+                                     sharding.group if sharding else None).cpu()
+                 for p, t in named_leaves(tree)}
+        metrics = trainer.eval_step(state, batch, step_generator(0, 2, 0))
+        trainer.close()
+        replicated = {"params": {"/".join(p): t for p, t in named_leaves(tree)
+                                 if sharding is None or sharding.of(p) is None}}
+        return dict(losses=losses, grads=grads, eval={k: float(v) for k, v in metrics.items()},
+                    replicated_sha256=state_digest(torch, replicated))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def vae_values_rank(torch, proc, out_dir, mesh_shape: str, layout: str) -> None:
+    """One rank of phase_train_vae_dp's values check, in the process group
+    that is up: ``vae_values_run`` on ``mesh_shape`` and ``layout`` from
+    <out_dir>/inputs.pt (fp32: TF32 off); rank 0 writes <out_dir>/values.pt
+    with every rank's model-group ranks (``Mesh.copy_ranks``) and digest of
+    its replicated leaves, and whether cuDNN ran deterministic."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.parallel.mesh import build_mesh  # noqa: PLC0415
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    mesh = build_mesh(mesh_shape, layout, "global", proc.rank, proc.world)
+    res = vae_values_run(torch, inputs["params"], mesh, inputs["tree"], inputs["images"])
+    copies = [None] * proc.world
+    dist.all_gather_object(copies, (mesh.copy_ranks, res["replicated_sha256"]))
+    if proc.rank == 0:
+        torch.save(dict(res, replicas=mesh.replicas, tp_axis=mesh.tp_axis, copies=copies,
+                        cudnn_deterministic=torch.backends.cudnn.deterministic),
+                   os.path.join(out_dir, "values.pt"))
+    dist.barrier()
+
+
+def worker_vae_values(torch, out_dir, argv):
+    """``--ring-worker vae_values <out_dir> <mesh_shape> <layout>``:
+    ``vae_values_rank`` in a process group of its own, cuDNN at its default
+    (non-deterministic algorithms allowed): the ranks of a model group
+    compute the replicated convs' gradients each on its own, and the
+    trainer must still leave them one value."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.utils.distributed import init_distributed  # noqa: PLC0415
+
+    proc = init_distributed(["0"], "cuda")
+    try:
+        vae_values_rank(torch, proc, out_dir, argv[0], argv[1])
+    finally:
+        dist.destroy_process_group()
+
+
+def vae_values_errors(got: dict, want: dict) -> dict:
+    """The ranks' values against one process's: the worst relative error
+    of the losses and the eval metrics, and the worst relative L2 error of
+    a gradient leaf (with its name)."""
+    loss = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got["losses"], want["losses"]))
+    metric = max((abs(got["eval"][k] - v) / max(abs(v), 1e-30), k)
+                 for k, v in want["eval"].items())
+    grad = max((((got["grads"][n] - w).norm() / w.norm().clamp_min(1e-30)).item(), n)
+               for n, w in want["grads"].items())
+    return dict(loss=loss, metric=metric, grad_rel_l2=grad)
+
+
+def rank_report(out_dir: str, rank: int, run: int) -> dict:
+    """What ``worker_train`` wrote for ``rank`` in run ``run``."""
+    with open(os.path.join(out_dir, f"rank{rank}_{run}.json")) as f:
+        return json.load(f)
+
+
+def vae_dp_config(tmp: str, pattern: str, run: str, train_steps: int, **over) -> str:
+    """A copy of configs/vae_coco.json as published (width, bf16,
+    recompute_grad, batch 128) over ``pattern``, ``train_steps`` steps with
+    a checkpoint and an eval every VAE_DP_SPLIT, every step logged, in
+    ``tmp/<run>``; the learning rate decays over VAE_DP_STEPS whatever
+    ``train_steps`` is (its default end), so a shorter run and its resume
+    follow the unbroken run's schedule."""
+    from dalle_mtf_tpu_torch.utils.config import _resolve_config_path  # noqa: PLC0415
+
+    with open(_resolve_config_path(VAE_DP_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(dataset={**cfg["dataset"], "train_path": pattern, "eval_path": pattern},
+               train_steps=train_steps, steps_per_checkpoint=VAE_DP_SPLIT, eval_steps=1,
+               log_every=1, max_to_keep=2, model_path=os.path.join(tmp, run),
+               lr_decay_end=VAE_DP_STEPS, **over)
+    path = os.path.join(tmp, f"{run}_{train_steps}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def phase_train_vae_dp(torch, card) -> dict:
+    """VAE data parallelism: configs/vae_coco.json as published (256 px,
+    convblocks [[2,128],[3,256],[5,512]], 2048 tokens, bf16, recompute_grad,
+    batch 128; no mesh_shape, so its data axis takes every rank) on the
+    seeded JPEG tfrecords phase_train_vae writes, through
+    ``torch.distributed.run`` of VAE_DP_RANKS ranks sharing the card (64 rows
+    a rank) and ``train_vae.main``: VAE_DP_STEPS steps with an eval and a
+    checkpoint every VAE_DP_SPLIT, then in the same launch a run of
+    VAE_DP_SPLIT steps and its resume to VAE_DP_STEPS, whose losses must
+    equal the unbroken run's bit for bit (cuDNN deterministic). Before it,
+    the values check in fp32 at the published width: ``data:2`` on 2 ranks
+    and ``data:2,model:2`` with ``tokens_dim:model`` on 4, each against one
+    process on the same 8 rows (VAE_DP_TOL). Prints the "train_vae_dp"
+    line: step s, images/s, the gradient bytes a rank a step, peak GB a
+    rank, the data-wait share."""
+    from dalle_mtf_tpu_torch.models.vae import VAEConfig  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_vae_task  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vae_dp_")
+    try:
+        published = fetch_model_params(VAE_DP_CONFIG)
+        cfg = VAEConfig.from_params(published)
+        # the values check: fp32, one process here, the layouts on their ranks
+        fp32 = {**published, "use_bf16": False}
+        vae, init_fn, _, _ = make_vae_task(fp32, "cpu")
+        n_params = sum(math.prod(s) for _, s in _shape_leaves(vae.param_shapes()))
+        tree = init_fn(torch.Generator().manual_seed(5))
+        images = torch.rand((VAE_DP_VALUES_ROWS, cfg.image_size, cfg.image_size, 3),
+                            generator=torch.Generator().manual_seed(6)) * 2 - 1
+        torch.save(dict(params=fp32, tree=tree, images=images), os.path.join(tmp, "inputs.pt"))
+        one = vae_values_run(torch, fp32, None, tree, images)
+        del vae, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def check_values(shape, layout, ranks):
+            got = torch.load(os.path.join(tmp, "values.pt"), weights_only=False)
+            errs = vae_values_errors(got, one)
+            groups = {tuple(g) for g, _ in got["copies"] if g}
+            values[shape] = dict(layout=layout, ranks=ranks, replicas=got["replicas"],
+                                 tp_axis=got["tp_axis"], losses=got["losses"],
+                                 one_process_losses=one["losses"], eval=got["eval"],
+                                 one_process_eval=one["eval"], errors=errs,
+                                 cudnn_deterministic=got["cudnn_deterministic"],
+                                 model_groups=sorted(groups),
+                                 replicated_sha256=[d for _, d in got["copies"]])
+            for g in groups:
+                if len({got["copies"][r][1] for r in g}) != 1:
+                    raise AssertionError(f"VAE {shape} ({layout}): the copies of the replicated "
+                                         f"leaves differ in model group {g}: {got['copies']}")
+            if not (errs["loss"] <= VAE_DP_TOL["loss"] and errs["metric"][0] <= VAE_DP_TOL["metric"]
+                    and errs["grad_rel_l2"][0] <= VAE_DP_TOL["grad_rel_l2"]):
+                raise AssertionError(f"VAE {shape} ({layout}) against one process: {errs}, "
+                                     f"tolerances {VAE_DP_TOL}")
+
+        values = {}
+        (dp_shape, dp_layout), (cb_shape, cb_layout) = VAE_DP_VALUES
+        run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "vae_values", tmp,
+                   cb_shape, cb_layout], 600, VAE_DP_CODEBOOK_RANKS)
+        check_values(cb_shape, cb_layout, VAE_DP_CODEBOOK_RANKS)
+
+        pattern = write_image_dataset(os.path.join(tmp, "data"), 3,
+                                      [(cfg.image_size, cfg.image_size)])
+        runs = [vae_dp_config(tmp, pattern, "unbroken", VAE_DP_STEPS),
+                vae_dp_config(tmp, pattern, "split", VAE_DP_SPLIT),
+                vae_dp_config(tmp, pattern, "split", VAE_DP_STEPS)]
+        argv = []
+        for i, path in enumerate(runs):
+            argv += (["--then"] if argv else []) + ["--model", path, "--gpu_ids", "0"] + (
+                ["--new", "--yes"] if i < 2 else [])
+        # the data:2 values check first, in the training launch's group
+        t0 = time.perf_counter()
+        run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "train_vae", tmp,
+                   "--values", dp_shape, dp_layout, *argv], 900, VAE_DP_RANKS)
+        wall = time.perf_counter() - t0
+        check_values(dp_shape, dp_layout, VAE_DP_RANKS)
+        print(f"train_vae_dp values (fp32, {VAE_DP_VALUES_ROWS} rows, {VAE_DP_VALUES_STEPS} "
+              f"steps + eval): {json.dumps(values)}", flush=True)
+        out_dir = tmp
+        reports = [[rank_report(out_dir, r, i) for r in range(VAE_DP_RANKS)]
+                   for i in range(len(runs))]
+        unbroken, split, resumed = reports
+        for ranks, steps in ((unbroken, range(1, VAE_DP_STEPS + 1)),
+                             (split, range(1, VAE_DP_SPLIT + 1)),
+                             (resumed, range(VAE_DP_SPLIT + 1, VAE_DP_STEPS + 1))):
+            for r in ranks:
+                if [h["step"] for h in r["history"]] != list(steps):
+                    raise AssertionError(f"rank {r['rank']} logged {r['history']}")
+                if [h["loss"] for h in r["history"]] != [h["loss"] for h in ranks[0]["history"]]:
+                    raise AssertionError("the ranks logged different losses")
+                if not all(math.isfinite(h["loss"]) for h in r["history"]):
+                    raise AssertionError(f"non-finite loss: {r['history']}")
+        losses = [h["loss"] for h in unbroken[0]["history"]]
+        again = [h["loss"] for h in split[0]["history"] + resumed[0]["history"]]
+        if again != losses:
+            raise AssertionError(f"the resume does not repeat the unbroken run bit for bit: "
+                                 f"{again} vs {losses}")
+        evals = unbroken[0]["eval_history"]
+        if [e["step"] for e in evals] != list(range(VAE_DP_SPLIT, VAE_DP_STEPS + 1,
+                                                     VAE_DP_SPLIT)) or not all(
+                math.isfinite(v) for e in evals for v in e.values()):
+            raise AssertionError(f"eval: {evals}")
+        if unbroken[0]["checkpoints"] != [VAE_DP_SPLIT, VAE_DP_STEPS]:
+            raise AssertionError(f"checkpoints {unbroken[0]['checkpoints']}")
+        hist = unbroken[0]["history"]
+        timed = range(VAE_DP_TIMED_FROM, VAE_DP_STEPS + 1)
+        # a step logs before it checkpoints, and the next one's window opens
+        # after the checkpoint: every step from the second is a training step
+        step_s = [1.0 / hist[s - 1]["steps_per_sec"] for s in timed]
+        med = statistics.median(step_s)
+        batch = published["train_batch_size"]
+        waits = [r["data_waits"] for r in unbroken]
+        wait_share = [sum(w[s - 1] for s in timed) / sum(step_s) for w in waits]
+        grad_bytes = [statistics.median(r["collective_bytes_per_step"]) for r in unbroken]
+        line = dict(
+            phase="train_vae_dp", card=card, config=VAE_DP_CONFIG, label=VAE_DP_LABEL,
+            ranks=VAE_DP_RANKS, mesh_shape=published.get("mesh_shape"),
+            resized_mesh=f"data:{VAE_DP_RANKS}", batch=batch,
+            rows_per_rank=batch // VAE_DP_RANKS, image_size=cfg.image_size,
+            convblocks=cfg.convblocks, num_tokens=cfg.num_tokens, bf16=cfg.use_bf16,
+            recompute_grad=cfg.recompute_grad,
+            timing="train_vae.main, log_every 1 (a sync every step), cudnn.deterministic",
+            steps_timed=len(step_s), step_s=step_s, step_s_median=med,
+            images_per_s=batch / med, gradient_bytes_per_rank_per_step=grad_bytes,
+            collective_bytes_per_rank_per_step=[r["collective_bytes_per_step"]
+                                                for r in unbroken],
+            peak_gb_per_rank=[r["peak_mem_gb"] for r in unbroken],
+            data_wait_share_per_rank=wait_share, losses=losses, evals=evals,
+            resume_bit_equal=True, wall_s=wall, n_params=n_params, values=values,
+            values_label=f"data:2 {VAE_DP_LABEL}; data:2,model:2 {VAE_DP_CODEBOOK_LABEL}",
+        )
+        print("train_vae_dp", json.dumps(line), flush=True)
+        return line
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+TWELVE_B_TP_RANKS = 8
+# configs/dalle_12B.json with its published layout and mesh (data:16,model:8
+# -> data:1,model:8 on 8 ranks sharing the card), cut to 2 of 38 layers and
+# 4 rows, half of one published microbatch (512 / 16 replicas / 4
+# microbatches = 8); no eval; Adafactor in place of the published AdamW, so
+# a checkpoint is the parameters' 4.7 GB and small factored moments, not
+# 14.1 GB (the run's time limit)
+TWELVE_B_TP_CUT = dict(n_layers=2, train_batch_size=4, eval_batch_size=4,
+                       optimizer="adafactor")
+TWELVE_B_TP_STEPS, TWELVE_B_TP_RESUME = 2, 1
+TWELVE_B_TP_LABEL = ("8 ranks sharing one card over gloo, staged through host: not a "
+                     "multi-GPU number")
+
+
+def phase_train_12b_tp(torch, card) -> list[dict]:
+    """dalle_12B's published tensor parallelism: configs/dalle_12B.json at
+    full width (n_embd 5120, 40 heads of 128, S = 2560, vocab 52,307, bf16,
+    dots_saveable) with its mesh_shape and layout, cut to TWELVE_B_TP_CUT, in
+    tokens mode through ``torch.distributed.run`` of 8 ranks sharing the
+    card (each 5 heads, 2560 MLP columns, 6656 vocabulary rows, the last 5715) and
+    ``train_dalle.main``: TWELVE_B_TP_STEPS steps and a checkpoint, then in
+    the same launch a resume for TWELVE_B_TP_RESUME more. Every rank's
+    parameters and moments just after the restore must equal, bit for bit,
+    what it ended the first run with. Prints each rank's init seconds, its
+    device bytes and peak host RSS during the sharded init (against the
+    whole tree's bytes), rank 0's seconds and peak host RSS while it
+    writes, the collective bytes a rank a step and the packed pair's
+    launches. The first loss must equal the single-process port's on the
+    same config, records and seed within 2e-3 (as phase_train_tp's), and
+    each rank's device peak during the init stay within its blocks' bytes
+    and one unit of the draw (``init_unit_bytes``). Returns the pair's
+    launches per rank of the first run."""
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_12b_tp_")
+    names = ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
+    try:
+        published = fetch_model_params(TWELVE_B_CONFIG)
+        cut = {**published, **TWELVE_B_TP_CUT}
+        dalle, _ = make_dalle_models(cut, "cpu")
+        cfg = dalle.cfg
+        whole_params = sum(math.prod(s) for _, s in _shape_leaves(dalle.param_shapes()))
+        write_tokens_dataset(os.path.join(tmp, "data"), 5, cfg.image_seq_len,
+                             cfg.image_vocab_size, files=1, per_file=32)
+        first = shutil.copy(train_config(tmp, TWELVE_B_TP_STEPS, TWELVE_B_CONFIG,
+                                         TWELVE_B_TP_STEPS, eval_steps=0, **TWELVE_B_TP_CUT),
+                            os.path.join(tmp, "first.json"))
+        resume = train_config(tmp, TWELVE_B_TP_STEPS + TWELVE_B_TP_RESUME, TWELVE_B_CONFIG,
+                              TWELVE_B_TP_STEPS, eval_steps=0, **TWELVE_B_TP_CUT)
+        t_single = time.perf_counter()
+        single = single_first_loss(torch, first)
+        single_s = time.perf_counter() - t_single
+        out_dir = os.path.join(tmp, "ranks")
+        os.makedirs(out_dir)
+        argv = ["--model", first, "--gpu_ids", "0", "--new", "--yes", "--then",
+                "--model", resume, "--gpu_ids", "0"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.environ[DIGEST_MOMENTS] = "1"
+        t0 = time.perf_counter()
+        try:
+            run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "train", out_dir,
+                       *argv], 900, TWELVE_B_TP_RANKS)
+        finally:
+            del os.environ[DIGEST_MOMENTS]
+        wall = time.perf_counter() - t0
+        runs = [[rank_report(out_dir, r, i) for r in range(TWELVE_B_TP_RANKS)]
+                for i in range(2)]
+        ranks, resumed = runs
+        L = cfg.n_layers
+        for run, steps in ((ranks, range(1, TWELVE_B_TP_STEPS + 1)),
+                           (resumed, range(TWELVE_B_TP_STEPS + 1,
+                                           TWELVE_B_TP_STEPS + TWELVE_B_TP_RESUME + 1))):
+            # dots_saveable: the forward again in the backward
+            want = {names[0]: 2 * L * len(steps), names[1]: L * len(steps)}
+            for r in run:
+                if [h["step"] for h in r["history"]] != list(steps):
+                    raise AssertionError(f"rank {r['rank']} logged {r['history']}")
+                if [h["loss"] for h in r["history"]] != [h["loss"] for h in run[0]["history"]]:
+                    raise AssertionError("the ranks logged different losses")
+                if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                           for h in r["history"]):
+                    raise AssertionError(f"non-finite loss or grad_norm: {r['history']}")
+                if {k: c for k, c in r["launches"].items() if c} != want:
+                    raise AssertionError(f"rank {r['rank']} launched {r['launches']}, "
+                                         f"expected {want}")
+        for a, b in zip(ranks, resumed):
+            if b["restored"]["step"] != TWELVE_B_TP_STEPS or \
+                    b["restored"]["digest"] != a["state_sha256"]:
+                raise AssertionError(f"rank {a['rank']}: the restored state differs from the "
+                                     f"saved one: {b['restored']} vs {a['state_sha256']}")
+        losses = [h["loss"] for h in ranks[0]["history"]]
+        init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
+        if abs(losses[0] - init_loss) > 0.1 or abs(losses[0] - single) > 2e-3:
+            raise AssertionError(f"first loss {losses[0]} vs ln(vocab) + var/2 = {init_loss} "
+                                 f"and the single-process port's {single} (atol 2e-3)")
+        inits = [r["init"] for r in ranks]
+        whole_bytes = 4 * whole_params
+        unit_bytes = init_unit_bytes(dalle)
+        # its blocks, one unit of the draw, and the allocator's rounding of
+        # each leaf to 512 bytes
+        bounds = [i["block_bytes"] + unit_bytes + 512 * i["leaves"] for i in inits]
+        if not all(i["device_peak_bytes"] <= b for i, b in zip(inits, bounds)):
+            raise AssertionError(f"a rank's init held more than its blocks and one unit: "
+                                 f"{inits}, bounds {bounds} (whole tree {whole_bytes} bytes)")
+        save = ranks[0]["saves"][-1]
+        step_s = [1.0 / h["steps_per_sec"] for h in ranks[0]["history"][1:]]
+        per_step = [r["collective_bytes_per_step"] for r in ranks]
+        line = dict(
+            card=card, config=TWELVE_B_CONFIG, label=TWELVE_B_TP_LABEL, ranks=TWELVE_B_TP_RANKS,
+            mesh_shape=published["mesh_shape"], layout=published["layout"],
+            resized_mesh=f"data:1,model:{TWELVE_B_TP_RANKS}", cut=TWELVE_B_TP_CUT,
+            n_layers=L, n_embd=cfg.n_embd, heads=cfg.n_heads,
+            heads_per_rank=cfg.n_heads // TWELVE_B_TP_RANKS, seq_len=cfg.total_seq_len,
+            vocab=cfg.total_tokens, remat_policy=cfg.remat_policy,
+            whole_tree_params=whole_params, whole_tree_fp32_bytes=whole_bytes,
+            init_s_per_rank=[i["s"] for i in inits],
+            init_block_bytes_per_rank=[i["block_bytes"] for i in inits],
+            init_unit_bytes=unit_bytes, init_device_peak_bound_per_rank=bounds,
+            init_device_bytes_per_rank=[i["device_bytes"] for i in inits],
+            init_device_peak_bytes_per_rank=[i["device_peak_bytes"] for i in inits],
+            init_drawn_elements_per_rank=[i["drawn_elements"] for i in inits],
+            init_host_rss_before_per_rank=[i["host_rss_before"] for i in inits],
+            init_host_rss_peak_per_rank=[i["host_rss_peak"] for i in inits],
+            save_s_rank0=save["s"], save_host_rss_before_rank0=save["host_rss_before"],
+            save_host_rss_peak_rank0=save["host_rss_peak"],
+            restored_bytes_per_rank=[r["restored"]["restored_bytes"] for r in resumed],
+            resume_bit_equal=True, losses=losses, single_process_first_loss=single,
+            single_process_s=single_s,
+            resumed_losses=[h["loss"] for h in resumed[0]["history"]],
+            expected_init_loss=init_loss, step_s=step_s,
+            collective_bytes_per_rank_per_step=per_step,
+            peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+            wall_s_per_rank=[r["wall_s"] for r in ranks], launch_wall_s=wall,
+            packed_launches_per_rank=[{k: r["launches"][k] for k in names} for r in ranks],
+        )
+        print("train_12b_tp", json.dumps(line), flush=True)
+        return [{k: r["launches"][k] for k in names} for r in ranks]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def init_unit_bytes(dalle) -> int:
+    """The fp32 bytes of the largest piece ``DALLE.init`` draws at once: a
+    layer of a leaf, cut along its unit dim (``INIT_UNITS``) where it has
+    one."""
+    from dalle_mtf_tpu_torch.models.dalle import INIT_UNITS  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.parallel.mesh import LAYERS  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+
+    axes = dict(named_leaves(dalle.logical_axes()))
+    return 4 * max(math.prod(min(n, INIT_UNITS.get(a, n)) for n, a in zip(shape, axes[path])
+                             if a != LAYERS)
+                   for path, shape in _shape_leaves(dalle.param_shapes(whole=True)))
+
+
+def _shape_leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _shape_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
 
 
 def png_shape(b64: str) -> tuple[int, int, int]:
@@ -3588,7 +4226,7 @@ VAE_CONFIG = "vae_coco_synth"
 VAE_STEPS, VAE_CKPT, VAE_TIMED_FROM = 30, 20, 3  # checkpoint + eval at 20 and 30; 3..30 timed
 VAE_TRACED_FROM, VAE_TRACED = 10, 2  # steps 10 and 11 of the timed run under torch.profiler
 VAE_UNSYNCED = 5  # steps run back to back with one sync at the end
-VAE_DATA_STEPS, VAE_DATA_FROM = 30, 11  # each host-data run: 30 steps, 11..30 read
+VAE_DATA_STEPS, VAE_DATA_FROM = 20, 6  # each host-data run: 20 steps, 6..20 read
 COCO_SIDES = ((640, 480), (480, 640))  # (width, height): the commonest COCO 2017 shapes
 VAE_VALUES = dict(  # the values check's small VAE: 64 px, 256 tokens, batch 4
     dataset={"image_size": 64}, num_tokens=256, convblocks=[[1, 32], [2, 64]],
@@ -4490,9 +5128,10 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
 
 
 def ring_worker(argv) -> int:
-    """``chip_smoke.py --ring-worker <checks|tp_values|train> <out_dir>
-    [argv...]``: one rank under ``torch.distributed.run``, for the ring and
-    the tensor-parallel phases."""
+    """``chip_smoke.py --ring-worker <checks|tp_values|vae_values|train|
+    train_vae> <out_dir> [argv...]``: one rank under
+    ``torch.distributed.run``, for the ring, the tensor-parallel and the VAE
+    data-parallel phases."""
     import torch  # noqa: PLC0415
 
     mode, out_dir = argv[0], argv[1]
@@ -4500,8 +5139,11 @@ def ring_worker(argv) -> int:
         worker_checks(torch, out_dir)
     elif mode == "tp_values":
         worker_tp_values(torch, out_dir)
+    elif mode == "vae_values":
+        worker_vae_values(torch, out_dir, argv[2:])
     else:
-        worker_train(torch, out_dir, argv[2:])
+        worker_train(torch, out_dir, argv[2:], "train_vae" if mode == "train_vae" else
+                     "train_dalle")
     return 0
 
 
@@ -4540,6 +5182,8 @@ def main() -> int:
             return fn(*args, **kw)
         finally:
             phase_s[fn.__name__] = phase_s.get(fn.__name__, 0.0) + time.perf_counter() - t
+            print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f}s, "
+                  f"{time.perf_counter() - t0:.1f}s since the start", flush=True)
 
     from dalle_mtf_tpu_torch.ops import decode_matmul as dmm  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
@@ -4558,7 +5202,8 @@ def main() -> int:
     serving = phase(phase_kernel, torch, attn, card)
     phase(phase_tile_cases, torch, attn, card)
     decode = phase(phase_decode_kernels, torch, dmm, card)
-    training, training_12b, training_tp = phase(phase_train_kernels, torch, attn, card)
+    training, training_12b, training_tp, training_tp12b = phase(phase_train_kernels, torch,
+                                                                attn, card)
     bhsd = phase(phase_bhsd_kernels, torch, attn, card)
     ln = phase(phase_ln_kernels, torch, lnm, card)
     ring_rows = phase(phase_ring_kernels, torch, ring, card)
@@ -4568,8 +5213,7 @@ def main() -> int:
     train_launches = phase(phase_train, torch, attn, card, training)
     gc.collect()
     torch.cuda.empty_cache()
-    long_launches, long_first_loss = phase(phase_train_long, torch, attn, lnm, card,
-                                           bhsd["dalle_4k"])
+    long_launches, _ = phase(phase_train_long, torch, attn, lnm, card, bhsd["dalle_4k"])
     gc.collect()
     torch.cuda.empty_cache()
     phase(memory_option_values, torch, attn, card)
@@ -4592,9 +5236,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ring_values = phase(phase_ring_attention, torch, attn, card)
-    ring_launches, ring_per_rank = phase(phase_train_ring, torch, card, long_first_loss)
+    ring_launches, ring_per_rank = phase(phase_train_ring, torch, card)
     phase(phase_tp_values, torch, attn, card)
     tp_launches = phase(phase_train_tp, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(phase_train_vae_dp, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp12b_launches = phase(phase_train_12b_tp, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     serve_launches, bf16 = phase(phase_slice, torch, attn, card)
@@ -4651,7 +5301,14 @@ def main() -> int:
                             f"rank 4 of the 8 heads, head0 0 and 4), {TP_STEPS} steps + eval, "
                             f"{TP_LABEL}",
              tp_rank=dict(shape="B=8 H=4 S=1280 D=128 bf16 (a model:2 rank's heads)",
-                          **measured(training_tp[name])))
+                          **measured(training_tp[name])),
+             tp12b_launches=[r[name] for r in tp12b_launches],
+             tp12b_launches_on=f"{TWELVE_B_CONFIG} training on {TWELVE_B_TP_RANKS} ranks "
+                               f"(data:1,model:8, each rank 5 of the 40 heads, head0 5 x rank), "
+                               f"{TWELVE_B_TP_CUT}, {TWELVE_B_TP_STEPS} steps + a resume of "
+                               f"{TWELVE_B_TP_RESUME}, {TWELVE_B_TP_LABEL}",
+             tp12b_rank=dict(shape="B=4 H=5 S=2560 D=128 bf16 (a dalle_12B model:8 rank's "
+                                   "heads)", **measured(training_tp12b[name])))
         for name in ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
     ]
     rows.append(dict(

@@ -115,6 +115,7 @@ from dalle_mtf_tpu_torch.parallel.mesh import (
     LAYERS,
     SEQ,
     VOCAB,
+    VOCAB_LANES,
     leaf_split,
     parse_layout,
 )
@@ -128,6 +129,12 @@ from dalle_mtf_tpu_torch.train.optim import named_leaves
 from dalle_mtf_tpu_torch.quantize import nibble_views, quantized_shapes
 from dalle_mtf_tpu_torch.utils.distributed import model_device
 from dalle_mtf_tpu_torch.utils.precision import Policy, get_policy
+from dalle_mtf_tpu_torch.utils.seeds import base_seed, key_seed, units
+
+# the units of the init's keyed draws (utils/seeds.py), by the logical dim a
+# tensor-parallel axis may split: one head, 128 columns of the MLP's width,
+# 128 rows of the vocabulary (a vocabulary block is a multiple of 128 rows)
+INIT_UNITS = {HEADS: 1, INTERMEDIATE: 128, VOCAB: VOCAB_LANES}
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -433,12 +440,18 @@ class DALLE(nn.Module):
     def init(self, generator: torch.Generator) -> dict:
         """Random fp32 parameters with the JAX init's shapes and stddevs
         (dalle.py:358-407; the reference's linear() scaling, models.py:
-        361-371). Drawn on ``generator``'s device (a CPU generator gives the
-        same weights on every device), then moved to ``self.device``. On a
-        tensor-parallel mesh the whole tree is drawn and this rank's blocks
-        kept, so the weights are the single process's under any layout;
-        each rank so draws the whole tree once (at dalle_12B's depth a
-        sharded init would be needed: ROADMAP)."""
+        361-371), drawn on ``generator``'s device (a CPU generator gives the
+        same weights on every device) and moved to ``self.device``.
+
+        The draw does not depend on the layout: each random leaf is drawn
+        layer by layer (a stacked ``[L, ...]`` leaf) and, along the dim a
+        tensor-parallel axis may split (``INIT_UNITS``), unit by unit, each
+        unit from a generator keyed on (a seed drawn from ``generator``, the
+        leaf's path, the layer, the unit). A rank draws only the units of
+        its blocks, one at a time into its block on the device, so the whole
+        tree is the single process's under any layout and a rank never holds
+        more than its blocks and one unit. ``drawn_elements`` counts what
+        this call drew."""
         cfg = self.cfg
         e = cfg.n_embd
         mlp1_std = logits_std = 0.02
@@ -455,20 +468,42 @@ class DALLE(nn.Module):
             "w_mlp1": mlp1_std, "w_mlp2": mlp2_std,
             "wte": 0.02, "wpe": 0.01, "w_out": logits_std,
         }
-        gdev = generator.device
+        seed = base_seed(generator)
+        unit_gen = torch.Generator(device=generator.device)
+        axes = dict(named_leaves(self.logical_axes()))
+        self.drawn_elements = 0
 
-        def make(path, shape):
-            name = path[-1]
-            if name in std:
-                t = torch.randn(shape, generator=generator, device=gdev) * std[name]
-            elif name.endswith("_g"):
-                t = torch.ones(shape)
-            else:
-                t = torch.zeros(shape)
-            split = self._split(path)
-            if split is not None:  # a copy of the block: the whole leaf is let go
-                t = t.narrow(split.dim, split.start, split.stop - split.start).clone()
-            return t.to(device=self.device, dtype=torch.float32)
+        def draw(key, shape, scale):
+            unit_gen.manual_seed(key_seed(seed, *key))
+            self.drawn_elements += math.prod(shape)
+            return torch.randn(shape, generator=unit_gen, device=generator.device) * scale
+
+        def make(path, whole):
+            name, split = path[-1], self._split(path)
+            local = self.sharding.local_shape(path, whole) if split else whole
+            if name not in std:
+                fill = torch.ones if name.endswith("_g") else torch.zeros
+                return fill(local, device=self.device, dtype=torch.float32)
+            out = torch.empty(local, device=self.device, dtype=torch.float32)
+            logical = axes[path]
+            stacked = logical[0] == LAYERS
+            udim = next((i for i, a in enumerate(logical) if a in INIT_UNITS), None)
+            if split is not None and split.dim != udim:
+                raise AssertionError(f"{path}: split on dim {split.dim}, units on {udim}")
+            lo, hi = (split.start, split.stop) if split else (0, 0 if udim is None else whole[udim])
+            key = "/".join(path)
+            for layer in range(whole[0]) if stacked else (None,):
+                dst = out[layer] if stacked else out
+                shape = whole[1:] if stacked else whole
+                if udim is None:
+                    dst.copy_(draw((key, layer, 0), shape, std[name]))
+                    continue
+                d = udim - stacked
+                for j, a, b in units(lo, hi, whole[udim], INIT_UNITS[logical[udim]]):
+                    unit = draw((key, layer, j), shape[:d] + (b - a,) + shape[d + 1:], std[name])
+                    a0, b0 = max(a, lo), min(b, hi)
+                    dst.narrow(d, a0 - lo, b0 - a0).copy_(unit.narrow(d, a0 - a, b0 - a0))
+            return out
 
         shapes = self.param_shapes(whole=True)
         return {
@@ -720,8 +755,9 @@ class DALLE(nn.Module):
         """The mean of per-position ``values`` [B, S_local] over global
         positions [lo, hi) of the whole batch, as this rank's share: the
         sum of its values there over the global count, so the sum over the
-        mesh's replicas (``Mesh.replica_group``: every axis but the
-        tensor-parallel one, whose ranks hold the same values) is the mean.
+        mesh's replicas (``Mesh.replica_group``: the data axes; the ranks of
+        a tensor-parallel or replicate-only axis hold the same values) is
+        the mean.
         On one process, ``values[:, lo:hi].mean()``."""
         if self.mesh is None:
             return values[:, lo:hi].mean()

@@ -13,6 +13,20 @@ default) is turned off around every conv, forward and backward
 name says and agrees with the CPU to fp32 rounding. Under bf16 the switch
 does not apply. The codebook products (encoder logits, decoder input) are
 fp32 einsums at torch's default matmul precision, which is IEEE fp32.
+
+Across processes (a ``parallel.mesh.Mesh``) each rank holds its rows of the
+batch (the ``batch_dim`` axis) and draws the single process's Gumbel noise
+for them (ops/gumbel.py keys the draw on global rows). Where the layout
+puts ``tokens_dim`` on a mesh axis (the JAX VAE's codebook axes are
+``(vae_hid_dim, tokens_dim)``), the codebook ``[n_hid, T]`` is split by
+columns over it: each rank takes its block of the logits in fp32
+(``copy_to_model`` before the product), the Gumbel softmax its max and sum
+across the blocks, the hard sample and ``encode_tokens`` the argmax across
+them (the lowest global index on a tie), and the decoder's ``one_hot @
+codebookᵀ`` is a partial sum reduced over the group (``reduce_from_model``).
+The convs are replicated: every rank of the group runs them on the same
+rows. A VAE built without a mesh (the frozen VAE of DALLE image mode) holds
+the whole codebook.
 """
 
 from __future__ import annotations
@@ -30,6 +44,14 @@ from torch.utils.checkpoint import checkpoint
 
 from dalle_mtf_tpu_torch.ops.gumbel import gumbel_softmax
 from dalle_mtf_tpu_torch.ops.losses import mse_loss
+from dalle_mtf_tpu_torch.parallel.mesh import BATCH, TOKENS, VAE_HID, leaf_split
+from dalle_mtf_tpu_torch.parallel.tensor import (
+    Sharding,
+    copy_to_model,
+    model_argmax,
+    reduce_from_model,
+    shard,
+)
 from dalle_mtf_tpu_torch.utils.distributed import model_device
 from dalle_mtf_tpu_torch.utils.precision import Policy, get_policy
 
@@ -193,12 +215,28 @@ def _glorot_uniform(shape, generator):
 
 
 class DiscreteVAE(nn.Module):
-    """The VAE's computation over an explicit parameter tree (see DALLE)."""
+    """The VAE's computation over an explicit parameter tree (see DALLE).
+    On a ``mesh`` whose layout splits ``tokens_dim``, ``sharding`` holds the
+    codebook's split (else None) and ``init`` this rank's block."""
 
-    def __init__(self, config: VAEConfig, device: torch.device | str = "cuda"):
+    def __init__(self, config: VAEConfig, device: torch.device | str = "cuda", mesh=None):
         super().__init__()
         self.cfg = config
         self.device = model_device(device)
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        split = None
+        if self.mesh is not None and self.mesh.tp_axis is not None:
+            split = leaf_split((VAE_HID, TOKENS), (config.n_hid, config.num_tokens), self.mesh,
+                               "codebook")
+        self.sharding = Sharding({("codebook",): split}, self.mesh.model_group) if split else None
+        self._tp = self.sharding.group if split else None
+        self._cols = (split.start, split.stop) if split else (0, config.num_tokens)
+
+    def _row0(self, rows: int) -> int:
+        """The global row of this rank's first row of a batch of ``rows``."""
+        if self.mesh is None:
+            return 0
+        return self.mesh.index(self.mesh.rules.get(BATCH) or "data") * rows
 
     def param_shapes(self) -> dict:
         """Shapes of the JAX tree: ``encoder``, ``codebook``, ``decoder``."""
@@ -229,7 +267,9 @@ class DiscreteVAE(nn.Module):
     def init(self, generator: torch.Generator) -> dict:
         """Glorot-uniform kernels and codebook, zero biases (vae.py:150-184,
         the TF1 conv2d defaults), drawn on ``generator``'s device and moved
-        to ``self.device``."""
+        to ``self.device``. Under a codebook split the whole codebook is
+        drawn (it is small) and this rank's block kept, so the tree is the
+        single process's under any layout."""
 
         def make(tree):
             out = {}
@@ -239,7 +279,10 @@ class DiscreteVAE(nn.Module):
                 elif name == "b":
                     out[name] = torch.zeros(v, device=self.device)
                 else:
-                    out[name] = _glorot_uniform(v, generator).to(self.device)
+                    out[name] = _glorot_uniform(v, generator)
+                    if name == "codebook" and self.sharding is not None:
+                        out[name] = shard(out[name], self.sharding.of(("codebook",))).clone()
+                    out[name] = out[name].to(self.device)
             return out
 
         return make(self.param_shapes())
@@ -274,8 +317,9 @@ class DiscreteVAE(nn.Module):
 
     def encoder(self, params, img, train: bool = False):
         """Image [B, H, W, C] in [-1, 1] -> logits [B, h, w, num_tokens],
-        the codebook product in fp32 (vae_tf/models.py:81-120)."""
-        x = self._encode_conv(params, img, train)
+        the codebook product in fp32 (vae_tf/models.py:81-120); under a
+        codebook split this rank's columns of them."""
+        x = copy_to_model(self._encode_conv(params, img, train), self._tp)
         return torch.einsum("bhwc,ct->bhwt", x, params["codebook"].float())
 
     def encoder_features(self, params, img):
@@ -292,7 +336,10 @@ class DiscreteVAE(nn.Module):
         transpose-conv stacks, final 1x1 conv, depth_to_space)."""
         cfg = self.cfg
         dtype = cfg.policy.compute_dtype
+        # under a codebook split: this rank's columns of the distribution,
+        # a partial sum over the tokens summed over the group
         x = torch.einsum("bhwt,ct->bhwc", one_hot.float(), params["codebook"].float())
+        x = reduce_from_model(x, self._tp)
         x = x.to(dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW
         for b, (stack, _channels) in enumerate(reversed(cfg.convblocks)):
             blk = params["decoder"][f"block_{b}"]
@@ -311,9 +358,15 @@ class DiscreteVAE(nn.Module):
                 hard_gumbel: bool = True, train: bool = False):
         """Full autoencode: (reconstruction MSE, reconstruction [B, H, W, C]
         fp32 on the input's [-1, 1] scale). The Gumbel noise is drawn from
-        ``generator`` (``ops/gumbel.py``)."""
+        ``generator`` (``ops/gumbel.py``) for the batch's global rows (this
+        rank's on the batch axis)."""
         logits = self.encoder(params, img, train)
-        soft_one_hot = gumbel_softmax(generator, logits, temperature, hard=hard_gumbel)
+        if self.mesh is None:
+            soft_one_hot = gumbel_softmax(generator, logits, temperature, hard=hard_gumbel)
+        else:
+            block = (self._row0(logits.shape[0]), self._cols[0], self.cfg.num_tokens)
+            soft_one_hot = gumbel_softmax(generator, logits, temperature, hard=hard_gumbel,
+                                          block=block, group=self._tp)
         out = self.decoder(params, soft_one_hot, train)
         return mse_loss(img.to(out.dtype), out), out
 
@@ -321,17 +374,19 @@ class DiscreteVAE(nn.Module):
 
     def encode_tokens(self, params, img):
         """Image -> hard token ids [B, image_seq_len] int32: the argmax over
-        the encoder logits (reference model_fns.py:72-77)."""
-        tokens = self.encoder(params, img).argmax(dim=-1)
+        the encoder logits (reference model_fns.py:72-77), across the
+        codebook's blocks under a split."""
+        tokens = model_argmax(self.encoder(params, img), self._cols[0], self._tp)
         return tokens.reshape(tokens.shape[0], -1).int()
 
     def decode_tokens(self, params, tokens):
         """Token ids [B, image_seq_len] -> images [B, H, W, C] in [0, 1]."""
         g = self.cfg.grid_size
         b = tokens.shape[0]
-        one_hot = F.one_hot(
-            tokens.reshape(b, g, g).long(), self.cfg.num_tokens
-        ).float()
+        lo, hi = self._cols
+        rel = tokens.reshape(b, g, g).long() - lo
+        mine = (rel >= 0) & (rel < hi - lo)
+        one_hot = (F.one_hot(rel.clamp(0, hi - lo - 1), hi - lo) * mine[..., None]).float()
         return (self.decoder(params, one_hot) + 1.0) / 2.0
 
 

@@ -65,7 +65,8 @@ def mse_loss(prediction: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def frechet_feature_distance(
-    feats_a: torch.Tensor, feats_b: torch.Tensor, eps: float = 1e-6
+    feats_a: torch.Tensor, feats_b: torch.Tensor, eps: float = 1e-6, group=None,
+    replicas: int = 1,
 ) -> torch.Tensor:
     """Diagonal-covariance Fréchet distance between two [N, C] feature
     batches, in fp32: the FID recipe with a per-channel variance (well posed
@@ -73,9 +74,19 @@ def frechet_feature_distance(
 
         d = |mu_a - mu_b|^2 + sum(var_a + var_b - 2*sqrt(max(var_a*var_b, eps^2)))
 
-    with the population variance (ddof 0, as ``jnp.var``)."""
+    with the population variance (ddof 0, as ``jnp.var``). With ``group``
+    (``replicas`` ranks, each holding its rows of the batch) the means and
+    variances are the whole batch's, in two passes as one process takes
+    them: the sums over the rows all_reduced, then the squared deviations
+    from the global means; every rank returns the same distance."""
     fa, fb = feats_a.float(), feats_b.float()
-    mu_a, mu_b = fa.mean(0), fb.mean(0)
-    va, vb = fa.var(0, unbiased=False), fb.var(0, unbiased=False)
+    if replicas > 1:
+        n = fa.shape[0] * replicas
+        mu_a, mu_b = all_reduce(torch.stack([fa.sum(0), fb.sum(0)]), group) / n
+        va, vb = all_reduce(torch.stack([torch.square(fa - mu_a).sum(0),
+                                         torch.square(fb - mu_b).sum(0)]), group) / n
+    else:
+        mu_a, mu_b = fa.mean(0), fb.mean(0)
+        va, vb = fa.var(0, unbiased=False), fb.var(0, unbiased=False)
     cov_term = va + vb - 2.0 * torch.sqrt(torch.clamp_min(va * vb, eps * eps))
     return torch.sum(torch.square(mu_a - mu_b)) + torch.sum(cov_term)

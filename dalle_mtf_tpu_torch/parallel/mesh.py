@@ -12,11 +12,15 @@ per axis slice, created in the same order on every rank.
 
 Of the layouts the JAX package honours, the port runs data parallelism over
 the ``batch_dim`` axis, sequence parallelism (ring attention) over the
-``total_seq_dim`` axis and tensor parallelism over one axis that carries any
+``total_seq_dim`` axis, tensor parallelism over one axis that carries any
 of ``heads_dim``, ``intermediate_expanded`` and ``vocab_dim`` (the Megatron
-split: parallel/tensor.py). ``check_layout`` refuses the rest at world size
-> 1. ``leaf_split`` says which dim of a parameter the tensor-parallel axis
-splits and where this rank's block lies.
+split: parallel/tensor.py) or the VAE's ``tokens_dim`` (its codebook's
+columns), and axes that carry no layout dim at all: such an axis only
+replicates, as under GSPMD. Its ranks read the same rows, draw the same
+noise and hold the same values, so nothing is summed over it.
+``check_layout`` refuses the rest at world size > 1. ``leaf_split`` says
+which dim of a parameter the tensor-parallel axis splits and where this
+rank's block lies.
 """
 
 from __future__ import annotations
@@ -37,8 +41,12 @@ LAYERS = "layers"
 EMBED = "embed_dim"
 EMBED_SEQ = "embed_seq_dim"
 KV = "kv_dim"
+# the VAE's (dalle_mtf_tpu/models/vae.py): the codebook is (HID, TOKENS)
+TOKENS = "tokens_dim"
+VAE_HID = "vae_hid_dim"
+CONV_DIMS = ("conv_kh", "conv_kw", "conv_cin", "conv_cout")
 # the logical dims a tensor-parallel axis may carry
-TENSOR_DIMS = (HEADS, INTERMEDIATE, VOCAB)
+TENSOR_DIMS = (HEADS, INTERMEDIATE, VOCAB, TOKENS)
 # columns of a vocabulary block: each rank's block is a multiple of this, as
 # the JAX xent pads V (dalle_mtf_tpu/ops/xent_fused.py)
 VOCAB_LANES = 128
@@ -97,12 +105,34 @@ def resize_axes(axes: Sequence[tuple[str, int]], n: int) -> list[tuple[str, int]
 
 def tensor_axis(axes: Sequence[tuple[str, int]], rules: dict[str, str]) -> str | None:
     """The mesh axis of size > 1 that the layout's ``heads_dim``,
-    ``intermediate_expanded`` or ``vocab_dim`` rule names (the first such),
-    or None."""
+    ``intermediate_expanded``, ``vocab_dim`` or ``tokens_dim`` rule names
+    (the first such), or None."""
     for name, size in axes:
         if size > 1 and any(rules.get(d) == name for d in TENSOR_DIMS):
             return name
     return None
+
+
+def data_axes(rules: dict[str, str], attention_type: str = "global") -> tuple[str, ...]:
+    """The axes whose ranks hold different data: the batch axis and, under
+    ring attention, the sequence axis. Losses, gradients and metrics are
+    shares summed over these axes only."""
+    batch = rules.get(BATCH) or "data"
+    if attention_type in ("ring", "local_ring"):
+        return (batch, rules.get(SEQ) or "seq")
+    return (batch,)
+
+
+# what check_layout says of a dim it refuses, with the ROADMAP item that
+# would port it
+_REFUSED = {
+    LAYERS: "pipeline parallelism (ROADMAP queue 1 item 5c)",
+    SEQ: "sequence parallelism without ring attention",
+    VAE_HID: "VAE tensor parallelism over vae_hid_dim or conv channels (ROADMAP queue 1 "
+             "item 5h)",
+    **{d: "VAE tensor parallelism over vae_hid_dim or conv channels (ROADMAP queue 1 item 5h)"
+       for d in CONV_DIMS},
+}
 
 
 def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
@@ -110,11 +140,12 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
     """Raise NotImplementedError for a layout the port cannot honour on
     these (resized) axes. Every axis of size > 1 must carry the batch
     (``batch_dim``), under ring attention the sequence (``total_seq_dim``),
-    or tensor parallelism: a non-empty set of ``heads_dim``,
-    ``intermediate_expanded`` and ``vocab_dim`` and nothing else, on one
-    axis only. Pipeline parallelism (``layers``, ROADMAP queue 1 item 5c), a
-    replicate-only axis and tensor parallelism under ring attention
-    ("TP x SP") are refused."""
+    tensor parallelism (a non-empty set of ``heads_dim``,
+    ``intermediate_expanded``, ``vocab_dim`` and ``tokens_dim`` and nothing
+    else, on one axis only), or no layout dim at all (an axis that only
+    replicates). Pipeline parallelism (``layers``, ROADMAP queue 1 item 5c),
+    tensor parallelism under ring attention ("TP x SP", item 5g) and a rule
+    on the VAE's ``vae_hid_dim`` or conv dims (item 5h) are refused."""
     batch_axis = rules.get(BATCH) or "data"
     seq_axis = rules.get(SEQ) or "seq"
     ring = attention_type in ("ring", "local_ring")
@@ -123,25 +154,27 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
         if size == 1 or name == batch_axis or (ring and name == seq_axis):
             continue
         dims = sorted(d for d, a in rules.items() if a == name)
-        if dims and set(dims) <= set(TENSOR_DIMS):
+        if not dims:
+            continue  # replicates: its ranks compute the same values
+        if set(dims) <= set(TENSOR_DIMS):
             tensor.append(name)
             continue
-        what = {HEADS: "tensor", INTERMEDIATE: "tensor", VOCAB: "tensor",
-                LAYERS: "pipeline", SEQ: "sequence (without ring attention)"}
-        kinds = sorted({what.get(d, "unknown") for d in dims}) or ["replicated"]
-        refused.append(f"mesh axis {name!r} of size {size} ({', '.join(kinds)} "
-                       f"parallelism, layout dims {dims})")
+        kinds = sorted({_REFUSED.get(d, f"an unknown layout dim {d!r}") for d in dims
+                        if d not in TENSOR_DIMS})
+        refused.append(f"mesh axis {name!r} of size {size} ({'; '.join(kinds)}; layout dims "
+                       f"{dims})")
     if len(tensor) > 1:
         refused.append(f"tensor parallelism over more than one mesh axis {tensor}")
     if tensor and ring:
         refused.append(f"TP x SP: not ported (tensor parallelism over {tensor[0]!r} with "
-                       f"attention_type {attention_type!r}; ROADMAP queue 1)")
+                       f"attention_type {attention_type!r}; ROADMAP queue 1 item 5g)")
     if refused:
         raise NotImplementedError(
             "not ported to dalle_mtf_tpu_torch yet: " + "; ".join(refused)
             + ": the port shards the batch (batch_dim), under ring attention the "
-            "sequence (total_seq_dim), and the heads, the MLP width and the "
-            "vocabulary (heads_dim, intermediate_expanded, vocab_dim) over one axis")
+            "sequence (total_seq_dim), the heads, the MLP width and the vocabulary "
+            "(heads_dim, intermediate_expanded, vocab_dim) or the VAE codebook's columns "
+            "(tokens_dim) over one axis, and replicates over an axis no rule names")
 
 
 def padded_vocab(v: int, m: int) -> int:
@@ -234,14 +267,22 @@ class Mesh:
 
     ``rules``: the layout (logical dim -> mesh axis). ``tp_axis`` (the axis
     its tensor-parallel rules name, ``tensor_axis``; None where there is none)
-    splits the model; the ranks that share this rank's index on it (every
-    other axis) hold the same blocks of different data, and gradients and
+    splits the model. The ranks that differ from this one only on the data
+    axes (``data_axes``: the batch axis and, under ring attention, the
+    sequence axis) hold different data of the same model, and gradients and
     metrics are summed over them: ``replica_group`` (None for the whole
-    world), ``replicas`` of them.
+    world), ``replicas`` of them. The ranks that differ from it only on the
+    other axes (a tensor-parallel axis, an axis that only replicates) hold
+    copies of the replicated leaves, and are never summed over:
+    ``copy_group`` and ``copy_ranks`` (None where this rank holds the only
+    copy), ``copies`` of them; with a ``tp_axis``, ``block_copy_group`` and
+    ``block_copy_ranks`` the same without it, the copies of this rank's
+    blocks of the split leaves. The trainer makes each set of copies one
+    (``Trainer._agree``).
     """
 
     def __init__(self, axes: Sequence[tuple[str, int]], rank: int = 0, world: int = 1,
-                 rules: dict[str, str] | None = None):
+                 rules: dict[str, str] | None = None, attention_type: str = "global"):
         self.axes = list(axes)
         if math.prod(s for _, s in self.axes) != world:
             raise ValueError(f"mesh {self.axes} does not hold {world} ranks")
@@ -251,8 +292,12 @@ class Mesh:
         self.coords = dict(zip(self.names, _unravel(rank, [s for _, s in self.axes])))
         self.rules = dict(rules or {})
         self.tp_axis = tensor_axis(self.axes, self.rules)
-        self.replicas = world // self.size(self.tp_axis)
-        self.replica_group = None
+        summed = [n for n in data_axes(self.rules, attention_type) if n in self.shape]
+        self.replicas = math.prod(self.size(n) for n in summed)
+        copied = [n for n in self.names if n not in summed and self.size(n) > 1]
+        self.copies = math.prod(self.size(n) for n in copied)
+        self.replica_group = self.copy_group = self.block_copy_group = None
+        self.copy_ranks = self.block_copy_ranks = None
         self._groups: dict[str, object] = {}
         self._ranks: dict[str, list[int]] = {}
         if world == 1:
@@ -272,13 +317,38 @@ class Mesh:
             if dist.get_backend(self._groups[name]) != backend:
                 raise RuntimeError(f"the {name!r} process group runs "
                                    f"{dist.get_backend(self._groups[name])}, not {backend}")
-        if self.tp_axis is not None and self.replicas > 1:
-            tp = self.names.index(self.tp_axis)
-            for j in range(sizes[tp]):
-                ranks = [r for r in range(world) if _unravel(r, sizes)[tp] == j]
-                group = dist.new_group(ranks, backend=backend)
-                if rank in ranks:
-                    self.replica_group = group
+        self.replica_group, _ = self._group_over(summed, backend)
+        self.copy_group, self.copy_ranks = self._group_over(copied, backend)
+        if self.tp_axis:
+            self.block_copy_group, self.block_copy_ranks = self._group_over(
+                [n for n in copied if n != self.tp_axis], backend)
+
+    def _group_over(self, names, backend) -> tuple[object, list[int] | None]:
+        """(process group, global ranks in order) of the ranks that differ
+        from this one only on the axes ``names``: (None, None) where that is
+        this rank alone, (None, every rank) where it is the world. Every rank
+        makes every such group, in one order (``new_group`` is collective)."""
+        import torch.distributed as dist  # noqa: PLC0415
+
+        n = math.prod(self.size(a) for a in names)
+        if n == 1:
+            return None, None
+        if n == self.world:
+            return None, list(range(self.world))
+        wide = [a for a in names if self.size(a) > 1]
+        if len(wide) == 1:  # one axis: its slice's group
+            return self._groups[wide[0]], self._ranks[wide[0]]
+        sizes = [s for _, s in self.axes]
+        fixed = [i for i, a in enumerate(self.names) if a not in names]
+        mine = None, None
+        for key in sorted({tuple(_unravel(r, sizes)[i] for i in fixed)
+                           for r in range(self.world)}):
+            ranks = [r for r in range(self.world)
+                     if tuple(_unravel(r, sizes)[i] for i in fixed) == key]
+            group = dist.new_group(ranks, backend=backend)
+            if self.rank in ranks:
+                mine = group, ranks
+        return mine
 
     def size(self, name: str | None) -> int:
         return self.shape.get(name, 1) if name else 1
@@ -329,4 +399,4 @@ def build_mesh(mesh_shape: str | None, layout: str | None, attention_type: str =
     rules = parse_layout(layout)
     if world > 1:
         check_layout(axes, rules, attention_type)
-    return Mesh(axes, rank, world, rules)
+    return Mesh(axes, rank, world, rules, attention_type)

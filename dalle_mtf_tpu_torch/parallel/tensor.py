@@ -15,12 +15,18 @@ the heads of ``wq``/``wk``/``wv``/``wo``, the columns of ``w_mlp1``/
   after each row-split product (``wo``, ``w_mlp2``) and the vocab-parallel
   embedding.
 
+The VAE's codebook split over ``tokens_dim`` (models/vae.py) uses the same
+two around its column-split products, ``sum_over_model`` (summed both ways)
+for the softmax's sum across the blocks, ``max_over_model`` for its max,
+and ``model_argmax`` for the argmax across them.
+
 Each rank of a group then holds the same loss and, for every leaf, the
 gradient of its shard (a replicated leaf's whole gradient). On one process,
 or without a group, every function here is the identity.
 
 ``all_reduce`` is the one entry to the collectives of the tensor-parallel
-path and the trainer's sums; it counts the calls and bytes it moves in
+path and the trainer's sums, ``broadcast`` to the trainer's copies of a
+replicated leaf's gradient; both count the calls and bytes they move in
 ``COLLECTIVES``, which ``chip_smoke.py`` reads and resets.
 """
 
@@ -45,6 +51,15 @@ def all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tenso
     return t
 
 
+def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``dist.broadcast`` of ``t`` in place from global rank ``src`` over
+    ``group`` (None: the world), counted in ``COLLECTIVES``; returns ``t``."""
+    COLLECTIVES["calls"] += 1
+    COLLECTIVES["bytes"] += t.numel() * t.element_size()
+    dist.broadcast(t, src, group=group)
+    return t
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -66,6 +81,17 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
     """x unchanged; its gradient summed over ``group`` (None: identity)."""
     return x if group is None else _CopyToModel.apply(x, group)
@@ -75,6 +101,36 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """x summed over ``group``; its gradient passed through (None:
     identity)."""
     return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def sum_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over ``group``, and its gradient summed over it too: for a
+    sum whose every rank uses the result only on its own block of columns
+    (a softmax's denominator), so each rank's gradient is a share (None:
+    identity)."""
+    return x if group is None else _SumOverModel.apply(x, group)
+
+
+def max_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of x over ``group``, without a gradient (None:
+    x itself)."""
+    return x if group is None else all_reduce(x.detach().contiguous().clone(), group,
+                                              dist.ReduceOp.MAX)
+
+
+def model_argmax(values: torch.Tensor, col0: int, group) -> torch.Tensor:
+    """The argmax over the last dim of values split by columns over
+    ``group``, this rank's block starting at global column ``col0``: the
+    global index (int64) of the largest value, the lowest where several tie
+    (``jnp.argmax``'s rule). Two collectives: MAX of the values, MIN of the
+    candidates' indices."""
+    local = values.argmax(dim=-1)
+    if group is None:
+        return local + col0
+    best = values.gather(-1, local[..., None])[..., 0].detach().clone()
+    top = all_reduce(best.clone(), group, dist.ReduceOp.MAX)
+    cand = torch.where(best == top, local + col0, torch.iinfo(torch.int64).max)
+    return all_reduce(cand, group, dist.ReduceOp.MIN)
 
 
 def vocab_parallel_embedding(wte: torch.Tensor, tokens: torch.Tensor, split: Split | None,
@@ -113,6 +169,33 @@ def gather(t: torch.Tensor, split: Split | None, group) -> torch.Tensor:
     dist.all_gather(parts, t, group=group)
     return torch.cat([p.narrow(split.dim, 0, b - a) for p, (a, b) in zip(parts, split.bounds)],
                      split.dim)
+
+
+def gather_to_host(t: torch.Tensor, split: Split, ranks: list[int]) -> torch.Tensor | None:
+    """The whole leaf on the host of ``ranks[0]`` (None on the other ranks),
+    from every rank's block ``t``: the blocks go to it one at a time, point
+    to point, so no device holds a block it does not own and the host holds
+    the one leaf. ``ranks``: the global ranks of the model group in axis
+    order (``split.index`` is this rank's). Over gloo each block is staged
+    through its rank's host (gloo sends CPU tensors); over nccl it is
+    received on the card, one block at a time."""
+    t = t.detach()
+    gloo = dist.get_backend() == "gloo"
+    if dist.get_rank() != ranks[0]:
+        dist.send(t.cpu() if gloo else t.contiguous(), ranks[0])
+        return None
+    shape = list(t.shape)
+    shape[split.dim] = split.size
+    whole = torch.empty(shape, dtype=t.dtype)
+    for j, (a, b) in enumerate(split.bounds):
+        view = whole.narrow(split.dim, a, b - a)
+        if j == split.index:
+            view.copy_(t)
+            continue
+        buf = torch.empty(view.shape, dtype=t.dtype, device="cpu" if gloo else t.device)
+        dist.recv(buf, ranks[j])
+        view.copy_(buf)
+    return whole
 
 
 class Sharding:

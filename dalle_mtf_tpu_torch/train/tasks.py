@@ -27,6 +27,7 @@ import torch
 from dalle_mtf_tpu_torch.models.dalle import DALLE, DalleConfig
 from dalle_mtf_tpu_torch.models.vae import DiscreteVAE, VAEConfig, temperature_schedule
 from dalle_mtf_tpu_torch.ops.losses import frechet_feature_distance
+from dalle_mtf_tpu_torch.parallel.tensor import all_reduce
 
 
 def _image(batch) -> torch.Tensor:
@@ -43,13 +44,30 @@ def _image(batch) -> torch.Tensor:
     return x
 
 
-def make_vae_task(params: Mapping[str, Any], device: torch.device | str):
+def make_vae_task(params: Mapping[str, Any], device: torch.device | str, mesh=None):
     """Returns (vae, init_fn, train_loss_fn, eval_loss_fn) for stage 1
     (model_fns_tf.py:9-66): the Gumbel temperature annealed by the step,
     the sample soft or hard in training and in eval as the config says
-    (``train_gumbel_hard``, ``eval_gumbel_hard``; default hard)."""
+    (``train_gumbel_hard``, ``eval_gumbel_hard``; default hard).
+
+    On a ``mesh`` the batch holds this rank's rows, and every value returned
+    is this rank's share of the global value, so that the trainer's sum over
+    the mesh's replicas (``Mesh.replica_group``, the batch axis) is the
+    single process's: the losses are the local means over the replicas; the
+    eval metrics, which are not means, are computed once from statistics
+    all_reduced over the replicas (PSNR from the global squared error, the
+    perplexity from the global token counts, the Fréchet feature distance
+    from the global feature means and variances) and divided by the
+    replicas. ``tokens_dim`` on a mesh axis splits the codebook
+    (models/vae.py)."""
     cfg = VAEConfig.from_params(params)
-    vae = DiscreteVAE(cfg, device)
+    vae = DiscreteVAE(cfg, device, mesh)
+    replicas = vae.mesh.replicas if vae.mesh is not None else 1
+    group = vae.mesh.replica_group if vae.mesh is not None else None
+
+    def global_sum(t):
+        return all_reduce(t, group) if replicas > 1 else t
+
     train_hard = params.get("train_gumbel_hard")
     train_hard = True if train_hard is None else bool(train_hard)
     eval_hard = params.get("eval_gumbel_hard")
@@ -58,7 +76,7 @@ def make_vae_task(params: Mapping[str, Any], device: torch.device | str):
     def train_loss(p, _frozen, batch, generator, step):
         loss, _recon = vae.forward(p, _image(batch), generator,
                                    temperature_schedule(params, step), train_hard, train=True)
-        return loss, {}
+        return loss / replicas, {}
 
     def eval_loss(p, _frozen, batch, generator, step):
         """The loss and the JAX package's quality metrics: PSNR of the
@@ -70,18 +88,22 @@ def make_vae_task(params: Mapping[str, Any], device: torch.device | str):
         img = _image(batch)
         loss, recon = vae.forward(p, img, generator, temperature_schedule(params, step),
                                   eval_hard, train=False)
-        mse = torch.mean(torch.square(img.float() - recon))
+        err = torch.square(img.float() - recon)
+        mse = global_sum(err.sum().reshape(1))[0] / (err.numel() * replicas)
         psnr = 10.0 * torch.log10(4.0 / torch.clamp_min(mse, 1e-10))
         tokens = vae.encode_tokens(p, img)
         counts = torch.bincount(tokens.reshape(-1).long(), minlength=cfg.num_tokens).float()
+        counts = global_sum(counts)
         probs = counts / torch.clamp_min(counts.sum(), 1.0)
         entropy = -torch.sum(torch.where(probs > 0, probs * torch.log(probs), 0.0))
         ffd = frechet_feature_distance(vae.encoder_features(p, img),
-                                       vae.encoder_features(p, recon))
-        return loss, {
-            "psnr": psnr,
-            "codebook_perplexity": torch.exp(entropy),
-            "frechet_feature_distance": ffd,
+                                       vae.encoder_features(p, recon),
+                                       group=group, replicas=replicas)
+        # shares: the trainer sums each over the replicas
+        return loss / replicas, {
+            "psnr": psnr / replicas,
+            "codebook_perplexity": torch.exp(entropy) / replicas,
+            "frechet_feature_distance": ffd / replicas,
         }
 
     return vae, vae.init, train_loss, eval_loss

@@ -7,9 +7,13 @@ fp32 master parameters. Over several processes (a ``parallel.mesh.Mesh``)
 every rank holds the parameter tree (on a tensor-parallel axis, its blocks
 of the split leaves: ``sharding``) and its own rows and sequence shard of
 the batch; its loss is its share of the global mean, so the gradients are
-summed over the mesh's replicas (``Mesh.replica_group``: the world without
-the tensor-parallel axis, whose ranks hold the same loss) before the clip
-and every rank takes the same step; the metrics are summed the same way.
+summed over the mesh's replicas (``Mesh.replica_group``: the ranks that
+differ only on the data axes, ``Mesh.data_axes``) before the clip; the
+ranks that differ only on a tensor-parallel or a replicate-only axis hold
+copies of a leaf, which each compute its gradient on their own (cuDNN's
+default algorithms are not bit-reproducible), so the first of them
+broadcasts its gradient to the others (``Trainer._agree``) and every copy
+takes the same step. The metrics are summed over the replicas too.
 Rank 0 alone writes checkpoints and summaries, behind a barrier; every rank
 restores. Kept from the JAX loop:
 
@@ -23,13 +27,17 @@ restores. Kept from the JAX loop:
   ``summary_fn(trainer, state, step)`` (the VAE's image summaries);
 - a data stream that runs out between checkpoints saves its tail.
 
-Checkpoints are ``torch.save`` files ``<model_dir>/checkpoints/ckpt_<step>.pt``
-holding the step, the parameter tree and the optimizer state (under
-``skip_nonfinite_updates``, with the skip state of ``optim.SkipNonfinite``).
-A checkpoint is always the whole, unpadded tree and state a single process
-writes: under tensor parallelism the blocks are gathered over the model
-group before rank 0 writes, and every rank slices its blocks on restore, so
-a checkpoint moves between layouts.
+Checkpoints are files in ``torch.save``'s format,
+``<model_dir>/checkpoints/ckpt_<step>.pt``, holding the step, the parameter
+tree and the optimizer state (under ``skip_nonfinite_updates``, with the
+skip state of ``optim.SkipNonfinite``). A checkpoint is always the whole,
+unpadded tree and state a single process writes, so it moves between
+layouts. Rank 0 writes it one leaf at a time (``utils/checkpoint.py``):
+under tensor parallelism each leaf's blocks are sent to rank 0's host by
+the ranks of its model group when the leaf's turn comes
+(``gather_to_host``), so no card holds a block it does not own and rank 0's
+host one leaf. On restore every rank maps the file and copies out its own
+blocks (``restored_bytes`` counts them).
 A step the optimizer skips (non-finite gradients) is counted and logged as
 any other, as in the JAX loop: its loss and ``grad_norm`` are not finite,
 ``lr`` is the schedule at the step; the optimizer's own count, and so the
@@ -42,7 +50,6 @@ import logging
 import math
 import os
 import re
-import tempfile
 import time
 from typing import Any, Callable, Iterator, Mapping
 
@@ -51,8 +58,9 @@ import torch
 import torch.distributed as dist
 
 from dalle_mtf_tpu_torch.parallel.mesh import BATCH, parse_layout
-from dalle_mtf_tpu_torch.parallel.tensor import all_reduce, gather, shard
+from dalle_mtf_tpu_torch.parallel.tensor import all_reduce, broadcast, gather_to_host, shard
 from dalle_mtf_tpu_torch.train.optim import get_optimizer, named_leaves
+from dalle_mtf_tpu_torch.utils import checkpoint
 from dalle_mtf_tpu_torch.utils.summaries import MetricsWriter
 
 logger = logging.getLogger(__name__)
@@ -102,13 +110,18 @@ def step_generator(seed: int, stream: int, index: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
-def _all_reduce_sum(tensors, group=None) -> None:
-    """Sum fp32 ``tensors`` over ``group`` (None: the world) in place, as
-    one flat buffer (one collective instead of one a leaf)."""
+def _flat_collective(tensors, collective) -> None:
+    """``collective`` in place on fp32 ``tensors`` as one flat buffer (one
+    collective instead of one a leaf)."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    all_reduce(flat, group)
+    collective(flat)
     torch._foreach_copy_(tensors, [c.view_as(t) for c, t in
                                    zip(flat.split([t.numel() for t in tensors]), tensors)])
+
+
+def _all_reduce_sum(tensors, group=None) -> None:
+    """Sum fp32 ``tensors`` over ``group`` (None: the world) in place."""
+    _flat_collective(tensors, lambda flat: all_reduce(flat, group))
 
 
 class Trainer:
@@ -144,6 +157,7 @@ class Trainer:
         self.history: list[dict] = []
         self.eval_history: list[dict] = []
         self.state: dict | None = None  # after run(): the state of the last step
+        self.restored_bytes = 0  # what the last restore copied out of the file
         logger.info("trainer: device=%s microbatches=%d", self.device, self.num_mb)
 
     # ----------------------------------------------------------------- state
@@ -192,12 +206,27 @@ class Trainer:
             loss.backward()
         if self.mesh and self.mesh.replicas > 1:
             _all_reduce_sum([t.grad for t in opt.leaves], self.mesh.replica_group)
+        if self.mesh and self.mesh.copies > 1:
+            self._agree(opt)
         grad_norm = opt.step()
         state["step"] = step + 1
         metrics = self._reduce({"loss": loss.detach().float(),
                                 **{k: v.detach().float() for k, v in aux.items()}})
         return state, {**metrics, "grad_norm": grad_norm,
                        "lr": torch.tensor(self.schedule(step))}
+
+    def _agree(self, opt) -> None:
+        """Every copy of a leaf takes the gradient of the first: a
+        replicated leaf's over ``Mesh.copy_group``, a block of a split leaf
+        over ``Mesh.block_copy_group`` (one flat broadcast each)."""
+        mesh = self.mesh
+        split = [self.sharding is not None and self.sharding.of(p) is not None
+                 for p, _ in opt.named]
+        for ranks, group, of_split in ((mesh.copy_ranks, mesh.copy_group, False),
+                                       (mesh.block_copy_ranks, mesh.block_copy_group, True)):
+            grads = [t.grad for (_, t), s in zip(opt.named, split) if s == of_split]
+            if ranks and grads:
+                _flat_collective(grads, lambda flat: broadcast(flat, ranks[0], group))
 
     def _reduce(self, metrics: dict) -> dict:
         """Each rank's shares of the metrics, summed over the replicas."""
@@ -229,56 +258,80 @@ class Trainer:
         steps = self.checkpoint_steps()
         return steps[-1] if steps else 0
 
-    def _gather(self, t, split):
-        return gather(t, split, self.sharding.group if self.sharding else None)
+    def _writers(self) -> list[int] | None:
+        """The global ranks that take part in writing a checkpoint: rank 0's
+        model group in axis order (rank 0 first), [0] without tensor
+        parallelism; None for a rank outside it."""
+        ranks = [0]
+        if self.sharding is not None:
+            ranks = self.mesh.ranks(self.mesh.tp_axis)
+            if ranks[0] != 0:
+                return None
+        return ranks if self.rank in ranks else None
+
+    @staticmethod
+    def _lazy(ranks):
+        """The checkpoint leaf of a tensor and its split: the tensor where it
+        is replicated (rank 0 copies it to its host at its turn), else a
+        Lazy whole leaf gathered to rank 0's host at its turn."""
+        def leaf(t, split):
+            if split is None:
+                return t
+            shape = list(t.shape)
+            shape[split.dim] = split.size
+            return checkpoint.Lazy(tuple(shape), t.dtype,
+                                   lambda: gather_to_host(t, split, ranks))
+        return leaf
 
     def save(self, state: dict, step: int | None = None) -> None:
         """Write ckpt_<step>.pt atomically, then keep the newest
         ``max_to_keep``. On a mesh rank 0 writes (every replica holds the
-        same state; a tensor-parallel one's blocks are gathered first, by
-        every rank) and every rank waits for it."""
-        sharding = self.sharding
-        obj = {
-            "params": {"/".join(p): self._gather(t, sharding.of(p) if sharding else None)
-                       for p, t in named_leaves(state["params"])},
-            "opt_state": state["opt"].state_dict(self._gather if sharding else None),
-        }
-        if self.rank == 0:
-            self._write(obj, state["step"] if step is None else step)
+        same state), leaf by leaf, the ranks of its model group sending
+        their blocks of each split leaf at its turn, and every rank waits
+        for it."""
+        step = state["step"] if step is None else step
+        ranks = self._writers()
+        if ranks is not None:
+            sharding = self.sharding
+            leaf = self._lazy(ranks)
+            tree = {
+                "step": step,
+                "params": {"/".join(p): leaf(t, sharding.of(p) if sharding else None)
+                           for p, t in named_leaves(state["params"])},
+                "opt_state": state["opt"].state_dict(leaf),
+            }
+            if self.rank == 0:
+                os.makedirs(self.ckpt_dir, exist_ok=True)
+                checkpoint.write(os.path.join(self.ckpt_dir, f"ckpt_{step}.pt"), tree)
+                for old in self.checkpoint_steps()[:-self.max_to_keep]:
+                    os.unlink(os.path.join(self.ckpt_dir, f"ckpt_{old}.pt"))
+            else:
+                checkpoint.write(None, tree)
         if self.mesh:
             dist.barrier()
 
-    def _write(self, obj: dict, step: int) -> None:
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        obj = {"step": step, "params": {k: t.detach() for k, t in obj["params"].items()},
-               "opt_state": obj["opt_state"]}
-        fd, tmp = tempfile.mkstemp(dir=self.ckpt_dir, suffix=".tmp")
-        os.close(fd)
-        try:
-            torch.save(obj, tmp)
-            os.replace(tmp, os.path.join(self.ckpt_dir, f"ckpt_{step}.pt"))
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        for old in self.checkpoint_steps()[:-self.max_to_keep]:
-            os.unlink(os.path.join(self.ckpt_dir, f"ckpt_{old}.pt"))
+    def _block(self, t: torch.Tensor, split) -> torch.Tensor:
+        """This rank's block of a mapped whole leaf, copied to the device
+        (counted in ``restored_bytes``)."""
+        block = shard(t, split)
+        self.restored_bytes += block.numel() * block.element_size()
+        out = torch.empty(block.shape, dtype=block.dtype, device=self.device)
+        return out.copy_(block)
 
     def restore(self, state: dict) -> dict:
         """Load the latest checkpoint into ``state`` in place (unchanged when
-        there is none)."""
+        there is none). Every rank maps the file and copies its blocks."""
         steps = self.checkpoint_steps()
         if not steps:
             return state
         sharding = self.sharding
-        # a tensor-parallel rank reads the whole tree on the host and copies
-        # its blocks
-        obj = torch.load(os.path.join(self.ckpt_dir, f"ckpt_{steps[-1]}.pt"),
-                         map_location="cpu" if sharding else self.device, weights_only=True)
+        self.restored_bytes = 0
+        obj = checkpoint.read(os.path.join(self.ckpt_dir, f"ckpt_{steps[-1]}.pt"))
         with torch.no_grad():
             for path, t in named_leaves(state["params"]):
-                t.copy_(shard(obj["params"]["/".join(path)],
-                              sharding.of(path) if sharding else None))
-        state["opt"].load_state_dict(obj["opt_state"], shard if sharding else None)
+                t.copy_(self._block(obj["params"]["/".join(path)],
+                                    sharding.of(path) if sharding else None))
+        state["opt"].load_state_dict(obj["opt_state"], self._block)
         state["step"] = int(obj["step"])
         logger.info("restored checkpoint at step %d", state["step"])
         return state

@@ -3,9 +3,10 @@ frozen stage-1 VAE's parameters, read out of its training checkpoint for use
 in another program (DALLE training in image mode, the offline dataset
 encoder).
 
-The port's VAE checkpoints are ``train_vae``'s ``torch.save`` files,
-``<model_path>/checkpoints/ckpt_<step>.pt`` (``Trainer._write``: the tree
-under ``"params"`` with ``/``-joined keys); the latest is restored. A VAE
+The port's VAE checkpoints are ``train_vae``'s files in ``torch.save``'s
+format, ``<model_path>/checkpoints/ckpt_<step>.pt`` (``Trainer.save``: the
+whole tree under ``"params"`` with ``/``-joined keys); the latest is
+restored. A VAE
 trained by the JAX package comes across as an ``.npz`` in
 ``utils/convert.py::save_npz``'s format (``tools/export_vae_npz.py`` writes
 one from its orbax checkpoint), given in place of the directory.

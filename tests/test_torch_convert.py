@@ -160,11 +160,13 @@ def test_port_never_imports_jax():
         "train.predict", "sample_dalle",
         # tensor parallelism
         "parallel.mesh", "parallel.tensor",
+        # the sharded init's keyed draws and the streamed checkpoints
+        "utils.seeds", "utils.checkpoint",
     ]
     code = (
         "import pkgutil, sys, dalle_mtf_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'dalle_mtf_tpu_torch.')]\n"
-        "assert len(mods) >= 31, mods\n"
+        "assert len(mods) >= 33, mods\n"
         f"missing = {['dalle_mtf_tpu_torch.' + m for m in training]!r}\n"
         "assert not set(missing) - set(mods), sorted(set(missing) - set(mods))\n"
         "for m in mods: __import__(m)\n"

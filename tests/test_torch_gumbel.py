@@ -66,15 +66,12 @@ def test_gumbel_softmax_over_another_dim(monkeypatch):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_gumbel_uniform_stays_in_range(monkeypatch):
-    """torch.rand's [0, 1) maps onto [1e-9, 1): 0 -> 1e-9 (log(0) never
-    occurs) and the largest fp32 below 1 stays below 1."""
-    edges = torch.tensor([0.0, 1.0 - 2.0 ** -24])
-    monkeypatch.setattr(torch, "rand", lambda *a, **k: edges.clone())
-    u = tgumbel.gumbel_uniform((2,), torch.Generator(), "cpu")
+def test_gumbel_uniform_stays_in_range():
+    """The draw's 24-bit integers map onto [1e-9, 1): 0 -> 1e-9 (log(0)
+    never occurs) and the largest, 2^24 - 1, stays below 1."""
+    u = tgumbel.uniform_from_bits(torch.tensor([0, 2**24 - 1]))
     assert u.dtype == torch.float32
     assert u[0].item() == pytest.approx(1e-9, rel=1e-6) and u[1].item() < 1.0
-    monkeypatch.undo()
     u = tgumbel.gumbel_uniform((100_000,), torch.Generator().manual_seed(1), "cpu")
     assert u.min().item() >= 1e-9 and u.max().item() < 1.0
     g = -torch.log(-torch.log(u))

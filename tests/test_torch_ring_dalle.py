@@ -183,32 +183,34 @@ def test_train_dalle_data2_seq2_resume_equals_unbroken_run(tmp_path):
         torch.testing.assert_close(got[name], want[name], rtol=0, atol=0, msg=name)
 
 
-@pytest.mark.parametrize("mesh_shape,layout,tensor", [
-    ("data:2,model:2", "batch_dim:data,heads_dim:model", True),
-    ("data:2,model:2", "batch_dim:data,intermediate_expanded:model", True),
-    ("data:2,model:2", "batch_dim:data,vocab_dim:model", True),
-    ("pipe:2,data:2", "batch_dim:data,layers:pipe", False),
-    ("data:2,model:2", "batch_dim:data", False),  # an axis that would only replicate
-    ("data:1,seq:2,model:2", "batch_dim:data,total_seq_dim:seq,heads_dim:model", False),
+@pytest.mark.parametrize("mesh_shape,layout,kind", [
+    ("data:2,model:2", "batch_dim:data,heads_dim:model", "tensor"),
+    ("data:2,model:2", "batch_dim:data,intermediate_expanded:model", "tensor"),
+    ("data:2,model:2", "batch_dim:data,vocab_dim:model", "tensor"),
+    ("pipe:2,data:2", "batch_dim:data,layers:pipe", "refused"),
+    ("data:2,model:2", "batch_dim:data", "replicate"),  # an axis that only replicates
+    ("data:1,seq:2,model:2", "batch_dim:data,total_seq_dim:seq,heads_dim:model", "refused"),
 ])
-def test_tp_and_pp_layouts_raise_above_one_process(mesh_shape, layout, tensor):
+def test_tp_and_pp_layouts_raise_above_one_process(mesh_shape, layout, kind):
     """Tensor-parallel layouts build a mesh (a fake 4-rank process group)
-    under global attention, and raise under ring attention (TP x SP); a
-    pipeline layout, a replicate-only axis and TP beside a sequence axis
-    raise under either."""
+    under global attention, and raise under ring attention (TP x SP); an
+    axis that only replicates builds under either, with the batch axis's 2
+    replicas; a pipeline layout and TP beside a sequence axis raise under
+    either."""
     from test_torch_tp_dalle import fake_world
 
     for attention in ("global", "ring"):
-        if tensor and attention == "global":
+        if kind == "replicate" or (kind == "tensor" and attention == "global"):
             with fake_world(4):
                 mesh = tmesh.build_mesh(mesh_shape, layout, attention, rank=0, world=4)
-                assert mesh.tp_axis == "model" and mesh.replicas == 2
+                assert mesh.tp_axis == ("model" if kind == "tensor" else None)
+                assert mesh.replicas == 2
         else:
             with pytest.raises(NotImplementedError, match="not ported"):
                 tmesh.build_mesh(mesh_shape, layout, attention, rank=0, world=4)
         # one process: every axis resizes to 1, one device, accepted
         assert tmesh.build_mesh(mesh_shape, layout, attention).world == 1
-    if tensor:
+    if kind == "tensor":
         with pytest.raises(NotImplementedError, match="TP x SP"):
             tmesh.build_mesh(mesh_shape, layout, "ring", rank=0, world=4)
     # a sequence axis needs ring attention

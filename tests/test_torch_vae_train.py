@@ -415,11 +415,14 @@ def test_train_vae_refuses_what_it_cannot_run(tmp_path, monkeypatch):
                        layout="batch_dim:data", eval_steps=0)
         trained = train_vae.main(["--model", path, "--device", "cpu"])
         assert [h["step"] for h in trained.history] == [1]
-    # several processes: VAE data parallelism is not ported
+    # several processes: VAE data parallelism and the codebook split train
+    # (tests/test_torch_vae_dp.py); a rule on vae_hid_dim or the conv dims
+    # is not ported and raises before the process group is joined
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-        train_vae.main(["--model", _config(tmp_path, "dp", 2, mesh_shape="data:2"),
-                        "--device", "cpu"])
+    for layout in ("batch_dim:data,vae_hid_dim:model", "batch_dim:data,conv_cout:model"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 5h"):
+            train_vae.main(["--model", _config(tmp_path, "tp", 2, mesh_shape="data:1,model:2",
+                                               layout=layout), "--device", "cpu"])
     monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(ValueError, match="not a vae config"):
         train_vae.main(["--model", _config(tmp_path, "dalle", 2, model_type="dalle"),

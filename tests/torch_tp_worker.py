@@ -6,7 +6,8 @@ backend:
         tests/torch_tp_worker.py <mode> <inputs.pt> <out_dir>
 
 Every mode reads its cases from the inputs (a list, so that one launch
-serves several) and rank 0 writes ``<out_dir>/out.pt``, one result a case.
+serves several; a case's own ``mode`` overrides the launch's) and rank 0
+writes ``<out_dir>/out.pt``, one result a case.
 
 ``xent``: ``chunked_softmax_xent_auto`` (loss, dx, and dw/db gathered over
 the model group) and ``chunked_xent_eval_auto`` on this rank's block of the
@@ -16,12 +17,27 @@ blocks, gathered over the model group and summed over the replicas) on the
 case's mesh and layout, the batch rows split over the data axis; with
 ``steps``, that many optimizer steps instead (the config's optimizer with
 its clip and ``skip_nonfinite_updates``), and the whole parameters and
-losses after them. ``train``: ``train_dalle.main`` on each case's argv in
-turn, in one process group (a case with ``raises`` must raise
-NotImplementedError naming it); rank 0's logged history and eval history.
+losses after them (a ``replicated`` case's layout splits nothing).
+``train``: ``train_dalle.main`` on each case's argv in turn, in one process
+group (a case with ``raises`` must raise NotImplementedError naming it);
+rank 0's logged history and eval history. ``train_vae``: the same through
+``train_vae.main``. ``vae_step``: ``steps`` ``Trainer.train_step``s of the
+VAE task on the case's mesh and layout from the whole tree ``params``, the
+rows of ``images`` split over the batch axis and the Gumbel draw the
+rows and columns of ``u`` the rank holds (with ``perturb``, every copy
+but the first of a leaf or a block scales its gradient by 1 + perturb);
+the losses, the first and the last step's gradients and the final
+parameters (whole), the eval metrics of ``Trainer.eval_step`` after, and
+every rank's copy groups (``Mesh.copy_ranks``, ``block_copy_ranks``) and
+digests of its replicated leaves and its blocks. ``ckpt``: a DALLE ``Trainer`` on
+``data:1,model:<world>`` takes one step and saves (rank 0 writes the whole
+tree); then a Trainer on ``data:<world/2>,model:2`` restores it, every rank
+checking that it holds the file's blocks bit for bit and that it copied
+only them (``restored_bytes``); rank 0 returns every rank's figures.
 Imports torch and the port only.
 """
 
+import hashlib
 import os
 import sys
 
@@ -33,7 +49,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from dalle_mtf_tpu_torch.models.dalle import DALLE, DalleConfig  # noqa: E402
 from dalle_mtf_tpu_torch.ops import xent_fused  # noqa: E402
 from dalle_mtf_tpu_torch.parallel.mesh import Split, build_mesh, split_bounds  # noqa: E402
-from dalle_mtf_tpu_torch.parallel.tensor import gather  # noqa: E402
+from dalle_mtf_tpu_torch.parallel.tensor import gather, shard  # noqa: E402
 from dalle_mtf_tpu_torch.train.optim import get_optimizer, named_leaves  # noqa: E402
 from dalle_mtf_tpu_torch.utils import convert  # noqa: E402
 from dalle_mtf_tpu_torch.utils.distributed import init_distributed  # noqa: E402
@@ -84,7 +100,8 @@ def dalle_step(case, proc):
     mesh = build_mesh(case["mesh_shape"], case["layout"], cfg.attention_type, proc.rank,
                       proc.world)
     model = DALLE(cfg, "cpu", mesh)
-    assert model.sharding is not None  # every case splits something
+    # every case splits something, but an axis that only replicates
+    assert (model.sharding is None) == bool(case.get("replicated"))
     tree = convert.shard_dalle_params(case["params"], model)
     for _, t in named_leaves(tree):
         t.requires_grad_(True)
@@ -123,18 +140,122 @@ def dalle_step(case, proc):
     return {"losses": losses, "params": {"/".join(p): a for p, a in named_leaves(final)}}
 
 
-def train(case, proc):
-    from dalle_mtf_tpu_torch import train_dalle  # noqa: PLC0415
+def train(case, proc, cli="train_dalle"):
+    import importlib  # noqa: PLC0415
 
+    main_ = importlib.import_module(f"dalle_mtf_tpu_torch.{cli}").main
     if case.get("raises"):
         try:
-            train_dalle.main(case["argv"])
+            main_(case["argv"])
         except NotImplementedError as e:
             assert case["raises"] in str(e), e
             return {"raised": str(e)}
         raise AssertionError(f"{case['argv']} did not raise")
-    trainer = train_dalle.main(case["argv"])
+    trainer = main_(case["argv"])
     return {"history": trainer.history, "eval_history": trainer.eval_history}
+
+
+def _vae_whole(vae, tree):
+    """The whole VAE tree (numpy) from this rank's: the codebook gathered."""
+    out = {}
+    for p, t in named_leaves(tree):
+        split = vae.sharding.of(p) if vae.sharding else None
+        out["/".join(p)] = gather(t.detach(), split, vae._tp).numpy()
+    return out
+
+
+def vae_step(case, proc, out_dir):
+    from dalle_mtf_tpu_torch.ops import gumbel  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.tasks import make_vae_task  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.trainer import Trainer  # noqa: PLC0415
+
+    u = torch.as_tensor(case["u"])
+
+    def same_u(shape, generator, device, block=None):
+        row0, col0, _ = block
+        return u[row0:row0 + shape[0], ..., col0:col0 + shape[-1]].to(device)
+
+    gumbel.gumbel_uniform = same_u
+    params = case["params"]
+    mesh = build_mesh(case["mesh_shape"], case["layout"], "global", proc.rank, proc.world)
+    vae, init_fn, loss_fn, eval_fn = make_vae_task(params, "cpu", mesh)
+    assert (vae.sharding is not None) == ("tokens_dim" in case["layout"])
+    tree = {k: v for k, v in convert.vae_params_from_numpy(case["tree"], vae).items()}
+    if vae.sharding is not None:
+        tree = {k: (shard(v, vae.sharding.of((k,))).clone() if k == "codebook" else v)
+                for k, v in tree.items()}
+    split = {p: vae.sharding is not None and vae.sharding.of(p) is not None
+             for p, _ in named_leaves(tree)}
+    for p, t in named_leaves(tree):
+        t.requires_grad_(True)
+        copies = mesh.block_copy_ranks if split[p] else mesh.copy_ranks
+        if case.get("perturb") and copies and copies.index(proc.rank):
+            # as a non-reproducible kernel would: this copy's gradient differs
+            t.register_hook(lambda g: g * (1 + case["perturb"]))
+    trainer = Trainer(params, init_fn, loss_fn, os.path.join(out_dir, f"vae_{proc.rank}"),
+                      vae.cfg.image_seq_len, "cpu", eval_loss_fn=eval_fn, mesh=mesh,
+                      sharding=vae.sharding)
+    opt, trainer.schedule = get_optimizer(params, tree, vae.sharding)
+    state = {"step": 0, "params": tree, "opt": opt}
+    n = mesh.size("data")
+    rows = case["images"].shape[0] // n
+    i = mesh.index("data")
+    batch = {"image": case["images"][i * rows:(i + 1) * rows]}
+    losses, grads = [], []
+    for step in range(case["steps"]):
+        state, metrics = trainer.train_step(state, batch, torch.Generator().manual_seed(step))
+        losses.append(float(metrics["loss"]))
+        grads.append({"/".join(p): gather(t.grad, vae.sharding.of(p) if vae.sharding else None,
+                                          vae._tp).numpy() for p, t in named_leaves(tree)})
+    metrics = trainer.eval_step(state, batch, torch.Generator().manual_seed(0))
+    trainer.close()
+    digests = [hashlib.sha256(b"".join(t.detach().numpy().tobytes()
+                                       for p, t in named_leaves(tree) if split[p] == of_split))
+               .hexdigest() for of_split in (False, True)]
+    copies = [None] * proc.world
+    dist.all_gather_object(copies, (mesh.copy_ranks, mesh.block_copy_ranks, *digests))
+    return {"losses": losses, "grads": grads, "params": _vae_whole(vae, tree),
+            "eval": {k: float(v) for k, v in metrics.items()}, "replicas": mesh.replicas,
+            "copies": copies}
+
+
+def ckpt(case, proc, out_dir):
+    from dalle_mtf_tpu_torch.train.trainer import Trainer  # noqa: PLC0415
+
+    cfg = DalleConfig(**case["config"])
+    model_dir = os.path.join(out_dir, "ckpt_run")
+    figures = {}
+    for phase, shape in (("save", f"data:1,model:{proc.world}"),
+                         ("restore", f"data:{proc.world // 2},model:2")):
+        mesh = build_mesh(shape, case["layout"], "global", proc.rank, proc.world)
+        model = DALLE(cfg, "cpu", mesh)
+        trainer = Trainer(case["opt_params"], model.init, lambda p, _f, b, g, s: (
+            model.loss(p, b["tokens"], g, train=True)[0], {}), model_dir, cfg.total_seq_len,
+            "cpu", mesh=mesh, sharding=model.sharding)
+        state = trainer.init_state(torch.Generator().manual_seed(case["seed"]))
+        if phase == "save":
+            figures["drawn_elements"] = model.drawn_elements
+            state, _ = trainer.train_step(state, {"tokens": case["tokens"]},
+                                          torch.Generator().manual_seed(1))
+            trainer.save(state)
+            continue
+        state = trainer.restore(state)
+        saved = torch.load(os.path.join(trainer.ckpt_dir, "ckpt_1.pt"), weights_only=True)
+        for p, t in named_leaves(state["params"]):
+            want = shard(saved["params"]["/".join(p)], model.sharding.of(p))
+            assert torch.equal(t.detach(), want), p
+        moments = state["opt"].state_dict()["adamw"]["state"]
+        saved_moments = saved["opt_state"]["adamw"]["state"]
+        for i, split in enumerate(state["opt"]._state_splits):
+            for k in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(moments[i][k], shard(saved_moments[i][k], split)), (i, k)
+        local = sum(t.numel() * t.element_size() for _, t in named_leaves(state["params"]))
+        figures.update(restored_bytes=trainer.restored_bytes, local_param_bytes=local,
+                       step=state["step"])
+        trainer.close()
+    everyone = [None] * proc.world
+    dist.all_gather_object(everyone, figures)
+    return everyone
 
 
 def main():
@@ -143,8 +264,12 @@ def main():
     try:
         torch.set_num_threads(1)
         cases = torch.load(inputs, weights_only=False)
-        fn = {"xent": xent, "dalle_step": dalle_step, "train": train}[mode]
-        results = [fn(case, proc) for case in cases]
+        modes = {"xent": xent, "dalle_step": dalle_step, "train": train,
+                 "train_vae": lambda case, proc: train(case, proc, "train_vae"),
+                 "vae_step": lambda case, proc: vae_step(case, proc, out_dir),
+                 "ckpt": lambda case, proc: ckpt(case, proc, out_dir)}
+        # a case may name its own mode: one launch serves several
+        results = [modes[case.get("mode", mode)](case, proc) for case in cases]
         if proc.rank == 0:
             torch.save(results, os.path.join(out_dir, "out.pt"))
         dist.barrier()
