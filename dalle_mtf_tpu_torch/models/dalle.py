@@ -42,7 +42,10 @@ the vocabulary. The ranks of a group hold the same loss, and the trainer
 sums over the other axes only (``Mesh.replica_group``). Every dropout draws
 the single process's mask: the residual and embedding masks from the
 generator every rank shares, the attention hash with the rank's heads at
-their single-process program index (``head0``, ``heads_total``).
+their single-process program index (``head0``, ``heads_total``). The KV-cache
+path runs on the same blocks: a rank's cache holds its heads, and the head's
+banded logits are joined over the group (``_head_logits``), so every rank of
+a group samples the same tokens from the same logits.
 
 Remat (``recompute_grad`` in training): each block is one
 ``torch.utils.checkpoint`` region, as each step of the JAX layer scan is one
@@ -121,6 +124,7 @@ from dalle_mtf_tpu_torch.parallel.mesh import (
 )
 from dalle_mtf_tpu_torch.parallel.tensor import (
     Sharding,
+    all_reduce,
     copy_to_model,
     reduce_from_model,
     vocab_parallel_embedding,
@@ -335,12 +339,16 @@ class Head(NamedTuple):
     """The output projection's columns one generation reads, built once by
     ``DALLE.logits_head``: ``w`` fp32 [E, n] (unquantized), or contiguous
     int8 [E, n] / packed int4 [E/2, n] with ``scale`` fp32 [1, n]; ``b`` fp32
-    [n]."""
+    [n]. On a mesh that splits the vocabulary the n columns are this rank's
+    part of the head's span of ``width`` columns, starting at ``col0`` in it
+    (n may be 0); else ``col0`` is 0 and n the whole span."""
 
     w: torch.Tensor
     scale: torch.Tensor | None
     b: torch.Tensor
     int4: bool
+    col0: int = 0
+    width: int = 0
 
 
 class DALLE(nn.Module):
@@ -553,8 +561,11 @@ class DALLE(nn.Module):
         """Whether a quantized [m, k] product goes through the streaming
         dequant kernels: decode geometry and a K the kernels were sized for.
         The device does not enter: a CUDA tensor launches the kernel, a CPU
-        tensor runs its plain version."""
-        return self.cfg.decode_kernels and m <= 32 and k % 256 == 0
+        tensor runs its plain version. A model split over a tensor-parallel
+        axis keeps the dequant einsum forms, as the JAX CLIs turn
+        ``decode_kernels`` off on a mesh of more than one device."""
+        return (self.cfg.decode_kernels and self.sharding is None and m <= 32
+                and k % 256 == 0)
 
     def _matmul_w(self, p, name, x, heads: int | None = None):
         """x [..., K] times layer weight ``name`` viewed as [K, N] -> [..., N]
@@ -643,15 +654,22 @@ class DALLE(nn.Module):
         Unquantized: rounded through the compute dtype as the JAX head reads
         them, held as fp32. Quantized: the int8 or packed bytes and their
         scales, sliced and made contiguous here, because a column slice of
-        [E, V] has V's row stride and the kernels read dense rows."""
+        [E, V] has V's row stride and the kernels read dense rows. Where the
+        vocabulary is split, the columns of [lo, hi) that this rank's block
+        of w_out holds (none, some or all of them)."""
         lo, hi = band if band is not None else (0, self.cfg.total_tokens)
-        b = params["b_out"][lo:hi].float()
+        split = self._split(("w_out",))
+        c0, c1 = (split.start, split.stop) if split else (0, self.cfg.total_tokens)
+        a = min(max(lo, c0), c1)
+        cols = slice(a - c0, max(min(hi, c1), a) - c0)
+        b = params["b_out"][cols].float()
         scale = params.get("w_out_scale")
         if scale is None:
-            w = params["w_out"][:, lo:hi].to(self.cfg.policy.compute_dtype)
-            return Head(w.float().contiguous(), None, b, False)
-        return Head(params["w_out"][:, lo:hi].contiguous(),
-                    scale[:, lo:hi].float().contiguous(), b, "w_out_int4" in params)
+            w = params["w_out"][:, cols].to(self.cfg.policy.compute_dtype)
+            return Head(w.float().contiguous(), None, b, False, a - lo, hi - lo)
+        return Head(params["w_out"][:, cols].contiguous(),
+                    scale[:, cols].float().contiguous(), b, "w_out_int4" in params, a - lo,
+                    hi - lo)
 
     def _last_logits(self, head: Head, x_last):
         """[B, E] final-LN'd hidden -> fp32 logits [B, n] over the head's
@@ -681,6 +699,20 @@ class DALLE(nn.Module):
             return (x[:, : e // 2].float() @ (lo.to(dtype) * sc).float()
                     + x[:, e // 2:].float() @ (hi.to(dtype) * sc).float() + head.b)
         return x.float() @ (head.w.to(dtype) * sc).float() + head.b
+
+    def _head_logits(self, head: Head, x_last):
+        """``_last_logits`` over the head's whole span on every rank: where
+        the vocabulary is split, each rank's part is placed in zeros [B,
+        width] and the parts are summed over the model group. Exact, since
+        each column has one non-zero term, so every rank holds the same
+        logits bit for bit and the same sampling draws the same token."""
+        part = self._last_logits(head, x_last)
+        group = self._vocab_group
+        if group is None:
+            return part
+        out = part.new_zeros((part.shape[0], head.width))
+        out[:, head.col0:head.col0 + part.shape[1]] = part
+        return all_reduce(out, group)
 
     def _layers(self, params) -> list[dict]:
         """Per-layer views of the stacked [L, ...] parameters. ``unbind``
@@ -861,9 +893,7 @@ class DALLE(nn.Module):
         cfg = self.cfg
         dtype = cfg.policy.compute_dtype
         seq = self._seq_slice(tokens.shape[1])
-        x = vocab_parallel_embedding(params["wte"], tokens[:, seq], self._split(("wte",)),
-                                     self._tp, dtype)
-        x = x + params["wpe"][seq].to(dtype)
+        x = self._embed(params, tokens[:, seq]) + params["wpe"][seq].to(dtype)
         x = self._dropout(_seed(generator, cfg.embed_dropout, train), x, cfg.embed_dropout)
         context_fn = self._remat(train)
         for p in self._layers(params):
@@ -974,9 +1004,10 @@ class DALLE(nn.Module):
     # --------------------------------------------------------- KV-cache path
 
     def init_cache(self, batch: int, max_len: int | None = None) -> dict:
+        """The KV cache [L, B, H, S, D] of this rank's heads, zeroed."""
         cfg = self.cfg
         s = max_len or cfg.total_seq_len
-        shape = (cfg.n_layers, batch, cfg.n_heads, s, cfg.head_dim)
+        shape = (cfg.n_layers, batch, self.heads[1], s, cfg.head_dim)
         dtype = cfg.policy.compute_dtype
         return {
             "k": torch.zeros(shape, dtype=dtype, device=self.device),
@@ -987,7 +1018,10 @@ class DALLE(nn.Module):
         """Run the prompt through the model, writing cache[:, :, :, :S] in
         place. Returns fp32 logits at the last position, [B, vocab] or
         [B, hi-lo] with ``band=(lo, hi)`` (``head`` from ``logits_head``
-        takes the band's place when the caller already built it)."""
+        takes the band's place when the caller already built it), the same
+        on every rank of a model group. On a tensor-parallel mesh each rank
+        attends over its heads (the kernel with ``head0``/``heads_total``,
+        JAX's ``causal_attention_tp``) and fills its heads' cache."""
         return self.prefill_rows(params, tokens, cache, None, band, head)
 
     def prefill_rows(self, params, tokens, cache: dict, row_mask,
@@ -1001,7 +1035,7 @@ class DALLE(nn.Module):
         # embeddings rounded to the compute dtype BEFORE the add
         # (dalle.py:1249), so bf16 rounds where JAX rounds (gathering
         # first and casting the rows is the same elementwise cast)
-        x = params["wte"][tokens].to(dtype) + params["wpe"][:t].to(dtype)
+        x = self._embed(params, tokens) + params["wpe"][:t].to(dtype)
         for layer, p in enumerate(self._layers(params)):
             a_in = self._layer_norm(x, p["ln1_g"], p["ln1_b"])
             q, k, v = self._qkv(p, a_in)
@@ -1015,7 +1049,7 @@ class DALLE(nn.Module):
                 else:
                     dst.copy_(torch.where(row_mask[:, None, None, None], new, dst))
         x = self._layer_norm(x[:, -1], params["lnf_g"], params["lnf_b"])
-        return self._last_logits(head or self.logits_head(params, band), x)
+        return self._head_logits(head or self.logits_head(params, band), x)
 
     def decode_step(self, params, cache: dict, token, position: int,
                     band=None, head=None):
@@ -1039,7 +1073,7 @@ class DALLE(nn.Module):
     def _decode(self, params, cache, token, pos, head):
         """The decode body: ``pos`` an int (every row) or a long [B]."""
         dtype = self.cfg.policy.compute_dtype
-        x = params["wte"][token].to(dtype) + params["wpe"][pos].to(dtype)
+        x = self._embed(params, token) + params["wpe"][pos].to(dtype)
         x = x[:, None, :]  # [B, 1, E]
         rows = None if isinstance(pos, int) else torch.arange(x.shape[0], device=x.device)
         for layer, p in enumerate(self._layers(params)):
@@ -1057,7 +1091,13 @@ class DALLE(nn.Module):
             m_in = self._layer_norm(x, p["ln2_g"], p["ln2_b"])
             x = x + self._mlp(p, m_in)
         x = self._layer_norm(x[:, 0], params["lnf_g"], params["lnf_b"])
-        return self._last_logits(head, x)
+        return self._head_logits(head, x)
+
+    def _embed(self, params, tokens):
+        """``wte[tokens]`` in the compute dtype, this rank's block of the
+        table joined over the model group where the vocabulary is split."""
+        return vocab_parallel_embedding(params["wte"], tokens, self._split(("wte",)), self._tp,
+                                        self.cfg.policy.compute_dtype)
 
 
 def _draw_seed(gen: torch.Generator | None) -> int:

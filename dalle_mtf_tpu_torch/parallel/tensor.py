@@ -154,6 +154,13 @@ def shard(t: torch.Tensor, split: Split | None) -> torch.Tensor:
     return t.narrow(split.dim, split.start, split.stop - split.start)
 
 
+def block_to(t: torch.Tensor, split: Split | None, device) -> torch.Tensor:
+    """This rank's block of a whole leaf ``t`` copied to ``device``: of a
+    leaf mapped from a checkpoint file, only the block's pages are read."""
+    block = shard(t, split)
+    return torch.empty(block.shape, dtype=block.dtype, device=device).copy_(block)
+
+
 def gather(t: torch.Tensor, split: Split | None, group) -> torch.Tensor:
     """The whole leaf from every rank's block ``t`` (a collective over
     ``group``; ``t`` itself when replicated). Blocks are padded to the

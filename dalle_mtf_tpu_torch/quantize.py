@@ -21,11 +21,23 @@ Int4 packing is split-half along the first contraction axis: byte r holds
 (q[r], q[r + n/2]) in its (low, high) nibbles, so the consuming matmul is
 two matmuls against same-shape nibble views (``nibble_views``), or one
 streaming kernel that splits each byte in registers (ops/decode_matmul.py).
+
+On a tensor-parallel mesh the quantizers take a rank's blocks and the
+model's ``Sharding`` and quantize after sharding, as the JAX CLIs do: where
+a leaf's contraction axis is split (``wo`` over the heads, ``w_mlp2`` over
+the MLP's width), each column's max is taken over the whole axis (a MAX
+all_reduce over the model group, GSPMD's reduction in JAX), so a rank's
+scales are the single process's columns bit for bit. A rank packs int4
+along its own block of the contraction axis, split-half, so the packed
+rows pair the rank's own halves of x: the products stay exact, only the
+order of the fp32 sum changes.
 """
 
 from __future__ import annotations
 
 import torch
+
+from dalle_mtf_tpu_torch.parallel.tensor import all_reduce
 
 
 def cast_decode_weights(params: dict, dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -67,22 +79,36 @@ _PACK_AXIS = {
 }
 
 
-def _quantize_one(w: torch.Tensor, axes, qmax: float):
+def _quantize_one(w: torch.Tensor, axes, qmax: float, group=None):
     """(int8 values, fp32 scale) with per-output-column scale = max-abs /
-    qmax over the contraction ``axes`` (keepdims)."""
+    qmax over the contraction ``axes`` (keepdims); with ``group``, the max
+    over every rank's block of a split contraction axis."""
     w = w.float()
-    scale = w.abs().amax(dim=axes, keepdim=True) / qmax
+    amax = w.abs().amax(dim=axes, keepdim=True)
+    if group is not None:
+        amax = all_reduce(amax, group, torch.distributed.ReduceOp.MAX)
+    scale = amax / qmax
     scale = scale.clamp_min(1e-12)
     q = torch.clamp(torch.round(w / scale), -qmax, qmax).to(torch.int8)
     return q, scale
 
 
-def quantize_layers_int8(params: dict) -> dict:
+def _group(sharding, name: str, axes):
+    """The model group where layer weight ``name``'s contraction ``axes``
+    hold its split dim, else None."""
+    split = sharding.of(("layers", name)) if sharding is not None else None
+    return sharding.group if split is not None and split.dim in axes else None
+
+
+def quantize_layers_int8(params: dict, sharding=None) -> dict:
     """A copy of ``params`` with the big layer weights and the output
-    projection in int8, plus a per-output-column ``<name>_scale`` fp32."""
+    projection in int8, plus a per-output-column ``<name>_scale`` fp32; a
+    rank's blocks with the model's ``sharding`` (see the module
+    docstring)."""
     layers = dict(params["layers"])
     for name, axes in _SPECS.items():
-        layers[name], layers[name + "_scale"] = _quantize_one(layers[name], axes, 127.0)
+        layers[name], layers[name + "_scale"] = _quantize_one(
+            layers[name], axes, 127.0, _group(sharding, name, axes))
     out = dict(params)
     out["layers"] = layers
     out["w_out"], out["w_out_scale"] = _quantize_one(params["w_out"], (0,), 127.0)
@@ -112,13 +138,15 @@ def unpack_int4(packed: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.cat(nibble_views(packed), dim=axis)
 
 
-def quantize_layers_int4(params: dict) -> dict:
+def quantize_layers_int4(params: dict, sharding=None) -> dict:
     """A copy of ``params`` with the big layer weights and the output
     projection packed int4 (split-half along the contraction axis), scales
-    max-abs / 7 under ``<name>_scale``, and ``<name>_int4`` markers."""
+    max-abs / 7 under ``<name>_scale``, and ``<name>_int4`` markers; a
+    rank's blocks with the model's ``sharding`` (see the module
+    docstring)."""
     layers = dict(params["layers"])
     for name, axes in _SPECS.items():
-        q, scale = _quantize_one(layers[name], axes, 7.0)
+        q, scale = _quantize_one(layers[name], axes, 7.0, _group(sharding, name, axes))
         layers[name] = pack_int4(q, _PACK_AXIS[name])
         layers[name + "_scale"] = scale
         # presence marker, stacked [L] like the layer weights
@@ -129,7 +157,6 @@ def quantize_layers_int4(params: dict) -> dict:
     out["w_out"] = pack_int4(q, 0)
     out["w_out_int4"] = torch.ones((), dtype=torch.int8, device=q.device)
     return out
-
 
 
 def quantized_shapes(shapes: dict, mode: str) -> dict:

@@ -23,16 +23,31 @@ also the card's reference, reached there only by name. Prefill and
 Randomness comes from an explicit ``torch.Generator`` on the logits' device.
 The JAX package draws from ``jax.random`` keys, so sampled (temperature > 0)
 tokens differ between the two packages; greedy tokens match.
+
+Every function here also runs on a rank's blocks of a model split over a
+tensor-parallel axis (``DALLE.sharding``): a rank's cache holds its heads,
+the model joins the banded logits over the group, and every rank of the
+group, seeded alike, draws the same tokens. The group's collectives run in
+each step, so there the decoder runs its step functions eagerly on the
+card: ranks that share a card talk over gloo, whose collectives sync
+through the host and cannot be captured, and capturing NCCL collectives
+inside a step is not ported. The mesh decides this (``capture_rule``),
+not a failed capture. A model group also keeps the dequant einsum forms
+(``DALLE._streaming_eligible``). Each group decodes the whole batch: the
+rows are not split over the data axis.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import logging
 
 import torch
 
 from dalle_mtf_tpu_torch.ops import attention, decode_matmul, layer_norm
+
+logger = logging.getLogger(__name__)
 
 _NUCLEUS_K = 256  # candidate width for top_p when top_k doesn't supply one
 
@@ -273,6 +288,23 @@ def _counts() -> list[tuple[dict, str, int]]:
     return [(c, name, n) for c in _launch_counters() for name, n in c.items()]
 
 
+def capture_rule(dalle) -> tuple[bool, str | None]:
+    """(whether a decoder of ``dalle`` captures its steps as CUDA graphs,
+    the reason where it does not): on CUDA, unless the model is split over
+    a tensor-parallel axis, whose collectives run inside every step."""
+    if dalle.device.type != "cuda":
+        return False, "CPU tensors: the step functions run eagerly"
+    if dalle.sharding is not None:
+        import torch.distributed as dist  # noqa: PLC0415
+
+        backend = dist.get_backend(dalle.sharding.group)
+        why = ("gloo collectives sync through the host and cannot be captured"
+               if backend == "gloo" else
+               "capturing NCCL collectives inside a decode step is not ported")
+        return False, f"a model group over {backend}: {why}; the step runs eagerly on the card"
+    return True, None
+
+
 def _fill(buf, value) -> None:
     """Copy ``value`` (a number, or a tensor broadcastable to ``buf``) into
     the static buffer ``buf``, outside any capture."""
@@ -301,8 +333,10 @@ class CapturedDecoder:
     graph for each whole-batch (top_k, top_p present) pair, as the JAX
     package compiles one executable for each static top_k, and one for the
     continuous engine's k_max. The graphs share one memory pool. A capture
-    or a replay that fails raises: there is no eager fallback. On the CPU
-    the same step functions run eagerly.
+    or a replay that fails raises: there is no eager fallback. On the CPU,
+    and on a rank of a tensor-parallel model group (``capture_rule``:
+    ``captures`` False, ``eager_reason`` says why), the same step functions
+    run eagerly.
 
     A capture records the kernels' launches without launching them, so the
     decoder takes the capture's counts back off the wrappers' counters and
@@ -336,7 +370,9 @@ class CapturedDecoder:
             self.tokens = torch.zeros((self.chunk, b), dtype=torch.long, device=dev)
             self.active = torch.zeros((self.chunk, b), dtype=torch.bool, device=dev)
         self.generator = torch.Generator(device=dev)
-        self.captures = dev.type == "cuda"
+        self.captures, self.eager_reason = capture_rule(dalle)
+        if dev.type == "cuda" and not self.captures:
+            logger.info("decode steps not captured: %s", self.eager_reason)
         self.replays: dict[tuple, int] = {}
         self._graphs: dict[tuple, torch.cuda.CUDAGraph] = {}
         self._per_replay: dict[tuple, list[tuple[dict, str, int]]] = {}
@@ -433,6 +469,14 @@ class CapturedDecoder:
         self.generator.set_state(generator.get_state())
         yield
         generator.set_state(self.generator.get_state())
+
+    @torch.inference_mode()
+    def warm(self, text_tokens) -> None:
+        """One prefill of ``text_tokens`` [B, text_seq_len] into the cache:
+        the kernels' build, all a decoder that captures nothing needs before
+        its first batch. The cache entries it writes are written again by
+        the next prefill or admission before any read."""
+        self.dalle.prefill(self.params, text_tokens.long(), self.cache, head=self.head)
 
     # ------------------------------------------------------------ whole batch
 

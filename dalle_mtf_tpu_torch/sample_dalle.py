@@ -6,16 +6,28 @@
         --top_k 64 [--top_p 0.9] [--seed 0] [--quantize int8|int4 | --int8] \
         [--device cuda|cpu]
 
+Over the ranks of a tensor-parallel mesh, started by ``torch.distributed.run``:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m dalle_mtf_tpu_torch.sample_dalle --model dalle_coco --text "..."
+
 The DALLE weights are the latest ``ckpt_<step>.pt`` under
 ``<model_path>/checkpoints`` (what ``train_dalle`` writes); the VAE is
 restored as ``train_dalle`` restores it (``vae_checkpoint_path``, else the
 VAE config's ``model_path``). The weights are cast or quantized for decoding
 as the server does (``serve_dalle.decode_weights``), the batch of ``--n``
-rows is generated through ``sample.generate_images`` (on the card the
-captured decode loop), and ``sample_<i>.png`` is written for each image.
-Runs on ``--device`` (default ``cuda``, which raises without a card), in
-one process: the config's ``mesh_shape`` is not read, and a launch over
-several processes raises.
+rows is generated through ``sample.generate_image_tokens`` (on the card the
+captured decode loop) and decoded by the VAE, and ``sample_<i>.png`` is
+written for each image. Runs on ``--device`` (default ``cuda``, which
+raises without a card).
+
+On several processes the config's ``mesh_shape`` and ``layout``, resized
+to the world as ``train_dalle`` resizes them, place the ranks: each rank
+reads only its blocks of the checkpoint (the file mapped, a block copied
+out of it) and quantizes after sharding, as the root CLI does; every model
+group decodes the whole batch, and rank 0 alone decodes the pixels and
+writes the PNGs. A layout the port does not run (pipeline parallelism)
+raises before the process group is joined.
 """
 
 from __future__ import annotations
@@ -26,13 +38,17 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer, pad_or_truncate
-from dalle_mtf_tpu_torch.sample import generate_images
-from dalle_mtf_tpu_torch.serve_dalle import decode_weights
+from dalle_mtf_tpu_torch.parallel.tensor import block_to
+from dalle_mtf_tpu_torch.sample import generate_image_tokens
+from dalle_mtf_tpu_torch.serve_dalle import decode_weights, join_group
+from dalle_mtf_tpu_torch.train.optim import named_leaves
 from dalle_mtf_tpu_torch.train.tasks import make_dalle_models
 from dalle_mtf_tpu_torch.train.trainer import checkpoint_steps
 from dalle_mtf_tpu_torch.train_dalle import load_vae_params
+from dalle_mtf_tpu_torch.utils import checkpoint
 from dalle_mtf_tpu_torch.utils.config import fetch_model_params
 from dalle_mtf_tpu_torch.utils.convert import _check, nest
 from dalle_mtf_tpu_torch.utils.logging_utils import setup_logging
@@ -65,52 +81,71 @@ def parse_args(argv=None):
 
 def load_dalle_params(params, dalle) -> dict:
     """The parameter tree of the latest DALLE checkpoint under the config's
-    ``model_path``, on ``dalle.device``, every name and shape checked
-    against ``dalle``."""
+    ``model_path``, on ``dalle.device``: this rank's blocks of it where the
+    model is split over a tensor-parallel axis (the file mapped, each block
+    copied out of it, as ``Trainer.restore`` does), every name and whole
+    shape, and then every local shape, checked against ``dalle``."""
     d = _ckpt_dir(params["model_path"])
     steps = checkpoint_steps(d)
     if not steps:
         raise FileNotFoundError(f"no DALLE checkpoint under {params['model_path']}")
-    obj = torch.load(os.path.join(d, f"ckpt_{steps[-1]}.pt"), map_location=dalle.device,
-                     weights_only=True)
+    obj = checkpoint.read(os.path.join(d, f"ckpt_{steps[-1]}.pt"))
     tree = nest(obj["params"])
     try:
-        _check(tree, dalle.param_shapes())
+        _check(tree, dalle.param_shapes(whole=True))
     except (KeyError, ValueError) as e:
         raise ValueError(f"DALLE checkpoint at step {steps[-1]} under {params['model_path']} "
                          f"does not match the config: {e}") from None
+    sharding = dalle.sharding
+    blocks: dict = {}
+    for path, _ in named_leaves(dalle.param_shapes()):
+        node, parent = tree, blocks
+        for name in path[:-1]:
+            node, parent = node[name], parent.setdefault(name, {})
+        parent[path[-1]] = block_to(node[path[-1]], sharding.of(path) if sharding else None,
+                                    dalle.device)
+    _check(blocks, dalle.param_shapes())
     logger.info("restored DALLE checkpoint at step %d", int(obj["step"]))
-    return tree
+    return blocks
 
 
 def main(argv=None) -> list[str]:
-    """Write the images; returns their paths."""
+    """Write the images; returns their paths (on rank 0; the other ranks
+    of a launch over several processes return [])."""
     args = parse_args(argv)
     params = fetch_model_params(args.model)
     if params["model_type"] != "dalle":
         raise ValueError(f"{args.model} is not a dalle config")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1:
-        raise NotImplementedError(f"sampling over {world} processes is not ported: run one")
-    setup_logging(params["config_name"] or args.model)
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to sample on the CPU")
+    owns_group = not (dist.is_available() and dist.is_initialized())
+    proc, mesh = join_group(params, args)
+    try:
+        return _sample(args, params, proc, mesh)
+    finally:
+        if owns_group and proc.world > 1:
+            dist.destroy_process_group()
 
+
+def _sample(args, params, proc, mesh) -> list[str]:
+    setup_logging(params["config_name"] or args.model, rank=proc.rank)
     n = args.n if args.n is not None else (params["predict_batch_size"] or 1)
     tokenizer = get_tokenizer()
     params["padding_id"] = tokenizer.pad_token_id
     ids = pad_or_truncate(tokenizer.encode(args.text), params["text_seq_len"],
                           tokenizer.pad_token_id)
-    dalle, vae = make_dalle_models(params, args.device)
+    dalle, vae = make_dalle_models(params, proc.device, mesh)
     text = torch.tensor([ids] * n, dtype=torch.long, device=dalle.device)
     dalle_params = decode_weights(dalle, load_dalle_params(params, dalle), args)
-    vae_params = load_vae_params(params, vae)
+    vae_params = load_vae_params(params, vae) if proc.rank == 0 else None
 
     t0 = time.time()
     generator = torch.Generator(device=dalle.device).manual_seed(args.seed)
-    imgs = generate_images(dalle, dalle_params, vae, vae_params, text, generator,
-                           temperature=args.temperature, top_k=args.top_k, top_p=args.top_p)
-    imgs = imgs.float().cpu().numpy()
+    tokens = generate_image_tokens(dalle, dalle_params, text, generator,
+                                   temperature=args.temperature, top_k=args.top_k,
+                                   top_p=args.top_p)
+    if proc.rank != 0:
+        return []
+    with torch.inference_mode():
+        imgs = vae.decode_tokens(vae_params, tokens).float().cpu().numpy()
     dt = time.time() - t0
 
     os.makedirs(args.out, exist_ok=True)
@@ -120,7 +155,7 @@ def main(argv=None) -> list[str]:
         with open(paths[-1], "wb") as f:
             f.write(encode_png(img))
     print(f"wrote {len(imgs)} images to {args.out} ({dt:.2f}s total incl. capture, "
-          f"{dalle.cfg.image_seq_len} tokens each)")
+          f"{dalle.cfg.image_seq_len} tokens each, {mesh})")
     return paths
 
 

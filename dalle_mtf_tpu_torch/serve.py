@@ -26,11 +26,26 @@ counter). A retry replays the same graph: there is no eager fallback.
 batch at chunk boundaries (see its docstring). Both engines share the client
 API (``submit`` -> Future, ``drain``, ``close``, ``stats``), so
 ``make_server`` serves either.
+
+Over a tensor-parallel model group (one process a rank, where the JAX
+server is one controller over every device) each rank builds the engine on
+its blocks with a ``GroupCommands``. Rank 0 alone takes requests: it owns
+the queue, the batching, the linger and the futures, and its worker sends
+the group one fixed-layout order before each device call (a whole batch;
+in the continuous engine each reset, admission, park and chunk). Every
+other rank runs ``follow``: it executes the same call on its blocks, and
+returns on the stop that ``drain``/``close`` send. The orders wait for
+rank 0 without a limit (an idle server sends none); the model's own
+collectives keep the process group's timeout, so a rank that fails makes
+the others' collectives raise, and the error reaches every waiting future
+on rank 0. After such an error the group is broken and the engine closes.
+Rank 0 alone decodes pixels with the VAE.
 """
 
 from __future__ import annotations
 
 import base64
+import datetime
 import json
 import logging
 import queue
@@ -47,6 +62,96 @@ import torch
 from dalle_mtf_tpu_torch.utils.png import encode_png
 
 logger = logging.getLogger(__name__)
+
+
+class GroupCommands:
+    """Rank 0's orders to every rank of a serving launch: one float64
+    tensor of a fixed layout a call, broadcast from rank 0 over a gloo group
+    of the whole world whose waits have no practical limit (``LIMIT``). The
+    layout: the operation, the seed (in two 32-bit halves), the top_k, the
+    nucleus flag, then the batch's texts [B, T], the per-row temperature,
+    top_k and top_p, and the row mask. Every value is exact in float64.
+    Every rank constructs it (``new_group`` is collective)."""
+
+    STOP, GENERATE, RESET, ADMIT, PARK, CHUNK = range(6)
+    LIMIT = datetime.timedelta(days=7)
+    _HEAD = 5
+
+    def __init__(self, batch: int, text_len: int):
+        import torch.distributed as dist  # noqa: PLC0415
+
+        self._dist = dist
+        self.rank = dist.get_rank()
+        self.batch, self.text_len = int(batch), int(text_len)
+        self.group = dist.new_group(list(range(dist.get_world_size())), backend="gloo",
+                                    timeout=self.LIMIT)
+        self.sent = 0
+
+    def _buffer(self) -> torch.Tensor:
+        return torch.zeros(self._HEAD + self.batch * (self.text_len + 4), dtype=torch.float64)
+
+    def send(self, op: int, seed: int = 0, texts=None, temperature=None, top_k: int = 0,
+             top_k_rows=None, top_p=None, mask=None, nucleus: bool = False) -> None:
+        """Broadcast one order (rank 0)."""
+        b, t = self.batch, self.text_len
+        buf = self._buffer()
+        buf[:self._HEAD] = torch.tensor([op, seed >> 32, seed & 0xFFFFFFFF, top_k, nucleus],
+                                        dtype=torch.float64)
+        body = buf[self._HEAD:]
+        for i, value in enumerate((texts, temperature, top_k_rows, top_p, mask)):
+            if value is None:
+                continue
+            lo, n = (0, b * t) if i == 0 else (b * t + (i - 1) * b, b)
+            value = torch.as_tensor(value).detach().cpu().to(torch.float64).reshape(-1)
+            body[lo:lo + n] = value.expand(n) if value.numel() == 1 else value
+        self._dist.broadcast(buf, 0, group=self.group)
+        self.sent += 1
+
+    def receive(self) -> dict:
+        """The next order (every rank but 0): texts long [B, T] and mask
+        bool [B] on the CPU, per-row float32 / long [B]."""
+        b, t = self.batch, self.text_len
+        buf = self._buffer()
+        self._dist.broadcast(buf, 0, group=self.group)
+        head, body = buf[:self._HEAD].long().tolist(), buf[self._HEAD:]
+        rows = [body[b * t + i * b:b * t + (i + 1) * b] for i in range(4)]
+        return dict(op=head[0], seed=(head[1] << 32) | head[2], top_k=head[3],
+                    nucleus=bool(head[4]), texts=body[:b * t].long().reshape(b, t),
+                    temperature=rows[0].float(), top_k_rows=rows[1].long(),
+                    top_p=rows[2].float(), mask=rows[3].bool())
+
+
+def follow(sampler) -> None:
+    """The follower loop of either engine on a rank other than 0: execute
+    rank 0's orders on this rank's blocks until the stop."""
+    cmds, dec = sampler._commands, sampler._decoder
+    dev = sampler.dalle.device
+    while True:
+        c = cmds.receive()
+        op = c["op"]
+        if op == GroupCommands.STOP:
+            return
+        if op == GroupCommands.GENERATE:
+            dec.generator.manual_seed(c["seed"])
+            dec.generate(c["texts"].to(dev), c["temperature"], c["top_k"],
+                         c["top_p"] if c["nucleus"] else None)
+        elif op == GroupCommands.RESET:
+            dec.reset(c["seed"])
+        elif op == GroupCommands.ADMIT:
+            dec.admit(c["texts"].to(dev), c["mask"].to(dev))
+        elif op == GroupCommands.PARK:
+            _park_rows(dec, c["mask"], sampler._end_pos)
+        elif op == GroupCommands.CHUNK:
+            dec.decode_chunk(c["temperature"], c["top_k_rows"], c["top_p"], k_max=sampler.k_max)
+        else:
+            raise ValueError(f"unknown serving order {op}")
+
+
+def _park_rows(decoder, mask, end_pos: int) -> None:
+    """Park the ``mask`` rows (bool [B]) of the decoder's batch at the end."""
+    positions = decoder.positions
+    with torch.inference_mode():
+        positions[mask.to(positions.device)] = end_pos
 
 
 def _safe_resolve(fut: Future, result=None, exc=None) -> bool:
@@ -103,6 +208,7 @@ class BatchingSampler:
         seed: int = 0,
         top_k_buckets=(0, 16, 64, 256),
         max_retries: int = 1,
+        commands: GroupCommands | None = None,
     ):
         from dalle_mtf_tpu_torch.sample import CapturedDecoder  # noqa: PLC0415
 
@@ -116,6 +222,7 @@ class BatchingSampler:
         self.linger_s = linger_ms / 1e3
         self._params = (dalle_params, vae_params)
         self._decoder = CapturedDecoder(dalle, dalle_params, self.batch_size)
+        self._commands = commands
         self._seed = int(seed)
         self._batch_counter = 0
         # buckets that have completed at least once: only those are retried
@@ -127,7 +234,8 @@ class BatchingSampler:
         # FIFO, seeds the next batches ahead of newer arrivals
         self._holdback: deque = deque()
         self._worker = threading.Thread(target=self._run, daemon=True)
-        self._worker.start()
+        if not _follows(commands):
+            self._worker.start()
 
     # ------------------------------------------------------------ client API
 
@@ -250,7 +358,11 @@ class BatchingSampler:
 
     def _generate(self, texts, seed, temperature, top_k, top_p):
         """One batch through the decoder (the graph of ``top_k`` and top_p
-        presence on the card), then the VAE: f32 [B, H, W, C]."""
+        presence on the card), then the VAE: f32 [B, H, W, C]. Under a
+        model group the other ranks are sent the batch first."""
+        if self._commands is not None:
+            self._commands.send(GroupCommands.GENERATE, seed, texts, temperature, top_k,
+                                top_p=top_p, nucleus=top_p is not None)
         self._decoder.generator.manual_seed(seed)
         tokens = self._decoder.generate(texts, temperature, top_k, top_p)
         with torch.inference_mode():
@@ -263,6 +375,7 @@ class BatchingSampler:
         while True:
             batch = self._collect()
             if batch is None:
+                _stop(self._commands)
                 return
             rows = np.zeros((b, t_len), np.int64)
             temps = np.full((b,), 1.0, np.float32)
@@ -279,7 +392,9 @@ class BatchingSampler:
             err = None
             imgs = None
             exe = (bucket, use_top_p)
-            retries = self.max_retries if exe in self._proven_buckets else 0
+            # under a model group a failed batch leaves the group broken: no retry
+            retries = (self.max_retries if exe in self._proven_buckets
+                       and self._commands is None else 0)
             for attempt in range(1 + retries):
                 try:
                     imgs = self._generate(
@@ -301,6 +416,11 @@ class BatchingSampler:
                             attempt + 1, e,
                         )
             if err is not None:  # surface failures to every waiter
+                if self._commands is not None:  # the model group is broken
+                    _close_broken(self, err, lambda: [
+                        item[-1] for item in [*batch, *self._holdback, *_queued(self._q)]
+                        if item is not None])
+                    return
                 for *_rest, fut in batch:
                     _safe_resolve(fut, exc=err)
                 continue
@@ -316,6 +436,44 @@ class BatchingSampler:
 
 
 _DRAIN = object()  # graceful-shutdown sentinel (None = hard stop)
+
+
+def _follows(commands: GroupCommands | None) -> bool:
+    """Whether an engine with ``commands`` runs rank 0's orders (every rank
+    but 0) instead of a worker of its own."""
+    return commands is not None and commands.rank != 0
+
+
+def _queued(q: queue.Queue) -> list:
+    """Every item in ``q`` now, taken out."""
+    items = []
+    while True:
+        try:
+            items.append(q.get_nowait())
+        except queue.Empty:
+            return items
+
+
+def _close_broken(sampler, err: Exception, pending) -> None:
+    """Close an engine whose model group is broken: take no more requests,
+    fail every future that ``pending()`` lists (called once the engine is
+    closed, so no request joins the queue after it is read), and send the
+    followers the stop."""
+    with sampler._submit_lock:
+        sampler._closed = True
+    for fut in pending():
+        _safe_resolve(fut, exc=err)
+    _stop(sampler._commands)
+
+
+def _stop(commands: GroupCommands | None) -> None:
+    """Send the followers the stop (rank 0, as its worker ends)."""
+    if commands is None:
+        return
+    try:
+        commands.send(GroupCommands.STOP)
+    except Exception:  # a broken group: the followers' own waits end them
+        logger.exception("could not send the followers the stop")
 
 
 class ContinuousBatchingSampler:
@@ -352,6 +510,7 @@ class ContinuousBatchingSampler:
         seed: int = 0,
         chunk: int = 128,
         k_max: int = 256,
+        commands: GroupCommands | None = None,
     ):
         from dalle_mtf_tpu_torch.sample import CapturedDecoder  # noqa: PLC0415
 
@@ -367,6 +526,7 @@ class ContinuousBatchingSampler:
         # the cache, the batch's buffers and the banded head, for the
         # engine's life
         self._decoder = CapturedDecoder(dalle, dalle_params, self.batch_size, chunk=self.chunk)
+        self._commands = commands
         self._end_pos = cfg.text_seq_len + cfg.image_seq_len
         self._chunks_done = 0
         self._admits_done = 0
@@ -376,9 +536,10 @@ class ContinuousBatchingSampler:
         self._closed = False
         self._draining = False
         self._submit_lock = threading.Lock()
-        self._reset_state()
+        self._reset_state(send=False)  # every rank resets alike here
         self._worker = threading.Thread(target=self._run, daemon=True)
-        self._worker.start()
+        if not _follows(commands):
+            self._worker.start()
 
     # ------------------------------------------------------------ client API
 
@@ -434,13 +595,16 @@ class ContinuousBatchingSampler:
 
     # ---------------------------------------------------------------- engine
 
-    def _reset_state(self):
+    def _reset_state(self, send: bool = True):
         b = self.batch_size
         # every slot parked at the end: none advances until something is
         # admitted; a reset counter in the seed: two identical requests
         # before and after a reset must not replay one sampling stream
         self._resets += 1
-        self._decoder.reset((self._seed * 2**32 + self._resets) % 2**63)
+        seed = (self._seed * 2**32 + self._resets) % 2**63
+        if send and self._commands is not None:
+            self._commands.send(GroupCommands.RESET, seed)
+        self._decoder.reset(seed)
         self._temps = np.full((b,), 1.0, np.float32)
         self._topks = np.zeros((b,), np.int64)
         self._topps = np.ones((b,), np.float32)
@@ -458,13 +622,18 @@ class ContinuousBatchingSampler:
         self._reset_state()
 
     def _park(self, slots: list[int]):
-        positions = self._decoder.positions
-        with torch.inference_mode():
-            positions[torch.tensor(slots, device=positions.device)] = self._end_pos
+        mask = torch.zeros((self.batch_size,), dtype=torch.bool)
+        mask[slots] = True
+        if self._commands is not None:
+            self._commands.send(GroupCommands.PARK, mask=mask)
+        _park_rows(self._decoder, mask, self._end_pos)
 
     def _decode_chunk(self):
         """One chunk from the decoder's buffers; (tokens, active) [chunk, B]
         on the host."""
+        if self._commands is not None:
+            self._commands.send(GroupCommands.CHUNK, temperature=self._temps,
+                                top_k_rows=self._topks, top_p=self._topps)
         tokens, active = self._decoder.decode_chunk(
             self._temps, self._topks, self._topps, k_max=self.k_max)
         return tokens.cpu().numpy(), active.cpu().numpy()
@@ -515,6 +684,8 @@ class ContinuousBatchingSampler:
             texts[slot] = np.asarray(ids, np.int64)
             mask[slot] = True
         dev = self.dalle.device
+        if self._commands is not None:
+            self._commands.send(GroupCommands.ADMIT, texts=texts, mask=mask)
         self._decoder.admit(torch.from_numpy(texts).to(dev), torch.from_numpy(mask).to(dev))
         self._admits_done += 1
         logger.info("admitted %d request row(s) into slots %s",
@@ -554,9 +725,11 @@ class ContinuousBatchingSampler:
                 got = self._admit()
                 if got is None:
                     self._fail_all(RuntimeError("sampler is closed"))
+                    _stop(self._commands)
                     return
                 if all(s is None for s in self._slot):
                     if self._draining and self._q.empty():
+                        _stop(self._commands)
                         return  # drained: everything served, nothing queued
                     continue
                 tokens, active = self._decode_chunk()
@@ -572,7 +745,14 @@ class ContinuousBatchingSampler:
                     self._finish_rows(finished)
             except Exception as e:
                 logger.exception("engine step failed; resetting")
-                self._fail_all(e)
+                if self._commands is None:
+                    self._fail_all(e)
+                    continue
+                # a model group's collectives failed with it: close
+                groups = {id(s["group"]): s["group"]["fut"] for s in self._slot if s is not None}
+                _close_broken(self, e, lambda: [*groups.values(), *(
+                    item[4]["fut"] for item in _queued(self._q) if isinstance(item, tuple))])
+                return
 
 
 # ------------------------------------------------------------------- HTTP

@@ -15,14 +15,33 @@ out, not for real images). ``--quantize`` quantizes the loaded fp32 masters
 for decoding (a tree that is already quantized is served as it is); the
 streaming dequant kernels run when the config sets ``decode_kernels``.
 ``--continuous`` serves with the continuous-batching engine.
+
+Over the ranks of a tensor-parallel mesh, started by ``torch.distributed.run``:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m dalle_mtf_tpu_torch.serve_dalle --model dalle_coco --port 8000
+
+the config's ``mesh_shape`` and ``layout``, resized to the world, place the
+ranks. Each rank holds its blocks (``--weights`` cut by
+``utils/convert.py::shard_dalle_params``, else drawn by the sharded
+``DALLE.init``) and quantizes after sharding (a tree that is already
+quantized cannot be cut into blocks and is refused); rank 0 alone binds
+HTTP and runs the engine, and sends every other rank its orders
+(``serve.GroupCommands``); they follow until rank 0 drains. Every model
+group decodes the whole batch. Ranks that share a card talk over gloo:
+their figures are not multi-GPU numbers. Each collective of the model
+waits at most the process group's timeout (torch's default), so a rank that
+fails makes the others raise instead of hanging.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 import torch
+import torch.distributed as dist
 
 from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer
 from dalle_mtf_tpu_torch.quantize import (
@@ -30,9 +49,18 @@ from dalle_mtf_tpu_torch.quantize import (
     quantize_layers_int4,
     quantize_layers_int8,
 )
+from dalle_mtf_tpu_torch.parallel.mesh import (
+    build_mesh,
+    check_layout,
+    parse_layout,
+    parse_mesh_shape,
+    resize_axes,
+)
 from dalle_mtf_tpu_torch.serve import (
     BatchingSampler,
     ContinuousBatchingSampler,
+    GroupCommands,
+    follow,
     make_server,
 )
 from dalle_mtf_tpu_torch.train.tasks import make_dalle_models
@@ -41,11 +69,12 @@ from dalle_mtf_tpu_torch.utils.convert import (
     dalle_params_from_numpy,
     load_npz,
     quantize_mode,
+    shard_dalle_params,
     vae_params_from_numpy,
 )
+from dalle_mtf_tpu_torch.utils.distributed import init_distributed
 
 logger = logging.getLogger(__name__)
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
@@ -78,11 +107,18 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def load_models(params, args):
-    """(dalle, dalle_params, vae, vae_params) for serving on args.device."""
-    dalle, vae = make_dalle_models(params, args.device)
+def load_models(params, args, device=None, mesh=None):
+    """(dalle, dalle_params, vae, vae_params) for serving on ``device``
+    (default args.device): the DALLE on ``mesh`` (this rank's blocks on a
+    tensor-parallel one), the VAE whole."""
+    dalle, vae = make_dalle_models(params, device or args.device, mesh)
     if args.weights:
-        dalle_params = dalle_params_from_numpy(load_npz(args.weights), dalle)
+        tree = load_npz(args.weights)
+        if quantize_mode(tree) != "none":
+            _refuse_blocks(dalle)
+            dalle_params = dalle_params_from_numpy(tree, dalle)
+        else:
+            dalle_params = shard_dalle_params(tree, dalle)
     else:
         logger.warning("no --weights: DALLE initialized from seed %d", args.seed)
         dalle_params = dalle.init(torch.Generator().manual_seed(args.seed))
@@ -101,43 +137,80 @@ def decode_weights(dalle, dalle_params, args) -> dict:
     streams bf16 and converts nothing per token."""
     quant = args.quantize or ("int8" if args.int8 else "none")
     if quantize_mode(dalle_params) != "none":
+        _refuse_blocks(dalle)
         logger.info("serving the loaded %s weights as they are", quantize_mode(dalle_params))
         return dalle_params
     if quant == "int8":
-        return quantize_layers_int8(dalle_params)
+        return quantize_layers_int8(dalle_params, dalle.sharding)
     if quant == "int4":
-        return quantize_layers_int4(dalle_params)
+        return quantize_layers_int4(dalle_params, dalle.sharding)
     return cast_decode_weights(dalle_params, dalle.cfg.policy.compute_dtype)
 
 
+def _refuse_blocks(dalle) -> None:
+    """A quantized tree cannot be cut into a rank's blocks: its int4 rows
+    are paired over the whole contraction axis and its scales are keyed to
+    the whole leaves. Quantize the fp32 masters after sharding instead."""
+    if dalle.sharding is not None:
+        raise ValueError("a quantized DALLE tree cannot be cut into a rank's blocks: serve the "
+                         "fp32 masters with --quantize under a tensor-parallel mesh")
+
+
+def join_group(params, args):
+    """This process's (proc, mesh): the process group
+    ``torch.distributed.run`` describes, joined after the config's layout is
+    checked against the world size, and the config's mesh resized to it."""
+    attention = params.get("attention_type") or "global"
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:  # before the process group is joined
+        check_layout(resize_axes(parse_mesh_shape(params.get("mesh_shape")), world),
+                     parse_layout(params.get("layout")), attention)
+    proc = init_distributed(None, args.device)
+    return proc, build_mesh(params.get("mesh_shape"), params.get("layout"), attention,
+                            proc.rank, proc.world)
+
+
 def build_server(argv=None):
-    """Load the models, start the engine ``argv`` asks for, warm it with one
-    request, and bind the HTTP server. Returns (sampler, server); the caller
-    runs ``server.serve_forever()`` and drains the sampler."""
+    """Load the models, start the engine ``argv`` asks for, warm it (one
+    request, or where the decoder captures nothing one prefill), and bind
+    the HTTP server. Returns (sampler, server); the caller
+    runs ``server.serve_forever()`` and drains the sampler. Launched over
+    several processes, it joins their process group (and leaves it to the
+    caller); on every rank but 0 it returns (sampler, None) at once, and the
+    caller runs ``serve.follow(sampler)``, which returns when rank 0 drains."""
     args = parse_args(argv)
     params = fetch_model_params(args.model)
     if params["model_type"] != "dalle":
         raise ValueError(f"{args.model} is not a dalle config")
     tokenizer = get_tokenizer()
-    dalle, dalle_params, vae, vae_params = load_models(params, args)
+    proc, mesh = join_group(params, args)
+    dalle, dalle_params, vae, vae_params = load_models(params, args, proc.device, mesh)
     batch = args.batch_size or params["predict_batch_size"] or 4
+    commands = GroupCommands(batch, dalle.cfg.text_seq_len) if proc.world > 1 else None
     if args.continuous:
         sampler = ContinuousBatchingSampler(
             dalle, dalle_params, vae, vae_params,
             batch_size=batch, temperature=args.temperature, top_k=args.top_k,
-            seed=args.seed, chunk=args.chunk,
+            seed=args.seed, chunk=args.chunk, commands=commands,
         )
     else:
         sampler = BatchingSampler(
             dalle, dalle_params, vae, vae_params,
             batch_size=batch, temperature=args.temperature, top_k=args.top_k,
-            linger_ms=args.linger_ms, seed=args.seed,
+            linger_ms=args.linger_ms, seed=args.seed, commands=commands,
         )
-    # the first request builds the kernels and captures the default
-    # bucket's decode graph, so a client's first call doesn't
-    warm = sampler.submit([tokenizer.pad_token_id] * dalle.cfg.text_seq_len, 1)
-    warm.result()
-    logger.info("sampler warm on %s, batch=%d", args.device, batch)
+    # what a client's first call would pay, paid now: the kernels' build
+    # and the default bucket's decode graph (one request); a decoder that
+    # captures nothing (sample.capture_rule: a model group, the CPU) needs
+    # the kernels only, built by one prefill on every rank
+    pad = [tokenizer.pad_token_id] * dalle.cfg.text_seq_len
+    if not sampler._decoder.captures:
+        sampler._decoder.warm(torch.tensor([pad] * batch, device=dalle.device))
+    if proc.rank != 0:
+        return sampler, None
+    if sampler._decoder.captures:
+        sampler.submit(pad, 1).result()
+    logger.info("sampler warm on %s, batch=%d, %s", proc.device, batch, mesh)
     server = make_server(
         sampler, tokenizer, dalle.cfg.text_seq_len, host=args.host, port=args.port,
     )
@@ -147,15 +220,22 @@ def build_server(argv=None):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     sampler, server = build_server(argv)
-    logger.info("serving on %s:%d", *server.server_address[:2])
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        if server is None:  # a rank other than 0: rank 0's orders until it drains
+            follow(sampler)
+            return
+        logger.info("serving on %s:%d", *server.server_address[:2])
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.shutdown()
+            # graceful: resolve every already-accepted request before exiting
+            sampler.drain(timeout=300)
     finally:
-        server.shutdown()
-        # graceful: resolve every already-accepted request before exiting
-        sampler.drain(timeout=300)
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

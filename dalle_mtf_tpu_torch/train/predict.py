@@ -16,6 +16,13 @@ Sampling reads the live training parameters through one
 predict fn's single jit: AdamW (``train/optim.py``, torch's foreach and fused
 paths) and the checkpoint restore update every leaf in place, so the graph
 captured at the first checkpoint reads each later checkpoint's values.
+
+Under tensor parallelism every rank of rank 0's model group decodes on its
+live blocks (the decoder's step functions run eagerly there: the group's
+collectives run in each step, ``sample.capture_rule``), and rank 0 alone
+decodes the pixels and writes the summaries and PNGs. Without a
+tensor-parallel split every rank holds the whole parameters, and rank 0
+samples alone.
 """
 
 from __future__ import annotations
@@ -35,6 +42,18 @@ def predict_seed(step: int, batch: int) -> int:
     """The generator seed of predict batch ``batch`` at checkpoint ``step``
     (the JAX fn folds the batch index into PRNGKey(step))."""
     return int(np.random.SeedSequence([step, batch]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def decodes(dalle, rank: int) -> bool:
+    """Whether ``rank`` takes part in the predict batches: rank 0, and where
+    ``dalle`` is split over a tensor-parallel axis the other ranks of its
+    model group (those at 0 on every other axis of the mesh)."""
+    mesh = dalle.mesh
+    if rank == 0:
+        return True
+    if dalle.sharding is None:
+        return False
+    return all(mesh.index(n) == 0 for n in mesh.names if n != mesh.tp_axis)
 
 
 def make_predict_summary_fn(params, dalle, vae, vae_params, data_iter, tokenizer=None):
@@ -75,11 +94,11 @@ def make_predict_summary_fn(params, dalle, vae, vae_params, data_iter, tokenizer
 
     def summary_fn(trainer, state, step):
         nonlocal decoder
-        if trainer.rank != 0:  # every rank holds the same parameters: one samples
+        if not decodes(dalle, trainer.rank):
             return
         out_dir = os.path.join(model_path, "predict", f"step_{step:07d}")
         remote = "://" in out_dir
-        if not remote:
+        if not remote and trainer.rank == 0:
             os.makedirs(out_dir, exist_ok=True)
         for i, text in enumerate(captions):
             if decoder is None:
@@ -91,12 +110,16 @@ def make_predict_summary_fn(params, dalle, vae, vae_params, data_iter, tokenizer
             with torch.inference_mode():
                 tokens = decoder.generate(torch.from_numpy(text).to(dalle.device),
                                           temperature, top_k)
+                if trainer.rank != 0:  # a rank of rank 0's model group: its blocks only
+                    continue
                 imgs = vae.decode_tokens(vae_params, tokens).float().cpu().numpy()
             trainer.writer.images(step, {f"predict/batch_{i}": imgs}, max_outputs=rows)
             if not remote:  # a remote model_path keeps the images in the summaries only
                 for j, img in enumerate(imgs):
                     with open(os.path.join(out_dir, f"batch{i}_row{j}.png"), "wb") as f:
                         f.write(encode_png(img))
+        if trainer.rank != 0:
+            return
         if not remote:
             with open(os.path.join(out_dir, "prompts.txt"), "w") as f:
                 f.write("\n".join(prompt_lines) + "\n")

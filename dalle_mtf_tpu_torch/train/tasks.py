@@ -125,11 +125,12 @@ def _configs(params: Mapping[str, Any]) -> tuple[DalleConfig, VAEConfig]:
     return cfg, vae_cfg
 
 
-def make_dalle_models(params: Mapping[str, Any], device: torch.device | str):
+def make_dalle_models(params: Mapping[str, Any], device: torch.device | str, mesh=None):
     """DALLE config (with ``vae_params`` nested, as fetch_model_params
-    loads it) -> (dalle, vae) on ``device``."""
+    loads it) -> (dalle, vae) on ``device``; the DALLE on ``mesh`` (its
+    blocks on a tensor-parallel one), the VAE whole."""
     cfg, vae_cfg = _configs(params)
-    return DALLE(cfg, device), DiscreteVAE(vae_cfg, device)
+    return DALLE(cfg, device, mesh), DiscreteVAE(vae_cfg, device)
 
 
 def make_dalle_task(params: Mapping[str, Any], device: torch.device | str, mesh=None):

@@ -58,7 +58,7 @@ import torch
 import torch.distributed as dist
 
 from dalle_mtf_tpu_torch.parallel.mesh import BATCH, parse_layout
-from dalle_mtf_tpu_torch.parallel.tensor import all_reduce, broadcast, gather_to_host, shard
+from dalle_mtf_tpu_torch.parallel.tensor import all_reduce, block_to, broadcast, gather_to_host
 from dalle_mtf_tpu_torch.train.optim import get_optimizer, named_leaves
 from dalle_mtf_tpu_torch.utils import checkpoint
 from dalle_mtf_tpu_torch.utils.summaries import MetricsWriter
@@ -313,10 +313,9 @@ class Trainer:
     def _block(self, t: torch.Tensor, split) -> torch.Tensor:
         """This rank's block of a mapped whole leaf, copied to the device
         (counted in ``restored_bytes``)."""
-        block = shard(t, split)
-        self.restored_bytes += block.numel() * block.element_size()
-        out = torch.empty(block.shape, dtype=block.dtype, device=self.device)
-        return out.copy_(block)
+        out = block_to(t, split, self.device)
+        self.restored_bytes += out.numel() * out.element_size()
+        return out
 
     def restore(self, state: dict) -> dict:
         """Load the latest checkpoint into ``state`` in place (unchanged when

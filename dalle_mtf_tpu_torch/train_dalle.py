@@ -15,8 +15,8 @@ sequence parallelism over the ``total_seq_dim`` axis, and tensor
 parallelism over an axis carrying ``heads_dim``, ``intermediate_expanded``
 and ``vocab_dim`` (``configs/dalle_coco.json``'s ``data:16,model:2`` runs on
 2 ranks as ``data:1,model:2``; ``utils/distributed.py`` picks each rank's
-device and the backend). Under tensor parallelism ``predict_steps`` raises
-(sampling from split parameters is ROADMAP queue 1 item 5d).
+device and the backend). Under tensor parallelism ``predict_steps`` samples
+on the blocks of rank 0's model group (``train/predict.py``).
 
 In image mode (``dataset.tokens`` unset: JPEG + caption records) the
 frozen VAE (``vae_model``, trained by ``train_vae``) is restored from
@@ -109,10 +109,6 @@ def _train(args, proc) -> Trainer:
     # raises here at world size > 1
     mesh = build_mesh(params.get("mesh_shape"), params.get("layout"),
                       params.get("attention_type") or "global", proc.rank, proc.world)
-    if mesh.tp_axis is not None and params.get("predict_steps"):
-        raise NotImplementedError(
-            f"predict_steps under tensor parallelism (mesh axis {mesh.tp_axis!r}): sampling "
-            "from split parameters is not ported yet (ROADMAP queue 1 item 5d)")
 
     if args.new:
         if proc.rank == 0:

@@ -3,7 +3,9 @@
 trainer's ``ckpt_<step>.pt``, the latest of two) and a VAE ``.npz``, its
 ``--n`` PNGs against the JAX package's ``generate_images`` greedy on the
 same weights, unquantized and ``--quantize int8`` (both packages' dequant
-form). The images are compared as 8-bit pixels within one step: the same
+form); launched as one of several processes, a layout that stays unported
+(a ``layers:`` rule) raises before the process group is joined (sampling
+over ranks: tests/test_torch_tp_sample.py). The images are compared as 8-bit pixels within one step: the same
 greedy tokens, then the same fp32 VAE decode summed in another order, so a
 value a hair from a rounding edge may land on its neighbour.
 """
@@ -114,11 +116,15 @@ def test_sample_dalle_is_seeded(run, tmp_path, monkeypatch):
 def test_sample_dalle_refusals(run, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     base = ["--model", run[0], "--text", TEXT, "--out", str(tmp_path / "o"), "--device", "cpu"]
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="processes"):
-        sample_dalle.main(base)
-    monkeypatch.delenv("WORLD_SIZE")
     cfg = json.loads(open(run[0]).read())
+    # over ranks, a layout that stays unported raises before the group is joined
+    piped = tmp_path / "piped.json"
+    piped.write_text(json.dumps({**cfg, "mesh_shape": "data:1,model:2",
+                                 "layout": "batch_dim:data,layers:model"}))
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="pipeline parallelism"):
+        sample_dalle.main(["--model", str(piped), *base[2:]])
+    monkeypatch.delenv("WORLD_SIZE")
     empty = tmp_path / "empty.json"
     empty.write_text(json.dumps({**cfg, "model_path": str(tmp_path / "none")}))
     with pytest.raises(FileNotFoundError, match="no DALLE checkpoint"):

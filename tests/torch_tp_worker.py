@@ -34,6 +34,19 @@ digests of its replicated leaves and its blocks. ``ckpt``: a DALLE ``Trainer`` o
 tree); then a Trainer on ``data:<world/2>,model:2`` restores it, every rank
 checking that it holds the file's blocks bit for bit and that it copied
 only them (``restored_bytes``); rank 0 returns every rank's figures.
+``sample``: the KV-cache path on the case's mesh and layout from the whole
+tree ``params``, each of the case's ``runs`` on the same blocks: whole-batch
+generation (``generate_image_tokens``, or the ``CapturedDecoder``, which
+runs eagerly on the CPU), the continuous engine's ``admit_rows`` +
+``decode_chunk``, or teacher-forced logits (prefill, then ``decode_step``
+on the given tokens), after ``cast_decode_weights`` or the quantizers on
+the rank's blocks; every rank's tokens, logits and scales (with the split
+of each scale) come back. ``sample_cli``: ``sample_dalle.main`` on each
+argv in turn, the checkpoint reads and the block bytes each rank copied
+counted, rank 0's PNGs read back. ``serve``: ``serve_dalle.build_server``
+on each argv in turn; rank 0 posts the case's requests over HTTP and
+drains, the other ranks follow until the stop; a case with ``raises``
+must raise ValueError naming it on every rank.
 Imports torch and the port only.
 """
 
@@ -258,6 +271,248 @@ def ckpt(case, proc, out_dir):
     return everyone
 
 
+_SCALED = {"wq": (1,), "wk": (1,), "wv": (1,), "wo": (1, 2), "w_mlp1": (1,), "w_mlp2": (1,)}
+
+
+def _scales(model, params):
+    """Every ``<name>_scale`` of a quantized tree of this rank's blocks, with
+    the (dim, start, stop) of the whole scale it is (None: all of it)."""
+    out = {}
+    for name, axes in _SCALED.items():
+        split = model.sharding.of(("layers", name)) if model.sharding else None
+        where = (split.dim, split.start, split.stop) if split and split.dim not in axes else None
+        out[f"layers/{name}_scale"] = (params["layers"][name + "_scale"], where)
+    split = model.sharding.of(("w_out",)) if model.sharding else None
+    out["w_out_scale"] = (params["w_out_scale"],
+                          (1, split.start, split.stop) if split else None)
+    return out
+
+
+def _decode_run(run, model, params, text):
+    from dalle_mtf_tpu_torch import sample as tsample  # noqa: PLC0415
+
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(run.get("seed", 0))
+    temp, top_k, top_p = run.get("temperature", 0.0), run.get("top_k", 0), run.get("top_p")
+    engine = run["engine"]
+    if engine == "whole":
+        return {"tokens": tsample.generate_image_tokens(model, params, text, gen, temp, top_k,
+                                                        top_p)}
+    if engine == "decoder":
+        dec = tsample.CapturedDecoder(model, params, text.shape[0])
+        with dec.drawing_from(gen):
+            tokens = dec.generate(text, temp, top_k, top_p).clone()
+        return {"tokens": tokens, "captures": dec.captures}
+    b = text.shape[0]
+    lo = cfg.text_vocab_size
+    band = (lo, lo + cfg.image_vocab_size)
+    with torch.inference_mode():
+        if engine == "logits":  # prefill, then the given tokens teacher-forced
+            cache = model.init_cache(b)
+            head = model.logits_head(params, band)
+            logits = [model.prefill(params, text, cache, head=head)]
+            for i, tok in enumerate(torch.as_tensor(run["forced"]).T):
+                logits.append(model.decode_step(params, cache, tok + lo, cfg.text_seq_len + i,
+                                                head=head))
+            return {"logits": torch.stack(logits), "cache_heads": cache["k"].shape[2]}
+        # continuous: every row admitted at once, then chunks (the JAX test's)
+        end = cfg.text_seq_len + cfg.image_seq_len
+        cache = model.init_cache(b)
+        logits = torch.zeros((b, cfg.image_vocab_size))
+        positions = torch.full((b,), end, dtype=torch.long)
+        logits, positions = tsample.admit_rows(model, params, cache, logits, positions, text,
+                                               torch.ones((b,), dtype=torch.bool))
+        rows = [[] for _ in range(b)]
+        temps = torch.full((b,), float(temp))
+        topks = torch.full((b,), int(top_k), dtype=torch.long)
+        for _ in range(run["chunks"]):
+            logits, positions, tokens, active = tsample.decode_chunk(
+                model, params, cache, logits, positions, gen, temps, topks,
+                chunk=run["chunk"], k_max=run["k_max"])
+            for i in range(b):
+                rows[i].extend(tokens[active[:, i], i].tolist())
+        return {"tokens": torch.tensor(rows)}
+
+
+def sample(case, proc):
+    from dalle_mtf_tpu_torch import quantize as tq  # noqa: PLC0415
+
+    cfg = DalleConfig(**case["config"])
+    mesh = build_mesh(case["mesh_shape"], case["layout"], "global", proc.rank, proc.world)
+    model = DALLE(cfg, "cpu", mesh)
+    masters = convert.shard_dalle_params(case["params"], model)
+    text = torch.as_tensor(case["texts"])
+    results = []
+    for run in case["runs"]:
+        mode = run.get("quantize", "none")
+        if mode == "none":
+            params = tq.cast_decode_weights(masters, cfg.policy.compute_dtype)
+        else:
+            quantizer = tq.quantize_layers_int8 if mode == "int8" else tq.quantize_layers_int4
+            params = quantizer(masters, model.sharding)
+        res = _decode_run(run, model, params, text)
+        if mode != "none":
+            res["scales"] = _scales(model, params)
+        res.update(rank=proc.rank, coords=mesh.coords)
+        everyone = [None] * proc.world
+        dist.all_gather_object(everyone, res)
+        results.append(everyone)
+    return results
+
+
+def save_checkpoint(path, seed, mesh=None):
+    """A ``Trainer``'s checkpoint of the seeded init of the config at
+    ``path``, on ``mesh`` (rank 0 writes the whole tree)."""
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_task  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.trainer import Trainer  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    params = fetch_model_params(path)
+    dalle, _, init_fn, loss_fn, _ = make_dalle_task(params, "cpu", mesh)
+    trainer = Trainer(params, init_fn, loss_fn, params["model_path"], dalle.cfg.total_seq_len,
+                      "cpu", mesh=mesh, sharding=dalle.sharding)
+    trainer.save(trainer.init_state(torch.Generator().manual_seed(seed)))
+    trainer.close()
+
+
+def sample_cli(case, proc):
+    from dalle_mtf_tpu_torch import sample_dalle  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    if case.get("save"):  # the checkpoint written on the config's own mesh
+        params = fetch_model_params(case["save"]["config"])
+        mesh = build_mesh(params["mesh_shape"], params["layout"], "global", proc.rank,
+                          proc.world)
+        save_checkpoint(case["save"]["config"], case["save"]["seed"], mesh)
+
+    counts = {"block_bytes": 0, "loads": []}
+    block_to, load = sample_dalle.block_to, torch.load
+
+    def counted(t, split, device):
+        out = block_to(t, split, device)
+        counts["block_bytes"] += out.numel() * out.element_size()
+        return out
+
+    def recorded(*args, **kw):
+        counts["loads"].append(bool(kw.get("mmap")))
+        return load(*args, **kw)
+
+    sample_dalle.block_to, torch.load = counted, recorded
+    try:
+        out = []
+        for argv in case["argvs"]:
+            counts.update(block_bytes=0, loads=[])
+            paths = sample_dalle.main(argv)
+            pixels = [_png_pixels(p) for p in paths]
+            everyone = [None] * proc.world
+            dist.all_gather_object(everyone, dict(counts, rank=proc.rank, paths=paths,
+                                                  pixels=pixels))
+            out.append(everyone)
+        return out
+    finally:
+        sample_dalle.block_to, torch.load = block_to, load
+
+
+def _png_pixels(path):
+    from PIL import Image  # noqa: PLC0415
+    import numpy as np  # noqa: PLC0415
+
+    return np.asarray(Image.open(path))
+
+
+def _post(port, body):
+    import json  # noqa: PLC0415
+    import urllib.request  # noqa: PLC0415
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                 data=json.dumps(body).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.load(r)
+
+
+def _break_rank0(sampler, requests):
+    """Submit ``requests`` (token lists, n = 2) at once on rank 0 with its
+    VAE decode made to raise: what each future raised, whether a later
+    submit is refused, and whether the engine's worker ended."""
+    def boom(*args, **kw):
+        raise RuntimeError("planted VAE failure")
+
+    sampler.vae.decode_tokens = boom
+    futures = [sampler.submit(ids, 2, temperature=0.0, top_k=0) for ids in requests]
+    raised = []
+    for fut in futures:
+        try:
+            fut.result(timeout=300)
+            raised.append(None)
+        except Exception as e:  # noqa: BLE001
+            raised.append(str(e))
+    sampler._worker.join(timeout=300)
+    try:
+        sampler.submit(requests[0], 1)
+        refused = False
+    except RuntimeError:
+        refused = True
+    sampler.drain(timeout=30)
+    return dict(raised=raised, refused=refused, worker_alive=sampler._worker.is_alive())
+
+
+def serve(case, proc):
+    import threading  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch import serve_dalle  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.parallel.tensor import COLLECTIVES  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.serve import follow  # noqa: PLC0415
+
+    out = []
+    for run in case["runs"]:
+        argv = run["argv"] + ["--device", "cpu", "--host", "127.0.0.1", "--port", "0"]
+        if run.get("raises"):
+            try:
+                serve_dalle.build_server(argv)
+            except ValueError as e:
+                assert run["raises"] in str(e), e
+                everyone = [None] * proc.world
+                dist.all_gather_object(everyone, {"rank": proc.rank, "raised": str(e)})
+                out.append(everyone)
+                continue
+            raise AssertionError(f"{argv} did not raise")
+        before = dict(COLLECTIVES)
+        sampler, server = serve_dalle.build_server(argv)
+        res = {"rank": proc.rank}
+        if server is None:
+            follow(sampler)  # returns on rank 0's stop
+            res["followed"] = True
+        elif run.get("broken"):  # rank 0's VAE decode fails: rank 0 alone
+            server.server_close()
+            res.update(_break_rank0(sampler, run["broken"]), sent=sampler._commands.sent)
+        else:
+            port = server.server_address[1]
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            replies = [None] * len(run["requests"])
+
+            def send(i):
+                replies[i] = _post(port, run["requests"][i])
+
+            senders = [threading.Thread(target=send, args=(i,)) for i in range(len(replies))]
+            for t in senders:
+                t.start()
+            for t in senders:
+                t.join(timeout=300)
+            res["later"] = [_post(port, body) for body in run.get("later", [])]
+            server.shutdown()
+            server.server_close()
+            sampler.drain(timeout=300)
+            res.update(replies=replies, worker_alive=sampler._worker.is_alive(),
+                       sent=sampler._commands.sent, stats=sampler.stats())
+        res["collective_calls"] = COLLECTIVES["calls"] - before["calls"]
+        res["captures"] = sampler._decoder.captures
+        everyone = [None] * proc.world
+        dist.all_gather_object(everyone, res)
+        out.append(everyone)
+    return out
+
+
 def main():
     mode, inputs, out_dir = sys.argv[1:4]
     proc = init_distributed(None, "cpu")
@@ -267,7 +522,8 @@ def main():
         modes = {"xent": xent, "dalle_step": dalle_step, "train": train,
                  "train_vae": lambda case, proc: train(case, proc, "train_vae"),
                  "vae_step": lambda case, proc: vae_step(case, proc, out_dir),
-                 "ckpt": lambda case, proc: ckpt(case, proc, out_dir)}
+                 "ckpt": lambda case, proc: ckpt(case, proc, out_dir),
+                 "sample": sample, "sample_cli": sample_cli, "serve": serve}
         # a case may name its own mode: one launch serves several
         results = [modes[case.get("mode", mode)](case, proc) for case in cases]
         if proc.rank == 0:
