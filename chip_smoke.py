@@ -35,7 +35,8 @@ Phases, none of them optional:
      the training shape with hash dropout 0.1 (one seed on both sides),
      dalle_12B's microbatch (B=8, S=2560, H=40, D=128, bf16), a
      tensor-parallel rank's block of dalle_coco (B=8, S=1280, H=4) and of
-     dalle_12B at model:8 (B=4, S=2560, H=5);
+     dalle_12B at model:8 (B=4, S=2560, H=5), and a pipeline stage's
+     microbatch of dalle_coco_synth on pipe:2,data:2 (B=4, S=1280, H=8);
    - the [B, H, S, D] forward with hash dropout;
    - ``phase_tile_cases``: the pair at the edges of its tile walk, in bf16
      (the forward under every q tile it is built for: 64 rows, and 128 at
@@ -155,7 +156,7 @@ Phases, none of them optional:
      dalle_4k config with ``attention_type: "ring"``, ``mesh_shape:
      data:1,seq:4`` and ``layout: batch_dim:data,total_seq_dim:seq`` through
      four ranks (``run_ranks``) and
-     ``train_dalle.main`` for 4 steps with an eval and a checkpoint, cut to
+     ``train_dalle.main`` for 3 steps with an eval and a checkpoint, cut to
      2 of the 12 layers. Checks the first
      loss against ln V + var/2 and within 2e-3 of the single-process port's
      on the same records and seed, finite losses and grad
@@ -180,13 +181,33 @@ Phases, none of them optional:
      ``data:1,model:2`` on two ranks, each 4 heads, 2048 MLP columns and a
      26,240-row block of the vocabulary) in tokens mode, cut to batch 8,
      through two ranks (``run_ranks``) and ``train_dalle.main``
-     for 4 steps with an eval and a checkpoint (the whole tree, streamed to
+     for 3 steps with an eval and a checkpoint (the whole tree, streamed to
      rank 0 leaf by leaf). Checks the first
      loss within 2e-3 of the single-process port's on the same records and
      seed, the ranks' losses equal, the packed pair's exact launches a rank;
      its "train_tp" line holds step s and tokens/s (labelled as two ranks on
      one card), the collective bytes a rank a step and the peak memory a
      rank;
+   - ``phase_train_pp``, the main path of pipeline parallelism:
+     configs/dalle_coco_synth.json as published (12 layers of 1024, batch
+     16, bf16, dots_and_attn) with ``mesh_shape: pipe:2,data:2`` and
+     ``layout: batch_dim:data,layers:pipe`` (each stage 6 layers; 2
+     microbatches of 4 rows a data rank; the loss head on 4 rows a rank) in
+     tokens mode through four ranks (``run_ranks``) and ``train_dalle.main``
+     for 3 steps with an eval and a checkpoint, after, in the same launch,
+     a values check: a 4-layer fp32 model of that width, 8 rows, at M = 2
+     and M = 4, its loss (within 1e-5) and every gradient (the layers
+     gathered over the pipeline; relative L2 1e-2) against one process on
+     the card. Checks the first loss within 2e-3 of the single-process
+     port's on the same records (both data ranks' first batches) and seed,
+     the losses equal on every rank, the packed pair's launches a
+     rank (6 layers x 2 microbatches a pass), the bytes each rank's hops
+     sent a step by kind and its all_reduce bytes a step, both to the byte
+     of what the code implies, and the checkpoint read by one process
+     holding every rank's final parameters bit for bit; its "train_pp" line
+     holds step s and tokens/s (labelled as four ranks on one card), the
+     bytes a hop, the staged and collective bytes a rank, the bubble and
+     the peak memory a rank;
    - ``phase_train_vae_dp``: VAE data parallelism, after fp32 values checks
      at vae_coco's width on 8 rows (``data:2`` on 2 ranks and
      ``data:2,model:2`` with ``tokens_dim:model``, the codebook split, on 4,
@@ -200,7 +221,7 @@ Phases, none of them optional:
      "train_vae_dp" line holds step s, images/s, the gradient bytes a rank a
      step, peak memory a rank and the data-wait share;
    - ``phase_train_12b_tp``: configs/dalle_12B.json's published
-     ``data:16,model:8`` as ``data:1,model:8`` on 8 ranks, cut to 2 of 38
+     ``data:16,model:8`` as ``data:1,model:8`` on 8 ranks, cut to 1 of 38
      layers, 4 rows and Adafactor, through ``train_dalle.main`` for 2 steps
      and a checkpoint, then a resume for 1 whose restored parameters and moments
      equal the saved ones bit for bit on every rank; the first loss within
@@ -214,7 +235,7 @@ Phases, none of them optional:
      step); then, in the same launch, each rank samples from the resumed
      checkpoint: its blocks read out of the mapped file
      (``sample_dalle.load_dalle_params``), bf16, the prefill of 64 seeded
-     captions (the published predict_batch_size) and 128 of the 2303 decode
+     captions (the published predict_batch_size) and 32 of the 2303 decode
      steps (temperature 1, top_k 64); the tokens must be equal on the 8
      ranks and rank 0's prefill band logits within 0.1 of one process's on
      the card on the same checkpoint; its "sample_12b_tp" line holds each
@@ -222,7 +243,7 @@ Phases, none of them optional:
      collective bytes a step;
    - ``phase_serve_tp``, the main path of this slice: configs/dalle_coco.json
      (as published: 12 layers of 1024, 8 heads, bf16, ``data:16,model:2``
-     and layout; each batch decodes 128 of its 1023 steps, the tokens past
+     and layout; each batch decodes 32 of its 1023 steps, the tokens past
      them 0) and configs/vae_coco.json through ``serve_dalle.build_server``
      on two ranks sharing the card: rank 0 serves HTTP (three requests at
      once in one batch of 4, then the first again, greedy repeated bit for
@@ -247,7 +268,7 @@ Phases, none of them optional:
    two steps traced in the same loop, and a resume from step 20 that
    repeats the losses bit for bit (cuDNN's deterministic switch on); then
    the host's data (the pipeline's images a second alone and the data-wait
-   share of 20-step runs on the pool of decode threads, at 256² and
+   share of 14-step runs on the pool of decode threads, at 256² and
    at COCO sizes) and the steps run with no sync between them; its
    "train_vae" line holds step s, images/s, MFU, peak memory, the device's
    busy share and ms by bucket from the traced steps, and the data-wait
@@ -331,7 +352,7 @@ data-parallel and sharded serving phases, started by them through
 ``run_ranks`` with the environment ``torch.distributed.run`` would give it.
 
 Prints "kernel", "train", "memory_options_values", "loss_head",
-"loss_head_steps", "head", "train_12b", "train_tp", "train_vae_dp",
+"loss_head_steps", "head", "train_12b", "train_tp", "train_pp", "train_vae_dp",
 "train_12b_tp", "train_vae",
 "train_image", "batch", "decode_profile" and "continuous_chunk" JSON lines,
 then each phase's seconds ("phase_seconds") and the whole run's against its
@@ -339,7 +360,9 @@ then each phase's seconds ("phase_seconds") and the whole run's against its
 then the kernel report as one JSON line (with each kernel's least time on the
 card, ``bound_ms``, one PyTorch call's time for the same function,
 ``library_ms``, and on rows 1-2 the image-mode run's launches,
-``image_mode_launches``, and the row at dalle_12B's shape with the
+``image_mode_launches``, the pipeline run's launches a rank,
+``pp_launches`` and the pair's row at that run's microbatch,
+``pp_microbatch``, and the row at dalle_12B's shape with the
 published arm's launches, ``dalle_12B``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
 is non-zero and no result is printed. fp32 matmuls and convs run in full
@@ -419,7 +442,9 @@ PEAK_TF32_TFLOPS = 494.7  # H100 SXM dense TF32 on the tensor cores (data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 L2_BYTES = 50e6
 CHUNK = 128  # continuous engine: decode steps between admissions
-EAGER_STEPS = 128  # eager reference steps of the quantized forms and of sampled runs
+# eager reference steps of the quantized forms and of sampled runs (128 before
+# the pipeline phase took its card time)
+EAGER_STEPS = 64
 PROFILED_REPLAYS = 16  # replays of a decode graph under torch.profiler
 PROFILE_EDGE_S = 0.02  # host idle between the profiler window's edges and the replays
 PREDICT_ROWS = 4  # predict_batch_size of the training phase's predict
@@ -434,8 +459,9 @@ DECODE_ITERS = 200  # timed launches of a decode matmul (a launch is a few µs)
 RING_RANKS = 4
 RING_MESH, VALUES_MESH = "data:1,seq:4", "data:2,seq:2"
 RING_LAYOUT = "batch_dim:data,total_seq_dim:seq"
-# the ring run: 4 steps (steps 3..4 timed) + eval + checkpoint, a resume for 1
-RING_STEPS = 4
+# the ring run: 3 steps (step 3 timed) + eval + checkpoint (4 before the
+# pipeline phase took its card time)
+RING_STEPS = 3
 RING_LABEL = "4 ranks sharing one card, gloo staged through host: not a multi-GPU number"
 RING_SEED = 2**31 - 7
 # tensor parallelism: ranks sharing the one card over gloo
@@ -447,7 +473,7 @@ TP_LAYOUT = "batch_dim:data,heads_dim:model,intermediate_expanded:model,vocab_di
 # ranks) and layout verbatim, cut to one data replica's 8 rows of the published
 # 128 (the rule phase_train_12b takes); all 12 layers
 TP_CUT = dict(train_batch_size=8, eval_batch_size=8)
-TP_STEPS, TP_TIMED_FROM = 4, 3  # steps 3..4 are timed
+TP_STEPS, TP_TIMED_FROM = 3, 3  # step 3 is timed (4 steps before the pipeline phase)
 TP_LABEL = "2 ranks sharing one card over gloo, staged through host: not a multi-GPU number"
 TP_VALUES_LABEL = ("4 ranks sharing one card over gloo, staged through host: not a multi-GPU "
                    "number")
@@ -519,12 +545,15 @@ def device_profile(torch, fn, copies: int, iters: int, names=(), per_call: int =
     calls, and what the profiler saw by name. On the H100 machine the
     profiler now and then returns a trace without some or all of the
     device's events (once, in a whole run, one with none at all; in another,
-    three traces in a row one kernel event short), so each trace is taken
-    after a warm-up cycle of the same calls that the profiler traces and
-    discards (its ``schedule``), and is kept only when it holds device work
-    and, given kernel ``names``, exactly ``iters * per_call`` events of
-    them, one a launch; a lost trace is reported and taken again,
-    ``attempts`` times at most."""
+    three traces in a row one kernel event short; in a third, five traces
+    in a row short of a few of the ring backward's events), so each trace
+    is taken after a warm-up cycle of the same calls that the profiler
+    traces and discards (its ``schedule``), with the host idle
+    ``PROFILE_EDGE_S`` at each edge of the kept window (as
+    ``profile_replays``: the events lost sit at the window's edges), and is
+    kept only when it holds device work and, given kernel ``names``, exactly
+    ``iters * per_call`` events of them, one a launch; a lost trace is
+    reported and taken again, ``attempts`` times at most."""
     from torch.profiler import ProfilerActivity, profile, schedule  # noqa: PLC0415
 
     for i in range(3):
@@ -537,7 +566,9 @@ def device_profile(torch, fn, copies: int, iters: int, names=(), per_call: int =
                 for i in range(iters):
                     fn(i % copies)
                 torch.cuda.synchronize()
+                time.sleep(PROFILE_EDGE_S)
                 prof.step()
+                time.sleep(PROFILE_EDGE_S)
         device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
         by_name = {}
@@ -697,8 +728,9 @@ def phase_train_kernels(torch, attn, card):
     dropout against their plain versions. Returns ({kernel name: row at the
     training shape (without dropout)}, the same at dalle_12B's microbatch:
     B=8, H=40, S=2560, at a tensor-parallel rank's block of dalle_coco:
-    B=8, H=4, S=1280, and at a dalle_12B rank's at model:8: B=4, H=5,
-    S=2560)."""
+    B=8, H=4, S=1280, at a dalle_12B rank's at model:8: B=4, H=5, S=2560,
+    and at a pipeline stage's microbatch of dalle_coco_synth on
+    pipe:2,data:2: B=4, H=8, S=1280)."""
     from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
 
     cases = [  # (name, B, H, S, D, dtype, window, dropout, plain version's timing iters)
@@ -710,6 +742,8 @@ def phase_train_kernels(torch, attn, card):
         ("tp_rank", 8, 4, 1280, 128, torch.bfloat16, None, 0.0, 10),
         # a rank of dalle_12B at model:8: 5 of the 40 heads, the 12B TP run's 4 rows
         ("tp12b_rank", 4, 5, 2560, 128, torch.bfloat16, None, 0.0, 2),
+        # a pipeline stage's microbatch of dalle_coco_synth on pipe:2,data:2: 4 rows
+        ("pp_microbatch", 4, 8, 1280, 128, torch.bfloat16, None, 0.0, 10),
     ]
     seed = 2**31 - 7  # near the top of the range: the uint32 add wraps
     gen = torch.Generator().manual_seed(1)
@@ -776,7 +810,7 @@ def phase_train_kernels(torch, attn, card):
         }
         for row in rows.values():
             print("kernel", json.dumps(row), flush=True)
-        if name in ("train", "dalle_12B", "tp_rank", "tp12b_rank"):
+        if name in ("train", "dalle_12B", "tp_rank", "tp12b_rank", "pp_microbatch"):
             best[name] = rows
         del q, k, v, g, out, lse, grads, ref, ref_lse, ref_grads, sets
         torch.cuda.empty_cache()
@@ -804,7 +838,8 @@ def phase_train_kernels(torch, attn, card):
             # a window bounds the pairs, so this bound (every causal pair) is an upper one
             **attention_roofline(b, h, s, d, 4, 4, 1, 2),
         )), flush=True)
-    return best["train"], best["dalle_12B"], best["tp_rank"], best["tp12b_rank"]
+    return (best["train"], best["dalle_12B"], best["tp_rank"], best["tp12b_rank"],
+            best["pp_microbatch"])
 
 
 def phase_bhsd_kernels(torch, attn, card):
@@ -2549,14 +2584,16 @@ def state_digest(torch, state, moments: bool = False) -> str:
 
 
 def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
-    """One rank of phase_train_ring, phase_train_tp, phase_train_12b_tp
-    (``train_dalle.main``) and phase_train_vae_dp (``cli`` "train_vae",
+    """One rank of phase_train_ring, phase_train_tp, phase_train_12b_tp,
+    phase_train_pp (``train_dalle.main``; ``--pp-values`` first runs
+    ``pp_values_rank``) and phase_train_vae_dp (``cli`` "train_vae",
     cuDNN deterministic; ``--values <mesh_shape> <layout>`` first runs
     ``vae_values_rank``): the CLI on each of its argvs (separated by
     ``--then``: a resume runs in the same process group), the kernel counts
     and the peak memory reset just before each; writes what the rank saw in run i to
     <out_dir>/rank<r>_<i>.json (history, launches, staged bytes, the bytes
-    its collectives moved in each training step, peak memory, a checksum of
+    its collectives moved and those its pipeline hops sent, by kind, in each
+    training step, peak memory, a checksum of
     its parameters and moments at the end and just after a restore, the
     seconds and host memory of the model's init and of each checkpoint
     save, the training stream's waits)."""
@@ -2568,6 +2605,7 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
     from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import ring_attention as ring  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.parallel import pipeline  # noqa: PLC0415
     from dalle_mtf_tpu_torch.parallel.tensor import COLLECTIVES  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.trainer import Trainer  # noqa: PLC0415
@@ -2576,13 +2614,14 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
     module = importlib.import_module(f"dalle_mtf_tpu_torch.{cli}")
     rank = int(os.environ["RANK"])
     with_moments = bool(os.environ.get(DIGEST_MOMENTS))
-    step_bytes, events, streams = [], {}, []
+    step_bytes, step_hops, events, streams = [], [], {}, []
     train_step, save, restore, init = Trainer.train_step, Trainer.save, Trainer.restore, DALLE.init
 
-    def counted(self, *args, **kw):  # the collectives' bytes of one training step
-        before = COLLECTIVES["bytes"]
+    def counted(self, *args, **kw):  # the collectives' and the hops' bytes of one step
+        before, hops = COLLECTIVES["bytes"], dict(pipeline.SENT_BYTES)
         out = train_step(self, *args, **kw)
         step_bytes.append(COLLECTIVES["bytes"] - before)
+        step_hops.append({k: v - hops[k] for k, v in pipeline.SENT_BYTES.items()})
         return out
 
     def timed_init(self, generator):
@@ -2631,9 +2670,11 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
             return streams[-1]
 
         module.vae_input_fn = timed_train_stream
-    values = sampling = None
+    values = sampling = pp_values = None
     if argv[:1] == ["--values"]:  # the VAE values check first, in the same group
         values, argv = argv[1:3], argv[3:]
+    if argv[:1] == ["--pp-values"]:  # the pipeline's values check first, in the same group
+        pp_values, argv = True, argv[1:]
     if argv[:1] == ["--sample"]:  # sampling from the last run's checkpoint, after the runs
         sampling, argv = [int(a) for a in argv[1:3]], argv[3:]
     runs = [list(g) for sep, g in itertools.groupby(argv, lambda a: a == "--then") if not sep]
@@ -2646,10 +2687,14 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
             torch.backends.cudnn.deterministic = True
         if values:
             vae_values_rank(torch, proc, out_dir, *values)
+        if pp_values:
+            pp_values_rank(torch, proc, out_dir)
         for i, run_argv in enumerate(runs):
             reset_counts(attn, lnm, ring)
             ring.STAGED_BYTES["ring_shift"] = 0
+            pipeline.STAGED_BYTES["pipeline"] = 0
             step_bytes.clear()
+            step_hops.clear()
             events.clear()
             streams.clear()
             torch.cuda.reset_peak_memory_stats(0)
@@ -2664,6 +2709,8 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
                                          **ring.KERNEL_LAUNCHES},
                                staged_bytes=ring.STAGED_BYTES["ring_shift"],
                                collective_bytes_per_step=list(step_bytes),
+                               pipe_bytes_per_step=list(step_hops),
+                               pipe_staged_bytes=pipeline.STAGED_BYTES["pipeline"],
                                peak_mem_gb=torch.cuda.max_memory_allocated(0) / 1e9,
                                params_sha256=state_digest(torch, run.state),
                                state_sha256=state_digest(torch, run.state, True)
@@ -3058,9 +3105,11 @@ def phase_tp_values(torch, attn, card) -> dict:
     return report
 
 
-def single_first_loss(torch, path) -> float:
+def single_first_loss(torch, path, shards=((0, 1),)) -> float:
     """The single-process port's first training loss on the records and
-    seed of the config at ``path``: its Trainer's init and first batch."""
+    seed of the config at ``path``: its Trainer's init and first batch, or
+    the first batches of the data ``shards`` (index, count) one after
+    another, the rows the ranks of a data axis read."""
     import numpy as np  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn  # noqa: PLC0415
@@ -3073,9 +3122,13 @@ def single_first_loss(torch, path) -> float:
     seed = params.get("seed") or 0
     _, _, init_fn, loss_fn, _ = make_dalle_task(params, "cuda")
     tree = init_fn(torch.Generator().manual_seed(seed))
-    data = iter(dalle_input_fn(params, eval=False, shard=(0, 1)))
-    batch = {k: torch.as_tensor(np.asarray(v)).cuda() for k, v in next(data).items()}
-    data.close()
+    parts = []
+    for shard in shards:
+        data = iter(dalle_input_fn(params, eval=False, shard=shard))
+        parts.append(next(data))
+        data.close()
+    batch = {k: torch.as_tensor(np.concatenate([np.asarray(p[k]) for p in parts])).cuda()
+             for k in parts[0]}
     with torch.no_grad():
         loss, _ = loss_fn(tree, None, batch, step_generator(seed, 1, 0), 0)
     return loss.item()
@@ -3200,6 +3253,296 @@ def phase_train_tp(torch, card) -> list[dict]:
         )), flush=True)
         return [{k: r["launches"][k] for k in ("causal_attention_packed_fwd",
                                                 "causal_attention_packed_bwd")} for r in ranks]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------ pipeline parallelism
+
+PP_RANKS = 4
+PP_MESH, PP_LAYOUT = "pipe:2,data:2", "batch_dim:data,layers:pipe"
+PP_STAGES, PP_DATA = 2, 2
+PP_STEPS, PP_TIMED_FROM = 3, 2  # steps 2..3 are timed
+PP_LABEL = ("4 ranks sharing one card over gloo, staged through host: not a multi-GPU "
+            "number")
+# the values check: the full-width model cut to 4 layers (2 a stage), fp32,
+# 8 rows (4 a data rank) at M = 2 and M = 4 microbatches
+PP_VALUES_LAYERS, PP_VALUES_ROWS, PP_VALUES_MICROBATCHES = 4, 8, (2, 4)
+PP_FIRST_LOSS_ATOL = 2e-3  # bf16, the rows in another grouping: as the ring and TP runs
+
+
+def pp_whole_grads(torch, dalle, mesh, tree) -> dict:
+    """Every leaf's whole gradient on a pipe mesh: a stage's layers gathered
+    over the pipeline and summed over the replicas, the other leaves summed
+    over the replicas and the stages (a leaf a stage did not use: zeros)."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.parallel.tensor import gather  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+
+    out = {}
+    for p, t in named_leaves(tree):
+        g = torch.zeros_like(t) if t.grad is None else t.grad
+        split = dalle.sharding.of(p)
+        g = gather(g, split, dalle.sharding.group)
+        dist.all_reduce(g, group=mesh.replica_group if split is not None else mesh.share_group)
+        out["/".join(p)] = g
+    return out
+
+
+def pp_values_rank(torch, proc, out_dir) -> None:
+    """One rank's values check of pipeline parallelism, in phase_train_pp's
+    launch before its training: the PP_VALUES_LAYERS-layer fp32 values model
+    on PP_MESH, the rank's data rows of PP_VALUES_ROWS, at each of
+    PP_VALUES_MICROBATCHES: the loss and every leaf's whole gradient
+    (``pp_whole_grads``), which rank 0 holds against one process on the card
+    (``values_errors``), and the packed pair's launches on this rank.
+    Writes <out_dir>/pp_values_rank<r>.pt."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.parallel.mesh import build_mesh  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = build_mesh(PP_MESH, PP_LAYOUT, "global", proc.rank, proc.world)
+    base, params, _ = values_model(torch, n_layers=PP_VALUES_LAYERS)
+    tokens = torch.randint(0, base.total_tokens, (PP_VALUES_ROWS, base.total_seq_len),
+                           generator=torch.Generator().manual_seed(7))
+    rows = PP_VALUES_ROWS // mesh.size("data")
+    mine = tokens[mesh.index("data") * rows:][:rows].cuda()
+    res = {"backend": proc.backend, "coords": mesh.coords, "stage": mesh.stage, "arms": {}}
+    for m in PP_VALUES_MICROBATCHES:
+        cfg = dataclasses.replace(base, pipeline_microbatches=m)
+        dalle = DALLE(cfg, "cuda", mesh)
+        tree = _to(dalle.sharding.shard_tree(params), "cuda")
+        for _, t in named_leaves(tree):
+            t.requires_grad_(True)
+        reset_counts(attn)
+        loss, _ = dalle.loss(tree, mine, torch.Generator().manual_seed(TP_SEED))
+        loss.backward()
+        launches = {n: c for n, c in attn.KERNEL_LAUNCHES.items() if c}
+        grads = pp_whole_grads(torch, dalle, mesh, tree)
+        loss = loss.detach().clone()
+        dist.all_reduce(loss, group=mesh.share_group)
+        res["arms"][m] = dict(loss=loss.item(), launches=launches, layers=dalle.layers)
+        if proc.rank == 0:
+            res["arms"][m]["one_process"] = values_errors(torch, cfg, params, tokens, False,
+                                                          grads)
+        del tree, grads, loss
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(out_dir, f"pp_values_rank{proc.rank}.pt"))
+    dist.barrier()
+
+
+def check_pp_values(torch, card, out_dir) -> dict:
+    """phase_train_pp's values check on the ranks' reports: every rank's
+    loss within 1e-5 of one process's on the card, every gradient within
+    relative L2 error 1e-2 (the values checks' band: the 3xTF32 kernels and
+    fp32 sums in another order), one forward and one backward launch a layer
+    of the stage and a microbatch on each rank."""
+    ranks = [torch.load(os.path.join(out_dir, f"pp_values_rank{r}.pt"), weights_only=False)
+             for r in range(PP_RANKS)]
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError(f"ranks sharing a card must run gloo: {[r['backend'] for r in ranks]}")
+    report = {}
+    for m in PP_VALUES_MICROBATCHES:
+        one = ranks[0]["arms"][m]["one_process"]
+        losses = [r["arms"][m]["loss"] for r in ranks]
+        l2, elem = one["worst_grad_rel_l2"], one["worst_grad_elem"]
+        per = PP_VALUES_LAYERS // PP_STAGES
+        need = {"causal_attention_packed_fwd": per * m, "causal_attention_packed_bwd": per * m}
+        launches = [r["arms"][m]["launches"] for r in ranks]
+        report[f"M{m}"] = dict(loss_pp=losses, loss_one_process=one["loss"],
+                               worst_grad_rel_l2=l2, worst_grad_elem=elem,
+                               layers_per_rank=[r["arms"][m]["layers"] for r in ranks],
+                               launches_per_rank=launches)
+        print(f"pp values M={m}: {PP_VALUES_LAYERS} layers, fp32, {PP_VALUES_ROWS} rows "
+              f"on {PP_MESH}: loss per rank {losses} vs one process {one['loss']:.7f} (atol "
+              f"1e-5); worst grad relative L2 error {l2[0]:.3g} ({l2[1]}, bound 1e-2); worst "
+              f"single element {elem[0]:.3g} of its leaf's max |grad| ({elem[1]}); launches "
+              f"per rank {launches} ({PP_LABEL}); {card}", flush=True)
+        if not (all(abs(x - one["loss"]) <= 1e-5 for x in losses) and l2[0] <= 1e-2):
+            raise AssertionError(f"pp values M={m}: the ranks disagree with one process")
+        if any(x != need for x in launches):
+            raise AssertionError(f"pp values M={m}: launches {launches}, expected {need}")
+    return report
+
+
+def pp_expected_bytes(cfg, batch: int, microbatches: int, stage: int) -> dict:
+    """What a rank of ``stage`` sends in one training step, from the code
+    (parallel/pipeline.py), by kind: each microbatch's activations
+    [b/M, S, E] forward to the next stage and their gradients backward to
+    the previous one; the head rows [b/P, S, E] from the last stage to each
+    other stage and their gradients back (compute dtype)."""
+    rows = batch // PP_DATA
+    elem = 2 if cfg.bf_16 else 4
+    hop = rows // microbatches * cfg.total_seq_len * cfg.n_embd * elem
+    head = rows // PP_STAGES * cfg.total_seq_len * cfg.n_embd * elem
+    last = stage == PP_STAGES - 1
+    return {"activations": 0 if last else microbatches * hop,
+            "gradients": 0 if stage == 0 else microbatches * hop,
+            "head_rows": (PP_STAGES - 1) * head if last else 0,
+            "head_grads": 0 if last else head}
+
+
+def pp_expected_collective_bytes(dalle_whole, n_metrics: int) -> dict:
+    """A rank's all_reduce bytes in one training step, from the code
+    (train/trainer.py): its stage's layers over the data group and the
+    replicated leaves over the data and pipe ranks (fp32 gradients), the
+    global norm's one fp32 sum of the stage's squares over the pipeline and
+    the metrics' shares (``n_metrics`` fp32 values) over the data and pipe
+    ranks. ``dalle_whole``: the model on one process (its whole shapes)."""
+    blocks = sum(math.prod(s) for p, s in _shape_leaves(dalle_whole.param_shapes())
+                 if p[0] == "layers") // PP_STAGES
+    replicated = sum(math.prod(s) for p, s in _shape_leaves(dalle_whole.param_shapes())
+                     if p[0] != "layers")
+    return dict(stage_layer_values=blocks, stage_layer_bytes=4 * blocks,
+                replicated_values=replicated, replicated_bytes=4 * replicated,
+                total=4 * blocks + 4 * replicated + 4 + 4 * n_metrics)
+
+
+def checkpoint_stage_digest(torch, obj, shapes, stage: int, per: int) -> str:
+    """sha256 of what a rank of ``stage`` holds of the parameters of a
+    checkpoint read by one process (``state_digest``'s order and bytes):
+    the stage's ``per`` layers of every stacked leaf, the other leaves
+    whole."""
+    import hashlib  # noqa: PLC0415
+
+    digest = hashlib.sha256()
+    for p, _ in shapes:
+        t = obj["params"]["/".join(p)]
+        if p[0] == "layers":
+            t = t[stage * per:(stage + 1) * per]
+        digest.update(t.float().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def phase_train_pp(torch, card) -> list[dict]:
+    """The pipeline-parallel main path: a tokens-mode copy of
+    configs/dalle_coco_synth.json as published (12 layers of 1024, 8 heads
+    of 128, S = 1280, vocab 52,307, batch 16, bf16, dots_and_attn) with
+    ``mesh_shape`` PP_MESH and ``layout`` PP_LAYOUT (each stage 6 layers, 2
+    microbatches of 4 rows a data rank, the loss head on 4 rows a rank),
+    through ``run_ranks`` of PP_RANKS ranks sharing the card and
+    ``train_dalle.main`` for PP_STEPS steps with an eval and a checkpoint.
+    In the same launch, first, the values check (``pp_values_rank``,
+    ``check_pp_values``). Checks: the first loss within PP_FIRST_LOSS_ATOL
+    of the single-process port's on the same seed and the same records (the
+    first batches of both data ranks' shards); the losses equal on every
+    rank; the
+    packed pair's launches a rank (its 6 layers, a forward a microbatch a
+    pass and a backward a microbatch a step); the bytes each rank sent a
+    step, by kind, to the byte of ``pp_expected_bytes``; the all_reduce
+    bytes a rank a step to the byte of ``pp_expected_collective_bytes``;
+    the checkpoint read by one process holding each rank's final parameters
+    bit for bit. Returns the packed pair's launches per rank."""
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils import checkpoint  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_run_")
+    names = ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
+    try:
+        published = fetch_model_params(TRAIN_CONFIG)
+        over = dict(mesh_shape=PP_MESH, layout=PP_LAYOUT)
+        dalle, _ = make_dalle_models({**published, **over}, "cpu")
+        cfg = dalle.cfg
+        write_tokens_dataset(os.path.join(tmp, "data"), 6, cfg.image_seq_len,
+                             cfg.image_vocab_size, files=2, per_file=48)
+        path = train_config(tmp, PP_STEPS, TRAIN_CONFIG, PP_STEPS, **over)
+        single = single_first_loss(torch, path, [(d, PP_DATA) for d in range(PP_DATA)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        out_dir = os.path.join(tmp, "ranks")
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "train", out_dir,
+                   "--pp-values", "--model", path, "--gpu_ids", "0", "--new", "--yes"], 600,
+                  PP_RANKS)
+        wall = time.perf_counter() - t0
+        values = check_pp_values(torch, card, out_dir)
+        ranks = [rank_report(out_dir, r, 0) for r in range(PP_RANKS)]
+        batch, m = published["train_batch_size"], cfg.pipeline_microbatches or PP_STAGES
+        evals = 1
+        per = cfg.n_layers // PP_STAGES
+        want = {names[0]: per * m * (PP_STEPS + evals), names[1]: per * m * PP_STEPS}
+        metrics = ("loss", "loss_text", "loss_image")
+        coll = pp_expected_collective_bytes(dalle, len(metrics))
+        for r in ranks:
+            stage = r["rank"] // PP_DATA
+            if [h["step"] for h in r["history"]] != list(range(1, PP_STEPS + 1)):
+                raise AssertionError(f"rank {r['rank']} logged {r['history']}")
+            if [h["loss"] for h in r["history"]] != [h["loss"] for h in ranks[0]["history"]]:
+                raise AssertionError("the ranks logged different losses")
+            if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                       for h in r["history"]):
+                raise AssertionError(f"non-finite loss or grad_norm: {r['history']}")
+            if len(r["eval_history"]) != evals or not all(
+                    math.isfinite(e["eval_loss"]) for e in r["eval_history"]):
+                raise AssertionError(f"eval: {r['eval_history']}")
+            if r["checkpoints"] != [PP_STEPS]:
+                raise AssertionError(f"checkpoints {r['checkpoints']}")
+            if {k: c for k, c in r["launches"].items() if c} != want:
+                raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected "
+                                     f"{want}")
+            hops = pp_expected_bytes(cfg, batch, m, stage)
+            if any(step != hops for step in r["pipe_bytes_per_step"]):
+                raise AssertionError(f"rank {r['rank']} (stage {stage}) sent "
+                                     f"{r['pipe_bytes_per_step']} a step, expected {hops}")
+            if any(b != coll["total"] for b in r["collective_bytes_per_step"]):
+                raise AssertionError(f"rank {r['rank']} all_reduced "
+                                     f"{r['collective_bytes_per_step']} bytes a step, expected "
+                                     f"{coll['total']} ({coll})")
+        losses = [h["loss"] for h in ranks[0]["history"]]
+        init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
+        if abs(losses[0] - init_loss) > 0.1 or abs(losses[0] - single) > PP_FIRST_LOSS_ATOL:
+            raise AssertionError(f"first loss {losses[0]} vs ln(vocab) + var/2 = {init_loss} "
+                                 f"and the single-process port's {single} (atol "
+                                 f"{PP_FIRST_LOSS_ATOL})")
+        t_read = time.perf_counter()
+        obj = checkpoint.read(os.path.join(tmp, "run", "checkpoints", f"ckpt_{PP_STEPS}.pt"))
+        shapes = list(_shape_leaves(dalle.param_shapes(whole=True)))
+        digests = [checkpoint_stage_digest(torch, obj, shapes, r["rank"] // PP_DATA, per)
+                   for r in ranks]
+        read_s = time.perf_counter() - t_read
+        if digests != [r["params_sha256"] for r in ranks]:
+            raise AssertionError("the checkpoint read by one process differs from the ranks' "
+                                 "final parameters")
+        del obj
+        step_s = [1.0 / h["steps_per_sec"] for h in ranks[0]["history"][PP_TIMED_FROM - 1:]]
+        med = statistics.median(step_s)
+        hop = pp_expected_bytes(cfg, batch, m, 0)["activations"] // m
+        launched = [{k: c for k, c in r["launches"].items() if c} for r in ranks]
+        print(f"train pp {TRAIN_CONFIG}: {PP_STEPS} steps + eval + checkpoint in {wall:.1f}s "
+              f"({PP_RANKS} ranks, one launch, the values check first); losses "
+              f"{[round(x, 4) for x in losses]} (the single-process port's first {single:.4f});"
+              f" launches per rank {launched}; {hop} bytes a microbatch a hop; checkpoint "
+              f"bit-equal to every rank's parameters ({PP_LABEL})", flush=True)
+        print("train_pp", json.dumps(dict(
+            card=card, config=TRAIN_CONFIG, label=PP_LABEL, ranks=PP_RANKS, mesh_shape=PP_MESH,
+            layout=PP_LAYOUT, stages=PP_STAGES, data_ranks=PP_DATA, microbatches=m,
+            microbatch_rows=batch // PP_DATA // m, head_rows_per_rank=batch // PP_DATA // PP_STAGES,
+            bubble=(PP_STAGES - 1) / (m + PP_STAGES - 1), batch=batch, seq_len=cfg.total_seq_len,
+            n_layers=cfg.n_layers, layers_per_stage=per, n_embd=cfg.n_embd,
+            vocab=cfg.total_tokens, bf16=cfg.bf_16, remat_policy=cfg.remat_policy,
+            steps_timed=len(step_s), step_s=step_s, step_s_median=med,
+            tokens_per_s=cfg.total_seq_len * batch / med,
+            hop_bytes_per_microbatch=hop,
+            sent_bytes_per_rank_per_step=[r["pipe_bytes_per_step"] for r in ranks],
+            staged_bytes_per_rank=[r["pipe_staged_bytes"] for r in ranks],
+            collective_bytes_per_rank_per_step=[r["collective_bytes_per_step"] for r in ranks],
+            collective_bytes_expected=coll,
+            peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+            wall_s_per_rank=[r["wall_s"] for r in ranks], launch_wall_s=wall,
+            checkpoint_read_s=read_s, checkpoint_bit_equal=True,
+            first_loss=losses[0], single_process_first_loss=single,
+            expected_init_loss=init_loss, losses=losses, eval=ranks[0]["eval_history"],
+            packed_launches_per_rank=[{k: r["launches"][k] for k in names} for r in ranks],
+            values=values,
+        )), flush=True)
+        return [{k: r["launches"][k] for k in names} for r in ranks]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3493,17 +3836,19 @@ def phase_train_vae_dp(torch, card) -> dict:
 
 TWELVE_B_TP_RANKS = 8
 # configs/dalle_12B.json with its published layout and mesh (data:16,model:8
-# -> data:1,model:8 on 8 ranks sharing the card), cut to 2 of 38 layers and
-# 4 rows, half of one published microbatch (512 / 16 replicas / 4
-# microbatches = 8); no eval; Adafactor in place of the published AdamW, so
-# a checkpoint is the parameters' 4.7 GB and small factored moments, not
-# 14.1 GB (the run's time limit)
-TWELVE_B_TP_CUT = dict(n_layers=2, train_batch_size=4, eval_batch_size=4,
+# -> data:1,model:8 on 8 ranks sharing the card), cut to 1 of 38 layers (2
+# before the pipeline phase took its card time) and 4 rows, half of one
+# published microbatch (512 / 16 replicas / 4 microbatches = 8); no eval;
+# Adafactor in place of the published AdamW, so a checkpoint is the
+# parameters (3.5 GB) and small factored moments, not three times them (the
+# run's time limit)
+TWELVE_B_TP_CUT = dict(n_layers=1, train_batch_size=4, eval_batch_size=4,
                        optimizer="adafactor")
 TWELVE_B_TP_STEPS, TWELVE_B_TP_RESUME = 2, 1
 # sampling from the resumed run's checkpoint in the same launch: the
-# published predict_batch_size, 128 of the 2304 decode steps of an image
-TWELVE_B_SAMPLE_STEPS, TWELVE_B_SAMPLE_BATCH = 128, 64
+# published predict_batch_size, 32 of the 2304 decode steps of an image
+# (128 before the pipeline phase took its card time)
+TWELVE_B_SAMPLE_STEPS, TWELVE_B_SAMPLE_BATCH = 32, 64
 TWELVE_B_SAMPLE_ATOL = 0.1  # bf16 band logits, the blocks' sums in another order
 TWELVE_B_TP_LABEL = ("8 ranks sharing one card over gloo, staged through host: not a "
                      "multi-GPU number")
@@ -3716,8 +4061,9 @@ TP_SERVE_LABEL = TP_LABEL
 # first TP_SERVE_STEPS of the image's 1023 decode steps (the tokens past the
 # cut are 0): a step of ranks sharing the card waits on 2 gloo all_reduces a
 # layer, each 1.0-3.2 ms through the loopback of the H100 host measured
-# (tools/time_gloo_collectives.py), so a whole image took 75-92 s there
-TP_SERVE_STEPS = 128
+# (tools/time_gloo_collectives.py), so a whole image took 75-92 s there (128
+# steps a batch before the pipeline phase took its card time)
+TP_SERVE_STEPS = 32
 TP_SERVE_REQUESTS = (  # posted at once (n = 1, 1, 2: one batch of 4), then the first again
     {"text": "a red cube on a table", "n": 1, "temperature": 0.0, "top_k": 64},
     {"text": "two dogs playing in the snow", "n": 1, "temperature": 1.0, "top_k": 64},
@@ -4755,7 +5101,8 @@ VAE_CONFIG = "vae_coco_synth"
 VAE_STEPS, VAE_CKPT, VAE_TIMED_FROM = 30, 20, 3  # checkpoint + eval at 20 and 30; 3..30 timed
 VAE_TRACED_FROM, VAE_TRACED = 10, 2  # steps 10 and 11 of the timed run under torch.profiler
 VAE_UNSYNCED = 5  # steps run back to back with one sync at the end
-VAE_DATA_STEPS, VAE_DATA_FROM = 20, 6  # each host-data run: 20 steps, 6..20 read
+# each host-data run: 14 steps, 6..14 read (20 before the pipeline phase)
+VAE_DATA_STEPS, VAE_DATA_FROM = 14, 6
 COCO_SIDES = ((640, 480), (480, 640))  # (width, height): the commonest COCO 2017 shapes
 VAE_VALUES = dict(  # the values check's small VAE: 64 px, 256 tokens, batch 4
     dataset={"image_size": 64}, num_tokens=256, convblocks=[[1, 32], [2, 64]],
@@ -5736,8 +6083,8 @@ def main() -> int:
     phase(phase_tile_cases, torch, attn, card)
     tp_prefill = phase(tp_prefill_cases, torch, card)
     decode = phase(phase_decode_kernels, torch, dmm, card)
-    training, training_12b, training_tp, training_tp12b = phase(phase_train_kernels, torch,
-                                                                attn, card)
+    training, training_12b, training_tp, training_tp12b, training_pp = phase(
+        phase_train_kernels, torch, attn, card)
     bhsd = phase(phase_bhsd_kernels, torch, attn, card)
     ln = phase(phase_ln_kernels, torch, lnm, card)
     ring_rows = phase(phase_ring_kernels, torch, ring, card)
@@ -5773,6 +6120,9 @@ def main() -> int:
     ring_launches, ring_per_rank = phase(phase_train_ring, torch, card)
     phase(phase_tp_values, torch, attn, card)
     tp_launches = phase(phase_train_tp, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp_launches = phase(phase_train_pp, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     phase(phase_train_vae_dp, torch, card)
@@ -5845,7 +6195,13 @@ def main() -> int:
                                f"{TWELVE_B_TP_CUT}, {TWELVE_B_TP_STEPS} steps + a resume of "
                                f"{TWELVE_B_TP_RESUME}, {TWELVE_B_TP_LABEL}",
              tp12b_rank=dict(shape="B=4 H=5 S=2560 D=128 bf16 (a dalle_12B model:8 rank's "
-                                   "heads)", **measured(training_tp12b[name])))
+                                   "heads)", **measured(training_tp12b[name])),
+             pp_launches=[r[name] for r in pp_launches],
+             pp_launches_on=f"{TRAIN_CONFIG} training on {PP_RANKS} ranks ({PP_MESH}, "
+                            f"{PP_LAYOUT}: each stage 6 of the 12 layers on 2 microbatches of "
+                            f"4 rows), {PP_STEPS} steps + eval, {PP_LABEL}",
+             pp_microbatch=dict(shape="B=4 H=8 S=1280 D=128 bf16 (a pipeline stage's "
+                                      "microbatch)", **measured(training_pp[name])))
         for name in ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
     ]
     tp_prefill_launches = {

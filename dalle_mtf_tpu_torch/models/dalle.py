@@ -42,10 +42,28 @@ the vocabulary. The ranks of a group hold the same loss, and the trainer
 sums over the other axes only (``Mesh.replica_group``). Every dropout draws
 the single process's mask: the residual and embedding masks from the
 generator every rank shares, the attention hash with the rank's heads at
-their single-process program index (``head0``, ``heads_total``). The KV-cache
+their single-process program index (``head0``, ``heads_total``), and both at
+the rows' global index. The KV-cache
 path runs on the same blocks: a rank's cache holds its heads, and the head's
 banded logits are joined over the group (``_head_logits``), so every rank of
 a group samples the same tokens from the same logits.
+
+On a mesh with a pipe axis (a ``layers`` rule, parallel/pipeline.py) each
+rank holds its stage's ``L/P`` layers of every stacked leaf (``sharding``
+splits them on the layer dim) and the whole of the others. ``hidden`` runs
+the GPipe schedule: the first stage embeds, the stages run their layers on
+``pipeline_microbatches`` contiguous microbatches (default: the pipe size),
+and the last stage's output rows are split over the stages, so that each
+stage runs the final LN and the loss head on its own rows (JAX
+``_shard_head_rows``); ``forward``, ``loss``, ``dense_eval`` and
+``fused_eval`` return those rows' values, and ``global_mean`` is the rank's
+share of the global mean, which the trainer sums over the data and pipe
+axes (``Mesh.share_group``). Every rank draws the embedding's and all ``L``
+blocks' dropout seeds in order and uses its stage's, each at its
+microbatch's global rows, so a pipelined pass draws the single process's
+masks (JAX folds each layer's key with the microbatch id, so its pipelined
+dropout differs from its own sequential run). The KV-cache path does not
+run on a pipe mesh.
 
 Remat (``recompute_grad`` in training): each block is one
 ``torch.utils.checkpoint`` region, as each step of the JAX layer scan is one
@@ -119,8 +137,16 @@ from dalle_mtf_tpu_torch.parallel.mesh import (
     SEQ,
     VOCAB,
     VOCAB_LANES,
+    Split,
     leaf_split,
     parse_layout,
+)
+from dalle_mtf_tpu_torch.parallel.pipeline import (
+    Pipe,
+    head_bounds,
+    microbatch_rows,
+    pipeline_apply,
+    stage_layers,
 )
 from dalle_mtf_tpu_torch.parallel.tensor import (
     Sharding,
@@ -168,13 +194,14 @@ class DalleConfig:
     """The fields serving and training read
     (``dalle_mtf_tpu.models.dalle.DalleConfig``). A remat policy that takes
     arguments raises ValueError here. The ring's batch, sequence and heads
-    axes are read from the layout as in JAX; the tensor-parallel split comes
-    from the mesh's own rules (``DALLE.sharding``). A layout the port cannot
-    honour on more than one process (pipeline parallelism, tensor
-    parallelism under ring attention) raises when the mesh is built
-    (``parallel.mesh.check_layout``), and a ``layers:`` rule raises
-    NotImplementedError in ``from_params``. ``scan_unroll`` (no torch
-    meaning) is accepted and ignored."""
+    axes and the pipe axis (``layers``) are read from the layout as in JAX;
+    the tensor-parallel split and the pipeline come from the mesh's own
+    rules (``DALLE.sharding``, ``Mesh.pipe_axis``). A layout the port cannot
+    honour on more than one process (tensor parallelism under ring
+    attention, pipeline parallelism beside tensor parallelism or ring
+    attention) raises when the mesh is built
+    (``parallel.mesh.check_layout``). ``scan_unroll`` (no torch meaning) is
+    accepted and ignored."""
 
     n_embd: int
     text_vocab_size: int = 12800
@@ -191,6 +218,10 @@ class DalleConfig:
     ring_seq_axis: str = "seq"
     ring_batch_axis: str | None = "data"
     ring_heads_axis: str | None = None
+    # the pipe axis (the ``layers`` rule) and the pipeline's microbatches
+    # (None: the pipe axis's size), as in JAX
+    pipe_axis: str | None = None
+    pipeline_microbatches: int | None = None
     scale_type: str = "scale_by_depth"
     activation: str = "relu"
     ln_dtype: str = "float32"  # | "activation"; not read under ln_impl "pallas"
@@ -220,12 +251,13 @@ class DalleConfig:
     def from_params(
         cls, params: Mapping[str, Any], image_seq_len: int
     ) -> "DalleConfig":
-        _refuse_unported(params)
         rules = parse_layout(params.get("layout"))
         return cls(
             ring_seq_axis=rules.get(SEQ) or "seq",
             ring_batch_axis=rules.get(BATCH) or "data",
             ring_heads_axis=rules.get(HEADS),
+            pipe_axis=rules.get(LAYERS),
+            pipeline_microbatches=params.get("pipeline_microbatches"),
             n_embd=params["n_embd"],
             text_vocab_size=params["text_vocab_size"],
             image_vocab_size=params["image_vocab_size"],
@@ -272,15 +304,6 @@ class DalleConfig:
     @property
     def policy(self) -> Policy:
         return get_policy(self.bf_16)
-
-
-def _refuse_unported(params: Mapping[str, Any]) -> None:
-    """Raise on config keys outside ``DalleConfig``'s fields whose JAX
-    behaviour the port does not have (the fields check themselves)."""
-    if LAYERS in parse_layout(params.get("layout")):
-        raise NotImplementedError(
-            "not ported to dalle_mtf_tpu_torch yet: a 'layers:' layout rule "
-            "(pipeline parallelism)")
 
 
 _CHECKPOINT_NAME = contextvars.ContextVar("checkpoint_name", default=None)
@@ -357,9 +380,13 @@ class DALLE(nn.Module):
     The module holds the config, the device and the mesh (None: one
     process); the parameters are the nested dict ``init`` returns (or
     ``utils.convert`` loads), passed to every method, as in the JAX package.
-    On a tensor-parallel mesh ``sharding`` (a ``parallel.tensor.Sharding``,
-    else None) says which dim of each leaf is split and where this rank's
-    block lies; ``heads`` is (this rank's first head, its head count).
+    On a tensor-parallel or a pipe mesh ``sharding`` (a
+    ``parallel.tensor.Sharding``, else None) says which dim of each leaf is
+    split and where this rank's block lies; ``heads`` is (this rank's first
+    head, its head count). On a pipe mesh ``pipe`` is this rank's place in
+    its pipeline (a ``parallel.pipeline.Pipe``, else None) and ``layers``
+    the [start, stop) of its stage's layers (else all of them); a layer
+    count the pipe axis does not divide raises ValueError.
     """
 
     def __init__(self, config: DalleConfig, device: torch.device | str = "cuda", mesh=None):
@@ -367,8 +394,13 @@ class DALLE(nn.Module):
         self.cfg = config
         self.device = model_device(device)
         self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.pipe = None
+        self.layers = (0, config.n_layers)
+        if self.mesh is not None and self.mesh.pipe_axis is not None:
+            self.layers = stage_layers(config.n_layers, self.mesh.stages, self.mesh.stage)
+            self.pipe = Pipe(self.mesh.pipe_group, self.mesh.pipe_ranks, self.mesh.stage)
         self.sharding = self._sharding()
-        self._tp = self.sharding.group if self.sharding else None
+        self._tp = self.sharding.group if self.sharding and self.pipe is None else None
         split = self._split(("layers", "wq"))
         self.heads = ((0, config.n_heads) if split is None
                       else (split.start, split.stop - split.start))
@@ -403,7 +435,15 @@ class DALLE(nn.Module):
 
     def _sharding(self) -> Sharding | None:
         """The leaves' splits over the mesh's tensor-parallel axis, by the
-        mesh's layout rules (None without one)."""
+        mesh's layout rules, or over its pipe axis, every stacked leaf on
+        its layer dim (None without either)."""
+        if self.pipe is not None:
+            bounds = tuple(stage_layers(self.cfg.n_layers, self.pipe.n, j)
+                           for j in range(self.pipe.n))
+            return Sharding({path: Split(0, bounds, self.pipe.stage) if path[0] == "layers"
+                             else None
+                             for path, _ in named_leaves(self.logical_axes())},
+                            self.pipe.group)
         if self.mesh is None or self.mesh.tp_axis is None:
             return None
         axes = dict(named_leaves(self.logical_axes()))
@@ -414,7 +454,9 @@ class DALLE(nn.Module):
         return Sharding(splits, self.mesh.model_group)
 
     def _split(self, path):
-        return self.sharding.of(path) if self.sharding else None
+        """The tensor-parallel split of the leaf at ``path`` (None where it is
+        replicated, and on a pipe mesh, whose split is the stages')."""
+        return self.sharding.of(path) if self.sharding and self.pipe is None else None
 
     def param_shapes(self, quantize: str = "none", whole: bool = False) -> dict:
         """The parameter tree's shapes, keyed like the JAX tree: this rank's
@@ -456,10 +498,11 @@ class DALLE(nn.Module):
         tensor-parallel axis may split (``INIT_UNITS``), unit by unit, each
         unit from a generator keyed on (a seed drawn from ``generator``, the
         leaf's path, the layer, the unit). A rank draws only the units of
-        its blocks, one at a time into its block on the device, so the whole
-        tree is the single process's under any layout and a rank never holds
-        more than its blocks and one unit. ``drawn_elements`` counts what
-        this call drew."""
+        its blocks (on a pipe mesh, the layers of its stage), one at a time
+        into its block on the device, so the whole tree is the single
+        process's under any layout and a rank never holds more than its
+        blocks and one unit. ``drawn_elements`` counts what this call
+        drew."""
         cfg = self.cfg
         e = cfg.n_embd
         mlp1_std = logits_std = 0.02
@@ -487,7 +530,8 @@ class DALLE(nn.Module):
             return torch.randn(shape, generator=unit_gen, device=generator.device) * scale
 
         def make(path, whole):
-            name, split = path[-1], self._split(path)
+            name = path[-1]
+            split = self.sharding.of(path) if self.sharding else None
             local = self.sharding.local_shape(path, whole) if split else whole
             if name not in std:
                 fill = torch.ones if name.endswith("_g") else torch.zeros
@@ -495,13 +539,16 @@ class DALLE(nn.Module):
             out = torch.empty(local, device=self.device, dtype=torch.float32)
             logical = axes[path]
             stacked = logical[0] == LAYERS
+            layer0, layer1 = 0, whole[0]
+            if split is not None and stacked and split.dim == 0:  # a stage's layers
+                layer0, layer1, split = split.start, split.stop, None
             udim = next((i for i, a in enumerate(logical) if a in INIT_UNITS), None)
             if split is not None and split.dim != udim:
                 raise AssertionError(f"{path}: split on dim {split.dim}, units on {udim}")
             lo, hi = (split.start, split.stop) if split else (0, 0 if udim is None else whole[udim])
             key = "/".join(path)
-            for layer in range(whole[0]) if stacked else (None,):
-                dst = out[layer] if stacked else out
+            for layer in range(layer0, layer1) if stacked else (None,):
+                dst = out[layer - layer0] if stacked else out
                 shape = whole[1:] if stacked else whole
                 if udim is None:
                     dst.copy_(draw((key, layer, 0), shape, std[name]))
@@ -715,33 +762,32 @@ class DALLE(nn.Module):
         return all_reduce(out, group)
 
     def _layers(self, params) -> list[dict]:
-        """Per-layer views of the stacked [L, ...] parameters. ``unbind``
-        makes all L views at once, so the backward stacks the L gradients
-        of a weight in one pass instead of adding L full-size zeros."""
+        """Per-layer views of the stacked [L, ...] parameters (on a pipe
+        mesh, its stage's L/P). ``unbind`` makes all the views at once, so
+        the backward stacks their gradients of a weight in one pass instead
+        of adding full-size zeros for each."""
         names = list(params["layers"])
         views = [params["layers"][n].unbind(0) for n in names]
-        return [
-            {n: v[i] for n, v in zip(names, views)}
-            for i in range(self.cfg.n_layers)
-        ]
+        return [{n: v[i] for n, v in zip(names, views)} for i in range(len(views[0]))]
 
     # -------------------------------------------------------------- training
 
-    def _dropout(self, seed, x, rate):
+    def _dropout(self, seed, x, rate, rows):
         """Inverted dropout with a mask from a generator on x's device seeded
         with ``seed`` (None: no dropout; mtf dropout; the JAX package draws
         it with jax.random, so the two masks differ). On a mesh, x
         [B, S_local, E] is this rank's block: the mask is drawn for the
-        whole batch and sequence, as one process would, and sliced."""
+        whole batch and sequence, as one process would, and sliced at its
+        global rows ``rows`` = (the first, the whole batch's)."""
         if seed is None:
             return x
         keep = 1.0 - rate
         b, s, e = x.shape
-        dp_index, dp = self._dp()
-        rows, seq = slice(dp_index * b, (dp_index + 1) * b), self._seq_slice(s * self._sp())
+        row0, total = rows
+        seq = self._seq_slice(s * self._sp())
         gen = torch.Generator(device=x.device).manual_seed(seed)
-        mask = torch.rand((b * dp, s * self._sp(), e), generator=gen,
-                          device=x.device)[rows, seq] < keep
+        mask = torch.rand((total, s * self._sp(), e), generator=gen,
+                          device=x.device)[row0:row0 + b, seq] < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
     def _block_seeds(self, gen, train: bool) -> tuple:
@@ -783,21 +829,29 @@ class DALLE(nn.Module):
         last position of a shard predicts the next shard's first token."""
         return self.shifted_labels(tokens)[:, self._seq_slice(tokens.shape[1])]
 
-    def global_mean(self, values, lo: int = 0, hi: int | None = None):
+    def global_mean(self, values, lo: int = 0, hi: int | None = None,
+                    rows: int | None = None):
         """The mean of per-position ``values`` [B, S_local] over global
         positions [lo, hi) of the whole batch, as this rank's share: the
         sum of its values there over the global count, so the sum over the
-        mesh's replicas (``Mesh.replica_group``: the data axes; the ranks of
-        a tensor-parallel or replicate-only axis hold the same values) is
-        the mean.
+        mesh's shares (``Mesh.share_group``: the data axes, and the pipe
+        axis, whose stages hold their own rows of the head's values; the
+        ranks of a tensor-parallel or replicate-only axis hold the same
+        values) is the mean. ``rows``: the data rank's rows of the batch
+        the values came from (``tokens.shape[0]``); a pipe mesh needs it,
+        since a stage holds only its head rows of them.
         On one process, ``values[:, lo:hi].mean()``."""
         if self.mesh is None:
             return values[:, lo:hi].mean()
+        if rows is None:
+            if self.pipe is not None:
+                raise ValueError("global_mean on a pipe mesh needs the data rank's rows")
+            rows = values.shape[0]
         s = values.shape[1] * self._sp()
         hi = s if hi is None else hi
         seq = self._seq_slice(s)
         a, b = max(lo, seq.start) - seq.start, min(hi, seq.stop) - seq.start
-        return values[:, a:max(a, b)].sum() / (values.shape[0] * self._dp()[1] * (hi - lo))
+        return values[:, a:max(a, b)].sum() / (rows * self._dp()[1] * (hi - lo))
 
     def _qkv_packed(self, p, a_in):
         """[B, S, E] -> packed q, k, v [B, S, H*D] (H this rank's heads):
@@ -826,9 +880,10 @@ class DALLE(nn.Module):
         return attention_reference(q, k, v, True, self._window, False, drop, seed, head0,
                                    heads_total)
 
-    def _block(self, p, x, seeds):
+    def _block(self, p, x, seeds, rows):
         """One pre-LN transformer block (reference models.py:326-335);
-        ``seeds`` from ``_block_seeds``."""
+        ``seeds`` from ``_block_seeds``, ``rows`` = (x's first global row,
+        the whole batch's rows), where the dropouts draw."""
         cfg = self.cfg
         seed, res_seeds = seeds[0], seeds[1:]
         a_in = self._layer_norm(x, p["ln1_g"], p["ln1_b"])
@@ -843,9 +898,9 @@ class DALLE(nn.Module):
                 drop, seed, plain=not kernel_takes_head_dim(cfg.head_dim))
             with checkpoint_name("attn_proj"):
                 a = self._attn_out(p, a)
-            return self._block_tail(p, x, a, res_seeds)
+            return self._block_tail(p, x, a, res_seeds, rows)
         if seed is not None:  # program (b, h) of this rank's rows: global row b0 + b
-            seed += self._dp()[0] * x.shape[0] * cfg.n_heads
+            seed += rows[0] * cfg.n_heads
         # quantized weights take the [B, H, S, D] arm (JAX ``use_packed``)
         if cfg.attn_packed and "wq_scale" not in p and "wq_int4" not in p:
             with checkpoint_name("qkv"):
@@ -865,14 +920,14 @@ class DALLE(nn.Module):
             a = self._attention(q, k, v, drop, seed)
             with checkpoint_name("attn_proj"):
                 a = self._attn_out(p, a)
-        return self._block_tail(p, x, a, res_seeds)
+        return self._block_tail(p, x, a, res_seeds, rows)
 
-    def _block_tail(self, p, x, a, res_seeds):
+    def _block_tail(self, p, x, a, res_seeds, rows):
         """Residual add + LN2 + MLP + residual dropouts."""
         rate = self.cfg.residual_dropout
-        x = x + self._dropout(res_seeds[0], a, rate)
+        x = x + self._dropout(res_seeds[0], a, rate, rows)
         m = self._mlp(p, self._layer_norm(x, p["ln2_g"], p["ln2_b"]))
-        return x + self._dropout(res_seeds[1], m, rate)
+        return x + self._dropout(res_seeds[1], m, rate, rows)
 
     def _remat(self, train: bool):
         """The checkpoint ``context_fn`` of a training pass under
@@ -887,30 +942,73 @@ class DALLE(nn.Module):
                train: bool = False):
         """tokens [B, S] int -> final-LN hidden states [B, S, E] (compute
         dtype); on a sequence-parallel mesh, of this rank's positions
-        [row0, row0 + S_local) only. ``generator`` (CPU) feeds every dropout
-        of the pass (the same draws on every rank). Under ``recompute_grad``
-        each block is a checkpoint region (see the module docstring)."""
+        [row0, row0 + S_local) only; on a pipe mesh, of this rank's rows of
+        the batch (``parallel.pipeline.head_bounds``). ``generator`` (CPU)
+        feeds every dropout of the pass (the same draws on every rank).
+        Under ``recompute_grad`` each block is a checkpoint region (see the
+        module docstring)."""
         cfg = self.cfg
-        dtype = cfg.policy.compute_dtype
-        seq = self._seq_slice(tokens.shape[1])
-        x = self._embed(params, tokens[:, seq]) + params["wpe"][seq].to(dtype)
-        x = self._dropout(_seed(generator, cfg.embed_dropout, train), x, cfg.embed_dropout)
+        rows = tokens.shape[0]
+        row0, total = self._dp()[0] * rows, rows * self._dp()[1]
+        embed_seed = _seed(generator, cfg.embed_dropout, train)
+        seeds = [self._block_seeds(generator, train) for _ in range(cfg.n_layers)]
+        seeds = seeds[self.layers[0]:self.layers[1]]
         context_fn = self._remat(train)
-        for p in self._layers(params):
-            seeds = self._block_seeds(generator, train)
+        layers = self._layers(params)
+        if self.pipe is None:
+            x = self._embedded(params, tokens, embed_seed, (row0, total))
+            x = self._stage(layers, x, seeds, (row0, total), context_fn)
+        else:
+            mb = microbatch_rows(rows, self._microbatches)
+            x = None
+            if self.pipe.first:
+                x = self._embedded(params, tokens, embed_seed, (row0, total))
+            x = pipeline_apply(
+                lambda h, i: self._stage(layers, h, seeds, (row0 + i * mb, total), context_fn),
+                x, self.pipe, rows, self._microbatches, (tokens.shape[1], cfg.n_embd),
+                cfg.policy.compute_dtype, tokens.device)
+        return self._layer_norm(x, params["lnf_g"], params["lnf_b"])
+
+    def _embedded(self, params, tokens, seed, rows):
+        """The embedded tokens of this rank's positions, embedding dropout
+        drawn at ``rows``."""
+        seq = self._seq_slice(tokens.shape[1])
+        dtype = self.cfg.policy.compute_dtype
+        x = self._embed(params, tokens[:, seq]) + params["wpe"][seq].to(dtype)
+        return self._dropout(seed, x, self.cfg.embed_dropout, rows)
+
+    def _stage(self, layers, x, seeds, rows, context_fn):
+        """The blocks ``layers`` in turn on x (its global ``rows``)."""
+        for p, block_seeds in zip(layers, seeds):
             if context_fn is None:
-                x = self._block(p, x, seeds)
+                x = self._block(p, x, block_seeds, rows)
             else:
                 # no global RNG inside a block: the seeds are its arguments
                 x = torch.utils.checkpoint.checkpoint(
-                    self._block, p, x, seeds, use_reentrant=False,
+                    self._block, p, x, block_seeds, rows, use_reentrant=False,
                     preserve_rng_state=False, context_fn=context_fn)
-        return self._layer_norm(x, params["lnf_g"], params["lnf_b"])
+        return x
+
+    @property
+    def _microbatches(self) -> int:
+        """The pipeline's microbatches: the config's, else the pipe size."""
+        return self.cfg.pipeline_microbatches or self.pipe.n
+
+    def _head_labels(self, tokens):
+        """The next-token targets of the positions ``hidden`` returns: this
+        rank's slice of the sequence (``local_labels``) and, on a pipe mesh,
+        its head rows of the batch (``head_bounds``)."""
+        labels = self.local_labels(tokens)
+        if self.pipe is None:
+            return labels
+        a, b = head_bounds(labels.shape[0], self.pipe.n, warn=False)[self.pipe.stage]
+        return labels[a:b]
 
     def forward(self, params, tokens, generator=None, train: bool = False):
         """tokens [B, S] -> logits [B, S, total_tokens] fp32 (of this rank's
-        positions on a sequence-parallel mesh; of its block of the
-        vocabulary where that is split): compute-dtype operands, fp32
+        positions on a sequence-parallel mesh; of its rows on a pipe mesh;
+        of its block of the vocabulary where that is split): compute-dtype
+        operands, fp32
         accumulation and output (bf16 values are exact in fp32, so the fp32
         product of the cast operands is that matmul)."""
         x = copy_to_model(self.hidden(params, tokens, generator, train), self._vocab_group)
@@ -928,7 +1026,7 @@ class DALLE(nn.Module):
         vocabulary's blocks joined by collectives where it is split (the
         argmax with ``jnp.argmax``'s first-occurrence rule)."""
         logits = self.forward(params, tokens, generator, train=False)
-        labels = self.local_labels(tokens)
+        labels = self._head_labels(tokens)
         split = self._split(("w_out",))
         if split is None:
             loss = softmax_cross_entropy_with_logits(logits, labels, z_loss)
@@ -942,7 +1040,8 @@ class DALLE(nn.Module):
              z_loss: float = 0.0, fused_xent: bool = False):
         """Next-token xent, labels = shift-left(tokens) + EOS (reference
         models.py:397-416). Returns (mean loss fp32, per-position [B, S]);
-        on a mesh, (this rank's share of the global mean, its positions).
+        on a mesh, (this rank's share of the global mean, its positions; on
+        a pipe mesh, of its rows).
 
         The dense head runs in the compute dtype: bf16 logits, the bias cast
         to bf16 before the add, as the JAX loss head (its custom backward is
@@ -950,7 +1049,7 @@ class DALLE(nn.Module):
         streams the head over row chunks instead (ops/xent_fused.py: fp32
         logits, never [B, S, vocab] at once), for memory-bound models."""
         x = self.hidden(params, tokens, generator, train)
-        labels = self.local_labels(tokens)
+        labels = self._head_labels(tokens)
         split = self._split(("w_out",))
         if fused_xent:
             b, s, e = x.shape
@@ -968,7 +1067,7 @@ class DALLE(nn.Module):
             else:
                 loss_batch = vocab_parallel_cross_entropy(logits, labels, split.start,
                                                           self._tp, z_loss)
-        return self.global_mean(loss_batch), loss_batch
+        return self.global_mean(loss_batch, rows=tokens.shape[0]), loss_batch
 
     @property
     def _vocab_axis(self) -> str | None:
@@ -991,7 +1090,7 @@ class DALLE(nn.Module):
         b, s, e = x.shape
         loss, correct = chunked_xent_eval_auto(
             x.reshape(b * s, e), self._w_out(params), params["b_out"],
-            self.local_labels(tokens).reshape(-1), z_loss, self._xent_chunks(b * s),
+            self._head_labels(tokens).reshape(-1), z_loss, self._xent_chunks(b * s),
             self._vocab_axis, self.mesh, self.cfg.total_tokens)
         return loss.reshape(b, s), correct.reshape(b, s)
 

@@ -15,12 +15,13 @@ the ``batch_dim`` axis, sequence parallelism (ring attention) over the
 ``total_seq_dim`` axis, tensor parallelism over one axis that carries any
 of ``heads_dim``, ``intermediate_expanded`` and ``vocab_dim`` (the Megatron
 split: parallel/tensor.py) or the VAE's ``tokens_dim`` (its codebook's
-columns), and axes that carry no layout dim at all: such an axis only
-replicates, as under GSPMD. Its ranks read the same rows, draw the same
-noise and hold the same values, so nothing is summed over it.
-``check_layout`` refuses the rest at world size > 1. ``leaf_split`` says
-which dim of a parameter the tensor-parallel axis splits and where this
-rank's block lies.
+columns), pipeline parallelism over one axis that carries ``layers`` alone
+(the GPipe schedule: parallel/pipeline.py), and axes that carry no layout
+dim at all: such an axis only replicates, as under GSPMD. Its ranks read
+the same rows, draw the same noise and hold the same values, so nothing is
+summed over it. ``check_layout`` refuses the rest at world size > 1.
+``leaf_split`` says which dim of a parameter the tensor-parallel axis splits
+and where this rank's block lies.
 """
 
 from __future__ import annotations
@@ -113,6 +114,27 @@ def tensor_axis(axes: Sequence[tuple[str, int]], rules: dict[str, str]) -> str |
     return None
 
 
+def pipe_axis(axes: Sequence[tuple[str, int]], rules: dict[str, str]) -> str | None:
+    """The mesh axis of size > 1 that the layout's ``layers`` rule names, or
+    None."""
+    axis = rules.get(LAYERS)
+    return axis if axis and dict(axes).get(axis, 1) > 1 else None
+
+
+def refuse_layers(axes: Sequence[tuple[str, int]], rules: dict[str, str], what: str,
+                  item: str | None = None) -> None:
+    """Raise NotImplementedError where a ``layers`` rule names an axis of
+    size > 1 for ``what``, a path that does not run a pipeline (ROADMAP
+    queue 1 ``item``, where one would port it)."""
+    axis = pipe_axis(axes, rules)
+    if axis is not None:
+        where = f"; ROADMAP queue 1 item {item}" if item else ""
+        raise NotImplementedError(
+            f"not ported to dalle_mtf_tpu_torch yet: {what} on a 'layers' layout rule "
+            f"(pipeline parallelism over mesh axis {axis!r} of size {dict(axes)[axis]}"
+            f"{where})")
+
+
 def data_axes(rules: dict[str, str], attention_type: str = "global") -> tuple[str, ...]:
     """The axes whose ranks hold different data: the batch axis and, under
     ring attention, the sequence axis. Losses, gradients and metrics are
@@ -126,7 +148,6 @@ def data_axes(rules: dict[str, str], attention_type: str = "global") -> tuple[st
 # what check_layout says of a dim it refuses, with the ROADMAP item that
 # would port it
 _REFUSED = {
-    LAYERS: "pipeline parallelism (ROADMAP queue 1 item 5c)",
     SEQ: "sequence parallelism without ring attention",
     VAE_HID: "VAE tensor parallelism over vae_hid_dim or conv channels (ROADMAP queue 1 "
              "item 5h)",
@@ -142,20 +163,32 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
     (``batch_dim``), under ring attention the sequence (``total_seq_dim``),
     tensor parallelism (a non-empty set of ``heads_dim``,
     ``intermediate_expanded``, ``vocab_dim`` and ``tokens_dim`` and nothing
-    else, on one axis only), or no layout dim at all (an axis that only
-    replicates). Pipeline parallelism (``layers``, ROADMAP queue 1 item 5c),
+    else, on one axis only), the layer stack (``layers`` and nothing else:
+    pipeline parallelism), or no layout dim at all (an axis that only
+    replicates). Refused: ``layers`` beside another dim on its axis,
+    pipeline parallelism with a tensor-parallel axis ("PP x TP", ROADMAP
+    queue 1 item 5c-ii) or under ring attention ("PP x SP", item 5c-iii),
     tensor parallelism under ring attention ("TP x SP", item 5g) and a rule
-    on the VAE's ``vae_hid_dim`` or conv dims (item 5h) are refused."""
+    on the VAE's ``vae_hid_dim`` or conv dims (item 5h)."""
     batch_axis = rules.get(BATCH) or "data"
     seq_axis = rules.get(SEQ) or "seq"
     ring = attention_type in ("ring", "local_ring")
-    refused, tensor = [], []
+    refused, tensor, pipe = [], [], []
     for name, size in axes:
-        if size == 1 or name == batch_axis or (ring and name == seq_axis):
+        if size == 1:
             continue
         dims = sorted(d for d, a in rules.items() if a == name)
-        if not dims:
-            continue  # replicates: its ranks compute the same values
+        if LAYERS in dims and len(dims) > 1:
+            both = (" (PP x TP over one axis: ROADMAP queue 1 item 5c-ii)"
+                    if set(dims) - {LAYERS} <= set(TENSOR_DIMS) else "")
+            refused.append(f"mesh axis {name!r} of size {size} (pipeline parallelism with "
+                           f"another layout dim on its axis{both}; layout dims {dims})")
+            continue
+        if dims == [LAYERS]:
+            pipe.append(name)
+            continue
+        if name == batch_axis or (ring and name == seq_axis) or not dims:
+            continue  # data, sequence, or replicates: its ranks compute the same values
         if set(dims) <= set(TENSOR_DIMS):
             tensor.append(name)
             continue
@@ -168,13 +201,20 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
     if tensor and ring:
         refused.append(f"TP x SP: not ported (tensor parallelism over {tensor[0]!r} with "
                        f"attention_type {attention_type!r}; ROADMAP queue 1 item 5g)")
+    if pipe and tensor:
+        refused.append(f"PP x TP: not ported (pipeline parallelism over {pipe[0]!r} with "
+                       f"tensor parallelism over {tensor[0]!r}; ROADMAP queue 1 item 5c-ii)")
+    if pipe and ring:
+        refused.append(f"PP x SP: not ported (pipeline parallelism over {pipe[0]!r} with "
+                       f"attention_type {attention_type!r}; ROADMAP queue 1 item 5c-iii)")
     if refused:
         raise NotImplementedError(
             "not ported to dalle_mtf_tpu_torch yet: " + "; ".join(refused)
             + ": the port shards the batch (batch_dim), under ring attention the "
             "sequence (total_seq_dim), the heads, the MLP width and the vocabulary "
             "(heads_dim, intermediate_expanded, vocab_dim) or the VAE codebook's columns "
-            "(tokens_dim) over one axis, and replicates over an axis no rule names")
+            "(tokens_dim) over one axis, or the layer stack (layers) over one axis beside "
+            "the batch, and replicates over an axis no rule names")
 
 
 def padded_vocab(v: int, m: int) -> int:
@@ -267,18 +307,28 @@ class Mesh:
 
     ``rules``: the layout (logical dim -> mesh axis). ``tp_axis`` (the axis
     its tensor-parallel rules name, ``tensor_axis``; None where there is none)
-    splits the model. The ranks that differ from this one only on the data
-    axes (``data_axes``: the batch axis and, under ring attention, the
-    sequence axis) hold different data of the same model, and gradients and
-    metrics are summed over them: ``replica_group`` (None for the whole
-    world), ``replicas`` of them. The ranks that differ from it only on the
+    splits the model. ``pipe_axis`` (the axis its ``layers`` rule names,
+    ``pipe_axis``; None where there is none) splits the layer stack into
+    ``stages`` stages: this rank runs stage ``stage``, and ``pipe_group`` and
+    ``pipe_ranks`` are its pipeline's ranks in stage order. The ranks that
+    differ from this one only on the data axes (``data_axes``: the batch
+    axis and, under ring attention, the sequence axis) hold different data of
+    the same model, and gradients are summed over them: ``replica_group``
+    (None for the whole world), ``replicas`` of them. Under pipeline
+    parallelism the stages of one pipeline also hold parts of the replicated
+    leaves' gradients (the embedding on the first stage, the loss head on
+    each stage's rows) and of the metrics: those are summed over the data
+    axes and the pipe axis, ``share_group`` (None for the whole world),
+    ``shares`` ranks; without a pipe axis ``share_group`` is
+    ``replica_group``. The ranks that differ from this one only on the
     other axes (a tensor-parallel axis, an axis that only replicates) hold
     copies of the replicated leaves, and are never summed over:
     ``copy_group`` and ``copy_ranks`` (None where this rank holds the only
     copy), ``copies`` of them; with a ``tp_axis``, ``block_copy_group`` and
     ``block_copy_ranks`` the same without it, the copies of this rank's
-    blocks of the split leaves. The trainer makes each set of copies one
-    (``Trainer._agree``).
+    blocks of the split leaves (with a ``pipe_axis``, the copies of its
+    stage's layers: ``copy_group`` itself). The trainer makes each set of
+    copies one (``Trainer._agree``).
     """
 
     def __init__(self, axes: Sequence[tuple[str, int]], rank: int = 0, world: int = 1,
@@ -292,12 +342,17 @@ class Mesh:
         self.coords = dict(zip(self.names, _unravel(rank, [s for _, s in self.axes])))
         self.rules = dict(rules or {})
         self.tp_axis = tensor_axis(self.axes, self.rules)
+        self.pipe_axis = pipe_axis(self.axes, self.rules)
+        self.stage, self.stages = self.index(self.pipe_axis), self.size(self.pipe_axis)
         summed = [n for n in data_axes(self.rules, attention_type) if n in self.shape]
+        shared = summed + ([self.pipe_axis] if self.pipe_axis else [])
         self.replicas = math.prod(self.size(n) for n in summed)
-        copied = [n for n in self.names if n not in summed and self.size(n) > 1]
+        self.shares = self.replicas * self.stages
+        copied = [n for n in self.names if n not in shared and self.size(n) > 1]
         self.copies = math.prod(self.size(n) for n in copied)
-        self.replica_group = self.copy_group = self.block_copy_group = None
+        self.replica_group = self.share_group = self.copy_group = self.block_copy_group = None
         self.copy_ranks = self.block_copy_ranks = None
+        self.pipe_group = self.pipe_ranks = None
         self._groups: dict[str, object] = {}
         self._ranks: dict[str, list[int]] = {}
         if world == 1:
@@ -318,10 +373,17 @@ class Mesh:
                 raise RuntimeError(f"the {name!r} process group runs "
                                    f"{dist.get_backend(self._groups[name])}, not {backend}")
         self.replica_group, _ = self._group_over(summed, backend)
+        self.share_group = self.replica_group
+        if self.pipe_axis:
+            self.pipe_group, self.pipe_ranks = self.group(self.pipe_axis), self.ranks(
+                self.pipe_axis)
+            self.share_group, _ = self._group_over(shared, backend)
         self.copy_group, self.copy_ranks = self._group_over(copied, backend)
         if self.tp_axis:
             self.block_copy_group, self.block_copy_ranks = self._group_over(
                 [n for n in copied if n != self.tp_axis], backend)
+        elif self.pipe_axis:
+            self.block_copy_group, self.block_copy_ranks = self.copy_group, self.copy_ranks
 
     def _group_over(self, names, backend) -> tuple[object, list[int] | None]:
         """(process group, global ranks in order) of the ranks that differ
@@ -393,8 +455,9 @@ def _slices(shape: list[int], axis: int) -> list[list[int]]:
 def build_mesh(mesh_shape: str | None, layout: str | None, attention_type: str = "global",
                rank: int = 0, world: int = 1) -> Mesh:
     """The config's mesh resized to ``world`` ranks, its layout checked
-    (``check_layout``), with this rank's process groups and its
-    tensor-parallel axis (``tensor_axis``)."""
+    (``check_layout``), with this rank's process groups, its
+    tensor-parallel axis (``tensor_axis``) and its pipe axis
+    (``pipe_axis``)."""
     axes = resize_axes(parse_mesh_shape(mesh_shape), world)
     rules = parse_layout(layout)
     if world > 1:

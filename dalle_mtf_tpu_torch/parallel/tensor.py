@@ -206,9 +206,10 @@ def gather_to_host(t: torch.Tensor, split: Split, ranks: list[int]) -> torch.Ten
 
 
 class Sharding:
-    """The split of every leaf of a parameter tree over the model axis:
-    ``splits`` maps a leaf's path (a tuple of names) to its ``Split`` or
-    None, ``group`` is the model axis's process group."""
+    """The split of every leaf of a parameter tree over the model axis (or,
+    under pipeline parallelism, of every stacked leaf's layers over the pipe
+    axis): ``splits`` maps a leaf's path (a tuple of names) to its ``Split``
+    or None, ``group`` is that axis's process group."""
 
     def __init__(self, splits: Mapping[tuple[str, ...], Split | None], group):
         self.splits = dict(splits)

@@ -26,8 +26,9 @@ to the world as ``train_dalle`` resizes them, place the ranks: each rank
 reads only its blocks of the checkpoint (the file mapped, a block copied
 out of it) and quantizes after sharding, as the root CLI does; every model
 group decodes the whole batch, and rank 0 alone decodes the pixels and
-writes the PNGs. A layout the port does not run (pipeline parallelism)
-raises before the process group is joined.
+writes the PNGs. A layout the port does not run (here: pipeline
+parallelism, ROADMAP queue 1 item 5c-iv) raises before the process group is
+joined.
 """
 
 from __future__ import annotations

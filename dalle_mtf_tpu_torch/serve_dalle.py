@@ -54,6 +54,7 @@ from dalle_mtf_tpu_torch.parallel.mesh import (
     check_layout,
     parse_layout,
     parse_mesh_shape,
+    refuse_layers,
     resize_axes,
 )
 from dalle_mtf_tpu_torch.serve import (
@@ -159,12 +160,16 @@ def _refuse_blocks(dalle) -> None:
 def join_group(params, args):
     """This process's (proc, mesh): the process group
     ``torch.distributed.run`` describes, joined after the config's layout is
-    checked against the world size, and the config's mesh resized to it."""
+    checked against the world size (a ``layers`` rule, pipeline
+    parallelism, raises: sampling and serving run no pipeline, ROADMAP
+    queue 1 item 5c-iv), and the config's mesh resized to it."""
     attention = params.get("attention_type") or "global"
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1:  # before the process group is joined
-        check_layout(resize_axes(parse_mesh_shape(params.get("mesh_shape")), world),
-                     parse_layout(params.get("layout")), attention)
+        axes = resize_axes(parse_mesh_shape(params.get("mesh_shape")), world)
+        rules = parse_layout(params.get("layout"))
+        refuse_layers(axes, rules, "sampling and serving", "5c-iv")
+        check_layout(axes, rules, attention)
     proc = init_distributed(None, args.device)
     return proc, build_mesh(params.get("mesh_shape"), params.get("layout"), attention,
                             proc.rank, proc.world)

@@ -22,7 +22,8 @@ optax 0.2.6's ``adafactor`` with the JAX factory's arguments, written out in
 
 On a tensor-parallel mesh (a ``parallel.tensor.Sharding`` of the tree) each
 rank updates its blocks of the split leaves, and every statistic over a
-split dim is summed over the model group so that it is the whole leaf's:
+split dim is summed over the model group so that it is the whole leaf's (on
+a pipe mesh, the same over the pipeline, whose stages split the layers):
 the global norm (split leaves' squares summed over the group, replicated
 leaves counted once), Adafactor's row and column means, its update and
 parameter RMS, and the finiteness test of ``SkipNonfinite``.

@@ -166,19 +166,19 @@ def make_dalle_task(params: Mapping[str, Any], device: torch.device | str, mesh=
                 img_tokens = vae.encode_tokens(frozen_vae, _image(batch)).long()
         return torch.cat([batch["caption"].long(), img_tokens + cfg.text_vocab_size], dim=1)
 
-    def _split_losses(loss_batch):
+    def _split_losses(loss_batch, rows):
         # loss_batch[:, i] scores the prediction of token i+1, so image
         # modeling starts at position text_seq_len - 1
         return {
-            "loss_text": dalle.global_mean(loss_batch, 0, text_len - 1),
-            "loss_image": dalle.global_mean(loss_batch, text_len - 1),
+            "loss_text": dalle.global_mean(loss_batch, 0, text_len - 1, rows),
+            "loss_image": dalle.global_mean(loss_batch, text_len - 1, rows=rows),
         }
 
     def train_loss(p, frozen, batch, generator, step):
         tokens = tokens_of(frozen, batch)
         loss, loss_batch = dalle.loss(p, tokens, generator, train=True, z_loss=z_loss,
                                       fused_xent=fused_xent)
-        return loss, _split_losses(loss_batch)
+        return loss, _split_losses(loss_batch, tokens.shape[0])
 
     def eval_loss(p, frozen, batch, generator, step):
         """Loss split plus next-token accuracy (overall and image
@@ -188,10 +188,11 @@ def make_dalle_task(params: Mapping[str, Any], device: torch.device | str, mesh=
         tokens = tokens_of(frozen, batch)
         evaluate = dalle.fused_eval if fused_xent else dalle.dense_eval
         loss_batch, correct = evaluate(p, tokens, generator, z_loss=z_loss)
-        return dalle.global_mean(loss_batch), {
-            **_split_losses(loss_batch),
-            "acc": dalle.global_mean(correct),
-            "acc_image": dalle.global_mean(correct, text_len - 1),
+        rows = tokens.shape[0]
+        return dalle.global_mean(loss_batch, rows=rows), {
+            **_split_losses(loss_batch, rows),
+            "acc": dalle.global_mean(correct, rows=rows),
+            "acc_image": dalle.global_mean(correct, text_len - 1, rows=rows),
         }
 
     return dalle, vae, dalle.init, train_loss, eval_loss

@@ -13,7 +13,13 @@ ranks that differ only on a tensor-parallel or a replicate-only axis hold
 copies of a leaf, which each compute its gradient on their own (cuDNN's
 default algorithms are not bit-reproducible), so the first of them
 broadcasts its gradient to the others (``Trainer._agree``) and every copy
-takes the same step. The metrics are summed over the replicas too.
+takes the same step. The metrics are summed over the replicas too. Under
+pipeline parallelism (a mesh with a pipe axis) a stage's layers are summed
+over the replicas alone, while the replicated leaves (the embeddings, the
+final LN and the loss head), of which each stage holds a part of the
+gradient (the first stage the embeddings', each stage its head rows'; a
+leaf a stage does not use has a zero gradient), and the metrics are summed
+over the replicas and the stages (``Mesh.share_group``).
 Rank 0 alone writes checkpoints and summaries, behind a barrier; every rank
 restores. Kept from the JAX loop:
 
@@ -35,8 +41,9 @@ unpadded tree and state a single process writes, so it moves between
 layouts. Rank 0 writes it one leaf at a time (``utils/checkpoint.py``):
 under tensor parallelism each leaf's blocks are sent to rank 0's host by
 the ranks of its model group when the leaf's turn comes
-(``gather_to_host``), so no card holds a block it does not own and rank 0's
-host one leaf. On restore every rank maps the file and copies out its own
+(``gather_to_host``), and under pipeline parallelism each stage's layers
+by the ranks of its pipeline, so no card holds a block it does not own and
+rank 0's host one leaf. On restore every rank maps the file and copies out its own
 blocks (``restored_bytes`` counts them).
 A step the optimizer skips (non-finite gradients) is counted and logged as
 any other, as in the JAX loop: its loss and ``grad_norm`` are not finite,
@@ -198,14 +205,15 @@ class Trainer:
                 loss = loss + loss_i.detach().float()
                 for k, v in aux_i.items():
                     aux[k] = aux.get(k, 0.0) + v.detach().float()
+            self._fill_unused(opt)
             torch._foreach_div_([t.grad for t in opt.leaves], float(n))
             loss = loss / n
             aux = {k: v / n for k, v in aux.items()}
         else:
             loss, aux = self.loss_fn(params, self.frozen_params, batch, generator, step)
             loss.backward()
-        if self.mesh and self.mesh.replicas > 1:
-            _all_reduce_sum([t.grad for t in opt.leaves], self.mesh.replica_group)
+        if self.mesh:
+            self._sum_shares(opt)
         if self.mesh and self.mesh.copies > 1:
             self._agree(opt)
         grad_norm = opt.step()
@@ -214,6 +222,35 @@ class Trainer:
                                 **{k: v.detach().float() for k, v in aux.items()}})
         return state, {**metrics, "grad_norm": grad_norm,
                        "lr": torch.tensor(self.schedule(step))}
+
+    def _pipe_split(self, path) -> bool:
+        """Whether the leaf at ``path`` is split over the pipe axis (a
+        stage's layers)."""
+        return (self.mesh.pipe_axis is not None and self.sharding is not None
+                and self.sharding.of(path) is not None)
+
+    def _fill_unused(self, opt) -> None:
+        """A zero gradient for each leaf this rank's pipeline stage did not
+        use (the embeddings beyond the first stage)."""
+        if self.mesh is not None and self.mesh.pipe_axis is not None:
+            for t in opt.leaves:
+                if t.grad is None:
+                    t.grad = torch.zeros_like(t)
+
+    def _sum_shares(self, opt) -> None:
+        """Sum the gradients' shares: a stage's layers over the replicas
+        (``Mesh.replica_group``), every other leaf over the shares
+        (``Mesh.share_group``, the replicas without a pipe axis); a leaf this
+        rank's stage did not use takes a zero gradient first. One flat
+        all_reduce a group."""
+        mesh = self.mesh
+        self._fill_unused(opt)
+        split = [self._pipe_split(p) for p, _ in opt.named]
+        for of_split, n, group in ((True, mesh.replicas, mesh.replica_group),
+                                   (False, mesh.shares, mesh.share_group)):
+            grads = [t.grad for (_, t), s in zip(opt.named, split) if s == of_split]
+            if n > 1 and grads:
+                _all_reduce_sum(grads, group)
 
     def _agree(self, opt) -> None:
         """Every copy of a leaf takes the gradient of the first: a
@@ -229,12 +266,13 @@ class Trainer:
                 _flat_collective(grads, lambda flat: broadcast(flat, ranks[0], group))
 
     def _reduce(self, metrics: dict) -> dict:
-        """Each rank's shares of the metrics, summed over the replicas."""
-        if not self.mesh or self.mesh.replicas == 1:
+        """Each rank's shares of the metrics, summed over the shares (the
+        replicas, and the stages of a pipeline)."""
+        if not self.mesh or self.mesh.shares == 1:
             return metrics
         names = list(metrics)
         flat = torch.stack([metrics[n].reshape(()) for n in names])
-        _all_reduce_sum([flat], self.mesh.replica_group)
+        _all_reduce_sum([flat], self.mesh.share_group)
         return dict(zip(names, flat.unbind(0)))
 
     @torch.no_grad()
@@ -260,11 +298,11 @@ class Trainer:
 
     def _writers(self) -> list[int] | None:
         """The global ranks that take part in writing a checkpoint: rank 0's
-        model group in axis order (rank 0 first), [0] without tensor
-        parallelism; None for a rank outside it."""
+        model group (or pipeline) in axis order (rank 0 first), [0] without
+        tensor or pipeline parallelism; None for a rank outside it."""
         ranks = [0]
         if self.sharding is not None:
-            ranks = self.mesh.ranks(self.mesh.tp_axis)
+            ranks = self.mesh.ranks(self.mesh.tp_axis or self.mesh.pipe_axis)
             if ranks[0] != 0:
                 return None
         return ranks if self.rank in ranks else None

@@ -11,12 +11,17 @@ Over several processes, started by ``torch.distributed.run``:
 
 the config's ``mesh_shape`` and ``layout`` place the ranks: data parallelism
 over the ``batch_dim`` axis, with ``attention_type`` "ring" or "local_ring"
-sequence parallelism over the ``total_seq_dim`` axis, and tensor
+sequence parallelism over the ``total_seq_dim`` axis, tensor
 parallelism over an axis carrying ``heads_dim``, ``intermediate_expanded``
 and ``vocab_dim`` (``configs/dalle_coco.json``'s ``data:16,model:2`` runs on
 2 ranks as ``data:1,model:2``; ``utils/distributed.py`` picks each rank's
-device and the backend). Under tensor parallelism ``predict_steps`` samples
-on the blocks of rank 0's model group (``train/predict.py``).
+device and the backend), and pipeline parallelism over an axis carrying
+``layers`` (``mesh_shape: "pipe:2,data:2"``, ``layout:
+"batch_dim:data,layers:pipe"`` on 4 ranks: each stage holds half the
+layers; ``pipeline_microbatches``, default the pipe size). Under tensor
+parallelism ``predict_steps`` samples on the blocks of rank 0's model group
+(``train/predict.py``); under pipeline parallelism it raises at start-up
+(ROADMAP queue 1 item 5c-iv).
 
 In image mode (``dataset.tokens`` unset: JPEG + caption records) the
 frozen VAE (``vae_model``, trained by ``train_vae``) is restored from
@@ -47,7 +52,7 @@ import torch.distributed as dist
 
 from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn
 from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer
-from dalle_mtf_tpu_torch.parallel.mesh import build_mesh
+from dalle_mtf_tpu_torch.parallel.mesh import build_mesh, refuse_layers
 from dalle_mtf_tpu_torch.train.predict import make_predict_summary_fn
 from dalle_mtf_tpu_torch.train.tasks import make_dalle_task
 from dalle_mtf_tpu_torch.train.trainer import Trainer
@@ -105,10 +110,12 @@ def _train(args, proc) -> Trainer:
     if params["vae_params"] is None:
         raise ValueError("vae model config must be supplied (vae_model key)")
     setup_logging(params["config_name"] or args.model, rank=proc.rank)
-    # the ranks' layout; a pipeline layout (and TP under ring attention)
-    # raises here at world size > 1
+    # the ranks' layout; one the port does not run (TP under ring attention,
+    # PP beside TP or ring attention) raises here at world size > 1
     mesh = build_mesh(params.get("mesh_shape"), params.get("layout"),
                       params.get("attention_type") or "global", proc.rank, proc.world)
+    if params.get("predict_steps"):
+        refuse_layers(mesh.axes, mesh.rules, "predict_steps", "5c-iv")
 
     if args.new:
         if proc.rank == 0:

@@ -18,7 +18,8 @@ carrying ``tokens_dim``, and an axis no rule names only replicates
 (``vae_example``'s ``data:16,model:2``). ``utils/distributed.py`` picks each
 rank's device and the backend: ranks that share a card talk over gloo, so
 their step times are not multi-GPU numbers. A rule on ``vae_hid_dim`` or
-the conv dims raises (ROADMAP queue 1 item 5h). Each rank runs on
+the conv dims raises (ROADMAP queue 1 item 5h), and so does a ``layers``
+rule (the VAE has no layer stack to pipeline). Each rank runs on
 ``cuda:<--gpu_ids>`` (ranks share the cards evenly), else ``--device``
 (default ``cuda``). Without a CUDA device it raises: it runs on the CPU
 only when asked to with ``--device cpu``. Rank 0 alone writes summaries
@@ -49,6 +50,7 @@ from dalle_mtf_tpu_torch.parallel.mesh import (
     check_layout,
     parse_layout,
     parse_mesh_shape,
+    refuse_layers,
     resize_axes,
 )
 from dalle_mtf_tpu_torch.train.tasks import make_vae_task
@@ -96,8 +98,10 @@ def main(argv=None) -> Trainer:
         raise ValueError(f"config {args.model} is not a vae config")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1:  # refuse a layout before joining the group
-        check_layout(resize_axes(parse_mesh_shape(params.get("mesh_shape")), world),
-                     parse_layout(params.get("layout")))
+        axes = resize_axes(parse_mesh_shape(params.get("mesh_shape")), world)
+        rules = parse_layout(params.get("layout"))
+        refuse_layers(axes, rules, "VAE training (the VAE has no layer stack)")
+        check_layout(axes, rules)
     owns_group = not (dist.is_available() and dist.is_initialized())
     proc = init_distributed(args.gpu_ids, args.device)
     try:

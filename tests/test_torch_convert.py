@@ -162,6 +162,8 @@ def test_port_never_imports_jax():
         "parallel.mesh", "parallel.tensor",
         # the sharded init's keyed draws and the streamed checkpoints
         "utils.seeds", "utils.checkpoint",
+        # pipeline parallelism
+        "parallel.pipeline",
     ]
     code = (
         "import pkgutil, sys, dalle_mtf_tpu_torch as p\n"

@@ -15,7 +15,7 @@ against the JAX package, on the CPU with 4 gloo ranks.
   single-process run (``data:1,seq:4``: the same rows) within 1e-5, or an
   unbroken 4-rank run bit for bit (``data:2,seq:2``).
 - Layouts the port cannot honour raise at world size > 1; tensor-parallel
-  ones build a mesh.
+  and pipeline ones build a mesh (PP x SP and PP x TP raise).
 """
 
 import json
@@ -187,24 +187,30 @@ def test_train_dalle_data2_seq2_resume_equals_unbroken_run(tmp_path):
     ("data:2,model:2", "batch_dim:data,heads_dim:model", "tensor"),
     ("data:2,model:2", "batch_dim:data,intermediate_expanded:model", "tensor"),
     ("data:2,model:2", "batch_dim:data,vocab_dim:model", "tensor"),
-    ("pipe:2,data:2", "batch_dim:data,layers:pipe", "refused"),
+    ("pipe:2,data:2", "batch_dim:data,layers:pipe", "pipe"),
     ("data:2,model:2", "batch_dim:data", "replicate"),  # an axis that only replicates
     ("data:1,seq:2,model:2", "batch_dim:data,total_seq_dim:seq,heads_dim:model", "refused"),
+    ("pipe:2,model:2", "batch_dim:data,layers:pipe,heads_dim:model", "refused"),
 ])
 def test_tp_and_pp_layouts_raise_above_one_process(mesh_shape, layout, kind):
     """Tensor-parallel layouts build a mesh (a fake 4-rank process group)
-    under global attention, and raise under ring attention (TP x SP); an
-    axis that only replicates builds under either, with the batch axis's 2
-    replicas; a pipeline layout and TP beside a sequence axis raise under
-    either."""
+    under global attention, and raise under ring attention (TP x SP); a
+    pipeline layout builds a mesh with its pipe axis, 2 replicas and the
+    rank's stage under global attention, and raises under ring attention
+    (PP x SP); an axis that only replicates builds under either, with the
+    batch axis's 2 replicas; TP beside a sequence axis and PP beside TP
+    (PP x TP) raise under either."""
     from test_torch_tp_dalle import fake_world
 
     for attention in ("global", "ring"):
-        if kind == "replicate" or (kind == "tensor" and attention == "global"):
+        if kind == "replicate" or (kind in ("tensor", "pipe") and attention == "global"):
             with fake_world(4):
                 mesh = tmesh.build_mesh(mesh_shape, layout, attention, rank=0, world=4)
                 assert mesh.tp_axis == ("model" if kind == "tensor" else None)
+                assert mesh.pipe_axis == ("pipe" if kind == "pipe" else None)
                 assert mesh.replicas == 2
+                if kind == "pipe":
+                    assert (mesh.stage, mesh.stages, mesh.pipe_ranks) == (0, 2, [0, 2])
         else:
             with pytest.raises(NotImplementedError, match="not ported"):
                 tmesh.build_mesh(mesh_shape, layout, attention, rank=0, world=4)
@@ -213,6 +219,12 @@ def test_tp_and_pp_layouts_raise_above_one_process(mesh_shape, layout, kind):
     if kind == "tensor":
         with pytest.raises(NotImplementedError, match="TP x SP"):
             tmesh.build_mesh(mesh_shape, layout, "ring", rank=0, world=4)
+    if kind == "pipe":
+        with pytest.raises(NotImplementedError, match="PP x SP.*5c-iii"):
+            tmesh.build_mesh(mesh_shape, layout, "ring", rank=0, world=4)
+    if "layers" in layout and "model" in mesh_shape:
+        with pytest.raises(NotImplementedError, match="PP x TP.*5c-ii"):
+            tmesh.build_mesh(mesh_shape, layout, "global", rank=0, world=4)
     # a sequence axis needs ring attention
     with pytest.raises(NotImplementedError, match="sequence"):
         tmesh.build_mesh("data:1,seq:4", LAYOUT, "global", rank=0, world=4)

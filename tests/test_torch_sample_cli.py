@@ -117,12 +117,13 @@ def test_sample_dalle_refusals(run, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     base = ["--model", run[0], "--text", TEXT, "--out", str(tmp_path / "o"), "--device", "cpu"]
     cfg = json.loads(open(run[0]).read())
-    # over ranks, a layout that stays unported raises before the group is joined
+    # over ranks, a layout that stays unported raises before the group is
+    # joined: sampling on a pipeline layout (ROADMAP queue 1 item 5c-iv)
     piped = tmp_path / "piped.json"
     piped.write_text(json.dumps({**cfg, "mesh_shape": "data:1,model:2",
                                  "layout": "batch_dim:data,layers:model"}))
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="pipeline parallelism"):
+    with pytest.raises(NotImplementedError, match="pipeline parallelism.*5c-iv"):
         sample_dalle.main(["--model", str(piped), *base[2:]])
     monkeypatch.delenv("WORLD_SIZE")
     empty = tmp_path / "empty.json"

@@ -232,11 +232,15 @@ def test_adam_state_round_trip():
             np.testing.assert_array_equal(_flat(again[key])[name], v)
 
 
-def test_unported_options_are_refused(tmp_path):
+def test_unported_options_are_refused(tmp_path, monkeypatch):
     base = {"n_embd": 64, "text_vocab_size": 48, "image_vocab_size": 32,
             "text_seq_len": 8, "n_layers": 1, "n_heads": 2}
-    with pytest.raises(NotImplementedError):
-        tdalle.DalleConfig.from_params({**base, "layout": "batch_dim:data,layers:pipe"}, 16)
+    # pipeline parallelism is ported (tests/test_torch_pp_dalle.py): the pipe
+    # axis and the microbatches come from the layout, as in JAX
+    piped = tdalle.DalleConfig.from_params(
+        {**base, "layout": "batch_dim:data,layers:pipe", "pipeline_microbatches": 4}, 16)
+    assert (piped.pipe_axis, piped.pipeline_microbatches) == ("pipe", 4)
+    assert tdalle.DalleConfig.from_params(base, 16).pipe_axis is None
     # remat policies that take arguments are no policy by their name alone
     with pytest.raises(ValueError):
         tdalle.DalleConfig.from_params(
@@ -267,11 +271,15 @@ def test_unported_options_are_refused(tmp_path):
         fs.list_files("gs://bucket/*.tfrecords")
     from dalle_mtf_tpu_torch import train_dalle
 
-    # predict_steps is ported (tests/test_torch_predict.py); the CLI still
-    # refuses what is not
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        train_dalle.main(["--model", _train_config(tmp_path, layout="batch_dim:data,layers:pipe"),
-                          "--device", "cpu"])
+    # predict_steps is ported (tests/test_torch_predict.py); a layers:pipe
+    # config trains on one process, its mesh resized to one rank (over ranks:
+    # tests/test_torch_pp_train.py)
+    monkeypatch.chdir(tmp_path)
+    run = train_dalle.main(["--model", _train_config(
+        tmp_path, layout="batch_dim:data,layers:pipe", mesh_shape="pipe:2,data:2"),
+        "--device", "cpu"])
+    assert [h["step"] for h in run.history] == [1, 2, 3, 4]
+    assert run.mesh is None and all(np.isfinite(h["loss"]) for h in run.history)
 
 
 # ------------------------------------------------------ pipeline and trainer

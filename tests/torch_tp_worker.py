@@ -13,11 +13,16 @@ writes ``<out_dir>/out.pt``, one result a case.
 the model group) and ``chunked_xent_eval_auto`` on this rank's block of the
 vocabulary, on a ``data:1,model:m`` mesh of the whole world.
 ``dalle_step``: the DALLE loss and the gradients of every leaf (this rank's
-blocks, gathered over the model group and summed over the replicas) on the
-case's mesh and layout, the batch rows split over the data axis; with
-``steps``, that many optimizer steps instead (the config's optimizer with
-its clip and ``skip_nonfinite_updates``), and the whole parameters and
-losses after them (a ``replicated`` case's layout splits nothing).
+blocks, gathered over the model group or the pipeline and summed over the
+shares: a stage's layers over the replicas, the other leaves over the
+replicas and the stages) on the case's mesh and layout, the batch rows split
+over the data axis; with ``steps``, that many optimizer steps instead (the
+config's optimizer with its clip and ``skip_nonfinite_updates``), and the
+whole parameters and losses after them (a ``replicated`` case's layout
+splits nothing); with ``trainer``, the steps are ``Trainer.train_step``s of
+``make_dalle_task``'s train loss on the case's ``task`` config and
+``tokens``/``caption`` batch. On a pipe mesh every rank's stage, layers and
+head rows come back, and whether it logged the head's warning.
 ``train``: ``train_dalle.main`` on each case's argv in turn, in one process
 group (a case with ``raises`` must raise NotImplementedError naming it);
 rank 0's logged history and eval history. ``train_vae``: the same through
@@ -33,7 +38,10 @@ digests of its replicated leaves and its blocks. ``ckpt``: a DALLE ``Trainer`` o
 ``data:1,model:<world>`` takes one step and saves (rank 0 writes the whole
 tree); then a Trainer on ``data:<world/2>,model:2`` restores it, every rank
 checking that it holds the file's blocks bit for bit and that it copied
-only them (``restored_bytes``); rank 0 returns every rank's figures.
+only them (``restored_bytes``); rank 0 returns every rank's figures. A case
+with ``phases`` [(mesh_shape, layout, what)] runs those instead in its own
+``model_dir``: "save" (one step, then a save), "restore" (a restore checked
+as above) or "restore_step" (a restore, then one step and a save).
 ``sample``: the KV-cache path on the case's mesh and layout from the whole
 tree ``params``, each of the case's ``runs`` on the same blocks: whole-batch
 generation (``generate_image_tokens``, or the ``CapturedDecoder``, which
@@ -51,6 +59,7 @@ Imports torch and the port only.
 """
 
 import hashlib
+import logging
 import os
 import sys
 
@@ -89,29 +98,59 @@ def xent(case, proc):
 
 
 def _whole_grads(model, mesh, tree):
-    """Every leaf's gradient, the blocks gathered over the model group and
-    the shares summed over the replicas."""
-    grads = {p: t.grad for p, t in named_leaves(tree)}
+    """Every leaf's gradient, the blocks gathered over the model group (or
+    the pipeline) and the shares summed: a stage's layers over the
+    replicas, every other leaf over the replicas and the stages (a leaf a
+    stage did not use has no gradient: zeros)."""
+    grads = {p: torch.zeros_like(t) if t.grad is None else t.grad for p, t in named_leaves(tree)}
+    pipe = {p: model.pipe is not None and model.sharding.of(p) is not None for p in grads}
     if model.sharding is not None:
         grads = {p: gather(g, model.sharding.of(p), model.sharding.group)
                  for p, g in grads.items()}
-    if mesh.replicas > 1:
-        for g in grads.values():
-            dist.all_reduce(g, group=mesh.replica_group)
+    for p, g in grads.items():
+        n, group = ((mesh.replicas, mesh.replica_group) if pipe[p]
+                    else (mesh.shares, mesh.share_group))
+        if n > 1:
+            dist.all_reduce(g, group=group)
     return {"/".join(p): g for p, g in grads.items()}
 
 
 def _sum_replicas(mesh, t):
+    """A share summed over the mesh's shares (the replicas, and the stages
+    of a pipeline)."""
     t = t.detach().clone()
-    if mesh.replicas > 1:
-        dist.all_reduce(t, group=mesh.replica_group)
+    if mesh.shares > 1:
+        dist.all_reduce(t, group=mesh.share_group)
     return t
 
 
+class _Warnings(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _pipe_report(model, loss_batch, warnings):
+    """Every rank's (stage, layers, head rows, whether it warned), on a pipe
+    mesh."""
+    mine = dict(stage=model.pipe.stage, layers=model.layers, head_rows=loss_batch.shape[0],
+                warned=any("could not be split" in m for m in warnings.messages))
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, mine)
+    return everyone
+
+
 def dalle_step(case, proc):
+    if case.get("trainer"):
+        return trainer_steps(case, proc)
     cfg = DalleConfig(**case["config"])
     mesh = build_mesh(case["mesh_shape"], case["layout"], cfg.attention_type, proc.rank,
                       proc.world)
+    warnings = _Warnings()
+    logging.getLogger("dalle_mtf_tpu_torch.parallel.pipeline").addHandler(warnings)
     model = DALLE(cfg, "cpu", mesh)
     # every case splits something, but an axis that only replicates
     assert (model.sharding is None) == bool(case.get("replicated"))
@@ -126,14 +165,20 @@ def dalle_step(case, proc):
     steps = case.get("steps")
     if not steps:
         gen = torch.Generator().manual_seed(case["seed"])
-        loss, _ = model.loss(tree, tokens, gen, train=True, fused_xent=fused)
+        loss, loss_batch = model.loss(tree, tokens, gen, train=True, fused_xent=fused)
         loss.backward()
         out = {"loss": _sum_replicas(mesh, loss), "grads": _whole_grads(model, mesh, tree)}
+        if model.pipe is not None:
+            out["pipe"] = _pipe_report(model, loss_batch, warnings)
+            # the text and image shares of the loss (the task's split)
+            t = cfg.text_seq_len - 1
+            out["split"] = tuple(float(_sum_replicas(mesh, model.global_mean(
+                loss_batch, lo, hi, rows=rows))) for lo, hi in ((0, t), (t, None)))
         if case.get("eval"):
             evaluate = model.fused_eval if fused else model.dense_eval
             el, correct = evaluate(tree, tokens, torch.Generator().manual_seed(1))
-            out["eval"] = (_sum_replicas(mesh, model.global_mean(el)),
-                           _sum_replicas(mesh, model.global_mean(correct)))
+            out["eval"] = (_sum_replicas(mesh, model.global_mean(el, rows=rows)),
+                           _sum_replicas(mesh, model.global_mean(correct, rows=rows)))
         return out
     opt, _ = get_optimizer(case["opt_params"], tree, model.sharding)
     losses = []
@@ -151,6 +196,33 @@ def dalle_step(case, proc):
         losses.append((float(_sum_replicas(mesh, loss)), float(norm)))
     final = convert.gather_dalle_params(tree, model)  # the whole tree, numpy
     return {"losses": losses, "params": {"/".join(p): a for p, a in named_leaves(final)}}
+
+
+def trainer_steps(case, proc):
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_task  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.trainer import Trainer  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import Config  # noqa: PLC0415
+
+    params = Config.from_mapping(case["task"])
+    mesh = build_mesh(params["mesh_shape"], params["layout"], "global", proc.rank, proc.world)
+    dalle, _, init_fn, loss_fn, _ = make_dalle_task(params, "cpu", mesh)
+    tree = convert.shard_dalle_params(case["params"], dalle)
+    for _, t in named_leaves(tree):
+        t.requires_grad_(True)
+    trainer = Trainer(params, init_fn, loss_fn, os.path.join(case["out_dir"], str(proc.rank)),
+                      dalle.cfg.total_seq_len, "cpu", mesh=mesh, sharding=dalle.sharding)
+    opt, trainer.schedule = get_optimizer(params, tree, dalle.sharding)
+    state = {"step": 0, "params": tree, "opt": opt}
+    n, i = mesh.size("data"), mesh.index("data")
+    rows = case["tokens"].shape[0] // n
+    batch = {k: case[k][i * rows:(i + 1) * rows] for k in ("tokens", "caption")}
+    metrics = []
+    for step in range(case["steps"]):
+        state, m = trainer.train_step(state, batch, torch.Generator().manual_seed(step))
+        metrics.append({k: float(v) for k, v in m.items()})
+    trainer.close()
+    final = convert.gather_dalle_params(tree, dalle)
+    return {"metrics": metrics, "params": {"/".join(p): a for p, a in named_leaves(final)}}
 
 
 def train(case, proc, cli="train_dalle"):
@@ -236,24 +308,29 @@ def ckpt(case, proc, out_dir):
     from dalle_mtf_tpu_torch.train.trainer import Trainer  # noqa: PLC0415
 
     cfg = DalleConfig(**case["config"])
-    model_dir = os.path.join(out_dir, "ckpt_run")
+    model_dir = case.get("model_dir") or os.path.join(out_dir, "ckpt_run")
+    phases = case.get("phases") or [(f"data:1,model:{proc.world}", case["layout"], "save"),
+                                    (f"data:{proc.world // 2},model:2", case["layout"], "restore")]
     figures = {}
-    for phase, shape in (("save", f"data:1,model:{proc.world}"),
-                         ("restore", f"data:{proc.world // 2},model:2")):
-        mesh = build_mesh(shape, case["layout"], "global", proc.rank, proc.world)
+    for shape, layout, phase in phases:
+        mesh = build_mesh(shape, layout, "global", proc.rank, proc.world)
         model = DALLE(cfg, "cpu", mesh)
         trainer = Trainer(case["opt_params"], model.init, lambda p, _f, b, g, s: (
             model.loss(p, b["tokens"], g, train=True)[0], {}), model_dir, cfg.total_seq_len,
             "cpu", mesh=mesh, sharding=model.sharding)
         state = trainer.init_state(torch.Generator().manual_seed(case["seed"]))
+        rows = case["tokens"].shape[0] // mesh.size("data")
+        tokens = case["tokens"][mesh.index("data") * rows:][:rows]
         if phase == "save":
             figures["drawn_elements"] = model.drawn_elements
-            state, _ = trainer.train_step(state, {"tokens": case["tokens"]},
+            state, _ = trainer.train_step(state, {"tokens": tokens},
                                           torch.Generator().manual_seed(1))
             trainer.save(state)
+            trainer.close()
             continue
+        step = trainer.latest_step()
         state = trainer.restore(state)
-        saved = torch.load(os.path.join(trainer.ckpt_dir, "ckpt_1.pt"), weights_only=True)
+        saved = torch.load(os.path.join(trainer.ckpt_dir, f"ckpt_{step}.pt"), weights_only=True)
         for p, t in named_leaves(state["params"]):
             want = shard(saved["params"]["/".join(p)], model.sharding.of(p))
             assert torch.equal(t.detach(), want), p
@@ -265,6 +342,10 @@ def ckpt(case, proc, out_dir):
         local = sum(t.numel() * t.element_size() for _, t in named_leaves(state["params"]))
         figures.update(restored_bytes=trainer.restored_bytes, local_param_bytes=local,
                        step=state["step"])
+        if phase == "restore_step":
+            state, _ = trainer.train_step(state, {"tokens": tokens},
+                                          torch.Generator().manual_seed(1))
+            trainer.save(state)
         trainer.close()
     everyone = [None] * proc.world
     dist.all_gather_object(everyone, figures)
