@@ -76,7 +76,9 @@ Phases, none of them optional:
      the profiler's events of the kernels held to the launches made);
      then the pair at the edges of its tile walk in bf16 and in fp32
      (S_local in {1, 65, 200, 333}, ragged shards under windows whose band
-     ends mid-tile, D = 64, a window of 1, hash dropout). The triple is compared on rows with a
+     ends mid-tile, D = 64, a window of 1, hash dropout), and the past hop
+     of a TP x SP rank of the dalle_4k run (B=4, heads 4..7 of 8, S_local
+     2176, ``head0`` and ``heads_total``), timed. The triple is compared on rows with a
      live key (m = NEG_INF itself on the others); every tensor per 64-long
      tile, each case shows that a copy with its last tile zeroed fails, and
      two runs give the same bits.
@@ -93,8 +95,10 @@ Phases, none of them optional:
    weights and tokens; once with the packed attention, once with
    ``attn_packed: false, ln_impl: "pallas"`` (the [B, H, S, D] pair and the
    LN kernels, launches counted); and a third arm, four ranks on the card
-   with ``attention_type: "ring"`` on ``data:2,seq:2`` (in
-   ``phase_ring_attention``, below). Tolerance: loss atol 1e-4; each grad
+   with ``attention_type: "ring"`` on ``data:2,seq:2``, and a fourth on
+   ``data:1,seq:2,model:2`` with dalle_coco's tensor-parallel rules against
+   one process on the card (both in ``phase_ring_attention``, below).
+   Tolerance: loss atol 1e-4; each grad
    leaf within relative L2 error 1e-2. fp32 sums run in another order on each side, and
    a ReLU gate whose input is within rounding of 0 may flip between the two:
    a flip moves single elements of the MLP grads by ~1% of the leaf's
@@ -150,8 +154,12 @@ Phases, none of them optional:
      v, g (B=4, H=8, S=4352, D=128, bf16); out, dq, dk, dv gathered and held
      per 64-long tile (2^-6 of the tile's max) against the single-device
      [B, H, S, D] kernel pair on the whole sequence, without and with hash
-     dropout 0.1 (one seed: the masks are keyed on global coordinates); the
-     ranks then run the values check's third arm;
+     dropout 0.1 (one seed: the masks are keyed on global coordinates); each
+     rank then runs the ring pair on its block of the heads at its
+     ``data:1,seq:2,model:2`` coordinates (B=4, heads 0..3 or 4..7 of 8,
+     S_local 2176, the diagonal or the past hop, dropout 0.1, bf16 and fp32)
+     against the plain versions, held here bit for bit to those heads of
+     one launch over all 8; then the values check's third and fourth arms;
    - ``phase_train_ring``, the main path of this slice: a copy of the
      dalle_4k config with ``attention_type: "ring"``, ``mesh_shape:
      data:1,seq:4`` and ``layout: batch_dim:data,total_seq_dim:seq`` through
@@ -165,10 +173,20 @@ Phases, none of them optional:
      runs r + 1 live hops a layer a pass) and the LN kernels', and no
      launch of the [B, H, S, D] or packed pairs; prints step time and
      tokens/s labelled as four ranks on one card, the bytes staged and the
-     peak memory a rank.
+     peak memory a rank. In the same launch, the same run on
+     ``data:1,seq:2,model:2`` with the tensor-parallel rules of
+     configs/dalle_coco.json beside the ring's (TP x SP: each rank 4 of the
+     8 heads over 2176 positions): its first loss within 2e-3 of the single
+     process's, the launches of rows 10-12 a rank, the bytes staged and the
+     TP, gradient and other all_reduce bytes a rank a step equal to the
+     counts worked out from the code (``tpsp_expected_bytes``), the
+     checkpoint read by one process bit-equal to every rank's blocks; its
+     "train" line labelled as four ranks sharing one card.
    Then tensor parallelism, ranks sharing the one card over gloo in the
    same way (the all_reduces staged through host memory):
-   - ``phase_tp_values``: four ranks on ``data:2,model:2`` with dalle_coco's
+   - the tensor-parallel values check (``check_tp_values``, on the ranks of
+     ``phase_ring_attention``'s launch, which run it after the ring checks):
+     four ranks on ``data:2,model:2`` with dalle_coco's
      layout (heads, MLP width and vocabulary on ``model``) run the 2-layer
      fp32 values model at dalle_coco width with the dense head, the fused
      head, and attention dropout 0.1 through the packed and the
@@ -179,7 +197,8 @@ Phases, none of them optional:
    - ``phase_train_tp``, the main path of this slice: configs/dalle_coco.json
      as published (its ``data:16,model:2`` and layout verbatim:
      ``data:1,model:2`` on two ranks, each 4 heads, 2048 MLP columns and a
-     26,240-row block of the vocabulary) in tokens mode, cut to batch 8,
+     26,240-row block of the vocabulary) in tokens mode, cut to batch 8
+     and 4 of its 12 layers,
      through two ranks (``run_ranks``) and ``train_dalle.main``
      for 3 steps with an eval and a checkpoint (the whole tree, streamed to
      rank 0 leaf by leaf). Checks the first
@@ -189,9 +208,10 @@ Phases, none of them optional:
      one card), the collective bytes a rank a step and the peak memory a
      rank;
    - ``phase_train_pp``, the main path of pipeline parallelism:
-     configs/dalle_coco_synth.json as published (12 layers of 1024, batch
-     16, bf16, dots_and_attn) with ``mesh_shape: pipe:2,data:2`` and
-     ``layout: batch_dim:data,layers:pipe`` (each stage 6 layers; 2
+     configs/dalle_coco_synth.json as published (1024 wide, batch 16, bf16,
+     dots_and_attn) cut to 4 of its 12 layers, with ``mesh_shape:
+     pipe:2,data:2`` and ``layout: batch_dim:data,layers:pipe`` (each stage
+     2 layers; 2
      microbatches of 4 rows a data rank; the loss head on 4 rows a rank) in
      tokens mode through four ranks (``run_ranks``) and ``train_dalle.main``
      for 3 steps with an eval and a checkpoint, after, in the same launch,
@@ -201,7 +221,7 @@ Phases, none of them optional:
      the card. Checks the first loss within 2e-3 of the single-process
      port's on the same records (both data ranks' first batches) and seed,
      the losses equal on every rank, the packed pair's launches a
-     rank (6 layers x 2 microbatches a pass), the bytes each rank's hops
+     rank (2 layers x 2 microbatches a pass), the bytes each rank's hops
      sent a step by kind and its all_reduce bytes a step, both to the byte
      of what the code implies, and the checkpoint read by one process
      holding every rank's final parameters bit for bit; its "train_pp" line
@@ -346,8 +366,8 @@ Phases, none of them optional:
    equal (6 * n_layers + 1) * chunk per chunk (chunk replays of its graph)
    plus one per admission.
 
-``chip_smoke.py --ring-worker <checks|tp_values|vae_values|serve_tp|train|
-train_vae> ...`` is one rank of the ring, tensor-parallel, VAE
+``chip_smoke.py --ring-worker <checks|vae_values|serve_tp|train|train_vae>
+...`` is one rank of the ring, tensor-parallel, VAE
 data-parallel and sharded serving phases, started by them through
 ``run_ranks`` with the environment ``torch.distributed.run`` would give it.
 
@@ -464,15 +484,28 @@ RING_LAYOUT = "batch_dim:data,total_seq_dim:seq"
 RING_STEPS = 3
 RING_LABEL = "4 ranks sharing one card, gloo staged through host: not a multi-GPU number"
 RING_SEED = 2**31 - 7
+# tensor parallelism under ring attention (TP x SP): the ring run's 4 ranks on
+# seq:2,model:2, the TP rules of configs/dalle_coco.json beside the ring's
+TPSP_MESH = "data:1,seq:2,model:2"
+TPSP_SEQ, TPSP_MODEL = 2, 2
+TPSP_LAYOUT = ("batch_dim:data,total_seq_dim:seq,heads_dim:model,intermediate_expanded:model,"
+               "vocab_dim:model")
+TPSP_LABEL = "4 ranks sharing one card over gloo, staged through host: not a multi-GPU number"
+TPSP_METRICS = ("loss", "loss_text", "loss_image")  # the train task's shares, summed
+# the ring pair on a rank's block of the heads at the TP x SP rank's shape:
+# (B, heads_total, heads a rank, S_local, D); a rank at seq index i runs the
+# hop i back (the diagonal, then the past hop) on heads 4 x its model index
+TPSP_HOP = (4, 8, 4, 2176, 128)
 # tensor parallelism: ranks sharing the one card over gloo
 TP_CONFIG = "dalle_coco"
-TP_RANKS, TP_VALUES_RANKS = 2, 4
+TP_RANKS = 2
 TP_VALUES_MESH = "data:2,model:2"
 TP_LAYOUT = "batch_dim:data,heads_dim:model,intermediate_expanded:model,vocab_dim:model"
 # dalle_coco as published, its mesh_shape (data:16,model:2: data:1,model:2 on two
 # ranks) and layout verbatim, cut to one data replica's 8 rows of the published
-# 128 (the rule phase_train_12b takes); all 12 layers
-TP_CUT = dict(train_batch_size=8, eval_batch_size=8)
+# 128 (the rule phase_train_12b takes) and 4 of its 12 layers (12 until the
+# TP x SP run took its card time)
+TP_CUT = dict(train_batch_size=8, eval_batch_size=8, n_layers=4)
 TP_STEPS, TP_TIMED_FROM = 3, 3  # step 3 is timed (4 steps before the pipeline phase)
 TP_LABEL = "2 ranks sharing one card over gloo, staged through host: not a multi-GPU number"
 TP_VALUES_LABEL = ("4 ranks sharing one card over gloo, staged through host: not a multi-GPU "
@@ -1379,20 +1412,23 @@ def phase_train_values(torch, card, **over):
                 launches=launched)
 
 
-def compare_values(label, cfg, card, card_result, cpu_result) -> dict:
-    """Hold (loss, {leaf: grad}) from the card against the CPU plain path:
-    loss atol 1e-4, each leaf within relative L2 error 1e-2."""
+def compare_values(label, cfg, card, card_result, cpu_result, ref: str = "cpu") -> dict:
+    """Hold (loss, {leaf: grad}) from the card against the CPU plain path
+    (or the reference ``ref`` names: "one_process", one process on the
+    card): loss atol 1e-4, each leaf within relative L2 error 1e-2."""
     (gl, gg), (cl, cg) = card_result, cpu_result
     l2 = max((((gg[n] - cg[n]).norm() / cg[n].norm().clamp_min(1e-30)).item(), n) for n in cg)
     elem = max(((gg[n] - cg[n]).abs().max().item() / max(cg[n].abs().max().item(), 1e-30), n)
                for n in cg)
     print(f"train values {label}: {cfg.n_embd} wide, {cfg.n_layers} layers, fp32, batch 2, S "
-          f"{cfg.total_seq_len}: loss card {gl:.6f} cpu {cl:.6f} (atol 1e-4); worst grad "
+          f"{cfg.total_seq_len}: loss card {gl:.6f} {ref} {cl:.6f} (atol 1e-4); worst grad "
           f"relative L2 error {l2[0]:.3g} ({l2[1]}, bound 1e-2); worst single element "
           f"{elem[0]:.3g} of its leaf's max |grad| ({elem[1]}); {card}", flush=True)
     if not (abs(gl - cl) <= 1e-4 and l2[0] <= 1e-2):
-        raise AssertionError(f"{label}: the card's loss or grads disagree with the CPU plain path")
-    return dict(loss_card=gl, loss_cpu=cl, worst_grad_rel_l2=l2, worst_grad_elem=elem)
+        raise AssertionError(f"{label}: the card's loss or grads disagree with the {ref} "
+                             f"reference")
+    return {"loss_card": gl, f"loss_{ref}": cl, "worst_grad_rel_l2": l2,
+            "worst_grad_elem": elem}
 
 
 def write_tokens_dataset(root: str, seed: int, image_len: int, image_vocab: int,
@@ -2120,6 +2156,27 @@ def planted_fails(t, want, rtol):
     return tile_rel_err(planted, want) > rtol
 
 
+def ring_hop_kernels(torch, ring, q, k, v, g, args) -> tuple:
+    """One hop's kernels on q, k, v and dO ``g``: the forward, then the
+    backward from the lse and dsum of its normalised output, into zeroed
+    accumulators. Returns (num, m, l, lse, dsum, dq, dk, dv); raises on an
+    uncounted launch."""
+    b, h, s, d = q.shape
+    before = dict(ring.KERNEL_LAUNCHES)
+    num, m, l = ring.ring_partial(q, k, v, *args)
+    # a backward input of this hop: lse and dsum of its normalised output
+    lse = m + torch.log(l.clamp_min(1e-30))
+    out = (num / l.clamp_min(1e-30).reshape(b, h, s, 1)).to(q.dtype)
+    dsum = (g.float() * out.float()).sum(-1).reshape(b * h, s)
+    dk, dv = (torch.zeros((b, h, s, d), device="cuda") for _ in range(2))
+    dq = ring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args)
+    torch.cuda.synchronize()
+    for key in ring.KERNEL_LAUNCHES:
+        if ring.KERNEL_LAUNCHES[key] != before[key] + 1:
+            raise AssertionError(f"{key} did not count its launch")
+    return num, m, l, lse, dsum, dq, dk, dv
+
+
 def ring_case_errors(torch, ring, q, k, v, g, args):
     """One hop's kernels against the plain versions, and a second run of each
     against the first. Returns (errs, outputs): errs holds m and l's relative
@@ -2128,22 +2185,11 @@ def ring_case_errors(torch, ring, q, k, v, g, args):
     rounding, the kernel's max |value|); outputs the kernels' (num, m, l,
     lse, dsum, dq, dk, dv). Raises on a bound, an uncounted launch, a dead
     row's m other than NEG_INF, or two runs that differ."""
-    b, h, s, d = q.shape
+    s = q.shape[2]
     dtype, diff, window = q.dtype, args[0], args[3]
     live, _ = ring_hop(torch, ring, s, diff, window)
     live = live.cuda()
-    before = dict(ring.KERNEL_LAUNCHES)
-    num, m, l = ring.ring_partial(q, k, v, *args)
-    # a backward input of this hop: lse and dsum of its normalised output
-    lse = m + torch.log(l.clamp_min(1e-30))
-    out = (num / l.clamp_min(1e-30).reshape(b, h, s, 1)).to(dtype)
-    dsum = (g.float() * out.float()).sum(-1).reshape(b * h, s)
-    dk, dv = (torch.zeros((b, h, s, d), device="cuda") for _ in range(2))
-    dq = ring.ring_block_grads(q, g, lse, dsum, k, v, dk, dv, *args)
-    torch.cuda.synchronize()
-    for key in ring.KERNEL_LAUNCHES:
-        if ring.KERNEL_LAUNCHES[key] != before[key] + 1:
-            raise AssertionError(f"{key} did not count its launch")
+    num, m, l, lse, dsum, dq, dk, dv = ring_hop_kernels(torch, ring, q, k, v, g, args)
     again = ring.ring_partial(q, k, v, *args)
     dk2, dv2 = torch.zeros_like(dk), torch.zeros_like(dv)
     dq2 = ring.ring_block_grads(q, g, lse, dsum, k, v, dk2, dv2, *args)
@@ -2196,23 +2242,29 @@ def phase_ring_kernels(torch, ring, card):
     from CUDA events (``ms``) and, since a bf16 hop's launch is about as
     short as the host's dispatch of it, the card's own under torch.profiler
     (``device_ms``, every case, with the profiler's kernel events held to
-    the launches). Returns {case: {wrapper: row}}."""
-    b, h, s, d = 4, 8, 1088, 128
-    cases = [  # (name, dtype, hops back, window, dropout, timing iters)
-        ("diagonal", torch.bfloat16, 0, None, 0.0, 30),
-        ("past", torch.bfloat16, 1, None, 0.0, 30),
-        ("far_past", torch.bfloat16, 3, None, 0.0, 20),
-        ("window_256", torch.bfloat16, 1, 256, 0.0, 30),
-        ("dropout", torch.bfloat16, 1, None, 0.1, 20),
-        ("fp32", torch.float32, 1, None, 0.0, 3),
+    the launches). Then the past hop of a TP x SP rank of the dalle_4k run
+    (``tpsp_past``: B=4, heads 4..7 of 8, S_local=2176, D=128, bf16; its
+    ``head0`` and ``heads_total``), timed the same way. Returns {case:
+    {wrapper: row}}."""
+    d = 128
+    cases = [  # (name, dtype, hops back, window, dropout, timing iters, (B, H, S_local,
+        #        head0, heads_total))
+        ("diagonal", torch.bfloat16, 0, None, 0.0, 30, (4, 8, 1088, 0, None)),
+        ("past", torch.bfloat16, 1, None, 0.0, 30, (4, 8, 1088, 0, None)),
+        ("far_past", torch.bfloat16, 3, None, 0.0, 20, (4, 8, 1088, 0, None)),
+        ("window_256", torch.bfloat16, 1, 256, 0.0, 30, (4, 8, 1088, 0, None)),
+        ("dropout", torch.bfloat16, 1, None, 0.1, 20, (4, 8, 1088, 0, None)),
+        ("fp32", torch.float32, 1, None, 0.0, 3, (4, 8, 1088, 0, None)),
+        ("tpsp_past", torch.bfloat16, 1, None, 0.0, 20, (TPSP_HOP[0], TPSP_HOP[2], TPSP_HOP[3],
+                                                         TPSP_HOP[2], TPSP_HOP[1])),
     ]
     gen = torch.Generator().manual_seed(4)
     rows = {}
-    for name, dtype, hops, window, rate, iters in cases:
+    for name, dtype, hops, window, rate, iters, (b, h, s, head0, total) in cases:
         q, k, v, g = ((torch.rand((b, h, s, d), generator=gen) * 2 - 1).to("cuda", dtype)
                       for _ in range(4))
-        row0 = 3 * s
-        args = (hops * s, row0, row0 - hops * s, window, rate, RING_SEED)
+        row0 = 3 * s if total is None else hops * s  # a TP x SP rank: seq rank 1's hop
+        args = (hops * s, row0, row0 - hops * s, window, rate, RING_SEED, head0, total)
         _, pairs = ring_hop(torch, ring, s, hops * s, window)
         errs, (num, m, l, lse, dsum, dq, dk, dv) = ring_case_errors(torch, ring, q, k, v, g, args)
         fwd_ms = cuda_ms(lambda: ring.ring_partial(q, k, v, *args), iters)
@@ -2234,6 +2286,7 @@ def phase_ring_kernels(torch, ring, card):
             lib_fwd, lib_bwd = sdpa_bhsd_ms(torch, [(q, k, v, g)], iters, causal=hops == 0)
         elem, bh = q.element_size(), b * h
         common = dict(card=card, shape=name, B=b, H=h, S_local=s, D=d, dtype=str(dtype),
+                      head0=head0, heads_total=total or h,
                       diff=hops * s, row0=row0, window=window, dropout=rate,
                       live_pairs_per_head=pairs, tile_rtol=tile_rtol(dtype),
                       bit_equal_two_runs=True,
@@ -2391,9 +2444,14 @@ def print_rank_logs(log_dir: str, tail: int = 6000) -> None:
 def worker_checks(torch, out_dir):
     """One rank of phase_ring_attention: ring attention forward and
     backward on its shard of seeded global q, k, v, g (B=4, H=8, S=4352,
-    D=128, bf16) on RING_MESH, without and with hash dropout 0.1; then the
-    2-layer fp32 values model on VALUES_MESH, its loss and grads summed over
-    the world. Writes <out_dir>/rank<r>.pt."""
+    D=128, bf16) on RING_MESH, without and with hash dropout 0.1; the ring
+    pair on this rank's block of the heads at its TPSP_MESH coordinates
+    (``tpsp_head_block``); then the 2-layer fp32 values model on VALUES_MESH,
+    its loss and grads summed over the world, and on TPSP_MESH, its loss and
+    grads (the blocks gathered over the model group) summed over the data
+    and sequence axes. Writes <out_dir>/rank<r>.pt; then, in the same
+    process group, the tensor-parallel values check's rank
+    (``tp_values_rank``)."""
     import torch.distributed as dist  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
@@ -2401,9 +2459,11 @@ def worker_checks(torch, out_dir):
     from dalle_mtf_tpu_torch.ops import layer_norm as lnm  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import ring_attention as ring  # noqa: PLC0415
     from dalle_mtf_tpu_torch.parallel.mesh import build_mesh  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.parallel.tensor import gather  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.distributed import init_distributed  # noqa: PLC0415
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     proc = init_distributed(["0"], "cuda")
     try:
         mesh = build_mesh(RING_MESH, RING_LAYOUT, "ring", proc.rank, proc.world)
@@ -2428,6 +2488,11 @@ def worker_checks(torch, out_dir):
                              staged_bytes=ring.STAGED_BYTES["ring_shift"],
                              **{n: t.grad.cpu() for n, t in zip(("dq", "dk", "dv"), leaves)})
         del full, shard, leaves, out
+        torch.cuda.empty_cache()
+        tmesh = build_mesh(TPSP_MESH, TPSP_LAYOUT, "ring", proc.rank, proc.world)
+        res["head_block"] = tpsp_head_block(torch, ring, tmesh.index("seq"),
+                                            tmesh.index("model"))
+        torch.cuda.empty_cache()
 
         vmesh = build_mesh(VALUES_MESH, RING_LAYOUT, "ring", proc.rank, proc.world)
         cfg, params, tokens = values_model(torch, attention_type="ring")
@@ -2445,10 +2510,93 @@ def worker_checks(torch, out_dir):
                              launches={**attn.KERNEL_LAUNCHES, **ring.KERNEL_LAUNCHES},
                              grads={n: t.cpu() for n, t in grads.items()}
                              if proc.rank == 0 else None)
+        del tree, grads, loss
+        torch.cuda.empty_cache()
+
+        # the fourth arm: TP x SP, each rank its heads, MLP columns and
+        # vocabulary rows over its half of the sequence
+        dalle = DALLE(cfg, "cuda", tmesh)
+        sharding = dalle.sharding
+        tree = _to(sharding.shard_tree(params), "cuda")
+        for _, t in named_leaves(tree):
+            t.requires_grad_(True)
+        reset_counts(attn, lnm, ring)
+        loss, _ = dalle.loss(tree, tokens.cuda())
+        loss.backward()
+        grads = {"/".join(p): gather(t.grad, sharding.of(p), sharding.group)
+                 for p, t in named_leaves(tree)}
+        loss = loss.detach().clone()
+        for t in (loss, *grads.values()):
+            dist.all_reduce(t, group=tmesh.replica_group)
+        res["tpsp_values"] = dict(coords=tmesh.coords, loss=loss.item(), heads=dalle.heads,
+                                  launches={**attn.KERNEL_LAUNCHES, **ring.KERNEL_LAUNCHES},
+                                  grads={n: t.cpu() for n, t in grads.items()}
+                                  if proc.rank == 0 else None)
         torch.save(res, os.path.join(out_dir, f"rank{proc.rank}.pt"))
+        del dalle, tree, grads, loss, res
+        torch.cuda.empty_cache()
+        tp_values_rank(torch, proc, out_dir)
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def tpsp_hop_inputs(torch, dtype, hops: int):
+    """Seeded global q, k, v, g [B, heads_total, S_local, D] (TPSP_HOP) of
+    one head-block case on the CPU: the same draw on every rank and in the
+    parent."""
+    b, total, _, s, d = TPSP_HOP
+    gen = torch.Generator().manual_seed(31 + hops + 2 * (dtype == torch.float32))
+    return [(torch.rand((b, total, s, d), generator=gen) * 2 - 1).to(dtype) for _ in range(4)]
+
+
+def tpsp_hop_args(hops: int, head0: int = 0, heads_total=None) -> tuple:
+    """A head-block case's hop arguments: the diagonal hop of seq rank 0
+    (hops 0) or seq rank 1's past hop (hops 1), hash dropout 0.1, the block
+    heads [head0, ...) of ``heads_total``."""
+    s = TPSP_HOP[3]
+    return (hops * s, hops * s, 0, None, 0.1, RING_SEED, head0, heads_total)
+
+
+def tpsp_hop_digests(torch, outs, head0: int = 0, heads=None) -> list:
+    """sha256 of a hop's kernel outputs (num, m, l, dq, dk, dv, as
+    ``ring_case_errors`` returns them) on heads [head0, head0 + heads) (all
+    of them by default)."""
+    import hashlib  # noqa: PLC0415
+
+    num, m, l, _, _, dq, dk, dv = outs
+    b, h, s, _ = num.shape
+    heads = heads or h
+    out = []
+    for t in (num, m.reshape(b, h, s), l.reshape(b, h, s), dq, dk, dv):
+        block = t[:, head0:head0 + heads].contiguous()
+        out.append(hashlib.sha256(block.float().cpu().numpy().tobytes()).hexdigest())
+    return out
+
+
+def tpsp_head_block(torch, ring, seq: int, model: int) -> dict:
+    """The ring pair (rows 10-11) on the heads of a TP x SP rank at (seq,
+    model): heads [4 model, 4 model + 4) of 8 of TPSP_HOP's inputs, the hop
+    ``seq`` back, hash dropout 0.1, in bf16 and in fp32 (3xTF32): held
+    against the plain versions with the same ``head0``/``heads_total``
+    (``ring_case_errors``: per-tile bound, planted tile, two runs
+    bit-equal), with the digests of its outputs, which the parent holds to
+    those heads of one launch over all 8; the block launched with the
+    default head0 must draw another mask (head0 > 0)."""
+    _, total, heads, _, _ = TPSP_HOP
+    head0 = model * heads
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        block = [t[:, head0:head0 + heads].contiguous().cuda()
+                 for t in tpsp_hop_inputs(torch, dtype, seq)]
+        args = tpsp_hop_args(seq, head0, total)
+        errs, outs = ring_case_errors(torch, ring, *block, args)
+        default = ring.ring_partial(*block[:3], *args[:6])[0]
+        out[str(dtype)] = dict(hops=seq, head0=head0, heads=heads, heads_total=total, errs=errs,
+                               digests=tpsp_hop_digests(torch, outs),
+                               other_mask=head0 == 0 or not torch.equal(default, outs[0]))
+        del block, outs, default
+    return out
 
 
 def ring_attention_inputs(torch):
@@ -2464,10 +2612,17 @@ def phase_ring_attention(torch, attn, card):
     64-long tile against the single-device [B, H, S, D] kernel pair on the
     whole sequence (2^-6 of each tile's max |single-device|), without and
     with hash dropout 0.1 (the same seed: the masks are keyed on global
-    coordinates); then the third arm of the values check, the 2-layer fp32
-    model on ``data:2,seq:2`` against the port's plain single process on the
-    CPU. Returns the values arm's result."""
+    coordinates); the ring pair on each rank's block of the heads at its
+    TPSP_MESH coordinates (``tpsp_head_block``: the diagonal and the past
+    hop, heads 0..3 and 4..7 of 8, bf16 and fp32, dropout 0.1), bit for bit
+    against those heads of one launch over all 8 here; then the third arm
+    of the values check, the 2-layer fp32 model on ``data:2,seq:2`` against
+    the port's plain single process on the CPU, and the fourth, the same
+    model on TPSP_MESH against one process on the card (loss atol 1e-4,
+    every leaf's gradient within relative L2 error 1e-2). Returns the
+    values arms' results."""
     from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.ops import ring_attention as ring  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_ring_")
@@ -2475,8 +2630,9 @@ def phase_ring_attention(torch, attn, card):
         t0 = time.perf_counter()
         run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "checks", out_dir], 600)
         wall = time.perf_counter() - t0
-        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
-                 for r in range(RING_RANKS)]
+        ranks, tp_ranks = ([torch.load(os.path.join(out_dir, f"{kind}rank{r}.pt"),
+                                       weights_only=False) for r in range(RING_RANKS)]
+                           for kind in ("", "tp_"))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     if {(r["backend"], r["seq_group_backend"]) for r in ranks} != {("gloo", "gloo")}:
@@ -2509,6 +2665,38 @@ def phase_ring_attention(torch, attn, card):
     del q, k, v, g, out, lse, want
     torch.cuda.empty_cache()
 
+    # the head blocks: each rank's block against one launch over all heads
+    blocks = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for hops in range(TPSP_SEQ):
+            whole = [t.cuda() for t in tpsp_hop_inputs(torch, dtype, hops)]
+            outs = ring_hop_kernels(torch, ring, *whole, tpsp_hop_args(hops))
+            for r in ranks:
+                mine = r["head_block"][str(dtype)]
+                if mine["hops"] != hops:
+                    continue
+                equal = mine["digests"] == tpsp_hop_digests(torch, outs, mine["head0"],
+                                                            mine["heads"])
+                blocks.append(dict(dtype=str(dtype), hops=hops, head0=mine["head0"],
+                                   heads=mine["heads"], heads_total=mine["heads_total"],
+                                   bit_equal_to_whole_launch_heads=equal,
+                                   default_head0_draws_another_mask=mine["other_mask"],
+                                   errs=mine["errs"]))
+                if not (equal and mine["other_mask"]):
+                    raise AssertionError(f"ring pair on heads {mine['head0']}.. of "
+                                         f"{mine['heads_total']} ({dtype}, hop {hops} back): "
+                                         f"bit-equal to the whole launch's heads {equal}; the "
+                                         f"default head0 draws another mask "
+                                         f"{mine['other_mask']}")
+            del whole, outs
+            torch.cuda.empty_cache()
+    b, total, heads, s_local, d = TPSP_HOP
+    print("kernel", json.dumps(dict(
+        card=card, kernel="ring_partial+ring_block_grads", shape="tpsp_head_blocks", B=b,
+        H=heads, heads_total=total, S_local=s_local, D=d, dropout=0.1, cases=blocks,
+        label=f"each block on one of {RING_RANKS} ranks at its {TPSP_MESH} coordinates, the "
+              f"whole launch in the parent")), flush=True)
+
     cfg, params, tokens = values_model(torch, attention_type="ring")
     tree = _to(params, "cpu")
     for _, t in named_leaves(tree):
@@ -2526,8 +2714,34 @@ def phase_ring_attention(torch, attn, card):
         if {n: v["launches"][n] for n in want} != want or any(
                 c for n, c in v["launches"].items() if n not in want):
             raise AssertionError(f"values arm launches {launches}")
-    print(f"ring checks: 4 ranks in {wall:.1f}s", flush=True)
-    return dict(**result, launches=launches, attention=report)
+    # the fourth arm: TP x SP against one process on the card
+    tree = _to(params, "cuda")
+    for _, t in named_leaves(tree):
+        t.requires_grad_(True)
+    loss, _ = DALLE(cfg, "cuda").loss(tree, tokens.cuda())
+    loss.backward()
+    one = (loss.item(), {"/".join(p): t.grad.cpu() for p, t in named_leaves(tree)})
+    del tree, loss
+    tvals = [r["tpsp_values"] for r in sorted(
+        ranks, key=lambda r: tuple(r["tpsp_values"]["coords"].values()))]
+    tpsp = compare_values(f"{TPSP_MESH} ring x TP, {RING_RANKS} ranks", cfg, card,
+                          (tvals[0]["loss"], tvals[0]["grads"]), one, "one_process")
+    tpsp_launches = [v["launches"] for v in tvals]
+    for v in tvals:
+        i = v["coords"]["seq"]
+        want = {"ring_partial": cfg.n_layers * (i + 1), "ring_block_grads": cfg.n_layers * (i + 1)}
+        if {n: v["launches"][n] for n in want} != want or any(
+                c for n, c in v["launches"].items() if n not in want):
+            raise AssertionError(f"TP x SP values arm launches {tpsp_launches}")
+    if any(abs(v["loss"] - tvals[0]["loss"]) > 0 for v in tvals):
+        raise AssertionError(f"TP x SP values arm: the ranks' losses differ "
+                             f"{[v['loss'] for v in tvals]}")
+    print(f"ring checks: 4 ranks in {wall:.1f}s; TP x SP values arm heads per rank "
+          f"{[v['heads'] for v in tvals]}, launches per rank {tpsp_launches} "
+          f"({TPSP_LABEL})", flush=True)
+    tp_values = check_tp_values(torch, attn, card, tp_ranks, wall)
+    return dict(**result, launches=launches, attention=report, head_blocks=blocks,
+                tpsp=dict(**tpsp, launches=tpsp_launches), tp_values=tp_values)
 
 
 # set in the environment of the ranks whose digests include the AdamW moments
@@ -2592,8 +2806,10 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
     ``--then``: a resume runs in the same process group), the kernel counts
     and the peak memory reset just before each; writes what the rank saw in run i to
     <out_dir>/rank<r>_<i>.json (history, launches, staged bytes, the bytes
-    its collectives moved and those its pipeline hops sent, by kind, in each
-    training step, peak memory, a checksum of
+    its collectives moved in each training step, in all and by kind (the
+    forward and backward's before the gradient sum, the gradient sum's, the
+    rest after it), those its pipeline hops sent, by kind, peak memory, a
+    checksum of
     its parameters and moments at the end and just after a restore, the
     seconds and host memory of the model's init and of each checkpoint
     save, the training stream's waits)."""
@@ -2614,15 +2830,27 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
     module = importlib.import_module(f"dalle_mtf_tpu_torch.{cli}")
     rank = int(os.environ["RANK"])
     with_moments = bool(os.environ.get(DIGEST_MOMENTS))
-    step_bytes, step_hops, events, streams = [], [], {}, []
+    step_bytes, step_kinds, step_hops, events, streams = [], [], [], {}, []
     train_step, save, restore, init = Trainer.train_step, Trainer.save, Trainer.restore, DALLE.init
+    sum_shares = Trainer._sum_shares
+    marks = {}
 
     def counted(self, *args, **kw):  # the collectives' and the hops' bytes of one step
         before, hops = COLLECTIVES["bytes"], dict(pipeline.SENT_BYTES)
+        marks.clear()
         out = train_step(self, *args, **kw)
         step_bytes.append(COLLECTIVES["bytes"] - before)
         step_hops.append({k: v - hops[k] for k, v in pipeline.SENT_BYTES.items()})
+        if marks:
+            step_kinds.append({"model": marks["sum"] - before,
+                               "gradient_sum": marks["summed"] - marks["sum"],
+                               "after": COLLECTIVES["bytes"] - marks["summed"]})
         return out
+
+    def marked_sum(self, opt):  # where the gradient sum starts and ends in a step
+        marks["sum"] = COLLECTIVES["bytes"]
+        sum_shares(self, opt)
+        marks["summed"] = COLLECTIVES["bytes"]
 
     def timed_init(self, generator):
         torch.cuda.synchronize()
@@ -2658,6 +2886,7 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
         return out
 
     Trainer.train_step, Trainer.save, Trainer.restore = counted, timed_save, digest_restore
+    Trainer._sum_shares = marked_sum
     DALLE.init = timed_init
     if cli == "train_vae":
         make_pipeline = module.vae_input_fn
@@ -2694,6 +2923,7 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
             ring.STAGED_BYTES["ring_shift"] = 0
             pipeline.STAGED_BYTES["pipeline"] = 0
             step_bytes.clear()
+            step_kinds.clear()
             step_hops.clear()
             events.clear()
             streams.clear()
@@ -2709,6 +2939,7 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
                                          **ring.KERNEL_LAUNCHES},
                                staged_bytes=ring.STAGED_BYTES["ring_shift"],
                                collective_bytes_per_step=list(step_bytes),
+                               collective_bytes_by_kind_per_step=list(step_kinds),
                                pipe_bytes_per_step=list(step_hops),
                                pipe_staged_bytes=pipeline.STAGED_BYTES["pipeline"],
                                peak_mem_gb=torch.cuda.max_memory_allocated(0) / 1e9,
@@ -2807,12 +3038,13 @@ def sample_rank(torch, proc, out_dir, path, steps: int, batch: int) -> None:
                os.path.join(out_dir, f"sample_rank{proc.rank}.pt"))
 
 
-def train_ranks(torch, runs, evals, cfg) -> list[list[dict]]:
-    """The ring run's ranks through ``train_dalle.main``, one launch for all
+def train_ranks(torch, runs, evals, cfg, models=None) -> list[list[dict]]:
+    """The ring runs' ranks through ``train_dalle.main``, one launch for all
     of ``runs`` ((config path, steps, new); a resume in the same process
     group); checks what every rank logged and launched in each and that
-    their parameters are bit-equal. Returns each run's reports in rank
-    order."""
+    the copies of their parameters are bit-equal (``check_ring_ranks``;
+    ``models``: each run's model-axis size, 1 for every run by default).
+    Returns each run's reports in rank order."""
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_ring_train_")
     try:
         argv = []
@@ -2825,13 +3057,16 @@ def train_ranks(torch, runs, evals, cfg) -> list[list[dict]]:
                    for i in range(len(runs))]
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    for (_, steps, _), ranks in zip(runs, reports):
-        check_ring_ranks(ranks, steps, evals, cfg)
+    for (_, steps, _), ranks, model in zip(runs, reports, models or [1] * len(runs)):
+        check_ring_ranks(ranks, steps, evals, cfg, model)
     return reports
 
 
-def check_ring_ranks(ranks, steps, evals, cfg) -> None:
-    """One ring run's checks on its ranks' reports."""
+def check_ring_ranks(ranks, steps, evals, cfg, model: int = 1) -> None:
+    """One ring run's checks on its ranks' reports; ``model``: the size of
+    its model axis, the last of the mesh (rank r at seq index r // model,
+    model index r % model: the ranks of one model index hold the same
+    blocks)."""
     first = ranks[0]["history"][0]["step"]
     for r in ranks:
         if [h["step"] for h in r["history"]] != list(range(first, first + steps)):
@@ -2846,19 +3081,106 @@ def check_ring_ranks(ranks, steps, evals, cfg) -> None:
             raise AssertionError(f"eval: {r['eval_history']}")
         if r["checkpoints"] != [first + steps - 1]:
             raise AssertionError(f"checkpoints {r['checkpoints']}")
-        # rank r holds shard r: r + 1 live hops a layer in every pass
-        n, passes = cfg.n_layers * (r["rank"] + 1), steps + evals
+        # rank r holds shard r // model: that + 1 live hops a layer in every pass
+        n, passes = cfg.n_layers * (r["rank"] // model + 1), steps + evals
         n_ln = 2 * cfg.n_layers + 1
         want = {"ring_partial": n * passes, "ring_block_grads": n * steps,
                 "layer_norm_fwd": n_ln * passes, "layer_norm_bwd": n_ln * steps}
         if {k: r["launches"].get(k, 0) for k in want} != want or any(
                 c for k, c in r["launches"].items() if k not in want):
             raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected {want}")
-    if len({r["params_sha256"] for r in ranks}) != 1:
-        raise AssertionError(f"the ranks' parameters differ: {[r['params_sha256'] for r in ranks]}")
+    for j in range(model):
+        if len({r["params_sha256"] for r in ranks[j::model]}) != 1:
+            raise AssertionError(f"the ranks' parameters differ: "
+                                 f"{[r['params_sha256'] for r in ranks]}")
 
 
 RING_LAYERS = 2  # of dalle_4k's 12: the ring run's depth
+
+
+def tpsp_splits(dalle) -> dict:
+    """Each leaf's split over TPSP_MESH's model axis by TPSP_LAYOUT, as a
+    rank there splits it (``parallel.mesh.leaf_split``): {path: Split or
+    None}, over ``dalle``'s whole shapes (``Split.bounds``: every model
+    index's block)."""
+    from dalle_mtf_tpu_torch.parallel.mesh import leaf_split, parse_layout  # noqa: PLC0415
+
+    class ModelAxis:  # what leaf_split reads of a mesh
+        tp_axis, rules = "model", parse_layout(TPSP_LAYOUT)
+
+        @staticmethod
+        def size(name):
+            return TPSP_MODEL if name == "model" else 1
+
+        @staticmethod
+        def index(name):
+            return 0
+
+    axes = dict(_shape_leaves(dalle.logical_axes()))
+    return {path: leaf_split(axes[path], shape, ModelAxis)
+            for path, shape in _shape_leaves(dalle.param_shapes(whole=True))}
+
+
+def tpsp_expected_bytes(dalle, cfg, rows: int, steps: int, evals: int) -> list[dict]:
+    """What a TP x SP rank of each model index moves, from the code, with
+    ``rows`` batch rows a rank: the ring's bytes staged through the host in
+    the run (ops/ring_attention.py::ring_shift counts each tensor sent and
+    received: a layer's forward shifts k, v [B, H/m, S/n, D] n - 1 times,
+    its backward k, v and the fp32 dk, dv accumulators n - 1 times and dk,
+    dv once more; the eval a forward), and the all_reduce bytes of one
+    training step by kind (train/trainer.py, parallel/tensor.py): the
+    model's collectives before the gradient sum (the vocab-parallel
+    embedding's sum and each layer's attention and MLP output sums
+    forward, each layer's two input-gradient sums and the loss head's
+    backward, [B, S/n, E] in the compute dtype each; the xent's fp32 row
+    max and its sum-exp and target logit), the gradient sum over the data
+    and sequence axes (every local leaf's fp32 gradient) and what follows
+    it (the replicated leaves' gradients broadcast over the model group,
+    the global norm's fp32 sum of squares and the metrics' shares)."""
+    s_l, e, L = cfg.total_seq_len // TPSP_SEQ, cfg.n_embd, cfg.n_layers
+    elem = 2 if cfg.bf_16 else 4
+    heads = cfg.n_heads // TPSP_MODEL
+    kv = rows * heads * s_l * cfg.head_dim * elem
+    acc = rows * heads * s_l * cfg.head_dim * 4
+    fwd = (TPSP_SEQ - 1) * 2 * 2 * kv
+    bwd = (TPSP_SEQ - 1) * 2 * (2 * kv + 2 * acc) + 2 * 2 * acc
+    act = rows * s_l * e * elem
+    model_bytes = (2 + 4 * L) * act + 3 * rows * s_l * 4
+    splits = tpsp_splits(dalle)
+    replicated = sum(math.prod(shape) for path, shape in
+                     _shape_leaves(dalle.param_shapes(whole=True)) if splits[path] is None)
+    out = []
+    for j in range(TPSP_MODEL):
+        local = replicated
+        for path, shape in _shape_leaves(dalle.param_shapes(whole=True)):
+            split = splits[path]
+            if split is not None:
+                a, b = split.bounds[j]
+                local += math.prod(shape) // shape[split.dim] * (b - a)
+        out.append(dict(staged=L * (steps * (fwd + bwd) + evals * fwd),
+                        staged_per_layer_forward=fwd, staged_per_layer_backward=bwd,
+                        hop_kv_bytes=2 * kv,
+                        step={"model": model_bytes, "gradient_sum": 4 * local,
+                              "after": 4 * replicated + 4 + 4 * len(TPSP_METRICS)},
+                        activation_bytes=act, local_params=local,
+                        replicated_params=replicated))
+    return out
+
+
+def tpsp_block_digest(torch, obj, splits, model: int) -> str:
+    """sha256 of what a TP x SP rank of model index ``model`` holds of the
+    parameters of a checkpoint read by one process (``state_digest``'s
+    order and bytes): its block of each split leaf, the others whole."""
+    import hashlib  # noqa: PLC0415
+
+    digest = hashlib.sha256()
+    for path, split in splits.items():
+        t = obj["params"]["/".join(path)]
+        if split is not None:
+            a, b = split.bounds[model]
+            t = t.narrow(split.dim, a, b - a)
+        digest.update(t.float().contiguous().numpy().tobytes())
+    return digest.hexdigest()
 
 
 def phase_train_ring(torch, card):
@@ -2871,10 +3193,17 @@ def phase_train_ring(torch, card):
     cut to RING_LAYERS layers (the resumed run after it was cut for the card
     time of the sharded serving phase: the restore is the layout's blocks
     read out of one file, held bit for bit over ranks by
-    phase_train_12b_tp);
-    its first loss against the single-process port's on the same records
-    and seed. Returns the ring kernels' launches over the four ranks of the
-    first run, and per rank."""
+    phase_train_12b_tp); its first loss against the single-process port's
+    on the same records and seed. Then, in the same launch, the same run on
+    TPSP_MESH with TPSP_LAYOUT (tensor parallelism under the ring: each rank
+    4 of the 8 heads, 2048 MLP columns and its block of the vocabulary over
+    2176 positions): its first loss within 2e-3 of the single process's,
+    the ring and LN kernels' launches of each rank (seq rank i: i + 1 live
+    hops a layer a pass), the bytes each rank staged and all_reduced a step
+    by kind equal to ``tpsp_expected_bytes`` to the byte, and its
+    checkpoint, read by one process, bit-equal to every rank's blocks.
+    Returns the ring kernels' launches over the four ranks of the first
+    run, and per rank, and each TP x SP rank's ring and LN launches."""
     from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
 
@@ -2886,12 +3215,18 @@ def phase_train_ring(torch, card):
         cfg = dalle.cfg
         write_tokens_dataset(os.path.join(tmp, "data"), 1, cfg.image_seq_len,
                              cfg.image_vocab_size, files=2, per_file=24)
-        path = train_config(tmp, RING_STEPS, LONG_CONFIG, RING_STEPS, **extra)
+        path = shutil.copy(train_config(tmp, RING_STEPS, LONG_CONFIG, RING_STEPS, **extra),
+                           os.path.join(tmp, "ring.json"))
+        tpsp_path = shutil.copy(train_config(
+            tmp, RING_STEPS, LONG_CONFIG, RING_STEPS, **dict(
+                extra, mesh_shape=TPSP_MESH, layout=TPSP_LAYOUT,
+                model_path=os.path.join(tmp, "run_tpsp"))), os.path.join(tmp, "tpsp.json"))
         long_first_loss = single_first_loss(torch, path)
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        (ranks,) = train_ranks(torch, [(path, RING_STEPS, True)], 1, cfg)
+        ranks, tpsp = train_ranks(torch, [(path, RING_STEPS, True), (tpsp_path, RING_STEPS, True)],
+                                  1, cfg, (1, TPSP_MODEL))
         wall = time.perf_counter() - t0
         hist = ranks[0]["history"]
         losses = [h["loss"] for h in hist]
@@ -2904,7 +3239,8 @@ def phase_train_ring(torch, card):
         tokens_per_step = cfg.total_seq_len * fetch_model_params(path)["train_batch_size"]
         staged = [r["staged_bytes"] for r in ranks]
         print(f"train ring {LONG_CONFIG}: {RING_STEPS} steps + eval + checkpoint "
-              f"in {wall:.1f}s (4 ranks, one launch); losses {[round(x, 4) for x in losses]} (the single-"
+              f"in {wall:.1f}s (4 ranks, one launch with the TP x SP run); losses "
+              f"{[round(x, 4) for x in losses]} (the single-"
               f"process run's first {long_first_loss:.4f}); parameters bit-equal "
               f"over the ranks; launches per rank {[r['launches'] for r in ranks]}", flush=True)
         print("train", json.dumps(dict(
@@ -2921,22 +3257,88 @@ def phase_train_ring(torch, card):
             wall_s_per_rank=[r["wall_s"] for r in ranks],
             eval=ranks[0]["eval_history"],
         )), flush=True)
+        tpsp_launches = check_train_tpsp(torch, card, tmp, dalle, cfg, tpsp, long_first_loss,
+                                         tokens_per_step)
         per_rank = [{k: r["launches"][k] for k in ("ring_partial", "ring_block_grads")}
                     for r in ranks]
-        return {k: sum(p[k] for p in per_rank) for k in per_rank[0]}, per_rank
+        return {k: sum(p[k] for p in per_rank) for k in per_rank[0]}, per_rank, tpsp_launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def worker_tp_values(torch, out_dir):
-    """One rank of phase_tp_values on TP_VALUES_MESH (dalle_coco's layout):
+def check_train_tpsp(torch, card, tmp, dalle, cfg, ranks, single, tokens_per_step) -> list:
+    """phase_train_ring's TP x SP run (``ranks``, already held by
+    ``check_ring_ranks``): its first loss within 2e-3 of the single-process
+    port's ``single``, the bytes each rank staged in the run and
+    all_reduced in each step by kind equal to ``tpsp_expected_bytes``, and
+    the checkpoint read by one process bit-equal to each rank's blocks;
+    prints its "train" line. Returns each rank's ring and LN launches."""
+    from dalle_mtf_tpu_torch.utils import checkpoint  # noqa: PLC0415
+
+    rows = tokens_per_step // cfg.total_seq_len
+    want = tpsp_expected_bytes(dalle, cfg, rows, RING_STEPS, 1)
+    losses = [h["loss"] for h in ranks[0]["history"]]
+    if abs(losses[0] - single) > 2e-3:
+        raise AssertionError(f"TP x SP first loss {losses[0]} vs the single-process port's "
+                             f"{single} (atol 2e-3)")
+    for r in ranks:
+        mine = want[r["rank"] % TPSP_MODEL]
+        if r["staged_bytes"] != mine["staged"]:
+            raise AssertionError(f"TP x SP rank {r['rank']} staged {r['staged_bytes']} bytes, "
+                                 f"expected {mine['staged']}")
+        kinds = r["collective_bytes_by_kind_per_step"]
+        if len(kinds) != RING_STEPS or any(k != mine["step"] for k in kinds):
+            raise AssertionError(f"TP x SP rank {r['rank']} all_reduced {kinds} a step, "
+                                 f"expected {mine['step']}")
+    obj = checkpoint.read(os.path.join(tmp, "run_tpsp", "checkpoints", f"ckpt_{RING_STEPS}.pt"))
+    splits = tpsp_splits(dalle)
+    digests = [tpsp_block_digest(torch, obj, splits, r["rank"] % TPSP_MODEL) for r in ranks]
+    del obj
+    if digests != [r["params_sha256"] for r in ranks]:
+        raise AssertionError("the TP x SP checkpoint read by one process differs from the ranks' "
+                             "final blocks")
+    step_s = [1.0 / h["steps_per_sec"] for h in ranks[0]["history"][LONG_TIMED_FROM - 1:]]
+    med = statistics.median(step_s)
+    names = ("ring_partial", "ring_block_grads", "layer_norm_fwd", "layer_norm_bwd")
+    launches = [{k: r["launches"][k] for k in names} for r in ranks]
+    print(f"train tpsp {LONG_CONFIG}: {RING_STEPS} steps + eval + checkpoint on {TPSP_MESH}; "
+          f"losses {[round(x, 4) for x in losses]} (the single-process run's first "
+          f"{single:.4f}); checkpoint bit-equal to every rank's blocks; launches per rank "
+          f"{launches}", flush=True)
+    print("train", json.dumps(dict(
+        card=card, config=LONG_CONFIG, label=TPSP_LABEL, ranks=RING_RANKS, mesh_shape=TPSP_MESH,
+        layout=TPSP_LAYOUT, batch=rows, seq_len=cfg.total_seq_len,
+        seq_len_per_rank=cfg.total_seq_len // TPSP_SEQ,
+        heads_per_rank=cfg.n_heads // TPSP_MODEL, n_layers=cfg.n_layers, n_embd=cfg.n_embd,
+        vocab=cfg.total_tokens, bf16=cfg.bf_16, steps_timed=len(step_s), step_s=step_s,
+        step_s_median=med, tokens_per_s=tokens_per_step / med, first_loss=losses[0],
+        single_process_first_loss=single, losses=losses,
+        staged_bytes_per_rank=[r["staged_bytes"] for r in ranks],
+        tp_all_reduce_bytes_per_rank_per_step=[r["collective_bytes_by_kind_per_step"][0]["model"]
+                                              for r in ranks],
+        gradient_all_reduce_bytes_per_rank_per_step=[
+            r["collective_bytes_by_kind_per_step"][0]["gradient_sum"] for r in ranks],
+        other_collective_bytes_per_rank_per_step=[
+            r["collective_bytes_by_kind_per_step"][0]["after"] for r in ranks],
+        expected_bytes_by_model_index=want, bytes_equal_expected=True,
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+        wall_s_per_rank=[r["wall_s"] for r in ranks], launches_per_rank=launches,
+        checkpoint_bit_equal_to_rank_blocks=True, eval=ranks[0]["eval_history"],
+    )), flush=True)
+    return launches
+
+
+def tp_values_rank(torch, proc, out_dir):
+    """One rank of the tensor-parallel values check (``check_tp_values``),
+    run by ``worker_checks`` in its process group, on TP_VALUES_MESH
+    (dalle_coco's layout):
     each arm of TP_VALUES_ARMS on the 2-layer fp32 values model, the rank's
     row of the two and its blocks of the parameters: the loss and every
     leaf's gradient, the blocks gathered over the model group and summed
     over the replicas, which rank 0 holds against one process on the card
     (``values_errors``); then, with hash dropout 0.1, the packed and the
     [B, H, S, D] pair on the rank's heads (``head0``, ``heads_total``) of
-    seeded global q, k, v, g. Writes <out_dir>/rank<r>.pt."""
+    seeded global q, k, v, g. Writes <out_dir>/tp_rank<r>.pt."""
     import torch.distributed as dist  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
@@ -2945,56 +3347,49 @@ def worker_tp_values(torch, out_dir):
     from dalle_mtf_tpu_torch.parallel.mesh import build_mesh  # noqa: PLC0415
     from dalle_mtf_tpu_torch.parallel.tensor import gather  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
-    from dalle_mtf_tpu_torch.utils.distributed import init_distributed  # noqa: PLC0415
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    proc = init_distributed(["0"], "cuda")
-    try:
-        mesh = build_mesh(TP_VALUES_MESH, TP_LAYOUT, "global", proc.rank, proc.world)
-        dp = mesh.index("data")
-        res = {"backend": proc.backend, "coords": mesh.coords, "arms": {}, "kernels": {}}
-        base, params, tokens = values_model(torch)  # the arms change no parameter
-        for name, over, fused in TP_VALUES_ARMS:
-            cfg = dataclasses.replace(base, **over)
-            dalle = DALLE(cfg, "cuda", mesh)
-            sharding = dalle.sharding
-            tree = _to(sharding.shard_tree(params), "cuda")
-            for _, t in named_leaves(tree):
-                t.requires_grad_(True)
-            reset_counts(attn)
-            loss, _ = dalle.loss(tree, tokens[dp:dp + 1].cuda(),
-                                 torch.Generator().manual_seed(TP_SEED), fused_xent=fused)
-            loss.backward()
-            launches = {n: c for n, c in attn.KERNEL_LAUNCHES.items() if c}
-            grads = {"/".join(p): gather(t.grad, sharding.of(p), sharding.group)
-                     for p, t in named_leaves(tree)}
-            loss = loss.detach().clone()
-            for t in (loss, *grads.values()):
-                dist.all_reduce(t, group=mesh.replica_group)
-            res["arms"][name] = dict(loss=loss.item(), launches=launches, heads=dalle.heads)
-            if proc.rank == 0:
-                res["arms"][name]["one_process"] = values_errors(torch, cfg, params, tokens,
-                                                                 fused, grads)
-            del tree, grads, loss
-            torch.cuda.empty_cache()
-        h0, heads = dalle.heads
-        q, k, v, g = (t[dp:dp + 1, h0:h0 + heads].contiguous().cuda()
-                      for t in tp_kernel_inputs(torch))
-        seed = RING_SEED + dp * 8  # row dp of 8 heads, as the model offsets it
-        for packed in (True, False):
-            if packed:
-                pq, pk, pv, pg = (ap._pack(t).contiguous() for t in (q, k, v, g))
-                out, lse = ap._forward(pq, pk, pv, heads, None, 0.1, seed, None, h0, 8)
-                grads = ap._backward(pq, pk, pv, out, lse, pg, heads, None, 0.1, seed, h0, 8)
-                got = [ap._unpack(t, heads) for t in (out, *grads)]
-            else:
-                out, lse = attn._forward(q, k, v, None, 0.1, seed, True, None, h0, 8)
-                got = [out, *attn._backward(q, k, v, out, lse, g, None, 0.1, seed, h0, 8)]
-            res["kernels"][packed] = dict(lse=lse.cpu(), tensors=[t.cpu() for t in got])
-        torch.save(res, os.path.join(out_dir, f"rank{proc.rank}.pt"))
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
+    mesh = build_mesh(TP_VALUES_MESH, TP_LAYOUT, "global", proc.rank, proc.world)
+    dp = mesh.index("data")
+    res = {"backend": proc.backend, "coords": mesh.coords, "arms": {}, "kernels": {}}
+    base, params, tokens = values_model(torch)  # the arms change no parameter
+    for name, over, fused in TP_VALUES_ARMS:
+        cfg = dataclasses.replace(base, **over)
+        dalle = DALLE(cfg, "cuda", mesh)
+        sharding = dalle.sharding
+        tree = _to(sharding.shard_tree(params), "cuda")
+        for _, t in named_leaves(tree):
+            t.requires_grad_(True)
+        reset_counts(attn)
+        loss, _ = dalle.loss(tree, tokens[dp:dp + 1].cuda(),
+                             torch.Generator().manual_seed(TP_SEED), fused_xent=fused)
+        loss.backward()
+        launches = {n: c for n, c in attn.KERNEL_LAUNCHES.items() if c}
+        grads = {"/".join(p): gather(t.grad, sharding.of(p), sharding.group)
+                 for p, t in named_leaves(tree)}
+        loss = loss.detach().clone()
+        for t in (loss, *grads.values()):
+            dist.all_reduce(t, group=mesh.replica_group)
+        res["arms"][name] = dict(loss=loss.item(), launches=launches, heads=dalle.heads)
+        if proc.rank == 0:
+            res["arms"][name]["one_process"] = values_errors(torch, cfg, params, tokens,
+                                                             fused, grads)
+        del tree, grads, loss
+        torch.cuda.empty_cache()
+    h0, heads = dalle.heads
+    q, k, v, g = (t[dp:dp + 1, h0:h0 + heads].contiguous().cuda()
+                  for t in tp_kernel_inputs(torch))
+    seed = RING_SEED + dp * 8  # row dp of 8 heads, as the model offsets it
+    for packed in (True, False):
+        if packed:
+            pq, pk, pv, pg = (ap._pack(t).contiguous() for t in (q, k, v, g))
+            out, lse = ap._forward(pq, pk, pv, heads, None, 0.1, seed, None, h0, 8)
+            grads = ap._backward(pq, pk, pv, out, lse, pg, heads, None, 0.1, seed, h0, 8)
+            got = [ap._unpack(t, heads) for t in (out, *grads)]
+        else:
+            out, lse = attn._forward(q, k, v, None, 0.1, seed, True, None, h0, 8)
+            got = [out, *attn._backward(q, k, v, out, lse, g, None, 0.1, seed, h0, 8)]
+        res["kernels"][packed] = dict(lse=lse.cpu(), tensors=[t.cpu() for t in got])
+    torch.save(res, os.path.join(out_dir, f"tp_rank{proc.rank}.pt"))
 
 
 def values_errors(torch, cfg, params, tokens, fused, grads) -> dict:
@@ -3026,9 +3421,10 @@ def tp_kernel_inputs(torch):
     return [torch.rand((2, 8, 1280, 128), generator=gen) * 2 - 1 for _ in range(4)]
 
 
-def phase_tp_values(torch, attn, card) -> dict:
-    """The values check of tensor parallelism: 4 ranks on the card
-    (``run_ranks``, gloo) on TP_VALUES_MESH with dalle_coco's
+def check_tp_values(torch, attn, card, ranks, wall: float) -> dict:
+    """The values check of tensor parallelism, on what the 4 ranks of
+    phase_ring_attention's launch wrote (``tp_values_rank``; ``wall``: the
+    launch's seconds): TP_VALUES_MESH with dalle_coco's
     layout, the 2-layer fp32 values model at dalle_coco width (each rank 4
     heads, 2048 MLP columns, a 26,240-row block of the vocabulary), each arm
     of TP_VALUES_ARMS (the dense head, the fused head, attention dropout 0.1
@@ -3043,16 +3439,6 @@ def phase_tp_values(torch, attn, card) -> dict:
     equal the heads of one 8-head launch bit for bit (the same hash)."""
     from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
 
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_values_")
-    try:
-        t0 = time.perf_counter()
-        run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "tp_values", out_dir],
-                  600, TP_VALUES_RANKS)
-        wall = time.perf_counter() - t0
-        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
-                 for r in range(TP_VALUES_RANKS)]
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
     if {r["backend"] for r in ranks} != {"gloo"}:
         raise AssertionError(f"ranks sharing a card must run gloo: {[r['backend'] for r in ranks]}")
     report = {}
@@ -3101,7 +3487,8 @@ def phase_tp_values(torch, attn, card) -> dict:
                                      f"dropout differ from the single launch's heads "
                                      f"{h0}..{h0 + heads - 1}")
     print(f"tp values: under dropout 0.1 each rank's packed and [B, H, S, D] kernels on its "
-          f"heads equal one 8-head launch's bit for bit; 4 ranks in {wall:.1f}s", flush=True)
+          f"heads equal one 8-head launch's bit for bit; 4 ranks in {wall:.1f}s (the ring "
+          f"checks' launch)", flush=True)
     return report
 
 
@@ -3263,6 +3650,9 @@ PP_RANKS = 4
 PP_MESH, PP_LAYOUT = "pipe:2,data:2", "batch_dim:data,layers:pipe"
 PP_STAGES, PP_DATA = 2, 2
 PP_STEPS, PP_TIMED_FROM = 3, 2  # steps 2..3 are timed
+# the run's depth: 4 of dalle_coco_synth's 12 layers, 2 a stage (12 until the
+# TP x SP run took its card time)
+PP_CUT = dict(n_layers=4)
 PP_LABEL = ("4 ranks sharing one card over gloo, staged through host: not a multi-GPU "
             "number")
 # the values check: the full-width model cut to 4 layers (2 a stage), fp32,
@@ -3421,9 +3811,10 @@ def checkpoint_stage_digest(torch, obj, shapes, stage: int, per: int) -> str:
 
 def phase_train_pp(torch, card) -> list[dict]:
     """The pipeline-parallel main path: a tokens-mode copy of
-    configs/dalle_coco_synth.json as published (12 layers of 1024, 8 heads
-    of 128, S = 1280, vocab 52,307, batch 16, bf16, dots_and_attn) with
-    ``mesh_shape`` PP_MESH and ``layout`` PP_LAYOUT (each stage 6 layers, 2
+    configs/dalle_coco_synth.json as published (1024 wide, 8 heads of 128,
+    S = 1280, vocab 52,307, batch 16, bf16, dots_and_attn) cut to PP_CUT
+    (4 of its 12 layers), with ``mesh_shape`` PP_MESH and ``layout``
+    PP_LAYOUT (each stage 2 layers, 2
     microbatches of 4 rows a data rank, the loss head on 4 rows a rank),
     through ``run_ranks`` of PP_RANKS ranks sharing the card and
     ``train_dalle.main`` for PP_STEPS steps with an eval and a checkpoint.
@@ -3432,7 +3823,7 @@ def phase_train_pp(torch, card) -> list[dict]:
     of the single-process port's on the same seed and the same records (the
     first batches of both data ranks' shards); the losses equal on every
     rank; the
-    packed pair's launches a rank (its 6 layers, a forward a microbatch a
+    packed pair's launches a rank (its 2 layers, a forward a microbatch a
     pass and a backward a microbatch a step); the bytes each rank sent a
     step, by kind, to the byte of ``pp_expected_bytes``; the all_reduce
     bytes a rank a step to the byte of ``pp_expected_collective_bytes``;
@@ -3446,7 +3837,7 @@ def phase_train_pp(torch, card) -> list[dict]:
     names = ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
     try:
         published = fetch_model_params(TRAIN_CONFIG)
-        over = dict(mesh_shape=PP_MESH, layout=PP_LAYOUT)
+        over = dict(mesh_shape=PP_MESH, layout=PP_LAYOUT, **PP_CUT)
         dalle, _ = make_dalle_models({**published, **over}, "cpu")
         cfg = dalle.cfg
         write_tokens_dataset(os.path.join(tmp, "data"), 6, cfg.image_seq_len,
@@ -6006,7 +6397,7 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
 
 
 def ring_worker(argv) -> int:
-    """``chip_smoke.py --ring-worker <checks|tp_values|vae_values|serve_tp|
+    """``chip_smoke.py --ring-worker <checks|vae_values|serve_tp|
     train|train_vae> <out_dir> [argv...]``: one rank under
     ``torch.distributed.run``, for the ring, the tensor-parallel, the VAE
     data-parallel and the sharded serving phases."""
@@ -6015,8 +6406,6 @@ def ring_worker(argv) -> int:
     mode, out_dir = argv[0], argv[1]
     if mode == "checks":
         worker_checks(torch, out_dir)
-    elif mode == "tp_values":
-        worker_tp_values(torch, out_dir)
     elif mode == "vae_values":
         worker_vae_values(torch, out_dir, argv[2:])
     elif mode == "serve_tp":
@@ -6117,8 +6506,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ring_values = phase(phase_ring_attention, torch, attn, card)
-    ring_launches, ring_per_rank = phase(phase_train_ring, torch, card)
-    phase(phase_tp_values, torch, attn, card)
+    ring_launches, ring_per_rank, tpsp_per_rank = phase(phase_train_ring, torch, card)
     tp_launches = phase(phase_train_tp, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6198,8 +6586,8 @@ def main() -> int:
                                    "heads)", **measured(training_tp12b[name])),
              pp_launches=[r[name] for r in pp_launches],
              pp_launches_on=f"{TRAIN_CONFIG} training on {PP_RANKS} ranks ({PP_MESH}, "
-                            f"{PP_LAYOUT}: each stage 6 of the 12 layers on 2 microbatches of "
-                            f"4 rows), {PP_STEPS} steps + eval, {PP_LABEL}",
+                            f"{PP_LAYOUT}, {PP_CUT}: each stage 2 of the 4 layers on 2 "
+                            f"microbatches of 4 rows), {PP_STEPS} steps + eval, {PP_LABEL}",
              pp_microbatch=dict(shape="B=4 H=8 S=1280 D=128 bf16 (a pipeline stage's "
                                       "microbatch)", **measured(training_pp[name])))
         for name in ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
@@ -6242,11 +6630,15 @@ def main() -> int:
             tpu_kernels=[k for k, _ in tpu], launches=launches[run][name],
             launches_on=LAUNCHES_ON[run], shape=shape, **measured(bhsd[shape][name]),
         ))
+    tpsp_on = (f"{LONG_CONFIG} ring training on {TPSP_MESH} ({RING_LAYERS} layers, "
+               f"{RING_STEPS} steps + eval; each rank 4 of the 8 heads over 2176 positions, "
+               f"head0 0 and 4), {TPSP_LABEL}")
     for name in ("layer_norm_fwd", "layer_norm_bwd"):
         rows.append(dict(
             name=name, route="cuda", source=LN_SOURCE, replaces=REPLACES[name],
             launches=long_launches[name], launches_on=f"{LONG_CONFIG} training",
             shape="dalle_4k R=17408 E=1024 bf16", **{k: ln[name][k] for k in keys},
+            tpsp_launches=[r[name] for r in tpsp_per_rank], tpsp_launches_on=tpsp_on,
         ))
     for name in ("ring_partial", "ring_block_grads"):
         rows.append(dict(
@@ -6255,6 +6647,10 @@ def main() -> int:
             launches_per_rank=[r[name] for r in ring_per_rank],
             launches_on=f"{LONG_CONFIG} ring training, {RING_LABEL}",
             shape="past hop B=4 H=8 S_local=1088 D=128 bf16", **measured(ring_rows["past"][name]),
+            tpsp_launches=[r[name] for r in tpsp_per_rank], tpsp_launches_on=tpsp_on,
+            tpsp_rank=dict(shape="past hop B=4 H=4 (heads 4-7 of 8) S_local=2176 D=128 bf16 "
+                                 "(a TP x SP rank's block)",
+                           **measured(ring_rows["tpsp_past"][name])),
         ))
     for name in ("ring_partial", "ring_block_grads"):  # the fp32 instantiations
         per_rank = [v[name] for v in ring_values["launches"]]
@@ -6263,6 +6659,9 @@ def main() -> int:
             launches=sum(per_rank), launches_per_rank=per_rank,
             launches_on=f"ring values check: 2-layer fp32 model on {VALUES_MESH}, {RING_LABEL}",
             shape="past hop B=4 H=8 S_local=1088 D=128 fp32", **measured(ring_rows["fp32"][name]),
+            tpsp_values_launches=[v[name] for v in ring_values["tpsp"]["launches"]],
+            tpsp_values_launches_on=f"ring values check's fourth arm: the 2-layer fp32 model on "
+                                    f"{TPSP_MESH}, {TPSP_LABEL}",
         ))
     total = time.perf_counter() - t0
     print("phase_seconds", json.dumps(phase_s), flush=True)

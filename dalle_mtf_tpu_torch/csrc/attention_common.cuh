@@ -29,8 +29,8 @@ struct Dropout {
   // The launch's heads are heads [head0, head0 + heads) of heads_total (a
   // tensor-parallel rank's block): program bh hashes with the index it has
   // in one launch over every head, (bh / heads) * heads_total + head0 +
-  // bh % heads. heads_total = heads and head0 = 0 give bh itself. The ring
-  // kernels add bh (they take no block of the heads).
+  // bh % heads. heads_total = heads and head0 = 0 give bh itself. The causal
+  // and the ring kernels all hash with it.
   int heads_total;
   int head0;
   // seed + that index, wrapping, as XLA's int32 add

@@ -10,8 +10,12 @@
 // key c is global col0 + c, and diff = row0 - col0. A score is masked where
 // (c - r) > diff (causal), where (r - c) + diff >= window (local window, when
 // window > 0), and where c >= Sk (the ragged last key tile). Hash dropout
-// keys on (row0 + r, col0 + c, seed + bh), the bits of
-// dalle_mtf_tpu/ops/attention.py::_dropout_keep, the same in both kernels.
+// keys on (row0 + r, col0 + c, Dropout::program_seed), the bits of
+// dalle_mtf_tpu/ops/attention.py::_dropout_keep, the same in both kernels:
+// the launch's heads are heads [head0, head0 + heads) of heads_total (a
+// tensor-parallel rank's block), so program bh = b * heads + h hashes with
+// seed + b * heads_total + head0 + h, the mask one launch over every head
+// draws on them (heads_total = heads, head0 = 0: seed + bh).
 //
 // ring_partial: num = sum_c exp(s - m) p_v v (unnormalised, fp32), m the row
 // max of the masked scores, l = sum_c exp(s - m) over the UNdropped weights;
@@ -141,10 +145,12 @@ using namespace dalle_attn;
 
 namespace {
 
-// The global hop: local sizes, the offsets and the window.
+// The global hop: local sizes, the offsets and the window, and the heads a
+// batch row holds in this launch (program bh = b * heads + h).
 struct Hop {
   int s_q, s_k;
   int diff, row0, col0, window;
+  int heads;
   // the causal and window bands (the kernels test the shard ends apart)
   __device__ __forceinline__ bool band_masked(int r, int c) const {
     return c - r > diff || (window > 0 && (r - c) + diff >= window);
@@ -173,9 +179,10 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-bool bad_shape(int bh, int s_q, int s_k) {
+bool bad_shape(int bh, int s_q, int s_k, int heads, int heads_total, int head0) {
   return bh <= 0 || s_q <= 0 || s_k <= 0 || (s_q + kBlock - 1) / kBlock > 65535 ||
-         (s_k + kBlock - 1) / kBlock > 65535;
+         (s_k + kBlock - 1) / kBlock > 65535 || heads <= 0 || bh % heads != 0 || head0 < 0 ||
+         head0 > heads_total - heads;
 }
 
 // ------------------------------------------- bf16: the tensor-core kernels
@@ -234,7 +241,7 @@ ring_partial_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwner;  // deepest tiles first
   const int64_t q_base = (int64_t)bh * hop.s_q * D;
   const int64_t k_base = (int64_t)bh * hop.s_k * D;
-  const uint32_t seed = drop.seed + (uint32_t)bh;  // wrapping, as XLA's int32 add
+  const uint32_t seed = drop.program_seed(bh, hop.heads);  // wrapping, as XLA's int32 add
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warp_row0 = warp * 16;  // this warp's first row of the tile
   const int row0 = q0 + warp_row0;  // and of the local shard
@@ -376,7 +383,7 @@ ring_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwner;  // deepest tiles first
   const int64_t q_base = (int64_t)bh * hop.s_q * D;
   const int64_t k_base = (int64_t)bh * hop.s_k * D;
-  const uint32_t seed = drop.seed + (uint32_t)bh;
+  const uint32_t seed = drop.program_seed(bh, hop.heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warp_row0 = warp * 16;  // this warp's first row of the tile
   const int row0 = q0 + warp_row0;  // and of the local shard
@@ -488,7 +495,7 @@ ring_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t q_base = (int64_t)bh * hop.s_q * D;
   const int64_t k_base = (int64_t)bh * hop.s_k * D;
   const int64_t row_base = (int64_t)bh * hop.s_q;
-  const uint32_t seed = drop.seed + (uint32_t)bh;
+  const uint32_t seed = drop.program_seed(bh, hop.heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warp_row0 = warp * 16;  // this warp's first key of the tile
   const int key0 = c0 + warp_row0;  // and of the visiting shard
@@ -704,7 +711,7 @@ ring_partial_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwner;  // deepest tiles first
   const int64_t q_base = (int64_t)bh * hop.s_q * D;
   const int64_t k_base = (int64_t)bh * hop.s_k * D;
-  const uint32_t seed = drop.seed + (uint32_t)bh;  // wrapping, as XLA's int32 add
+  const uint32_t seed = drop.program_seed(bh, hop.heads);  // wrapping, as XLA's int32 add
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int half = warp >> 2;             // this warp's group: its half of the streamed tile
   const int warp_row0 = (warp & 3) * 16;  // this warp's first row of the tile
@@ -806,7 +813,7 @@ ring_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwner;  // deepest tiles first
   const int64_t q_base = (int64_t)bh * hop.s_q * D;
   const int64_t k_base = (int64_t)bh * hop.s_k * D;
-  const uint32_t seed = drop.seed + (uint32_t)bh;
+  const uint32_t seed = drop.program_seed(bh, hop.heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int half = warp >> 2;             // this warp's group: its half of the streamed tile
   const int warp_row0 = (warp & 3) * 16;  // this warp's first row of the tile
@@ -912,7 +919,7 @@ ring_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t q_base = (int64_t)bh * hop.s_q * D;
   const int64_t k_base = (int64_t)bh * hop.s_k * D;
   const int64_t row_base = (int64_t)bh * hop.s_q;
-  const uint32_t seed = drop.seed + (uint32_t)bh;
+  const uint32_t seed = drop.program_seed(bh, hop.heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int half = warp >> 2;             // this warp's group: its half of the streamed tile
   const int warp_row0 = (warp & 3) * 16;  // this warp's first key of the tile
@@ -1090,16 +1097,20 @@ bool aligned8(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0;
 // fp32 [bh, s_q, head_dim] (8-byte aligned) and m, l fp32 [bh, s_q].
 // diff = row0 - col0; window <= 0: no local window. dropout != 0 enables the
 // hash dropout (keep when hash >> 8 < keep_threshold, kept weights times
-// keep_scale; program bh adds bh to the seed). Returns the cudaError_t of the
-// launch (0 on success).
+// keep_scale). The bh programs are (b, h) of bh / heads batch rows by heads
+// heads, which are heads [head0, head0 + heads) of heads_total for the
+// hash (Dropout::program_seed; heads_total = heads, head0 = 0 for a launch
+// over every head); a block that does not lie in heads_total, or heads that
+// do not divide bh, are refused. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int ring_partial(const void* q, const void* k, const void* v, void* num, void* m,
                             void* l, int bh, int s_q, int s_k, int head_dim, int dtype,
                             int diff, int row0, int col0, int window, int dropout,
                             unsigned int seed, unsigned int keep_threshold, float keep_scale,
-                            void* stream) {
-  if (bad_shape(bh, s_q, s_k)) return (int)cudaErrorInvalidValue;
-  const Hop hop{s_q, s_k, diff, row0, col0, window};
-  const Dropout drop{dropout != 0, seed, keep_threshold, keep_scale};
+                            int heads, int heads_total, int head0, void* stream) {
+  if (bad_shape(bh, s_q, s_k, heads, heads_total, head0)) return (int)cudaErrorInvalidValue;
+  const Hop hop{s_q, s_k, diff, row0, col0, window, heads};
+  const Dropout drop{dropout != 0, seed, keep_threshold, keep_scale, heads_total, head0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (!(mma::aligned16(q) && mma::aligned16(k) && mma::aligned16(v) && aligned8(num)))
@@ -1123,10 +1134,11 @@ extern "C" int ring_block_grads(const void* q, const void* k, const void* v,
                                 void* dq, void* dk_acc, void* dv_acc, int bh, int s_q,
                                 int s_k, int head_dim, int dtype, int diff, int row0,
                                 int col0, int window, int dropout, unsigned int seed,
-                                unsigned int keep_threshold, float keep_scale, void* stream) {
-  if (bad_shape(bh, s_q, s_k)) return (int)cudaErrorInvalidValue;
-  const Hop hop{s_q, s_k, diff, row0, col0, window};
-  const Dropout drop{dropout != 0, seed, keep_threshold, keep_scale};
+                                unsigned int keep_threshold, float keep_scale, int heads,
+                                int heads_total, int head0, void* stream) {
+  if (bad_shape(bh, s_q, s_k, heads, heads_total, head0)) return (int)cudaErrorInvalidValue;
+  const Hop hop{s_q, s_k, diff, row0, col0, window, heads};
+  const Dropout drop{dropout != 0, seed, keep_threshold, keep_scale, heads_total, head0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (!(mma::aligned16(q) && mma::aligned16(k) && mma::aligned16(v) && mma::aligned16(dout) &&

@@ -39,7 +39,12 @@ rank of a model group holds its block of the split leaves (``sharding``;
 heads, the MLP over its columns, joined by ``copy_to_model`` and
 ``reduce_from_model``; the embedding and both loss heads over its block of
 the vocabulary. The ranks of a group hold the same loss, and the trainer
-sums over the other axes only (``Mesh.replica_group``). Every dropout draws
+sums over the other axes only (``Mesh.replica_group``). Under ring
+attention the tensor-parallel axis composes with the sequence axis
+(``data:1,seq:2,model:2``): each rank runs the ring on its heads over its
+shard of the sequence, embeds and scores its shard's positions over its
+block of the vocabulary, and the trainer sums over the batch and sequence
+axes. Every dropout draws
 the single process's mask: the residual and embedding masks from the
 generator every rank shares, the attention hash with the rank's heads at
 their single-process program index (``head0``, ``heads_total``), and both at
@@ -196,9 +201,11 @@ class DalleConfig:
     arguments raises ValueError here. The ring's batch, sequence and heads
     axes and the pipe axis (``layers``) are read from the layout as in JAX;
     the tensor-parallel split and the pipeline come from the mesh's own
-    rules (``DALLE.sharding``, ``Mesh.pipe_axis``). A layout the port cannot
-    honour on more than one process (tensor parallelism under ring
-    attention, pipeline parallelism beside tensor parallelism or ring
+    rules (``DALLE.sharding``, ``Mesh.pipe_axis``); under ring attention a
+    tensor-parallel rank runs the ring on its block of the heads
+    (``ring_heads_axis`` names that axis, as in JAX; the block itself is
+    ``DALLE.heads``). A layout the port cannot honour on more than one
+    process (pipeline parallelism beside tensor parallelism or ring
     attention) raises when the mesh is built
     (``parallel.mesh.check_layout``). ``scan_unroll`` (no torch meaning) is
     accepted and ignored."""
@@ -890,12 +897,14 @@ class DALLE(nn.Module):
         drop = cfg.attention_dropout if seed is not None else 0.0
         if cfg.attention_type in ("ring", "local_ring"):
             # sequence parallel over the mesh's seq axis (one process: the
-            # [B, H, S, D] attention); offsets the seed to the rank's rows
+            # [B, H, S, D] attention) on this rank's heads; offsets the seed
+            # to the rank's rows, and the hash to its heads' place
             with checkpoint_name("qkv"):
                 q, k, v = self._qkv(p, a_in)
             a = ring_attention_auto(
                 q, k, v, self.mesh, cfg.ring_seq_axis, cfg.ring_batch_axis, self._window,
-                drop, seed, plain=not kernel_takes_head_dim(cfg.head_dim))
+                drop, seed, plain=not kernel_takes_head_dim(cfg.head_dim),
+                head0=self.heads[0], heads_total=cfg.n_heads)
             with checkpoint_name("attn_proj"):
                 a = self._attn_out(p, a)
             return self._block_tail(p, x, a, res_seeds, rows)

@@ -62,10 +62,11 @@ _SIGNATURES = {
     # kind (0 forward, 1 backward), e, dtype, rows a tile, out[5]
     "layer_norm_info": [_I] * 4 + [_P],
     # q, k, v, num, m, l; bh, s_q, s_k, head_dim, dtype, diff, row0, col0,
-    # window, dropout; seed, keep_threshold, keep_scale; stream
-    "ring_partial": [_P] * 6 + [_I] * 10 + [_U, _U, _F, _P],
+    # window, dropout; seed, keep_threshold, keep_scale; heads, heads_total,
+    # head0; stream
+    "ring_partial": [_P] * 6 + [_I] * 10 + [_U, _U, _F] + [_I] * 3 + [_P],
     # q, k, v, dout, lse, dsum, dq, dk_acc, dv_acc; then as ring_partial
-    "ring_block_grads": [_P] * 9 + [_I] * 10 + [_U, _U, _F, _P],
+    "ring_block_grads": [_P] * 9 + [_I] * 10 + [_U, _U, _F] + [_I] * 3 + [_P],
     # kind (0 forward, 1 dQ, 2 dK/dV), head_dim, tile_rows, dtype, out[4]
     "ring_attention_info": [_I, _I, _I, _I, _P],
 }

@@ -44,7 +44,12 @@ import math
 
 import torch
 
-from dalle_mtf_tpu_torch.ops.attention import NEG_INF, RING_FORWARD_TILES, dropout_keep
+from dalle_mtf_tpu_torch.ops.attention import (
+    NEG_INF,
+    RING_FORWARD_TILES,
+    dropout_keep,
+    program_seeds,
+)
 
 STREAM_TILE = 64  # rows of a streamed tile (keys in the forward and the dQ pass)
 TILE_ROWS = (64, 128)  # rows of the forward's q tile: 4 warps of one or two 16-row blocks
@@ -407,22 +412,19 @@ def _ring_tile_mask(q0, q_rows, c0, k_rows, diff, window, device):
     return i, j, mask
 
 
-def _ring_seeds(seed, b, h, device):
-    """The hash dropout's program seeds, seed + b*H + h: [B, H, 1, 1]."""
-    return (int(seed) + torch.arange(b * h, device=device)).reshape(b, h, 1, 1)
-
-
 def ring_partial_tiled_reference(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0,
-                                 split=None):
+                                 head0=0, heads_total=None, split=None):
     """One hop's forward as the kernels walk it, in plain torch: 64-row q
     tiles over the key tiles of ``ring_key_tile_range``, an online softmax
     in the log2 domain whose running max starts at the finite NEG_INF, the
     mask only on tiles ``ring_tile_needs_mask`` flags (a key at or beyond
     Sk scores -inf, so it adds nothing even to a row whose max is still
     NEG_INF), p_v rounded to v's dtype before its product, hash dropout at
-    (row0 + r, col0 + c, seed + bh). ``split`` takes both products as
-    ``split_matmul`` does, with the fp32 kernel's two warp groups a q tile
-    ("tf32x3": the fp32 forward; see ``_forward_walk``). Returns num fp32
+    (row0 + r, col0 + c, seed + b*heads_total + head0 + h: the heads are
+    [head0, head0 + H) of ``heads_total``, ``program_seeds``). ``split``
+    takes both products as ``split_matmul`` does, with the fp32 kernel's
+    two warp groups a q tile ("tf32x3": the fp32 forward; see
+    ``_forward_walk``). Returns num fp32
     [B, H, Sq, D] and m, l fp32 [B*H, Sq]; m = m2 ln 2, and a row with no
     live key keeps m = NEG_INF itself, l = the count of its visited keys
     below Sk and num = their sum of p_v v."""
@@ -432,7 +434,7 @@ def ring_partial_tiled_reference(q, k, v, diff, row0, col0, window=None, rate=0.
     qf = _pad_rows(q, -(-s_q // rows) * rows).float()
     kf, vf = (_pad_rows(t, -(-s_k // STREAM_TILE) * STREAM_TILE).float() for t in (k, v))
     scale_log2 = _LOG2E / math.sqrt(d)
-    seeds = _ring_seeds(seed, b, h, q.device) if rate > 0.0 else None
+    seeds = program_seeds(seed, b, h, q.device, head0, heads_total) if rate > 0.0 else None
     num = torch.zeros((b, h, qf.shape[2], d), dtype=torch.float32, device=q.device)
     m = torch.full((b, h, qf.shape[2]), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
@@ -463,7 +465,7 @@ def ring_partial_tiled_reference(q, k, v, diff, row0, col0, window=None, rate=0.
 
 
 def ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, diff, row0, col0, window=None,
-                                     rate=0.0, seed=0, split=None):
+                                     rate=0.0, seed=0, head0=0, heads_total=None, split=None):
     """One hop's gradient as the tensor-core kernels walk it, in plain
     torch: a dQ pass (64-row q tiles over ``ring_key_tile_range``) and a
     dK/dV pass (64-key tiles over ``ring_query_tile_range``), each
@@ -471,8 +473,9 @@ def ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, diff, row0, col0, wi
     masking only where ``ring_tile_needs_mask`` says (with ``ragged_rows`` in
     the dK/dV pass), ds and p_v rounded to the input dtype before their
     products, each of the five products taken as ``split_matmul`` takes it
-    with ``split`` ("tf32x3": the fp32 kernels). Returns dq in q's dtype and
-    dk, dv fp32 [B, H, Sk, D], as ``ring_block_grads_reference``."""
+    with ``split`` ("tf32x3": the fp32 kernels); the dropout's heads as in
+    ``ring_partial_tiled_reference``. Returns dq in q's dtype and dk, dv
+    fp32 [B, H, Sk, D], as ``ring_block_grads_reference``."""
     b, h, s_q, d = q.shape
     s_k = k.shape[2]
     tile = STREAM_TILE
@@ -483,7 +486,7 @@ def ring_block_grads_tiled_reference(q, g, lse, dsum, k, v, diff, row0, col0, wi
     dsum_p = torch.nn.functional.pad(dsum.reshape(b, h, s_q), (0, pad))
     scale = 1.0 / math.sqrt(d)
     inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
-    seeds = _ring_seeds(seed, b, h, q.device) if rate > 0.0 else None
+    seeds = program_seeds(seed, b, h, q.device, head0, heads_total) if rate > 0.0 else None
 
     def mm(a, b):
         return split_matmul(a, b, split)

@@ -28,6 +28,12 @@ the window's band) is skipped (``_live_shard``).
 - ``ring_attention_auto``: the model's entry. Without a ``seq`` axis of
   size > 1 it is ``causal_attention`` (the JAX semantics: sampling and
   single-device runs compute the same function in one piece).
+
+Every function here takes a block of the heads: q, k, v hold heads [head0,
+head0 + H) of ``heads_total`` (a tensor-parallel rank's block; default all
+of them), and program (b, h) hashes its dropout with seed + b*heads_total +
+head0 + h (``ops.attention.program_seeds``), the mask one process draws on
+those heads.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch.distributed as dist
 from dalle_mtf_tpu_torch.ops.attention import (
     KERNEL_DTYPES,
     NEG_INF,
+    _head_args,
     _on_cpu,
     attention_reference,
     causal_attention,
@@ -47,6 +54,7 @@ from dalle_mtf_tpu_torch.ops.attention import (
     dense_for_kernels,
     dropout_args,
     dropout_keep,
+    program_seeds,
 )
 
 # Launches of the two ring kernels, counted where (and only where) each is
@@ -67,20 +75,22 @@ def _masks(s_q, s_k, diff, window, device):
     return r, c, mask
 
 
-def _keep(r, c, row0, col0, seed, bh, rate):
-    """The hash dropout's keep bits at global (row0 + r, col0 + c) for
-    programs seed + [0, bh): [bh, Sq, Sk] bool."""
-    seeds = (int(seed) + torch.arange(bh, device=r.device)).reshape(bh, 1, 1)
+def _keep(r, c, row0, col0, seed, b, h, rate, head0=0, heads_total=None):
+    """The hash dropout's keep bits at global (row0 + r, col0 + c) for the
+    programs (b, h) of heads [head0, head0 + h) of ``heads_total``
+    (``program_seeds``): [b, h, Sq, Sk] bool."""
+    seeds = program_seeds(seed, b, h, r.device, head0, heads_total)
     return dropout_keep(r + row0, c + col0, seeds, rate)
 
 
-def ring_partial_reference(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0):
+def ring_partial_reference(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0,
+                           head0=0, heads_total=None):
     """The plain version of one hop, with the TPU kernel's math in one shot.
 
     q [B, H, Sq, D]; k, v [B, H, Sk, D]. Scores in fp32 scaled by D^-0.5,
     masked scores REPLACED by NEG_INF, m = rowmax, p = exp(s - m), l = sum p
     (undropped); p_v = p, or with hash dropout keep ? p / (1 - rate) : 0
-    keyed on (row0 + r, col0 + c, seed + b*H + h); num = (p_v cast to v's
+    keyed on (row0 + r, col0 + c, seed + b*heads_total + head0 + h); num = (p_v cast to v's
     dtype) @ v in fp32. Returns num fp32 [B, H, Sq, D] and m, l fp32
     [B*H, Sq]. A row with no live key gets m = NEG_INF, l = Sk, num = sum v
     (the fold discards it)."""
@@ -94,14 +104,14 @@ def ring_partial_reference(q, k, v, diff, row0, col0, window=None, rate=0.0, see
     l = p.sum(-1)
     p_v = p
     if rate > 0.0:
-        keep = _keep(r, c, row0, col0, seed, b * h, rate).reshape(b, h, s_q, s_k)
+        keep = _keep(r, c, row0, col0, seed, b, h, rate, head0, heads_total)
         p_v = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
     num = torch.matmul(p_v.to(v.dtype).float(), v.float())
     return num, m.reshape(b * h, s_q), l.reshape(b * h, s_q)
 
 
 def ring_block_grads_reference(q, g, lse, dsum, k, v, diff, row0, col0, window=None,
-                               rate=0.0, seed=0):
+                               rate=0.0, seed=0, head0=0, heads_total=None):
     """The plain version of one hop's gradient (the TPU kernel's math).
 
     q, g [B, H, Sq, D]; k, v [B, H, Sk, D]; lse, dsum fp32 [B*H, Sq].
@@ -118,7 +128,7 @@ def ring_block_grads_reference(q, g, lse, dsum, k, v, diff, row0, col0, window=N
     dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
     p_v = p
     if rate > 0.0:
-        keep = _keep(r, c, row0, col0, seed, b * h, rate).reshape(b, h, s_q, s_k)
+        keep = _keep(r, c, row0, col0, seed, b, h, rate, head0, heads_total)
         inv = 1.0 / (1.0 - rate)
         dp = torch.where(keep, dp * inv, 0.0)
         p_v = torch.where(keep, p * inv, 0.0)
@@ -153,13 +163,17 @@ def _check_rows(name, q, **tensors):
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def ring_partial(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0):
+def ring_partial(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0, head0=0,
+                 heads_total=None):
     """One hop's (num fp32 [B, H, Sq, D], m, l fp32 [B*H, Sq]): the kernel on
     CUDA tensors, the plain version on CPU ones. ``seed`` is the program
-    seed of (b, h) = (0, 0); program bh adds bh. A view off 16 bytes is
-    copied first (``ops/attention.py``)."""
+    seed of (b, h) = (0, 0) of one launch over all ``heads_total`` heads,
+    of which q, k, v hold [head0, head0 + H); program (b, h) adds b *
+    heads_total + head0 + h. A view off 16 bytes is copied first
+    (``ops/attention.py``)."""
     if _on_cpu(q, k, v):
-        return ring_partial_reference(q, k, v, diff, row0, col0, window, rate, seed)
+        return ring_partial_reference(q, k, v, diff, row0, col0, window, rate, seed, head0,
+                                      heads_total)
     q, k, v = dense_for_kernels(q, k, v)
     _check_hop("ring_partial", q, k, v)
     from dalle_mtf_tpu_torch.ops._build import library  # noqa: PLC0415
@@ -175,7 +189,8 @@ def ring_partial(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), num.data_ptr(), m.data_ptr(),
             l.data_ptr(), b * h, s_q, s_k, d, KERNEL_DTYPES[q.dtype], int(diff),
             int(row0), int(col0), -1 if window is None else int(window),
-            *dropout_args(rate, seed), torch.cuda.current_stream(q.device).cuda_stream)
+            *dropout_args(rate, seed), h, *_head_args(h, head0, heads_total),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_partial launch failed: cudaError {err}")
     KERNEL_LAUNCHES["ring_partial"] += 1
@@ -183,26 +198,27 @@ def ring_partial(q, k, v, diff, row0, col0, window=None, rate=0.0, seed=0):
 
 
 def add_block_grads_reference(q, g, lse, dsum, k, v, dk_acc, dv_acc, diff, row0, col0,
-                              window=None, rate=0.0, seed=0):
+                              window=None, rate=0.0, seed=0, head0=0, heads_total=None):
     """``ring_block_grads`` by its plain version, on any device: returns dq
     and adds dk, dv into the accumulators."""
     dq, dk, dv = ring_block_grads_reference(q, g, lse, dsum, k, v, diff, row0, col0, window,
-                                            rate, seed)
+                                            rate, seed, head0, heads_total)
     dk_acc += dk
     dv_acc += dv
     return dq
 
 
 def ring_block_grads(q, g, lse, dsum, k, v, dk_acc, dv_acc, diff, row0, col0,
-                     window=None, rate=0.0, seed=0):
+                     window=None, rate=0.0, seed=0, head0=0, heads_total=None):
     """One hop's gradient: returns dq of the hop in q's dtype and adds dk
     and dv into the fp32 accumulators ``dk_acc``, ``dv_acc`` [B, H, Sk, D]
     in place. The kernel (a dQ launch and a dK/dV launch, no atomics) on
     CUDA tensors, the plain version on CPU ones. Inputs off 16 bytes are
-    copied first; the accumulators, which the kernel adds into, are not."""
+    copied first; the accumulators, which the kernel adds into, are not.
+    ``seed``, ``head0`` and ``heads_total`` as in ``ring_partial``."""
     if _on_cpu(q, g, k, v):
         return add_block_grads_reference(q, g, lse, dsum, k, v, dk_acc, dv_acc, diff, row0,
-                                         col0, window, rate, seed)
+                                         col0, window, rate, seed, head0, heads_total)
     q, g, k, v = dense_for_kernels(q, g, k, v)
     _check_hop("ring_block_grads", q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
@@ -229,6 +245,7 @@ def ring_block_grads(q, g, lse, dsum, k, v, dk_acc, dv_acc, diff, row0, col0,
             dsum.data_ptr(), dq.data_ptr(), dk_acc.data_ptr(), dv_acc.data_ptr(),
             b * h, s_q, k.shape[2], d, KERNEL_DTYPES[q.dtype], int(diff), int(row0),
             int(col0), -1 if window is None else int(window), *dropout_args(rate, seed),
+            h, *_head_args(h, head0, heads_total),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_block_grads launch failed: cudaError {err}")
@@ -276,10 +293,11 @@ def ring_shift(tensors, ring: Ring):
     return [dst.to(dev) if staged else dst for dst, dev, staged in outs]
 
 
-def _fold_forward(q, k, v, ring: Ring, window, rate, seed, plain):
+def _fold_forward(q, k, v, ring: Ring, window, rate, seed, plain, head0=0, heads_total=None):
     """(out in q's dtype, fp32 lse [B*H, S_local]): the fp32 fold of the
     live hops' partial triples (JAX ``_ring_fwd_impl``); ``plain`` takes
-    the hops' plain versions."""
+    the hops' plain versions. q, k, v hold heads [head0, head0 + H) of
+    ``heads_total``."""
     partial = ring_partial_reference if plain else ring_partial
     b, h, s_local, d = q.shape
     my = ring.index
@@ -290,8 +308,8 @@ def _fold_forward(q, k, v, ring: Ring, window, rate, seed, plain):
     for hop in range(ring.n):
         src = (my - hop) % ring.n
         if _live_shard(src, my, s_local, window):
-            num, m_cur, l_cur = partial(q, k_cur, v_cur, (my - src) * s_local,
-                                             my * s_local, src * s_local, window, rate, seed)
+            num, m_cur, l_cur = partial(q, k_cur, v_cur, (my - src) * s_local, my * s_local,
+                                        src * s_local, window, rate, seed, head0, heads_total)
             m_new = torch.maximum(m, m_cur)
             alpha, beta = torch.exp(m - m_new), torch.exp(m_cur - m_new)
             acc = acc * alpha.reshape(b, h, s_local, 1) + num * beta.reshape(b, h, s_local, 1)
@@ -304,11 +322,13 @@ def _fold_forward(q, k, v, ring: Ring, window, rate, seed, plain):
     return out, m + torch.log(l_safe)
 
 
-def _ring_backward(q, k, v, out, lse, g, ring: Ring, window, rate, seed, plain):
+def _ring_backward(q, k, v, out, lse, g, ring: Ring, window, rate, seed, plain, head0=0,
+                   heads_total=None):
     """dq, dk, dv: the backward ring (JAX ``_ring_pallas_bwd``). dsum is one
     reduction outside the kernels; k, v and their fp32 dk, dv accumulators
     rotate together, so after n hops dk and dv are home and summed.
-    ``plain`` takes the hops' plain versions."""
+    ``plain`` takes the hops' plain versions; the heads as in
+    ``_fold_forward``."""
     block_grads = add_block_grads_reference if plain else ring_block_grads
     b, h, s_local, d = q.shape
     my = ring.index
@@ -321,9 +341,9 @@ def _ring_backward(q, k, v, out, lse, g, ring: Ring, window, rate, seed, plain):
     for hop in range(ring.n):
         src = (my - hop) % ring.n
         if _live_shard(src, my, s_local, window):
-            dq += block_grads(q, g, lse, dsum, k_cur, v_cur, dk, dv,
-                                   (my - src) * s_local, my * s_local, src * s_local,
-                                   window, rate, seed).float()
+            dq += block_grads(q, g, lse, dsum, k_cur, v_cur, dk, dv, (my - src) * s_local,
+                              my * s_local, src * s_local, window, rate, seed, head0,
+                              heads_total).float()
         if hop < ring.n - 1:
             k_cur, v_cur, dk, dv = ring_shift((k_cur, v_cur, dk, dv), ring)
         else:
@@ -336,47 +356,61 @@ class _RingAttention(torch.autograd.Function):
     out and the fp32 lse, as the JAX custom VJP does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, ring, window, rate, seed, plain):
-        out, lse = _fold_forward(q, k, v, ring, window, rate, seed, plain)
+    def forward(ctx, q, k, v, ring, window, rate, seed, plain, head0, heads_total):
+        out, lse = _fold_forward(q, k, v, ring, window, rate, seed, plain, head0, heads_total)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (ring, window, rate, seed, plain)
+        ctx.args = (ring, window, rate, seed, plain, head0, heads_total)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _ring_backward(q, k, v, out, lse, g, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def ring_seed(dropout_seed: int, mesh, batch_axis: str | None, rows: int,
+              heads_total: int) -> int:
+    """The seed of program (0, 0) of this rank's launches: ``dropout_seed``
+    offset by its first global batch row b0 = (index on ``batch_axis``) *
+    ``rows``, times ``heads_total`` (JAX ``ring_attention_auto``'s
+    ``axis_index(batch) * bl * h_total``; the heads' offset head0 is the
+    kernels' own)."""
+    return int(dropout_seed) + (mesh.index(batch_axis) * rows * heads_total if mesh else 0)
 
 
 def ring_attention_auto(q, k, v, mesh=None, seq_axis: str = "seq",
                         batch_axis: str | None = "data", window=None,
                         dropout_rate: float = 0.0, dropout_seed: int | None = None,
-                        plain: bool = False):
+                        plain: bool = False, head0: int = 0, heads_total: int | None = None):
     """The model's entry (``attention_type`` "ring"/"local_ring"): q, k, v
-    are this rank's [B, H, S_local, D] shard. With a ``mesh`` whose
-    ``seq_axis`` has size > 1 it runs the ring; otherwise it is
-    ``causal_attention`` over the whole sequence, the same function.
-    ``plain`` (the model's choice at a head dim the kernels do not take:
-    ``kernel_takes_head_dim``) runs the plain versions instead, on any
-    device.
+    are this rank's [B, H, S_local, D] shard, its heads [head0, head0 + H)
+    of ``heads_total`` (default H: every head; a tensor-parallel rank's
+    block, ``DALLE.heads``). With a ``mesh`` whose ``seq_axis`` has size > 1
+    it runs the ring; otherwise it is ``causal_attention`` over the whole
+    sequence, the same function. ``plain`` (the model's choice at a head dim
+    the kernels do not take: ``kernel_takes_head_dim``) runs the plain
+    versions instead, on any device.
 
     The dropout seed is offset by the rank's global batch row b0 =
-    (index on ``batch_axis``) * B, so that program (b, h) uses
-    dropout_seed + (b0 + b)*H + h, as a single process would."""
+    (index on ``batch_axis``) * B (``ring_seed``), so that program (b, h)
+    uses dropout_seed + (b0 + b)*heads_total + head0 + h, as a single
+    process would (as JAX's ``ring_attention_auto`` offsets its seed and
+    its kernels hash with ``heads_total``)."""
     rate = float(dropout_rate) if dropout_seed is not None else 0.0
+    total, head0 = _head_args(q.shape[1], head0, heads_total)  # the block lies in the heads
     seed = None
     if rate > 0.0:
-        b, h = q.shape[:2]
-        seed = int(dropout_seed) + (mesh.index(batch_axis) * b * h if mesh else 0)
+        seed = ring_seed(dropout_seed, mesh, batch_axis, q.shape[0], total)
     if mesh is None or mesh.size(seq_axis) == 1:
         if plain:
-            return attention_reference(q, k, v, True, window, False, rate, seed)
-        return causal_attention(q, k, v, window=window, dropout_rate=rate, dropout_seed=seed)
+            return attention_reference(q, k, v, True, window, False, rate, seed, head0, total)
+        return causal_attention(q, k, v, window=window, dropout_rate=rate, dropout_seed=seed,
+                                head0=head0, heads_total=total)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     ring = Ring(mesh.group(seq_axis), mesh.ranks(seq_axis), mesh.index(seq_axis))
-    args = (ring, window, rate, seed or 0, plain)
+    args = (ring, window, rate, seed or 0, plain, head0, total)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _RingAttention.apply(q, k, v, *args)
     return _fold_forward(q, k, v, *args)[0]

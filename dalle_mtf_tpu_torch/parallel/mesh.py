@@ -19,7 +19,11 @@ columns), pipeline parallelism over one axis that carries ``layers`` alone
 (the GPipe schedule: parallel/pipeline.py), and axes that carry no layout
 dim at all: such an axis only replicates, as under GSPMD. Its ranks read
 the same rows, draw the same noise and hold the same values, so nothing is
-summed over it. ``check_layout`` refuses the rest at world size > 1.
+summed over it. Data, sequence and tensor parallelism compose in one step
+(``data:2,seq:2,model:2``): the ring runs over a rank's block of the heads,
+the gradients are summed over the batch and sequence axes, and the ranks of
+a model group hold one loss. ``check_layout`` refuses the rest at world
+size > 1.
 ``leaf_split`` says which dim of a parameter the tensor-parallel axis splits
 and where this rank's block lies.
 """
@@ -165,11 +169,11 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
     ``intermediate_expanded``, ``vocab_dim`` and ``tokens_dim`` and nothing
     else, on one axis only), the layer stack (``layers`` and nothing else:
     pipeline parallelism), or no layout dim at all (an axis that only
-    replicates). Refused: ``layers`` beside another dim on its axis,
+    replicates). A tensor-parallel axis may sit beside the ring's sequence
+    axis ("TP x SP"). Refused: ``layers`` beside another dim on its axis,
     pipeline parallelism with a tensor-parallel axis ("PP x TP", ROADMAP
     queue 1 item 5c-ii) or under ring attention ("PP x SP", item 5c-iii),
-    tensor parallelism under ring attention ("TP x SP", item 5g) and a rule
-    on the VAE's ``vae_hid_dim`` or conv dims (item 5h)."""
+    and a rule on the VAE's ``vae_hid_dim`` or conv dims (item 5h)."""
     batch_axis = rules.get(BATCH) or "data"
     seq_axis = rules.get(SEQ) or "seq"
     ring = attention_type in ("ring", "local_ring")
@@ -198,9 +202,6 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
                        f"{dims})")
     if len(tensor) > 1:
         refused.append(f"tensor parallelism over more than one mesh axis {tensor}")
-    if tensor and ring:
-        refused.append(f"TP x SP: not ported (tensor parallelism over {tensor[0]!r} with "
-                       f"attention_type {attention_type!r}; ROADMAP queue 1 item 5g)")
     if pipe and tensor:
         refused.append(f"PP x TP: not ported (pipeline parallelism over {pipe[0]!r} with "
                        f"tensor parallelism over {tensor[0]!r}; ROADMAP queue 1 item 5c-ii)")
@@ -328,7 +329,10 @@ class Mesh:
     ``block_copy_ranks`` the same without it, the copies of this rank's
     blocks of the split leaves (with a ``pipe_axis``, the copies of its
     stage's layers: ``copy_group`` itself). The trainer makes each set of
-    copies one (``Trainer._agree``).
+    copies one (``Trainer._agree``). Under ring attention beside a
+    ``tp_axis`` (``data:1,seq:2,model:2``) the sequence axis is a data axis:
+    the copies of a replicated leaf are this rank's model group, and a block
+    of a split leaf has no copy (``block_copy_group`` None).
     """
 
     def __init__(self, axes: Sequence[tuple[str, int]], rank: int = 0, world: int = 1,

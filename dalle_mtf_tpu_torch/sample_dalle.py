@@ -26,9 +26,12 @@ to the world as ``train_dalle`` resizes them, place the ranks: each rank
 reads only its blocks of the checkpoint (the file mapped, a block copied
 out of it) and quantizes after sharding, as the root CLI does; every model
 group decodes the whole batch, and rank 0 alone decodes the pixels and
-writes the PNGs. A layout the port does not run (here: pipeline
-parallelism, ROADMAP queue 1 item 5c-iv) raises before the process group is
-joined.
+writes the PNGs. Sampling never runs the ring: under ring attention the
+prefill and the decode attend over the rank's heads (as JAX's
+``causal_attention_tp``), so a sequence axis beside the model axis
+(``data:1,seq:2,model:2``) only copies the model group. A layout the port
+does not run (here: pipeline parallelism, ROADMAP queue 1 item 5c-iv)
+raises before the process group is joined.
 """
 
 from __future__ import annotations

@@ -18,8 +18,12 @@ and ``vocab_dim`` (``configs/dalle_coco.json``'s ``data:16,model:2`` runs on
 device and the backend), and pipeline parallelism over an axis carrying
 ``layers`` (``mesh_shape: "pipe:2,data:2"``, ``layout:
 "batch_dim:data,layers:pipe"`` on 4 ranks: each stage holds half the
-layers; ``pipeline_microbatches``, default the pipe size). Under tensor
-parallelism ``predict_steps`` samples on the blocks of rank 0's model group
+layers; ``pipeline_microbatches``, default the pipe size). Tensor
+parallelism composes with the ring's sequence axis (``mesh_shape:
+"data:1,seq:2,model:2"``, ``layout: "batch_dim:data,total_seq_dim:seq,
+heads_dim:model,intermediate_expanded:model,vocab_dim:model"`` on 4 ranks:
+each rank runs the ring on its 4 of 8 heads over half the sequence). Under
+tensor parallelism ``predict_steps`` samples on the blocks of rank 0's model group
 (``train/predict.py``); under pipeline parallelism it raises at start-up
 (ROADMAP queue 1 item 5c-iv).
 
@@ -110,8 +114,8 @@ def _train(args, proc) -> Trainer:
     if params["vae_params"] is None:
         raise ValueError("vae model config must be supplied (vae_model key)")
     setup_logging(params["config_name"] or args.model, rank=proc.rank)
-    # the ranks' layout; one the port does not run (TP under ring attention,
-    # PP beside TP or ring attention) raises here at world size > 1
+    # the ranks' layout; one the port does not run (PP beside TP or ring
+    # attention) raises here at world size > 1
     mesh = build_mesh(params.get("mesh_shape"), params.get("layout"),
                       params.get("attention_type") or "global", proc.rank, proc.world)
     if params.get("predict_steps"):

@@ -15,7 +15,8 @@ against the JAX package, on the CPU with 4 gloo ranks.
   single-process run (``data:1,seq:4``: the same rows) within 1e-5, or an
   unbroken 4-rank run bit for bit (``data:2,seq:2``).
 - Layouts the port cannot honour raise at world size > 1; tensor-parallel
-  and pipeline ones build a mesh (PP x SP and PP x TP raise).
+  and pipeline ones build a mesh, and tensor parallelism beside the ring's
+  sequence axis (TP x SP) does (PP x SP and PP x TP raise).
 """
 
 import json
@@ -189,36 +190,43 @@ def test_train_dalle_data2_seq2_resume_equals_unbroken_run(tmp_path):
     ("data:2,model:2", "batch_dim:data,vocab_dim:model", "tensor"),
     ("pipe:2,data:2", "batch_dim:data,layers:pipe", "pipe"),
     ("data:2,model:2", "batch_dim:data", "replicate"),  # an axis that only replicates
-    ("data:1,seq:2,model:2", "batch_dim:data,total_seq_dim:seq,heads_dim:model", "refused"),
+    ("data:1,seq:2,model:2", "batch_dim:data,total_seq_dim:seq,heads_dim:model", "tpsp"),
     ("pipe:2,model:2", "batch_dim:data,layers:pipe,heads_dim:model", "refused"),
 ])
 def test_tp_and_pp_layouts_raise_above_one_process(mesh_shape, layout, kind):
     """Tensor-parallel layouts build a mesh (a fake 4-rank process group)
-    under global attention, and raise under ring attention (TP x SP); a
+    under global and ring attention; TP beside the ring's sequence axis
+    (TP x SP) builds under ring attention, its sequence axis summed over
+    (2 replicas) and its model group the copies of a replicated leaf, and
+    raises under global attention (a sequence axis needs the ring); a
     pipeline layout builds a mesh with its pipe axis, 2 replicas and the
     rank's stage under global attention, and raises under ring attention
     (PP x SP); an axis that only replicates builds under either, with the
-    batch axis's 2 replicas; TP beside a sequence axis and PP beside TP
-    (PP x TP) raise under either."""
+    batch axis's 2 replicas; PP beside TP (PP x TP) raises under either."""
     from test_torch_tp_dalle import fake_world
 
     for attention in ("global", "ring"):
-        if kind == "replicate" or (kind in ("tensor", "pipe") and attention == "global"):
+        if kind in ("replicate", "tensor") or (kind, attention) in (("pipe", "global"),
+                                                                   ("tpsp", "ring")):
             with fake_world(4):
                 mesh = tmesh.build_mesh(mesh_shape, layout, attention, rank=0, world=4)
-                assert mesh.tp_axis == ("model" if kind == "tensor" else None)
+                assert mesh.tp_axis == ("model" if kind in ("tensor", "tpsp") else None)
                 assert mesh.pipe_axis == ("pipe" if kind == "pipe" else None)
                 assert mesh.replicas == 2
                 if kind == "pipe":
                     assert (mesh.stage, mesh.stages, mesh.pipe_ranks) == (0, 2, [0, 2])
+                if kind == "tpsp":
+                    assert (mesh.copy_ranks, mesh.block_copy_ranks) == ([0, 1], None)
         else:
             with pytest.raises(NotImplementedError, match="not ported"):
                 tmesh.build_mesh(mesh_shape, layout, attention, rank=0, world=4)
         # one process: every axis resizes to 1, one device, accepted
         assert tmesh.build_mesh(mesh_shape, layout, attention).world == 1
-    if kind == "tensor":
-        with pytest.raises(NotImplementedError, match="TP x SP"):
-            tmesh.build_mesh(mesh_shape, layout, "ring", rank=0, world=4)
+    if kind in ("tensor", "tpsp"):  # TP x SP is ported: the ring mesh's data axes
+        with fake_world(4):
+            mesh = tmesh.build_mesh(mesh_shape, layout, "ring", rank=0, world=4)
+            assert tmesh.data_axes(mesh.rules, "ring") == ("data", "seq")
+            assert mesh.copies == 2
     if kind == "pipe":
         with pytest.raises(NotImplementedError, match="PP x SP.*5c-iii"):
             tmesh.build_mesh(mesh_shape, layout, "ring", rank=0, world=4)

@@ -324,9 +324,9 @@ def test_gumbel_draw_does_not_depend_on_the_layout(block):
 def test_check_layout_refuses_what_stays_in_the_roadmap(layout, what):
     with pytest.raises(NotImplementedError, match=f"queue 1 item {what}"):
         tmesh.check_layout([("data", 2), ("model", 2)], tmesh.parse_layout(layout))
-    with pytest.raises(NotImplementedError, match="item 5g"):
-        tmesh.check_layout([("data", 1), ("seq", 2), ("model", 2)],
-                           tmesh.parse_layout("total_seq_dim:seq,tokens_dim:model"), "ring")
-    # accepted: the codebook split, and an axis no rule names
+    # accepted: the codebook split, an axis no rule names, and a tensor-parallel
+    # axis beside the ring's sequence axis (TP x SP, ported)
+    tmesh.check_layout([("data", 1), ("seq", 2), ("model", 2)],
+                       tmesh.parse_layout("total_seq_dim:seq,tokens_dim:model"), "ring")
     for ok in ("batch_dim:data,tokens_dim:model", "batch_dim:data"):
         tmesh.check_layout([("data", 2), ("model", 2)], tmesh.parse_layout(ok))

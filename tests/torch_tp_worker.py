@@ -16,11 +16,13 @@ vocabulary, on a ``data:1,model:m`` mesh of the whole world.
 blocks, gathered over the model group or the pipeline and summed over the
 shares: a stage's layers over the replicas, the other leaves over the
 replicas and the stages) on the case's mesh and layout, the batch rows split
-over the data axis; with ``steps``, that many optimizer steps instead (the
-config's optimizer with its clip and ``skip_nonfinite_updates``), and the
-whole parameters and losses after them (a ``replicated`` case's layout
-splits nothing); with ``trainer``, the steps are ``Trainer.train_step``s of
-``make_dalle_task``'s train loss on the case's ``task`` config and
+over the data axis (with ``draws``, the model's dropout seeds are those
+numbers in turn instead of its generator's); with ``steps``, that many
+optimizer steps instead (the config's optimizer with its clip and
+``skip_nonfinite_updates``), and the whole parameters and losses after them
+(a ``replicated`` case's layout splits nothing); with ``trainer``, the
+steps are ``Trainer.train_step``s of ``make_dalle_task``'s train loss on
+the case's ``task`` config (its mesh, layout and attention type) and
 ``tokens``/``caption`` batch. On a pipe mesh every rank's stage, layers and
 head rows come back, and whether it logged the head's warning.
 ``train``: ``train_dalle.main`` on each case's argv in turn, in one process
@@ -146,6 +148,21 @@ def _pipe_report(model, loss_batch, warnings):
 def dalle_step(case, proc):
     if case.get("trainer"):
         return trainer_steps(case, proc)
+    draws = case.get("draws")
+    if draws is None:
+        return _dalle_step(case, proc)
+    # the dropout seeds the case gives, in the order the model draws them
+    from dalle_mtf_tpu_torch.models import dalle as tdalle  # noqa: PLC0415
+
+    given, draw = iter(draws), tdalle._draw_seed
+    tdalle._draw_seed = lambda _gen: next(given)
+    try:
+        return _dalle_step(case, proc)
+    finally:
+        tdalle._draw_seed = draw
+
+
+def _dalle_step(case, proc):
     cfg = DalleConfig(**case["config"])
     mesh = build_mesh(case["mesh_shape"], case["layout"], cfg.attention_type, proc.rank,
                       proc.world)
@@ -204,7 +221,8 @@ def trainer_steps(case, proc):
     from dalle_mtf_tpu_torch.utils.config import Config  # noqa: PLC0415
 
     params = Config.from_mapping(case["task"])
-    mesh = build_mesh(params["mesh_shape"], params["layout"], "global", proc.rank, proc.world)
+    mesh = build_mesh(params["mesh_shape"], params["layout"],
+                      params.get("attention_type") or "global", proc.rank, proc.world)
     dalle, _, init_fn, loss_fn, _ = make_dalle_task(params, "cpu", mesh)
     tree = convert.shard_dalle_params(case["params"], dalle)
     for _, t in named_leaves(tree):
