@@ -228,17 +228,26 @@ Phases, none of them optional:
      holds step s and tokens/s (labelled as four ranks on one card), the
      bytes a hop, the staged and collective bytes a rank, the bubble and
      the peak memory a rank;
-   - ``phase_train_vae_dp``: VAE data parallelism, after fp32 values checks
-     at vae_coco's width on 8 rows (``data:2`` on 2 ranks and
-     ``data:2,model:2`` with ``tokens_dim:model``, the codebook split, on 4,
-     each against one process: losses 1e-5, eval metrics 1e-4 relative,
+   - ``phase_train_vae_dp``: VAE data and tensor parallelism, after fp32
+     values checks at vae_coco's width on 8 rows (``data:2`` on 2 ranks;
+     on 4, in one launch, ``data:2,model:2`` with ``conv_cout`` +
+     ``tokens_dim`` and with ``conv_cin`` + ``vae_hid_dim``, the convs split
+     by channels beside the codebook by columns or rows; each
+     against one process: losses 1e-5, eval metrics 1e-4 relative,
      gradients within relative L2 1e-2, measured 2.5e-3 on a conv bias; the
-     codebook split's 4 ranks at cuDNN's default, non-deterministic
-     algorithms, whose copies of the replicated convs must still end with
-     one value in each model group): configs/vae_coco.json as published
-     (batch 128, 64 rows a rank) on 2 ranks through ``train_vae.main`` for 4
-     steps with evals and checkpoints at 2 and 4; its
-     "train_vae_dp" line holds step s, images/s, the gradient bytes a rank a
+     4 ranks at cuDNN's default, non-deterministic algorithms, whose copies
+     of the replicated leaves must still end with one value in each model
+     group): configs/vae_coco.json as published (batch 128, 64 rows a rank)
+     on 2 ranks through ``train_vae.main`` for 4 steps with evals and
+     checkpoints at 2 and 4, then in the same launch vae_coco on
+     ``data:1,model:2`` with ``conv_cout`` + ``tokens_dim``, 4 rows, for 2
+     steps, an eval and a checkpoint, its collective bytes a step equal to
+     what the code implies and its checkpoint, read back whole by one
+     process, equal to the ranks' gathered blocks, then a run of 1 step and
+     its resume to 2, bit-equal to it (the ranks restore their conv blocks
+     and moments); its "train_vae_tp" line
+     holds step s, images/s, the TP bytes a rank a step, peak memory a rank,
+     the "train_vae_dp" line step s, images/s, the gradient bytes a rank a
      step, peak memory a rank and the data-wait share;
    - ``phase_train_12b_tp``: configs/dalle_12B.json's published
      ``data:16,model:8`` as ``data:1,model:8`` on 8 ranks, cut to 1 of 38
@@ -372,8 +381,8 @@ data-parallel and sharded serving phases, started by them through
 ``run_ranks`` with the environment ``torch.distributed.run`` would give it.
 
 Prints "kernel", "train", "memory_options_values", "loss_head",
-"loss_head_steps", "head", "train_12b", "train_tp", "train_pp", "train_vae_dp",
-"train_12b_tp", "train_vae",
+"loss_head_steps", "head", "train_12b", "train_tp", "train_pp", "train_vae_tp",
+"train_vae_dp", "train_12b_tp", "train_vae",
 "train_image", "batch", "decode_profile" and "continuous_chunk" JSON lines,
 then each phase's seconds ("phase_seconds") and the whole run's against its
 1000 s budget,
@@ -2812,7 +2821,9 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
     checksum of
     its parameters and moments at the end and just after a restore, the
     seconds and host memory of the model's init and of each checkpoint
-    save, the training stream's waits)."""
+    save, the training stream's waits; of a ``train_vae`` run that splits
+    the VAE, a checksum of the whole parameters gathered from the model
+    group's blocks)."""
     import importlib  # noqa: PLC0415
 
     import torch.distributed as dist  # noqa: PLC0415
@@ -2932,6 +2943,10 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
             run = module.main(run_argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            gathered = None
+            if cli == "train_vae" and run.sharding is not None:  # every rank's blocks, whole
+                gathered = state_digest(torch, {"params": run.sharding.gather_tree(
+                    run.state["params"])})
             with open(os.path.join(out_dir, f"rank{rank}_{i}.json"), "w") as f:
                 json.dump(dict(rank=rank, history=run.history, eval_history=run.eval_history,
                                checkpoints=run.checkpoint_steps(), wall_s=wall,
@@ -2944,6 +2959,7 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
                                pipe_staged_bytes=pipeline.STAGED_BYTES["pipeline"],
                                peak_mem_gb=torch.cuda.max_memory_allocated(0) / 1e9,
                                params_sha256=state_digest(torch, run.state),
+                               gathered_params_sha256=gathered,
                                state_sha256=state_digest(torch, run.state, True)
                                if with_moments else None,
                                data_waits=streams[-1].waits if streams else None,
@@ -3941,15 +3957,29 @@ def phase_train_pp(torch, card) -> list[dict]:
 # ----------------------------------- VAE data parallelism and 12B's model:8
 
 VAE_DP_CONFIG = "vae_coco"
-VAE_DP_RANKS, VAE_DP_CODEBOOK_RANKS = 2, 4
+VAE_DP_RANKS, VAE_TP_VALUES_RANKS = 2, 4
 VAE_DP_STEPS, VAE_DP_SPLIT, VAE_DP_TIMED_FROM = 4, 2, 2  # steps 2..4 of the unbroken run timed
 VAE_DP_LABEL = TP_LABEL
-VAE_DP_CODEBOOK_LABEL = TP_VALUES_LABEL
-# the values check: the published width in fp32, 8 rows, 2 steps; data:2 on
-# 2 ranks and the codebook split on 4, each against one process
+VAE_TP_VALUES_LABEL = TP_VALUES_LABEL
+# the values check: the published width in fp32, 8 rows, 2 steps, each arm
+# against one process: data:2 on 2 ranks; on 4, in one launch, the convs
+# split by output channels beside the codebook's columns (so the codebook's
+# column split is held too) and by input channels beside its rows
 VAE_DP_VALUES_ROWS, VAE_DP_VALUES_STEPS = 8, 2
-VAE_DP_VALUES = (("data:2", "batch_dim:data"),
-                 ("data:2,model:2", "batch_dim:data,tokens_dim:model"))
+VAE_DP_VALUES = ("data:2", "batch_dim:data")
+VAE_TP_VALUES = (("data:2,model:2", "batch_dim:data,conv_cout:model,tokens_dim:model"),
+                 ("data:2,model:2", "batch_dim:data,conv_cin:model,vae_hid_dim:model"))
+# the training arm: vae_coco in bf16 on data:1,model:2 (2 ranks), the convs
+# by output channels and the codebook by columns, VAE_TP_ROWS of the
+# published 128 rows (each rank runs every row: the activation gathers of
+# a step grow with them; 8 rows took 3.4-6.4 s a step through gloo, and the
+# three runs below did not fit the phase's time at that), VAE_TP_STEPS
+# steps, an eval and a checkpoint; then a run of VAE_TP_SPLIT steps and its
+# resume to VAE_TP_STEPS, which must repeat it bit for bit (the ranks
+# restore their blocks and moments)
+VAE_TP_LAYOUT = VAE_TP_VALUES[0][1]
+VAE_TP_MESH = "data:1,model:2"
+VAE_TP_ROWS, VAE_TP_STEPS, VAE_TP_SPLIT = 4, 2, 1
 # the same arithmetic in another order (cuDNN takes its algorithm by the batch
 # it is given; relu gates at 0 move a bias gradient): losses and metrics
 # relative 1e-5 and 1e-4, each gradient within relative L2 1e-2, the bound of
@@ -3957,15 +3987,22 @@ VAE_DP_VALUES = (("data:2", "batch_dim:data"),
 VAE_DP_TOL = dict(loss=1e-5, grad_rel_l2=1e-2, metric=1e-4)
 
 
+def _contiguous(tree):
+    """Every leaf of ``tree`` dense (a rank's block of a split leaf is a
+    strided view)."""
+    return {k: _contiguous(v) if isinstance(v, dict) else v.contiguous() for k, v in tree.items()}
+
+
 def vae_values_run(torch, params, mesh, tree, images) -> dict:
     """VAE_DP_VALUES_STEPS ``Trainer.train_step``s of the VAE task on
     ``mesh`` (None: one process) from the whole ``tree`` on this rank's rows
     of ``images`` (on the host: the trainer moves them), then
     ``Trainer.eval_step``: the losses, the last step's
-    gradients (whole: a split codebook gathered), the eval metrics. The
+    gradients (whole: every split leaf gathered), the eval metrics. The
     Gumbel draw is the trainer's own, keyed on the global rows, so every
-    layout draws one process's noise. ``replicated_sha256``: the digest of
-    the replicated leaves (every leaf but a split codebook) after the
+    layout draws one process's noise. ``step_s``, ``eval_s``: each step's
+    and the eval's seconds (host clock; a step ends in a host read). ``replicated_sha256``: the digest of
+    the replicated leaves (every leaf the layout does not split) after the
     steps."""
     from dalle_mtf_tpu_torch.parallel.tensor import gather  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.optim import get_optimizer, named_leaves  # noqa: PLC0415
@@ -3975,7 +4012,7 @@ def vae_values_run(torch, params, mesh, tree, images) -> dict:
     vae, init_fn, loss_fn, eval_fn = make_vae_task(params, "cuda", mesh)
     sharding = vae.sharding
     tree = _to(sharding.shard_tree(tree) if sharding else tree, "cuda")
-    tree = {k: (v.contiguous() if k == "codebook" else v) for k, v in tree.items()}
+    tree = _contiguous(tree)
     for _, t in named_leaves(tree):
         t.requires_grad_(True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_vae_values_")
@@ -3987,29 +4024,41 @@ def vae_values_run(torch, params, mesh, tree, images) -> dict:
         n, i = (mesh.size("data"), mesh.index("data")) if mesh else (1, 0)
         rows = images.shape[0] // n
         batch = {"image": images[i * rows:(i + 1) * rows]}
-        losses = []
+        losses, step_s = [], []
         for step in range(VAE_DP_VALUES_STEPS):
+            t0 = time.perf_counter()
             state, metrics = trainer.train_step(state, batch, step_generator(0, 1, step))
             losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t0)
         grads = {"/".join(p): gather(t.grad, sharding.of(p) if sharding else None,
                                      sharding.group if sharding else None).cpu()
                  for p, t in named_leaves(tree)}
-        metrics = trainer.eval_step(state, batch, step_generator(0, 2, 0))
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in trainer.eval_step(
+            state, batch, step_generator(0, 2, 0)).items()}
+        eval_s = time.perf_counter() - t0
         trainer.close()
         replicated = {"params": {"/".join(p): t for p, t in named_leaves(tree)
                                  if sharding is None or sharding.of(p) is None}}
-        return dict(losses=losses, grads=grads, eval={k: float(v) for k, v in metrics.items()},
-                    replicated_sha256=state_digest(torch, replicated))
+        return dict(losses=losses, grads=grads, eval=metrics,
+                    replicated_sha256=state_digest(torch, replicated), step_s=step_s,
+                    eval_s=eval_s)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def vae_values_file(mesh_shape: str, layout: str) -> str:
+    """The file name of a values arm's results."""
+    return "values_" + "".join(c if c.isalnum() else "_" for c in f"{mesh_shape}_{layout}") + ".pt"
 
 
 def vae_values_rank(torch, proc, out_dir, mesh_shape: str, layout: str) -> None:
     """One rank of phase_train_vae_dp's values check, in the process group
     that is up: ``vae_values_run`` on ``mesh_shape`` and ``layout`` from
-    <out_dir>/inputs.pt (fp32: TF32 off); rank 0 writes <out_dir>/values.pt
-    with every rank's model-group ranks (``Mesh.copy_ranks``) and digest of
-    its replicated leaves, and whether cuDNN ran deterministic."""
+    <out_dir>/inputs.pt (fp32: TF32 off); rank 0 writes
+    <out_dir>/``vae_values_file`` with every rank's model-group ranks
+    (``Mesh.copy_ranks``) and digest of its replicated leaves, and whether
+    cuDNN ran deterministic."""
     import torch.distributed as dist  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch.parallel.mesh import build_mesh  # noqa: PLC0415
@@ -4024,13 +4073,14 @@ def vae_values_rank(torch, proc, out_dir, mesh_shape: str, layout: str) -> None:
     if proc.rank == 0:
         torch.save(dict(res, replicas=mesh.replicas, tp_axis=mesh.tp_axis, copies=copies,
                         cudnn_deterministic=torch.backends.cudnn.deterministic),
-                   os.path.join(out_dir, "values.pt"))
+                   os.path.join(out_dir, vae_values_file(mesh_shape, layout)))
     dist.barrier()
 
 
 def worker_vae_values(torch, out_dir, argv):
-    """``--ring-worker vae_values <out_dir> <mesh_shape> <layout>``:
-    ``vae_values_rank`` in a process group of its own, cuDNN at its default
+    """``--ring-worker vae_values <out_dir> <mesh_shape> <layout>
+    [<mesh_shape> <layout> ...]``: ``vae_values_rank`` on each pair in turn
+    in one process group of its own, cuDNN at its default
     (non-deterministic algorithms allowed): the ranks of a model group
     compute the replicated convs' gradients each on its own, and the
     trainer must still leave them one value."""
@@ -4040,7 +4090,10 @@ def worker_vae_values(torch, out_dir, argv):
 
     proc = init_distributed(["0"], "cuda")
     try:
-        vae_values_rank(torch, proc, out_dir, argv[0], argv[1])
+        for mesh_shape, layout in zip(argv[0::2], argv[1::2]):
+            vae_values_rank(torch, proc, out_dir, mesh_shape, layout)
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
@@ -4057,6 +4110,66 @@ def vae_values_errors(got: dict, want: dict) -> dict:
     return dict(loss=loss, metric=metric, grad_rel_l2=grad)
 
 
+def vae_tp_expected_bytes(cfg, rows: int, m: int) -> dict:
+    """The collective bytes a rank moves in one training step of
+    ``models/vae.py`` on VAE_TP_LAYOUT (every conv split by output
+    channels where they divide by ``m``, the codebook by columns) over
+    ``data:1,model:m`` with ``rows`` rows, a soft Gumbel sample, from the
+    code, by the trainer's kinds (``worker_train``):
+
+    - "model", the forward and backward's: a conv whose input is split
+      gathers it whole (``gather_from_model``, the whole tensor's bytes),
+      and a conv split by output channels sums its input's gradient over
+      the group (``copy_to_model``'s all_reduce; not the image's, which has
+      none); under ``recompute_grad`` a residual block's forward runs again
+      in the backward, and with it both its gathers; the features are
+      gathered before the codebook product (compute dtype) and the
+      product's input gradient summed (fp32); the Gumbel softmax's max
+      (forward) and sum (forward and backward) of [rows, g, g, 1] fp32; the
+      decoder's partial product summed over the tokens ([rows, g, g, n_hid]
+      fp32); the final conv (3 channels: whole) gathers its input;
+    - "gradient_sum": none (one data rank);
+    - "after": the replicated leaves' gradients broadcast (the final conv's
+      kernel and bias, fp32) and the global norm's square sum (4 bytes);
+      the metrics are not summed (one share)."""
+    e = 2 if cfg.use_bf16 else 4
+    side = cfg.image_size // cfg.stack_factor
+    fwd = bwd = 0
+
+    def conv(c_in, c_out, s_in, split, grad=True, recomputed=False):
+        nonlocal fwd, bwd
+        whole = rows * c_in * s_in * s_in * e
+        if split:
+            fwd += whole * (2 if recomputed else 1)
+        if c_out % m == 0:
+            bwd += whole if grad else 0
+            return True
+        return False
+
+    def stack(blocks, c, s, split, up):
+        for b, (n, channels) in enumerate(blocks):
+            split = conv(c, channels, s, split, grad=up or b > 0)
+            c, s = channels, s * 2 if up else s // 2
+            for _ in range(1, n):
+                out = conv(c, c, s, split, recomputed=cfg.recompute_grad)
+                split = conv(c, c, s, out, recomputed=cfg.recompute_grad)
+        return c, s, split
+
+    _c, g, split = stack(cfg.convblocks, cfg.n_channels * cfg.stack_factor ** 2, side, False,
+                         False)
+    cells = rows * g * g
+    fwd += cells * cfg.n_hid * e if split else 0  # the features gathered
+    bwd += cells * cfg.n_hid * 4  # their fp32 gradient summed
+    fwd += 2 * cells * 4  # the softmax's max and sum
+    bwd += cells * 4  # the sum's gradient
+    fwd += cells * cfg.n_hid * 4  # the decoder's product summed over the tokens
+    c, s, split = stack(tuple(reversed(cfg.convblocks)), cfg.n_hid, g, False, True)
+    conv(c, cfg.n_channels * cfg.stack_factor ** 2, s, split)
+    replicated = (c * cfg.n_channels * cfg.stack_factor ** 2 + cfg.n_channels
+                  * cfg.stack_factor ** 2) * 4
+    return {"model": fwd + bwd, "gradient_sum": 0, "after": replicated + 4}
+
+
 def rank_report(out_dir: str, rank: int, run: int) -> dict:
     """What ``worker_train`` wrote for ``rank`` in run ``run``."""
     with open(os.path.join(out_dir, f"rank{rank}_{run}.json")) as f:
@@ -4068,8 +4181,7 @@ def vae_dp_config(tmp: str, pattern: str, run: str, train_steps: int, **over) ->
     recompute_grad, batch 128) over ``pattern``, ``train_steps`` steps with
     a checkpoint and an eval every VAE_DP_SPLIT, every step logged, in
     ``tmp/<run>``; the learning rate decays over VAE_DP_STEPS whatever
-    ``train_steps`` is (its default end), so a shorter run and its resume
-    follow the unbroken run's schedule."""
+    ``train_steps`` is (its default end)."""
     from dalle_mtf_tpu_torch.utils.config import _resolve_config_path  # noqa: PLC0415
 
     with open(_resolve_config_path(VAE_DP_CONFIG)) as f:
@@ -4084,6 +4196,90 @@ def vae_dp_config(tmp: str, pattern: str, run: str, train_steps: int, **over) ->
     return path
 
 
+def check_vae_tp(torch, card, ranks, split, resumed, path) -> dict:
+    """The VAE TP training arm of phase_train_vae_dp from its ranks' reports:
+    VAE_TP_STEPS logged steps with one finite loss on every rank, an eval
+    and a checkpoint at the last, each step's collective bytes by kind equal
+    to ``vae_tp_expected_bytes``, and the checkpoint read back whole on
+    this process (``utils/restore.py``, on the card) equal to the ranks'
+    gathered blocks; the run of VAE_TP_SPLIT steps (``split``) and its
+    resume (``resumed``) log the unbroken run's losses bit for bit and end
+    with its parameters (the gathered blocks' digest), so the ranks restored
+    their blocks and moments. Prints and returns the "train_vae_tp" line."""
+    from dalle_mtf_tpu_torch.models.vae import DiscreteVAE, VAEConfig  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.restore import restore_vae_params  # noqa: PLC0415
+
+    params = fetch_model_params(path)
+    cfg = VAEConfig.from_params(params)
+    steps = list(range(1, VAE_TP_STEPS + 1))
+    for r in ranks:
+        hist = r["history"]
+        if [h["step"] for h in hist] != steps or not all(math.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"VAE TP rank {r['rank']} logged {hist}")
+        if [h["loss"] for h in hist] != [h["loss"] for h in ranks[0]["history"]]:
+            raise AssertionError("VAE TP: the ranks logged different losses")
+    evals = ranks[0]["eval_history"]
+    if [e["step"] for e in evals] != [VAE_TP_STEPS] or not all(
+            math.isfinite(v) for e in evals for v in e.values()):
+        raise AssertionError(f"VAE TP eval: {evals}")
+    if ranks[0]["checkpoints"] != [VAE_TP_STEPS]:
+        raise AssertionError(f"VAE TP checkpoints {ranks[0]['checkpoints']}")
+    for part, want_steps in ((split, steps[:VAE_TP_SPLIT]), (resumed, steps[VAE_TP_SPLIT:])):
+        for r in part:
+            if [h["step"] for h in r["history"]] != want_steps:
+                raise AssertionError(f"VAE TP split/resume rank {r['rank']} logged {r['history']}")
+    for r, q, u in zip(split, resumed, ranks):
+        again = [h["loss"] for h in r["history"] + q["history"]]
+        if again != [h["loss"] for h in u["history"]]:
+            raise AssertionError(f"VAE TP rank {r['rank']}: the resume does not repeat the "
+                                 f"unbroken run bit for bit: {again} vs {u['history']}")
+        if q["gathered_params_sha256"] != u["gathered_params_sha256"]:
+            raise AssertionError(f"VAE TP rank {r['rank']}: the resumed run ends with other "
+                                 "parameters than the unbroken run")
+    m = int(VAE_TP_MESH.split("model:")[1])
+    want = vae_tp_expected_bytes(cfg, VAE_TP_ROWS, m)
+    kinds = [r["collective_bytes_by_kind_per_step"] for r in ranks]
+    if any(k != want for r in kinds for k in r) or any(len(r) != VAE_TP_STEPS for r in kinds):
+        raise AssertionError(f"VAE TP collective bytes a step {kinds}, expected {want}")
+    vae = DiscreteVAE(cfg, "cuda")
+    t0 = time.perf_counter()
+    restored = restore_vae_params(vae, params["model_path"])
+    read_s = time.perf_counter() - t0
+    digest = state_digest(torch, {"params": restored})
+    if digest != ranks[0]["gathered_params_sha256"]:
+        raise AssertionError("VAE TP: the checkpoint read on one process differs from the "
+                             "ranks' gathered parameters")
+    del restored, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = [1.0 / h["steps_per_sec"] for h in ranks[0]["history"]]
+    line = dict(
+        phase="train_vae_tp", card=card, config=VAE_DP_CONFIG, label=TP_LABEL, ranks=m,
+        mesh_shape=VAE_TP_MESH, layout=VAE_TP_LAYOUT, rows=VAE_TP_ROWS,
+        published_rows=fetch_model_params(VAE_DP_CONFIG)["train_batch_size"],
+        image_size=cfg.image_size, convblocks=cfg.convblocks, bf16=cfg.use_bf16,
+        recompute_grad=cfg.recompute_grad,
+        timing="train_vae.main, log_every 1 (a sync every step), cudnn.deterministic; step 1 "
+               "includes the first call's set-up",
+        step_s=step_s, images_per_s=VAE_TP_ROWS / step_s[-1],
+        tp_bytes_per_rank_per_step=[[k["model"] for k in r] for r in kinds],
+        tp_bytes_expected=want["model"],
+        gradient_sum_bytes_per_rank_per_step=[[k["gradient_sum"] for k in r] for r in kinds],
+        after_bytes_per_rank_per_step=[[k["after"] for k in r] for r in kinds],
+        after_bytes_expected=want["after"],
+        collective_bytes_per_rank_per_step=[r["collective_bytes_per_step"] for r in ranks],
+        peak_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+        losses=[h["loss"] for h in ranks[0]["history"]], evals=evals,
+        checkpoint_read_s=read_s, checkpoint_equals_gathered=True,
+        resumed_at=VAE_TP_SPLIT, resume_bit_equal=True,
+        split_wall_s=split[0]["wall_s"], resume_wall_s=resumed[0]["wall_s"],
+        wall_s=ranks[0]["wall_s"],
+    )
+    print("train_vae_tp", json.dumps(line), flush=True)
+    return line
+
+
 def phase_train_vae_dp(torch, card) -> dict:
     """VAE data parallelism: configs/vae_coco.json as published (256 px,
     convblocks [[2,128],[3,256],[5,512]], 2048 tokens, bf16, recompute_grad,
@@ -4091,14 +4287,22 @@ def phase_train_vae_dp(torch, card) -> dict:
     seeded JPEG tfrecords phase_train_vae writes, through
     ``run_ranks`` of VAE_DP_RANKS ranks sharing the card (64 rows
     a rank) and ``train_vae.main``: VAE_DP_STEPS steps with an eval and a
-    checkpoint every VAE_DP_SPLIT, then in the same launch a run of
-    VAE_DP_SPLIT steps and its resume to VAE_DP_STEPS, whose losses must
-    equal the unbroken run's bit for bit (cuDNN deterministic). Before it,
-    the values check in fp32 at the published width: ``data:2`` on 2 ranks
-    and ``data:2,model:2`` with ``tokens_dim:model`` on 4, each against one
-    process on the same 8 rows (VAE_DP_TOL). Prints the "train_vae_dp"
-    line: step s, images/s, the gradient bytes a rank a step, peak GB a
-    rank, the data-wait share."""
+    checkpoint every VAE_DP_SPLIT (cuDNN deterministic), then in the same
+    launch VAE tensor parallelism: vae_coco in bf16 on VAE_TP_MESH with
+    VAE_TP_LAYOUT (the convs by output channels, the codebook by columns),
+    VAE_TP_ROWS rows, VAE_TP_STEPS steps, an eval and a checkpoint, whose
+    collective bytes a step must equal ``vae_tp_expected_bytes`` and whose
+    checkpoint, read back whole on this process, must equal the ranks'
+    gathered blocks; then a run of VAE_TP_SPLIT steps and its resume, which
+    must repeat the TP run's losses and end with its parameters bit for bit
+    (``check_vae_tp``).
+    Before it, the values check in fp32 at the published width: ``data:2``
+    on 2 ranks, and on 4 the two VAE_TP_VALUES arms (``data:2,model:2``, the
+    conv splits beside the codebook's), each against one process on the
+    same 8 rows (VAE_DP_TOL). Prints the "train_vae_tp" line (step
+    s, images/s, the TP bytes a rank a step against the prediction, peak GB
+    a rank) and the "train_vae_dp" line: step s, images/s, the gradient
+    bytes a rank a step, peak GB a rank, the data-wait share."""
     from dalle_mtf_tpu_torch.models.vae import VAEConfig  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.tasks import make_vae_task  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
@@ -4123,14 +4327,16 @@ def phase_train_vae_dp(torch, card) -> dict:
         torch.cuda.empty_cache()
 
         def check_values(shape, layout, ranks):
-            got = torch.load(os.path.join(tmp, "values.pt"), weights_only=False)
+            got = torch.load(os.path.join(tmp, vae_values_file(shape, layout)),
+                             weights_only=False)
             errs = vae_values_errors(got, one)
             groups = {tuple(g) for g, _ in got["copies"] if g}
-            values[shape] = dict(layout=layout, ranks=ranks, replicas=got["replicas"],
+            values[f"{shape} {layout}"] = dict(ranks=ranks, replicas=got["replicas"],
                                  tp_axis=got["tp_axis"], losses=got["losses"],
                                  one_process_losses=one["losses"], eval=got["eval"],
                                  one_process_eval=one["eval"], errors=errs,
                                  cudnn_deterministic=got["cudnn_deterministic"],
+                                 step_s=got["step_s"], eval_s=got["eval_s"],
                                  model_groups=sorted(groups),
                                  replicated_sha256=[d for _, d in got["copies"]])
             for g in groups:
@@ -4143,20 +4349,26 @@ def phase_train_vae_dp(torch, card) -> dict:
                                      f"tolerances {VAE_DP_TOL}")
 
         values = {}
-        (dp_shape, dp_layout), (cb_shape, cb_layout) = VAE_DP_VALUES
+        dp_shape, dp_layout = VAE_DP_VALUES
+        t0 = time.perf_counter()
         run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "vae_values", tmp,
-                   cb_shape, cb_layout], 600, VAE_DP_CODEBOOK_RANKS)
-        check_values(cb_shape, cb_layout, VAE_DP_CODEBOOK_RANKS)
+                   *(a for arm in VAE_TP_VALUES for a in arm)], 600, VAE_TP_VALUES_RANKS)
+        values_wall = time.perf_counter() - t0
+        for shape, layout in VAE_TP_VALUES:
+            check_values(shape, layout, VAE_TP_VALUES_RANKS)
 
         pattern = write_image_dataset(os.path.join(tmp, "data"), 3,
                                       [(cfg.image_size, cfg.image_size)])
-        runs = [vae_dp_config(tmp, pattern, "unbroken", VAE_DP_STEPS),
-                vae_dp_config(tmp, pattern, "split", VAE_DP_SPLIT),
-                vae_dp_config(tmp, pattern, "split", VAE_DP_STEPS)]
+        tp_over = dict(mesh_shape=VAE_TP_MESH, layout=VAE_TP_LAYOUT,
+                       train_batch_size=VAE_TP_ROWS, eval_batch_size=VAE_TP_ROWS)
+        tp_path = vae_dp_config(tmp, pattern, "tp", VAE_TP_STEPS, **tp_over)
+        runs = [vae_dp_config(tmp, pattern, "unbroken", VAE_DP_STEPS), tp_path,
+                vae_dp_config(tmp, pattern, "tp_split", VAE_TP_SPLIT, **tp_over),
+                vae_dp_config(tmp, pattern, "tp_split", VAE_TP_STEPS, **tp_over)]
         argv = []
         for i, path in enumerate(runs):
             argv += (["--then"] if argv else []) + ["--model", path, "--gpu_ids", "0"] + (
-                ["--new", "--yes"] if i < 2 else [])
+                ["--new", "--yes"] if i < 3 else [])
         # the data:2 values check first, in the training launch's group
         t0 = time.perf_counter()
         run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "train_vae", tmp,
@@ -4164,26 +4376,21 @@ def phase_train_vae_dp(torch, card) -> dict:
         wall = time.perf_counter() - t0
         check_values(dp_shape, dp_layout, VAE_DP_RANKS)
         print(f"train_vae_dp values (fp32, {VAE_DP_VALUES_ROWS} rows, {VAE_DP_VALUES_STEPS} "
-              f"steps + eval): {json.dumps(values)}", flush=True)
+              f"steps + eval; the 4-rank launch {values_wall:.1f}s): {json.dumps(values)}",
+              flush=True)
         out_dir = tmp
         reports = [[rank_report(out_dir, r, i) for r in range(VAE_DP_RANKS)]
                    for i in range(len(runs))]
-        unbroken, split, resumed = reports
-        for ranks, steps in ((unbroken, range(1, VAE_DP_STEPS + 1)),
-                             (split, range(1, VAE_DP_SPLIT + 1)),
-                             (resumed, range(VAE_DP_SPLIT + 1, VAE_DP_STEPS + 1))):
-            for r in ranks:
-                if [h["step"] for h in r["history"]] != list(steps):
-                    raise AssertionError(f"rank {r['rank']} logged {r['history']}")
-                if [h["loss"] for h in r["history"]] != [h["loss"] for h in ranks[0]["history"]]:
-                    raise AssertionError("the ranks logged different losses")
-                if not all(math.isfinite(h["loss"]) for h in r["history"]):
-                    raise AssertionError(f"non-finite loss: {r['history']}")
+        unbroken, tp, tp_split, tp_resumed = reports
+        check_vae_tp(torch, card, tp, tp_split, tp_resumed, tp_path)
+        for r in unbroken:
+            if [h["step"] for h in r["history"]] != list(range(1, VAE_DP_STEPS + 1)):
+                raise AssertionError(f"rank {r['rank']} logged {r['history']}")
+            if [h["loss"] for h in r["history"]] != [h["loss"] for h in unbroken[0]["history"]]:
+                raise AssertionError("the ranks logged different losses")
+            if not all(math.isfinite(h["loss"]) for h in r["history"]):
+                raise AssertionError(f"non-finite loss: {r['history']}")
         losses = [h["loss"] for h in unbroken[0]["history"]]
-        again = [h["loss"] for h in split[0]["history"] + resumed[0]["history"]]
-        if again != losses:
-            raise AssertionError(f"the resume does not repeat the unbroken run bit for bit: "
-                                 f"{again} vs {losses}")
         evals = unbroken[0]["eval_history"]
         if [e["step"] for e in evals] != list(range(VAE_DP_SPLIT, VAE_DP_STEPS + 1,
                                                      VAE_DP_SPLIT)) or not all(
@@ -4215,8 +4422,9 @@ def phase_train_vae_dp(torch, card) -> dict:
                                                 for r in unbroken],
             peak_gb_per_rank=[r["peak_mem_gb"] for r in unbroken],
             data_wait_share_per_rank=wait_share, losses=losses, evals=evals,
-            resume_bit_equal=True, wall_s=wall, n_params=n_params, values=values,
-            values_label=f"data:2 {VAE_DP_LABEL}; data:2,model:2 {VAE_DP_CODEBOOK_LABEL}",
+            wall_s=wall, n_params=n_params, values=values,
+            values_label=f"data:2 {VAE_DP_LABEL}; data:2,model:2 {VAE_TP_VALUES_LABEL}",
+            values_launch_s=values_wall,
         )
         print("train_vae_dp", json.dumps(line), flush=True)
         return line

@@ -35,7 +35,7 @@ _M32 = 0xFFFFFFFF
 _MIX = 0x45D9F3B
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
+def mix32(x: torch.Tensor) -> torch.Tensor:
     """A bijection of [0, 2^32) on int64 ``x``, in place: two xorshift-
     multiply rounds and a last xorshift, every product masked to 32 bits."""
     for _ in range(2):
@@ -72,10 +72,10 @@ def gumbel_uniform(shape, generator: torch.Generator, device, block=None) -> tor
         raise ValueError(f"a row of {mid} x {cols} values exceeds the hash's 2^32 counter")
     seed = base_seed(generator)
     rows = torch.arange(row0, row0 + grid[0], device=device) ^ (seed & _M32)
-    row_key = _mix32(_mix32(rows) ^ (seed >> 32))
+    row_key = mix32(mix32(rows) ^ (seed >> 32))
     cell = (torch.arange(mid, device=device)[:, None] * cols
             + torch.arange(col0, col0 + grid[-1], device=device))
-    x = _mix32(_mix32(cell)[None] ^ row_key[:, None, None])
+    x = mix32(mix32(cell)[None] ^ row_key[:, None, None])
     return uniform_from_bits(x >> 8).reshape(shape)
 
 

@@ -14,8 +14,10 @@ Of the layouts the JAX package honours, the port runs data parallelism over
 the ``batch_dim`` axis, sequence parallelism (ring attention) over the
 ``total_seq_dim`` axis, tensor parallelism over one axis that carries any
 of ``heads_dim``, ``intermediate_expanded`` and ``vocab_dim`` (the Megatron
-split: parallel/tensor.py) or the VAE's ``tokens_dim`` (its codebook's
-columns), pipeline parallelism over one axis that carries ``layers`` alone
+split: parallel/tensor.py) or the VAE's ``tokens_dim`` and ``vae_hid_dim``
+(its codebook's columns and rows) and conv dims (``conv_cout``,
+``conv_cin``, ``conv_kh``, ``conv_kw``: models/vae.py), pipeline
+parallelism over one axis that carries ``layers`` alone
 (the GPipe schedule: parallel/pipeline.py), and axes that carry no layout
 dim at all: such an axis only replicates, as under GSPMD. Its ranks read
 the same rows, draw the same noise and hold the same values, so nothing is
@@ -23,7 +25,9 @@ summed over it. Data, sequence and tensor parallelism compose in one step
 (``data:2,seq:2,model:2``): the ring runs over a rank's block of the heads,
 the gradients are summed over the batch and sequence axes, and the ranks of
 a model group hold one loss. ``check_layout`` refuses the rest at world
-size > 1.
+size > 1, and a layout under which one leaf would carry a mesh axis twice
+(two conv dims, or ``vae_hid_dim`` beside ``tokens_dim``, on one axis:
+JAX's ``PartitionSpec`` raises ``DuplicateSpecError`` there).
 ``leaf_split`` says which dim of a parameter the tensor-parallel axis splits
 and where this rank's block lies.
 """
@@ -51,7 +55,10 @@ TOKENS = "tokens_dim"
 VAE_HID = "vae_hid_dim"
 CONV_DIMS = ("conv_kh", "conv_kw", "conv_cin", "conv_cout")
 # the logical dims a tensor-parallel axis may carry
-TENSOR_DIMS = (HEADS, INTERMEDIATE, VOCAB, TOKENS)
+TENSOR_DIMS = (HEADS, INTERMEDIATE, VOCAB, TOKENS, VAE_HID, *CONV_DIMS)
+# the dims that lie on one leaf (a conv kernel, the codebook): a mesh axis
+# may split at most one of each group
+LEAF_DIMS = (CONV_DIMS, (VAE_HID, TOKENS))
 # columns of a vocabulary block: each rank's block is a multiple of this, as
 # the JAX xent pads V (dalle_mtf_tpu/ops/xent_fused.py)
 VOCAB_LANES = 128
@@ -109,9 +116,8 @@ def resize_axes(axes: Sequence[tuple[str, int]], n: int) -> list[tuple[str, int]
 
 
 def tensor_axis(axes: Sequence[tuple[str, int]], rules: dict[str, str]) -> str | None:
-    """The mesh axis of size > 1 that the layout's ``heads_dim``,
-    ``intermediate_expanded``, ``vocab_dim`` or ``tokens_dim`` rule names
-    (the first such), or None."""
+    """The mesh axis of size > 1 that a rule on one of ``TENSOR_DIMS``
+    names (the first such), or None."""
     for name, size in axes:
         if size > 1 and any(rules.get(d) == name for d in TENSOR_DIMS):
             return name
@@ -151,13 +157,22 @@ def data_axes(rules: dict[str, str], attention_type: str = "global") -> tuple[st
 
 # what check_layout says of a dim it refuses, with the ROADMAP item that
 # would port it
-_REFUSED = {
-    SEQ: "sequence parallelism without ring attention",
-    VAE_HID: "VAE tensor parallelism over vae_hid_dim or conv channels (ROADMAP queue 1 "
-             "item 5h)",
-    **{d: "VAE tensor parallelism over vae_hid_dim or conv channels (ROADMAP queue 1 item 5h)"
-       for d in CONV_DIMS},
-}
+_REFUSED = {SEQ: "sequence parallelism without ring attention"}
+
+
+def duplicate_axes(axes: Sequence[tuple[str, int]], rules: dict[str, str]) -> list[str]:
+    """What would put one mesh axis on two dims of a leaf: for each group of
+    ``LEAF_DIMS`` and each axis of ``axes`` that two or more of its dims
+    name, a description naming them. JAX refuses such a layout whatever the
+    axis's size (``PartitionSpec`` raises ``DuplicateSpecError``)."""
+    out = []
+    for group in LEAF_DIMS:
+        for name, _size in axes:
+            dims = [d for d in group if rules.get(d) == name]
+            if len(dims) > 1:
+                out.append(f"mesh axis {name!r} on {' and '.join(dims)} (one leaf would carry "
+                           f"the axis twice)")
+    return out
 
 
 def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
@@ -165,19 +180,19 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
     """Raise NotImplementedError for a layout the port cannot honour on
     these (resized) axes. Every axis of size > 1 must carry the batch
     (``batch_dim``), under ring attention the sequence (``total_seq_dim``),
-    tensor parallelism (a non-empty set of ``heads_dim``,
-    ``intermediate_expanded``, ``vocab_dim`` and ``tokens_dim`` and nothing
+    tensor parallelism (a non-empty set of ``TENSOR_DIMS`` and nothing
     else, on one axis only), the layer stack (``layers`` and nothing else:
     pipeline parallelism), or no layout dim at all (an axis that only
     replicates). A tensor-parallel axis may sit beside the ring's sequence
-    axis ("TP x SP"). Refused: ``layers`` beside another dim on its axis,
-    pipeline parallelism with a tensor-parallel axis ("PP x TP", ROADMAP
-    queue 1 item 5c-ii) or under ring attention ("PP x SP", item 5c-iii),
-    and a rule on the VAE's ``vae_hid_dim`` or conv dims (item 5h)."""
+    axis ("TP x SP"). Refused: one axis on two dims of a leaf
+    (``duplicate_axes``, on an axis of any size, as JAX refuses it),
+    ``layers`` beside another dim on its axis, and pipeline parallelism
+    with a tensor-parallel axis ("PP x TP", ROADMAP queue 1 item 5c-ii) or
+    under ring attention ("PP x SP", item 5c-iii)."""
     batch_axis = rules.get(BATCH) or "data"
     seq_axis = rules.get(SEQ) or "seq"
     ring = attention_type in ("ring", "local_ring")
-    refused, tensor, pipe = [], [], []
+    refused, tensor, pipe = duplicate_axes(axes, rules), [], []
     for name, size in axes:
         if size == 1:
             continue
@@ -213,8 +228,9 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
             "not ported to dalle_mtf_tpu_torch yet: " + "; ".join(refused)
             + ": the port shards the batch (batch_dim), under ring attention the "
             "sequence (total_seq_dim), the heads, the MLP width and the vocabulary "
-            "(heads_dim, intermediate_expanded, vocab_dim) or the VAE codebook's columns "
-            "(tokens_dim) over one axis, or the layer stack (layers) over one axis beside "
+            "(heads_dim, intermediate_expanded, vocab_dim) or the VAE's codebook and conv "
+            "kernels (tokens_dim, vae_hid_dim, conv_cout, conv_cin, conv_kh, conv_kw; one of "
+            "them a leaf) over one axis, or the layer stack (layers) over one axis beside "
             "the batch, and replicates over an axis no rule names")
 
 
@@ -278,15 +294,20 @@ def leaf_split(logical_axes: Sequence[str | None], shape: Sequence[int], mesh,
     """Which dim of a leaf of whole ``shape`` with JAX ``logical_axes`` the
     mesh's tensor-parallel axis splits (by the mesh's layout rules), and
     this rank's block along it; None for a replicated leaf. A dim that does
-    not divide is replicated with a warning (the JAX package silently leaves
-    it to GSPMD's dense path)."""
+    not divide is replicated with a warning (the JAX package's
+    ``shard_params`` replicates it too). A leaf two of whose dims the axis
+    would split raises ValueError (``check_layout`` refuses such a layout
+    before a group is joined)."""
     axis = mesh.tp_axis if mesh is not None else None
     if axis is None:
         return None
     m = mesh.size(axis)
-    for dim, (logical, size) in enumerate(zip(logical_axes, shape)):
-        if logical not in TENSOR_DIMS or mesh.rules.get(logical) != axis:
-            continue
+    dims = [(dim, logical, size) for dim, (logical, size) in enumerate(zip(logical_axes, shape))
+            if logical in TENSOR_DIMS and mesh.rules.get(logical) == axis]
+    if len(dims) > 1:
+        raise ValueError(f"{name or 'leaf'}: mesh axis {axis!r} would split "
+                         f"{' and '.join(d[1] for d in dims)} of one leaf")
+    for dim, logical, size in dims:
         bounds = split_bounds(logical, size, m)
         if bounds is None:
             logger.warning("%s: %s of size %d does not divide over mesh axis %r of size %d: "

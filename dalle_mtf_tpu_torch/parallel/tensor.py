@@ -18,16 +18,27 @@ the heads of ``wq``/``wk``/``wv``/``wo``, the columns of ``w_mlp1``/
 The VAE's codebook split over ``tokens_dim`` (models/vae.py) uses the same
 two around its column-split products, ``sum_over_model`` (summed both ways)
 for the softmax's sum across the blocks, ``max_over_model`` for its max,
-and ``model_argmax`` for the argmax across them.
+and ``model_argmax`` for the argmax across them. Its convs split over their
+channels also pass activations between a whole tensor and a rank's block
+of one dim:
+
+- ``gather_from_model``: the blocks all-gathered into the whole forward,
+  the rank's block of the gradient backward (the whole tensor's consumer
+  runs the same on every rank);
+- ``scatter_to_model``: the rank's block forward, the blocks' gradients
+  all-gathered backward.
 
 Each rank of a group then holds the same loss and, for every leaf, the
 gradient of its shard (a replicated leaf's whole gradient). On one process,
 or without a group, every function here is the identity.
 
 ``all_reduce`` is the one entry to the collectives of the tensor-parallel
-path and the trainer's sums, ``broadcast`` to the trainer's copies of a
-replicated leaf's gradient; both count the calls and bytes they move in
-``COLLECTIVES``, which ``chip_smoke.py`` reads and resets.
+path and the trainer's sums, ``all_gather`` to the gathers of the two
+operators above, ``broadcast`` to the trainer's copies of a replicated
+leaf's gradient; each counts the calls and bytes it moves in
+``COLLECTIVES`` (an all_reduce or a broadcast its tensor's bytes, an
+all_gather the whole gathered tensor's), which ``chip_smoke.py`` reads and
+resets.
 """
 
 from __future__ import annotations
@@ -58,6 +69,46 @@ def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     COLLECTIVES["bytes"] += t.numel() * t.element_size()
     dist.broadcast(t, src, group=group)
     return t
+
+
+def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's equal block ``t`` of ``group`` concatenated along
+    ``dim`` in the group's rank order, counted in ``COLLECTIVES`` (the
+    whole tensor's bytes)."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    COLLECTIVES["calls"] += 1
+    COLLECTIVES["bytes"] += t.numel() * t.element_size() * len(parts)
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim)
+
+
+def _block_of(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's equal block of ``t`` along ``dim`` over ``group``."""
+    n = t.shape[dim] // dist.get_world_size(group)
+    return t.narrow(dim, dist.get_rank(group) * n, n)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block_of(g, ctx.dim, ctx.group).contiguous(), None, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _block_of(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -101,6 +152,20 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """x summed over ``group``; its gradient passed through (None:
     identity)."""
     return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The whole tensor from every rank's equal block ``x`` along ``dim``
+    of ``group``; its gradient's block of this rank passed back (None:
+    identity). For a consumer every rank runs on the same whole tensor."""
+    return x if group is None else _GatherFromModel.apply(x, dim, group)
+
+
+def scatter_to_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's equal block along ``dim`` of ``x``, whole and the same on
+    every rank of ``group``; the blocks' gradients gathered into the whole
+    one (None: identity)."""
+    return x if group is None else _ScatterToModel.apply(x, dim, group)
 
 
 def sum_over_model(x: torch.Tensor, group) -> torch.Tensor:

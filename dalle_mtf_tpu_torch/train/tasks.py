@@ -58,8 +58,11 @@ def make_vae_task(params: Mapping[str, Any], device: torch.device | str, mesh=No
     all_reduced over the replicas (PSNR from the global squared error, the
     perplexity from the global token counts, the Fréchet feature distance
     from the global feature means and variances) and divided by the
-    replicas. ``tokens_dim`` on a mesh axis splits the codebook
-    (models/vae.py)."""
+    replicas. A rule on ``tokens_dim`` or ``vae_hid_dim`` splits the
+    codebook and one on the conv dims the convs over the tensor-parallel
+    axis (models/vae.py); the model group then computes these statistics
+    from whole tensors (the reconstruction, the tokens and the pooled
+    features come out whole on each of its ranks)."""
     cfg = VAEConfig.from_params(params)
     vae = DiscreteVAE(cfg, device, mesh)
     replicas = vae.mesh.replicas if vae.mesh is not None else 1
@@ -128,7 +131,9 @@ def _configs(params: Mapping[str, Any]) -> tuple[DalleConfig, VAEConfig]:
 def make_dalle_models(params: Mapping[str, Any], device: torch.device | str, mesh=None):
     """DALLE config (with ``vae_params`` nested, as fetch_model_params
     loads it) -> (dalle, vae) on ``device``; the DALLE on ``mesh`` (its
-    blocks on a tensor-parallel one), the VAE whole."""
+    blocks on a tensor-parallel one), the VAE whole: the JAX package
+    shards only the DALLE's tree by the layout and hands the frozen VAE to
+    the step as it is, so a rule on the VAE's dims splits nothing of it."""
     cfg, vae_cfg = _configs(params)
     return DALLE(cfg, device, mesh), DiscreteVAE(vae_cfg, device)
 

@@ -28,15 +28,20 @@ restores. Kept from the JAX loop:
 - metrics ``loss``, ``grad_norm`` (before clipping), ``lr`` and the task's
   aux losses, fetched only on log steps;
 - checkpoints every ``steps_per_checkpoint`` and at ``train_steps``, with
-  ``max_to_keep`` retention, atomic writes, restore of the latest, an eval
-  over ``eval_steps`` batches at each checkpoint, and then the caller's
-  ``summary_fn(trainer, state, step)`` (the VAE's image summaries);
+  ``max_to_keep`` retention and, with ``keep_checkpoint_every_n_hours``
+  set, one checkpoint an interval kept out of it (``kept_checkpoints``, the
+  rule of orbax's ``keep_time_interval``), atomic writes, restore of the
+  latest, an eval over ``eval_steps`` batches at each checkpoint, and then
+  the caller's ``summary_fn(trainer, state, step)`` (the VAE's image
+  summaries);
 - a data stream that runs out between checkpoints saves its tail.
 
 Checkpoints are files in ``torch.save``'s format,
-``<model_dir>/checkpoints/ckpt_<step>.pt``, holding the step, the parameter
-tree and the optimizer state (under ``skip_nonfinite_updates``, with the
-skip state of ``optim.SkipNonfinite``). A checkpoint is always the whole,
+``<model_dir>/checkpoints/ckpt_<step>.pt``, holding the step, its save time
+(``now()``, seconds since the epoch: the retention reads it back after a
+restart), the parameter tree and the optimizer state (under
+``skip_nonfinite_updates``, with the skip state of
+``optim.SkipNonfinite``). A checkpoint is always the whole,
 unpadded tree and state a single process writes, so it moves between
 layouts. Rank 0 writes it one leaf at a time (``utils/checkpoint.py``):
 under tensor parallelism each leaf's blocks are sent to rank 0's host by
@@ -53,6 +58,7 @@ schedule it applies, stays where it was.
 
 from __future__ import annotations
 
+import datetime
 import logging
 import math
 import os
@@ -110,6 +116,35 @@ def checkpoint_steps(ckpt_dir: str) -> list[int]:
     return sorted(int(m.group(1)) for f in os.listdir(ckpt_dir) if (m := _CKPT.fullmatch(f)))
 
 
+def now() -> float:
+    """The clock a checkpoint's save time is read from (seconds since the
+    epoch); the one place a test replaces it."""
+    return time.time()
+
+
+def keep_interval_s(hours) -> int | None:
+    """``keep_checkpoint_every_n_hours`` as orbax's ``EveryNSeconds`` takes
+    it from the JAX trainer's ``keep_time_interval``: whole seconds of the
+    timedelta; None where unset."""
+    return int(datetime.timedelta(hours=float(hours)).total_seconds()) if hours else None
+
+
+def kept_checkpoints(stamps, max_to_keep: int, interval_s: int | None) -> list[bool]:
+    """Which of the checkpoints ``stamps`` [(step, save time)], ascending,
+    to keep: the newest ``max_to_keep`` (orbax's ``LatestN``) and, with
+    ``interval_s``, the first and each later one saved at least
+    ``interval_s`` after the last one this rule kept (orbax's
+    ``EveryNSeconds``); either rule keeps a checkpoint."""
+    keep = [i >= len(stamps) - max_to_keep for i in range(len(stamps))]
+    if interval_s is not None and stamps:
+        last = stamps[0][1]
+        keep[0] = True
+        for i, (_step, t) in enumerate(stamps[1:], 1):
+            if t - last >= interval_s:
+                keep[i], last = True, t
+    return keep
+
+
 def step_generator(seed: int, stream: int, index: int) -> torch.Generator:
     """A CPU generator for (seed, stream, index): the counterpart of the JAX
     loop's ``fold_in(fold_in(rng, stream), index)``."""
@@ -159,6 +194,8 @@ class Trainer:
         dp = mesh.size(parse_layout(params.get("layout")).get(BATCH) or "data") if mesh else 1
         self.num_mb = num_microbatches(params, self.batch_size, seq_len, dp)
         self.max_to_keep = params.get("max_to_keep") or 5
+        self.keep_interval_s = keep_interval_s(params.get("keep_checkpoint_every_n_hours"))
+        self._stamps: dict[int, float] = {}  # save times of the checkpoints seen
         self.writer = MetricsWriter(self.model_dir, enabled=self.rank == 0)
         # what run() logged: one dict per log step / per checkpoint eval
         self.history: list[dict] = []
@@ -322,18 +359,20 @@ class Trainer:
         return leaf
 
     def save(self, state: dict, step: int | None = None) -> None:
-        """Write ckpt_<step>.pt atomically, then keep the newest
-        ``max_to_keep``. On a mesh rank 0 writes (every replica holds the
-        same state), leaf by leaf, the ranks of its model group sending
-        their blocks of each split leaf at its turn, and every rank waits
-        for it."""
+        """Write ckpt_<step>.pt atomically with its save time, then delete
+        what the retention drops (``_retire``). On a mesh rank 0 writes
+        (every replica holds the same state), leaf by leaf, the ranks of
+        its model group sending their blocks of each split leaf at its
+        turn, and every rank waits for it."""
         step = state["step"] if step is None else step
         ranks = self._writers()
         if ranks is not None:
             sharding = self.sharding
             leaf = self._lazy(ranks)
+            stamp = now()
             tree = {
                 "step": step,
+                "time": stamp,
                 "params": {"/".join(p): leaf(t, sharding.of(p) if sharding else None)
                            for p, t in named_leaves(state["params"])},
                 "opt_state": state["opt"].state_dict(leaf),
@@ -341,12 +380,30 @@ class Trainer:
             if self.rank == 0:
                 os.makedirs(self.ckpt_dir, exist_ok=True)
                 checkpoint.write(os.path.join(self.ckpt_dir, f"ckpt_{step}.pt"), tree)
-                for old in self.checkpoint_steps()[:-self.max_to_keep]:
-                    os.unlink(os.path.join(self.ckpt_dir, f"ckpt_{old}.pt"))
+                self._stamps[step] = stamp
+                self._retire()
             else:
                 checkpoint.write(None, tree)
         if self.mesh:
             dist.barrier()
+
+    def _retire(self) -> None:
+        """Delete the checkpoints ``kept_checkpoints`` does not keep. The
+        save times count only with ``keep_checkpoint_every_n_hours`` set,
+        and only then are those of files a run did not write read back (a
+        file without one is judged by its mtime); unset, the newest
+        ``max_to_keep`` stay."""
+        steps = self.checkpoint_steps()
+        if self.keep_interval_s is not None:
+            for s in sorted(set(steps) - set(self._stamps)):
+                path = os.path.join(self.ckpt_dir, f"ckpt_{s}.pt")
+                stamp = checkpoint.read(path).get("time")
+                self._stamps[s] = os.path.getmtime(path) if stamp is None else stamp
+        keep = kept_checkpoints([(s, self._stamps.get(s, 0.0)) for s in steps], self.max_to_keep,
+                                self.keep_interval_s)
+        for old, kept in zip(steps, keep):
+            if not kept:
+                os.unlink(os.path.join(self.ckpt_dir, f"ckpt_{old}.pt"))
 
     def _block(self, t: torch.Tensor, split) -> torch.Tensor:
         """This rank's block of a mapped whole leaf, copied to the device

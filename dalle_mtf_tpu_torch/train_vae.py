@@ -13,13 +13,15 @@ the config's ``mesh_shape`` (resized to the world: ``parallel.mesh.resize_axes``
 the JAX ``build_mesh`` rule, so ``vae_coco``'s ``data:1`` trains on every
 rank) and ``layout`` place the ranks: data parallelism over the
 ``batch_dim`` axis (each rank reads its files and rows, and its losses and
-gradients are summed over the axis), the codebook's columns over an axis
-carrying ``tokens_dim``, and an axis no rule names only replicates
+gradients are summed over the axis), tensor parallelism over an axis
+carrying ``tokens_dim`` or ``vae_hid_dim`` (the codebook's columns or rows)
+and the conv dims ``conv_cout``, ``conv_cin``, ``conv_kh``, ``conv_kw``
+(models/vae.py), and an axis no rule names only replicates
 (``vae_example``'s ``data:16,model:2``). ``utils/distributed.py`` picks each
 rank's device and the backend: ranks that share a card talk over gloo, so
-their step times are not multi-GPU numbers. A rule on ``vae_hid_dim`` or
-the conv dims raises (ROADMAP queue 1 item 5h), and so does a ``layers``
-rule (the VAE has no layer stack to pipeline). Each rank runs on
+their step times are not multi-GPU numbers. A layout that would put one
+axis on two dims of a leaf raises before the group is joined, and so does
+a ``layers`` rule (the VAE has no layer stack to pipeline). Each rank runs on
 ``cuda:<--gpu_ids>`` (ranks share the cards evenly), else ``--device``
 (default ``cuda``). Without a CUDA device it raises: it runs on the CPU
 only when asked to with ``--device cpu``. Rank 0 alone writes summaries

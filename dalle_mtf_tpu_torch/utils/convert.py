@@ -104,11 +104,15 @@ def _widen(a) -> np.ndarray:
 
 
 def vae_params_from_numpy(tree, vae) -> dict:
-    """A VAE parameter tree of numpy arrays -> torch tensors on
-    ``vae.device``, after checking every name and shape of the whole tree
-    (``encoder``, ``codebook``, ``decoder``) against ``vae``."""
+    """A whole VAE parameter tree of numpy arrays (e.g. a JAX tree through
+    ``jax.device_get``) -> torch tensors on ``vae.device``, after checking
+    every name and shape of the whole tree (``encoder``, ``codebook``,
+    ``decoder``) against ``vae``: on a mesh that splits the VAE
+    (``vae.sharding``), this rank's blocks."""
     _check(tree, vae.param_shapes())
-    return _to_torch(tree, vae.device)
+    if vae.sharding is None:
+        return _to_torch(tree, vae.device)
+    return _to_torch(vae.sharding.shard_tree(_to_torch(tree, "cpu")), vae.device)
 
 
 dalle_params_to_numpy = vae_params_to_numpy = params_to_numpy

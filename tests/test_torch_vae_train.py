@@ -415,12 +415,16 @@ def test_train_vae_refuses_what_it_cannot_run(tmp_path, monkeypatch):
                        layout="batch_dim:data", eval_steps=0)
         trained = train_vae.main(["--model", path, "--device", "cpu"])
         assert [h["step"] for h in trained.history] == [1]
-    # several processes: VAE data parallelism and the codebook split train
-    # (tests/test_torch_vae_dp.py); a rule on vae_hid_dim or the conv dims
-    # is not ported and raises before the process group is joined
+    # several processes: VAE data parallelism and the splits of the codebook
+    # and the convs train (tests/test_torch_vae_dp.py); a layout that puts
+    # one axis on two dims of a leaf (JAX's DuplicateSpecError) raises
+    # before the process group is joined, naming them
     monkeypatch.setenv("WORLD_SIZE", "2")
-    for layout in ("batch_dim:data,vae_hid_dim:model", "batch_dim:data,conv_cout:model"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5h"):
+    for layout, dims in (("batch_dim:data,conv_cin:model,conv_cout:model",
+                          "conv_cin and conv_cout"),
+                         ("batch_dim:data,vae_hid_dim:model,tokens_dim:model",
+                          "vae_hid_dim and tokens_dim")):
+        with pytest.raises(NotImplementedError, match=f"'model' on {dims}"):
             train_vae.main(["--model", _config(tmp_path, "tp", 2, mesh_shape="data:1,model:2",
                                                layout=layout), "--device", "cpu"])
     monkeypatch.delenv("WORLD_SIZE")

@@ -17,7 +17,8 @@ blocks, gathered over the model group or the pipeline and summed over the
 shares: a stage's layers over the replicas, the other leaves over the
 replicas and the stages) on the case's mesh and layout, the batch rows split
 over the data axis (with ``draws``, the model's dropout seeds are those
-numbers in turn instead of its generator's); with ``steps``, that many
+numbers in turn instead of its generator's; with ``copies``, every rank's
+model group and a digest of its loss and gradients); with ``steps``, that many
 optimizer steps instead (the config's optimizer with its clip and
 ``skip_nonfinite_updates``), and the whole parameters and losses after them
 (a ``replicated`` case's layout splits nothing); with ``trainer``, the
@@ -35,8 +36,10 @@ rows and columns of ``u`` the rank holds (with ``perturb``, every copy
 but the first of a leaf or a block scales its gradient by 1 + perturb);
 the losses, the first and the last step's gradients and the final
 parameters (whole), the eval metrics of ``Trainer.eval_step`` after, and
-every rank's copy groups (``Mesh.copy_ranks``, ``block_copy_ranks``) and
-digests of its replicated leaves and its blocks. ``ckpt``: a DALLE ``Trainer`` on
+every rank's copy groups (``Mesh.copy_ranks``, ``block_copy_ranks``),
+digests of its replicated leaves and its blocks, the shapes it holds of
+each leaf and its two AdamW moments, the kernel shape of each conv of its
+first step's forward, and its blocks of ``init_fn``'s tree. ``ckpt``: a DALLE ``Trainer`` on
 ``data:1,model:<world>`` takes one step and saves (rank 0 writes the whole
 tree); then a Trainer on ``data:<world/2>,model:2`` restores it, every rank
 checking that it holds the file's blocks bit for bit and that it copied
@@ -196,6 +199,11 @@ def _dalle_step(case, proc):
             el, correct = evaluate(tree, tokens, torch.Generator().manual_seed(1))
             out["eval"] = (_sum_replicas(mesh, model.global_mean(el, rows=rows)),
                            _sum_replicas(mesh, model.global_mean(correct, rows=rows)))
+        if case.get("copies"):  # every rank's model group and digest of its loss and grads
+            digest = hashlib.sha256(b"".join(t.detach().numpy().tobytes() for t in (
+                out["loss"], *out["grads"].values()))).hexdigest()
+            out["copies"] = [None] * proc.world
+            dist.all_gather_object(out["copies"], (mesh.copy_ranks, digest))
         return out
     opt, _ = get_optimizer(case["opt_params"], tree, model.sharding)
     losses = []
@@ -259,15 +267,18 @@ def train(case, proc, cli="train_dalle"):
 
 
 def _vae_whole(vae, tree):
-    """The whole VAE tree (numpy) from this rank's: the codebook gathered."""
+    """The whole VAE tree (numpy) from this rank's: the split leaves
+    gathered."""
     out = {}
     for p, t in named_leaves(tree):
         split = vae.sharding.of(p) if vae.sharding else None
-        out["/".join(p)] = gather(t.detach(), split, vae._tp).numpy()
+        group = vae.sharding.group if vae.sharding else None
+        out["/".join(p)] = gather(t.detach(), split, group).numpy()
     return out
 
 
 def vae_step(case, proc, out_dir):
+    from dalle_mtf_tpu_torch.models import vae as vae_mod  # noqa: PLC0415
     from dalle_mtf_tpu_torch.ops import gumbel  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.tasks import make_vae_task  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.trainer import Trainer  # noqa: PLC0415
@@ -279,14 +290,21 @@ def vae_step(case, proc, out_dir):
         return u[row0:row0 + shape[0], ..., col0:col0 + shape[-1]].to(device)
 
     gumbel.gumbel_uniform = same_u
+    convs, conv = [], vae_mod._Conv
+
+    class RecordedConv(conv):  # the kernel each conv of the first step runs with
+        @classmethod
+        def apply(cls, x, w, stride, padding, transposed):
+            if recording:
+                convs.append((bool(transposed), tuple(w.shape)))
+            return conv.apply(x, w, stride, padding, transposed)
+
+    vae_mod._Conv, recording = RecordedConv, False
     params = case["params"]
     mesh = build_mesh(case["mesh_shape"], case["layout"], "global", proc.rank, proc.world)
     vae, init_fn, loss_fn, eval_fn = make_vae_task(params, "cpu", mesh)
-    assert (vae.sharding is not None) == ("tokens_dim" in case["layout"])
-    tree = {k: v for k, v in convert.vae_params_from_numpy(case["tree"], vae).items()}
-    if vae.sharding is not None:
-        tree = {k: (shard(v, vae.sharding.of((k,))).clone() if k == "codebook" else v)
-                for k, v in tree.items()}
+    tree = convert.vae_params_from_numpy(case["tree"], vae)
+    group = vae.sharding.group if vae.sharding else None
     split = {p: vae.sharding is not None and vae.sharding.of(p) is not None
              for p, _ in named_leaves(tree)}
     for p, t in named_leaves(tree):
@@ -306,20 +324,32 @@ def vae_step(case, proc, out_dir):
     batch = {"image": case["images"][i * rows:(i + 1) * rows]}
     losses, grads = [], []
     for step in range(case["steps"]):
+        recording = step == 0
         state, metrics = trainer.train_step(state, batch, torch.Generator().manual_seed(step))
+        recording = False
         losses.append(float(metrics["loss"]))
         grads.append({"/".join(p): gather(t.grad, vae.sharding.of(p) if vae.sharding else None,
-                                          vae._tp).numpy() for p, t in named_leaves(tree)})
+                                          group).numpy() for p, t in named_leaves(tree)})
     metrics = trainer.eval_step(state, batch, torch.Generator().manual_seed(0))
     trainer.close()
+    vae_mod._Conv = conv
+    # what this rank holds: each leaf's block and its two moments
+    held = {"/".join(p): (tuple(t.shape),) + tuple(tuple(opt.opt.state[t][k].shape)
+                                                   for k in ("exp_avg", "exp_avg_sq"))
+            for p, t in named_leaves(tree)}
+    # this rank's blocks of the init (keyed: the single process's values there)
+    init = {"/".join(p): t.numpy() for p, t in named_leaves(
+        init_fn(torch.Generator().manual_seed(case.get("init_seed", 0))))}
     digests = [hashlib.sha256(b"".join(t.detach().numpy().tobytes()
                                        for p, t in named_leaves(tree) if split[p] == of_split))
                .hexdigest() for of_split in (False, True)]
-    copies = [None] * proc.world
-    dist.all_gather_object(copies, (mesh.copy_ranks, mesh.block_copy_ranks, *digests))
+    everyone = [None] * proc.world
+    dist.all_gather_object(everyone, (mesh.copy_ranks, mesh.block_copy_ranks, *digests, held,
+                                      convs, init))
     return {"losses": losses, "grads": grads, "params": _vae_whole(vae, tree),
             "eval": {k: float(v) for k, v in metrics.items()}, "replicas": mesh.replicas,
-            "copies": copies}
+            "copies": [e[:4] for e in everyone], "held": [e[4] for e in everyone],
+            "convs": [e[5] for e in everyone], "init": [e[6] for e in everyone]}
 
 
 def ckpt(case, proc, out_dir):
