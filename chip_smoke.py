@@ -97,7 +97,7 @@ Phases, none of them optional:
    LN kernels, launches counted); and a third arm, four ranks on the card
    with ``attention_type: "ring"`` on ``data:2,seq:2``, and a fourth on
    ``data:1,seq:2,model:2`` with dalle_coco's tensor-parallel rules against
-   one process on the card (both in ``phase_ring_attention``, below).
+   one process on the card (both in ``phase_train_sharded``'s launch, below).
    Tolerance: loss atol 1e-4; each grad
    leaf within relative L2 error 1e-2. fp32 sums run in another order on each side, and
    a ReLU gate whose input is within rounding of 0 may flip between the two:
@@ -149,7 +149,9 @@ Phases, none of them optional:
    two ranks on one device, so they run gloo, the ring's sends staged through
    host memory; the kernels are built once here first, so the ranks never
    race on the build):
-   - ``phase_ring_attention``: four ranks (``run_ranks``) run
+   - ``phase_train_sharded``, first, in its launch (``ring_checks_rank``, read
+     by ``check_ring_attention``; once a launch of their own): four
+     ranks run
      ``ring_attention`` forward and backward on their shards of seeded q, k,
      v, g (B=4, H=8, S=4352, D=128, bf16); out, dq, dk, dv gathered and held
      per 64-long tile (2^-6 of the tile's max) against the single-device
@@ -160,7 +162,7 @@ Phases, none of them optional:
      S_local 2176, the diagonal or the past hop, dropout 0.1, bf16 and fp32)
      against the plain versions, held here bit for bit to those heads of
      one launch over all 8; then the values check's third and fourth arms;
-   - ``phase_train_ring``, the main path of this slice: a copy of the
+     then the main path of this slice: a copy of the
      dalle_4k config with ``attention_type: "ring"``, ``mesh_shape:
      data:1,seq:4`` and ``layout: batch_dim:data,total_seq_dim:seq`` through
      four ranks (``run_ranks``) and
@@ -185,7 +187,7 @@ Phases, none of them optional:
    Then tensor parallelism, ranks sharing the one card over gloo in the
    same way (the all_reduces staged through host memory):
    - the tensor-parallel values check (``check_tp_values``, on the ranks of
-     ``phase_ring_attention``'s launch, which run it after the ring checks):
+     ``phase_train_sharded``'s launch, which run it after the ring checks):
      four ranks on ``data:2,model:2`` with dalle_coco's
      layout (heads, MLP width and vocabulary on ``model``) run the 2-layer
      fp32 values model at dalle_coco width with the dense head, the fused
@@ -194,40 +196,48 @@ Phases, none of them optional:
      1e-5, each gradient, the blocks gathered, within relative L2 1e-2;
      one forward and one backward launch a layer a rank); under dropout the
      kernels on each rank's heads equal one 8-head launch's bit for bit;
-   - ``phase_train_tp``, the main path of this slice: configs/dalle_coco.json
-     as published (its ``data:16,model:2`` and layout verbatim:
-     ``data:1,model:2`` on two ranks, each 4 heads, 2048 MLP columns and a
-     26,240-row block of the vocabulary) in tokens mode, cut to batch 8
-     and 4 of its 12 layers,
-     through two ranks (``run_ranks``) and ``train_dalle.main``
-     for 3 steps with an eval and a checkpoint (the whole tree, streamed to
-     rank 0 leaf by leaf). Checks the first
-     loss within 2e-3 of the single-process port's on the same records and
-     seed, the ranks' losses equal, the packed pair's exact launches a rank;
-     its "train_tp" line holds step s and tokens/s (labelled as two ranks on
-     one card), the collective bytes a rank a step and the peak memory a
-     rank;
-   - ``phase_train_pp``, the main path of pipeline parallelism:
+   - the tensor-parallel run (in ``phase_train_sharded``'s launch, its third run;
+     once a two-rank launch of its own, ``data:1,model:2``):
+     configs/dalle_coco.json as published (its ``data:16,model:2`` and
+     layout verbatim: ``data:2,model:2`` on four ranks, each 4 heads, 2048
+     MLP columns and a 26,240- or 26,067-row block of the vocabulary) in
+     tokens mode, cut to batch 8 and 4 of its 12 layers, through
+     ``train_dalle.main`` for 3 steps with an eval and a checkpoint (the
+     whole tree, streamed to rank 0 leaf by leaf). Checks the first loss
+     within 2e-3 of the single-process port's on the same records and
+     seed, the ranks' losses equal, the packed pair's exact launches a
+     rank; its "train_tp" line holds step s and tokens/s (labelled as four
+     ranks on one card), the collective bytes a rank a step and the peak
+     memory a rank;
+   - the main path of pipeline parallelism (``phase_train_sharded``'s launch,
+     after the ring runs; once a launch of its own):
      configs/dalle_coco_synth.json as published (1024 wide, batch 16, bf16,
      dots_and_attn) cut to 4 of its 12 layers, with ``mesh_shape:
      pipe:2,data:2`` and ``layout: batch_dim:data,layers:pipe`` (each stage
      2 layers; 2
      microbatches of 4 rows a data rank; the loss head on 4 rows a rank) in
      tokens mode through four ranks (``run_ranks``) and ``train_dalle.main``
-     for 3 steps with an eval and a checkpoint, after, in the same launch,
+     for 2 steps with an eval and a checkpoint, then, in the same launch,
+     PP x TP: configs/dalle_coco.json with its published layout plus
+     ``layers:pipe`` on ``data:16,pipe:2,model:2`` (``data:1,pipe:2,model:2``
+     on the four ranks: each its stage's 2 of 4 layers on 4 of the 8 heads,
+     half the MLP width and a block of the vocabulary), batch 8, 2
+     microbatches, for 2 steps with an eval and a checkpoint; before both,
      a values check: a 4-layer fp32 model of that width, 8 rows, at M = 2
-     and M = 4, its loss (within 1e-5) and every gradient (the layers
-     gathered over the pipeline; relative L2 1e-2) against one process on
-     the card. Checks the first loss within 2e-3 of the single-process
-     port's on the same records (both data ranks' first batches) and seed,
-     the losses equal on every rank, the packed pair's launches a
-     rank (2 layers x 2 microbatches a pass), the bytes each rank's hops
-     sent a step by kind and its all_reduce bytes a step, both to the byte
-     of what the code implies, and the checkpoint read by one process
-     holding every rank's final parameters bit for bit; its "train_pp" line
-     holds step s and tokens/s (labelled as four ranks on one card), the
-     bytes a hop, the staged and collective bytes a rank, the bubble and
-     the peak memory a rank;
+     and M = 4 on the pipe mesh and, with the attention dropout on, at M =
+     2 on ``data:1,pipe:2,model:2``, its loss (within 1e-5) and every
+     gradient (the layers gathered over the pipeline and the blocks over
+     the model group; relative L2 1e-2) against one process on the card.
+     Checks of each run the first loss within 2e-3 of the single-process
+     port's on the same records and seed, the losses equal on every rank,
+     the packed pair's launches a rank (2 layers x 2 microbatches a pass),
+     the bytes each rank's hops sent a step by kind and its all_reduce
+     bytes a step (under PP x TP by kind), both to the byte of what the
+     code implies, and the checkpoint read by one process holding every
+     rank's final parameters (its blocks) bit for bit; its "train_pp" and
+     "train_pptp" lines hold step s and tokens/s (labelled as four ranks on
+     one card), the bytes a hop, the staged and collective bytes a rank,
+     the bubble and the peak memory a rank;
    - ``phase_train_vae_dp``: VAE data and tensor parallelism, after fp32
      values checks at vae_coco's width on 8 rows (``data:2`` on 2 ranks;
      on 4, in one launch, ``data:2,model:2`` with ``conv_cout`` +
@@ -381,8 +391,8 @@ data-parallel and sharded serving phases, started by them through
 ``run_ranks`` with the environment ``torch.distributed.run`` would give it.
 
 Prints "kernel", "train", "memory_options_values", "loss_head",
-"loss_head_steps", "head", "train_12b", "train_tp", "train_pp", "train_vae_tp",
-"train_vae_dp", "train_12b_tp", "train_vae",
+"loss_head_steps", "head", "train_12b", "train_tp", "train_pp", "train_pptp",
+"train_vae_tp", "train_vae_dp", "train_12b_tp", "train_vae",
 "train_image", "batch", "decode_profile" and "continuous_chunk" JSON lines,
 then each phase's seconds ("phase_seconds") and the whole run's against its
 1000 s budget,
@@ -391,7 +401,8 @@ card, ``bound_ms``, one PyTorch call's time for the same function,
 ``library_ms``, and on rows 1-2 the image-mode run's launches,
 ``image_mode_launches``, the pipeline run's launches a rank,
 ``pp_launches`` and the pair's row at that run's microbatch,
-``pp_microbatch``, and the row at dalle_12B's shape with the
+``pp_microbatch``, the same of the PP x TP run, ``pptp_launches`` and
+``pptp_microbatch``, and the row at dalle_12B's shape with the
 published arm's launches, ``dalle_12B``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
 is non-zero and no result is printed. fp32 matmuls and convs run in full
@@ -415,6 +426,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 import zlib
 
@@ -510,11 +522,13 @@ TP_CONFIG = "dalle_coco"
 TP_RANKS = 2
 TP_VALUES_MESH = "data:2,model:2"
 TP_LAYOUT = "batch_dim:data,heads_dim:model,intermediate_expanded:model,vocab_dim:model"
-# dalle_coco as published, its mesh_shape (data:16,model:2: data:1,model:2 on two
-# ranks) and layout verbatim, cut to one data replica's 8 rows of the published
-# 128 (the rule phase_train_12b takes) and 4 of its 12 layers (12 until the
-# TP x SP run took its card time)
+# dalle_coco as published, its mesh_shape and layout verbatim (data:16,model:2:
+# data:2,model:2 on the four ranks of phase_train_sharded's launch, its third run;
+# once data:1,model:2 on a two-rank launch of its own), cut to 8 rows
+# of the published 128 (the rule phase_train_12b takes; 4 a data rank) and 4
+# of its 12 layers (12 until the TP x SP run took its card time)
 TP_CUT = dict(train_batch_size=8, eval_batch_size=8, n_layers=4)
+TP_TRAIN_MESH, TP_TRAIN_DATA = "data:2,model:2", 2
 TP_STEPS, TP_TIMED_FROM = 3, 3  # step 3 is timed (4 steps before the pipeline phase)
 TP_LABEL = "2 ranks sharing one card over gloo, staged through host: not a multi-GPU number"
 TP_VALUES_LABEL = ("4 ranks sharing one card over gloo, staged through host: not a multi-GPU "
@@ -771,8 +785,9 @@ def phase_train_kernels(torch, attn, card):
     training shape (without dropout)}, the same at dalle_12B's microbatch:
     B=8, H=40, S=2560, at a tensor-parallel rank's block of dalle_coco:
     B=8, H=4, S=1280, at a dalle_12B rank's at model:8: B=4, H=5, S=2560,
-    and at a pipeline stage's microbatch of dalle_coco_synth on
-    pipe:2,data:2: B=4, H=8, S=1280)."""
+    at a pipeline stage's microbatch of dalle_coco_synth on
+    pipe:2,data:2: B=4, H=8, S=1280, and at a PP x TP rank's microbatch of
+    dalle_coco on data:1,pipe:2,model:2: B=4, H=4, S=1280)."""
     from dalle_mtf_tpu_torch.ops import attention_packed as ap  # noqa: PLC0415
 
     cases = [  # (name, B, H, S, D, dtype, window, dropout, plain version's timing iters)
@@ -786,6 +801,8 @@ def phase_train_kernels(torch, attn, card):
         ("tp12b_rank", 4, 5, 2560, 128, torch.bfloat16, None, 0.0, 2),
         # a pipeline stage's microbatch of dalle_coco_synth on pipe:2,data:2: 4 rows
         ("pp_microbatch", 4, 8, 1280, 128, torch.bfloat16, None, 0.0, 10),
+        # a PP x TP rank's microbatch of dalle_coco: 4 rows, 4 of the 8 heads
+        ("pptp_microbatch", 4, 4, 1280, 128, torch.bfloat16, None, 0.0, 10),
     ]
     seed = 2**31 - 7  # near the top of the range: the uint32 add wraps
     gen = torch.Generator().manual_seed(1)
@@ -852,7 +869,8 @@ def phase_train_kernels(torch, attn, card):
         }
         for row in rows.values():
             print("kernel", json.dumps(row), flush=True)
-        if name in ("train", "dalle_12B", "tp_rank", "tp12b_rank", "pp_microbatch"):
+        if name in ("train", "dalle_12B", "tp_rank", "tp12b_rank", "pp_microbatch",
+                    "pptp_microbatch"):
             best[name] = rows
         del q, k, v, g, out, lse, grads, ref, ref_lse, ref_grads, sets
         torch.cuda.empty_cache()
@@ -881,7 +899,7 @@ def phase_train_kernels(torch, attn, card):
             **attention_roofline(b, h, s, d, 4, 4, 1, 2),
         )), flush=True)
     return (best["train"], best["dalle_12B"], best["tp_rank"], best["tp12b_rank"],
-            best["pp_microbatch"])
+            best["pp_microbatch"], best["pptp_microbatch"])
 
 
 def phase_bhsd_kernels(torch, attn, card):
@@ -2450,8 +2468,9 @@ def print_rank_logs(log_dir: str, tail: int = 6000) -> None:
               f"{text[-tail:]}", file=sys.stderr)
 
 
-def worker_checks(torch, out_dir):
-    """One rank of phase_ring_attention: ring attention forward and
+def ring_checks_rank(torch, proc, out_dir):
+    """One rank's checks in phase_train_sharded's launch before its runs, in
+    the process group that is up: ring attention forward and
     backward on its shard of seeded global q, k, v, g (B=4, H=8, S=4352,
     D=128, bf16) on RING_MESH, without and with hash dropout 0.1; the ring
     pair on this rank's block of the heads at its TPSP_MESH coordinates
@@ -2470,84 +2489,79 @@ def worker_checks(torch, out_dir):
     from dalle_mtf_tpu_torch.parallel.mesh import build_mesh  # noqa: PLC0415
     from dalle_mtf_tpu_torch.parallel.tensor import gather  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
-    from dalle_mtf_tpu_torch.utils.distributed import init_distributed  # noqa: PLC0415
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    proc = init_distributed(["0"], "cuda")
-    try:
-        mesh = build_mesh(RING_MESH, RING_LAYOUT, "ring", proc.rank, proc.world)
-        res = {"backend": proc.backend, "seq_group_backend": dist.get_backend(mesh.group("seq")),
-               "coords": mesh.coords}
-        full = ring_attention_inputs(torch)
-        sl = full[0].shape[2] // RING_RANKS
-        i = mesh.index("seq")
-        shard = [t[:, :, i * sl:(i + 1) * sl].contiguous().cuda() for t in full]
-        for rate in (0.0, 0.1):
-            leaves = [t.clone().requires_grad_(True) for t in shard[:3]]
-            reset_counts(ring)
-            ring.STAGED_BYTES["ring_shift"] = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = ring.ring_attention_auto(*leaves, mesh, "seq", "data", None, rate,
-                                           RING_SEED if rate else None)
-            out.backward(shard[3])
-            torch.cuda.synchronize()
-            res[rate] = dict(out=out.detach().cpu(), seconds=time.perf_counter() - t0,
-                             launches=dict(ring.KERNEL_LAUNCHES),
-                             staged_bytes=ring.STAGED_BYTES["ring_shift"],
-                             **{n: t.grad.cpu() for n, t in zip(("dq", "dk", "dv"), leaves)})
-        del full, shard, leaves, out
-        torch.cuda.empty_cache()
-        tmesh = build_mesh(TPSP_MESH, TPSP_LAYOUT, "ring", proc.rank, proc.world)
-        res["head_block"] = tpsp_head_block(torch, ring, tmesh.index("seq"),
-                                            tmesh.index("model"))
-        torch.cuda.empty_cache()
+    mesh = build_mesh(RING_MESH, RING_LAYOUT, "ring", proc.rank, proc.world)
+    res = {"backend": proc.backend, "seq_group_backend": dist.get_backend(mesh.group("seq")),
+           "coords": mesh.coords}
+    full = ring_attention_inputs(torch)
+    sl = full[0].shape[2] // RING_RANKS
+    i = mesh.index("seq")
+    shard = [t[:, :, i * sl:(i + 1) * sl].contiguous().cuda() for t in full]
+    for rate in (0.0, 0.1):
+        leaves = [t.clone().requires_grad_(True) for t in shard[:3]]
+        reset_counts(ring)
+        ring.STAGED_BYTES["ring_shift"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring.ring_attention_auto(*leaves, mesh, "seq", "data", None, rate,
+                                       RING_SEED if rate else None)
+        out.backward(shard[3])
+        torch.cuda.synchronize()
+        res[rate] = dict(out=out.detach().cpu(), seconds=time.perf_counter() - t0,
+                         launches=dict(ring.KERNEL_LAUNCHES),
+                         staged_bytes=ring.STAGED_BYTES["ring_shift"],
+                         **{n: t.grad.cpu() for n, t in zip(("dq", "dk", "dv"), leaves)})
+    del full, shard, leaves, out
+    torch.cuda.empty_cache()
+    tmesh = build_mesh(TPSP_MESH, TPSP_LAYOUT, "ring", proc.rank, proc.world)
+    res["head_block"] = tpsp_head_block(torch, ring, tmesh.index("seq"),
+                                        tmesh.index("model"))
+    torch.cuda.empty_cache()
 
-        vmesh = build_mesh(VALUES_MESH, RING_LAYOUT, "ring", proc.rank, proc.world)
-        cfg, params, tokens = values_model(torch, attention_type="ring")
-        tree = _to(params, "cuda")
-        for _, t in named_leaves(tree):
-            t.requires_grad_(True)
-        reset_counts(attn, lnm, ring)
-        dp = vmesh.index("data")
-        loss, _ = DALLE(cfg, "cuda", vmesh).loss(tree, tokens[dp:dp + 1].cuda())
-        loss.backward()
-        grads = {"/".join(p): t.grad for p, t in named_leaves(tree)}
-        for t in (loss, *grads.values()):
-            dist.all_reduce(t.detach())
-        res["values"] = dict(coords=vmesh.coords, loss=loss.item(),
-                             launches={**attn.KERNEL_LAUNCHES, **ring.KERNEL_LAUNCHES},
-                             grads={n: t.cpu() for n, t in grads.items()}
-                             if proc.rank == 0 else None)
-        del tree, grads, loss
-        torch.cuda.empty_cache()
+    vmesh = build_mesh(VALUES_MESH, RING_LAYOUT, "ring", proc.rank, proc.world)
+    cfg, params, tokens = values_model(torch, attention_type="ring")
+    tree = _to(params, "cuda")
+    for _, t in named_leaves(tree):
+        t.requires_grad_(True)
+    reset_counts(attn, lnm, ring)
+    dp = vmesh.index("data")
+    loss, _ = DALLE(cfg, "cuda", vmesh).loss(tree, tokens[dp:dp + 1].cuda())
+    loss.backward()
+    grads = {"/".join(p): t.grad for p, t in named_leaves(tree)}
+    for t in (loss, *grads.values()):
+        dist.all_reduce(t.detach())
+    res["values"] = dict(coords=vmesh.coords, loss=loss.item(),
+                         launches={**attn.KERNEL_LAUNCHES, **ring.KERNEL_LAUNCHES},
+                         grads={n: t.cpu() for n, t in grads.items()}
+                         if proc.rank == 0 else None)
+    del tree, grads, loss
+    torch.cuda.empty_cache()
 
-        # the fourth arm: TP x SP, each rank its heads, MLP columns and
-        # vocabulary rows over its half of the sequence
-        dalle = DALLE(cfg, "cuda", tmesh)
-        sharding = dalle.sharding
-        tree = _to(sharding.shard_tree(params), "cuda")
-        for _, t in named_leaves(tree):
-            t.requires_grad_(True)
-        reset_counts(attn, lnm, ring)
-        loss, _ = dalle.loss(tree, tokens.cuda())
-        loss.backward()
-        grads = {"/".join(p): gather(t.grad, sharding.of(p), sharding.group)
-                 for p, t in named_leaves(tree)}
-        loss = loss.detach().clone()
-        for t in (loss, *grads.values()):
-            dist.all_reduce(t, group=tmesh.replica_group)
-        res["tpsp_values"] = dict(coords=tmesh.coords, loss=loss.item(), heads=dalle.heads,
-                                  launches={**attn.KERNEL_LAUNCHES, **ring.KERNEL_LAUNCHES},
-                                  grads={n: t.cpu() for n, t in grads.items()}
-                                  if proc.rank == 0 else None)
-        torch.save(res, os.path.join(out_dir, f"rank{proc.rank}.pt"))
-        del dalle, tree, grads, loss, res
-        torch.cuda.empty_cache()
-        tp_values_rank(torch, proc, out_dir)
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
+    # the fourth arm: TP x SP, each rank its heads, MLP columns and
+    # vocabulary rows over its half of the sequence
+    dalle = DALLE(cfg, "cuda", tmesh)
+    sharding = dalle.sharding
+    tree = _to(sharding.shard_tree(params), "cuda")
+    for _, t in named_leaves(tree):
+        t.requires_grad_(True)
+    reset_counts(attn, lnm, ring)
+    loss, _ = dalle.loss(tree, tokens.cuda())
+    loss.backward()
+    grads = {"/".join(p): gather(t.grad, sharding.of(p), sharding.group)
+             for p, t in named_leaves(tree)}
+    loss = loss.detach().clone()
+    for t in (loss, *grads.values()):
+        dist.all_reduce(t, group=tmesh.replica_group)
+    res["tpsp_values"] = dict(coords=tmesh.coords, loss=loss.item(), heads=dalle.heads,
+                              launches={**attn.KERNEL_LAUNCHES, **ring.KERNEL_LAUNCHES},
+                              grads={n: t.cpu() for n, t in grads.items()}
+                              if proc.rank == 0 else None)
+    torch.save(res, os.path.join(out_dir, f"rank{proc.rank}.pt"))
+    del dalle, tree, grads, loss, res
+    torch.cuda.empty_cache()
+    tp_values_rank(torch, proc, out_dir)
+    dist.barrier()
 
 
 def tpsp_hop_inputs(torch, dtype, hops: int):
@@ -2615,8 +2629,9 @@ def ring_attention_inputs(torch):
             for _ in range(4)]
 
 
-def phase_ring_attention(torch, attn, card):
-    """Four ranks on the card (``run_ranks``, gloo): ring
+def check_ring_attention(torch, attn, card, out_dir: str, wall: float):
+    """What the four ranks of phase_train_sharded's launch wrote before its
+    runs (``ring_checks_rank``; ``wall``: the launch's seconds): ring
     attention's forward and backward on their shards, gathered and held per
     64-long tile against the single-device [B, H, S, D] kernel pair on the
     whole sequence (2^-6 of each tile's max |single-device|), without and
@@ -2634,16 +2649,9 @@ def phase_ring_attention(torch, attn, card):
     from dalle_mtf_tpu_torch.ops import ring_attention as ring  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
 
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ring_")
-    try:
-        t0 = time.perf_counter()
-        run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "checks", out_dir], 600)
-        wall = time.perf_counter() - t0
-        ranks, tp_ranks = ([torch.load(os.path.join(out_dir, f"{kind}rank{r}.pt"),
-                                       weights_only=False) for r in range(RING_RANKS)]
-                           for kind in ("", "tp_"))
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+    ranks, tp_ranks = ([torch.load(os.path.join(out_dir, f"{kind}rank{r}.pt"),
+                                   weights_only=False) for r in range(RING_RANKS)]
+                       for kind in ("", "tp_"))
     if {(r["backend"], r["seq_group_backend"]) for r in ranks} != {("gloo", "gloo")}:
         raise AssertionError(f"ranks sharing a card must run gloo: {[r['backend'] for r in ranks]}")
     by_seq = sorted(ranks, key=lambda r: r["coords"]["seq"])
@@ -2745,7 +2753,8 @@ def phase_ring_attention(torch, attn, card):
     if any(abs(v["loss"] - tvals[0]["loss"]) > 0 for v in tvals):
         raise AssertionError(f"TP x SP values arm: the ranks' losses differ "
                              f"{[v['loss'] for v in tvals]}")
-    print(f"ring checks: 4 ranks in {wall:.1f}s; TP x SP values arm heads per rank "
+    print(f"ring checks: 4 ranks, their launch (with the ring runs after them) {wall:.1f}s; "
+          f"TP x SP values arm heads per rank "
           f"{[v['heads'] for v in tvals]}, launches per rank {tpsp_launches} "
           f"({TPSP_LABEL})", flush=True)
     tp_values = check_tp_values(torch, attn, card, tp_ranks, wall)
@@ -2807,9 +2816,10 @@ def state_digest(torch, state, moments: bool = False) -> str:
 
 
 def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
-    """One rank of phase_train_ring, phase_train_tp, phase_train_12b_tp,
-    phase_train_pp (``train_dalle.main``; ``--pp-values`` first runs
-    ``pp_values_rank``) and phase_train_vae_dp (``cli`` "train_vae",
+    """One rank of phase_train_sharded (``train_dalle.main``;
+    ``--ring-checks`` first runs ``ring_checks_rank``, ``--pp-values``
+    ``pp_values_rank``), phase_train_12b_tp and phase_train_vae_dp
+    (``cli`` "train_vae",
     cuDNN deterministic; ``--values <mesh_shape> <layout>`` first runs
     ``vae_values_rank``): the CLI on each of its argvs (separated by
     ``--then``: a resume runs in the same process group), the kernel counts
@@ -2910,7 +2920,9 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
             return streams[-1]
 
         module.vae_input_fn = timed_train_stream
-    values = sampling = pp_values = None
+    values = sampling = pp_values = ring_checks = None
+    if argv[:1] == ["--ring-checks"]:  # the ring checks first, in the same group
+        ring_checks, argv = True, argv[1:]
     if argv[:1] == ["--values"]:  # the VAE values check first, in the same group
         values, argv = argv[1:3], argv[3:]
     if argv[:1] == ["--pp-values"]:  # the pipeline's values check first, in the same group
@@ -2925,6 +2937,10 @@ def worker_train(torch, out_dir, argv, cli: str = "train_dalle"):
     try:
         if cli == "train_vae":  # as phase_train_vae: no run-dependent sum order
             torch.backends.cudnn.deterministic = True
+        if ring_checks:
+            ring_checks_rank(torch, proc, out_dir)
+            gc.collect()
+            torch.cuda.empty_cache()
         if values:
             vae_values_rank(torch, proc, out_dir, *values)
         if pp_values:
@@ -3054,28 +3070,37 @@ def sample_rank(torch, proc, out_dir, path, steps: int, batch: int) -> None:
                os.path.join(out_dir, f"sample_rank{proc.rank}.pt"))
 
 
-def train_ranks(torch, runs, evals, cfg, models=None) -> list[list[dict]]:
+def train_ranks(torch, runs, evals, cfg, models=None, checks=None, pp_argv=None):
     """The ring runs' ranks through ``train_dalle.main``, one launch for all
     of ``runs`` ((config path, steps, new); a resume in the same process
     group); checks what every rank logged and launched in each and that
     the copies of their parameters are bit-equal (``check_ring_ranks``;
     ``models``: each run's model-axis size, 1 for every run by default).
-    Returns each run's reports in rank order."""
+    With ``checks``, the ranks first run ``ring_checks_rank`` in the same
+    launch, and ``checks(out_dir, wall)`` reads what they wrote; with
+    ``pp_argv`` (``prepare_pp``'s), they also run ``pp_values_rank`` first
+    and the pipeline's runs after ``runs``. Returns each run's reports of
+    ``runs`` in rank order, and what ``checks`` returned."""
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_ring_train_")
     try:
+        flags = (["--ring-checks"] if checks else []) + (["--pp-values"] if pp_argv else [])
         argv = []
         for path, _, new in runs:
-            argv += (["--then"] if argv else []) + ["--model", path, "--gpu_ids", "0"] + (
-                ["--new", "--yes"] if new else [])
+            argv += (["--then"] if argv else []) + [
+                "--model", path, "--gpu_ids", "0"] + (["--new", "--yes"] if new else [])
+        argv = flags + argv + (["--then", *pp_argv] if pp_argv else [])
+        t0 = time.perf_counter()
         run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "train", out_dir,
                    *argv], 900)
+        wall = time.perf_counter() - t0
         reports = [[rank_report(out_dir, r, i) for r in range(RING_RANKS)]
                    for i in range(len(runs))]
+        checked = checks(out_dir, wall) if checks else None
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     for (_, steps, _), ranks, model in zip(runs, reports, models or [1] * len(runs)):
         check_ring_ranks(ranks, steps, evals, cfg, model)
-    return reports
+    return reports, checked
 
 
 def check_ring_ranks(ranks, steps, evals, cfg, model: int = 1) -> None:
@@ -3199,8 +3224,12 @@ def tpsp_block_digest(torch, obj, splits, model: int) -> str:
     return digest.hexdigest()
 
 
-def phase_train_ring(torch, card):
-    """The sequence-parallel main path: a tokens-mode copy of
+def phase_train_sharded(torch, card):
+    """The four-rank sharded runs in one launch of four ranks sharing the
+    card: the sequence-parallel main path, then the pipeline's and tensor
+    parallelism's runs (``prepare_pp``, ``finish_pp``; one launch saves
+    each the start and first-call set-up of its own). The sequence-parallel
+    main path: a tokens-mode copy of
     configs/dalle_4k.json at full width (as phase_train_long, the same
     dataset and seed) with ``attention_type: "ring"``, ``mesh_shape:
     data:1,seq:4`` and ``layout: batch_dim:data,total_seq_dim:seq``, through
@@ -3218,8 +3247,13 @@ def phase_train_ring(torch, card):
     hops a layer a pass), the bytes each rank staged and all_reduced a step
     by kind equal to ``tpsp_expected_bytes`` to the byte, and its
     checkpoint, read by one process, bit-equal to every rank's blocks.
-    Returns the ring kernels' launches over the four ranks of the first
-    run, and per rank, and each TP x SP rank's ring and LN launches."""
+    Before both runs, in the same launch, the ring checks
+    (``ring_checks_rank``, read by ``check_ring_attention``). Returns the
+    ring kernels' launches over the four ranks of the first run, and per
+    rank, each TP x SP rank's ring and LN launches, the ring checks'
+    values arms, and ``finish_pp``'s launches of the packed pair a rank of
+    the PP, PP x TP and TP runs."""
+    from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
 
@@ -3238,11 +3272,15 @@ def phase_train_ring(torch, card):
                 extra, mesh_shape=TPSP_MESH, layout=TPSP_LAYOUT,
                 model_path=os.path.join(tmp, "run_tpsp"))), os.path.join(tmp, "tpsp.json"))
         long_first_loss = single_first_loss(torch, path)
+        pp = prepare_pp(torch, os.path.join(tmp, "pp"))
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        ranks, tpsp = train_ranks(torch, [(path, RING_STEPS, True), (tpsp_path, RING_STEPS, True)],
-                                  1, cfg, (1, TPSP_MODEL))
+        (ranks, tpsp), (ring_values, pp_launches) = train_ranks(
+            torch, [(path, RING_STEPS, True), (tpsp_path, RING_STEPS, True)], 1, cfg,
+            (1, TPSP_MODEL), lambda out_dir, wall: (
+                check_ring_attention(torch, attn, card, out_dir, wall),
+                finish_pp(torch, card, pp, out_dir, wall, 2)), pp.argv)
         wall = time.perf_counter() - t0
         hist = ranks[0]["history"]
         losses = [h["loss"] for h in hist]
@@ -3255,7 +3293,8 @@ def phase_train_ring(torch, card):
         tokens_per_step = cfg.total_seq_len * fetch_model_params(path)["train_batch_size"]
         staged = [r["staged_bytes"] for r in ranks]
         print(f"train ring {LONG_CONFIG}: {RING_STEPS} steps + eval + checkpoint "
-              f"in {wall:.1f}s (4 ranks, one launch with the TP x SP run); losses "
+              f"in {wall:.1f}s (4 ranks, one launch with the ring checks, the TP x SP run "
+              f"and the pipeline's runs); losses "
               f"{[round(x, 4) for x in losses]} (the single-"
               f"process run's first {long_first_loss:.4f}); parameters bit-equal "
               f"over the ranks; launches per rank {[r['launches'] for r in ranks]}", flush=True)
@@ -3277,13 +3316,14 @@ def phase_train_ring(torch, card):
                                          tokens_per_step)
         per_rank = [{k: r["launches"][k] for k in ("ring_partial", "ring_block_grads")}
                     for r in ranks]
-        return {k: sum(p[k] for p in per_rank) for k in per_rank[0]}, per_rank, tpsp_launches
+        return ({k: sum(p[k] for p in per_rank) for k in per_rank[0]}, per_rank, tpsp_launches,
+                ring_values, pp_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 def check_train_tpsp(torch, card, tmp, dalle, cfg, ranks, single, tokens_per_step) -> list:
-    """phase_train_ring's TP x SP run (``ranks``, already held by
+    """phase_train_sharded's TP x SP run (``ranks``, already held by
     ``check_ring_ranks``): its first loss within 2e-3 of the single-process
     port's ``single``, the bytes each rank staged in the run and
     all_reduced in each step by kind equal to ``tpsp_expected_bytes``, and
@@ -3346,7 +3386,7 @@ def check_train_tpsp(torch, card, tmp, dalle, cfg, ranks, single, tokens_per_ste
 
 def tp_values_rank(torch, proc, out_dir):
     """One rank of the tensor-parallel values check (``check_tp_values``),
-    run by ``worker_checks`` in its process group, on TP_VALUES_MESH
+    run by ``ring_checks_rank`` in its process group, on TP_VALUES_MESH
     (dalle_coco's layout):
     each arm of TP_VALUES_ARMS on the 2-layer fp32 values model, the rank's
     row of the two and its blocks of the parameters: the loss and every
@@ -3439,7 +3479,7 @@ def tp_kernel_inputs(torch):
 
 def check_tp_values(torch, attn, card, ranks, wall: float) -> dict:
     """The values check of tensor parallelism, on what the 4 ranks of
-    phase_ring_attention's launch wrote (``tp_values_rank``; ``wall``: the
+    phase_train_sharded's launch wrote (``tp_values_rank``; ``wall``: the
     launch's seconds): TP_VALUES_MESH with dalle_coco's
     layout, the 2-layer fp32 values model at dalle_coco width (each rank 4
     heads, 2048 MLP columns, a 26,240-row block of the vocabulary), each arm
@@ -3503,8 +3543,8 @@ def check_tp_values(torch, attn, card, ranks, wall: float) -> dict:
                                      f"dropout differ from the single launch's heads "
                                      f"{h0}..{h0 + heads - 1}")
     print(f"tp values: under dropout 0.1 each rank's packed and [B, H, S, D] kernels on its "
-          f"heads equal one 8-head launch's bit for bit; 4 ranks in {wall:.1f}s (the ring "
-          f"checks' launch)", flush=True)
+          f"heads equal one 8-head launch's bit for bit; 4 ranks, the ring launch "
+          f"{wall:.1f}s", flush=True)
     return report
 
 
@@ -3537,127 +3577,50 @@ def single_first_loss(torch, path, shards=((0, 1),)) -> float:
     return loss.item()
 
 
-def tp_train_ranks(torch, runs, evals, cfg) -> list[list[dict]]:
-    """The tensor-parallel runs' TP_RANKS ranks through ``train_dalle.main``,
-    one launch for all of ``runs`` ((config path, steps, new), a resume in
-    the same process group); checks what every rank logged in each (the
-    same losses: the ranks of a model group hold one loss), its checkpoint
-    and its launches of the packed pair (its 4 heads, one forward a layer a
-    pass, one backward a layer a step). Returns each run's reports in rank
-    order."""
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_train_")
-    try:
-        argv = []
-        for path, _, new in runs:
-            argv += (["--then"] if argv else []) + ["--model", path, "--gpu_ids", "0"] + (
-                ["--new", "--yes"] if new else [])
-        run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "train", out_dir,
-                   *argv], 900, TP_RANKS)
-        reports = []
-        for i in range(len(runs)):
-            ranks = []
-            for r in range(TP_RANKS):
-                with open(os.path.join(out_dir, f"rank{r}_{i}.json")) as f:
-                    ranks.append(json.load(f))
-            reports.append(ranks)
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
-    for (_, steps, _), ranks in zip(runs, reports):
-        first = ranks[0]["history"][0]["step"]
-        want = {"causal_attention_packed_fwd": cfg.n_layers * (steps + evals),
-                "causal_attention_packed_bwd": cfg.n_layers * steps}
-        for r in ranks:
-            logged = [h["step"] for h in r["history"]]
-            if logged != list(range(first, first + steps)):
-                raise AssertionError(f"rank {r['rank']} logged steps {logged}")
-            if [h["loss"] for h in r["history"]] != [h["loss"] for h in ranks[0]["history"]]:
-                raise AssertionError("the ranks logged different losses")
-            if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-                       for h in r["history"]):
-                raise AssertionError(f"non-finite loss or grad_norm: {r['history']}")
-            if len(r["eval_history"]) != evals or not all(
-                    math.isfinite(e["eval_loss"]) for e in r["eval_history"]):
-                raise AssertionError(f"eval: {r['eval_history']}")
-            if r["checkpoints"] != [first + steps - 1]:
-                raise AssertionError(f"checkpoints {r['checkpoints']}")
-            if {k: c for k, c in r["launches"].items() if c} != want:
-                raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected "
-                                     f"{want}")
-    return reports
-
-
-def phase_train_tp(torch, card) -> list[dict]:
-    """The tensor-parallel main path: a tokens-mode copy of
-    configs/dalle_coco.json as published (n_embd 1024, 8 heads of 128,
-    S = 1280, vocab 52,307, bf16, remat dots_and_attn, the dense head; its
-    ``mesh_shape`` and ``layout`` verbatim) cut to TP_CUT, through
-    ``run_ranks`` of TP_RANKS ranks sharing the card and
-    ``train_dalle.main`` for TP_STEPS steps with an eval and a checkpoint
-    (the whole tree, gathered; the resumed run after it was cut for the
-    card time of the sharded serving phase: a resume over a model group
-    stays held bit for bit by phase_train_12b_tp).
-    The first loss must equal the single-process port's on the same records
-    and seed within 2e-3. Returns the packed pair's launches per rank of the
-    first run."""
+def report_train_tp(card, cfg, published, ranks, single: float, wall: float) -> None:
+    """The tensor-parallel run's checks beyond ``pp_train_checks`` and its
+    "train_tp" line: its first loss against ln V + var/2 and within 2e-3 of
+    the single-process port's on the same records (both data ranks' first
+    batches) and seed; step s, tokens/s, the collective bytes and peak
+    memory a rank."""
     from dalle_mtf_tpu_torch.parallel.mesh import VOCAB, split_bounds  # noqa: PLC0415
-    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
-    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_run_")
-    try:
-        published = fetch_model_params(TP_CONFIG)
-        dalle, _ = make_dalle_models({**published, **TP_CUT}, "cpu")
-        cfg = dalle.cfg
-        write_tokens_dataset(os.path.join(tmp, "data"), 4, cfg.image_seq_len,
-                             cfg.image_vocab_size, files=2, per_file=48)
-        path = shutil.copy(train_config(tmp, TP_STEPS, TP_CONFIG, TP_STEPS, **TP_CUT),
-                           os.path.join(tmp, "first.json"))
-        single = single_first_loss(torch, path)
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        (ranks,) = tp_train_ranks(torch, [(path, TP_STEPS, True)], 1, cfg)
-        wall = time.perf_counter() - t0
-        hist = ranks[0]["history"]
-        losses = [h["loss"] for h in hist]
-        init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
-        if abs(losses[0] - init_loss) > 0.1 or abs(losses[0] - single) > 2e-3:
-            raise AssertionError(f"first loss {losses[0]} vs ln(vocab) + var/2 = {init_loss} "
-                                 f"and the single-process port's {single} (atol 2e-3)")
-        step_s = [1.0 / h["steps_per_sec"] for h in hist[TP_TIMED_FROM - 1:]]
-        med = statistics.median(step_s)
-        batch = TP_CUT["train_batch_size"]
-        tokens_per_step = cfg.total_seq_len * batch
-        per_step = [r["collective_bytes_per_step"] for r in ranks]
-        print(f"train tp {TP_CONFIG}: {TP_STEPS} steps + eval + checkpoint "
-              f"in {wall:.1f}s ({TP_RANKS} ranks, one launch); losses "
-              f"{[round(x, 4) for x in losses]} (the single-process port's first {single:.4f}); "
-              f"launches per rank "
-              f"{[{k: c for k, c in r['launches'].items() if c} for r in ranks]}", flush=True)
-        print("train_tp", json.dumps(dict(
-            card=card, config=TP_CONFIG, label=TP_LABEL, ranks=TP_RANKS,
-            mesh_shape=published["mesh_shape"], layout=published["layout"],
-            resized_mesh="data:1,model:2", cut=TP_CUT, batch=batch, seq_len=cfg.total_seq_len,
-            n_layers=cfg.n_layers, n_embd=cfg.n_embd, heads_per_rank=cfg.n_heads // TP_RANKS,
-            vocab=cfg.total_tokens, bf16=cfg.bf_16,
-            vocab_rows_per_rank=[b - a for a, b in split_bounds(VOCAB, cfg.total_tokens,
-                                                                 TP_RANKS)],
-            remat_policy=cfg.remat_policy, steps_timed=len(step_s), step_s=step_s,
-            step_s_median=med, tokens_per_s=tokens_per_step / med,
-            collective_bytes_per_rank_per_step=per_step,
-            collective_bytes_per_rank_per_step_median=[statistics.median(b) for b in per_step],
-            peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
-            wall_s_per_rank=[r["wall_s"] for r in ranks], launch_wall_s=wall,
-            first_loss=losses[0], single_process_first_loss=single,
-            expected_init_loss=init_loss, losses=losses,
-            eval=ranks[0]["eval_history"],
-            packed_launches_per_rank=[{k: r["launches"][k] for k in (
-                "causal_attention_packed_fwd", "causal_attention_packed_bwd")} for r in ranks],
-        )), flush=True)
-        return [{k: r["launches"][k] for k in ("causal_attention_packed_fwd",
-                                                "causal_attention_packed_bwd")} for r in ranks]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    hist = ranks[0]["history"]
+    losses = [h["loss"] for h in hist]
+    init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
+    if abs(losses[0] - init_loss) > 0.1 or abs(losses[0] - single) > 2e-3:
+        raise AssertionError(f"first loss {losses[0]} vs ln(vocab) + var/2 = {init_loss} "
+                             f"and the single-process port's {single} (atol 2e-3)")
+    step_s = [1.0 / h["steps_per_sec"] for h in hist[TP_TIMED_FROM - 1:]]
+    med = statistics.median(step_s)
+    batch = TP_CUT["train_batch_size"]
+    per_step = [r["collective_bytes_per_step"] for r in ranks]
+    print(f"train tp {TP_CONFIG}: {TP_STEPS} steps + eval + checkpoint on {TP_TRAIN_MESH} "
+          f"(the pipeline launch's third run, {wall:.1f}s for the launch); losses "
+          f"{[round(x, 4) for x in losses]} (the single-process port's first {single:.4f}); "
+          f"launches per rank "
+          f"{[{k: c for k, c in r['launches'].items() if c} for r in ranks]}", flush=True)
+    print("train_tp", json.dumps(dict(
+        card=card, config=TP_CONFIG, label=PP_LABEL, ranks=PP_RANKS,
+        mesh_shape=published["mesh_shape"], layout=published["layout"],
+        resized_mesh=TP_TRAIN_MESH, cut=TP_CUT, batch=batch,
+        rows_per_data_rank=batch // TP_TRAIN_DATA, seq_len=cfg.total_seq_len,
+        n_layers=cfg.n_layers, n_embd=cfg.n_embd, heads_per_rank=cfg.n_heads // TP_RANKS,
+        vocab=cfg.total_tokens, bf16=cfg.bf_16,
+        vocab_rows_per_rank=[b - a for a, b in split_bounds(VOCAB, cfg.total_tokens,
+                                                             TP_RANKS)],
+        remat_policy=cfg.remat_policy, steps_timed=len(step_s), step_s=step_s,
+        step_s_median=med, tokens_per_s=cfg.total_seq_len * batch / med,
+        collective_bytes_per_rank_per_step=per_step,
+        collective_bytes_per_rank_per_step_median=[statistics.median(b) for b in per_step],
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+        wall_s_per_rank=[r["wall_s"] for r in ranks], launch_wall_s=wall,
+        first_loss=losses[0], single_process_first_loss=single,
+        expected_init_loss=init_loss, losses=losses,
+        eval=ranks[0]["eval_history"],
+        packed_launches_per_rank=[{k: r["launches"][k] for k in (
+            "causal_attention_packed_fwd", "causal_attention_packed_bwd")} for r in ranks],
+    )), flush=True)
 
 
 # ------------------------------------------------ pipeline parallelism
@@ -3665,7 +3628,9 @@ def phase_train_tp(torch, card) -> list[dict]:
 PP_RANKS = 4
 PP_MESH, PP_LAYOUT = "pipe:2,data:2", "batch_dim:data,layers:pipe"
 PP_STAGES, PP_DATA = 2, 2
-PP_STEPS, PP_TIMED_FROM = 3, 2  # steps 2..3 are timed
+# steps 2..PP_STEPS are timed (3 steps until the PP x TP arms took the card
+# time of the third)
+PP_STEPS, PP_TIMED_FROM = 2, 2
 # the run's depth: 4 of dalle_coco_synth's 12 layers, 2 a stage (12 until the
 # TP x SP run took its card time)
 PP_CUT = dict(n_layers=4)
@@ -3675,12 +3640,32 @@ PP_LABEL = ("4 ranks sharing one card over gloo, staged through host: not a mult
 # 8 rows (4 a data rank) at M = 2 and M = 4 microbatches
 PP_VALUES_LAYERS, PP_VALUES_ROWS, PP_VALUES_MICROBATCHES = 4, 8, (2, 4)
 PP_FIRST_LOSS_ATOL = 2e-3  # bf16, the rows in another grouping: as the ring and TP runs
+# PP x TP: configs/dalle_coco.json's published mesh and layout with a pipe
+# axis and layers:pipe added (data:16,pipe:2,model:2 -> data:1,pipe:2,model:2
+# on the 4 ranks of phase_train_sharded's launch): a rank runs its stage's 2 of 4
+# layers on 4 of the 8 heads, half the MLP width and a 26,240- or 26,067-row
+# block of the vocabulary; batch 8 (the published 128 over data:16), 2
+# microbatches of 4 rows, each stage's head on 4 rows; bf16, dots_and_attn
+PPTP_MESH = "data:16,pipe:2,model:2"
+PPTP_LAYOUT = TP_LAYOUT + ",layers:pipe"
+PPTP_MODEL = 2
+PPTP_CUT = dict(n_layers=4, train_batch_size=8, eval_batch_size=8, pipeline_microbatches=2)
+PPTP_STEPS = 2
+PPTP_METRICS = ("loss", "loss_text", "loss_image")
+# its values arm, in the launch's values check: the 4-layer fp32 values model
+# of the same width with the attention dropout on, 8 rows, M = 2, on
+# data:1,pipe:2,model:2; the loss within PP_VALUES_LOSS_ATOL and every
+# gradient within relative L2 PP_VALUES_GRAD_L2 of one process on the card,
+# as the PP arms (the TP values arms: 1e-5 and 1e-2 too)
+PPTP_VALUES_MESH, PPTP_VALUES_DROPOUT = "data:1,pipe:2,model:2", 0.1
+PP_VALUES_LOSS_ATOL, PP_VALUES_GRAD_L2 = 1e-5, 1e-2
 
 
 def pp_whole_grads(torch, dalle, mesh, tree) -> dict:
     """Every leaf's whole gradient on a pipe mesh: a stage's layers gathered
-    over the pipeline and summed over the replicas, the other leaves summed
-    over the replicas and the stages (a leaf a stage did not use: zeros)."""
+    over the pipeline (and a split leaf's blocks over the model group) and
+    summed over the replicas, the other leaves summed over the replicas and
+    the stages (a leaf a stage did not use: zeros)."""
     import torch.distributed as dist  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch.parallel.tensor import gather  # noqa: PLC0415
@@ -3689,27 +3674,58 @@ def pp_whole_grads(torch, dalle, mesh, tree) -> dict:
     out = {}
     for p, t in named_leaves(tree):
         g = torch.zeros_like(t) if t.grad is None else t.grad
-        split = dalle.sharding.of(p)
-        g = gather(g, split, dalle.sharding.group)
-        dist.all_reduce(g, group=mesh.replica_group if split is not None else mesh.share_group)
+        placed = dalle.sharding.placed(p)
+        g = gather(g, placed, None)
+        stage = any(x.axis == mesh.pipe_axis for x in placed)
+        n, group = (mesh.replicas, mesh.replica_group) if stage else (mesh.shares,
+                                                                    mesh.share_group)
+        if n > 1:
+            dist.all_reduce(g, group=group)
         out["/".join(p)] = g
     return out
 
 
+def pp_values_arm(torch, dalle, mesh, params, tokens, mine) -> dict:
+    """One values arm on a rank: the loss (summed over the shares) and
+    every leaf's whole gradient of ``dalle`` on its rows ``mine``, the
+    packed pair's launches; rank 0 adds one process's errors on ``tokens``."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
+
+    tree = _to(dalle.sharding.shard_tree(params), "cuda")
+    for _, t in named_leaves(tree):
+        t.requires_grad_(True)
+    reset_counts(attn)
+    loss, _ = dalle.loss(tree, mine, torch.Generator().manual_seed(TP_SEED))
+    loss.backward()
+    launches = {n: c for n, c in attn.KERNEL_LAUNCHES.items() if c}
+    grads = pp_whole_grads(torch, dalle, mesh, tree)
+    loss = loss.detach().clone()
+    dist.all_reduce(loss, group=mesh.share_group)
+    arm = dict(loss=loss.item(), launches=launches, layers=dalle.layers, heads=dalle.heads)
+    if mesh.rank == 0:
+        arm["one_process"] = values_errors(torch, dalle.cfg, params, tokens, False, grads)
+    del tree, grads, loss
+    torch.cuda.empty_cache()
+    return arm
+
+
 def pp_values_rank(torch, proc, out_dir) -> None:
-    """One rank's values check of pipeline parallelism, in phase_train_pp's
+    """One rank's values check of pipeline parallelism, in phase_train_sharded's
     launch before its training: the PP_VALUES_LAYERS-layer fp32 values model
     on PP_MESH, the rank's data rows of PP_VALUES_ROWS, at each of
-    PP_VALUES_MICROBATCHES: the loss and every leaf's whole gradient
-    (``pp_whole_grads``), which rank 0 holds against one process on the card
-    (``values_errors``), and the packed pair's launches on this rank.
-    Writes <out_dir>/pp_values_rank<r>.pt."""
+    PP_VALUES_MICROBATCHES, then the same model with the attention dropout
+    on (PPTP_VALUES_DROPOUT) on PPTP_VALUES_MESH with PPTP_LAYOUT's rules at
+    M = 2 (``pp_values_arm``: the loss and every leaf's whole gradient,
+    which rank 0 holds against one process on the card, ``values_errors``,
+    and the packed pair's launches on this rank). Writes
+    <out_dir>/pp_values_rank<r>.pt."""
     import torch.distributed as dist  # noqa: PLC0415
 
     from dalle_mtf_tpu_torch.models.dalle import DALLE  # noqa: PLC0415
-    from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
     from dalle_mtf_tpu_torch.parallel.mesh import build_mesh  # noqa: PLC0415
-    from dalle_mtf_tpu_torch.train.optim import named_leaves  # noqa: PLC0415
 
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = build_mesh(PP_MESH, PP_LAYOUT, "global", proc.rank, proc.world)
@@ -3721,75 +3737,77 @@ def pp_values_rank(torch, proc, out_dir) -> None:
     res = {"backend": proc.backend, "coords": mesh.coords, "stage": mesh.stage, "arms": {}}
     for m in PP_VALUES_MICROBATCHES:
         cfg = dataclasses.replace(base, pipeline_microbatches=m)
-        dalle = DALLE(cfg, "cuda", mesh)
-        tree = _to(dalle.sharding.shard_tree(params), "cuda")
-        for _, t in named_leaves(tree):
-            t.requires_grad_(True)
-        reset_counts(attn)
-        loss, _ = dalle.loss(tree, mine, torch.Generator().manual_seed(TP_SEED))
-        loss.backward()
-        launches = {n: c for n, c in attn.KERNEL_LAUNCHES.items() if c}
-        grads = pp_whole_grads(torch, dalle, mesh, tree)
-        loss = loss.detach().clone()
-        dist.all_reduce(loss, group=mesh.share_group)
-        res["arms"][m] = dict(loss=loss.item(), launches=launches, layers=dalle.layers)
-        if proc.rank == 0:
-            res["arms"][m]["one_process"] = values_errors(torch, cfg, params, tokens, False,
-                                                          grads)
-        del tree, grads, loss
-        torch.cuda.empty_cache()
+        res["arms"][m] = pp_values_arm(torch, DALLE(cfg, "cuda", mesh), mesh, params, tokens,
+                                       mine)
+    mesh = build_mesh(PPTP_VALUES_MESH, PPTP_LAYOUT, "global", proc.rank, proc.world)
+    cfg = dataclasses.replace(base, pipeline_microbatches=2,
+                              attention_dropout=PPTP_VALUES_DROPOUT)
+    res["pptp"] = pp_values_arm(torch, DALLE(cfg, "cuda", mesh), mesh, params, tokens,
+                                tokens.cuda())
+    res["pptp"]["coords"] = mesh.coords
     torch.save(res, os.path.join(out_dir, f"pp_values_rank{proc.rank}.pt"))
     dist.barrier()
 
 
 def check_pp_values(torch, card, out_dir) -> dict:
-    """phase_train_pp's values check on the ranks' reports: every rank's
-    loss within 1e-5 of one process's on the card, every gradient within
-    relative L2 error 1e-2 (the values checks' band: the 3xTF32 kernels and
-    fp32 sums in another order), one forward and one backward launch a layer
-    of the stage and a microbatch on each rank."""
+    """phase_train_sharded's values check on the ranks' reports: in every arm
+    every rank's loss within PP_VALUES_LOSS_ATOL of one process's on the
+    card, every gradient within relative L2 error PP_VALUES_GRAD_L2 (the
+    values checks' band: the 3xTF32 kernels and fp32 sums in another order),
+    one forward and one backward launch a layer of the stage and a
+    microbatch on each rank (of its heads in the PP x TP arm)."""
     ranks = [torch.load(os.path.join(out_dir, f"pp_values_rank{r}.pt"), weights_only=False)
              for r in range(PP_RANKS)]
     if {r["backend"] for r in ranks} != {"gloo"}:
         raise AssertionError(f"ranks sharing a card must run gloo: {[r['backend'] for r in ranks]}")
     report = {}
-    for m in PP_VALUES_MICROBATCHES:
-        one = ranks[0]["arms"][m]["one_process"]
-        losses = [r["arms"][m]["loss"] for r in ranks]
+    per = PP_VALUES_LAYERS // PP_STAGES
+    arms = [(f"M{m}", m, PP_MESH, [r["arms"][m] for r in ranks])
+            for m in PP_VALUES_MICROBATCHES]
+    arms.append(("pptp_M2", 2, f"{PPTP_VALUES_MESH} ({PPTP_LAYOUT}; attention dropout "
+                                f"{PPTP_VALUES_DROPOUT})", [r["pptp"] for r in ranks]))
+    for name, m, where, got in arms:
+        one = got[0]["one_process"]
+        losses = [a["loss"] for a in got]
         l2, elem = one["worst_grad_rel_l2"], one["worst_grad_elem"]
-        per = PP_VALUES_LAYERS // PP_STAGES
         need = {"causal_attention_packed_fwd": per * m, "causal_attention_packed_bwd": per * m}
-        launches = [r["arms"][m]["launches"] for r in ranks]
-        report[f"M{m}"] = dict(loss_pp=losses, loss_one_process=one["loss"],
-                               worst_grad_rel_l2=l2, worst_grad_elem=elem,
-                               layers_per_rank=[r["arms"][m]["layers"] for r in ranks],
-                               launches_per_rank=launches)
-        print(f"pp values M={m}: {PP_VALUES_LAYERS} layers, fp32, {PP_VALUES_ROWS} rows "
-              f"on {PP_MESH}: loss per rank {losses} vs one process {one['loss']:.7f} (atol "
-              f"1e-5); worst grad relative L2 error {l2[0]:.3g} ({l2[1]}, bound 1e-2); worst "
-              f"single element {elem[0]:.3g} of its leaf's max |grad| ({elem[1]}); launches "
-              f"per rank {launches} ({PP_LABEL}); {card}", flush=True)
-        if not (all(abs(x - one["loss"]) <= 1e-5 for x in losses) and l2[0] <= 1e-2):
-            raise AssertionError(f"pp values M={m}: the ranks disagree with one process")
+        launches = [a["launches"] for a in got]
+        report[name] = dict(loss_pp=losses, loss_one_process=one["loss"],
+                            worst_grad_rel_l2=l2, worst_grad_elem=elem,
+                            layers_per_rank=[a["layers"] for a in got],
+                            heads_per_rank=[a["heads"] for a in got],
+                            launches_per_rank=launches)
+        print(f"pp values {name}: {PP_VALUES_LAYERS} layers, fp32, {PP_VALUES_ROWS} rows "
+              f"on {where}: loss per rank {losses} vs one process {one['loss']:.7f} (atol "
+              f"{PP_VALUES_LOSS_ATOL}); worst grad relative L2 error {l2[0]:.3g} ({l2[1]}, "
+              f"bound {PP_VALUES_GRAD_L2}); worst single element {elem[0]:.3g} of its leaf's "
+              f"max |grad| ({elem[1]}); heads per rank {report[name]['heads_per_rank']}; "
+              f"launches per rank {launches} ({PP_LABEL}); {card}", flush=True)
+        if not (all(abs(x - one["loss"]) <= PP_VALUES_LOSS_ATOL for x in losses)
+                and l2[0] <= PP_VALUES_GRAD_L2):
+            raise AssertionError(f"pp values {name}: the ranks disagree with one process")
         if any(x != need for x in launches):
-            raise AssertionError(f"pp values M={m}: launches {launches}, expected {need}")
+            raise AssertionError(f"pp values {name}: launches {launches}, expected {need}")
     return report
 
 
-def pp_expected_bytes(cfg, batch: int, microbatches: int, stage: int) -> dict:
+def pp_expected_bytes(cfg, batch: int, microbatches: int, stage: int,
+                      data: int = PP_DATA, stages: int = PP_STAGES) -> dict:
     """What a rank of ``stage`` sends in one training step, from the code
     (parallel/pipeline.py), by kind: each microbatch's activations
     [b/M, S, E] forward to the next stage and their gradients backward to
     the previous one; the head rows [b/P, S, E] from the last stage to each
-    other stage and their gradients back (compute dtype)."""
-    rows = batch // PP_DATA
+    other stage and their gradients back (compute dtype). ``b``: a data
+    rank's rows of ``batch`` over ``data`` ranks (under PP x TP every rank
+    of a model group sends its own copy)."""
+    rows = batch // data
     elem = 2 if cfg.bf_16 else 4
     hop = rows // microbatches * cfg.total_seq_len * cfg.n_embd * elem
-    head = rows // PP_STAGES * cfg.total_seq_len * cfg.n_embd * elem
-    last = stage == PP_STAGES - 1
+    head = rows // stages * cfg.total_seq_len * cfg.n_embd * elem
+    last = stage == stages - 1
     return {"activations": 0 if last else microbatches * hop,
             "gradients": 0 if stage == 0 else microbatches * hop,
-            "head_rows": (PP_STAGES - 1) * head if last else 0,
+            "head_rows": (stages - 1) * head if last else 0,
             "head_grads": 0 if last else head}
 
 
@@ -3809,149 +3827,322 @@ def pp_expected_collective_bytes(dalle_whole, n_metrics: int) -> dict:
                 total=4 * blocks + 4 * replicated + 4 + 4 * n_metrics)
 
 
-def checkpoint_stage_digest(torch, obj, shapes, stage: int, per: int) -> str:
-    """sha256 of what a rank of ``stage`` holds of the parameters of a
-    checkpoint read by one process (``state_digest``'s order and bytes):
-    the stage's ``per`` layers of every stacked leaf, the other leaves
-    whole."""
+def pptp_block_shape(logical, shape, stage: int, index: int) -> tuple:
+    """The block of a leaf of whole ``shape`` (its JAX ``logical`` dims)
+    that the PP x TP rank of ``stage`` and model index ``index`` holds,
+    as [(dim, start, stop)]: the stage's half of the layers, and of a head,
+    MLP-width or vocabulary dim the model index's block
+    (``parallel.mesh.split_bounds``)."""
+    from dalle_mtf_tpu_torch.parallel.mesh import LAYERS, split_bounds  # noqa: PLC0415
+
+    out = []
+    for dim, (name, size) in enumerate(zip(logical, shape)):
+        if name == LAYERS:
+            per = size // PP_STAGES
+            out.append((dim, stage * per, (stage + 1) * per))
+        elif name in ("heads_dim", "intermediate_expanded", "vocab_dim"):
+            a, b = split_bounds(name, size, PPTP_MODEL)[index]
+            out.append((dim, a, b))
+    return out
+
+
+def pptp_expected_collective_bytes(dalle_whole, rows: int, microbatches: int, stage: int,
+                                   index: int) -> dict:
+    """What a PP x TP rank of ``stage`` and model index ``index`` all_reduces
+    in one training step, from the code, by kind (train/trainer.py,
+    parallel/tensor.py, ops/losses.py), with ``rows`` batch rows a data rank
+    (one data rank):
+
+    - "model", before the gradient sum: on the first stage the
+      vocab-parallel embedding's sum of the ``rows`` rows; each of the
+      stage's layers on each microbatch the attention and MLP outputs' sums
+      forward and their inputs' gradient sums backward ([b/M, S, E] in the
+      compute dtype each); the head rows' input-gradient sum ([b/P, S, E])
+      and the xent's fp32 row max and its sum-exp and target logit;
+    - "gradient_sum": the leaves that are not a stage's layers (the
+      embeddings, the final LN and the loss head's block) over the pipe
+      group, fp32; a stage's layers have one data rank, nothing to sum;
+    - "after": the gradients of the leaves whole on the model group (the
+      position embedding, the LNs, ``o_b``, ``b_mlp2``) broadcast over it,
+      the global norm's fp32 squares (one all_reduce over the model group,
+      one over the pipeline, and two, model then pipeline, for the stacked
+      blocks) and the metrics' shares over the pipeline."""
+    cfg = dalle_whole.cfg
+    elem = 2 if cfg.bf_16 else 4
+    s, e, per = cfg.total_seq_len, cfg.n_embd, cfg.n_layers // PP_STAGES
+    head = rows // PP_STAGES
+    act = rows // microbatches * s * e * elem
+    model = ((rows * s * e * elem if stage == 0 else 0) + per * microbatches * 4 * act
+             + head * s * e * elem + 3 * head * s * 4)
+    axes = dict(_shape_leaves(dalle_whole.logical_axes()))
+    shared = copied = 0
+    for path, shape in _shape_leaves(dalle_whole.param_shapes()):
+        block = list(shape)
+        for dim, a, b in pptp_block_shape(axes[path], shape, stage, index):
+            block[dim] = b - a
+        n = math.prod(block)
+        if path[0] != "layers":
+            shared += n
+        if not any(name in ("heads_dim", "intermediate_expanded", "vocab_dim")
+                   for name in axes[path]):
+            copied += n
+    return {"model": model, "gradient_sum": 4 * shared,
+            "after": 4 * copied + 4 * 4 + 4 * len(PPTP_METRICS)}
+
+
+def checkpoint_block_digest(torch, obj, shapes, logical, blocks) -> str:
+    """sha256 of what a rank holds of the parameters of a checkpoint read by
+    one process (``state_digest``'s order and bytes): of each leaf the
+    block ``blocks(path, logical dims, whole shape)`` gives as [(dim, start,
+    stop)], the whole leaf where it gives none."""
     import hashlib  # noqa: PLC0415
 
     digest = hashlib.sha256()
     for p, _ in shapes:
         t = obj["params"]["/".join(p)]
-        if p[0] == "layers":
-            t = t[stage * per:(stage + 1) * per]
+        for dim, a, b in blocks(p, logical[p], tuple(t.shape)):
+            t = t.narrow(dim, a, b - a)
         digest.update(t.float().numpy().tobytes())
     return digest.hexdigest()
 
 
-def phase_train_pp(torch, card) -> list[dict]:
-    """The pipeline-parallel main path: a tokens-mode copy of
+def pp_train_checks(ranks, steps: int, evals: int, want: dict, hops, coll=None) -> None:
+    """The checks of a run's rank reports: the logged steps, the losses
+    equal on every rank and finite, the evals, the checkpoint at the last
+    step, the packed pair's launches ``want``, the bytes each rank's hops
+    sent a step, ``hops(rank)``, and (with ``coll``) its all_reduce bytes a
+    step, ``coll(rank)`` (a total, or by kind)."""
+    for r in ranks:
+        if [h["step"] for h in r["history"]] != list(range(1, steps + 1)):
+            raise AssertionError(f"rank {r['rank']} logged {r['history']}")
+        if [h["loss"] for h in r["history"]] != [h["loss"] for h in ranks[0]["history"]]:
+            raise AssertionError("the ranks logged different losses")
+        if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                   for h in r["history"]):
+            raise AssertionError(f"non-finite loss or grad_norm: {r['history']}")
+        if len(r["eval_history"]) != evals or not all(
+                math.isfinite(e["eval_loss"]) for e in r["eval_history"]):
+            raise AssertionError(f"eval: {r['eval_history']}")
+        if r["checkpoints"] != [steps]:
+            raise AssertionError(f"checkpoints {r['checkpoints']}")
+        if {k: c for k, c in r["launches"].items() if c} != want:
+            raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected {want}")
+        if any(step != hops(r["rank"]) for step in r["pipe_bytes_per_step"]):
+            raise AssertionError(f"rank {r['rank']} sent {r['pipe_bytes_per_step']} a step, "
+                                 f"expected {hops(r['rank'])}")
+        if coll is None:
+            continue
+        want_bytes = coll(r["rank"])
+        got = (r["collective_bytes_by_kind_per_step"] if isinstance(want_bytes, dict)
+               else r["collective_bytes_per_step"])
+        if any(b != want_bytes for b in got):
+            raise AssertionError(f"rank {r['rank']} all_reduced {got} bytes a step, expected "
+                                 f"{want_bytes}")
+
+
+def prepare_pp(torch, tmp: str) -> types.SimpleNamespace:
+    """The pipeline and tensor-parallel runs of ``phase_train_sharded``'s
+    launch, set up under ``tmp``: their configs and records, and the
+    single-process port's first losses on them. ``argv``: the three runs'
+    ``train_dalle.main`` arguments, joined by ``--then`` (the launch runs
+    ``--pp-values`` before them); the rest is for ``finish_pp``."""
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
+
+    published = fetch_model_params(TRAIN_CONFIG)
+    over = dict(mesh_shape=PP_MESH, layout=PP_LAYOUT, **PP_CUT)
+    dalle, _ = make_dalle_models({**published, **over}, "cpu")
+    cfg = dalle.cfg
+    write_tokens_dataset(os.path.join(tmp, "data"), 6, cfg.image_seq_len,
+                         cfg.image_vocab_size, files=2, per_file=48)
+    path = train_config(tmp, PP_STEPS, TRAIN_CONFIG, PP_STEPS, **over)
+    single = single_first_loss(torch, path, [(d, PP_DATA) for d in range(PP_DATA)])
+    # PP x TP: dalle_coco's published layout plus layers:pipe
+    tmp_tp = os.path.join(tmp, "pptp")
+    tp_published = fetch_model_params(TP_CONFIG)
+    tp_over = dict(mesh_shape=PPTP_MESH, layout=PPTP_LAYOUT, **PPTP_CUT)
+    tp_dalle, _ = make_dalle_models({**tp_published, **tp_over}, "cpu")
+    tp_cfg = tp_dalle.cfg
+    write_tokens_dataset(os.path.join(tmp_tp, "data"), 8, tp_cfg.image_seq_len,
+                         tp_cfg.image_vocab_size, files=1, per_file=32)
+    tp_path = train_config(tmp_tp, PPTP_STEPS, TP_CONFIG, PPTP_STEPS, **tp_over)
+    tp_single = single_first_loss(torch, tp_path)
+    # TP alone: dalle_coco as published, data:2,model:2 on the four ranks
+    tmp_tp_run = os.path.join(tmp, "tp")
+    write_tokens_dataset(os.path.join(tmp_tp_run, "data"), 4, tp_cfg.image_seq_len,
+                         tp_cfg.image_vocab_size, files=2, per_file=48)
+    tp_run_path = train_config(tmp_tp_run, TP_STEPS, TP_CONFIG, TP_STEPS, **TP_CUT)
+    tp_run_single = single_first_loss(torch, tp_run_path,
+                                      [(d, TP_TRAIN_DATA) for d in range(TP_TRAIN_DATA)])
+    argv = ["--model", path, "--gpu_ids", "0", "--new", "--yes",
+            "--then", "--model", tp_path, "--gpu_ids", "0", "--new", "--yes",
+            "--then", "--model", tp_run_path, "--gpu_ids", "0", "--new", "--yes"]
+    return types.SimpleNamespace(
+        argv=argv, tmp=tmp, tmp_tp=tmp_tp, published=published, dalle=dalle, cfg=cfg,
+        single=single, tp_published=tp_published, tp_dalle=tp_dalle, tp_cfg=tp_cfg,
+        tp_single=tp_single, tp_run_single=tp_run_single)
+
+
+def finish_pp(torch, card, pp, out_dir: str, wall: float, first: int):
+    """The checks of the pipeline-parallel main path, on what the ranks of
+    ``phase_train_sharded``'s launch wrote (its runs ``first``.. are
+    ``prepare_pp``'s; ``wall``: the launch's seconds): a tokens-mode copy of
     configs/dalle_coco_synth.json as published (1024 wide, 8 heads of 128,
     S = 1280, vocab 52,307, batch 16, bf16, dots_and_attn) cut to PP_CUT
     (4 of its 12 layers), with ``mesh_shape`` PP_MESH and ``layout``
     PP_LAYOUT (each stage 2 layers, 2
     microbatches of 4 rows a data rank, the loss head on 4 rows a rank),
     through ``run_ranks`` of PP_RANKS ranks sharing the card and
-    ``train_dalle.main`` for PP_STEPS steps with an eval and a checkpoint.
+    ``train_dalle.main`` for PP_STEPS steps with an eval and a checkpoint;
+    then, in the same launch, PP x TP: a tokens-mode copy of
+    configs/dalle_coco.json with its published layout plus ``layers:pipe``
+    on PPTP_MESH (data:1,pipe:2,model:2), cut to PPTP_CUT, for PPTP_STEPS
+    steps with an eval and a checkpoint; then tensor parallelism alone: a
+    tokens-mode copy of configs/dalle_coco.json as published (its mesh and
+    layout, TP_TRAIN_MESH on the four ranks), cut to TP_CUT, for TP_STEPS
+    steps with an eval and a checkpoint (``report_train_tp``).
     In the same launch, first, the values check (``pp_values_rank``,
-    ``check_pp_values``). Checks: the first loss within PP_FIRST_LOSS_ATOL
-    of the single-process port's on the same seed and the same records (the
-    first batches of both data ranks' shards); the losses equal on every
-    rank; the
+    ``check_pp_values``: PP at M = 2 and 4, PP x TP at M = 2 with the
+    attention dropout on). Checks of each run: the first loss within
+    PP_FIRST_LOSS_ATOL of the single-process port's on the same seed and
+    the same records (PP: the first batches of both data ranks' shards);
+    the losses equal on every rank; the
     packed pair's launches a rank (its 2 layers, a forward a microbatch a
     pass and a backward a microbatch a step); the bytes each rank sent a
     step, by kind, to the byte of ``pp_expected_bytes``; the all_reduce
-    bytes a rank a step to the byte of ``pp_expected_collective_bytes``;
+    bytes a rank a step to the byte of ``pp_expected_collective_bytes``
+    (PP x TP: by kind, of ``pptp_expected_collective_bytes``);
     the checkpoint read by one process holding each rank's final parameters
-    bit for bit. Returns the packed pair's launches per rank."""
-    from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
+    (its blocks) bit for bit (not held of the TP run, which phase_train_12b_tp
+    holds). Returns the packed pair's launches per rank of each run."""
     from dalle_mtf_tpu_torch.utils import checkpoint  # noqa: PLC0415
-    from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_run_")
     names = ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
-    try:
-        published = fetch_model_params(TRAIN_CONFIG)
-        over = dict(mesh_shape=PP_MESH, layout=PP_LAYOUT, **PP_CUT)
-        dalle, _ = make_dalle_models({**published, **over}, "cpu")
-        cfg = dalle.cfg
-        write_tokens_dataset(os.path.join(tmp, "data"), 6, cfg.image_seq_len,
-                             cfg.image_vocab_size, files=2, per_file=48)
-        path = train_config(tmp, PP_STEPS, TRAIN_CONFIG, PP_STEPS, **over)
-        single = single_first_loss(torch, path, [(d, PP_DATA) for d in range(PP_DATA)])
-        gc.collect()
-        torch.cuda.empty_cache()
-        out_dir = os.path.join(tmp, "ranks")
-        os.makedirs(out_dir)
-        t0 = time.perf_counter()
-        run_ranks([os.path.join(HERE, "chip_smoke.py"), "--ring-worker", "train", out_dir,
-                   "--pp-values", "--model", path, "--gpu_ids", "0", "--new", "--yes"], 600,
-                  PP_RANKS)
-        wall = time.perf_counter() - t0
-        values = check_pp_values(torch, card, out_dir)
-        ranks = [rank_report(out_dir, r, 0) for r in range(PP_RANKS)]
-        batch, m = published["train_batch_size"], cfg.pipeline_microbatches or PP_STAGES
-        evals = 1
-        per = cfg.n_layers // PP_STAGES
-        want = {names[0]: per * m * (PP_STEPS + evals), names[1]: per * m * PP_STEPS}
-        metrics = ("loss", "loss_text", "loss_image")
-        coll = pp_expected_collective_bytes(dalle, len(metrics))
-        for r in ranks:
-            stage = r["rank"] // PP_DATA
-            if [h["step"] for h in r["history"]] != list(range(1, PP_STEPS + 1)):
-                raise AssertionError(f"rank {r['rank']} logged {r['history']}")
-            if [h["loss"] for h in r["history"]] != [h["loss"] for h in ranks[0]["history"]]:
-                raise AssertionError("the ranks logged different losses")
-            if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-                       for h in r["history"]):
-                raise AssertionError(f"non-finite loss or grad_norm: {r['history']}")
-            if len(r["eval_history"]) != evals or not all(
-                    math.isfinite(e["eval_loss"]) for e in r["eval_history"]):
-                raise AssertionError(f"eval: {r['eval_history']}")
-            if r["checkpoints"] != [PP_STEPS]:
-                raise AssertionError(f"checkpoints {r['checkpoints']}")
-            if {k: c for k, c in r["launches"].items() if c} != want:
-                raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected "
-                                     f"{want}")
-            hops = pp_expected_bytes(cfg, batch, m, stage)
-            if any(step != hops for step in r["pipe_bytes_per_step"]):
-                raise AssertionError(f"rank {r['rank']} (stage {stage}) sent "
-                                     f"{r['pipe_bytes_per_step']} a step, expected {hops}")
-            if any(b != coll["total"] for b in r["collective_bytes_per_step"]):
-                raise AssertionError(f"rank {r['rank']} all_reduced "
-                                     f"{r['collective_bytes_per_step']} bytes a step, expected "
-                                     f"{coll['total']} ({coll})")
-        losses = [h["loss"] for h in ranks[0]["history"]]
-        init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
-        if abs(losses[0] - init_loss) > 0.1 or abs(losses[0] - single) > PP_FIRST_LOSS_ATOL:
-            raise AssertionError(f"first loss {losses[0]} vs ln(vocab) + var/2 = {init_loss} "
-                                 f"and the single-process port's {single} (atol "
+    (published, dalle, cfg, single, tp_published, tp_dalle, tp_cfg, tp_single, tp_run_single,
+     tmp, tmp_tp) = (pp.published, pp.dalle, pp.cfg, pp.single, pp.tp_published, pp.tp_dalle,
+                     pp.tp_cfg, pp.tp_single, pp.tp_run_single, pp.tmp, pp.tmp_tp)
+    values = check_pp_values(torch, card, out_dir)
+    ranks = [rank_report(out_dir, r, first) for r in range(PP_RANKS)]
+    tp_ranks = [rank_report(out_dir, r, first + 1) for r in range(PP_RANKS)]
+    tp_run_ranks = [rank_report(out_dir, r, first + 2) for r in range(PP_RANKS)]
+    batch, m = published["train_batch_size"], cfg.pipeline_microbatches or PP_STAGES
+    evals = 1
+    per = cfg.n_layers // PP_STAGES
+    want = {names[0]: per * m * (PP_STEPS + evals), names[1]: per * m * PP_STEPS}
+    metrics = ("loss", "loss_text", "loss_image")
+    coll = pp_expected_collective_bytes(dalle, len(metrics))
+    pp_train_checks(ranks, PP_STEPS, evals, want,
+                    lambda r: pp_expected_bytes(cfg, batch, m, r // PP_DATA),
+                    lambda r: coll["total"])
+    tp_batch, tp_m = PPTP_CUT["train_batch_size"], PPTP_CUT["pipeline_microbatches"]
+    tp_want = {names[0]: per * tp_m * (PPTP_STEPS + evals), names[1]: per * tp_m * PPTP_STEPS}
+    tp_coll = [pptp_expected_collective_bytes(tp_dalle, tp_batch, tp_m, r // PPTP_MODEL,
+                                              r % PPTP_MODEL) for r in range(PP_RANKS)]
+    pp_train_checks(tp_ranks, PPTP_STEPS, evals, tp_want,
+                    lambda r: pp_expected_bytes(tp_cfg, tp_batch, tp_m, r // PPTP_MODEL, 1),
+                    lambda r: tp_coll[r])
+    tp_layers = TP_CUT["n_layers"]
+    pp_train_checks(tp_run_ranks, TP_STEPS, evals,
+                    {names[0]: tp_layers * (TP_STEPS + evals), names[1]: tp_layers * TP_STEPS},
+                    lambda r: dict.fromkeys(("activations", "gradients", "head_rows",
+                                             "head_grads"), 0))
+    report_train_tp(card, tp_cfg, tp_published, tp_run_ranks, tp_run_single, wall)
+    init_loss = math.log(cfg.total_tokens) + cfg.n_embd * 0.02**2 / 2
+    for run, one in ((ranks, single), (tp_ranks, tp_single)):
+        first = run[0]["history"][0]["loss"]
+        if abs(first - init_loss) > 0.1 or abs(first - one) > PP_FIRST_LOSS_ATOL:
+            raise AssertionError(f"first loss {first} vs ln(vocab) + var/2 = {init_loss} "
+                                 f"and the single-process port's {one} (atol "
                                  f"{PP_FIRST_LOSS_ATOL})")
-        t_read = time.perf_counter()
-        obj = checkpoint.read(os.path.join(tmp, "run", "checkpoints", f"ckpt_{PP_STEPS}.pt"))
-        shapes = list(_shape_leaves(dalle.param_shapes(whole=True)))
-        digests = [checkpoint_stage_digest(torch, obj, shapes, r["rank"] // PP_DATA, per)
-                   for r in ranks]
-        read_s = time.perf_counter() - t_read
-        if digests != [r["params_sha256"] for r in ranks]:
-            raise AssertionError("the checkpoint read by one process differs from the ranks' "
-                                 "final parameters")
+    losses = [h["loss"] for h in ranks[0]["history"]]
+    t_read = time.perf_counter()
+    shapes = list(_shape_leaves(dalle.param_shapes(whole=True)))
+    logical = dict(_shape_leaves(dalle.logical_axes()))
+
+    def stage_block(r):  # a PP rank's: its stage's layers, the other leaves whole
+        return lambda p, names_, shape: [
+            (0, r // PP_DATA * per, (r // PP_DATA + 1) * per)] if p[0] == "layers" else []
+
+    def pptp_block(r):
+        return lambda p, names_, shape: pptp_block_shape(names_, shape, r // PPTP_MODEL,
+                                                         r % PPTP_MODEL)
+
+    for run, root, block in ((ranks, tmp, stage_block), (tp_ranks, tmp_tp, pptp_block)):
+        steps = run[0]["checkpoints"][-1]
+        obj = checkpoint.read(os.path.join(root, "run", "checkpoints", f"ckpt_{steps}.pt"))
+        digests = [checkpoint_block_digest(torch, obj, shapes, logical, block(r["rank"]))
+                   for r in run]
+        if digests != [r["params_sha256"] for r in run]:
+            raise AssertionError(f"the checkpoint read by one process differs from the "
+                                 f"ranks' final parameters ({root})")
         del obj
-        step_s = [1.0 / h["steps_per_sec"] for h in ranks[0]["history"][PP_TIMED_FROM - 1:]]
-        med = statistics.median(step_s)
-        hop = pp_expected_bytes(cfg, batch, m, 0)["activations"] // m
-        launched = [{k: c for k, c in r["launches"].items() if c} for r in ranks]
-        print(f"train pp {TRAIN_CONFIG}: {PP_STEPS} steps + eval + checkpoint in {wall:.1f}s "
-              f"({PP_RANKS} ranks, one launch, the values check first); losses "
-              f"{[round(x, 4) for x in losses]} (the single-process port's first {single:.4f});"
-              f" launches per rank {launched}; {hop} bytes a microbatch a hop; checkpoint "
-              f"bit-equal to every rank's parameters ({PP_LABEL})", flush=True)
-        print("train_pp", json.dumps(dict(
-            card=card, config=TRAIN_CONFIG, label=PP_LABEL, ranks=PP_RANKS, mesh_shape=PP_MESH,
-            layout=PP_LAYOUT, stages=PP_STAGES, data_ranks=PP_DATA, microbatches=m,
-            microbatch_rows=batch // PP_DATA // m, head_rows_per_rank=batch // PP_DATA // PP_STAGES,
-            bubble=(PP_STAGES - 1) / (m + PP_STAGES - 1), batch=batch, seq_len=cfg.total_seq_len,
-            n_layers=cfg.n_layers, layers_per_stage=per, n_embd=cfg.n_embd,
-            vocab=cfg.total_tokens, bf16=cfg.bf_16, remat_policy=cfg.remat_policy,
-            steps_timed=len(step_s), step_s=step_s, step_s_median=med,
-            tokens_per_s=cfg.total_seq_len * batch / med,
-            hop_bytes_per_microbatch=hop,
-            sent_bytes_per_rank_per_step=[r["pipe_bytes_per_step"] for r in ranks],
-            staged_bytes_per_rank=[r["pipe_staged_bytes"] for r in ranks],
-            collective_bytes_per_rank_per_step=[r["collective_bytes_per_step"] for r in ranks],
-            collective_bytes_expected=coll,
-            peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
-            wall_s_per_rank=[r["wall_s"] for r in ranks], launch_wall_s=wall,
-            checkpoint_read_s=read_s, checkpoint_bit_equal=True,
-            first_loss=losses[0], single_process_first_loss=single,
-            expected_init_loss=init_loss, losses=losses, eval=ranks[0]["eval_history"],
-            packed_launches_per_rank=[{k: r["launches"][k] for k in names} for r in ranks],
-            values=values,
-        )), flush=True)
-        return [{k: r["launches"][k] for k in names} for r in ranks]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    read_s = time.perf_counter() - t_read
+    step_s = [1.0 / h["steps_per_sec"] for h in ranks[0]["history"][PP_TIMED_FROM - 1:]]
+    med = statistics.median(step_s)
+    hop = pp_expected_bytes(cfg, batch, m, 0)["activations"] // m
+    launched = [{k: c for k, c in r["launches"].items() if c} for r in ranks]
+    print(f"train pp {TRAIN_CONFIG}: {PP_STEPS} steps + eval + checkpoint, then pp x tp "
+          f"{TP_CONFIG}: {PPTP_STEPS} steps + eval + checkpoint ({PP_RANKS} ranks, the "
+          f"four-rank launch of {wall:.1f}s, the values check first); losses "
+          f"{[round(x, 4) for x in losses]} (the single-process port's first {single:.4f});"
+          f" launches per rank {launched}; {hop} bytes a microbatch a hop; checkpoint "
+          f"bit-equal to every rank's parameters ({PP_LABEL})", flush=True)
+    print("train_pp", json.dumps(dict(
+        card=card, config=TRAIN_CONFIG, label=PP_LABEL, ranks=PP_RANKS, mesh_shape=PP_MESH,
+        layout=PP_LAYOUT, stages=PP_STAGES, data_ranks=PP_DATA, microbatches=m,
+        microbatch_rows=batch // PP_DATA // m, head_rows_per_rank=batch // PP_DATA // PP_STAGES,
+        bubble=(PP_STAGES - 1) / (m + PP_STAGES - 1), batch=batch, seq_len=cfg.total_seq_len,
+        n_layers=cfg.n_layers, layers_per_stage=per, n_embd=cfg.n_embd,
+        vocab=cfg.total_tokens, bf16=cfg.bf_16, remat_policy=cfg.remat_policy,
+        steps_timed=len(step_s), step_s=step_s, step_s_median=med,
+        tokens_per_s=cfg.total_seq_len * batch / med,
+        hop_bytes_per_microbatch=hop,
+        sent_bytes_per_rank_per_step=[r["pipe_bytes_per_step"] for r in ranks],
+        staged_bytes_per_rank=[r["pipe_staged_bytes"] for r in ranks],
+        collective_bytes_per_rank_per_step=[r["collective_bytes_per_step"] for r in ranks],
+        collective_bytes_expected=coll,
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+        wall_s_per_rank=[r["wall_s"] for r in ranks], launch_wall_s=wall,
+        checkpoint_read_s=read_s, checkpoint_bit_equal=True,
+        first_loss=losses[0], single_process_first_loss=single,
+        expected_init_loss=init_loss, losses=losses, eval=ranks[0]["eval_history"],
+        packed_launches_per_rank=[{k: r["launches"][k] for k in names} for r in ranks],
+        values=values,
+    )), flush=True)
+    tp_losses = [h["loss"] for h in tp_ranks[0]["history"]]
+    tp_step_s = [1.0 / h["steps_per_sec"] for h in tp_ranks[0]["history"][1:]]
+    tp_med = statistics.median(tp_step_s)
+    print("train_pptp", json.dumps(dict(
+        card=card, config=TP_CONFIG, label=PP_LABEL, ranks=PP_RANKS,
+        mesh_shape=PPTP_MESH, resized_mesh="data:1,pipe:2,model:2", layout=PPTP_LAYOUT,
+        published_mesh_shape=tp_published["mesh_shape"],
+        published_layout=tp_published["layout"], cut=PPTP_CUT, batch=tp_batch,
+        microbatches=tp_m, microbatch_rows=tp_batch // tp_m,
+        head_rows_per_rank=tp_batch // PP_STAGES, stages=PP_STAGES, model=PPTP_MODEL,
+        bubble=(PP_STAGES - 1) / (tp_m + PP_STAGES - 1), seq_len=tp_cfg.total_seq_len,
+        n_layers=tp_cfg.n_layers, layers_per_stage=per, n_embd=tp_cfg.n_embd,
+        heads_per_rank=tp_cfg.n_heads // PPTP_MODEL, vocab=tp_cfg.total_tokens,
+        bf16=tp_cfg.bf_16, remat_policy=tp_cfg.remat_policy,
+        steps_timed=len(tp_step_s), step_s=tp_step_s, step_s_median=tp_med,
+        tokens_per_s=tp_cfg.total_seq_len * tp_batch / tp_med,
+        hop_bytes_per_microbatch=pp_expected_bytes(tp_cfg, tp_batch, tp_m, 0, 1)[
+            "activations"] // tp_m,
+        sent_bytes_per_rank_per_step=[r["pipe_bytes_per_step"] for r in tp_ranks],
+        staged_bytes_per_rank=[r["pipe_staged_bytes"] for r in tp_ranks],
+        collective_bytes_by_kind_per_rank_per_step=[
+            r["collective_bytes_by_kind_per_step"] for r in tp_ranks],
+        collective_bytes_by_kind_expected=tp_coll,
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in tp_ranks],
+        wall_s_per_rank=[r["wall_s"] for r in tp_ranks],
+        checkpoint_bit_equal=True, first_loss=tp_losses[0],
+        single_process_first_loss=tp_single, losses=tp_losses,
+        eval=tp_ranks[0]["eval_history"],
+        packed_launches_per_rank=[{k: r["launches"][k] for k in names} for r in tp_ranks],
+        values=values["pptp_M2"],
+    )), flush=True)
+    return ([{k: r["launches"][k] for k in names} for r in ranks],
+            [{k: r["launches"][k] for k in names} for r in tp_ranks],
+            [{k: r["launches"][k] for k in names} for r in tp_run_ranks])
 
 
 # ----------------------------------- VAE data parallelism and 12B's model:8
@@ -3961,11 +4152,12 @@ VAE_DP_RANKS, VAE_TP_VALUES_RANKS = 2, 4
 VAE_DP_STEPS, VAE_DP_SPLIT, VAE_DP_TIMED_FROM = 4, 2, 2  # steps 2..4 of the unbroken run timed
 VAE_DP_LABEL = TP_LABEL
 VAE_TP_VALUES_LABEL = TP_VALUES_LABEL
-# the values check: the published width in fp32, 8 rows, 2 steps, each arm
-# against one process: data:2 on 2 ranks; on 4, in one launch, the convs
-# split by output channels beside the codebook's columns (so the codebook's
-# column split is held too) and by input channels beside its rows
-VAE_DP_VALUES_ROWS, VAE_DP_VALUES_STEPS = 8, 2
+# the values check: the published width in fp32, 8 rows, 1 step (2 until
+# the PP x TP arms took the card time of the second) and the eval after it,
+# each arm against one process: data:2 on 2 ranks; on 4, in one launch, the
+# convs split by output channels beside the codebook's columns (so the
+# codebook's column split is held too) and by input channels beside its rows
+VAE_DP_VALUES_ROWS, VAE_DP_VALUES_STEPS = 8, 1
 VAE_DP_VALUES = ("data:2", "batch_dim:data")
 VAE_TP_VALUES = (("data:2,model:2", "batch_dim:data,conv_cout:model,tokens_dim:model"),
                  ("data:2,model:2", "batch_dim:data,conv_cin:model,vae_hid_dim:model"))
@@ -4467,7 +4659,7 @@ def phase_train_12b_tp(torch, card) -> tuple[list[dict], list[int]]:
     whole tree's bytes), rank 0's seconds and peak host RSS while it
     writes, the collective bytes a rank a step and the packed pair's
     launches. The first loss must equal the single-process port's on the
-    same config, records and seed within 2e-3 (as phase_train_tp's), and
+    same config, records and seed within 2e-3 (as the TP run's), and
     each rank's device peak during the init stay within its blocks' bytes
     and one unit of the draw (``init_unit_bytes``). Then, in the same
     launch, each rank samples from the resumed run's checkpoint
@@ -6612,9 +6804,7 @@ def ring_worker(argv) -> int:
     import torch  # noqa: PLC0415
 
     mode, out_dir = argv[0], argv[1]
-    if mode == "checks":
-        worker_checks(torch, out_dir)
-    elif mode == "vae_values":
+    if mode == "vae_values":
         worker_vae_values(torch, out_dir, argv[2:])
     elif mode == "serve_tp":
         worker_serve_tp(torch, out_dir, argv[2])
@@ -6680,7 +6870,7 @@ def main() -> int:
     phase(phase_tile_cases, torch, attn, card)
     tp_prefill = phase(tp_prefill_cases, torch, card)
     decode = phase(phase_decode_kernels, torch, dmm, card)
-    training, training_12b, training_tp, training_tp12b, training_pp = phase(
+    training, training_12b, training_tp, training_tp12b, training_pp, training_pptp = phase(
         phase_train_kernels, torch, attn, card)
     bhsd = phase(phase_bhsd_kernels, torch, attn, card)
     ln = phase(phase_ln_kernels, torch, lnm, card)
@@ -6713,12 +6903,9 @@ def main() -> int:
         shutil.rmtree(vae_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    ring_values = phase(phase_ring_attention, torch, attn, card)
-    ring_launches, ring_per_rank, tpsp_per_rank = phase(phase_train_ring, torch, card)
-    tp_launches = phase(phase_train_tp, torch, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    pp_launches = phase(phase_train_pp, torch, card)
+    ring_launches, ring_per_rank, tpsp_per_rank, ring_values, pp = phase(
+        phase_train_sharded, torch, card)
+    pp_launches, pptp_launches, tp_launches = pp
     gc.collect()
     torch.cuda.empty_cache()
     phase(phase_train_vae_dp, torch, card)
@@ -6780,10 +6967,10 @@ def main() -> int:
                             launches_on=f"{TWELVE_B_CONFIG} published arm, {TWELVE_B_CUT}",
                             shape="B=8 H=40 S=2560 D=128 bf16", **measured(training_12b[name])),
              tp_launches=[r[name] for r in tp_launches],
-             tp_launches_on=f"{TP_CONFIG} training on {TP_RANKS} ranks (data:1,model:2, each "
-                            f"rank 4 of the 8 heads, head0 0 and 4), {TP_STEPS} steps + eval, "
-                            f"{TP_LABEL}",
-             tp_rank=dict(shape="B=8 H=4 S=1280 D=128 bf16 (a model:2 rank's heads)",
+             tp_launches_on=f"{TP_CONFIG} training on {PP_RANKS} ranks ({TP_TRAIN_MESH}, each "
+                            f"rank 4 of the 8 heads, head0 0 and 4, on its data rank's 4 rows: "
+                            f"pptp_microbatch's shape), {TP_STEPS} steps + eval, {PP_LABEL}",
+             tp_rank=dict(shape="B=8 H=4 S=1280 D=128 bf16 (a model:2 rank's heads on 8 rows)",
                           **measured(training_tp[name])),
              tp12b_launches=[r[name] for r in tp12b_launches],
              tp12b_launches_on=f"{TWELVE_B_CONFIG} training on {TWELVE_B_TP_RANKS} ranks "
@@ -6797,7 +6984,15 @@ def main() -> int:
                             f"{PP_LAYOUT}, {PP_CUT}: each stage 2 of the 4 layers on 2 "
                             f"microbatches of 4 rows), {PP_STEPS} steps + eval, {PP_LABEL}",
              pp_microbatch=dict(shape="B=4 H=8 S=1280 D=128 bf16 (a pipeline stage's "
-                                      "microbatch)", **measured(training_pp[name])))
+                                      "microbatch)", **measured(training_pp[name])),
+             pptp_launches=[r[name] for r in pptp_launches],
+             pptp_launches_on=f"{TP_CONFIG} training on {PP_RANKS} ranks (data:1,pipe:2,model:2, "
+                              f"{PPTP_LAYOUT}, {PPTP_CUT}: each rank 2 of the 4 layers on 4 of "
+                              f"the 8 heads, 2 microbatches of 4 rows), {PPTP_STEPS} steps + "
+                              f"eval, {PP_LABEL}",
+             pptp_microbatch=dict(shape="B=4 H=4 S=1280 D=128 bf16 (a PP x TP rank's "
+                                        "microbatch on its heads)",
+                                  **measured(training_pptp[name])))
         for name in ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
     ]
     tp_prefill_launches = {

@@ -70,6 +70,17 @@ masks (JAX folds each layer's key with the microbatch id, so its pipelined
 dropout differs from its own sequential run). The KV-cache path does not
 run on a pipe mesh.
 
+Beside a tensor-parallel axis (PP x TP, ``data:2,pipe:2,model:2``) both
+compose: ``sharding`` splits a stacked leaf twice (its stage's layers over
+the pipe group, outermost, and its block over the model group:
+``Sharding.placed``), each rank runs its stage's layers on its heads and
+MLP columns with the collectives over its stage's model group, its hops
+carry its whole ``[b/M, S, E]`` microbatch to the rank of its model index
+on the next stage, and each stage's head rows run the vocab-parallel head
+over the model group. The attention dropout hash sees the microbatch's
+global rows and the rank's heads (``head0``, ``heads_total``), so every
+mask is the single process's.
+
 Remat (``recompute_grad`` in training): each block is one
 ``torch.utils.checkpoint`` region, as each step of the JAX layer scan is one
 ``jax.checkpoint``, under a selective-checkpoint policy with the JAX
@@ -205,8 +216,8 @@ class DalleConfig:
     tensor-parallel rank runs the ring on its block of the heads
     (``ring_heads_axis`` names that axis, as in JAX; the block itself is
     ``DALLE.heads``). A layout the port cannot honour on more than one
-    process (pipeline parallelism beside tensor parallelism or ring
-    attention) raises when the mesh is built
+    process (pipeline parallelism under ring attention, ``layers`` on the
+    axis of a tensor-parallel dim) raises when the mesh is built
     (``parallel.mesh.check_layout``). ``scan_unroll`` (no torch meaning) is
     accepted and ignored."""
 
@@ -387,8 +398,8 @@ class DALLE(nn.Module):
     The module holds the config, the device and the mesh (None: one
     process); the parameters are the nested dict ``init`` returns (or
     ``utils.convert`` loads), passed to every method, as in the JAX package.
-    On a tensor-parallel or a pipe mesh ``sharding`` (a
-    ``parallel.tensor.Sharding``, else None) says which dim of each leaf is
+    On a tensor-parallel or a pipe mesh, or both, ``sharding`` (a
+    ``parallel.tensor.Sharding``, else None) says which dims of each leaf are
     split and where this rank's block lies; ``heads`` is (this rank's first
     head, its head count). On a pipe mesh ``pipe`` is this rank's place in
     its pipeline (a ``parallel.pipeline.Pipe``, else None) and ``layers``
@@ -407,7 +418,9 @@ class DALLE(nn.Module):
             self.layers = stage_layers(config.n_layers, self.mesh.stages, self.mesh.stage)
             self.pipe = Pipe(self.mesh.pipe_group, self.mesh.pipe_ranks, self.mesh.stage)
         self.sharding = self._sharding()
-        self._tp = self.sharding.group if self.sharding and self.pipe is None else None
+        # the model group where a tensor-parallel axis splits a leaf
+        self._tp = (self.sharding.group if self.sharding is not None
+                    and self.sharding.axis == self.mesh.tp_axis else None)
         split = self._split(("layers", "wq"))
         self.heads = ((0, config.n_heads) if split is None
                       else (split.start, split.stop - split.start))
@@ -442,28 +455,29 @@ class DALLE(nn.Module):
 
     def _sharding(self) -> Sharding | None:
         """The leaves' splits over the mesh's tensor-parallel axis, by the
-        mesh's layout rules, or over its pipe axis, every stacked leaf on
-        its layer dim (None without either)."""
+        mesh's layout rules, and over its pipe axis, every stacked leaf on
+        its layer dim (the pipe's ``Sharding`` outermost: ``pipe`` of the
+        tensor-parallel one, where there are both; None without either)."""
+        pipe = tp = None
         if self.pipe is not None:
             bounds = tuple(stage_layers(self.cfg.n_layers, self.pipe.n, j)
                            for j in range(self.pipe.n))
-            return Sharding({path: Split(0, bounds, self.pipe.stage) if path[0] == "layers"
+            pipe = Sharding({path: Split(0, bounds, self.pipe.stage) if path[0] == "layers"
                              else None
                              for path, _ in named_leaves(self.logical_axes())},
-                            self.pipe.group)
-        if self.mesh is None or self.mesh.tp_axis is None:
-            return None
-        axes = dict(named_leaves(self.logical_axes()))
-        splits = {path: leaf_split(axes[path], shape, self.mesh, "/".join(path))
-                  for path, shape in named_leaves(self.param_shapes(whole=True))}
-        if not any(splits.values()):
-            return None
-        return Sharding(splits, self.mesh.model_group)
+                            self.pipe.group, self.mesh.pipe_axis)
+        if self.mesh is not None and self.mesh.tp_axis is not None:
+            axes = dict(named_leaves(self.logical_axes()))
+            splits = {path: leaf_split(axes[path], shape, self.mesh, "/".join(path))
+                      for path, shape in named_leaves(self.param_shapes(whole=True))}
+            if any(splits.values()):
+                tp = Sharding(splits, self.mesh.model_group, self.mesh.tp_axis, pipe)
+        return tp or pipe
 
     def _split(self, path):
         """The tensor-parallel split of the leaf at ``path`` (None where it is
-        replicated, and on a pipe mesh, whose split is the stages')."""
-        return self.sharding.of(path) if self.sharding and self.pipe is None else None
+        replicated, and without a tensor-parallel axis)."""
+        return self.sharding.of(path) if self._tp is not None else None
 
     def param_shapes(self, quantize: str = "none", whole: bool = False) -> dict:
         """The parameter tree's shapes, keyed like the JAX tree: this rank's
@@ -538,17 +552,20 @@ class DALLE(nn.Module):
 
         def make(path, whole):
             name = path[-1]
-            split = self.sharding.of(path) if self.sharding else None
-            local = self.sharding.local_shape(path, whole) if split else whole
+            placed = self.sharding.placed(path) if self.sharding else ()
+            local = self.sharding.local_shape(path, whole) if placed else whole
             if name not in std:
                 fill = torch.ones if name.endswith("_g") else torch.zeros
                 return fill(local, device=self.device, dtype=torch.float32)
             out = torch.empty(local, device=self.device, dtype=torch.float32)
             logical = axes[path]
             stacked = logical[0] == LAYERS
-            layer0, layer1 = 0, whole[0]
-            if split is not None and stacked and split.dim == 0:  # a stage's layers
-                layer0, layer1, split = split.start, split.stop, None
+            layer0, layer1, split = 0, whole[0], None
+            for p in placed:
+                if stacked and p.split.dim == 0:  # a stage's layers
+                    layer0, layer1 = p.split.start, p.split.stop
+                else:
+                    split = p.split
             udim = next((i for i, a in enumerate(logical) if a in INIT_UNITS), None)
             if split is not None and split.dim != udim:
                 raise AssertionError(f"{path}: split on dim {split.dim}, units on {udim}")

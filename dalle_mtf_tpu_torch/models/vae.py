@@ -282,7 +282,7 @@ class DiscreteVAE(nn.Module):
             splits = {path: leaf_split(axes[path], shape, self.mesh, "/".join(path))
                       for path, shape in named_leaves(self.param_shapes())}
             if any(splits.values()):
-                self.sharding = Sharding(splits, self.mesh.model_group)
+                self.sharding = Sharding(splits, self.mesh.model_group, self.mesh.tp_axis)
         self._group = self.sharding.group if self.sharding else None
         codebook = self._split(("codebook",))
         # the group the codebook's columns (tokens) or rows (channels) split over

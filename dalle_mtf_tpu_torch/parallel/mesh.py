@@ -24,10 +24,14 @@ the same rows, draw the same noise and hold the same values, so nothing is
 summed over it. Data, sequence and tensor parallelism compose in one step
 (``data:2,seq:2,model:2``): the ring runs over a rank's block of the heads,
 the gradients are summed over the batch and sequence axes, and the ranks of
-a model group hold one loss. ``check_layout`` refuses the rest at world
-size > 1, and a layout under which one leaf would carry a mesh axis twice
-(two conv dims, or ``vae_hid_dim`` beside ``tokens_dim``, on one axis:
-JAX's ``PartitionSpec`` raises ``DuplicateSpecError`` there).
+a model group hold one loss. Pipeline and tensor parallelism compose too
+(``data:2,pipe:2,model:2``, "PP x TP"): a stacked leaf then carries two
+splits, its stage's layers over the pipe axis and its block over the model
+axis. ``check_layout`` refuses the rest at world size > 1, and a layout
+under which one leaf would carry a mesh axis twice (two conv dims,
+``vae_hid_dim`` beside ``tokens_dim``, or ``layers`` beside ``heads_dim``
+or ``intermediate_expanded``, on one axis: JAX's ``PartitionSpec`` raises
+``DuplicateSpecError`` there).
 ``leaf_split`` says which dim of a parameter the tensor-parallel axis splits
 and where this rank's block lies.
 """
@@ -37,6 +41,8 @@ from __future__ import annotations
 import logging
 import math
 from typing import NamedTuple, Sequence
+
+import numpy as np
 
 logger = logging.getLogger(__name__)
 
@@ -56,9 +62,9 @@ VAE_HID = "vae_hid_dim"
 CONV_DIMS = ("conv_kh", "conv_kw", "conv_cin", "conv_cout")
 # the logical dims a tensor-parallel axis may carry
 TENSOR_DIMS = (HEADS, INTERMEDIATE, VOCAB, TOKENS, VAE_HID, *CONV_DIMS)
-# the dims that lie on one leaf (a conv kernel, the codebook): a mesh axis
-# may split at most one of each group
-LEAF_DIMS = (CONV_DIMS, (VAE_HID, TOKENS))
+# the dims that lie on one leaf (a conv kernel, the codebook, a stacked
+# attention or MLP weight): a mesh axis may split at most one of each group
+LEAF_DIMS = (CONV_DIMS, (VAE_HID, TOKENS), (LAYERS, HEADS), (LAYERS, INTERMEDIATE))
 # columns of a vocabulary block: each rank's block is a multiple of this, as
 # the JAX xent pads V (dalle_mtf_tpu/ops/xent_fused.py)
 VOCAB_LANES = 128
@@ -184,11 +190,13 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
     else, on one axis only), the layer stack (``layers`` and nothing else:
     pipeline parallelism), or no layout dim at all (an axis that only
     replicates). A tensor-parallel axis may sit beside the ring's sequence
-    axis ("TP x SP"). Refused: one axis on two dims of a leaf
-    (``duplicate_axes``, on an axis of any size, as JAX refuses it),
-    ``layers`` beside another dim on its axis, and pipeline parallelism
-    with a tensor-parallel axis ("PP x TP", ROADMAP queue 1 item 5c-ii) or
-    under ring attention ("PP x SP", item 5c-iii)."""
+    axis ("TP x SP") or beside the pipe axis ("PP x TP"). Refused: one axis
+    on two dims of a leaf (``duplicate_axes``, on an axis of any size, as
+    JAX refuses it: ``layers`` beside ``heads_dim`` or
+    ``intermediate_expanded`` among them), ``layers`` beside ``vocab_dim``
+    alone on one axis (JAX runs it; ROADMAP queue 1 item 5c-vi), ``layers``
+    beside another dim on its axis, and pipeline parallelism under ring
+    attention ("PP x SP", item 5c-iii)."""
     batch_axis = rules.get(BATCH) or "data"
     seq_axis = rules.get(SEQ) or "seq"
     ring = attention_type in ("ring", "local_ring")
@@ -198,10 +206,15 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
             continue
         dims = sorted(d for d, a in rules.items() if a == name)
         if LAYERS in dims and len(dims) > 1:
-            both = (" (PP x TP over one axis: ROADMAP queue 1 item 5c-ii)"
-                    if set(dims) - {LAYERS} <= set(TENSOR_DIMS) else "")
-            refused.append(f"mesh axis {name!r} of size {size} (pipeline parallelism with "
-                           f"another layout dim on its axis{both}; layout dims {dims})")
+            others = set(dims) - {LAYERS}
+            if others == {VOCAB}:
+                refused.append(f"mesh axis {name!r} of size {size} on layers and vocab_dim (PP "
+                               f"x TP over one axis: each stage's head rows would meet a "
+                               f"vocabulary split over its own pipeline's ranks; ROADMAP queue "
+                               f"1 item 5c-vi)")
+            else:  # beside heads_dim or intermediate_expanded, duplicate_axes names them too
+                refused.append(f"mesh axis {name!r} of size {size} (pipeline parallelism with "
+                               f"another layout dim on its axis; layout dims {dims})")
             continue
         if dims == [LAYERS]:
             pipe.append(name)
@@ -217,9 +230,6 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
                        f"{dims})")
     if len(tensor) > 1:
         refused.append(f"tensor parallelism over more than one mesh axis {tensor}")
-    if pipe and tensor:
-        refused.append(f"PP x TP: not ported (pipeline parallelism over {pipe[0]!r} with "
-                       f"tensor parallelism over {tensor[0]!r}; ROADMAP queue 1 item 5c-ii)")
     if pipe and ring:
         refused.append(f"PP x SP: not ported (pipeline parallelism over {pipe[0]!r} with "
                        f"attention_type {attention_type!r}; ROADMAP queue 1 item 5c-iii)")
@@ -231,7 +241,8 @@ def check_layout(axes: Sequence[tuple[str, int]], rules: dict[str, str],
             "(heads_dim, intermediate_expanded, vocab_dim) or the VAE's codebook and conv "
             "kernels (tokens_dim, vae_hid_dim, conv_cout, conv_cin, conv_kh, conv_kw; one of "
             "them a leaf) over one axis, or the layer stack (layers) over one axis beside "
-            "the batch, and replicates over an axis no rule names")
+            "the batch and the tensor-parallel axis, and replicates over an axis no rule "
+            "names")
 
 
 def padded_vocab(v: int, m: int) -> int:
@@ -348,12 +359,21 @@ class Mesh:
     ``copy_group`` and ``copy_ranks`` (None where this rank holds the only
     copy), ``copies`` of them; with a ``tp_axis``, ``block_copy_group`` and
     ``block_copy_ranks`` the same without it, the copies of this rank's
-    blocks of the split leaves (with a ``pipe_axis``, the copies of its
+    blocks of the split leaves (with a ``pipe_axis`` alone, the copies of its
     stage's layers: ``copy_group`` itself). The trainer makes each set of
     copies one (``Trainer._agree``). Under ring attention beside a
     ``tp_axis`` (``data:1,seq:2,model:2``) the sequence axis is a data axis:
     the copies of a replicated leaf are this rank's model group, and a block
-    of a split leaf has no copy (``block_copy_group`` None).
+    of a split leaf has no copy (``block_copy_group`` None). With a
+    ``pipe_axis`` beside a ``tp_axis`` (``data:2,pipe:2,model:2``) a rank
+    holds its stage's block of each stacked split leaf: ``pipe_group`` is
+    its pipeline (the ranks of its model index on every stage),
+    ``model_group`` its stage's model group, ``share_group`` the ranks of
+    its model index over the data and pipe axes, ``copy_group`` its model
+    group (the copies of the replicated leaves and of its stage's
+    unsplit layers), and ``block_copy_group`` the ranks that differ from it
+    only on an axis that only replicates. ``plane`` gives the ranks of
+    rank 0's slice over some axes (the checkpoint's writers).
     """
 
     def __init__(self, axes: Sequence[tuple[str, int]], rank: int = 0, world: int = 1,
@@ -437,6 +457,17 @@ class Mesh:
                 mine = group, ranks
         return mine
 
+    def plane(self, names: Sequence[str]) -> list:
+        """The global ranks whose index is 0 on every axis but ``names``, as
+        nested lists indexed by their indices on ``names`` in that order
+        (rank 0's slice over those axes)."""
+        sizes = [s for _, s in self.axes]
+        grid = np.zeros([self.size(n) for n in names], dtype=np.int64)
+        for idx in np.ndindex(grid.shape):
+            at = dict(zip(names, idx))
+            grid[idx] = _ravel([at.get(n, 0) for n in self.names], sizes)
+        return grid.tolist()
+
     def size(self, name: str | None) -> int:
         return self.shape.get(name, 1) if name else 1
 
@@ -465,6 +496,13 @@ def _unravel(rank: int, shape: list[int]) -> list[int]:
         out.append(rank % size)
         rank //= size
     return out[::-1]
+
+
+def _ravel(coords: list[int], shape: list[int]) -> int:
+    rank = 0
+    for c, size in zip(coords, shape):
+        rank = rank * size + c
+    return rank
 
 
 def _slices(shape: list[int], axis: int) -> list[list[int]]:

@@ -39,6 +39,24 @@ stage ``s - 1`` sent it, in ``i`` order forward and in reverse order
 backward, and the head rows come last forward and first backward. An empty
 message (a stage with no head rows) is skipped at both ends.
 
+Beside a tensor-parallel axis (PP x TP) a rank's pipe group is the ranks
+of its model index on every stage: each hop carries its whole ``[b/M, S,
+E]`` microbatch (the ranks of a model group hold the same activations
+between the blocks) to the rank of its model index on the next stage, and
+the blocks' collectives inside ``stage_fn`` run over the stage's model
+group. The calls keep one order there too. The ranks of a model group run
+the same stage on the same microbatches, so they build the same graph:
+the same hops, and the same collectives in the same places. Autograd runs
+a graph's nodes in an order fixed by its structure (a node once every
+gradient it takes is in, ready nodes by their creation order, all on the
+one device's thread: every tensor of a pass lies on the rank's card, or
+on the CPU). So the ranks of a model group make their backward
+collectives, and each its hops, in one order, and a block under
+``recompute_grad`` reruns its forward, with its collectives, at the same
+point on each, when the first gradient of its output arrives. The hops
+pair up as without the model axis, one model index at a time. A
+mismatched order would be a hang over gloo, not an error.
+
 Over gloo a CUDA tensor is staged through host memory (gloo sends CPU
 tensors), counted in ``STAGED_BYTES``; over NCCL it is sent from the card.
 ``SENT_BYTES`` counts every message a rank sends, by kind.

@@ -32,6 +32,14 @@ Each rank of a group then holds the same loss and, for every leaf, the
 gradient of its shard (a replicated leaf's whole gradient). On one process,
 or without a group, every function here is the identity.
 
+Beside a pipe axis (PP x TP) a stacked leaf carries two splits: its stage's
+layers over the pipe group (dim 0) and its block over the model group. A
+leaf's ``placement`` is then a tuple of ``Placed`` (each split with its
+group and mesh axis), the pipe's first; ``shard``, ``block_to``,
+and ``gather`` take either one ``Split`` or a placement,
+``gather_to_host`` and ``moment_split`` a placement, and
+``Sharding.placed`` gives a leaf's.
+
 ``all_reduce`` is the one entry to the collectives of the tensor-parallel
 path and the trainer's sums, ``all_gather`` to the gathers of the two
 operators above, ``broadcast`` to the trainer's copies of a replicated
@@ -43,8 +51,9 @@ resets.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -212,24 +221,50 @@ def vocab_parallel_embedding(wte: torch.Tensor, tokens: torch.Tensor, split: Spl
     return reduce_from_model(rows.to(dtype), group)
 
 
-def shard(t: torch.Tensor, split: Split | None) -> torch.Tensor:
-    """This rank's block of a whole leaf (``t`` itself when replicated)."""
+class Placed(NamedTuple):
+    """One split of a leaf, with the process group and the name of the mesh
+    axis it is split over."""
+
+    split: Split
+    group: Any
+    axis: str | None = None
+
+
+def _splits_of(split) -> tuple[Split, ...]:
+    """The splits of a ``Split``, a placement (a tuple of ``Placed``) or
+    None (none)."""
     if split is None:
-        return t
-    return t.narrow(split.dim, split.start, split.stop - split.start)
+        return ()
+    if isinstance(split, Split):
+        return (split,)
+    return tuple(p.split for p in split)
 
 
-def block_to(t: torch.Tensor, split: Split | None, device) -> torch.Tensor:
+def shard(t: torch.Tensor, split) -> torch.Tensor:
+    """This rank's block of a whole leaf (``t`` itself when replicated);
+    ``split``: a ``Split``, a placement or None."""
+    for sp in _splits_of(split):
+        t = t.narrow(sp.dim, sp.start, sp.stop - sp.start)
+    return t
+
+
+def block_to(t: torch.Tensor, split, device) -> torch.Tensor:
     """This rank's block of a whole leaf ``t`` copied to ``device``: of a
     leaf mapped from a checkpoint file, only the block's pages are read."""
     block = shard(t, split)
     return torch.empty(block.shape, dtype=block.dtype, device=device).copy_(block)
 
 
-def gather(t: torch.Tensor, split: Split | None, group) -> torch.Tensor:
+def gather(t: torch.Tensor, split, group) -> torch.Tensor:
     """The whole leaf from every rank's block ``t`` (a collective over
     ``group``; ``t`` itself when replicated). Blocks are padded to the
-    longest for the all_gather and cut back after."""
+    longest for the all_gather and cut back after. Of a placement, over
+    each split's own group in turn, the innermost first (``group`` is not
+    read)."""
+    if split is not None and not isinstance(split, Split):
+        for p in reversed(split):
+            t = gather(t, p.split, p.group)
+        return t
     if split is None or group is None:
         return t
     t = t.detach().contiguous()
@@ -243,29 +278,40 @@ def gather(t: torch.Tensor, split: Split | None, group) -> torch.Tensor:
                      split.dim)
 
 
-def gather_to_host(t: torch.Tensor, split: Split, ranks: list[int]) -> torch.Tensor | None:
-    """The whole leaf on the host of ``ranks[0]`` (None on the other ranks),
-    from every rank's block ``t``: the blocks go to it one at a time, point
-    to point, so no device holds a block it does not own and the host holds
-    the one leaf. ``ranks``: the global ranks of the model group in axis
-    order (``split.index`` is this rank's). Over gloo each block is staged
-    through its rank's host (gloo sends CPU tensors); over nccl it is
-    received on the card, one block at a time."""
+def gather_to_host(t: torch.Tensor, placed, ranks) -> torch.Tensor | None:
+    """The whole leaf on the host of the first of ``ranks`` (None on the
+    other ranks), from every rank's block ``t`` of the leaf's placement
+    ``placed``: the blocks go to it one at a time, point to point, so no
+    device holds a block it does not own and the host holds the one leaf.
+    ``ranks``: nested lists, one level a split of ``placed`` in its order,
+    of the global rank holding each block (``Mesh.plane``); a rank not in
+    them takes no part. Over gloo each block is staged through its rank's
+    host (gloo sends CPU tensors); over nccl it is received on the card,
+    one block at a time."""
+    splits = _splits_of(placed)
+    grid = np.asarray(ranks, dtype=np.int64).reshape([len(sp.bounds) for sp in splits])
+    root, me = int(grid.flat[0]), dist.get_rank()
     t = t.detach()
     gloo = dist.get_backend() == "gloo"
-    if dist.get_rank() != ranks[0]:
-        dist.send(t.cpu() if gloo else t.contiguous(), ranks[0])
+    if me != root:
+        if (grid == me).any():
+            dist.send(t.cpu() if gloo else t.contiguous(), root)
         return None
     shape = list(t.shape)
-    shape[split.dim] = split.size
+    for sp in splits:
+        shape[sp.dim] = sp.size
     whole = torch.empty(shape, dtype=t.dtype)
-    for j, (a, b) in enumerate(split.bounds):
-        view = whole.narrow(split.dim, a, b - a)
-        if j == split.index:
+    mine = tuple(sp.index for sp in splits)
+    for idx in np.ndindex(grid.shape):
+        view = whole
+        for sp, j in zip(splits, idx):
+            a, b = sp.bounds[j]
+            view = view.narrow(sp.dim, a, b - a)
+        if idx == mine:
             view.copy_(t)
             continue
         buf = torch.empty(view.shape, dtype=t.dtype, device="cpu" if gloo else t.device)
-        dist.recv(buf, ranks[j])
+        dist.recv(buf, int(grid[idx]))
         view.copy_(buf)
     return whole
 
@@ -274,46 +320,55 @@ class Sharding:
     """The split of every leaf of a parameter tree over the model axis (or,
     under pipeline parallelism, of every stacked leaf's layers over the pipe
     axis): ``splits`` maps a leaf's path (a tuple of names) to its ``Split``
-    or None, ``group`` is that axis's process group."""
+    or None, ``group`` is that axis's process group and ``axis`` its name.
+    Under both (PP x TP) the model axis's ``Sharding`` holds the pipe axis's
+    as ``pipe``, the outer split of the stacked leaves."""
 
-    def __init__(self, splits: Mapping[tuple[str, ...], Split | None], group):
+    def __init__(self, splits: Mapping[tuple[str, ...], Split | None], group,
+                 axis: str | None = None, pipe: "Sharding | None" = None):
         self.splits = dict(splits)
-        self.group = group
+        self.group, self.axis, self.pipe = group, axis, pipe
 
     def of(self, path: tuple[str, ...]) -> Split | None:
+        """The leaf's split over this ``Sharding``'s own axis."""
         return self.splits.get(tuple(path))
 
-    def whole_shape(self, path, shape) -> tuple[int, ...]:
+    def placed(self, path) -> tuple[Placed, ...]:
+        """The leaf's placement: each of its splits with its group and axis,
+        the pipe's first (empty for a replicated leaf)."""
+        outer = self.pipe.placed(path) if self.pipe is not None else ()
         split = self.of(path)
-        shape = tuple(shape)
-        if split is None:
-            return shape
-        return shape[:split.dim] + (split.size,) + shape[split.dim + 1:]
+        return outer + ((Placed(split, self.group, self.axis),) if split is not None else ())
+
+    def whole_shape(self, path, shape) -> tuple[int, ...]:
+        shape = list(shape)
+        for p in self.placed(path):
+            shape[p.split.dim] = p.split.size
+        return tuple(shape)
 
     def local_shape(self, path, shape) -> tuple[int, ...]:
-        split = self.of(path)
-        shape = tuple(shape)
-        if split is None:
-            return shape
-        return shape[:split.dim] + (split.stop - split.start,) + shape[split.dim + 1:]
+        shape = list(shape)
+        for p in self.placed(path):
+            shape[p.split.dim] = p.split.stop - p.split.start
+        return tuple(shape)
 
     def shard_tree(self, tree: Mapping[str, Any], prefix: tuple[str, ...] = ()) -> dict:
         """This rank's blocks of a whole tree of tensors (views)."""
         return {k: (self.shard_tree(v, prefix + (k,)) if isinstance(v, Mapping)
-                    else shard(v, self.of(prefix + (k,))))
+                    else shard(v, self.placed(prefix + (k,))))
                 for k, v in tree.items()}
 
     def gather_tree(self, tree: Mapping[str, Any], prefix: tuple[str, ...] = ()) -> dict:
         """The whole tree from every rank's blocks (collective)."""
         return {k: (self.gather_tree(v, prefix + (k,)) if isinstance(v, Mapping)
-                    else gather(v, self.of(prefix + (k,)), self.group))
+                    else gather(v, self.placed(prefix + (k,)), None))
                 for k, v in tree.items()}
 
 
-def moment_split(split: Split | None, dropped: int) -> Split | None:
-    """The split of a statistic of a leaf split by ``split`` that dropped
-    (reduced) dim ``dropped``: None where it reduced the split dim itself,
-    else the split dim renumbered."""
-    if split is None or split.dim == dropped:
-        return None
-    return split._replace(dim=split.dim - (split.dim > dropped))
+def moment_split(placed, dropped: int):
+    """The placement of a statistic of a leaf placed by ``placed`` (or
+    None) that dropped (reduced) dim ``dropped``: its splits of the other
+    dims, renumbered (None where none is left)."""
+    left = tuple(p._replace(split=p.split._replace(dim=p.split.dim - (p.split.dim > dropped)))
+                 for p in placed or () if p.split.dim != dropped)
+    return left or None

@@ -23,13 +23,16 @@ optax 0.2.6's ``adafactor`` with the JAX factory's arguments, written out in
 On a tensor-parallel mesh (a ``parallel.tensor.Sharding`` of the tree) each
 rank updates its blocks of the split leaves, and every statistic over a
 split dim is summed over the model group so that it is the whole leaf's (on
-a pipe mesh, the same over the pipeline, whose stages split the layers):
-the global norm (split leaves' squares summed over the group, replicated
-leaves counted once), Adafactor's row and column means, its update and
-parameter RMS, and the finiteness test of ``SkipNonfinite``.
-``state_dict(transform)``/``load_state_dict(state, transform)`` pass every
-moment through ``transform(tensor, split)`` (the trainer gathers them into
-the whole state a single process writes, and slices them back).
+a pipe mesh, the same over the pipeline, whose stages split the layers; under
+both, over each split's own group): the global norm (each leaf's squares
+summed over the groups it is split over, so each element counts once),
+Adafactor's row and column means, its update and parameter RMS, and the
+finiteness test of ``SkipNonfinite``. Each leaf's ``splits`` entry is its
+placement (``Sharding.placed``: its splits with their groups, empty where
+it is whole). ``state_dict(transform)``/``load_state_dict(state,
+transform)`` pass every moment through ``transform(tensor, placement)``
+(the trainer gathers them into the whole state a single process writes,
+and slices them back).
 """
 
 from __future__ import annotations
@@ -109,22 +112,32 @@ def _square_sum(tensors) -> torch.Tensor:
     return sum(torch.sum(torch.square(t.float())) for t in tensors)
 
 
-def global_norm(tensors, splits=None, group=None) -> torch.Tensor:
+def global_norm(tensors, placements=None) -> torch.Tensor:
     """sqrt(sum of squares) over fp32 copies of ``tensors`` (a 0-dim
-    tensor). With ``splits`` (a ``Split`` or None per tensor) and the model
-    ``group``, the split tensors' squares are summed over the group first."""
-    if group is None or not any(splits):
+    tensor). With ``placements`` (each tensor's, ``Sharding.placed``), the
+    squares of the tensors split over the same groups are summed together
+    and then over those groups, the innermost first; the whole tensors'
+    are added last."""
+    if not placements or not any(placements):
         return torch.sqrt(_square_sum(tensors))
-    split = _square_sum([t for t, sp in zip(tensors, splits) if sp is not None])
-    whole = _square_sum([t for t, sp in zip(tensors, splits) if sp is None])
-    return torch.sqrt(all_reduce(split, group) + whole)
+    kinds: dict[tuple, tuple] = {}  # (placement, tensors) by the groups split over, in first use
+    for t, placed in zip(tensors, placements):
+        key = tuple(id(p.group) for p in placed)
+        kinds.setdefault(key, (placed, []))[1].append(t)
+    total = None
+    for key, (placed, ts) in sorted(kinds.items(), key=lambda kv: not kv[0]):
+        part = _square_sum(ts)
+        for p in reversed(placed):
+            part = all_reduce(part, p.group)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
-def _clip_by_global_norm(grads, clip: float | None, splits=None, group=None) -> torch.Tensor:
+def _clip_by_global_norm(grads, clip: float | None, placements=None) -> torch.Tensor:
     """The global norm of ``grads`` (a 0-dim tensor, not waited for); with
     ``clip``, the grads scaled in place as optax does: unchanged below the
     clip, else g / norm * clip."""
-    norm = global_norm(grads, splits, group)
+    norm = global_norm(grads, placements)
     if clip:
         scale = torch.where(norm < clip, 1.0, clip / norm)
         torch._foreach_mul_(grads, scale)
@@ -143,11 +156,14 @@ def _check_state(state: Mapping[str, Any], key: str, who: str) -> None:
         raise ValueError(f"{who}.load_state_dict: not a {who} state (keys {sorted(state)})")
 
 
-def _splits(named, sharding) -> tuple[list, Any]:
-    """(each leaf's Split or None, the model group) of a sharded tree."""
+def _splits(named, sharding) -> tuple[list, list]:
+    """(each leaf's placement, the groups they split over in first use) of a
+    sharded tree."""
     if sharding is None:
-        return [None] * len(named), None
-    return [sharding.of(path) for path, _ in named], sharding.group
+        return [()] * len(named), []
+    placements = [sharding.placed(path) for path, _ in named]
+    groups = {id(p.group): p.group for placed in placements for p in placed}
+    return placements, list(groups.values())
 
 
 class AdamW:
@@ -162,7 +178,7 @@ class AdamW:
                  sharding=None):
         self.named = list(named_leaves(tree))
         self.leaves = [t for _, t in self.named]
-        self.splits, self.group = _splits(self.named, sharding)
+        self.splits, self.groups = _splits(self.named, sharding)
         decay = [t for p, t in self.named if not _no_weight_decay(p)]
         keep = [t for p, t in self.named if _no_weight_decay(p)]
         # the split of each parameter in the torch optimizer's order
@@ -183,8 +199,7 @@ class AdamW:
     def step(self) -> torch.Tensor:
         """Clip, update, count; returns the global norm of the gradients
         before clipping (a 0-dim tensor, not waited for)."""
-        norm = _clip_by_global_norm(_grads(self.leaves, "AdamW"), self.clip, self.splits,
-                                    self.group)
+        norm = _clip_by_global_norm(_grads(self.leaves, "AdamW"), self.clip, self.splits)
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -242,7 +257,7 @@ class Adafactor:
                  clipping_threshold: float, eps: float, clip: float | None, sharding=None):
         self.named = list(named_leaves(tree))
         self.leaves = [t for _, t in self.named]
-        self.splits, self.group = _splits(self.named, sharding)
+        self.splits, self.groups = _splits(self.named, sharding)
         self.schedule = schedule
         self.decay_rate, self.threshold, self.eps, self.clip = (
             decay_rate, clipping_threshold, eps, clip)
@@ -264,19 +279,25 @@ class Adafactor:
         for t in self.leaves:
             t.grad = None
 
-    def _mean(self, t: torch.Tensor, dim: int, split, keepdim: bool = False) -> torch.Tensor:
+    @staticmethod
+    def _mean(t: torch.Tensor, dim: int, placed, keepdim: bool = False) -> torch.Tensor:
         """``t.mean(dim)``; over a split dim, the whole leaf's (summed over
-        the model group)."""
-        if split is None or split.dim != dim:
-            return t.mean(dim=dim, keepdim=keepdim)
-        return all_reduce(t.sum(dim=dim, keepdim=keepdim), self.group) / split.size
+        that split's group)."""
+        for p in placed or ():
+            if p.split.dim == dim:
+                return all_reduce(t.sum(dim=dim, keepdim=keepdim), p.group) / p.split.size
+        return t.mean(dim=dim, keepdim=keepdim)
 
-    def _rms(self, t: torch.Tensor, split) -> torch.Tensor:
+    @staticmethod
+    def _rms(t: torch.Tensor, placed) -> torch.Tensor:
         """sqrt(mean(t²)) over the whole leaf."""
-        if split is None:
+        if not placed:
             return t.square().mean().sqrt()
-        n = t.numel() // (split.stop - split.start) * split.size
-        return (all_reduce(t.square().sum(), self.group) / n).sqrt()
+        n, total = t.numel(), t.square().sum()
+        for p in reversed(placed):
+            n = n // (p.split.stop - p.split.start) * p.split.size
+            total = all_reduce(total, p.group)
+        return (total / n).sqrt()
 
     def _moment_splits(self, i: int) -> tuple:
         """The splits of leaf i's moments: (v,) or (v_row, v_col)."""
@@ -310,7 +331,7 @@ class Adafactor:
         """Clip, update, count; returns the global norm of the gradients
         before clipping (a 0-dim tensor, not waited for)."""
         grads = _grads(self.leaves, "Adafactor")
-        norm = _clip_by_global_norm(grads, self.clip, self.splits, self.group)
+        norm = _clip_by_global_norm(grads, self.clip, self.splits)
         t = np.float32(self.count + 1)
         decay = float(np.float32(1.0) - t ** np.float32(-self.decay_rate))
         lr = self.schedule(self.count)
@@ -392,19 +413,19 @@ class SkipNonfinite:
     def step(self) -> torch.Tensor:
         """The inner step, or none; returns the global norm of the
         gradients before clipping either way. On a tensor-parallel mesh the
-        test covers every rank's blocks (all_reduced over the model group),
-        so every rank skips the same steps."""
+        test covers every rank's blocks (all_reduced over every group a leaf
+        is split over), so every rank skips the same steps."""
         grads = _grads(self.leaves, "SkipNonfinite")
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all().int()
-        if self.inner.group is not None:
-            all_reduce(finite, self.inner.group, dist.ReduceOp.MIN)
+        for group in self.inner.groups:
+            all_reduce(finite, group, dist.ReduceOp.MIN)
         finite = bool(finite)
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         self.total_notfinite += 0 if finite else 1
         self.last_finite = finite
         if finite or self.notfinite_count > self.max_consecutive_errors:
             return self.inner.step()
-        return global_norm(grads, self.inner.splits, self.inner.group)
+        return global_norm(grads, self.inner.splits)
 
     def state_dict(self, transform=None) -> dict:
         return {"apply_if_finite": {"notfinite_count": self.notfinite_count,
@@ -429,7 +450,8 @@ def get_optimizer(params: Mapping[str, Any], tree, sharding=None):
     ``fused_optimizer`` (AdamW); ``adafactor_decay_rate``,
     ``adafactor_clipping``, ``epsilon_1`` (Adafactor); and
     ``skip_nonfinite_updates``. ``sharding``: the tree's split over a
-    tensor-parallel axis (a ``parallel.tensor.Sharding``), or None."""
+    tensor-parallel or a pipe axis, or both (a ``parallel.tensor.Sharding``),
+    or None."""
     schedule = lr_schedule(params)
     name = (params.get("optimizer") or "adam").lower()
     clip = params.get("gradient_clipping")

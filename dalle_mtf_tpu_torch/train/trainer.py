@@ -19,7 +19,9 @@ over the replicas alone, while the replicated leaves (the embeddings, the
 final LN and the loss head), of which each stage holds a part of the
 gradient (the first stage the embeddings', each stage its head rows'; a
 leaf a stage does not use has a zero gradient), and the metrics are summed
-over the replicas and the stages (``Mesh.share_group``).
+over the replicas and the stages (``Mesh.share_group``). Under both (PP x
+TP) a rank holds its stage's block of each stacked split leaf; the sums are
+the same, each within the rank's model index.
 Rank 0 alone writes checkpoints and summaries, behind a barrier; every rank
 restores. Kept from the JAX loop:
 
@@ -46,10 +48,12 @@ unpadded tree and state a single process writes, so it moves between
 layouts. Rank 0 writes it one leaf at a time (``utils/checkpoint.py``):
 under tensor parallelism each leaf's blocks are sent to rank 0's host by
 the ranks of its model group when the leaf's turn comes
-(``gather_to_host``), and under pipeline parallelism each stage's layers
-by the ranks of its pipeline, so no card holds a block it does not own and
-rank 0's host one leaf. On restore every rank maps the file and copies out its own
-blocks (``restored_bytes`` counts them).
+(``gather_to_host``), under pipeline parallelism each stage's layers
+by the ranks of its pipeline, and under both each block of a stacked split
+leaf by the rank of rank 0's pipe x model plane that holds it, so no card
+holds a block it does not own and rank 0's host one leaf. On restore every
+rank maps the file and copies out its own blocks (``restored_bytes`` counts
+them).
 A step the optimizer skips (non-finite gradients) is counted and logged as
 any other, as in the JAX loop: its loss and ``grad_norm`` are not finite,
 ``lr`` is the schedule at the step; the optimizer's own count, and so the
@@ -260,11 +264,21 @@ class Trainer:
         return state, {**metrics, "grad_norm": grad_norm,
                        "lr": torch.tensor(self.schedule(step))}
 
+    def _placed(self, path) -> tuple:
+        """The placement of the leaf at ``path`` (``Sharding.placed``; empty
+        where it is whole)."""
+        return self.sharding.placed(path) if self.sharding is not None else ()
+
     def _pipe_split(self, path) -> bool:
         """Whether the leaf at ``path`` is split over the pipe axis (a
         stage's layers)."""
-        return (self.mesh.pipe_axis is not None and self.sharding is not None
-                and self.sharding.of(path) is not None)
+        pipe = self.mesh.pipe_axis
+        return pipe is not None and any(p.axis == pipe for p in self._placed(path))
+
+    def _model_split(self, path) -> bool:
+        """Whether the leaf at ``path`` is split over an axis other than the
+        pipe axis (a tensor-parallel block)."""
+        return any(p.axis != self.mesh.pipe_axis for p in self._placed(path))
 
     def _fill_unused(self, opt) -> None:
         """A zero gradient for each leaf this rank's pipeline stage did not
@@ -290,12 +304,12 @@ class Trainer:
                 _all_reduce_sum(grads, group)
 
     def _agree(self, opt) -> None:
-        """Every copy of a leaf takes the gradient of the first: a
-        replicated leaf's over ``Mesh.copy_group``, a block of a split leaf
-        over ``Mesh.block_copy_group`` (one flat broadcast each)."""
+        """Every copy of a leaf takes the gradient of the first: a leaf
+        whole on its model group (replicated, or a stage's layers of it)
+        over ``Mesh.copy_group``, a tensor-parallel block over
+        ``Mesh.block_copy_group`` (one flat broadcast each)."""
         mesh = self.mesh
-        split = [self.sharding is not None and self.sharding.of(p) is not None
-                 for p, _ in opt.named]
+        split = [self._model_split(p) for p, _ in opt.named]
         for ranks, group, of_split in ((mesh.copy_ranks, mesh.copy_group, False),
                                        (mesh.block_copy_ranks, mesh.block_copy_group, True)):
             grads = [t.grad for (_, t), s in zip(opt.named, split) if s == of_split]
@@ -333,29 +347,30 @@ class Trainer:
         steps = self.checkpoint_steps()
         return steps[-1] if steps else 0
 
-    def _writers(self) -> list[int] | None:
-        """The global ranks that take part in writing a checkpoint: rank 0's
-        model group (or pipeline) in axis order (rank 0 first), [0] without
-        tensor or pipeline parallelism; None for a rank outside it."""
-        ranks = [0]
-        if self.sharding is not None:
-            ranks = self.mesh.ranks(self.mesh.tp_axis or self.mesh.pipe_axis)
-            if ranks[0] != 0:
-                return None
-        return ranks if self.rank in ranks else None
+    def _writers(self) -> bool:
+        """Whether this rank takes part in writing a checkpoint: it is rank
+        0, or in rank 0's slice over the axes the sharding splits leaves over
+        (``Mesh.plane``: its model group, its pipeline, or its pipe x model
+        plane)."""
+        if self.sharding is None:
+            return self.rank == 0
+        axes = [a for a in (self.mesh.pipe_axis, self.mesh.tp_axis) if a is not None]
+        return self.rank in np.asarray(self.mesh.plane(axes))
 
-    @staticmethod
-    def _lazy(ranks):
-        """The checkpoint leaf of a tensor and its split: the tensor where it
-        is replicated (rank 0 copies it to its host at its turn), else a
-        Lazy whole leaf gathered to rank 0's host at its turn."""
-        def leaf(t, split):
-            if split is None:
+    def _lazy(self):
+        """The checkpoint leaf of a tensor and its placement: the tensor
+        where it is whole (rank 0 copies it to its host at its turn), else a
+        Lazy whole leaf gathered to rank 0's host at its turn, each block
+        from the rank of rank 0's slice over its axes that holds it."""
+        def leaf(t, placed):
+            if not placed:
                 return t
             shape = list(t.shape)
-            shape[split.dim] = split.size
+            for p in placed:
+                shape[p.split.dim] = p.split.size
+            ranks = self.mesh.plane([p.axis for p in placed])
             return checkpoint.Lazy(tuple(shape), t.dtype,
-                                   lambda: gather_to_host(t, split, ranks))
+                                   lambda: gather_to_host(t, placed, ranks))
         return leaf
 
     def save(self, state: dict, step: int | None = None) -> None:
@@ -365,15 +380,13 @@ class Trainer:
         its model group sending their blocks of each split leaf at its
         turn, and every rank waits for it."""
         step = state["step"] if step is None else step
-        ranks = self._writers()
-        if ranks is not None:
-            sharding = self.sharding
-            leaf = self._lazy(ranks)
+        if self._writers():
+            leaf = self._lazy()
             stamp = now()
             tree = {
                 "step": step,
                 "time": stamp,
-                "params": {"/".join(p): leaf(t, sharding.of(p) if sharding else None)
+                "params": {"/".join(p): leaf(t, self._placed(p))
                            for p, t in named_leaves(state["params"])},
                 "opt_state": state["opt"].state_dict(leaf),
             }
@@ -406,8 +419,8 @@ class Trainer:
                 os.unlink(os.path.join(self.ckpt_dir, f"ckpt_{old}.pt"))
 
     def _block(self, t: torch.Tensor, split) -> torch.Tensor:
-        """This rank's block of a mapped whole leaf, copied to the device
-        (counted in ``restored_bytes``)."""
+        """This rank's block of a mapped whole leaf (``split``: its
+        placement), copied to the device (counted in ``restored_bytes``)."""
         out = block_to(t, split, self.device)
         self.restored_bytes += out.numel() * out.element_size()
         return out
@@ -418,13 +431,11 @@ class Trainer:
         steps = self.checkpoint_steps()
         if not steps:
             return state
-        sharding = self.sharding
         self.restored_bytes = 0
         obj = checkpoint.read(os.path.join(self.ckpt_dir, f"ckpt_{steps[-1]}.pt"))
         with torch.no_grad():
             for path, t in named_leaves(state["params"]):
-                t.copy_(self._block(obj["params"]["/".join(path)],
-                                    sharding.of(path) if sharding else None))
+                t.copy_(self._block(obj["params"]["/".join(path)], self._placed(path)))
         state["opt"].load_state_dict(obj["opt_state"], self._block)
         state["step"] = int(obj["step"])
         logger.info("restored checkpoint at step %d", state["step"])

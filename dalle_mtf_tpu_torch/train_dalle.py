@@ -22,8 +22,13 @@ layers; ``pipeline_microbatches``, default the pipe size). Tensor
 parallelism composes with the ring's sequence axis (``mesh_shape:
 "data:1,seq:2,model:2"``, ``layout: "batch_dim:data,total_seq_dim:seq,
 heads_dim:model,intermediate_expanded:model,vocab_dim:model"`` on 4 ranks:
-each rank runs the ring on its 4 of 8 heads over half the sequence). Under
-tensor parallelism ``predict_steps`` samples on the blocks of rank 0's model group
+each rank runs the ring on its 4 of 8 heads over half the sequence) and
+with the pipe axis (``mesh_shape: "data:16,pipe:2,model:2"``, dalle_coco's
+``layout`` plus ``layers:pipe``: ``data:1,pipe:2,model:2`` on 4 ranks, each
+rank its stage's half of the layers on its 4 of 8 heads, half the MLP width
+and its block of the vocabulary). ``layers`` on the axis of a
+tensor-parallel dim is refused before the group is joined. Under tensor
+parallelism ``predict_steps`` samples on the blocks of rank 0's model group
 (``train/predict.py``); under pipeline parallelism it raises at start-up
 (ROADMAP queue 1 item 5c-iv).
 
@@ -51,12 +56,20 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 import torch.distributed as dist
 
 from dalle_mtf_tpu_torch.data.pipeline import dalle_input_fn
 from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer
-from dalle_mtf_tpu_torch.parallel.mesh import build_mesh, refuse_layers
+from dalle_mtf_tpu_torch.parallel.mesh import (
+    build_mesh,
+    check_layout,
+    parse_layout,
+    parse_mesh_shape,
+    refuse_layers,
+    resize_axes,
+)
 from dalle_mtf_tpu_torch.train.predict import make_predict_summary_fn
 from dalle_mtf_tpu_torch.train.tasks import make_dalle_task
 from dalle_mtf_tpu_torch.train.trainer import Trainer
@@ -97,25 +110,29 @@ def main(argv=None) -> Trainer:
     the last step's state). A process group this call joined is left
     before it returns."""
     args = parse_args(argv)
+    params = fetch_model_params(args.model)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:  # a layout the port does not run raises before the group is joined
+        check_layout(resize_axes(parse_mesh_shape(params.get("mesh_shape")), world),
+                     parse_layout(params.get("layout")),
+                     params.get("attention_type") or "global")
     owns_group = not (dist.is_available() and dist.is_initialized())
     proc = init_distributed(args.gpu_ids, args.device)
     try:
-        return _train(args, proc)
+        return _train(args, proc, params)
     finally:
         if owns_group and proc.world > 1:
             dist.destroy_process_group()
 
 
-def _train(args, proc) -> Trainer:
+def _train(args, proc, params) -> Trainer:
     device = proc.device
-    params = fetch_model_params(args.model)
     if params["model_type"] != "dalle":
         raise ValueError(f"config {args.model} is not a dalle config")
     if params["vae_params"] is None:
         raise ValueError("vae model config must be supplied (vae_model key)")
     setup_logging(params["config_name"] or args.model, rank=proc.rank)
-    # the ranks' layout; one the port does not run (PP beside TP or ring
-    # attention) raises here at world size > 1
+    # the ranks' layout (checked before the group was joined)
     mesh = build_mesh(params.get("mesh_shape"), params.get("layout"),
                       params.get("attention_type") or "global", proc.rank, proc.world)
     if params.get("predict_steps"):

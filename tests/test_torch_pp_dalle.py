@@ -18,14 +18,20 @@ process, on the CPU with 4 gloo ranks (tests/torch_tp_worker.py
 - The head rows: each stage's ``b/P`` rows; a batch that does not divide
   warns, the last stage takes every row and the loss is unchanged.
 - Without a launch (a fake process group, or pure functions): the layouts
-  that build a pipe mesh and those refused (PP x TP, PP x SP, ``layers``
-  beside another dim, sampling, serving, ``predict_steps`` and VAE
-  training on a ``layers`` rule), the
-  sharded init on a pipe mesh bit-equal to one process's tree with
-  ``drawn_elements`` a stage's share, the ValueErrors for ``b % M`` and
-  ``n_layers % P``.
+  that build a pipe mesh, beside a tensor-parallel axis too (PP x TP: every
+  rank's stage, model index, pipeline, model, share, copy and block-copy
+  groups on ``data:2,pipe:2,model:2``), and those refused (PP x SP,
+  ``layers`` beside another dim, ``layers`` beside ``heads_dim`` or
+  ``intermediate_expanded`` on one axis as JAX's ``logical_to_pspec``
+  refuses it, ``layers`` beside ``vocab_dim`` alone on one axis (ROADMAP
+  5c-vi), sampling, serving, ``predict_steps`` and VAE training on a
+  ``layers`` rule), the sharded init on a pipe mesh, and on
+  ``data:1,pipe:2,model:2``, bit-equal to one process's tree with
+  ``drawn_elements`` a stage's (tensor-parallel) share, the ValueErrors for
+  ``b % M`` and ``n_layers % P``.
 
-``train_dalle`` and checkpoints on a pipe mesh: tests/test_torch_pp_train.py.
+``train_dalle`` and checkpoints on a pipe mesh: tests/test_torch_pp_train.py;
+PP x TP against JAX and one process: tests/test_torch_pptp_dalle.py.
 """
 
 import math
@@ -40,6 +46,7 @@ from jax.sharding import Mesh as JaxMesh
 from torch.testing._internal.distributed.fake_pg import FakeStore
 
 from dalle_mtf_tpu.models import dalle as jdalle
+from dalle_mtf_tpu.parallel import mesh as jmesh
 from dalle_mtf_tpu_torch.models import dalle as tdalle
 from dalle_mtf_tpu_torch.parallel import mesh as tmesh
 from dalle_mtf_tpu_torch.parallel import pipeline as tpipe
@@ -278,8 +285,10 @@ def test_pipe_layout_builds_a_mesh(mesh_shape, rank, coords, stage, pipe_ranks, 
 
 
 @pytest.mark.parametrize("mesh_shape,layout,attention,match", [
-    ("pipe:2,model:2", PP + ",heads_dim:model", "global", "PP x TP.*5c-ii"),
-    ("pipe:2,model:2", PP + ",vocab_dim:model", "global", "PP x TP.*5c-ii"),
+    ("data:2,model:2", "batch_dim:data,layers:model,vocab_dim:model", "global",
+     "layers and vocab_dim.*5c-vi"),
+    ("pipe:2,model:2", PP + ",intermediate_expanded:pipe", "global",
+     "on layers and intermediate_expanded"),
     ("pipe:2,data:2", PP, "ring", "PP x SP.*5c-iii"),
     ("pipe:2,seq:2", PP + ",total_seq_dim:seq", "local_ring", "PP x SP.*5c-iii"),
     ("pipe:2,data:2", "batch_dim:data,layers:pipe,heads_dim:pipe", "global", "another layout dim"),
@@ -291,6 +300,102 @@ def test_pipe_layouts_the_port_refuses(mesh_shape, layout, attention, match):
         tmesh.check_layout(axes, tmesh.parse_layout(layout), attention)
     # one process: every axis resizes to 1, accepted
     assert tmesh.build_mesh(mesh_shape, layout, attention).world == 1
+
+
+PPTP = PP + ",heads_dim:model,intermediate_expanded:model,vocab_dim:model"
+PPTP_KW = dict(KW, text_vocab_size=200, n_heads=4)  # a vocabulary of 233: 128 + 105 rows
+
+
+@pytest.mark.parametrize("layout", [PPTP, PP + ",heads_dim:model", PP + ",vocab_dim:model"])
+@pytest.mark.parametrize("rank", [0, 3, 5, 6])
+def test_pptp_layout_builds_a_mesh(layout, rank):
+    """``data:2,pipe:2,model:2`` (8 ranks, row-major: rank = 4d + 2p + m):
+    the rank's stage and model index, its pipeline (its model index on
+    each stage), its model group, the shares (its model index over the data
+    and pipe axes), the copies (its model group) and no block copy; the
+    model holds its stage's layers of its model index's blocks."""
+    _fake_world(rank, 8)
+    try:
+        mesh = tmesh.build_mesh("data:2,pipe:2,model:2", layout, "global", rank, 8)
+        d, p, m = rank // 4, rank // 2 % 2, rank % 2
+        assert (mesh.pipe_axis, mesh.tp_axis) == ("pipe", "model")
+        assert (mesh.stage, mesh.stages, mesh.index("model")) == (p, 2, m)
+        assert mesh.pipe_ranks == [4 * d + m, 4 * d + 2 + m]
+        assert mesh.ranks("model") == [4 * d + 2 * p, 4 * d + 2 * p + 1]
+        assert mesh.ranks("data") == [2 * p + m, 4 + 2 * p + m]
+        assert (mesh.replicas, mesh.shares, mesh.copies) == (2, 4, 2)
+        assert dist.get_process_group_ranks(mesh.share_group) == [m, 2 + m, 4 + m, 6 + m]
+        assert dist.get_process_group_ranks(mesh.replica_group) == mesh.ranks("data")
+        assert mesh.copy_ranks == mesh.ranks("model")
+        assert (mesh.block_copy_ranks, mesh.block_copy_group) == (None, None)
+        assert mesh.plane(["pipe", "model"]) == [[0, 1], [2, 3]]
+        model = tdalle.DALLE(tdalle.DalleConfig(**PPTP_KW), "cpu", mesh)
+        assert model.layers == (2 * p, 2 * p + 2)
+        heads = (2 * m, 2) if "heads_dim" in layout else (0, 4)
+        assert model.heads == heads
+        assert model.param_shapes()["layers"]["wq"] == (2, 64, heads[1], 16)
+        placed = model.sharding.placed(("layers", "wq"))
+        assert [x.axis for x in placed] == ["pipe", "model"][:len(placed)]
+        assert model.param_shapes()["w_out"] == (64, (128 if m == 0 else 105)
+                                                 if "vocab_dim" in layout else 233)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dim", ["heads_dim", "intermediate_expanded"])
+def test_layers_beside_a_stacked_tensor_dim_on_one_axis_is_refused_as_jax_refuses(dim):
+    """One axis on ``layers`` and on ``heads_dim`` or
+    ``intermediate_expanded`` would put the axis twice on a stacked leaf:
+    JAX's ``logical_to_pspec`` raises, and ``check_layout`` refuses it by
+    name before any group is joined (``train_dalle`` builds the mesh after
+    it)."""
+    layout = f"batch_dim:data,layers:model,{dim}:model"
+    leaf = {"heads_dim": ("layers", "embed_dim", "heads_dim", "kv_dim"),
+            "intermediate_expanded": ("layers", "embed_dim", "intermediate_expanded")}[dim]
+    with pytest.raises(ValueError, match="mesh axis 'model' used twice"):
+        jmesh.logical_to_pspec(leaf, jmesh.parse_layout(layout))
+    with pytest.raises(NotImplementedError, match=f"'model' on layers and {dim}"):
+        tmesh.check_layout([("data", 4), ("model", 2)], tmesh.parse_layout(layout))
+    # JAX places a layers:model beside vocab_dim:model (different leaves);
+    # the port refuses it by name (ROADMAP 5c-vi)
+    jmesh.logical_to_pspec(("embed_dim", "vocab_dim"),
+                           jmesh.parse_layout("layers:model,vocab_dim:model"))
+    with pytest.raises(NotImplementedError, match="layers and vocab_dim.*5c-vi"):
+        tmesh.check_layout([("data", 4), ("model", 2)],
+                           tmesh.parse_layout("batch_dim:data,layers:model,vocab_dim:model"))
+
+
+def test_sharded_init_on_pipe_and_model_draws_a_stage_block():
+    """On ``data:1,pipe:2,model:2`` each rank draws its stage's block of each
+    stacked split leaf (and its vocabulary block), bit-equal to one
+    process's tree there; ``drawn_elements`` is the rank's share."""
+    cfg = tdalle.DalleConfig(**PPTP_KW)
+    whole = dict(named_leaves(tdalle.DALLE(cfg, "cpu").init(torch.Generator().manual_seed(0))))
+    random = ("wq", "wk", "wv", "wo", "w_mlp1", "w_mlp2", "wte", "wpe", "w_out")
+    blocks = {}
+    for rank in range(4):
+        _fake_world(rank, 4)
+        try:
+            mesh = tmesh.build_mesh("data:1,pipe:2,model:2", PPTP, "global", rank, 4)
+            model = tdalle.DALLE(cfg, "cpu", mesh)
+            tree = dict(named_leaves(model.init(torch.Generator().manual_seed(0))))
+            assert model.drawn_elements == sum(t.numel() for p, t in tree.items()
+                                               if p[-1] in random)
+            for p, t in tree.items():
+                assert torch.equal(t, shard(whole[p], model.sharding.placed(p))), (rank, p)
+                blocks[(rank // 2, rank % 2, p)] = t
+        finally:
+            dist.destroy_process_group()
+    assert blocks[(1, 1, ("layers", "wq"))].shape == (2, 64, 2, 16)
+    for p, want in whole.items():
+        split = [i for i, a in enumerate(dict(named_leaves(tdalle.DALLE.logical_axes()))[p])
+                 if a in ("heads_dim", "intermediate_expanded", "vocab_dim")]
+        stages = []
+        for s in range(2):
+            parts = [blocks[(s, m, p)] for m in range(2)]
+            stages.append(torch.cat(parts, split[0]) if split else parts[0])
+        got = torch.cat(stages) if p[0] == "layers" else stages[0]
+        assert torch.equal(got, want), p
 
 
 @pytest.mark.parametrize("what", ["sampling and serving", "predict_steps"])
@@ -316,6 +421,26 @@ def test_train_vae_refuses_a_layers_rule(tmp_path, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "4")
     with pytest.raises(NotImplementedError, match="VAE training.*'layers'"):
         train_vae.main(["--model", str(path), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("layout,match", [
+    ("batch_dim:data,layers:model,heads_dim:model", "'model' on layers and heads_dim"),
+    ("batch_dim:data,layers:model,vocab_dim:model", "layers and vocab_dim.*5c-vi")])
+def test_train_dalle_refuses_layers_on_a_tensor_axis_before_joining(tmp_path, monkeypatch,
+                                                                   layout, match):
+    """Over ranks ``train_dalle`` checks the layout before it joins the
+    process group (no launcher here: joining would fail on the missing
+    rendezvous)."""
+    import json
+
+    from dalle_mtf_tpu_torch import train_dalle
+
+    path = tmp_path / "dalle.json"
+    path.write_text(json.dumps({"model_type": "dalle", **TASK, "mesh_shape": "data:2,model:2",
+                                "layout": layout, "model_path": str(tmp_path / "run")}))
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(NotImplementedError, match=match):
+        train_dalle.main(["--model", str(path), "--device", "cpu"])
 
 
 @pytest.mark.parametrize("stages", [2, 4])

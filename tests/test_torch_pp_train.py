@@ -18,6 +18,13 @@ tests/torch_tp_worker.py (``train`` cases, and a ``ckpt`` case):
   copies only them), takes a step there, and rank 0 writes the whole tree
   (each stage's layers sent to it leaf by leaf), which restores on one
   process bit for bit and agrees with one process's step.
+
+Beside a tensor-parallel axis (PP x TP, ``data:1,pipe:2,model:2`` with the
+published rules plus ``layers:pipe``), in a launch of its own: a run of 2
+steps resumed to 4 is the unbroken run of 4 bit for bit (logs, evals and the
+checkpoint), and the checkpoint (each block of a stacked split leaf sent to
+rank 0 by the rank of its pipe x model plane that holds it) restores whole
+on one process, parameters and moments, equal to the ranks' blocks gathered.
 """
 
 import math
@@ -33,6 +40,8 @@ from test_torch_tp_xent import torchrun
 
 PP = "batch_dim:data,layers:pipe"
 PP_RUN = dict(mesh_shape="pipe:2,data:2", layout=PP)
+PPTP_RUN = dict(mesh_shape="data:1,pipe:2,model:2", n_layers=4, layout=PP + (
+    ",heads_dim:model,intermediate_expanded:model,vocab_dim:model"))
 DEEP = dict(mesh_shape="pipe:4", layout=PP, n_layers=4)
 CKPT_KW = dict(n_embd=64, text_vocab_size=300, image_vocab_size=64, text_seq_len=8,
                image_seq_len=16, n_layers=4, n_heads=2, attention_dropout=0.1)
@@ -138,3 +147,42 @@ def test_train_dalle_on_pipe2_data2(tmp_path, monkeypatch):
         torch.testing.assert_close(saved["params"]["/".join(p)], want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()) + 1e-3 * OPT["lr"],
                                    msg=str(p))
+
+
+def test_train_dalle_on_pipe2_model2(tmp_path, monkeypatch):
+    from dalle_mtf_tpu_torch.train.tasks import make_dalle_task
+    from dalle_mtf_tpu_torch.utils.config import fetch_model_params
+
+    monkeypatch.chdir(tmp_path)
+    unbroken_cfg = _train_config(tmp_path, "unbroken", train_steps=4, **PPTP_RUN)
+    unbroken, first, second = torchrun(4, "train", [
+        {"argv": _argv(unbroken_cfg), "gathered": True},
+        {"argv": _argv(_train_config(tmp_path, "split", train_steps=2, **PPTP_RUN))},
+        {"argv": _argv(_train_config(tmp_path, "split", train_steps=4, **PPTP_RUN))},
+    ], tmp_path, timeout=400)
+
+    def logged(history):
+        return [{k: v for k, v in h.items() if k != "steps_per_sec"} for h in history]
+
+    assert [h["step"] for h in unbroken["history"]] == [1, 2, 3, 4]
+    assert all(np.isfinite(h["loss"]) for h in unbroken["history"])
+    assert logged(first["history"] + second["history"]) == logged(unbroken["history"])
+    assert first["eval_history"] + second["eval_history"] == unbroken["eval_history"]
+    saved = _ckpt(tmp_path, "unbroken", 4)
+    for name, want in saved["params"].items():
+        assert torch.equal(_ckpt(tmp_path, "split", 4)["params"][name], want), name
+    # one process restores the whole tree: the ranks' blocks, gathered
+    assert set(saved["params"]) == set(unbroken["params"])
+    params = fetch_model_params(unbroken_cfg)
+    dalle, _, init_fn, loss_fn, _ = make_dalle_task(params, "cpu")
+    one = Trainer(params, init_fn, loss_fn, params["model_path"], dalle.cfg.total_seq_len, "cpu")
+    state = one.restore(one.init_state(torch.Generator().manual_seed(5)))
+    assert state["step"] == 4
+    for p, t in named_leaves(state["params"]):
+        assert torch.equal(t.detach(), unbroken["params"]["/".join(p)]), p
+    assert saved["params"]["layers/wq"].shape == (4, 32, 2, 16)  # the whole stack, all heads
+    moments = state["opt"].state_dict()["adamw"]["state"]
+    for i, st in saved["opt_state"]["adamw"]["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(moments[i][k], st[k]), (i, k)
+    one.close()

@@ -16,7 +16,7 @@ against the JAX package, on the CPU with 4 gloo ranks.
   unbroken 4-rank run bit for bit (``data:2,seq:2``).
 - Layouts the port cannot honour raise at world size > 1; tensor-parallel
   and pipeline ones build a mesh, and tensor parallelism beside the ring's
-  sequence axis (TP x SP) does (PP x SP and PP x TP raise).
+  sequence axis (TP x SP) does, and so does PP beside TP (PP x SP raises).
 """
 
 import json
@@ -191,7 +191,7 @@ def test_train_dalle_data2_seq2_resume_equals_unbroken_run(tmp_path):
     ("pipe:2,data:2", "batch_dim:data,layers:pipe", "pipe"),
     ("data:2,model:2", "batch_dim:data", "replicate"),  # an axis that only replicates
     ("data:1,seq:2,model:2", "batch_dim:data,total_seq_dim:seq,heads_dim:model", "tpsp"),
-    ("pipe:2,model:2", "batch_dim:data,layers:pipe,heads_dim:model", "refused"),
+    ("pipe:2,model:2", "batch_dim:data,layers:pipe,heads_dim:model", "pptp"),
 ])
 def test_tp_and_pp_layouts_raise_above_one_process(mesh_shape, layout, kind):
     """Tensor-parallel layouts build a mesh (a fake 4-rank process group)
@@ -202,19 +202,23 @@ def test_tp_and_pp_layouts_raise_above_one_process(mesh_shape, layout, kind):
     pipeline layout builds a mesh with its pipe axis, 2 replicas and the
     rank's stage under global attention, and raises under ring attention
     (PP x SP); an axis that only replicates builds under either, with the
-    batch axis's 2 replicas; PP beside TP (PP x TP) raises under either."""
+    batch axis's 2 replicas; PP beside TP (PP x TP) builds under global
+    attention, its model group the copies of a replicated leaf, and raises
+    under ring attention (PP x SP)."""
     from test_torch_tp_dalle import fake_world
 
     for attention in ("global", "ring"):
-        if kind in ("replicate", "tensor") or (kind, attention) in (("pipe", "global"),
-                                                                   ("tpsp", "ring")):
+        if kind in ("replicate", "tensor") or (kind, attention) in (
+                ("pipe", "global"), ("tpsp", "ring"), ("pptp", "global")):
             with fake_world(4):
                 mesh = tmesh.build_mesh(mesh_shape, layout, attention, rank=0, world=4)
-                assert mesh.tp_axis == ("model" if kind in ("tensor", "tpsp") else None)
-                assert mesh.pipe_axis == ("pipe" if kind == "pipe" else None)
-                assert mesh.replicas == 2
-                if kind == "pipe":
+                assert mesh.tp_axis == ("model" if kind in ("tensor", "tpsp", "pptp") else None)
+                assert mesh.pipe_axis == ("pipe" if kind in ("pipe", "pptp") else None)
+                assert mesh.replicas == (1 if kind == "pptp" else 2)  # pptp: no batch axis
+                if kind in ("pipe", "pptp"):
                     assert (mesh.stage, mesh.stages, mesh.pipe_ranks) == (0, 2, [0, 2])
+                if kind == "pptp":
+                    assert (mesh.copy_ranks, mesh.block_copy_ranks) == ([0, 1], None)
                 if kind == "tpsp":
                     assert (mesh.copy_ranks, mesh.block_copy_ranks) == ([0, 1], None)
         else:
@@ -227,12 +231,9 @@ def test_tp_and_pp_layouts_raise_above_one_process(mesh_shape, layout, kind):
             mesh = tmesh.build_mesh(mesh_shape, layout, "ring", rank=0, world=4)
             assert tmesh.data_axes(mesh.rules, "ring") == ("data", "seq")
             assert mesh.copies == 2
-    if kind == "pipe":
+    if kind in ("pipe", "pptp"):
         with pytest.raises(NotImplementedError, match="PP x SP.*5c-iii"):
             tmesh.build_mesh(mesh_shape, layout, "ring", rank=0, world=4)
-    if "layers" in layout and "model" in mesh_shape:
-        with pytest.raises(NotImplementedError, match="PP x TP.*5c-ii"):
-            tmesh.build_mesh(mesh_shape, layout, "global", rank=0, world=4)
     # a sequence axis needs ring attention
     with pytest.raises(NotImplementedError, match="sequence"):
         tmesh.build_mesh("data:1,seq:4", LAYOUT, "global", rank=0, world=4)

@@ -515,9 +515,10 @@ def test_gumbel_draw_does_not_depend_on_the_layout(block):
 
 
 @pytest.mark.parametrize("layout,what", [
-    # pipeline parallelism is ported (tests/test_torch_pp_dalle.py): what
-    # stays refused of it is a layers rule beside a tensor dim (PP x TP)
-    pytest.param("batch_dim:data,layers:model,tokens_dim:model", "5c-ii",
+    # pipeline parallelism is ported, beside tensor parallelism too
+    # (tests/test_torch_pp_dalle.py, tests/test_torch_pptp_dalle.py): what
+    # stays refused of it is a layers rule beside vocab_dim alone on one axis
+    pytest.param("batch_dim:data,layers:model,vocab_dim:model", "5c-vi",
                  id="batch_dim:data,layers:model-5c"),
 ])
 def test_check_layout_refuses_what_stays_in_the_roadmap(layout, what):

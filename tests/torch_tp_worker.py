@@ -24,11 +24,15 @@ optimizer steps instead (the config's optimizer with its clip and
 (a ``replicated`` case's layout splits nothing); with ``trainer``, the
 steps are ``Trainer.train_step``s of ``make_dalle_task``'s train loss on
 the case's ``task`` config (its mesh, layout and attention type) and
-``tokens``/``caption`` batch. On a pipe mesh every rank's stage, layers and
+``tokens``/``caption`` batch (or ``image``/``caption`` with the frozen
+VAE's tree ``vae``), and the eval metrics of ``Trainer.eval_step`` after
+them and every rank's shapes of its blocks and of their optimizer moments
+come back too. On a pipe mesh every rank's stage, layers and
 head rows come back, and whether it logged the head's warning.
 ``train``: ``train_dalle.main`` on each case's argv in turn, in one process
 group (a case with ``raises`` must raise NotImplementedError naming it);
-rank 0's logged history and eval history. ``train_vae``: the same through
+rank 0's logged history and eval history (with ``gathered``, also the
+final parameters gathered whole from every rank's blocks). ``train_vae``: the same through
 ``train_vae.main``. ``vae_step``: ``steps`` ``Trainer.train_step``s of the
 VAE task on the case's mesh and layout from the whole tree ``params``, the
 rows of ``images`` split over the batch axis and the Gumbel draw the
@@ -103,15 +107,15 @@ def xent(case, proc):
 
 
 def _whole_grads(model, mesh, tree):
-    """Every leaf's gradient, the blocks gathered over the model group (or
-    the pipeline) and the shares summed: a stage's layers over the
+    """Every leaf's gradient, the blocks gathered over the model group and
+    the pipeline and the shares summed: a stage's layers over the
     replicas, every other leaf over the replicas and the stages (a leaf a
     stage did not use has no gradient: zeros)."""
     grads = {p: torch.zeros_like(t) if t.grad is None else t.grad for p, t in named_leaves(tree)}
-    pipe = {p: model.pipe is not None and model.sharding.of(p) is not None for p in grads}
-    if model.sharding is not None:
-        grads = {p: gather(g, model.sharding.of(p), model.sharding.group)
-                 for p, g in grads.items()}
+    placed = {p: model.sharding.placed(p) if model.sharding else () for p in grads}
+    pipe = {p: any(x.axis == mesh.pipe_axis for x in placed[p]) and mesh.pipe_axis is not None
+            for p in grads}
+    grads = {p: gather(g, placed[p], None) for p, g in grads.items()}
     for p, g in grads.items():
         n, group = ((mesh.replicas, mesh.replica_group) if pipe[p]
                     else (mesh.shares, mesh.share_group))
@@ -231,24 +235,47 @@ def trainer_steps(case, proc):
     params = Config.from_mapping(case["task"])
     mesh = build_mesh(params["mesh_shape"], params["layout"],
                       params.get("attention_type") or "global", proc.rank, proc.world)
-    dalle, _, init_fn, loss_fn, _ = make_dalle_task(params, "cpu", mesh)
+    dalle, vae, init_fn, loss_fn, eval_fn = make_dalle_task(params, "cpu", mesh)
     tree = convert.shard_dalle_params(case["params"], dalle)
     for _, t in named_leaves(tree):
         t.requires_grad_(True)
+    frozen = convert.vae_params_from_numpy(case["vae"], vae) if "vae" in case else None
     trainer = Trainer(params, init_fn, loss_fn, os.path.join(case["out_dir"], str(proc.rank)),
-                      dalle.cfg.total_seq_len, "cpu", mesh=mesh, sharding=dalle.sharding)
+                      dalle.cfg.total_seq_len, "cpu", frozen_params=frozen, eval_loss_fn=eval_fn,
+                      mesh=mesh, sharding=dalle.sharding)
     opt, trainer.schedule = get_optimizer(params, tree, dalle.sharding)
     state = {"step": 0, "params": tree, "opt": opt}
     n, i = mesh.size("data"), mesh.index("data")
-    rows = case["tokens"].shape[0] // n
-    batch = {k: case[k][i * rows:(i + 1) * rows] for k in ("tokens", "caption")}
+    rows = case["caption"].shape[0] // n
+    batch = {k: case[k][i * rows:(i + 1) * rows] for k in ("tokens", "image", "caption")
+             if k in case}
     metrics = []
     for step in range(case["steps"]):
         state, m = trainer.train_step(state, batch, torch.Generator().manual_seed(step))
         metrics.append({k: float(v) for k, v in m.items()})
+    evals = {k: float(v) for k, v in trainer.eval_step(
+        state, batch, torch.Generator().manual_seed(0)).items()}
     trainer.close()
     final = convert.gather_dalle_params(tree, dalle)
-    return {"metrics": metrics, "params": {"/".join(p): a for p, a in named_leaves(final)}}
+    everyone = [None] * proc.world
+    dist.all_gather_object(everyone, dict(coords=mesh.coords, held=_held(opt, tree)))
+    return {"metrics": metrics, "params": {"/".join(p): a for p, a in named_leaves(final)},
+            "held": everyone, "eval": evals}
+
+
+def _held(opt, tree):
+    """The shape of this rank's block of every leaf and of its optimizer
+    moments (AdamW's two, or Adafactor's v or v_row and v_col)."""
+    inner = getattr(opt, "inner", opt)
+    out = {}
+    for i, (p, t) in enumerate(named_leaves(tree)):
+        if hasattr(inner, "opt"):  # AdamW
+            moments = [inner.opt.state[t][k] for k in ("exp_avg", "exp_avg_sq")]
+        else:
+            v = inner.v[i]
+            moments = list(v) if isinstance(v, tuple) else [v]
+        out["/".join(p)] = (tuple(t.shape), *(tuple(m.shape) for m in moments))
+    return out
 
 
 def train(case, proc, cli="train_dalle"):
@@ -263,7 +290,11 @@ def train(case, proc, cli="train_dalle"):
             return {"raised": str(e)}
         raise AssertionError(f"{case['argv']} did not raise")
     trainer = main_(case["argv"])
-    return {"history": trainer.history, "eval_history": trainer.eval_history}
+    out = {"history": trainer.history, "eval_history": trainer.eval_history}
+    if case.get("gathered"):  # every rank's blocks at the end, whole
+        out["params"] = {"/".join(p): t.detach().clone() for p, t in named_leaves(
+            trainer.sharding.gather_tree(trainer.state["params"]))}
+    return out
 
 
 def _vae_whole(vae, tree):
@@ -380,7 +411,7 @@ def ckpt(case, proc, out_dir):
         state = trainer.restore(state)
         saved = torch.load(os.path.join(trainer.ckpt_dir, f"ckpt_{step}.pt"), weights_only=True)
         for p, t in named_leaves(state["params"]):
-            want = shard(saved["params"]["/".join(p)], model.sharding.of(p))
+            want = shard(saved["params"]["/".join(p)], model.sharding.placed(p))
             assert torch.equal(t.detach(), want), p
         moments = state["opt"].state_dict()["adamw"]["state"]
         saved_moments = saved["opt_state"]["adamw"]["state"]
