@@ -6,7 +6,10 @@
 Phases, none of them optional:
 
 1. Device and build: the card's name and power limit, then the CUDA kernels
-   built from the repository's csrc/ sources (one nvcc per source, timed),
+   built from the repository's csrc/ sources (one nvcc per source, timed)
+   and, beside them, the native data library from native/dataloader.cpp
+   (g++, where it and libjpeg's jpeglib.h are found; with whether the
+   container allows io_uring),
    and "resources" lines for each head size of the bf16 causal-attention
    kernels, the bf16 ring kernels and the fp32 (3xTF32) kernels of both
    pairs: registers a thread, spilled bytes, shared memory a CTA and CTAs an
@@ -302,16 +305,27 @@ Phases, none of them optional:
    eval step on the card against the CPU in fp32 and bf16 (same weights,
    images and Gumbel draw; loss and metrics within 1e-4 relative in fp32,
    2e-2 in bf16), then configs/vae_coco_synth.json at full width (256 px,
-   bf16, batch 32) on seeded JPEG tfrecords through ``train_vae.main`` for
-   30 steps with evals, checkpoints and image summaries at 20 and 30 and
-   two steps traced in the same loop, and a resume from step 20 that
-   repeats the losses bit for bit (cuDNN's deterministic switch on); then
-   the host's data (the pipeline's images a second alone and the data-wait
-   share of 14-step runs on the pool of decode threads, at 256² and
-   at COCO sizes) and the steps run with no sync between them; its
-   "train_vae" line holds step s, images/s, MFU, peak memory, the device's
-   busy share and ms by bucket from the traced steps, and the data-wait
-   shares.
+   bf16, batch 32) through ``train_vae.main`` for 30 steps with evals,
+   checkpoints and image summaries at 20 and 30 and two steps traced in the
+   same loop, and a resume from step 20 that repeats the losses bit for bit
+   (cuDNN's deterministic switch on). Its records are the port's own
+   dataset tooling's: 256 seeded quadrant JPEGs of 256² from
+   ``data/smoke_data.py`` and 128 seeded JPEGs at COCO sizes, each set
+   through ``create_tfrecords random`` and then ``paired --reencode``; they
+   are read through the native library (``data/native.py``, built from
+   native/dataloader.cpp beside the kernels: the io_uring reader and the
+   C++ decode pool, the JAX package's default path), which the phase
+   requires wherever ``g++`` and ``jpeglib.h`` are found (else the Python
+   reader and PIL, as in the JAX package). Then the host's data: the
+   pool's images a second alone on 4, 8 and 16 threads at COCO sizes, and
+   on the pool and on PIL (the Python reader, PIL on ``DECODE_WORKERS``
+   threads; PIL alone where the library cannot be built) the pipeline's
+   images a second alone and the data-wait share of 14-step runs, at 256²
+   and at COCO sizes; and the
+   steps run with no sync between them. Its "train_vae" line holds step s,
+   images/s, MFU, peak memory, the device's busy share and ms by bucket
+   from the traced steps (on the pool), the readers that ran and the
+   data-wait shares.
    Then DALLE in image mode, ``phase_train_image``, the two-stage flow on
    the VAE phase's step-30 checkpoint (the same packed attention pair as
    the tokens mode; the frozen encoder's convs are cuDNN): a small fp32
@@ -321,10 +335,16 @@ Phases, none of them optional:
    packed pair's launches counted); configs/dalle_coco_synth.json as
    published (image mode: no ``dataset.tokens``, the frozen vae_coco_synth
    restored from that checkpoint; full width and depth, batch 16, bf16) on
-   256 seeded JPEG + caption tfrecords at 256² through ``train_dalle.main``
+   the VAE phase's 256² records, whose captions ``create_tfrecords random``
+   drew and ``paired`` tokenized, through ``train_dalle.main``
    for 8 steps with an eval and a checkpoint and a resumed ``main`` for 2
-   more, with the tokens-mode run's checks and exact launches; the
-   ``uint8_images: true`` arm from the same init (first loss bit-equal);
+   more, ``train_path`` and ``model_path`` given as file:// URLs (the
+   records, read ahead a shard a thread, the checkpoints, the eval and the
+   resume all through fsspec), with the tokens-mode run's checks and exact
+   launches; the ``uint8_images: true`` arm from the same init (its batch
+   ``to_uint8`` of the f32 arm's bit for bit, its first loss bit-equal to
+   the f32 arm's, or where the native decoder's pixels are not whole
+   numbers to that of a one-step f32 run fed the rounded pixels);
    ``create_tfrecords encode`` of the same records (batch 16; at least 99%
    of its tokens agree with the in-step encode) and tokens mode on them
    (first loss within 1e-3 of image mode's) with ``predict_steps: 1``,
@@ -412,6 +432,8 @@ fp32 here (TF32 off), so fp32 comparisons are like for like.
 from __future__ import annotations
 
 import base64
+import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -5963,14 +5985,23 @@ def vae_values(torch, bf16: bool) -> dict:
     return dict(card=gm, cpu=cm, worst_rel=max(rel.values()), worst_grad=grad_err)
 
 
+def seeded_image(rng, side):
+    """A random 8 x 8 colour field from ``rng``, bilinearly upsampled to
+    ``side`` (width, height), plus noise: uint8 pixels a VAE can learn."""
+    import numpy as np  # noqa: PLC0415
+    from PIL import Image  # noqa: PLC0415
+
+    field = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+    arr = np.asarray(field.resize(side, Image.BILINEAR), np.int16)
+    return np.clip(arr + rng.integers(-8, 9, arr.shape), 0, 255).astype(np.uint8)
+
+
 def write_image_dataset(root: str, seed: int, sides, files: int = 4, per_file: int = 64,
                         captions: bool = False) -> str:
-    """JPEG tfrecords of images drawn from ``seed``, (width, height) taken
-    from ``sides`` in turn: a random 8 x 8 colour field, bilinearly
-    upsampled, plus noise (a VAE can learn it, so the loss falls). With
-    ``captions``, each record also carries 5-63 caption ids drawn from a
-    generator of its own, so the images are those of the same seed
-    without."""
+    """JPEG tfrecords of images drawn from ``seed`` (``seeded_image``),
+    (width, height) taken from ``sides`` in turn. With ``captions``, each
+    record also carries 5-63 caption ids drawn from a generator of its own,
+    so the images are those of the same seed without."""
     import io  # noqa: PLC0415
 
     import numpy as np  # noqa: PLC0415
@@ -5983,16 +6014,144 @@ def write_image_dataset(root: str, seed: int, sides, files: int = 4, per_file: i
     for f in range(files):
         with TFRecordWriter(os.path.join(root, f"synth_{f}.tfrecords")) as w:
             for i in range(per_file):
-                field = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
-                arr = np.asarray(field.resize(sides[i % len(sides)], Image.BILINEAR), np.int16)
-                arr = np.clip(arr + rng.integers(-8, 9, arr.shape), 0, 255).astype(np.uint8)
                 buf = io.BytesIO()
-                Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+                Image.fromarray(seeded_image(rng, sides[i % len(sides)])).save(
+                    buf, format="JPEG", quality=90)
                 example = {"image": buf.getvalue()}
                 if captions:
                     example["caption"] = text_rng.integers(0, 50257, text_rng.integers(5, 64)).tolist()
                 w.write(serialize_example(example))
     return os.path.join(root, "*.tfrecords")
+
+
+def create_tfrecords_dataset(root: str, images: str, name: str) -> str:
+    """The port's dataset tooling over the JPEGs of the glob ``images``:
+    ``create_tfrecords random`` (random captions, seeded) into root/paired,
+    then ``paired --reencode`` into root/records, 64 records a file; returns
+    the records' glob."""
+    from dalle_mtf_tpu_torch.data import create_tfrecords  # noqa: PLC0415
+
+    jsonl = create_tfrecords.main(["random", images, "--out", os.path.join(root, "paired")])
+    create_tfrecords.main(["paired", jsonl, "--name", name, "--out",
+                           os.path.join(root, "records"), "--examples-per-file", "64",
+                           "--reencode"])
+    return os.path.join(root, "records", "*.tfrecords")
+
+
+def quadrant_dataset(root: str, side: int, n: int = 256, seed: int = 3) -> str:
+    """``n`` seeded quadrant JPEGs of ``side``² (``data/smoke_data.py``, its
+    per-pixel noise at 0.1 rather than its default 0.45, under which the
+    quadrants' colours are a small share of a pixel's variance) through
+    ``create_tfrecords_dataset``: the records' glob."""
+    from dalle_mtf_tpu_torch.data.smoke_data import make_quadrant_images  # noqa: PLC0415
+
+    make_quadrant_images(os.path.join(root, "images"), n_images=n, size=side, noise=0.1,
+                         seed=seed)
+    return create_tfrecords_dataset(root, os.path.join(root, "images", "*.jpg"), "quadrants")
+
+
+def coco_size_dataset(root: str, n: int = 128, seed: int = 4) -> str:
+    """``n`` seeded JPEGs (``seeded_image``, quality 90) at the COCO sizes
+    of ``COCO_SIDES`` in turn, through ``create_tfrecords_dataset``: the
+    records' glob."""
+    import numpy as np  # noqa: PLC0415
+    from PIL import Image  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for i in range(n):
+        Image.fromarray(seeded_image(rng, COCO_SIDES[i % len(COCO_SIDES)])).save(
+            os.path.join(root, "images", f"coco_{i:03d}.jpg"), quality=90)
+    return create_tfrecords_dataset(root, os.path.join(root, "images", "*.jpg"), "coco")
+
+
+def io_uring_allowed() -> bool:
+    """Whether this process may create an io_uring (the io_uring_setup
+    syscall, x86-64 number 425, for a one-entry ring, closed at once)."""
+    import ctypes  # noqa: PLC0415
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    params = ctypes.create_string_buffer(120)  # struct io_uring_params, zeroed
+    fd = libc.syscall(425, 1, params)
+    if fd < 0:
+        return False
+    os.close(fd)
+    return True
+
+
+def native_data_library() -> dict:
+    """Build the native data library (``data/native.py``, from
+    native/dataloader.cpp) where its toolchain is found: {"missing": why it
+    cannot be built or None, "io_uring": whether the container allows
+    io_uring (``io_uring_allowed``; with the library, a two-shard read
+    through its reader must agree), "library": its path, "build_s"}. A
+    toolchain that is found and a library that fails to build or load is
+    an error."""
+    from dalle_mtf_tpu_torch.data import native  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.data.tfrecord import TFRecordWriter  # noqa: PLC0415
+
+    out = {"missing": native.missing_toolchain(), "gxx": shutil.which("g++"),
+           "jpeglib_h": os.path.isfile("/usr/include/jpeglib.h"),
+           "io_uring": io_uring_allowed()}
+    if out["missing"] is not None:
+        return out
+    t0 = time.perf_counter()
+    out["library"] = os.path.relpath(native.build(), HERE)
+    out["build_s"] = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError("the native data library built but does not load")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_uring_")
+    try:
+        paths = []
+        for i in range(2):
+            paths.append(os.path.join(tmp, f"{i}.tfrecords"))
+            with TFRecordWriter(paths[-1]) as w:
+                w.write(f"record {i}".encode())
+        ring = native.read_interleaved(paths, cycle=2)
+        if (ring is not None) != out["io_uring"]:
+            raise AssertionError(f"io_uring allowed: {out['io_uring']}, but the reader "
+                                 f"{'opened' if ring is not None else 'did not open'} one")
+        if ring is not None and list(ring) != [b"record 0", b"record 1"]:
+            raise AssertionError("the io_uring reader read the wrong records")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def require_native_data(pipeline, label: str) -> None:
+    """Fail where the native data library can be built but ``pipeline``
+    (an image pipeline, its stream started) did not read and decode
+    through it: the io_uring reader (or the native one where io_uring is
+    refused) and the C++ decode pool."""
+    from dalle_mtf_tpu_torch.data import native  # noqa: PLC0415
+
+    if native.missing_toolchain() is not None:
+        return
+    local = pipeline.reader in ("io_uring", "native")
+    if pipeline.decoder != "native pool" or not (local or pipeline.reader.endswith("readahead")):
+        raise AssertionError(f"{label}: the native data path did not run (reader "
+                             f"{pipeline.reader}, decoder {pipeline.decoder}) though g++ and "
+                             f"jpeglib.h are here")
+
+
+@contextlib.contextmanager
+def decode_path(path: str, workers: int):
+    """The image pipelines made inside on ``path``: "pool" (the native
+    readers and the C++ decode pool on ``workers`` threads) or "pil" (the
+    Python reader and PIL on ``workers`` threads: the native library
+    unloaded, as where it cannot be built)."""
+    from dalle_mtf_tpu_torch.data import native  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.data import pipeline as tpipe  # noqa: PLC0415
+
+    saved = native.get_lib, tpipe.POOL_WORKERS, tpipe.DECODE_WORKERS
+    if path == "pil":
+        native.get_lib, tpipe.DECODE_WORKERS = (lambda: None), workers
+    else:
+        tpipe.POOL_WORKERS = workers
+    try:
+        yield
+    finally:
+        native.get_lib, tpipe.POOL_WORKERS, tpipe.DECODE_WORKERS = saved
 
 
 def vae_config(tmp: str, pattern: str, run: str, **over) -> str:
@@ -6057,8 +6216,9 @@ class TimedBatches:
     first-th ``next`` to the one after the last, and keeps that window's
     wall seconds: the trace and the step times come from one loop."""
 
-    def __init__(self, pipeline, trace: tuple[int, int] | None = None):
-        self.it = iter(pipeline)
+    def __init__(self, pipeline, trace: tuple[int, int] | None = None, batch_fn=None):
+        self.pipeline = pipeline  # its ``reader`` and ``decoder`` once the stream starts
+        self.it, self.batch_fn = iter(pipeline), batch_fn
         self.waits: list[float] = []
         self.trace, self.prof, self.window_s, self.t_window = trace, None, None, 0.0
 
@@ -6079,7 +6239,7 @@ class TimedBatches:
         t0 = time.perf_counter()
         batch = next(self.it)
         self.waits.append(time.perf_counter() - t0)
-        return batch
+        return batch if self.batch_fn is None else self.batch_fn(batch)
 
     def close(self):
         self.it.close()
@@ -6173,19 +6333,14 @@ def pipeline_rate(pipeline, batch: int, batches: int = 8) -> float:
     return batches * batch / seconds
 
 
-def vae_decode_rate(path, threads: int) -> float:
-    """Images a second that ``vae_input_fn`` alone yields on ``threads``
-    decode threads."""
-    from dalle_mtf_tpu_torch.data import pipeline as tpipe  # noqa: PLC0415
+def vae_decode_rate(path) -> float:
+    """Images a second that config ``path``'s ``vae_input_fn`` alone yields
+    (on the decode path in force: ``decode_path``)."""
+    from dalle_mtf_tpu_torch.data.pipeline import vae_input_fn  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
 
     params = fetch_model_params(path)
-    workers, tpipe.DECODE_WORKERS = tpipe.DECODE_WORKERS, threads
-    try:
-        pipeline = tpipe.vae_input_fn(params)
-    finally:
-        tpipe.DECODE_WORKERS = workers
-    return pipeline_rate(pipeline, params["train_batch_size"])
+    return pipeline_rate(vae_input_fn(params), params["train_batch_size"])
 
 
 def tokens_parse_rate(tmp: str) -> float:
@@ -6201,15 +6356,13 @@ def tokens_parse_rate(tmp: str) -> float:
     return pipeline_rate(dalle_input_fn(params), params["train_batch_size"])
 
 
-def run_train_vae(path, *flags, trace=None, threads=None):
+def run_train_vae(path, *flags, trace=None):
     """``train_vae.main`` on config ``path`` (on cuda:0) with its training
-    stream wrapped in ``TimedBatches`` (``trace``: its traced window) and
-    the image pipelines decoding on ``threads`` threads (None:
-    DECODE_WORKERS): (the closed Trainer, the TimedBatches)."""
+    stream wrapped in ``TimedBatches`` (``trace``: its traced window): (the
+    closed Trainer, the TimedBatches)."""
     from dalle_mtf_tpu_torch import train_vae  # noqa: PLC0415
-    from dalle_mtf_tpu_torch.data import pipeline as tpipe  # noqa: PLC0415
 
-    make_pipeline, workers = train_vae.vae_input_fn, tpipe.DECODE_WORKERS
+    make_pipeline = train_vae.vae_input_fn
     streams: list[TimedBatches] = []
 
     def timed_train_stream(params, eval=False, **kw):
@@ -6219,46 +6372,70 @@ def run_train_vae(path, *flags, trace=None, threads=None):
         streams.append(TimedBatches(pipeline, trace))
         return streams[-1]
 
-    train_vae.vae_input_fn, tpipe.DECODE_WORKERS = timed_train_stream, threads or workers
+    train_vae.vae_input_fn = timed_train_stream
     try:
         return train_vae.main(["--model", path, *flags, "--gpu_ids", "0"]), streams[-1]
     finally:
-        train_vae.vae_input_fn, tpipe.DECODE_WORKERS = make_pipeline, workers
+        train_vae.vae_input_fn = make_pipeline
 
 
 def vae_datasets(tmp: str, side: int) -> dict:
-    """Seeded JPEG tfrecords: 256 records of ``side``² (the phase's) and 128
-    at COCO sizes (``COCO_SIDES``): {label: pattern}."""
-    return {f"{side}x{side}": write_image_dataset(os.path.join(tmp, "square"), 3, [(side, side)]),
-            "coco": write_image_dataset(os.path.join(tmp, "coco"), 4, COCO_SIDES, per_file=32)}
+    """The VAE phase's records: 256 of ``side``² (``quadrant_dataset``) and
+    128 at COCO sizes (``coco_size_dataset``): {label: pattern}."""
+    return {f"{side}x{side}": quadrant_dataset(os.path.join(tmp, "square"), side),
+            "coco": coco_size_dataset(os.path.join(tmp, "coco"))}
 
 
-def vae_host_data(torch, tmp: str, patterns: dict, threads) -> dict:
-    """The host's image data on each count of decode threads in
-    ``threads`` for each dataset in ``patterns``: ``vae_input_fn``'s images
-    a second alone, then a VAE_DATA_STEPS-step ``train_vae.main`` run's
-    median step and data-wait share over steps VAE_DATA_FROM.. (the time in
-    ``next(data_iter)`` over the step time): {"<label> <threads>": {...}}."""
+POOL_SWEEP = (4, 8, 16)  # decode-pool threads timed alone at COCO sizes
+
+
+def vae_host_data(torch, tmp: str, patterns: dict, arms) -> dict:
+    """The host's image data on each (path, workers) of ``arms``
+    (``decode_path``) for each dataset in ``patterns``: ``vae_input_fn``'s
+    images a second alone, then a VAE_DATA_STEPS-step ``train_vae.main``
+    run's median step and data-wait share over steps VAE_DATA_FROM.. (the
+    time in ``next(data_iter)`` over the step time) and the readers that
+    ran: {"<label> <path> <workers>": {...}}."""
     out = {}
     for label, pattern in patterns.items():
-        for n in threads:
-            path = vae_config(tmp, pattern, f"{label}_{n}", train_steps=VAE_DATA_STEPS,
-                              steps_per_checkpoint=VAE_DATA_STEPS, eval_steps=0)
-            rate = vae_decode_rate(path, n)
-            trainer, stream = run_train_vae(path, "--new", "--yes", threads=n)
+        for path_, n in arms:
+            key = f"{label} {path_} {n}"
+            cfg = vae_config(tmp, pattern, key.replace(" ", "_"), train_steps=VAE_DATA_STEPS,
+                             steps_per_checkpoint=VAE_DATA_STEPS, eval_steps=0)
+            with decode_path(path_, n):
+                rate = vae_decode_rate(cfg)
+                trainer, stream = run_train_vae(cfg, "--new", "--yes")
+            if path_ == "pool":
+                require_native_data(stream.pipeline, f"train_vae data {key}")
             read = range(VAE_DATA_FROM, VAE_DATA_STEPS + 1)
             step_s = [1.0 / trainer.history[s - 1]["steps_per_sec"] for s in read]
-            out[f"{label} {n}"] = dict(
+            out[key] = dict(
                 decode_images_per_s=rate, step_s_median=statistics.median(step_s),
                 data_wait_share=sum(stream.waits[s - 1] for s in read) / sum(step_s),
-                data_wait_s=stream.waits)
+                data_wait_s=stream.waits, reader=stream.pipeline.reader,
+                decoder=stream.pipeline.decoder)
             del trainer
             gc.collect()
             torch.cuda.empty_cache()
-            print(f"train_vae data {label}, {n} decode threads: alone {rate:.1f} images/s; in "
-                  f"training {out[f'{label} {n}']['step_s_median']:.4f} s a step, data wait "
-                  f"{out[f'{label} {n}']['data_wait_share']:.5f} of it", flush=True)
+            print(f"train_vae data {label}, {path_} on {n} threads ({out[key]['reader']} + "
+                  f"{out[key]['decoder']}): alone {rate:.1f} images/s; in training "
+                  f"{out[key]['step_s_median']:.4f} s a step, data wait "
+                  f"{out[key]['data_wait_share']:.5f} of it", flush=True)
     return out
+
+
+def pool_sweep(tmp: str, pattern: str) -> dict:
+    """The decode pool's images a second alone on each count of
+    ``POOL_SWEEP`` threads over ``pattern`` (the host has ``os.cpu_count()``
+    cores): {threads: images/s}."""
+    cfg = vae_config(tmp, pattern, "pool_sweep")
+    rates = {}
+    for n in POOL_SWEEP:
+        with decode_path("pool", n):
+            rates[n] = vae_decode_rate(cfg)
+    print(f"train_vae data: the decode pool alone at COCO sizes, images/s by threads {rates} "
+          f"({os.cpu_count()} cores)", flush=True)
+    return rates
 
 
 def phase_train_vae(torch, card, keep: str | None = None) -> dict:
@@ -6271,15 +6448,22 @@ def phase_train_vae(torch, card, keep: str | None = None) -> dict:
     the same loop), and a second ``main`` resumed from a copy of the
     step-VAE_CKPT checkpoint to VAE_STEPS, which must repeat the unbroken
     run's losses bit for bit (cuDNN's deterministic switch is on in this
-    phase, so no weight gradient is summed in a run-dependent order). Then
-    the host's data on one decode thread and on DECODE_WORKERS, at 256² and
-    at COCO sizes, the tokens pipeline's one thread alone, and the steps
-    run with no sync between them, deterministic switch on and off. With
-    ``keep``, the unbroken run's step-VAE_STEPS checkpoint is copied to
-    ``keep``/checkpoints, a VAE directory for ``phase_train_image``."""
+    phase, so no weight gradient is summed in a run-dependent order). The
+    records are written by ``vae_datasets`` (the port's smoke_data and
+    create_tfrecords) and read through the native library where its
+    toolchain is (``require_native_data``). Then the host's data: the
+    decode pool alone on POOL_SWEEP threads at COCO sizes, and on the pool
+    (POOL_WORKERS threads) and on PIL (DECODE_WORKERS threads), at 256² and
+    at COCO sizes (PIL alone where the library cannot be built), the
+    tokens pipeline's one thread alone, and the steps run with no sync
+    between them, deterministic switch on and off. With ``keep``, the
+    unbroken run's step-VAE_STEPS checkpoint is copied to
+    ``keep``/checkpoints, a VAE directory for ``phase_train_image``, and
+    its 256² records (with their random captions) to ``keep``/records."""
     import PIL  # noqa: PLC0415
 
-    from dalle_mtf_tpu_torch.data.pipeline import DECODE_WORKERS  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.data import native  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.data.pipeline import DECODE_WORKERS, POOL_WORKERS  # noqa: PLC0415
     from dalle_mtf_tpu_torch.models.vae import VAEConfig  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.summaries import read_summaries  # noqa: PLC0415
@@ -6297,7 +6481,8 @@ def phase_train_vae(torch, card, keep: str | None = None) -> dict:
         path = vae_config(tmp, pattern, "whole")
         print(f"train_vae: {VAE_CONFIG} image {cfg.image_size} convblocks {cfg.convblocks} "
               f"tokens {cfg.num_tokens} bf16={cfg.use_bf16} recompute={cfg.recompute_grad}; "
-              f"256 JPEG records of {cfg.image_size}² and 128 of {COCO_SIDES} + config in "
+              f"256 quadrant JPEGs of {cfg.image_size}² and 128 of {COCO_SIDES} through "
+              f"create_tfrecords random and paired --reencode, + config in "
               f"{time.perf_counter() - t0:.1f}s (PIL {PIL.__version__})", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
@@ -6327,6 +6512,7 @@ def phase_train_vae(torch, card, keep: str | None = None) -> dict:
                      for n in ("input_image", "reconstruction_image")}
         if not want_tags <= tags:
             raise AssertionError(f"image summaries {sorted(tags)}, expected {sorted(want_tags)}")
+        require_native_data(stream.pipeline, "train_vae")
         split = vae_device_split(torch, stream.prof, VAE_TRACED, stream.window_s)
         # untimed: the traced steps and the one after, whose next() stops the profiler
         steady = [s for s in range(VAE_TIMED_FROM, VAE_STEPS + 1)
@@ -6334,7 +6520,8 @@ def phase_train_vae(torch, card, keep: str | None = None) -> dict:
         step_s = [1.0 / whole.history[s - 1]["steps_per_sec"] for s in steady]
         data_wait_share = sum(stream.waits[s - 1] for s in steady) / sum(step_s)
         med = statistics.median(step_s)
-        print(f"train_vae: {VAE_STEPS} steps + 2 evals + 2 checkpoints in {wall:.1f}s; losses "
+        print(f"train_vae: {VAE_STEPS} steps + 2 evals + 2 checkpoints in {wall:.1f}s, records "
+              f"read by {stream.pipeline.reader}, decoded by {stream.pipeline.decoder}; losses "
               f"{[round(x, 5) for x in losses]}; evals {evals}; steps {VAE_TRACED_FROM}-"
               f"{VAE_TRACED_FROM + VAE_TRACED - 1} traced: "
               f"{split['traced_wall_ms_per_step']:.1f} ms a step, device busy "
@@ -6344,6 +6531,7 @@ def phase_train_vae(torch, card, keep: str | None = None) -> dict:
             os.makedirs(os.path.join(keep, "checkpoints"), exist_ok=True)
             shutil.copy(os.path.join(whole.ckpt_dir, f"ckpt_{VAE_STEPS}.pt"),
                         os.path.join(keep, "checkpoints"))
+            shutil.copytree(os.path.dirname(pattern), os.path.join(keep, "records"))
         # resume: a second main from a copy of the step-VAE_CKPT checkpoint
         resume = vae_config(tmp, pattern, "resumed")
         os.makedirs(os.path.join(tmp, "resumed", "checkpoints"))
@@ -6365,9 +6553,15 @@ def phase_train_vae(torch, card, keep: str | None = None) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # the pool alone: the one-thread runs (PERF.md) were cut
-        # for the card time of the sharded serving phase
-        host_data = vae_host_data(torch, tmp, patterns, (DECODE_WORKERS,))
+        missing = native.missing_toolchain()
+        if missing is None:
+            sweep = pool_sweep(tmp, patterns["coco"])
+            arms = (("pool", POOL_WORKERS), ("pil", DECODE_WORKERS))
+        else:  # the pool and PIL would be one path: PIL
+            print(f"train_vae data: the native data library cannot be built here ({missing}): "
+                  f"the pool's arms are left out", flush=True)
+            sweep, arms = None, (("pil", DECODE_WORKERS),)
+        host_data = vae_host_data(torch, tmp, patterns, arms)
         tokens_rate = tokens_parse_rate(os.path.join(tmp, "tokens"))
         unsynced = vae_unsynced_ms(torch, path)
         print(f"train_vae: dalle_input_fn alone (tokens, one thread) {tokens_rate:.1f} records/s; "
@@ -6379,12 +6573,15 @@ def phase_train_vae(torch, card, keep: str | None = None) -> dict:
             phase="train_vae", card=card, config=VAE_CONFIG, batch=32,
             image_size=cfg.image_size, convblocks=cfg.convblocks, num_tokens=cfg.num_tokens,
             bf16=cfg.use_bf16, recompute_grad=cfg.recompute_grad, pil=PIL.__version__,
-            data="256 seeded JPEG tfrecords through train_vae.main",
+            data="256 seeded quadrant JPEGs through create_tfrecords random and paired "
+                 "--reencode, through train_vae.main",
+            reader=stream.pipeline.reader, decoder=stream.pipeline.decoder,
+            pool_workers=POOL_WORKERS, pool_images_per_s_by_threads=sweep,
             timing="train_vae.main, log_every 1 (a sync every step), cudnn.deterministic",
             steps_timed=len(step_s), step_s=step_s, step_s_median=med,
             images_per_s=32 / med, **flops, tflops_per_s=tflops,
             mfu=tflops / PEAK_BF16_TFLOPS, peak_gb=peak / 1e9,
-            decode_threads=DECODE_WORKERS, data_wait_share=data_wait_share,
+            pil_threads=DECODE_WORKERS, data_wait_share=data_wait_share,
             data_wait_s=[stream.waits[s - 1] for s in steady],
             first_loss=losses[0], last_loss=losses[-1], evals=evals, resume_bit_equal=True,
             values={k: {n: v[n] for n in ("worst_rel", "worst_grad")} for k, v in values.items()},
@@ -6467,20 +6664,23 @@ def image_values(torch, card) -> dict:
 
 
 def image_train_config(tmp: str, pattern: str, run: str, train_steps: int, vae_dir: str,
-                       **over) -> str:
+                       url: bool = False, **over) -> str:
     """A copy of configs/dalle_coco_synth.json as published (image mode,
     its vae_model vae_coco_synth) over ``pattern``, cut to ``train_steps``
     steps with a checkpoint and an eval at IMAGE_STEPS, every step logged,
-    the frozen VAE restored from ``vae_dir``, in ``tmp/run``; ``over``
-    replaces keys (``dataset``: merged into the dataset)."""
+    the frozen VAE restored from ``vae_dir``, in ``tmp/run`` (a file:// URL
+    with ``url``); ``over`` replaces keys (``dataset``: merged into the
+    dataset)."""
     from dalle_mtf_tpu_torch.utils.config import _resolve_config_path  # noqa: PLC0415
 
     with open(_resolve_config_path(TRAIN_CONFIG)) as f:
         cfg = json.load(f)
     dataset = {**cfg["dataset"], "train_path": pattern, "eval_path": pattern,
                **over.pop("dataset", {})}
+    model_path = os.path.join(tmp, run)
     cfg.update(dataset=dataset, train_steps=train_steps, steps_per_checkpoint=IMAGE_STEPS,
-               eval_steps=1, log_every=1, max_to_keep=1, model_path=os.path.join(tmp, run),
+               eval_steps=1, log_every=1, max_to_keep=1,
+               model_path=f"file://{model_path}" if url else model_path,
                vae_checkpoint_path=vae_dir)
     cfg.update(over)
     path = os.path.join(tmp, f"{run}.json")
@@ -6489,12 +6689,13 @@ def image_train_config(tmp: str, pattern: str, run: str, train_steps: int, vae_d
     return path
 
 
-def run_train_dalle(path, *flags, predict_s: list | None = None):
+def run_train_dalle(path, *flags, predict_s: list | None = None, batch_fn=None):
     """``train_dalle.main`` on config ``path`` (on cuda:0) with its training
     stream wrapped in ``TimedBatches``: (the closed Trainer, the
     TimedBatches). With ``predict_s`` (a list), the seconds of each
     predict at a checkpoint are appended to it (host clock, the images
-    fetched to the host inside)."""
+    fetched to the host inside). With ``batch_fn``, the step is fed
+    ``batch_fn`` of each training batch."""
     from dalle_mtf_tpu_torch import train_dalle  # noqa: PLC0415
 
     make_pipeline = train_dalle.dalle_input_fn
@@ -6515,7 +6716,7 @@ def run_train_dalle(path, *flags, predict_s: list | None = None):
         pipeline = make_pipeline(params, eval=eval, **kw)
         if eval:
             return pipeline
-        streams.append(TimedBatches(pipeline))
+        streams.append(TimedBatches(pipeline, batch_fn=batch_fn))
         return streams[-1]
 
     train_dalle.dalle_input_fn = timed_train_stream
@@ -6613,6 +6814,31 @@ def init_loss_split(torch, path, frozen) -> dict:
                 distinct_image_tokens=int(image.unique().numel()))
 
 
+def rounded_pixels(batch: dict) -> dict:
+    """``batch`` with its f32 pixels rounded by ``to_uint8`` and normalized
+    on the host as PIL's are ((x - 127.5) / 127.5 in f32): what the uint8
+    arm's step computes from its pixels on the card."""
+    import numpy as np  # noqa: PLC0415
+
+    from dalle_mtf_tpu_torch.data.pipeline import to_uint8  # noqa: PLC0415
+
+    return {**batch, "image": (to_uint8(batch["image"]).astype(np.float32) - 127.5) / 127.5}
+
+
+def uint8_reference_loss(decoder: str, f32_first_loss: float, tmp: str, pattern: str,
+                         vae_dir: str) -> tuple[float, str]:
+    """The first loss the uint8 arm must equal bit for bit, and whose it is.
+    PIL's f32 pixels are whole numbers over 127.5, so the f32 arm itself
+    was fed the uint8 arm's pixels. The native pool's are not: then a
+    one-step f32 run from the same init fed ``rounded_pixels`` of each batch
+    gives it."""
+    if decoder != "native pool":
+        return f32_first_loss, "the f32 arm's"
+    path = image_train_config(tmp, pattern, "rounded", 1, vae_dir, eval_steps=0)
+    run, _ = run_train_dalle(path, "--new", "--yes", batch_fn=rounded_pixels)
+    return check_dalle_run(run, [1], [], {}, {})[0], "an f32 run's fed the rounded pixels"
+
+
 def encode_ms(torch, vae, frozen, batch) -> float:
     """Milliseconds of one in-step encode (``encode_tokens`` of a uint8 batch
     normalized on the card) by CUDA events (``cuda_ms``, ENCODE_ITERS)."""
@@ -6628,20 +6854,28 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
     (``image_values``), then configs/dalle_coco_synth.json as published
     (image mode, full width and depth, batch 16, bf16) with the frozen
     vae_coco_synth restored from ``vae_dir`` (the VAE phase's step-30
-    checkpoint) on 256 seeded JPEG + caption tfrecords at 256², through
-    ``train_dalle.main`` for IMAGE_STEPS steps with an eval and a checkpoint
-    and a resumed ``main`` for IMAGE_RESUME more (the first loss taken apart
+    checkpoint) on its 256 seeded quadrant JPEGs of 256² with random
+    captions (``quadrant_dataset``: the port's smoke_data and
+    create_tfrecords; ``vae_dir``/records),
+    through ``train_dalle.main`` for IMAGE_STEPS steps with an eval and a
+    checkpoint and a resumed ``main`` for IMAGE_RESUME more, the records and
+    the model dir given as file:// URLs (fsspec, a read-ahead thread a
+    shard, the native decode pool where it builds) (the first loss taken apart
     by ``init_loss_split``, its log-sum-exp against ln V + var/2; finite
     losses, the packed pair's exact launches and none of the [B, H, S, D]
-    pair); the ``uint8_images`` arm from the same init (its first loss the
-    f32 arm's bit for bit); ``create_tfrecords encode`` over
+    pair); the ``uint8_images`` arm from the same init (its first batch
+    ``to_uint8`` of the f32 arm's bit for bit, its first loss that of an f32
+    run fed the same pixels bit for bit: ``uint8_reference_loss``);
+    ``create_tfrecords encode`` over
     the same records (batch 16) and the share of its tokens that agree with
     the in-step encode (at least 99%); tokens mode on those records from the
     same init (first loss within 1e-3 of image mode's); a profile of two
     steps with the encoder's convs as their own bucket. Prints the
     ``train_image`` line and returns the main path's launches."""
+    import numpy as np  # noqa: PLC0415
+
     from dalle_mtf_tpu_torch.data import create_tfrecords  # noqa: PLC0415
-    from dalle_mtf_tpu_torch.data.pipeline import DECODE_WORKERS, dalle_input_fn  # noqa: PLC0415
+    from dalle_mtf_tpu_torch.data.pipeline import DECODE_WORKERS, dalle_input_fn, to_uint8  # noqa: PLC0415
     from dalle_mtf_tpu_torch.train.tasks import make_dalle_models  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.config import fetch_model_params  # noqa: PLC0415
     from dalle_mtf_tpu_torch.utils.restore import restore_vae_params  # noqa: PLC0415
@@ -6652,12 +6886,12 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
         values = image_values(torch, card)
         dalle, vae = make_dalle_models(fetch_model_params(TRAIN_CONFIG), "cuda")
         cfg, vcfg = dalle.cfg, vae.cfg
-        t0 = time.perf_counter()
-        pattern = write_image_dataset(os.path.join(tmp, "data"), 3,
-                                      [(vcfg.image_size, vcfg.image_size)], captions=True)
-        path = image_train_config(tmp, pattern, "image", IMAGE_STEPS, vae_dir)
-        print(f"train_image: 256 JPEG + caption records of {vcfg.image_size}² + config in "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        pattern = os.path.join(vae_dir, "records", "*.tfrecords")
+        url = f"file://{pattern}"
+        path = image_train_config(tmp, url, "image", IMAGE_STEPS, vae_dir, url=True)
+        print(f"train_image: the VAE phase's 256 quadrant JPEGs of {vcfg.image_size}² with "
+              f"random captions (create_tfrecords random and paired --reencode); train_path "
+              f"{url}, model_path {fetch_model_params(path)['model_path']}", flush=True)
         names = ("causal_attention_packed_fwd", "causal_attention_packed_bwd")
 
         gc.collect()
@@ -6684,6 +6918,15 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
                 or abs(split_init["mean_logsumexp"] - init_loss) > 0.1):
             raise AssertionError(f"first loss {losses[0]}: {split_init} against ln(vocab) + "
                                  f"var/2 = {init_loss}")
+        if not (first.model_dir.startswith("file://") and first.checkpoint_steps() == [IMAGE_STEPS]):
+            raise AssertionError(f"model dir {first.model_dir}: checkpoints "
+                                 f"{first.checkpoint_steps()}")
+        require_native_data(stream.pipeline, "train_image")
+        reader = (stream.pipeline.reader, stream.pipeline.decoder)
+        print(f"train_image: records read by {reader[0]}, decoded by {reader[1]}; checkpoint "
+              f"{first.ckpt_dir}/ckpt_{IMAGE_STEPS}.pt", flush=True)
+        if reader[0] != "python + readahead":
+            raise AssertionError(f"file:// records read by {reader[0]}, not a read-ahead thread")
         timed = range(IMAGE_TIMED_FROM, IMAGE_STEPS + 1)
         step_s = [1.0 / first.history[s - 1]["steps_per_sec"] for s in timed]
         med = statistics.median(step_s)
@@ -6692,7 +6935,8 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
         del first
         gc.collect()
 
-        resume = image_train_config(tmp, pattern, "image", IMAGE_STEPS + IMAGE_RESUME, vae_dir)
+        resume = image_train_config(tmp, url, "image", IMAGE_STEPS + IMAGE_RESUME, vae_dir,
+                                    url=True)
         reset_counts(attn)
         second, _ = run_train_dalle(resume)
         end = IMAGE_STEPS + IMAGE_RESUME
@@ -6709,21 +6953,31 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
 
         u8_path = image_train_config(tmp, pattern, "uint8", UINT8_STEPS, vae_dir, eval_steps=0,
                                      dataset={"uint8_images": True})
+        first_batches = []
+        for p in (path, u8_path):
+            it = iter(dalle_input_fn(fetch_model_params(p)))
+            first_batches.append(next(it)["image"])
+            it.close()
+        f32_batch, u8_batch = first_batches
+        if not np.array_equal(u8_batch, to_uint8(f32_batch)):
+            raise AssertionError("the uint8 arm's first batch is not to_uint8 of the f32 arm's")
         u8, u8_stream = run_train_dalle(u8_path, "--new", "--yes")
         u8_losses = check_dalle_run(u8, list(range(1, UINT8_STEPS + 1)), [], {}, {})
         u8_timed = range(IMAGE_TIMED_FROM, UINT8_STEPS + 1)
         u8_step_s = [1.0 / u8.history[s - 1]["steps_per_sec"] for s in u8_timed]
         u8_wait = sum(u8_stream.waits[s - 1] for s in u8_timed) / sum(u8_step_s)
-        print(f"train_image uint8: losses {[round(x, 4) for x in u8_losses]}; first loss "
-              f"bit-equal to the f32 arm's: {u8_losses[0] == losses[0]}", flush=True)
-        if u8_losses[0] != losses[0]:
-            raise AssertionError(f"uint8 first loss {u8_losses[0]!r} != f32 {losses[0]!r}")
+        ref_loss, ref = uint8_reference_loss(reader[1], losses[0], tmp, pattern, vae_dir)
+        print(f"train_image uint8: losses {[round(x, 4) for x in u8_losses]}; first batch "
+              f"to_uint8 of the f32 arm's; first loss {u8_losses[0]!r} against {ref} "
+              f"{ref_loss!r}", flush=True)
+        if u8_losses[0] != ref_loss:
+            raise AssertionError(f"uint8 first loss {u8_losses[0]!r} != {ref} {ref_loss!r}")
         del u8
         gc.collect()
 
         t0 = time.perf_counter()
         files = create_tfrecords.main([
-            "encode", "--input", pattern, "--out", os.path.join(tmp, "encoded"),
+            "encode", "--input", url, "--out", f"file://{os.path.join(tmp, 'encoded')}",
             "--name", "synth", "--encode-with", VAE_CONFIG, "--vae-checkpoint-path", vae_dir,
             "--batch-size", "16", "--examples-per-file", "64"])
         encode_s = time.perf_counter() - t0
@@ -6769,8 +7023,10 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
         line = dict(
             phase="train_image", card=card, config=TRAIN_CONFIG, vae=VAE_CONFIG, batch=batch_size,
             seq_len=s, n_layers=L, n_embd=e, vocab=v, bf16=cfg.bf_16, vae_bf16=vcfg.use_bf16,
-            data=f"256 seeded JPEG + caption tfrecords at {vcfg.image_size}² through "
-                 "train_dalle.main",
+            data=f"256 seeded quadrant JPEGs of {vcfg.image_size}² with random captions "
+                 "through create_tfrecords random and paired --reencode, from file:// "
+                 "through train_dalle.main",
+            reader=reader[0], decoder=reader[1],
             timing="train_dalle.main, log_every 1 (a sync every step)",
             steps_timed=len(step_s), step_s=step_s, step_s_median=med,
             tokens_per_s=tokens_per_step / med, tflops_per_s=tflops,
@@ -6779,12 +7035,13 @@ def phase_train_image(torch, attn, card, vae_dir: str) -> dict:
             mfu_with_encoder=(tokens_per_step * token_flops / 1e12 + enc_tflop) / med
             / PEAK_BF16_TFLOPS,
             encoder_ms_per_step=enc_ms, peak_mem_gb=peak / 1e9,
-            decode_threads=DECODE_WORKERS, data_wait_share=data_wait_share,
+            pil_threads=DECODE_WORKERS, data_wait_share=data_wait_share,
             data_wait_s=[stream.waits[s_ - 1] for s_ in timed],
             first_loss=losses[0], expected_init_loss=init_loss, init_loss_split=split_init,
             evals=evals,
             uint8_step_s=u8_step_s, uint8_step_s_median=statistics.median(u8_step_s),
-            uint8_data_wait_share=u8_wait, uint8_first_loss_bit_equal=True,
+            uint8_data_wait_share=u8_wait, uint8_first_loss=u8_losses[0],
+            uint8_first_loss_bit_equal_to=ref,
             encode_files=files, encode_s=encode_s, **agreement,
             tokens_first_loss=tok_losses[0], image_first_loss=losses[0], predict=predict,
             values={k: values[k] for k in ("loss_card", "loss_cpu", "worst_grad_rel_l2")},
@@ -6837,9 +7094,13 @@ def main() -> int:
     from dalle_mtf_tpu_torch.ops import attention as attn  # noqa: PLC0415
 
     t0 = time.perf_counter()
-    lib = _build.build()
-    print(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc builds
+        data_lib = pool.submit(native_data_library)
+        lib = _build.build()
+        print(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        data_lib = data_lib.result()
+    print("native data library", json.dumps(data_lib), flush=True)
     phase_s = {"build": time.perf_counter() - t0}
 
     def phase(fn, *args, **kw):

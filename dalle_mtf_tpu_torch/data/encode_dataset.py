@@ -11,18 +11,17 @@ applied when training reads them (``train/tasks.py``), so a tokens-mode
 batch is the image-mode batch.
 
 CLI: ``python -m dalle_mtf_tpu_torch.data.create_tfrecords encode
---encode-with <vae_config> --input '<glob>' --out <dir> --name <name>``.
+--encode-with <vae_config> --input '<glob>' --out <dir or URL> --name <name>``.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 
 import numpy as np
 import torch
 
-from dalle_mtf_tpu_torch.data.fs import list_files
+from dalle_mtf_tpu_torch.data import fs
 from dalle_mtf_tpu_torch.data.pipeline import decode_img
 from dalle_mtf_tpu_torch.data.tfrecord import (
     TFRecordWriter,
@@ -48,13 +47,13 @@ def encode_dataset(
     """Encode every record of ``input_glob`` through ``vae`` (on
     ``vae.device``) and write ``<name>_N.tfrecords`` of ``{tokens, caption}``
     to ``out_dir``, in record order, a new file every ``examples_per_file``
-    records. The last partial batch is padded to ``batch_size`` with copies
+    records (``out_dir`` may be a URL). The last partial batch is padded to ``batch_size`` with copies
     of its last image for the device call, and trimmed after. Returns the
     number of files."""
-    files = list_files(input_glob)
+    files = fs.list_files(input_glob)
     if not files:
         raise FileNotFoundError(f"no input files match {input_glob!r}")
-    os.makedirs(out_dir, exist_ok=True)
+    fs.makedirs(out_dir)
     writer, shard, written, total = None, 0, 0, 0
     images: list[np.ndarray] = []
     captions: list[list[int]] = []
@@ -72,7 +71,7 @@ def encode_dataset(
                 if writer is not None:
                     writer.close()
                     shard += 1
-                writer = TFRecordWriter(os.path.join(out_dir, f"{name}_{shard}.tfrecords"))
+                writer = TFRecordWriter(fs.join(out_dir, f"{name}_{shard}.tfrecords"))
                 written = 0
             writer.write(serialize_example({"tokens": t.tolist(), "caption": cap}))
             written += 1

@@ -7,18 +7,22 @@ record: the same cycle-length interleave over the (seeded, shuffled) file
 list, the same 5x-batch shuffle buffer driven by ``random.Random(seed + 1)``,
 the same drop-remainder batching, and the same deterministic resume
 (``skip_steps``: the shuffle decisions are replayed on record indices and
-the trained prefix is skipped without parsing). Image records (tfrecords or
-a jpg glob) are decoded by PIL (``decode_img``) on a pool of threads, in
-order.
+the trained prefix is skipped without parsing).
 
-Not ported: the native C++ reader and decode pool (records are read in
-Python, images decoded by PIL).
+Where the native library builds (``data/native.py``), local tfrecords are
+read and interleaved on one io_uring, image records are parsed and decoded by
+its C++ pool off the GIL, and ``decode_img`` decodes with libjpeg and a plain
+bilinear resize, as the JAX package does by default. Otherwise, and for
+remote shards, records are read in Python (a remote shard on a read-ahead
+thread of its own, ``data/readahead.py``) and images decoded by PIL on a pool
+of threads. Each pipeline says which path it took (``reader``, ``decoder``).
 """
 
 from __future__ import annotations
 
 import io
 import logging
+import os
 import queue
 import random
 import threading
@@ -28,29 +32,43 @@ from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
 
-from dalle_mtf_tpu_torch.data.fs import list_files, open_file
-from dalle_mtf_tpu_torch.data.tfrecord import parse_example, read_tfrecord_file
+from dalle_mtf_tpu_torch.data import native
+from dalle_mtf_tpu_torch.data.fs import is_remote, list_files, open_file
+from dalle_mtf_tpu_torch.data.native import read_tfrecord_file
+from dalle_mtf_tpu_torch.data.readahead import prefetch_iter
+from dalle_mtf_tpu_torch.data.tfrecord import parse_example
 
 logger = logging.getLogger(__name__)
 
 _SKIP_END = object()  # "record stream ended inside the resume prefix"
-# threads an image pipeline decodes on: one thread cannot keep up with
-# COCO-size photos at batch 32, and each thread more holds the GIL from the
-# training loop's dispatch (chip_smoke.py ``vae_host_data``; PERF.md §5)
+# threads an image pipeline decodes on with PIL: one thread cannot keep up
+# with COCO-size photos at batch 32, and each thread more holds the GIL from
+# the training loop's dispatch (chip_smoke.py ``vae_host_data``; PERF.md §5)
 DECODE_WORKERS = 3
+# C++ threads of the native decode pool, which hold no GIL: the JAX
+# package's ``num_workers``, not yet measured against others on an H100 host
+# (chip_smoke.py ``pool_sweep``; ROADMAP.md)
+POOL_WORKERS = 16
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
-    """Round a normalized f32 image ([-1, 1]) back to uint8 pixels."""
+    """Round a normalized f32 image ([-1, 1]) back to uint8 pixels: the one
+    rounding of ``dataset.uint8_images``, for the native pool and
+    ``decode_img`` alike."""
     return np.clip(np.round(img * 127.5 + 127.5), 0, 255).astype(np.uint8)
 
 
 def decode_img(data: bytes, size: int, channels: int = 3, normalize: bool = True) -> np.ndarray:
     """jpeg bytes -> f32 [size, size, channels] in [-1, 1]: the centered
-    square crop, a bilinear resize and (x - 127.5) / 127.5 (PIL; the JAX
-    package's path without its native decoder). ``normalize=False`` returns
-    the uint8 pixels (``dataset.uint8_images``: the task normalizes on the
-    device with the same expression, so the values are the same)."""
+    square crop, a bilinear resize and (x - 127.5) / 127.5. The native
+    decoder (libjpeg, a plain bilinear resize) where it is available and the
+    bytes are a JPEG, else PIL (whose bilinear filter smooths a downscale).
+    ``normalize=False`` returns uint8 pixels (``dataset.uint8_images``; the
+    task normalizes on the device with the same expression): PIL's own, or
+    ``to_uint8`` of the native decoder's floats."""
+    out = native.decode_img(data, size, channels)
+    if out is not None:
+        return out if normalize else to_uint8(out)
     from PIL import Image  # noqa: PLC0415
 
     img = Image.open(io.BytesIO(data))
@@ -84,9 +102,14 @@ class _Pipeline:
         cycle_length: int = 4,
         skip_samples: int = 0,
         num_workers: int = 1,
+        native_decode: Mapping[str, Any] | None = None,
+        readahead_depth: int | None = None,
     ):
         if not files:
             raise FileNotFoundError("input pipeline got an empty file list")
+        # {"size", "channels", "text_len", "padding_id", "uint8_out"}: the
+        # standard image schema, which the native pool parses and decodes
+        self.native_decode = dict(native_decode) if native_decode else None
         self.files = list(files)
         self.record_iter_fn = record_iter_fn
         self.parse_fn = parse_fn
@@ -99,21 +122,57 @@ class _Pipeline:
         # parallel_interleave(cycle_length=4) (reference input_fns.py:87-92):
         # round-robin over N open files so a shuffle window sees several shards
         self.cycle_length = max(1, cycle_length)
+        # records buffered ahead on each open remote shard's thread
+        if readahead_depth is None:
+            readahead_depth = int(os.environ.get("DALLE_TPU_READAHEAD_DEPTH", "64"))
+        self.readahead_depth = max(1, int(readahead_depth))
+        # the paths the stream took, set when it starts: "io_uring",
+        # "native" or "python" (+ "readahead" over remote shards); "native
+        # pool", "threads" or "this thread"
+        self.reader: str | None = None
+        self.decoder: str | None = None
         self.skip_samples = max(0, int(skip_samples))
         if self.skip_samples and shuffle and not repeat:
             # the resume replay assumes an unbounded stream; a finite shuffled
             # stream ends in a drain phase that the replay cannot reproduce
             raise ValueError("resume skip on a shuffled stream requires repeat=True")
 
+    def _reading(self, reader: str) -> None:
+        if self.reader != reader:
+            logger.info("input pipeline: records read by %s", reader)
+            self.reader = reader
+
+    def _local_reader(self, files: list[str]) -> str:
+        """The reader of a tfrecord file without io_uring: the native one
+        where the library loads and the files are local."""
+        if (self.record_iter_fn is read_tfrecord_file and native.available()
+                and not any(is_remote(f) for f in files)):
+            return "native"
+        return "python"
+
     def _interleaved(self, files: list[str]) -> Iterator[Any]:
         """Round-robin one record at a time across cycle_length open files;
-        an exhausted file is replaced by the next unopened one."""
+        an exhausted file is replaced by the next unopened one. Local
+        tfrecords take the io_uring reader (the same order, every stream's
+        reads in flight at once); a remote shard is read ahead on a thread
+        of its own (``prefetch_iter``: the order unchanged)."""
+        if self.record_iter_fn is read_tfrecord_file:
+            g = native.read_interleaved(files, cycle=self.cycle_length)
+            if g is not None:
+                self._reading("io_uring")
+                yield from g
+                return
+        remote = any(is_remote(f) for f in files)
+        self._reading(self._local_reader(files) + (" + readahead" if remote else ""))
         file_iter = iter(files)
         active: deque = deque()
 
         def refill() -> None:
             for f in file_iter:
-                active.append(self.record_iter_fn(f))
+                it = self.record_iter_fn(f)
+                if is_remote(f):
+                    it = prefetch_iter(it, depth=self.readahead_depth)
+                active.append(it)
                 return
 
         while len(active) < self.cycle_length:
@@ -141,22 +200,38 @@ class _Pipeline:
             if self.cycle_length > 1 and len(files) > 1:
                 yield from self._interleaved(files)
             else:
+                self._reading(self._local_reader(files))
                 for f in files:
                     yield from self.record_iter_fn(f)
             if not self.repeat:
                 return
 
+    def _decoding(self, decoder: str) -> None:
+        if self.decoder != decoder:
+            logger.info("input pipeline: samples parsed by %s", decoder)
+            self.decoder = decoder
+
     def _samples(self, records: Iterator[Any] | None = None) -> Iterator[dict]:
-        """Parsed samples in record order: on this thread, or with
-        ``num_workers`` > 1 on a pool of threads with 2x that many parses in
-        flight (the JAX pipeline's window). Tokens records parse on this
-        thread: one thread parses 20-30x what a DALLE step takes (PERF.md §5),
-        and a pool would only hold the GIL from the training loop."""
+        """Parsed samples in record order: image records of the standard
+        schema by the native pool (``POOL_WORKERS`` C++ threads); otherwise
+        on this thread, or with ``num_workers`` > 1 on a pool of threads
+        with 2x that many parses in flight (the JAX pipeline's window).
+        Tokens records parse on this thread: one thread parses 20-30x what a
+        DALLE step takes (PERF.md §5), and a pool would only hold the GIL
+        from the training loop."""
         if records is None:
             records = self._records()
+        if self.native_decode is not None:
+            g = native.decode_pool_samples(records, workers=POOL_WORKERS, **self.native_decode)
+            if g is not None:
+                self._decoding("native pool")
+                yield from g
+                return
         if self.num_workers <= 1:
+            self._decoding("this thread")
             parsed = map(self.parse_fn, records)
         else:
+            self._decoding("threads")
             parsed = self._parallel(records)
         for sample in parsed:
             if sample is not None:
@@ -320,7 +395,9 @@ def vae_input_fn(
     """Image batches for VAE training (input_fns.py:69-104):
     ``{"image": f32[B, size, size, C] in [-1, 1]}``, or uint8 pixels with
     ``dataset.uint8_images``. Tfrecords (their ``image`` feature) when
-    ``dataset.tfrecords`` is set, else a raw jpg glob. ``shard``: (index,
+    ``dataset.tfrecords`` is set, else a raw jpg glob; tfrecords are parsed
+    and decoded by the native pool where it builds, else (and a glob always)
+    by ``decode_img`` on ``DECODE_WORKERS`` threads. ``shard``: (index,
     count) of this process, which reads files[index::count] and feeds
     1/count of the batch. ``skip_steps``: resume point, that many
     already-trained batches skipped exactly, without decoding them."""
@@ -333,12 +410,15 @@ def vae_input_fn(
     files = _shard_files(list_files(path), shard)
     normalize = not ds.get("uint8_images")
 
+    native_decode = None
     if ds.get("tfrecords"):
         def parse(record: bytes) -> dict:
             ex = parse_example(record)
             return {"image": decode_img(ex["image"][0], size, channels, normalize=normalize)}
 
         read = read_tfrecord_file
+        native_decode = {"size": size, "channels": channels, "text_len": 0, "padding_id": 0,
+                         "uint8_out": not normalize}
     else:
         def read(path_: str):
             yield path_
@@ -350,7 +430,8 @@ def vae_input_fn(
     return _Pipeline(
         files, read, parse, batch, shuffle=not eval, repeat=repeat,
         skip_samples=skip_steps * batch, cycle_length=ds.get("cycle_length") or 4,
-        num_workers=DECODE_WORKERS,
+        num_workers=DECODE_WORKERS, native_decode=native_decode,
+        readahead_depth=ds.get("readahead_depth"),
     )
 
 
@@ -364,7 +445,8 @@ def dalle_input_fn(
     """DALLE batches (input_fns.py:106-120). Image mode: JPEG + caption
     tfrecords become ``{"image": f32[B, size, size, C] in [-1, 1] (uint8
     pixels with ``dataset.uint8_images``), "caption": i32[B,
-    text_seq_len]}``, decoded on ``DECODE_WORKERS`` threads; the trainer's
+    text_seq_len]}``, decoded by the native pool (else on ``DECODE_WORKERS``
+    threads with PIL); the trainer's
     frozen VAE tokenizes the images. Tokens mode (``dataset.tokens: true``):
     records carry ``{tokens: int64 list, caption: int64 list}``
     (``data/encode_dataset.py``) and batches are ``{"tokens": i32[B,
@@ -390,7 +472,7 @@ def dalle_input_fn(
             ex = parse_example(record)
             return {"tokens": np.asarray(ex["tokens"], np.int32), "caption": _caption(ex)}
 
-        workers = 1
+        workers, native_decode = 1, None
     else:
         size = ds["image_size"]
         channels = params.get("n_channels") or 3
@@ -402,10 +484,13 @@ def dalle_input_fn(
                     "caption": _caption(ex)}
 
         workers = DECODE_WORKERS
+        native_decode = {"size": size, "channels": channels, "text_len": text_seq_len,
+                         "padding_id": padding_id, "uint8_out": not normalize}
     return _Pipeline(
         files, read_tfrecord_file, parse, batch,
         shuffle=not eval, repeat=repeat,
         skip_samples=skip_steps * batch,
         cycle_length=ds.get("cycle_length") or 4,
-        num_workers=workers,
+        num_workers=workers, native_decode=native_decode,
+        readahead_depth=ds.get("readahead_depth"),
     )

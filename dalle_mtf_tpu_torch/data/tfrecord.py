@@ -1,6 +1,8 @@
 """Self-contained TFRecord + tf.train.Example I/O (copy of
 ``dalle_mtf_tpu/data/tfrecord.py``, which is JAX-free; importing it from the
-JAX package would run that package's ``__init__``, which imports JAX).
+JAX package would run that package's ``__init__``, which imports JAX). The
+framing's crc32c is a Python loop eight bytes a step (slicing-by-8), with
+the JAX package's values.
 
 The reference reads/writes TFRecord files of tf.train.Example protos with
 ``{"image": bytes, "caption": int64 list}`` features (create_tfrecords.py:
@@ -21,28 +23,39 @@ import numpy as np
 
 # ------------------------------------------------------------------- crc32c
 
-_CRC_TABLE = None
+_CRC_TABLES = None
 
 
-def _crc_table():
-    global _CRC_TABLE
-    if _CRC_TABLE is None:
-        poly = 0x82F63B78  # Castagnoli, reflected
-        table = np.zeros(256, np.uint32)
+def _crc_tables() -> list[list[int]]:
+    """crc32c's slicing-by-8 tables (Castagnoli, reflected): table k maps a
+    byte to its crc followed by k zero bytes."""
+    global _CRC_TABLES
+    if _CRC_TABLES is None:
+        poly = 0x82F63B78
+        t0 = []
         for i in range(256):
             crc = i
             for _ in range(8):
                 crc = (crc >> 1) ^ (poly if crc & 1 else 0)
-            table[i] = crc
-        _CRC_TABLE = table
-    return _CRC_TABLE
+            t0.append(crc)
+        tables = [t0]
+        for _ in range(7):
+            tables.append([(c >> 8) ^ t0[c & 0xFF] for c in tables[-1]])
+        _CRC_TABLES = tables
+    return _CRC_TABLES
 
 
 def crc32c(data: bytes) -> int:
-    table = _crc_table()
+    t0, t1, t2, t3, t4, t5, t6, t7 = _crc_tables()
     crc = 0xFFFFFFFF
-    for b in data:
-        crc = (crc >> 8) ^ int(table[(crc ^ b) & 0xFF])
+    n = len(data) - len(data) % 8
+    words = np.frombuffer(data, "<u4", count=n // 4).tolist()
+    for a, b in zip(words[0::2], words[1::2]):
+        a ^= crc
+        crc = (t7[a & 0xFF] ^ t6[(a >> 8) & 0xFF] ^ t5[(a >> 16) & 0xFF] ^ t4[a >> 24]
+               ^ t3[b & 0xFF] ^ t2[(b >> 8) & 0xFF] ^ t1[(b >> 16) & 0xFF] ^ t0[b >> 24])
+    for byte in data[n:]:
+        crc = (crc >> 8) ^ t0[(crc ^ byte) & 0xFF]
     return crc ^ 0xFFFFFFFF
 
 

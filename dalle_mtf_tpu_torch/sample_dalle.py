@@ -12,7 +12,8 @@ Over the ranks of a tensor-parallel mesh, started by ``torch.distributed.run``:
         -m dalle_mtf_tpu_torch.sample_dalle --model dalle_coco --text "..."
 
 The DALLE weights are the latest ``ckpt_<step>.pt`` under
-``<model_path>/checkpoints`` (what ``train_dalle`` writes); the VAE is
+``<model_path>/checkpoints`` (what ``train_dalle`` writes; ``model_path`` may
+be a URL, gs:// or memory://, whose file is read whole); the VAE is
 restored as ``train_dalle`` restores it (``vae_checkpoint_path``, else the
 VAE config's ``model_path``). The weights are cast or quantized for decoding
 as the server does (``serve_dalle.decode_weights``), the batch of ``--n``
@@ -44,6 +45,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from dalle_mtf_tpu_torch.data import fs
 from dalle_mtf_tpu_torch.data.tokenizer import get_tokenizer, pad_or_truncate
 from dalle_mtf_tpu_torch.parallel.tensor import block_to
 from dalle_mtf_tpu_torch.sample import generate_image_tokens
@@ -93,7 +95,7 @@ def load_dalle_params(params, dalle) -> dict:
     steps = checkpoint_steps(d)
     if not steps:
         raise FileNotFoundError(f"no DALLE checkpoint under {params['model_path']}")
-    obj = checkpoint.read(os.path.join(d, f"ckpt_{steps[-1]}.pt"))
+    obj = checkpoint.read(fs.join(d, f"ckpt_{steps[-1]}.pt"))
     tree = nest(obj["params"])
     try:
         _check(tree, dalle.param_shapes(whole=True))

@@ -39,7 +39,9 @@ restores. Kept from the JAX loop:
 - a data stream that runs out between checkpoints saves its tail.
 
 Checkpoints are files in ``torch.save``'s format,
-``<model_dir>/checkpoints/ckpt_<step>.pt``, holding the step, its save time
+``<model_dir>/checkpoints/ckpt_<step>.pt`` (a ``model_dir`` that is a URL,
+gs:// or memory://, is kept as given and written through fsspec:
+``data/fs.py``), holding the step, its save time
 (``now()``, seconds since the epoch: the retention reads it back after a
 restart), the parameter tree and the optimizer state (under
 ``skip_nonfinite_updates``, with the skip state of
@@ -74,6 +76,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dalle_mtf_tpu_torch.data import fs
 from dalle_mtf_tpu_torch.parallel.mesh import BATCH, parse_layout
 from dalle_mtf_tpu_torch.parallel.tensor import all_reduce, block_to, broadcast, gather_to_host
 from dalle_mtf_tpu_torch.train.optim import get_optimizer, named_leaves
@@ -114,10 +117,17 @@ def num_microbatches(
 
 
 def checkpoint_steps(ckpt_dir: str) -> list[int]:
-    """The steps of the ``ckpt_<step>.pt`` files in ``ckpt_dir``, ascending."""
-    if not os.path.isdir(ckpt_dir):
-        return []
-    return sorted(int(m.group(1)) for f in os.listdir(ckpt_dir) if (m := _CKPT.fullmatch(f)))
+    """The steps of the ``ckpt_<step>.pt`` files in ``ckpt_dir`` (a path or
+    a URL), ascending."""
+    return sorted(int(m.group(1)) for f in fs.listdir(ckpt_dir) if (m := _CKPT.fullmatch(f)))
+
+
+def model_dir_path(model_dir: str) -> str:
+    """``model_dir`` made absolute, or as given where it is a URL (gs://...:
+    the JAX trainer hands those to orbax untouched)."""
+    if fs.is_remote(model_dir):
+        return model_dir
+    return os.path.abspath(os.path.expanduser(model_dir))
 
 
 def now() -> float:
@@ -188,7 +198,7 @@ class Trainer:
         self.init_fn = init_fn
         self.loss_fn = loss_fn
         self.eval_loss_fn = eval_loss_fn or loss_fn
-        self.model_dir = os.path.abspath(os.path.expanduser(model_dir))
+        self.model_dir = model_dir_path(model_dir)
         self.device = torch.device(device)
         self.frozen_params = frozen_params
         self.batch_size = params["train_batch_size"]
@@ -338,7 +348,7 @@ class Trainer:
 
     @property
     def ckpt_dir(self) -> str:
-        return os.path.join(self.model_dir, "checkpoints")
+        return fs.join(self.model_dir, "checkpoints")
 
     def checkpoint_steps(self) -> list[int]:
         return checkpoint_steps(self.ckpt_dir)
@@ -391,8 +401,8 @@ class Trainer:
                 "opt_state": state["opt"].state_dict(leaf),
             }
             if self.rank == 0:
-                os.makedirs(self.ckpt_dir, exist_ok=True)
-                checkpoint.write(os.path.join(self.ckpt_dir, f"ckpt_{step}.pt"), tree)
+                fs.makedirs(self.ckpt_dir)
+                checkpoint.write(fs.join(self.ckpt_dir, f"ckpt_{step}.pt"), tree)
                 self._stamps[step] = stamp
                 self._retire()
             else:
@@ -404,19 +414,19 @@ class Trainer:
         """Delete the checkpoints ``kept_checkpoints`` does not keep. The
         save times count only with ``keep_checkpoint_every_n_hours`` set,
         and only then are those of files a run did not write read back (a
-        file without one is judged by its mtime); unset, the newest
-        ``max_to_keep`` stay."""
+        local file without one is judged by its mtime; every checkpoint
+        under a URL has one); unset, the newest ``max_to_keep`` stay."""
         steps = self.checkpoint_steps()
         if self.keep_interval_s is not None:
             for s in sorted(set(steps) - set(self._stamps)):
-                path = os.path.join(self.ckpt_dir, f"ckpt_{s}.pt")
+                path = fs.join(self.ckpt_dir, f"ckpt_{s}.pt")
                 stamp = checkpoint.read(path).get("time")
                 self._stamps[s] = os.path.getmtime(path) if stamp is None else stamp
         keep = kept_checkpoints([(s, self._stamps.get(s, 0.0)) for s in steps], self.max_to_keep,
                                 self.keep_interval_s)
         for old, kept in zip(steps, keep):
             if not kept:
-                os.unlink(os.path.join(self.ckpt_dir, f"ckpt_{old}.pt"))
+                fs.remove(fs.join(self.ckpt_dir, f"ckpt_{old}.pt"))
 
     def _block(self, t: torch.Tensor, split) -> torch.Tensor:
         """This rank's block of a mapped whole leaf (``split``: its
@@ -432,7 +442,7 @@ class Trainer:
         if not steps:
             return state
         self.restored_bytes = 0
-        obj = checkpoint.read(os.path.join(self.ckpt_dir, f"ckpt_{steps[-1]}.pt"))
+        obj = checkpoint.read(fs.join(self.ckpt_dir, f"ckpt_{steps[-1]}.pt"))
         with torch.no_grad():
             for path, t in named_leaves(state["params"]):
                 t.copy_(self._block(obj["params"]["/".join(path)], self._placed(path)))

@@ -8,7 +8,10 @@ as a ``Lazy`` leaf, fetched only at its turn and let go once written, so
 the writer holds one leaf at a time (a sharded leaf is gathered to the
 writer then: ``parallel/tensor.py::gather_to_host``). ``read`` maps the
 file (``torch.load(mmap=True)``): its tensors are views of the file's
-pages, and copying a block out of one reads only that block.
+pages, and copying a block out of one reads only that block. A checkpoint
+under a URL (gs://, file://, memory://: ``data/fs.py``) is streamed to a
+temporary object as it is written, moved into place once it is whole, and
+read whole.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import tempfile
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from dalle_mtf_tpu_torch.data import fs
 
 
 class Lazy(NamedTuple):
@@ -100,8 +105,9 @@ def _skeleton(obj, leaves: list):
 def write(path: str | None, tree: Any) -> None:
     """Write ``tree`` (dicts, lists and tuples of plain values, tensors and
     Lazy leaves) to ``path`` atomically (a temporary file in its directory,
-    then a rename), fetching each Lazy at its turn. With ``path`` None only
-    the fetches run, in the same order (a rank taking part in the writer's
+    or ``<path>.tmp`` at a URL, then a rename: a write cut short leaves no
+    ``path``), fetching each Lazy at its turn. With ``path`` None only the
+    fetches run, in the same order (a rank taking part in the writer's
     gathers)."""
     leaves: list = []
     skeleton = _skeleton(tree, leaves)
@@ -113,10 +119,8 @@ def write(path: str | None, tree: Any) -> None:
     buf = io.BytesIO()
     _Pickler(buf, protocol=2).dump(skeleton)
     data = buf.getvalue()
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".", suffix=".tmp")
-    os.close(fd)
-    try:
-        writer = torch._C.PyTorchFileWriter(tmp)
+
+    def records(writer) -> None:
         writer.write_record("data.pkl", data, len(data))
         writer.write_record("byteorder", sys.byteorder, len(sys.byteorder))
         for rec, fetch, _lazy in leaves:
@@ -131,6 +135,22 @@ def write(path: str | None, tree: Any) -> None:
             writer.write_record(f"data/{rec.key}", storage, storage.nbytes())
             del t, storage
         writer.write_end_of_file()
+
+    if fs.is_remote(path):
+        tmp = path + ".tmp"
+        try:
+            with fs.open_file(tmp, "wb") as f:
+                records(torch._C.PyTorchFileWriter(f))
+            fs.move(tmp, path)
+        finally:
+            if fs.exists(tmp):
+                fs.remove(tmp)
+        return
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".", suffix=".tmp")
+    os.close(fd)
+    try:
+        writer = torch._C.PyTorchFileWriter(tmp)
+        records(writer)
         del writer
         os.replace(tmp, path)
     finally:
@@ -139,6 +159,9 @@ def write(path: str | None, tree: Any) -> None:
 
 
 def read(path: str) -> Any:
-    """The checkpoint at ``path`` with its tensors mapped from the file
-    (``torch.load(mmap=True)``, CPU)."""
+    """The checkpoint at ``path`` (CPU): its tensors mapped from a local
+    file (``torch.load(mmap=True)``), a URL's object read whole."""
+    if fs.is_remote(path):
+        with fs.open_file(path, "rb") as f:
+            return torch.load(io.BytesIO(f.read()), map_location="cpu", weights_only=True)
     return torch.load(path, map_location="cpu", mmap=True, weights_only=True)

@@ -1,17 +1,20 @@
-"""Logging + model-dir management (copy of
-``dalle_mtf_tpu/utils/logging_utils.py``, local model dirs only).
+"""Logging + model-dir management (port of
+``dalle_mtf_tpu/utils/logging_utils.py``).
 
 setup_logging mirrors the reference (utils/utils.py:184-195): a
 logs/<config>.log file plus stdout. remove_model_dir is the interactive
-``--new`` wipe (utils/utils.py:40-52).
+``--new`` wipe (utils/utils.py:40-52), of a local directory or a URL's
+objects (gs://, memory://: ``data/fs.py``; JAX runs ``gsutil rm -rf`` on
+gs:// alone).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import shutil
 import sys
+
+from dalle_mtf_tpu_torch.data import fs
 
 
 def setup_logging(config_name: str, log_dir: str = "logs", rank: int = 0) -> logging.Logger:
@@ -52,7 +55,4 @@ def remove_model_dir(model_dir: str, interactive: bool = True):
         if answer.strip().lower() not in ("y", "yes"):
             print("aborting")
             sys.exit(0)
-    if "://" in model_dir:
-        raise NotImplementedError(f"remote model dirs are not ported yet: {model_dir}")
-    if os.path.isdir(model_dir):
-        shutil.rmtree(model_dir)
+    fs.remove_tree(model_dir)

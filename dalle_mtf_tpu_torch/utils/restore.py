@@ -5,8 +5,8 @@ encoder).
 
 The port's VAE checkpoints are ``train_vae``'s files in ``torch.save``'s
 format, ``<model_path>/checkpoints/ckpt_<step>.pt`` (``Trainer.save``: the
-whole tree under ``"params"`` with ``/``-joined keys); the latest is
-restored. A VAE
+whole tree under ``"params"`` with ``/``-joined keys; ``model_path`` may be
+a URL); the latest is restored. A VAE
 trained by the JAX package comes across as an ``.npz`` in
 ``utils/convert.py::save_npz``'s format (``tools/export_vae_npz.py`` writes
 one from its orbax checkpoint), given in place of the directory.
@@ -15,20 +15,16 @@ one from its orbax checkpoint), given in place of the directory.
 from __future__ import annotations
 
 import logging
-import os
 
-import torch
-
-from dalle_mtf_tpu_torch.data.fs import is_remote
-from dalle_mtf_tpu_torch.train.trainer import checkpoint_steps
-from dalle_mtf_tpu_torch.utils import convert
+from dalle_mtf_tpu_torch.data import fs
+from dalle_mtf_tpu_torch.train.trainer import checkpoint_steps, model_dir_path
+from dalle_mtf_tpu_torch.utils import checkpoint, convert
 
 logger = logging.getLogger(__name__)
 
 
 def _ckpt_dir(model_dir: str) -> str:
-    d = model_dir if "://" in model_dir else os.path.abspath(os.path.expanduser(model_dir))
-    return os.path.join(d, "checkpoints")
+    return fs.join(model_dir_path(model_dir), "checkpoints")
 
 
 def restore_vae_params(vae, vae_dir: str) -> dict:
@@ -42,14 +38,12 @@ def restore_vae_params(vae, vae_dir: str) -> dict:
         tree, where = convert.load_npz(vae_dir), vae_dir
     else:
         d = _ckpt_dir(vae_dir)
-        if is_remote(d):
-            raise NotImplementedError(f"remote paths are not ported yet: {d}")
         steps = checkpoint_steps(d)
         if not steps:
             raise FileNotFoundError(f"no VAE checkpoint found under {vae_dir} — train the VAE first")
-        obj = torch.load(os.path.join(d, f"ckpt_{steps[-1]}.pt"), map_location=vae.device,
-                         weights_only=True)
-        tree, where = convert.nest(obj["params"]), f"{vae_dir} @ step {steps[-1]}"
+        obj = checkpoint.read(fs.join(d, f"ckpt_{steps[-1]}.pt"))
+        tree = convert.nest({k: v.to(vae.device) for k, v in obj["params"].items()})
+        where = f"{vae_dir} @ step {steps[-1]}"
     want = vae.param_shapes()
     try:
         convert._check(tree, want)

@@ -5,18 +5,19 @@ TensorBoard scalar events. The JAX writer goes through TensorFlow; here the
 event file is written directly (TFRecord framing of ``Event`` protos, with
 the codec of ``data/tfrecord.py``), because importing TensorBoard's own
 writer loads TensorFlow and, with it, JAX. Images are ``Summary.Image``
-values holding PNG bytes (``utils/png.py``).
+values holding PNG bytes (``utils/png.py``). A model dir that is a URL
+(gs://, memory://) takes its event file through fsspec (``data/fs.py``).
 """
 
 from __future__ import annotations
 
-import os
 import socket
 import struct
 import time
 
 import numpy as np
 
+from dalle_mtf_tpu_torch.data import fs
 from dalle_mtf_tpu_torch.data.tfrecord import (
     TFRecordWriter,
     _len_delim,
@@ -60,9 +61,9 @@ class MetricsWriter:
 
     def _file(self) -> TFRecordWriter:
         if self._writer is None:
-            os.makedirs(self.logdir, exist_ok=True)
+            fs.makedirs(self.logdir)
             name = f"events.out.tfevents.{int(time.time())}.{socket.gethostname()}"
-            self._writer = TFRecordWriter(os.path.join(self.logdir, name))
+            self._writer = TFRecordWriter(fs.join(self.logdir, name))
             # Event.file_version (3): what TensorBoard reads first
             self._writer.write(_event(0, _len_delim(3, b"brain.Event:2")))
         return self._writer
@@ -114,10 +115,10 @@ def read_summaries(logdir: str) -> list[tuple[int, str, object]]:
     ``logdir``, in file order: a float for a scalar, (height, width,
     colorspace, PNG bytes) for an image."""
     out = []
-    for name in sorted(os.listdir(logdir)):
+    for name in sorted(fs.listdir(logdir)):
         if not name.startswith("events.out.tfevents"):
             continue
-        for rec in read_tfrecord_file(os.path.join(logdir, name), verify_crc=True):
+        for rec in read_tfrecord_file(fs.join(logdir, name), verify_crc=True):
             event = dict(_fields(rec))
             for field, value in _fields(event.get(5, b"")):
                 if field != 1:

@@ -17,8 +17,9 @@ carried across as numpy through ``utils/convert.py``:
 - ``train_dalle.main --device cpu`` in image mode end to end with a resume,
   and one image-mode step on a ``data:1,seq:2`` gloo mesh.
 
-JAX is held to its PIL decode (``dalle_mtf_tpu.data.native.get_lib``
-returns None here, as in tests/test_torch_vae_data.py). Tolerances, as in
+Both packages are held to their PIL decode (each one's
+``data.native.get_lib`` returns None here, as in
+tests/test_torch_vae_data.py). Tolerances, as in
 tests/test_torch_train.py: losses and metrics atol 1e-5, grads within 1e-4
 of each leaf's largest |grad| (the same fp32 math summed in another order);
 tokens, records and the port's own mode-to-mode comparisons exact.
@@ -39,6 +40,7 @@ import torch
 from dalle_mtf_tpu.data import native as jnative
 from dalle_mtf_tpu.data import pipeline as jpipe
 from dalle_mtf_tpu.train import tasks as jtasks
+from dalle_mtf_tpu_torch.data import native as tnative
 from dalle_mtf_tpu_torch.data import pipeline as tpipe
 from dalle_mtf_tpu_torch.data import tfrecord as ttfr
 from dalle_mtf_tpu_torch.train import tasks as ttasks
@@ -66,6 +68,7 @@ def _params(n_layers=1, **over):
 @pytest.fixture(autouse=True)
 def jax_pil_path(monkeypatch):
     monkeypatch.setattr(jnative, "get_lib", lambda: None)
+    monkeypatch.setattr(tnative, "get_lib", lambda: None)
 
 
 def _models(n_layers=1):
@@ -253,7 +256,7 @@ def test_encode_cli_restores_an_npz_and_writes_the_records(tmp_path):
     for i in range(2):
         name = f"tok_{i}.tfrecords"
         assert (tmp_path / "cli" / name).read_bytes() == (tmp_path / "direct" / name).read_bytes()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(SystemExit):  # paired needs its jsonl, --name and --out
         create_tfrecords.main(["paired"])
 
 

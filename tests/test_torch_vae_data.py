@@ -4,10 +4,11 @@ seeded JPEGs written with PIL: decoded images and whole batches bit-equal,
 in tfrecords and jpg-glob modes, normalized and uint8, train (shuffled) and
 eval, per-process shards, and a resume that skips trained batches.
 
-The JAX package is held to its PIL path: ``dalle_mtf_tpu.data.native.get_lib``
-returns None in every test here, so no test builds or loads the native
-library (its decoder rounds differently, and its build is not this file's
-to run)."""
+Both packages are held to their PIL path: ``dalle_mtf_tpu.data.native.get_lib``
+and ``dalle_mtf_tpu_torch.data.native.get_lib`` return None in every test
+here, so no test builds or loads either native library (its decoder resizes
+differently, and JAX's build is not this file's to run). The native path is
+tests/test_torch_native.py's."""
 
 import io
 import os
@@ -17,6 +18,7 @@ import pytest
 
 from dalle_mtf_tpu.data import native as jnative
 from dalle_mtf_tpu.data import pipeline as jpipe
+from dalle_mtf_tpu_torch.data import native as tnative
 from dalle_mtf_tpu_torch.data import pipeline as tpipe
 from dalle_mtf_tpu_torch.data import tfrecord as ttfr
 
@@ -24,6 +26,7 @@ from dalle_mtf_tpu_torch.data import tfrecord as ttfr
 @pytest.fixture(autouse=True)
 def jax_pil_path(monkeypatch):
     monkeypatch.setattr(jnative, "get_lib", lambda: None)
+    monkeypatch.setattr(tnative, "get_lib", lambda: None)
 
 
 def _jpeg(rng, h, w) -> bytes:
